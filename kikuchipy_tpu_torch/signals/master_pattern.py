@@ -1,0 +1,162 @@
+"""EBSD master pattern and dictionary generation.
+
+PyTorch counterpart of ``EBSDMasterPattern`` in
+``kikuchipy_tpu/signals/master_pattern.py``: square-Lambert hemispheres
+(held on the host) projected onto a detector in batches on the device.
+The stereographic projection, plotting and the other master-pattern
+methods wait (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
+from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+from kikuchipy_tpu_torch.projection.master_pattern import (
+    direction_cosines_from_detector,
+    project_patterns,
+    quad_texture,
+)
+from kikuchipy_tpu_torch.signals.ebsd import EBSD
+from kikuchipy_tpu_torch.utils.device import resolve_device
+from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, torch_dtype
+
+__all__ = ["EBSDMasterPattern"]
+
+
+@dataclasses.dataclass(repr=False)
+class EBSDMasterPattern:
+    """EBSD master pattern.
+
+    Attributes
+    ----------
+    data
+        ``(npy, npx)`` for one hemisphere or ``(2, npy, npx)`` for both
+        (upper first); an extra leading energy axis is allowed.
+    phase
+        The crystal :class:`Phase`.
+    hemisphere
+        "upper", "lower" or "both".
+    projection
+        Only "lambert" (square Lambert) is ported.
+    energies
+        Optional accelerating voltages (kV), one per energy bin.
+    device
+        Where patterns are projected; ``None`` is the card.
+    """
+
+    data: np.ndarray
+    phase: Phase = dataclasses.field(default_factory=Phase)
+    hemisphere: str = "both"
+    projection: str = "lambert"
+    energies: np.ndarray | None = None
+    metadata: dict = dataclasses.field(default_factory=dict)
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.data = np.asarray(self.data)
+
+    def _hemispheres_at_energy(self, energy: float | None = None) -> np.ndarray:
+        """Packed hemispheres ``(2, npy, npx)`` at ``energy`` (the highest
+        if not given)."""
+        data = self.data
+        if data.ndim == 2:
+            data = data[None, None]
+        elif data.ndim == 3:
+            data = data[None] if self.hemisphere == "both" else data[:, None]
+        elif data.ndim != 4:
+            raise ValueError(f"Cannot interpret master pattern shape {data.shape}")
+        if self.energies is not None and energy is not None:
+            i = int(np.abs(np.asarray(self.energies) - energy).argmin())
+        else:
+            i = data.shape[0] - 1
+        sel = data[i]
+        if sel.shape[0] == 1:
+            sel = np.concatenate([sel, sel], axis=0)
+        return sel
+
+    def get_patterns(
+        self,
+        rotations: np.ndarray,
+        detector: EBSDDetector,
+        energy: float | None = None,
+        dtype_out=np.float32,
+        chunk_size: int = 1024,
+    ) -> EBSD:
+        """Project simulated patterns for unit quaternions ``(n, 4)`` (or
+        ``(ny, nx, 4)``) onto ``detector`` (one PC, or one per rotation).
+
+        Integer ``dtype_out`` (any dtype other than the master's) rescales
+        each pattern to the dtype range, as in the reference kikuchipy.
+        Returns an :class:`EBSD` on this pattern's device with an ``xmap``
+        holding the rotations.
+        """
+        if self.projection != "lambert":
+            raise ValueError("Master pattern must be in the square Lambert projection")
+        rotations = np.asarray(rotations)
+        nav_shape = rotations.shape[:-1]
+        rot_flat = rotations.reshape(-1, 4)
+        n = rot_flat.shape[0]
+        if detector.navigation_size not in (1, n):
+            raise ValueError(
+                "detector must have exactly one projection center, or as "
+                f"many as there are rotations ({n}); it has "
+                f"{detector.navigation_size}"
+            )
+
+        dev = self.device
+        master = self._hemispheres_at_energy(energy)
+        dtype_out = np.dtype(dtype_out)
+        rescale = dtype_out != master.dtype
+        out_min, out_max = get_dtype_range(dtype_out) if rescale else (0.0, 1.0)
+
+        npy, npx = master.shape[-2:]
+        scale = (npx - 1) / 2
+        master_dev = torch.as_tensor(master, dtype=torch.float32, device=dev)
+        quad = quad_texture(master_dev)
+        dc = direction_cosines_from_detector(detector, device=dev)
+        rot_dev = torch.as_tensor(rot_flat, dtype=torch.float32, device=dev)
+
+        sig_shape = detector.shape
+        out = torch.empty((n,) + sig_shape, dtype=torch_dtype(dtype_out), device=dev)
+        per_pc = dc.ndim == 3
+        for start in range(0, n, chunk_size):
+            end = min(start + chunk_size, n)
+            block = project_patterns(
+                rot_dev[start:end],
+                dc[start:end] if per_pc else dc,
+                master_dev,
+                npx,
+                npy,
+                scale,
+                rescale=rescale,
+                out_min=float(out_min),
+                out_max=float(out_max),
+                quad=quad,
+            )
+            out[start:end] = block.reshape((end - start,) + sig_shape).to(out.dtype)
+
+        xmap = CrystalMap(
+            rotations=rot_flat,
+            shape=nav_shape if nav_shape else (1,),
+            phases=PhaseList(self.phase),
+        )
+        return EBSD(
+            data=out.reshape(nav_shape + sig_shape),
+            detector=detector,
+            xmap=xmap,
+            device=dev,
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"{type(self).__name__}(shape={self.data.shape}, "
+            f"phase={self.phase.name!r}, hemisphere={self.hemisphere!r}, "
+            f"projection={self.projection!r})"
+        )

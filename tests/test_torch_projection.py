@@ -1,0 +1,157 @@
+"""The port's geometry and master-pattern projection against the JAX
+package: quaternions, the Lambert projection, detector direction
+cosines, interpolation weights and projected patterns, within 1e-5 (f32
+transcendental functions differ in the last bits between frameworks)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kikuchipy_tpu.geometry import lambert as jl
+from kikuchipy_tpu.geometry import quaternion as jq
+from kikuchipy_tpu.geometry.detector import EBSDDetector as JDetector
+from kikuchipy_tpu.projection import master_pattern as jmp
+from kikuchipy_tpu_torch import interop
+from kikuchipy_tpu_torch.geometry import lambert as tl
+from kikuchipy_tpu_torch.geometry import quaternion as tq
+from kikuchipy_tpu_torch.projection import master_pattern as tmp
+
+ATOL = 1e-5
+
+
+def _unit_quats(n, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+
+def _unit_vectors(n, seed=1):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    # poles, equator, square edges and corners
+    special = np.array(
+        [[0, 0, 1], [0, 0, -1], [1, 0, 0], [0, 1, 0], [1, 1, 0], [-1, 1, 0],
+         [1, 1, 1], [0, 1, 1e-3]],
+        dtype=np.float32,
+    )
+    special /= np.linalg.norm(special, axis=1, keepdims=True)
+    return np.concatenate([v, special])
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_quaternion_functions():
+    q1, q2 = _unit_quats(64, 0), _unit_quats(64, 1)
+    v = _unit_vectors(64)[:64]
+    np.testing.assert_allclose(
+        tq.rotate_vector(_t(q1), _t(v)).numpy(), np.asarray(jq.rotate_vector(jnp.asarray(q1), jnp.asarray(v))), atol=ATOL
+    )
+    np.testing.assert_allclose(
+        tq.multiply(_t(q1), _t(q2)).numpy(), np.asarray(jq.multiply(jnp.asarray(q1), jnp.asarray(q2))), atol=ATOL
+    )
+    np.testing.assert_allclose(tq.conjugate(_t(q1)).numpy(), np.asarray(jq.conjugate(jnp.asarray(q1))), atol=0)
+    eul = np.random.default_rng(3).uniform(0, [2 * np.pi, np.pi, 2 * np.pi], size=(64, 3)).astype(np.float32)
+    eul[0] = [0.3, 0.0, 0.0]  # gimbal lock
+    q = tq.from_euler(_t(eul))
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq.from_euler(jnp.asarray(eul))), atol=ATOL)
+    np.testing.assert_allclose(
+        tq.to_euler(q).numpy(), np.asarray(jq.to_euler(jnp.asarray(q.numpy()))), atol=1e-4
+    )
+
+
+def test_lambert_round_trip_and_parity():
+    v = _unit_vectors(256)
+    xy = tl.vector_to_lambert(_t(v))
+    np.testing.assert_allclose(xy.numpy(), np.asarray(jl.vector_to_lambert(jnp.asarray(v))), atol=ATOL)
+    grid = np.stack(np.meshgrid(np.linspace(-1, 1, 21), np.linspace(-1, 1, 21)), -1).reshape(-1, 2)
+    grid = grid.astype(np.float32)
+    back = tl.lambert_to_vector(_t(grid))
+    np.testing.assert_allclose(back.numpy(), np.asarray(jl.lambert_to_vector(jnp.asarray(grid))), atol=ATOL)
+    # vector -> lambert -> vector on the upper hemisphere
+    up = v[v[:, 2] > 0.05]
+    rt = tl.lambert_to_vector(tl.vector_to_lambert(_t(up)) / tl.SQRT_PI_HALF)
+    np.testing.assert_allclose(rt.numpy(), up, atol=1e-5)
+
+
+def _detectors():
+    single = JDetector(shape=(12, 16), pc=(0.42, 0.28, 0.5), sample_tilt=70, tilt=5)
+    multi = JDetector(
+        shape=(8, 8), pc=np.array([[0.4, 0.3, 0.5], [0.5, 0.5, 0.6], [0.45, 0.2, 0.55]]),
+        sample_tilt=70, px_size=2.0, binning=2,
+    )
+    tsl = JDetector(shape=(10, 10), pc=(0.5, 0.7, 0.6), convention="tsl")
+    return [single, multi, tsl]
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2])
+def test_direction_cosines_from_detector(idx):
+    jd = _detectors()[idx]
+    td = interop.detector_from_state(jd.shape, jd.pc, jd.sample_tilt, jd.tilt, jd.px_size, jd.binning)
+    np.testing.assert_array_equal(td.pc, jd.pc)
+    np.testing.assert_allclose(td.gnomonic_bounds, jd.gnomonic_bounds, rtol=0, atol=0)
+    ref = np.asarray(jmp.direction_cosines_from_detector(jd))
+    got = tmp.direction_cosines_from_detector(td).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("scale", [5.0, 7.0])
+def test_lambert_interpolation_weights(scale):
+    # scale 5 on an 11-pixel grid is the real case; scale 7 puts points
+    # outside the Lambert square, where the clamp keeps the taps exact.
+    v = _unit_vectors(300)
+    ref = jmp.lambert_interpolation_weights(jnp.asarray(v), 11, 11, scale)
+    got = tmp.lambert_interpolation_weights(_t(v), 11, 11, scale)
+    for r, g in zip(ref[:4], got[:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(ref[4]), atol=ATOL)
+    if scale == 7.0:
+        assert (got[0].numpy() > 10).any()
+    np.testing.assert_allclose(got[4].sum(-1).numpy(), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+@pytest.mark.parametrize("multi_pc", [False, True])
+def test_project_patterns(rescale, multi_pc):
+    rng = np.random.default_rng(7)
+    master = rng.random((2, 21, 21)).astype(np.float32)
+    rot = _unit_quats(3, 5)
+    jd = _detectors()[1 if multi_pc else 0]
+    dc = jmp.direction_cosines_from_detector(jd)
+    ref = jmp.project_patterns(jnp.asarray(rot), dc, jnp.asarray(master), 21, 21, 10.0, rescale=rescale)
+    got = tmp.project_patterns(_t(rot), _t(np.asarray(dc)), _t(master), 21, 21, 10.0, rescale=rescale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def test_get_patterns_matches_jax():
+    from kikuchipy_tpu.signals.master_pattern import EBSDMasterPattern as JMP
+
+    rng = np.random.default_rng(8)
+    data = rng.random((2, 31, 31)).astype(np.float32)
+    jd = _detectors()[0]
+    rot = _unit_quats(5, 9).astype(np.float64)
+    ref = JMP(data=data).get_patterns(rot, jd, dtype_out=np.uint8)
+    tmp_mp = interop.master_pattern_from_state(data, device="cpu")
+    td = interop.detector_from_state(jd.shape, jd.pc, jd.sample_tilt, jd.tilt)
+    got = tmp_mp.get_patterns(rot, td, dtype_out=np.uint8, chunk_size=2)
+    diff = np.abs(got.data.numpy().astype(int) - np.asarray(ref.data).astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.05
+    np.testing.assert_array_equal(got.xmap.rotations, ref.xmap.rotations)
+
+
+@pytest.mark.parametrize("convention", ["tsl", "oxford", "emsoft4", "emsoft5", "bruker"])
+def test_detector_pc_conventions(convention):
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector as TDetector
+
+    pc = np.array([[0.45, 0.62, 0.58], [10.0, -20.0, 15000.0]])[1 if "emsoft" in convention else 0]
+    kw = dict(shape=(40, 50), pc=pc, px_size=70.0, binning=2, sample_tilt=69.5, tilt=3.0, convention=convention)
+    jd, td = JDetector(**kw), TDetector(**kw)
+    np.testing.assert_array_equal(td.pc, jd.pc)
+    for conv in ("tsl", "oxford", "emsoft4", "emsoft5"):
+        np.testing.assert_array_equal(td.pc_in_convention(conv), jd.pc_in_convention(conv))
+    np.testing.assert_array_equal(td.sample_to_detector, jd.sample_to_detector)
+    np.testing.assert_array_equal(td.pc_average, jd.pc_average)
