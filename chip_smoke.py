@@ -1,16 +1,23 @@
-"""Drive kikuchipy_tpu_torch's main path once on a CUDA card and check it.
+"""Drive kikuchipy_tpu_torch's paths once on a CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one output line each (the last two lines are the kernel table
-and the device check):
+Phases, one output line each (the last three lines are the kernel table,
+the card's name and power limit, and the device check):
 
 1. device: ``nvidia-smi`` name and power limit, and torch's device name;
-2. build: every kernel under ``kikuchipy_tpu_torch/csrc`` with ``nvcc``;
-3. each kernel against its plain PyTorch version on the card, on small
-   cases with planted ties and on a slab at the main-path shape: scores
-   and indices must agree bit for bit;
-4. the main path at full size, from a seed: a synthetic m-3m master
+2. build: every kernel under ``kikuchipy_tpu_torch/csrc`` with ``nvcc``,
+   one process per source, all started together;
+3. int8 kernel against its plain version, bit for bit: small cases with
+   planted ties, the repairs (k of 130 and 512, groups of 3, 256 and 512,
+   fewer candidates than k ending in float32-min slots), the "fori" and
+   "none" extractions, and a slab at the main-path shape;
+4. f32 and bf16 kernels against their plain versions (float64 sums)
+   modulo near-ties (``ncc_topk.near_tie_disagreements``, tol 1e-5 on
+   unit-norm rows): planted duplicate rows in column order, ragged d,
+   k of 5, 40 and 130, every extraction, then a 1024-row slab of the main
+   path's own prepared rows;
+5. the main path at full size, from a seed: a synthetic m-3m master
    pattern (401 x 401 per hemisphere), a 60 x 60 detector, a 2-degree
    fundamental-zone dictionary (107,129 orientations), a 128 x 128 uint8
    scan at known orientations -> static and dynamic background removal
@@ -18,12 +25,28 @@ and the device check):
    "pallas-int8", keep_n=20)`` -> ``CrystalMap``. Checks: the kernel ran,
    top-1 equals the exact ``"highest"`` tier wherever the exact top-1/
    top-2 gap exceeds 1e-4, and the orientations are recovered (median
-   disorientation < 3 degrees, > 90% under 8 degrees);
-5. times from CUDA events after a warm-up, beside the card's name and
-   power limit.
+   disorientation < 3 degrees, > 90% under 8 degrees); then keep_n=65,
+   which carries k=130 candidates through the kernel;
+6. the fused-kernel entry points at full size: the main path's prepared
+   scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
+   through each of the four wrappers at k=40, every launch counter > 0,
+   top-1 (int8: after an exact rescore of its k candidates) equal to the
+   exact tier's on clear-gap patterns, recovery, and every row against
+   the plain versions (f32/bf16 modulo near-ties, int8 bit for bit);
+7. ``dictionary_indexing`` at every tier (high, default, f16, mixed,
+   int8; approx_topk False and True) and one fused
+   ``dictionary_index(project_fn=mp.projector(det), precision="f16",
+   approx_topk=True)`` call: top-1 against the exact tier, recovery, ms;
+8. times from CUDA events after a warm-up, beside the card's name and
+   power limit: each kernel at the main-path shape with its bound, its
+   plain version and a library yardstick; then a breakdown of one
+   pallas-int8 indexing call.
 
-Exits non-zero without a CUDA device, when run outside a checkout of the
-repository, or when any check fails. Imports nothing of JAX.
+Each path is driven with every launch counter set to 0 just before it
+and read just after; a kernel's ``launches`` in the table is summed over
+the paths that run it. Exits non-zero without a CUDA device, when run
+outside a checkout of the repository, or when any check fails. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,10 +60,21 @@ from pathlib import Path
 
 import numpy as np
 
-# Card peaks for the bound (H100 SXM data sheet, dense): int8 tensor-core
-# operations per second and device-memory bytes per second.
+# Card peaks for the bound (H100 SXM data sheet, dense): int8 and bf16
+# tensor-core operations per second, f32 FMA outside the tensor cores, and
+# device-memory bytes per second.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Largest f32 summation-order difference between a float kernel and its
+# float64-sum plain version on unit-norm rows.
+NEAR_TIE_TOL = 1e-5
+DI_TIERS = ("high", "default", "f16", "mixed", "int8")
+# Clear-gap thresholds for top-1 against the exact tier: the selection
+# rounding each tier can make.
+TOP1_GAP = {"f32": 1e-4, "int8": 1e-4, "mixed": 1e-4, "bf16": 4e-3, "f16": 5e-4,
+            "high": 2e-3, "default": 2e-3}
 
 SCAN_SIDE = 128
 DETECTOR_SHAPE = (60, 60)
@@ -59,9 +93,9 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
@@ -132,12 +166,14 @@ def scan_data(mp, det, truth: np.ndarray, seed: int, chunk_size: int):
 
 
 def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
-    """Kernel-vs-plain cases: small ones with planted ties (group 1 and
-    8) and a 1024-row slab at the main-path shape. Returns the slab's
-    max |score difference|."""
+    """int8 kernel-vs-plain cases, bit for bit: small ones with planted
+    ties, the repairs of k > 128, of groups that do not divide a
+    128-candidate chunk and of short candidate lists, the "fori" and
+    "none" extractions, and a 1024-row slab at the main-path shape.
+    Returns the slab's max |score difference| and the number of cases."""
     import torch
 
-    from kikuchipy_tpu_torch.ops.ncc_topk import ncc_match_topk_int8, ncc_match_topk_int8_plain
+    from kikuchipy_tpu_torch.ops.ncc_topk import EMPTY_SCORE, ncc_match_topk_int8, ncc_match_topk_int8_plain
 
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -153,20 +189,39 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
         return e.to(device), w.to(device), sc.to(device)
 
     cases = [
-        (64, 256, 128, 5, 8, 32, 1),
-        (64, 256, 128, 5, 8, 32, 8),
-        (100, 640, 3600, k, 4, 128, 1),
-        (128, 1024, 200, k, 8, 512, 8),
-        (72, 96, 48, 70, 8, 32, 4),
+        (64, 256, 128, 5, 8, 32, 1, "stream"),
+        (64, 256, 128, 5, 8, 32, 8, "stream"),
+        (100, 640, 3600, k, 4, 128, 1, "stream"),
+        (128, 1024, 200, k, 8, 512, 8, "stream"),
+        (72, 96, 48, 70, 8, 32, 4, "stream"),
+        # repairs: k above 128 (keep_n=65 carries 130), groups of 3, 256
+        # and 512, and lists shorter than k (float32-min slots)
+        (256, 2048, 3600, 130, 8, 512, 1, "stream"),
+        (128, 2048, 300, 512, 8, 512, 4, "stream"),
+        (128, 192, 100, 70, 8, 96, 3, "stream"),
+        (128, 1024, 100, 5, 8, 512, 256, "stream"),
+        (128, 1024, 100, 3, 8, 512, 512, "stream"),
+        (128, 256, 64, 20, 128, 128, 16, "stream"),
+        # the other extractions
+        (128, 1024, 200, k, 8, 512, 8, "fori"),
+        (128, 1024, 200, k, 8, 512, 1, "none"),
     ]
-    for n, m, dd, kk, tile_n, tile_m, group in cases:
+    short_lists = 0
+    for n, m, dd, kk, tile_n, tile_m, group, extraction in cases:
         e, w, sc = operands(n, m, dd)
-        s1, i1 = ncc_match_topk_int8(e, w, sc, kk, tile_n, tile_m, group)
+        s1, i1 = ncc_match_topk_int8(e, w, sc, kk, tile_n, tile_m, group, extraction)
         torch.cuda.synchronize()
-        s2, i2 = ncc_match_topk_int8_plain(e, w, sc, kk, tile_m, group)
+        s2, i2 = ncc_match_topk_int8_plain(e, w, sc, kk, tile_m, group, extraction)
         torch.cuda.synchronize()
         if not (torch.equal(s1, s2) and torch.equal(i1, i2)):
-            raise AssertionError(f"kernel != plain at n={n} m={m} d={dd} k={kk} group={group}")
+            raise AssertionError(f"kernel != plain at n={n} m={m} d={dd} k={kk} group={group} {extraction}")
+        n_cand = m // group if extraction == "stream" else m
+        if extraction != "none" and n_cand < kk:
+            if not ((s1[:, n_cand:] == EMPTY_SCORE).all() and (i1[:, n_cand:] == 0).all()):
+                raise AssertionError(f"slots past {n_cand} candidates are not (float32-min, 0)")
+            short_lists += 1
+    if short_lists < 3:
+        raise AssertionError("the short-list cases did not run")
     slab = operands(1024, m_main, d)
     s1, i1 = ncc_match_topk_int8(*slab, k, 512, 512, 1)
     torch.cuda.synchronize()
@@ -175,6 +230,84 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
     if not (torch.equal(s1, s2) and torch.equal(i1, i2)):
         raise AssertionError(f"kernel != plain on the 1024 x {m_main} x {d} slab")
     return float((s1 - s2).abs().max()), len(cases) + 1
+
+
+def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
+    """f32 (v1, v3) and bf16 (v4) kernels against their float64-sum plain
+    versions modulo near-ties: small unit-norm cases with planted
+    duplicate dictionary rows (exact ties in column order), ragged d, k of
+    5, 40 and 130 and every extraction, then a 1024-row slab of the main
+    path's own prepared rows. Returns the number of cases and the slab's
+    max |slot score difference| per kernel."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import ncc_topk as nt
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    planted = (3, 5, 40)
+
+    def operands(n, m, dd):
+        e = torch.randn((n, dd), generator=g)
+        w = torch.randn((m, dd), generator=g)
+        w[list(planted[1:])] = w[planted[0]].clone()
+        e, w = e / e.norm(dim=1, keepdim=True), w / w.norm(dim=1, keepdim=True)
+        return e.to(device), w.to(device)
+
+    kernels = {
+        "f32": (lambda e, w, kk, tm: nt.ncc_match_topk_f32(e, w, kk, 8, tm), torch.float32),
+        "f32_blocked": (lambda e, w, kk, tm: nt.ncc_match_topk_f32_blocked(e, w, kk, 8, tm, 128), torch.float32),
+        "bf16_fori": (lambda e, w, kk, tm: nt.ncc_match_topk_bf16(e, w, kk, 8, tm, "fori"), torch.bfloat16),
+        "bf16_stream": (lambda e, w, kk, tm: nt.ncc_match_topk_bf16(e, w, kk, 8, tm, "stream"), torch.bfloat16),
+    }
+
+    def plain(rounding, e, w, kk, tm):
+        if rounding == torch.bfloat16:
+            return nt.ncc_match_topk_bf16_plain(e, w, kk, tm)
+        return nt.ncc_match_topk_f32_plain(e, w, kk)
+
+    def check(name, e, w, kk, tm, rows_planted):
+        fn, rounding = kernels[name]
+        s, i = fn(e, w, kk, tm)
+        torch.cuda.synchronize()
+        ref_s, ref_i = plain(rounding, e, w, kk + 1, tm)
+        bad = nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, NEAR_TIE_TOL, rows_planted, rounding)
+        if bad:
+            raise AssertionError(f"{name} kernel != plain at n={e.shape[0]} m={w.shape[0]} d={e.shape[1]} k={kk}: {bad}")
+        return float((s - ref_s[:, :kk]).abs().max())
+
+    n_cases = 0
+    for n, m, dd, kk, tm in [(64, 512, 100, 5, 128), (128, 2048, 3600, 40, 512), (64, 1024, 301, 130, 512)]:
+        e, w = operands(n, m, dd)
+        for name in kernels:
+            check(name, e, w, kk, tm, planted)
+            n_cases += 1
+    # "none": slot 0 is the last tile's row maximum, the rest empty.
+    e, w = operands(64, 1024, 300)
+    s, i = nt.ncc_match_topk_bf16(e, w, 5, 8, 512, "none")
+    ref, _ = nt.ncc_match_topk_bf16_plain(e, w, 5, 512, "none")
+    if not ((s[:, 0] - ref[:, 0]).abs().max() <= NEAR_TIE_TOL and torch.equal(s[:, 1:], ref[:, 1:]) and (i == 0).all()):
+        raise AssertionError("bf16 'none' differs from its plain version")
+    n_cases += 1
+    slab_err = {name: check(name, exp_rows[:1024], dict_rows, k, 512, ()) for name in kernels}
+    return n_cases + len(kernels), slab_err
+
+
+# ------------------------- launch counters ------------------------- #
+
+WRAPPERS = ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8")
+
+
+def reset_launches() -> None:
+    from kikuchipy_tpu_torch.ops import ncc_topk as nt
+
+    for name in WRAPPERS:
+        getattr(nt, name).launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    from kikuchipy_tpu_torch.ops import ncc_topk as nt
+
+    return {name: getattr(nt, name).launches for name in WRAPPERS}
 
 
 # ----------------------------- timing ----------------------------- #
@@ -219,10 +352,16 @@ def main(argv=None) -> int:
         sample_fundamental_zone,
         super_fibonacci,
     )
-    from kikuchipy_tpu_torch.indexing.di import _quantize_rows_int8, _rescore_candidates, topk_stable
+    from kikuchipy_tpu_torch.indexing.di import (
+        PreparedDictionary,
+        _quantize_rows_int8,
+        _rescore_candidates,
+        topk_stable,
+    )
     from kikuchipy_tpu_torch.indexing.metrics import get_metric
     from kikuchipy_tpu_torch.ops import _build
-    from kikuchipy_tpu_torch.ops.ncc_topk import ncc_match_topk_int8, ncc_match_topk_int8_plain
+    from kikuchipy_tpu_torch.ops import ncc_topk as nt
+    from kikuchipy_tpu_torch.utils.device import matmul_precision
     from kikuchipy_tpu_torch.projection.master_pattern import (
         direction_cosines_from_detector,
         project_patterns,
@@ -235,9 +374,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    regs = {n: [ln.split(":", 1)[1].strip() for ln in log_.splitlines() if "registers" in ln][:1]
-            for n, log_ in _build.BUILD_LOG.items()}
-    log("build", f"{sorted(built)} in {time.perf_counter() - t0:.1f} s; ptxas {regs}")
+    ptxas = {}
+    for name, text in _build.BUILD_LOG.items():
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in text.splitlines() if "registers" in ln]
+        frames = [ln for ln in text.splitlines() if "stack frame" in ln]
+        spilled = [ln for ln in frames if not ln.startswith("0 bytes stack frame, 0 bytes spill stores")]
+        ptxas[name] = f"max {max(regs, default=0)} registers, {len(spilled)}/{len(frames)} kernels with stack or spills"
+    log("build", f"{sorted(built)} in {time.perf_counter() - t0:.1f} s; ptxas {ptxas}")
 
     # ---- inputs (seeded) ----
     t0 = time.perf_counter()
@@ -259,21 +402,22 @@ def main(argv=None) -> int:
     log("inputs", f"scan {tuple(scan.data.shape)} uint8, dictionary {m} orientations (m_main {m_main}), "
         f"master {mp.data.shape}, seed {args.seed}, {time.perf_counter() - t0:.1f} s")
 
-    # ---- kernel vs plain on the card ----
+    # ---- int8 kernel vs plain on the card ----
     max_err, n_cases = kernel_cases(dev, args.seed, m_main, d, k_carry)
     log("kernel-check", f"ncc_topk_int8 == plain bit for bit on {n_cases} cases "
-        f"(1024 x {m_main} x {d} slab, k={k_carry}); max |score diff| {max_err}")
+        f"(k up to 512, groups 1-512, short lists, fori/none; 1024 x {m_main} x {d} slab, k={k_carry}); "
+        f"max |score diff| {max_err}")
 
     # ---- main path ----
-    ncc_match_topk_int8.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     pre = scan.remove_static_background().remove_dynamic_background()
     dictionary = mp.get_patterns(dict_rot, det, chunk_size=8192)
     xmap = pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
     torch.cuda.synchronize()
-    launches = ncc_match_topk_int8.launches
+    main_launches = read_launches()
     t_main = time.perf_counter() - t0
-    if launches < 1:
+    if main_launches["ncc_match_topk_int8"] < 1:
         raise AssertionError("the main path did not launch ncc_topk_int8")
     scores = xmap.prop["scores"]
     idx = xmap.prop["simulation_indices"]
@@ -283,52 +427,179 @@ def main(argv=None) -> int:
     exact = pre.dictionary_indexing(dictionary, keep_n=2, precision="highest")
     ex_s = exact.prop["scores"]
     ex_i = exact.prop["simulation_indices"]
-    clear = (ex_s[:, 0] - ex_s[:, 1]) > 1e-4
-    agree = idx[:, 0] == ex_i[:, 0]
-    if not agree[clear].all():
-        raise AssertionError(f"pallas-int8 top-1 differs from highest on {int((~agree[clear]).sum())} clear patterns")
-    ang = np.degrees(disorientation_angle(truth, dict_rot[idx[:, 0]], "m-3m"))
-    med, frac8 = float(np.median(ang)), float((ang < 8).mean())
-    if not (med < 3.0 and frac8 > 0.9):
-        raise AssertionError(f"orientations not recovered: median {med:.3f} deg, <8 deg {frac8:.4f}")
-    log("main-path", f"{n_scan} patterns x {m} dictionary, pallas-int8 keep_n={KEEP_N}: kernel launches {launches}; "
-        f"top-1 == highest on {int(clear.sum())}/{n_scan} clear-gap patterns (overall agreement "
-        f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}; "
+
+    def top1_check(name: str, top1: np.ndarray, gap: float, ref_s=ex_s, ref_i=ex_i) -> str:
+        clear = (ref_s[:, 0] - ref_s[:, 1]) > gap
+        agree = top1 == ref_i[:, 0]
+        if not agree[clear].all():
+            raise AssertionError(f"{name}: top-1 differs from highest on {int((~agree[clear]).sum())} clear patterns")
+        ang = np.degrees(disorientation_angle(truth, dict_rot[top1], "m-3m"))
+        med, frac8 = float(np.median(ang)), float((ang < 8).mean())
+        if not (med < 3.0 and frac8 > 0.9):
+            raise AssertionError(f"{name}: orientations not recovered: median {med:.3f} deg, <8 deg {frac8:.4f}")
+        return (f"top-1 == highest on {int(clear.sum())}/{n_scan} patterns with gap > {gap:g} (overall "
+                f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}")
+
+    log("main-path", f"{n_scan} patterns x {m} dictionary, pallas-int8 keep_n={KEEP_N}: kernel launches "
+        f"{main_launches['ncc_match_topk_int8']}; {top1_check('pallas-int8', idx[:, 0], TOP1_GAP['int8'])}; "
         f"first run {t_main:.2f} s")
+
+    # keep_n = 65 carries k = 130 candidates through the kernel.
+    reset_launches()
+    wide = pre.dictionary_indexing(dictionary, keep_n=65, precision="pallas-int8")
+    wide_launches = read_launches()["ncc_match_topk_int8"]
+    w_s = wide.prop["scores"]
+    if w_s.shape != (n_scan, 65) or not np.isfinite(w_s).all() or wide_launches < 1:
+        raise AssertionError(f"keep_n=65 through pallas-int8: shape {w_s.shape}, launches {wide_launches}")
+    if not (np.diff(w_s, axis=1) <= 0).all() or not np.array_equal(wide.prop["simulation_indices"][:, 0], idx[:, 0]):
+        raise AssertionError("keep_n=65 through pallas-int8 is unsorted or changes top-1")
+    log("keep_n-65", f"dictionary_indexing(keep_n=65, pallas-int8): kernel at k=130, launches {wide_launches}, "
+        f"scores descending, top-1 equal to keep_n={KEEP_N}")
+
+    # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
+    metric = get_metric("ncc")
+    exp_prep = metric.prepare(pre.data)
+    prep = kt.prepare_dictionary(dictionary.data, quantize=True, device=dev)
+    dict_main = prep.prepared[:m_main]
+    q_all, s_all = prep.quantized_int8()
+    dict_q_main, dict_s_main = q_all[:m_main], s_all[:m_main]
+    exp_q, _ = _quantize_rows_int8(exp_prep)
+    n_float, slab_err = float_kernel_cases(dev, args.seed, exp_prep, dict_main, k_carry)
+    log("float-check", f"f32, f32_blocked, bf16 fori/stream == plain modulo near-ties (tol {NEAR_TIE_TOL:g}) on "
+        f"{n_float} cases incl. the 1024 x {m_main} x {d} slab of prepared rows, k={k_carry}; "
+        f"slab max |slot score diff| {slab_err}")
+
+    entry = {
+        "ncc_match_topk_f32": lambda: nt.ncc_match_topk_f32(exp_prep, dict_main, k_carry, 256, 512),
+        "ncc_match_topk_f32_blocked": lambda: nt.ncc_match_topk_f32_blocked(
+            exp_prep, dict_main, k_carry, 512, 512, 128),
+        "ncc_match_topk_bf16": lambda: nt.ncc_match_topk_bf16(exp_prep, dict_main, k_carry, 512, 512),
+        "ncc_match_topk_int8": lambda: nt.ncc_match_topk_int8(exp_q, dict_q_main, dict_s_main, k_carry, 512, 512),
+    }
+    reset_launches()
+    entry_out = {}
+    for name, fn in entry.items():
+        entry_out[name] = fn()
+    torch.cuda.synchronize()
+    entry_launches = read_launches()
+    if any(entry_launches[name] < 1 for name in entry):
+        raise AssertionError(f"an entry point did not launch its kernel: {entry_launches}")
+    exact_main = kt.dictionary_index(
+        pre.data, PreparedDictionary(prepared=dict_main, mask_hash=0), keep_n=2, precision="highest", device=dev)
+    entry_msgs = []
+    for name, (s_k, i_k) in entry_out.items():
+        gap = TOP1_GAP["bf16" if "bf16" in name else "f32"]
+        if name == "ncc_match_topk_int8":
+            # int8 selection is approximate: rescore its k candidates
+            # exactly first, as the pallas-int8 tier does.
+            i_k = _rescore_candidates(exp_prep, dict_main, i_k, 1)[1]
+        msg = top1_check(name, i_k[:, 0].cpu().numpy(), gap, exact_main.scores, exact_main.simulation_indices)
+        entry_msgs.append(f"{name}: {msg}")
+    log("entry-points", f"{n_scan} x {m_main} x {d}, k={k_carry}: launches {entry_launches}; " + "; ".join(entry_msgs))
+
+    # The float kernels against their plain versions on all 16,384 rows.
+    full_err = {}
+    for name, rounding in (("ncc_match_topk_f32", torch.float32), ("ncc_match_topk_f32_blocked", torch.float32),
+                           ("ncc_match_topk_bf16", torch.bfloat16)):
+        s_k, i_k = entry_out[name]
+        if rounding == torch.bfloat16:
+            ref_s, ref_i = nt.ncc_match_topk_bf16_plain(exp_prep, dict_main, k_carry + 1, 512)
+        else:
+            ref_s, ref_i = nt.ncc_match_topk_f32_plain(exp_prep, dict_main, k_carry + 1)
+        bad = nt.near_tie_disagreements(s_k, i_k, ref_s, ref_i, exp_prep, dict_main, NEAR_TIE_TOL, (), rounding)
+        if bad:
+            raise AssertionError(f"{name} != plain on the main path's own rows: {bad}")
+        full_err[name] = float((s_k - ref_s[:, :k_carry]).abs().max())
+        del ref_s, ref_i
+    s_k, i_k = entry_out["ncc_match_topk_int8"]
+    s_p, i_p = nt.ncc_match_topk_int8_plain(exp_q, dict_q_main, dict_s_main, k_carry, 512)
+    if not (torch.equal(s_k, s_p) and torch.equal(i_k, i_p)):
+        raise AssertionError("kernel != plain on the main path's own operands")
+    full_err["ncc_match_topk_int8"] = float((s_k - s_p).abs().max())
+    log("entry-plain", f"all {n_scan} rows against the plain versions (float kernels modulo near-ties, int8 bit "
+        f"for bit): max |slot score diff| {full_err}")
+
+    # ---- dictionary_indexing at every tier, and the fused projector call ----
+    tier_msgs, tier_ms = [], {}
+    for tier in DI_TIERS:
+        for approx in (False, True):
+            label = f"{tier}{'+approx' if approx else ''}"
+            res = pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision=tier, approx_topk=approx)
+            r_s, r_i = res.prop["scores"], res.prop["simulation_indices"]
+            if r_s.shape != (n_scan, KEEP_N) or not np.isfinite(r_s).all():
+                raise AssertionError(f"{label}: bad output {r_s.shape}")
+            tier_msgs.append(f"{label}: {top1_check(label, r_i[:, 0], TOP1_GAP[tier])}")
+            tier_ms[label] = cuda_ms(lambda: pre.dictionary_indexing(
+                dictionary, keep_n=KEEP_N, precision=tier, approx_topk=approx), 1)
+    fused_kw = dict(keep_n=KEEP_N, precision="f16", approx_topk=True, device=dev)
+    fused = kt.dictionary_index(pre.data, project_fn=mp.projector(det), rotations=dict_rot, **fused_kw)
+    if fused.scores.shape != (n_scan, KEEP_N) or not np.isfinite(fused.scores).all():
+        raise AssertionError(f"fused project_fn call: bad output {fused.scores.shape}")
+    tier_msgs.append(f"project_fn f16+approx: {top1_check('project_fn', fused.simulation_indices[:, 0], TOP1_GAP['f16'])}")
+    tier_ms["project_fn f16+approx"] = cuda_ms(
+        lambda: kt.dictionary_index(pre.data, project_fn=mp.projector(det), rotations=dict_rot, **fused_kw), 1)
+    log("di-tiers", "; ".join(tier_msgs))
+    log("di-times", f"{smi}: " + "; ".join(
+        f"{label} {ms:.3f} ms = {n_scan / ms * 1e3:.1f} patterns/s" for label, ms in tier_ms.items()))
 
     # ---- times ----
     ms_pre = cuda_ms(lambda: scan.remove_static_background().remove_dynamic_background(), 5)
     ms_proj = cuda_ms(lambda: mp.get_patterns(dict_rot, det, chunk_size=8192), 2)
-    metric = get_metric("ncc")
-    exp_q, _ = _quantize_rows_int8(metric.prepare(pre.data))
-    dict_q, dict_scale = _quantize_rows_int8(metric.prepare(dictionary.data))
-    kq, ks = dict_q[:m_main].contiguous(), dict_scale[:m_main].contiguous()
-    ms_kernel = cuda_ms(lambda: ncc_match_topk_int8(exp_q, kq, ks, k_carry, 512, 512), 5)
-    ms_plain = cuda_ms(lambda: ncc_match_topk_int8_plain(exp_q, kq, ks, k_carry, 512), 1)
-    ms_lib = cuda_ms(lambda: torch._int_mm(exp_q, kq.T), 5)
-    s_k, i_k = ncc_match_topk_int8(exp_q, kq, ks, k_carry, 512, 512)
-    s_p, i_p = ncc_match_topk_int8_plain(exp_q, kq, ks, k_carry, 512)
-    if not (torch.equal(s_k, s_p) and torch.equal(i_k, i_p)):
-        raise AssertionError("kernel != plain on the main path's own operands")
-    full_err = float((s_k - s_p).abs().max())
-    ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     n_ops = 2.0 * n_scan * m_main * d
-    n_bytes = n_scan * d + m_main * d + 4 * m_main + n_scan * k_carry * 8
-    t_ops, t_bytes = n_ops / PEAK_INT8_OPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
+    out_bytes = n_scan * k_carry * 8
+    kernels = [
+        # name, replaces (pallas_di.py line), source stem, peak, operand bytes, reps, plain, library
+        ("ncc_match_topk_f32", 413, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
+         lambda: nt.ncc_match_topk_f32_plain(exp_prep, dict_main, k_carry),
+         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T)),
+        ("ncc_match_topk_f32_blocked", 179, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
+         lambda: nt.ncc_match_topk_f32_blocked_plain(exp_prep, dict_main, k_carry),
+         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T)),
+        ("ncc_match_topk_bf16", 340, "ncc_topk_bf16", PEAK_BF16_FLOPS, 2 * (n_scan + m_main) * d, 5,
+         lambda: nt.ncc_match_topk_bf16_plain(exp_prep, dict_main, k_carry, 512),
+         ("torch.matmul bf16", lambda: exp_bf16 @ dict_bf16.T)),
+        ("ncc_match_topk_int8", 600, "ncc_topk_int8", PEAK_INT8_OPS, (n_scan + m_main) * d + 4 * m_main, 5,
+         lambda: nt.ncc_match_topk_int8_plain(exp_q, dict_q_main, dict_s_main, k_carry, 512),
+         ("torch._int_mm", lambda: torch._int_mm(exp_q, dict_q_main.T))),
+    ]
+    exp_bf16, dict_bf16 = exp_prep.to(torch.bfloat16), dict_main.to(torch.bfloat16)
+    table, time_msgs = [], []
+    with matmul_precision(False):
+        for name, line, stem, peak, in_bytes, reps, plain_fn, (lib_name, lib_fn) in kernels:
+            ms = cuda_ms(entry[name], reps)
+            clocks = smi_line("clocks.sm,power.draw,temperature.gpu")
+            ms_plain = cuda_ms(plain_fn, 1)
+            ms_lib = cuda_ms(lib_fn, 3)
+            t_ops, t_bytes = n_ops / peak * 1e3, (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+            bound = max(t_ops, t_bytes)
+            table.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"kikuchipy_tpu_torch/csrc/{stem}.cu",
+                "replaces": f"kikuchipy_tpu/ops/pallas_di.py:{line}",
+                "launches": main_launches[name] + wide_launches * (name == "ncc_match_topk_int8")
+                + entry_launches[name],
+                "max_abs_err": full_err[name],
+                "ms": ms,
+                "plain_ms": ms_plain,
+                "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": ms_lib,
+            })
+            time_msgs.append(f"{name} {ms:.3f} ms [after it: {clocks}] (bound {bound:.3f} ms by "
+                             f"{table[-1]['bound_by']}, {bound / ms:.2%} of it; plain {ms_plain:.3f} ms; "
+                             f"{lib_name} {ms_lib:.3f} ms)")
+    del exp_bf16, dict_bf16
+    ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     mb = scan.data.numel() / 1e6
     log("times", f"{smi}: preprocess {ms_pre:.3f} ms ({mb / ms_pre * 1e3:.1f} MB/s uint8 in); "
-        f"dictionary projection {ms_proj:.3f} ms ({m} patterns); "
-        f"ncc_topk_int8 {ms_kernel:.3f} ms at n={n_scan} m={m_main} d={d} k={k_carry} "
-        f"(bound {bound_ms:.3f} ms by operations, {bound_ms / ms_kernel:.2%} of it); "
-        f"plain {ms_plain:.3f} ms; library yardstick torch._int_mm (product only, no top-k, "
-        f"never called by the port) {ms_lib:.3f} ms; dictionary_indexing {ms_di:.3f} ms "
-        f"= {n_scan / ms_di * 1e3:.1f} patterns/s")
+        f"dictionary projection {ms_proj:.3f} ms ({m} patterns); at n={n_scan} m={m_main} d={d} k={k_carry}: "
+        + "; ".join(time_msgs) + f" (library calls: product only, never called by the port); "
+        f"dictionary_indexing pallas-int8 {ms_di:.3f} ms = {n_scan / ms_di * 1e3:.1f} patterns/s")
 
     # ---- where the time of one indexing call and one projection chunk goes ----
-    exp_prep = metric.prepare(pre.data)
     dict_prep = metric.prepare(dictionary.data)
-    cand = i_k[:, :k_carry]
+    cand = entry_out["ncc_match_topk_int8"][1][:, :k_carry]
     quad = quad_texture(torch.as_tensor(mp._hemispheres_at_energy(), device=dev))
     dc = direction_cosines_from_detector(det, device=dev)
     rot_chunk = torch.as_tensor(dict_rot[:8192], dtype=torch.float32, device=dev)
@@ -344,23 +615,12 @@ def main(argv=None) -> int:
         ),
     }
     spent = {name: cuda_ms(fn, 3) for name, fn in parts.items()}
-    log("breakdown", f"{smi}: kernel {ms_kernel:.3f} ms; " + "; ".join(f"{k} {v:.3f} ms" for k, v in spent.items()))
+    int8_ms = table[-1]["ms"]
+    log("breakdown", f"{smi}: kernel {int8_ms:.3f} ms; " + "; ".join(f"{k} {v:.3f} ms" for k, v in spent.items()))
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")
-    print(json.dumps({"kernels": [{
-        "name": "ncc_topk_int8",
-        "route": "cuda",
-        "source": "kikuchipy_tpu_torch/csrc/ncc_topk_int8.cu",
-        "replaces": "kikuchipy_tpu/ops/pallas_di.py:600",
-        "launches": launches,
-        "max_abs_err": full_err,
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": ms_lib,
-    }]}), flush=True)
+    print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

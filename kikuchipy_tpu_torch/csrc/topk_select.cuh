@@ -1,0 +1,272 @@
+// The selection shared by the fused NCC matmul + top-k kernels: the
+// running stable top-k per experimental row, the threshold skip, the
+// interleaved group compression and the final write. The int8, bf16 and
+// f32 kernels differ only in how they compute a chunk's BM x BN scores;
+// each hands the score tile (shared memory, SCORE_STRIDE floats a row,
+// -inf past m) to Selector::chunk after every chunk.
+//
+// What it keeps, per row (the TPU kernels' contract,
+// kikuchipy_tpu/ops/pallas_di.py):
+//   MODE_TOPK: the first k entries of a STABLE descending sort of the
+//     candidates in logical order (ncc_common.cuh: dict_col). With
+//     group == 1 every column is a candidate; with group > 1 each
+//     interleaved group contributes its maximum (lowest jj on ties,
+//     strict >), as _group_compress does. The TPU's "fori" and "stream"
+//     extractions both compute this stable top-k, so one path serves
+//     both ("fori" passes group = 1: the TPU's fori ignores group).
+//     Slots past the number of candidates hold (float32-min, 0), the
+//     running top-k's initial value on the TPU.
+//   MODE_NONE: slot 0 holds the row maximum over the last tile_m columns
+//     (the TPU's matmul-only "none" extraction); the other slots keep
+//     (float32-min, 0), and every index is 0.
+//
+// Design. A warp owns a row at a time. A candidate that does not beat
+// the row's k-th score (kept in shared memory) costs one comparison; the
+// rest are inserted in candidate order into the row's sorted list, slot
+// = number of kept entries >= the candidate, so equal scores keep the
+// earlier candidate first. During insertion the list sits in the warp's
+// registers (slot i in lane i % 32, register i / 32; KPL registers per
+// lane, k <= 32 * KPL); between chunks it lives in the block's own rows
+// of the output, which stay in L2. So k up to MAX_K needs no smaller row
+// tile and no shared memory beyond three floats a row. A group may
+// straddle chunks (group > BN, or BN % group != 0): its running maximum
+// and position carry to the next chunk, and it is inserted when it
+// closes.
+
+#pragma once
+
+#include <float.h>
+#include <math_constants.h>
+
+#include "ncc_common.cuh"
+
+namespace ncc {
+
+constexpr int MAX_K = 512;
+constexpr float EMPTY = -FLT_MAX;  // float32-min: an empty top-k slot
+constexpr int SELECT_SMEM_BYTES = 3 * BM * 4;
+
+enum Mode { MODE_TOPK = 0, MODE_NONE = 1 };
+
+// Insert (s, cid) into the warp's sorted list; the caller guarantees s
+// beats the k-th entry.
+template <int KPL>
+__device__ __forceinline__ void warp_insert(float (&v)[KPL], int (&id)[KPL], float s, int cid, int k, int lane) {
+    int p = 0;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) p += __popc(__ballot_sync(FULL, (q * 32 + lane) < k && v[q] >= s));
+    float up[KPL];
+    int upi[KPL];
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+        float u = __shfl_up_sync(FULL, v[q], 1);
+        int ui = __shfl_up_sync(FULL, id[q], 1);
+        if (q > 0) {
+            const float pv = __shfl_sync(FULL, v[q - 1], 31);
+            const int pi = __shfl_sync(FULL, id[q - 1], 31);
+            if (lane == 0) {
+                u = pv;
+                ui = pi;
+            }
+        }
+        up[q] = u;
+        upi[q] = ui;
+    }
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) {
+        const int i = q * 32 + lane;
+        if (i == p) {
+            v[q] = s;
+            id[q] = cid;
+        } else if (i > p) {
+            v[q] = up[q];
+            id[q] = upi[q];
+        }
+    }
+}
+
+template <int KPL>
+__device__ __forceinline__ float warp_kth(const float (&v)[KPL], int k) {
+    const int qk = (k - 1) >> 5;
+    float t = v[0];
+#pragma unroll
+    for (int q = 1; q < KPL; ++q)
+        if (q == qk) t = v[q];
+    return __shfl_sync(FULL, t, (k - 1) & 31);
+}
+
+struct Selector {
+    float* kth;     // [BM] the row's k-th score
+    float* open_v;  // [BM] running maximum of the row's open group (MODE_NONE: of the last tile)
+    int* open_i;    // [BM] its logical position
+    float* out_s;
+    int* out_i;
+    int n, m, k, tile_m, group, mode, row0;
+
+    // `smem` holds SELECT_SMEM_BYTES. Every warp initialises its own rows,
+    // with the lane layout it later reads them in.
+    __device__ Selector(unsigned char* smem, float* out_s_, int* out_i_, int n_, int m_, int k_, int tile_m_,
+                        int group_, int mode_)
+        : kth(reinterpret_cast<float*>(smem)),
+          open_v(kth + BM),
+          open_i(reinterpret_cast<int*>(open_v + BM)),
+          out_s(out_s_),
+          out_i(out_i_),
+          n(n_),
+          m(m_),
+          k(k_),
+          tile_m(tile_m_),
+          group(group_),
+          mode(mode_),
+          row0(blockIdx.x * BM) {
+        const int lane = threadIdx.x & 31;
+        for (int r = threadIdx.x >> 5; r < BM && row0 + r < n; r += NWARPS) {
+            for (int i = lane; i < k; i += 32) {
+                out_s[(size_t)(row0 + r) * k + i] = EMPTY;
+                out_i[(size_t)(row0 + r) * k + i] = 0;
+            }
+            if (lane == 0) {
+                kth[r] = EMPTY;
+                open_v[r] = -CUDART_INF_F;
+                open_i[r] = 0;
+            }
+        }
+    }
+
+    // Fold one chunk (logical positions chunk0 .. chunk0 + BN - 1) into the
+    // rows' state. Called by all threads after the score tile is complete.
+    template <int KPL>
+    __device__ void chunk(const float* scores, int chunk0) {
+        const int lane = threadIdx.x & 31;
+        for (int r = threadIdx.x >> 5; r < BM && row0 + r < n; r += NWARPS) {
+            const float* srow = scores + r * SCORE_STRIDE;
+            if (mode == MODE_NONE)
+                last_tile_max(srow, r, chunk0, lane);
+            else
+                topk_row<KPL>(srow, r, chunk0, lane);
+        }
+    }
+
+    // Write what only the end of the dictionary settles.
+    __device__ void finish() {
+        if (mode != MODE_NONE) return;
+        for (int r = threadIdx.x >> 5; r < BM && row0 + r < n; r += NWARPS)
+            if ((threadIdx.x & 31) == 0) out_s[(size_t)(row0 + r) * k] = open_v[r];
+    }
+
+   private:
+    __device__ void last_tile_max(const float* srow, int r, int chunk0, int lane) {
+        const int lo = max(chunk0, m - tile_m);
+        const int hi = min(chunk0 + BN, m);
+        if (lo >= hi) return;
+        float mx = -CUDART_INF_F;
+        for (int L = lo + lane; L < hi; L += 32) mx = fmaxf(mx, srow[L - chunk0]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        if (lane == 0) open_v[r] = fmaxf(open_v[r], mx);
+    }
+
+    template <int KPL>
+    __device__ void topk_row(const float* srow, int r, int chunk0, int lane) {
+        const size_t base = (size_t)(row0 + r) * k;
+        float t = kth[r];
+        float v[KPL];
+        int id[KPL];
+        bool loaded = false;
+        // Insert the lanes' candidates (best, logical position pos) that
+        // beat the k-th score, in lane order; load the row's list first.
+        auto insert = [&](bool candidate, float best, int pos) {
+            unsigned mask = __ballot_sync(FULL, candidate && best > t);
+            if (mask && !loaded) {
+#pragma unroll
+                for (int q = 0; q < KPL; ++q) {
+                    const int i = q * 32 + lane;
+                    v[q] = i < k ? out_s[base + i] : EMPTY;
+                    id[q] = i < k ? out_i[base + i] : 0;
+                }
+                loaded = true;
+            }
+            while (mask) {
+                const int src = __ffs(mask) - 1;
+                mask &= mask - 1;
+                const float s = __shfl_sync(FULL, best, src);
+                const int c = __shfl_sync(FULL, pos, src);
+                if (s > t) {
+                    warp_insert<KPL>(v, id, s, dict_col(c, tile_m, group), k, lane);
+                    t = warp_kth<KPL>(v, k);
+                }
+            }
+        };
+
+        if (group == 1) {  // every column a candidate; -inf past m
+#pragma unroll
+            for (int q0 = 0; q0 < BN; q0 += 32) insert(true, srow[q0 + lane], chunk0 + q0 + lane);
+        } else {
+            const int L_end = min(chunk0 + BN, m);
+            const int g0 = chunk0 / group;
+            const int n_groups = (L_end - 1) / group - g0 + 1;
+            const float ov = open_v[r];
+            const int oi = open_i[r];
+            __syncwarp();
+            for (int q0 = 0; q0 < n_groups; q0 += 32) {
+                const int g = g0 + q0 + lane;
+                float best = -CUDART_INF_F;
+                int pos = 0;
+                bool closes = false;
+                if (q0 + lane < n_groups) {
+                    const int lo = max(g * group, chunk0);
+                    const int hi = min((g + 1) * group, L_end);
+                    best = srow[lo - chunk0];
+                    pos = lo;
+                    for (int L = lo + 1; L < hi; ++L) {
+                        const float x = srow[L - chunk0];
+                        if (x > best) {
+                            best = x;
+                            pos = L;
+                        }
+                    }
+                    if (g * group < chunk0 && !(best > ov)) {  // the group's earlier part wins ties
+                        best = ov;
+                        pos = oi;
+                    }
+                    closes = (g + 1) * group <= L_end;
+                    if (!closes) {  // at most one lane: the last group, continued in the next chunk
+                        open_v[r] = best;
+                        open_i[r] = pos;
+                    }
+                }
+                insert(closes, best, pos);
+            }
+        }
+        if (loaded) {
+#pragma unroll
+            for (int q = 0; q < KPL; ++q) {
+                const int i = q * 32 + lane;
+                if (i < k) {
+                    out_s[base + i] = v[q];
+                    out_i[base + i] = id[q];
+                }
+            }
+            if (lane == 0) kth[r] = t;
+        }
+        __syncwarp();
+    }
+};
+
+// Call f(std::integral_constant-like tag) with the register count per
+// lane that holds k slots: the smallest power of two with 32 * KPL >= k.
+template <int KPL>
+struct KplTag {
+    static constexpr int value = KPL;
+};
+
+template <class F>
+__host__ cudaError_t with_kpl(int k, F f) {
+    if (k <= 32) return f(KplTag<1>{});
+    if (k <= 64) return f(KplTag<2>{});
+    if (k <= 128) return f(KplTag<4>{});
+    if (k <= 256) return f(KplTag<8>{});
+    return f(KplTag<16>{});
+}
+
+}  // namespace ncc

@@ -1,12 +1,19 @@
 """Dictionary indexing: match experimental EBSD patterns against a
 dictionary of simulated patterns and keep the top-k best matches.
 
-PyTorch counterpart of ``kikuchipy_tpu/indexing/di.py`` for the in-memory
-``dictionary`` source and two precisions:
+PyTorch counterpart of ``kikuchipy_tpu/indexing/di.py``, for every
+dictionary source (an in-memory ``dictionary`` or
+:class:`PreparedDictionary`, ``dictionary_tiles`` streamed from the host,
+or a ``project_fn`` that projects the dictionary from rotations) and every
+precision:
 
-- ``"highest"``: IEEE float32 products over dictionary tiles, each tile's
-  top-k merged into a running top-k (the JAX package leaves this to XLA,
-  so it is plain PyTorch here too);
+- ``"highest"``, ``"high"``, ``"default"``, ``"f16"``, ``"mixed"`` and
+  ``"int8"`` (:func:`_index_resident`): dictionary tiles multiplied by
+  ``torch.matmul`` (the JAX package leaves these to XLA, so they are plain
+  PyTorch here too), each tile's top-k merged into a running top-k,
+  optionally through the group-compressed selection of ``approx_topk``;
+  ``"mixed"`` and ``"int8"`` select ``k_carry`` candidates and rescore
+  them exactly;
 - ``"pallas-int8"``: the fused int8 kernel
   (:func:`kikuchipy_tpu_torch.ops.ncc_topk.ncc_match_topk_int8`, the
   counterpart of the TPU kernel ``ncc_match_topk_pallas_v5``) selects
@@ -14,10 +21,11 @@ PyTorch counterpart of ``kikuchipy_tpu/indexing/di.py`` for the in-memory
   ``(n, m)`` score matrix; the dictionary remainder past the last full
   tile is matched exactly, and the survivors are rescored in float32.
 
+On the card the float32 products run in IEEE float32 at ``"highest"``,
+``"f16"`` and ``"mixed"`` and in TF32 at ``"high"`` and ``"default"``, as
+JAX maps these precisions on a GPU; the flags are set for the call only.
 Every top-k is stable (equal scores: lowest index first), as
-``jax.lax.top_k`` is. Other precisions, ``approx_topk``, and the
-``project_fn`` and ``dictionary_tiles`` sources are not ported yet (see
-ROADMAP.md).
+``jax.lax.top_k`` is.
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ import torch
 
 from kikuchipy_tpu_torch.indexing.metrics import SimilarityMetric, get_metric, signal_mask_to_idx
 from kikuchipy_tpu_torch.ops.ncc_topk import ncc_match_topk_int8
-from kikuchipy_tpu_torch.utils.device import as_tensor, ieee_f32, resolve_device
+from kikuchipy_tpu_torch.utils.device import as_tensor, matmul_precision, resolve_device
+from kikuchipy_tpu_torch.utils.dtypes import torch_dtype
 
 __all__ = [
+    "PRECISIONS",
     "DictionaryIndexingResult",
     "PreparedDictionary",
     "prepare_dictionary",
@@ -45,7 +55,13 @@ __all__ = [
 
 _logger = logging.getLogger(__name__)
 
-_PORTED_PRECISIONS = ("highest", "pallas-int8")
+PRECISIONS = ("highest", "high", "default", "f16", "mixed", "int8", "pallas-int8")
+# Precisions whose float32 products JAX runs in TF32 on a GPU.
+_TF32_PRECISIONS = ("high", "default")
+_REDUCED_PRECISIONS = ("mixed", "int8")
+# Dictionaries up to this many prepared bytes are projected into memory
+# by the project_fn source; larger ones are projected and matched per tile.
+_RESIDENT_BYTES = 4 << 30
 
 
 @dataclasses.dataclass
@@ -160,25 +176,140 @@ def merge_topk(scores_a, idx_a, scores_b, idx_b, keep_n: int):
     return new_scores, torch.gather(all_idx, 1, pos)
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    ieee_f32()
-    return a @ b.T
+def _int8_scores(exp_q: torch.Tensor, block_q: torch.Tensor) -> torch.Tensor:
+    """Exact sums ``exp_q @ block_q.T`` of int8 rows: int64 on the CPU;
+    on the card ``torch._int_mm``'s int32, with the operands zero-padded
+    to the multiples it takes (over 16 rows, 8-multiples of d and of the
+    columns)."""
+    if exp_q.device.type == "cpu":
+        return exp_q.long() @ block_q.long().T
+    n, d = exp_q.shape
+    size = block_q.shape[0]
+    a = torch.nn.functional.pad(exp_q, (0, (-d) % 8, 0, max(0, 17 - n)))
+    b = torch.nn.functional.pad(block_q, (0, (-d) % 8, 0, (-size) % 8))
+    return torch._int_mm(a, b.T)[:n, :size]
 
 
-def _index_highest(exp_prepared, dict_prepared, keep_n: int, tile: int):
-    """Exact f32 tiles with a running stable top-k (the JAX package's
-    ``_index_resident`` at ``precision="highest"``)."""
+def _group_topk(sim: torch.Tensor, k: int, group: int = 32):
+    """Group-compressed top-k of a ``(n, c)`` score block (JAX's
+    ``_group_topk_T`` on its transposed block): with ``G = c // group``,
+    interleaved group ``t`` holds columns ``{t, t+G, ...}`` and contributes
+    its best and runner-up (strict ``>``: earlier column on ties), compared
+    in the block's dtype; the ``c - G * group`` tail columns ride along as
+    singletons. Candidates are ordered [best (G), runner-up (G), tail]
+    for the stable top-k. A plain top-k when ``G < k``."""
+    n, c = sim.shape
+    G = c // group
+    if G < k:
+        return topk_stable(sim.to(torch.float32), k)
+    m1 = torch.full((n, G), float("-inf"), dtype=sim.dtype, device=sim.device)
+    m2 = m1
+    j1 = torch.zeros((n, G), dtype=torch.int64, device=sim.device)
+    j2 = j1
+    for g in range(group):
+        blk = sim[:, g * G : (g + 1) * G]
+        b1 = blk > m1
+        b2 = ~b1 & (blk > m2)
+        m2 = torch.where(b1, m1, torch.where(b2, blk, m2))
+        j2 = torch.where(b1, j1, torch.where(b2, g, j2))
+        m1 = torch.where(b1, blk, m1)
+        j1 = torch.where(b1, g, j1)
+    lane = torch.arange(G, device=sim.device)[None, :]
+    cand_s = [m1.to(torch.float32), m2.to(torch.float32)]
+    cand_i = [j1 * G + lane, j2 * G + lane]
+    rem = c - G * group
+    if rem:
+        cand_s.append(sim[:, G * group :].to(torch.float32))
+        cand_i.append((G * group + torch.arange(rem, device=sim.device)).expand(n, rem))
+    all_i = torch.cat(cand_i, dim=1)
+    s, pos = topk_stable(torch.cat(cand_s, dim=1), k)
+    return s, torch.gather(all_i, 1, pos)
+
+
+def _index_resident(
+    exp_prepared: torch.Tensor,
+    dict_prepared: torch.Tensor,
+    keep_n: int,
+    tile: int,
+    precision: str = "highest",
+    approx: bool = False,
+    dict_q: torch.Tensor | None = None,
+    dict_scale: torch.Tensor | None = None,
+):
+    """Tiles of a resident, prepared dictionary, each tile's top-k (or,
+    with ``approx``, its group-compressed candidates, :func:`_group_topk`)
+    merged into a running stable top-k (``kikuchipy_tpu/indexing/di.py:
+    _index_resident``).
+
+    Selection scores per precision: an IEEE (``"highest"``) or TF32
+    (``"high"``, ``"default"``) f32 product; ``"f16"`` rounds the IEEE f32
+    product to float16 (indices exact modulo f16 ties, scores within
+    2.44e-4); ``"mixed"`` multiplies bf16-rounded operands into an f32
+    result; ``"int8"`` scales the exact s32 sum of rowwise-quantized rows
+    (the dictionary's quantization comes from a :class:`PreparedDictionary`
+    when given). With ``approx``, ``"mixed"`` and ``"int8"`` also round
+    their selection scores to float16. ``"mixed"`` and ``"int8"`` carry
+    ``k_carry`` candidates and rescore them exactly.
+
+    JAX unrolls the tile loop (per-tile candidates, one final top-k) up to
+    32 tiles and scans with a carried top-k beyond; with a stable top-k
+    both equal this one loop: the stable top-k of the candidates in tile
+    order is the running stable merge of each tile's candidates.
+    """
     m = dict_prepared.shape[0]
+    dtype = exp_prepared.dtype
+    reduced = precision in _REDUCED_PRECISIONS
+    k_carry = min(max(2 * keep_n, keep_n + 8), m) if reduced else keep_n
+    sel_dtype = torch.float16 if precision == "f16" or (approx and reduced) else dtype
+
+    if precision == "int8":
+        exp_q, _ = _quantize_rows_int8(exp_prepared)
+        if dict_q is None:
+            dict_q, dict_scale = _quantize_rows_int8(dict_prepared)
+
+        def sel_block(start, end):
+            s32 = _int8_scores(exp_q, dict_q[start:end])
+            return (s32.to(dtype) * dict_scale[None, start:end]).to(sel_dtype)
+
+    else:
+        exp_mm = exp_prepared.to(torch.bfloat16).to(dtype) if precision == "mixed" else exp_prepared
+
+        def sel_block(start, end):
+            block = dict_prepared[start:end]
+            if precision == "mixed":
+                block = block.to(torch.bfloat16).to(dtype)
+            return (exp_mm @ block.T).to(sel_dtype)
+
     scores = idx = None
-    for start in range(0, m, tile):
-        sim = _matmul_f32(exp_prepared, dict_prepared[start : start + tile])
-        s, i = topk_stable(sim, min(keep_n, sim.shape[1]))
-        i = (i + start).to(torch.int32)
-        if scores is None:
-            scores, idx = s, i
-        else:
-            scores, idx = merge_topk(scores, idx, s, i, keep_n)
-    return scores, idx
+    with matmul_precision(precision in _TF32_PRECISIONS):
+        for start in range(0, m, tile):
+            end = min(start + tile, m)
+            sim = sel_block(start, end)
+            k_tile = min(k_carry, end - start)
+            if approx:
+                t_scores, t_idx = _group_topk(sim, k_tile)
+            else:
+                t_scores, t_idx = topk_stable(sim.to(dtype), k_tile)
+            t_idx = (t_idx + start).to(torch.int32)
+            if scores is None:
+                scores, idx = t_scores, t_idx
+            else:
+                scores, idx = merge_topk(scores, idx, t_scores, t_idx, k_carry)
+
+    if reduced:
+        return _rescore_candidates(exp_prepared, dict_prepared, idx, keep_n)
+    return scores.to(dtype), idx
+
+
+def _match_merge_step(exp_prepared, dict_prepared, best_scores, best_idx, index_offset: int, keep_n: int):
+    """Match one dictionary tile exactly and fold it into the carried
+    top-k (the streaming sources run at ``"highest"`` whatever
+    ``precision`` says, as in the JAX package)."""
+    with matmul_precision(False):
+        sim = exp_prepared @ dict_prepared.T
+    tile_scores, tile_idx = topk_stable(sim, min(keep_n, sim.shape[1]))
+    tile_idx = (tile_idx + index_offset).to(torch.int32)
+    return merge_topk(best_scores, best_idx, tile_scores, tile_idx, keep_n)
 
 
 def _index_pallas_int8(
@@ -227,7 +358,8 @@ def _index_pallas_int8(
         cand_s.append(s[:n] * exp_scale[:, None])
         cand_i.append(i[:n])
     if m - m_main:
-        sim = _matmul_f32(exp_prepared, dict_prepared[m_main:])
+        with matmul_precision(False):
+            sim = exp_prepared @ dict_prepared[m_main:].T
         s, i = topk_stable(sim, min(k_carry, m - m_main))
         cand_s.append(s)
         cand_i.append((i + m_main).to(torch.int32))
@@ -245,13 +377,13 @@ def _rescore_candidates(exp_prepared, dict_prepared, cand_idx, keep_n: int, slab
     """Exact f32 rescoring of per-pattern candidate sets, slabbed over
     patterns to bound the ``(slab, k_c, d)`` gather; keeps the top
     ``keep_n``."""
-    ieee_f32()
     out_s, out_i = [], []
     for s0 in range(0, exp_prepared.shape[0], slab):
         e = exp_prepared[s0 : s0 + slab]
         ci = cand_idx[s0 : s0 + slab]
         rows = dict_prepared[ci.long()]
-        sc = torch.bmm(rows, e[:, :, None])[..., 0]
+        with matmul_precision(False):
+            sc = torch.bmm(rows, e[:, :, None])[..., 0]
         s, pos = topk_stable(sc, keep_n)
         out_s.append(s)
         out_i.append(torch.gather(ci, 1, pos))
@@ -263,12 +395,17 @@ def _default_tile(n_exp: int, budget_bytes: int = 2 << 30) -> int:
     return max(4096, budget_bytes // (4 * max(n_exp, 1)))
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to kikuchipy_tpu_torch yet (see ROADMAP.md, "
-        f"queue A); ported: the in-memory dictionary with precision in "
-        f"{_PORTED_PRECISIONS}"
-    )
+def _project_dictionary_resident(project_fn, rotations, metric, keep_idx, m: int, d_feat: int, proj_tile: int, progress):
+    """Project and prepare the whole dictionary into one preallocated
+    buffer, written in place tile by tile, so the peak is the buffer
+    itself and not a list of tiles plus their concatenation."""
+    buf = torch.empty((m, d_feat), dtype=torch_dtype(metric.dtype), device=rotations.device)
+    for start in range(0, m, proj_tile):
+        if progress is not None:
+            progress(start, m)
+        end = min(start + proj_tile, m)
+        buf[start:end] = metric.prepare(project_fn(rotations[start:end]), keep_idx)
+    return buf
 
 
 def dictionary_index(
@@ -289,28 +426,33 @@ def dictionary_index(
     progress=None,
     device=None,
 ) -> DictionaryIndexingResult:
-    """Index experimental patterns ``(..., sy, sx)`` against an in-memory
-    dictionary ``(m, sy, sx)`` / ``(m, d)`` or a
-    :class:`PreparedDictionary`.
+    """Index experimental patterns ``(..., sy, sx)`` against a dictionary.
 
-    Parameters follow ``kikuchipy_tpu.indexing.di.dictionary_index``.
+    Exactly one dictionary source must be given:
+
+    - ``dictionary``: ``(m, sy, sx)`` / ``(m, d)``, or a
+      :class:`PreparedDictionary` whose preparation (and int8
+      quantization) is reused;
+    - ``dictionary_tiles`` + ``dictionary_size``: an iterable of
+      ``(start_index, tile)`` streamed from the host, matched at
+      ``"highest"``;
+    - ``project_fn`` + ``rotations``: a callback projecting dictionary
+      patterns for a block of rotations (e.g.
+      :meth:`~kikuchipy_tpu_torch.signals.master_pattern.EBSDMasterPattern.
+      projector`). A dictionary of at most 4 GiB prepared is projected
+      into one buffer and indexed at ``precision``; a larger one is
+      projected and matched tile by tile at ``"highest"``.
+
+    Other parameters follow ``kikuchipy_tpu.indexing.di.dictionary_index``:
     ``navigation_mask`` (True = exclude) gives NaN scores and -1 indices
-    for excluded patterns. ``precision`` is ``"highest"`` (exact f32) or
-    ``"pallas-int8"`` (fused int8 kernel selection + exact rescore).
+    for excluded patterns; ``precision`` is one of :data:`PRECISIONS` (see
+    :func:`_index_resident` and :func:`_index_pallas_int8`);
+    ``approx_topk`` selects through :func:`_group_topk`; ``progress(done,
+    total)`` is called per tile of the streaming and projecting sources.
     ``device`` defaults to the card.
     """
-    del progress, rotations, dictionary_size  # used by the unported sources only
-    if dictionary is None:
-        if project_fn is not None:
-            raise _not_ported("the project_fn source")
-        if dictionary_tiles is not None:
-            raise _not_ported("the dictionary_tiles source")
-        raise ValueError("Provide one of dictionary, dictionary_tiles, or project_fn")
-    if precision not in _PORTED_PRECISIONS:
-        raise _not_ported(f"precision={precision!r}")
-    if approx_topk:
-        raise _not_ported("approx_topk=True")
-
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r} is not one of {PRECISIONS}")
     metric = get_metric(metric)
     dev = resolve_device(device)
     experimental = as_tensor(experimental, dev)
@@ -336,40 +478,82 @@ def dictionary_index(
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
 
-    dict_q = dict_scale = None
-    if isinstance(dictionary, PreparedDictionary):
-        if dictionary.metric_name != metric.name:
-            raise ValueError(
-                f"PreparedDictionary was prepared with metric "
-                f"{dictionary.metric_name!r}, requested {metric.name!r}"
-            )
-        if dictionary.n_features != exp_prepared.shape[1]:
-            raise ValueError(
-                f"signal_mask mismatch: PreparedDictionary keeps "
-                f"{dictionary.n_features} pixels but the indexing-"
-                f"time signal_mask keeps {exp_prepared.shape[1]} — "
-                f"pass the same signal_mask to prepare_dictionary "
-                f"and dictionary_index"
-            )
-        if dictionary.mask_hash is not None and dictionary.mask_hash != _mask_hash(keep_np):
-            raise ValueError(
-                "signal_mask mismatch: the mask used at "
-                "prepare_dictionary time selects a different pixel "
-                "set than the indexing-time signal_mask (same size, "
-                "different pixels) — scores would be misaligned"
-            )
-        dict_prepared = dictionary.prepared.to(dev)
+    if dictionary is not None:
+        dict_q = dict_scale = None
+        if isinstance(dictionary, PreparedDictionary):
+            if dictionary.metric_name != metric.name:
+                raise ValueError(
+                    f"PreparedDictionary was prepared with metric "
+                    f"{dictionary.metric_name!r}, requested {metric.name!r}"
+                )
+            if dictionary.n_features != exp_prepared.shape[1]:
+                raise ValueError(
+                    f"signal_mask mismatch: PreparedDictionary keeps "
+                    f"{dictionary.n_features} pixels but the indexing-"
+                    f"time signal_mask keeps {exp_prepared.shape[1]} — "
+                    f"pass the same signal_mask to prepare_dictionary "
+                    f"and dictionary_index"
+                )
+            if dictionary.mask_hash is not None and dictionary.mask_hash != _mask_hash(keep_np):
+                raise ValueError(
+                    "signal_mask mismatch: the mask used at "
+                    "prepare_dictionary time selects a different pixel "
+                    "set than the indexing-time signal_mask (same size, "
+                    "different pixels) — scores would be misaligned"
+                )
+            dict_prepared = dictionary.prepared.to(dev)
+            if precision in ("int8", "pallas-int8"):
+                dict_q, dict_scale = (t.to(dev) for t in dictionary.quantized_int8())
+        else:
+            dict_prepared = metric.prepare(as_tensor(dictionary, dev), keep_idx)
+        m = dict_prepared.shape[0]
+        keep_n_eff = min(keep_n, m)
         if precision == "pallas-int8":
-            dict_q, dict_scale = (t.to(dev) for t in dictionary.quantized_int8())
+            scores, idx = _index_pallas_int8(exp_prepared, dict_prepared, keep_n_eff, dict_q, dict_scale)
+        else:
+            tile = min(n_per_iteration or _default_tile(n_exp), m)
+            scores, idx = _index_resident(
+                exp_prepared, dict_prepared, keep_n_eff, tile, precision, approx_topk, dict_q, dict_scale
+            )
+    elif project_fn is not None:
+        if rotations is None:
+            raise ValueError("project_fn requires rotations")
+        if precision == "pallas-int8":
+            raise ValueError("precision='pallas-int8' needs an in-memory dictionary")
+        rotations = as_tensor(rotations, dev)
+        m = rotations.shape[0]
+        keep_n_eff = min(keep_n, m)
+        d_feat = int(exp_prepared.shape[1])
+        if m * d_feat * 4 <= _RESIDENT_BYTES:
+            proj_tile = min(n_per_iteration or 8192, m)
+            dict_prepared = _project_dictionary_resident(
+                project_fn, rotations, metric, keep_idx, m, d_feat, proj_tile, progress
+            )
+            tile = min(n_per_iteration or _default_tile(n_exp), m)
+            scores, idx = _index_resident(exp_prepared, dict_prepared, keep_n_eff, tile, precision, approx_topk)
+        else:
+            tile = min(n_per_iteration or 4096, m)
+            scores = torch.full((n_exp, keep_n_eff), float("-inf"), dtype=exp_prepared.dtype, device=dev)
+            idx = torch.zeros((n_exp, keep_n_eff), dtype=torch.int32, device=dev)
+            for start in range(0, m, tile):
+                if progress is not None:
+                    progress(start, m)
+                block = metric.prepare(project_fn(rotations[start : start + tile]), keep_idx)
+                scores, idx = _match_merge_step(exp_prepared, block, scores, idx, start, keep_n_eff)
+    elif dictionary_tiles is not None:
+        if dictionary_size is None:
+            raise ValueError("dictionary_tiles requires dictionary_size")
+        m = dictionary_size
+        keep_n_eff = min(keep_n, m)
+        scores = torch.full((n_exp, keep_n_eff), float("-inf"), dtype=exp_prepared.dtype, device=dev)
+        idx = torch.zeros((n_exp, keep_n_eff), dtype=torch.int32, device=dev)
+        for start, block in dictionary_tiles:
+            if progress is not None:
+                progress(start, m)
+            block = metric.prepare(as_tensor(block, dev), keep_idx)
+            scores, idx = _match_merge_step(exp_prepared, block, scores, idx, start, keep_n_eff)
     else:
-        dict_prepared = metric.prepare(as_tensor(dictionary, dev), keep_idx)
-    m = dict_prepared.shape[0]
-    keep_n_eff = min(keep_n, m)
-    if precision == "pallas-int8":
-        scores, idx = _index_pallas_int8(exp_prepared, dict_prepared, keep_n_eff, dict_q, dict_scale)
-    else:
-        tile = min(n_per_iteration or _default_tile(n_exp), m)
-        scores, idx = _index_highest(exp_prepared, dict_prepared, keep_n_eff, tile)
+        raise ValueError("Provide one of dictionary, dictionary_tiles, or project_fn")
 
     scores = scores.cpu().numpy()
     idx = idx.cpu().numpy()

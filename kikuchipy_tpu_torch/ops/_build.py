@@ -6,7 +6,8 @@ when a module is imported: :func:`library` builds a source at its first
 use, and :func:`build_all` builds every source at once, one ``nvcc``
 process each, all started together. Libraries go to ``_kernels_build/``
 inside the package (listed in ``.gitignore``), named by a hash of the
-source and the flags, so a changed source is rebuilt.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source or header is rebuilt.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
-# ptxas resource lines (registers, shared memory, spills) of each build.
+# ptxas resource lines (registers, stack frame, spills) of each build.
 BUILD_LOG: dict[str, str] = {}
 
 
@@ -54,9 +55,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return _BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
@@ -82,7 +85,7 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     BUILD_LOG[name] = "\n".join(
-        line for line in log.splitlines() if "ptxas" in line
+        line.strip() for line in log.splitlines() if "ptxas" in line or "stack frame" in line
     )
     os.replace(tmp, out)
 

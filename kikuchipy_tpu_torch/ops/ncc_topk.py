@@ -1,24 +1,40 @@
-"""Fused int8 NCC matmul + running top-k: the dictionary-indexing kernel.
+"""Fused NCC matmul + running top-k: the dictionary-indexing kernels.
 
-Counterpart of ``kikuchipy_tpu/ops/pallas_di.py:ncc_match_topk_pallas_v5``
-(the TPU kernel reached by ``precision="pallas-int8"``). Three pieces:
+Counterparts of the four TPU kernels of ``kikuchipy_tpu/ops/pallas_di.py``.
+Each returns, per experimental row, the top ``k`` of ``exp @ dict.T`` as
+``(scores (n, k) float32 descending, indices (n, k) int32)`` without
+materialising the ``(n, m)`` score matrix on the card:
 
-- :func:`ncc_match_topk_int8_plain`, the plain PyTorch version: the exact
-  int32 product (int64 on the CPU, float64 on the card, both exact below
-  2**53), the f32 scores ``float32(sum) * dict_scale``, the TPU kernel's
-  interleaved group compression, and a stable descending sort;
-- the CUDA kernel ``csrc/ncc_topk_int8.cu`` (hand-written for sm_90a,
-  ``mma.sync`` int8 tensor-core product + per-row sorted top-k in shared
-  memory); its header note gives the bound on an H100 and the design;
-- :func:`ncc_match_topk_int8`, the wrapper with the TPU function's
-  contract. It takes the plain version for CPU tensors only; for CUDA
-  tensors it launches the kernel or raises, and counts its launches in
-  ``ncc_match_topk_int8.launches``.
+======================================  ===================================
+port                                    TPU kernel (``pallas_di.py``)
+======================================  ===================================
+:func:`ncc_match_topk_f32`              ``ncc_match_topk_pallas`` (v1)
+:func:`ncc_match_topk_f32_blocked`      ``ncc_match_topk_pallas_v3``
+:func:`ncc_match_topk_bf16`             ``ncc_match_topk_pallas_v4``
+:func:`ncc_match_topk_int8`             ``ncc_match_topk_pallas_v5``
+======================================  ===================================
 
-Both versions return, per row, the first ``k`` entries of a stable
-descending sort of the candidates (equal scores: lowest candidate
-first), bit for bit: the int32 sum is exact and the f32 conversion and
-one multiply are deterministic.
+Each wrapper keeps the TPU function's defaults, shape contract and
+``ValueError``\\ s; JAX's ``interpret`` flag has no counterpart, the
+tensor's device decides. For CPU tensors a wrapper returns its ``_plain``
+twin; for CUDA tensors it launches its hand-written kernel
+(``csrc/ncc_topk_{f32,bf16,int8}.cu``, one shared selection in
+``csrc/topk_select.cuh``) or raises, and counts the launch in its own
+``.launches``. v1 and v3 share the f32 kernel.
+
+The plain versions define the arithmetic: the f32 and bf16 sums are taken
+in float64 and rounded once to float32 (bf16: operands rounded to bf16
+first, as JAX's ``astype``); the int8 sum is exact and scaled by one f32
+multiply. So a plain version gives the same value on the CPU and on the
+card, the int8 kernel matches its plain version bit for bit, and the f32
+and bf16 kernels differ from theirs by the order of their f32 sums only.
+
+Selection, every version: the first ``k`` entries of a stable descending
+sort of the candidates (equal scores: earlier candidate first). The TPU's
+``"fori"`` and ``"stream"`` extractions both compute it (``"fori"``
+ignores ``group``); ``"none"`` keeps the last ``tile_m`` columns' row
+maximum in slot 0. Slots past the number of candidates hold float32-min
+and index 0, the TPU kernels' initial running top-k.
 """
 
 from __future__ import annotations
@@ -27,31 +43,75 @@ import ctypes
 
 import torch
 
-__all__ = ["ncc_match_topk_int8", "ncc_match_topk_int8_plain"]
+__all__ = [
+    "EMPTY_SCORE",
+    "EXTRACTIONS",
+    "MAX_K",
+    "ncc_match_topk_bf16",
+    "ncc_match_topk_bf16_plain",
+    "ncc_match_topk_f32",
+    "ncc_match_topk_f32_blocked",
+    "ncc_match_topk_f32_blocked_plain",
+    "ncc_match_topk_f32_plain",
+    "ncc_match_topk_int8",
+    "ncc_match_topk_int8_plain",
+]
 
-# Rows per slab of the plain version: bounds its (rows, m) score block.
+# An empty top-k slot: float32-min, as the TPU kernels' running top-k starts.
+EMPTY_SCORE = float(torch.finfo(torch.float32).min)
+# The largest k the kernels keep per row (csrc/topk_select.cuh: MAX_K).
+MAX_K = 512
+EXTRACTIONS = ("fori", "stream", "none")
+
+# Rows per slab of the plain versions: bounds their (rows, m) score block.
 _PLAIN_SLAB = 2048
 
 
-def _check_tiling(n: int, m: int, tile_n: int, tile_m: int, group: int) -> None:
-    """The TPU kernel's shape contract (``pallas_di.py:626-639``)."""
+# ------------------------------ contract ------------------------------ #
+
+
+def _check_tiling(n: int, m: int, tile_n: int, tile_m: int) -> None:
+    """The TPU kernels' shape contract (``pallas_di.py:442-446``)."""
     if n % tile_n or m % tile_m:
         raise ValueError(
             f"n={n} and m={m} must be multiples of tile_n={tile_n} / "
             f"tile_m={tile_m}; pad the inputs"
         )
-    if group > 1 and tile_m % group:
-        raise ValueError(f"group={group} must divide tile_m={tile_m}")
 
 
-def _exact_scores(exp_q: torch.Tensor, dict_q: torch.Tensor, dict_scale: torch.Tensor) -> torch.Tensor:
-    """``float32(exp_q @ dict_q.T) * dict_scale`` with an exact sum."""
-    if exp_q.device.type == "cpu":
-        s = exp_q.to(torch.int64) @ dict_q.to(torch.int64).T
-    else:
-        # float64 products and sums of int8 values are exact below 2**53.
-        s = exp_q.to(torch.float64) @ dict_q.to(torch.float64).T
-    return s.to(torch.float32) * dict_scale.to(torch.float32)[None, :]
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside 1..{MAX_K}, the largest k the kernels keep per row")
+
+
+def _check_extraction(extraction: str) -> None:
+    if extraction not in EXTRACTIONS:
+        raise ValueError(f"extraction={extraction!r} is not one of {EXTRACTIONS}")
+
+
+def _check_cuda_operands(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError("all operands must be on one device")
+
+
+def _check_rows(exp: torch.Tensor, dic: torch.Tensor) -> None:
+    if exp.ndim != 2 or dic.ndim != 2 or exp.shape[1] != dic.shape[1]:
+        raise ValueError(f"shape mismatch: exp {tuple(exp.shape)}, dict {tuple(dic.shape)}")
+
+
+def _pad_cols(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Zero columns up to a multiple of ``multiple`` (zeros add nothing
+    to a dot product), contiguous."""
+    pad = (-x.shape[1]) % multiple
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.contiguous()
+
+
+# ---------------------------- plain versions ---------------------------- #
 
 
 def _group_compress(sim: torch.Tensor, tile_m: int, group: int):
@@ -74,6 +134,68 @@ def _group_compress(sim: torch.Tensor, tile_m: int, group: int):
     return best.reshape(n, -1), ids.reshape(n, -1)
 
 
+def _select(sim: torch.Tensor, k: int, tile_m: int, group: int, extraction: str):
+    """The kernels' selection on a complete ``(rows, m)`` f32 score block."""
+    rows = sim.shape[0]
+    if extraction == "none":
+        s = torch.full((rows, k), EMPTY_SCORE, dtype=torch.float32, device=sim.device)
+        s[:, 0] = sim[:, sim.shape[1] - tile_m :].amax(dim=1)
+        return s, torch.zeros((rows, k), dtype=torch.int32, device=sim.device)
+    if group > 1 and extraction == "stream":
+        vals, ids = _group_compress(sim, tile_m, group)
+    else:
+        vals, ids = sim, None
+    s, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    s, pos = s[:, :k], pos[:, :k]
+    i = pos if ids is None else torch.gather(ids, 1, pos)
+    if s.shape[1] < k:
+        pad = k - s.shape[1]
+        s = torch.nn.functional.pad(s, (0, pad), value=EMPTY_SCORE)
+        i = torch.nn.functional.pad(i, (0, pad), value=0)
+    return s, i.to(torch.int32)
+
+
+def _plain(scores_fn, n: int, k: int, tile_m: int, group: int, extraction: str):
+    """Slab the rows, compute each slab's f32 scores, select."""
+    out_s, out_i = [], []
+    for r0 in range(0, n, _PLAIN_SLAB):
+        s, i = _select(scores_fn(r0, min(r0 + _PLAIN_SLAB, n)), k, tile_m, group, extraction)
+        out_s.append(s)
+        out_i.append(i)
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def _f64_scores(exp64: torch.Tensor, dict64: torch.Tensor):
+    """Row slabs of ``float32(exp64 @ dict64.T)``: a float64 sum of exact
+    products, rounded once."""
+    return lambda r0, r1: (exp64[r0:r1] @ dict64.T).to(torch.float32)
+
+
+def ncc_match_topk_f32_plain(exp: torch.Tensor, dict_: torch.Tensor, k: int = 20):
+    """Plain PyTorch version of :func:`ncc_match_topk_f32` (any device)."""
+    scores = _f64_scores(exp.to(torch.float32).double(), dict_.to(torch.float32).double())
+    return _plain(scores, exp.shape[0], k, dict_.shape[0], 1, "fori")
+
+
+def ncc_match_topk_f32_blocked_plain(exp: torch.Tensor, dict_: torch.Tensor, k: int = 20):
+    """Plain PyTorch version of :func:`ncc_match_topk_f32_blocked`: v3
+    computes v1's function (``tile_d`` only blocks the contraction)."""
+    return ncc_match_topk_f32_plain(exp, dict_, k)
+
+
+def ncc_match_topk_bf16_plain(
+    exp: torch.Tensor,
+    dict_: torch.Tensor,
+    k: int = 20,
+    tile_m: int = 512,
+    extraction: str = "fori",
+):
+    """Plain PyTorch version of :func:`ncc_match_topk_bf16` (any device):
+    operands rounded to bf16, then summed as :func:`ncc_match_topk_f32_plain`."""
+    scores = _f64_scores(exp.to(torch.bfloat16).double(), dict_.to(torch.bfloat16).double())
+    return _plain(scores, exp.shape[0], k, tile_m, 1, extraction)
+
+
 def ncc_match_topk_int8_plain(
     exp_q: torch.Tensor,
     dict_q: torch.Tensor,
@@ -81,45 +203,217 @@ def ncc_match_topk_int8_plain(
     k: int = 20,
     tile_m: int = 512,
     group: int = 1,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the fused kernel (any device).
+    extraction: str = "stream",
+):
+    """Plain PyTorch version of :func:`ncc_match_topk_int8` (any device):
+    ``float32(exp_q @ dict_q.T) * dict_scale`` with an exact sum (int64 on
+    the CPU; float64 on the card, exact below 2**53)."""
+    wide = torch.int64 if exp_q.device.type == "cpu" else torch.float64
+    e, w = exp_q.to(wide), dict_q.to(wide)
+    scale = dict_scale.to(torch.float32)[None, :]
 
-    Returns ``(scores (n, k) float32, indices (n, k) int32)``; slots past
-    the number of candidates hold ``-inf`` and index 0, as the running
-    top-k of the TPU kernel starts.
+    def scores(r0, r1):
+        return (e[r0:r1] @ w.T).to(torch.float32) * scale
+
+    return _plain(scores, exp_q.shape[0], k, tile_m, group, extraction)
+
+
+def near_tie_disagreements(
+    scores: torch.Tensor,
+    idx: torch.Tensor,
+    ref_scores: torch.Tensor,
+    ref_idx: torch.Tensor,
+    exp: torch.Tensor,
+    dict_: torch.Tensor,
+    tol: float,
+    planted: tuple[int, ...] = (),
+    rounding: torch.dtype = torch.float32,
+) -> list[str]:
+    """How a float kernel's top-k departs from its plain version beyond
+    near-ties (an empty list when it does not).
+
+    ``(scores, idx)`` is the kernel's ``(n, k)``; ``(ref_scores, ref_idx)``
+    the plain version's with one more column (the (k+1)-th neighbour).
+    With ``tol`` the largest difference two f32 summation orders can make:
+
+    - every returned score is within ``tol`` of the float64 sum at the
+      returned index (operands rounded to ``rounding`` first), and of the
+      plain score in its slot (so the k-th is within ``tol`` of the plain
+      k-th);
+    - indices equal the plain ones wherever the plain score is more than
+      ``2 * tol`` from both neighbours;
+    - ``planted`` identical dictionary rows tie exactly and come out in
+      column order: the ones a row keeps are a prefix of ``sorted(planted)``
+      with one score.
     """
-    n = exp_q.shape[0]
-    out_s, out_i = [], []
-    for r0 in range(0, n, _PLAIN_SLAB):
-        sim = _exact_scores(exp_q[r0 : r0 + _PLAIN_SLAB], dict_q, dict_scale)
-        if group > 1:
-            vals, ids = _group_compress(sim, tile_m, group)
-        else:
-            vals = sim
-            ids = None
-        s, pos = torch.sort(vals, dim=1, descending=True, stable=True)
-        s, pos = s[:, :k], pos[:, :k]
-        i = pos if ids is None else torch.gather(ids, 1, pos)
-        if s.shape[1] < k:
-            pad = k - s.shape[1]
-            s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
-            i = torch.nn.functional.pad(i, (0, pad), value=0)
-        out_s.append(s)
-        out_i.append(i.to(torch.int32))
-    return torch.cat(out_s), torch.cat(out_i)
+    problems = []
+    k = scores.shape[1]
+    slot_err = (scores - ref_scores[:, :k]).abs().max().item()
+    if slot_err > tol:
+        problems.append(f"slot scores differ by {slot_err:.3e} > {tol:.1e}")
+    e64 = exp.to(rounding).double()
+    w64 = dict_.to(rounding).double()
+    worst = 0.0
+    for r0 in range(0, scores.shape[0], 256):
+        rows = w64[idx[r0 : r0 + 256].long()]
+        at_idx = torch.bmm(rows, e64[r0 : r0 + 256, :, None])[..., 0].to(torch.float32)
+        worst = max(worst, (at_idx - scores[r0 : r0 + 256]).abs().max().item())
+    if worst > tol:
+        problems.append(f"a returned score is {worst:.3e} from the sum at its index")
+    gap_prev = torch.full_like(ref_scores[:, :k], float("inf"))
+    gap_prev[:, 1:] = ref_scores[:, : k - 1] - ref_scores[:, 1:k]
+    gap_next = ref_scores[:, :k] - ref_scores[:, 1 : k + 1]
+    clear = (gap_prev > 2 * tol) & (gap_next > 2 * tol)
+    wrong = clear & (idx != ref_idx[:, :k])
+    if wrong.any():
+        problems.append(f"{int(wrong.sum())} indices differ where the plain gaps exceed {2 * tol:.1e}")
+    if planted:
+        order = sorted(planted)
+        for r in range(scores.shape[0]):
+            keep = torch.isin(idx[r], torch.tensor(order, device=idx.device))
+            kept = idx[r][keep].tolist()
+            if kept != order[: len(kept)] or scores[r][keep].unique().numel() > 1:
+                problems.append(f"row {r}: planted ties out of column order: {kept}")
+                break
+    return problems
 
 
-def _lib():
+# ------------------------------- kernels ------------------------------- #
+
+
+_LAUNCH_ARGTYPES = {
+    "ncc_topk_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "ncc_topk_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "ncc_topk_int8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
+
+
+def _launch(name: str, tensors: list[torch.Tensor], ints: list[int], device: torch.device) -> None:
+    """Launch ``csrc/<name>.cu`` on the current stream; raise on a
+    refused launch."""
     from kikuchipy_tpu_torch.ops._build import library
 
-    lib = library("ncc_topk_int8")
-    if not getattr(lib, "_typed", False):
-        lib.ncc_topk_int8_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.ncc_topk_int8_launch.restype = ctypes.c_int
-        lib.ncc_topk_int8_max_k.restype = ctypes.c_int
-        lib.ncc_topk_int8_chunk.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    fn = getattr(library(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = _LAUNCH_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def _outputs(n: int, k: int, device: torch.device):
+    return (
+        torch.empty((n, k), dtype=torch.float32, device=device),
+        torch.empty((n, k), dtype=torch.int32, device=device),
+    )
+
+
+def _f32_kernel(exp: torch.Tensor, dict_: torch.Tensor, k: int, tile_m: int, d_multiple: int):
+    _check_cuda_operands(exp, dict_)
+    if exp.dtype != torch.float32 or dict_.dtype != torch.float32:
+        raise TypeError(f"exp and dict must be float32, got {exp.dtype} and {dict_.dtype}")
+    _check_rows(exp, dict_)
+    exp, dict_ = _pad_cols(exp, d_multiple), _pad_cols(dict_, d_multiple)
+    n, d = exp.shape
+    out_s, out_i = _outputs(n, k, exp.device)
+    _launch("ncc_topk_f32", [exp, dict_, out_s, out_i], [n, dict_.shape[0], d, k, tile_m], exp.device)
+    return out_s, out_i
+
+
+def ncc_match_topk_f32(
+    exp_prepared: torch.Tensor,
+    dict_prepared: torch.Tensor,
+    k: int = 20,
+    tile_n: int = 256,
+    tile_m: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused float32 similarity matmul + top-k (``ncc_match_topk_pallas``).
+
+    Parameters
+    ----------
+    exp_prepared
+        ``(n, d)`` prepared experimental patterns, float32; ``n`` a
+        multiple of ``tile_n``.
+    dict_prepared
+        ``(m, d)`` prepared dictionary, float32; ``m`` a multiple of
+        ``tile_m``.
+    k
+        Matches kept per row, ``1 <= k <= MAX_K``.
+
+    Returns
+    -------
+    ``(scores (n, k) float32 descending, indices (n, k) int32)``.
+    """
+    n, m = exp_prepared.shape[0], dict_prepared.shape[0]
+    _check_tiling(n, m, tile_n, tile_m)
+    _check_k(k)
+    if exp_prepared.device.type == "cpu":
+        return ncc_match_topk_f32_plain(exp_prepared, dict_prepared, k)
+    out = _f32_kernel(exp_prepared, dict_prepared, k, tile_m, 4)
+    ncc_match_topk_f32.launches += 1
+    return out
+
+
+def ncc_match_topk_f32_blocked(
+    exp_prepared: torch.Tensor,
+    dict_prepared: torch.Tensor,
+    k: int = 20,
+    tile_n: int = 512,
+    tile_m: int = 512,
+    tile_d: int = 1200,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ncc_match_topk_f32` with the TPU kernel's contraction
+    blocking (``ncc_match_topk_pallas_v3``): ``tile_d`` must be a multiple
+    of 128, and ``d`` is zero-padded to a multiple of it (harmless for dot
+    products). The f32 kernel computes the same function."""
+    n, m = exp_prepared.shape[0], dict_prepared.shape[0]
+    if tile_d % 128:
+        raise ValueError(f"tile_d={tile_d} must be a multiple of 128")
+    _check_tiling(n, m, tile_n, tile_m)
+    _check_k(k)
+    if exp_prepared.device.type == "cpu":
+        return ncc_match_topk_f32_blocked_plain(exp_prepared, dict_prepared, k)
+    out = _f32_kernel(exp_prepared, dict_prepared, k, tile_m, tile_d)
+    ncc_match_topk_f32_blocked.launches += 1
+    return out
+
+
+def ncc_match_topk_bf16(
+    exp_prepared: torch.Tensor,
+    dict_prepared: torch.Tensor,
+    k: int = 20,
+    tile_n: int = 512,
+    tile_m: int = 512,
+    extraction: str = "fori",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused bf16 NCC matmul + top-k (``ncc_match_topk_pallas_v4``).
+
+    The inputs (any float type) are rounded to bfloat16 and multiplied
+    with float32 accumulation. ``extraction`` is ``"fori"`` or
+    ``"stream"`` (both the stable top-k) or ``"none"`` (slot 0 holds the
+    last tile's row maximum; the matmul-only measurement mode). Shapes and
+    returns as :func:`ncc_match_topk_f32`.
+    """
+    n, m = exp_prepared.shape[0], dict_prepared.shape[0]
+    _check_tiling(n, m, tile_n, tile_m)
+    _check_k(k)
+    _check_extraction(extraction)
+    if exp_prepared.device.type == "cpu":
+        return ncc_match_topk_bf16_plain(exp_prepared, dict_prepared, k, tile_m, extraction)
+    _check_cuda_operands(exp_prepared, dict_prepared)
+    if not (exp_prepared.is_floating_point() and dict_prepared.is_floating_point()):
+        raise TypeError(f"exp and dict must be floating point, got {exp_prepared.dtype} and {dict_prepared.dtype}")
+    _check_rows(exp_prepared, dict_prepared)
+    e = _pad_cols(exp_prepared.to(torch.bfloat16), 8)
+    w = _pad_cols(dict_prepared.to(torch.bfloat16), 8)
+    out_s, out_i = _outputs(n, k, e.device)
+    mode = 1 if extraction == "none" else 0
+    _launch("ncc_topk_bf16", [e, w, out_s, out_i], [n, m, e.shape[1], k, tile_m, mode], e.device)
+    ncc_match_topk_bf16.launches += 1
+    return out_s, out_i
 
 
 def ncc_match_topk_int8(
@@ -130,8 +424,10 @@ def ncc_match_topk_int8(
     tile_n: int = 512,
     tile_m: int = 512,
     group: int = 1,
+    extraction: str = "stream",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused int8 NCC matmul + top-k over pre-quantized rows.
+    """Fused int8 NCC matmul + top-k over pre-quantized rows
+    (``ncc_match_topk_pallas_v5``).
 
     Parameters
     ----------
@@ -142,12 +438,15 @@ def ncc_match_topk_int8(
     dict_scale
         ``(m,)`` float32 per-dictionary-row scales.
     k
-        Matches kept per row.
+        Matches kept per row, ``1 <= k <= MAX_K``.
     tile_n, tile_m
         The TPU kernel's tiles: ``n`` and ``m`` must be multiples
         (``ValueError`` otherwise). ``tile_m`` fixes the group layout.
     group
-        Interleaved group compression factor (must divide ``tile_m``).
+        Interleaved group compression factor of ``"stream"`` (must divide
+        ``tile_m``); ``"fori"`` ignores it, as on the TPU.
+    extraction
+        ``"stream"`` (default), ``"fori"`` or ``"none"``.
 
     Returns
     -------
@@ -155,51 +454,37 @@ def ncc_match_topk_int8(
     """
     n, d = exp_q.shape
     m = dict_q.shape[0]
-    _check_tiling(n, m, tile_n, tile_m, group)
+    _check_tiling(n, m, tile_n, tile_m)
+    if group > 1 and tile_m % group:
+        raise ValueError(f"group={group} must divide tile_m={tile_m}")
+    _check_k(k)
+    _check_extraction(extraction)
     if exp_q.device.type == "cpu":
-        return ncc_match_topk_int8_plain(exp_q, dict_q, dict_scale, k, tile_m, group)
-    if exp_q.device.type != "cuda":
-        raise ValueError(f"unsupported device {exp_q.device}")
+        return ncc_match_topk_int8_plain(exp_q, dict_q, dict_scale, k, tile_m, group, extraction)
+    _check_cuda_operands(exp_q, dict_q, dict_scale)
     if exp_q.dtype != torch.int8 or dict_q.dtype != torch.int8:
         raise TypeError(f"exp_q and dict_q must be int8, got {exp_q.dtype} and {dict_q.dtype}")
     if dict_scale.dtype != torch.float32:
         raise TypeError(f"dict_scale must be float32, got {dict_scale.dtype}")
-    if dict_q.ndim != 2 or dict_q.shape[1] != d or dict_scale.shape != (m,):
-        raise ValueError(
-            f"shape mismatch: exp_q {tuple(exp_q.shape)}, dict_q "
-            f"{tuple(dict_q.shape)}, dict_scale {tuple(dict_scale.shape)}"
-        )
-    if dict_q.device != exp_q.device or dict_scale.device != exp_q.device:
-        raise ValueError("exp_q, dict_q and dict_scale must be on one device")
-    lib = _lib()
-    if not 1 <= k <= lib.ncc_topk_int8_max_k():
-        raise ValueError(f"k={k} outside the kernel's 1..{lib.ncc_topk_int8_max_k()}")
-    if lib.ncc_topk_int8_chunk() % group:
-        raise ValueError(
-            f"group={group} must divide the kernel's chunk of "
-            f"{lib.ncc_topk_int8_chunk()} candidates"
-        )
+    _check_rows(exp_q, dict_q)
+    if dict_scale.shape != (m,):
+        raise ValueError(f"dict_scale has shape {tuple(dict_scale.shape)}, expected ({m},)")
     # 16-byte rows for the kernel's copies; zero columns add nothing.
-    d_pad = (-d) % 16
-    if d_pad:
-        exp_q = torch.nn.functional.pad(exp_q, (0, d_pad))
-        dict_q = torch.nn.functional.pad(dict_q, (0, d_pad))
-    exp_q = exp_q.contiguous()
-    dict_q = dict_q.contiguous()
-    dict_scale = dict_scale.contiguous()
-    out_s = torch.empty((n, k), dtype=torch.float32, device=exp_q.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=exp_q.device)
-    with torch.cuda.device(exp_q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ncc_topk_int8_launch(
-            exp_q.data_ptr(), dict_q.data_ptr(), dict_scale.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
-            n, m, d + d_pad, k, tile_m, group, stream,
-        )
-    if err:
-        raise RuntimeError(f"ncc_topk_int8 launch failed: cudaError_t {err}")
+    exp_q, dict_q = _pad_cols(exp_q, 16), _pad_cols(dict_q, 16)
+    out_s, out_i = _outputs(n, k, exp_q.device)
+    kernel_group = group if extraction == "stream" else 1
+    mode = 1 if extraction == "none" else 0
+    _launch(
+        "ncc_topk_int8",
+        [exp_q, dict_q, dict_scale.contiguous(), out_s, out_i],
+        [n, m, exp_q.shape[1], k, tile_m, kernel_group, mode],
+        exp_q.device,
+    )
     ncc_match_topk_int8.launches += 1
     return out_s, out_i
 
 
+ncc_match_topk_f32.launches = 0
+ncc_match_topk_f32_blocked.launches = 0
+ncc_match_topk_bf16.launches = 0
 ncc_match_topk_int8.launches = 0

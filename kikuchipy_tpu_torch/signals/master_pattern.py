@@ -154,6 +154,34 @@ class EBSDMasterPattern:
             device=dev,
         )
 
+    def projector(
+        self,
+        detector: EBSDDetector,
+        energy: float | None = None,
+        signal_mask: np.ndarray | None = None,
+    ):
+        """Return ``project_fn(rotations) -> (n, n_pixels)`` float32 patterns
+        on this pattern's device, for fused dictionary generation and
+        matching (``dictionary_index(project_fn=..., rotations=...)``).
+        ``rotations`` are unit quaternions ``(n, 4)``, array or tensor.
+        The master pattern, its quad texture and the detector's direction
+        cosines are moved to the device once, here."""
+        if detector.navigation_size != 1:
+            raise ValueError("projector requires a single-PC detector")
+        dev = self.device
+        master = self._hemispheres_at_energy(energy)
+        npy, npx = master.shape[-2:]
+        scale = (npx - 1) / 2
+        master_dev = torch.as_tensor(master, dtype=torch.float32, device=dev)
+        quad = quad_texture(master_dev)
+        dc = direction_cosines_from_detector(detector, signal_mask=signal_mask, device=dev)
+
+        def project_fn(rot_block) -> torch.Tensor:
+            rot = torch.as_tensor(rot_block, dtype=torch.float32, device=dev)
+            return project_patterns(rot, dc, master_dev, npx, npy, scale, quad=quad)
+
+        return project_fn
+
     def __repr__(self) -> str:
         return (
             f"{type(self).__name__}(shape={self.data.shape}, "

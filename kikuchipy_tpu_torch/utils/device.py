@@ -7,10 +7,12 @@ asked for the CPU explicitly; there is no silent fallback.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "ieee_f32"]
+__all__ = ["resolve_device", "as_tensor", "ieee_f32", "matmul_precision"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -32,6 +34,20 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if not arr.flags.writeable:  # torch shares memory and may write
         arr = arr.copy()
     return torch.as_tensor(arr, device=device, dtype=dtype)
+
+
+@contextlib.contextmanager
+def matmul_precision(tf32: bool):
+    """Run float32 matrix products and convolutions on the card in TF32
+    (``tf32=True``) or IEEE float32 inside the block, and restore the
+    global flags after it."""
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def ieee_f32() -> None:

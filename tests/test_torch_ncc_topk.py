@@ -1,7 +1,15 @@
-"""The port's fused int8 NCC + top-k (plain version on the CPU) against
-the JAX package's ncc_match_topk_pallas_v5 in interpret mode: same int8
-inputs, exact equality of scores and indices (the int32 sum is exact and
-the f32 conversion and one multiply are deterministic)."""
+"""The port's fused NCC + top-k wrappers (their plain versions, on the
+CPU) against the JAX package's four Pallas kernels in interpret mode.
+
+- int8 (v5): the same int8 inputs give equal scores and indices exactly
+  (the int32 sum is exact; the f32 conversion and one multiply are
+  deterministic).
+- f32 (v1, v3) and bf16 (v4): integer-valued operands make every sum
+  exact in any order, so scores and indices are equal exactly, planted
+  ties included. On unit-norm random rows indices are equal and scores
+  agree within 1e-5 of the row's largest |score|: the plain version sums
+  in float64, XLA in float32 in its own order.
+"""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +17,24 @@ import pytest
 import torch
 
 from kikuchipy_tpu.indexing.di import _quantize_rows_int8 as quantize_jax
-from kikuchipy_tpu.ops.pallas_di import ncc_match_topk_pallas_v5
+from kikuchipy_tpu.ops.pallas_di import (
+    ncc_match_topk_pallas,
+    ncc_match_topk_pallas_v3,
+    ncc_match_topk_pallas_v4,
+    ncc_match_topk_pallas_v5,
+)
 from kikuchipy_tpu_torch.indexing.di import _quantize_rows_int8 as quantize_torch
-from kikuchipy_tpu_torch.ops.ncc_topk import ncc_match_topk_int8, ncc_match_topk_int8_plain
+from kikuchipy_tpu_torch.ops import ncc_topk as nt
+from kikuchipy_tpu_torch.ops.ncc_topk import (
+    ncc_match_topk_bf16,
+    ncc_match_topk_f32,
+    ncc_match_topk_f32_blocked,
+    ncc_match_topk_int8,
+    ncc_match_topk_int8_plain,
+)
+
+F32_MIN = np.finfo(np.float32).min
+RTOL_ROW = 1e-5
 
 
 def _operands(n, m, d, seed, ties=True):
@@ -28,12 +51,45 @@ def _operands(n, m, d, seed, ties=True):
     return eq, dq, ds
 
 
-def _jax(eq, dq, ds, k, tile_n, tile_m, group):
+def _float_operands(n, m, d, seed, exact):
+    """Integer-valued float32 rows (every sum exact, many exact ties), or
+    unit-norm random rows. Planted duplicate dictionary rows either way."""
+    rng = np.random.default_rng(seed)
+    if exact:
+        e = rng.integers(-8, 9, size=(n, d)).astype(np.float32)
+        w = rng.integers(-8, 9, size=(m, d)).astype(np.float32)
+    else:
+        e = rng.normal(size=(n, d)).astype(np.float32)
+        w = rng.normal(size=(m, d)).astype(np.float32)
+        e /= np.linalg.norm(e, axis=1, keepdims=True)
+        w /= np.linalg.norm(w, axis=1, keepdims=True)
+    for j in (5, 40 % m, m - 1):
+        w[j] = w[3]
+    return e, w
+
+
+def _jax_v5(eq, dq, ds, k, tile_n, tile_m, group, extraction="stream"):
     s, i = ncc_match_topk_pallas_v5(
         jnp.asarray(eq), jnp.asarray(dq), jnp.asarray(ds), k,
-        tile_n=tile_n, tile_m=tile_m, interpret=True, group=group,
+        tile_n=tile_n, tile_m=tile_m, interpret=True, group=group, extraction=extraction,
     )
     return np.asarray(s), np.asarray(i)
+
+
+def _int8_port(eq, dq, ds, k, tile_n, tile_m, group, extraction="stream"):
+    s, i = ncc_match_topk_int8(
+        torch.from_numpy(eq), torch.from_numpy(dq), torch.from_numpy(ds), k,
+        tile_n, tile_m, group, extraction,
+    )
+    return s.numpy(), i.numpy()
+
+
+def _assert_exact(got, ref):
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_array_equal(got[0], ref[0])
+
+
+# ------------------------------ int8 (v5) ------------------------------ #
 
 
 @pytest.mark.parametrize(
@@ -51,15 +107,174 @@ def _jax(eq, dq, ds, k, tile_n, tile_m, group):
 )
 def test_plain_matches_jax_v5_exactly(n, m, d, k, tile_n, tile_m, group):
     eq, dq, ds = _operands(n, m, d, seed=n + m + group)
-    ref_s, ref_i = _jax(eq, dq, ds, k, tile_n, tile_m, group)
-    s, i = ncc_match_topk_int8_plain(
+    ref = _jax_v5(eq, dq, ds, k, tile_n, tile_m, group)
+    got = ncc_match_topk_int8_plain(
         torch.from_numpy(eq), torch.from_numpy(dq), torch.from_numpy(ds), k, tile_m, group
     )
-    np.testing.assert_array_equal(i.numpy(), ref_i)
-    np.testing.assert_array_equal(s.numpy(), ref_s)
+    _assert_exact((got[0].numpy(), got[1].numpy()), ref)
 
 
-def test_wrapper_on_cpu_is_the_plain_version():
+@pytest.mark.parametrize("extraction", ["fori", "none"])
+@pytest.mark.parametrize("group", [1, 8])
+def test_v5_fori_and_none_match_jax_exactly(extraction, group):
+    # "fori" ignores group on the TPU; "none" keeps the last tile's row max.
+    eq, dq, ds = _operands(24, 256, 200, seed=11 + group)
+    ref = _jax_v5(eq, dq, ds, 7, 8, 64, group, extraction)
+    _assert_exact(_int8_port(eq, dq, ds, 7, 8, 64, group, extraction), ref)
+
+
+def test_fewer_candidates_than_k_leave_float32_min_slots():
+    # 256 columns in groups of 16: 16 candidates for k = 20. The TPU's
+    # running top-k starts at float32-min with index 0, and so must ours.
+    eq, dq, ds = _operands(128, 256, 64, seed=3)
+    ref = _jax_v5(eq, dq, ds, 20, 128, 128, 16)
+    got = _int8_port(eq, dq, ds, 20, 128, 128, 16)
+    _assert_exact(got, ref)
+    assert (got[0][:, 16:] == F32_MIN).all() and (got[1][:, 16:] == 0).all()
+
+
+def test_k_up_to_512_matches_jax_and_beyond_raises():
+    eq, dq, ds = _operands(16, 640, 64, seed=4)
+    for k in (130, 512):
+        _assert_exact(_int8_port(eq, dq, ds, k, 8, 128, 1), _jax_v5(eq, dq, ds, k, 8, 128, 1))
+    # keep_n = 65 through pallas-int8 carries k = 130 candidates.
+    _assert_exact(_int8_port(eq, dq, ds, 130, 8, 128, 4), _jax_v5(eq, dq, ds, 130, 8, 128, 4))
+    with pytest.raises(ValueError, match="1..512"):
+        _int8_port(eq, dq, ds, 513, 8, 128, 1)
+    assert nt.MAX_K == 512
+
+
+@pytest.mark.parametrize(
+    "m, k, tile_m, group",
+    [
+        (192, 70, 96, 3),    # groups that do not divide a 128-candidate chunk
+        (1024, 5, 512, 256),  # groups wider than a chunk
+        (1024, 3, 512, 512),
+    ],
+)
+def test_group_not_dividing_the_chunk_matches_jax(m, k, tile_m, group):
+    eq, dq, ds = _operands(16, m, 64, seed=m + group)
+    _assert_exact(_int8_port(eq, dq, ds, k, 8, tile_m, group), _jax_v5(eq, dq, ds, k, 8, tile_m, group))
+
+
+def test_fori_fill_index_past_a_short_dictionary_diverges_from_jax():
+    # k > m over two tiles: JAX's k-round extraction re-picks its first
+    # (already extracted, now float32-min) slot and fills the empty slots
+    # with that slot's index; the port fills index 0, as "stream" does.
+    eq, dq, ds = _operands(8, 64, 64, seed=0, ties=False)
+    ref = _jax_v5(eq, dq, ds, 80, 8, 32, 1, "fori")
+    got = _int8_port(eq, dq, ds, 80, 8, 32, 1, "fori")
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1][:, :64], ref[1][:, :64])
+    assert (got[1][:, 64:] == 0).all() and (ref[1][:, 64:] != 0).any()
+    stream = _jax_v5(eq, dq, ds, 80, 8, 32, 1, "stream")
+    _assert_exact(got, stream)
+
+
+# --------------------------- f32 (v1, v3), bf16 (v4) --------------------------- #
+
+
+def _jax_float(kernel, e, w, k, tile_n, tile_m, **kw):
+    fn = {"v1": ncc_match_topk_pallas, "v3": ncc_match_topk_pallas_v3, "v4": ncc_match_topk_pallas_v4}[kernel]
+    s, i = fn(jnp.asarray(e), jnp.asarray(w), k, tile_n=tile_n, tile_m=tile_m, interpret=True, **kw)
+    return np.asarray(s), np.asarray(i)
+
+
+def _port_float(kernel, e, w, k, tile_n, tile_m, **kw):
+    fn = {"v1": ncc_match_topk_f32, "v3": ncc_match_topk_f32_blocked, "v4": ncc_match_topk_bf16}[kernel]
+    s, i = fn(torch.from_numpy(e), torch.from_numpy(w), k, tile_n, tile_m, **kw)
+    return s.numpy(), i.numpy()
+
+
+FLOAT_CASES = [
+    # kernel, extra kwargs
+    ("v1", {}),
+    ("v3", {"tile_d": 128}),
+    ("v4", {"extraction": "fori"}),
+    ("v4", {"extraction": "stream"}),
+]
+
+
+@pytest.mark.parametrize("kernel, kw", FLOAT_CASES)
+@pytest.mark.parametrize(
+    "n, m, d, k, tile_n, tile_m",
+    [
+        (16, 128, 100, 5, 8, 32),   # ragged d, 4 dictionary tiles
+        (24, 192, 260, 7, 8, 64),   # several row tiles too
+        (16, 96, 64, 40, 8, 32),    # k wider than a dictionary tile
+    ],
+)
+def test_float_kernels_match_jax_exactly_on_integer_rows(kernel, kw, n, m, d, k, tile_n, tile_m):
+    e, w = _float_operands(n, m, d, seed=n + m + d, exact=True)
+    _assert_exact(_port_float(kernel, e, w, k, tile_n, tile_m, **kw), _jax_float(kernel, e, w, k, tile_n, tile_m, **kw))
+
+
+@pytest.mark.parametrize("kernel, kw", FLOAT_CASES)
+def test_float_kernels_match_jax_on_unit_rows(kernel, kw):
+    e, w = _float_operands(16, 256, 300, seed=21, exact=False)
+    ref = _jax_float(kernel, e, w, 6, 8, 64, **kw)
+    got = _port_float(kernel, e, w, 6, 8, 64, **kw)
+    np.testing.assert_array_equal(got[1], ref[1])
+    row_max = np.abs(ref[0]).max(axis=1, keepdims=True)
+    assert (np.abs(got[0] - ref[0]) <= RTOL_ROW * row_max).all()
+
+
+def test_planted_ties_keep_column_order():
+    e, w = _float_operands(8, 64, 32, seed=2, exact=False)
+    w[[10, 20, 30]] = e[0]  # three exact best matches of row 0
+    for kernel, kw in FLOAT_CASES:
+        s, i = _port_float(kernel, e, w, 4, 8, 32, **kw)
+        assert i[0, :3].tolist() == [10, 20, 30] and s[0, 0] == s[0, 1] == s[0, 2]
+
+
+def test_v4_none_keeps_the_last_tile_max():
+    e, w = _float_operands(16, 128, 100, seed=5, exact=True)
+    ref = _jax_float("v4", e, w, 5, 8, 32, extraction="none")
+    got = _port_float("v4", e, w, 5, 8, 32, extraction="none")
+    _assert_exact(got, ref)
+    assert (got[0][:, 1:] == F32_MIN).all() and (got[1] == 0).all()
+
+
+def test_bf16_rounds_operands_to_nearest_even():
+    # 1 + 2**-8 lies halfway between two bf16 values: RNE gives 1.0;
+    # 1 + 3 * 2**-8 rounds up to 1 + 2**-6.
+    e = np.ones((8, 4), np.float32)
+    w = np.zeros((32, 4), np.float32)
+    w[0, 0] = 1 + 2**-8
+    w[1, 0] = 1 + 3 * 2**-8
+    ref = _jax_float("v4", e, w, 2, 8, 32)
+    got = _port_float("v4", e, w, 2, 8, 32)
+    _assert_exact(got, ref)
+    assert got[0][0].tolist() == [1 + 2**-6, 1.0]
+
+
+# --------------------------- contract and wrappers --------------------------- #
+
+
+@pytest.mark.parametrize(
+    "wrapper, plain",
+    [
+        (lambda e, w: ncc_match_topk_f32(e, w, 5, 8, 32), lambda e, w: nt.ncc_match_topk_f32_plain(e, w, 5)),
+        (
+            lambda e, w: ncc_match_topk_f32_blocked(e, w, 5, 8, 32, 128),
+            lambda e, w: nt.ncc_match_topk_f32_blocked_plain(e, w, 5),
+        ),
+        (
+            lambda e, w: ncc_match_topk_bf16(e, w, 5, 8, 32, "stream"),
+            lambda e, w: nt.ncc_match_topk_bf16_plain(e, w, 5, 32, "stream"),
+        ),
+    ],
+)
+def test_float_wrappers_on_cpu_are_the_plain_versions(wrapper, plain):
+    e, w = _float_operands(16, 128, 100, seed=1, exact=False)
+    e, w = torch.from_numpy(e), torch.from_numpy(w)
+    s1, i1 = wrapper(e, w)
+    s2, i2 = plain(e, w)
+    assert torch.equal(s1, s2) and torch.equal(i1, i2)
+    assert s1.dtype == torch.float32 and i1.dtype == torch.int32
+
+
+def test_int8_wrapper_on_cpu_is_the_plain_version():
     eq, dq, ds = _operands(16, 128, 100, seed=1)
     args = (torch.from_numpy(eq), torch.from_numpy(dq), torch.from_numpy(ds))
     s1, i1 = ncc_match_topk_int8(*args, k=5, tile_n=8, tile_m=32, group=8)
@@ -79,12 +294,33 @@ def test_wrapper_on_cpu_is_the_plain_version():
 def test_tiling_errors_match_jax(n, m, tile_n, tile_m, group, match):
     eq, dq, ds = _operands(n, m, 64, seed=2, ties=False)
     with pytest.raises(ValueError, match=match):
-        _jax(eq, dq, ds, 5, tile_n, tile_m, group)
+        _jax_v5(eq, dq, ds, 5, tile_n, tile_m, group)
     with pytest.raises(ValueError, match=match):
-        ncc_match_topk_int8(
-            torch.from_numpy(eq), torch.from_numpy(dq), torch.from_numpy(ds),
-            5, tile_n, tile_m, group,
-        )
+        _int8_port(eq, dq, ds, 5, tile_n, tile_m, group)
+
+
+@pytest.mark.parametrize(
+    "kernel, n, kw, match",
+    [
+        ("v1", 100, {}, "multiples"),
+        ("v3", 128, {"tile_d": 100}, "multiple of 128"),
+        ("v3", 128, {}, "multiple of 128"),  # v3's own default tile_d = 1200
+        ("v3", 100, {"tile_d": 128}, "multiples"),
+        ("v4", 100, {}, "multiples"),
+    ],
+)
+def test_float_errors_match_jax(kernel, n, kw, match):
+    e, w = _float_operands(n, 1024, 64, seed=0, exact=False)
+    with pytest.raises(ValueError, match=match):
+        _jax_float(kernel, e, w, 5, 128, 512, **kw)
+    with pytest.raises(ValueError, match=match):
+        _port_float(kernel, e, w, 5, 128, 512, **kw)
+
+
+def test_unknown_extraction_raises():
+    e, w = _float_operands(8, 32, 16, seed=0, exact=True)
+    with pytest.raises(ValueError, match="extraction"):
+        _port_float("v4", e, w, 2, 8, 32, extraction="sort")
 
 
 def test_quantize_rows_int8_matches_jax():
@@ -98,3 +334,14 @@ def test_quantize_rows_int8_matches_jax():
     np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
     assert q[5, :4].tolist() == [127, 2, -4, 0]
+
+
+def test_near_tie_rule_accepts_the_plain_version_and_flags_departures():
+    e, w = (torch.from_numpy(x) for x in _float_operands(32, 512, 100, seed=8, exact=False))
+    ref_s, ref_i = nt.ncc_match_topk_f32_plain(e, w, 6)
+    s, i = ref_s[:, :5].clone(), ref_i[:, :5].clone()
+    assert nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, 1e-5, (3, 5, 40)) == []
+    i[0, [0, 1]] = i[0, [1, 0]]
+    assert any("indices differ" in p for p in nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, 1e-5))
+    s[0, 0] += 1e-3
+    assert len(nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, 1e-5)) == 3

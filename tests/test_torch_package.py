@@ -1,6 +1,6 @@
 """Rules of the port: it imports neither JAX nor the JAX package, its
 entry points run on the card unless told otherwise, and the kernel
-wrapper counts only launches of the kernel."""
+wrappers count only launches of their kernels."""
 
 import importlib
 import pkgutil
@@ -15,7 +15,7 @@ import torch
 
 import kikuchipy_tpu_torch
 from kikuchipy_tpu_torch.ops import _build
-from kikuchipy_tpu_torch.ops.ncc_topk import ncc_match_topk_int8
+from kikuchipy_tpu_torch.ops import ncc_topk as nt
 
 PKG = Path(kikuchipy_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
@@ -56,6 +56,12 @@ def test_no_import_statement_names_jax():
         lambda: importlib.import_module("kikuchipy_tpu_torch.ops.pattern").remove_dynamic_background(
             np.ones((1, 8, 8), np.uint8)
         ),
+        lambda: kikuchipy_tpu_torch.dictionary_index(
+            np.ones((2, 4, 4)), project_fn=lambda r: r, rotations=np.ones((3, 16))
+        ),
+        lambda: kikuchipy_tpu_torch.EBSDMasterPattern(np.ones((2, 5, 5), np.float32)).projector(
+            kikuchipy_tpu_torch.EBSDDetector(shape=(4, 4))
+        ),
     ],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
@@ -64,24 +70,61 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
         call()
 
 
-def test_wrapper_on_cpu_does_not_count_launches():
+@pytest.mark.parametrize(
+    "wrapper, args, kw",
+    [
+        (nt.ncc_match_topk_int8, lambda e, w: (e.to(torch.int8), w.to(torch.int8), torch.ones(32)), {}),
+        (nt.ncc_match_topk_f32, lambda e, w: (e, w), {}),
+        # v3's default tile_d = 1200 is no multiple of 128: the TPU
+        # function raises for its own default, and so does the port.
+        (nt.ncc_match_topk_f32_blocked, lambda e, w: (e, w), {"tile_d": 128}),
+        (nt.ncc_match_topk_bf16, lambda e, w: (e, w), {}),
+    ],
+)
+def test_wrappers_on_cpu_do_not_count_launches(wrapper, args, kw):
     rng = np.random.default_rng(0)
-    e = torch.from_numpy(rng.integers(-127, 128, (8, 32), dtype=np.int8))
-    w = torch.from_numpy(rng.integers(-127, 128, (32, 32), dtype=np.int8))
-    sc = torch.ones(32)
-    before = ncc_match_topk_int8.launches
-    ncc_match_topk_int8(e, w, sc, k=4, tile_n=8, tile_m=32)
-    assert ncc_match_topk_int8.launches == before
+    e = torch.from_numpy(rng.integers(-127, 128, (8, 128)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, (32, 128)).astype(np.float32))
+    before = wrapper.launches
+    wrapper(*args(e, w), k=4, tile_n=8, tile_m=32, **kw)
+    assert wrapper.launches == before
 
 
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
-    assert "ncc_topk_int8" in srcs
-    text = srcs["ncc_topk_int8"].read_text()
-    assert "mma.sync.aligned.m16n8k32" in text and "ncc_match_topk_pallas_v5" in text
+    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"}
+    text = {name: path.read_text() for name, path in srcs.items()}
+    assert "mma.sync.aligned.m16n8k32" in text["ncc_topk_int8"] and "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
+    assert "mma.sync.aligned.m16n8k16" in text["ncc_topk_bf16"] and "ncc_match_topk_pallas_v4" in text["ncc_topk_bf16"]
+    assert "ncc_match_topk_pallas (v1" in text["ncc_topk_f32"] and "ncc_match_topk_pallas_v3" in text["ncc_topk_f32"]
+    for t in text.values():
+        assert '#include "topk_select.cuh"' in t
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "kikuchipy_tpu_torch/_kernels_build/" in ignored
+
+
+def test_no_kernel_source_calls_a_library():
+    csrc = PKG / "csrc"
+    for path in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
+        t = path.read_text().lower()
+        for name in ("cublas", "cutlass", "cudnn", "torch/"):
+            assert name not in t, (path.name, name)
+
+
+def test_python_k_limit_is_the_kernels():
+    header = (PKG / "csrc" / "topk_select.cuh").read_text()
+    assert f"constexpr int MAX_K = {nt.MAX_K};" in header
+
+
+def test_a_changed_header_rebuilds(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel")
+    (tmp_path / "h.cuh").write_text("// header")
+    monkeypatch.setattr(_build, "_SRC_DIR", tmp_path)
+    before = _build._target(src)
+    (tmp_path / "h.cuh").write_text("// header, changed")
+    assert _build._target(src) != before
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
