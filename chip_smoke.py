@@ -9,14 +9,18 @@ the card's name and power limit, and the device check):
 2. build: every kernel under ``kikuchipy_tpu_torch/csrc`` with ``nvcc``,
    one process per source, all started together;
 3. int8 kernel against its plain version, bit for bit: small cases with
-   planted ties, the repairs (k of 130 and 512, groups of 3, 256 and 512,
-   fewer candidates than k ending in float32-min slots), the "fori" and
-   "none" extractions, and a slab at the main-path shape;
+   planted ties, k of 1, 40, 130 and 512, groups of 1, 3, 16, 256 and 512,
+   fewer candidates than k ending in float32-min slots, the "fori" and
+   "none" extractions, the shapes that are ragged against the wgmma
+   kernels' 128-row x 256-candidate block (n of 8, 72 and 136, m a
+   multiple of 32 only, row bytes no multiple of 128, duplicate rows on
+   both sides of a slice, each kernel's chunk and a warpgroup), and a
+   slab at the main-path shape;
 4. f32 and bf16 kernels against their plain versions (float64 sums)
    modulo near-ties (``ncc_topk.near_tie_disagreements``, tol 1e-5 on
-   unit-norm rows): planted duplicate rows in column order, ragged d,
-   k of 5, 40 and 130, every extraction, then a 1024-row slab of the main
-   path's own prepared rows;
+   unit-norm rows): planted duplicate rows in column order, the same
+   ragged shapes, k of 1 to 512, every extraction, then a 1024-row slab
+   of the main path's own prepared rows;
 5. the main path at full size, from a seed: a synthetic m-3m master
    pattern (401 x 401 per hemisphere), a 60 x 60 detector, a 2-degree
    fundamental-zone dictionary (107,129 orientations), a 128 x 128 uint8
@@ -39,8 +43,12 @@ the card's name and power limit, and the device check):
    approx_topk=True)`` call: top-1 against the exact tier, recovery, ms;
 8. times from CUDA events after a warm-up, beside the card's name and
    power limit: each kernel at the main-path shape with its bound, its
-   plain version and a library yardstick; then a breakdown of one
-   pallas-int8 indexing call.
+   plain version and two library yardsticks (the product alone, and the
+   same function from library calls: per 32,768-column tile a product,
+   ``torch.topk`` and a merge); for the wgmma kernels also the bytes their
+   tile moves from L2 to shared memory and the time that takes at the L2
+   read rate measured here; then a breakdown of one pallas-int8 indexing
+   call and a ``torch.profiler`` trace of it.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is summed over
@@ -165,6 +173,11 @@ def scan_data(mp, det, truth: np.ndarray, seed: int, chunk_size: int):
 # ------------------------ kernel vs plain ------------------------- #
 
 
+# Dictionary rows on both sides of the wgmma kernels' boundaries: a
+# 32-candidate selection slice and the bf16 (160) and int8 (256) chunks.
+STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
+
+
 def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
     """int8 kernel-vs-plain cases, bit for bit: small ones with planted
     ties, the repairs of k > 128, of groups that do not divide a
@@ -181,11 +194,17 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
         e = torch.randint(-127, 128, (n, dd), generator=g, dtype=torch.int8)
         w = torch.randint(-127, 128, (m, dd), generator=g, dtype=torch.int8)
         sc = torch.rand(m, generator=g) * 0.01 + 1e-3
-        # Planted ties: duplicated dictionary rows, and an all-zero row
-        # whose scores are all equal.
-        for j in (5, 40, m - 1):
-            w[j], sc[j] = w[3], sc[3]
+        # Planted ties: duplicated dictionary rows (also on both sides of a
+        # 32-candidate slice and of the bf16 kernel's 160- and the int8
+        # kernel's 256-candidate chunk), an all-zero row whose scores are
+        # all equal, and one pattern in both consumer warpgroups (rows 63
+        # and 64).
+        for j in (5, 40, m - 1) + STRADDLE:
+            if j < m:
+                w[j], sc[j] = w[3], sc[3]
         e[1] = 0
+        if n > 64:
+            e[64] = e[63].clone()
         return e.to(device), w.to(device), sc.to(device)
 
     cases = [
@@ -205,6 +224,18 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
         # the other extractions
         (128, 1024, 200, k, 8, 512, 8, "fori"),
         (128, 1024, 200, k, 8, 512, 1, "none"),
+        # ragged against the 128 x 256 block: n of 8, 72 and 136, m a
+        # multiple of tile_m = 32 only, row bytes no multiple of 128
+        (8, 288, 200, 1, 8, 32, 1, "stream"),
+        (72, 288, 200, k, 8, 32, 1, "stream"),
+        (136, 544, 100, 130, 8, 32, 1, "stream"),
+        (136, 544, 72, 512, 8, 32, 1, "stream"),
+        (72, 96, 72, 130, 8, 32, 1, "stream"),
+        (72, 288, 100, k, 8, 96, 3, "stream"),
+        (136, 544, 100, k, 8, 32, 16, "stream"),
+        (8, 1024, 72, 5, 8, 512, 256, "stream"),
+        (136, 1024, 72, 3, 8, 512, 512, "stream"),
+        (136, 544, 72, k, 8, 32, 1, "none"),
     ]
     short_lists = 0
     for n, m, dd, kk, tile_n, tile_m, group, extraction in cases:
@@ -215,12 +246,14 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
         torch.cuda.synchronize()
         if not (torch.equal(s1, s2) and torch.equal(i1, i2)):
             raise AssertionError(f"kernel != plain at n={n} m={m} d={dd} k={kk} group={group} {extraction}")
+        if n > 64 and not (torch.equal(s1[63], s1[64]) and torch.equal(i1[63], i1[64])):
+            raise AssertionError(f"one pattern in both warpgroups, two results (n={n} m={m})")
         n_cand = m // group if extraction == "stream" else m
         if extraction != "none" and n_cand < kk:
             if not ((s1[:, n_cand:] == EMPTY_SCORE).all() and (i1[:, n_cand:] == 0).all()):
                 raise AssertionError(f"slots past {n_cand} candidates are not (float32-min, 0)")
             short_lists += 1
-    if short_lists < 3:
+    if short_lists < 5:
         raise AssertionError("the short-list cases did not run")
     slab = operands(1024, m_main, d)
     s1, i1 = ncc_match_topk_int8(*slab, k, 512, 512, 1)
@@ -244,14 +277,17 @@ def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
     from kikuchipy_tpu_torch.ops import ncc_topk as nt
 
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
-    planted = (3, 5, 40)
+    all_planted = (3, 5, 40) + STRADDLE
 
     def operands(n, m, dd):
         e = torch.randn((n, dd), generator=g)
         w = torch.randn((m, dd), generator=g)
+        planted = tuple(j for j in all_planted if j < m)
         w[list(planted[1:])] = w[planted[0]].clone()
         e, w = e / e.norm(dim=1, keepdim=True), w / w.norm(dim=1, keepdim=True)
-        return e.to(device), w.to(device)
+        if n > 64:
+            e[64] = e[63].clone()  # one pattern in both consumer warpgroups
+        return e.to(device), w.to(device), planted
 
     kernels = {
         "f32": (lambda e, w, kk, tm: nt.ncc_match_topk_f32(e, w, kk, 8, tm), torch.float32),
@@ -273,21 +309,38 @@ def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
         bad = nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, NEAR_TIE_TOL, rows_planted, rounding)
         if bad:
             raise AssertionError(f"{name} kernel != plain at n={e.shape[0]} m={w.shape[0]} d={e.shape[1]} k={kk}: {bad}")
+        if e.shape[0] > 64 and rows_planted and not (torch.equal(s[63], s[64]) and torch.equal(i[63], i[64])):
+            raise AssertionError(f"{name}: one pattern in both warpgroups, two results")
         return float((s - ref_s[:, :kk]).abs().max())
 
     n_cases = 0
-    for n, m, dd, kk, tm in [(64, 512, 100, 5, 128), (128, 2048, 3600, 40, 512), (64, 1024, 301, 130, 512)]:
-        e, w = operands(n, m, dd)
+    for n, m, dd, kk, tm in [
+        (64, 512, 100, 5, 128), (128, 2048, 3600, 40, 512), (64, 1024, 301, 130, 512),
+        # ragged against the wgmma kernels' 128 x 256 block
+        (8, 288, 100, 1, 32), (72, 288, 301, 40, 32), (136, 544, 72, 130, 32), (136, 544, 200, 512, 32),
+    ]:
+        e, w, planted = operands(n, m, dd)
         for name in kernels:
             check(name, e, w, kk, tm, planted)
             n_cases += 1
+    # Fewer candidates than k: the plain list, then (float32-min, 0) slots.
+    e, w, _ = operands(72, 96, 72)
+    for name, (fn, rounding) in kernels.items():
+        s, i = fn(e, w, 130, 32)
+        ref_s, ref_i = plain(rounding, e, w, 96, 32)
+        if not ((s[:, :96] - ref_s).abs().max() <= NEAR_TIE_TOL and (s[:, 96:] == nt.EMPTY_SCORE).all()
+                and (i[:, 96:] == 0).all()):
+            raise AssertionError(f"{name}: 96 candidates for k=130 do not end in (float32-min, 0) slots")
+        n_cases += 1
     # "none": slot 0 is the last tile's row maximum, the rest empty.
-    e, w = operands(64, 1024, 300)
-    s, i = nt.ncc_match_topk_bf16(e, w, 5, 8, 512, "none")
-    ref, _ = nt.ncc_match_topk_bf16_plain(e, w, 5, 512, "none")
-    if not ((s[:, 0] - ref[:, 0]).abs().max() <= NEAR_TIE_TOL and torch.equal(s[:, 1:], ref[:, 1:]) and (i == 0).all()):
-        raise AssertionError("bf16 'none' differs from its plain version")
-    n_cases += 1
+    for n, m, dd, tm in ((64, 1024, 300, 512), (136, 544, 72, 32)):
+        e, w, _ = operands(n, m, dd)
+        s, i = nt.ncc_match_topk_bf16(e, w, 5, 8, tm, "none")
+        ref, _ = nt.ncc_match_topk_bf16_plain(e, w, 5, tm, "none")
+        if not ((s[:, 0] - ref[:, 0]).abs().max() <= NEAR_TIE_TOL and torch.equal(s[:, 1:], ref[:, 1:])
+                and (i == 0).all()):
+            raise AssertionError("bf16 'none' differs from its plain version")
+        n_cases += 1
     slab_err = {name: check(name, exp_rows[:1024], dict_rows, k, 512, ()) for name in kernels}
     return n_cases + len(kernels), slab_err
 
@@ -327,6 +380,47 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def l2_read_rate(device, mib: int = 32, reps: int = 50) -> float:
+    """Bytes per second at which the SMs read a buffer that sits in L2: the
+    read probe built with the int8 kernel (``csrc/ncc_topk_int8.cu``), timed
+    with CUDA events."""
+    import ctypes
+
+    import torch
+
+    from kikuchipy_tpu_torch.ops._build import library
+
+    fn = library("ncc_topk_int8").ncc_l2_read_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.ones(mib * 2**20 // 4, dtype=torch.int32, device=device)
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def probe():
+        err = fn(buf.data_ptr(), buf.numel() * 4, reps, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"L2 read probe launch failed: cudaError_t {err}")
+
+    return buf.numel() * 4 * reps / (cuda_ms(probe, 3) * 1e-3)
+
+
+def library_same_function(product, m: int, k: int, tile: int = 32768):
+    """The kernels' function from library calls, never called by the port:
+    per ``tile`` columns a product (``product(c0, c1)`` -> f32 scores),
+    ``torch.topk`` and a merge with the running top-k."""
+    import torch
+
+    best_s = best_i = None
+    for c0 in range(0, m, tile):
+        s, i = torch.topk(product(c0, min(c0 + tile, m)), k, dim=1)
+        i = i + c0
+        if best_s is not None:
+            s, pos = torch.topk(torch.cat([best_s, s], dim=1), k, dim=1)
+            i = torch.gather(torch.cat([best_i, i], dim=1), 1, pos)
+        best_s, best_i = s, i
+    return best_s, best_i
 
 
 def main(argv=None) -> int:
@@ -379,7 +473,8 @@ def main(argv=None) -> int:
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in text.splitlines() if "registers" in ln]
         frames = [ln for ln in text.splitlines() if "stack frame" in ln]
         spilled = [ln for ln in frames if not ln.startswith("0 bytes stack frame, 0 bytes spill stores")]
-        ptxas[name] = f"max {max(regs, default=0)} registers, {len(spilled)}/{len(frames)} kernels with stack or spills"
+        ptxas[name] = (f"max {max(regs, default=0)} registers, {len(spilled)}/{len(frames)} kernels with stack or "
+                       f"spills{': ' + ' | '.join(spilled) if spilled else ''}")
     log("build", f"{sorted(built)} in {time.perf_counter() - t0:.1f} s; ptxas {ptxas}")
 
     # ---- inputs (seeded) ----
@@ -547,31 +642,44 @@ def main(argv=None) -> int:
     ms_proj = cuda_ms(lambda: mp.get_patterns(dict_rot, det, chunk_size=8192), 2)
     n_ops = 2.0 * n_scan * m_main * d
     out_bytes = n_scan * k_carry * 8
+    f32_product = lambda c0, c1: exp_prep @ dict_main[c0:c1].T
     kernels = [
-        # name, replaces (pallas_di.py line), source stem, peak, operand bytes, reps, plain, library
+        # name, replaces (pallas_di.py line), source stem, peak, operand bytes, reps, plain, product-only library
+        # call, the product of the same-function library yardstick
         ("ncc_match_topk_f32", 413, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
          lambda: nt.ncc_match_topk_f32_plain(exp_prep, dict_main, k_carry),
-         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T)),
+         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T), f32_product),
         ("ncc_match_topk_f32_blocked", 179, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
          lambda: nt.ncc_match_topk_f32_blocked_plain(exp_prep, dict_main, k_carry),
-         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T)),
+         ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T), f32_product),
         ("ncc_match_topk_bf16", 340, "ncc_topk_bf16", PEAK_BF16_FLOPS, 2 * (n_scan + m_main) * d, 5,
          lambda: nt.ncc_match_topk_bf16_plain(exp_prep, dict_main, k_carry, 512),
-         ("torch.matmul bf16", lambda: exp_bf16 @ dict_bf16.T)),
+         ("torch.matmul bf16", lambda: exp_bf16 @ dict_bf16.T),
+         lambda c0, c1: (exp_bf16 @ dict_bf16[c0:c1].T).float()),
         ("ncc_match_topk_int8", 600, "ncc_topk_int8", PEAK_INT8_OPS, (n_scan + m_main) * d + 4 * m_main, 5,
          lambda: nt.ncc_match_topk_int8_plain(exp_q, dict_q_main, dict_s_main, k_carry, 512),
-         ("torch._int_mm", lambda: torch._int_mm(exp_q, dict_q_main.T))),
+         ("torch._int_mm", lambda: torch._int_mm(exp_q, dict_q_main.T)),
+         lambda c0, c1: torch._int_mm(exp_q, dict_q_main[c0:c1].T).float() * dict_s_main[None, c0:c1]),
     ]
     exp_bf16, dict_bf16 = exp_prep.to(torch.bfloat16), dict_main.to(torch.bfloat16)
+    l2_rate = l2_read_rate(dev)
     table, time_msgs = [], []
     with matmul_precision(False):
-        for name, line, stem, peak, in_bytes, reps, plain_fn, (lib_name, lib_fn) in kernels:
+        for name, line, stem, peak, in_bytes, reps, plain_fn, (lib_name, lib_fn), product in kernels:
             ms = cuda_ms(entry[name], reps)
             clocks = smi_line("clocks.sm,power.draw,temperature.gpu")
             ms_plain = cuda_ms(plain_fn, 1)
             ms_lib = cuda_ms(lib_fn, 3)
+            ms_same = cuda_ms(lambda: library_same_function(product, m_main, k_carry), 1)
             t_ops, t_bytes = n_ops / peak * 1e3, (in_bytes + out_bytes) / PEAK_BYTES * 1e3
             bound = max(t_ops, t_bytes)
+            # The wgmma kernels' second bound: the bytes their tile moves
+            # from L2 to shared memory, at the L2 read rate measured here.
+            tile = nt.WGMMA_TILE.get(stem)
+            l2_gb = l2_ms = None
+            if tile:
+                l2_gb = nt.wgmma_l2_bytes(stem, n_scan, m_main, in_bytes // (n_scan + m_main)) / 1e9
+                l2_ms = l2_gb * 1e9 / l2_rate * 1e3
             table.append({
                 "name": name,
                 "route": "cuda",
@@ -585,16 +693,22 @@ def main(argv=None) -> int:
                 "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": ms_lib,
+                "library_same_function_ms": ms_same,
+                "l2_bound_ms": l2_ms,
             })
+            l2_msg = "" if l2_ms is None else (
+                f"; {tile['bm']} x {tile['bn']} tile in clusters of {tile['cluster']} moves {l2_gb:.1f} GB from L2, "
+                f"{l2_ms:.3f} ms at the measured {l2_rate / 1e12:.3f} TB/s")
             time_msgs.append(f"{name} {ms:.3f} ms [after it: {clocks}] (bound {bound:.3f} ms by "
-                             f"{table[-1]['bound_by']}, {bound / ms:.2%} of it; plain {ms_plain:.3f} ms; "
-                             f"{lib_name} {ms_lib:.3f} ms)")
+                             f"{table[-1]['bound_by']}, {bound / ms:.2%} of it{l2_msg}; plain {ms_plain:.3f} ms; "
+                             f"{lib_name} {ms_lib:.3f} ms; product + torch.topk + merge per 32768 columns "
+                             f"{ms_same:.3f} ms)")
     del exp_bf16, dict_bf16
     ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     mb = scan.data.numel() / 1e6
     log("times", f"{smi}: preprocess {ms_pre:.3f} ms ({mb / ms_pre * 1e3:.1f} MB/s uint8 in); "
         f"dictionary projection {ms_proj:.3f} ms ({m} patterns); at n={n_scan} m={m_main} d={d} k={k_carry}: "
-        + "; ".join(time_msgs) + f" (library calls: product only, never called by the port); "
+        + "; ".join(time_msgs) + f" (library calls: never called by the port); "
         f"dictionary_indexing pallas-int8 {ms_di:.3f} ms = {n_scan / ms_di * 1e3:.1f} patterns/s")
 
     # ---- where the time of one indexing call and one projection chunk goes ----
@@ -617,6 +731,33 @@ def main(argv=None) -> int:
     spent = {name: cuda_ms(fn, 3) for name, fn in parts.items()}
     int8_ms = table[-1]["ms"]
     log("breakdown", f"{smi}: kernel {int8_ms:.3f} ms; " + "; ".join(f"{k} {v:.3f} ms" for k, v in spent.items()))
+
+    # ---- a profiler trace of one pallas-int8 indexing call ----
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
+        torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_time(e) -> float:
+        v = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0) if v is None else v
+
+    averages = prof.key_averages()
+    events = [e for e in averages if "cuda" in str(getattr(e, "device_type", "")).lower() and dev_time(e) > 0]
+    if not events:  # no device-side entries: take whatever carries device time
+        events = [e for e in averages if dev_time(e) > 0]
+    events.sort(key=dev_time, reverse=True)
+    busy_ms = sum(dev_time(e) for e in events) / 1e3
+    top = "; ".join(f"{e.key[:60]} x{e.count} {dev_time(e) / 1e3:.3f} ms" for e in events[:14])
+    log("profile", f"{smi}: one pallas-int8 call under torch.profiler: wall {wall_ms:.3f} ms (tracing on), device busy "
+        f"{busy_ms:.3f} ms over {len(events)} kernel names; {top}" if events else
+        f"{smi}: torch.profiler recorded no device time; wall {wall_ms:.3f} ms")
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -1,16 +1,16 @@
 // Shared pieces of the fused NCC matmul + top-k kernels (Hopper, sm_90a):
-// the block tiling, the cp.async operand ring, the logical candidate
-// order, and the warp-level mma.sync chunk product.
+// the logical candidate order of group compression, and the block tiling
+// and cp.async operand ring of the SIMT float32 kernel (ncc_topk_f32.cu).
+// The tensor-core kernels (int8, bf16) have their own tile, TMA ring and
+// wgmma product in ncc_wgmma.cuh.
 //
-// Every kernel of this family gives one block BM experimental rows and
-// walks the whole dictionary in chunks of BN candidates: the TPU kernels'
-// sequential inner grid axis becomes this loop. Each chunk's BM x BN
-// scores are staged in shared memory and handed to the selection of
-// topk_select.cuh. Operands are staged by bytes: a row of d values of
-// any type is row_bytes = d * sizeof(value) bytes, a multiple of 16, and
-// each pipeline stage holds BK_BYTES of every row. The int8 (m16n8k32)
-// and bf16 (m16n8k16) tensor-core fragments sit at the same byte offsets
-// within a 32-byte k-step, so one product loop serves both.
+// Every kernel of this family gives one block a tile of experimental rows
+// and walks the whole dictionary in chunks of candidates: the TPU kernels'
+// sequential inner grid axis becomes this loop. Each chunk's scores reach
+// the selection of topk_select.cuh through a score tile in shared memory.
+// In the ring below operands are staged by bytes: a row of d values is
+// row_bytes = d * sizeof(value) bytes, a multiple of 16, and each pipeline
+// stage holds BK_BYTES of every row.
 
 #pragma once
 
@@ -111,105 +111,15 @@ __device__ __forceinline__ void chunk_pipeline(unsigned char* pipe, const unsign
     }
 }
 
-// Warp tiling of the tensor-core products: a 2 x 2 grid of warps, each
-// owning WM x WN of the BM x BN chunk as MT x NT mma tiles of 16 x 8.
-constexpr int WM = 32;
-constexpr int WN = 64;
-constexpr int MT = WM / 16;
-constexpr int NT = WN / 8;
-
-// One chunk's BM x BN product on the tensor cores. Op supplies the
-// accumulator type Acc and mma(acc[4], a[4], b[2]) for one 16 x 8 tile
-// and one 32-byte k-step; the A/B fragments are loaded here, at the
-// byte offsets the m16n8k32 s8 and m16n8k16 bf16 layouts share.
-// With Op::kPromote, each stage's products are summed by the tensor cores
-// into a zeroed partial tile, which is then added to acc by IEEE f32 adds
-// (round to nearest). Accumulating all of d = 3600 in the tensor cores
-// measured up to 9.6e-6 from the float64 sum on unit-norm rows, a drift
-// that grows with d; the partial of one 128-byte stage is too short for
-// it to show.
-template <class Op>
-__device__ __forceinline__ void mma_chunk(typename Op::Acc (&acc)[MT][NT][4], unsigned char* pipe,
-                                          const unsigned char* exp, const unsigned char* dict, int row0, int chunk0,
-                                          int n, int m, int row_bytes, int tile_m, int group) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1;
-    const int wn = warp & 1;
-    const int g = lane >> 2;
-    const int tq = lane & 3;
-#pragma unroll
-    for (int a = 0; a < MT; ++a)
-#pragma unroll
-        for (int b = 0; b < NT; ++b)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[a][b][c] = 0;
-
-    chunk_pipeline(pipe, exp, dict, row0, chunk0, n, m, row_bytes, tile_m, group,
-                   [&](const unsigned char* As, const unsigned char* Bs) {
-                       typename Op::Acc part[MT][NT][4];
-#pragma unroll
-                       for (int a = 0; a < MT; ++a)
-#pragma unroll
-                           for (int b = 0; b < NT; ++b)
-#pragma unroll
-                               for (int c = 0; c < 4; ++c) part[a][b][c] = 0;
-#pragma unroll
-                       for (int ks = 0; ks < BK_BYTES; ks += 32) {
-                           unsigned af[MT][4];
-                           unsigned bf[NT][2];
-#pragma unroll
-                           for (int a = 0; a < MT; ++a) {
-                               const unsigned char* p = As + (wm * WM + a * 16 + g) * SROW + ks + tq * 4;
-                               af[a][0] = *reinterpret_cast<const unsigned*>(p);
-                               af[a][1] = *reinterpret_cast<const unsigned*>(p + 8 * SROW);
-                               af[a][2] = *reinterpret_cast<const unsigned*>(p + 16);
-                               af[a][3] = *reinterpret_cast<const unsigned*>(p + 8 * SROW + 16);
-                           }
-#pragma unroll
-                           for (int b = 0; b < NT; ++b) {
-                               const unsigned char* p = Bs + (wn * WN + b * 8 + g) * SROW + ks + tq * 4;
-                               bf[b][0] = *reinterpret_cast<const unsigned*>(p);
-                               bf[b][1] = *reinterpret_cast<const unsigned*>(p + 16);
-                           }
-#pragma unroll
-                           for (int a = 0; a < MT; ++a)
-#pragma unroll
-                               for (int b = 0; b < NT; ++b) {
-                                   if constexpr (Op::kPromote)
-                                       Op::mma(part[a][b], af[a], bf[b]);
-                                   else
-                                       Op::mma(acc[a][b], af[a], bf[b]);
-                               }
-                       }
-                       if constexpr (Op::kPromote) {
-#pragma unroll
-                           for (int a = 0; a < MT; ++a)
-#pragma unroll
-                               for (int b = 0; b < NT; ++b)
-#pragma unroll
-                                   for (int c = 0; c < 4; ++c) acc[a][b][c] += part[a][b][c];
-                       }
-                   });
-}
-
-// Visit the accumulator layout of mma_chunk: f(r, c, a, b, h) for the
-// score-tile row r and the first of the two adjacent columns c, c + 1
-// held in acc[a][b][2h], acc[a][b][2h + 1].
-template <class F>
-__device__ __forceinline__ void for_each_acc_pair(F f) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int wm = warp >> 1;
-    const int wn = warp & 1;
-    const int g = lane >> 2;
-    const int tq = lane & 3;
-#pragma unroll
-    for (int b = 0; b < NT; ++b)
-#pragma unroll
-        for (int a = 0; a < MT; ++a)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) f(wm * WM + a * 16 + g + 8 * h, wn * WN + b * 8 + tq * 2, a, b, h);
-}
+// The tile the selection sees in the SIMT kernel: all BM rows of the block,
+// one BN-candidate chunk at a time, NWARPS warps sharing the rows.
+struct SimtTile {
+    static constexpr int BM = ncc::BM;
+    static constexpr int BN = ncc::BN;
+    static constexpr int NWARPS = ncc::NWARPS;
+    static constexpr int SCORE_STRIDE = ncc::SCORE_STRIDE;
+    // The j-th row of a warp: the warps share the rows round robin.
+    static __device__ __forceinline__ int row(int warp, int j) { return warp + j * NWARPS; }
+};
 
 }  // namespace ncc

@@ -52,7 +52,8 @@ __global__ void __launch_bounds__(NTHREADS)
                         int* __restrict__ out_i, int n, int m, int d, int k, int tile_m) {
     extern __shared__ __align__(16) unsigned char smem[];
     float* scores = reinterpret_cast<float*>(smem);  // aliases the operand ring between chunks
-    Selector sel(smem + PIPE_BYTES, out_s, out_i, n, m, k, tile_m, 1, MODE_TOPK);
+    Selector<SimtTile> sel(smem + PIPE_BYTES, out_s, out_i, n, m, k, tile_m, 1, MODE_TOPK, blockIdx.x * BM,
+                           threadIdx.x >> 5);
     const auto* e = reinterpret_cast<const unsigned char*>(exp);
     const auto* w = reinterpret_cast<const unsigned char*>(dict);
     const int tx = threadIdx.x & 15;
@@ -114,7 +115,7 @@ int ncc_topk_f32_launch(const void* exp, const void* dict, void* out_s, void* ou
                         int tile_m, void* stream) {
     if (n <= 0 || m <= 0 || d <= 0 || d % 4 || k < 1 || k > MAX_K || tile_m < 1 || m % tile_m)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = PIPE_BYTES + SELECT_SMEM_BYTES;
+    const size_t smem = PIPE_BYTES + Selector<SimtTile>::SMEM_BYTES;
     const dim3 grid((n + BM - 1) / BM);
     auto st = static_cast<cudaStream_t>(stream);
     return (int)with_kpl(k, [&](auto tag) {

@@ -13,23 +13,36 @@
 // bit-identical to the TPU kernel and to the plain PyTorch version in
 // ops/ncc_topk.py.
 //
-// Bound on an H100 SXM at the main-path shape (n=16384, m=107008,
-// d=3600): 2*n*m*d = 1.26e13 int8 operations against 1,979 TOP/s dense
-// int8 is 6.37 ms; the operands are 0.45 GB (0.13 ms at 3.35 TB/s), so the
-// kernel is bound by operations. Design, simple first:
-//   - one block owns BM=64 experimental rows and walks the whole
-//     dictionary in BN=128-candidate chunks; 16384/64 = 256 blocks, two
-//     resident per SM;
-//   - each chunk is a BM x BN x d int8 product on the tensor cores with
-//     mma.sync m16n8k32 (s8 x s8 -> s32), operands staged through shared
-//     memory by a two-stage cp.async ring of 128-byte slices
-//     (ncc_common.cuh; ragged d is zero-filled by the copy itself);
-//   - the scaled f32 score tile goes to shared memory and through the
-//     shared selection, whose threshold skip makes a chunk with no better
-//     score cost one comparison per candidate.
-// wgmma, TMA and a deeper pipeline are later work.
+// Bounds on an H100 SXM at the main-path shape (n=16384, m=107008,
+// d=3600). Operations: 2*n*m*d = 1.26e13 int8 operations against
+// 1,979 TOP/s dense int8 is 6.37 ms. Device memory, each operand once:
+// 0.45 GB, 0.13 ms at 3.35 TB/s. L2 to shared memory: a block of BM rows
+// re-reads its rows for every BN-candidate chunk, and a cluster of two
+// blocks reads each dictionary tile once for both,
+// n*m*d*(1/BN + 1/(2*BM)) bytes: 49 GB with the 128 x 256 tile of
+// ncc_wgmma.cuh (148 GB with the 64 x 128 tile of the mma.sync design
+// this one replaces). At the L2 read rate the card sustains that is the
+// nearer bound; chip_smoke.py measures the rate and prints the time it
+// implies beside the kernel's. Of that traffic the rows' share, n*m*d/BN =
+// 25 GB, also comes from device memory when the n*d bytes of all rows
+// exceed L2 (59 MB here against 50 MB); the product runs no faster per
+// byte on rows half as long, which all fit (kernel_variants.py), so device
+// memory is not what limits it.
+//
+// Design (ncc_wgmma.cuh): persistent clusters of two blocks of 128 rows; a
+// four-stage TMA ring of 128-byte-swizzled row slices that runs on through
+// chunk boundaries, each dictionary tile loaded half by either block and
+// multicast to both; wgmma m64n256k32 s8 x s8 -> s32 from shared memory,
+// two consumer warpgroups of 64 x 256 a block; the scale multiply and a
+// comparison with the rows' k-th scores in registers; only rows that hold
+// a candidate are visited, their 32-candidate slices going from the
+// accumulators through warp shuffles into the stable insertion. The ring
+// takes 192 KB, so the rows' lists fit shared memory for k <= 27 only; the
+// main path's k = 40 keeps them in the output rows. With group > 1 the
+// launcher takes dictionary rows and scales in logical order (the wrapper
+// gathers them), and every slice is selected.
 
-#include "topk_select.cuh"
+#include "ncc_wgmma.cuh"
 
 namespace {
 
@@ -37,81 +50,95 @@ using namespace ncc;
 
 struct S8Op {
     using Acc = int;
+    static constexpr int NW = 256;    // wgmma width: one instruction spans the chunk
+    static constexpr int STAGES = 4;  // 4 x 48 KB
+    static constexpr int ELEM_BYTES = 1;
     static constexpr bool kPromote = false;  // int32 sums are exact
-    static __device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+    static constexpr int PSTAGES = 1;
+    static constexpr bool kScaled = true;
+    static CUtensorMapDataType tensor_type() { return CU_TENSOR_MAP_DATA_TYPE_UINT8; }
+
+    static __device__ __forceinline__ float score(int sum, float scale) { return __int2float_rn(sum) * scale; }
+    static __device__ __forceinline__ int to_bits(float v) { return __float_as_int(v); }
+    static __device__ __forceinline__ float score_of_bits(int bits) { return __int_as_float(bits); }
+
+    // d (64 x 256, s32) = a (64 x 32, s8) * b (256 x 32, s8)^T, + d if scale_d
+    static __device__ __forceinline__ void mma(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
         asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, "
+            "%8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23, "
+            "%24, %25, %26, %27, %28, %29, %30, %31, "
+            "%32, %33, %34, %35, %36, %37, %38, %39, "
+            "%40, %41, %42, %43, %44, %45, %46, %47, "
+            "%48, %49, %50, %51, %52, %53, %54, %55, "
+            "%56, %57, %58, %59, %60, %61, %62, %63, "
+            "%64, %65, %66, %67, %68, %69, %70, %71, "
+            "%72, %73, %74, %75, %76, %77, %78, %79, "
+            "%80, %81, %82, %83, %84, %85, %86, %87, "
+            "%88, %89, %90, %91, %92, %93, %94, %95, "
+            "%96, %97, %98, %99, %100, %101, %102, %103, "
+            "%104, %105, %106, %107, %108, %109, %110, %111, "
+            "%112, %113, %114, %115, %116, %117, %118, %119, "
+            "%120, %121, %122, %123, %124, %125, %126, %127}, "
+            "%128, %129, p;\n}\n"
+            : NCC_REGS64("+r", d, 0), NCC_REGS64("+r", d, 64)
+            : "l"(a), "l"(b), "r"(scale_d));
     }
 };
 
-template <int KPL>
-__global__ void __launch_bounds__(NTHREADS)
-    ncc_topk_int8_kernel(const int8_t* __restrict__ exp_q, const int8_t* __restrict__ dict_q,
-                         const float* __restrict__ dict_scale, float* __restrict__ out_s, int* __restrict__ out_i,
-                         int n, int m, int d, int k, int tile_m, int group, int mode) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* scores = reinterpret_cast<float*>(smem);  // aliases the operand ring between chunks
-    Selector sel(smem + PIPE_BYTES, out_s, out_i, n, m, k, tile_m, group, mode);
-    const auto* e = reinterpret_cast<const unsigned char*>(exp_q);
-    const auto* w = reinterpret_cast<const unsigned char*>(dict_q);
-
-    for (int chunk0 = 0; chunk0 < m; chunk0 += BN) {
-        int acc[MT][NT][4];
-        mma_chunk<S8Op>(acc, smem, e, w, sel.row0, chunk0, n, m, d, tile_m, group);
-        // Scaled scores into the (now free) ring; candidates past m are -inf.
-        float s0[NT], s1[NT];  // the two columns' scales, loaded once per b
-        for_each_acc_pair([&](int r, int c, int a, int b, int h) {
-            const int L0 = chunk0 + c;
-            if (a == 0 && h == 0) {
-                s0[b] = L0 < m ? __ldg(dict_scale + dict_col(L0, tile_m, group)) : 0.f;
-                s1[b] = L0 + 1 < m ? __ldg(dict_scale + dict_col(L0 + 1, tile_m, group)) : 0.f;
-            }
-            float2 v;
-            v.x = L0 < m ? __int2float_rn(acc[a][b][2 * h]) * s0[b] : -CUDART_INF_F;
-            v.y = L0 + 1 < m ? __int2float_rn(acc[a][b][2 * h + 1]) * s1[b] : -CUDART_INF_F;
-            *reinterpret_cast<float2*>(scores + r * SCORE_STRIDE + c) = v;
-        });
-        __syncthreads();
-        sel.chunk<KPL>(scores, chunk0);
-        __syncthreads();
-    }
-    sel.finish();
+// A measuring device for chip_smoke.py, on no path of the port: the grid
+// reads a buffer that fits L2 `reps` times with 16-byte loads that bypass
+// L1, so bytes * reps / time is the rate at which the SMs can read L2.
+__global__ void __launch_bounds__(1024) l2_read_probe_kernel(const uint4* buf, size_t n_vec, int reps, unsigned* out) {
+    unsigned acc = 0;
+    const size_t step = (size_t)gridDim.x * blockDim.x;
+    for (int r = 0; r < reps; ++r)
+        for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec; i += step) {
+            uint4 v;
+            asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                         : "l"(buf + i));
+            acc ^= v.x ^ v.y ^ v.z ^ v.w;
+        }
+    if (acc == 0x9e3779b9u) out[0] = acc;  // keeps the loads alive
 }
 
 }  // namespace
 
 extern "C" {
 
+// Launch the L2 read probe over `bytes` (a multiple of 16) at `buf`;
+// `out` is one 32-bit word of scratch. Returns a cudaError_t.
+int ncc_l2_read_probe_launch(const void* buf, long long bytes, int reps, void* out, void* stream) {
+    if (bytes <= 0 || bytes % 16 || reps < 1) return (int)cudaErrorInvalidValue;
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    l2_read_probe_kernel<<<2 * sms, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(buf), (size_t)bytes / 16, reps, static_cast<unsigned*>(out));
+    return (int)cudaGetLastError();
+}
+
 // Largest k the kernel keeps per row; the Python wrapper checks it
 // before a launch.
 int ncc_topk_int8_max_k() { return MAX_K; }
 
+// Dynamic shared memory of one block, the same for every k.
+int ncc_topk_int8_smem_bytes() { return wg::Layout<S8Op>::SMEM_BYTES; }
+
 // Returns a cudaError_t (0 on success). d must be a multiple of 16, the
 // pointers 16-byte aligned, m a multiple of tile_m and tile_m of group;
+// with group > 1 dict_q and dict_scale are in logical order (tile, t, jj);
 // mode is 0 (top-k) or 1 (last tile's row maximum); `stream` is a
 // cudaStream_t.
 int ncc_topk_int8_launch(const void* exp_q, const void* dict_q, const void* dict_scale, void* out_s, void* out_i,
                          int n, int m, int d, int k, int tile_m, int group, int mode, void* stream) {
-    if (n <= 0 || m <= 0 || d <= 0 || d % 16 || k < 1 || k > MAX_K || group < 1 || tile_m < 1 || tile_m % group ||
-        m % tile_m || (mode != MODE_TOPK && mode != MODE_NONE))
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = PIPE_BYTES + SELECT_SMEM_BYTES;
-    const dim3 grid((n + BM - 1) / BM);
-    auto st = static_cast<cudaStream_t>(stream);
-    return (int)with_kpl(mode == MODE_NONE ? 1 : k, [&](auto tag) {
-        constexpr int KPL = decltype(tag)::value;
-        cudaError_t err = cudaFuncSetAttribute(ncc_topk_int8_kernel<KPL>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        ncc_topk_int8_kernel<KPL><<<grid, NTHREADS, smem, st>>>(
-            static_cast<const int8_t*>(exp_q), static_cast<const int8_t*>(dict_q),
-            static_cast<const float*>(dict_scale), static_cast<float*>(out_s), static_cast<int*>(out_i), n, m, d,
-            k, tile_m, group, mode);
-        return cudaGetLastError();
-    });
+    return (int)wg::launch<S8Op>(exp_q, dict_q, static_cast<const float*>(dict_scale), static_cast<float*>(out_s),
+                                 static_cast<int*>(out_i), n, m, d, k, tile_m, group, mode,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -20,7 +20,13 @@ tensor's device decides. For CPU tensors a wrapper returns its ``_plain``
 twin; for CUDA tensors it launches its hand-written kernel
 (``csrc/ncc_topk_{f32,bf16,int8}.cu``, one shared selection in
 ``csrc/topk_select.cuh``) or raises, and counts the launch in its own
-``.launches``. v1 and v3 share the f32 kernel.
+``.launches``. v1 and v3 share the f32 kernel (SIMT); the bf16 and int8
+kernels share the ``wgmma`` frame of ``csrc/ncc_wgmma.cuh``. What a
+wrapper decides before a launch is a pure function here
+(:func:`wgmma_plan`, :func:`row_pitch_bytes`, :func:`wgmma_layout`,
+:func:`wgmma_smem_bytes`, :func:`wgmma_lists_on_chip`, :func:`wgmma_l2_bytes`,
+:func:`logical_order`,
+:func:`check_alignment`), so the CPU tests reach it.
 
 The plain versions define the arithmetic: the f32 and bf16 sums are taken
 in float64 and rounded once to float32 (bf16: operands rounded to bf16
@@ -55,6 +61,14 @@ __all__ = [
     "ncc_match_topk_f32_plain",
     "ncc_match_topk_int8",
     "ncc_match_topk_int8_plain",
+    "check_alignment",
+    "logical_order",
+    "row_pitch_bytes",
+    "wgmma_l2_bytes",
+    "wgmma_layout",
+    "wgmma_lists_on_chip",
+    "wgmma_plan",
+    "wgmma_smem_bytes",
 ]
 
 # An empty top-k slot: float32-min, as the TPU kernels' running top-k starts.
@@ -278,6 +292,137 @@ def near_tie_disagreements(
     return problems
 
 
+# ------------------- what a wrapper decides in Python ------------------- #
+
+# The wgmma kernels' blocks (csrc/ncc_wgmma.cuh and the Op of each source):
+# rows per block, candidates per chunk, ring stages and blocks per cluster
+# (which share each dictionary tile) per kernel; bytes of
+# a row per stage, candidates per selection slice, and the most shared
+# memory a block can have on the card.
+WGMMA_TILE = {
+    "ncc_topk_int8": {"bm": 128, "bn": 256, "stages": 4, "cluster": 2},
+    "ncc_topk_bf16": {"bm": 128, "bn": 160, "stages": 4, "cluster": 2},
+}
+WGMMA_BK_BYTES = 128
+WGMMA_SLICE = 32
+MAX_BLOCK_SMEM = 232448
+# Bytes a kernel row must be a multiple of (its 16-byte copies, and the
+# tensor map's row pitch).
+ROW_ALIGN = 16
+
+
+def wgmma_plan(dtype: torch.dtype, group: int, extraction: str) -> dict:
+    """How a ``(dtype, group, extraction)`` call reaches its kernel.
+
+    ``kernel`` is the source stem, ``variant`` the design (both tensor-core
+    kernels are ``"wgmma"``, at every group), ``group`` what the kernel is
+    told (``"fori"`` and ``"none"`` ignore group compression, as on the
+    TPU), ``mode`` 0 for the stable top-k and 1 for ``"none"``, and
+    ``gather`` whether the wrapper first puts the dictionary rows into
+    logical order (:func:`logical_order`): only with a kernel group > 1.
+    """
+    _check_extraction(extraction)
+    if dtype == torch.int8:
+        kernel, kernel_group = "ncc_topk_int8", (group if extraction == "stream" else 1)
+    elif dtype == torch.bfloat16:
+        kernel, kernel_group = "ncc_topk_bf16", 1
+    else:
+        raise TypeError(f"no wgmma kernel for {dtype}")
+    return {
+        "kernel": kernel,
+        "variant": "wgmma",
+        "group": kernel_group,
+        "mode": 1 if extraction == "none" else 0,
+        "gather": kernel_group > 1,
+    }
+
+
+def row_pitch_bytes(d: int, itemsize: int) -> int:
+    """Bytes of one kernel row: ``d`` values padded with zeros up to a
+    multiple of ``ROW_ALIGN`` bytes."""
+    if d < 1 or ROW_ALIGN % itemsize:
+        raise ValueError(f"d={d}, itemsize={itemsize}: no {ROW_ALIGN}-byte row pitch")
+    return -(-d * itemsize // ROW_ALIGN) * ROW_ALIGN
+
+
+def wgmma_layout(kernel: str) -> dict:
+    """Shared-memory map of one block of a wgmma kernel (``ncc_wgmma.cuh:
+    Layout``), in bytes: the operand ring; one 32-score slice per consumer
+    warp; two chunks of scales per warpgroup; the selection's state (three
+    floats a row); the ring's mbarriers; then, in what is left of the
+    block's 227 KB, the rows' top-k lists for ``k <= list_k`` (8 bytes a
+    slot; a longer list lives in its output row); and 1024 bytes to align
+    the base.
+    """
+    t = WGMMA_TILE[kernel]
+    bm = t["bm"]
+    ring = t["stages"] * (bm + t["bn"]) * WGMMA_BK_BYTES
+    fixed = (
+        ring
+        + 8 * WGMMA_SLICE * 4          # a slice per consumer warp
+        + 2 * 2 * t["bn"] * 4          # scales, double-buffered
+        + 3 * bm * 4                   # k-th score, open group value and position
+        + 2 * t["stages"] * 8          # full and empty mbarriers
+    )
+    lists = -(-fixed // 128) * 128
+    list_k = (MAX_BLOCK_SMEM - 1024 - lists) // (bm * 8)
+    return {"ring": ring, "lists": lists, "list_k": list_k, "smem_bytes": lists + list_k * bm * 8 + 1024}
+
+
+def wgmma_l2_bytes(kernel: str, n: int, m: int, row_bytes: int) -> float:
+    """Bytes a call moves from L2 to shared memory: every block re-reads its
+    rows for each chunk, and a cluster reads each dictionary tile once for
+    all its row tiles."""
+    t = WGMMA_TILE[kernel]
+    return float(n) * m * row_bytes * (1 / t["bn"] + 1 / (t["bm"] * t["cluster"]))
+
+
+def wgmma_smem_bytes(kernel: str, k: int = 1) -> int:
+    """Dynamic shared memory of one block of a wgmma kernel launched with
+    ``k``: the same for every ``k``, because lists longer than the
+    layout's ``list_k`` live in the output rows and in registers."""
+    _check_k(k)
+    return wgmma_layout(kernel)["smem_bytes"]
+
+
+def wgmma_lists_on_chip(kernel: str, k: int) -> bool:
+    """Whether a launch with ``k`` keeps the rows' lists in shared memory
+    between visits (else in the output rows)."""
+    _check_k(k)
+    return k <= wgmma_layout(kernel)["list_k"]
+
+
+def logical_order(m: int, tile_m: int, group: int, device=None) -> torch.Tensor:
+    """Dictionary column of each logical candidate position (int64,
+    ``(m,)``): position ``L = tile * tile_m + t * group + jj`` holds column
+    ``tile * tile_m + jj * G + t`` with ``G = tile_m // group``, so the
+    ``group`` members of interleaved group ``t`` are consecutive
+    (``csrc/ncc_common.cuh: dict_col``)."""
+    if group < 1 or tile_m % group or m % tile_m:
+        raise ValueError(f"group={group} must divide tile_m={tile_m}, and tile_m m={m}")
+    cols = torch.arange(m, device=device).reshape(m // tile_m, group, tile_m // group)
+    return cols.transpose(1, 2).reshape(-1)
+
+
+def check_alignment(address: int, pitch_bytes: int, what: str = "operand") -> None:
+    """Raise unless rows at ``address``, ``pitch_bytes`` apart, all start
+    on a ``ROW_ALIGN``-byte boundary."""
+    if address % ROW_ALIGN or pitch_bytes % ROW_ALIGN:
+        raise ValueError(
+            f"{what}: address {address:#x} and row pitch {pitch_bytes} must be multiples of {ROW_ALIGN} bytes"
+        )
+
+
+def _kernel_rows(x: torch.Tensor, what: str) -> torch.Tensor:
+    """``x`` as the kernels read it: columns zero-padded to the row pitch
+    (zeros add nothing to a dot product), contiguous, aligned."""
+    x = _pad_cols(x, ROW_ALIGN // x.element_size())
+    if x.data_ptr() % ROW_ALIGN:
+        x = x.clone()
+    check_alignment(x.data_ptr(), x.shape[1] * x.element_size(), what)
+    return x
+
+
 # ------------------------------- kernels ------------------------------- #
 
 
@@ -407,11 +552,11 @@ def ncc_match_topk_bf16(
     if not (exp_prepared.is_floating_point() and dict_prepared.is_floating_point()):
         raise TypeError(f"exp and dict must be floating point, got {exp_prepared.dtype} and {dict_prepared.dtype}")
     _check_rows(exp_prepared, dict_prepared)
-    e = _pad_cols(exp_prepared.to(torch.bfloat16), 8)
-    w = _pad_cols(dict_prepared.to(torch.bfloat16), 8)
+    plan = wgmma_plan(torch.bfloat16, 1, extraction)
+    e = _kernel_rows(exp_prepared.to(torch.bfloat16), "exp")
+    w = _kernel_rows(dict_prepared.to(torch.bfloat16), "dict")
     out_s, out_i = _outputs(n, k, e.device)
-    mode = 1 if extraction == "none" else 0
-    _launch("ncc_topk_bf16", [e, w, out_s, out_i], [n, m, e.shape[1], k, tile_m, mode], e.device)
+    _launch(plan["kernel"], [e, w, out_s, out_i], [n, m, e.shape[1], k, tile_m, plan["mode"]], e.device)
     ncc_match_topk_bf16.launches += 1
     return out_s, out_i
 
@@ -469,15 +614,18 @@ def ncc_match_topk_int8(
     _check_rows(exp_q, dict_q)
     if dict_scale.shape != (m,):
         raise ValueError(f"dict_scale has shape {tuple(dict_scale.shape)}, expected ({m},)")
-    # 16-byte rows for the kernel's copies; zero columns add nothing.
-    exp_q, dict_q = _pad_cols(exp_q, 16), _pad_cols(dict_q, 16)
+    plan = wgmma_plan(torch.int8, group, extraction)
+    if plan["gather"]:
+        # Group members become consecutive rows; the kernel maps each kept
+        # position back to its dictionary column.
+        order = logical_order(m, tile_m, plan["group"], dict_q.device)
+        dict_q, dict_scale = dict_q[order], dict_scale[order]
+    exp_q, dict_q = _kernel_rows(exp_q, "exp_q"), _kernel_rows(dict_q, "dict_q")
     out_s, out_i = _outputs(n, k, exp_q.device)
-    kernel_group = group if extraction == "stream" else 1
-    mode = 1 if extraction == "none" else 0
     _launch(
-        "ncc_topk_int8",
+        plan["kernel"],
         [exp_q, dict_q, dict_scale.contiguous(), out_s, out_i],
-        [n, m, exp_q.shape[1], k, tile_m, kernel_group, mode],
+        [n, m, exp_q.shape[1], k, tile_m, plan["group"], plan["mode"]],
         exp_q.device,
     )
     ncc_match_topk_int8.launches += 1

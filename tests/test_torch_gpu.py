@@ -4,6 +4,13 @@
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
+The cases include the shapes that are ragged against the wgmma kernels'
+128-row x 256-candidate block (n of 8, 72 and 136, m a multiple of 32
+only, row bytes no multiple of 128), k of 1 to 512, groups of 1 to 512,
+fewer candidates than k, and duplicate dictionary rows on both sides of a
+selection slice and each kernel's chunk, with one pattern in both
+consumer warpgroups.
+
 The int8 kernel must equal its plain version bit for bit. The f32 and
 bf16 kernels sum in f32 in their own order, so they must agree with their
 float64-sum plain versions modulo near-ties
@@ -22,6 +29,9 @@ pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
 PLANTED = (3, 5, 40)
+# Dictionary rows on both sides of a 32-candidate slice and of the bf16
+# (160) and int8 (256) kernels' chunks.
+STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
 
 
 @pytest.fixture
@@ -36,8 +46,11 @@ def _int8_operands(n, m, d, seed, device):
     e = torch.from_numpy(rng.integers(-127, 128, (n, d), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-127, 128, (m, d), dtype=np.int8))
     sc = torch.from_numpy((rng.random(m) * 0.01 + 1e-3).astype(np.float32))
-    for j in (5, 40, m - 1):  # planted ties
-        w[j], sc[j] = w[3], sc[3]
+    for j in (5, 40, m - 1) + STRADDLE:  # planted ties
+        if j < m:
+            w[j], sc[j] = w[3], sc[3]
+    if n > 64:
+        e[64] = e[63].clone()  # one pattern in both consumer warpgroups
     return e.to(device), w.to(device), sc.to(device)
 
 
@@ -48,7 +61,8 @@ def _unit_operands(n, m, d, seed, device):
     e /= np.linalg.norm(e, axis=1, keepdims=True)
     w /= np.linalg.norm(w, axis=1, keepdims=True)
     w[list(PLANTED[1:])] = w[PLANTED[0]]
-    w[64:128:8] = e[:8]  # clear best matches for the first rows
+    if m >= 512:
+        w[64:128:8] = e[:8]  # clear best matches for the first rows
     return torch.from_numpy(e).to(device), torch.from_numpy(w).to(device)
 
 
@@ -70,6 +84,19 @@ def _unit_operands(n, m, d, seed, device):
         # the other extractions
         (64, 256, 128, 7, 8, 64, 8, "fori"),
         (64, 256, 128, 7, 8, 64, 1, "none"),
+        # ragged against the 128 x 256 block
+        (8, 288, 200, 1, 8, 32, 1, "stream"),
+        (72, 288, 200, 40, 8, 32, 1, "stream"),
+        (136, 544, 100, 130, 8, 32, 1, "stream"),
+        (136, 544, 72, 512, 8, 32, 1, "stream"),
+        (72, 96, 72, 130, 8, 32, 1, "stream"),
+        (72, 288, 100, 40, 8, 96, 3, "stream"),
+        (136, 544, 100, 40, 8, 32, 16, "stream"),
+        (8, 1024, 72, 5, 8, 512, 256, "stream"),
+        (136, 1024, 72, 3, 8, 512, 512, "stream"),
+        (136, 544, 72, 40, 8, 32, 1, "none"),
+        # more row tiles than SMs: persistent blocks take a second tile
+        (17280, 512, 64, 9, 8, 512, 1, "stream"),
     ],
 )
 def test_int8_kernel_matches_plain_bit_for_bit(cuda, n, m, d, k, tile_n, tile_m, group, extraction):
@@ -80,6 +107,8 @@ def test_int8_kernel_matches_plain_bit_for_bit(cuda, n, m, d, k, tile_n, tile_m,
     assert nt.ncc_match_topk_int8.launches == before + 1
     s2, i2 = nt.ncc_match_topk_int8_plain(e, w, sc, k, tile_m, group, extraction)
     assert torch.equal(s1, s2) and torch.equal(i1, i2)
+    if n > 64:
+        assert torch.equal(s1[63], s1[64]) and torch.equal(i1[63], i1[64])
 
 
 def test_int8_short_candidate_lists_end_in_float32_min(cuda):
@@ -97,7 +126,12 @@ FLOAT_KERNELS = [
 
 
 @pytest.mark.parametrize("wrapper, kw, rounding", FLOAT_KERNELS)
-@pytest.mark.parametrize("n, m, d, k", [(64, 512, 100, 5), (200, 2048, 3600, 40), (64, 1024, 301, 130)])
+@pytest.mark.parametrize(
+    "n, m, d, k",
+    [(64, 512, 100, 5), (200, 2048, 3600, 40), (64, 1024, 301, 130),
+     # ragged against the wgmma block; k of 1 and 512; lists in shared memory (k <= 76) and in the output rows
+     (8, 1024, 100, 1), (72, 1536, 301, 40), (136, 1536, 72, 77), (136, 1024, 200, 512)],
+)
 def test_float_kernels_match_plain_modulo_near_ties(cuda, wrapper, kw, rounding, n, m, d, k):
     e, w = _unit_operands(n, m, d, n + d, cuda)
     before = wrapper.launches
@@ -110,6 +144,35 @@ def test_float_kernels_match_plain_modulo_near_ties(cuda, wrapper, kw, rounding,
         ref_s, ref_i = nt.ncc_match_topk_f32_plain(e, w, k + 1)
     assert nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, TOL, PLANTED, rounding) == []
     assert (i[:8, 0] == torch.arange(64, 128, 8, device=cuda)).all()
+
+
+@pytest.mark.parametrize("wrapper, kw, rounding", FLOAT_KERNELS)
+def test_float_kernels_ragged_chunks_and_straddling_ties(cuda, wrapper, kw, rounding):
+    # m a multiple of tile_m = 32 only, duplicates across every boundary,
+    # one pattern in both consumer warpgroups.
+    n, m, d, k = 136, 544, 72, 40
+    e, w = _unit_operands(n, m, d, 7, cuda)
+    planted = PLANTED + STRADDLE
+    w[list(planted[1:])] = w[planted[0]].clone()
+    e[64] = e[63].clone()
+    s, i = wrapper(e, w, k, 8, 32, **kw)
+    torch.cuda.synchronize()
+    if rounding == torch.bfloat16:
+        ref_s, ref_i = nt.ncc_match_topk_bf16_plain(e, w, k + 1, 32)
+    else:
+        ref_s, ref_i = nt.ncc_match_topk_f32_plain(e, w, k + 1)
+    assert nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, TOL, planted, rounding) == []
+    assert torch.equal(s[63], s[64]) and torch.equal(i[63], i[64])
+
+
+@pytest.mark.parametrize("wrapper, kw, rounding", FLOAT_KERNELS)
+def test_float_kernels_short_candidate_lists_end_in_float32_min(cuda, wrapper, kw, rounding):
+    e, w = _unit_operands(72, 96, 72, 5, cuda)
+    s, i = wrapper(e, w, 130, 8, 32, **kw)
+    ref_s, _ = (nt.ncc_match_topk_bf16_plain(e, w, 96, 32) if rounding == torch.bfloat16
+                else nt.ncc_match_topk_f32_plain(e, w, 96))
+    assert (s[:, :96] - ref_s).abs().max().item() <= TOL
+    assert (s[:, 96:] == nt.EMPTY_SCORE).all() and (i[:, 96:] == 0).all()
 
 
 def test_bf16_none_keeps_the_last_tile_max(cuda):
@@ -132,3 +195,50 @@ def test_kernels_reject_what_they_cannot_take(cuda):
         nt.ncc_match_topk_f32(e.double(), w.double(), 4, 8, 32)
     with pytest.raises(ValueError, match="one device"):
         nt.ncc_match_topk_bf16(e.float(), w.float().cpu(), 4, 8, 32)
+
+
+INT8_REFUSED = [
+    # n, m, d, k, tile_m, group, mode, misalign
+    (8, 32, 24, 4, 32, 1, 0, 0),    # row bytes no multiple of 16
+    (8, 32, 32, 0, 32, 1, 0, 0),    # k below 1
+    (8, 32, 32, 513, 32, 1, 0, 0),  # k above MAX_K
+    (8, 32, 32, 4, 32, 5, 0, 0),    # group does not divide tile_m
+    (8, 48, 32, 4, 32, 1, 0, 0),    # m no multiple of tile_m
+    (8, 32, 32, 4, 32, 1, 2, 0),    # unknown mode
+    (0, 32, 32, 4, 32, 1, 0, 0),    # no rows
+    (8, 32, 32, 4, 32, 1, 0, 8),    # operand not 16-byte aligned
+]
+
+
+@pytest.mark.parametrize("n, m, d, k, tile_m, group, mode, misalign", INT8_REFUSED)
+def test_int8_launcher_refuses_what_it_does_not_take(cuda, n, m, d, k, tile_m, group, mode, misalign):
+    e = torch.zeros(8 * 32 + 16, dtype=torch.int8, device=cuda)[misalign:]
+    w = torch.zeros(48 * 32, dtype=torch.int8, device=cuda)
+    sc = torch.ones(48, device=cuda)
+    out_s, out_i = nt._outputs(8, 512, cuda)
+    before = nt.ncc_match_topk_int8.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        nt._launch("ncc_topk_int8", [e, w, sc, out_s, out_i], [n, m, d, k, tile_m, group, mode], cuda)
+    assert nt.ncc_match_topk_int8.launches == before
+    torch.cuda.synchronize()  # nothing was launched, nothing faults
+
+
+@pytest.mark.parametrize(
+    "n, m, d, k, tile_m, mode, misalign",
+    [(8, 32, 12, 4, 32, 0, 0), (8, 32, 16, 0, 32, 0, 0), (8, 32, 16, 513, 32, 0, 0), (8, 48, 16, 4, 32, 0, 0),
+     (8, 32, 16, 4, 32, 3, 0), (8, 32, 0, 4, 32, 0, 0), (8, 32, 16, 4, 32, 0, 1)],
+)
+def test_bf16_launcher_refuses_what_it_does_not_take(cuda, n, m, d, k, tile_m, mode, misalign):
+    e = torch.zeros(8 * 16 + 8, dtype=torch.bfloat16, device=cuda)[misalign:]
+    w = torch.zeros(48 * 16, dtype=torch.bfloat16, device=cuda)
+    out_s, out_i = nt._outputs(8, 512, cuda)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        nt._launch("ncc_topk_bf16", [e, w, out_s, out_i], [n, m, d, k, tile_m, mode], cuda)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16"])
+def test_shared_memory_of_a_block_is_what_python_computes(cuda, kernel):
+    from kikuchipy_tpu_torch.ops._build import library
+
+    assert getattr(library(kernel), f"{kernel}_smem_bytes")() == nt.wgmma_smem_bytes(kernel, 40) <= nt.MAX_BLOCK_SMEM

@@ -37,7 +37,13 @@ F32_MIN = np.finfo(np.float32).min
 RTOL_ROW = 1e-5
 
 
-def _operands(n, m, d, seed, ties=True):
+# Dictionary rows that straddle the wgmma kernels' boundaries: a 32-candidate
+# selection slice, the bf16 kernel's 160-candidate chunk and the int8
+# kernel's 256-candidate chunk (and 128, a power of two between them).
+STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
+
+
+def _operands(n, m, d, seed, ties=True, straddle=False):
     rng = np.random.default_rng(seed)
     eq = rng.integers(-127, 128, size=(n, d), dtype=np.int8)
     dq = rng.integers(-127, 128, size=(m, d), dtype=np.int8)
@@ -48,6 +54,11 @@ def _operands(n, m, d, seed, ties=True):
         for j in (5, 40 % m, m - 1):
             dq[j], ds[j] = dq[3], ds[3]
         eq[1] = 0
+    if straddle:
+        # The best match of row 0, planted on both sides of each boundary.
+        for j in STRADDLE:
+            if j < m:
+                dq[j], ds[j] = eq[0], 0.02
     return eq, dq, ds
 
 
@@ -157,6 +168,32 @@ def test_group_not_dividing_the_chunk_matches_jax(m, k, tile_m, group):
     _assert_exact(_int8_port(eq, dq, ds, k, 8, tile_m, group), _jax_v5(eq, dq, ds, k, 8, tile_m, group))
 
 
+@pytest.mark.parametrize(
+    "n, m, d, k, tile_m, group",
+    [
+        # n no multiple of the 128-row block or of a 64-row warpgroup, m a
+        # multiple of tile_m = 32 but not of the 256-candidate chunk, row
+        # bytes no multiple of 128
+        (8, 288, 200, 1, 32, 1),
+        (72, 288, 200, 40, 32, 1),
+        (136, 544, 100, 130, 32, 1),
+        (8, 544, 72, 512, 32, 1),
+        (8, 96, 72, 130, 32, 1),      # fewer candidates than k
+        (72, 288, 100, 40, 96, 3),
+        (72, 544, 100, 40, 32, 16),   # 34 candidates for k = 40
+        (8, 1024, 72, 5, 512, 256),
+        (8, 1024, 72, 3, 512, 512),
+    ],
+)
+def test_ragged_shapes_and_straddling_ties_match_jax_v5(n, m, d, k, tile_m, group):
+    eq, dq, ds = _operands(n, m, d, seed=n + m + k + group, straddle=True)
+    ref = _jax_v5(eq, dq, ds, k, 8, tile_m, group)
+    got = _int8_port(eq, dq, ds, k, 8, tile_m, group)
+    _assert_exact(got, ref)
+    if group == 1 and k >= 6 and m > 256:
+        assert got[1][0, :6].tolist() == list(STRADDLE[:6])  # equal scores in column order
+
+
 def test_fori_fill_index_past_a_short_dictionary_diverges_from_jax():
     # k > m over two tiles: JAX's k-round extraction re-picks its first
     # (already extracted, now float32-min) slot and fills the empty slots
@@ -202,6 +239,10 @@ FLOAT_CASES = [
         (16, 128, 100, 5, 8, 32),   # ragged d, 4 dictionary tiles
         (24, 192, 260, 7, 8, 64),   # several row tiles too
         (16, 96, 64, 40, 8, 32),    # k wider than a dictionary tile
+        # ragged against the wgmma block: rows, chunk and row bytes
+        (8, 288, 100, 1, 8, 32),
+        (72, 288, 260, 40, 8, 32),
+        (136, 544, 72, 130, 8, 32),
     ],
 )
 def test_float_kernels_match_jax_exactly_on_integer_rows(kernel, kw, n, m, d, k, tile_n, tile_m):
@@ -334,6 +375,142 @@ def test_quantize_rows_int8_matches_jax():
     np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
     np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
     assert q[5, :4].tolist() == [127, 2, -4, 0]
+
+
+# ----------------------- what the wrappers decide ----------------------- #
+
+
+@pytest.mark.parametrize(
+    "dtype, group, extraction, expected",
+    [
+        (torch.int8, 1, "stream", ("ncc_topk_int8", 1, 0, False)),
+        (torch.int8, 16, "stream", ("ncc_topk_int8", 16, 0, True)),
+        (torch.int8, 512, "stream", ("ncc_topk_int8", 512, 0, True)),
+        (torch.int8, 16, "fori", ("ncc_topk_int8", 1, 0, False)),   # fori ignores group
+        (torch.int8, 16, "none", ("ncc_topk_int8", 1, 1, False)),
+        (torch.bfloat16, 1, "fori", ("ncc_topk_bf16", 1, 0, False)),
+        (torch.bfloat16, 1, "stream", ("ncc_topk_bf16", 1, 0, False)),
+        (torch.bfloat16, 1, "none", ("ncc_topk_bf16", 1, 1, False)),
+    ],
+)
+def test_wgmma_plan(dtype, group, extraction, expected):
+    plan = nt.wgmma_plan(dtype, group, extraction)
+    assert (plan["kernel"], plan["group"], plan["mode"], plan["gather"]) == expected
+    assert plan["variant"] == "wgmma"  # one design at every group: no second kernel to fall back to
+
+
+def test_wgmma_plan_refuses_other_types_and_extractions():
+    with pytest.raises(TypeError):
+        nt.wgmma_plan(torch.float32, 1, "stream")
+    with pytest.raises(ValueError, match="extraction"):
+        nt.wgmma_plan(torch.int8, 1, "sort")
+
+
+@pytest.mark.parametrize(
+    "d, itemsize, pitch",
+    [(3600, 1, 3600), (3600, 2, 7200), (100, 1, 112), (301, 2, 608), (48, 1, 48), (1, 2, 16), (72, 1, 80)],
+)
+def test_row_pitch_is_the_next_multiple_of_16_bytes(d, itemsize, pitch):
+    assert nt.row_pitch_bytes(d, itemsize) == pitch
+    x = torch.ones((3, d), dtype={1: torch.int8, 2: torch.bfloat16}[itemsize])
+    rows = nt._kernel_rows(x, "x")
+    assert rows.shape[1] * itemsize == pitch and rows.is_contiguous() and rows.data_ptr() % 16 == 0
+    assert (rows[:, d:] == 0).all() and torch.equal(rows[:, :d], x)
+
+
+def test_row_pitch_refuses_what_has_none():
+    with pytest.raises(ValueError, match="row pitch"):
+        nt.row_pitch_bytes(0, 1)
+    with pytest.raises(ValueError, match="row pitch"):
+        nt.row_pitch_bytes(8, 3)
+
+
+@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16"])
+def test_shared_memory_fits_the_block_for_every_k(kernel):
+    sizes = {nt.wgmma_smem_bytes(kernel, k) for k in range(1, nt.MAX_K + 1)}
+    assert len(sizes) == 1 and sizes.pop() <= nt.MAX_BLOCK_SMEM == 232448
+    with pytest.raises(ValueError, match="1..512"):
+        nt.wgmma_smem_bytes(kernel, 513)
+    lay = nt.wgmma_layout(kernel)
+    tile = nt.WGMMA_TILE[kernel]
+    assert lay["ring"] == tile["stages"] * (tile["bm"] + tile["bn"]) * 128 and tile["stages"] >= 4
+    assert lay["lists"] % 128 == 0 and lay["lists"] + lay["list_k"] * tile["bm"] * 8 + 1024 == lay["smem_bytes"]
+    # One more slot per row would not fit.
+    assert lay["smem_bytes"] + tile["bm"] * 8 > nt.MAX_BLOCK_SMEM
+
+
+@pytest.mark.parametrize(
+    "kernel, k, on_chip",
+    [("ncc_topk_bf16", 40, True), ("ncc_topk_bf16", 76, True), ("ncc_topk_bf16", 77, False),
+     ("ncc_topk_bf16", 512, False), ("ncc_topk_int8", 27, True), ("ncc_topk_int8", 40, False)],
+)
+def test_where_the_lists_live(kernel, k, on_chip):
+    # bf16's narrower chunk leaves room for the main path's k = 40 lists in
+    # shared memory; int8's 192 KB ring does not.
+    assert nt.wgmma_lists_on_chip(kernel, k) is on_chip
+
+
+def test_python_tile_is_the_headers():
+    import re
+    from pathlib import Path
+
+    csrc = Path(nt.__file__).resolve().parents[1] / "csrc"
+    header = (csrc / "ncc_wgmma.cuh").read_text()
+
+    def constant(name, text=header):
+        value = re.search(rf"constexpr int {name} = (\w+);", text).group(1)
+        if not value.isdigit():  # a macro with a default in the same file
+            value = re.search(rf"#define {value} (\d+)", text).group(1)
+        return int(value)
+
+    assert (constant("BK_BYTES"), constant("SUB"), constant("MAX_SMEM")) == (
+        nt.WGMMA_BK_BYTES, nt.WGMMA_SLICE, nt.MAX_BLOCK_SMEM)
+    for name, tile in nt.WGMMA_TILE.items():
+        src = (csrc / f"{name}.cu").read_text()
+        assert constant("WG_ROWS") * constant("NCONSUMERS") == tile["bm"]
+        assert constant("NW", src) == tile["bn"], name
+        assert constant("STAGES", src) == tile["stages"], name
+        assert constant("CLUSTER") == tile["cluster"], name
+
+
+def test_l2_traffic_of_the_chosen_tiles():
+    # The main-path shape: the bytes each tile moves from L2 to shared memory.
+    n, m, d = 16384, 107008, 3600
+    assert round(nt.wgmma_l2_bytes("ncc_topk_int8", n, m, d) / 1e9, 1) == 49.3
+    assert round(nt.wgmma_l2_bytes("ncc_topk_bf16", n, m, 2 * d) / 1e9, 1) == 128.2
+
+
+@pytest.mark.parametrize(
+    "address, pitch, ok",
+    [(0x7F0000000000, 3600, True), (0x7F0000000010, 16, True), (0x7F0000000008, 3600, False),
+     (0x7F0000000000, 3604, False)],
+)
+def test_alignment_check(address, pitch, ok):
+    if ok:
+        nt.check_alignment(address, pitch)
+    else:
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            nt.check_alignment(address, pitch, "dict_q")
+
+
+@pytest.mark.parametrize(
+    "m, tile_m, group", [(128, 32, 4), (192, 96, 3), (1024, 512, 256), (1024, 512, 512), (64, 32, 1)]
+)
+def test_logical_order_makes_groups_consecutive(m, tile_m, group):
+    # A kernel that folds `group` consecutive columns of the gathered
+    # dictionary and maps positions back through the order computes the
+    # interleaved group compression of the plain version.
+    order = nt.logical_order(m, tile_m, group)
+    assert sorted(order.tolist()) == list(range(m))
+    sim = torch.from_numpy(np.random.default_rng(m + group).integers(-5, 6, (6, m)).astype(np.float32))
+    ref_v, ref_i = nt._group_compress(sim, tile_m, group)
+    runs = sim[:, order].reshape(6, m // group, group)
+    best = runs.max(dim=2)
+    first = (runs == best.values[..., None]).to(torch.int8).argmax(dim=2)  # lowest member on ties
+    pos = torch.arange(m // group)[None, :] * group + first
+    assert torch.equal(best.values, ref_v) and torch.equal(order[pos], ref_i)
+    with pytest.raises(ValueError):
+        nt.logical_order(m, tile_m, tile_m + 1)
 
 
 def test_near_tie_rule_accepts_the_plain_version_and_flags_departures():

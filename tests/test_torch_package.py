@@ -42,7 +42,8 @@ def test_imports_leave_no_jax_in_sys_modules():
 
 def test_no_import_statement_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|kikuchipy_tpu)(\s|\.|$)", re.M)
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py")
+    for path in list(PKG.rglob("*.py")) + [ROOT / name for name in scripts]:
         assert not pattern.search(path.read_text()), path
 
 
@@ -94,11 +95,19 @@ def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
     assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"}
     text = {name: path.read_text() for name, path in srcs.items()}
-    assert "mma.sync.aligned.m16n8k32" in text["ncc_topk_int8"] and "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
-    assert "mma.sync.aligned.m16n8k16" in text["ncc_topk_bf16"] and "ncc_match_topk_pallas_v4" in text["ncc_topk_bf16"]
+    assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]
+    assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
+    assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in text["ncc_topk_bf16"]
+    assert "ncc_match_topk_pallas_v4" in text["ncc_topk_bf16"]
     assert "ncc_match_topk_pallas (v1" in text["ncc_topk_f32"] and "ncc_match_topk_pallas_v3" in text["ncc_topk_f32"]
-    for t in text.values():
-        assert '#include "topk_select.cuh"' in t
+    # The tensor-core kernels share the wgmma frame, the f32 kernel the
+    # SIMT one; all three the one selection. No mma.sync product is left.
+    frame = (PKG / "csrc" / "ncc_wgmma.cuh").read_text()
+    assert '#include "topk_select.cuh"' in frame and "cp.async.bulk.tensor.2d" in frame and "mbarrier" in frame
+    for name in ("ncc_topk_int8", "ncc_topk_bf16"):
+        assert '#include "ncc_wgmma.cuh"' in text[name] and "mma.sync.aligned" not in text[name]
+    assert '#include "topk_select.cuh"' in text["ncc_topk_f32"]
+    assert "mma.sync.aligned" not in frame + (PKG / "csrc" / "ncc_common.cuh").read_text()
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "kikuchipy_tpu_torch/_kernels_build/" in ignored
