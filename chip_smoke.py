@@ -19,8 +19,10 @@ the card's name and power limit, and the device check):
 4. f32 and bf16 kernels against their plain versions (float64 sums)
    modulo near-ties (``ncc_topk.near_tie_disagreements``, tol 1e-5 on
    unit-norm rows): planted duplicate rows in column order, the same
-   ragged shapes, k of 1 to 512, every extraction, then a 1024-row slab
-   of the main path's own prepared rows;
+   ragged shapes, k of 1 to 512, every extraction, for f32 (three TF32
+   products on split operands) rows that differ only below TF32's 10
+   mantissa bits and the split of the main path's rows itself, then a
+   1024-row slab of the main path's own prepared rows;
 5. the main path at full size, from a seed: a synthetic m-3m master
    pattern (401 x 401 per hemisphere), a 60 x 60 detector, a 2-degree
    fundamental-zone dictionary (107,129 orientations), a 128 x 128 uint8
@@ -45,9 +47,11 @@ the card's name and power limit, and the device check):
    power limit: each kernel at the main-path shape with its bound, its
    plain version and two library yardsticks (the product alone, and the
    same function from library calls: per 32,768-column tile a product,
-   ``torch.topk`` and a merge); for the wgmma kernels also the bytes their
-   tile moves from L2 to shared memory and the time that takes at the L2
-   read rate measured here; then a breakdown of one pallas-int8 indexing
+   ``torch.topk`` and a merge), the bytes its tile moves from L2 to shared
+   memory and the time that takes at the L2 read rate measured here; for
+   f32 the split of the operands (a hand-written pass of its own, listed
+   as ``tf32_rows``) and the kernel on split operands apart (the entry
+   point's time holds both); then a breakdown of one pallas-int8 indexing
    call and a ``torch.profiler`` trace of it.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -68,12 +72,12 @@ from pathlib import Path
 
 import numpy as np
 
-# Card peaks for the bound (H100 SXM data sheet, dense): int8 and bf16
-# tensor-core operations per second, f32 FMA outside the tensor cores, and
-# device-memory bytes per second.
+# Card peaks for the bound (H100 SXM data sheet, dense): int8, bf16 and
+# TF32 tensor-core operations per second, and device-memory bytes per
+# second. The f32 kernel does three TF32 products for one f32 product.
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # Largest f32 summation-order difference between a float kernel and its
 # float64-sum plain version on unit-norm rows.
@@ -174,7 +178,8 @@ def scan_data(mp, det, truth: np.ndarray, seed: int, chunk_size: int):
 
 
 # Dictionary rows on both sides of the wgmma kernels' boundaries: a
-# 32-candidate selection slice and the bf16 (160) and int8 (256) chunks.
+# 32-candidate selection slice and the bf16 and f32 (160) and int8 (256)
+# chunks.
 STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
 
 
@@ -268,10 +273,12 @@ def kernel_cases(device, seed: int, m_main: int, d: int, k: int):
 def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
     """f32 (v1, v3) and bf16 (v4) kernels against their float64-sum plain
     versions modulo near-ties: small unit-norm cases with planted
-    duplicate dictionary rows (exact ties in column order), ragged d, k of
-    5, 40 and 130 and every extraction, then a 1024-row slab of the main
-    path's own prepared rows. Returns the number of cases and the slab's
-    max |slot score difference| per kernel."""
+    duplicate dictionary rows (exact ties in column order), ragged n, m
+    and d, k of 1 to 512 and every extraction; for f32 the split of
+    ``exp_rows`` into TF32 planes and rows that differ only below TF32's
+    10 mantissa bits; then a 1024-row slab of the main path's own prepared
+    rows. Returns the number of cases and the slab's max |slot score
+    difference| per kernel."""
     import torch
 
     from kikuchipy_tpu_torch.ops import ncc_topk as nt
@@ -323,6 +330,39 @@ def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
         for name in kernels:
             check(name, e, w, kk, tm, planted)
             n_cases += 1
+    # The f32 kernels' split. On the card the planes are exact in TF32 and
+    # sum to the value within 2**-21 of it.
+    hi, lo = nt.split_tf32(exp_rows)
+    low_bits = (hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF
+    off = ((hi.double() + lo.double() - exp_rows.double()).abs() - 2.0**-21 * exp_rows.double().abs()).max()
+    if low_bits.any() or off > 0:
+        raise AssertionError(f"split_tf32 on the card: low bits set {bool(low_bits.any())}, hi + lo off by {float(off)}")
+    del hi, lo, low_bits
+    # The hand-written split pass against the plain split, bit for bit:
+    # the main path's rows, a ragged d, and the values that must stay finite.
+    odd = torch.randn((77, 301), generator=g).to(device)
+    odd[0, :6] = torch.tensor([0.0, -0.0, 1e-42, torch.finfo(torch.float32).max, -torch.finfo(torch.float32).max, 1e-39])
+    for x in (exp_rows, odd, odd[:, :1].contiguous()):
+        got, ref = nt.tf32_rows(x), nt.tf32_rows_plain(x)
+        if not (torch.equal(got.view(torch.int32), ref.view(torch.int32)) and torch.isfinite(got).all()):
+            raise AssertionError(f"tf32_rows kernel != plain on {tuple(x.shape)}")
+        n_cases += 1
+    # A positive pattern v and its copy cut to TF32 differ only below TF32's
+    # 10 mantissa bits, by about 2**-11 of the score: v and the cut copy as
+    # patterns, and both as dictionary rows on either side of a chunk. The
+    # low planes alone tell them apart, and equal rows still tie exactly.
+    e, w, _ = operands(72, 544, 200)
+    v = e[0].abs() / e[0].norm()
+    cut = (v.view(torch.int32) & -0x2000).view(torch.float32)
+    e[0], e[1] = v, cut
+    w[[10, 159]], w[[11, 160]] = v, cut
+    for name in ("f32", "f32_blocked"):
+        s, i = kernels[name][0](e, w, 4, 32)
+        check(name, e, w, 4, 32, ())
+        for r in (0, 1):
+            if not (i[r].tolist() == [10, 159, 11, 160] and s[r, 0] == s[r, 1] > s[r, 2] == s[r, 3]):
+                raise AssertionError(f"{name}: rows that differ below TF32's bits: {i[r].tolist()} {s[r].tolist()}")
+        n_cases += 1
     # Fewer candidates than k: the plain list, then (float32-min, 0) slots.
     e, w, _ = operands(72, 96, 72)
     for name, (fn, rounding) in kernels.items():
@@ -347,7 +387,8 @@ def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
 
 # ------------------------- launch counters ------------------------- #
 
-WRAPPERS = ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8")
+WRAPPERS = ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8",
+            "tf32_rows")
 
 
 def reset_launches() -> None:
@@ -421,6 +462,26 @@ def library_same_function(product, m: int, k: int, tile: int = 32768):
             i = torch.gather(torch.cat([best_i, i], dim=1), 1, pos)
         best_s, best_i = s, i
     return best_s, best_i
+
+
+def split_table_row(operands, planes, ms: float, launches: int) -> dict:
+    """The kernels-line entry of the f32 kernel's split pass (``tf32_rows``
+    on both operands of the main-path shape): bound by device memory, each
+    value read once and its two planes written once; no library call does
+    the same."""
+    from kikuchipy_tpu_torch.ops import ncc_topk as nt
+
+    plain = [nt.tf32_rows_plain(x) for x in operands]
+    err = max(float((a - b).abs().max()) for a, b in zip(planes, plain))
+    del plain
+    moved = sum(x.numel() * 4 for x in operands) + sum(p.numel() * 4 for p in planes)
+    return {
+        "name": "tf32_rows", "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/ncc_topk_f32.cu",
+        "replaces": "kikuchipy_tpu/ops/pallas_di.py:413", "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": cuda_ms(lambda: [nt.tf32_rows_plain(x) for x in operands], 2),
+        "bound_ms": moved / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
+        "library_same_function_ms": None, "l2_bound_ms": None, "split_ms": None, "kernel_only_ms": None,
+    }
 
 
 def main(argv=None) -> int:
@@ -577,8 +638,8 @@ def main(argv=None) -> int:
         entry_out[name] = fn()
     torch.cuda.synchronize()
     entry_launches = read_launches()
-    if any(entry_launches[name] < 1 for name in entry):
-        raise AssertionError(f"an entry point did not launch its kernel: {entry_launches}")
+    if any(entry_launches[name] < 1 for name in entry) or entry_launches["tf32_rows"] != 4:
+        raise AssertionError(f"an entry point did not launch its kernel (f32: and two splits each): {entry_launches}")
     exact_main = kt.dictionary_index(
         pre.data, PreparedDictionary(prepared=dict_main, mask_hash=0), keep_n=2, precision="highest", device=dev)
     entry_msgs = []
@@ -643,20 +704,23 @@ def main(argv=None) -> int:
     n_ops = 2.0 * n_scan * m_main * d
     out_bytes = n_scan * k_carry * 8
     f32_product = lambda c0, c1: exp_prep @ dict_main[c0:c1].T
+    # Bytes of a row as the f32 kernel reads it: two planes of whole 32-value blocks (v3: of d padded to 128).
+    f32_row = lambda dd: 8 * nt.TF32_BLOCK * -(-dd // nt.TF32_BLOCK)
     kernels = [
-        # name, replaces (pallas_di.py line), source stem, peak, operand bytes, reps, plain, product-only library
-        # call, the product of the same-function library yardstick
-        ("ncc_match_topk_f32", 413, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
-         lambda: nt.ncc_match_topk_f32_plain(exp_prep, dict_main, k_carry),
+        # name, replaces (pallas_di.py line), source stem, operations over their peak rate (s), operand bytes,
+        # bytes of a kernel row, reps, plain, product-only library call, the product of the same-function library
+        # yardstick
+        ("ncc_match_topk_f32", 413, "ncc_topk_f32", 3 * n_ops / PEAK_TF32_FLOPS, 4 * (n_scan + m_main) * d,
+         f32_row(d), 3, lambda: nt.ncc_match_topk_f32_plain(exp_prep, dict_main, k_carry),
          ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T), f32_product),
-        ("ncc_match_topk_f32_blocked", 179, "ncc_topk_f32", PEAK_F32_FLOPS, 4 * (n_scan + m_main) * d, 3,
-         lambda: nt.ncc_match_topk_f32_blocked_plain(exp_prep, dict_main, k_carry),
+        ("ncc_match_topk_f32_blocked", 179, "ncc_topk_f32", 3 * n_ops / PEAK_TF32_FLOPS, 4 * (n_scan + m_main) * d,
+         f32_row(-(-d // 128) * 128), 3, lambda: nt.ncc_match_topk_f32_blocked_plain(exp_prep, dict_main, k_carry),
          ("torch.matmul f32, TF32 off", lambda: exp_prep @ dict_main.T), f32_product),
-        ("ncc_match_topk_bf16", 340, "ncc_topk_bf16", PEAK_BF16_FLOPS, 2 * (n_scan + m_main) * d, 5,
+        ("ncc_match_topk_bf16", 340, "ncc_topk_bf16", n_ops / PEAK_BF16_FLOPS, 2 * (n_scan + m_main) * d, 2 * d, 5,
          lambda: nt.ncc_match_topk_bf16_plain(exp_prep, dict_main, k_carry, 512),
          ("torch.matmul bf16", lambda: exp_bf16 @ dict_bf16.T),
          lambda c0, c1: (exp_bf16 @ dict_bf16[c0:c1].T).float()),
-        ("ncc_match_topk_int8", 600, "ncc_topk_int8", PEAK_INT8_OPS, (n_scan + m_main) * d + 4 * m_main, 5,
+        ("ncc_match_topk_int8", 600, "ncc_topk_int8", n_ops / PEAK_INT8_OPS, (n_scan + m_main) * d + 4 * m_main, d, 5,
          lambda: nt.ncc_match_topk_int8_plain(exp_q, dict_q_main, dict_s_main, k_carry, 512),
          ("torch._int_mm", lambda: torch._int_mm(exp_q, dict_q_main.T)),
          lambda c0, c1: torch._int_mm(exp_q, dict_q_main[c0:c1].T).float() * dict_s_main[None, c0:c1]),
@@ -665,21 +729,33 @@ def main(argv=None) -> int:
     l2_rate = l2_read_rate(dev)
     table, time_msgs = [], []
     with matmul_precision(False):
-        for name, line, stem, peak, in_bytes, reps, plain_fn, (lib_name, lib_fn), product in kernels:
+        for name, line, stem, s_ops, in_bytes, row_bytes, reps, plain_fn, (lib_name, lib_fn), product in kernels:
             ms = cuda_ms(entry[name], reps)
             clocks = smi_line("clocks.sm,power.draw,temperature.gpu")
             ms_plain = cuda_ms(plain_fn, 1)
             ms_lib = cuda_ms(lib_fn, 3)
             ms_same = cuda_ms(lambda: library_same_function(product, m_main, k_carry), 1)
-            t_ops, t_bytes = n_ops / peak * 1e3, (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+            t_ops, t_bytes = s_ops * 1e3, (in_bytes + out_bytes) / PEAK_BYTES * 1e3
             bound = max(t_ops, t_bytes)
-            # The wgmma kernels' second bound: the bytes their tile moves
-            # from L2 to shared memory, at the L2 read rate measured here.
-            tile = nt.WGMMA_TILE.get(stem)
-            l2_gb = l2_ms = None
-            if tile:
-                l2_gb = nt.wgmma_l2_bytes(stem, n_scan, m_main, in_bytes // (n_scan + m_main)) / 1e9
-                l2_ms = l2_gb * 1e9 / l2_rate * 1e3
+            # The kernels' second bound: the bytes their tile moves from L2
+            # to shared memory, at the L2 read rate measured here.
+            tile = nt.WGMMA_TILE[stem]
+            l2_gb = nt.wgmma_l2_bytes(stem, n_scan, m_main, row_bytes) / 1e9
+            l2_ms = l2_gb * 1e9 / l2_rate * 1e3
+            # The f32 entry points split their operands on every call: the
+            # split and the kernel on split operands, apart.
+            split_ms = kernel_only_ms = None
+            if stem == "ncc_topk_f32":
+                d_multiple = 128 if name.endswith("blocked") else 1  # as the entry point pads d
+                split = lambda: [nt.tf32_rows(x, d_multiple) for x in (exp_prep, dict_main)]
+                split_ms = cuda_ms(split, reps)
+                planes = split()
+                if name == "ncc_match_topk_f32":
+                    split_row = split_table_row((exp_prep, dict_main), planes, split_ms, entry_launches["tf32_rows"])
+                outs = nt._outputs(n_scan, k_carry, dev)
+                kernel_only_ms = cuda_ms(lambda: nt._launch(
+                    stem, [*planes, *outs], [n_scan, m_main, row_bytes // 8, k_carry, 512, 0], dev), reps)
+                del planes
             table.append({
                 "name": name,
                 "route": "cuda",
@@ -695,14 +771,21 @@ def main(argv=None) -> int:
                 "library_ms": ms_lib,
                 "library_same_function_ms": ms_same,
                 "l2_bound_ms": l2_ms,
+                "split_ms": split_ms,
+                "kernel_only_ms": kernel_only_ms,
             })
-            l2_msg = "" if l2_ms is None else (
-                f"; {tile['bm']} x {tile['bn']} tile in clusters of {tile['cluster']} moves {l2_gb:.1f} GB from L2, "
-                f"{l2_ms:.3f} ms at the measured {l2_rate / 1e12:.3f} TB/s")
+            l2_msg = (f"; {tile['bm']} x {tile['bn']} tile in clusters of {tile['cluster']} moves {l2_gb:.1f} GB from "
+                      f"L2, {l2_ms:.3f} ms at the measured {l2_rate / 1e12:.3f} TB/s")
+            if split_ms is not None:
+                l2_msg += (f"; of the {ms:.3f} ms the split of both operands into TF32 planes {split_ms:.3f} ms, the "
+                           f"kernel on split operands {kernel_only_ms:.3f} ms")
             time_msgs.append(f"{name} {ms:.3f} ms [after it: {clocks}] (bound {bound:.3f} ms by "
                              f"{table[-1]['bound_by']}, {bound / ms:.2%} of it{l2_msg}; plain {ms_plain:.3f} ms; "
                              f"{lib_name} {ms_lib:.3f} ms; product + torch.topk + merge per 32768 columns "
                              f"{ms_same:.3f} ms)")
+    table.append(split_row)
+    time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
+                     f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16
     ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     mb = scan.data.numel() / 1e6
@@ -729,7 +812,7 @@ def main(argv=None) -> int:
         ),
     }
     spent = {name: cuda_ms(fn, 3) for name, fn in parts.items()}
-    int8_ms = table[-1]["ms"]
+    int8_ms = next(row["ms"] for row in table if row["name"] == "ncc_match_topk_int8")
     log("breakdown", f"{smi}: kernel {int8_ms:.3f} ms; " + "; ".join(f"{k} {v:.3f} ms" for k, v in spent.items()))
 
     # ---- a profiler trace of one pallas-int8 indexing call ----

@@ -9,10 +9,12 @@ main path's operands from ``chip_smoke``'s seeded inputs (16,384 patterns
 of 60 x 60, the 107,008 dictionary rows of whole 512-column tiles),
 quantizes them, and times ``ncc_match_topk_int8``,
 ``ncc_match_topk_bf16`` and ``ncc_match_topk_f32`` at k=40 with CUDA
-events after a warm-up, each beside the library's product of the same
-operands (``torch._int_mm``, ``torch.matmul`` in bf16 and in f32 with
-TF32 off) and the card's clock, power and temperature right after the
-kernel. It prints one JSON line per kernel, with checksums of the results
+events after a warm-up (the f32 entry point's time holds whatever it does
+to its operands on every call: the split into TF32 planes, where the
+tree's kernel multiplies on the tensor cores), each beside the library's
+product of the same operands (``torch._int_mm``, ``torch.matmul`` in bf16
+and in f32 with TF32 off) and the card's clock, power and temperature
+right after the kernel. It prints one JSON line per kernel, with checksums of the results
 (int8: equal between two commits that compute the same function; the
 float kernels': equal up to near-ties and the order of their f32 sums).
 Run it once per checkout, alternating (parent, change, change, parent),

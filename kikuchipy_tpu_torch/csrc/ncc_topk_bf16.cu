@@ -57,7 +57,7 @@ namespace {
 
 using namespace ncc;
 
-struct Bf16Op {
+struct Bf16Op : wg::OnePlane {
     using Acc = float;
     static constexpr int NW = 160;    // candidates per chunk, one wgmma wide
     static constexpr int STAGES = 4;  // 4 x 36 KB

@@ -48,7 +48,7 @@ namespace {
 
 using namespace ncc;
 
-struct S8Op {
+struct S8Op : wg::OnePlane {
     using Acc = int;
     static constexpr int NW = 256;    // wgmma width: one instruction spans the chunk
     static constexpr int STAGES = 4;  // 4 x 48 KB

@@ -1,31 +1,36 @@
 // The tensor-core kernels' frame (Hopper, sm_90a): one persistent block per
 // SM, a TMA operand ring that never drains, wgmma products from shared
-// memory, and a selection that most score tiles never reach. The int8 and
-// bf16 kernels (ncc_topk_int8.cu, ncc_topk_bf16.cu) supply an Op: the
-// operand type, the wgmma instruction, the accumulator and how a sum
-// becomes a score.
+// memory, and a selection that most score tiles never reach. The int8,
+// bf16 and f32 kernels (ncc_topk_int8.cu, ncc_topk_bf16.cu,
+// ncc_topk_f32.cu) supply an Op: the operand type, the wgmma instruction,
+// the accumulator, how many planes a row has and which of them are
+// multiplied, and how a sum becomes a score.
 //
 // Block. 384 threads: two consumer warpgroups and one producer warpgroup
 // (of which one thread works). The block owns BM = 128 experimental rows,
 // 64 per consumer, and walks the dictionary in chunks of BN = Op::NW
-// candidates, one wgmma wide (256 for int8, 160 for bf16). Two blocks form
-// a cluster that walks the same chunks over two row tiles and shares each
-// dictionary tile: a block loads half of it and TMA multicast delivers
-// that half to both. A cluster that has finished its row tiles takes the
-// next pair, so the launcher starts min(pairs of row tiles, SMs / 2)
-// clusters.
+// candidates, one wgmma wide (256 for int8, 160 for bf16 and f32). Two
+// blocks form a cluster that walks the same chunks over two row tiles and
+// shares each dictionary tile: a block loads half of it and TMA multicast
+// delivers that half to both. A cluster that has finished its row tiles
+// takes the next pair, so the launcher starts min(pairs of row tiles,
+// SMs / 2) clusters.
 //
 // Why this tile. A block re-reads its rows for every chunk and the
 // dictionary for every row tile, so a call moves
 // n * m * row_bytes * (1 / BN + 1 / (CLUSTER * BM)) bytes from L2 to
-// shared memory: 49 GB (int8, 128 x 256) or 128 GB (bf16, 128 x 160) at
-// the main-path shape, against 148 / 296 GB with the 64 x 128 tile this
-// design replaces. That traffic, not the tensor cores' rate, is these
-// kernels' nearer bound; the sources' head notes give both.
+// shared memory: 49 GB (int8, 128 x 256), 128 GB (bf16, 128 x 160) or
+// 515 GB (f32 as two planes, 128 x 160) at the main-path shape; a
+// 64 x 128 tile would move 148 / 296 / 1189 GB. That traffic, not the
+// tensor cores' rate, is the int8 and bf16 kernels' nearer bound; the
+// sources' head notes give both.
 //
-// Ring. Op::STAGES stages of BK_BYTES = 128 bytes of each of the BM + BN
-// rows, in the 128-byte-swizzled K-major layout wgmma reads. The producer
-// thread starts two TMA tile loads per stage (its experimental rows; its
+// Ring. Op::STAGES stages of Op::PLANES slices of BK_BYTES = 128 bytes of
+// each of the BM + BN rows, in the 128-byte-swizzled K-major layout wgmma
+// reads. A row is one plane of values (int8, bf16) or two (f32: a TF32 high
+// part and a TF32 residual, interleaved 128 bytes at a time, so that the
+// planes of one k-range are consecutive slices of the row). The producer
+// thread starts two TMA tile loads per slice (its experimental rows; its
 // half of the dictionary rows, to both blocks) that complete on the
 // stage's `full` mbarrier of each receiving block; each consumer warp
 // arrives on the stage's `empty` mbarrier of both blocks once its wgmmas
@@ -35,15 +40,16 @@
 // n, candidates past m and bytes past the row's end are zero-filled by the
 // TMA unit and add nothing.
 //
-// Product. Per stage and consumer, 4 k-steps of 32 bytes: wgmma m64nNWk32
-// (s8) or m64nNWk16 (bf16), both operands from shared memory through
-// matrix descriptors. A stage is released one stage late, so the next
-// wgmmas are already queued when the warpgroup waits. With Op::kPromote
-// (bf16) Op::PSTAGES stages are summed by the tensor cores into a fresh
-// partial (scale-d = 0 on its first k-step) that is then added to the
-// running sum by IEEE f32 adds, which keeps the tensor cores' truncating
-// accumulator short; without it (int8, exact) the sums accumulate in
-// place over the whole chunk.
+// Product. Per stage, consumer and product of two planes (one for int8
+// and bf16; three for f32: low x high, high x low, high x high), 4 k-steps
+// of 32 bytes: wgmma m64nNWk32 (s8), m64nNWk16 (bf16) or m64nNWk8 (tf32),
+// both operands from shared memory through matrix descriptors. A stage is
+// released one stage late, so the next wgmmas are already queued when the
+// warpgroup waits. With Op::kPromote (bf16, f32) Op::PSTAGES stages are
+// summed by the tensor cores into a fresh partial (scale-d = 0 on its first
+// k-step) that is then added to the running sum by IEEE f32 adds, which
+// keeps the tensor cores' truncating accumulator short; without it (int8,
+// exact) the sums accumulate in place over the whole chunk.
 //
 // What is left of the block's 227 KB of shared memory holds the rows'
 // top-k lists when k is small enough (Layout::LIST_K); longer lists live
@@ -56,7 +62,7 @@
 // all. A warp then visits only its rows that have one, each once per
 // chunk: the slice's scores go from the four threads' registers to one per
 // lane by eight shuffles and through Selector<SelTile>, the stable
-// insertion all three kernels share. A warp owns the 16 rows whose
+// insertion all the kernels share. A warp owns the 16 rows whose
 // accumulators it holds, so the selection needs no shared score tile and
 // no barrier: a warp without candidates goes straight on to the next
 // chunk's wgmmas. With group > 1 (and for "none") every slice is handed
@@ -88,8 +94,8 @@ constexpr int NTHREADS = (NCONSUMERS + 1) * 128;   // consumers, then the produc
 #define NCC_CLUSTER 2  // kernel_variants.py rebuilds with 1 and 4 to measure what sharing gains
 #endif
 constexpr int CLUSTER = NCC_CLUSTER;               // blocks that share each dictionary tile
-constexpr int BK_BYTES = 128;                      // bytes of each row per stage: one swizzle span
-constexpr int A_BYTES = BM * BK_BYTES;             // a stage's experimental rows
+constexpr int BK_BYTES = 128;                      // bytes of a row slice: one swizzle span
+constexpr int A_BYTES = BM * BK_BYTES;             // a slice of the block's experimental rows
 constexpr int SUB = 32;                            // candidates per selection slice: one per lane
 constexpr int MAX_SMEM = 232448;                   // 227 KB, the most a block can have
 
@@ -99,7 +105,6 @@ struct SelTile {
     static constexpr int BM = WG_ROWS;
     static constexpr int BN = SUB;
     static constexpr int NWARPS = 4;
-    static constexpr int SCORE_STRIDE = SUB;
     // The j-th row of a warp: the 16 rows whose wgmma accumulators it holds.
     static __device__ __forceinline__ int row(int warp, int j) { return warp * 16 + j; }
 };
@@ -110,7 +115,8 @@ template <class Op>
 struct Layout {
     static constexpr int BN = Op::NW;                 // candidates per chunk: one wgmma wide
     static constexpr int B_BYTES = BN * BK_BYTES;
-    static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+    static constexpr int PLANE_BYTES = A_BYTES + B_BYTES;               // one slice of every row
+    static constexpr int STAGE_BYTES = Op::PLANES * PLANE_BYTES;
     static constexpr int RING = 0;
     static constexpr int SLICE = RING + Op::STAGES * STAGE_BYTES;       // one 32-score slice per consumer warp
     static constexpr int SCALE = SLICE + NCONSUMERS * 4 * SUB * 4;       // two chunks of scales per warpgroup
@@ -234,9 +240,20 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
 
 // ------------------------------ kernel ------------------------------ //
 
+// An Op whose rows are one plane of values, multiplied once.
+struct OnePlane {
+    static constexpr int PLANES = 1;    // 128-byte slices of a row per stage
+    static constexpr int PRODUCTS = 1;  // wgmma runs per stage
+    static __device__ constexpr int a_plane(int) { return 0; }
+    static __device__ constexpr int b_plane(int) { return 0; }
+};
+
 // Op supplies:
 //   Acc, NW (wgmma width = candidates per chunk), STAGES, ELEM_BYTES,
 //   kPromote and PSTAGES (stages per partial), kScaled, tensor_type();
+//   PLANES, PRODUCTS, a_plane(p), b_plane(p): product p of a stage
+//   multiplies slice a_plane(p) of the experimental rows by slice
+//   b_plane(p) of the dictionary rows;
 //   mma(Acc (&d)[NW / 2], desc_a, desc_b, scale_d): one 32-byte k-step;
 //   to_bits(score) / score(bits-or-sum, scale): the accumulator registers
 //   hold sums while the product runs and f32 score bits afterwards.
@@ -272,7 +289,7 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
     const int n_groups = ((n + BM - 1) / BM + CLUSTER - 1) / CLUSTER;
     const int n_clusters = gridDim.x / CLUSTER;
     const int n_chunks = (m + BN - 1) / BN;
-    const int nk = (row_bytes + BK_BYTES - 1) / BK_BYTES;
+    const int nk = (row_bytes + Op::PLANES * BK_BYTES - 1) / (Op::PLANES * BK_BYTES);
 
     if (wgi == NCONSUMERS) {
         // ---- producer: one thread keeps the ring full ----
@@ -285,12 +302,15 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
                 for (int c = 0; c < n_chunks; ++c)
                     for (int kt = 0; kt < nk; ++kt) {
                         mbar_wait(empty + stage, phase ^ 1);
-                        unsigned char* a = smem + L::RING + stage * L::STAGE_BYTES;
                         mbar_expect_tx(full + stage, L::STAGE_BYTES);
-                        const int col = kt * (BK_BYTES / Op::ELEM_BYTES);
-                        tma_load_2d(a, &map_exp, full + stage, col, (grp * CLUSTER + rank) * BM);
-                        tma_load_2d_multicast(a + A_BYTES + rank * B_PART, &map_dict, full + stage, col,
-                                              c * BN + rank * (BN / CLUSTER), (1u << CLUSTER) - 1u);
+#pragma unroll
+                        for (int p = 0; p < Op::PLANES; ++p) {
+                            unsigned char* a = smem + L::RING + stage * L::STAGE_BYTES + p * L::PLANE_BYTES;
+                            const int col = (kt * Op::PLANES + p) * (BK_BYTES / Op::ELEM_BYTES);
+                            tma_load_2d(a, &map_exp, full + stage, col, (grp * CLUSTER + rank) * BM);
+                            tma_load_2d_multicast(a + A_BYTES + rank * B_PART, &map_dict, full + stage, col,
+                                                  c * BN + rank * (BN / CLUSTER), (1u << CLUSTER) - 1u);
+                        }
                         if (++stage == STAGES) {
                             stage = 0;
                             phase ^= 1;
@@ -354,19 +374,23 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
                 for (int kt = 0; kt < nk; ++kt) {
                     mbar_wait(full + stage, phase);
                     const unsigned char* a = smem + L::RING + stage * L::STAGE_BYTES;
-                    const uint64_t da = smem_desc(a + wgi * WG_ROWS * BK_BYTES);
-                    const uint64_t db = smem_desc(a + A_BYTES);
                     // A run of wgmmas into one register set: the whole chunk, or
                     // Op::PSTAGES stages into the partial when promoting.
                     const bool first = Op::kPromote ? kt % Op::PSTAGES == 0 : kt == 0;
                     const bool last = kt == nk - 1 || (Op::kPromote && kt % Op::PSTAGES == Op::PSTAGES - 1);
                     wgmma_fence();
 #pragma unroll
-                    for (int ks = 0; ks < BK_BYTES / 32; ++ks) {
-                        if constexpr (Op::kPromote)
-                            Op::mma(part, da + 2 * ks, db + 2 * ks, !first || ks > 0);
-                        else
-                            Op::mma(acc, da + 2 * ks, db + 2 * ks, !first || ks > 0);
+                    for (int p = 0; p < Op::PRODUCTS; ++p) {
+                        const uint64_t da =
+                            smem_desc(a + Op::a_plane(p) * L::PLANE_BYTES + wgi * WG_ROWS * BK_BYTES);
+                        const uint64_t db = smem_desc(a + Op::b_plane(p) * L::PLANE_BYTES + A_BYTES);
+#pragma unroll
+                        for (int ks = 0; ks < BK_BYTES / 32; ++ks) {
+                            if constexpr (Op::kPromote)
+                                Op::mma(part, da + 2 * ks, db + 2 * ks, !first || p > 0 || ks > 0);
+                            else
+                                Op::mma(acc, da + 2 * ks, db + 2 * ks, !first || p > 0 || ks > 0);
+                        }
                     }
                     wgmma_commit();
                     if (last) {
@@ -398,6 +422,13 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(NTHREADS, 1)
                         phase ^= 1;
                     }
                 }
+
+                // Nothing is in flight here: the last stage waited. Said once
+                // more where every path passes, because the compiler cannot
+                // see that it did, and would otherwise guard each read of the
+                // accumulators in the selection's divergent loops with a wait
+                // of its own (ptxas C7518).
+                wgmma_wait<0>();
 
                 // ---- scores in place, and the pre-test against the k-th scores ----
                 if constexpr (Op::kScaled) named_barrier(bar_id);  // the warpgroup's scale writes are visible
@@ -538,7 +569,8 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem
 }
 
 // Launch topk_kernel<Op> on `stream`. `exp` and `dict` are row-major with
-// `row_bytes` bytes a row; returns the first CUDA error.
+// `row_bytes` bytes a row (all of Op::PLANES planes); returns the first
+// CUDA error.
 template <class Op>
 cudaError_t launch(const void* exp, const void* dict, const float* dict_scale, float* out_s, int* out_i, int n, int m,
                    int row_bytes, int k, int tile_m, int group, int mode, cudaStream_t stream) {

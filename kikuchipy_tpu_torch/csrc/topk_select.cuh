@@ -1,16 +1,13 @@
 // The selection shared by the fused NCC matmul + top-k kernels: the
 // running stable top-k per experimental row, the threshold skip, the
 // interleaved group compression and the final write. The int8, bf16 and
-// f32 kernels differ only in how they compute scores; each hands a score
-// tile (shared memory, T::BM rows of T::BN candidates, T::SCORE_STRIDE
-// floats a row, -inf past m) to Selector<T>::chunk, tile after tile in
-// candidate order, or feeds a row's candidates from registers (open_row,
-// feed, close_row). The tile T is the kernel's, and says which rows a warp
-// owns (T::row): the SIMT f32 kernel selects its whole 64 x 128 chunk from
-// shared memory (ncc_common.cuh: SimtTile); a warp of the wgmma kernels
-// selects the 16 rows whose accumulators it holds, 32 candidates at a time,
-// and only the slices its register pre-test found a candidate in
-// (ncc_wgmma.cuh: SelTile).
+// f32 kernels differ only in how they compute scores; each feeds a row's
+// candidates in candidate order, T::BN at a time, from registers (open_row,
+// feed, close_row) or through a slice of shared memory (feed_tile,
+// last_tile_max; -inf past m). The tile T is the kernels', and says which
+// rows a warp owns (T::row): a warp selects the 16 rows whose accumulators
+// it holds, 32 candidates at a time, and only the slices its register
+// pre-test found a candidate in (ncc_wgmma.cuh: SelTile).
 //
 // What it keeps, per row (the TPU kernels' contract,
 // kikuchipy_tpu/ops/pallas_di.py):
@@ -109,7 +106,6 @@ struct Selector {
     static constexpr int BM = T::BM;
     static constexpr int BN = T::BN;
     static constexpr int NWARPS = T::NWARPS;
-    static constexpr int SCORE_STRIDE = T::SCORE_STRIDE;
     static constexpr int SMEM_BYTES = 3 * BM * 4;
     static constexpr int ROWS_PER_WARP = BM / NWARPS;
 
@@ -298,26 +294,6 @@ struct Selector {
         for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
         if (lane == 0) open_v[r] = fmaxf(open_v[r], mx);
         __syncwarp();
-    }
-
-    // Fold one score tile (BM rows, SCORE_STRIDE floats apart) into the
-    // rows' state. Called by all the tile's warps once it is complete.
-    template <int KPL>
-    __device__ void chunk(const float* scores, int chunk0) {
-        const int lane = threadIdx.x & 31;
-        for (int j = 0; j < ROWS_PER_WARP; ++j) {
-            const int r = T::row(warp, j);
-            if (row0 + r >= n) continue;
-            const float* srow = scores + r * SCORE_STRIDE;
-            if (mode == MODE_NONE) {
-                last_tile_max(srow, r, chunk0, lane);
-            } else {
-                RowList<KPL> l;
-                open_row(l, r);
-                feed_tile<KPL>(l, srow, r, chunk0, lane);
-                close_row(l, r, lane);
-            }
-        }
     }
 
     // Write what only the end of the dictionary settles.

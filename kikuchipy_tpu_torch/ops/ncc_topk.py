@@ -20,20 +20,26 @@ tensor's device decides. For CPU tensors a wrapper returns its ``_plain``
 twin; for CUDA tensors it launches its hand-written kernel
 (``csrc/ncc_topk_{f32,bf16,int8}.cu``, one shared selection in
 ``csrc/topk_select.cuh``) or raises, and counts the launch in its own
-``.launches``. v1 and v3 share the f32 kernel (SIMT); the bf16 and int8
-kernels share the ``wgmma`` frame of ``csrc/ncc_wgmma.cuh``. What a
-wrapper decides before a launch is a pure function here
+``.launches``. v1 and v3 share the f32 kernel; all three kernels share the
+``wgmma`` frame of ``csrc/ncc_wgmma.cuh``. The f32 kernel multiplies on the
+tensor cores in TF32, three products on operands cut into a high and a low
+part (:func:`split_tf32`) and laid out for it (:func:`tf32_rows`: plain
+tensor operations on the CPU, one hand-written pass of the f32 source on the
+card, counted in ``tf32_rows.launches``). What
+a wrapper decides before a launch is a pure function here
 (:func:`wgmma_plan`, :func:`row_pitch_bytes`, :func:`wgmma_layout`,
 :func:`wgmma_smem_bytes`, :func:`wgmma_lists_on_chip`, :func:`wgmma_l2_bytes`,
-:func:`logical_order`,
-:func:`check_alignment`), so the CPU tests reach it.
+:func:`logical_order`, :func:`check_alignment`, :func:`split_tf32`,
+:func:`tf32_rows`), so the CPU tests reach it.
 
 The plain versions define the arithmetic: the f32 and bf16 sums are taken
 in float64 and rounded once to float32 (bf16: operands rounded to bf16
 first, as JAX's ``astype``); the int8 sum is exact and scaled by one f32
 multiply. So a plain version gives the same value on the CPU and on the
-card, the int8 kernel matches its plain version bit for bit, and the f32
-and bf16 kernels differ from theirs by the order of their f32 sums only.
+card, the int8 kernel matches its plain version bit for bit, the bf16
+kernel differs from its by the order of its f32 sums only, and the f32
+kernel by that and the terms its split drops (below 2**-21 of each
+product).
 
 Selection, every version: the first ``k`` entries of a stable descending
 sort of the candidates (equal scores: earlier candidate first). The TPU's
@@ -64,6 +70,9 @@ __all__ = [
     "check_alignment",
     "logical_order",
     "row_pitch_bytes",
+    "split_tf32",
+    "tf32_rows",
+    "tf32_rows_plain",
     "wgmma_l2_bytes",
     "wgmma_layout",
     "wgmma_lists_on_chip",
@@ -295,13 +304,15 @@ def near_tie_disagreements(
 # ------------------- what a wrapper decides in Python ------------------- #
 
 # The wgmma kernels' blocks (csrc/ncc_wgmma.cuh and the Op of each source):
-# rows per block, candidates per chunk, ring stages and blocks per cluster
-# (which share each dictionary tile) per kernel; bytes of
-# a row per stage, candidates per selection slice, and the most shared
-# memory a block can have on the card.
+# rows per block, candidates per chunk, ring stages, 128-byte slices of a
+# row per stage (f32: a high and a low plane) and blocks per cluster (which
+# share each dictionary tile) per kernel; bytes of a row slice, candidates
+# per selection slice, and the most shared memory a block can have on the
+# card.
 WGMMA_TILE = {
-    "ncc_topk_int8": {"bm": 128, "bn": 256, "stages": 4, "cluster": 2},
-    "ncc_topk_bf16": {"bm": 128, "bn": 160, "stages": 4, "cluster": 2},
+    "ncc_topk_int8": {"bm": 128, "bn": 256, "stages": 4, "planes": 1, "cluster": 2},
+    "ncc_topk_bf16": {"bm": 128, "bn": 160, "stages": 4, "planes": 1, "cluster": 2},
+    "ncc_topk_f32": {"bm": 128, "bn": 160, "stages": 3, "planes": 2, "cluster": 2},
 }
 WGMMA_BK_BYTES = 128
 WGMMA_SLICE = 32
@@ -314,7 +325,7 @@ ROW_ALIGN = 16
 def wgmma_plan(dtype: torch.dtype, group: int, extraction: str) -> dict:
     """How a ``(dtype, group, extraction)`` call reaches its kernel.
 
-    ``kernel`` is the source stem, ``variant`` the design (both tensor-core
+    ``kernel`` is the source stem, ``variant`` the design (all three
     kernels are ``"wgmma"``, at every group), ``group`` what the kernel is
     told (``"fori"`` and ``"none"`` ignore group compression, as on the
     TPU), ``mode`` 0 for the stable top-k and 1 for ``"none"``, and
@@ -326,6 +337,8 @@ def wgmma_plan(dtype: torch.dtype, group: int, extraction: str) -> dict:
         kernel, kernel_group = "ncc_topk_int8", (group if extraction == "stream" else 1)
     elif dtype == torch.bfloat16:
         kernel, kernel_group = "ncc_topk_bf16", 1
+    elif dtype == torch.float32:
+        kernel, kernel_group = "ncc_topk_f32", 1
     else:
         raise TypeError(f"no wgmma kernel for {dtype}")
     return {
@@ -356,7 +369,7 @@ def wgmma_layout(kernel: str) -> dict:
     """
     t = WGMMA_TILE[kernel]
     bm = t["bm"]
-    ring = t["stages"] * (bm + t["bn"]) * WGMMA_BK_BYTES
+    ring = t["stages"] * t["planes"] * (bm + t["bn"]) * WGMMA_BK_BYTES
     fixed = (
         ring
         + 8 * WGMMA_SLICE * 4          # a slice per consumer warp
@@ -423,22 +436,71 @@ def _kernel_rows(x: torch.Tensor, what: str) -> torch.Tensor:
     return x
 
 
+# TF32 keeps the sign, the 8 exponent bits and the upper 10 mantissa bits
+# of a float32; the tensor cores ignore the 13 bits below.
+_TF32_MASK = -0x2000
+_TF32_HALF = 0x1000
+# The largest finite TF32 value: nothing above it can round up.
+_TF32_MAX = float.fromhex("0x1.ffcp127")
+# Values per 128-byte slice of a plane, and rows split at a time (bounds
+# the temporaries).
+TF32_BLOCK = WGMMA_BK_BYTES // 4
+_SPLIT_SLAB = 16384
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """Float32 ``x`` rounded to the nearest TF32 value (ties away from
+    zero), as a new float32 tensor whose low 13 mantissa bits are zero.
+    Finite values stay finite: what lies above the largest TF32 value
+    rounds down to it."""
+    bits = x.clamp(-_TF32_MAX, _TF32_MAX).view(torch.int32)
+    return bits.add_(_TF32_HALF).bitwise_and_(_TF32_MASK).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split float32 ``x`` into ``(hi, lo)``, two float32 tensors that are
+    exact in TF32 (low 13 mantissa bits zero): ``hi = tf32(x)`` and
+    ``lo = tf32(x - hi)``. ``x - hi`` is exact, so ``hi + lo`` is within
+    2**-21 of ``x`` relative (where ``x - hi`` is a normal number: from
+    ``|x|`` of about 2e-31 up), and three TF32 products
+    ``hi*hi' + hi*lo' + lo*hi'`` give a float32-accurate ``x*x'``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes float32, got {x.dtype}")
+    hi = _tf32_round(x)
+    return hi, _tf32_round(x - hi)
+
+
+def tf32_rows_plain(x: torch.Tensor, d_multiple: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tf32_rows` (any device)."""
+    x = _pad_cols(_pad_cols(x, d_multiple), TF32_BLOCK)
+    n, blocks = x.shape[0], x.shape[1] // TF32_BLOCK
+    out = torch.empty((n, blocks, 2, TF32_BLOCK), dtype=torch.float32, device=x.device)
+    for r0 in range(0, n, _SPLIT_SLAB):
+        rows = slice(r0, r0 + _SPLIT_SLAB)
+        for plane, part in enumerate(split_tf32(x[rows])):
+            out[rows, :, plane] = part.reshape(-1, blocks, TF32_BLOCK)
+    return out.reshape(n, blocks * 2 * TF32_BLOCK)
+
+
 # ------------------------------- kernels ------------------------------- #
 
 
 _LAUNCH_ARGTYPES = {
-    "ncc_topk_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "ncc_topk_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "ncc_topk_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "ncc_topk_int8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "ncc_tf32_split": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
-def _launch(name: str, tensors: list[torch.Tensor], ints: list[int], device: torch.device) -> None:
-    """Launch ``csrc/<name>.cu`` on the current stream; raise on a
-    refused launch."""
+def _launch(
+    name: str, tensors: list[torch.Tensor], ints: list[int], device: torch.device, source: str | None = None
+) -> None:
+    """Launch ``<name>_launch`` of ``csrc/<source>.cu`` (``source``: by
+    default ``name``) on the current stream; raise on a refused launch."""
     from kikuchipy_tpu_torch.ops._build import library
 
-    fn = getattr(library(name), f"{name}_launch")
+    fn = getattr(library(source or name), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = _LAUNCH_ARGTYPES[name]
         fn.restype = ctypes.c_int
@@ -447,6 +509,34 @@ def _launch(name: str, tensors: list[torch.Tensor], ints: list[int], device: tor
         err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+def tf32_rows(x: torch.Tensor, d_multiple: int = 1) -> torch.Tensor:
+    """``(n, d)`` float32 rows as the f32 kernel reads them: per row the
+    two planes of :func:`split_tf32`, ``TF32_BLOCK`` = 32 values (128
+    bytes, one ring slice) at a time, ``[hi 0..31 | lo 0..31 | hi 32..63 |
+    ...]``, ``d`` zero-padded to a multiple of ``d_multiple`` and then to
+    whole blocks, ``d'``: ``(n, 2 * d')`` float32, contiguous, a row pitch
+    of ``2 * row_pitch_bytes(d', 4)``. On the CPU :func:`tf32_rows_plain`;
+    on the card one pass of ``csrc/ncc_topk_f32.cu`` (``tf32_split_kernel``)
+    that gives the same bits."""
+    if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"tf32_rows takes (n, d) rows, got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_rows takes float32, got {x.dtype}")
+    if d_multiple < 1:
+        raise ValueError(f"d_multiple={d_multiple} must be positive")
+    if x.device.type == "cpu":
+        return tf32_rows_plain(x, d_multiple)
+    _check_cuda_operands(x)
+    x = x.contiguous()
+    n, d = x.shape
+    d_out = -(-(-(-d // d_multiple) * d_multiple) // TF32_BLOCK) * TF32_BLOCK
+    out = torch.empty((n, 2 * d_out), dtype=torch.float32, device=x.device)
+    check_alignment(out.data_ptr(), out.shape[1] * 4, "tf32 rows")
+    _launch("ncc_tf32_split", [x, out], [n, d, d_out], x.device, source="ncc_topk_f32")
+    tf32_rows.launches += 1
+    return out
 
 
 def _outputs(n: int, k: int, device: torch.device):
@@ -461,10 +551,13 @@ def _f32_kernel(exp: torch.Tensor, dict_: torch.Tensor, k: int, tile_m: int, d_m
     if exp.dtype != torch.float32 or dict_.dtype != torch.float32:
         raise TypeError(f"exp and dict must be float32, got {exp.dtype} and {dict_.dtype}")
     _check_rows(exp, dict_)
-    exp, dict_ = _pad_cols(exp, d_multiple), _pad_cols(dict_, d_multiple)
-    n, d = exp.shape
+    plan = wgmma_plan(torch.float32, 1, "fori")
+    n, m = exp.shape[0], dict_.shape[0]
+    # Both operands as two interleaved TF32 planes; d_multiple's zeros (v3)
+    # add nothing.
+    e, w = tf32_rows(exp, d_multiple), tf32_rows(dict_, d_multiple)
     out_s, out_i = _outputs(n, k, exp.device)
-    _launch("ncc_topk_f32", [exp, dict_, out_s, out_i], [n, dict_.shape[0], d, k, tile_m], exp.device)
+    _launch(plan["kernel"], [e, w, out_s, out_i], [n, m, e.shape[1] // 2, k, tile_m, plan["mode"]], exp.device)
     return out_s, out_i
 
 
@@ -476,6 +569,9 @@ def ncc_match_topk_f32(
     tile_m: int = 512,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused float32 similarity matmul + top-k (``ncc_match_topk_pallas``).
+
+    On the card the product runs on the tensor cores as three TF32 products
+    of operands split by :func:`split_tf32` (the split is part of the call).
 
     Parameters
     ----------
@@ -497,7 +593,7 @@ def ncc_match_topk_f32(
     _check_k(k)
     if exp_prepared.device.type == "cpu":
         return ncc_match_topk_f32_plain(exp_prepared, dict_prepared, k)
-    out = _f32_kernel(exp_prepared, dict_prepared, k, tile_m, 4)
+    out = _f32_kernel(exp_prepared, dict_prepared, k, tile_m, 1)
     ncc_match_topk_f32.launches += 1
     return out
 
@@ -636,3 +732,4 @@ ncc_match_topk_f32.launches = 0
 ncc_match_topk_f32_blocked.launches = 0
 ncc_match_topk_bf16.launches = 0
 ncc_match_topk_int8.launches = 0
+tf32_rows.launches = 0

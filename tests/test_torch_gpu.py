@@ -15,8 +15,13 @@ The int8 kernel must equal its plain version bit for bit. The f32 and
 bf16 kernels sum in f32 in their own order, so they must agree with their
 float64-sum plain versions modulo near-ties
 (:func:`kikuchipy_tpu_torch.ops.ncc_topk.near_tie_disagreements`) with
-``TOL`` = 1e-5 on unit-norm rows: the products are exact in f32 and only
-the order of the f32 sum differs.
+``TOL`` = 1e-5 on unit-norm rows. The bf16 kernel's products are exact in
+f32 and only the order of its f32 sum differs. The f32 kernel multiplies
+in TF32, three products on operands split into a high and a low part
+(``split_tf32``): each product of two parts is exact in f32, the dropped
+low x low term and the rounding of the low parts are below 2**-21 of each
+product, and the rest is the order of the f32 sum. So the f32 cases also
+hold rows that differ only below TF32's 10 mantissa bits apart.
 """
 
 import numpy as np
@@ -29,8 +34,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
 PLANTED = (3, 5, 40)
-# Dictionary rows on both sides of a 32-candidate slice and of the bf16
-# (160) and int8 (256) kernels' chunks.
+# Dictionary rows on both sides of a 32-candidate slice and of the bf16 and
+# f32 (160) and int8 (256) kernels' chunks.
 STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
 
 
@@ -175,6 +180,56 @@ def test_float_kernels_short_candidate_lists_end_in_float32_min(cuda, wrapper, k
     assert (s[:, 96:] == nt.EMPTY_SCORE).all() and (i[:, 96:] == 0).all()
 
 
+F32_KERNELS = [(nt.ncc_match_topk_f32, {}), (nt.ncc_match_topk_f32_blocked, {"tile_d": 128})]
+
+
+@pytest.mark.parametrize("wrapper, kw", F32_KERNELS)
+def test_f32_kernels_tell_rows_apart_that_differ_below_tf32(cuda, wrapper, kw):
+    # A positive pattern v and its copy cut to TF32 differ only in the low
+    # plane of the split, by about 2**-11 of the score: as patterns, and as
+    # dictionary rows on either side of a chunk boundary. Equal rows still
+    # tie exactly, in column order.
+    e, w = _unit_operands(72, 544, 200, 9, cuda)
+    v = e[0].abs() / e[0].norm()
+    cut = (v.view(torch.int32) & -0x2000).view(torch.float32)
+    e[0], e[1] = v, cut
+    w[[10, 159]], w[[11, 160]] = v, cut
+    s, i = wrapper(e, w, 4, 8, 32, **kw)
+    ref_s, ref_i = nt.ncc_match_topk_f32_plain(e, w, 5)
+    assert nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, TOL, PLANTED) == []
+    for r in (0, 1):
+        assert i[r].tolist() == [10, 159, 11, 160]
+        assert s[r, 0] == s[r, 1] > s[r, 2] == s[r, 3] and s[r, 1] - s[r, 2] > 1e-4
+
+
+@pytest.mark.parametrize("wrapper, kw", F32_KERNELS)
+def test_f32_kernels_take_more_row_tiles_than_sms(cuda, wrapper, kw):
+    # 135 row tiles: persistent clusters take a second pair.
+    e, w = _unit_operands(17280, 512, 64, 11, cuda)
+    s, i = wrapper(e, w, 9, 8, 512, **kw)
+    ref_s, ref_i = nt.ncc_match_topk_f32_plain(e, w, 10)
+    assert nt.near_tie_disagreements(s, i, ref_s, ref_i, e, w, TOL, PLANTED) == []
+
+
+@pytest.mark.parametrize("n, d", [(300, 301), (5, 3600), (3, 1), (2, 32), (70000, 33)])
+def test_f32_split_pass_on_the_card_is_the_cpu_split_bit_for_bit(cuda, n, d):
+    x = torch.from_numpy(np.random.default_rng(n + d).normal(size=(n, d)).astype(np.float32))
+    big = float(np.finfo(np.float32).max)
+    special = torch.tensor([0.0, -0.0, 1e-45, -1e-42, 1e-39, big, -big, big * (1 - 2.0**-12)])
+    x[0, : min(d, 8)] = special[: min(d, 8)]
+    for got, ref in zip(nt.split_tf32(x.to(cuda)), nt.split_tf32(x)):
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    before = nt.tf32_rows.launches
+    got = nt.tf32_rows(x.to(cuda))
+    assert nt.tf32_rows.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), nt.tf32_rows(x).view(torch.int32))
+    assert torch.equal(got.view(torch.int32), nt.tf32_rows_plain(x.to(cuda)).view(torch.int32))
+    assert torch.isfinite(got).all()
+    assert torch.equal(nt.tf32_rows(x.to(cuda), 128).cpu().view(torch.int32), nt.tf32_rows(x, 128).view(torch.int32))
+    with pytest.raises(TypeError):
+        nt.tf32_rows(x.to(cuda).double())
+
+
 def test_bf16_none_keeps_the_last_tile_max(cuda):
     e, w = _unit_operands(64, 1024, 300, 1, cuda)
     s, i = nt.ncc_match_topk_bf16(e, w, 5, 8, 512, "none")
@@ -237,7 +292,36 @@ def test_bf16_launcher_refuses_what_it_does_not_take(cuda, n, m, d, k, tile_m, m
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16"])
+@pytest.mark.parametrize(
+    "n, m, d, k, tile_m, mode, misalign",
+    # d here is values per plane: a multiple of 32
+    [(8, 32, 16, 4, 32, 0, 0), (8, 32, 32, 0, 32, 0, 0), (8, 32, 32, 513, 32, 0, 0), (8, 48, 32, 4, 32, 0, 0),
+     (8, 32, 32, 4, 32, 3, 0), (8, 32, 0, 4, 32, 0, 0), (8, 32, 32, 4, 32, 0, 1), (0, 32, 32, 4, 32, 0, 0)],
+)
+def test_f32_launcher_refuses_what_it_does_not_take(cuda, n, m, d, k, tile_m, mode, misalign):
+    e = torch.zeros(8 * 64 + 4, dtype=torch.float32, device=cuda)[misalign:]
+    w = torch.zeros(48 * 64, dtype=torch.float32, device=cuda)
+    out_s, out_i = nt._outputs(8, 512, cuda)
+    before = nt.ncc_match_topk_f32.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        nt._launch("ncc_topk_f32", [e, w, out_s, out_i], [n, m, d, k, tile_m, mode], cuda)
+    assert nt.ncc_match_topk_f32.launches == before
+    torch.cuda.synchronize()
+
+
+def test_f32_product_alone_keeps_the_last_tile_max(cuda):
+    # Mode 1 of the launcher, which no entry point uses: the timing scripts
+    # run the product without the selection through it.
+    e, w = _unit_operands(136, 544, 72, 2, cuda)
+    planes_e, planes_w = nt.tf32_rows(e), nt.tf32_rows(w)
+    out_s, out_i = nt._outputs(136, 3, cuda)
+    nt._launch("ncc_topk_f32", [planes_e, planes_w, out_s, out_i], [136, 544, planes_e.shape[1] // 2, 3, 32, 1], cuda)
+    ref = (e.double() @ w[-32:].double().T).amax(dim=1).float()
+    assert (out_s[:, 0] - ref).abs().max().item() <= TOL
+    assert (out_s[:, 1:] == nt.EMPTY_SCORE).all() and (out_i == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"])
 def test_shared_memory_of_a_block_is_what_python_computes(cuda, kernel):
     from kikuchipy_tpu_torch.ops._build import library
 

@@ -9,6 +9,9 @@ CPU) against the JAX package's four Pallas kernels in interpret mode.
   ties included. On unit-norm random rows indices are equal and scores
   agree within 1e-5 of the row's largest |score|: the plain version sums
   in float64, XLA in float32 in its own order.
+- f32 on the card is three TF32 products on split operands: the split
+  (``split_tf32``), its row layout (``tf32_rows``) and a float64 model of
+  the three products are held against the float64 sum and JAX's v1 and v3.
 """
 
 import jax.numpy as jnp
@@ -38,8 +41,8 @@ RTOL_ROW = 1e-5
 
 
 # Dictionary rows that straddle the wgmma kernels' boundaries: a 32-candidate
-# selection slice, the bf16 kernel's 160-candidate chunk and the int8
-# kernel's 256-candidate chunk (and 128, a power of two between them).
+# selection slice, the bf16 and f32 kernels' 160-candidate chunk and the
+# int8 kernel's 256-candidate chunk (and 128, a power of two between them).
 STRADDLE = (31, 32, 127, 128, 159, 160, 255, 256)
 
 
@@ -289,6 +292,126 @@ def test_bf16_rounds_operands_to_nearest_even():
     assert got[0][0].tolist() == [1 + 2**-6, 1.0]
 
 
+# ------------------- f32 as three TF32 products (the card's way) ------------------- #
+
+
+def _low_bits(x):
+    return x.view(torch.int32) & 0x1FFF
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.mark.parametrize(
+    "values",
+    [
+        np.random.default_rng(0).normal(size=4096),
+        np.random.default_rng(1).normal(size=4096) * 1e-3,
+        np.random.default_rng(2).normal(size=4096) * 1e30,
+        [1.0, -1.0, 1 + 2.0**-11, 1 + 2.0**-10, 1 + 3 * 2.0**-12, -(1 + 2.0**-23), 2 - 2.0**-23, 0.1, 1 / 3],
+        # The smallest values whose low part is still a normal number.
+        [F32_TINY * 2.0**24, -F32_TINY * 2.0**24 * (1 + 2.0**-12), F32_TINY * 2.0**25 * (1 + 3 * 2.0**-13)],
+    ],
+    ids=["unit", "small", "large", "edges", "low-part-barely-normal"],
+)
+def test_split_tf32_planes_are_tf32_exact_and_sum_to_the_value(values):
+    x = torch.tensor(np.asarray(values), dtype=torch.float32)
+    hi, lo = nt.split_tf32(x)
+    assert hi.dtype == lo.dtype == torch.float32 and hi.shape == lo.shape == x.shape
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0**-21 * x.double().abs()).all()
+    # hi is the nearest TF32 value: at most half a TF32 ulp (2**-11 relative) away.
+    assert ((hi.double() - x.double()).abs() <= 2.0**-11 * x.double().abs()).all()
+
+
+def test_split_tf32_keeps_zeros_denormals_and_the_largest_values_finite():
+    x = torch.tensor([0.0, -0.0, 1e-45, -1e-42, 1e-39, F32_MAX, -F32_MAX, F32_MAX * (1 - 2.0**-12), F32_TINY,
+                      F32_TINY * (1 + 2.0**-12)], dtype=torch.float32)
+    hi, lo = nt.split_tf32(x)
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    assert not _low_bits(hi).any() and not _low_bits(lo).any()
+    assert hi[0] == 0 and lo[0] == 0 and hi[1] == 0 and lo[1] == 0
+    # The largest values round down to the largest TF32 value; the rest is the low part.
+    assert hi[5] == float.fromhex("0x1.ffcp127") and hi[6] == -hi[5]
+    assert (hi[5:].double() + lo[5:].double() - x[5:].double()).abs().max() <= 2.0**-21 * F32_MAX
+    with pytest.raises(TypeError):
+        nt.split_tf32(x.double())
+
+
+def _tf32x3_scores(e, w):
+    """A plain model of the f32 kernel's product: hi*hi + hi*lo + lo*hi on
+    the planes of ``split_tf32``, each in float64, rounded once."""
+    (eh, el), (wh, wl) = (tuple(p.double() for p in nt.split_tf32(x)) for x in (e, w))
+    return (el @ wh.T + eh @ wl.T + eh @ wh.T).to(torch.float32)
+
+
+def test_tf32x3_model_is_within_2e_6_of_the_float64_sum_at_d_3600():
+    e, w = (torch.from_numpy(x) for x in _float_operands(32, 512, 3600, seed=13, exact=False))
+    # Correlated rows too: a pattern against itself and its neighbours sums 3600 positive terms.
+    w[64:96] = e + 0.01 * w[64:96]
+    w[64:96] /= w[64:96].norm(dim=1, keepdim=True)
+    ref = nt._f64_scores(e.double(), w.double())(0, 32)
+    got = _tf32x3_scores(e, w)
+    assert ref.abs().max() > 0.9
+    assert (got - ref).abs().max().item() <= 2e-6
+    # One TF32 product alone is not the f32 product, and fails the 1e-5
+    # rule the kernel is held to: the low planes matter.
+    hi_only = (nt.split_tf32(e)[0].double() @ nt.split_tf32(w)[0].double().T).to(torch.float32)
+    assert (hi_only - ref).abs().max().item() > 1e-5
+
+
+@pytest.mark.parametrize("kernel, kw", [("v1", {}), ("v3", {"tile_d": 128})])
+def test_tf32x3_model_keeps_the_top_k_of_jax_modulo_near_ties(kernel, kw):
+    k = 6
+    e, w = _float_operands(16, 256, 3600, seed=17, exact=False)
+    ref_s, ref_i = _jax_float(kernel, e, w, k + 1, 8, 64, **kw)
+    e, w = torch.from_numpy(e), torch.from_numpy(w)
+    s, i = nt._select(_tf32x3_scores(e, w), k, 64, 1, "fori")
+    bad = nt.near_tie_disagreements(
+        s, i, torch.tensor(ref_s), torch.tensor(ref_i), e, w, 1e-5, (3, 5, 40, 255))
+    assert bad == []
+    # The planted duplicates tie exactly in the model too, and keep column order.
+    dup = _tf32x3_scores(e, w)[:, [3, 5, 40, 255]]
+    assert (dup == dup[:, :1]).all()
+
+
+@pytest.mark.parametrize("n, d", [(3, 3600), (5, 100), (2, 32), (4, 31), (1, 1), (2, 64)])
+def test_tf32_rows_interleave_the_planes_by_128_byte_slices(n, d):
+    x = torch.from_numpy(np.random.default_rng(d).normal(size=(n, d)).astype(np.float32))
+    rows = nt.tf32_rows(x)
+    blocks = -(-d // 32)
+    # Pitch: two planes of d padded to whole 32-value slices.
+    assert rows.shape == (n, 64 * blocks) and rows.is_contiguous() and rows.dtype == torch.float32
+    assert rows.shape[1] * 4 == 2 * nt.row_pitch_bytes(32 * blocks, 4) and rows.data_ptr() % nt.ROW_ALIGN == 0
+    hi, lo = nt.split_tf32(torch.nn.functional.pad(x, (0, 32 * blocks - d)))
+    for b in range(blocks):
+        assert torch.equal(rows[:, 64 * b : 64 * b + 32], hi[:, 32 * b : 32 * b + 32])
+        assert torch.equal(rows[:, 64 * b + 32 : 64 * b + 64], lo[:, 32 * b : 32 * b + 32])
+    assert (rows.reshape(n, blocks, 2, 32)[:, -1, :, d - 32 * (blocks - 1) :] == 0).all()
+    with pytest.raises(ValueError, match="rows"):
+        nt.tf32_rows(x[0])
+
+
+def test_tf32_rows_pads_d_to_a_multiple_first():
+    # v3 pads d to its tile_d: 70 -> 128 values, four blocks of zeros past 70.
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(3, 70)).astype(np.float32))
+    rows = nt.tf32_rows(x, 128)
+    assert rows.shape == (3, 256)
+    assert torch.equal(rows, nt.tf32_rows(torch.nn.functional.pad(x, (0, 58))))
+    assert torch.equal(rows[:, :192], nt.tf32_rows(x)) and (rows[:, 192:] == 0).all()
+    with pytest.raises(ValueError, match="d_multiple"):
+        nt.tf32_rows(x, 0)
+
+
+def test_tf32_rows_splits_in_slabs(monkeypatch):
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(11, 70)).astype(np.float32))
+    whole = nt.tf32_rows(x)
+    monkeypatch.setattr(nt, "_SPLIT_SLAB", 4)
+    assert torch.equal(nt.tf32_rows(x), whole)
+
+
 # --------------------------- contract and wrappers --------------------------- #
 
 
@@ -391,6 +514,8 @@ def test_quantize_rows_int8_matches_jax():
         (torch.bfloat16, 1, "fori", ("ncc_topk_bf16", 1, 0, False)),
         (torch.bfloat16, 1, "stream", ("ncc_topk_bf16", 1, 0, False)),
         (torch.bfloat16, 1, "none", ("ncc_topk_bf16", 1, 1, False)),
+        (torch.float32, 1, "fori", ("ncc_topk_f32", 1, 0, False)),   # v1 and v3: no extraction, no group
+        (torch.float32, 1, "none", ("ncc_topk_f32", 1, 1, False)),   # the product alone, to be timed
     ],
 )
 def test_wgmma_plan(dtype, group, extraction, expected):
@@ -400,8 +525,9 @@ def test_wgmma_plan(dtype, group, extraction, expected):
 
 
 def test_wgmma_plan_refuses_other_types_and_extractions():
-    with pytest.raises(TypeError):
-        nt.wgmma_plan(torch.float32, 1, "stream")
+    for dtype in (torch.float64, torch.float16, torch.uint8):
+        with pytest.raises(TypeError):
+            nt.wgmma_plan(dtype, 1, "stream")
     with pytest.raises(ValueError, match="extraction"):
         nt.wgmma_plan(torch.int8, 1, "sort")
 
@@ -425,7 +551,7 @@ def test_row_pitch_refuses_what_has_none():
         nt.row_pitch_bytes(8, 3)
 
 
-@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16"])
+@pytest.mark.parametrize("kernel", ["ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"])
 def test_shared_memory_fits_the_block_for_every_k(kernel):
     sizes = {nt.wgmma_smem_bytes(kernel, k) for k in range(1, nt.MAX_K + 1)}
     assert len(sizes) == 1 and sizes.pop() <= nt.MAX_BLOCK_SMEM == 232448
@@ -433,7 +559,8 @@ def test_shared_memory_fits_the_block_for_every_k(kernel):
         nt.wgmma_smem_bytes(kernel, 513)
     lay = nt.wgmma_layout(kernel)
     tile = nt.WGMMA_TILE[kernel]
-    assert lay["ring"] == tile["stages"] * (tile["bm"] + tile["bn"]) * 128 and tile["stages"] >= 4
+    slices = tile["stages"] * tile["planes"]  # 128-byte slices of every row in flight
+    assert lay["ring"] == slices * (tile["bm"] + tile["bn"]) * 128 and slices >= 4
     assert lay["lists"] % 128 == 0 and lay["lists"] + lay["list_k"] * tile["bm"] * 8 + 1024 == lay["smem_bytes"]
     # One more slot per row would not fit.
     assert lay["smem_bytes"] + tile["bm"] * 8 > nt.MAX_BLOCK_SMEM
@@ -442,11 +569,12 @@ def test_shared_memory_fits_the_block_for_every_k(kernel):
 @pytest.mark.parametrize(
     "kernel, k, on_chip",
     [("ncc_topk_bf16", 40, True), ("ncc_topk_bf16", 76, True), ("ncc_topk_bf16", 77, False),
-     ("ncc_topk_bf16", 512, False), ("ncc_topk_int8", 27, True), ("ncc_topk_int8", 40, False)],
+     ("ncc_topk_bf16", 512, False), ("ncc_topk_int8", 27, True), ("ncc_topk_int8", 40, False),
+     ("ncc_topk_f32", 4, True), ("ncc_topk_f32", 5, False), ("ncc_topk_f32", 40, False)],
 )
 def test_where_the_lists_live(kernel, k, on_chip):
     # bf16's narrower chunk leaves room for the main path's k = 40 lists in
-    # shared memory; int8's 192 KB ring does not.
+    # shared memory; int8's 192 KB ring and f32's 216 KB ring do not.
     assert nt.wgmma_lists_on_chip(kernel, k) is on_chip
 
 
@@ -470,6 +598,7 @@ def test_python_tile_is_the_headers():
         assert constant("WG_ROWS") * constant("NCONSUMERS") == tile["bm"]
         assert constant("NW", src) == tile["bn"], name
         assert constant("STAGES", src) == tile["stages"], name
+        assert constant("PLANES", src if "int PLANES" in src else header) == tile["planes"], name
         assert constant("CLUSTER") == tile["cluster"], name
 
 
@@ -478,6 +607,9 @@ def test_l2_traffic_of_the_chosen_tiles():
     n, m, d = 16384, 107008, 3600
     assert round(nt.wgmma_l2_bytes("ncc_topk_int8", n, m, d) / 1e9, 1) == 49.3
     assert round(nt.wgmma_l2_bytes("ncc_topk_bf16", n, m, 2 * d) / 1e9, 1) == 128.2
+    # f32: two planes of d padded to whole 32-value slices, 28,928 bytes a row.
+    f32_row = nt.tf32_rows(torch.zeros((1, d))).shape[1] * 4
+    assert f32_row == 28928 and round(nt.wgmma_l2_bytes("ncc_topk_f32", n, m, f32_row) / 1e9, 1) == 515.1
 
 
 @pytest.mark.parametrize(

@@ -91,6 +91,16 @@ def test_wrappers_on_cpu_do_not_count_launches(wrapper, args, kw):
     assert wrapper.launches == before
 
 
+def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(5, 70)).astype(np.float32))
+    before = nt.tf32_rows.launches
+    assert torch.equal(nt.tf32_rows(x), nt.tf32_rows_plain(x))
+    assert nt.tf32_rows.launches == before
+    with pytest.raises(TypeError):
+        nt.tf32_rows(x.double())
+    assert "tf32_split_kernel" in _build.sources()["ncc_topk_f32"].read_text()
+
+
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
     assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"}
@@ -99,15 +109,18 @@ def test_kernel_sources_and_build_directory():
     assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
     assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in text["ncc_topk_bf16"]
     assert "ncc_match_topk_pallas_v4" in text["ncc_topk_bf16"]
+    assert "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32" in text["ncc_topk_f32"]
     assert "ncc_match_topk_pallas (v1" in text["ncc_topk_f32"] and "ncc_match_topk_pallas_v3" in text["ncc_topk_f32"]
-    # The tensor-core kernels share the wgmma frame, the f32 kernel the
-    # SIMT one; all three the one selection. No mma.sync product is left.
+    # All three kernels share the wgmma frame and, through it, the one
+    # selection. No mma.sync product, no SIMT product and no cp.async ring
+    # is left.
     frame = (PKG / "csrc" / "ncc_wgmma.cuh").read_text()
     assert '#include "topk_select.cuh"' in frame and "cp.async.bulk.tensor.2d" in frame and "mbarrier" in frame
-    for name in ("ncc_topk_int8", "ncc_topk_bf16"):
-        assert '#include "ncc_wgmma.cuh"' in text[name] and "mma.sync.aligned" not in text[name]
-    assert '#include "topk_select.cuh"' in text["ncc_topk_f32"]
-    assert "mma.sync.aligned" not in frame + (PKG / "csrc" / "ncc_common.cuh").read_text()
+    common = (PKG / "csrc" / "ncc_common.cuh").read_text()
+    for name in ("ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"):
+        assert '#include "ncc_wgmma.cuh"' in text[name], name
+        for gone in ("mma.sync.aligned", "fmaf(", "cp.async.cg"):
+            assert gone not in text[name] + frame + common, (name, gone)
     assert "compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "kikuchipy_tpu_torch/_kernels_build/" in ignored
