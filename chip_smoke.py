@@ -27,12 +27,32 @@ the card's name and power limit, and the device check):
    pattern (401 x 401 per hemisphere), a 60 x 60 detector, a 2-degree
    fundamental-zone dictionary (107,129 orientations), a 128 x 128 uint8
    scan at known orientations -> static and dynamic background removal
-   -> dictionary projection -> ``EBSD.dictionary_indexing(precision=
-   "pallas-int8", keep_n=20)`` -> ``CrystalMap``. Checks: the kernel ran,
+   -> dictionary projection (one launch of the projection kernel
+   ``lambert_project``) -> ``EBSD.dictionary_indexing(precision=
+   "pallas-int8", keep_n=20)`` -> ``CrystalMap``. Checks: the kernels ran,
    top-1 equals the exact ``"highest"`` tier wherever the exact top-1/
    top-2 gap exceeds 1e-4, and the orientations are recovered (median
    disorientation < 3 degrees, > 90% under 8 degrees); then keep_n=65,
    which carries k=130 candidates through the kernel;
+5b. the projection kernels against their plain twins: ``lambert_project``
+   on the whole dictionary (values within 1e-5 of the master's range, under
+   1e-4 of the pixels on another tap) and on a rescaled slab, one PC per
+   rotation, a ragged pixel count and one rotation; ``lambert_project_ncc``
+   (1 - NCC within 2e-6) on a 2048-point chunk of the main path's patterns
+   with shared, masked and per-point direction cosines, P=1000, and B=1;
+5c. refinement of the main path's crystal map: ``EBSD.refine_orientation``
+   at its defaults (Nelder-Mead, bilinear, nav_chunk=2048, max_iters=150)
+   from the pallas-int8 top-1 on all 16,384 patterns, static background
+   removed (the synthetic scan has no dynamic one, and the dynamic removal
+   moves the optimum off the truth: that run is printed, unchecked); checks
+   that it ran
+   through ``lambert_project_ncc``, that the median disorientation to the
+   truth fell, and that it is under 0.8 degrees at every point DI put
+   within 3 degrees; patterns/s, kernel evaluations/s, kernel B's time a
+   launch beside its bound, and a ``torch.profiler`` trace of one chunk
+   (device busy share); then ``refine_projection_center`` and
+   ``refine_orientation_projection_center`` on one chunk from a PC off by
+   (0.01, -0.01, 0.01), the mean refined PC within 2e-3 of the truth;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -51,8 +71,10 @@ the card's name and power limit, and the device check):
    memory and the time that takes at the L2 read rate measured here; for
    f32 the split of the operands (a hand-written pass of its own, listed
    as ``tf32_rows``) and the kernel on split operands apart (the entry
-   point's time holds both); then a breakdown of one pallas-int8 indexing
-   call and a ``torch.profiler`` trace of it.
+   point's time holds both); the two projection kernels with their bounds
+   (bytes, float32 operations, and the taps' bytes from L2) and plain
+   twins; then a breakdown of one pallas-int8 indexing call and a
+   ``torch.profiler`` trace of it.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is summed over
@@ -64,6 +86,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -79,6 +102,17 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# float32 outside the tensor cores (the projection kernels' arithmetic).
+PEAK_F32_FLOPS = 67e12
+# Floating-point operations of one projected pixel as project_pixel in
+# csrc/lambert_project.cu does them: rotation 18, normalisation 9, Lambert
+# map 11 with atanf counted as 10 more, indices and weights 18, the four-tap
+# blend 7, the tap address 4; the NCC adds 4 a pixel (centre, two products
+# summed, the mean's sum).
+OPS_PER_PIXEL = 77
+NCC_OPS_PER_PIXEL = 4
+# One float4 of the quad texture a pixel.
+TAP_BYTES = 16
 # Largest f32 summation-order difference between a float kernel and its
 # float64-sum plain version on unit-norm rows.
 NEAR_TIE_TOL = 1e-5
@@ -89,6 +123,14 @@ TOP1_GAP = {"f32": 1e-4, "int8": 1e-4, "mixed": 1e-4, "bf16": 4e-3, "f16": 5e-4,
             "high": 2e-3, "default": 2e-3}
 
 SCAN_SIDE = 128
+# Refinement: the JAX package's nav_chunk, and the criterion of the
+# reference's refinement benchmark (BASELINE.md rows 3-4): under 0.8 degrees
+# wherever dictionary indexing came within 3 degrees.
+NAV_CHUNK = 2048
+REFINE_MAX_DEG = 0.8
+REFINE_START_DEG = 3.0
+PC_OFFSET = (0.01, -0.01, 0.01)
+PC_TOL = 2e-3
 DETECTOR_SHAPE = (60, 60)
 PC = (0.42, 0.28, 0.5)
 MASTER_SIDE = 401
@@ -387,21 +429,29 @@ def float_kernel_cases(device, seed: int, exp_rows, dict_rows, k: int):
 
 # ------------------------- launch counters ------------------------- #
 
-WRAPPERS = ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8",
-            "tf32_rows")
+WRAPPERS = {
+    "ncc_topk": ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8",
+                 "tf32_rows"),
+    "lambert_project": ("lambert_project", "lambert_project_ncc"),
+}
+
+
+def _wrappers():
+    import importlib
+
+    for module, names in WRAPPERS.items():
+        mod = importlib.import_module(f"kikuchipy_tpu_torch.ops.{module}")
+        for name in names:
+            yield name, getattr(mod, name)
 
 
 def reset_launches() -> None:
-    from kikuchipy_tpu_torch.ops import ncc_topk as nt
-
-    for name in WRAPPERS:
-        getattr(nt, name).launches = 0
+    for _, fn in _wrappers():
+        fn.launches = 0
 
 
 def read_launches() -> dict[str, int]:
-    from kikuchipy_tpu_torch.ops import ncc_topk as nt
-
-    return {name: getattr(nt, name).launches for name in WRAPPERS}
+    return {name: fn.launches for name, fn in _wrappers()}
 
 
 # ----------------------------- timing ----------------------------- #
@@ -482,6 +532,103 @@ def split_table_row(operands, planes, ms: float, launches: int) -> dict:
         "bound_ms": moved / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
         "library_same_function_ms": None, "l2_bound_ms": None, "split_ms": None, "kernel_only_ms": None,
     }
+
+
+# --------------------- projection kernels vs plain --------------------- #
+
+
+def projection_checks(device, dictionary_rows, rot, dc, quad, side: int, master_range: float, om, seed: int):
+    """Kernel A (``lambert_project``) against its plain twin: the main
+    path's whole dictionary, compared value by value and tap by tap in
+    slabs of 8192 rows, then a rescaled slab, one PC per rotation, a ragged
+    pixel count and one rotation. Returns (max |kernel - plain|, pixels
+    whose tap index differs, pixels compared, cases)."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    geo = (side, side, (side - 1) / 2)
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    worst, flips, pixels = 0.0, 0, 0
+
+    def compare(got, r, d, **kw):
+        nonlocal worst, flips, pixels
+        ref, ref_tap = lp.lambert_project_plain(r, d, quad, *geo, taps=True, **kw)
+        _, tap = lp.lambert_project(r, d, quad, *geo, taps=True, **kw)
+        if got is None:
+            got = lp.lambert_project(r, d, quad, *geo, **kw)
+        worst = max(worst, float((got - ref).abs().max()))
+        flips += int((tap != ref_tap).sum())
+        pixels += ref.numel()
+
+    n = rot.shape[0]
+    for start in range(0, n, 8192):
+        end = min(start + 8192, n)
+        compare(dictionary_rows[start:end], rot[start:end], dc)
+    compare(None, rot[:8192], dc, rescale=True, out_min=0.0, out_max=255.0)
+    few = min(4096, n)
+    pcs = torch.tensor(PC) + (torch.rand((few, 3), generator=g) - 0.5) * 0.04
+    compare(None, rot[:few], _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous())
+    compare(None, rot[:few], dc[::7].contiguous())
+    compare(None, rot[:1], dc)
+    if worst > 1e-5 * master_range or flips >= 1e-4 * pixels:
+        raise AssertionError(f"lambert_project != plain: max |diff| {worst} (limit {1e-5 * master_range}), "
+                             f"{flips} of {pixels} taps differ")
+    return worst, flips, pixels, 5 + (n - 1) // 8192
+
+
+def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int):
+    """Kernel B (``lambert_project_ncc``) against its plain twin, 1 - NCC
+    within 2e-6: one navigation chunk of the main path's own patterns at
+    their DI orientations with the shared detector, a masked detector (a P
+    that is no multiple of the 256-thread block), a P of 1000, one PC per
+    point, and one point. Returns the max |kernel - plain| and the cases."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc, _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    geo = (side, side, (side - 1) / 2)
+    g = torch.Generator(device="cpu").manual_seed(seed + 3)
+    mask_idx = torch.nonzero(torch.rand(pre_rows.shape[1], generator=g) > 0.3)[:, 0].to(device)
+    pcs = torch.tensor(PC) + (torch.rand((rot.shape[0], 3), generator=g) - 0.5) * 0.04
+    exp, sq = _prepare_experimental(pre_rows, None)
+    exp_m, sq_m = _prepare_experimental(pre_rows, mask_idx)
+    exp_1k, sq_1k = _prepare_experimental(pre_rows[:, :1000], None)
+    cases = [
+        (rot, dc, exp, sq),
+        (rot, dc[mask_idx].contiguous(), exp_m, sq_m),
+        (rot, dc[:1000].contiguous(), exp_1k, sq_1k),
+        (rot, _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous(), exp, sq),
+        (rot[:1], dc, exp[:1], sq[:1]),
+    ]
+    worst = 0.0
+    for r, d, e, q in cases:
+        got = lp.lambert_project_ncc(r, d, quad, *geo, e, q)
+        ref = lp.lambert_project_ncc_plain(r, d, quad, *geo, e, q)
+        err = float((got - ref).abs().max())
+        if not err <= 2e-6 or not torch.isfinite(got).all():
+            raise AssertionError(f"lambert_project_ncc != plain on B={r.shape[0]} P={d.shape[-2]} "
+                                 f"dc {tuple(d.shape)}: {err}")
+        worst = max(worst, err)
+    return worst, len(cases)
+
+
+def device_busy(prof) -> tuple[float, list]:
+    """Device milliseconds under a ``torch.profiler`` trace, and its events
+    by device time, largest first."""
+    def dev_time(e) -> float:
+        v = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0) if v is None else v
+
+    averages = prof.key_averages()
+    events = [e for e in averages if "cuda" in str(getattr(e, "device_type", "")).lower() and dev_time(e) > 0]
+    if not events:  # no device-side entries: take whatever carries device time
+        events = [e for e in averages if dev_time(e) > 0]
+    events.sort(key=dev_time, reverse=True)
+    return sum(dev_time(e) for e in events) / 1e3, [(e.key, e.count, dev_time(e) / 1e3) for e in events]
+
 
 
 def main(argv=None) -> int:
@@ -573,8 +720,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     main_launches = read_launches()
     t_main = time.perf_counter() - t0
-    if main_launches["ncc_match_topk_int8"] < 1:
-        raise AssertionError("the main path did not launch ncc_topk_int8")
+    if main_launches["ncc_match_topk_int8"] < 1 or main_launches["lambert_project"] != 1:
+        raise AssertionError(f"the main path did not launch ncc_topk_int8, or lambert_project not once: {main_launches}")
     scores = xmap.prop["scores"]
     idx = xmap.prop["simulation_indices"]
     if scores.shape != (n_scan, KEEP_N) or not np.isfinite(scores).all() or (idx < 0).any():
@@ -596,7 +743,8 @@ def main(argv=None) -> int:
         return (f"top-1 == highest on {int(clear.sum())}/{n_scan} patterns with gap > {gap:g} (overall "
                 f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}")
 
-    log("main-path", f"{n_scan} patterns x {m} dictionary, pallas-int8 keep_n={KEEP_N}: kernel launches "
+    log("main-path", f"{n_scan} patterns x {m} dictionary projected by lambert_project (launches "
+        f"{main_launches['lambert_project']}), pallas-int8 keep_n={KEEP_N}: ncc_topk_int8 launches "
         f"{main_launches['ncc_match_topk_int8']}; {top1_check('pallas-int8', idx[:, 0], TOP1_GAP['int8'])}; "
         f"first run {t_main:.2f} s")
 
@@ -611,6 +759,162 @@ def main(argv=None) -> int:
         raise AssertionError("keep_n=65 through pallas-int8 is unsorted or changes top-1")
     log("keep_n-65", f"dictionary_indexing(keep_n=65, pallas-int8): kernel at k=130, launches {wide_launches}, "
         f"scores descending, top-1 equal to keep_n={KEEP_N}")
+
+    # ---- the projection kernels against their plain twins ----
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    side = MASTER_SIDE
+    geo = (side, side, (side - 1) / 2)
+    master_np = mp._hemispheres_at_energy()
+    quad = quad_texture(torch.as_tensor(master_np, device=dev))
+    dc = direction_cosines_from_detector(det, device=dev)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=dev)
+    rot_dict = torch.as_tensor(dict_rot, dtype=torch.float32, device=dev)
+    a_err, a_flips, a_pixels, a_cases = projection_checks(
+        dev, dictionary.data.reshape(m, -1), rot_dict, dc, quad, side, float(master_np.max() - master_np.min()), om,
+        args.seed)
+    log("projection-check", f"lambert_project against its plain twin on {a_cases} cases (the whole {m}-pattern "
+        f"dictionary of the main path, a rescaled slab, one PC per rotation, P=515, B=1): max |diff| {a_err:.3e} "
+        f"(master range {float(master_np.max() - master_np.min()):.4f}); tap index differs on {a_flips} of "
+        f"{a_pixels} pixels ({a_flips / a_pixels:.2e})")
+    pre_rows = pre.data.reshape(n_scan, -1)
+    top1_rot = xmap.best_rotations
+    rot_nav = torch.as_tensor(top1_rot[:NAV_CHUNK], dtype=torch.float32, device=dev)
+    b_err, b_cases = ncc_kernel_checks(dev, pre_rows[:NAV_CHUNK], rot_nav, dc, quad, side, om, args.seed)
+    log("ncc-check", f"lambert_project_ncc against its plain twin on {b_cases} cases (B={NAV_CHUNK} of the main "
+        f"path's patterns: shared, masked and per-point direction cosines, P=1000; B=1): max |diff| of 1 - NCC "
+        f"{b_err:.3e}")
+
+    # ---- refinement of the main path's crystal map ----
+    # The synthetic scan carries a static background and no dynamic one.
+    # The dynamic removal (a Gaussian high-pass) that dictionary indexing
+    # runs on is not part of the simulated patterns, and on these data it
+    # moves the NCC optimum off the truth (printed below, unchecked). The
+    # checked refinement takes the scan with its static background removed,
+    # the patterns the simulation describes.
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+
+    static = kt.EBSD(scan.remove_static_background().data, detector=det, device=dev)
+    static_rows = static.data.reshape(n_scan, -1)
+    ang0 = np.degrees(disorientation_angle(truth, top1_rot, "m-3m"))
+    near = ang0 < REFINE_START_DEG
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = static.refine_orientation(xmap=xmap, master_pattern=mp)
+    torch.cuda.synchronize()
+    t_refine = time.perf_counter() - t0
+    refine_launches = read_launches()
+    if refine_launches["lambert_project_ncc"] < 1:
+        raise AssertionError(f"refinement did not launch lambert_project_ncc: {refine_launches}")
+    r_scores, r_evals = refined.xmap.prop["scores"], refined.xmap.prop["num_evals"]
+    if refined.xmap.best_rotations.shape != (n_scan, 4) or not np.isfinite(r_scores).all():
+        raise AssertionError("refinement gave a bad crystal map")
+    ang1 = np.degrees(disorientation_angle(truth, refined.xmap.best_rotations, "m-3m"))
+    if not (np.median(ang1) < np.median(ang0) and ang1[near].max() < REFINE_MAX_DEG):
+        raise AssertionError(
+            f"refinement missed: median {np.median(ang0):.4f} -> {np.median(ang1):.4f} deg, max over the "
+            f"{int(near.sum())} points DI put within {REFINE_START_DEG} deg: {ang1[near].max():.4f} deg "
+            f"(limit {REFINE_MAX_DEG}); worst points {np.argsort(ang1)[-5:].tolist()} at "
+            f"{np.sort(ang1)[-5:].round(3).tolist()} deg, from {ang0[np.argsort(ang1)[-5:]].round(3).tolist()}")
+    evals = refine_launches["lambert_project_ncc"] * NAV_CHUNK
+    exp_c, sq_c = _prepare_experimental(static_rows[:NAV_CHUNK], None)
+    ms_b = cuda_ms(lambda: lp.lambert_project_ncc(rot_nav, dc, quad, *geo, exp_c, sq_c), 20)
+    dc_each = torch.broadcast_to(dc, (NAV_CHUNK,) + tuple(dc.shape)).contiguous()
+    ms_b_each = cuda_ms(lambda: lp.lambert_project_ncc(rot_nav, dc_each, quad, *geo, exp_c, sq_c), 20)
+    pix_b = NAV_CHUNK * d
+    bytes_b = 4 * (pix_b + 2 * NAV_CHUNK + 4 * NAV_CHUNK + dc.numel()) + quad.numel() * 4
+    t_bytes_b = bytes_b / PEAK_BYTES * 1e3
+    t_ops_b = pix_b * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) / PEAK_F32_FLOPS * 1e3
+    bound_b = max(t_bytes_b, t_ops_b)
+    bound_b_each = max((bytes_b + 4 * dc_each.numel()) / PEAK_BYTES,
+                       pix_b * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) / PEAK_F32_FLOPS) * 1e3
+    log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
+        f"(Nelder-Mead, bilinear, nav_chunk={NAV_CHUNK}, max_iters=150) on the {n_scan} static-corrected "
+        f"patterns: {t_refine:.3f} s = {n_scan / t_refine:.1f} patterns/s; lambert_project_ncc launches "
+        f"{refine_launches['lambert_project_ncc']} ({evals} evaluations, {evals / t_refine:.0f} evaluations/s); "
+        f"Nelder-Mead iterations mean {r_evals.mean():.1f}, max {int(r_evals.max())}; disorientation to truth "
+        f"median {np.median(ang0):.4f} -> {np.median(ang1):.4f} deg, max {ang0.max():.3f} -> {ang1.max():.3f} deg; "
+        f"over the {int(near.sum())} points DI put within {REFINE_START_DEG} deg: max {ang1[near].max():.4f} deg "
+        f"(limit {REFINE_MAX_DEG}), {(ang1 < REFINE_MAX_DEG).mean():.4f} of all points under it; kernel B at "
+        f"B={NAV_CHUNK}, P={d}: {ms_b * 1e3:.1f} us a launch, bound {bound_b * 1e3:.1f} us "
+        f"({bound_b / ms_b:.1%}); with one set of direction cosines a point (PC modes) {ms_b_each * 1e3:.1f} us, "
+        f"bound {bound_b_each * 1e3:.1f} us")
+
+    # The main path's own patterns (static and dynamic background removed), unchecked.
+    reset_launches()
+    t0 = time.perf_counter()
+    refined_dyn = pre.refine_orientation(xmap=xmap, master_pattern=mp)
+    torch.cuda.synchronize()
+    t_dyn = time.perf_counter() - t0
+    ang_dyn = np.degrees(disorientation_angle(truth, refined_dyn.xmap.best_rotations, "m-3m"))
+    exp_d, sq_d = _prepare_experimental(pre_rows[:NAV_CHUNK], None)
+    truth_q = torch.as_tensor(truth[:NAV_CHUNK], dtype=torch.float32, device=dev)
+    at_truth = float(lp.lambert_project_ncc(truth_q, dc, quad, *geo, exp_d, sq_d).mean())
+    at_refined = float(1.0 - refined_dyn.xmap.prop["scores"][:NAV_CHUNK].mean())
+    log("refine-dynamic", f"the same call on the main path's {n_scan} patterns with the dynamic background "
+        f"removed too (unchecked): {t_dyn:.3f} s, launches {read_launches()['lambert_project_ncc']}; disorientation "
+        f"median {np.median(ang_dyn):.4f} deg, max over the near points {ang_dyn[near].max():.4f} deg; on the "
+        f"first chunk mean 1 - NCC {at_refined:.5f} at the refined orientations against {at_truth:.5f} at the "
+        f"truth: the optimum of these patterns is not the truth")
+
+    # One navigation chunk under torch.profiler: how much of it the card is busy.
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk_sig = kt.EBSD(static.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
+    chunk_xmap = CrystalMap(rotations=top1_rot[:NAV_CHUNK], shape=(NAV_CHUNK,), phases=xmap.phases)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
+        torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk_sig.refine_orientation(xmap=chunk_xmap, master_pattern=mp)
+    torch.cuda.synchronize()
+    chunk_wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk_sig.refine_orientation(xmap=chunk_xmap, master_pattern=mp)
+        torch.cuda.synchronize()
+    traced_wall = (time.perf_counter() - t0) * 1e3
+    busy, events = device_busy(prof)
+    top = "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in events[:8])
+    log("refine-profile", f"{smi}: one chunk of {NAV_CHUNK} points: wall {chunk_wall:.3f} ms untraced, "
+        f"{traced_wall:.3f} ms traced; device busy {busy:.3f} ms = {busy / chunk_wall:.1%} of the untraced wall "
+        f"({busy / traced_wall:.1%} traced) over {len(events)} kernel names; {top}")
+
+    # PC and joint refinement on one chunk of the static-corrected scan, from
+    # a PC off by PC_OFFSET; PC mode on the main path's patterns too,
+    # unchecked (the dynamic removal moves the optimum in PC z as well).
+    bad_det = dataclasses.replace(det, pc=np.asarray(PC) + np.asarray(PC_OFFSET))
+    refined_chunk = CrystalMap(rotations=refined.xmap.best_rotations[:NAV_CHUNK], shape=(NAV_CHUNK,),
+                               phases=xmap.phases)
+    pre_chunk = kt.EBSD(pre.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
+    pc_msgs = []
+    for name, sig, start_xmap, checked in (
+        ("refine_projection_center", chunk_sig, refined_chunk, True),
+        ("refine_orientation_projection_center", chunk_sig, chunk_xmap, True),
+        ("refine_projection_center", pre_chunk, refined_chunk, False),
+    ):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = getattr(sig, name)(xmap=start_xmap, detector=bad_det, master_pattern=mp)
+        torch.cuda.synchronize()
+        t_pc = time.perf_counter() - t0
+        n_b = read_launches()["lambert_project_ncc"]
+        refine_launches["lambert_project_ncc"] += n_b
+        mean_pc = res.detector.pc.reshape(-1, 3).mean(axis=0)
+        off = np.abs(mean_pc - np.asarray(PC))
+        if n_b < 1 or (checked and not (off < PC_TOL).all()):
+            raise AssertionError(f"{name}: mean PC {mean_pc.tolist()} is {off.tolist()} from {PC} "
+                                 f"(limit {PC_TOL}); kernel launches {n_b}")
+        ang = np.degrees(disorientation_angle(truth[:NAV_CHUNK], res.xmap.best_rotations, "m-3m"))
+        pc_msgs.append(f"{name} on the {'static-corrected scan' if checked else 'main path patterns, unchecked'}: "
+                       f"{t_pc:.3f} s = {NAV_CHUNK / t_pc:.1f} patterns/s, launches {n_b}, iterations mean "
+                       f"{res.xmap.prop['num_evals'].mean():.1f}, mean PC {np.round(mean_pc, 5).tolist()} (off "
+                       f"{np.round(off, 6).tolist()}{f', limit {PC_TOL}' if checked else ''}), PC std "
+                       f"{np.round(res.detector.pc.reshape(-1, 3).std(axis=0), 5).tolist()}, disorientation median "
+                       f"{np.median(ang):.4f} deg, max {ang.max():.3f}")
+    log("refine-pc", f"{smi}: {NAV_CHUNK} points from PC {PC} + {PC_OFFSET}: " + "; ".join(pc_msgs))
 
     # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
     metric = get_metric("ncc")
@@ -784,6 +1088,31 @@ def main(argv=None) -> int:
                              f"{lib_name} {ms_lib:.3f} ms; product + torch.topk + merge per 32768 columns "
                              f"{ms_same:.3f} ms)")
     table.append(split_row)
+    # The projection kernels: A on the whole dictionary, B on one navigation chunk.
+    ms_a = cuda_ms(lambda: lp.lambert_project(rot_dict, dc, quad, *geo), 5)
+    ms_a_plain = cuda_ms(lambda: [lp.lambert_project_plain(rot_dict[c0:c0 + 16384], dc, quad, *geo)
+                                  for c0 in range(0, m, 16384)], 1)
+    ms_b_plain = cuda_ms(lambda: lp.lambert_project_ncc_plain(rot_nav, dc, quad, *geo, exp_c, sq_c), 5)
+    pix_a = m * d
+    t_bytes_a = (4 * (pix_a + 4 * m + dc.numel()) + 4 * quad.numel()) / PEAK_BYTES * 1e3
+    t_ops_a = pix_a * OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
+    none_keys = dict(library_ms=None, library_same_function_ms=None, split_ms=None, kernel_only_ms=None)
+    for name, line, launches, err, ms, plain_ms, bound, by, taps in (
+        ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"], a_err, ms_a,
+         ms_a_plain, max(t_bytes_a, t_ops_a), "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a),
+        ("lambert_project_ncc", "indexing/refinement.py:132", refine_launches["lambert_project_ncc"], b_err, ms_b,
+         ms_b_plain, bound_b, "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b),
+    ):
+        l2_ms = taps * TAP_BYTES / l2_rate * 1e3
+        table.append({
+            "name": name, "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/lambert_project.cu",
+            "replaces": f"kikuchipy_tpu/{line}", "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, **none_keys,
+        })
+        time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; its "
+                         f"{taps * TAP_BYTES / 1e9:.3f} GB of taps from L2 {l2_ms:.4f} ms; plain {plain_ms:.3f} ms"
+                         f"{' in slabs of 16384 rows' if name == 'lambert_project' else ''}; no single PyTorch "
+                         f"call computes it)")
     time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
                      f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16
@@ -797,8 +1126,6 @@ def main(argv=None) -> int:
     # ---- where the time of one indexing call and one projection chunk goes ----
     dict_prep = metric.prepare(dictionary.data)
     cand = entry_out["ncc_match_topk_int8"][1][:, :k_carry]
-    quad = quad_texture(torch.as_tensor(mp._hemispheres_at_energy(), device=dev))
-    dc = direction_cosines_from_detector(det, device=dev)
     rot_chunk = torch.as_tensor(dict_rot[:8192], dtype=torch.float32, device=dev)
     parts = {
         "prepare scan": lambda: metric.prepare(pre.data),
@@ -816,28 +1143,14 @@ def main(argv=None) -> int:
     log("breakdown", f"{smi}: kernel {int8_ms:.3f} ms; " + "; ".join(f"{k} {v:.3f} ms" for k, v in spent.items()))
 
     # ---- a profiler trace of one pallas-int8 indexing call ----
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
-        torch.zeros(1, device=dev).add_(1)
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_time(e) -> float:
-        v = getattr(e, "self_device_time_total", None)
-        return getattr(e, "self_cuda_time_total", 0) if v is None else v
-
-    averages = prof.key_averages()
-    events = [e for e in averages if "cuda" in str(getattr(e, "device_type", "")).lower() and dev_time(e) > 0]
-    if not events:  # no device-side entries: take whatever carries device time
-        events = [e for e in averages if dev_time(e) > 0]
-    events.sort(key=dev_time, reverse=True)
-    busy_ms = sum(dev_time(e) for e in events) / 1e3
-    top = "; ".join(f"{e.key[:60]} x{e.count} {dev_time(e) / 1e3:.3f} ms" for e in events[:14])
+    busy_ms, events = device_busy(prof)
+    top = "; ".join(f"{k[:60]} x{c} {t:.3f} ms" for k, c, t in events[:14])
     log("profile", f"{smi}: one pallas-int8 call under torch.profiler: wall {wall_ms:.3f} ms (tracing on), device busy "
         f"{busy_ms:.3f} ms over {len(events)} kernel names; {top}" if events else
         f"{smi}: torch.profiler recorded no device time; wall {wall_ms:.3f} ms")

@@ -11,7 +11,18 @@ import math
 
 import torch
 
-__all__ = ["from_euler", "to_euler", "rotate_vector", "multiply", "conjugate"]
+__all__ = [
+    "angle_between",
+    "conjugate",
+    "from_axis_angle",
+    "from_euler",
+    "from_matrix",
+    "from_rodrigues",
+    "multiply",
+    "rotate_vector",
+    "to_euler",
+    "to_matrix",
+]
 
 
 def from_euler(euler: torch.Tensor) -> torch.Tensor:
@@ -51,6 +62,27 @@ def to_euler(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([alpha, beta, gamma], dim=-1)
 
 
+def from_rodrigues(r: torch.Tensor) -> torch.Tensor:
+    """Rodrigues vectors ``(..., 3)`` to unit quaternions with non-negative
+    scalar part."""
+    norm = torch.sqrt(torch.sum(torch.square(r), dim=-1, keepdim=True))
+    half_angle = torch.atan(norm)
+    s = torch.sin(half_angle)
+    a = torch.cos(half_angle)
+    bcd = torch.where(norm > 0, s * r / norm, torch.zeros_like(r))
+    q = torch.cat([a, bcd], dim=-1)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Quaternion of a rotation by ``angle`` (radians; a scalar or
+    broadcastable to the leading axes of ``axis``) about ``axis (..., 3)``."""
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    half = torch.broadcast_to(0.5 * angle[..., None] if angle.ndim else 0.5 * angle, axis.shape[:-1] + (1,))
+    return torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+
+
 def rotate_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vectors ``v (..., 3)`` by quaternions ``q (..., 4)`` (the
     active rotation; the reference's ``rotate_vector`` formula)."""
@@ -83,3 +115,45 @@ def multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 def conjugate(q: torch.Tensor) -> torch.Tensor:
     """Quaternion conjugate ``(a, -b, -c, -d)``."""
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternions ``(..., 4)`` to rotation matrices ``(..., 3, 3)`` with
+    ``M @ v == rotate_vector(q, v)``."""
+    a, b, c, d = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    aa, bb, cc, dd = a * a, b * b, c * c, d * d
+    ab, ac, ad = a * b, a * c, a * d
+    bc, bd, cd = b * c, b * d, c * d
+    row0 = torch.stack([aa + bb - cc - dd, 2 * (bc - ad), 2 * (bd + ac)], dim=-1)
+    row1 = torch.stack([2 * (bc + ad), aa - bb + cc - dd, 2 * (cd - ab)], dim=-1)
+    row2 = torch.stack([2 * (bd - ac), 2 * (cd + ab), aa - bb - cc + dd], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``(..., 3, 3)`` to unit quaternions with
+    non-negative scalar part: of Shepperd's four extractions, the one of
+    the largest of trace and diagonal (the first on a tie)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = torch.stack(
+        [
+            torch.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], dim=-1),
+        ],
+        dim=-2,
+    )
+    case = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cands, case[..., None, None], dim=-2)[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def angle_between(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Rotation angle (radians) between unit quaternions."""
+    dot = torch.abs(torch.sum(q1 * q2, dim=-1))
+    return 2.0 * torch.arccos(torch.clamp(dot, -1.0, 1.0))

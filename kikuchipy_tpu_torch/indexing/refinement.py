@@ -1,0 +1,580 @@
+"""Orientation and projection-center refinement.
+
+Counterpart of ``kikuchipy_tpu/indexing/refinement.py``: every map point
+is refined at once by the batched Nelder-Mead of
+:mod:`kikuchipy_tpu_torch.utils.optimize` (one simplex a point, lockstep
+iterations), minimizing ``1 - NCC`` between the centred experimental
+pattern and the pattern projected at the candidate Euler angles and/or
+PC. On the card every evaluation of that objective is one launch of the
+projection-NCC kernel (:func:`kikuchipy_tpu_torch.ops.lambert_project.
+lambert_project_ncc`); the projected pattern never reaches device memory.
+On the CPU the objective is its plain PyTorch twin.
+
+Modes, as in the JAX package:
+
+- :func:`refine_orientation`: Euler triplet per point, fixed PC(s);
+- :func:`refine_projection_center`: PC triplet per point, fixed
+  orientations;
+- :func:`refine_orientation_projection_center`: both, six parameters.
+
+Ported: Nelder-Mead (``method="nm"`` and its aliases) with the bilinear
+projector, navigation and signal masks, trust regions, per-point PCs,
+pseudo-symmetry variants and refinement in navigation chunks. Not ported
+yet, and refused with ``NotImplementedError``: the methods ``"lm"``,
+``"gradient"``, ``"de"``, ``"da"``, ``"bh"`` and ``"shgo"``, and
+``projector="spherical"``.
+
+Where the JAX objectives take the master pattern, the port's take its
+quad texture (:func:`~kikuchipy_tpu_torch.projection.master_pattern.
+quad_texture`), built once per call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, PhaseList
+from kikuchipy_tpu_torch.geometry import quaternion as quat
+from kikuchipy_tpu_torch.ops.lambert_project import lambert_project, lambert_project_ncc, ncc_centered
+from kikuchipy_tpu_torch.projection.master_pattern import (
+    direction_cosines,
+    direction_cosines_from_detector,
+    quad_texture,
+)
+from kikuchipy_tpu_torch.utils.optimize import nelder_mead_batched
+
+__all__ = [
+    "RefinementResult",
+    "refine_orientation",
+    "refine_projection_center",
+    "refine_orientation_projection_center",
+]
+
+_f32 = torch.float32
+
+
+@dataclasses.dataclass
+class RefinementResult:
+    """Refinement output.
+
+    Attributes
+    ----------
+    xmap
+        Crystal map with refined rotations and ``scores`` (NCC) and
+        ``num_evals`` properties.
+    detector
+        Detector with refined PCs (PC and joint modes; the original
+        otherwise).
+    """
+
+    xmap: CrystalMap
+    detector: object = None
+
+
+def _normalize_method(method: str) -> str:
+    """The JAX package's solver names (the reference's scipy and NLopt
+    names included) to its batched solvers."""
+    m = method.lower()
+    if m in ("nm", "minimize", "ln_neldermead", "nelder-mead"):
+        return "nm"
+    if m == "gradient":
+        return "gradient"
+    if m in ("lm", "gn", "gauss-newton", "levenberg-marquardt"):
+        return "lm"
+    if m in ("de", "differential_evolution"):
+        return "de"
+    if m in ("da", "dual_annealing"):
+        return "da"
+    if m in ("bh", "basinhopping"):
+        return "bh"
+    if m == "shgo":
+        return "shgo"
+    raise ValueError(
+        f"method must be one of 'nm', 'lm', 'gradient', 'dual_annealing', "
+        f"'differential_evolution', 'basinhopping', 'shgo', got {method!r}"
+    )
+
+
+def _check_ported(method: str, projector: str) -> str:
+    """The normalized method, after the JAX package's checks; raise
+    ``NotImplementedError`` for what exists there but not here yet."""
+    m = _normalize_method(method)
+    if projector not in ("bilinear", "spherical"):
+        raise ValueError(f"projector must be 'bilinear' or 'spherical', got {projector!r}")
+    if projector == "spherical":
+        raise NotImplementedError(
+            "projector='spherical' (the spherical-harmonic tier) is not ported to "
+            "kikuchipy_tpu_torch yet; use projector='bilinear'"
+        )
+    if m != "nm":
+        raise NotImplementedError(
+            f"method={method!r} ({m}) is not ported to kikuchipy_tpu_torch yet; "
+            "only Nelder-Mead ('nm') is"
+        )
+    return m
+
+
+def _prepare_experimental(patterns: torch.Tensor, signal_mask_idx) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rescale each pattern to [-1, 1], apply the mask, centre; return the
+    centred rows ``(n, P)`` float32 and their squared norms ``(n,)``."""
+    p = patterns.to(_f32)
+    p = p.reshape(p.shape[0], -1) if p.ndim == 2 else p.reshape(-1, p.shape[-2] * p.shape[-1])
+    imin = torch.amin(p, dim=1, keepdim=True)
+    imax = torch.amax(p, dim=1, keepdim=True)
+    p = (p - imin) / (imax - imin) * 2.0 - 1.0
+    if signal_mask_idx is not None:
+        p = p[:, signal_mask_idx]
+    p = p - torch.mean(p, dim=1, keepdim=True)
+    sq_norm = torch.sum(torch.square(p), dim=1)
+    return p.contiguous(), sq_norm
+
+
+_ncc_centered = ncc_centered
+
+
+def _project_at(quats_b, dc, quad, npx, npy, scale) -> torch.Tensor:
+    """One projected pattern per batch element; ``dc`` is ``(n, m, 3)``
+    or ``(m, 3)``."""
+    return lambert_project(quats_b, dc, quad, npx, npy, scale)
+
+
+def _dc_for_pc(pc_b, nrows, ncols, om_d2s, mask_idx) -> torch.Tensor:
+    """Direction cosines ``(n, P, 3)`` for candidate PCs ``(n, 3)``."""
+    aspect = ncols / nrows
+    pcx, pcy, pcz = pc_b[:, 0], pc_b[:, 1], pc_b[:, 2]
+    gb = torch.stack(
+        [-aspect * pcx / pcz, aspect * (1 - pcx) / pcz, -(1 - pcy) / pcz, pcy / pcz],
+        dim=-1,
+    )
+    return direction_cosines(gb, pcz, nrows, ncols, om_d2s, signal_mask=mask_idx)
+
+
+def _mask_bool_to_idx(signal_mask, sig_size):
+    if signal_mask is None:
+        return None
+    mask = np.asarray(signal_mask).ravel()
+    if mask.size != sig_size:
+        raise ValueError(f"signal_mask has {mask.size} elements, expected {sig_size}")
+    return np.nonzero(~mask)[0].astype(np.int32)
+
+
+def _master_arrays(master_pattern, energy, device):
+    """The master pattern's quad texture on ``device``, ``npx``, ``npy``
+    and ``scale``."""
+    master = master_pattern._hemispheres_at_energy(energy)
+    npy, npx = master.shape[-2:]
+    quad = quad_texture(torch.as_tensor(master, dtype=_f32, device=device))
+    return quad, npx, npy, (npx - 1) / 2
+
+
+def _finalize_xmap(xmap, rotations, scores, n_iter, nav_shape):
+    return CrystalMap(
+        rotations=rotations,
+        phase_id=None if xmap is None else np.asarray(xmap.phase_id),
+        shape=nav_shape,
+        prop={"scores": scores, "num_evals": n_iter},
+        phases=xmap.phases if xmap is not None else PhaseList(),
+    )
+
+
+def _objective_orientation(euler_b, exp, sq_norm, dc, quad, npx, npy, scale):
+    """``1 - NCC`` at Euler angles ``(n, 3)``."""
+    q = quat.from_euler(euler_b).to(_f32)
+    return lambert_project_ncc(q, dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+def _masked_dc_for_pc(pc_b, om, mask_take, nrows, ncols):
+    dc = _dc_for_pc(pc_b.to(_f32), nrows, ncols, om, None)
+    if mask_take is not None:
+        dc = dc[:, mask_take]
+    return dc
+
+
+def _objective_pc(pc_b, exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols):
+    """``1 - NCC`` at PCs ``(n, 3)``, rotations fixed."""
+    dc = _masked_dc_for_pc(pc_b, om, mask_take, nrows, ncols)
+    return lambert_project_ncc(q0, dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+def _objective_joint(x_b, exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols):
+    """``1 - NCC`` at ``(n, 6)``: Euler angles, then PC."""
+    q = quat.from_euler(x_b[:, :3]).to(_f32)
+    dc = _masked_dc_for_pc(x_b[:, 3:], om, mask_take, nrows, ncols)
+    return lambert_project_ncc(q, dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+def _pc_shaped(pc: np.ndarray, nav_shape) -> np.ndarray:
+    return pc.reshape(nav_shape + (3,) if len(nav_shape) == 2 else (-1, 3))
+
+
+def _signal_rows(signal) -> torch.Tensor:
+    return signal.data.reshape((signal.navigation_size,) + signal.signal_shape)
+
+
+def _refine_with_navigation_mask(refine_fn, signal, xmap, detector, navigation_mask, kwargs) -> RefinementResult:
+    """Refine only the unmasked points (``navigation_mask`` True =
+    exclude) and scatter the results back onto the full grid; excluded
+    points keep their input orientation and PC with a NaN score and zero
+    evaluations."""
+    n = signal.navigation_size
+    nav_shape = signal.navigation_shape
+    nav_mask = np.asarray(navigation_mask).ravel()
+    if nav_mask.size != n:
+        raise ValueError(f"navigation_mask has {nav_mask.size} elements, expected {n}")
+    keep = ~nav_mask
+    data = _signal_rows(signal)[torch.as_tensor(keep, device=signal.device)]
+    det_sub = detector
+    if detector is not None and detector.navigation_size == n:
+        det_sub = dataclasses.replace(detector, pc=detector.pc_flattened[keep])
+    sub_signal = dataclasses.replace(signal, data=data, detector=det_sub, xmap=None)
+    res = refine_fn(sub_signal, xmap=xmap[keep], detector=det_sub, **kwargs)
+
+    rot_full = np.asarray(xmap.best_rotations).copy()
+    rot_full[keep] = np.asarray(res.xmap.best_rotations)
+    scores = np.full(n, np.nan)
+    scores[keep] = np.asarray(res.xmap.prop["scores"])
+    nev = np.zeros(n, dtype=np.int64)
+    nev[keep] = np.asarray(res.xmap.prop["num_evals"])
+    new_xmap = _finalize_xmap(xmap, rot_full, scores, nev, nav_shape)
+
+    det_new = res.detector
+    if det_new is not None and detector is not None and not np.array_equal(
+        np.asarray(det_new.pc), np.asarray(det_sub.pc)
+    ):
+        pc_full = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3)).astype(np.float64).copy()
+        pc_full[keep] = np.asarray(det_new.pc).reshape(-1, 3)
+        det_new = dataclasses.replace(detector, pc=_pc_shaped(pc_full, nav_shape))
+    else:
+        det_new = detector
+    return RefinementResult(xmap=new_xmap, detector=det_new)
+
+
+def refine_orientation(
+    signal,
+    xmap: CrystalMap | None = None,
+    detector=None,
+    master_pattern=None,
+    energy: float | None = None,
+    signal_mask: np.ndarray | None = None,
+    navigation_mask: np.ndarray | None = None,
+    pseudo_symmetry_ops: np.ndarray | None = None,
+    trust_region=None,
+    max_iters: int = 150,
+    rtol: float = 1e-4,
+    method: str = "nm",
+    nav_chunk: int | None = 2048,
+    projector: str = "bilinear",
+    sh_L: int = 88,
+    sh_precision: str = "default",
+) -> RefinementResult:
+    """Refine orientations by maximizing NCC over Euler angles, on the
+    signal's device.
+
+    ``trust_region``: optional ``(3,)`` half-widths in degrees bounding
+    each Euler angle around its start value. ``pseudo_symmetry_ops``:
+    optional ``(n_ops, 4)`` quaternions; each point is also refined from
+    every variant ``op * q0`` of its start and the best result kept, with
+    the winning variant (0 = original) in the ``pseudo_symmetry_index``
+    property. ``nav_chunk``: points per Nelder-Mead batch (the last chunk
+    padded). ``sh_L`` and ``sh_precision`` belong to the spherical
+    projector, which is not ported yet.
+    """
+    method = _check_ported(method, projector)
+    if navigation_mask is not None:
+        return _refine_with_navigation_mask(
+            refine_orientation,
+            signal,
+            xmap if xmap is not None else signal.xmap,
+            detector if detector is not None else signal.detector,
+            navigation_mask,
+            dict(
+                master_pattern=master_pattern, energy=energy, signal_mask=signal_mask,
+                pseudo_symmetry_ops=pseudo_symmetry_ops, trust_region=trust_region, max_iters=max_iters,
+                rtol=rtol, method=method, nav_chunk=nav_chunk, projector=projector, sh_L=sh_L,
+                sh_precision=sh_precision,
+            ),
+        )
+    if pseudo_symmetry_ops is not None:
+        return _refine_orientation_pseudo_symmetry(
+            signal, xmap, detector, master_pattern, energy, signal_mask, np.asarray(pseudo_symmetry_ops),
+            trust_region, max_iters, rtol, method, projector, sh_L, sh_precision,
+        )
+    xmap = xmap if xmap is not None else signal.xmap
+    detector = detector if detector is not None else signal.detector
+    nav_shape = signal.navigation_shape
+    n = signal.navigation_size
+    dev = signal.device
+
+    if nav_chunk is not None and n > nav_chunk:
+        return _refine_orientation_chunked(
+            signal, xmap, detector, master_pattern, energy, signal_mask, trust_region, max_iters, rtol, method,
+            nav_chunk, projector, sh_L, sh_precision,
+        )
+
+    mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
+    mask_t = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
+    exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_t)
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+
+    dc = direction_cosines_from_detector(detector, device=dev)
+    if detector.navigation_size == 1:
+        if mask_t is not None:
+            dc = dc[mask_t]
+    else:
+        dc = dc.reshape((n, -1, 3))
+        if mask_t is not None:
+            dc = dc[:, mask_t]
+
+    euler0 = quat.to_euler(torch.tensor(np.asarray(xmap.best_rotations), dtype=torch.float64)).numpy()
+
+    lb = ub = None
+    if trust_region is not None:
+        tr = np.deg2rad(np.asarray(trust_region, dtype=np.float64))
+        lb = torch.as_tensor(euler0 - tr, dtype=_f32, device=dev)
+        ub = torch.as_tensor(euler0 + tr, dtype=_f32, device=dev)
+
+    res = nelder_mead_batched(
+        _objective_orientation,
+        torch.as_tensor(euler0, dtype=_f32, device=dev),
+        initial_step=np.deg2rad(1.0),
+        max_iters=max_iters,
+        fatol=rtol,
+        xatol=1e-4,
+        lower_bounds=lb,
+        upper_bounds=ub,
+        args=(exp, sq_norm, dc.contiguous(), quad, npx, npy, scale),
+    )
+    refined_rot = quat.from_euler(res.x.to(torch.float64)).cpu().numpy()
+    scores = 1.0 - res.fun.cpu().numpy()
+    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy(), nav_shape)
+    return RefinementResult(xmap=new_xmap, detector=detector)
+
+
+def _refine_orientation_pseudo_symmetry(
+    signal, xmap, detector, master_pattern, energy, signal_mask, ops, trust_region, max_iters, rtol,
+    method="nm", projector="bilinear", sh_L=88, sh_precision="default",
+):
+    """Refine from the original and each pseudo-symmetric start; keep the
+    best result per map point."""
+    xmap0 = xmap if xmap is not None else signal.xmap
+    q0 = torch.tensor(np.asarray(xmap0.best_rotations), dtype=torch.float64)
+    variants = [q0.numpy()] + [
+        quat.multiply(torch.tensor(np.asarray(op), dtype=torch.float64), q0).numpy() for op in ops
+    ]
+    results = []
+    for qv in variants:
+        xmap_v = CrystalMap(
+            rotations=qv, phase_id=np.asarray(xmap0.phase_id), shape=xmap0.shape, phases=xmap0.phases
+        )
+        results.append(
+            refine_orientation(
+                signal, xmap=xmap_v, detector=detector, master_pattern=master_pattern, energy=energy,
+                signal_mask=signal_mask, trust_region=trust_region, max_iters=max_iters, rtol=rtol,
+                method=method, projector=projector, sh_L=sh_L, sh_precision=sh_precision,
+            )
+        )
+    scores = np.stack([r.xmap.prop["scores"] for r in results])  # (v, n)
+    best = np.argmax(scores, axis=0)
+    n = scores.shape[1]
+    rot = np.stack([r.xmap.best_rotations for r in results])  # (v, n, 4)
+    num_evals = np.stack([r.xmap.prop["num_evals"] for r in results]).sum(0)
+    new_xmap = _finalize_xmap(xmap0, rot[best, np.arange(n)], scores[best, np.arange(n)], num_evals, xmap0.shape)
+    new_xmap.prop["pseudo_symmetry_index"] = best
+    return RefinementResult(xmap=new_xmap, detector=detector if detector is not None else signal.detector)
+
+
+def refine_projection_center(
+    signal,
+    xmap: CrystalMap | None = None,
+    detector=None,
+    master_pattern=None,
+    energy: float | None = None,
+    signal_mask: np.ndarray | None = None,
+    navigation_mask: np.ndarray | None = None,
+    trust_region=None,
+    max_iters: int = 150,
+    rtol: float = 1e-4,
+    method: str = "nm",
+    projector: str = "bilinear",
+    sh_L: int = 88,
+    sh_precision: str = "default",
+) -> RefinementResult:
+    """Refine projection centers with fixed orientations, on the signal's
+    device. ``trust_region``: optional ``(3,)`` half-widths (PC
+    fractions)."""
+    method = _check_ported(method, projector)
+    xmap = xmap if xmap is not None else signal.xmap
+    detector = detector if detector is not None else signal.detector
+    if navigation_mask is not None:
+        return _refine_with_navigation_mask(
+            refine_projection_center, signal, xmap, detector, navigation_mask,
+            dict(
+                master_pattern=master_pattern, energy=energy, signal_mask=signal_mask, trust_region=trust_region,
+                max_iters=max_iters, rtol=rtol, method=method, projector=projector, sh_L=sh_L,
+                sh_precision=sh_precision,
+            ),
+        )
+    nav_shape = signal.navigation_shape
+    n = signal.navigation_size
+    dev = signal.device
+
+    mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
+    mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
+    exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_take)
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+    nrows, ncols = detector.shape
+    om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
+    q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+    pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3)).astype(np.float32)
+
+    lb = ub = None
+    if trust_region is not None:
+        tr = np.asarray(trust_region, dtype=np.float32)
+        lb = torch.as_tensor(pc0 - tr, device=dev)
+        ub = torch.as_tensor(pc0 + tr, device=dev)
+
+    res = nelder_mead_batched(
+        _objective_pc,
+        torch.as_tensor(pc0, device=dev),
+        initial_step=0.01,
+        max_iters=max_iters,
+        fatol=rtol,
+        xatol=1e-5,
+        lower_bounds=lb,
+        upper_bounds=ub,
+        args=(exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+    )
+    new_pc = res.x.cpu().numpy().astype(np.float64)
+    new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
+    scores = 1.0 - res.fun.cpu().numpy()
+    new_xmap = _finalize_xmap(
+        xmap, np.asarray(xmap.best_rotations), scores, res.n_iter.cpu().numpy(), nav_shape
+    )
+    return RefinementResult(xmap=new_xmap, detector=new_detector)
+
+
+def refine_orientation_projection_center(
+    signal,
+    xmap: CrystalMap | None = None,
+    detector=None,
+    master_pattern=None,
+    energy: float | None = None,
+    signal_mask: np.ndarray | None = None,
+    navigation_mask: np.ndarray | None = None,
+    trust_region=None,
+    max_iters: int = 200,
+    rtol: float = 1e-4,
+    method: str = "nm",
+    projector: str = "bilinear",
+    sh_L: int = 88,
+    sh_precision: str = "default",
+) -> RefinementResult:
+    """Jointly refine orientations and PCs, on the signal's device.
+    ``trust_region``: optional ``(6,)``: three Euler half-widths in
+    degrees, then three PC half-widths."""
+    method = _check_ported(method, projector)
+    xmap = xmap if xmap is not None else signal.xmap
+    detector = detector if detector is not None else signal.detector
+    if navigation_mask is not None:
+        return _refine_with_navigation_mask(
+            refine_orientation_projection_center, signal, xmap, detector, navigation_mask,
+            dict(
+                master_pattern=master_pattern, energy=energy, signal_mask=signal_mask, trust_region=trust_region,
+                max_iters=max_iters, rtol=rtol, method=method, projector=projector, sh_L=sh_L,
+                sh_precision=sh_precision,
+            ),
+        )
+    nav_shape = signal.navigation_shape
+    n = signal.navigation_size
+    dev = signal.device
+
+    mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
+    mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
+    exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_take)
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+    nrows, ncols = detector.shape
+    om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
+
+    euler0 = quat.to_euler(torch.tensor(np.asarray(xmap.best_rotations), dtype=torch.float64)).numpy()
+    pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3))
+    x0 = np.concatenate([euler0, pc0], axis=1).astype(np.float32)
+
+    lb = ub = None
+    if trust_region is not None:
+        tr = np.asarray(trust_region, dtype=np.float64).copy()
+        tr[:3] = np.deg2rad(tr[:3])
+        lb = torch.as_tensor(x0 - tr, dtype=_f32, device=dev)
+        ub = torch.as_tensor(x0 + tr, dtype=_f32, device=dev)
+
+    res = nelder_mead_batched(
+        _objective_joint,
+        torch.as_tensor(x0, device=dev),
+        initial_step=torch.as_tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=_f32, device=dev),
+        max_iters=max_iters,
+        fatol=rtol,
+        xatol=1e-5,
+        lower_bounds=lb,
+        upper_bounds=ub,
+        args=(exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+    )
+    x = res.x.cpu().numpy().astype(np.float64)
+    refined_rot = quat.from_euler(torch.as_tensor(x[:, :3])).numpy()
+    new_detector = dataclasses.replace(detector, pc=_pc_shaped(x[:, 3:], nav_shape))
+    scores = 1.0 - res.fun.cpu().numpy()
+    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy(), nav_shape)
+    return RefinementResult(xmap=new_xmap, detector=new_detector)
+
+
+def _refine_orientation_chunked(
+    signal, xmap, detector, master_pattern, energy, signal_mask, trust_region, max_iters, rtol, method, chunk,
+    projector="bilinear", sh_L=88, sh_precision="default",
+):
+    """Refine a large map in navigation chunks of ``chunk`` points, the
+    last one padded with copies of its first point."""
+    from kikuchipy_tpu_torch.signals.ebsd import EBSD
+
+    n = signal.navigation_size
+    nav_shape = signal.navigation_shape
+    data = _signal_rows(signal)
+    q0 = np.asarray(xmap.best_rotations)
+    per_point_pc = detector is not None and detector.navigation_size == n
+    pcs = detector.pc.reshape(-1, 3) if per_point_pc else None
+
+    rot_parts, score_parts, ev_parts = [], [], []
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        pad = chunk - (end - start)
+        d = data[start:end]
+        q = q0[start:end]
+        if pad:
+            d = torch.cat([d, d[:1].expand((pad,) + tuple(d.shape[1:]))])
+            q = np.concatenate([q, np.repeat(q[:1], pad, axis=0)])
+        det = detector
+        if per_point_pc:
+            p = pcs[start:end]
+            if pad:
+                p = np.concatenate([p, np.repeat(p[:1], pad, axis=0)])
+            det = dataclasses.replace(detector, pc=p)
+        sub_signal = EBSD(data=d, detector=det, device=signal.device)
+        sub_xmap = CrystalMap(rotations=q, shape=(chunk,), phases=xmap.phases)
+        res = refine_orientation(
+            sub_signal, xmap=sub_xmap, detector=det, master_pattern=master_pattern, energy=energy,
+            signal_mask=signal_mask, trust_region=trust_region, max_iters=max_iters, rtol=rtol, method=method,
+            nav_chunk=None, projector=projector, sh_L=sh_L, sh_precision=sh_precision,
+        )
+        keep = end - start
+        rot_parts.append(np.asarray(res.xmap.rotations)[:keep])
+        score_parts.append(np.asarray(res.xmap.prop["scores"])[:keep])
+        ev_parts.append(np.asarray(res.xmap.prop["num_evals"])[:keep])
+
+    new_xmap = CrystalMap(
+        rotations=np.concatenate(rot_parts),
+        phase_id=np.asarray(xmap.phase_id),
+        shape=nav_shape,
+        prop={"scores": np.concatenate(score_parts), "num_evals": np.concatenate(ev_parts)},
+        phases=xmap.phases,
+    )
+    return RefinementResult(xmap=new_xmap, detector=detector)

@@ -11,13 +11,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import PreparedDictionary
 from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern
 from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
 
-__all__ = ["master_pattern_from_state", "detector_from_state", "prepared_dictionary_from_state"]
+__all__ = [
+    "crystal_map_from_state",
+    "detector_from_state",
+    "master_pattern_from_state",
+    "prepared_dictionary_from_state",
+]
 
 
 def master_pattern_from_state(
@@ -66,6 +71,27 @@ def detector_from_state(
         azimuthal=float(azimuthal),
         twist=float(twist),
         convention=convention,
+    )
+
+
+def crystal_map_from_state(
+    rotations,
+    shape=None,
+    phase_id=None,
+    prop: dict | None = None,
+    phase_name: str = "",
+    point_group: str | None = None,
+    space_group: int | None = None,
+) -> CrystalMap:
+    """A :class:`CrystalMap` from a crystal map's rotations ``(n, 4)`` (or
+    ``(n, k, 4)``), navigation shape, phase ids and property arrays, with
+    one phase."""
+    return CrystalMap(
+        rotations=np.asarray(rotations, dtype=np.float64),
+        phase_id=None if phase_id is None else np.asarray(phase_id),
+        shape=None if shape is None else tuple(shape),
+        prop={k: np.asarray(v) for k, v in (prop or {}).items()},
+        phases=PhaseList(Phase(name=phase_name, space_group=space_group, point_group=point_group)),
     )
 
 

@@ -1,11 +1,13 @@
 """Master-pattern projection: detector direction cosines and batched
 projection of EBSD patterns from square-Lambert master patterns.
 
-Plain PyTorch counterpart of ``kikuchipy_tpu/projection/master_pattern.py``
-(XLA code there, not a TPU kernel): quaternion rotate -> Lambert ->
-bilinear gather over all (rotation, pixel) pairs, both hemispheres packed
-into one "quad texture" so the four bilinear taps and the hemisphere
-select are one gather.
+Counterpart of ``kikuchipy_tpu/projection/master_pattern.py`` (XLA code
+there, not a TPU kernel): quaternion rotate -> Lambert -> bilinear gather
+over all (rotation, pixel) pairs, both hemispheres packed into one "quad
+texture" so the four bilinear taps and the hemisphere select are one
+gather. :func:`project_patterns` runs that gather as one hand-written
+kernel on the card (:func:`kikuchipy_tpu_torch.ops.lambert_project.
+lambert_project`) and as plain PyTorch on the CPU.
 """
 
 from __future__ import annotations
@@ -14,13 +16,15 @@ import numpy as np
 import torch
 
 from kikuchipy_tpu_torch.geometry.lambert import SQRT_PI_HALF, vector_to_lambert
-from kikuchipy_tpu_torch.geometry.quaternion import rotate_vector
+from kikuchipy_tpu_torch.ops.lambert_project import lambert_project
 
 __all__ = [
     "direction_cosines",
     "direction_cosines_from_detector",
     "lambert_interpolation_weights",
     "project_patterns",
+    "project_single_pattern",
+    "quad_texture",
 ]
 
 
@@ -148,19 +152,17 @@ def project_patterns(
     ``dc`` is ``(n_pixels, 3)`` (one PC) or ``(n, n_pixels, 3)``;
     ``scale`` is ``(npx - 1) / 2``; ``rescale`` maps each pattern's
     min/max to ``[out_min, out_max]``. ``quad`` may pass a precomputed
-    :func:`quad_texture` of ``master``.
+    :func:`quad_texture` of ``master``. On the card float32 operands go
+    through one launch of the projection kernel.
     """
-    if dc.ndim == 2:
-        rotated = rotate_vector(rotations[:, None, :], dc[None, :, :])
-    else:
-        rotated = rotate_vector(rotations[:, None, :], dc)
-    nii, nij, _, _, weights = lambert_interpolation_weights(rotated, npx, npy, scale)
-    hemi = (rotated[..., 2] < 0).to(torch.int32)
     if quad is None:
         quad = quad_texture(master)
-    patterns = _bilinear_gather(quad, npy, npx, hemi, nii, nij, weights)
-    if rescale:
-        imin = torch.amin(patterns, dim=-1, keepdim=True)
-        imax = torch.amax(patterns, dim=-1, keepdim=True)
-        patterns = (patterns - imin) / (imax - imin) * (out_max - out_min) + out_min
-    return patterns
+    return lambert_project(rotations, dc, quad, npx, npy, scale, rescale, out_min, out_max)
+
+
+def project_single_pattern(
+    rotation: torch.Tensor, dc: torch.Tensor, master: torch.Tensor, npx: int, npy: int, scale: float, **kwargs
+) -> torch.Tensor:
+    """Project one pattern ``(n_pixels,)`` for a rotation ``(4,)`` (a
+    convenience wrapper over :func:`project_patterns`)."""
+    return project_patterns(rotation[None], dc, master, npx, npy, scale, **kwargs)[0]

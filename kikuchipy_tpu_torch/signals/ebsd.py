@@ -4,9 +4,9 @@ PyTorch counterpart of ``kikuchipy_tpu/signals/ebsd.py``: a dataclass
 over a pattern tensor ``(ny, nx, sy, sx)`` (or ``(n, sy, sx)``) on one
 device, with the attributes the reference kikuchipy carries through
 operations (``detector``, ``xmap``, ``static_background``). Ported so
-far: static and dynamic (frequency-domain) background removal and
-dictionary indexing; the other methods wait
-(see ROADMAP.md).
+far: static and dynamic (frequency-domain) background removal,
+dictionary indexing and Nelder-Mead refinement of orientations and/or
+projection centers; the other methods wait (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -178,6 +178,27 @@ class EBSD:
                 ~np.asarray(navigation_mask).ravel() if navigation_mask is not None else None
             ),
         )
+
+    def refine_orientation(self, *args, **kwargs):
+        """:func:`kikuchipy_tpu_torch.indexing.refinement.refine_orientation`
+        of this signal."""
+        from kikuchipy_tpu_torch.indexing.refinement import refine_orientation
+
+        return refine_orientation(self, *args, **kwargs)
+
+    def refine_projection_center(self, *args, **kwargs):
+        """:func:`kikuchipy_tpu_torch.indexing.refinement.
+        refine_projection_center` of this signal."""
+        from kikuchipy_tpu_torch.indexing.refinement import refine_projection_center
+
+        return refine_projection_center(self, *args, **kwargs)
+
+    def refine_orientation_projection_center(self, *args, **kwargs):
+        """:func:`kikuchipy_tpu_torch.indexing.refinement.
+        refine_orientation_projection_center` of this signal."""
+        from kikuchipy_tpu_torch.indexing.refinement import refine_orientation_projection_center
+
+        return refine_orientation_projection_center(self, *args, **kwargs)
 
     def __repr__(self) -> str:
         return (

@@ -93,7 +93,9 @@ class EBSDMasterPattern:
         ``(ny, nx, 4)``) onto ``detector`` (one PC, or one per rotation).
 
         Integer ``dtype_out`` (any dtype other than the master's) rescales
-        each pattern to the dtype range, as in the reference kikuchipy.
+        each pattern to the dtype range, as in the reference kikuchipy. On
+        the card one kernel launch projects all rotations; ``chunk_size``
+        sets the rotations per step of the plain version on the CPU.
         Returns an :class:`EBSD` on this pattern's device with an ``xmap``
         holding the rotations.
         """
@@ -124,10 +126,9 @@ class EBSDMasterPattern:
         rot_dev = torch.as_tensor(rot_flat, dtype=torch.float32, device=dev)
 
         sig_shape = detector.shape
-        out = torch.empty((n,) + sig_shape, dtype=torch_dtype(dtype_out), device=dev)
         per_pc = dc.ndim == 3
-        for start in range(0, n, chunk_size):
-            end = min(start + chunk_size, n)
+
+        def project(start: int, end: int) -> torch.Tensor:
             block = project_patterns(
                 rot_dev[start:end],
                 dc[start:end] if per_pc else dc,
@@ -140,7 +141,18 @@ class EBSDMasterPattern:
                 out_max=float(out_max),
                 quad=quad,
             )
-            out[start:end] = block.reshape((end - start,) + sig_shape).to(out.dtype)
+            return block.reshape((end - start,) + sig_shape).to(torch_dtype(dtype_out))
+
+        if dev.type == "cuda" and n:
+            # One launch of the projection kernel for every rotation.
+            out = project(0, n)
+        else:
+            # chunk_size bounds the plain version's intermediates (about
+            # ten times the patterns).
+            out = torch.empty((n,) + sig_shape, dtype=torch_dtype(dtype_out), device=dev)
+            for start in range(0, n, chunk_size):
+                end = min(start + chunk_size, n)
+                out[start:end] = project(start, end)
 
         xmap = CrystalMap(
             rotations=rot_flat,

@@ -326,3 +326,156 @@ def test_shared_memory_of_a_block_is_what_python_computes(cuda, kernel):
     from kikuchipy_tpu_torch.ops._build import library
 
     assert getattr(library(kernel), f"{kernel}_smem_bytes")() == nt.wgmma_smem_bytes(kernel, 40) <= nt.MAX_BLOCK_SMEM
+
+
+# --------------------- the projection kernels (csrc/lambert_project.cu) --------------------- #
+#
+# Kernel A (lambert_project) against its plain twin: values within 1e-5 of
+# the master's range, and fewer than 1e-4 of the pixels on another tap (the
+# twin rounds as the kernel does; a sum taken in another order can still
+# move a coordinate across a grid line). Kernel B (lambert_project_ncc):
+# 1 - NCC within 2e-6.
+
+
+def _projection_state(device, side=101, shape=(60, 60), pc=(0.42, 0.28, 0.5)):
+    import importlib.util
+    from pathlib import Path
+
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    master = smoke.master_pattern_data(side)
+    det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
+    quad = quad_texture(torch.as_tensor(master, device=device))
+    dc = direction_cosines_from_detector(det, device=device)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    return master, quad, dc, om, det
+
+
+def _quats(n, seed, device):
+    q = np.random.default_rng(seed).normal(size=(n, 4)).astype(np.float32)
+    return torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(device)
+
+
+def _per_point_dc(n, om, seed, device):
+    from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc
+
+    pcs = np.array([0.42, 0.28, 0.5]) + (np.random.default_rng(seed).random((n, 3)) - 0.5) * 0.04
+    return _dc_for_pc(torch.as_tensor(pcs, dtype=torch.float32, device=device), 60, 60, om, None).contiguous()
+
+
+@pytest.mark.parametrize("case", ["shared", "rescale", "per_point", "ragged", "one"])
+def test_lambert_project_matches_plain(cuda, case):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    master, quad, dc, om, _ = _projection_state(cuda)
+    B = {"one": 1}.get(case, 3000)
+    rot = _quats(B, 40, cuda)
+    kw = dict(rescale=True, out_min=0.0, out_max=255.0) if case == "rescale" else {}
+    if case == "per_point":
+        dc = _per_point_dc(B, om, 41, cuda)
+    elif case == "ragged":
+        dc = dc[::7].contiguous()  # P = 515: no multiple of the 256-thread block
+    before = lp.lambert_project.launches
+    got, tap = lp.lambert_project(rot, dc, quad, 101, 101, 50.0, taps=True, **kw)
+    torch.cuda.synchronize()
+    assert lp.lambert_project.launches == before + 1
+    ref, ref_tap = lp.lambert_project_plain(rot, dc, quad, 101, 101, 50.0, taps=True, **kw)
+    scale = 255.0 if case == "rescale" else float(master.max() - master.min())
+    flips = int((tap != ref_tap).sum())
+    print(f"{case}: max |diff| {float((got - ref).abs().max()):.3e}, tap index differs on {flips} of {ref.numel()}")
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    assert flips < 1e-4 * ref.numel()
+    assert torch.equal(lp.lambert_project(rot, dc, quad, 101, 101, 50.0, **kw), got)
+
+
+@pytest.mark.parametrize("case", ["shared", "masked", "per_point", "ragged", "one"])
+def test_lambert_project_ncc_matches_plain(cuda, case):
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    _, quad, dc, om, _ = _projection_state(cuda)
+    B = {"one": 1}.get(case, 2048)
+    rot = _quats(B, 42, cuda)
+    # Experimental rows: patterns projected near the rotations, plus noise.
+    sim = lp.lambert_project(_quats(B, 42, cuda) + 0.01 * _quats(B, 43, cuda), dc, quad, 101, 101, 50.0)
+    rows = sim + 0.05 * torch.randn(sim.shape, generator=torch.Generator(device=cuda).manual_seed(44), device=cuda)
+    idx = None
+    if case == "masked":
+        idx = torch.nonzero(torch.rand(dc.shape[0], generator=torch.Generator().manual_seed(45)) > 0.3)[:, 0].to(cuda)
+        dc = dc[idx].contiguous()
+    elif case == "ragged":
+        idx = torch.arange(0, dc.shape[0], 7, device=cuda)
+        dc = dc[idx].contiguous()
+    elif case == "per_point":
+        dc = _per_point_dc(B, om, 46, cuda)
+    exp, sq = _prepare_experimental(rows, idx)
+    before = lp.lambert_project_ncc.launches
+    got = lp.lambert_project_ncc(rot, dc, quad, 101, 101, 50.0, exp, sq)
+    torch.cuda.synchronize()
+    assert lp.lambert_project_ncc.launches == before + 1
+    ref = lp.lambert_project_ncc_plain(rot, dc, quad, 101, 101, 50.0, exp, sq)
+    assert got.shape == (B,) and torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 2e-6
+
+
+def test_refinement_on_the_card_goes_through_the_ncc_kernel(cuda):
+    # A 64-point scan projected by kernel A at known orientations, refined
+    # from 1 degree off on the card and on the CPU: the card's run launches
+    # kernel B (and kernel A never), and both land on the truth.
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle, super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    master, _, _, _, det = _projection_state(cuda)
+    truth = super_fibonacci(64 * 7)[::7][:64]
+    axes = torch.as_tensor(np.random.default_rng(47).normal(size=(64, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.0)), torch.as_tensor(truth)).numpy()
+    results = {}
+    for dev in ("cpu", cuda):
+        on_card = str(dev) != "cpu"
+        mp = EBSDMasterPattern(master, device=dev)
+        before = lp.lambert_project.launches
+        sim = mp.get_patterns(truth, det).data
+        assert lp.lambert_project.launches == before + on_card
+        signal = EBSD(sim, detector=det, device=dev)
+        a_before, b_before = lp.lambert_project.launches, lp.lambert_project_ncc.launches
+        res = signal.refine_orientation(xmap=CrystalMap(rotations=start), master_pattern=mp, max_iters=80)
+        launched = lp.lambert_project_ncc.launches - b_before
+        assert lp.lambert_project.launches == a_before
+        assert (launched > 0) == on_card
+        results[str(dev)] = res.xmap
+    ang = np.degrees(disorientation_angle(results["cpu"].best_rotations, results["cuda"].best_rotations, "m-3m"))
+    assert ang.max() < 0.05
+    assert np.degrees(disorientation_angle(truth, results["cuda"].best_rotations, "m-3m")).max() < 0.2
+    np.testing.assert_allclose(results["cuda"].prop["scores"], results["cpu"].prop["scores"], atol=1e-4)
+
+
+def test_projection_kernels_refuse_what_they_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    _, quad, dc, _, _ = _projection_state(cuda)
+    rot = _quats(4, 48, cuda)
+    with pytest.raises(TypeError):
+        lp.lambert_project(rot.double(), dc, quad, 101, 101, 50.0)
+    with pytest.raises(ValueError, match="one device"):
+        lp.lambert_project(rot, dc.cpu(), quad, 101, 101, 50.0)
+    buf = torch.empty(quad.numel() + 1, device=cuda)
+    shifted = buf[1:].view(-1, 4)  # the right shape, 4 bytes off a float4
+    shifted.copy_(quad)
+    with pytest.raises(ValueError, match="aligned"):
+        lp.lambert_project(rot, dc, shifted, 101, 101, 50.0)
+    # The launchers themselves refuse an empty batch.
+    out = torch.empty((1, dc.shape[0]), device=cuda)
+    fn = lp._function("lambert_project")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), 0, 0, dc.shape[0], 0, 101, 101, 50.0,
+              1.0, 0, 0.0, 1.0, stream) != 0
+    fn = lp._function("lambert_project_ncc")
+    assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 0, 0,
+              101, 101, 50.0, 1.0, stream) != 0

@@ -103,8 +103,13 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
-    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32"}
+    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project"}
     text = {name: path.read_text() for name, path in srcs.items()}
+    # The projection kernels replace XLA code: project_patterns, and
+    # _project_at + _ncc_centered of the refinement objectives.
+    for what in ("lambert_project_kernel", "lambert_project_ncc_kernel", "project_patterns", "_ncc_centered"):
+        assert what in text["lambert_project"], what
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]
     assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
     assert "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16" in text["ncc_topk_bf16"]

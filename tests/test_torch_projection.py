@@ -155,3 +155,132 @@ def test_detector_pc_conventions(convention):
         np.testing.assert_array_equal(td.pc_in_convention(conv), jd.pc_in_convention(conv))
     np.testing.assert_array_equal(td.sample_to_detector, jd.sample_to_detector)
     np.testing.assert_array_equal(td.pc_average, jd.pc_average)
+
+
+def test_quaternion_remainder_matches_jax():
+    # from_rodrigues, from_axis_angle, to_matrix, from_matrix and
+    # angle_between on the same float64 inputs (JAX runs with x64 here).
+    rng = np.random.default_rng(21)
+    r = rng.normal(size=(64, 3))
+    r[0] = 0.0  # the identity
+    np.testing.assert_allclose(tq.from_rodrigues(_t(r)).numpy(), np.asarray(jq.from_rodrigues(jnp.asarray(r))),
+                               atol=1e-6)
+    axis = rng.normal(size=(64, 3))
+    for angle in (0.7, rng.uniform(-np.pi, np.pi, size=64)):
+        np.testing.assert_allclose(
+            tq.from_axis_angle(_t(axis), angle).numpy(),
+            np.asarray(jq.from_axis_angle(jnp.asarray(axis), jnp.asarray(angle))), atol=1e-6,
+        )
+    q = _unit_quats(64, 22).astype(np.float64)
+    mats = np.asarray(jq.to_matrix(jnp.asarray(q)))
+    np.testing.assert_allclose(tq.to_matrix(_t(q)).numpy(), mats, atol=1e-6)
+    # every branch of the extraction: trace largest and each diagonal
+    # entry largest (rotations by near pi about x, y and z)
+    near_pi = np.asarray(jq.from_axis_angle(jnp.asarray(np.eye(3)), 3.0))
+    mats = np.concatenate([mats, np.asarray(jq.to_matrix(jnp.asarray(near_pi)))])
+    got = tq.from_matrix(_t(mats)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jq.from_matrix(jnp.asarray(mats))), atol=1e-6)
+    np.testing.assert_allclose(np.abs(got[:64]), np.abs(q), atol=1e-6)
+    q2 = _unit_quats(64, 23).astype(np.float64)
+    np.testing.assert_allclose(
+        tq.angle_between(_t(q), _t(q2)).numpy(), np.asarray(jq.angle_between(jnp.asarray(q), jnp.asarray(q2))),
+        atol=1e-6,
+    )
+
+
+def test_project_single_pattern_matches_jax():
+    rng = np.random.default_rng(24)
+    master = rng.random((2, 21, 21)).astype(np.float32)
+    rot = _unit_quats(1, 25)[0]
+    dc = np.asarray(jmp.direction_cosines_from_detector(_detectors()[0]))
+    ref = jmp.project_single_pattern(jnp.asarray(rot), jnp.asarray(dc), jnp.asarray(master), 21, 21, 10.0,
+                                     rescale=True)
+    got = tmp.project_single_pattern(_t(rot), _t(dc), _t(master), 21, 21, 10.0, rescale=True)
+    assert got.shape == (dc.shape[0],)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["shared", "masked", "per_element", "one"])
+def test_projection_ncc_plain_matches_jax(case):
+    # The projection-NCC kernel's plain twin against the JAX objective's
+    # arithmetic, _project_at then _ncc_centered: a P that is no multiple
+    # of the kernel's 256-thread block, a masked detector, one set of
+    # direction cosines per rotation, and B = 1.
+    from kikuchipy_tpu.indexing import refinement as jr
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    rng = np.random.default_rng(26)
+    master = rng.random((2, 21, 21)).astype(np.float32)
+    jd = _detectors()[1 if case == "per_element" else 0]
+    dc = np.asarray(jmp.direction_cosines_from_detector(jd), dtype=np.float32)
+    if case == "masked":
+        dc = dc[::3]
+    B = {"one": 1, "per_element": 3}.get(case, 5)
+    rot = _unit_quats(B, 27)
+    exp = rng.normal(size=(B, dc.shape[-2])).astype(np.float32)
+    exp -= exp.mean(axis=1, keepdims=True)
+    sq = (exp.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    sim = jr._project_at(jnp.asarray(rot), jnp.asarray(dc), jnp.asarray(master), 21, 21, 10.0)
+    ref = 1.0 - np.asarray(jr._ncc_centered(jnp.asarray(exp), jnp.asarray(sq), sim))
+    quad = tmp.quad_texture(_t(master))
+    before = lp.lambert_project_ncc.launches
+    got = lp.lambert_project_ncc(_t(rot), _t(dc), quad, 21, 21, 10.0, _t(exp), _t(sq))
+    assert lp.lambert_project_ncc.launches == before  # the CPU runs the plain twin
+    assert got.shape == (B,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-6)
+    np.testing.assert_array_equal(got.numpy(), lp.lambert_project_ncc_plain(_t(rot), _t(dc), quad, 21, 21, 10.0,
+                                                                           _t(exp), _t(sq)).numpy())
+
+
+def test_projection_wrappers_check_their_operands():
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    quad = torch.zeros((2 * 5 * 5, 4))
+    rot, dc = torch.zeros((2, 4)), torch.zeros((7, 3))
+    with pytest.raises(ValueError, match="rotations"):
+        lp.lambert_project(torch.zeros((2, 3)), dc, quad, 5, 5, 2.0)
+    with pytest.raises(ValueError, match="dc"):
+        lp.lambert_project(rot, torch.zeros((3, 7, 3)), quad, 5, 5, 2.0)
+    with pytest.raises(ValueError, match="quad"):
+        lp.lambert_project(rot, dc, quad[:-1], 5, 5, 2.0)
+    with pytest.raises(ValueError, match="exp"):
+        lp.lambert_project_ncc(rot, dc, quad, 5, 5, 2.0, torch.zeros((2, 6)), torch.zeros(2))
+    before = lp.lambert_project.launches
+    lp.lambert_project(_t(_unit_quats(2, 28)), _t(_unit_vectors(7)[:7]), quad, 5, 5, 2.0)
+    assert lp.lambert_project.launches == before
+
+
+@pytest.mark.parametrize("multi_pc", [False, True])
+def test_get_patterns_float32_matches_jax(multi_pc):
+    # float32 output, one PC or one PC per rotation; the kernel path's
+    # caller is the same on the card.
+    from kikuchipy_tpu.signals.master_pattern import EBSDMasterPattern as JMP
+
+    rng = np.random.default_rng(29)
+    data = rng.random((2, 31, 31)).astype(np.float32)
+    jd = _detectors()[1 if multi_pc else 0]
+    rot = _unit_quats(jd.navigation_size if multi_pc else 5, 30).astype(np.float64)
+    ref = JMP(data=data).get_patterns(rot, jd)
+    td = interop.detector_from_state(jd.shape, jd.pc, jd.sample_tilt, jd.tilt, jd.px_size, jd.binning)
+    got = interop.master_pattern_from_state(data, device="cpu").get_patterns(rot, td, chunk_size=2)
+    assert got.data.dtype == torch.float32 and tuple(got.data.shape) == np.asarray(ref.data).shape
+    # A random master: neighbouring texels differ by up to 1, so the last
+    # bit of a Lambert coordinate moves a value by up to about 2e-5.
+    np.testing.assert_allclose(got.data.numpy(), np.asarray(ref.data), atol=5e-5)
+
+
+def test_projector_matches_jax():
+    from kikuchipy_tpu.signals.master_pattern import EBSDMasterPattern as JMP
+
+    rng = np.random.default_rng(31)
+    data = rng.random((2, 31, 31)).astype(np.float32)
+    jd = _detectors()[0]
+    mask = np.zeros(jd.shape, dtype=bool)
+    mask[::2] = True
+    rot = _unit_quats(6, 32)
+    td = interop.detector_from_state(jd.shape, jd.pc, jd.sample_tilt, jd.tilt)
+    tmp_mp = interop.master_pattern_from_state(data, device="cpu")
+    for signal_mask in (None, mask.ravel()):
+        ref = JMP(data=data).projector(jd, signal_mask=signal_mask)(rot)
+        got = tmp_mp.projector(td, signal_mask=signal_mask)(rot)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
