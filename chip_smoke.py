@@ -41,18 +41,27 @@ the card's name and power limit, and the device check):
    (1 - NCC within 2e-6) on a 2048-point chunk of the main path's patterns
    with shared, masked and per-point direction cosines, P=1000, and B=1;
 5c. refinement of the main path's crystal map: ``EBSD.refine_orientation``
-   at its defaults (Nelder-Mead, bilinear, nav_chunk=2048, max_iters=150)
-   from the pallas-int8 top-1 on all 16,384 patterns, static background
-   removed (the synthetic scan has no dynamic one, and the dynamic removal
-   moves the optimum off the truth: that run is printed, unchecked); checks
-   that it ran
-   through ``lambert_project_ncc``, that the median disorientation to the
-   truth fell, and that it is under 0.8 degrees at every point DI put
-   within 3 degrees; patterns/s, kernel evaluations/s, kernel B's time a
-   launch beside its bound, and a ``torch.profiler`` trace of one chunk
-   (device busy share); then ``refine_projection_center`` and
-   ``refine_orientation_projection_center`` on one chunk from a PC off by
-   (0.01, -0.01, 0.01), the mean refined PC within 2e-3 of the truth;
+   at its defaults (Nelder-Mead, bilinear, max_iters=150) from the
+   pallas-int8 top-1 on all 16,384 patterns, static background removed
+   (the synthetic scan has no dynamic one, and the dynamic removal moves
+   the optimum off the truth: that run is printed, unchecked); checks that
+   it ran as launches of the Nelder-Mead kernel (``nelder_mead_orientation``,
+   ``csrc/refine_nm.cu``) and none of kernel B, that the median
+   disorientation to the truth fell, and that it is under 0.8 degrees at
+   every point DI put within 3 degrees. Then the kernel against the host
+   loop on kernel B (``nelder_mead_batched`` over ``_objective_orientation``,
+   chunks of 2048) on the same inputs: on at least 99% of the points equal
+   iterations, 1 - NCC within 1e-5 and results within 0.05 degrees, the
+   mean score no lower by more than 1e-6; the same on a chunk with a trust
+   region, a signal mask, P=1000 and one PC a point, on one point, and on
+   48 points of a 240 x 240 detector (past the shared-memory budget).
+   Times: the kernel on the whole map (CUDA events), the host loop's run,
+   patterns/s of both, the evaluations, the bound (operations and L2
+   taps), a ``torch.profiler`` trace of the call (device busy share), and
+   kernel B's time a launch; then ``refine_projection_center`` and
+   ``refine_orientation_projection_center`` (still kernel B, one launch an
+   evaluation) on one chunk from a PC off by (0.01, -0.01, 0.01), the mean
+   refined PC within 2e-3 of the truth;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -73,7 +82,8 @@ the card's name and power limit, and the device check):
    as ``tf32_rows``) and the kernel on split operands apart (the entry
    point's time holds both); the two projection kernels with their bounds
    (bytes, float32 operations, and the taps' bytes from L2) and plain
-   twins; then a breakdown of one pallas-int8 indexing call and a
+   twins, and the Nelder-Mead kernel's row from 5c; then a breakdown of
+   one pallas-int8 indexing call and a
    ``torch.profiler`` trace of it.
 
 Each path is driven with every launch counter set to 0 just before it
@@ -433,6 +443,7 @@ WRAPPERS = {
     "ncc_topk": ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8",
                  "tf32_rows"),
     "lambert_project": ("lambert_project", "lambert_project_ncc"),
+    "refine_nm": ("nelder_mead_orientation",),
 }
 
 
@@ -615,6 +626,116 @@ def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int)
     return worst, len(cases)
 
 
+# ------------------ Nelder-Mead kernel vs the host loop ------------------ #
+
+# Agreement of the Nelder-Mead kernel with the host loop on kernel B, on at
+# least NM_AGREE of the points: equal iterations, 1 - NCC within NM_FUN_TOL,
+# results within NM_DEG of each other; the mean score no lower by more than
+# NM_MEAN_TOL.
+NM_AGREE = 0.99
+NM_FUN_TOL = 1e-5
+NM_DEG = 0.05
+NM_MEAN_TOL = 1e-6
+
+
+def host_loop(euler0, exp, sq_norm, dc, quad, geo, nm_kw, chunk: int = NAV_CHUNK, lower=None, upper=None):
+    """``nelder_mead_batched`` over ``_objective_orientation`` (kernel B a
+    launch) in navigation chunks, as ``refine_orientation`` ran it before
+    the kernel; the chunks' results concatenated."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing.refinement import _objective_orientation
+    from kikuchipy_tpu_torch.utils.optimize import NelderMeadResult, nelder_mead_batched
+
+    parts = []
+    for s in range(0, euler0.shape[0], chunk):
+        e = slice(s, s + chunk)
+        bounds = {} if lower is None else dict(lower_bounds=lower[e], upper_bounds=upper[e])
+        parts.append(nelder_mead_batched(
+            _objective_orientation, euler0[e], args=(exp[e], sq_norm[e], dc if dc.ndim == 2 else dc[e], quad, *geo),
+            **nm_kw, **bounds))
+    return NelderMeadResult(*(torch.cat([getattr(p, f) for p in parts]) for f in NelderMeadResult._fields))
+
+
+def nm_agreement(label: str, got, ref) -> tuple[float, str]:
+    """Check the kernel's result against the host loop's; return the max
+    |1 - NCC difference| and a summary."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    same_iter = (got.n_iter == ref.n_iter).float().mean().item()
+    dfun = (got.fun - ref.fun).abs()
+    fun_ok = (dfun <= NM_FUN_TOL).float().mean().item()
+    qa = tq.from_euler(got.x.double().cpu()).numpy()
+    qb = tq.from_euler(ref.x.double().cpu()).numpy()
+    ang = np.degrees(disorientation_angle(qa, qb, "m-3m"))
+    ang_ok = float((ang <= NM_DEG).mean())
+    mean_gap = float((1 - got.fun.double()).mean() - (1 - ref.fun.double()).mean())
+    bitwise = (torch.equal(got.x, ref.x) and torch.equal(got.fun, ref.fun) and torch.equal(got.n_iter, ref.n_iter))
+    msg = (f"{label} (n={got.fun.shape[0]}): n_iter equal {same_iter:.4f}, |d(1 - NCC)| <= {NM_FUN_TOL:g} "
+           f"{fun_ok:.4f} (max {float(dfun.max()):.2e}), within {NM_DEG} deg {ang_ok:.4f} (max {ang.max():.2e} deg), "
+           f"mean score kernel - loop {mean_gap:.2e}, bit for bit {bitwise}, evaluations "
+           f"{int(got.n_evals.sum())} vs the loop's {int(ref.n_evals.sum())}")
+    if min(same_iter, fun_ok, ang_ok) < NM_AGREE or mean_gap < -NM_MEAN_TOL or not torch.isfinite(got.fun).all():
+        raise AssertionError(f"nelder_mead_orientation disagrees with the host loop: {msg}")
+    return float(dfun.max()), msg
+
+
+def nm_edge_cases(device, rows, euler0, dc, quad, geo, om, nm_kw, top1_rot, seed: int, big: int = 48,
+                  big_side: int = 240) -> list[str]:
+    """The kernel against the host loop on a navigation chunk of the main
+    path with a trust region, a signal mask, P=1000 and one PC a point, on
+    one point, and on a 240 x 240 detector (past the shared-memory budget:
+    the two-pass branch) over 48 points."""
+    import torch
+
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc, _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 4)
+    c = NAV_CHUNK
+    e0 = euler0[:c]
+    exp, sq = _prepare_experimental(rows[:c], None)
+    tr = torch.tensor(np.deg2rad([1.0, 1.0, 1.0]), dtype=torch.float32, device=device)
+    mask_idx = torch.nonzero(torch.rand(rows.shape[1], generator=g) > 0.3)[:, 0].to(device)
+    exp_m, sq_m = _prepare_experimental(rows[:c], mask_idx)
+    exp_1k, sq_1k = _prepare_experimental(rows[:c, :1000], None)
+    pcs = torch.tensor(PC) + (torch.rand((c, 3), generator=g) - 0.5) * 0.04
+    dc_pc = _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous()
+    det_big = EBSDDetector(shape=(big_side, big_side), pc=PC, sample_tilt=70)
+    dc_big = direction_cosines_from_detector(det_big, device=device)
+    rot_big = torch.as_tensor(top1_rot[:big], dtype=torch.float32, device=device)
+    rows_big = lp.lambert_project(rot_big, dc_big, quad, *geo)
+    rows_big = rows_big + 0.05 * torch.randn(rows_big.shape, generator=g).to(device)
+    exp_big, sq_big = _prepare_experimental(rows_big, None)
+    axes = torch.randn((big, 3), generator=g, dtype=torch.float64)
+    start_big = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), rot_big.double().cpu())
+    e_big = tq.to_euler(start_big).to(torch.float32).to(device)
+    cases = [
+        ("trust region of 1 deg", (e0, exp, sq, dc, quad), dict(lower=e0 - tr, upper=e0 + tr)),
+        (f"signal mask (P={mask_idx.numel()})", (e0, exp_m, sq_m, dc[mask_idx].contiguous(), quad), {}),
+        ("P=1000", (e0, exp_1k, sq_1k, dc[:1000].contiguous(), quad), {}),
+        ("one PC a point", (e0, exp, sq, dc_pc, quad), {}),
+        ("B=1", (e0[:1], exp[:1], sq[:1], dc, quad), {}),
+        (f"{big_side} x {big_side} detector (P={dc_big.shape[0]}, resident {rn.resident(dc_big.shape[0])})",
+         (e_big, exp_big, sq_big, dc_big, quad), {}),
+    ]
+    msgs = []
+    for label, (e, x, q, dcc, qd), bounds in cases:
+        ref = host_loop(e, x, q, dcc, qd, geo, nm_kw, **bounds)
+        kw = dict(nm_kw) if not bounds else dict(nm_kw, lower_bounds=bounds["lower"], upper_bounds=bounds["upper"])
+        got = rn.nelder_mead_orientation(e, x, q, dcc, qd, *geo, **kw)
+        torch.cuda.synchronize()
+        msgs.append(nm_agreement(label, got, ref)[1])
+    return msgs
+
+
 def device_busy(prof) -> tuple[float, list]:
     """Device milliseconds under a ``torch.profiler`` trace, and its events
     by device time, largest first."""
@@ -793,8 +914,11 @@ def main(argv=None) -> int:
     # checked refinement takes the scan with its static background removed,
     # the patterns the simulation describes.
     from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
     from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
 
+    l2_rate = l2_read_rate(dev)
     static = kt.EBSD(scan.remove_static_background().data, detector=det, device=dev)
     static_rows = static.data.reshape(n_scan, -1)
     ang0 = np.degrees(disorientation_angle(truth, top1_rot, "m-3m"))
@@ -806,9 +930,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t_refine = time.perf_counter() - t0
     refine_launches = read_launches()
-    if refine_launches["lambert_project_ncc"] < 1:
-        raise AssertionError(f"refinement did not launch lambert_project_ncc: {refine_launches}")
-    r_scores, r_evals = refined.xmap.prop["scores"], refined.xmap.prop["num_evals"]
+    if refine_launches["nelder_mead_orientation"] < 1 or refine_launches["lambert_project_ncc"] != 0:
+        raise AssertionError(f"refinement did not run on the Nelder-Mead kernel alone: {refine_launches}")
+    r_scores, r_iters = refined.xmap.prop["scores"], refined.xmap.prop["num_evals"]
     if refined.xmap.best_rotations.shape != (n_scan, 4) or not np.isfinite(r_scores).all():
         raise AssertionError("refinement gave a bad crystal map")
     ang1 = np.degrees(disorientation_angle(truth, refined.xmap.best_rotations, "m-3m"))
@@ -818,7 +942,100 @@ def main(argv=None) -> int:
             f"{int(near.sum())} points DI put within {REFINE_START_DEG} deg: {ang1[near].max():.4f} deg "
             f"(limit {REFINE_MAX_DEG}); worst points {np.argsort(ang1)[-5:].tolist()} at "
             f"{np.sort(ang1)[-5:].round(3).tolist()} deg, from {ang0[np.argsort(ang1)[-5:]].round(3).tolist()}")
-    evals = refine_launches["lambert_project_ncc"] * NAV_CHUNK
+
+    # The kernel against the host loop on kernel B (nelder_mead_batched over
+    # _objective_orientation, in navigation chunks as before), on the inputs
+    # refine_orientation builds.
+    exp_s, sq_s = _prepare_experimental(static_rows, None)
+    euler_top1 = tq.to_euler(torch.as_tensor(top1_rot, dtype=torch.float64)).to(torch.float32).to(dev)
+    nm_kw = dict(initial_step=np.deg2rad(1.0), max_iters=150, fatol=1e-4, xatol=1e-4)
+    nm_args = (euler_top1, exp_s, sq_s, dc, quad, *geo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = host_loop(euler_top1, exp_s, sq_s, dc, quad, geo, nm_kw)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    kern = rn.nelder_mead_orientation(*nm_args, **nm_kw)
+    torch.cuda.synchronize()
+    same_as_call = float(np.abs((1.0 - kern.fun.cpu().numpy()) - r_scores).max())
+    nm_err, nm_msg = nm_agreement("the main path's map", kern, host)
+    edge_msgs = nm_edge_cases(dev, static_rows, euler_top1, dc, quad, geo, om, nm_kw, top1_rot, args.seed)
+    log("refine-vs-host", f"nelder_mead_orientation against the host loop on kernel B: {nm_msg}; "
+        f"refine_orientation's scores within {same_as_call:.2e} of the direct call; edge cases: "
+        + "; ".join(edge_msgs))
+
+    # Times: the kernel for the whole map (CUDA events after a warm-up),
+    # beside the host loop's one run, the bound and a profiler trace.
+    ms_nm = cuda_ms(lambda: rn.nelder_mead_orientation(*nm_args, **nm_kw), 3)
+    evals = int(kern.n_evals.sum())
+    host_evals = int(host.n_evals.sum())
+    t_ops_nm = evals * d * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) / PEAK_F32_FLOPS * 1e3
+    # each input read once (rows, norms, angles, steps, direction cosines,
+    # quad texture) and each output written once
+    bytes_nm = 4 * (exp_s.numel() + n_scan * (1 + 3 + 3) + dc.numel() + quad.numel()) + n_scan * (12 + 4 + 4 + 4 + 1)
+    t_bytes_nm = bytes_nm / PEAK_BYTES * 1e3
+    bound_nm = max(t_ops_nm, t_bytes_nm)
+    l2_nm = evals * d * TAP_BYTES / l2_rate * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
+        torch.zeros(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        static.refine_orientation(xmap=xmap, master_pattern=mp)
+        torch.cuda.synchronize()
+    traced_wall = (time.perf_counter() - t0) * 1e3
+    busy, events = device_busy(prof)
+    top = "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in events[:6])
+    nm_row = {
+        "name": "nelder_mead_orientation", "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_nm.cu",
+        "replaces": "kikuchipy_tpu/utils/optimize.py:60 nelder_mead_batched + "
+                    "kikuchipy_tpu/indexing/refinement.py:199 _objective_orientation",
+        "launches": refine_launches["nelder_mead_orientation"], "max_abs_err": nm_err, "ms": ms_nm,
+        "plain_ms": t_host * 1e3, "bound_ms": bound_nm, "bound_by": "operations" if t_ops_nm >= t_bytes_nm else "bytes",
+        "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_nm, "split_ms": None,
+        "kernel_only_ms": None, "evaluations": evals,
+    }
+    log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
+        f"(Nelder-Mead, bilinear, max_iters=150) on the {n_scan} static-corrected patterns: first call "
+        f"{t_refine:.3f} s = {n_scan / t_refine:.1f} patterns/s (the library's first load included); "
+        f"nelder_mead_orientation "
+        f"launches {refine_launches['nelder_mead_orientation']}, lambert_project_ncc "
+        f"{refine_launches['lambert_project_ncc']}; Nelder-Mead iterations mean {r_iters.mean():.1f}, max "
+        f"{int(r_iters.max())}; disorientation to truth median {np.median(ang0):.4f} -> {np.median(ang1):.4f} deg, "
+        f"max {ang0.max():.3f} -> {ang1.max():.3f} deg; over the {int(near.sum())} points DI put within "
+        f"{REFINE_START_DEG} deg: max {ang1[near].max():.4f} deg (limit {REFINE_MAX_DEG}), "
+        f"{(ang1 < REFINE_MAX_DEG).mean():.4f} of all points under it")
+    log("refine-times", f"{smi}: the whole map, P={d}: kernel {ms_nm:.3f} ms = {n_scan / ms_nm * 1e3:.1f} "
+        f"patterns/s ({evals} evaluations, {evals / ms_nm * 1e3:.4g}/s); host loop on kernel B (chunks of "
+        f"{NAV_CHUNK}) {t_host * 1e3:.1f} ms = {n_scan / t_host:.1f} patterns/s ({host_evals} evaluations); "
+        f"bound {bound_nm:.4f} ms by {nm_row['bound_by']} (operations {t_ops_nm:.4f} ms at "
+        f"{OPS_PER_PIXEL + NCC_OPS_PER_PIXEL} a pixel, bytes {t_bytes_nm:.4f} ms), {bound_nm / ms_nm:.2%} of it; "
+        f"taps {evals * d * TAP_BYTES / 1e9:.2f} GB from L2 {l2_nm:.3f} ms at the measured "
+        f"{l2_rate / 1e12:.3f} TB/s ({l2_nm / ms_nm:.2%}); refine_orientation under torch.profiler: wall "
+        f"{traced_wall:.3f} ms, device busy {busy:.3f} ms = {busy / traced_wall:.1%} over {len(events)} kernel "
+        f"names; {top}")
+
+    # The main path's own patterns (static and dynamic background removed), unchecked.
+    reset_launches()
+    t0 = time.perf_counter()
+    refined_dyn = pre.refine_orientation(xmap=xmap, master_pattern=mp)
+    torch.cuda.synchronize()
+    t_dyn = time.perf_counter() - t0
+    ang_dyn = np.degrees(disorientation_angle(truth, refined_dyn.xmap.best_rotations, "m-3m"))
+    exp_d, sq_d = _prepare_experimental(pre_rows[:NAV_CHUNK], None)
+    truth_q = torch.as_tensor(truth[:NAV_CHUNK], dtype=torch.float32, device=dev)
+    at_truth = float(lp.lambert_project_ncc_plain(truth_q, dc, quad, *geo, exp_d, sq_d).mean())
+    at_refined = float(1.0 - refined_dyn.xmap.prop["scores"][:NAV_CHUNK].mean())
+    log("refine-dynamic", f"the same call on the main path's {n_scan} patterns with the dynamic background "
+        f"removed too (unchecked): {t_dyn:.3f} s, launches {read_launches()['nelder_mead_orientation']}; "
+        f"disorientation median {np.median(ang_dyn):.4f} deg, max over the near points {ang_dyn[near].max():.4f} "
+        f"deg; on the first chunk mean 1 - NCC {at_refined:.5f} at the refined orientations against "
+        f"{at_truth:.5f} at the truth: the optimum of these patterns is not the truth")
+
+    chunk_sig = kt.EBSD(static.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
+    chunk_xmap = CrystalMap(rotations=top1_rot[:NAV_CHUNK], shape=(NAV_CHUNK,), phases=xmap.phases)
     exp_c, sq_c = _prepare_experimental(static_rows[:NAV_CHUNK], None)
     ms_b = cuda_ms(lambda: lp.lambert_project_ncc(rot_nav, dc, quad, *geo, exp_c, sq_c), 20)
     dc_each = torch.broadcast_to(dc, (NAV_CHUNK,) + tuple(dc.shape)).contiguous()
@@ -830,57 +1047,10 @@ def main(argv=None) -> int:
     bound_b = max(t_bytes_b, t_ops_b)
     bound_b_each = max((bytes_b + 4 * dc_each.numel()) / PEAK_BYTES,
                        pix_b * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) / PEAK_F32_FLOPS) * 1e3
-    log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
-        f"(Nelder-Mead, bilinear, nav_chunk={NAV_CHUNK}, max_iters=150) on the {n_scan} static-corrected "
-        f"patterns: {t_refine:.3f} s = {n_scan / t_refine:.1f} patterns/s; lambert_project_ncc launches "
-        f"{refine_launches['lambert_project_ncc']} ({evals} evaluations, {evals / t_refine:.0f} evaluations/s); "
-        f"Nelder-Mead iterations mean {r_evals.mean():.1f}, max {int(r_evals.max())}; disorientation to truth "
-        f"median {np.median(ang0):.4f} -> {np.median(ang1):.4f} deg, max {ang0.max():.3f} -> {ang1.max():.3f} deg; "
-        f"over the {int(near.sum())} points DI put within {REFINE_START_DEG} deg: max {ang1[near].max():.4f} deg "
-        f"(limit {REFINE_MAX_DEG}), {(ang1 < REFINE_MAX_DEG).mean():.4f} of all points under it; kernel B at "
-        f"B={NAV_CHUNK}, P={d}: {ms_b * 1e3:.1f} us a launch, bound {bound_b * 1e3:.1f} us "
-        f"({bound_b / ms_b:.1%}); with one set of direction cosines a point (PC modes) {ms_b_each * 1e3:.1f} us, "
-        f"bound {bound_b_each * 1e3:.1f} us")
-
-    # The main path's own patterns (static and dynamic background removed), unchecked.
-    reset_launches()
-    t0 = time.perf_counter()
-    refined_dyn = pre.refine_orientation(xmap=xmap, master_pattern=mp)
-    torch.cuda.synchronize()
-    t_dyn = time.perf_counter() - t0
-    ang_dyn = np.degrees(disorientation_angle(truth, refined_dyn.xmap.best_rotations, "m-3m"))
-    exp_d, sq_d = _prepare_experimental(pre_rows[:NAV_CHUNK], None)
-    truth_q = torch.as_tensor(truth[:NAV_CHUNK], dtype=torch.float32, device=dev)
-    at_truth = float(lp.lambert_project_ncc(truth_q, dc, quad, *geo, exp_d, sq_d).mean())
-    at_refined = float(1.0 - refined_dyn.xmap.prop["scores"][:NAV_CHUNK].mean())
-    log("refine-dynamic", f"the same call on the main path's {n_scan} patterns with the dynamic background "
-        f"removed too (unchecked): {t_dyn:.3f} s, launches {read_launches()['lambert_project_ncc']}; disorientation "
-        f"median {np.median(ang_dyn):.4f} deg, max over the near points {ang_dyn[near].max():.4f} deg; on the "
-        f"first chunk mean 1 - NCC {at_refined:.5f} at the refined orientations against {at_truth:.5f} at the "
-        f"truth: the optimum of these patterns is not the truth")
-
-    # One navigation chunk under torch.profiler: how much of it the card is busy.
-    from torch.profiler import ProfilerActivity, profile
-
-    chunk_sig = kt.EBSD(static.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
-    chunk_xmap = CrystalMap(rotations=top1_rot[:NAV_CHUNK], shape=(NAV_CHUNK,), phases=xmap.phases)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
-        torch.zeros(1, device=dev).add_(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chunk_sig.refine_orientation(xmap=chunk_xmap, master_pattern=mp)
-    torch.cuda.synchronize()
-    chunk_wall = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunk_sig.refine_orientation(xmap=chunk_xmap, master_pattern=mp)
-        torch.cuda.synchronize()
-    traced_wall = (time.perf_counter() - t0) * 1e3
-    busy, events = device_busy(prof)
-    top = "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in events[:8])
-    log("refine-profile", f"{smi}: one chunk of {NAV_CHUNK} points: wall {chunk_wall:.3f} ms untraced, "
-        f"{traced_wall:.3f} ms traced; device busy {busy:.3f} ms = {busy / chunk_wall:.1%} of the untraced wall "
-        f"({busy / traced_wall:.1%} traced) over {len(events)} kernel names; {top}")
+    del dc_each
+    log("ncc-times", f"{smi}: kernel B (PC and joint modes, one launch an evaluation) at B={NAV_CHUNK}, P={d}: "
+        f"{ms_b * 1e3:.1f} us a launch, bound {bound_b * 1e3:.1f} us ({bound_b / ms_b:.1%}); with one set of "
+        f"direction cosines a point {ms_b_each * 1e3:.1f} us, bound {bound_b_each * 1e3:.1f} us")
 
     # PC and joint refinement on one chunk of the static-corrected scan, from
     # a PC off by PC_OFFSET; PC mode on the main path's patterns too,
@@ -1030,7 +1200,6 @@ def main(argv=None) -> int:
          lambda c0, c1: torch._int_mm(exp_q, dict_q_main[c0:c1].T).float() * dict_s_main[None, c0:c1]),
     ]
     exp_bf16, dict_bf16 = exp_prep.to(torch.bfloat16), dict_main.to(torch.bfloat16)
-    l2_rate = l2_read_rate(dev)
     table, time_msgs = [], []
     with matmul_precision(False):
         for name, line, stem, s_ops, in_bytes, row_bytes, reps, plain_fn, (lib_name, lib_fn), product in kernels:
@@ -1113,6 +1282,10 @@ def main(argv=None) -> int:
                          f"{taps * TAP_BYTES / 1e9:.3f} GB of taps from L2 {l2_ms:.4f} ms; plain {plain_ms:.3f} ms"
                          f"{' in slabs of 16384 rows' if name == 'lambert_project' else ''}; no single PyTorch "
                          f"call computes it)")
+    table.append(nm_row)
+    time_msgs.append(f"nelder_mead_orientation {ms_nm:.3f} ms (bound {bound_nm:.4f} ms by {nm_row['bound_by']}, "
+                     f"{bound_nm / ms_nm:.2%} of it; taps from L2 {l2_nm:.3f} ms; the host loop on kernel B "
+                     f"{t_host * 1e3:.1f} ms; no single PyTorch call computes it)")
     time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
                      f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16

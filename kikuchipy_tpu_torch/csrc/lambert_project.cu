@@ -13,23 +13,8 @@
 //                               1 - NCC for every simplex point.
 // ops/lambert_project.py holds the wrappers and the plain PyTorch twins.
 //
-// One (quaternion, direction) pair, project_pixel below: rotate the
-// direction (geometry/quaternion.py rotate_vector), map it to square
-// Lambert with the branches of geometry/lambert.py vector_to_lambert (atan,
-// sqrt, the pole), truncate and clamp the indices and clamp the fractional
-// weights as lambert_interpolation_weights does, select the hemisphere by
-// the rotated z < 0, and load the 2x2 neighbourhood as one float4 of the
-// quad texture ((2 * npy * npx, 4) float32: 5.1 MB for 401 x 401, so it
-// stays in L2). Every product, sum and quotient is an explicitly rounded
-// IEEE operation (__fmul_rn, __fadd_rn, ...) in the plain twin's order on
-// the card, its sums over 3 and 4 values included; nvcc would otherwise
-// contract a * b + c into one FMA. atanf and sqrtf are the CUDA math
-// library's, as PyTorch's elementwise atan and sqrt call them (no
-// --use_fast_math), and a division by the Python scalar sqrt(pi / 2) is a
-// product with its float32 reciprocal, as PyTorch computes it. This
-// matters near the Lambert poles: there 1 - |z| cancels, and one ulp of z
-// moves a coordinate by a large part of a texel, so twin and kernel agree
-// bit for bit only if they round alike.
+// One (quaternion, direction) pair is project_pixel of csrc/lambert_common.cuh,
+// shared with csrc/refine_nm.cu; see there for its rounding.
 //
 // Bounds on an H100 SXM at the main-path shapes. Kernel A, the 107,129 x
 // 3600 dictionary: writing 1.54 GB of patterns is 0.46 ms at 3.35 TB/s;
@@ -54,117 +39,17 @@
 //   cancels in f32. Sums run in f32 per thread over P / 256 pixels, then
 //   across the block as a tree. P is not bounded by shared memory: nothing
 //   of a pattern is kept but these sums.
-// A simple kernel that is right; tuning (several patterns a block, the
-// direction cosines from the PC inside the kernel, CUDA graphs around the
-// Nelder-Mead loop) is later work.
+// Orientation refinement no longer calls kernel B: csrc/refine_nm.cu runs
+// the whole Nelder-Mead on the card. The PC and joint modes still launch it
+// once an evaluation; several patterns a block and the direction cosines
+// from the PC inside the kernel are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lambert_common.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-
-struct Rot {
-    // rotate_vector's per-quaternion terms, in its order of operations.
-    float xx, xz, xy;  // ox = xx * x + 2 * (xz * z + xy * y)
-    float yy, yx, yz;  // oy = yy * y + 2 * (yx * x + yz * z)
-    float zz, zy, zx;  // oz = zz * z + 2 * (zy * y + zx * x)
-};
-
-__device__ __forceinline__ Rot make_rot(const float* q) {
-    const float a = q[0], b = q[1], c = q[2], d = q[3];
-    const float aa = __fmul_rn(a, a), bb = __fmul_rn(b, b), cc = __fmul_rn(c, c), dd = __fmul_rn(d, d);
-    const float ac = __fmul_rn(a, c), ab = __fmul_rn(a, b), ad = __fmul_rn(a, d);
-    const float bc = __fmul_rn(b, c), bd = __fmul_rn(b, d), cd = __fmul_rn(c, d);
-    Rot r;
-    r.xx = __fsub_rn(__fsub_rn(__fadd_rn(aa, bb), cc), dd);
-    r.xz = __fadd_rn(ac, bd);
-    r.xy = __fsub_rn(bc, ad);
-    r.yy = __fsub_rn(__fadd_rn(__fsub_rn(aa, bb), cc), dd);
-    r.yx = __fadd_rn(ad, bc);
-    r.yz = __fsub_rn(cd, ab);
-    r.zz = __fadd_rn(__fsub_rn(__fsub_rn(aa, bb), cc), dd);
-    r.zy = __fadd_rn(ab, cd);
-    r.zx = __fsub_rn(bd, ac);
-    return r;
-}
-
-struct Geometry {
-    const float4* quad;  // (2 * npy * npx) neighbourhoods
-    int npx, npy;
-    float scale;          // (npx - 1) / 2
-    float inv_sqrt_pi_half;
-};
-
-__device__ __forceinline__ float sgn(float v) { return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f); }
-
-// The bilinear value of the master pattern seen along direction (x, y, z)
-// after rotation r; tap is the quad-texture row it read.
-__device__ __forceinline__ float project_pixel(const Rot& r, float x, float y, float z, const Geometry& g, int& tap) {
-    // rotate_vector
-    const float ox = __fadd_rn(__fmul_rn(r.xx, x), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.xz, z), __fmul_rn(r.xy, y))));
-    const float oy = __fadd_rn(__fmul_rn(r.yy, y), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.yx, x), __fmul_rn(r.yz, z))));
-    const float oz = __fadd_rn(__fmul_rn(r.zz, z), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.zy, y), __fmul_rn(r.zx, x))));
-
-    // vector_to_lambert
-    // PyTorch's sum over a last axis of 3 on the card adds (x^2 + z^2) + y^2.
-    const float norm = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oz, oz)), __fmul_rn(oy, oy)));
-    const float wx = __fdiv_rn(ox, norm), wy = __fdiv_rn(oy, norm), wz = __fdiv_rn(oz, norm);
-    const float abs_z = fabsf(wz);
-    const float sqrt_z = sqrtf(fmaxf(__fmul_rn(2.f, __fsub_rn(1.f, abs_z)), 0.f));
-    const float sqrt_pi_over_2 = 0.886226925452758f;    // sqrt(pi) / 2
-    const float two_over_sqrt_pi = 1.1283791670955126f;  // 2 / sqrt(pi)
-    float X, Y;
-    if (fabsf(wy) <= fabsf(wx)) {
-        const float s = __fmul_rn(sgn(wx), sqrt_z);
-        X = __fmul_rn(s, sqrt_pi_over_2);
-        Y = __fmul_rn(__fmul_rn(s, two_over_sqrt_pi), atanf(__fdiv_rn(wy, wx == 0.f ? 1.f : wx)));
-    } else {
-        const float s = __fmul_rn(sgn(wy), sqrt_z);
-        X = __fmul_rn(__fmul_rn(s, two_over_sqrt_pi), atanf(__fdiv_rn(wx, wy == 0.f ? 1.f : wy)));
-        Y = __fmul_rn(s, sqrt_pi_over_2);
-    }
-    if (abs_z == 1.f) X = Y = 0.f;
-
-    // lambert_interpolation_weights
-    const float i = __fmul_rn(__fmul_rn(g.scale, Y), g.inv_sqrt_pi_half);
-    const float j = __fmul_rn(__fmul_rn(g.scale, X), g.inv_sqrt_pi_half);
-    int nii = (int)__fadd_rn(i, g.scale);
-    int nij = (int)__fadd_rn(j, g.scale);
-    const int niip = min(nii + 1, g.npx - 1);
-    const int nijp = min(nij + 1, g.npy - 1);
-    if (nii < 0) nii = niip;
-    if (nij < 0) nij = nijp;
-    const float di = fminf(fmaxf(__fadd_rn(__fsub_rn(i, (float)nii), g.scale), 0.f), 1.f);
-    const float dj = fminf(fmaxf(__fadd_rn(__fsub_rn(j, (float)nij), g.scale), 0.f), 1.f);
-    const float dim = __fsub_rn(1.f, di), djm = __fsub_rn(1.f, dj);
-
-    // the quad-texture gather, hemisphere by the rotated z
-    tap = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
-    const float4 t = __ldg(g.quad + tap);
-    // ... and over a last axis of 4, (t0 + t2) + (t1 + t3).
-    const float v02 = __fadd_rn(__fmul_rn(t.x, __fmul_rn(dim, djm)), __fmul_rn(t.z, __fmul_rn(dim, dj)));
-    const float v13 = __fadd_rn(__fmul_rn(t.y, __fmul_rn(di, djm)), __fmul_rn(t.w, __fmul_rn(di, dj)));
-    return __fadd_rn(v02, v13);
-}
-
-// Block-wide sum, min or max of one value per thread; every thread gets it.
-template <typename Op>
-__device__ __forceinline__ float block_reduce(float v, Op op, float* scratch) {
-    for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();  // scratch may still be read by an earlier reduction
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    v = scratch[0];
-    for (int w = 1; w < kThreads / 32; ++w) v = op(v, scratch[w]);
-    return v;
-}
-
-struct Sum { __device__ float operator()(float a, float b) const { return a + b; } };
-struct Min { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
-struct Max { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
 
 __global__ void __launch_bounds__(kThreads) lambert_project_kernel(
     const float* __restrict__ rot, const float* __restrict__ dc, Geometry g, float* __restrict__ out,
@@ -225,16 +110,6 @@ int grid_for(int B) {
     // Up to 8 resident 256-thread blocks an SM; beyond that the blocks loop.
     const long long cap = 64LL * sms;
     return (int)(B < cap ? B : cap);
-}
-
-Geometry geometry(const void* quad, int npx, int npy, float scale, float inv_sqrt_pi_half) {
-    Geometry g;
-    g.quad = static_cast<const float4*>(quad);
-    g.npx = npx;
-    g.npy = npy;
-    g.scale = scale;
-    g.inv_sqrt_pi_half = inv_sqrt_pi_half;
-    return g;
 }
 
 }  // namespace

@@ -1,0 +1,479 @@
+// Nelder-Mead orientation refinement on the card (Hopper, sm_90a): one
+// launch runs every map point's simplex to convergence.
+//
+// Replaces XLA code of the JAX package, not a TPU kernel: the
+// jax.lax.while_loop of kikuchipy_tpu/utils/optimize.py nelder_mead_batched
+// over the objective kikuchipy_tpu/indexing/refinement.py
+// _objective_orientation (Euler angles -> from_euler -> _project_at ->
+// 1 - _ncc_centered), as refine_orientation calls it. The port's host loop
+// (its own utils/optimize.py nelder_mead_batched over lambert_project_ncc,
+// kernel B) is the plain version; ops/refine_nm.py holds the wrapper.
+//
+// What it computes, for each point on its own (the batched loop computes
+// the same: a converged element is frozen, and each element counts its own
+// iterations):
+//   the initial simplex x0, x0 + step_i e_i, clipped to the point's box;
+//   per iteration a stable sort of the four values, the centroid of the best
+//   three, the reflection (alpha 1), then the expansion (gamma 2) or the
+//   outside or inside contraction (rho 0.5), the batched loop's accept
+//   rules, or a shrink (sigma 0.5) towards the best vertex with three more
+//   evaluations; every candidate clipped to the box; convergence on
+//   max|f - f_best| <= fatol and max|x - x_best| <= xatol, or max_iters.
+// The batched loop evaluates the second candidate even where the reflection
+// is accepted, and drops it; this kernel skips that evaluation, so its
+// evaluation count (n_evals) is the loop's less one for each such
+// iteration. The values and the path are the same.
+//
+// Rounding. Every operation of the loop is the host loop's on the card, in
+// its order: from_euler with cosf and sinf (PyTorch's elementwise cos and
+// sin call them; no fast math), the centroid as torch.mean over the
+// vertex axis computes it ((v0 + v1) + v2, times the float32 1/3), each
+// candidate as a separately rounded product and sum (__fmul_rn, __fadd_rn:
+// nvcc would contract them), the sort's NaN-last order and argmin's
+// first-NaN-or-first-minimum. One evaluation is kernel B's arithmetic on the
+// same pixels in the same order: 256 threads, each a strided set of pixels,
+// its per-thread sums, the same butterfly-then-warps reduction
+// (lambert_common.cuh), 1 - num / sqrt(sq_norm * ss) with num and ss summed
+// over the pixels centred on the mean, never sum(sim^2) - P mean^2. So the
+// kernel's path and the host loop's are the same bit for bit, given
+// identical cosf/sinf.
+//
+// Bound on an H100 SXM at the main-path shapes (16,384 points, P = 3600,
+// about 75 evaluations a point): about 81 float32 operations a pixel and
+// evaluation (chip_smoke.py OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) at 67 TFLOP/s,
+// a few milliseconds; the float4 taps, 16 bytes a pixel and evaluation, from
+// L2 at its measured read rate, about twice that; the experimental rows,
+// read once, 236 MB or 0.07 ms of device memory.
+//
+// Design: the four things that held the host loop back.
+//   No host loop. Iterations, branches and convergence live in the kernel;
+//   one launch for all points, nothing read by the host until the end.
+//   Converged points retire. A persistent grid (as many 256-thread blocks as
+//   fit on the SMs) takes points from a global atomic counter; a block
+//   takes the next point when its point converges, so the card does not
+//   run to the slowest point of a chunk and no frozen point is projected.
+//   The experimental row is read once. At the start of a point its centred
+//   row goes to shared memory by cp.async (16-byte copies where the row is
+//   16-byte aligned, else 4-byte ones), overlapped with the first
+//   evaluation's projection; every later evaluation reads it there.
+//   One projection pass. Each thread keeps its simulated values in shared
+//   memory (its own pixels: no barrier between the passes beyond the mean's
+//   reduction), so no pixel is projected twice. At P = 3600 a block holds
+//   28.8 KB (row and pattern); registers, not shared memory, bound the
+//   blocks an SM (REFINE_NM_MIN_BLOCKS below). refine_variants.py times
+//   this branch against the two-pass one at the same P.
+//   Beyond the wrapper's shared-memory budget (RESIDENT_SMEM_BYTES in
+//   ops/refine_nm.py; a 240 x 240 detector is 460 KB) the same kernel takes
+//   its other instantiation (kResident = false): the row stays in device
+//   memory and every pixel is projected twice, as kernel B does.
+//   The simplex. Every thread of the block keeps its own copy of the
+//   simplex in registers and runs the same loop on the same values: the
+//   reductions hand every thread the same sums, so every thread computes
+//   the same objective value bit for bit, and every branch is uniform
+//   across the block with no broadcast and no barrier. Thread 0 writes the
+//   results.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "lambert_common.cuh"
+
+// Blocks an SM the compiler must leave registers for: 4 caps a thread at 64
+// registers (some of the simplex's state spills to L1-cached local memory).
+// Left to itself ptxas takes 120-137 registers, one or two blocks an SM, and
+// the kernel runs slower by a quarter to a half (refine_variants.py rebuilds
+// it with other values; PERF.md has the times).
+#ifndef REFINE_NM_MIN_BLOCKS
+#define REFINE_NM_MIN_BLOCKS 4
+#endif
+
+namespace {
+
+constexpr int kDim = 3;             // Bunge Euler angles
+constexpr int kVerts = kDim + 1;
+
+struct Problem {
+    const float* euler0;    // (n, 3) starting points
+    const float* step;      // (n, 3) initial simplex edges
+    const float* lower;     // (n, 3) box, or null
+    const float* upper;     // (n, 3) box, or null
+    const float* exp;       // (n, P) centred experimental rows
+    const float* sq_norm;   // (n,) their squared norms
+    const float* dc;        // (P, 3), or (n, P, 3) with per_point_dc
+    Geometry g;
+    float fatol, xatol;
+    int n, P, per_point_dc, max_iters;
+    float* x;               // (n, 3) best point
+    float* fun;             // (n,) its value
+    int* n_iter;            // (n,) iterations taken
+    unsigned char* converged;  // (n,) bool
+    int* n_evals;           // (n,) objective evaluations made
+    int* next;              // the queue: next point to take, 0 at launch
+};
+
+// --------------------------- one evaluation --------------------------- //
+
+// geometry/quaternion.py from_euler in PyTorch's order on the card.
+__device__ __forceinline__ void quat_from_euler(const float* e, float* q) {
+    const float sigma = __fmul_rn(0.5f, __fadd_rn(e[0], e[2]));
+    const float delta = __fmul_rn(0.5f, __fsub_rn(e[0], e[2]));
+    const float half_beta = __fmul_rn(0.5f, e[1]);
+    const float c = cosf(half_beta), s = sinf(half_beta);
+    q[0] = __fmul_rn(c, cosf(sigma));
+    q[1] = __fmul_rn(-s, cosf(delta));
+    q[2] = __fmul_rn(-s, sinf(delta));
+    q[3] = __fmul_rn(-c, sinf(sigma));
+    if (q[0] < 0.f) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[i] = -q[i];
+    }
+}
+
+// Two block-wide sums at once, each in block_reduce's order.
+__device__ __forceinline__ void block_sum2(float& a, float& b, float (*scratch)[kWarps]) {
+    for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    __syncthreads();
+    if (lane == 0) {
+        scratch[0][warp] = a;
+        scratch[1][warp] = b;
+    }
+    __syncthreads();
+    a = scratch[0][0];
+    b = scratch[1][0];
+    for (int w = 1; w < kWarps; ++w) {
+        a += scratch[0][w];
+        b += scratch[1][w];
+    }
+}
+
+struct Point {
+    const float* dc;     // this point's direction cosines (P, 3)
+    const float* row;    // its experimental row in device memory
+    const float* s_row;  // ... and in shared memory (kResident)
+    float* s_sim;        // its simulated pattern in shared memory (kResident)
+    float sq_norm;
+};
+
+// 1 - NCC at Euler angles xe: kernel B's arithmetic.
+template <bool kResident>
+__device__ __forceinline__ float evaluate(const float* xe, const Point& pt, const Geometry& g, int P,
+                                          float (*scratch)[kWarps]) {
+    float q[4];
+    quat_from_euler(xe, q);
+    const Rot r = make_rot(q);
+    int tap;
+    float s = 0.f;
+    for (int p = threadIdx.x; p < P; p += kThreads) {
+        const float v = project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], g, tap);
+        if (kResident) pt.s_sim[p] = v;
+        s += v;
+    }
+    // The row's copy has landed before the mean's barriers publish it (a
+    // no-op after the point's first evaluation).
+    if (kResident) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    const float mean = __fmul_rn(block_reduce(s, Sum(), scratch[0]), 1.f / (float)P);
+    float num = 0.f, ss = 0.f;
+    for (int p = threadIdx.x; p < P; p += kThreads) {
+        const float v = kResident ? pt.s_sim[p]
+                                  : project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], g, tap);
+        const float d = __fsub_rn(v, mean);
+        num = fmaf(kResident ? pt.s_row[p] : pt.row[p], d, num);
+        ss = fmaf(d, d, ss);
+    }
+    block_sum2(num, ss, scratch);
+    return __fsub_rn(1.f, __fdiv_rn(num, sqrtf(__fmul_rn(pt.sq_norm, ss))));
+}
+
+// The point's centred row into shared memory, asynchronously.
+__device__ __forceinline__ void load_row_async(float* s_row, const float* row, int P) {
+    if ((P & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+        for (int c = threadIdx.x; c < P / 4; c += kThreads) {
+            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + 4 * c));
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(row + 4 * c) : "memory");
+        }
+    } else {
+        for (int p = threadIdx.x; p < P; p += kThreads) {
+            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + p));
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(row + p) : "memory");
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// ----------------------------- the simplex ----------------------------- //
+
+// a sorts strictly before b: ascending, NaN last (torch.sort's order).
+__device__ __forceinline__ bool before(float a, float b) { return a < b || (isnan(b) && !isnan(a)); }
+
+struct Simplex {
+    float v[kVerts][kDim];
+    float f[kVerts];
+
+    // Adjacent exchange on strict order: stable.
+    __device__ __forceinline__ void exchange(int i) {
+        if (before(f[i + 1], f[i])) {
+            const float t = f[i];
+            f[i] = f[i + 1];
+            f[i + 1] = t;
+#pragma unroll
+            for (int j = 0; j < kDim; ++j) {
+                const float u = v[i][j];
+                v[i][j] = v[i + 1][j];
+                v[i + 1][j] = u;
+            }
+        }
+    }
+
+    // torch.argsort(stable=True) of four values: a bubble network.
+    __device__ __forceinline__ void sort() {
+        exchange(0);
+        exchange(1);
+        exchange(2);
+        exchange(0);
+        exchange(1);
+        exchange(0);
+    }
+
+    // torch.argmin: the first NaN if any, else the first minimum.
+    __device__ __forceinline__ int best() const {
+        int b = 0;
+#pragma unroll
+        for (int i = 1; i < kVerts; ++i) {
+            const bool nan_b = isnan(f[b]);
+            if (!nan_b && (isnan(f[i]) || f[i] < f[b])) b = i;
+        }
+        return b;
+    }
+
+    // Vertex i's coordinates and value, i known only at run time: selects,
+    // so the arrays stay in registers.
+    __device__ __forceinline__ void put(int i, const float* x, float fx) {
+#pragma unroll
+        for (int k = 0; k < kVerts; ++k) {
+            if (k == i) {
+                f[k] = fx;
+#pragma unroll
+                for (int j = 0; j < kDim; ++j) v[k][j] = x[j];
+            }
+        }
+    }
+    __device__ __forceinline__ void get(int i, float* x) const {
+#pragma unroll
+        for (int k = 0; k < kVerts; ++k) {
+            if (k == i) {
+#pragma unroll
+                for (int j = 0; j < kDim; ++j) x[j] = v[k][j];
+            }
+        }
+    }
+};
+
+// torch.maximum with the lower bound, then torch.minimum with the upper.
+__device__ __forceinline__ void clip(float* x, const float* lo, const float* hi) {
+#pragma unroll
+    for (int j = 0; j < kDim; ++j) x[j] = fminf(fmaxf(x[j], lo[j]), hi[j]);
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kernel(const Problem pb) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ float scratch[2][kWarps];
+    __shared__ int s_point;
+    const int P = pb.P;
+    const Geometry g = pb.g;
+    const float third = 1.f / 3.f;  // torch.mean's factor over the three best vertices
+
+    for (;;) {
+        if (threadIdx.x == 0) s_point = atomicAdd(pb.next, 1);
+        __syncthreads();
+        const int b = s_point;  // rewritten only after this point's barriers
+        if (b >= pb.n) return;
+
+        Point pt;
+        pt.dc = pb.dc + (pb.per_point_dc ? 3LL * P * b : 0LL);
+        pt.row = pb.exp + (long long)P * b;
+        pt.s_row = smem;
+        pt.s_sim = smem + ((P + 3) & ~3);
+        pt.sq_norm = pb.sq_norm[b];
+        if (kResident) load_row_async(smem, pt.row, P);
+
+        float x0[kDim], step[kDim], lo[kDim], hi[kDim];
+#pragma unroll
+        for (int j = 0; j < kDim; ++j) {
+            x0[j] = pb.euler0[kDim * b + j];
+            step[j] = pb.step[kDim * b + j];
+            lo[j] = pb.lower ? pb.lower[kDim * b + j] : -INFINITY;
+            hi[j] = pb.upper ? pb.upper[kDim * b + j] : INFINITY;
+        }
+
+        // The initial simplex: x0, then x0 + step_i e_i; each clipped.
+        Simplex sx;
+#pragma unroll 1
+        for (int i = 0; i < kVerts; ++i) {
+            float xe[kDim];
+#pragma unroll
+            for (int j = 0; j < kDim; ++j) xe[j] = i == j + 1 ? __fadd_rn(x0[j], step[j]) : x0[j];
+            clip(xe, lo, hi);
+            sx.put(i, xe, evaluate<kResident>(xe, pt, g, P, scratch));
+        }
+        int it = 0, evals = kVerts;
+        bool done = false;
+
+        while (it < pb.max_iters && !done) {
+            sx.sort();
+            const float best_v = sx.f[0], second_worst_v = sx.f[kVerts - 2], worst_v = sx.f[kVerts - 1];
+            float c[kDim], xr[kDim], x2[kDim];
+#pragma unroll
+            for (int j = 0; j < kDim; ++j) {
+                c[j] = __fmul_rn(__fadd_rn(__fadd_rn(sx.v[0][j], sx.v[1][j]), sx.v[2][j]), third);
+                xr[j] = __fadd_rn(c[j], __fsub_rn(c[j], sx.v[kVerts - 1][j]));
+            }
+            clip(xr, lo, hi);
+            const float fr = evaluate<kResident>(xr, pt, g, P, scratch);
+            ++evals;
+
+            const bool expand = fr < best_v;
+            const bool contract_out = fr >= second_worst_v && fr < worst_v;
+            const bool accept_reflect = fr >= best_v && fr < second_worst_v;
+            bool use_x2 = false, use_xr = accept_reflect;
+            float f2 = 0.f;
+            if (!accept_reflect) {
+#pragma unroll
+                for (int j = 0; j < kDim; ++j) {
+                    if (expand) {
+                        x2[j] = __fadd_rn(c[j], __fmul_rn(2.f, __fsub_rn(xr[j], c[j])));
+                    } else if (contract_out) {
+                        x2[j] = __fadd_rn(c[j], __fmul_rn(0.5f, __fsub_rn(xr[j], c[j])));
+                    } else {
+                        x2[j] = __fsub_rn(c[j], __fmul_rn(0.5f, __fsub_rn(c[j], sx.v[kVerts - 1][j])));
+                    }
+                }
+                clip(x2, lo, hi);
+                f2 = evaluate<kResident>(x2, pt, g, P, scratch);
+                ++evals;
+                const bool contract_ok = contract_out ? f2 <= fr : f2 < worst_v;
+                use_x2 = expand ? f2 < fr : contract_ok;
+                use_xr = expand && f2 >= fr;
+            }
+
+            if (use_x2) {
+                sx.put(kVerts - 1, x2, f2);
+            } else if (use_xr) {
+                sx.put(kVerts - 1, xr, fr);
+            } else {
+                // Shrink towards the best vertex: three more evaluations.
+                float v0[kDim];
+#pragma unroll
+                for (int j = 0; j < kDim; ++j) v0[j] = sx.v[0][j];
+#pragma unroll 1
+                for (int i = 1; i < kVerts; ++i) {
+                    float xs[kDim];
+                    sx.get(i, xs);
+#pragma unroll
+                    for (int j = 0; j < kDim; ++j) xs[j] = __fadd_rn(v0[j], __fmul_rn(0.5f, __fsub_rn(xs[j], v0[j])));
+                    clip(xs, lo, hi);
+                    sx.put(i, xs, evaluate<kResident>(xs, pt, g, P, scratch));
+                }
+                evals += kDim;
+            }
+
+            // Spreads as amax (NaN propagates, and fails the test).
+            float f_spread = 0.f, x_spread = 0.f;
+#pragma unroll
+            for (int i = 0; i < kVerts; ++i) {
+                const float df = fabsf(__fsub_rn(sx.f[i], sx.f[0]));
+                f_spread = (df > f_spread || isnan(df)) ? df : f_spread;
+#pragma unroll
+                for (int j = 0; j < kDim; ++j) {
+                    const float dx = fabsf(__fsub_rn(sx.v[i][j], sx.v[0][j]));
+                    x_spread = (dx > x_spread || isnan(dx)) ? dx : x_spread;
+                }
+            }
+            ++it;
+            done = f_spread <= pb.fatol && x_spread <= pb.xatol;
+        }
+
+        if (threadIdx.x == 0) {
+            const int k = sx.best();
+            float xb[kDim];
+            sx.get(k, xb);
+#pragma unroll
+            for (int j = 0; j < kDim; ++j) pb.x[kDim * b + j] = xb[j];
+            float fb = sx.f[0];
+#pragma unroll
+            for (int i = 1; i < kVerts; ++i) fb = i == k ? sx.f[i] : fb;
+            pb.fun[b] = fb;
+            pb.n_iter[b] = it;
+            pb.converged[b] = done;
+            pb.n_evals[b] = evals;
+        }
+    }
+}
+
+template <bool kResident>
+int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
+    auto kernel = refine_nm_kernel<kResident>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess)
+        return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long resident_blocks = (long long)per_sm * sms;
+    const int grid = (int)(pb.n < resident_blocks ? pb.n : resident_blocks);
+    kernel<<<grid, kThreads, smem, stream>>>(pb);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// euler0, step (n, 3); lower, upper (n, 3) or null; exp (n, P); sq_norm (n,);
+// dc (P, 3), or (n, P, 3) with per_point_dc; quad (2 * npy * npx, 4): all
+// float32 and contiguous. Out: x (n, 3) and fun (n,) float32, n_iter and
+// n_evals (n,) int32, converged (n,) bool; next one int32 holding 0.
+// resident: the row and pattern in shared memory (2 * P floats), else the
+// two-pass branch.
+int refine_nm_launch(const void* euler0, const void* step, const void* lower, const void* upper, const void* exp,
+                     const void* sq_norm, const void* dc, const void* quad, void* x, void* fun, void* n_iter,
+                     void* converged, void* n_evals, void* next, int n, int P, int per_point_dc, int npx, int npy,
+                     float scale, float inv_sqrt_pi_half, int max_iters, float fatol, float xatol, int resident,
+                     void* stream) {
+    if (n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || max_iters < 0 || 2LL * npx * npy > 0x7fffffffLL ||
+        3LL * P > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    Problem pb;
+    pb.euler0 = static_cast<const float*>(euler0);
+    pb.step = static_cast<const float*>(step);
+    pb.lower = static_cast<const float*>(lower);
+    pb.upper = static_cast<const float*>(upper);
+    pb.exp = static_cast<const float*>(exp);
+    pb.sq_norm = static_cast<const float*>(sq_norm);
+    pb.dc = static_cast<const float*>(dc);
+    pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
+    pb.fatol = fatol;
+    pb.xatol = xatol;
+    pb.n = n;
+    pb.P = P;
+    pb.per_point_dc = per_point_dc;
+    pb.max_iters = max_iters;
+    pb.x = static_cast<float*>(x);
+    pb.fun = static_cast<float*>(fun);
+    pb.n_iter = static_cast<int*>(n_iter);
+    pb.converged = static_cast<unsigned char*>(converged);
+    pb.n_evals = static_cast<int*>(n_evals);
+    pb.next = static_cast<int*>(next);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (resident) return launch<true>(pb, 2 * sizeof(float) * (size_t)((P + 3) & ~3), s);
+    return launch<false>(pb, 0, s);
+}
+
+}  // extern "C"

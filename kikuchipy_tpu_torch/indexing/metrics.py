@@ -1,8 +1,9 @@
 """Similarity metrics for dictionary indexing: NCC (normalized
 cross-correlation) and NDP (normalized dot product), as
 ``kikuchipy_tpu/indexing/metrics.py``. Preparation is cast -> mask ->
-center (NCC) -> L2-normalize; ``signal_mask`` is True for pixels to
-exclude, and higher scores are better for both metrics.
+center (NCC) -> L2-normalize, matching one matrix product;
+``signal_mask`` is True for pixels to exclude, and higher scores are
+better for both metrics.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from kikuchipy_tpu_torch.utils.device import matmul_precision
 from kikuchipy_tpu_torch.utils.dtypes import torch_dtype
 
 __all__ = ["SimilarityMetric", "ncc", "ndp", "get_metric", "signal_mask_to_idx"]
@@ -43,6 +45,11 @@ class SimilarityMetric:
         center (NCC only) and L2-normalize each pattern."""
         return _prepare(patterns, keep_idx, self.centered, torch_dtype(self.dtype))
 
+    def match(self, experimental: torch.Tensor, dictionary: torch.Tensor) -> torch.Tensor:
+        """Similarity matrix ``(n_exp, n_dict)`` of prepared rows: one
+        matrix product, IEEE float32 on the card (no TF32)."""
+        return _match(experimental, dictionary)
+
 
 def _prepare(patterns: torch.Tensor, keep_idx, centered: bool, dtype: torch.dtype) -> torch.Tensor:
     if patterns.ndim == 2:
@@ -56,6 +63,14 @@ def _prepare(patterns: torch.Tensor, keep_idx, centered: bool, dtype: torch.dtyp
         p = p - torch.mean(p, dim=1, keepdim=True)
     norm = torch.sqrt(torch.sum(torch.square(p), dim=1, keepdim=True))
     return p / norm
+
+
+def _match(experimental: torch.Tensor, dictionary: torch.Tensor) -> torch.Tensor:
+    # The JAX package multiplies at Precision.HIGHEST in the promoted type
+    # and returns the experimental rows' type.
+    dt = torch.promote_types(experimental.dtype, dictionary.dtype)
+    with matmul_precision(False):
+        return torch.matmul(experimental.to(dt), dictionary.to(dt).T).to(experimental.dtype)
 
 
 def signal_mask_to_idx(signal_mask: np.ndarray | None, sig_size: int) -> np.ndarray | None:

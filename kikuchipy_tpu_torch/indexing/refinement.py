@@ -1,14 +1,21 @@
 """Orientation and projection-center refinement.
 
 Counterpart of ``kikuchipy_tpu/indexing/refinement.py``: every map point
-is refined at once by the batched Nelder-Mead of
-:mod:`kikuchipy_tpu_torch.utils.optimize` (one simplex a point, lockstep
-iterations), minimizing ``1 - NCC`` between the centred experimental
-pattern and the pattern projected at the candidate Euler angles and/or
-PC. On the card every evaluation of that objective is one launch of the
-projection-NCC kernel (:func:`kikuchipy_tpu_torch.ops.lambert_project.
-lambert_project_ncc`); the projected pattern never reaches device memory.
-On the CPU the objective is its plain PyTorch twin.
+is refined at once by Nelder-Mead (one simplex a point), minimizing ``1 -
+NCC`` between the centred experimental pattern and the pattern projected
+at the candidate Euler angles and/or PC.
+
+- Orientation mode on the card: one launch of the Nelder-Mead kernel
+  (:func:`kikuchipy_tpu_torch.ops.refine_nm.nelder_mead_orientation`)
+  runs every point's simplex to convergence; no host loop.
+- PC and joint modes on the card: the batched Nelder-Mead of
+  :mod:`kikuchipy_tpu_torch.utils.optimize` (lockstep iterations, a host
+  loop), each objective evaluation one launch of the projection-NCC kernel
+  (:func:`kikuchipy_tpu_torch.ops.lambert_project.lambert_project_ncc`),
+  since their direction cosines are built from the candidate PCs in
+  PyTorch. The projected pattern never reaches device memory.
+- On the CPU all three modes run that batched loop over the objective's
+  plain PyTorch twin.
 
 Modes, as in the JAX package:
 
@@ -39,6 +46,7 @@ import torch
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, PhaseList
 from kikuchipy_tpu_torch.geometry import quaternion as quat
 from kikuchipy_tpu_torch.ops.lambert_project import lambert_project, lambert_project_ncc, ncc_centered
+from kikuchipy_tpu_torch.ops.refine_nm import nelder_mead_orientation, orientation_objective
 from kikuchipy_tpu_torch.projection.master_pattern import (
     direction_cosines,
     direction_cosines_from_detector,
@@ -180,10 +188,7 @@ def _finalize_xmap(xmap, rotations, scores, n_iter, nav_shape):
     )
 
 
-def _objective_orientation(euler_b, exp, sq_norm, dc, quad, npx, npy, scale):
-    """``1 - NCC`` at Euler angles ``(n, 3)``."""
-    q = quat.from_euler(euler_b).to(_f32)
-    return lambert_project_ncc(q, dc, quad, npx, npy, scale, exp, sq_norm)
+_objective_orientation = orientation_objective
 
 
 def _masked_dc_for_pc(pc_b, om, mask_take, nrows, ncols):
@@ -279,8 +284,12 @@ def refine_orientation(
     every variant ``op * q0`` of its start and the best result kept, with
     the winning variant (0 = original) in the ``pseudo_symmetry_index``
     property. ``nav_chunk``: points per Nelder-Mead batch (the last chunk
-    padded). ``sh_L`` and ``sh_precision`` belong to the spherical
-    projector, which is not ported yet.
+    padded) on the CPU. On the card the whole map is one launch of the
+    Nelder-Mead kernel whatever ``nav_chunk`` says (its results do not
+    depend on chunking), except with one PC a point, where ``nav_chunk``
+    still bounds the ``(nav_chunk, P, 3)`` direction cosines of a launch.
+    ``sh_L`` and ``sh_precision`` belong to the spherical projector, which
+    is not ported yet.
     """
     method = _check_ported(method, projector)
     if navigation_mask is not None:
@@ -308,7 +317,8 @@ def refine_orientation(
     n = signal.navigation_size
     dev = signal.device
 
-    if nav_chunk is not None and n > nav_chunk:
+    per_point_pc = detector.navigation_size != 1
+    if nav_chunk is not None and n > nav_chunk and (dev.type == "cpu" or per_point_pc):
         return _refine_orientation_chunked(
             signal, xmap, detector, master_pattern, energy, signal_mask, trust_region, max_iters, rtol, method,
             nav_chunk, projector, sh_L, sh_precision,
@@ -320,7 +330,7 @@ def refine_orientation(
     quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
 
     dc = direction_cosines_from_detector(detector, device=dev)
-    if detector.navigation_size == 1:
+    if not per_point_pc:
         if mask_t is not None:
             dc = dc[mask_t]
     else:
@@ -336,16 +346,10 @@ def refine_orientation(
         lb = torch.as_tensor(euler0 - tr, dtype=_f32, device=dev)
         ub = torch.as_tensor(euler0 + tr, dtype=_f32, device=dev)
 
-    res = nelder_mead_batched(
-        _objective_orientation,
-        torch.as_tensor(euler0, dtype=_f32, device=dev),
-        initial_step=np.deg2rad(1.0),
-        max_iters=max_iters,
-        fatol=rtol,
-        xatol=1e-4,
-        lower_bounds=lb,
+    res = nelder_mead_orientation(
+        torch.as_tensor(euler0, dtype=_f32, device=dev), exp, sq_norm, dc.contiguous(), quad, npx, npy, scale,
+        initial_step=np.deg2rad(1.0), max_iters=max_iters, fatol=rtol, xatol=1e-4, lower_bounds=lb,
         upper_bounds=ub,
-        args=(exp, sq_norm, dc.contiguous(), quad, npx, npy, scale),
     )
     refined_rot = quat.from_euler(res.x.to(torch.float64)).cpu().numpy()
     scores = 1.0 - res.fun.cpu().numpy()

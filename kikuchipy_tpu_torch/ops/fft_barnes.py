@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from scipy.fft import next_fast_len
 
-from kikuchipy_tpu_torch.utils.device import ieee_f32
+from kikuchipy_tpu_torch.utils.device import matmul_precision
 
 __all__ = ["FFTFilterPlan", "SeparableFilterPlan", "separable_filter"]
 
@@ -84,7 +84,7 @@ def separable_filter(
 ) -> torch.Tensor:
     """Apply a :class:`SeparableFilterPlan`: ``row_op @ p @ col_op.T`` per
     pattern, in IEEE float32 (the JAX package uses
-    ``Precision.HIGHEST``)."""
-    ieee_f32()
+    ``Precision.HIGHEST``); the caller's TF32 flags are restored after."""
     x = patterns.to(torch.float32)
-    return torch.matmul(torch.matmul(row_op, x), col_op.T)
+    with matmul_precision(False):
+        return torch.matmul(torch.matmul(row_op, x), col_op.T)

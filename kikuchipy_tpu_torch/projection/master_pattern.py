@@ -17,6 +17,7 @@ import torch
 
 from kikuchipy_tpu_torch.geometry.lambert import SQRT_PI_HALF, vector_to_lambert
 from kikuchipy_tpu_torch.ops.lambert_project import lambert_project
+from kikuchipy_tpu_torch.utils.device import resolve_device
 
 __all__ = [
     "direction_cosines",
@@ -64,12 +65,13 @@ def direction_cosines(
 
 
 def direction_cosines_from_detector(
-    detector, signal_mask: np.ndarray | None = None, dtype=torch.float32, device="cpu"
+    detector, signal_mask: np.ndarray | None = None, dtype=torch.float32, device=None
 ) -> torch.Tensor:
     """Direction cosines of an :class:`~kikuchipy_tpu_torch.geometry.
     detector.EBSDDetector`, computed in float64 and cast to ``dtype``:
-    ``(n_pixels, 3)`` for one PC, ``(nav_size, n_pixels, 3)`` for many."""
-    f64 = dict(dtype=torch.float64, device=device)
+    ``(n_pixels, 3)`` for one PC, ``(nav_size, n_pixels, 3)`` for many. On
+    the card unless ``device`` says otherwise."""
+    f64 = dict(dtype=torch.float64, device=resolve_device(device))
     om = torch.as_tensor(detector.detector_to_sample, **f64)
     if detector.navigation_size == 1:
         gb = torch.as_tensor(np.asarray(detector.gnomonic_bounds, dtype=np.float64).reshape(4), **f64)

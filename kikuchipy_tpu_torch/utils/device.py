@@ -12,7 +12,7 @@ import contextlib
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "ieee_f32", "matmul_precision"]
+__all__ = ["resolve_device", "as_tensor", "matmul_precision"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,10 +49,3 @@ def matmul_precision(tf32: bool):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
-
-def ieee_f32() -> None:
-    """Keep float32 matrix products and convolutions in IEEE float32 on
-    the card (no TF32): the JAX package computes these paths at
-    ``Precision.HIGHEST``."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False

@@ -7,9 +7,12 @@ branchless (``torch.where``) case selection, the standard coefficients
 initial simplex. JAX's ``while_loop`` becomes a Python loop that reads one
 pair of flags from the device per iteration (whether every element had
 converged, and whether a live element shrinks): the only host sync of an
-iteration. The global solvers of the JAX module (differential evolution,
-dual annealing, basin hopping, SHGO) and Levenberg-Marquardt are not
-ported yet.
+iteration. On the card, orientation refinement runs this loop inside one
+kernel instead (:func:`kikuchipy_tpu_torch.ops.refine_nm.
+nelder_mead_orientation`), which computes what this function computes for
+each element on its own. The global solvers of the JAX module
+(differential evolution, dual annealing, basin hopping, SHGO) and
+Levenberg-Marquardt are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["NelderMeadResult", "nelder_mead_batched"]
+__all__ = ["NelderMeadResult", "initial_step_per_element", "nelder_mead_batched"]
 
 
 class NelderMeadResult(NamedTuple):
@@ -26,17 +29,23 @@ class NelderMeadResult(NamedTuple):
     fun: torch.Tensor        # (n,) best value per element
     n_iter: torch.Tensor     # (n,) iterations until convergence
     converged: torch.Tensor  # (n,) convergence mask
+    n_evals: torch.Tensor    # (n,) objective evaluations of each element
+
+
+def initial_step_per_element(x0: torch.Tensor, step) -> torch.Tensor:
+    """The initial simplex's edge along each coordinate ``(n, d)``: SciPy's
+    perturbation (``nonzdelt=0.05`` relative, ``zdelt=0.00025`` absolute)
+    when ``step`` is None, else ``step`` (scalar or ``(d,)``)."""
+    if step is None:
+        return torch.where(x0 == 0.0, torch.full_like(x0, 0.00025), 0.05 * x0)
+    return torch.broadcast_to(torch.as_tensor(step, dtype=x0.dtype, device=x0.device), x0.shape)
 
 
 def _initial_simplex(x0: torch.Tensor, step) -> torch.Tensor:
     """SciPy-style initial simplex ``(n, d + 1, d)``: ``x0`` and ``x0``
-    with each coordinate perturbed (``nonzdelt=0.05`` relative,
-    ``zdelt=0.00025`` absolute), or by ``step[i]`` when a step is given."""
-    n, d = x0.shape
-    if step is None:
-        pert = torch.where(x0 == 0.0, torch.full_like(x0, 0.00025), 0.05 * x0)
-    else:
-        pert = torch.broadcast_to(torch.as_tensor(step, dtype=x0.dtype, device=x0.device), (n, d))
+    with each coordinate perturbed by :func:`initial_step_per_element`."""
+    d = x0.shape[1]
+    pert = initial_step_per_element(x0, step)
     eye = torch.eye(d, dtype=x0.dtype, device=x0.device)
     verts = x0[:, None, :] + pert[:, None, :] * eye[None, :, :]
     return torch.cat([x0[:, None, :], verts], dim=1)
@@ -96,6 +105,7 @@ def nelder_mead_batched(
     verts = clip(_initial_simplex(x0, initial_step))
     vals = torch.stack([fn(verts[:, i, :]) for i in range(d + 1)], dim=1)
     it = torch.zeros(n, dtype=torch.int32, device=x0.device)
+    shrinks = torch.zeros(n, dtype=torch.int32, device=x0.device)
     done = torch.zeros(n, dtype=torch.bool, device=x0.device)
     alpha, gamma, rho, sigma = 1.0, 2.0, 0.5, 0.5
 
@@ -160,10 +170,13 @@ def nelder_mead_batched(
         f_spread = torch.amax(torch.abs(vals_new - vals_new[:, :1]), dim=1)
         x_spread = torch.amax(torch.abs(verts_new - verts_new[:, :1, :]), dim=(1, 2))
         it = it + (~done).to(torch.int32)
+        shrinks = shrinks + (shrink & ~done).to(torch.int32)
         done = done | ((f_spread <= fatol) & (x_spread <= xatol))
         verts, vals = verts_new, vals_new
 
     best = torch.argmin(vals, dim=1)
     x_best = torch.take_along_dim(verts, best[:, None, None], dim=1)[:, 0]
     f_best = torch.take_along_dim(vals, best[:, None], dim=1)[:, 0]
-    return NelderMeadResult(x=x_best, fun=f_best, n_iter=it, converged=done)
+    # d + 1 to start, two an iteration, d more a shrink.
+    n_evals = (d + 1) + 2 * it + d * shrinks
+    return NelderMeadResult(x=x_best, fun=f_best, n_iter=it, converged=done, n_evals=n_evals)

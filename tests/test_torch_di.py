@@ -283,3 +283,29 @@ def test_chance_level_warning(caplog):
     with caplog.at_level(logging.WARNING, logger=tdi.__name__):
         tdi.dictionary_index(exp, dic, keep_n=2, device="cpu")
     assert "chance level" in caplog.text
+
+
+@pytest.mark.parametrize("metric", ["ncc", "ndp"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_similarity_metric_match_matches_jax(metric, dtype):
+    # One product of prepared rows at float32 HIGHEST in JAX, IEEE float32 in
+    # the port: the sums run in another order, so scores agree within ATOL
+    # (1e-5 on unit-norm rows); the dtype is the experimental rows'.
+    from kikuchipy_tpu.indexing import metrics as jm
+    from kikuchipy_tpu_torch.indexing import metrics as tm
+
+    exp, dic = _problem(n=12, m=70, d=90, seed=8)
+    jmet, tmet = jm.get_metric(metric), tm.get_metric(metric)
+    jexp, jdic = jmet.prepare(jnp.asarray(exp)), jmet.prepare(jnp.asarray(dic))
+    texp, tdic = tmet.prepare(torch.as_tensor(exp)), tmet.prepare(torch.as_tensor(dic))
+    ref = np.asarray(jmet.match(jexp, jdic))
+    got = tmet.match(texp, tdic.to(torch.float64) if dtype == np.float64 else tdic)
+    assert got.shape == ref.shape == (12, 70) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tmet.match(texp, tdic)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before

@@ -424,13 +424,15 @@ def test_lambert_project_ncc_matches_plain(cuda, case):
 
 def test_refinement_on_the_card_goes_through_the_ncc_kernel(cuda):
     # A 64-point scan projected by kernel A at known orientations, refined
-    # from 1 degree off on the card and on the CPU: the card's run launches
-    # kernel B (and kernel A never), and both land on the truth.
+    # from 1 degree off on the card and on the CPU: the card's run is one
+    # launch of the Nelder-Mead kernel (kernel A and kernel B never), and
+    # both land on the truth.
     from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
     from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
     from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle, super_fibonacci
     from kikuchipy_tpu_torch.geometry import quaternion as tq
     from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
 
     master, _, _, _, det = _projection_state(cuda)
     truth = super_fibonacci(64 * 7)[::7][:64]
@@ -444,16 +446,132 @@ def test_refinement_on_the_card_goes_through_the_ncc_kernel(cuda):
         sim = mp.get_patterns(truth, det).data
         assert lp.lambert_project.launches == before + on_card
         signal = EBSD(sim, detector=det, device=dev)
-        a_before, b_before = lp.lambert_project.launches, lp.lambert_project_ncc.launches
+        counts = (lp.lambert_project.launches, lp.lambert_project_ncc.launches, rn.nelder_mead_orientation.launches)
         res = signal.refine_orientation(xmap=CrystalMap(rotations=start), master_pattern=mp, max_iters=80)
-        launched = lp.lambert_project_ncc.launches - b_before
-        assert lp.lambert_project.launches == a_before
-        assert (launched > 0) == on_card
+        assert lp.lambert_project.launches == counts[0]
+        assert lp.lambert_project_ncc.launches == counts[1]
+        assert rn.nelder_mead_orientation.launches == counts[2] + on_card
         results[str(dev)] = res.xmap
     ang = np.degrees(disorientation_angle(results["cpu"].best_rotations, results["cuda"].best_rotations, "m-3m"))
     assert ang.max() < 0.05
     assert np.degrees(disorientation_angle(truth, results["cuda"].best_rotations, "m-3m")).max() < 0.2
     np.testing.assert_allclose(results["cuda"].prop["scores"], results["cpu"].prop["scores"], atol=1e-4)
+
+
+# The Nelder-Mead kernel (csrc/refine_nm.cu) against the host loop on kernel
+# B on the same card and inputs: it rounds every step as the loop does, so
+# the two must take the same path: the same iterations and points and values
+# bit for bit (n_evals differs: the kernel skips the loop's dropped second
+# candidate of an accepted reflection).
+
+
+def _nm_inputs(device, case: str, n: int = 64):
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    n = {"one": 1, "over_budget": 8}.get(case, n)
+    shape = (128, 128) if case == "over_budget" else (60, 60)  # P = 16,384: past RESIDENT_SMEM_BYTES
+    _, quad, _, om, _ = _projection_state(device)
+    det = EBSDDetector(shape=shape, pc=(0.42, 0.28, 0.5), sample_tilt=70)
+    dc = direction_cosines_from_detector(det, device=device)
+    truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
+    rows = lp.lambert_project(truth, dc, quad, 101, 101, 50.0)
+    rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(50),
+                                     device=device)
+    axes = torch.as_tensor(np.random.default_rng(51).normal(size=(n, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), truth.double().cpu())
+    euler0 = tq.to_euler(start).to(torch.float32).to(device)
+    idx = None
+    if case == "masked":
+        idx = torch.nonzero(torch.rand(dc.shape[0], generator=torch.Generator().manual_seed(52)) > 0.3)[:, 0]
+        idx = idx.to(device)
+        dc = dc[idx].contiguous()
+    elif case == "per_point":
+        dc = _per_point_dc(n, om, 53, device)
+    exp, sq = _prepare_experimental(rows, idx)
+    kw = dict(initial_step=np.deg2rad(1.0), max_iters=150, fatol=1e-4, xatol=1e-4)
+    if case == "trust_region":
+        tr = torch.tensor(np.deg2rad([0.5, 0.5, 0.5]), dtype=torch.float32, device=device)
+        kw.update(lower_bounds=euler0 - tr, upper_bounds=euler0 + tr)
+    return (euler0, exp, sq, dc, quad, 101, 101, 50.0), kw
+
+
+@pytest.mark.parametrize("case", ["shared", "trust_region", "masked", "per_point", "over_budget", "one"])
+def test_nelder_mead_kernel_takes_the_host_loops_path(cuda, case):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    args, kw = _nm_inputs(cuda, case)
+    assert rn.resident(args[3].shape[-2]) == (case != "over_budget")
+    before = (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches)
+    got = rn.nelder_mead_orientation(*args, **kw)
+    torch.cuda.synchronize()
+    assert rn.nelder_mead_orientation.launches == before[0] + 1 and lp.lambert_project_ncc.launches == before[1]
+    ref = rn.nelder_mead_orientation_plain(*args, **kw)
+    n = args[0].shape[0]
+    assert got.x.shape == (n, 3) and got.fun.shape == got.n_iter.shape == got.converged.shape == (n,)
+    assert torch.isfinite(got.fun).all() and got.converged.all()
+    print(f"{case}: n_iter equal {float((got.n_iter == ref.n_iter).float().mean()):.4f}, max |dfun| "
+          f"{float((got.fun - ref.fun).abs().max()):.3e}, max |dx| {float((got.x - ref.x).abs().max()):.3e}, "
+          f"evaluations {int(got.n_evals.sum())} vs {int(ref.n_evals.sum())}")
+    assert torch.equal(got.n_iter, ref.n_iter) and torch.equal(got.converged, ref.converged)
+    assert torch.equal(got.fun, ref.fun) and torch.equal(got.x, ref.x)
+    assert (got.n_evals <= ref.n_evals).all() and (got.n_evals >= 4 + got.n_iter).all()
+    if "lower_bounds" in kw:
+        assert (got.x >= kw["lower_bounds"]).all() and (got.x <= kw["upper_bounds"]).all()
+
+
+def test_refine_orientation_pseudo_symmetry_on_the_card(cuda):
+    # Each variant is one launch; the winning variant and orientations agree
+    # with the CPU (plain host loop) to the port's refinement tolerance.
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle, super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    master, _, _, _, det = _projection_state(cuda)
+    truth = super_fibonacci(16 * 7)[::7][:16]
+    op = tq.from_axis_angle(torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64), np.deg2rad(45.0)).numpy()
+    axes = torch.as_tensor(np.random.default_rng(54).normal(size=(16, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.0)), torch.as_tensor(truth))
+    moved = np.arange(16) % 2 == 1
+    start[moved] = tq.multiply(tq.conjugate(torch.as_tensor(op)), start[moved])
+    results = {}
+    for dev in ("cpu", cuda):
+        mp = EBSDMasterPattern(master, device=dev)
+        signal = EBSD(mp.get_patterns(truth, det).data, detector=det, device=dev)
+        before = rn.nelder_mead_orientation.launches
+        res = signal.refine_orientation(xmap=CrystalMap(rotations=start.numpy()), master_pattern=mp,
+                                        pseudo_symmetry_ops=op[None], max_iters=80)
+        assert rn.nelder_mead_orientation.launches == before + 2 * (str(dev) != "cpu")
+        results[str(dev)] = res.xmap
+    np.testing.assert_array_equal(results["cuda"].prop["pseudo_symmetry_index"], moved.astype(int))
+    np.testing.assert_array_equal(results["cpu"].prop["pseudo_symmetry_index"], moved.astype(int))
+    ang = np.degrees(disorientation_angle(results["cpu"].best_rotations, results["cuda"].best_rotations, "m-3m"))
+    assert ang.max() < 0.05
+    np.testing.assert_allclose(results["cuda"].prop["scores"], results["cpu"].prop["scores"], atol=1e-4)
+
+
+def test_nelder_mead_kernel_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    args, kw = _nm_inputs(cuda, "shared", n=4)
+    with pytest.raises(TypeError):
+        rn.nelder_mead_orientation(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="one device"):
+        rn.nelder_mead_orientation(args[0], args[1].cpu(), *args[2:], **kw)
+    # The launcher itself refuses an empty batch and a negative max_iters.
+    fn = rn._function()
+    out = torch.empty(16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [out.data_ptr()] * 14
+    assert fn(*ptrs, 0, 3600, 0, 101, 101, 50.0, 1.0, 10, 1e-4, 1e-4, 1, stream) != 0
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 1.0, -1, 1e-4, 1e-4, 1, stream) != 0
 
 
 def test_projection_kernels_refuse_what_they_cannot_take(cuda):

@@ -42,7 +42,7 @@ def test_imports_leave_no_jax_in_sys_modules():
 
 def test_no_import_statement_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|kikuchipy_tpu)(\s|\.|$)", re.M)
-    scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py")
+    scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py", "refine_variants.py")
     for path in list(PKG.rglob("*.py")) + [ROOT / name for name in scripts]:
         assert not pattern.search(path.read_text()), path
 
@@ -63,12 +63,64 @@ def test_no_import_statement_names_jax():
         lambda: kikuchipy_tpu_torch.EBSDMasterPattern(np.ones((2, 5, 5), np.float32)).projector(
             kikuchipy_tpu_torch.EBSDDetector(shape=(4, 4))
         ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.projection.master_pattern").direction_cosines_from_detector(
+            kikuchipy_tpu_torch.EBSDDetector(shape=(4, 4))
+        ),
     ],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def test_direction_cosines_default_to_the_ports_device():
+    # Its default is the port's (utils/device.py: None, the card), as every
+    # entry point's; on the CPU only when asked.
+    import inspect
+
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    assert inspect.signature(direction_cosines_from_detector).parameters["device"].default is None
+    dc = direction_cosines_from_detector(kikuchipy_tpu_torch.EBSDDetector(shape=(4, 5)), device="cpu")
+    assert dc.shape == (20, 3) and dc.device.type == "cpu"
+
+
+def _jax_all(subpackage: str) -> list[str]:
+    """``__all__`` of a JAX subpackage, read from its source (no import)."""
+    import ast
+
+    names = []
+    tree = ast.parse((ROOT / "kikuchipy_tpu" / subpackage / "__init__.py").read_text())
+    for node in ast.walk(tree):
+        target = node.targets[0] if isinstance(node, ast.Assign) else getattr(node, "target", None)
+        if getattr(target, "id", None) == "__all__":
+            names += [e.value for e in node.value.elts]
+    return names
+
+
+def _port_defines() -> set[str]:
+    """Every public name a module of the port defines or exports."""
+    names = set()
+    for m in _modules():
+        mod = importlib.import_module(m)
+        names.update(getattr(mod, "__all__", ()))
+        names.update(k for k, v in vars(mod).items() if getattr(v, "__module__", None) == m and not k.startswith("_"))
+    return names
+
+
+@pytest.mark.parametrize("subpackage", sorted(p.parent.name for p in (ROOT / "kikuchipy_tpu").glob("*/__init__.py")))
+def test_ported_names_are_in_the_same_subpackage(subpackage):
+    # The port keeps the JAX package's public names where it has them: a
+    # name of a JAX subpackage's __all__ that the port defines anywhere is
+    # importable from the port's subpackage of the same name.
+    ported = [name for name in _jax_all(subpackage) if name in _port_defines()]
+    if not ported:
+        return
+    mod = importlib.import_module(f"kikuchipy_tpu_torch.{subpackage}")
+    missing = [name for name in ported if not hasattr(mod, name)]
+    assert not missing, (subpackage, missing)
+    assert set(ported) <= set(getattr(mod, "__all__", ())), subpackage
 
 
 @pytest.mark.parametrize(
@@ -103,12 +155,19 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
-    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project"}
+    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm"}
     text = {name: path.read_text() for name, path in srcs.items()}
     # The projection kernels replace XLA code: project_patterns, and
-    # _project_at + _ncc_centered of the refinement objectives.
+    # _project_at + _ncc_centered of the refinement objectives; the
+    # Nelder-Mead kernel the while_loop of nelder_mead_batched over
+    # _objective_orientation. All three share one projection.
     for what in ("lambert_project_kernel", "lambert_project_ncc_kernel", "project_patterns", "_ncc_centered"):
         assert what in text["lambert_project"], what
+    for what in ("refine_nm_kernel", "nelder_mead_batched", "_objective_orientation", "atomicAdd", "cp.async"):
+        assert what in text["refine_nm"], what
+    for name in ("lambert_project", "refine_nm"):
+        assert '#include "lambert_common.cuh"' in text[name] and "float project_pixel(" not in text[name], name
+    assert "float project_pixel(" in (PKG / "csrc" / "lambert_common.cuh").read_text()
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]
     assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]

@@ -102,3 +102,18 @@ def test_ebsd_chain_matches_ops(patterns, static_bg):
     _assert_gray_close(out.data.reshape(9, 60, 60).numpy(), ref)
     with pytest.raises(ValueError, match="not identical"):
         s.remove_static_background(static_bg=static_bg[:5])
+
+
+@pytest.mark.parametrize("caller", [True, False])
+def test_dynamic_background_leaves_the_tf32_flags_alone(patterns, caller):
+    # The separable filter runs in IEEE float32 inside a restoring block:
+    # the caller's flags read the same after it.
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = caller
+    torch.backends.cudnn.allow_tf32 = caller
+    try:
+        tops.remove_dynamic_background(patterns, device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32 is caller
+        assert torch.backends.cudnn.allow_tf32 is caller
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old

@@ -230,7 +230,7 @@ def test_objectives_match_jax(state, masked):
 
 def test_objectives_count_no_launches_on_the_cpu(state):
     _, _, (texp, tsq, quad), (npx, npy, scale) = _objective_inputs(state)
-    dc = tr.direction_cosines_from_detector(state["t"]["det"])
+    dc = tr.direction_cosines_from_detector(state["t"]["det"], device="cpu")
     before = lp.lambert_project_ncc.launches
     tr._objective_orientation(torch.zeros((16, 3)), texp, tsq, dc, quad, npx, npy, scale)
     assert lp.lambert_project_ncc.launches == before
@@ -389,3 +389,112 @@ def test_spherical_and_unknown_names(state, fn):
             call(master_pattern=t["mp"], xmap=t["x"], **kw)
         with pytest.raises(ValueError, match=what):
             getattr(state["j"]["s"], fn)(master_pattern=state["j"]["mp"], xmap=state["j"]["x"], **kw)
+
+
+# --------------------- the Nelder-Mead kernel's ground --------------------- #
+#
+# On the card refine_orientation runs csrc/refine_nm.cu, which takes each
+# point through the simplex on its own. That is sound only because the
+# batched loop gives every element the path it would take alone: a converged
+# element is frozen and each counts its own iterations. These tests hold the
+# loop to that bit for bit on the CPU, with a trust region and with shrinks.
+
+
+def _orientation_nm_inputs(state, signal_mask=None):
+    mask_idx, _, (texp, tsq, quad), (npx, npy, scale) = _objective_inputs(state, signal_mask)
+    dc = tr.direction_cosines_from_detector(state["t"]["det"], device="cpu")
+    if mask_idx is not None:
+        dc = dc[torch.as_tensor(mask_idx, dtype=torch.long)].contiguous()
+    euler0 = np.asarray(jq.to_euler(jnp.asarray(state["start"]))).astype(np.float32)
+    return torch.as_tensor(euler0), (texp, tsq, dc, quad, npx, npy, scale)
+
+
+def _terraced(x, t):
+    # A staircase of the squared distance: on its flat treads a contraction
+    # does not improve, and the simplex shrinks.
+    return torch.floor(8 * torch.sum((x - t) ** 2, dim=1))
+
+
+@pytest.mark.parametrize("case", ["orientation", "trust_region", "masked", "shrink"])
+def test_batched_nelder_mead_equals_each_element_alone(state, case):
+    if case == "shrink":
+        t = torch.as_tensor(np.random.default_rng(11).normal(size=(12, 3)), dtype=torch.float32)
+        x0 = t + torch.as_tensor(np.random.default_rng(12).normal(scale=0.3, size=(12, 3)), dtype=torch.float32)
+        f = _terraced
+        per = lambda i: (t[i:i + 1],)  # noqa: E731
+        kw = dict(initial_step=0.1, max_iters=60, fatol=1e-6, xatol=1e-6)
+        args = (t,)
+    else:
+        mask = None
+        if case == "masked":
+            mask = np.zeros((32, 32), dtype=bool)
+            mask[:6] = True
+        x0, args = _orientation_nm_inputs(state, mask)
+        f = tr._objective_orientation
+        per = lambda i: (args[0][i:i + 1], args[1][i:i + 1]) + args[2:]  # noqa: E731
+        kw = dict(initial_step=np.deg2rad(1.0), max_iters=MAX_ITERS, fatol=1e-4, xatol=1e-4)
+        if case == "trust_region":
+            tr_rad = torch.tensor(np.deg2rad([0.4, 0.4, 0.4]), dtype=torch.float32)
+            kw.update(lower_bounds=x0 - tr_rad, upper_bounds=x0 + tr_rad)
+    whole = t_nm(f, x0, args=args, **kw)
+    for i in range(x0.shape[0]):
+        one_kw = dict(kw)
+        for b in ("lower_bounds", "upper_bounds"):
+            if b in kw:
+                one_kw[b] = kw[b][i:i + 1]
+        alone = t_nm(f, x0[i:i + 1], args=per(i), **one_kw)
+        for name in ("x", "fun", "n_iter", "converged", "n_evals"):
+            assert torch.equal(getattr(alone, name)[0], getattr(whole, name)[i]), (i, name)
+    # n_evals: d + 1 to start, 2 an iteration, d more for each shrink.
+    shrinks = (whole.n_evals - 4 - 2 * whole.n_iter) // 3
+    assert ((whole.n_evals - 4 - 2 * whole.n_iter) % 3 == 0).all() and (shrinks >= 0).all()
+    if case == "shrink":
+        assert int(shrinks.sum()) > 0
+    if case == "trust_region":
+        assert (whole.x >= kw["lower_bounds"]).all() and (whole.x <= kw["upper_bounds"]).all()
+
+
+def test_nelder_mead_orientation_on_the_cpu_is_the_host_loop(state):
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    x0, args = _orientation_nm_inputs(state)
+    kw = dict(initial_step=np.deg2rad(1.0), max_iters=MAX_ITERS, fatol=1e-4, xatol=1e-4)
+    before = (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches)
+    got = rn.nelder_mead_orientation(x0, *args, **kw)
+    assert (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches) == before
+    ref = t_nm(tr._objective_orientation, x0, args=args, **kw)
+    for name in ("x", "fun", "n_iter", "converged", "n_evals"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    assert rn.resident(3600) and rn.resident(1000) and not rn.resident(240 * 240)
+
+
+def _bad_calls():
+    # (description, edit of (x0, exp, sq_norm, dc, quad) and kwargs, error)
+    meta = lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta")  # noqa: E731
+    return [
+        ("float64 angles", lambda a, kw: ((a[0].double(),) + a[1:], kw), TypeError),
+        ("float64 rows", lambda a, kw: ((a[0], a[1].double()) + a[2:], kw), TypeError),
+        ("float64 bounds", lambda a, kw: (a, dict(kw, lower_bounds=torch.zeros(3, dtype=torch.float64))), TypeError),
+        ("angles (n, 4)", lambda a, kw: ((torch.zeros(a[0].shape[0], 4),) + a[1:], kw), ValueError),
+        ("rows of another length", lambda a, kw: ((a[0], a[1][:, :-1]) + a[2:], kw), ValueError),
+        ("norms of another length", lambda a, kw: ((a[0], a[1], a[2][:-1]) + a[3:], kw), ValueError),
+        ("dc (P, 4)", lambda a, kw: (a[:3] + (torch.zeros(a[3].shape[0], 4),) + a[4:], kw), ValueError),
+        ("dc of another batch", lambda a, kw: (a[:3] + (torch.zeros(2, a[3].shape[0], 3),) + a[4:], kw), ValueError),
+        ("quad of another master", lambda a, kw: (a[:4] + (a[4][:-1],) + a[5:], kw), ValueError),
+        ("bounds (4,)", lambda a, kw: (a, dict(kw, upper_bounds=torch.zeros(4))), ValueError),
+        ("bounds as a list", lambda a, kw: (a, dict(kw, upper_bounds=[0.0, 0.0, 0.0])), ValueError),
+        ("negative max_iters", lambda a, kw: (a, dict(kw, max_iters=-1)), ValueError),
+        ("rows on another device", lambda a, kw: ((a[0], meta(a[1])) + a[2:], kw), ValueError),
+        ("all on an unsupported device", lambda a, kw: (tuple(meta(t) if isinstance(t, torch.Tensor) else t
+                                                              for t in a), kw), ValueError),
+    ]
+
+
+@pytest.mark.parametrize("what, edit, error", _bad_calls(), ids=[c[0] for c in _bad_calls()])
+def test_nelder_mead_orientation_rejects(state, what, edit, error):
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    x0, args = _orientation_nm_inputs(state)
+    a, kw = edit((x0,) + args, dict(initial_step=np.deg2rad(1.0), max_iters=2))
+    with pytest.raises(error):
+        rn.nelder_mead_orientation(*a, **kw)
