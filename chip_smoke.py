@@ -56,12 +56,20 @@ the card's name and power limit, and the device check):
    region, a signal mask, P=1000 and one PC a point, on one point, and on
    48 points of a 240 x 240 detector (past the shared-memory budget).
    Times: the kernel on the whole map (CUDA events), the host loop's run,
-   patterns/s of both, the evaluations, the bound (operations and L2
-   taps), a ``torch.profiler`` trace of the call (device busy share), and
-   kernel B's time a launch; then ``refine_projection_center`` and
-   ``refine_orientation_projection_center`` (still kernel B, one launch an
-   evaluation) on one chunk from a PC off by (0.01, -0.01, 0.01), the mean
-   refined PC within 2e-3 of the truth;
+   patterns/s of both, the evaluations, the bound (operations, L2 taps and
+   instruction slots), a ``torch.profiler`` trace of the call (device busy share),
+   and kernel B's time a launch (now only the host loops' engine); then
+   ``refine_projection_center`` (from the refined orientations) and
+   ``refine_orientation_projection_center`` (from the DI top-1) on all
+   16,384 static-corrected patterns from a PC off by (0.01, -0.01, 0.01):
+   each one launch of its mode of the Nelder-Mead kernel and none of kernel
+   B, the mean refined PC within 2e-3 of the truth, the joint mode's
+   disorientation beside the orientation mode's; each mode's kernel against
+   its host loop on kernel B on one 2,048-point chunk and on the edge cases
+   (a trust region, a signal mask, P=1000, one point, 48 points of a 240 x
+   240 detector) with the same criteria and PC within 1e-5; times of both
+   modes on the whole map (kernel, evaluations, bounds, patterns/s of the
+   call, busy share under ``torch.profiler``, the host loop on its chunk);
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -82,7 +90,9 @@ the card's name and power limit, and the device check):
    as ``tf32_rows``) and the kernel on split operands apart (the entry
    point's time holds both); the two projection kernels with their bounds
    (bytes, float32 operations, and the taps' bytes from L2) and plain
-   twins, and the Nelder-Mead kernel's row from 5c; then a breakdown of
+   twins, the Nelder-Mead kernel's three rows from 5c, each with its
+   instruction-slot bound (``sass_count.py``'s SASS instructions a pixel at the
+   card's largest clock); then a breakdown of
    one pallas-int8 indexing call and a
    ``torch.profiler`` trace of it.
 
@@ -121,6 +131,21 @@ PEAK_F32_FLOPS = 67e12
 # summed, the mean's sum).
 OPS_PER_PIXEL = 77
 NCC_OPS_PER_PIXEL = 4
+# ... and of one pixel's direction cosine from a candidate PC, as
+# project_pixel_pc in csrc/lambert_common.cuh does them (the PC and joint
+# modes): the pixel's x and y 4 each, the rotation into the sample frame 15,
+# the squared norm 5, its square root 1 and three divides.
+DC_OPS_PER_PIXEL = 32
+# SASS instructions of one pixel on the main path of its code (sass_count.py
+# on sm_90a; both sides of the Lambert map's branch counted, the IEEE slow
+# paths not): project_pixel, and the direction cosine from a PC before it.
+# The run recounts them where the toolkit has cuobjdump and uses its count.
+SASS_PER_PIXEL = 244
+SASS_DC_PER_PIXEL = 99
+# Instruction slots of an SM: four warp schedulers, one warp instruction each a
+# clock (the Hopper architecture white paper), at the card's largest SM
+# clock (nvidia-smi clocks.max.sm in the run).
+WARP_INSTR_PER_SM_CLOCK = 4
 # One float4 of the quad texture a pixel.
 TAP_BYTES = 16
 # Largest f32 summation-order difference between a float kernel and its
@@ -443,7 +468,8 @@ WRAPPERS = {
     "ncc_topk": ("ncc_match_topk_f32", "ncc_match_topk_f32_blocked", "ncc_match_topk_bf16", "ncc_match_topk_int8",
                  "tf32_rows"),
     "lambert_project": ("lambert_project", "lambert_project_ncc"),
-    "refine_nm": ("nelder_mead_orientation",),
+    "refine_nm": ("nelder_mead_orientation", "nelder_mead_projection_center",
+                  "nelder_mead_orientation_projection_center"),
 }
 
 
@@ -630,12 +656,15 @@ def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int)
 
 # Agreement of the Nelder-Mead kernel with the host loop on kernel B, on at
 # least NM_AGREE of the points: equal iterations, 1 - NCC within NM_FUN_TOL,
-# results within NM_DEG of each other; the mean score no lower by more than
-# NM_MEAN_TOL.
+# results within NM_DEG of each other (Euler angles) and NM_PC_TOL (PC); the
+# mean score no lower by more than NM_MEAN_TOL.
 NM_AGREE = 0.99
 NM_FUN_TOL = 1e-5
 NM_DEG = 0.05
+NM_PC_TOL = 1e-5
 NM_MEAN_TOL = 1e-6
+# Each mode's parameters: the Euler angles and the PC, as columns of x.
+NM_COLUMNS = {"orientation": (slice(0, 3), None), "pc": (None, slice(0, 3)), "joint": (slice(0, 3), slice(3, 6))}
 
 
 def host_loop(euler0, exp, sq_norm, dc, quad, geo, nm_kw, chunk: int = NAV_CHUNK, lower=None, upper=None):
@@ -657,29 +686,37 @@ def host_loop(euler0, exp, sq_norm, dc, quad, geo, nm_kw, chunk: int = NAV_CHUNK
     return NelderMeadResult(*(torch.cat([getattr(p, f) for p in parts]) for f in NelderMeadResult._fields))
 
 
-def nm_agreement(label: str, got, ref) -> tuple[float, str]:
-    """Check the kernel's result against the host loop's; return the max
-    |1 - NCC difference| and a summary."""
+def nm_agreement(label: str, got, ref, mode: str = "orientation") -> tuple[float, str]:
+    """Check the kernel's result against the host loop's in one of the three
+    modes; return the max |1 - NCC difference| and a summary."""
     import torch
 
     from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
     from kikuchipy_tpu_torch.geometry import quaternion as tq
 
+    euler, pc = NM_COLUMNS[mode]
     same_iter = (got.n_iter == ref.n_iter).float().mean().item()
     dfun = (got.fun - ref.fun).abs()
     fun_ok = (dfun <= NM_FUN_TOL).float().mean().item()
-    qa = tq.from_euler(got.x.double().cpu()).numpy()
-    qb = tq.from_euler(ref.x.double().cpu()).numpy()
-    ang = np.degrees(disorientation_angle(qa, qb, "m-3m"))
-    ang_ok = float((ang <= NM_DEG).mean())
+    ok = [same_iter, fun_ok]
+    msg = (f"{label} (n={got.fun.shape[0]}): n_iter equal {same_iter:.4f}, |d(1 - NCC)| <= {NM_FUN_TOL:g} "
+           f"{fun_ok:.4f} (max {float(dfun.max()):.2e})")
+    if euler is not None:
+        qa = tq.from_euler(got.x[:, euler].double().cpu()).numpy()
+        qb = tq.from_euler(ref.x[:, euler].double().cpu()).numpy()
+        ang = np.degrees(disorientation_angle(qa, qb, "m-3m"))
+        ok.append(float((ang <= NM_DEG).mean()))
+        msg += f", within {NM_DEG} deg {ok[-1]:.4f} (max {ang.max():.2e} deg)"
+    if pc is not None:
+        dpc = (got.x[:, pc] - ref.x[:, pc]).abs().amax(dim=1)
+        ok.append(float((dpc <= NM_PC_TOL).float().mean()))
+        msg += f", PC within {NM_PC_TOL:g} {ok[-1]:.4f} (max {float(dpc.max()):.2e})"
     mean_gap = float((1 - got.fun.double()).mean() - (1 - ref.fun.double()).mean())
     bitwise = (torch.equal(got.x, ref.x) and torch.equal(got.fun, ref.fun) and torch.equal(got.n_iter, ref.n_iter))
-    msg = (f"{label} (n={got.fun.shape[0]}): n_iter equal {same_iter:.4f}, |d(1 - NCC)| <= {NM_FUN_TOL:g} "
-           f"{fun_ok:.4f} (max {float(dfun.max()):.2e}), within {NM_DEG} deg {ang_ok:.4f} (max {ang.max():.2e} deg), "
-           f"mean score kernel - loop {mean_gap:.2e}, bit for bit {bitwise}, evaluations "
-           f"{int(got.n_evals.sum())} vs the loop's {int(ref.n_evals.sum())}")
-    if min(same_iter, fun_ok, ang_ok) < NM_AGREE or mean_gap < -NM_MEAN_TOL or not torch.isfinite(got.fun).all():
-        raise AssertionError(f"nelder_mead_orientation disagrees with the host loop: {msg}")
+    msg += (f", mean score kernel - loop {mean_gap:.2e}, bit for bit {bitwise}, evaluations "
+            f"{int(got.n_evals.sum())} vs the loop's {int(ref.n_evals.sum())}")
+    if min(ok) < NM_AGREE or mean_gap < -NM_MEAN_TOL or not torch.isfinite(got.fun).all():
+        raise AssertionError(f"the Nelder-Mead kernel ({mode} mode) disagrees with the host loop: {msg}")
     return float(dfun.max()), msg
 
 
@@ -734,6 +771,93 @@ def nm_edge_cases(device, rows, euler0, dc, quad, geo, om, nm_kw, top1_rot, seed
         torch.cuda.synchronize()
         msgs.append(nm_agreement(label, got, ref)[1])
     return msgs
+
+
+def pc_problem(mode: str, pc0, exp, sq_norm, rot_q, euler0, quad, om, take, geo, shape, box=None):
+    """The PC (``mode`` "pc") or joint wrapper, its host loop, and their
+    arguments and keywords as ``refine_projection_center`` and
+    ``refine_orientation_projection_center`` pass them at their defaults;
+    ``box`` the trust region's half-widths."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    if mode == "pc":
+        fns = (rn.nelder_mead_projection_center, rn.nelder_mead_projection_center_plain)
+        args = (pc0, exp, sq_norm, rot_q, quad, om, take, *geo, *shape)
+        kw = dict(initial_step=0.01, max_iters=150, fatol=1e-4, xatol=1e-5)
+    else:
+        fns = (rn.nelder_mead_orientation_projection_center, rn.nelder_mead_orientation_projection_center_plain)
+        args = (torch.cat([euler0, pc0], dim=1), exp, sq_norm, quad, om, take, *geo, *shape)
+        kw = dict(initial_step=torch.tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=torch.float32,
+                                            device=pc0.device), max_iters=200, fatol=1e-4, xatol=1e-5)
+    if box is not None:
+        kw.update(lower_bounds=args[0] - box, upper_bounds=args[0] + box)
+    return fns, args, kw
+
+
+def pc_edge_cases(device, mode: str, rows, rot_q, euler0, quad, geo, top1_rot, seed: int, big: int = 48,
+                  big_side: int = 240) -> list[str]:
+    """The PC or joint kernel against its host loop on a navigation chunk of
+    the main path with a trust region, a signal mask and P=1000, on one
+    point, and on a 240 x 240 detector (past the shared-memory budget: the
+    two-pass branch) over 48 points; starts from the PC off by PC_OFFSET."""
+    import torch
+
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 5)
+    c = NAV_CHUNK
+    start_pc = np.asarray(PC) + np.asarray(PC_OFFSET)
+
+    def pc0(n):
+        return torch.as_tensor(np.tile(start_pc, (n, 1)), dtype=torch.float32, device=device)
+
+    det = EBSDDetector(shape=DETECTOR_SHAPE, pc=PC, sample_tilt=70)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    exp, sq = _prepare_experimental(rows[:c], None)
+    keep = torch.nonzero(torch.rand(rows.shape[1], generator=g) > 0.3)[:, 0].to(device)
+    exp_m, sq_m = _prepare_experimental(rows[:c], keep)
+    first = torch.arange(1000, device=device)
+    exp_1k, sq_1k = _prepare_experimental(rows[:c], first)
+    box = torch.tensor(([np.deg2rad(1.0)] * 3 if mode == "joint" else []) + [0.006] * 3, dtype=torch.float32,
+                       device=device)
+    det_big = EBSDDetector(shape=(big_side, big_side), pc=PC, sample_tilt=70)
+    om_big = torch.as_tensor(np.ascontiguousarray(det_big.sample_to_detector.T), dtype=torch.float32, device=device)
+    rot_big = torch.as_tensor(top1_rot[:big], dtype=torch.float32, device=device)
+    rows_big = lp.lambert_project(rot_big, direction_cosines_from_detector(det_big, device=device), quad, *geo)
+    rows_big = rows_big + 0.05 * torch.randn(rows_big.shape, generator=g).to(device)
+    exp_big, sq_big = _prepare_experimental(rows_big, None)
+    axes = torch.randn((big, 3), generator=g, dtype=torch.float64)
+    start_big = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), rot_big.double().cpu())
+    e_big = tq.to_euler(start_big).to(torch.float32).to(device)
+    q, e = rot_q[:c], euler0[:c]
+    cases = [
+        ("trust region", (pc0(c), exp, sq, q, e, quad, om, None, geo, DETECTOR_SHAPE, box)),
+        (f"signal mask (P={keep.numel()})", (pc0(c), exp_m, sq_m, q, e, quad, om, keep, geo, DETECTOR_SHAPE)),
+        ("P=1000", (pc0(c), exp_1k, sq_1k, q, e, quad, om, first, geo, DETECTOR_SHAPE)),
+        ("B=1", (pc0(1), exp[:1], sq[:1], q[:1], e[:1], quad, om, None, geo, DETECTOR_SHAPE)),
+        (f"{big_side} x {big_side} detector (P={big_side * big_side})",
+         (pc0(big), exp_big, sq_big, rot_big, e_big, quad, om_big, None, geo, (big_side, big_side))),
+    ]
+    msgs = []
+    for label, case in cases:
+        (wrapper, plain), args, kw = pc_problem(mode, *case)
+        ref = plain(*args, **kw)
+        got = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        msgs.append(nm_agreement(label, got, ref, mode)[1])
+    return msgs
+
+
+def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
+    """Milliseconds the SMs' instruction slots take for ``per_pixel`` instructions
+    on each of ``pixels`` pixels, one pixel a thread (32 a warp)."""
+    return pixels * per_pixel / 32 / (sms * WARP_INSTR_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
 
 
 def device_busy(prof) -> tuple[float, list]:
@@ -805,6 +929,25 @@ def main(argv=None) -> int:
         ptxas[name] = (f"max {max(regs, default=0)} registers, {len(spilled)}/{len(frames)} kernels with stack or "
                        f"spills{': ' + ' | '.join(spilled) if spilled else ''}")
     log("build", f"{sorted(built)} in {time.perf_counter() - t0:.1f} s; ptxas {ptxas}")
+
+    # Instruction slots: SASS instructions a pixel, recounted where the toolkit
+    # disassembles (sass_count.py), and the card's largest SM clock.
+    sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL, "source": "constants"}
+    try:
+        import sass_count
+
+        counted = sass_count.count()
+        sass = {"project_pixel": counted["project_pixel"], "direction_cosine": counted["direction_cosine"],
+                "source": "recounted in this run"}
+    except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
+        print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
+    if sass["project_pixel"] <= 0 or sass["direction_cosine"] <= 0:
+        raise AssertionError(f"no SASS count a pixel: {sass}")
+    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
+        f"{sass['direction_cosine']} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}); dispatch "
+        f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
     t0 = time.perf_counter()
@@ -978,6 +1121,11 @@ def main(argv=None) -> int:
     l2_nm = evals * d * TAP_BYTES / l2_rate * 1e3
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    static.refine_orientation(xmap=xmap, master_pattern=mp)
+    torch.cuda.synchronize()
+    t_refine2 = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # start the tracer once, untimed
         torch.zeros(1, device=dev).add_(1)
     torch.cuda.synchronize()
@@ -994,7 +1142,8 @@ def main(argv=None) -> int:
                     "kikuchipy_tpu/indexing/refinement.py:199 _objective_orientation",
         "launches": refine_launches["nelder_mead_orientation"], "max_abs_err": nm_err, "ms": ms_nm,
         "plain_ms": t_host * 1e3, "bound_ms": bound_nm, "bound_by": "operations" if t_ops_nm >= t_bytes_nm else "bytes",
-        "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_nm, "split_ms": None,
+        "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_nm,
+        "instruction_bound_ms": instruction_ms(evals * d, sass["project_pixel"], clock_mhz, sms), "split_ms": None,
         "kernel_only_ms": None, "evaluations": evals,
     }
     log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
@@ -1013,7 +1162,9 @@ def main(argv=None) -> int:
         f"bound {bound_nm:.4f} ms by {nm_row['bound_by']} (operations {t_ops_nm:.4f} ms at "
         f"{OPS_PER_PIXEL + NCC_OPS_PER_PIXEL} a pixel, bytes {t_bytes_nm:.4f} ms), {bound_nm / ms_nm:.2%} of it; "
         f"taps {evals * d * TAP_BYTES / 1e9:.2f} GB from L2 {l2_nm:.3f} ms at the measured "
-        f"{l2_rate / 1e12:.3f} TB/s ({l2_nm / ms_nm:.2%}); refine_orientation under torch.profiler: wall "
+        f"{l2_rate / 1e12:.3f} TB/s ({l2_nm / ms_nm:.2%}); instruction slots {nm_row['instruction_bound_ms']:.3f} ms at "
+        f"{sass['project_pixel']} instructions a pixel ({nm_row['instruction_bound_ms'] / ms_nm:.2%}); refine_orientation "
+        f"untraced {t_refine2 * 1e3:.3f} ms = {n_scan / t_refine2:.1f} patterns/s; under torch.profiler: wall "
         f"{traced_wall:.3f} ms, device busy {busy:.3f} ms = {busy / traced_wall:.1%} over {len(events)} kernel "
         f"names; {top}")
 
@@ -1034,8 +1185,6 @@ def main(argv=None) -> int:
         f"deg; on the first chunk mean 1 - NCC {at_refined:.5f} at the refined orientations against "
         f"{at_truth:.5f} at the truth: the optimum of these patterns is not the truth")
 
-    chunk_sig = kt.EBSD(static.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
-    chunk_xmap = CrystalMap(rotations=top1_rot[:NAV_CHUNK], shape=(NAV_CHUNK,), phases=xmap.phases)
     exp_c, sq_c = _prepare_experimental(static_rows[:NAV_CHUNK], None)
     ms_b = cuda_ms(lambda: lp.lambert_project_ncc(rot_nav, dc, quad, *geo, exp_c, sq_c), 20)
     dc_each = torch.broadcast_to(dc, (NAV_CHUNK,) + tuple(dc.shape)).contiguous()
@@ -1048,43 +1197,142 @@ def main(argv=None) -> int:
     bound_b_each = max((bytes_b + 4 * dc_each.numel()) / PEAK_BYTES,
                        pix_b * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) / PEAK_F32_FLOPS) * 1e3
     del dc_each
-    log("ncc-times", f"{smi}: kernel B (PC and joint modes, one launch an evaluation) at B={NAV_CHUNK}, P={d}: "
+    log("ncc-times", f"{smi}: kernel B (the host loops' objective, one launch an evaluation) at B={NAV_CHUNK}, P={d}: "
         f"{ms_b * 1e3:.1f} us a launch, bound {bound_b * 1e3:.1f} us ({bound_b / ms_b:.1%}); with one set of "
         f"direction cosines a point {ms_b_each * 1e3:.1f} us, bound {bound_b_each * 1e3:.1f} us")
 
-    # PC and joint refinement on one chunk of the static-corrected scan, from
-    # a PC off by PC_OFFSET; PC mode on the main path's patterns too,
-    # unchecked (the dynamic removal moves the optimum in PC z as well).
+    # ---- PC and joint refinement of the whole map, each one launch ----
+    # From the PC off by PC_OFFSET on the static-corrected scan: PC mode from
+    # the refined orientations, joint mode from the DI top-1, both at their
+    # defaults; each must be one launch of its Nelder-Mead kernel and none of
+    # kernel B.
     bad_det = dataclasses.replace(det, pc=np.asarray(PC) + np.asarray(PC_OFFSET))
-    refined_chunk = CrystalMap(rotations=refined.xmap.best_rotations[:NAV_CHUNK], shape=(NAV_CHUNK,),
-                               phases=xmap.phases)
-    pre_chunk = kt.EBSD(pre.data.reshape(n_scan, *DETECTOR_SHAPE)[:NAV_CHUNK], detector=det, device=dev)
-    pc_msgs = []
-    for name, sig, start_xmap, checked in (
-        ("refine_projection_center", chunk_sig, refined_chunk, True),
-        ("refine_orientation_projection_center", chunk_sig, chunk_xmap, True),
-        ("refine_projection_center", pre_chunk, refined_chunk, False),
-    ):
+    pc_wrapper = {"pc": "nelder_mead_projection_center", "joint": "nelder_mead_orientation_projection_center"}
+    pc_call = {"pc": "refine_projection_center", "joint": "refine_orientation_projection_center"}
+    pc_start = {"pc": refined.xmap, "joint": xmap}
+    pc_res, pc_t, pc_launches, pc_msgs = {}, {}, {}, []
+    for mode in ("pc", "joint"):
         reset_launches()
-        t0 = time.perf_counter()
-        res = getattr(sig, name)(xmap=start_xmap, detector=bad_det, master_pattern=mp)
         torch.cuda.synchronize()
-        t_pc = time.perf_counter() - t0
-        n_b = read_launches()["lambert_project_ncc"]
-        refine_launches["lambert_project_ncc"] += n_b
-        mean_pc = res.detector.pc.reshape(-1, 3).mean(axis=0)
+        t0 = time.perf_counter()
+        res = getattr(static, pc_call[mode])(xmap=pc_start[mode], detector=bad_det, master_pattern=mp)
+        torch.cuda.synchronize()
+        pc_t[mode] = time.perf_counter() - t0
+        counts = read_launches()
+        pc_launches[mode] = counts[pc_wrapper[mode]]
+        if counts[pc_wrapper[mode]] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"{pc_call[mode]} was not one launch of its Nelder-Mead kernel alone: {counts}")
+        pcs = res.detector.pc.reshape(-1, 3)
+        mean_pc = pcs.mean(axis=0)
         off = np.abs(mean_pc - np.asarray(PC))
-        if n_b < 1 or (checked and not (off < PC_TOL).all()):
-            raise AssertionError(f"{name}: mean PC {mean_pc.tolist()} is {off.tolist()} from {PC} "
-                                 f"(limit {PC_TOL}); kernel launches {n_b}")
-        ang = np.degrees(disorientation_angle(truth[:NAV_CHUNK], res.xmap.best_rotations, "m-3m"))
-        pc_msgs.append(f"{name} on the {'static-corrected scan' if checked else 'main path patterns, unchecked'}: "
-                       f"{t_pc:.3f} s = {NAV_CHUNK / t_pc:.1f} patterns/s, launches {n_b}, iterations mean "
-                       f"{res.xmap.prop['num_evals'].mean():.1f}, mean PC {np.round(mean_pc, 5).tolist()} (off "
-                       f"{np.round(off, 6).tolist()}{f', limit {PC_TOL}' if checked else ''}), PC std "
-                       f"{np.round(res.detector.pc.reshape(-1, 3).std(axis=0), 5).tolist()}, disorientation median "
-                       f"{np.median(ang):.4f} deg, max {ang.max():.3f}")
-    log("refine-pc", f"{smi}: {NAV_CHUNK} points from PC {PC} + {PC_OFFSET}: " + "; ".join(pc_msgs))
+        if pcs.shape != (n_scan, 3) or not np.isfinite(res.xmap.prop["scores"]).all() or not (off < PC_TOL).all():
+            raise AssertionError(f"{pc_call[mode]}: mean PC {mean_pc.tolist()} is {off.tolist()} from {PC} "
+                                 f"(limit {PC_TOL}), PC shape {pcs.shape}")
+        ang = np.degrees(disorientation_angle(truth, res.xmap.best_rotations, "m-3m"))
+        pc_res[mode] = res
+        pc_msgs.append(
+            f"{pc_call[mode]} on the {n_scan} static-corrected patterns from PC {PC} + {PC_OFFSET}: first call "
+            f"{pc_t[mode]:.3f} s = {n_scan / pc_t[mode]:.1f} patterns/s, launches {counts[pc_wrapper[mode]]} "
+            f"({pc_wrapper[mode]}; kernel B {counts['lambert_project_ncc']}), iterations mean "
+            f"{res.xmap.prop['num_evals'].mean():.1f} max {int(res.xmap.prop['num_evals'].max())}, mean PC "
+            f"{np.round(mean_pc, 6).tolist()} (off {np.round(off, 6).tolist()}, limit {PC_TOL}), PC std "
+            f"{np.round(pcs.std(axis=0), 6).tolist()}, disorientation to truth median {np.median(ang):.4f} deg, "
+            f"max {ang.max():.3f} deg" + (f" (orientation mode: median {np.median(ang1):.4f}, max {ang1.max():.3f})"
+                                          if mode == "joint" else ""))
+    # PC mode on the main path's own patterns (dynamic background removed
+    # too), unchecked: the dynamic removal moves the optimum in PC z as well.
+    res_dyn = pre.refine_projection_center(xmap=refined.xmap, detector=bad_det, master_pattern=mp)
+    pc_msgs.append(f"refine_projection_center on the main path's patterns (unchecked): mean PC "
+                   f"{np.round(res_dyn.detector.pc.reshape(-1, 3).mean(axis=0), 6).tolist()}")
+    log("refine-pc", f"{smi}: " + "; ".join(pc_msgs))
+
+    # Each kernel against its host loop on kernel B (nelder_mead_batched over
+    # pc_objective / joint_objective, the (n, P, 3) direction cosines built in
+    # PyTorch an evaluation) on one navigation chunk of the same inputs, then
+    # on the edge cases.
+    rot_refined = torch.as_tensor(refined.xmap.best_rotations, dtype=torch.float32, device=dev)
+    pc0_all = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (n_scan, 1)), dtype=torch.float32,
+                              device=dev)
+    c = NAV_CHUNK
+    pc_host_ms, pc_chunk_ms, pc_err, pc_rows = {}, {}, {}, {}
+    vs_msgs = []
+    for mode in ("pc", "joint"):
+        rot_q = rot_refined if mode == "pc" else None
+        (wrapper, plain), pargs, kw = pc_problem(mode, pc0_all[:c], exp_s[:c], sq_s[:c],
+                                                None if rot_q is None else rot_q[:c], euler_top1[:c], quad, om, None,
+                                                geo, DETECTOR_SHAPE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_pc = plain(*pargs, **kw)
+        torch.cuda.synchronize()
+        pc_host_ms[mode] = (time.perf_counter() - t0) * 1e3
+        kern_pc = wrapper(*pargs, **kw)
+        torch.cuda.synchronize()
+        pc_chunk_ms[mode] = cuda_ms(lambda: wrapper(*pargs, **kw), 2)
+        pc_err[mode], msg = nm_agreement(f"{mode} mode, the first chunk", kern_pc, host_pc, mode)
+        x_call = torch.as_tensor(pc_res[mode].detector.pc.reshape(-1, 3)[:c], dtype=torch.float32, device=dev)
+        same_as_call = float((x_call - kern_pc.x[:, NM_COLUMNS[mode][1]]).abs().max())
+        edge = pc_edge_cases(dev, mode, static_rows, rot_refined, euler_top1, quad, geo, top1_rot, args.seed)
+        vs_msgs.append(f"{mode} mode: {msg}; host loop {pc_host_ms[mode]:.1f} ms against the kernel's "
+                       f"{pc_chunk_ms[mode]:.3f} ms on the chunk; the map's call within {same_as_call:.2e} in PC "
+                       f"of the chunk's; edge cases: " + "; ".join(edge))
+    log("refine-pc-vs-host", "; ".join(vs_msgs))
+
+    # Times on the whole map: each kernel (CUDA events), its evaluations and
+    # bounds, and its refine_* call untraced and under torch.profiler.
+    pc_times = []
+    for mode in ("pc", "joint"):
+        (wrapper, _), pargs, kw = pc_problem(mode, pc0_all, exp_s, sq_s, rot_refined if mode == "pc" else None,
+                                            euler_top1, quad, om, None, geo, DETECTOR_SHAPE)
+        whole = wrapper(*pargs, **kw)
+        torch.cuda.synchronize()
+        ms_k = cuda_ms(lambda: wrapper(*pargs, **kw), 2)
+        evals_k = int(whole.n_evals.sum())
+        dims = pargs[0].shape[1]
+        pixels = evals_k * d
+        t_ops = pixels * (OPS_PER_PIXEL + NCC_OPS_PER_PIXEL + DC_OPS_PER_PIXEL) / PEAK_F32_FLOPS * 1e3
+        # each input read once (rows, norms, starts, steps, rotations, pixel
+        # table, quad texture) and each output written once
+        in_bytes = 4 * (exp_s.numel() + n_scan * (1 + 2 * dims + (4 if mode == "pc" else 0)) + 2 * d + quad.numel())
+        t_bytes = (in_bytes + n_scan * (4 * dims + 4 + 4 + 4 + 1)) / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
+        t_instr = instruction_ms(pixels, sass["project_pixel"] + sass["direction_cosine"], clock_mhz, sms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(static, pc_call[mode])(xmap=pc_start[mode], detector=bad_det, master_pattern=mp)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            getattr(static, pc_call[mode])(xmap=pc_start[mode], detector=bad_det, master_pattern=mp)
+            torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+        busy_k, events_k = device_busy(prof)
+        top_k = "; ".join(f"{k[:50]} x{cnt} {t:.3f} ms" for k, cnt, t in events_k[:5])
+        pc_rows[mode] = {
+            "name": pc_wrapper[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_nm.cu",
+            "replaces": "kikuchipy_tpu/utils/optimize.py:60 nelder_mead_batched + kikuchipy_tpu/indexing/"
+                        + ("refinement.py:422 _objective_pc" if mode == "pc" else "refinement.py:442 _objective_joint"),
+            "launches": pc_launches[mode], "max_abs_err": pc_err[mode], "ms": ms_k,
+            "plain_ms": pc_host_ms[mode], "plain_points": c, "chunk_ms": pc_chunk_ms[mode], "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "library_same_function_ms": None, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr, "split_ms": None,
+            "kernel_only_ms": None, "evaluations": evals_k,
+        }
+        pc_times.append(
+            f"{mode} mode: kernel {ms_k:.3f} ms = {n_scan / ms_k * 1e3:.1f} patterns/s ({evals_k} evaluations, "
+            f"{evals_k / n_scan:.1f} a point); bound {bound:.4f} ms by {pc_rows[mode]['bound_by']} (operations "
+            f"{t_ops:.4f} ms at {OPS_PER_PIXEL + NCC_OPS_PER_PIXEL + DC_OPS_PER_PIXEL} a pixel, bytes {t_bytes:.4f} "
+            f"ms), {bound / ms_k:.2%} of it; instruction slots {t_instr:.3f} ms at "
+            f"{sass['project_pixel'] + sass['direction_cosine']} instructions a pixel ({t_instr / ms_k:.2%}); taps "
+            f"{pixels * TAP_BYTES / 1e9:.2f} GB from L2 {l2_ms:.3f} ms ({l2_ms / ms_k:.2%}); {pc_call[mode]} "
+            f"untraced {t_call * 1e3:.3f} ms = {n_scan / t_call:.1f} patterns/s; under torch.profiler wall "
+            f"{traced:.3f} ms, device busy {busy_k:.3f} ms = {busy_k / traced:.1%}; {top_k}; the host loop on "
+            f"kernel B {pc_host_ms[mode]:.1f} ms for {c} points ({c / pc_host_ms[mode] * 1e3:.1f} patterns/s)")
+    ms_nm_again = cuda_ms(lambda: rn.nelder_mead_orientation(*nm_args, **nm_kw), 2)
+    log("refine-pc-times", f"{smi}: the whole map, P={d}: " + "; ".join(pc_times)
+        + f"; orientation mode in the same run {ms_nm_again:.3f} ms")
 
     # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
     metric = get_metric("ncc")
@@ -1266,6 +1514,8 @@ def main(argv=None) -> int:
     t_bytes_a = (4 * (pix_a + 4 * m + dc.numel()) + 4 * quad.numel()) / PEAK_BYTES * 1e3
     t_ops_a = pix_a * OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
     none_keys = dict(library_ms=None, library_same_function_ms=None, split_ms=None, kernel_only_ms=None)
+    # Kernel B: since the PC and joint modes run on the Nelder-Mead kernel,
+    # no entry point of the port launches it; it is the host loops' engine.
     for name, line, launches, err, ms, plain_ms, bound, by, taps in (
         ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"], a_err, ms_a,
          ms_a_plain, max(t_bytes_a, t_ops_a), "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a),
@@ -1273,19 +1523,31 @@ def main(argv=None) -> int:
          ms_b_plain, bound_b, "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b),
     ):
         l2_ms = taps * TAP_BYTES / l2_rate * 1e3
+        t_instr = instruction_ms(taps, sass["project_pixel"], clock_mhz, sms)
         table.append({
             "name": name, "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/lambert_project.cu",
             "replaces": f"kikuchipy_tpu/{line}", "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, **none_keys,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr,
+            **none_keys, **({"note": "the host loops' objective; no entry point of the port launches it"}
+                            if name == "lambert_project_ncc" else {}),
         })
-        time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; its "
+        time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; instruction slots "
+                         f"{t_instr:.4f} ms at {sass['project_pixel']} instructions a pixel ({t_instr / ms:.2%}); its "
                          f"{taps * TAP_BYTES / 1e9:.3f} GB of taps from L2 {l2_ms:.4f} ms; plain {plain_ms:.3f} ms"
                          f"{' in slabs of 16384 rows' if name == 'lambert_project' else ''}; no single PyTorch "
                          f"call computes it)")
     table.append(nm_row)
     time_msgs.append(f"nelder_mead_orientation {ms_nm:.3f} ms (bound {bound_nm:.4f} ms by {nm_row['bound_by']}, "
-                     f"{bound_nm / ms_nm:.2%} of it; taps from L2 {l2_nm:.3f} ms; the host loop on kernel B "
-                     f"{t_host * 1e3:.1f} ms; no single PyTorch call computes it)")
+                     f"{bound_nm / ms_nm:.2%} of it; instruction slots {nm_row['instruction_bound_ms']:.3f} ms "
+                     f"({nm_row['instruction_bound_ms'] / ms_nm:.2%}); taps from L2 {l2_nm:.3f} ms; the host loop on kernel "
+                     f"B {t_host * 1e3:.1f} ms; no single PyTorch call computes it)")
+    for mode, row in pc_rows.items():
+        table.append(row)
+        time_msgs.append(f"{row['name']} {row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                         f"{row['bound_ms'] / row['ms']:.2%} of it; instruction slots {row['instruction_bound_ms']:.3f} ms "
+                         f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.3f} ms; the "
+                         f"host loop on kernel B {row['plain_ms']:.1f} ms for {row['plain_points']} points against "
+                         f"{row['chunk_ms']:.3f} ms of kernel; no single PyTorch call computes it)")
     time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
                      f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16

@@ -1,7 +1,8 @@
 // The projection of one detector pixel from the master pattern, shared by
 // the kernels of csrc/lambert_project.cu (A: projection, B: projection-NCC)
 // and csrc/refine_nm.cu (Nelder-Mead over the projection-NCC), so that all
-// three round every pixel alike.
+// three round every pixel alike; and project_pixel_pc, the same projection
+// after the pixel's direction cosine from a candidate projection center.
 //
 // project_pixel: rotate the direction (geometry/quaternion.py
 // rotate_vector), map it to square Lambert with the branches of
@@ -124,6 +125,60 @@ __device__ __forceinline__ float project_pixel(const Rot& r, float x, float y, f
     const float v02 = __fadd_rn(__fmul_rn(t.x, __fmul_rn(dim, djm)), __fmul_rn(t.z, __fmul_rn(dim, dj)));
     const float v13 = __fadd_rn(__fmul_rn(t.y, __fmul_rn(di, djm)), __fmul_rn(t.w, __fmul_rn(di, dj)));
     return __fadd_rn(v02, v13);
+}
+
+// The direction cosines from a candidate projection center, in the PC and
+// joint modes of csrc/refine_nm.cu: the JAX package's
+// indexing/refinement.py _dc_for_pc over projection/master_pattern.py
+// direction_cosines, one pixel at a time, so that no (n, P, 3) array exists.
+// The plain version is ops/refine_nm.py pc_direction_cosines, which states
+// every operation's order; this rounds each the same way (a float32 product
+// with the rounded reciprocal of ncols or nrows where PyTorch divides by a
+// Python int, products and sums rounded apart, the IEEE square root and
+// divides).
+struct DetectorFrame {
+    float om[3][3];               // detector to sample, r_k = (x om[k][0] + y om[k][1]) + z om[k][2]
+    float aspect, neg_aspect;     // float32 ncols / nrows and its negative
+    float inv_ncols, inv_nrows;   // float32 1 / ncols and 1 / nrows
+};
+
+// The uniform part, once an evaluation: gnomonic bounds and pixel pitch.
+struct PcFrame {
+    float gb0, gb3, x_scale, y_scale, half_x, half_y, pcz;
+};
+
+__device__ __forceinline__ PcFrame pc_frame(const float* pc, const DetectorFrame& d) {
+    const float pcx = pc[0], pcy = pc[1], pcz = pc[2];
+    const float gb0 = __fdiv_rn(__fmul_rn(pcx, d.neg_aspect), pcz);
+    const float gb1 = __fdiv_rn(__fmul_rn(__fsub_rn(1.f, pcx), d.aspect), pcz);
+    const float gb2 = __fdiv_rn(-__fsub_rn(1.f, pcy), pcz);
+    const float gb3 = __fdiv_rn(pcy, pcz);
+    PcFrame f;
+    f.gb0 = gb0;
+    f.gb3 = gb3;
+    f.x_scale = __fmul_rn(__fsub_rn(gb1, gb0), d.inv_ncols);
+    f.y_scale = __fmul_rn(__fsub_rn(gb3, gb2), d.inv_nrows);
+    f.half_x = __fmul_rn(f.x_scale, 0.5f);
+    f.half_y = __fmul_rn(f.y_scale, 0.5f);
+    f.pcz = pcz;
+    return f;
+}
+
+// The pixel at (col, row) of the detector, its direction cosine from the
+// frame, then project_pixel: 28 rounded products and sums, a square root
+// and three divides before the projection.
+__device__ __forceinline__ float project_pixel_pc(const Rot& r, const PcFrame& f, const DetectorFrame& d, float col,
+                                                  float row, const Geometry& g, int& tap) {
+    const float x = __fmul_rn(__fadd_rn(__fadd_rn(f.gb0, __fmul_rn(col, f.x_scale)), f.half_x), f.pcz);
+    const float y = __fmul_rn(__fsub_rn(__fsub_rn(f.gb3, __fmul_rn(row, f.y_scale)), f.half_y), f.pcz);
+    const float z = f.pcz;
+    float v[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+        v[k] = __fadd_rn(__fadd_rn(__fmul_rn(x, d.om[k][0]), __fmul_rn(y, d.om[k][1])), __fmul_rn(z, d.om[k][2]));
+    const float norm =
+        __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])), __fmul_rn(v[2], v[2])));
+    return project_pixel(r, __fdiv_rn(v[0], norm), __fdiv_rn(v[1], norm), __fdiv_rn(v[2], norm), g, tap);
 }
 
 // Block-wide sum, min or max of one value per thread; every thread gets it:

@@ -1,24 +1,29 @@
-// Nelder-Mead orientation refinement on the card (Hopper, sm_90a): one
-// launch runs every map point's simplex to convergence.
+// Nelder-Mead refinement on the card (Hopper, sm_90a): one launch runs every
+// map point's simplex to convergence, in any of the three refinement modes.
 //
 // Replaces XLA code of the JAX package, not a TPU kernel: the
 // jax.lax.while_loop of kikuchipy_tpu/utils/optimize.py nelder_mead_batched
-// over the objective kikuchipy_tpu/indexing/refinement.py
-// _objective_orientation (Euler angles -> from_euler -> _project_at ->
-// 1 - _ncc_centered), as refine_orientation calls it. The port's host loop
-// (its own utils/optimize.py nelder_mead_batched over lambert_project_ncc,
-// kernel B) is the plain version; ops/refine_nm.py holds the wrapper.
+// over one of the objectives of kikuchipy_tpu/indexing/refinement.py, as the
+// three refine_* functions call it:
+//   orientation  _objective_orientation: Euler angles -> from_euler ->
+//                _project_at with fixed direction cosines -> 1 - _ncc_centered;
+//   PC           _objective_pc: the point's fixed rotation, the direction
+//                cosines from the candidate PC (_masked_dc_for_pc), 1 - NCC;
+//   joint        _objective_joint: Euler angles then PC, six parameters.
+// The port's host loop (its own utils/optimize.py nelder_mead_batched over
+// kernel B, lambert_project_ncc, with the direction cosines built in PyTorch
+// in the PC modes) is the plain version; ops/refine_nm.py holds the wrappers.
 //
 // What it computes, for each point on its own (the batched loop computes
 // the same: a converged element is frozen, and each element counts its own
 // iterations):
 //   the initial simplex x0, x0 + step_i e_i, clipped to the point's box;
-//   per iteration a stable sort of the four values, the centroid of the best
-//   three, the reflection (alpha 1), then the expansion (gamma 2) or the
-//   outside or inside contraction (rho 0.5), the batched loop's accept
-//   rules, or a shrink (sigma 0.5) towards the best vertex with three more
-//   evaluations; every candidate clipped to the box; convergence on
-//   max|f - f_best| <= fatol and max|x - x_best| <= xatol, or max_iters.
+//   per iteration a stable sort of the d + 1 values, the centroid of the best
+//   d, the reflection (alpha 1), then the expansion (gamma 2) or the outside
+//   or inside contraction (rho 0.5), the batched loop's accept rules, or a
+//   shrink (sigma 0.5) towards the best vertex with d more evaluations; every
+//   candidate clipped to the box; convergence on max|f - f_best| <= fatol and
+//   max|x - x_best| <= xatol, or max_iters.
 // The batched loop evaluates the second candidate even where the reflection
 // is accepted, and drops it; this kernel skips that evaluation, so its
 // evaluation count (n_evals) is the loop's less one for each such
@@ -26,23 +31,27 @@
 //
 // Rounding. Every operation of the loop is the host loop's on the card, in
 // its order: from_euler with cosf and sinf (PyTorch's elementwise cos and
-// sin call them; no fast math), the centroid as torch.mean over the
-// vertex axis computes it ((v0 + v1) + v2, times the float32 1/3), each
-// candidate as a separately rounded product and sum (__fmul_rn, __fadd_rn:
-// nvcc would contract them), the sort's NaN-last order and argmin's
-// first-NaN-or-first-minimum. One evaluation is kernel B's arithmetic on the
-// same pixels in the same order: 256 threads, each a strided set of pixels,
-// its per-thread sums, the same butterfly-then-warps reduction
-// (lambert_common.cuh), 1 - num / sqrt(sq_norm * ss) with num and ss summed
-// over the pixels centred on the mean, never sum(sim^2) - P mean^2. So the
-// kernel's path and the host loop's are the same bit for bit, given
-// identical cosf/sinf.
+// sin call them; no fast math); the centroid as torch.mean over the vertex
+// axis adds it on the card (one thread a centroid coordinate, four
+// accumulators: three vertices (v0 + v1) + v2, six ((v0 + v4) + (v1 + v5)) +
+// v2) + v3), times the float32 1/d; each candidate as a separately rounded
+// product and sum (__fmul_rn, __fadd_rn: nvcc would contract them); the
+// sort's NaN-last stable order and argmin's first-NaN-or-first-minimum. In
+// the PC modes each pixel's direction cosine is project_pixel_pc of
+// lambert_common.cuh, rounded as the plain version's stated order. One
+// evaluation is kernel B's arithmetic on the same pixels in the same order:
+// 256 threads, each a strided set of pixels, its per-thread sums, the same
+// butterfly-then-warps reduction (lambert_common.cuh), 1 - num / sqrt(sq_norm
+// * ss) with num and ss summed over the pixels centred on the mean, never
+// sum(sim^2) - P mean^2. So the kernel's path and the host loop's are the
+// same bit for bit, given identical cosf/sinf.
 //
-// Bound on an H100 SXM at the main-path shapes (16,384 points, P = 3600,
-// about 75 evaluations a point): about 81 float32 operations a pixel and
-// evaluation (chip_smoke.py OPS_PER_PIXEL + NCC_OPS_PER_PIXEL) at 67 TFLOP/s,
-// a few milliseconds; the float4 taps, 16 bytes a pixel and evaluation, from
-// L2 at its measured read rate, about twice that; the experimental rows,
+// Bound on an H100 SXM at the main-path shapes (16,384 points, P = 3600):
+// chip_smoke.py's float32 operations a pixel and evaluation (projection and
+// NCC; in the PC modes the direction cosine's too) at 67 TFLOP/s; the
+// instruction slots of the same pixels (sass_count.py counts the SASS of
+// project_pixel and project_pixel_pc); the float4 taps, 16 bytes a pixel
+// and evaluation, from L2 at its measured read rate; the experimental rows,
 // read once, 236 MB or 0.07 ms of device memory.
 //
 // Design: the four things that held the host loop back.
@@ -66,12 +75,20 @@
 //   ops/refine_nm.py; a 240 x 240 detector is 460 KB) the same kernel takes
 //   its other instantiation (kResident = false): the row stays in device
 //   memory and every pixel is projected twice, as kernel B does.
-//   The simplex. Every thread of the block keeps its own copy of the
-//   simplex in registers and runs the same loop on the same values: the
-//   reductions hand every thread the same sums, so every thread computes
-//   the same objective value bit for bit, and every branch is uniform
-//   across the block with no broadcast and no barrier. Thread 0 writes the
-//   results.
+//   No direction cosines in memory (PC modes). Each evaluation computes the
+//   candidate PC's gnomonic frame once, and each thread its pixels' direction
+//   cosines from their (column, row) (a (P, 2) table the wrapper builds from
+//   the signal mask): the host loop's (n, P, 3) array, 88 MB for a
+//   2,048-point chunk, is never written.
+//   The simplex. Every thread of the block runs the same loop on the same
+//   values: the reductions hand every thread the same sums, so every thread
+//   computes the same objective value bit for bit, and every branch is
+//   uniform across the block. One copy of the simplex (the joint mode's is
+//   7 x 6 values and 7 scores) lives in shared memory, where every read is
+//   a broadcast; thread 0 changes it between two barriers. In every
+//   thread's registers it spilled (the joint mode's 650-700 bytes a
+//   thread) and was slower in joint mode and no faster in the others.
+//   Thread 0 writes the results.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,31 +97,36 @@
 #include "lambert_common.cuh"
 
 // Blocks an SM the compiler must leave registers for: 4 caps a thread at 64
-// registers (some of the simplex's state spills to L1-cached local memory).
-// Left to itself ptxas takes 120-137 registers, one or two blocks an SM, and
-// the kernel runs slower by a quarter to a half (refine_variants.py rebuilds
-// it with other values; PERF.md has the times).
+// registers. Left to itself ptxas takes 120-137 registers, one or two
+// blocks an SM, and the kernel runs slower by a quarter to a half in every
+// mode (refine_variants.py rebuilds it with other values; PERF.md has the
+// times).
 #ifndef REFINE_NM_MIN_BLOCKS
 #define REFINE_NM_MIN_BLOCKS 4
 #endif
 
 namespace {
 
-constexpr int kDim = 3;             // Bunge Euler angles
-constexpr int kVerts = kDim + 1;
+enum Mode : int { kOrientation = 0, kPC = 1, kJoint = 2 };
+
+template <int kMode>
+__host__ __device__ constexpr int dims() { return kMode == kJoint ? 6 : 3; }
 
 struct Problem {
-    const float* euler0;    // (n, 3) starting points
-    const float* step;      // (n, 3) initial simplex edges
-    const float* lower;     // (n, 3) box, or null
-    const float* upper;     // (n, 3) box, or null
+    const float* x0;        // (n, d) starting points
+    const float* step;      // (n, d) initial simplex edges
+    const float* lower;     // (n, d) box, or null
+    const float* upper;     // (n, d) box, or null
     const float* exp;       // (n, P) centred experimental rows
     const float* sq_norm;   // (n,) their squared norms
-    const float* dc;        // (P, 3), or (n, P, 3) with per_point_dc
+    const float* dc;        // orientation: (P, 3), or (n, P, 3) with per_point_dc
+    const float* q0;        // PC mode: (n, 4) the points' fixed rotations
+    const float2* pix;      // PC and joint modes: (P,) each pixel's (column, row)
+    DetectorFrame det;      // PC and joint modes
     Geometry g;
     float fatol, xatol;
     int n, P, per_point_dc, max_iters;
-    float* x;               // (n, 3) best point
+    float* x;               // (n, d) best point
     float* fun;             // (n,) its value
     int* n_iter;            // (n,) iterations taken
     unsigned char* converged;  // (n,) bool
@@ -152,24 +174,41 @@ __device__ __forceinline__ void block_sum2(float& a, float& b, float (*scratch)[
 }
 
 struct Point {
-    const float* dc;     // this point's direction cosines (P, 3)
+    const float* dc;     // orientation: this point's direction cosines (P, 3)
     const float* row;    // its experimental row in device memory
     const float* s_row;  // ... and in shared memory (kResident)
     float* s_sim;        // its simulated pattern in shared memory (kResident)
     float sq_norm;
+    float q0[4];         // PC mode: its fixed rotation
 };
 
-// 1 - NCC at Euler angles xe: kernel B's arithmetic.
-template <bool kResident>
-__device__ __forceinline__ float evaluate(const float* xe, const Point& pt, const Geometry& g, int P,
+// 1 - NCC at x: kernel B's arithmetic on this mode's rotation and pixels.
+template <int kMode, bool kResident>
+__device__ __forceinline__ float evaluate(const float* x, const Point& pt, const Problem& pb,
                                           float (*scratch)[kWarps]) {
     float q[4];
-    quat_from_euler(xe, q);
+    if constexpr (kMode == kPC) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[i] = pt.q0[i];
+    } else {
+        quat_from_euler(x, q);
+    }
     const Rot r = make_rot(q);
-    int tap;
+    PcFrame fr{};
+    if constexpr (kMode != kOrientation) fr = pc_frame(x + (kMode == kJoint ? 3 : 0), pb.det);
+    const int P = pb.P;
+    auto pixel = [&](int p) {
+        int tap;
+        if constexpr (kMode == kOrientation) {
+            return project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], pb.g, tap);
+        } else {
+            const float2 cr = __ldg(pb.pix + p);
+            return project_pixel_pc(r, fr, pb.det, cr.x, cr.y, pb.g, tap);
+        }
+    };
     float s = 0.f;
     for (int p = threadIdx.x; p < P; p += kThreads) {
-        const float v = project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], g, tap);
+        const float v = pixel(p);
         if (kResident) pt.s_sim[p] = v;
         s += v;
     }
@@ -179,8 +218,7 @@ __device__ __forceinline__ float evaluate(const float* xe, const Point& pt, cons
     const float mean = __fmul_rn(block_reduce(s, Sum(), scratch[0]), 1.f / (float)P);
     float num = 0.f, ss = 0.f;
     for (int p = threadIdx.x; p < P; p += kThreads) {
-        const float v = kResident ? pt.s_sim[p]
-                                  : project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], g, tap);
+        const float v = kResident ? pt.s_sim[p] : pixel(p);
         const float d = __fsub_rn(v, mean);
         num = fmaf(kResident ? pt.s_row[p] : pt.row[p], d, num);
         ss = fmaf(d, d, ss);
@@ -210,83 +248,99 @@ __device__ __forceinline__ void load_row_async(float* s_row, const float* row, i
 // a sorts strictly before b: ascending, NaN last (torch.sort's order).
 __device__ __forceinline__ bool before(float a, float b) { return a < b || (isnan(b) && !isnan(a)); }
 
+// One simplex a block in shared memory (kVerts x (kDim + 1) floats: each
+// vertex's coordinates, then its value). Every thread reads it (broadcasts);
+// thread 0 changes it, between barriers, so no thread reads a half-made
+// change or writes over another's read. Called in block-uniform code only.
+template <int kDim>
 struct Simplex {
-    float v[kVerts][kDim];
-    float f[kVerts];
+    static constexpr int kVerts = kDim + 1;
+    static constexpr int kStride = kDim + 1;
+    float* s;
 
-    // Adjacent exchange on strict order: stable.
-    __device__ __forceinline__ void exchange(int i) {
-        if (before(f[i + 1], f[i])) {
-            const float t = f[i];
-            f[i] = f[i + 1];
-            f[i + 1] = t;
-#pragma unroll
-            for (int j = 0; j < kDim; ++j) {
-                const float u = v[i][j];
-                v[i][j] = v[i + 1][j];
-                v[i + 1][j] = u;
+    __device__ explicit Simplex(float* storage) : s(storage) {}
+    __device__ __forceinline__ float v(int i, int j) const { return s[i * kStride + j]; }
+    __device__ __forceinline__ float f(int i) const { return s[i * kStride + kDim]; }
+
+    // torch.argsort(stable=True): a bubble network of adjacent exchanges on
+    // strict order (stable), vertex and value together.
+    __device__ __forceinline__ void sort() {
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            for (int pass = kVerts - 1; pass > 0; --pass) {
+                for (int i = 0; i < pass; ++i) {
+                    float* a = s + i * kStride;
+                    float* b = a + kStride;
+                    if (before(b[kDim], a[kDim])) {
+                        for (int j = 0; j <= kDim; ++j) {
+                            const float t = a[j];
+                            a[j] = b[j];
+                            b[j] = t;
+                        }
+                    }
+                }
             }
         }
+        __syncthreads();
     }
-
-    // torch.argsort(stable=True) of four values: a bubble network.
-    __device__ __forceinline__ void sort() {
-        exchange(0);
-        exchange(1);
-        exchange(2);
-        exchange(0);
-        exchange(1);
-        exchange(0);
-    }
-
     // torch.argmin: the first NaN if any, else the first minimum.
     __device__ __forceinline__ int best() const {
         int b = 0;
-#pragma unroll
-        for (int i = 1; i < kVerts; ++i) {
-            const bool nan_b = isnan(f[b]);
-            if (!nan_b && (isnan(f[i]) || f[i] < f[b])) b = i;
-        }
+        for (int i = 1; i < kVerts; ++i)
+            if (!isnan(f(b)) && (isnan(f(i)) || f(i) < f(b))) b = i;
         return b;
     }
-
-    // Vertex i's coordinates and value, i known only at run time: selects,
-    // so the arrays stay in registers.
     __device__ __forceinline__ void put(int i, const float* x, float fx) {
+        __syncthreads();
+        if (threadIdx.x == 0) {
 #pragma unroll
-        for (int k = 0; k < kVerts; ++k) {
-            if (k == i) {
-                f[k] = fx;
-#pragma unroll
-                for (int j = 0; j < kDim; ++j) v[k][j] = x[j];
-            }
+            for (int j = 0; j < kDim; ++j) s[i * kStride + j] = x[j];
+            s[i * kStride + kDim] = fx;
         }
+        __syncthreads();
     }
     __device__ __forceinline__ void get(int i, float* x) const {
 #pragma unroll
-        for (int k = 0; k < kVerts; ++k) {
-            if (k == i) {
-#pragma unroll
-                for (int j = 0; j < kDim; ++j) x[j] = v[k][j];
-            }
-        }
+        for (int j = 0; j < kDim; ++j) x[j] = v(i, j);
     }
 };
 
+// torch.mean over the best kDim vertices' coordinate j as the card adds it:
+// a reduction of fewer values than 16 a thread runs in one thread with four
+// accumulators (Reduce.cuh thread_reduce_impl, vt0 = 4), then a product
+// with the float32 1/kDim.
+template <int kDim>
+__device__ __forceinline__ float centroid(const Simplex<kDim>& sx, int j, float inv_d) {
+    static_assert(kDim == 3 || kDim == 6, "the sum order is stated for 3 and 6 vertices");
+    float sum;
+    if constexpr (kDim == 3) {
+        sum = __fadd_rn(__fadd_rn(sx.v(0, j), sx.v(1, j)), sx.v(2, j));
+    } else {
+        sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sx.v(0, j), sx.v(4, j)), __fadd_rn(sx.v(1, j), sx.v(5, j))),
+                                  sx.v(2, j)),
+                        sx.v(3, j));
+    }
+    return __fmul_rn(sum, inv_d);
+}
+
 // torch.maximum with the lower bound, then torch.minimum with the upper.
+template <int kDim>
 __device__ __forceinline__ void clip(float* x, const float* lo, const float* hi) {
 #pragma unroll
     for (int j = 0; j < kDim; ++j) x[j] = fminf(fmaxf(x[j], lo[j]), hi[j]);
 }
 
-template <bool kResident>
+template <int kMode, bool kResident>
 __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kernel(const Problem pb) {
+    constexpr int kDim = dims<kMode>();
+    constexpr int kVerts = kDim + 1;
     extern __shared__ __align__(16) float smem[];
     __shared__ float scratch[2][kWarps];
+    __shared__ float s_simplex[kVerts * (kDim + 1)];
     __shared__ int s_point;
     const int P = pb.P;
-    const Geometry g = pb.g;
-    const float third = 1.f / 3.f;  // torch.mean's factor over the three best vertices
+    // torch.mean's factor over the best kDim vertices: float32 1/kDim.
+    const float inv_d = 1.f / (float)kDim;
 
     for (;;) {
         if (threadIdx.x == 0) s_point = atomicAdd(pb.next, 1);
@@ -300,41 +354,45 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
         pt.s_row = smem;
         pt.s_sim = smem + ((P + 3) & ~3);
         pt.sq_norm = pb.sq_norm[b];
+        if constexpr (kMode == kPC) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pt.q0[i] = pb.q0[4 * b + i];
+        }
         if (kResident) load_row_async(smem, pt.row, P);
 
         float x0[kDim], step[kDim], lo[kDim], hi[kDim];
 #pragma unroll
         for (int j = 0; j < kDim; ++j) {
-            x0[j] = pb.euler0[kDim * b + j];
+            x0[j] = pb.x0[kDim * b + j];
             step[j] = pb.step[kDim * b + j];
             lo[j] = pb.lower ? pb.lower[kDim * b + j] : -INFINITY;
             hi[j] = pb.upper ? pb.upper[kDim * b + j] : INFINITY;
         }
 
         // The initial simplex: x0, then x0 + step_i e_i; each clipped.
-        Simplex sx;
+        Simplex<kDim> sx(s_simplex);
 #pragma unroll 1
         for (int i = 0; i < kVerts; ++i) {
             float xe[kDim];
 #pragma unroll
             for (int j = 0; j < kDim; ++j) xe[j] = i == j + 1 ? __fadd_rn(x0[j], step[j]) : x0[j];
-            clip(xe, lo, hi);
-            sx.put(i, xe, evaluate<kResident>(xe, pt, g, P, scratch));
+            clip<kDim>(xe, lo, hi);
+            sx.put(i, xe, evaluate<kMode, kResident>(xe, pt, pb, scratch));
         }
         int it = 0, evals = kVerts;
         bool done = false;
 
         while (it < pb.max_iters && !done) {
             sx.sort();
-            const float best_v = sx.f[0], second_worst_v = sx.f[kVerts - 2], worst_v = sx.f[kVerts - 1];
+            const float best_v = sx.f(0), second_worst_v = sx.f(kVerts - 2), worst_v = sx.f(kVerts - 1);
             float c[kDim], xr[kDim], x2[kDim];
 #pragma unroll
             for (int j = 0; j < kDim; ++j) {
-                c[j] = __fmul_rn(__fadd_rn(__fadd_rn(sx.v[0][j], sx.v[1][j]), sx.v[2][j]), third);
-                xr[j] = __fadd_rn(c[j], __fsub_rn(c[j], sx.v[kVerts - 1][j]));
+                c[j] = centroid(sx, j, inv_d);
+                xr[j] = __fadd_rn(c[j], __fsub_rn(c[j], sx.v(kVerts - 1, j)));
             }
-            clip(xr, lo, hi);
-            const float fr = evaluate<kResident>(xr, pt, g, P, scratch);
+            clip<kDim>(xr, lo, hi);
+            const float fr = evaluate<kMode, kResident>(xr, pt, pb, scratch);
             ++evals;
 
             const bool expand = fr < best_v;
@@ -350,11 +408,11 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
                     } else if (contract_out) {
                         x2[j] = __fadd_rn(c[j], __fmul_rn(0.5f, __fsub_rn(xr[j], c[j])));
                     } else {
-                        x2[j] = __fsub_rn(c[j], __fmul_rn(0.5f, __fsub_rn(c[j], sx.v[kVerts - 1][j])));
+                        x2[j] = __fsub_rn(c[j], __fmul_rn(0.5f, __fsub_rn(c[j], sx.v(kVerts - 1, j))));
                     }
                 }
-                clip(x2, lo, hi);
-                f2 = evaluate<kResident>(x2, pt, g, P, scratch);
+                clip<kDim>(x2, lo, hi);
+                f2 = evaluate<kMode, kResident>(x2, pt, pb, scratch);
                 ++evals;
                 const bool contract_ok = contract_out ? f2 <= fr : f2 < worst_v;
                 use_x2 = expand ? f2 < fr : contract_ok;
@@ -366,18 +424,18 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
             } else if (use_xr) {
                 sx.put(kVerts - 1, xr, fr);
             } else {
-                // Shrink towards the best vertex: three more evaluations.
+                // Shrink towards the best vertex: kDim more evaluations.
                 float v0[kDim];
 #pragma unroll
-                for (int j = 0; j < kDim; ++j) v0[j] = sx.v[0][j];
+                for (int j = 0; j < kDim; ++j) v0[j] = sx.v(0, j);
 #pragma unroll 1
                 for (int i = 1; i < kVerts; ++i) {
                     float xs[kDim];
                     sx.get(i, xs);
 #pragma unroll
                     for (int j = 0; j < kDim; ++j) xs[j] = __fadd_rn(v0[j], __fmul_rn(0.5f, __fsub_rn(xs[j], v0[j])));
-                    clip(xs, lo, hi);
-                    sx.put(i, xs, evaluate<kResident>(xs, pt, g, P, scratch));
+                    clip<kDim>(xs, lo, hi);
+                    sx.put(i, xs, evaluate<kMode, kResident>(xs, pt, pb, scratch));
                 }
                 evals += kDim;
             }
@@ -386,11 +444,11 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
             float f_spread = 0.f, x_spread = 0.f;
 #pragma unroll
             for (int i = 0; i < kVerts; ++i) {
-                const float df = fabsf(__fsub_rn(sx.f[i], sx.f[0]));
+                const float df = fabsf(__fsub_rn(sx.f(i), sx.f(0)));
                 f_spread = (df > f_spread || isnan(df)) ? df : f_spread;
 #pragma unroll
                 for (int j = 0; j < kDim; ++j) {
-                    const float dx = fabsf(__fsub_rn(sx.v[i][j], sx.v[0][j]));
+                    const float dx = fabsf(__fsub_rn(sx.v(i, j), sx.v(0, j)));
                     x_spread = (dx > x_spread || isnan(dx)) ? dx : x_spread;
                 }
             }
@@ -400,14 +458,8 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 
         if (threadIdx.x == 0) {
             const int k = sx.best();
-            float xb[kDim];
-            sx.get(k, xb);
-#pragma unroll
-            for (int j = 0; j < kDim; ++j) pb.x[kDim * b + j] = xb[j];
-            float fb = sx.f[0];
-#pragma unroll
-            for (int i = 1; i < kVerts; ++i) fb = i == k ? sx.f[i] : fb;
-            pb.fun[b] = fb;
+            for (int j = 0; j < kDim; ++j) pb.x[kDim * b + j] = sx.v(k, j);
+            pb.fun[b] = sx.f(k);
             pb.n_iter[b] = it;
             pb.converged[b] = done;
             pb.n_evals[b] = evals;
@@ -415,9 +467,9 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
     }
 }
 
-template <bool kResident>
+template <int kMode, bool kResident>
 int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
-    auto kernel = refine_nm_kernel<kResident>;
+    auto kernel = refine_nm_kernel<kMode, kResident>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int device = 0, sms = 0, per_sm = 0;
@@ -432,38 +484,33 @@ int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-}  // namespace
+template <int kMode>
+int launch_mode(const Problem& pb, int resident, cudaStream_t stream) {
+    if (resident) return launch<kMode, true>(pb, 2 * sizeof(float) * (size_t)((pb.P + 3) & ~3), stream);
+    return launch<kMode, false>(pb, 0, stream);
+}
 
-extern "C" {
+bool bad_sizes(int n, int P, int npx, int npy, int max_iters) {
+    return n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || max_iters < 0 || 2LL * npx * npy > 0x7fffffffLL ||
+           3LL * P > 0x7fffffffLL;
+}
 
-// euler0, step (n, 3); lower, upper (n, 3) or null; exp (n, P); sq_norm (n,);
-// dc (P, 3), or (n, P, 3) with per_point_dc; quad (2 * npy * npx, 4): all
-// float32 and contiguous. Out: x (n, 3) and fun (n,) float32, n_iter and
-// n_evals (n,) int32, converged (n,) bool; next one int32 holding 0.
-// resident: the row and pattern in shared memory (2 * P floats), else the
-// two-pass branch.
-int refine_nm_launch(const void* euler0, const void* step, const void* lower, const void* upper, const void* exp,
-                     const void* sq_norm, const void* dc, const void* quad, void* x, void* fun, void* n_iter,
-                     void* converged, void* n_evals, void* next, int n, int P, int per_point_dc, int npx, int npy,
-                     float scale, float inv_sqrt_pi_half, int max_iters, float fatol, float xatol, int resident,
-                     void* stream) {
-    if (n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || max_iters < 0 || 2LL * npx * npy > 0x7fffffffLL ||
-        3LL * P > 0x7fffffffLL)
-        return (int)cudaErrorInvalidValue;
-    Problem pb;
-    pb.euler0 = static_cast<const float*>(euler0);
+void set_common(Problem& pb, const void* x0, const void* step, const void* lower, const void* upper,
+                const void* exp, const void* sq_norm, const void* quad, void* x, void* fun, void* n_iter,
+                void* converged, void* n_evals, void* next, int n, int P, int npx, int npy, float scale,
+                float inv_sqrt_pi_half, int max_iters, float fatol, float xatol) {
+    pb = Problem{};
+    pb.x0 = static_cast<const float*>(x0);
     pb.step = static_cast<const float*>(step);
     pb.lower = static_cast<const float*>(lower);
     pb.upper = static_cast<const float*>(upper);
     pb.exp = static_cast<const float*>(exp);
     pb.sq_norm = static_cast<const float*>(sq_norm);
-    pb.dc = static_cast<const float*>(dc);
     pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
     pb.fatol = fatol;
     pb.xatol = xatol;
     pb.n = n;
     pb.P = P;
-    pb.per_point_dc = per_point_dc;
     pb.max_iters = max_iters;
     pb.x = static_cast<float*>(x);
     pb.fun = static_cast<float*>(fun);
@@ -471,9 +518,62 @@ int refine_nm_launch(const void* euler0, const void* step, const void* lower, co
     pb.converged = static_cast<unsigned char*>(converged);
     pb.n_evals = static_cast<int*>(n_evals);
     pb.next = static_cast<int*>(next);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Orientation mode. euler0, step (n, 3); lower, upper (n, 3) or null; exp
+// (n, P); sq_norm (n,); dc (P, 3), or (n, P, 3) with per_point_dc; quad (2 *
+// npy * npx, 4): all float32 and contiguous. Out: x (n, 3) and fun (n,)
+// float32, n_iter and n_evals (n,) int32, converged (n,) bool; next one int32
+// holding 0. resident: the row and pattern in shared memory (2 * P floats),
+// else the two-pass branch.
+int refine_nm_launch(const void* euler0, const void* step, const void* lower, const void* upper, const void* exp,
+                     const void* sq_norm, const void* dc, const void* quad, void* x, void* fun, void* n_iter,
+                     void* converged, void* n_evals, void* next, int n, int P, int per_point_dc, int npx, int npy,
+                     float scale, float inv_sqrt_pi_half, int max_iters, float fatol, float xatol, int resident,
+                     void* stream) {
+    if (bad_sizes(n, P, npx, npy, max_iters)) return (int)cudaErrorInvalidValue;
+    Problem pb;
+    set_common(pb, euler0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P,
+               npx, npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
+    pb.dc = static_cast<const float*>(dc);
+    pb.per_point_dc = per_point_dc;
+    return launch_mode<kOrientation>(pb, resident, static_cast<cudaStream_t>(stream));
+}
+
+// The PC (mode 1, d = 3: the PC) and joint (mode 2, d = 6: Euler angles,
+// then the PC) modes. x0, step (n, d); lower, upper (n, d) or null; exp (n,
+// P); sq_norm (n,); q0 (n, 4) in PC mode (else null); pix (P, 2) each
+// pixel's (column, row) on the detector; quad as above: all float32 and
+// contiguous on the card. om: a host array of 9 floats, the detector to
+// sample matrix row by row; aspect, neg_aspect, inv_ncols, inv_nrows the
+// float32 values of ncols / nrows, its negative, 1 / ncols and 1 / nrows.
+// Outputs and resident as above.
+int refine_nm_pc_launch(int mode, const void* x0, const void* step, const void* lower, const void* upper,
+                        const void* exp, const void* sq_norm, const void* q0, const void* pix, const float* om,
+                        const void* quad, void* x, void* fun, void* n_iter, void* converged, void* n_evals,
+                        void* next, int n, int P, int npx, int npy, float scale, float inv_sqrt_pi_half,
+                        float aspect, float neg_aspect, float inv_ncols, float inv_nrows, int max_iters, float fatol,
+                        float xatol, int resident, void* stream) {
+    if (bad_sizes(n, P, npx, npy, max_iters) || (mode != kPC && mode != kJoint) || om == nullptr || pix == nullptr ||
+        (mode == kPC && q0 == nullptr))
+        return (int)cudaErrorInvalidValue;
+    Problem pb;
+    set_common(pb, x0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P, npx,
+               npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
+    pb.q0 = static_cast<const float*>(q0);
+    pb.pix = static_cast<const float2*>(pix);
+    for (int k = 0; k < 3; ++k)
+        for (int j = 0; j < 3; ++j) pb.det.om[k][j] = om[3 * k + j];
+    pb.det.aspect = aspect;
+    pb.det.neg_aspect = neg_aspect;
+    pb.det.inv_ncols = inv_ncols;
+    pb.det.inv_nrows = inv_nrows;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (resident) return launch<true>(pb, 2 * sizeof(float) * (size_t)((P + 3) & ~3), s);
-    return launch<false>(pb, 0, s);
+    return mode == kPC ? launch_mode<kPC>(pb, resident, s) : launch_mode<kJoint>(pb, resident, s);
 }
 
 }  // extern "C"

@@ -5,17 +5,16 @@ is refined at once by Nelder-Mead (one simplex a point), minimizing ``1 -
 NCC`` between the centred experimental pattern and the pattern projected
 at the candidate Euler angles and/or PC.
 
-- Orientation mode on the card: one launch of the Nelder-Mead kernel
-  (:func:`kikuchipy_tpu_torch.ops.refine_nm.nelder_mead_orientation`)
-  runs every point's simplex to convergence; no host loop.
-- PC and joint modes on the card: the batched Nelder-Mead of
+- On the card every mode is one launch of the Nelder-Mead kernel
+  (:mod:`kikuchipy_tpu_torch.ops.refine_nm`: ``nelder_mead_orientation``,
+  ``nelder_mead_projection_center``,
+  ``nelder_mead_orientation_projection_center``), which runs every point's
+  simplex to convergence; no host loop. In the PC modes it computes each
+  pixel's direction cosine from the candidate PC itself, so no ``(n, P,
+  3)`` array is built.
+- On the CPU all three modes run the batched Nelder-Mead of
   :mod:`kikuchipy_tpu_torch.utils.optimize` (lockstep iterations, a host
-  loop), each objective evaluation one launch of the projection-NCC kernel
-  (:func:`kikuchipy_tpu_torch.ops.lambert_project.lambert_project_ncc`),
-  since their direction cosines are built from the candidate PCs in
-  PyTorch. The projected pattern never reaches device memory.
-- On the CPU all three modes run that batched loop over the objective's
-  plain PyTorch twin.
+  loop) over the objective's plain PyTorch twin.
 
 Modes, as in the JAX package:
 
@@ -45,14 +44,17 @@ import torch
 
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, PhaseList
 from kikuchipy_tpu_torch.geometry import quaternion as quat
-from kikuchipy_tpu_torch.ops.lambert_project import lambert_project, lambert_project_ncc, ncc_centered
-from kikuchipy_tpu_torch.ops.refine_nm import nelder_mead_orientation, orientation_objective
-from kikuchipy_tpu_torch.projection.master_pattern import (
-    direction_cosines,
-    direction_cosines_from_detector,
-    quad_texture,
+from kikuchipy_tpu_torch.ops.lambert_project import lambert_project, ncc_centered
+from kikuchipy_tpu_torch.ops.refine_nm import (
+    joint_objective,
+    nelder_mead_orientation,
+    nelder_mead_orientation_projection_center,
+    nelder_mead_projection_center,
+    orientation_objective,
+    pc_direction_cosines,
+    pc_objective,
 )
-from kikuchipy_tpu_torch.utils.optimize import nelder_mead_batched
+from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
 
 __all__ = [
     "RefinementResult",
@@ -149,15 +151,15 @@ def _project_at(quats_b, dc, quad, npx, npy, scale) -> torch.Tensor:
     return lambert_project(quats_b, dc, quad, npx, npy, scale)
 
 
-def _dc_for_pc(pc_b, nrows, ncols, om_d2s, mask_idx) -> torch.Tensor:
-    """Direction cosines ``(n, P, 3)`` for candidate PCs ``(n, 3)``."""
-    aspect = ncols / nrows
-    pcx, pcy, pcz = pc_b[:, 0], pc_b[:, 1], pc_b[:, 2]
-    gb = torch.stack(
-        [-aspect * pcx / pcz, aspect * (1 - pcx) / pcz, -(1 - pcy) / pcz, pcy / pcz],
-        dim=-1,
-    )
-    return direction_cosines(gb, pcz, nrows, ncols, om_d2s, signal_mask=mask_idx)
+def _dc_for_pc(pc_b, nrows, ncols, om_d2s, signal_mask=None) -> torch.Tensor:
+    """Direction cosines ``(n, P, 3)`` for candidate PCs ``(n, 3)``, the
+    pixels kept by the boolean ``signal_mask`` (all if None):
+    :func:`~kikuchipy_tpu_torch.ops.refine_nm.pc_direction_cosines`, whose
+    stated order of float32 operations the PC modes' kernel repeats."""
+    take = None
+    if signal_mask is not None:
+        take = torch.as_tensor(np.nonzero(np.asarray(signal_mask).ravel())[0], device=pc_b.device)
+    return pc_direction_cosines(pc_b, nrows, ncols, om_d2s, take)
 
 
 def _mask_bool_to_idx(signal_mask, sig_size):
@@ -191,24 +193,8 @@ def _finalize_xmap(xmap, rotations, scores, n_iter, nav_shape):
 _objective_orientation = orientation_objective
 
 
-def _masked_dc_for_pc(pc_b, om, mask_take, nrows, ncols):
-    dc = _dc_for_pc(pc_b.to(_f32), nrows, ncols, om, None)
-    if mask_take is not None:
-        dc = dc[:, mask_take]
-    return dc
-
-
-def _objective_pc(pc_b, exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols):
-    """``1 - NCC`` at PCs ``(n, 3)``, rotations fixed."""
-    dc = _masked_dc_for_pc(pc_b, om, mask_take, nrows, ncols)
-    return lambert_project_ncc(q0, dc, quad, npx, npy, scale, exp, sq_norm)
-
-
-def _objective_joint(x_b, exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols):
-    """``1 - NCC`` at ``(n, 6)``: Euler angles, then PC."""
-    q = quat.from_euler(x_b[:, :3]).to(_f32)
-    dc = _masked_dc_for_pc(x_b[:, 3:], om, mask_take, nrows, ncols)
-    return lambert_project_ncc(q, dc, quad, npx, npy, scale, exp, sq_norm)
+_objective_pc = pc_objective
+_objective_joint = joint_objective
 
 
 def _pc_shaped(pc: np.ndarray, nav_shape) -> np.ndarray:
@@ -440,16 +426,9 @@ def refine_projection_center(
         lb = torch.as_tensor(pc0 - tr, device=dev)
         ub = torch.as_tensor(pc0 + tr, device=dev)
 
-    res = nelder_mead_batched(
-        _objective_pc,
-        torch.as_tensor(pc0, device=dev),
-        initial_step=0.01,
-        max_iters=max_iters,
-        fatol=rtol,
-        xatol=1e-5,
-        lower_bounds=lb,
-        upper_bounds=ub,
-        args=(exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+    res = nelder_mead_projection_center(
+        torch.as_tensor(pc0, device=dev), exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols,
+        initial_step=0.01, max_iters=max_iters, fatol=rtol, xatol=1e-5, lower_bounds=lb, upper_bounds=ub,
     )
     new_pc = res.x.cpu().numpy().astype(np.float64)
     new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
@@ -513,16 +492,10 @@ def refine_orientation_projection_center(
         lb = torch.as_tensor(x0 - tr, dtype=_f32, device=dev)
         ub = torch.as_tensor(x0 + tr, dtype=_f32, device=dev)
 
-    res = nelder_mead_batched(
-        _objective_joint,
-        torch.as_tensor(x0, device=dev),
+    res = nelder_mead_orientation_projection_center(
+        torch.as_tensor(x0, device=dev), exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols,
         initial_step=torch.as_tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=_f32, device=dev),
-        max_iters=max_iters,
-        fatol=rtol,
-        xatol=1e-5,
-        lower_bounds=lb,
-        upper_bounds=ub,
-        args=(exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+        max_iters=max_iters, fatol=rtol, xatol=1e-5, lower_bounds=lb, upper_bounds=ub,
     )
     x = res.x.cpu().numpy().astype(np.float64)
     refined_rot = quat.from_euler(torch.as_tensor(x[:, :3])).numpy()

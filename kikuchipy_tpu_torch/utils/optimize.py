@@ -7,10 +7,9 @@ branchless (``torch.where``) case selection, the standard coefficients
 initial simplex. JAX's ``while_loop`` becomes a Python loop that reads one
 pair of flags from the device per iteration (whether every element had
 converged, and whether a live element shrinks): the only host sync of an
-iteration. On the card, orientation refinement runs this loop inside one
-kernel instead (:func:`kikuchipy_tpu_torch.ops.refine_nm.
-nelder_mead_orientation`), which computes what this function computes for
-each element on its own. The global solvers of the JAX module
+iteration. On the card, refinement in every mode runs this loop inside one
+kernel instead (:mod:`kikuchipy_tpu_torch.ops.refine_nm`), which computes
+what this function computes for each element on its own. The global solvers of the JAX module
 (differential evolution, dual annealing, basin hopping, SHGO) and
 Levenberg-Marquardt are not ported yet.
 """

@@ -1,0 +1,161 @@
+"""Count the SASS instructions of one projected pixel, for the projection
+kernels' instruction-slot bound.
+
+    python3 sass_count.py
+
+Builds a probe library from ``kikuchipy_tpu_torch/csrc/lambert_common.cuh``
+with the port's own ``nvcc`` flags, disassembles it with ``cuobjdump -sass``
+and counts the instructions of four one-pixel kernels: a load-and-store
+frame for each of the two pixel inputs (three direction cosines; a column
+and row), ``project_pixel`` on the first and ``project_pixel_pc`` (the
+direction cosine from a PC frame, then ``project_pixel``) on the second.
+The pixel's own count is the probe's less its frame's, plus the frame's
+stand-in additions. A kernel's count is its main path: every instruction
+up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
+the IEEE divide and square root are subroutines after it, taken only for
+operands near the ends of the range, and are not counted. Both sides of
+the Lambert map's branch are counted, so the count is of the code, not of
+what one pixel executes (a warp whose pixels take both sides executes
+both).
+
+Prints one JSON line: the counts, the instruction names of each pixel's
+code, the card's name and power limit. Needs the CUDA toolkit (``nvcc``
+and ``cuobjdump``); the card itself is not used. ``chip_smoke.py``'s
+``SASS_PER_PIXEL`` and ``SASS_DC_PER_PIXEL`` are this script's counts.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+PROBE = r"""
+#include "lambert_common.cuh"
+
+__global__ void probe_dc_frame(const float* __restrict__ dc, float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = __fadd_rn(__fadd_rn(dc[3 * i], dc[3 * i + 1]), dc[3 * i + 2]);
+}
+
+__global__ void probe_project(Rot r, Geometry g, const float* __restrict__ dc, float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int tap;
+    if (i < n) out[i] = project_pixel(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
+}
+
+__global__ void probe_pix_frame(const float2* __restrict__ pix, float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = __fadd_rn(pix[i].x, pix[i].y);
+}
+
+__global__ void probe_project_pc(Rot r, PcFrame f, DetectorFrame d, Geometry g, const float2* __restrict__ pix,
+                                 float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int tap;
+    if (i < n) out[i] = project_pixel_pc(r, f, d, pix[i].x, pix[i].y, g, tap);
+}
+"""
+
+# A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
+_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def _tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    path = Path("/usr/local/cuda/bin") / name
+    if path.exists():
+        return str(path)
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed")
+
+
+def main_path(sass: str) -> dict[str, list[str]]:
+    """Opcode list of each function's main path (to its first
+    unconditional EXIT, NOPs left out), by function name."""
+    out: dict[str, list[str]] = {}
+    name, ops, ended = None, [], False
+    for line in sass.splitlines():
+        head = re.search(r"Function\s*:\s*(\S+)", line)
+        if head:
+            if name is not None:
+                out[name] = ops
+            name, ops, ended = head.group(1), [], False
+            continue
+        m = _LINE.search(line)
+        if name is None or ended or not m:
+            continue
+        op = m.group(2)
+        if op == "NOP":
+            continue
+        ops.append(op)
+        if op == "EXIT" and not m.group(1):
+            ended = True
+    if name is not None:
+        out[name] = ops
+    return out
+
+
+def count(build_dir: Path | None = None) -> dict:
+    """Build the probe, disassemble it and return the per-pixel counts."""
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here))
+    from kikuchipy_tpu_torch.ops import _build
+
+    build_dir = build_dir or here / "kikuchipy_tpu_torch" / "_kernels_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    src = build_dir / "sass_probe.cu"
+    src.write_text(PROBE)
+    lib = build_dir / "libsass_probe.so"
+    csrc = here / "kikuchipy_tpu_torch" / "csrc"
+    subprocess.run([_tool("nvcc"), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib), str(src)], check=True,
+                   capture_output=True, text=True)
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True, text=True).stdout
+    funcs = main_path(sass)
+
+    def find(stem: str) -> list[str]:
+        hits = [ops for fname, ops in funcs.items() if stem in fname]
+        if len(hits) != 1:
+            raise RuntimeError(f"{stem}: {len(hits)} functions in the disassembly ({sorted(funcs)})")
+        return hits[0]
+
+    # Itanium-mangled names begin with the name's length.
+    dc_frame, project = find("14probe_dc_frame"), find("13probe_project")
+    pix_frame, project_pc = find("15probe_pix_frame"), find("16probe_project_pc")
+    # The frames' stand-in additions (two and one FADD) are not the pixel's.
+    per_pixel = len(project) - len(dc_frame) + 2
+    per_pixel_pc = len(project_pc) - len(pix_frame) + 1
+
+    def mix(ops, frame) -> dict[str, int]:
+        c = Counter(ops)
+        c.subtract(Counter(frame))
+        return {k: v for k, v in sorted(c.items()) if v > 0}
+
+    return {
+        "project_pixel": per_pixel,
+        "project_pixel_pc": per_pixel_pc,
+        "direction_cosine": per_pixel_pc - per_pixel,
+        "project_pixel_ops": mix(project, dc_frame),
+        "project_pixel_pc_ops": mix(project_pc, pix_frame),
+        "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
+    }
+
+
+def main() -> int:
+    res = count()
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError):
+        smi = "no card"
+    print(json.dumps({"sass_per_pixel": res, "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

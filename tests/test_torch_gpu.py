@@ -24,6 +24,9 @@ product, and the rest is the order of the f32 sum. So the f32 cases also
 hold rows that differ only below TF32's 10 mantissa bits apart.
 """
 
+import ctypes
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -597,3 +600,201 @@ def test_projection_kernels_refuse_what_they_cannot_take(cuda):
     fn = lp._function("lambert_project_ncc")
     assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 0, 0,
               101, 101, 50.0, 1.0, stream) != 0
+
+
+# The PC and joint modes of the Nelder-Mead kernel against their host loops
+# on kernel B (nelder_mead_batched over pc_objective / joint_objective, the
+# direction cosines of every candidate PC built in PyTorch): the kernel
+# computes each pixel's direction cosine from the candidate PC in the plain
+# version's stated order, so the two must take the same path bit for bit.
+
+
+def test_torch_mean_over_the_vertices_adds_in_the_kernels_order(cuda):
+    # The centroid of the host loop is torch.mean over the best d vertices;
+    # the kernel adds them as PyTorch's reduction does for so few values.
+    g = torch.Generator(device="cpu").manual_seed(60)
+    for n in (1, 48, 2048, 16384):
+        for d in (3, 6):
+            verts = torch.randn((n, d + 1, d), generator=g).to(cuda)
+            got = torch.mean(verts[:, :-1, :], dim=1)
+            v = [verts[:, i, :] for i in range(d)]
+            if d == 3:
+                s = (v[0] + v[1]) + v[2]
+            else:
+                s = (((v[0] + v[4]) + (v[1] + v[5])) + v[2]) + v[3]
+            want = s * float(np.float32(1) / np.float32(d))
+            assert torch.equal(got, want), (n, d)
+
+
+def test_pc_direction_cosines_on_the_card_follow_their_stated_order(cuda):
+    # Every operation correctly rounded in the stated order (float32 numpy,
+    # square root included: PyTorch's on the card is IEEE).
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    f = np.float32
+    for nrows, ncols in ((60, 60), (24, 40)):
+        det_om = _projection_state("cpu", shape=(nrows, ncols))[3].numpy()
+        rng = np.random.default_rng(61)
+        pcs = (np.array([0.42, 0.28, 0.5]) + rng.normal(scale=0.02, size=(33, 3))).astype(f)
+        take = np.sort(rng.choice(nrows * ncols, size=nrows * ncols // 2, replace=False))
+        got = rn.pc_direction_cosines(torch.as_tensor(pcs, device=cuda), nrows, ncols, torch.as_tensor(det_om, device=cuda),
+                                      torch.as_tensor(take, device=cuda)).cpu().numpy()
+        aspect = f(ncols / nrows)
+        pcx, pcy, pcz = pcs[:, 0:1], pcs[:, 1:2], pcs[:, 2:3]
+        gb0, gb1 = (pcx * -aspect) / pcz, ((f(1) - pcx) * aspect) / pcz
+        gb2, gb3 = -(f(1) - pcy) / pcz, pcy / pcz
+        xs, ys = (gb1 - gb0) * (f(1) / f(ncols)), (gb3 - gb2) * (f(1) / f(nrows))
+        col, row = (take % ncols).astype(f)[None], (take // ncols).astype(f)[None]
+        x = ((gb0 + col * xs) + xs * f(0.5)) * pcz
+        y = ((gb3 - row * ys) - ys * f(0.5)) * pcz
+        z = np.broadcast_to(pcz, x.shape)
+        r = [(x * det_om[k, 0] + y * det_om[k, 1]) + z * det_om[k, 2] for k in range(3)]
+        norm = np.sqrt((r[0] * r[0] + r[1] * r[1]) + r[2] * r[2])
+        np.testing.assert_array_equal(got, np.stack([r[k] / norm for k in range(3)], axis=-1))
+
+
+def _pc_inputs(device, mode: str, case: str, n: int = 64):
+    """(wrapper, plain, x0, arguments, keywords) of the PC or joint mode on
+    patterns projected at known orientations and the detector's PC, started
+    from the PC off by (0.01, -0.01, 0.01) (joint: and 1.5 degrees off)."""
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    n = {"one": 1, "over_budget": 8}.get(case, n)
+    shape = (128, 128) if case == "over_budget" else (60, 60)  # P = 16,384: past RESIDENT_SMEM_BYTES
+    pc = (0.42, 0.28, 0.5)
+    _, quad, _, _, _ = _projection_state(device)
+    det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
+    rows = lp.lambert_project(truth, direction_cosines_from_detector(det, device=device), quad, 101, 101, 50.0)
+    rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(62),
+                                     device=device)
+    take = None
+    if case == "masked":
+        take = torch.nonzero(torch.rand(rows.shape[1], generator=torch.Generator().manual_seed(63)) > 0.3)[:, 0]
+        take = take.to(device)
+    elif case == "p1000":
+        take = torch.arange(1000, device=device)
+    exp, sq = _prepare_experimental(rows, take)
+    pc0 = torch.as_tensor(np.tile(np.asarray(pc) + [0.01, -0.01, 0.01], (n, 1)), dtype=torch.float32, device=device)
+    geo = (101, 101, 50.0, shape[0], shape[1])
+    if mode == "pc":
+        x0, args = pc0, (exp, sq, truth, quad, om, take, *geo)
+        kw = dict(initial_step=0.01, max_iters=150, fatol=1e-4, xatol=1e-5)
+        half = torch.full((3,), 0.006, device=device)
+        fns = (rn.nelder_mead_projection_center, rn.nelder_mead_projection_center_plain)
+    else:
+        axes = torch.as_tensor(np.random.default_rng(64).normal(size=(n, 3)))
+        start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), truth.double().cpu())
+        euler0 = tq.to_euler(start).to(torch.float32).to(device)
+        x0, args = torch.cat([euler0, pc0], dim=1), (exp, sq, quad, om, take, *geo)
+        kw = dict(initial_step=torch.tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=torch.float32, device=device),
+                  max_iters=200, fatol=1e-4, xatol=1e-5)
+        half = torch.tensor([np.deg2rad(1.0)] * 3 + [0.006] * 3, dtype=torch.float32, device=device)
+        fns = (rn.nelder_mead_orientation_projection_center, rn.nelder_mead_orientation_projection_center_plain)
+    if case == "trust_region":
+        kw.update(lower_bounds=x0 - half, upper_bounds=x0 + half)
+    return fns[0], fns[1], x0, args, kw
+
+
+@pytest.mark.parametrize("mode", ["pc", "joint"])
+@pytest.mark.parametrize("case", ["shared", "trust_region", "masked", "p1000", "over_budget", "one"])
+def test_nelder_mead_pc_kernels_take_the_host_loops_path(cuda, mode, case):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    wrapper, plain, x0, args, kw = _pc_inputs(cuda, mode, case)
+    assert rn.resident(args[0].shape[1]) == (case != "over_budget")
+    before = (wrapper.launches, lp.lambert_project_ncc.launches)
+    got = wrapper(x0, *args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1 and lp.lambert_project_ncc.launches == before[1]
+    ref = plain(x0, *args, **kw)
+    n, d = x0.shape
+    assert got.x.shape == (n, d) and got.fun.shape == got.n_iter.shape == got.converged.shape == (n,)
+    assert torch.isfinite(got.fun).all()
+    print(f"{mode} {case}: n_iter equal {float((got.n_iter == ref.n_iter).float().mean()):.4f}, max |dfun| "
+          f"{float((got.fun - ref.fun).abs().max()):.3e}, max |dx| {float((got.x - ref.x).abs().max()):.3e}, "
+          f"evaluations {int(got.n_evals.sum())} vs {int(ref.n_evals.sum())}")
+    assert torch.equal(got.n_iter, ref.n_iter) and torch.equal(got.converged, ref.converged)
+    assert torch.equal(got.fun, ref.fun) and torch.equal(got.x, ref.x)
+    assert (got.n_evals <= ref.n_evals).all() and (got.n_evals >= d + 1 + got.n_iter).all()
+    if "lower_bounds" in kw:
+        assert (got.x >= kw["lower_bounds"]).all() and (got.x <= kw["upper_bounds"]).all()
+
+
+def test_pc_refinement_on_the_card_is_one_launch_a_mode(cuda):
+    # refine_projection_center and refine_orientation_projection_center on a
+    # 64-point scan: one launch of the Nelder-Mead kernel a mode and none of
+    # kernel B, with a signal mask and a navigation mask too; the PC comes
+    # back to the truth as on the CPU (the host loop).
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    master, _, _, _, det = _projection_state(cuda)
+    truth = super_fibonacci(64 * 7)[::7][:64]
+    bad = dataclasses.replace(det, pc=np.asarray(det.pc).reshape(3) + [0.01, -0.01, 0.01])
+    sig_mask = np.zeros(det.shape, dtype=bool)
+    sig_mask[:4] = True
+    nav_mask = np.zeros(64, dtype=bool)
+    nav_mask[[3, 17]] = True
+    results = {}
+    for dev in ("cpu", cuda):
+        on_card = str(dev) != "cpu"
+        mp = EBSDMasterPattern(master, device=dev)
+        signal = EBSD(mp.get_patterns(truth, det).data, detector=det, device=dev)
+        for name, wrapper in (("refine_projection_center", rn.nelder_mead_projection_center),
+                              ("refine_orientation_projection_center", rn.nelder_mead_orientation_projection_center)):
+            for kw in ({}, dict(signal_mask=sig_mask, navigation_mask=nav_mask)):
+                counts = (wrapper.launches, lp.lambert_project_ncc.launches)
+                res = getattr(signal, name)(xmap=CrystalMap(rotations=truth), detector=bad, master_pattern=mp, **kw)
+                assert wrapper.launches == counts[0] + on_card and lp.lambert_project_ncc.launches == counts[1]
+                pcs = res.detector.pc.reshape(-1, 3)
+                keep = ~nav_mask if kw else np.ones(64, dtype=bool)
+                assert np.abs(pcs[keep].mean(0) - np.asarray(det.pc).reshape(3)).max() < 2e-3
+                if kw:
+                    assert np.isnan(res.xmap.prop["scores"][nav_mask]).all()
+                results[(str(dev), name, bool(kw))] = res
+    for key in [k for k in results if k[0] == "cpu"]:
+        cpu, card = results[key], results[("cuda",) + key[1:]]
+        scores_cpu, scores_card = cpu.xmap.prop["scores"], card.xmap.prop["scores"]
+        live = np.isfinite(scores_cpu)
+        np.testing.assert_allclose(scores_card[live], scores_cpu[live], atol=1e-4)
+        if key[1] == "refine_projection_center":
+            np.testing.assert_allclose(card.detector.pc, cpu.detector.pc, atol=1e-4)
+
+
+def test_nelder_mead_pc_kernel_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    wrapper, _, x0, args, kw = _pc_inputs(cuda, "pc", "shared", n=4)
+    with pytest.raises(TypeError):
+        wrapper(x0.double(), *args, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x0, args[0].cpu(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x0, *args[:5], torch.arange(10), *args[6:], **kw)
+    # The launcher itself refuses an unknown mode, an empty batch, a negative
+    # max_iters, and a PC mode without rotations or pixel table.
+    fn = rn._function("refine_nm_pc")
+    out = torch.empty(64, device=cuda)
+    p = out.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    om = (ctypes.c_float * 9)(*([0.0] * 9))
+
+    def call(mode=1, q0=p, pix=p, n=1, max_iters=10):
+        return fn(mode, p, p, 0, 0, p, p, q0, pix, om, p, p, p, p, p, p, p, n, 3600, 101, 101, 50.0, 1.0, 1.0, -1.0,
+                  1.0 / 60, 1.0 / 60, max_iters, 1e-4, 1e-5, 1, stream)
+
+    assert call(mode=0) != 0 and call(mode=3) != 0
+    assert call(n=0) != 0 and call(max_iters=-1) != 0
+    assert call(q0=0) != 0 and call(pix=0) != 0 and call(mode=2, pix=0) != 0

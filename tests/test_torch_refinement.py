@@ -415,7 +415,22 @@ def _terraced(x, t):
     return torch.floor(8 * torch.sum((x - t) ** 2, dim=1))
 
 
-@pytest.mark.parametrize("case", ["orientation", "trust_region", "masked", "shrink"])
+def _pc_nm_inputs(state, joint: bool):
+    """Starts and objective arguments of the PC (d = 3) or joint (d = 6)
+    mode: 16 points from the PC off by (0.01, -0.01, 0.01), the joint
+    mode's Euler angles from the 2-degree-off starts."""
+    _, _, (texp, tsq, quad), (npx, npy, scale) = _objective_inputs(state)
+    om = torch.as_tensor(np.ascontiguousarray(state["t"]["det"].sample_to_detector.T), dtype=torch.float32)
+    pc0 = torch.as_tensor(np.tile(np.asarray(PC) + [0.01, -0.01, 0.01], (16, 1)), dtype=torch.float32)
+    if not joint:
+        q0 = torch.tensor(state["truth"], dtype=torch.float32)
+        return pc0, (texp, tsq, q0, quad, om, None, npx, npy, scale, 32, 32)
+    euler0 = torch.tensor(np.asarray(jq.to_euler(jnp.asarray(state["start"]))), dtype=torch.float32)
+    return torch.cat([euler0, pc0], dim=1), (texp, tsq, quad, om, None, npx, npy, scale, 32, 32)
+
+
+@pytest.mark.parametrize("case", ["orientation", "trust_region", "masked", "shrink", "pc", "pc_box", "joint",
+                                  "joint_box"])
 def test_batched_nelder_mead_equals_each_element_alone(state, case):
     if case == "shrink":
         t = torch.as_tensor(np.random.default_rng(11).normal(size=(12, 3)), dtype=torch.float32)
@@ -424,6 +439,19 @@ def test_batched_nelder_mead_equals_each_element_alone(state, case):
         per = lambda i: (t[i:i + 1],)  # noqa: E731
         kw = dict(initial_step=0.1, max_iters=60, fatol=1e-6, xatol=1e-6)
         args = (t,)
+    elif case.startswith(("pc", "joint")):
+        joint = case.startswith("joint")
+        x0, args = _pc_nm_inputs(state, joint)
+        f = tr._objective_joint if joint else tr._objective_pc
+        n_per = 2 if joint else 3  # the per-point arguments: rows, norms (and the PC mode's rotations)
+        per = lambda i: tuple(a[i:i + 1] for a in args[:n_per]) + args[n_per:]  # noqa: E731
+        step = [np.deg2rad(1.0)] * 3 + [0.01] * 3 if joint else 0.01
+        kw = dict(initial_step=torch.as_tensor(step, dtype=torch.float32) if joint else step,
+                  max_iters=MAX_ITERS, fatol=1e-4, xatol=1e-5)
+        if case.endswith("box"):
+            half = [np.deg2rad(0.5)] * 3 + [0.004] * 3 if joint else [0.004] * 3
+            box = torch.tensor(half, dtype=torch.float32)
+            kw.update(lower_bounds=x0 - box, upper_bounds=x0 + box)
     else:
         mask = None
         if case == "masked":
@@ -446,11 +474,12 @@ def test_batched_nelder_mead_equals_each_element_alone(state, case):
         for name in ("x", "fun", "n_iter", "converged", "n_evals"):
             assert torch.equal(getattr(alone, name)[0], getattr(whole, name)[i]), (i, name)
     # n_evals: d + 1 to start, 2 an iteration, d more for each shrink.
-    shrinks = (whole.n_evals - 4 - 2 * whole.n_iter) // 3
-    assert ((whole.n_evals - 4 - 2 * whole.n_iter) % 3 == 0).all() and (shrinks >= 0).all()
+    d = x0.shape[1]
+    extra = whole.n_evals - (d + 1) - 2 * whole.n_iter
+    assert (extra % d == 0).all() and (extra >= 0).all()
     if case == "shrink":
-        assert int(shrinks.sum()) > 0
-    if case == "trust_region":
+        assert int(extra.sum()) > 0
+    if "lower_bounds" in kw:
         assert (whole.x >= kw["lower_bounds"]).all() and (whole.x <= kw["upper_bounds"]).all()
 
 
