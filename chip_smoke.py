@@ -35,9 +35,11 @@ the card's name and power limit, and the device check):
    disorientation < 3 degrees, > 90% under 8 degrees); then keep_n=65,
    which carries k=130 candidates through the kernel;
 5b. the projection kernels against their plain twins: ``lambert_project``
-   on the whole dictionary (values within 1e-5 of the master's range, under
-   1e-4 of the pixels on another tap) and on a rescaled slab, one PC per
-   rotation, a ragged pixel count and one rotation; ``lambert_project_ncc``
+   against the twin run in float64 on the whole dictionary, a rescaled
+   slab, one PC per rotation, a ragged pixel count, one rotation and pixels
+   within 1e-3 rad of a Lambert pole, no further from it than the float32
+   twin is (``Float64Yardstick``: pooled max, RMS and taps off float64's;
+   each case within 1e-4 of the range); ``lambert_project_ncc``
    (1 - NCC within 2e-6) on a 2048-point chunk of the main path's patterns
    with shared, masked and per-point direction cosines, P=1000, and B=1;
 5c. refinement of the main path's crystal map: ``EBSD.refine_orientation``
@@ -94,7 +96,8 @@ the card's name and power limit, and the device check):
    instruction-slot bound (``sass_count.py``'s SASS instructions a pixel at the
    card's largest clock); then a breakdown of
    one pallas-int8 indexing call and a
-   ``torch.profiler`` trace of it.
+   ``torch.profiler`` trace of it, and a trace of one ``get_patterns`` call
+   (the dictionary's generation: device busy time, kernels and host time).
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is summed over
@@ -125,12 +128,17 @@ PEAK_BYTES = 3.35e12
 # float32 outside the tensor cores (the projection kernels' arithmetic).
 PEAK_F32_FLOPS = 67e12
 # Floating-point operations of one projected pixel as project_pixel in
-# csrc/lambert_project.cu does them: rotation 18, normalisation 9, Lambert
-# map 11 with atanf counted as 10 more, indices and weights 18, the four-tap
-# blend 7, the tap address 4; the NCC adds 4 a pixel (centre, two products
-# summed, the mean's sum).
+# csrc/lambert_common.cuh does them (kernel B, the Nelder-Mead kernel):
+# rotation 18, normalisation 9, Lambert map 11 with atanf counted as 10
+# more, indices and weights 18, the four-tap blend 7, the tap address 4; the
+# NCC adds 4 a pixel (centre, two products summed, the mean's sum).
 OPS_PER_PIXEL = 77
 NCC_OPS_PER_PIXEL = 4
+# ... and as project_pixel_a does them (kernel A), an FMA counted as two:
+# rotation 15, the coordinate's magnitude 14 (two reciprocal square roots),
+# the major component and the ratio 5 (one reciprocal), atan 19, the two
+# coordinates 4, indices and weights 10, the tap address 4, the blend 9.
+A_OPS_PER_PIXEL = 80
 # ... and of one pixel's direction cosine from a candidate PC, as
 # project_pixel_pc in csrc/lambert_common.cuh does them (the PC and joint
 # modes): the pixel's x and y 4 each, the rotation into the sample frame 15,
@@ -138,10 +146,13 @@ NCC_OPS_PER_PIXEL = 4
 DC_OPS_PER_PIXEL = 32
 # SASS instructions of one pixel on the main path of its code (sass_count.py
 # on sm_90a; both sides of the Lambert map's branch counted, the IEEE slow
-# paths not): project_pixel, and the direction cosine from a PC before it.
-# The run recounts them where the toolkit has cuobjdump and uses its count.
+# paths not): project_pixel, and the direction cosine from a PC before it
+# (kernel B, the Nelder-Mead kernel); project_pixel_a (kernel A, which has
+# no branch). The run recounts them where the toolkit has cuobjdump and
+# uses its count.
 SASS_PER_PIXEL = 244
 SASS_DC_PER_PIXEL = 99
+SASS_A_PER_PIXEL = 78
 # Instruction slots of an SM: four warp schedulers, one warp instruction each a
 # clock (the Hopper architecture white paper), at the card's largest SM
 # clock (nvidia-smi clocks.max.sm in the run).
@@ -574,12 +585,104 @@ def split_table_row(operands, planes, ms: float, launches: int) -> dict:
 # --------------------- projection kernels vs plain --------------------- #
 
 
+# Kernel A against the plain twin run on float64 operands (the yardstick),
+# beside the float32 twin's own distance from it. E_k = |kernel - plain64|
+# and E_t = |plain32 - plain64|, as shares of the value range (the master's,
+# or 255 when rescaled). Over the pixels of all cases together: max E_k <=
+# max E_t, RMS E_k <= A_RMS_FACTOR x RMS E_t, and the pixels whose tap index
+# differs from plain64's at most A_TAP_FACTOR x the float32 twin's and under
+# A_TAP_SHARE of all pixels. In each case: max E_k <= A_CASE_MAX.
+A_RMS_FACTOR = 1.5
+A_TAP_FACTOR = 1.5
+A_TAP_SHARE = 1e-4
+A_CASE_MAX = 1e-4
+
+
+class Float64Yardstick:
+    """E_k and E_t of kernel A, per case and pooled over the cases."""
+
+    def __init__(self):
+        self.cases: dict[str, dict] = {}
+
+    def add(self, case: str, got, tap, plain32, tap32, plain64, tap64, value_range: float) -> None:
+        """Add the pixels of one slab of ``case`` (several slabs may make
+        one case)."""
+        e_k = (got.double() - plain64).abs() / value_range
+        e_t = (plain32.double() - plain64).abs() / value_range
+        c = self.cases.setdefault(case, dict(pixels=0, max_k=0.0, sq_k=0.0, taps_k=0, max_t=0.0, sq_t=0.0,
+                                             taps_t=0, max_k32=0.0, finite=True))
+        c["pixels"] += e_k.numel()
+        c["max_k"] = max(c["max_k"], float(e_k.max()))
+        c["sq_k"] += float((e_k * e_k).sum())
+        c["taps_k"] += int((tap != tap64).sum())
+        c["max_t"] = max(c["max_t"], float(e_t.max()))
+        c["sq_t"] += float((e_t * e_t).sum())
+        c["taps_t"] += int((tap32 != tap64).sum())
+        c["max_k32"] = max(c["max_k32"], float((got - plain32).abs().max()) / value_range)
+        c["finite"] = c["finite"] and bool(got.isfinite().all())
+
+    def pooled(self) -> dict:
+        out = dict(pixels=0, max_k=0.0, sq_k=0.0, taps_k=0, max_t=0.0, sq_t=0.0, taps_t=0, max_k32=0.0, finite=True)
+        for c in self.cases.values():
+            for key in ("pixels", "sq_k", "taps_k", "sq_t", "taps_t"):
+                out[key] += c[key]
+            for key in ("max_k", "max_t", "max_k32"):
+                out[key] = max(out[key], c[key])
+            out["finite"] = out["finite"] and c["finite"]
+        return out
+
+    @staticmethod
+    def summary(c: dict) -> str:
+        n = c["pixels"]
+        return (f"E_k max {c['max_k']:.3e} RMS {(c['sq_k'] / n) ** 0.5:.3e} taps {c['taps_k']}; E_t max "
+                f"{c['max_t']:.3e} RMS {(c['sq_t'] / n) ** 0.5:.3e} taps {c['taps_t']}; of {n} pixels; "
+                f"max |kernel - plain32| {c['max_k32']:.3e}")
+
+    def failures(self) -> list[str]:
+        bad = [f"{name}: not finite" for name, c in self.cases.items() if not c["finite"]]
+        bad += [f"{name}: max E_k {c['max_k']:.3e} > {A_CASE_MAX:g}" for name, c in self.cases.items()
+                if not c["max_k"] <= A_CASE_MAX]
+        c = self.pooled()
+        rms_k, rms_t = (c["sq_k"] / c["pixels"]) ** 0.5, (c["sq_t"] / c["pixels"]) ** 0.5
+        if not c["max_k"] <= c["max_t"]:
+            bad.append(f"pooled max E_k {c['max_k']:.3e} > max E_t {c['max_t']:.3e}")
+        if not rms_k <= A_RMS_FACTOR * rms_t:
+            bad.append(f"pooled RMS E_k {rms_k:.3e} > {A_RMS_FACTOR} x RMS E_t {rms_t:.3e}")
+        if not (c["taps_k"] <= A_TAP_FACTOR * c["taps_t"] and c["taps_k"] < A_TAP_SHARE * c["pixels"]):
+            bad.append(f"pooled taps off float64's {c['taps_k']} (float32 twin {c['taps_t']}, limit "
+                       f"{A_TAP_FACTOR} x that and < {A_TAP_SHARE:g} of {c['pixels']})")
+        return bad
+
+
+def pole_rotations(dc, n: int, seed: int, max_angle: float = 1e-3) -> np.ndarray:
+    """Unit quaternions ``(n, 4)`` float32, each turning one pixel's
+    direction ``dc[k]`` (``k`` at random) to within ``max_angle`` radians of
+    a Lambert pole (+z for even rows, -z for odd; the first of each exactly
+    onto it)."""
+    rng = np.random.default_rng(seed)
+    v = np.asarray(dc, dtype=np.float64)[rng.integers(0, dc.shape[0], n)]
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    angle = rng.uniform(0.0, max_angle, n)
+    angle[:2] = 0.0
+    phi = rng.uniform(0.0, 2 * np.pi, n)
+    pole = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)
+    target = np.stack([np.sin(angle) * np.cos(phi), np.sin(angle) * np.sin(phi), pole * np.cos(angle)], axis=1)
+    axis = np.cross(v, target)
+    norm = np.linalg.norm(axis, axis=1, keepdims=True)
+    axis = np.where(norm > 1e-12, axis / np.maximum(norm, 1e-300), np.array([1.0, 0.0, 0.0]))
+    half = 0.5 * np.arccos(np.clip(np.sum(v * target, axis=1), -1.0, 1.0))
+    q = np.concatenate([np.cos(half)[:, None], np.sin(half)[:, None] * axis], axis=1)
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
 def projection_checks(device, dictionary_rows, rot, dc, quad, side: int, master_range: float, om, seed: int):
-    """Kernel A (``lambert_project``) against its plain twin: the main
-    path's whole dictionary, compared value by value and tap by tap in
-    slabs of 8192 rows, then a rescaled slab, one PC per rotation, a ragged
-    pixel count and one rotation. Returns (max |kernel - plain|, pixels
-    whose tap index differs, pixels compared, cases)."""
+    """Kernel A (``lambert_project``) against the plain twin in float64
+    (``Float64Yardstick``): the main path's whole dictionary in slabs of
+    8192 rows (the rows the main path made, and the taps of a second
+    launch), then a rescaled slab, one PC per rotation, a ragged pixel count
+    (P = 515), one rotation, and 64 rotations that put a pixel within 1e-3
+    rad of a Lambert pole. Raises if the criterion fails; returns the
+    yardstick."""
     import torch
 
     from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc
@@ -587,32 +690,33 @@ def projection_checks(device, dictionary_rows, rot, dc, quad, side: int, master_
 
     geo = (side, side, (side - 1) / 2)
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
-    worst, flips, pixels = 0.0, 0, 0
+    quad64 = quad.double()
+    yard = Float64Yardstick()
 
-    def compare(got, r, d, **kw):
-        nonlocal worst, flips, pixels
-        ref, ref_tap = lp.lambert_project_plain(r, d, quad, *geo, taps=True, **kw)
+    def compare(case, got, r, d, **kw):
         _, tap = lp.lambert_project(r, d, quad, *geo, taps=True, **kw)
         if got is None:
             got = lp.lambert_project(r, d, quad, *geo, **kw)
-        worst = max(worst, float((got - ref).abs().max()))
-        flips += int((tap != ref_tap).sum())
-        pixels += ref.numel()
+        p32, t32 = lp.lambert_project_plain(r, d, quad, *geo, taps=True, **kw)
+        p64, t64 = lp.lambert_project_plain(r.double(), d.double(), quad64, *geo, taps=True, **kw)
+        yard.add(case, got, tap, p32, t32, p64, t64, 255.0 if kw.get("rescale") else master_range)
 
     n = rot.shape[0]
     for start in range(0, n, 8192):
         end = min(start + 8192, n)
-        compare(dictionary_rows[start:end], rot[start:end], dc)
-    compare(None, rot[:8192], dc, rescale=True, out_min=0.0, out_max=255.0)
+        compare("dictionary", dictionary_rows[start:end], rot[start:end], dc)
+    compare("rescaled", None, rot[:8192], dc, rescale=True, out_min=0.0, out_max=255.0)
     few = min(4096, n)
     pcs = torch.tensor(PC) + (torch.rand((few, 3), generator=g) - 0.5) * 0.04
-    compare(None, rot[:few], _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous())
-    compare(None, rot[:few], dc[::7].contiguous())
-    compare(None, rot[:1], dc)
-    if worst > 1e-5 * master_range or flips >= 1e-4 * pixels:
-        raise AssertionError(f"lambert_project != plain: max |diff| {worst} (limit {1e-5 * master_range}), "
-                             f"{flips} of {pixels} taps differ")
-    return worst, flips, pixels, 5 + (n - 1) // 8192
+    compare("per-PC", None, rot[:few], _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous())
+    compare("P=515", None, rot[:few], dc[::7].contiguous())
+    compare("B=1", None, rot[:1], dc)
+    compare("pole", None, torch.as_tensor(pole_rotations(dc.cpu().numpy(), 64, seed + 5), device=device), dc)
+    bad = yard.failures()
+    if bad:
+        raise AssertionError("lambert_project against the float64 twin: " + "; ".join(bad) + " | " + "; ".join(
+            f"{name}: {yard.summary(c)}" for name, c in yard.cases.items()))
+    return yard
 
 
 def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int):
@@ -932,21 +1036,23 @@ def main(argv=None) -> int:
 
     # Instruction slots: SASS instructions a pixel, recounted where the toolkit
     # disassembles (sass_count.py), and the card's largest SM clock.
-    sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL, "source": "constants"}
+    sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
+            "project_pixel_a": SASS_A_PER_PIXEL, "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
-        sass = {"project_pixel": counted["project_pixel"], "direction_cosine": counted["direction_cosine"],
-                "source": "recounted in this run"}
+        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a")}
+        sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
-    if sass["project_pixel"] <= 0 or sass["direction_cosine"] <= 0:
+    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"]) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
-        f"{sass['direction_cosine']} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}); dispatch "
+        f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']} ({sass['source']}; "
+        f"constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -1034,13 +1140,19 @@ def main(argv=None) -> int:
     dc = direction_cosines_from_detector(det, device=dev)
     om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=dev)
     rot_dict = torch.as_tensor(dict_rot, dtype=torch.float32, device=dev)
-    a_err, a_flips, a_pixels, a_cases = projection_checks(
+    yard = projection_checks(
         dev, dictionary.data.reshape(m, -1), rot_dict, dc, quad, side, float(master_np.max() - master_np.min()), om,
         args.seed)
-    log("projection-check", f"lambert_project against its plain twin on {a_cases} cases (the whole {m}-pattern "
-        f"dictionary of the main path, a rescaled slab, one PC per rotation, P=515, B=1): max |diff| {a_err:.3e} "
-        f"(master range {float(master_np.max() - master_np.min()):.4f}); tap index differs on {a_flips} of "
-        f"{a_pixels} pixels ({a_flips / a_pixels:.2e})")
+    # Kernel A's max |kernel - plain| in the kernels line: against the float64
+    # twin on the main path's own rows.
+    a_err = yard.cases["dictionary"]["max_k"] * float(master_np.max() - master_np.min())
+    log("projection-check", f"lambert_project against the plain twin in float64 on {len(yard.cases)} cases (the "
+        f"whole {m}-pattern dictionary of the main path, a rescaled slab, one PC per rotation, P=515, B=1, pixels "
+        f"within 1e-3 rad of a pole), shares of the master's range {float(master_np.max() - master_np.min()):.4f} "
+        f"(of 255 rescaled); limits: pooled max E_k <= max E_t, RMS E_k <= {A_RMS_FACTOR} x RMS E_t, taps off "
+        f"float64's <= {A_TAP_FACTOR} x the float32 twin's and < {A_TAP_SHARE:g} of the pixels, each case max E_k "
+        f"<= {A_CASE_MAX:g}: pooled {yard.summary(yard.pooled())} | "
+        + " | ".join(f"{name}: {yard.summary(c)}" for name, c in yard.cases.items()))
     pre_rows = pre.data.reshape(n_scan, -1)
     top1_rot = xmap.best_rotations
     rot_nav = torch.as_tensor(top1_rot[:NAV_CHUNK], dtype=torch.float32, device=dev)
@@ -1512,27 +1624,31 @@ def main(argv=None) -> int:
     ms_b_plain = cuda_ms(lambda: lp.lambert_project_ncc_plain(rot_nav, dc, quad, *geo, exp_c, sq_c), 5)
     pix_a = m * d
     t_bytes_a = (4 * (pix_a + 4 * m + dc.numel()) + 4 * quad.numel()) / PEAK_BYTES * 1e3
-    t_ops_a = pix_a * OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
+    t_ops_a = pix_a * A_OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
     none_keys = dict(library_ms=None, library_same_function_ms=None, split_ms=None, kernel_only_ms=None)
     # Kernel B: since the PC and joint modes run on the Nelder-Mead kernel,
     # no entry point of the port launches it; it is the host loops' engine.
-    for name, line, launches, err, ms, plain_ms, bound, by, taps in (
+    notes = {
+        "lambert_project": "max_abs_err against the plain twin in float64 on the main path's rows",
+        "lambert_project_ncc": "the host loops' objective; no entry point of the port launches it",
+    }
+    for name, line, launches, err, ms, plain_ms, bound, by, taps, per_pixel in (
         ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"], a_err, ms_a,
-         ms_a_plain, max(t_bytes_a, t_ops_a), "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a),
+         ms_a_plain, max(t_bytes_a, t_ops_a), "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a,
+         sass["project_pixel_a"]),
         ("lambert_project_ncc", "indexing/refinement.py:132", refine_launches["lambert_project_ncc"], b_err, ms_b,
-         ms_b_plain, bound_b, "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b),
+         ms_b_plain, bound_b, "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b, sass["project_pixel"]),
     ):
         l2_ms = taps * TAP_BYTES / l2_rate * 1e3
-        t_instr = instruction_ms(taps, sass["project_pixel"], clock_mhz, sms)
+        t_instr = instruction_ms(taps, per_pixel, clock_mhz, sms)
         table.append({
             "name": name, "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/lambert_project.cu",
             "replaces": f"kikuchipy_tpu/{line}", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr,
-            **none_keys, **({"note": "the host loops' objective; no entry point of the port launches it"}
-                            if name == "lambert_project_ncc" else {}),
+            **none_keys, "note": notes[name],
         })
         time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; instruction slots "
-                         f"{t_instr:.4f} ms at {sass['project_pixel']} instructions a pixel ({t_instr / ms:.2%}); its "
+                         f"{t_instr:.4f} ms at {per_pixel} instructions a pixel ({t_instr / ms:.2%}); its "
                          f"{taps * TAP_BYTES / 1e9:.3f} GB of taps from L2 {l2_ms:.4f} ms; plain {plain_ms:.3f} ms"
                          f"{' in slabs of 16384 rows' if name == 'lambert_project' else ''}; no single PyTorch "
                          f"call computes it)")
@@ -1589,6 +1705,21 @@ def main(argv=None) -> int:
     log("profile", f"{smi}: one pallas-int8 call under torch.profiler: wall {wall_ms:.3f} ms (tracing on), device busy "
         f"{busy_ms:.3f} ms over {len(events)} kernel names; {top}" if events else
         f"{smi}: torch.profiler recorded no device time; wall {wall_ms:.3f} ms")
+
+    # ---- a profiler trace of one dictionary generation (get_patterns) ----
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mp.get_patterns(dict_rot, det, chunk_size=8192)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events = device_busy(prof)
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    log("profile-projection", f"{smi}: one get_patterns call ({m} patterns) under torch.profiler: wall {wall_ms:.3f} ms "
+        f"(tracing on), device busy {busy_ms:.3f} ms over {len(events)} kernel names: "
+        + "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in events[:8])
+        + " | host self time: " + "; ".join(f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms"
+                                           for e in host[:10]))
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")

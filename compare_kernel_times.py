@@ -1,5 +1,6 @@
-"""Time the fused int8, bf16 and f32 NCC + top-k kernels of one checkout at
-the main-path shape, to compare two commits on one card.
+"""Time the fused int8, bf16 and f32 NCC + top-k kernels and the projection
+kernel (kernel A) of one checkout at the main-path shape, to compare two
+commits on one card.
 
     python3 compare_kernel_times.py --tree DIR [--reps 10]
 
@@ -14,7 +15,9 @@ to its operands on every call: the split into TF32 planes, where the
 tree's kernel multiplies on the tensor cores), each beside the library's
 product of the same operands (``torch._int_mm``, ``torch.matmul`` in bf16
 and in f32 with TF32 off) and the card's clock, power and temperature
-right after the kernel. It prints one JSON line per kernel, with checksums of the results
+right after the kernel; first of all ``lambert_project`` on the whole
+107,129 x 3600 dictionary and the ``get_patterns`` call that makes it (no
+library call computes either). It prints one JSON line per kernel, with checksums of the results
 (int8: equal between two commits that compute the same function; the
 float kernels': equal up to near-ties and the order of their f32 sums).
 Run it once per checkout, alternating (parent, change, change, parent),
@@ -75,7 +78,15 @@ def operands(tree: Path):
     dict_prep = metric.prepare(dictionary.data)[:m_main].contiguous()
     exp_q, _ = _quantize_rows_int8(exp_prep)
     dict_q, dict_scale = _quantize_rows_int8(dict_prep)
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+
+    side = smoke.MASTER_SIDE
+    projection = (torch.as_tensor(dict_rot, dtype=torch.float32, device=dev),
+                  direction_cosines_from_detector(det, device=dev),
+                  quad_texture(torch.as_tensor(mp._hemispheres_at_energy(), device=dev)), side, side, (side - 1) / 2)
     return {
+        "lp": lp, "projection": projection, "get_patterns": lambda: mp.get_patterns(dict_rot, det, chunk_size=8192),
         "smoke": smoke, "nt": nt, "exp": exp_prep, "dict": dict_prep, "exp_q": exp_q, "dict_q": dict_q,
         "dict_scale": dict_scale, "exp_bf16": exp_prep.to(torch.bfloat16), "dict_bf16": dict_prep.to(torch.bfloat16),
     }
@@ -108,6 +119,18 @@ def main(argv=None) -> int:
     m_main = kq.shape[0]
     k = 40
 
+    # The projection first, before the f32 kernel draws the card's whole power.
+    lp, projection = ops["lp"], ops["projection"]
+    for name, fn in (("lambert_project", lambda: lp.lambert_project(*projection)),
+                     ("get_patterns", ops["get_patterns"])):
+        ms = smoke.cuda_ms(fn, args.reps)
+        after = card()
+        out = fn()
+        out = out if name == "lambert_project" else out.data
+        print(json.dumps({
+            "tree": str(args.tree), "kernel": name, "B": int(projection[0].shape[0]), "P": int(projection[1].shape[0]),
+            "ms": ms, "library_product_ms": None, "card": after, "checksum": float(out.double().sum().item()),
+        }), flush=True)
     runs = {
         "ncc_match_topk_int8": (lambda: nt.ncc_match_topk_int8(exp_q, kq, ks, k, 512, 512),
                                 lambda: torch._int_mm(exp_q, kq.T), args.reps),

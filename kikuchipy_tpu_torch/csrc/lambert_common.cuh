@@ -1,8 +1,11 @@
-// The projection of one detector pixel from the master pattern, shared by
-// the kernels of csrc/lambert_project.cu (A: projection, B: projection-NCC)
-// and csrc/refine_nm.cu (Nelder-Mead over the projection-NCC), so that all
-// three round every pixel alike; and project_pixel_pc, the same projection
-// after the pixel's direction cosine from a candidate projection center.
+// The projection of one detector pixel from the master pattern, in two
+// forms.
+//
+// project_pixel, shared by kernel B of csrc/lambert_project.cu (the
+// projection-NCC) and csrc/refine_nm.cu (Nelder-Mead over the
+// projection-NCC), so that those two round every pixel alike; and
+// project_pixel_pc, the same projection after the pixel's direction cosine
+// from a candidate projection center.
 //
 // project_pixel: rotate the direction (geometry/quaternion.py
 // rotate_vector), map it to square Lambert with the branches of
@@ -20,6 +23,10 @@
 // reciprocal, as PyTorch computes it. This matters near the Lambert poles:
 // there 1 - |z| cancels, and one ulp of z moves a coordinate by a large part
 // of a texel, so twin and kernel agree bit for bit only if they round alike.
+//
+// project_pixel_a, kernel A's (dictionary generation): the same projection
+// in fewer instructions, held against the plain twin run in float64 rather
+// than against its float32 rounding. See there.
 
 #pragma once
 
@@ -179,6 +186,131 @@ __device__ __forceinline__ float project_pixel_pc(const Rot& r, const PcFrame& f
     const float norm =
         __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])), __fmul_rn(v[2], v[2])));
     return project_pixel(r, __fdiv_rn(v[0], norm), __fdiv_rn(v[1], norm), __fdiv_rn(v[2], norm), g, tap);
+}
+
+// ---------------- kernel A: the projection in fewer instructions ---------------- //
+//
+// project_pixel_a computes what project_pixel computes (the hemisphere by
+// the rotated z < 0, X = Y = 0 at the pole, the truncated indices with the
+// nii < 0 -> niip clamp, the clamped weights, the float4 tap) with cheaper
+// arithmetic, and no explicitly rounded operation, so nvcc contracts
+// products and sums into FMAs:
+// - the rotation is a 3 x 3 matrix a rotation (rotation_matrix), 3 products
+//   and 6 FMAs a pixel;
+// - no normalised vector: with rho^2 = ox^2 + oy^2 and r = |o|,
+//   1 - |wz| = rho^2 / (r (r + |oz|)), which does not cancel near the poles
+//   as 1 - |wz| does in float32 (there one ulp of wz moves a coordinate by
+//   a large part of a texel); one approximate reciprocal square root for r
+//   and one for the coordinate;
+// - the Lambert map folded into texels: the major component's coordinate
+//   is u = scale sqrt(1 - |wz|) with the major component's sign, the
+//   minor's u (4 / pi) atan(minor / |major|), |minor / |major|| <= 1, so
+//   atan needs no range reduction: an odd polynomial (atan_4_over_pi), and
+//   one approximate reciprocal for the ratio; scale sqrt(pi) / 2 /
+//   sqrt(pi / 2) and its kin are one factor per axis, folded into u;
+// - the weights by one saturating subtraction, the blend as three lerps.
+// Against the plain twin in float64 on chip_smoke.py's master and detector
+// it is no worse than the float32 twin (chip_smoke.py [projection-check]
+// prints both); bit for bit with neither.
+
+// Rows of the rotation of quaternion (a, b, c, d) (rotate_vector's formula):
+// o_k = m[3k] x + m[3k + 1] y + m[3k + 2] z.
+struct RotMatrix {
+    float m[9];
+};
+
+__device__ __forceinline__ RotMatrix rotation_matrix(float a, float b, float c, float d) {
+    const float aa = a * a, bb = b * b, cc = c * c, dd = d * d;
+    RotMatrix r;
+    r.m[0] = (aa + bb) - (cc + dd);
+    r.m[1] = 2.f * (b * c - a * d);
+    r.m[2] = 2.f * (a * c + b * d);
+    r.m[3] = 2.f * (a * d + b * c);
+    r.m[4] = (aa + cc) - (bb + dd);
+    r.m[5] = 2.f * (c * d - a * b);
+    r.m[6] = 2.f * (b * d - a * c);
+    r.m[7] = 2.f * (a * b + c * d);
+    r.m[8] = (aa + dd) - (bb + cc);
+    return r;
+}
+
+// The quad texture in texel units: scale = (npx - 1) / 2 and its square.
+struct Texels {
+    const float4* quad;  // (2 * npy * npx) neighbourhoods
+    int npx, npy;
+    float scale, scale2;
+};
+
+__device__ __forceinline__ float rsqrt_approx(float x) {
+    float y;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+    float y;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// (4 / pi) atan(t) on [-1, 1]: t (c0 + t^2 Q(t^2)), Q of degree 7 in t^2,
+// fitted to weighted least squares near minimax with each coefficient
+// rounded to float32 before the next was fitted. Evaluated in float32 as
+// here its error is at most 7.6e-8 on [-1, 1] (2.7 ulp of the result).
+__device__ __forceinline__ float atan_4_over_pi(float t) {
+    const float t2 = t * t;
+    float q = 0.002927143359556794f;
+    q = fmaf(q, t2, -0.01753084547817707f);
+    q = fmaf(q, t2, 0.04932796582579613f);
+    q = fmaf(q, t2, -0.09097129851579666f);
+    q = fmaf(q, t2, 0.13311588764190674f);
+    q = fmaf(q, t2, -0.1801520586013794f);
+    q = fmaf(q, t2, 0.25444620847702026f);
+    q = fmaf(q, t2, -0.4244023859500885f);
+    return fmaf(1.2732393741607666f, t, (t * t2) * q);
+}
+
+// The bilinear value of the master pattern seen along direction (x, y, z)
+// after rotation r; tap is the quad-texture row it read.
+__device__ __forceinline__ float project_pixel_a(const RotMatrix& r, float x, float y, float z, const Texels& g,
+                                                 int& tap) {
+    const float ox = fmaf(r.m[0], x, fmaf(r.m[1], y, r.m[2] * z));
+    const float oy = fmaf(r.m[4], y, fmaf(r.m[3], x, r.m[5] * z));
+    const float oz = fmaf(r.m[8], z, fmaf(r.m[7], y, r.m[6] * x));
+
+    // u = scale sqrt(1 - |wz|) = sqrt(scale^2 rho^2 / (r (r + |oz|))); at the
+    // pole rho^2 = 0 and u = 0 (FLT_MIN keeps rsqrt finite there).
+    const float rho2 = fmaf(ox, ox, oy * oy);
+    const float r2 = fmaf(oz, oz, rho2);
+    const float rn = r2 * rsqrt_approx(r2);
+    const float rho2s = rho2 * g.scale2;
+    const float u = rho2s * rsqrt_approx(fmaf(rho2s, fmaf(fabsf(oz), rn, r2), 1.17549435e-38f));
+
+    // Major and minor component: vector_to_lambert's branch |wy| <= |wx|.
+    // sgn(major) atan(minor / major) = atan(minor / |major|); at the pole
+    // t is 0 (u is 0 all the same).
+    const bool first = fabsf(oy) <= fabsf(ox);
+    const float major = first ? ox : oy, minor = first ? oy : ox;
+    const float t = minor * rcp_approx(fmaxf(fabsf(ox), fabsf(oy)) + 1.17549435e-38f);
+    const float c_major = copysignf(u, major) + g.scale;
+    const float c_minor = fmaf(u, atan_4_over_pi(t), g.scale);
+    const float ci = first ? c_minor : c_major;  // from Lambert Y
+    const float cj = first ? c_major : c_minor;  // from Lambert X
+
+    // lambert_interpolation_weights: truncation, and nii < 0 -> niip. The
+    // weight is the same from the index before or after that clamp: for
+    // nii < 0, ci - nii <= 0 and the weight saturates to 0 either way.
+    int nii = __float2int_rz(ci), nij = __float2int_rz(cj);
+    const float di = __saturatef(ci - (float)nii);
+    const float dj = __saturatef(cj - (float)nij);
+    if (nii < 0) nii = min(nii + 1, g.npx - 1);
+    if (nij < 0) nij = min(nij + 1, g.npy - 1);
+
+    tap = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
+    const float4 q = __ldg(g.quad + tap);
+    const float lo = fmaf(di, q.y - q.x, q.x);
+    const float hi = fmaf(di, q.w - q.z, q.z);
+    return fmaf(dj, hi - lo, lo);
 }
 
 // Block-wide sum, min or max of one value per thread; every thread gets it:

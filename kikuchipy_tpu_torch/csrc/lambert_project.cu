@@ -13,67 +13,165 @@
 //                               1 - NCC for every simplex point.
 // ops/lambert_project.py holds the wrappers and the plain PyTorch twins.
 //
-// One (quaternion, direction) pair is project_pixel of csrc/lambert_common.cuh,
-// shared with csrc/refine_nm.cu; see there for its rounding.
+// Kernel B's (quaternion, direction) pair is project_pixel of
+// csrc/lambert_common.cuh, shared with csrc/refine_nm.cu; see there for its
+// rounding. Kernel A's is project_pixel_a of the same header: the same
+// projection in fewer instructions, held against the plain twin in float64.
 //
 // Bounds on an H100 SXM at the main-path shapes. Kernel A, the 107,129 x
 // 3600 dictionary: writing 1.54 GB of patterns is 0.46 ms at 3.35 TB/s;
 // the 385.7 M float4 taps are 6.2 GB read from L2, 0.86 ms at the 7.15 TB/s
-// L2 read rate chip_smoke.py measures on an H100 80GB HBM3 at 700 W.
+// L2 read rate chip_smoke.py measures on an H100 80GB HBM3 at 700 W; its
+// instructions, sass_count.py's count of project_pixel_a a pixel at 4 warp
+// instructions a clock on each of 132 SMs.
 // Kernel B, one 2048-point navigation chunk: 29.5 MB of experimental rows
 // is 8.8 us (88 MB more, 26 us, when each point has its own direction
-// cosines, as in the PC and joint modes); its 7.4 M taps are 118 MB from
-// L2, 16.5 us. The simulated pattern of kernel B never reaches device
-// memory.
+// cosines); its 7.4 M taps are 118 MB from L2, 16.5 us. The simulated
+// pattern of kernel B never reaches device memory.
 //
-// Design. One block of 256 threads per pattern, each thread a strided set
-// of pixels, so loads and stores of a pattern's pixels are coalesced and
-// the direction cosines of a shared detector stay in L1/L2.
-//   Kernel A writes the pattern; with rescale it keeps its running min and
-//   max in registers, reduces them across the block, and rescales the
-//   values it wrote itself (a second pass over its own 14 KB, from L1/L2).
-//   Kernel B projects each pixel twice. Pass 1 sums the simulated values
-//   for the mean; pass 2 projects again (the taps are in L2), centres each
-//   value on the mean and accumulates sum(exp * d) and sum(d * d). That is
-//   the JAX formula term for term: no sum(sim^2) - P * mean^2, which
-//   cancels in f32. Sums run in f32 per thread over P / 256 pixels, then
-//   across the block as a tree. P is not bounded by shared memory: nothing
-//   of a pattern is kept but these sums.
-// Orientation refinement no longer calls kernel B: csrc/refine_nm.cu runs
-// the whole Nelder-Mead on the card. The PC and joint modes still launch it
-// once an evaluation; several patterns a block and the direction cosines
-// from the PC inside the kernel are later work.
+// Design of kernel A. A persistent grid (the blocks that fit the SMs at
+// once) whose warps walk a list of items round robin: an item is one group
+// of LAMBERT_ROTATIONS rotations (4) over one run of up to kItemPixels
+// consecutive pixels. Each lane computes the group's rotation matrices once
+// an item, then for each of its pixels loads the direction cosine once and
+// projects it at every rotation of the group, so the load and its address
+// arithmetic are shared. Stores are coalesced (32 consecutive pixels of
+// one pattern a warp) and streaming (st.global.cs), so the 1.54 GB of
+// patterns pass L2 without evicting the 5.1 MB quad texture. With rescale
+// an item is LAMBERT_RESCALE_ROTATIONS (1) whole patterns: each lane keeps
+// the running minima and maxima, the warp reduces them by shuffles, and the
+// lane reads back what it wrote itself (plain stores, so it is still in
+// L2) and rescales it. A pattern (P / 32 values a lane) does not fit the
+// registers. lambert_variants.py measured these choices.
+//
+// What bounds it: the taps. Each pixel's float4 lies in a 32-byte sector
+// of its own (neighbouring pixels are about 3.7 texels apart), so every tap
+// is one scattered L2 request; an H100 80GB HBM3 at 700 W serves these at
+// about 1.2-1.3e11 a second (lambert_variants.py's gathers alone, at kernel
+// A's own rows and at hashed rows), about 3 ms for the dictionary, and
+// kernel A takes that long. Its instructions (sass_count.py: 78 a pixel,
+// 0.90 ms of issue slots) and the patterns' bytes (0.46 ms) are not the
+// bound.
+//
+// Kernel B: one block of 256 threads per pattern, each thread a strided
+// set of pixels. It projects each pixel twice. Pass 1 sums the simulated
+// values for the mean; pass 2 projects again (the taps are in L2), centres
+// each value on the mean and accumulates sum(exp * d) and sum(d * d). That
+// is the JAX formula term for term: no sum(sim^2) - P * mean^2, which
+// cancels in f32. Sums run in f32 per thread over P / 256 pixels, then
+// across the block as a tree. P is not bounded by shared memory: nothing
+// of a pattern is kept but these sums. No entry point launches kernel B:
+// refinement runs on csrc/refine_nm.cu in all three modes, and kernel B is
+// the engine of the host loops that kernel is held against.
+//
+// lambert_variants.py rebuilds kernel A with other LAMBERT_ROTATIONS,
+// LAMBERT_RESCALE_ROTATIONS and LAMBERT_STREAM_STORES and times each.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "lambert_common.cuh"
 
+// Rotations a lane projects at once, without and with rescale
+// (lambert_variants.py measures 1, 2, 4, 8).
+#ifndef LAMBERT_ROTATIONS
+#define LAMBERT_ROTATIONS 4
+#endif
+#ifndef LAMBERT_RESCALE_ROTATIONS
+#define LAMBERT_RESCALE_ROTATIONS 1
+#endif
+// 1: the patterns are written with streaming stores (st.global.cs), when
+// not rescaled.
+#ifndef LAMBERT_STREAM_STORES
+#define LAMBERT_STREAM_STORES 1
+#endif
+
 namespace {
 
+// Pixels of an item without rescale: 16 steps of a warp.
+constexpr int kItemPixels = 512;
+
+template <typename T>
+__device__ __forceinline__ void store_out(T* p, T v) {
+#if LAMBERT_STREAM_STORES
+    __stcs(p, v);
+#else
+    *p = v;
+#endif
+}
+
+template <int kRot, bool kPerElementDc, bool kRescale, bool kTaps>
 __global__ void __launch_bounds__(kThreads) lambert_project_kernel(
-    const float* __restrict__ rot, const float* __restrict__ dc, Geometry g, float* __restrict__ out,
-    int* __restrict__ taps, int B, int P, int per_element_dc, int rescale, float out_min, float out_range) {
-    __shared__ float scratch[kThreads / 32];
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-        const Rot r = make_rot(rot + 4LL * b);
-        const float* dcb = dc + (per_element_dc ? 3LL * P * b : 0LL);
-        float* row = out + (long long)P * b;
-        float lo = INFINITY, hi = -INFINITY;
-        for (int p = threadIdx.x; p < P; p += kThreads) {
-            int tap;
-            const float v = project_pixel(r, dcb[3 * p], dcb[3 * p + 1], dcb[3 * p + 2], g, tap);
-            row[p] = v;
-            if (taps) taps[(long long)P * b + p] = tap;
-            lo = fminf(lo, v);
-            hi = fmaxf(hi, v);
+    const float* __restrict__ rot, const float* __restrict__ dc, Texels g, float* __restrict__ out,
+    int* __restrict__ taps, int B, int P, float out_min, float out_range) {
+    const int lane = threadIdx.x & 31;
+    const int groups = (B + kRot - 1) / kRot;
+    const int runs = kRescale ? 1 : (P + kItemPixels - 1) / kItemPixels;
+    // Item i is (group i / runs, run i % runs); this warp takes items
+    // first, first + warps, ..., stepping group and run without a division.
+    const long long first = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+    const long long warps = (long long)gridDim.x * kWarps;
+    const long long group_step = warps / runs;
+    const int run_step = (int)(warps % runs);
+    long long group = first / runs;
+    int run = (int)(first % runs);
+    for (; group < groups; group += group_step, run += run_step) {
+        if (run >= runs) {
+            run -= runs;
+            if (++group >= groups) break;
         }
-        if (rescale) {
-            lo = block_reduce(lo, Min(), scratch);
-            hi = block_reduce(hi, Max(), scratch);
-            const float span = __fsub_rn(hi, lo);
-            for (int p = threadIdx.x; p < P; p += kThreads)
-                row[p] = __fadd_rn(__fmul_rn(__fdiv_rn(__fsub_rn(row[p], lo), span), out_range), out_min);
+        const int b0 = (int)group * kRot;
+        const int p0 = kRescale ? 0 : run * kItemPixels;
+        const int p1 = kRescale ? P : min(P, p0 + kItemPixels);
+        RotMatrix m[kRot];
+        // The last group's missing rotations repeat rotation B - 1 and are not stored.
+#pragma unroll
+        for (int r = 0; r < kRot; ++r) {
+            const float* q = rot + 4LL * min(b0 + r, B - 1);
+            m[r] = rotation_matrix(q[0], q[1], q[2], q[3]);
+        }
+        float lo[kRot], hi[kRot];
+#pragma unroll
+        for (int r = 0; r < kRot; ++r) lo[r] = INFINITY, hi[r] = -INFINITY;
+        for (int p = p0 + lane; p < p1; p += 32) {
+            float x = 0.f, y = 0.f, z = 0.f;
+            if (!kPerElementDc) x = dc[3 * p], y = dc[3 * p + 1], z = dc[3 * p + 2];
+#pragma unroll
+            for (int r = 0; r < kRot; ++r) {
+                const long long row = (long long)min(b0 + r, B - 1) * P;
+                if (kPerElementDc) {
+                    const float* d = dc + 3 * (row + p);
+                    x = d[0], y = d[1], z = d[2];
+                }
+                int tap;
+                const float v = project_pixel_a(m[r], x, y, z, g, tap);
+                if (b0 + r < B) {
+                    if (kRescale) {
+                        out[row + p] = v;  // read back below: kept in L2
+                    } else {
+                        store_out(out + row + p, v);
+                    }
+                    if (kTaps) store_out(taps + row + p, tap);
+                }
+                if (kRescale) lo[r] = fminf(lo[r], v), hi[r] = fmaxf(hi[r], v);
+            }
+        }
+        if (kRescale) {
+#pragma unroll
+            for (int r = 0; r < kRot; ++r) {
+                for (int off = 16; off > 0; off >>= 1) {
+                    lo[r] = fminf(lo[r], __shfl_xor_sync(0xffffffffu, lo[r], off));
+                    hi[r] = fmaxf(hi[r], __shfl_xor_sync(0xffffffffu, hi[r], off));
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < kRot; ++r) {
+                if (b0 + r >= B) continue;
+                // The twin's (v - min) / (max - min) * (out_max - out_min) + out_min.
+                const float f = __fdiv_rn(out_range, hi[r] - lo[r]);
+                float* row = out + (long long)(b0 + r) * P;
+                for (int p = lane; p < P; p += 32) row[p] = fmaf(row[p] - lo[r], f, out_min);
+            }
         }
     }
 }
@@ -112,6 +210,25 @@ int grid_for(int B) {
     return (int)(B < cap ? B : cap);
 }
 
+template <bool kPerElementDc, bool kRescale, bool kTaps>
+int launch_a(const float* rot, const float* dc, Texels g, float* out, int* taps, int B, int P, float out_min,
+             float out_range, cudaStream_t stream) {
+    constexpr int kRot = kRescale ? LAMBERT_RESCALE_ROTATIONS : LAMBERT_ROTATIONS;
+    auto kernel = lambert_project_kernel<kRot, kPerElementDc, kRescale, kTaps>;
+    int device = 0, sms = 0, resident = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    const long long groups = (B + kRot - 1) / kRot;
+    const long long items = groups * (kRescale ? 1 : (P + kItemPixels - 1) / kItemPixels);
+    const long long needed = (items + kWarps - 1) / kWarps;
+    const long long fit = (long long)sms * (resident > 0 ? resident : 1);
+    kernel<<<(int)(needed < fit ? needed : fit), kThreads, 0, stream>>>(rot, dc, g, out, taps, B, P, out_min,
+                                                                       out_range);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -120,16 +237,26 @@ extern "C" {
 // 4), all float32 and contiguous; out (B, P) float32; taps, when not null,
 // (B, P) int32: the quad-texture row each pixel read (for the checks).
 int lambert_project_launch(const void* rot, const void* dc, const void* quad, void* out, void* taps, int B, int P,
-                           int per_element_dc, int npx, int npy, float scale, float inv_sqrt_pi_half,
-                           int rescale, float out_min, float out_range, void* stream) {
+                           int per_element_dc, int npx, int npy, float scale, int rescale, float out_min,
+                           float out_range, void* stream) {
     if (B <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int grid = grid_for(B);
-    if (grid <= 0) return (int)cudaErrorInvalidDevice;
-    lambert_project_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rot), static_cast<const float*>(dc),
-        geometry(quad, npx, npy, scale, inv_sqrt_pi_half), static_cast<float*>(out), static_cast<int*>(taps), B, P,
-        per_element_dc, rescale, out_min, out_range);
-    return (int)cudaGetLastError();
+    const Texels g{static_cast<const float4*>(quad), npx, npy, scale, scale * scale};
+    const auto* r = static_cast<const float*>(rot);
+    const auto* d = static_cast<const float*>(dc);
+    auto* o = static_cast<float*>(out);
+    auto* t = static_cast<int*>(taps);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const int mode = (per_element_dc ? 4 : 0) | (rescale ? 2 : 0) | (taps ? 1 : 0);
+    switch (mode) {
+        case 0: return launch_a<false, false, false>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 1: return launch_a<false, false, true>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 2: return launch_a<false, true, false>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 3: return launch_a<false, true, true>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 4: return launch_a<true, false, false>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 5: return launch_a<true, false, true>(r, d, g, o, t, B, P, out_min, out_range, s);
+        case 6: return launch_a<true, true, false>(r, d, g, o, t, B, P, out_min, out_range, s);
+        default: return launch_a<true, true, true>(r, d, g, o, t, B, P, out_min, out_range, s);
+    }
 }
 
 // As lambert_project_launch, plus the centred experimental rows exp (B, P)

@@ -16,11 +16,15 @@ port                        JAX function (XLA code)
 
 For CPU tensors a wrapper returns its ``_plain`` twin; for CUDA tensors it
 launches its kernel or raises, and counts the launch in its own
-``.launches``. The twins define the arithmetic; the kernels round every
-operation as they do (``csrc/lambert_project.cu``: no FMA contraction, the
-CUDA math library's ``atanf`` and ``sqrtf``), so kernel and twin differ by
-the order of the sums only, and by a tap index where that order moves a
-coordinate across a grid line.
+``.launches``. The twins define the function, and run in any float dtype.
+Kernel B rounds every operation as its twin does in float32
+(``csrc/lambert_common.cuh`` ``project_pixel``: no FMA contraction, the CUDA
+math library's ``atanf`` and ``sqrtf``). Kernel A computes the same
+projection in fewer instructions (``project_pixel_a``: approximate
+reciprocals, a polynomial ``atan``, FMAs, and no cancellation near the
+Lambert poles). Its yardstick is the twin run on float64 operands, and it
+is held to be no further from it than the float32 twin is
+(``chip_smoke.py`` ``projection_checks``, ``tests/test_torch_gpu.py``).
 
 Arguments of both: ``rotations (B, 4)`` float32 unit quaternions; ``dc``
 direction cosines ``(P, 3)`` shared by all rotations or ``(B, P, 3)``, one
@@ -52,7 +56,7 @@ _SQRT_PI_HALF = math.sqrt(math.pi / 2)
 _INV_SQRT_PI_HALF = float(np.float32(1.0) / np.float32(_SQRT_PI_HALF))
 
 _ARGTYPES = {
-    "lambert_project": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int]
+    "lambert_project": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     "lambert_project_ncc": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p],
 }
@@ -168,8 +172,8 @@ def lambert_project(
     with torch.cuda.device(rotations.device):
         err = fn(
             rotations.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), 0 if tap is None else tap.data_ptr(),
-            B, P, int(dc.ndim == 3), npx, npy, float(scale), _INV_SQRT_PI_HALF, int(rescale), float(out_min),
-            float(out_max - out_min), torch.cuda.current_stream().cuda_stream,
+            B, P, int(dc.ndim == 3), npx, npy, float(scale), int(rescale), float(out_min), float(out_max - out_min),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"lambert_project launch failed: cudaError_t {err}")

@@ -5,23 +5,25 @@ kernels' instruction-slot bound.
 
 Builds a probe library from ``kikuchipy_tpu_torch/csrc/lambert_common.cuh``
 with the port's own ``nvcc`` flags, disassembles it with ``cuobjdump -sass``
-and counts the instructions of four one-pixel kernels: a load-and-store
+and counts the instructions of five one-pixel kernels: a load-and-store
 frame for each of the two pixel inputs (three direction cosines; a column
-and row), ``project_pixel`` on the first and ``project_pixel_pc`` (the
+and row), ``project_pixel`` (kernel B, the Nelder-Mead kernel) and
+``project_pixel_a`` (kernel A) on the first, and ``project_pixel_pc`` (the
 direction cosine from a PC frame, then ``project_pixel``) on the second.
 The pixel's own count is the probe's less its frame's, plus the frame's
 stand-in additions. A kernel's count is its main path: every instruction
 up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted. Both sides of
-the Lambert map's branch are counted, so the count is of the code, not of
-what one pixel executes (a warp whose pixels take both sides executes
-both).
+the Lambert map's branch of ``project_pixel`` are counted, so the count is
+of the code, not of what one pixel executes (a warp whose pixels take both
+sides executes both); ``project_pixel_a`` has no branch.
 
 Prints one JSON line: the counts, the instruction names of each pixel's
 code, the card's name and power limit. Needs the CUDA toolkit (``nvcc``
 and ``cuobjdump``); the card itself is not used. ``chip_smoke.py``'s
-``SASS_PER_PIXEL`` and ``SASS_DC_PER_PIXEL`` are this script's counts.
+``SASS_PER_PIXEL``, ``SASS_DC_PER_PIXEL`` and ``SASS_A_PER_PIXEL`` are this
+script's counts.
 """
 
 from __future__ import annotations
@@ -46,6 +48,12 @@ __global__ void probe_project(Rot r, Geometry g, const float* __restrict__ dc, f
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     int tap;
     if (i < n) out[i] = project_pixel(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
+}
+
+__global__ void probe_project_a(RotMatrix r, Texels g, const float* __restrict__ dc, float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    int tap;
+    if (i < n) out[i] = project_pixel_a(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
 }
 
 __global__ void probe_pix_frame(const float2* __restrict__ pix, float* __restrict__ out, int n) {
@@ -126,9 +134,11 @@ def count(build_dir: Path | None = None) -> dict:
 
     # Itanium-mangled names begin with the name's length.
     dc_frame, project = find("14probe_dc_frame"), find("13probe_project")
+    project_a = find("15probe_project_a")
     pix_frame, project_pc = find("15probe_pix_frame"), find("16probe_project_pc")
     # The frames' stand-in additions (two and one FADD) are not the pixel's.
     per_pixel = len(project) - len(dc_frame) + 2
+    per_pixel_a = len(project_a) - len(dc_frame) + 2
     per_pixel_pc = len(project_pc) - len(pix_frame) + 1
 
     def mix(ops, frame) -> dict[str, int]:
@@ -140,7 +150,9 @@ def count(build_dir: Path | None = None) -> dict:
         "project_pixel": per_pixel,
         "project_pixel_pc": per_pixel_pc,
         "direction_cosine": per_pixel_pc - per_pixel,
+        "project_pixel_a": per_pixel_a,
         "project_pixel_ops": mix(project, dc_frame),
+        "project_pixel_a_ops": mix(project_a, dc_frame),
         "project_pixel_pc_ops": mix(project_pc, pix_frame),
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }

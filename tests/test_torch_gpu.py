@@ -333,24 +333,31 @@ def test_shared_memory_of_a_block_is_what_python_computes(cuda, kernel):
 
 # --------------------- the projection kernels (csrc/lambert_project.cu) --------------------- #
 #
-# Kernel A (lambert_project) against its plain twin: values within 1e-5 of
-# the master's range, and fewer than 1e-4 of the pixels on another tap (the
-# twin rounds as the kernel does; a sum taken in another order can still
-# move a coordinate across a grid line). Kernel B (lambert_project_ncc):
-# 1 - NCC within 2e-6.
+# Kernel A (lambert_project) against the plain twin run on float64 operands,
+# beside the float32 twin's distance from it (chip_smoke.py
+# Float64Yardstick): in each case the largest error within 1e-4 of the
+# range (the master's, 255 when rescaled), and over the pixels of all cases
+# together no larger than the float32 twin's, an RMS within 1.5 x its, and
+# no more pixels on another tap than 1.5 x its (and under 1e-4 of them).
+# Kernel B (lambert_project_ncc) rounds as its twin does: 1 - NCC within
+# 2e-6.
 
 
-def _projection_state(device, side=101, shape=(60, 60), pc=(0.42, 0.28, 0.5)):
+def _smoke():
     import importlib.util
     from pathlib import Path
-
-    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
-    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
 
     spec = importlib.util.spec_from_file_location("chip_smoke_inputs", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    master = smoke.master_pattern_data(side)
+    return smoke
+
+
+def _projection_state(device, side=101, shape=(60, 60), pc=(0.42, 0.28, 0.5)):
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+
+    master = _smoke().master_pattern_data(side)
     det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
     quad = quad_texture(torch.as_tensor(master, device=device))
     dc = direction_cosines_from_detector(det, device=device)
@@ -370,29 +377,53 @@ def _per_point_dc(n, om, seed, device):
     return _dc_for_pc(torch.as_tensor(pcs, dtype=torch.float32, device=device), 60, 60, om, None).contiguous()
 
 
-@pytest.mark.parametrize("case", ["shared", "rescale", "per_point", "ragged", "one"])
-def test_lambert_project_matches_plain(cuda, case):
+A_CASES = ["shared", "rescale", "per_point", "ragged", "one", "pole"]
+
+
+def _kernel_a_case(device, case, yard):
+    """Kernel A on one case, added to ``yard`` beside both twins; checks
+    the launch count and that a second launch gives the same values."""
     from kikuchipy_tpu_torch.ops import lambert_project as lp
 
-    master, quad, dc, om, _ = _projection_state(cuda)
-    B = {"one": 1}.get(case, 3000)
-    rot = _quats(B, 40, cuda)
+    master, quad, dc, om, _ = _projection_state(device)
+    B = {"one": 1, "pole": 64}.get(case, 3000)
+    rot = _quats(B, 40, device)
     kw = dict(rescale=True, out_min=0.0, out_max=255.0) if case == "rescale" else {}
     if case == "per_point":
-        dc = _per_point_dc(B, om, 41, cuda)
+        dc = _per_point_dc(B, om, 41, device)
     elif case == "ragged":
-        dc = dc[::7].contiguous()  # P = 515: no multiple of the 256-thread block
+        dc = dc[::7].contiguous()  # P = 515: no multiple of the warp or of an item's 512 pixels
+    elif case == "pole":
+        # each rotation turns one pixel to within 1e-3 rad of a Lambert pole
+        rot = torch.as_tensor(_smoke().pole_rotations(dc.cpu().numpy(), B, 47), device=device)
     before = lp.lambert_project.launches
     got, tap = lp.lambert_project(rot, dc, quad, 101, 101, 50.0, taps=True, **kw)
     torch.cuda.synchronize()
     assert lp.lambert_project.launches == before + 1
-    ref, ref_tap = lp.lambert_project_plain(rot, dc, quad, 101, 101, 50.0, taps=True, **kw)
-    scale = 255.0 if case == "rescale" else float(master.max() - master.min())
-    flips = int((tap != ref_tap).sum())
-    print(f"{case}: max |diff| {float((got - ref).abs().max()):.3e}, tap index differs on {flips} of {ref.numel()}")
-    assert float((got - ref).abs().max()) <= 1e-5 * scale
-    assert flips < 1e-4 * ref.numel()
     assert torch.equal(lp.lambert_project(rot, dc, quad, 101, 101, 50.0, **kw), got)
+    p32, t32 = lp.lambert_project_plain(rot, dc, quad, 101, 101, 50.0, taps=True, **kw)
+    p64, t64 = lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), 101, 101, 50.0, taps=True, **kw)
+    yard.add(case, got, tap, p32, t32, p64, t64, 255.0 if case == "rescale" else float(master.max() - master.min()))
+
+
+@pytest.mark.parametrize("case", A_CASES)
+def test_lambert_project_matches_plain(cuda, case):
+    smoke = _smoke()
+    yard = smoke.Float64Yardstick()
+    _kernel_a_case(cuda, case, yard)
+    c = yard.cases[case]
+    print(f"{case}: {yard.summary(c)}")
+    assert c["finite"]
+    assert c["max_k"] <= smoke.A_CASE_MAX
+
+
+def test_lambert_project_is_no_further_from_float64_than_the_float32_twin(cuda):
+    smoke = _smoke()
+    yard = smoke.Float64Yardstick()
+    for case in A_CASES:
+        _kernel_a_case(cuda, case, yard)
+    print(f"pooled: {yard.summary(yard.pooled())}")
+    assert yard.failures() == []
 
 
 @pytest.mark.parametrize("case", ["shared", "masked", "per_point", "ragged", "one"])
@@ -596,7 +627,7 @@ def test_projection_kernels_refuse_what_they_cannot_take(cuda):
     fn = lp._function("lambert_project")
     stream = torch.cuda.current_stream().cuda_stream
     assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), 0, 0, dc.shape[0], 0, 101, 101, 50.0,
-              1.0, 0, 0.0, 1.0, stream) != 0
+              0, 0.0, 1.0, stream) != 0
     fn = lp._function("lambert_project_ncc")
     assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 0, 0,
               101, 101, 50.0, 1.0, stream) != 0

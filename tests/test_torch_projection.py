@@ -284,3 +284,124 @@ def test_projector_matches_jax():
         ref = JMP(data=data).projector(jd, signal_mask=signal_mask)(rot)
         got = tmp_mp.projector(td, signal_mask=signal_mask)(rot)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+# ---- kernel A's yardstick: the plain twin on float64 operands ---- #
+#
+# On the card kernel A (lambert_project) is held against
+# lambert_project_plain run in float64, beside the float32 twin's own
+# distance from it (chip_smoke.py Float64Yardstick, tests/test_torch_gpu.py).
+# These hold the yardstick itself here: the float64 twin against the JAX
+# project_patterns in float64, and the float32 twin's error where the
+# criterion's limits assume it.
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.fixture(scope="module")
+def smoke_projection():
+    """chip_smoke.py's 401 x 401 master, its quad texture, the 60 x 60
+    detector's direction cosines (PC 0.42, 0.28, 0.5) and the module."""
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+
+    smoke = _chip_smoke()
+    master = smoke.master_pattern_data(smoke.MASTER_SIDE)
+    det = EBSDDetector(shape=smoke.DETECTOR_SHAPE, pc=smoke.PC, sample_tilt=70)
+    dc = tmp.direction_cosines_from_detector(det, device="cpu")
+    return smoke, master, tmp.quad_texture(_t(master)), dc
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+@pytest.mark.parametrize("multi_pc", [False, True])
+def test_plain_twin_in_float64_matches_jax(rescale, multi_pc):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    rng = np.random.default_rng(33)
+    master = rng.random((2, 21, 21))
+    jd = _detectors()[1 if multi_pc else 0]
+    dc = np.asarray(jmp.direction_cosines_from_detector(jd, dtype=jnp.float64))
+    q = rng.normal(size=(jd.navigation_size if multi_pc else 8, 4))
+    rot = q / np.linalg.norm(q, axis=1, keepdims=True)
+    ref = np.asarray(jmp.project_patterns(jnp.asarray(rot), jnp.asarray(dc), jnp.asarray(master), 21, 21, 10.0,
+                                          rescale=rescale, out_min=0.0, out_max=255.0))
+    assert ref.dtype == np.float64
+    got = lp.lambert_project_plain(_t(rot), _t(dc), tmp.quad_texture(_t(master)), 21, 21, 10.0, rescale=rescale,
+                                   out_min=0.0, out_max=255.0)
+    assert got.dtype == torch.float64 and got.shape == ref.shape
+    value_range = 255.0 if rescale else float(master.max() - master.min())
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * value_range)
+
+
+def test_float32_twin_is_within_the_criterions_case_limit_of_float64(smoke_projection):
+    # 300 random rotations of chip_smoke.py's master and detector: the
+    # float32 twin's largest error against float64 is under the limit that
+    # the criterion puts on kernel A in each case (A_CASE_MAX of the range).
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    smoke, master, quad, dc = smoke_projection
+    geo = (smoke.MASTER_SIDE, smoke.MASTER_SIDE, (smoke.MASTER_SIDE - 1) / 2)
+    rot = _t(_unit_quats(300, 34))
+    p32, t32 = lp.lambert_project_plain(rot, dc, quad, *geo, taps=True)
+    p64, t64 = lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), *geo, taps=True)
+    e_t = (p32.double() - p64).abs() / float(master.max() - master.min())
+    assert 0 < float(e_t.max()) <= smoke.A_CASE_MAX
+    assert float(e_t.square().mean().sqrt()) < 1e-6
+    assert int((t32 != t64).sum()) < smoke.A_TAP_SHARE * t64.numel()
+
+
+def test_float32_twin_puts_pixels_near_a_pole_on_it(smoke_projection):
+    # Within about 3.5e-4 rad of a Lambert pole the float32 twin's |wz|
+    # rounds to 1 and its pole rule puts the pixel on the pole: there its
+    # error against float64 passes A_CASE_MAX. So the pooled max of the
+    # criterion (E_k <= E_t) is loose near the poles, and the per-case limit
+    # is what holds kernel A there.
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    smoke, master, quad, dc = smoke_projection
+    geo = (smoke.MASTER_SIDE, smoke.MASTER_SIDE, (smoke.MASTER_SIDE - 1) / 2)
+    rot = _t(smoke.pole_rotations(dc.numpy(), 64, 35))
+    rotated = tq.rotate_vector(rot.double()[:, None, :], dc.double()[None])
+    angle = torch.arccos((rotated[..., 2].abs() / rotated.norm(dim=-1)).clamp(max=1.0)).amin(dim=1)
+    assert float(angle.max()) <= 1e-3 * (1 + 1e-6) and float(angle.min()) < 1e-6
+    p32 = lp.lambert_project_plain(rot, dc, quad, *geo)
+    p64 = lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), *geo)
+    e_t = (p32.double() - p64).abs() / float(master.max() - master.min())
+    assert float(e_t.max()) > smoke.A_CASE_MAX
+
+
+def test_float64_yardstick_flags_a_projection_off_its_limits(smoke_projection):
+    # chip_smoke.py's check of kernel A, with stand-ins for the kernel: the
+    # float64 twin itself passes; the float32 twin on the pole rotations
+    # fails its case limit; a projection that moves every value by 2e-5 of
+    # the range fails the pooled RMS limit.
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    smoke, master, quad, dc = smoke_projection
+    geo = (smoke.MASTER_SIDE, smoke.MASTER_SIDE, (smoke.MASTER_SIDE - 1) / 2)
+    value_range = float(master.max() - master.min())
+    cases = {"random": _t(_unit_quats(40, 36)), "pole": _t(smoke.pole_rotations(dc.numpy(), 16, 37))}
+    runs = {name: (lp.lambert_project_plain(rot, dc, quad, *geo, taps=True),
+                   lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), *geo, taps=True))
+            for name, rot in cases.items()}
+
+    def yardstick(kernel):
+        yard = smoke.Float64Yardstick()
+        for name, ((p32, t32), (p64, t64)) in runs.items():
+            got, tap = kernel(p32, t32, p64, t64)
+            yard.add(name, got, tap, p32, t32, p64, t64, value_range)
+        return yard.failures()
+
+    assert yardstick(lambda p32, t32, p64, t64: (p64.float(), t64)) == []
+    bad = yardstick(lambda p32, t32, p64, t64: (p32, t32))
+    assert len(bad) == 1 and bad[0].startswith("pole: max E_k")
+    bad = yardstick(lambda p32, t32, p64, t64: (p64.float() + 2e-5 * value_range, t64))
+    assert any("RMS" in line for line in bad)
