@@ -72,6 +72,20 @@ the card's name and power limit, and the device check):
    240 detector) with the same criteria and PC within 1e-5; times of both
    modes on the whole map (kernel, evaluations, bounds, patterns/s of the
    call, busy share under ``torch.profiler``, the host loop on its chunk);
+5d. Levenberg-Marquardt and gradient refinement of the same map in every
+   mode (``[refine-lm]``, ``[refine-grad]``): each ``EBSD.refine_*`` call
+   with ``method="lm"``, then ``"gradient"``, from Nelder-Mead's starts, is
+   launches of kernel C (``csrc/refine_lm.cu``, the tangent kernel, through
+   ``ops/refine_lm.py``'s wrapper of the mode) and of no other kernel, and
+   passes Nelder-Mead's gates; patterns/s of the call, launches, ms a launch
+   and the device busy share under ``torch.profiler``. ``[lm-check]``:
+   kernel C against its plain version at the same points on one 2,048-point
+   chunk in every mode (all pixels, a signal mask, P=1000; orientation mode
+   also one PC a point and pole rotations), f within 2e-6, ``J^T r`` and
+   ``J^T J`` within 1e-4 of their norms and, in orientation mode, no further
+   from the plain version in float64 than twice the float32 one; then whole
+   LM runs on both over the chunk. ``[lm-times]``: one launch at the whole
+   map, its bounds, and the plain version on a chunk;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -153,6 +167,10 @@ DC_OPS_PER_PIXEL = 32
 SASS_PER_PIXEL = 244
 SASS_DC_PER_PIXEL = 99
 SASS_A_PER_PIXEL = 78
+# ... and kernel C's pixel in each mode (csrc/refine_lm.cu Pixel: the value,
+# its gradient with respect to the rotated direction, the d tangents; in the
+# PC modes after the direction cosine), without its passes' sums.
+SASS_LM_PER_PIXEL = {"orientation": 402, "pc": 518, "joint": 582}
 # Instruction slots of an SM: four warp schedulers, one warp instruction each a
 # clock (the Hopper architecture white paper), at the card's largest SM
 # clock (nvidia-smi clocks.max.sm in the run).
@@ -481,6 +499,7 @@ WRAPPERS = {
     "lambert_project": ("lambert_project", "lambert_project_ncc"),
     "refine_nm": ("nelder_mead_orientation", "nelder_mead_projection_center",
                   "nelder_mead_orientation_projection_center"),
+    "refine_lm": ("tangent_orientation", "tangent_projection_center", "tangent_orientation_projection_center"),
 }
 
 
@@ -958,6 +977,207 @@ def pc_edge_cases(device, mode: str, rows, rot_q, euler0, quad, geo, top1_rot, s
     return msgs
 
 
+# ------------------ kernel C (the tangent kernel) vs plain ------------------ #
+
+# Each refinement mode's refine_* call, its tangent wrapper and its d.
+LM_CALL = {"orientation": "refine_orientation", "pc": "refine_projection_center",
+           "joint": "refine_orientation_projection_center"}
+LM_WRAPPER = {"orientation": "tangent_orientation", "pc": "tangent_projection_center",
+              "joint": "tangent_orientation_projection_center"}
+LM_DIMS = {"orientation": 3, "pc": 3, "joint": 6}
+# Kernel C against its plain version at the same points: f = 0.5 ||r||^2
+# within LM_F_TOL (float32 sums of 3600 squares in other orders), J^T r and
+# J^T J within LM_REL of their norms; in orientation mode also against the
+# plain version in float64, no further than LM_FACTOR x the float32 plain
+# version or LM_REL (at the Lambert poles both float32 evaluations are about
+# 1e-3 of the norm off, tests/test_torch_gpu.py).
+LM_F_TOL = 2e-6
+LM_REL = 1e-4
+LM_FACTOR = 2.0
+# A whole LM run on the kernel against one on the plain version: on at least
+# NM_AGREE of the points 0.5 ||r||^2 within NM_FUN_TOL, rotations within
+# NM_DEG and PCs within LM_PC_TOL; iteration counts are printed (at the
+# optimum a step changes f by less than its rounding, and the two may stop
+# one step or six rejections apart).
+LM_PC_TOL = 1e-4
+
+
+def unit_quats(q) -> np.ndarray:
+    """Rows of ``q`` in float64 scaled to unit length: float32 quaternions
+    are unit only to about 1e-7, which a disorientation through arccos turns
+    into up to 0.05 degrees between a rotation and itself."""
+    q = np.asarray(q, dtype=np.float64)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def lm_ops_per_pixel(mode: str) -> int:
+    """float32 operations of one pixel of kernel C, an FMA counted as two:
+    the value as project_pixel computes it (OPS_PER_PIXEL), in the PC modes
+    after its direction cosine (DC_OPS_PER_PIXEL); its gradient with respect
+    to the rotated direction (the weights' 10, the Lambert map's 16, the
+    projection off the unit vector 24); the tangents (a rotation-vector
+    component 18, the three PC components 52 together); the three passes'
+    sums: the means 1 + d, the centred sums 2 + 2 d + d (d + 1), the
+    residual's 3 + 2 (d + 2)."""
+    d = LM_DIMS[mode]
+    tangents = (54 if mode != "pc" else 0) + (52 if mode != "orientation" else 0)
+    sums = (1 + d) + (2 + 2 * d + d * (d + 1)) + (3 + 2 * (d + 2))
+    return OPS_PER_PIXEL + (DC_OPS_PER_PIXEL if mode != "orientation" else 0) + 50 + tangents + sums
+
+
+def lm_problem(mode: str, rows, x, q0, pc0, take, quad, om, dc, geo, shape):
+    """(kernel wrapper, plain version, x, arguments) of kernel C in ``mode``
+    on the rows ``rows`` (their pixels ``take`` or all)."""
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    exp, _ = _prepare_experimental(rows, take)
+    unit = rl.unit_rows(exp)
+    if mode == "orientation":
+        return rl.tangent_orientation, rl.tangent_orientation_plain, x, (q0, unit, dc, quad, *geo)
+    if mode == "pc":
+        return (rl.tangent_projection_center, rl.tangent_projection_center_plain, x,
+                (pc0, unit, q0, quad, om, take, *geo, *shape))
+    return (rl.tangent_orientation_projection_center, rl.tangent_orientation_projection_center_plain, x,
+            (q0, pc0, unit, quad, om, take, *geo, *shape))
+
+
+def lm_errors(got, ref) -> tuple[float, float, float]:
+    """max |f - f_ref|, and max |g - g_ref| / |g_ref| and |H - H_ref| /
+    |H_ref| over the points."""
+    import torch
+
+    (f, g, h), (rf, rg, rh) = got, ref
+    return (float((f.double() - rf.double()).abs().max()),
+            float((torch.linalg.vector_norm((g.double() - rg.double()), dim=1)
+                   / torch.linalg.vector_norm(rg.double(), dim=1)).max()),
+            float((torch.linalg.matrix_norm(h.double() - rh.double()) / torch.linalg.matrix_norm(rh.double())).max()))
+
+
+def lm_float64(x, args):
+    """The orientation mode's (f, g, J^T J) from the plain version with
+    every operand and operation in float64."""
+    from kikuchipy_tpu_torch.geometry.quaternion import multiply
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    q0, unit, dc, quad = (a.double() for a in args[:4])
+    geo = args[4:]
+
+    def residual(delta):
+        return rl.sim_unit(lp._project_plain(multiply(q0, rl.exp_map(delta)), dc, quad, *geo)) - unit
+
+    return rl._normal_equations(residual, x.double(), ())
+
+
+def lm_checks(device, rows, rot_q, quad, geo, om, dc, seed: int) -> tuple[dict, list[str]]:
+    """Kernel C against its plain version at the same points on one
+    navigation chunk of the main path's rows: every mode, all pixels, a
+    signal mask and P=1000; orientation mode also one PC a point and pole
+    rotations (one pixel of each within 1e-3 rad of a Lambert pole, the
+    first two on it). Returns each mode's largest errors and the messages."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc
+
+    g = torch.Generator(device="cpu").manual_seed(seed + 6)
+    c = NAV_CHUNK
+    rows = rows[:c]
+    q0 = rot_q[:c].contiguous()
+    keep = torch.nonzero(torch.rand(rows.shape[1], generator=g) > 0.3)[:, 0].to(device)
+    first = torch.arange(1000, device=device)
+    delta = (torch.randn((c, 3), generator=g) * 0.01).to(device)
+    dpc = (torch.randn((c, 3), generator=g) * 0.004).to(device)
+    pc0 = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (c, 1)), dtype=torch.float32, device=device)
+    pcs = torch.tensor(PC) + (torch.rand((c, 3), generator=g) - 0.5) * 0.04
+    dc_pc = _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous()
+    poles = torch.as_tensor(pole_rotations(dc.cpu().numpy(), c, seed + 7), device=device)
+    cases = {
+        "orientation": [("all pixels", delta, q0, None, dc), (f"signal mask (P={keep.numel()})", delta, q0, keep,
+                        dc[keep].contiguous()), ("one PC a point", delta, q0, None, dc_pc),
+                        ("P=1000", delta, q0, first, dc[:1000].contiguous()),
+                        ("pole rotations", torch.zeros_like(delta), poles, None, dc)],
+        "pc": [("all pixels", dpc, q0, None, None), (f"signal mask (P={keep.numel()})", dpc, q0, keep, None),
+               ("P=1000", dpc, q0, first, None)],
+        "joint": [("all pixels", torch.cat([delta, dpc], 1), q0, None, None),
+                  (f"signal mask (P={keep.numel()})", torch.cat([delta, dpc], 1), q0, keep, None),
+                  ("P=1000", torch.cat([delta, dpc], 1), q0, first, None)],
+    }
+    worst, msgs, bad = {}, [], []
+    for mode, mode_cases in cases.items():
+        worst[mode] = [0.0, 0.0, 0.0]
+        for label, x, q, take, dcc in mode_cases:
+            wrapper, plain, x, args = lm_problem(mode, rows, x, q, pc0, take, quad, om, dcc, geo, DETECTOR_SHAPE)
+            got = wrapper(x, *args)
+            torch.cuda.synchronize()
+            ref = plain(x, *args)
+            err = lm_errors(got, ref)
+            worst[mode] = [max(a, b) for a, b in zip(worst[mode], err)]
+            msg = (f"{mode} {label}: |df| {err[0]:.2e}, |dg|/|g| {err[1]:.2e}, |dJtJ|/|JtJ| {err[2]:.2e}")
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            ok = finite and err[0] <= LM_F_TOL and err[1] <= LM_REL and err[2] <= LM_REL
+            if mode == "orientation":
+                ref64 = lm_float64(x, args)
+                ek, et = lm_errors(got, ref64), lm_errors(ref, ref64)
+                msg += (f"; against float64 kernel {ek[1]:.2e}, {ek[2]:.2e}, the float32 plain version {et[1]:.2e}, "
+                        f"{et[2]:.2e}")
+                ok = ok and all(ek[i] <= max(LM_REL, LM_FACTOR * et[i]) for i in (1, 2))
+                del ref64
+            msgs.append(msg)
+            if not ok:
+                bad.append(msg)
+            del got, ref
+    if bad:
+        raise AssertionError("kernel C disagrees with its plain version: " + "; ".join(bad))
+    return worst, msgs
+
+
+def lm_run_agreement(device, rows, rot_q, quad, geo, om, dc) -> list[str]:
+    """A whole LM run (refine_*'s settings: at most 30 iterations, ftol 1e-6,
+    3 degrees and 0.05 trust regions) on kernel C against one on its plain
+    version, on one navigation chunk in every mode."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+    from kikuchipy_tpu_torch.utils.optimize import levenberg_marquardt_batched
+
+    c = NAV_CHUNK
+    q0 = rot_q[:c].contiguous()
+    pc0 = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (c, 1)), dtype=torch.float32, device=device)
+    rot, pcn = np.deg2rad(3.0), 0.05
+    blocks = {"orientation": ((3, rot),), "pc": ((3, pcn),), "joint": ((3, rot), (3, pcn))}
+    msgs = []
+    for mode in ("orientation", "pc", "joint"):
+        d = LM_DIMS[mode]
+        wrapper, plain, x0, args = lm_problem(mode, rows[:c], torch.zeros((c, d), device=device), q0, pc0, None, quad,
+                                              om, dc, geo, DETECTOR_SHAPE)
+        kw = dict(max_iters=30, ftol=1e-6, blocks=blocks[mode], args=args)
+        got = levenberg_marquardt_batched(wrapper, x0, **kw)
+        ref = levenberg_marquardt_batched(plain, x0, **kw)
+        torch.cuda.synchronize()
+        fun_ok = float(((got.fun - ref.fun).abs() <= NM_FUN_TOL).float().mean())
+        oks = [fun_ok]
+        msg = (f"{mode}: 0.5 |r|^2 within {NM_FUN_TOL:g} on {fun_ok:.4f} (max {float((got.fun - ref.fun).abs().max()):.2e}, "
+               f"mean kernel - plain {float((got.fun.double() - ref.fun.double()).mean()):.2e}), iterations equal "
+               f"{float((got.n_iter == ref.n_iter).float().mean()):.4f} (mean {float(got.n_iter.float().mean()):.2f} "
+               f"vs {float(ref.n_iter.float().mean()):.2f})")
+        if mode != "pc":
+            ra = unit_quats(rl._rotation(q0, got.x[:, :3]).cpu().numpy())
+            rb = unit_quats(rl._rotation(q0, ref.x[:, :3]).cpu().numpy())
+            ang = np.degrees(disorientation_angle(ra, rb, "m-3m"))
+            oks.append(float((ang <= NM_DEG).mean()))
+            msg += f", rotations within {NM_DEG} deg {oks[-1]:.4f}"
+        if mode != "orientation":
+            dp = (got.x[:, -3:] - ref.x[:, -3:]).abs().amax(dim=1)
+            oks.append(float((dp <= LM_PC_TOL).float().mean()))
+            msg += f", PCs within {LM_PC_TOL:g} {oks[-1]:.4f} (max {float(dp.max()):.2e})"
+        if min(oks) < NM_AGREE or not bool(torch.isfinite(got.fun).all()):
+            raise AssertionError(f"LM on kernel C disagrees with LM on its plain version: {msg}")
+        msgs.append(msg)
+    return msgs
+
+
 def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
     """Milliseconds the SMs' instruction slots take for ``per_pixel`` instructions
     on each of ``pixels`` pixels, one pixel a thread (32 a warp)."""
@@ -1037,22 +1257,24 @@ def main(argv=None) -> int:
     # Instruction slots: SASS instructions a pixel, recounted where the toolkit
     # disassembles (sass_count.py), and the card's largest SM clock.
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
-            "project_pixel_a": SASS_A_PER_PIXEL, "source": "constants"}
+            "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL), "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
-        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a")}
+        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
-    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"]) <= 0:
+    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"],
+           *sass["tangent_pixel"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
-        f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']} ({sass['source']}; "
-        f"constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}); dispatch "
+        f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
+        f"gradient, tangents) {sass['tangent_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, "
+        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -1446,6 +1668,127 @@ def main(argv=None) -> int:
     log("refine-pc-times", f"{smi}: the whole map, P={d}: " + "; ".join(pc_times)
         + f"; orientation mode in the same run {ms_nm_again:.3f} ms")
 
+    # ---- LM and gradient refinement of the whole map, on kernel C ----
+    # Each refine_* call at its defaults with method "lm", then "gradient",
+    # from Nelder-Mead's starts: every evaluation is one launch of kernel C
+    # (csrc/refine_lm.cu) through the mode's tangent wrapper, and no other
+    # kernel runs; the gates are Nelder-Mead's.
+    lm_start = {"orientation": dict(xmap=xmap), "pc": dict(xmap=refined.xmap, detector=bad_det),
+                "joint": dict(xmap=xmap, detector=bad_det)}
+    lm_launches, lm_kernel_ms = {}, {}
+    for method, tag in (("lm", "refine-lm"), ("gradient", "refine-grad")):
+        msgs = []
+        for mode in ("orientation", "pc", "joint"):
+            call = getattr(static, LM_CALL[mode])
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(master_pattern=mp, method=method, **lm_start[mode])
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            counts = read_launches()
+            launches = counts[LM_WRAPPER[mode]]
+            others = {k: v for k, v in counts.items() if v and k != LM_WRAPPER[mode]}
+            if launches < 1 or others:
+                raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) did not run on kernel C alone: {counts}")
+            lm_launches[(method, mode)] = launches
+            iters = res.xmap.prop["num_evals"]
+            if res.xmap.best_rotations.shape != (n_scan, 4) or not np.isfinite(res.xmap.prop["scores"]).all():
+                raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) gave a bad crystal map")
+            ang = np.degrees(disorientation_angle(truth, unit_quats(res.xmap.best_rotations), "m-3m"))
+            gate = (f"disorientation to truth median {np.median(ang):.4f} deg, max over the {int(near.sum())} points "
+                    f"DI put within {REFINE_START_DEG} deg {ang[near].max():.4f} (limit {REFINE_MAX_DEG})")
+            if mode == "orientation" and not ang[near].max() < REFINE_MAX_DEG:
+                raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) missed: {gate}")
+            if mode != "orientation":
+                pcs = res.detector.pc.reshape(-1, 3)
+                off = np.abs(pcs.mean(axis=0) - np.asarray(PC))
+                gate = (f"mean PC {np.round(pcs.mean(axis=0), 6).tolist()} (off {np.round(off, 6).tolist()}, limit "
+                        f"{PC_TOL}), PC std {np.round(pcs.std(axis=0), 6).tolist()}, " + gate.split(", max")[0])
+                if not (off < PC_TOL).all():
+                    raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) missed the PC: {gate}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(master_pattern=mp, method=method, **lm_start[mode])
+            torch.cuda.synchronize()
+            t_call = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(master_pattern=mp, method=method, **lm_start[mode])
+                torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3
+            busy_k, events_k = device_busy(prof)
+            kern = [(cnt, t) for k, cnt, t in events_k if "refine_lm" in k]
+            k_n, k_ms = sum(c for c, _ in kern), sum(t for _, t in kern)
+            if method == "lm":
+                lm_kernel_ms[mode] = k_ms / max(k_n, 1)
+            top_k = "; ".join(f"{k[:40]} x{cnt} {t:.3f} ms" for k, cnt, t in events_k[:4])
+            msgs.append(
+                f"{LM_CALL[mode]}(method={method!r}) on the {n_scan} static-corrected patterns: first call "
+                f"{t_first:.3f} s, untraced {t_call * 1e3:.3f} ms = {n_scan / t_call:.1f} patterns/s; "
+                f"{LM_WRAPPER[mode]} launches {launches} ({k_n} under the trace, {k_ms / max(k_n, 1):.3f} ms a launch, "
+                f"{k_ms:.3f} ms in all); num_evals mean {iters.mean():.2f} max {int(iters.max())}; under "
+                f"torch.profiler wall {traced:.3f} ms, device busy {busy_k:.3f} ms = {busy_k / traced:.1%} (of the "
+                f"untraced call's time {busy_k / (t_call * 1e3):.1%}); {top_k}; " + gate)
+        log(tag, f"{smi}: " + "; ".join(msgs))
+
+    # Kernel C against its plain version at the same points, then whole LM
+    # runs on both, on one navigation chunk.
+    lm_worst, lm_msgs = lm_checks(dev, static_rows, torch.as_tensor(top1_rot, dtype=torch.float32, device=dev), quad,
+                                  geo, om, dc, args.seed)
+    run_msgs = lm_run_agreement(dev, static_rows, torch.as_tensor(top1_rot, dtype=torch.float32, device=dev), quad,
+                                geo, om, dc)
+    log("lm-check", f"kernel C against its plain version at the same points (limits: |df| <= {LM_F_TOL:g}, |dg| and "
+        f"|dJtJ| <= {LM_REL:g} of their norms; in orientation mode also no further from the float64 plain version than "
+        f"{LM_FACTOR:g} x the float32 one, or {LM_REL:g}): " + "; ".join(lm_msgs) + " | whole LM runs on the kernel and on the plain "
+        f"version over {NAV_CHUNK} points: " + "; ".join(run_msgs))
+
+    # Times of one launch at the main-path shape (the whole map, at the
+    # start x = 0, as LM's first launch), its bounds, and the plain version.
+    lm_rows = {}
+    q_top1 = torch.as_tensor(top1_rot, dtype=torch.float32, device=dev)
+    pc0_map = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (n_scan, 1)), dtype=torch.float32,
+                              device=dev)
+    lm_times = []
+    for mode in ("orientation", "pc", "joint"):
+        dd = LM_DIMS[mode]
+        zeros = torch.zeros((n_scan, dd), device=dev)
+        wrapper, plain, x_map, a_map = lm_problem(mode, static_rows, zeros, q_top1, pc0_map, None, quad, om, dc, geo,
+                                                  DETECTOR_SHAPE)
+        ms_k = cuda_ms(lambda: wrapper(x_map, *a_map), 5)
+        c = NAV_CHUNK
+        _, _, x_c, a_c = lm_problem(mode, static_rows[:c], zeros[:c], q_top1[:c], pc0_map[:c], None, quad, om, dc, geo,
+                                    DETECTOR_SHAPE)
+        ms_plain = cuda_ms(lambda: plain(x_c, *a_c), 1)
+        pixels = n_scan * d
+        per_point = 4 + (4 + 3 if mode != "pc" else 0) + (3 if mode != "orientation" else 0)
+        in_bytes = 4 * (n_scan * d + n_scan * per_point + (3 * d if mode == "orientation" else 2 * d) + quad.numel())
+        out_bytes = 4 * n_scan * (1 + dd + dd * dd)
+        t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+        t_ops = pixels * lm_ops_per_pixel(mode) / PEAK_F32_FLOPS * 1e3
+        t_instr = instruction_ms(pixels, sass["tangent_pixel"][mode], clock_mhz, sms)
+        l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
+        bound = max(t_ops, t_bytes)
+        lm_rows[mode] = {
+            "name": LM_WRAPPER[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_lm.cu",
+            "replaces": "kikuchipy_tpu/utils/optimize.py:305 jac_and_res + kikuchipy_tpu/indexing/refinement.py:132 "
+                        "_project_at",
+            "launches": lm_launches[("lm", mode)] + lm_launches[("gradient", mode)], "max_abs_err": lm_worst[mode][0],
+            "ms": ms_k, "plain_ms": ms_plain, "plain_points": c, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "library_same_function_ms": None, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr, "split_ms": None,
+            "kernel_only_ms": lm_kernel_ms[mode], "g_rel_err": lm_worst[mode][1], "jtj_rel_err": lm_worst[mode][2],
+        }
+        lm_times.append(
+            f"{LM_WRAPPER[mode]} (kernel C, {mode} mode, d={dd}) at n={n_scan}: {ms_k:.4f} ms a call (CUDA events; "
+            f"the kernel alone {lm_kernel_ms[mode]:.4f} ms a launch under torch.profiler in [refine-lm]); bound "
+            f"{bound:.4f} ms by {lm_rows[mode]['bound_by']} (operations {t_ops:.4f} ms at {lm_ops_per_pixel(mode)} a "
+            f"pixel, bytes {t_bytes:.4f} ms), {bound / ms_k:.2%} of it; instruction slots {t_instr:.4f} ms at "
+            f"{sass['tangent_pixel'][mode]} a pixel ({t_instr / ms_k:.2%}); taps {pixels * TAP_BYTES / 1e9:.3f} GB "
+            f"from L2 {l2_ms:.4f} ms ({l2_ms / ms_k:.2%}); plain version {ms_plain:.3f} ms for {c} points")
+        del zeros, x_map, a_map, x_c, a_c
+    log("lm-times", f"{smi}: " + "; ".join(lm_times))
+
     # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
     metric = get_metric("ncc")
     exp_prep = metric.prepare(pre.data)
@@ -1664,6 +2007,12 @@ def main(argv=None) -> int:
                          f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.3f} ms; the "
                          f"host loop on kernel B {row['plain_ms']:.1f} ms for {row['plain_points']} points against "
                          f"{row['chunk_ms']:.3f} ms of kernel; no single PyTorch call computes it)")
+    for mode, row in lm_rows.items():
+        table.append(row)
+        time_msgs.append(f"{row['name']} {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
+                         f"{row['bound_ms'] / row['ms']:.2%} of it; instruction slots {row['instruction_bound_ms']:.4f} "
+                         f"ms; taps from L2 {row['l2_bound_ms']:.4f} ms; plain version {row['plain_ms']:.3f} ms for "
+                         f"{row['plain_points']} points; no single PyTorch call computes it)")
     time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
                      f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16

@@ -1,9 +1,12 @@
 """Orientation and projection-center refinement.
 
 Counterpart of ``kikuchipy_tpu/indexing/refinement.py``: every map point
-is refined at once by Nelder-Mead (one simplex a point), minimizing ``1 -
-NCC`` between the centred experimental pattern and the pattern projected
-at the candidate Euler angles and/or PC.
+is refined at once, minimizing ``1 - NCC`` between the centred
+experimental pattern and the pattern projected at the candidate
+orientation and/or PC, by Nelder-Mead (``method="nm"``, one simplex a
+point), Levenberg-Marquardt (``"lm"``) or Adam descent (``"gradient"``).
+
+Nelder-Mead:
 
 - On the card every mode is one launch of the Nelder-Mead kernel
   (:mod:`kikuchipy_tpu_torch.ops.refine_nm`: ``nelder_mead_orientation``,
@@ -16,6 +19,15 @@ at the candidate Euler angles and/or PC.
   :mod:`kikuchipy_tpu_torch.utils.optimize` (lockstep iterations, a host
   loop) over the objective's plain PyTorch twin.
 
+Levenberg-Marquardt and gradient, over a local rotation vector about the
+start orientation (``q0 (x) exp_map(delta)``) and/or a PC shift: a host
+loop (:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`,
+:func:`_adam_minimize_batched`) whose every evaluation is one call of a
+wrapper of :mod:`kikuchipy_tpu_torch.ops.refine_lm`: on the card one
+launch of the tangent kernel for the batch, on the CPU its plain version
+(``torch.func.jvp``). LM's score is ``1 - 0.5 ||r||^2`` of the unit
+residual; gradient's is ``1 -`` its best value.
+
 Modes, as in the JAX package:
 
 - :func:`refine_orientation`: Euler triplet per point, fixed PC(s);
@@ -23,12 +35,12 @@ Modes, as in the JAX package:
   orientations;
 - :func:`refine_orientation_projection_center`: both, six parameters.
 
-Ported: Nelder-Mead (``method="nm"`` and its aliases) with the bilinear
-projector, navigation and signal masks, trust regions, per-point PCs,
-pseudo-symmetry variants and refinement in navigation chunks. Not ported
-yet, and refused with ``NotImplementedError``: the methods ``"lm"``,
-``"gradient"``, ``"de"``, ``"da"``, ``"bh"`` and ``"shgo"``, and
-``projector="spherical"``.
+Ported: Nelder-Mead, Levenberg-Marquardt and gradient (``method`` "nm",
+"lm", "gradient" and their aliases) with the bilinear projector, navigation
+and signal masks, trust regions, per-point PCs, pseudo-symmetry variants
+and refinement in navigation chunks. Not ported yet, and refused with
+``NotImplementedError``: the methods ``"de"``, ``"da"``, ``"bh"`` and
+``"shgo"``, and ``projector="spherical"``.
 
 Where the JAX objectives take the master pattern, the port's take its
 quad texture (:func:`~kikuchipy_tpu_torch.projection.master_pattern.
@@ -45,6 +57,20 @@ import torch
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, PhaseList
 from kikuchipy_tpu_torch.geometry import quaternion as quat
 from kikuchipy_tpu_torch.ops.lambert_project import lambert_project, ncc_centered
+from kikuchipy_tpu_torch.ops.refine_lm import (
+    exp_map,
+    joint_delta_objective,
+    joint_residual,
+    orientation_delta_objective,
+    orientation_residual,
+    pc_delta_objective,
+    pc_residual,
+    sim_unit,
+    tangent_orientation,
+    tangent_orientation_projection_center,
+    tangent_projection_center,
+    unit_rows,
+)
 from kikuchipy_tpu_torch.ops.refine_nm import (
     joint_objective,
     nelder_mead_orientation,
@@ -55,6 +81,7 @@ from kikuchipy_tpu_torch.ops.refine_nm import (
     pc_objective,
 )
 from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+from kikuchipy_tpu_torch.utils.optimize import clip_blocks, levenberg_marquardt_batched
 
 __all__ = [
     "RefinementResult",
@@ -119,10 +146,10 @@ def _check_ported(method: str, projector: str) -> str:
             "projector='spherical' (the spherical-harmonic tier) is not ported to "
             "kikuchipy_tpu_torch yet; use projector='bilinear'"
         )
-    if m != "nm":
+    if m not in ("nm", "lm", "gradient"):
         raise NotImplementedError(
             f"method={method!r} ({m}) is not ported to kikuchipy_tpu_torch yet; "
-            "only Nelder-Mead ('nm') is"
+            "Nelder-Mead ('nm'), Levenberg-Marquardt ('lm') and 'gradient' are"
         )
     return m
 
@@ -191,10 +218,77 @@ def _finalize_xmap(xmap, rotations, scores, n_iter, nav_shape):
 
 
 _objective_orientation = orientation_objective
-
-
 _objective_pc = pc_objective
 _objective_joint = joint_objective
+
+# Levenberg-Marquardt and gradient: the JAX package's names for the rotation
+# vector map, the unit rows, the least-squares residuals (with both rows
+# centred and unit, 0.5 ||sim_unit - exp_unit||^2 = 1 - NCC) and the 1 - NCC
+# objectives over the same parameters.
+_exp_map = exp_map
+_unit_rows = unit_rows
+_sim_unit = sim_unit
+_residual_orientation_delta = orientation_residual
+_residual_pc_delta = pc_residual
+_residual_joint_gibbs = joint_residual
+_objective_orientation_delta = orientation_delta_objective
+_objective_pc_delta = pc_delta_objective
+_objective_joint_gibbs = joint_delta_objective
+
+
+def _adam_minimize_batched(evaluate, x0: torch.Tensor, lr: float, iters: int, blocks, args: tuple = ()):
+    """Batched Adam descent with per-block norm trust regions (``blocks``:
+    ``((size, max_norm), ...)``); returns ``(x_best, f_best)``.
+
+    ``evaluate(x, *args)`` returns ``(f, g, ...)``: each element's value
+    and gradient at ``x`` (a wrapper of
+    :mod:`~kikuchipy_tpu_torch.ops.refine_lm`: one launch on the card
+    gives the value at a step's new point and the next step's gradient).
+    JAX's loop: Adam (0.9, 0.999, 1e-8) with bias corrections ``1 - b **
+    (i + 1)`` rounded to float32, each step's point clipped per block, the
+    best point of each element kept, and a stop once no element improved
+    its best by more than 1e-5 in 5 steps running: a test over the whole
+    batch, so the result depends on which points share a batch. One host
+    read a step.
+    """
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    f_best, g = evaluate(x0, *args)[:2]
+    x, x_best = x0, x0
+    m = torch.zeros_like(x0)
+    v = torch.zeros_like(x0)
+    powers = torch.arange(1, iters + 1, dtype=torch.float64)
+    corr1 = (1.0 - b1**powers).to(x0.dtype).to(x0.device)
+    corr2 = (1.0 - b2**powers).to(x0.dtype).to(x0.device)
+    stall = 0
+    for i in range(iters):
+        if stall >= 5:
+            break
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        step = lr * (m / corr1[i]) / (torch.sqrt(v / corr2[i]) + eps)
+        x = clip_blocks(x - step, blocks)
+        f, g = evaluate(x, *args)[:2]
+        x_best = torch.where((f < f_best)[:, None], x, x_best)
+        new_f_best = torch.minimum(f, f_best)
+        improved = bool(torch.amax(f_best - new_f_best) > 1e-5)  # the step's host read
+        stall = 0 if improved else stall + 1
+        f_best = new_f_best
+    return x_best, f_best
+
+
+def _local_solve(method, evaluate, n: int, d: int, device, max_iters: int, rtol: float, lr: float, blocks, args):
+    """The ``lm`` or ``gradient`` branch of every mode, from ``x = 0``:
+    ``(x (n, d), f (n,), num_evals (n,))``. LM runs at most 30 iterations
+    with ``ftol = rtol * 1e-2``; its ``num_evals`` are its iterations,
+    gradient's ``max_iters``."""
+    x0 = torch.zeros((n, d), dtype=_f32, device=device)
+    if method == "gradient":
+        x, f = _adam_minimize_batched(evaluate, x0, lr=lr, iters=max_iters, blocks=blocks, args=args)
+        return x, f, np.full(n, max_iters)
+    res = levenberg_marquardt_batched(
+        evaluate, x0, max_iters=min(max_iters, 30), ftol=rtol * 1e-2, blocks=blocks, args=args
+    )
+    return res.x, res.fun, res.n_iter.cpu().numpy()
 
 
 def _pc_shaped(pc: np.ndarray, nav_shape) -> np.ndarray:
@@ -265,17 +359,20 @@ def refine_orientation(
     signal's device.
 
     ``trust_region``: optional ``(3,)`` half-widths in degrees bounding
-    each Euler angle around its start value. ``pseudo_symmetry_ops``:
+    each Euler angle around its start value (for "lm" and "gradient" the
+    largest bounds the norm of the rotation vector; 3 degrees without
+    one). ``pseudo_symmetry_ops``:
     optional ``(n_ops, 4)`` quaternions; each point is also refined from
     every variant ``op * q0`` of its start and the best result kept, with
     the winning variant (0 = original) in the ``pseudo_symmetry_index``
-    property. ``nav_chunk``: points per Nelder-Mead batch (the last chunk
-    padded) on the CPU. On the card the whole map is one launch of the
-    Nelder-Mead kernel whatever ``nav_chunk`` says (its results do not
-    depend on chunking), except with one PC a point, where ``nav_chunk``
-    still bounds the ``(nav_chunk, P, 3)`` direction cosines of a launch.
-    ``sh_L`` and ``sh_precision`` belong to the spherical projector, which
-    is not ported yet.
+    property. ``nav_chunk``: points per batch (the last chunk padded) on the
+    CPU. On the card Nelder-Mead and Levenberg-Marquardt take the whole map
+    as one batch whatever ``nav_chunk`` says (their results do not depend
+    on chunking), except with one PC a point, where ``nav_chunk`` still
+    bounds the ``(nav_chunk, P, 3)`` direction cosines of a batch; the
+    gradient method's early stop is a test over its batch, so it keeps the
+    chunks everywhere. ``sh_L`` and ``sh_precision`` belong to the
+    spherical projector, which is not ported yet.
     """
     method = _check_ported(method, projector)
     if navigation_mask is not None:
@@ -304,7 +401,7 @@ def refine_orientation(
     dev = signal.device
 
     per_point_pc = detector.navigation_size != 1
-    if nav_chunk is not None and n > nav_chunk and (dev.type == "cpu" or per_point_pc):
+    if nav_chunk is not None and n > nav_chunk and (dev.type == "cpu" or per_point_pc or method == "gradient"):
         return _refine_orientation_chunked(
             signal, xmap, detector, master_pattern, energy, signal_mask, trust_region, max_iters, rtol, method,
             nav_chunk, projector, sh_L, sh_precision,
@@ -323,6 +420,18 @@ def refine_orientation(
         dc = dc.reshape((n, -1, 3))
         if mask_t is not None:
             dc = dc[:, mask_t]
+
+    if method in ("lm", "gradient"):
+        # Over a rotation vector about the start, clipped to the trust region.
+        q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+        max_norm = np.deg2rad(float(np.max(trust_region))) if trust_region is not None else np.deg2rad(3.0)
+        delta, fun, n_iter = _local_solve(
+            method, tangent_orientation, n, 3, dev, max_iters, rtol, np.deg2rad(0.25), ((3, max_norm),),
+            (q0, unit_rows(exp), dc.contiguous(), quad, npx, npy, scale),
+        )
+        refined_rot = quat.multiply(q0, exp_map(delta)).cpu().numpy()
+        new_xmap = _finalize_xmap(xmap, refined_rot, 1.0 - fun.cpu().numpy(), n_iter, nav_shape)
+        return RefinementResult(xmap=new_xmap, detector=detector)
 
     euler0 = quat.to_euler(torch.tensor(np.asarray(xmap.best_rotations), dtype=torch.float64)).numpy()
 
@@ -394,7 +503,8 @@ def refine_projection_center(
 ) -> RefinementResult:
     """Refine projection centers with fixed orientations, on the signal's
     device. ``trust_region``: optional ``(3,)`` half-widths (PC
-    fractions)."""
+    fractions); for "lm" and "gradient" the largest bounds the norm of the
+    PC shift (0.05 without one)."""
     method = _check_ported(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
@@ -419,6 +529,17 @@ def refine_projection_center(
     om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
     q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
     pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3)).astype(np.float32)
+
+    if method in ("lm", "gradient"):
+        max_norm = float(np.max(trust_region)) if trust_region is not None else 0.05
+        dpc, fun, n_iter = _local_solve(
+            method, tangent_projection_center, n, 3, dev, max_iters, rtol, 2e-3, ((3, max_norm),),
+            (torch.as_tensor(pc0, device=dev), unit_rows(exp), q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+        )
+        new_pc = np.asarray(pc0 + dpc.cpu().numpy(), dtype=np.float64)
+        new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
+        new_xmap = _finalize_xmap(xmap, np.asarray(xmap.best_rotations), 1.0 - fun.cpu().numpy(), n_iter, nav_shape)
+        return RefinementResult(xmap=new_xmap, detector=new_detector)
 
     lb = ub = None
     if trust_region is not None:
@@ -457,7 +578,9 @@ def refine_orientation_projection_center(
 ) -> RefinementResult:
     """Jointly refine orientations and PCs, on the signal's device.
     ``trust_region``: optional ``(6,)``: three Euler half-widths in
-    degrees, then three PC half-widths."""
+    degrees, then three PC half-widths; for "lm" and "gradient" the largest
+    of each three bounds the norm of the rotation vector and of the PC
+    shift (3 degrees and 0.05 without one)."""
     method = _check_ported(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
@@ -481,8 +604,28 @@ def refine_orientation_projection_center(
     nrows, ncols = detector.shape
     om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
 
-    euler0 = quat.to_euler(torch.tensor(np.asarray(xmap.best_rotations), dtype=torch.float64)).numpy()
     pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3))
+    if method in ("lm", "gradient"):
+        # Separate norm balls for the rotation vector and the PC shift.
+        if trust_region is not None:
+            tr = np.asarray(trust_region, dtype=np.float64)
+            rot_norm, pc_norm = float(np.deg2rad(np.max(tr[:3]))), float(np.max(tr[3:]))
+        else:
+            rot_norm, pc_norm = np.deg2rad(3.0), 0.05
+        q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+        x, fun, n_iter = _local_solve(
+            method, tangent_orientation_projection_center, n, 6, dev, max_iters, rtol, 2e-3,
+            ((3, rot_norm), (3, pc_norm)),
+            (q0, torch.as_tensor(np.ascontiguousarray(pc0), dtype=_f32, device=dev), unit_rows(exp), quad, om, mask_take, npx, npy, scale,
+             nrows, ncols),
+        )
+        refined_rot = quat.multiply(q0, exp_map(x[:, :3])).cpu().numpy()
+        new_pc = np.asarray(pc0 + x[:, 3:].cpu().numpy(), dtype=np.float64)
+        new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
+        new_xmap = _finalize_xmap(xmap, refined_rot, 1.0 - fun.cpu().numpy(), n_iter, nav_shape)
+        return RefinementResult(xmap=new_xmap, detector=new_detector)
+
+    euler0 = quat.to_euler(torch.tensor(np.asarray(xmap.best_rotations), dtype=torch.float64)).numpy()
     x0 = np.concatenate([euler0, pc0], axis=1).astype(np.float32)
 
     lb = ub = None

@@ -1,0 +1,350 @@
+"""The tangent kernel (kernel C, ``csrc/refine_lm.cu``) in its three modes,
+and their plain versions; the residuals and objectives of Levenberg-Marquardt
+and gradient refinement.
+
+Replaces XLA code of the JAX package, not a TPU kernel:
+``kikuchipy_tpu/utils/optimize.py`` ``jac_and_res`` (a residual and its
+Jacobian from one primal and ``d`` forward-mode tangents) and the two
+einsums of its loop, over one of the residuals of
+``kikuchipy_tpu/indexing/refinement.py``:
+
+===============================================  ==========================
+wrapper                                          residual (here, and JAX's)
+===============================================  ==========================
+:func:`tangent_orientation`                      :func:`orientation_residual`
+                                                 (``_residual_orientation_delta``)
+:func:`tangent_projection_center`                :func:`pc_residual`
+                                                 (``_residual_pc_delta``)
+:func:`tangent_orientation_projection_center`    :func:`joint_residual`
+                                                 (``_residual_joint_gibbs``)
+===============================================  ==========================
+
+Each wrapper returns, for every point at its trial parameters ``x``, the
+tuple ``(f, g, jtj)``: ``f = 0.5 ||r||^2`` ``(n,)``, ``g = J^T r`` ``(n,
+d)`` and ``J^T J`` ``(n, d, d)``, with ``r = sim_unit(sim) - exp_unit`` and
+``J`` its Jacobian in ``x``. That is what
+:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`
+consumes, and ``(f, g)`` is what the gradient method's Adam loop consumes:
+with both rows centred and unit, ``0.5 ||r||^2 = 1 - NCC``. For CPU tensors
+a wrapper returns its plain version (``..._plain``: ``torch.func.jvp`` of
+the residual along each of the ``d`` axes, over the plain projection
+``ops/lambert_project.py`` ``_project_plain``, then JAX's einsums); for
+CUDA tensors it launches kernel C or raises, and counts the launch in its
+own ``.launches``.
+
+On the card the kernel's projected value is the plain version's bit for
+bit (``project_pixel``'s rounding; the rotation and the candidate PC are
+computed here with the plain version's PyTorch operations); its tangent is
+analytic and its sums are taken in another order, so ``f``, ``g`` and
+``J^T J`` agree with the plain version to float32 rounding
+(``chip_smoke.py`` ``[lm-check]``, ``tests/test_torch_gpu.py``).
+
+Arguments, as the JAX residuals take them. Orientation: ``delta (n, 3)``
+rotation vectors, ``q0 (n, 4)`` the start rotations, ``exp_unit (n, P)``
+the centred experimental rows made unit, ``dc`` direction cosines ``(P,
+3)`` or ``(n, P, 3)``, ``quad`` the master's quad texture, ``npx``, ``npy``,
+``scale``. PC: ``dpc (n, 3)`` PC shifts, ``pc0 (n, 3)``, ``exp_unit``,
+``q0 (n, 4)`` the fixed rotations, ``quad``, ``om (3, 3)`` the
+detector-to-sample matrix, ``mask_take`` the kept pixels ``(P,)`` or None,
+``npx``, ``npy``, ``scale``, ``nrows``, ``ncols``. Joint: ``x (n, 6)``
+(rotation vector, PC shift), ``q0``, ``pc0``, ``exp_unit`` and the PC
+mode's arguments after it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kikuchipy_tpu_torch.geometry.quaternion import multiply
+from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, _project_plain, lambert_project_ncc
+from kikuchipy_tpu_torch.ops.refine_nm import _aligned, _detector_scalars, _ptr, pc_direction_cosines, pixel_table
+
+__all__ = [
+    "RESIDENT_SMEM_BYTES",
+    "exp_map",
+    "joint_delta_objective",
+    "joint_residual",
+    "orientation_delta_objective",
+    "orientation_residual",
+    "pc_delta_objective",
+    "pc_residual",
+    "resident",
+    "sim_unit",
+    "tangent_orientation",
+    "tangent_orientation_plain",
+    "tangent_orientation_projection_center",
+    "tangent_orientation_projection_center_plain",
+    "tangent_projection_center",
+    "tangent_projection_center_plain",
+    "unit_rows",
+]
+
+_f32 = torch.float32
+
+# Shared memory a block may take for a point's pattern and its d tangents
+# ((1 + d) P floats): half of a Hopper SM's 227 KB, so two blocks fit.
+# Beyond it the kernel recomputes them in each of its three passes.
+RESIDENT_SMEM_BYTES = 113 * 1024
+
+_MODE = {"orientation": 0, "pc": 1, "joint": 2}
+_ARGTYPES = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _function():
+    """``refine_lm_launch`` of ``csrc/refine_lm.cu``, built on first use."""
+    from kikuchipy_tpu_torch.ops._build import library
+
+    fn = library("refine_lm").refine_lm_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def resident(P: int, d: int) -> bool:
+    """Whether the kernel holds a point's pattern and its ``d`` tangents of
+    ``P`` pixels in shared memory (else it recomputes them)."""
+    return 4 * (1 + d) * P <= RESIDENT_SMEM_BYTES
+
+
+# ------------------------- residuals and objectives ------------------------- #
+
+
+def exp_map(delta: torch.Tensor) -> torch.Tensor:
+    """Gibbs (Cayley) rotation vectors ``(n, 3)`` to unit quaternions ``(n,
+    4)``: ``(1, delta / 2) / sqrt(1 + |delta / 2|^2)``, the JAX package's
+    ``_exp_map`` (smooth at 0)."""
+    half = delta / 2.0
+    w = torch.ones(delta.shape[:-1] + (1,), dtype=delta.dtype, device=delta.device)
+    q = torch.cat([w, half], dim=-1)
+    return q / torch.sqrt(1.0 + torch.sum(torch.square(half), dim=-1, keepdim=True))
+
+
+def unit_rows(p: torch.Tensor) -> torch.Tensor:
+    """Each row over its Euclidean norm."""
+    return p / torch.linalg.vector_norm(p, dim=-1, keepdim=True)
+
+
+def sim_unit(sim: torch.Tensor) -> torch.Tensor:
+    """Each row centred, then unit."""
+    return unit_rows(sim - torch.mean(sim, dim=-1, keepdim=True))
+
+
+def _rotation(q0, delta) -> torch.Tensor:
+    return multiply(q0, exp_map(delta)).to(_f32)
+
+
+def orientation_residual(delta, q0, exp_unit, dc, quad, npx, npy, scale) -> torch.Tensor:
+    """``(n, P)`` residuals at ``q0 (x) exp_map(delta)``."""
+    return sim_unit(_project_plain(_rotation(q0, delta), dc, quad, npx, npy, scale)) - exp_unit
+
+
+def pc_residual(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols) -> torch.Tensor:
+    """``(n, P)`` residuals at the PCs ``pc0 + dpc``, rotations ``q0``
+    fixed."""
+    dc = pc_direction_cosines(pc0 + dpc, nrows, ncols, om, mask_take)
+    return sim_unit(_project_plain(q0, dc, quad, npx, npy, scale)) - exp_unit
+
+
+def joint_residual(x, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols) -> torch.Tensor:
+    """``(n, P)`` residuals at ``q0 (x) exp_map(x[:, :3])`` and the PCs
+    ``pc0 + x[:, 3:]``."""
+    dc = pc_direction_cosines(pc0 + x[:, 3:], nrows, ncols, om, mask_take)
+    return sim_unit(_project_plain(_rotation(q0, x[:, :3]), dc, quad, npx, npy, scale)) - exp_unit
+
+
+def orientation_delta_objective(delta, q0, exp, sq_norm, dc, quad, npx, npy, scale) -> torch.Tensor:
+    """``1 - NCC`` at ``q0 (x) exp_map(delta)`` of the centred rows ``exp``
+    with squared norms ``sq_norm`` (the JAX package's
+    ``_objective_orientation_delta``; kernel B a launch on the card)."""
+    return lambert_project_ncc(_rotation(q0, delta), dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+def pc_delta_objective(dpc, pc0, exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols):
+    """``1 - NCC`` at the PCs ``pc0 + dpc`` (``_objective_pc_delta``)."""
+    dc = pc_direction_cosines(pc0 + dpc, nrows, ncols, om, mask_take)
+    return lambert_project_ncc(q0, dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+def joint_delta_objective(x, q0, pc0, exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols):
+    """``1 - NCC`` at ``q0 (x) exp_map(x[:, :3])`` and ``pc0 + x[:, 3:]``
+    (``_objective_joint_gibbs``)."""
+    dc = pc_direction_cosines(pc0 + x[:, 3:], nrows, ncols, om, mask_take)
+    return lambert_project_ncc(_rotation(q0, x[:, :3]), dc, quad, npx, npy, scale, exp, sq_norm)
+
+
+# ------------------------------ plain versions ------------------------------ #
+
+
+def _normal_equations(residual, x, args) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(f, g, jtj)`` of ``residual(x, *args)``: one forward-mode tangent
+    along each axis of ``x`` (JAX's ``jac_and_res``), then its einsums."""
+    n, d = x.shape
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    cols = []
+    for k in range(d):
+        r, col = torch.func.jvp(lambda z: residual(z, *args), (x,), (eye[k].expand(n, d).contiguous(),))
+        cols.append(col)
+    jac = torch.stack(cols, dim=-1)  # (n, P, d)
+    f = 0.5 * torch.sum(torch.square(r), dim=-1)
+    g = torch.einsum("nmp,nm->np", jac, r)
+    jtj = torch.einsum("nmp,nmq->npq", jac, jac)
+    return f, g, jtj
+
+
+def tangent_orientation_plain(delta, q0, exp_unit, dc, quad, npx, npy, scale):
+    """``(f, g, jtj)`` of :func:`orientation_residual` at ``delta``."""
+    _check("delta", delta, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
+    return _normal_equations(orientation_residual, delta, (q0, exp_unit, dc, quad, npx, npy, scale))
+
+
+def tangent_projection_center_plain(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols):
+    """``(f, g, jtj)`` of :func:`pc_residual` at ``dpc``."""
+    _check_pc(dpc, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    return _normal_equations(pc_residual, dpc, (pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols))
+
+
+def tangent_orientation_projection_center_plain(x, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows,
+                                                ncols):
+    """``(f, g, jtj)`` of :func:`joint_residual` at ``x``."""
+    _check_pc(x, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    return _normal_equations(joint_residual, x, (q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows,
+                                                 ncols))
+
+
+# --------------------------------- checks --------------------------------- #
+
+
+def _check(name, x, d, q, exp_unit, quad, npx, npy, P, tensors) -> None:
+    if not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[1] != d or x.shape[0] < 1:
+        raise ValueError(f"{name} must be a (n, {d}) tensor, got {getattr(x, 'shape', type(x))}")
+    n = x.shape[0]
+    if not isinstance(q, torch.Tensor) or tuple(q.shape) != (n, 4):
+        raise ValueError(f"q0 must be a ({n}, 4) tensor, got {getattr(q, 'shape', type(q))}")
+    if P < 1:
+        raise ValueError("no pixels")
+    if tuple(quad.shape) != (2 * npy * npx, 4):
+        raise ValueError(f"quad must be ({2 * npy * npx}, 4) for a {npy} x {npx} master, got {tuple(quad.shape)}")
+    if tuple(exp_unit.shape) != (n, P):
+        raise ValueError(f"exp_unit must be ({n}, {P}), got {tuple(exp_unit.shape)}")
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for t in [x, q, exp_unit, quad] + list(tensors):
+        if t.device != dev:
+            raise ValueError("all operands must be on one device")
+        if t.dtype != _f32:
+            raise TypeError(f"the tangent wrappers take float32, got {t.dtype}")
+    if name == "delta":
+        dc = tensors[0]
+        if not (dc.ndim == 2 and dc.shape[1] == 3) and not (dc.ndim == 3 and dc.shape[0] == n and dc.shape[2] == 3):
+            raise ValueError(f"dc must be (P, 3) or ({n}, P, 3), got {tuple(dc.shape)}")
+
+
+def _check_pc(x, d, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols) -> int:
+    """The PC modes' checks; returns P."""
+    if int(nrows) < 1 or int(ncols) < 1:
+        raise ValueError(f"the detector must have rows and columns, got {nrows} x {ncols}")
+    if not isinstance(om, torch.Tensor) or tuple(om.shape) != (3, 3):
+        raise ValueError(f"om must be a (3, 3) tensor, got {getattr(om, 'shape', type(om))}")
+    P = nrows * ncols
+    if mask_take is not None:
+        if not isinstance(mask_take, torch.Tensor) or mask_take.ndim != 1 or mask_take.dtype.is_floating_point:
+            raise ValueError("mask_take must be a 1-D integer tensor of pixel indices")
+        if mask_take.device != x.device:
+            raise ValueError("all operands must be on one device")
+        if mask_take.numel() and (int(mask_take.min()) < 0 or int(mask_take.max()) >= nrows * ncols):
+            raise ValueError(f"mask_take holds pixel indices outside [0, {nrows * ncols})")
+        P = mask_take.numel()
+    n = x.shape[0] if isinstance(x, torch.Tensor) and x.ndim == 2 else None
+    if not isinstance(pc0, torch.Tensor) or tuple(pc0.shape) != (n, 3):
+        raise ValueError(f"pc0 must be a ({n}, 3) tensor, got {getattr(pc0, 'shape', type(pc0))}")
+    _check("x" if d == 6 else "dpc", x, d, q0, exp_unit, quad, npx, npy, P, [om, pc0])
+    return P
+
+
+# --------------------------------- kernel --------------------------------- #
+
+
+def _launch(mode: str, q, q0, rotvec, pc, dc, pix, om, exp_unit, quad, npx, npy, scale, nrows=1, ncols=1, sim=None):
+    """One launch of kernel C; returns ``(f, g, jtj)``."""
+    dev = q.device
+    n, P = exp_unit.shape
+    d = 6 if mode == "joint" else 3
+    exp_unit, quad = exp_unit.contiguous(), quad.contiguous()
+    _aligned(quad)
+    f = torch.empty(n, dtype=_f32, device=dev)
+    g = torch.empty((n, d), dtype=_f32, device=dev)
+    jtj = torch.empty((n, d, d), dtype=_f32, device=dev)
+    om_host = None
+    if om is not None:
+        om_host = (ctypes.c_float * 9)(*om.detach().to("cpu", _f32).reshape(9).tolist())
+    aspect, neg_aspect, inv_ncols, inv_nrows = _detector_scalars(nrows, ncols)
+    fn = _function()
+    with torch.cuda.device(dev):
+        err = fn(
+            _MODE[mode], _ptr(q), _ptr(q0), _ptr(rotvec), _ptr(pc), _ptr(dc), int(dc is not None and dc.ndim == 3),
+            _ptr(pix), om_host, _ptr(exp_unit), _ptr(quad), _ptr(f), _ptr(g), _ptr(jtj), _ptr(sim), n, P, npx, npy,
+            float(scale), _INV_SQRT_PI_HALF, aspect, neg_aspect, inv_ncols, inv_nrows, int(resident(P, d)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"refine_lm launch ({mode} mode) failed: cudaError_t {err}")
+    return f, g, jtj
+
+
+def tangent_orientation(delta, q0, exp_unit, dc, quad, npx: int, npy: int, scale: float, sim=None):
+    """``(f, g, jtj)`` of :func:`orientation_residual` at ``delta``. On the
+    card one launch of kernel C for all points; ``sim (n, P)``, if given,
+    receives the projected patterns."""
+    _check("delta", delta, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
+    if delta.device.type == "cpu":
+        return tangent_orientation_plain(delta, q0, exp_unit, dc, quad, npx, npy, scale)
+    q = _rotation(q0, delta).contiguous()
+    out = _launch("orientation", q, q0.contiguous(), delta.contiguous(), None, dc.contiguous(), None, None,
+                  exp_unit, quad, npx, npy, scale, sim=sim)
+    tangent_orientation.launches += 1
+    return out
+
+
+def tangent_projection_center(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx: int, npy: int, scale: float,
+                              nrows: int, ncols: int, sim=None):
+    """``(f, g, jtj)`` of :func:`pc_residual` at ``dpc``. On the card one
+    launch of kernel C, each pixel's direction cosine computed from its
+    candidate PC inside it."""
+    _check_pc(dpc, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    if dpc.device.type == "cpu":
+        return tangent_projection_center_plain(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows,
+                                               ncols)
+    pc = (pc0 + dpc).contiguous()
+    out = _launch("pc", q0.contiguous(), None, None, pc, None, pixel_table(mask_take, nrows, ncols, dpc.device), om,
+                  exp_unit, quad, npx, npy, scale, nrows, ncols, sim=sim)
+    tangent_projection_center.launches += 1
+    return out
+
+
+def tangent_orientation_projection_center(x, q0, pc0, exp_unit, quad, om, mask_take, npx: int, npy: int,
+                                          scale: float, nrows: int, ncols: int, sim=None):
+    """``(f, g, jtj)`` of :func:`joint_residual` at ``x (n, 6)``. On the card
+    one launch of kernel C."""
+    _check_pc(x, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    if x.device.type == "cpu":
+        return tangent_orientation_projection_center_plain(x, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale,
+                                                           nrows, ncols)
+    delta = x[:, :3].contiguous()
+    q = _rotation(q0, delta).contiguous()
+    pc = (pc0 + x[:, 3:]).contiguous()
+    out = _launch("joint", q, q0.contiguous(), delta, pc, None, pixel_table(mask_take, nrows, ncols, x.device), om,
+                  exp_unit, quad, npx, npy, scale, nrows, ncols, sim=sim)
+    tangent_orientation_projection_center.launches += 1
+    return out
+
+
+tangent_orientation.launches = 0
+tangent_projection_center.launches = 0
+tangent_orientation_projection_center.launches = 0

@@ -103,9 +103,12 @@ def lambert_interpolation_weights(v: torch.Tensor, npx: int, npy: int, scale: fl
     dj = j - nij.to(j.dtype) + scale
     # Outside the Lambert square both taps collapse to the clamped
     # index, so the "+1" weight must vanish (keeps the quad texture
-    # exact; the four weights still sum to one).
-    di = torch.clamp(di, 0.0, 1.0)
-    dj = torch.clamp(dj, 0.0, 1.0)
+    # exact; the four weights still sum to one). A maximum and a minimum,
+    # as jnp.clip is: their tangents split evenly at a tie, so a weight at
+    # exactly 0 or 1 has JAX's derivative (torch.clamp passes all of it).
+    zero, one = di.new_zeros(()), di.new_ones(())
+    di = torch.minimum(torch.maximum(di, zero), one)
+    dj = torch.minimum(torch.maximum(dj, zero), one)
     dim = 1.0 - di
     djm = 1.0 - dj
     weights = torch.stack([dim * djm, di * djm, dim * dj, di * dj], dim=-1)

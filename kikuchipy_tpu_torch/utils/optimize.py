@@ -1,4 +1,4 @@
-"""Batched derivative-free optimization.
+"""Batched local optimization.
 
 The batched Nelder-Mead of ``kikuchipy_tpu/utils/optimize.py``: one
 simplex per batch element, all elements stepped in lockstep with
@@ -9,9 +9,16 @@ pair of flags from the device per iteration (whether every element had
 converged, and whether a live element shrinks): the only host sync of an
 iteration. On the card, refinement in every mode runs this loop inside one
 kernel instead (:mod:`kikuchipy_tpu_torch.ops.refine_nm`), which computes
-what this function computes for each element on its own. The global solvers of the JAX module
-(differential evolution, dual annealing, basin hopping, SHGO) and
-Levenberg-Marquardt are not ported yet.
+what this function computes for each element on its own.
+
+The batched Levenberg-Marquardt of the same module
+(:func:`levenberg_marquardt_batched`), a Python loop with one host read an
+iteration. It takes an evaluation that returns ``0.5 ||r||^2``, ``J^T r``
+and ``J^T J`` of each element, since JAX's loop uses the residual ``r`` and
+its Jacobian ``J`` only through those three; on the card the evaluation is
+one launch of the tangent kernel (:mod:`kikuchipy_tpu_torch.ops.refine_lm`).
+The global solvers of the JAX module (differential evolution, dual
+annealing, basin hopping, SHGO) are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +27,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["NelderMeadResult", "initial_step_per_element", "nelder_mead_batched"]
+__all__ = [
+    "LMResult",
+    "NelderMeadResult",
+    "clip_blocks",
+    "initial_step_per_element",
+    "levenberg_marquardt_batched",
+    "nelder_mead_batched",
+]
 
 
 class NelderMeadResult(NamedTuple):
@@ -179,3 +193,101 @@ def nelder_mead_batched(
     # d + 1 to start, two an iteration, d more a shrink.
     n_evals = (d + 1) + 2 * it + d * shrinks
     return NelderMeadResult(x=x_best, fun=f_best, n_iter=it, converged=done, n_evals=n_evals)
+
+
+class LMResult(NamedTuple):
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) 0.5 * ||r||^2 at the best point
+    n_iter: torch.Tensor     # (n,) LM iterations taken
+    converged: torch.Tensor  # (n,) convergence mask
+
+
+def clip_blocks(step: torch.Tensor, blocks) -> torch.Tensor:
+    """Clip each block of the parameter axis of ``step (n, d)`` to its own
+    norm ball; ``blocks`` is ``((size, max_norm), ...)`` or None."""
+    if blocks is None:
+        return step
+    parts = []
+    start = 0
+    for size, max_norm in blocks:
+        max_norm = float(max_norm)
+        seg = step[:, start : start + size]
+        norm = torch.linalg.vector_norm(seg, dim=-1, keepdim=True)
+        parts.append(torch.where(norm > max_norm, seg * (max_norm / norm), seg))
+        start += size
+    return torch.cat(parts, dim=-1)
+
+
+def levenberg_marquardt_batched(
+    evaluate: Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    x0: torch.Tensor,
+    max_iters: int = 30,
+    ftol: float = 1e-7,
+    lambda0: float = 1e-3,
+    blocks: tuple[tuple[int, float], ...] | None = None,
+    args: tuple = (),
+) -> LMResult:
+    """Minimize ``0.5 ||r_i(x_i)||^2`` independently for every batch
+    element ``i``, all elements in lockstep.
+
+    Parameters
+    ----------
+    evaluate
+        ``evaluate(x, *args)`` for ``x (n, d)``: the tuple ``(f (n,), g (n,
+        d), jtj (n, d, d))`` with ``f = 0.5 ||r||^2``, ``g = J^T r`` and
+        ``jtj = J^T J`` of each element's residual ``r (m,)`` and Jacobian
+        ``J (m, d)``.
+    x0
+        ``(n, d)`` initial points; their dtype and device are the solver's.
+    max_iters
+        Maximum iterations.
+    ftol
+        An element converges on an accepted step that improves ``f`` by
+        less than this.
+    lambda0
+        Initial damping, scaled by ``diag(J^T J)``.
+    blocks
+        Optional ``((size, max_norm), ...)`` partition of the parameter
+        axis; each block of a step is clipped to its own norm ball.
+
+    The rules of the JAX loop: the damping ``lambda * diag(J^T J)`` with
+    the diagonal floored at 1e-12; ``lambda`` times 1/3 on an accepted step
+    (floored at 1e-9) and times 4 on a rejected one (capped at 1e8); an
+    element that rejects 6 steps in a row is done; ``it`` counts an
+    element's iterations until it is done. Each iteration evaluates every
+    element once, at its trial point; a rejected step keeps the element's
+    ``(f, g, jtj)``. The d x d systems go to ``torch.linalg.solve_ex``,
+    which, as JAX's solve, does not stop at a singular matrix.
+    """
+    x = torch.as_tensor(x0)
+    n, d = x.shape
+    fn = (lambda z: evaluate(z, *args)) if args else evaluate
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    f, g, jtj = fn(x)
+    lam = torch.full((n,), lambda0, dtype=x.dtype, device=x.device)
+    it = torch.zeros(n, dtype=torch.int32, device=x.device)
+    stalled = torch.zeros(n, dtype=torch.int32, device=x.device)
+    done = torch.zeros(n, dtype=torch.bool, device=x.device)
+    # While some element runs, the oldest running one has taken every
+    # iteration so far, so JAX's max(it) < max_iters is this loop's bound.
+    for _ in range(max_iters):
+        if bool(done.all()):  # the iteration's one host read
+            break
+        diag = torch.clamp_min(torch.diagonal(jtj, dim1=1, dim2=2), 1e-12)
+        a = jtj + lam[:, None, None] * (diag[:, :, None] * eye)
+        step = clip_blocks(-torch.linalg.solve_ex(a, g[..., None])[0][..., 0], blocks)
+        x_new = x + step
+        f_new, g_new, jtj_new = fn(x_new)
+        accept = (f_new < f) & ~done
+        x = torch.where(accept[:, None], x_new, x)
+        g = torch.where(accept[:, None], g_new, g)
+        jtj = torch.where(accept[:, None, None], jtj_new, jtj)
+        lam = torch.where(accept, torch.clamp_min(lam / 3.0, 1e-9), torch.clamp_max(lam * 4.0, 1e8))
+        # A point that rejects 6 steps in a row is at a (possibly flat) local
+        # minimum within numeric resolution: it is done.
+        stalled = torch.where(accept, 0, stalled + 1)
+        done_new = done | (accept & ((f - f_new) < ftol)) | (stalled >= 6)
+        f = torch.where(accept, f_new, f)
+        it = it + (~done).to(torch.int32)
+        done = done_new
+    return LMResult(x=x, fun=f, n_iter=it, converged=done)

@@ -9,9 +9,13 @@ and counts the instructions of five one-pixel kernels: a load-and-store
 frame for each of the two pixel inputs (three direction cosines; a column
 and row), ``project_pixel`` (kernel B, the Nelder-Mead kernel) and
 ``project_pixel_a`` (kernel A) on the first, and ``project_pixel_pc`` (the
-direction cosine from a PC frame, then ``project_pixel``) on the second.
-The pixel's own count is the probe's less its frame's, plus the frame's
-stand-in additions. A kernel's count is its main path: every instruction
+direction cosine from a PC frame, then ``project_pixel``) on the second;
+and the tangent kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value,
+its gradient with respect to the rotated direction and the d tangents) in
+its three modes, on the frame of its input. The pixel's own count is the
+probe's less its frame's, plus the frame's stand-in additions, less the
+probe's own additions of the tangents. The tangent kernel's passes over
+its stored values (the centred sums) are not counted. A kernel's count is its main path: every instruction
 up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted. Both sides of
@@ -69,6 +73,32 @@ __global__ void probe_project_pc(Rot r, PcFrame f, DetectorFrame d, Geometry g, 
 }
 """
 
+# The tangent kernel's pixel in each mode: its value plus its d tangents
+# (d additions the count leaves out).
+PROBE_LM = r"""
+#include "refine_lm.cu"
+
+template <int kMode>
+__device__ __forceinline__ void lm_pixel(const Pixel<kMode>& px, const Problem& pb, float* out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    float ds[dims<kMode>()];
+    if (i < n) {
+        float v = px(i, ds, pb);
+#pragma unroll
+        for (int k = 0; k < dims<kMode>(); ++k) v = __fadd_rn(v, ds[k]);
+        out[i] = v;
+    }
+}
+
+__global__ void probe_lm_orientation(Pixel<kOrientation> px, Problem pb, float* __restrict__ out, int n) {
+    lm_pixel(px, pb, out, n);
+}
+__global__ void probe_lm_pc(Pixel<kPC> px, Problem pb, float* __restrict__ out, int n) { lm_pixel(px, pb, out, n); }
+__global__ void probe_lm_joint(Pixel<kJoint> px, Problem pb, float* __restrict__ out, int n) {
+    lm_pixel(px, pb, out, n);
+}
+"""
+
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
 _LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -117,14 +147,17 @@ def count(build_dir: Path | None = None) -> dict:
 
     build_dir = build_dir or here / "kikuchipy_tpu_torch" / "_kernels_build"
     build_dir.mkdir(parents=True, exist_ok=True)
-    src = build_dir / "sass_probe.cu"
-    src.write_text(PROBE)
-    lib = build_dir / "libsass_probe.so"
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
-    subprocess.run([_tool("nvcc"), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib), str(src)], check=True,
-                   capture_output=True, text=True)
-    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True, text=True).stdout
-    funcs = main_path(sass)
+    funcs = {}
+    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM)):
+        src = build_dir / f"{stem}.cu"
+        src.write_text(text)
+        lib = build_dir / f"lib{stem}.so"
+        subprocess.run([_tool("nvcc"), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True)
+        sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True,
+                              text=True).stdout
+        funcs.update(main_path(sass))
 
     def find(stem: str) -> list[str]:
         hits = [ops for fname, ops in funcs.items() if stem in fname]
@@ -140,6 +173,10 @@ def count(build_dir: Path | None = None) -> dict:
     per_pixel = len(project) - len(dc_frame) + 2
     per_pixel_a = len(project_a) - len(dc_frame) + 2
     per_pixel_pc = len(project_pc) - len(pix_frame) + 1
+    lm = {mode: find(f"{len('probe_lm_' + mode)}probe_lm_{mode}") for mode in ("orientation", "pc", "joint")}
+    lm_frame = {"orientation": dc_frame, "pc": pix_frame, "joint": pix_frame}
+    lm_count = {mode: len(ops) - len(lm_frame[mode]) + (2 if mode == "orientation" else 1) - (6 if mode == "joint" else 3)
+                for mode, ops in lm.items()}
 
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
@@ -154,6 +191,8 @@ def count(build_dir: Path | None = None) -> dict:
         "project_pixel_ops": mix(project, dc_frame),
         "project_pixel_a_ops": mix(project_a, dc_frame),
         "project_pixel_pc_ops": mix(project_pc, pix_frame),
+        "tangent_pixel": lm_count,
+        "tangent_pixel_ops": {mode: mix(ops, lm_frame[mode]) for mode, ops in lm.items()},
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
 

@@ -829,3 +829,225 @@ def test_nelder_mead_pc_kernel_refuses_what_it_cannot_take(cuda):
     assert call(mode=0) != 0 and call(mode=3) != 0
     assert call(n=0) != 0 and call(max_iters=-1) != 0
     assert call(q0=0) != 0 and call(pix=0) != 0 and call(mode=2, pix=0) != 0
+
+
+# Kernel C (csrc/refine_lm.cu, the tangent kernel) against its plain version
+# (torch.func.jvp over the plain residual, then the einsums) on the same card
+# and inputs. Its projected values are the plain version's bit for bit
+# (project_pixel's rounding); its tangent is analytic and its sums are taken
+# in another order, so f = 0.5 ||r||^2 agrees to 2e-6 and J^T r and J^T J to
+# 1e-4 of their norms (LM_REL) in every mode and case. In orientation mode
+# both are also held against the plain version run in float64: the kernel no
+# further from it than twice the float32 plain version, or LM_REL. At the
+# Lambert poles ("pole": a pixel of each point within 1e-3 rad of one, two on
+# it) both float32 evaluations are about 1e-3 of their norms off the float64
+# one (the float32 value's 1 - |wz| cancels and puts pixels within about
+# 3.5e-4 rad on the pole), the same share for both.
+LM_REL = 1e-4
+
+
+def _lm_inputs(device, mode: str, case: str, n: int = 64):
+    """(wrapper, plain, x, arguments, q) of kernel C in ``mode`` on patterns
+    projected at known orientations, the trial points near them; ``q`` the
+    rotations the projection uses (for the bit-for-bit check of the
+    values)."""
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    n = {"one": 1, "over_budget": 8}.get(case, n)
+    shape = (128, 128) if case == "over_budget" else (60, 60)  # P = 16,384: past RESIDENT_SMEM_BYTES
+    pc = (0.42, 0.28, 0.5)
+    _, quad, _, _, _ = _projection_state(device)
+    det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    dc = direction_cosines_from_detector(det, device=device)
+    truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
+    if case == "pole":
+        # each rotation turns one pixel to within 1e-3 rad of a Lambert pole
+        # (the first two exactly onto it), with delta = 0
+        truth = torch.as_tensor(_smoke().pole_rotations(dc.cpu().numpy(), n, 65), device=device)
+    elif case == "tie":
+        # The identity and pixels with y or x exactly 0: the Lambert
+        # coordinate on the grid's centre line, the fractional offset exactly
+        # 0, the clip's tie on every pixel (half the tangent, JAX's rule).
+        truth = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=device).expand(n, 4).contiguous()
+        g = np.random.default_rng(66)
+        v = g.normal(size=(600, 3))
+        v[:, 2] = np.abs(v[:, 2]) + 0.3
+        v[:300, 1] = 0.0
+        v[300:, 0] = 0.0
+        dc = torch.as_tensor((v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32), device=device)
+    at = truth
+    if case in ("pole", "tie"):  # evaluated at delta = 0: rows half a degree off, or g would be noise
+        axes = torch.as_tensor(np.random.default_rng(72).normal(size=(n, 3)))
+        at = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(0.5)), truth.double().cpu()).float().to(device)
+    rows = lp.lambert_project(at, dc, quad, 101, 101, 50.0)
+    rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(67),
+                                     device=device)
+    take = None
+    if case == "masked":
+        take = torch.nonzero(torch.rand(rows.shape[1], generator=torch.Generator().manual_seed(68)) > 0.3)[:, 0]
+        take = take.to(device)
+    elif case == "p1000":
+        take = torch.arange(1000, device=device)
+    exp, _ = _prepare_experimental(rows, take)
+    exp_unit = rl.unit_rows(exp)
+    rng = np.random.default_rng(69)
+    zero = case in ("pole", "tie")
+    delta = torch.as_tensor(0 if zero else rng.normal(scale=0.01, size=(n, 3)), dtype=torch.float32,
+                            device=device).expand(n, 3).contiguous()
+    geo = (101, 101, 50.0)
+    if mode == "orientation":
+        if case == "per_point":
+            dc = _per_point_dc(n, om, 70, device)
+        elif take is not None:
+            dc = dc[take].contiguous()
+        q = rl._rotation(truth, delta)
+        return rl.tangent_orientation, rl.tangent_orientation_plain, delta, (truth, exp_unit, dc, quad, *geo), q
+    pc0 = torch.as_tensor(np.tile(np.asarray(pc) + [0.01, -0.01, 0.01], (n, 1)), dtype=torch.float32, device=device)
+    dpc = torch.as_tensor(rng.normal(scale=0.004, size=(n, 3)), dtype=torch.float32, device=device)
+    if mode == "pc":
+        return (rl.tangent_projection_center, rl.tangent_projection_center_plain, dpc,
+                (pc0, exp_unit, truth, quad, om, take, *geo, *shape), truth)
+    x = torch.cat([delta, dpc], dim=1)
+    return (rl.tangent_orientation_projection_center, rl.tangent_orientation_projection_center_plain, x,
+            (truth, pc0, exp_unit, quad, om, take, *geo, *shape), rl._rotation(truth, delta))
+
+
+def _lm_errors(got, ref):
+    f, g, h = got
+    rf, rg, rh = ref
+    return (float((f - rf).abs().max()),
+            float((torch.linalg.vector_norm(g - rg, dim=1) / torch.linalg.vector_norm(rg, dim=1)).max()),
+            float((torch.linalg.matrix_norm(h - rh) / torch.linalg.matrix_norm(rh)).max()))
+
+
+LM_CASES = [("orientation", c) for c in ("shared", "masked", "per_point", "p1000", "pole", "tie", "over_budget",
+                                         "one")] + [(m, c) for m in ("pc", "joint")
+                                                    for c in ("shared", "masked", "p1000", "over_budget", "one")]
+
+
+@pytest.mark.parametrize("mode, case", LM_CASES, ids=[f"{m}-{c}" for m, c in LM_CASES])
+def test_tangent_kernel_matches_plain(cuda, mode, case):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+    from kikuchipy_tpu_torch.ops.refine_nm import pc_direction_cosines
+
+    wrapper, plain, x, args, q = _lm_inputs(cuda, mode, case)
+    n, d = x.shape
+    exp_unit, quad = args[2 if mode == "joint" else 1], args[3]
+    P = exp_unit.shape[1]
+    assert rl.resident(P, d) == (case != "over_budget")
+    sim = torch.empty((n, P), device=cuda)
+    before = wrapper.launches
+    got = wrapper(x, *args, sim=sim)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = plain(x, *args)
+    assert [tuple(t.shape) for t in got] == [(n,), (n, d), (n, d, d)]
+    assert all(torch.isfinite(t).all() for t in got)
+    # The values are the plain projection's bit for bit.
+    if mode == "orientation":
+        dc = args[2]
+    else:
+        pc0, om, take = args[0 if mode == "pc" else 1], args[4], args[5]
+        dc = pc_direction_cosines(pc0 + (x if mode == "pc" else x[:, 3:]), args[-2], args[-1], om, take)
+    assert torch.equal(sim, lp._project_plain(q, dc, quad, 101, 101, 50.0))
+    f_err, g_err, h_err = _lm_errors(got, ref)
+    print(f"{mode} {case}: against the plain version max |df| {f_err:.3e}, max |dg| / |g| {g_err:.3e}, max "
+          f"|dJtJ| / |JtJ| {h_err:.3e}")
+    assert f_err <= 2e-6 and g_err <= LM_REL and h_err <= LM_REL
+    assert torch.allclose(got[2], got[2].transpose(1, 2))
+    if mode != "orientation":
+        return
+    from kikuchipy_tpu_torch.geometry.quaternion import multiply
+
+    q0, exp64, dc64, quad64 = (a.double() for a in args[:4])
+
+    def residual64(delta):
+        return rl.sim_unit(lp._project_plain(multiply(q0, rl.exp_map(delta)), dc64, quad64, 101, 101, 50.0)) - exp64
+
+    ref64 = rl._normal_equations(lambda z: residual64(z), x.double(), ())
+    _, gk, hk = _lm_errors(got, ref64)
+    _, gt, ht = _lm_errors(ref, ref64)
+    print(f"  against float64: kernel |dg| / |g| {gk:.3e}, |dJtJ| / |JtJ| {hk:.3e}; the float32 plain version "
+          f"{gt:.3e}, {ht:.3e}")
+    assert gk <= max(LM_REL, 2 * gt) and hk <= max(LM_REL, 2 * ht)
+
+
+def test_lm_and_gradient_refinement_on_the_card_go_through_kernel_c(cuda):
+    # The three modes with method "lm" and "gradient" on a 64-point scan:
+    # on the card every evaluation is a launch of kernel C (no Nelder-Mead
+    # kernel, no kernel A or B), and the results are the CPU's (the plain
+    # version) within the rounding of their sums.
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    master, _, _, _, det = _projection_state(cuda)
+    truth = super_fibonacci(64 * 7)[::7][:64]
+    axes = torch.as_tensor(np.random.default_rng(71).normal(size=(64, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), torch.as_tensor(truth)).numpy()
+    bad = dataclasses.replace(det, pc=np.asarray(det.pc).reshape(3) + [0.01, -0.01, 0.01])
+    calls = [("refine_orientation", rl.tangent_orientation, dict(xmap=CrystalMap(rotations=start))),
+             ("refine_projection_center", rl.tangent_projection_center,
+              dict(xmap=CrystalMap(rotations=truth), detector=bad)),
+             ("refine_orientation_projection_center", rl.tangent_orientation_projection_center,
+              dict(xmap=CrystalMap(rotations=start), detector=bad))]
+    others = (rn.nelder_mead_orientation, rn.nelder_mead_projection_center,
+              rn.nelder_mead_orientation_projection_center, lp.lambert_project, lp.lambert_project_ncc)
+    results = {}
+    for dev in ("cpu", cuda):
+        on_card = str(dev) != "cpu"
+        mp = EBSDMasterPattern(master, device=dev)
+        signal = EBSD(mp.get_patterns(truth, det).data, detector=det, device=dev)
+        for name, wrapper, kw in calls:
+            for method in ("lm", "gradient"):
+                counts = (wrapper.launches, [f.launches for f in others])
+                res = getattr(signal, name)(master_pattern=mp, method=method, max_iters=40, **kw)
+                assert (wrapper.launches > counts[0]) == on_card
+                assert [f.launches for f in others] == counts[1]
+                results[(str(dev), name, method)] = res
+    for key in [k for k in results if k[0] == "cpu"]:
+        cpu, card = results[key], results[("cuda",) + key[1:]]
+        print(key[1:], "max |score diff|", np.abs(card.xmap.prop["scores"] - cpu.xmap.prop["scores"]).max())
+        np.testing.assert_allclose(card.xmap.prop["scores"], cpu.xmap.prop["scores"], atol=1e-4)
+        if key[1] != "refine_orientation":
+            pcs = card.detector.pc.reshape(-1, 3)
+            assert np.abs(pcs.mean(0) - np.asarray(det.pc).reshape(3)).max() < 2e-3
+            np.testing.assert_allclose(pcs.mean(0), cpu.detector.pc.reshape(-1, 3).mean(0), atol=1e-4)
+
+
+def test_tangent_kernel_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    wrapper, _, x, args, _ = _lm_inputs(cuda, "pc", "shared", n=4)
+    with pytest.raises(TypeError):
+        wrapper(x.double(), *args)
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x, args[0].cpu(), *args[1:])
+    # The launcher itself refuses an unknown mode, an empty batch, and a
+    # mode without its operands.
+    fn = rl._function()
+    out = torch.empty(64, device=cuda)
+    p = out.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    om = (ctypes.c_float * 9)(*([0.0] * 9))
+
+    def call(mode=1, q0=p, pc=p, dc=p, pix=p, n=1, P=3600):
+        return fn(mode, p, q0, p, pc, dc, 0, pix, om, p, p, p, p, p, 0, n, P, 101, 101, 50.0, 1.0, 1.0, -1.0,
+                  1.0 / 60, 1.0 / 60, 1, stream)
+
+    assert call(mode=3) != 0 and call(mode=-1) != 0
+    assert call(n=0) != 0 and call(P=0) != 0
+    assert call(mode=0, q0=0) != 0 and call(mode=0, dc=0) != 0
+    assert call(mode=1, pix=0) != 0 and call(mode=2, pc=0) != 0

@@ -155,17 +155,20 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
-    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm"}
+    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm"}
     text = {name: path.read_text() for name, path in srcs.items()}
     # The projection kernels replace XLA code: project_patterns, and
     # _project_at + _ncc_centered of the refinement objectives; the
     # Nelder-Mead kernel the while_loop of nelder_mead_batched over
-    # _objective_orientation. All three share one projection.
+    # _objective_orientation; the tangent kernel jac_and_res over the
+    # residuals' _project_at. All four share one projection.
     for what in ("lambert_project_kernel", "lambert_project_ncc_kernel", "project_patterns", "_ncc_centered"):
         assert what in text["lambert_project"], what
     for what in ("refine_nm_kernel", "nelder_mead_batched", "_objective_orientation", "atomicAdd", "cp.async"):
         assert what in text["refine_nm"], what
-    for name in ("lambert_project", "refine_nm"):
+    for what in ("refine_lm_kernel", "jac_and_res", "_project_at", "project_pixel_pc"):
+        assert what in text["refine_lm"], what
+    for name in ("lambert_project", "refine_nm", "refine_lm"):
         assert '#include "lambert_common.cuh"' in text[name] and "float project_pixel(" not in text[name], name
     assert "float project_pixel(" in (PKG / "csrc" / "lambert_common.cuh").read_text()
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)

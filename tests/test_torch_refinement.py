@@ -367,8 +367,7 @@ def test_chunked_equals_unchunked(state):
     np.testing.assert_array_equal(chunked.xmap.prop["num_evals"], whole.xmap.prop["num_evals"])
 
 
-@pytest.mark.parametrize("method", ["lm", "gauss-newton", "gradient", "de", "differential_evolution", "da", "bh",
-                                    "basinhopping", "shgo"])
+@pytest.mark.parametrize("method", ["de", "differential_evolution", "da", "bh", "basinhopping", "shgo"])
 @pytest.mark.parametrize("fn", ["refine_orientation", "refine_projection_center",
                                 "refine_orientation_projection_center"])
 def test_unported_methods_raise(state, method, fn):
