@@ -74,18 +74,29 @@ the card's name and power limit, and the device check):
    call, busy share under ``torch.profiler``, the host loop on its chunk);
 5d. Levenberg-Marquardt and gradient refinement of the same map in every
    mode (``[refine-lm]``, ``[refine-grad]``): each ``EBSD.refine_*`` call
-   with ``method="lm"``, then ``"gradient"``, from Nelder-Mead's starts, is
-   launches of kernel C (``csrc/refine_lm.cu``, the tangent kernel, through
-   ``ops/refine_lm.py``'s wrapper of the mode) and of no other kernel, and
-   passes Nelder-Mead's gates; patterns/s of the call, launches, ms a launch
-   and the device busy share under ``torch.profiler``. ``[lm-check]``:
+   with ``method="lm"`` from Nelder-Mead's starts is one launch of the LM
+   loop kernel (``csrc/refine_lm.cu`` ``refine_lm_loop_kernel``, through
+   ``ops/refine_lm.py``'s ``levenberg_marquardt_*`` wrapper of the mode) and
+   no launch of kernel C or any other kernel; with ``"gradient"`` it is
+   launches of kernel C (the tangent kernel, through the mode's
+   ``tangent_*`` wrapper) alone; every call passes Nelder-Mead's gates;
+   patterns/s of the call, launches, ms a launch, the device busy share
+   under ``torch.profiler`` and, for "lm", the evaluations and the loop
+   kernel's ms against its issue-slot and L2-taps bounds. ``[lm-check]``:
    kernel C against its plain version at the same points on one 2,048-point
    chunk in every mode (all pixels, a signal mask, P=1000; orientation mode
    also one PC a point and pole rotations), f within 2e-6, ``J^T r`` and
    ``J^T J`` within 1e-4 of their norms and, in orientation mode, no further
    from the plain version in float64 than twice the float32 one; then whole
-   LM runs on both over the chunk. ``[lm-times]``: one launch at the whole
-   map, its bounds, and the plain version on a chunk;
+   LM runs on both over the chunk. ``[lm-loop-check]``: the LM loop kernel
+   against the host loop on kernel C at the whole map in every mode, at
+   refine_*'s settings: 0.5 ||r||^2 within 1e-5, rotations within 0.05
+   degrees and PCs within 1e-4 on at least 99% of the points, iterations
+   equal on at least 90%, all finite; the times of both, the evaluations,
+   the share bit for bit, and the share of the first step's systems that the
+   kernel solves as ``torch.linalg.solve_ex`` bit for bit. ``[lm-times]``:
+   one launch of kernel C at the whole map, its bounds, and the plain
+   version on a chunk;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -171,12 +182,20 @@ SASS_A_PER_PIXEL = 78
 # its gradient with respect to the rotated direction, the d tangents; in the
 # PC modes after the direction cosine), without its passes' sums.
 SASS_LM_PER_PIXEL = {"orientation": 402, "pc": 518, "joint": 582}
+# ... and one pixel of a whole evaluation (kernel C's and the LM loop
+# kernel's tangent_point): that pixel and its three passes' sums
+# (sass_count.py lm_eval_pixel).
+SASS_LM_EVAL_PER_PIXEL = {"orientation": 466, "pc": 582, "joint": 689}
 # Instruction slots of an SM: four warp schedulers, one warp instruction each a
 # clock (the Hopper architecture white paper), at the card's largest SM
 # clock (nvidia-smi clocks.max.sm in the run).
 WARP_INSTR_PER_SM_CLOCK = 4
 # One float4 of the quad texture a pixel.
 TAP_BYTES = 16
+# Scattered taps, one 32-byte L2 sector each, at the rates kernel A's
+# gathers alone reached on an H100 at 700 W (lambert_variants.py; PERF.md):
+# the floor of a kernel whose pixels each read one tap.
+SCATTERED_TAPS_PER_S = (1.21e11, 1.30e11)
 # Largest f32 summation-order difference between a float kernel and its
 # float64-sum plain version on unit-norm rows.
 NEAR_TIE_TOL = 1e-5
@@ -499,7 +518,9 @@ WRAPPERS = {
     "lambert_project": ("lambert_project", "lambert_project_ncc"),
     "refine_nm": ("nelder_mead_orientation", "nelder_mead_projection_center",
                   "nelder_mead_orientation_projection_center"),
-    "refine_lm": ("tangent_orientation", "tangent_projection_center", "tangent_orientation_projection_center"),
+    "refine_lm": ("tangent_orientation", "tangent_projection_center", "tangent_orientation_projection_center",
+                  "levenberg_marquardt_orientation", "levenberg_marquardt_projection_center",
+                  "levenberg_marquardt_orientation_projection_center"),
 }
 
 
@@ -984,6 +1005,12 @@ LM_CALL = {"orientation": "refine_orientation", "pc": "refine_projection_center"
            "joint": "refine_orientation_projection_center"}
 LM_WRAPPER = {"orientation": "tangent_orientation", "pc": "tangent_projection_center",
               "joint": "tangent_orientation_projection_center"}
+# ... its Levenberg-Marquardt wrapper (the loop kernel, one launch a call)
+# and refine_*'s trust regions: 3 degrees of rotation vector, 0.05 of PC.
+LM_LOOP = {"orientation": "levenberg_marquardt_orientation", "pc": "levenberg_marquardt_projection_center",
+           "joint": "levenberg_marquardt_orientation_projection_center"}
+LM_BLOCKS = {"orientation": ((3, float(np.deg2rad(3.0))),), "pc": ((3, 0.05),),
+             "joint": ((3, float(np.deg2rad(3.0))), (3, 0.05))}
 LM_DIMS = {"orientation": 3, "pc": 3, "joint": 6}
 # Kernel C against its plain version at the same points: f = 0.5 ||r||^2
 # within LM_F_TOL (float32 sums of 3600 squares in other orders), J^T r and
@@ -1000,6 +1027,11 @@ LM_FACTOR = 2.0
 # optimum a step changes f by less than its rounding, and the two may stop
 # one step or six rejections apart).
 LM_PC_TOL = 1e-4
+# The LM loop kernel against the host loop on kernel C: the same criteria,
+# and on at least LM_ITER_AGREE of the points the same iterations (91-94%
+# were measured between LM runs on kernel C and on its plain version, which
+# round apart; PERF.md).
+LM_ITER_AGREE = 0.9
 
 
 def unit_quats(q) -> np.ndarray:
@@ -1145,8 +1177,7 @@ def lm_run_agreement(device, rows, rot_q, quad, geo, om, dc) -> list[str]:
     c = NAV_CHUNK
     q0 = rot_q[:c].contiguous()
     pc0 = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (c, 1)), dtype=torch.float32, device=device)
-    rot, pcn = np.deg2rad(3.0), 0.05
-    blocks = {"orientation": ((3, rot),), "pc": ((3, pcn),), "joint": ((3, rot), (3, pcn))}
+    blocks = LM_BLOCKS
     msgs = []
     for mode in ("orientation", "pc", "joint"):
         d = LM_DIMS[mode]
@@ -1176,6 +1207,72 @@ def lm_run_agreement(device, rows, rot_q, quad, geo, om, dc) -> list[str]:
             raise AssertionError(f"LM on kernel C disagrees with LM on its plain version: {msg}")
         msgs.append(msg)
     return msgs
+
+
+def lm_loop_checks(device, rows, rot_q, quad, geo, om, dc) -> tuple[dict, list[str]]:
+    """The LM loop kernel (one launch for all points) against the host loop
+    on kernel C (levenberg_marquardt_batched over the tangent wrapper) at
+    the whole map in every mode, at refine_*'s settings (at most 30
+    iterations, ftol 1e-6, 3 degrees and 0.05 trust regions), from the DI
+    top-1 and the PC off by PC_OFFSET. Per mode: the kernel's and the host
+    loop's times, the evaluations and the largest |d fun|. Also the share of
+    the first iteration's systems that the kernel's solve gives bit for bit
+    as torch.linalg.solve_ex."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    n = rows.shape[0]
+    pc0 = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (n, 1)), dtype=torch.float32, device=device)
+    out, msgs = {}, []
+    for mode in ("orientation", "pc", "joint"):
+        d = LM_DIMS[mode]
+        tangent, _, x0, args = lm_problem(mode, rows, torch.zeros((n, d), device=device), rot_q, pc0, None, quad, om,
+                                          dc, geo, DETECTOR_SHAPE)
+        wrapper, host = getattr(rl, LM_LOOP[mode]), getattr(rl, LM_LOOP[mode] + "_plain")
+        kw = dict(max_iters=30, ftol=1e-6, blocks=LM_BLOCKS[mode])
+        got = wrapper(x0, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = host(x0, *args, **kw)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ms = cuda_ms(lambda: wrapper(x0, *args, **kw), 3)
+        dfun = (got.fun - ref.fun).abs()
+        shares = {"fun": float((dfun <= NM_FUN_TOL).float().mean()),
+                  "n_iter": float((got.n_iter == ref.n_iter).float().mean())}
+        if mode != "pc":
+            ra = unit_quats(rl._rotation(rot_q, got.x[:, :3].contiguous()).cpu().numpy())
+            rb = unit_quats(rl._rotation(rot_q, ref.x[:, :3].contiguous()).cpu().numpy())
+            shares["rotation"] = float((np.degrees(disorientation_angle(ra, rb, "m-3m")) <= NM_DEG).mean())
+        if mode != "orientation":
+            dp = (got.x[:, -3:] - ref.x[:, -3:]).abs().amax(dim=1)
+            shares["pc"] = float((dp <= LM_PC_TOL).float().mean())
+        same = float(((got.x == ref.x).all(dim=1) & (got.fun == ref.fun)).float().mean())
+        # The first iteration's d x d systems at x = 0 (damping 1e-3).
+        _, g, jtj = tangent(x0, *args)
+        diag = torch.clamp_min(torch.diagonal(jtj, dim1=1, dim2=2), 1e-12)
+        a = jtj + 1e-3 * (diag[:, :, None] * torch.eye(d, device=device))
+        solve_same = float((rl.solve(a, g) == torch.linalg.solve_ex(a, g[..., None])[0][..., 0]).all(dim=1)
+                           .float().mean())
+        evals = int(got.n_evals.sum())
+        msg = (f"{mode} (n={n}, shared-memory residency {rl.loop_residency(rows.shape[1], d)}): kernel {ms:.4f} ms, "
+               f"host loop on kernel C {host_ms:.3f} ms; "
+               f"shares {', '.join(f'{k} {v:.4f}' for k, v in shares.items())} (fun within {NM_FUN_TOL:g}, "
+               f"rotations {NM_DEG} deg, PCs {LM_PC_TOL:g}; max |dfun| {float(dfun.max()):.2e}), bit for bit "
+               f"{same:.4f}; iterations mean {float(got.n_iter.float().mean()):.3f} max {int(got.n_iter.max())} "
+               f"(host {float(ref.n_iter.float().mean()):.3f}), converged {float(got.converged.float().mean()):.4f}; "
+               f"evaluations {evals} ({evals / n:.3f} a point; the host loop's kernel C evaluated "
+               f"{n * (int(ref.n_iter.max()) + 1)}); the first step's solve as solve_ex bit for bit on {solve_same:.4f}")
+        finite = bool(torch.isfinite(got.fun).all())
+        if (not finite or shares["n_iter"] < LM_ITER_AGREE
+                or min(v for k, v in shares.items() if k != "n_iter") < NM_AGREE):
+            raise AssertionError(f"the LM loop kernel disagrees with the host loop on kernel C: {msg}")
+        out[mode] = {"ms": ms, "host_ms": host_ms, "evals": evals, "err": float(dfun.max()), "same": same}
+        msgs.append(msg)
+        del got, ref, a, g, jtj
+    return out, msgs
 
 
 def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
@@ -1257,24 +1354,27 @@ def main(argv=None) -> int:
     # Instruction slots: SASS instructions a pixel, recounted where the toolkit
     # disassembles (sass_count.py), and the card's largest SM clock.
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
-            "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL), "source": "constants"}
+            "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
+            "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
-        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel")}
+        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
+                                              "lm_eval_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
     if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"],
-           *sass["tangent_pixel"].values()) <= 0:
+           *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
         f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
-        f"gradient, tangents) {sass['tangent_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, "
-        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}); dispatch "
+        f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
+        f"the LM loop kernel) {sass['lm_eval_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, "
+        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -1668,14 +1768,16 @@ def main(argv=None) -> int:
     log("refine-pc-times", f"{smi}: the whole map, P={d}: " + "; ".join(pc_times)
         + f"; orientation mode in the same run {ms_nm_again:.3f} ms")
 
-    # ---- LM and gradient refinement of the whole map, on kernel C ----
+    # ---- LM and gradient refinement of the whole map ----
     # Each refine_* call at its defaults with method "lm", then "gradient",
-    # from Nelder-Mead's starts: every evaluation is one launch of kernel C
-    # (csrc/refine_lm.cu) through the mode's tangent wrapper, and no other
-    # kernel runs; the gates are Nelder-Mead's.
+    # from Nelder-Mead's starts. "lm" is one launch of the LM loop kernel
+    # (csrc/refine_lm.cu refine_lm_loop_kernel, through the mode's
+    # levenberg_marquardt_* wrapper) and no launch of kernel C; every
+    # "gradient" evaluation is one launch of kernel C (the tangent wrapper);
+    # no other kernel runs. The gates are Nelder-Mead's.
     lm_start = {"orientation": dict(xmap=xmap), "pc": dict(xmap=refined.xmap, detector=bad_det),
                 "joint": dict(xmap=xmap, detector=bad_det)}
-    lm_launches, lm_kernel_ms = {}, {}
+    lm_launches, lm_kernel_ms, loop_kernel_ms = {}, {}, {}
     for method, tag in (("lm", "refine-lm"), ("gradient", "refine-grad")):
         msgs = []
         for mode in ("orientation", "pc", "joint"):
@@ -1687,10 +1789,13 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             t_first = time.perf_counter() - t0
             counts = read_launches()
-            launches = counts[LM_WRAPPER[mode]]
-            others = {k: v for k, v in counts.items() if v and k != LM_WRAPPER[mode]}
-            if launches < 1 or others:
-                raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) did not run on kernel C alone: {counts}")
+            name = LM_LOOP[mode] if method == "lm" else LM_WRAPPER[mode]
+            launches = counts[name]
+            others = {k: v for k, v in counts.items() if v and k != name}
+            if launches < 1 or others or (method == "lm" and launches != 1):
+                raise AssertionError(f"{LM_CALL[mode]}(method={method!r}) did not run on "
+                                     f"{'one launch of the LM loop kernel' if method == 'lm' else 'kernel C'} alone: "
+                                     f"{counts}")
             lm_launches[(method, mode)] = launches
             iters = res.xmap.prop["num_evals"]
             if res.xmap.best_rotations.shape != (n_scan, 4) or not np.isfinite(res.xmap.prop["scores"]).all():
@@ -1718,18 +1823,41 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             traced = (time.perf_counter() - t0) * 1e3
             busy_k, events_k = device_busy(prof)
-            kern = [(cnt, t) for k, cnt, t in events_k if "refine_lm" in k]
+            kern = [(cnt, t) for k, cnt, t in events_k
+                    if ("refine_lm_loop_kernel" if method == "lm" else "refine_lm_kernel") in k]
             k_n, k_ms = sum(c for c, _ in kern), sum(t for _, t in kern)
+            bounds = ""
             if method == "lm":
+                loop_kernel_ms[mode] = k_ms / max(k_n, 1)
+                # The call's evaluations: the start and one an iteration.
+                evals = n_scan + int(iters.sum())
+                pixels = evals * d
+                t_instr = instruction_ms(pixels, sass["lm_eval_pixel"][mode], clock_mhz, sms)
+                t_taps = pixels * TAP_BYTES / l2_rate * 1e3
+                floor = [pixels / rate * 1e3 for rate in SCATTERED_TAPS_PER_S[::-1]]
+                k_one = max(loop_kernel_ms[mode], 1e-9)
+                bounds = (f"; {evals} evaluations ({evals / n_scan:.3f} a point): the loop kernel "
+                          f"{loop_kernel_ms[mode]:.4f} ms against {t_instr:.4f} ms of issue slots at "
+                          f"{sass['lm_eval_pixel'][mode]} a pixel ({t_instr / k_one:.2%}), the taps' bytes from L2 "
+                          f"{t_taps:.4f} ms ({t_taps / k_one:.2%}) and their scattered sectors at "
+                          f"{SCATTERED_TAPS_PER_S[0]:.3g}-{SCATTERED_TAPS_PER_S[1]:.3g}/s {floor[0]:.4f}-{floor[1]:.4f} "
+                          f"ms ({floor[0] / k_one:.2%}-{floor[1] / k_one:.2%})")
+                # Where the rest of the call goes: the host's own time by op.
+                host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                              key=lambda e: e.self_cpu_time_total, reverse=True)
+                bounds += "; host self time under the trace: " + "; ".join(
+                    f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms" for e in host[:6])
+            else:
                 lm_kernel_ms[mode] = k_ms / max(k_n, 1)
             top_k = "; ".join(f"{k[:40]} x{cnt} {t:.3f} ms" for k, cnt, t in events_k[:4])
             msgs.append(
                 f"{LM_CALL[mode]}(method={method!r}) on the {n_scan} static-corrected patterns: first call "
                 f"{t_first:.3f} s, untraced {t_call * 1e3:.3f} ms = {n_scan / t_call:.1f} patterns/s; "
-                f"{LM_WRAPPER[mode]} launches {launches} ({k_n} under the trace, {k_ms / max(k_n, 1):.3f} ms a launch, "
-                f"{k_ms:.3f} ms in all); num_evals mean {iters.mean():.2f} max {int(iters.max())}; under "
-                f"torch.profiler wall {traced:.3f} ms, device busy {busy_k:.3f} ms = {busy_k / traced:.1%} (of the "
-                f"untraced call's time {busy_k / (t_call * 1e3):.1%}); {top_k}; " + gate)
+                f"{name} launches {launches} (kernel C {counts[LM_WRAPPER[mode]]}; {k_n} under the trace, "
+                f"{k_ms / max(k_n, 1):.4f} ms a launch, {k_ms:.3f} ms in all){bounds}; num_evals mean "
+                f"{iters.mean():.3f} max {int(iters.max())}; under torch.profiler wall {traced:.3f} ms, device busy "
+                f"{busy_k:.3f} ms = {busy_k / traced:.1%} (of the untraced call's time "
+                f"{busy_k / (t_call * 1e3):.1%}); {top_k}; " + gate)
         log(tag, f"{smi}: " + "; ".join(msgs))
 
     # Kernel C against its plain version at the same points, then whole LM
@@ -1742,6 +1870,41 @@ def main(argv=None) -> int:
         f"|dJtJ| <= {LM_REL:g} of their norms; in orientation mode also no further from the float64 plain version than "
         f"{LM_FACTOR:g} x the float32 one, or {LM_REL:g}): " + "; ".join(lm_msgs) + " | whole LM runs on the kernel and on the plain "
         f"version over {NAV_CHUNK} points: " + "; ".join(run_msgs))
+
+    # The LM loop kernel against the host loop on kernel C at the whole map,
+    # its times, and its rows of the kernel table with both bounds from its
+    # evaluations.
+    loop_res, loop_msgs = lm_loop_checks(dev, static_rows, torch.as_tensor(top1_rot, dtype=torch.float32, device=dev),
+                                         quad, geo, om, dc)
+    log("lm-loop-check", f"{smi}: the LM loop kernel against the host loop on kernel C at refine_*'s settings, whole "
+        f"map (limits: fun, rotations, PCs on >= {NM_AGREE}, iterations on >= {LM_ITER_AGREE}, all finite): "
+        + "; ".join(loop_msgs))
+    loop_rows = {}
+    for mode in ("orientation", "pc", "joint"):
+        dd, r = LM_DIMS[mode], loop_res[mode]
+        pixels = r["evals"] * d
+        # each input read once (rows, starts, rotations, PCs, direction
+        # cosines or pixel table, quad texture), each output written once
+        per_point = dd + 4 + (3 if mode != "orientation" else 0)
+        in_bytes = 4 * (n_scan * d + n_scan * per_point + (3 * d if mode == "orientation" else 2 * d) + quad.numel())
+        out_bytes = n_scan * (4 * dd + 4 + 4 + 1 + 4)
+        t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+        t_ops = pixels * lm_ops_per_pixel(mode) / PEAK_F32_FLOPS * 1e3
+        t_instr = instruction_ms(pixels, sass["lm_eval_pixel"][mode], clock_mhz, sms)
+        l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
+        scattered_ms = pixels / SCATTERED_TAPS_PER_S[1] * 1e3
+        loop_rows[mode] = {
+            "name": LM_LOOP[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_lm.cu",
+            "replaces": "kikuchipy_tpu/utils/optimize.py:244 levenberg_marquardt_batched over :305 jac_and_res + "
+                        "kikuchipy_tpu/indexing/refinement.py:132 _project_at",
+            "launches": lm_launches[("lm", mode)], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["host_ms"], "plain_points": n_scan, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "library_same_function_ms": None, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr, "split_ms": None,
+            "kernel_only_ms": loop_kernel_ms[mode], "evaluations": r["evals"], "bit_for_bit_share": r["same"],
+            "scattered_taps_ms": scattered_ms,
+            "note": "plain_ms: the host loop on kernel C at the whole map; max_abs_err: max |fun - the host loop's fun|",
+        }
 
     # Times of one launch at the main-path shape (the whole map, at the
     # start x = 0, as LM's first launch), its bounds, and the plain version.
@@ -1773,7 +1936,7 @@ def main(argv=None) -> int:
             "name": LM_WRAPPER[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_lm.cu",
             "replaces": "kikuchipy_tpu/utils/optimize.py:305 jac_and_res + kikuchipy_tpu/indexing/refinement.py:132 "
                         "_project_at",
-            "launches": lm_launches[("lm", mode)] + lm_launches[("gradient", mode)], "max_abs_err": lm_worst[mode][0],
+            "launches": lm_launches[("gradient", mode)], "max_abs_err": lm_worst[mode][0],
             "ms": ms_k, "plain_ms": ms_plain, "plain_points": c, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
             "library_same_function_ms": None, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr, "split_ms": None,
@@ -1781,7 +1944,8 @@ def main(argv=None) -> int:
         }
         lm_times.append(
             f"{LM_WRAPPER[mode]} (kernel C, {mode} mode, d={dd}) at n={n_scan}: {ms_k:.4f} ms a call (CUDA events; "
-            f"the kernel alone {lm_kernel_ms[mode]:.4f} ms a launch under torch.profiler in [refine-lm]); bound "
+            f"the kernel alone {lm_kernel_ms[mode]:.4f} ms a launch under torch.profiler in [refine-grad]"
+            f"{', chunks of ' + str(NAV_CHUNK) if mode == 'orientation' else ''}); bound "
             f"{bound:.4f} ms by {lm_rows[mode]['bound_by']} (operations {t_ops:.4f} ms at {lm_ops_per_pixel(mode)} a "
             f"pixel, bytes {t_bytes:.4f} ms), {bound / ms_k:.2%} of it; instruction slots {t_instr:.4f} ms at "
             f"{sass['tangent_pixel'][mode]} a pixel ({t_instr / ms_k:.2%}); taps {pixels * TAP_BYTES / 1e9:.3f} GB "
@@ -2007,6 +2171,15 @@ def main(argv=None) -> int:
                          f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.3f} ms; the "
                          f"host loop on kernel B {row['plain_ms']:.1f} ms for {row['plain_points']} points against "
                          f"{row['chunk_ms']:.3f} ms of kernel; no single PyTorch call computes it)")
+    for mode, row in loop_rows.items():
+        table.append(row)
+        time_msgs.append(f"{row['name']} {row['ms']:.4f} ms ({row['evaluations']} evaluations; bound "
+                         f"{row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.2%} of it; "
+                         f"instruction slots {row['instruction_bound_ms']:.4f} ms "
+                         f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.4f} ms "
+                         f"({row['l2_bound_ms'] / row['ms']:.2%}), as scattered sectors {row['scattered_taps_ms']:.4f} ms "
+                         f"({row['scattered_taps_ms'] / row['ms']:.2%}); the host loop on kernel C {row['plain_ms']:.3f} ms; "
+                         f"no single PyTorch call computes it)")
     for mode, row in lm_rows.items():
         table.append(row)
         time_msgs.append(f"{row['name']} {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "

@@ -1,7 +1,11 @@
-// Kernel C, the tangent kernel (Hopper, sm_90a): for every point of a batch,
-// the value, gradient and Gauss-Newton matrix of the least-squares form of
-// the refinement objective at a trial parameter vector x, in any of the
-// three refinement modes.
+// Two kernels for Hopper (sm_90a) on one evaluation (tangent_point below):
+// kernel C, the tangent kernel, and the Levenberg-Marquardt loop kernel.
+//
+// Kernel C: for every point of a batch, the value, gradient and
+// Gauss-Newton matrix of the least-squares form of the refinement objective
+// at a trial parameter vector x, in any of the three refinement modes. The
+// gradient method's evaluation, and the engine of the host loop that the
+// loop kernel is held against.
 //
 // Replaces XLA code of the JAX package, not a TPU kernel:
 // kikuchipy_tpu/utils/optimize.py:305 jac_and_res (one primal and d
@@ -65,13 +69,73 @@
 // of the pixel's value, its gradient and the d tangents (sass_count.py); the
 // experimental rows, read once, 236 MB. chip_smoke.py prints all three.
 //
-// Design for a first version that is right: one block a point, shared memory
-// for the pattern and its tangents so no pixel is projected twice, a grid of
-// one block a point. Running the whole Levenberg-Marquardt loop in one launch,
-// as csrc/refine_nm.cu runs Nelder-Mead, is a later redesign.
+// Kernel C's design: one block a point, shared memory for the pattern and
+// its tangents so no pixel is projected twice, a grid of one block a point.
+//
+// The Levenberg-Marquardt loop kernel (refine_lm_loop_kernel): one launch
+// runs every point's whole loop, in any of the three modes. It replaces
+// kikuchipy_tpu/utils/optimize.py:244 levenberg_marquardt_batched (its
+// jax.lax.while_loop) over jac_and_res (:305) and the residuals of
+// kikuchipy_tpu/indexing/refinement.py that project through :132
+// _project_at. The port's host loop (utils/optimize.py
+// levenberg_marquardt_batched over kernel C, one launch an iteration) is its
+// plain version; ops/refine_lm.py holds the wrappers.
+//
+// What it computes, for each point on its own (the batched loop computes the
+// same: a done element is frozen, it counts its own iterations, and max(it)
+// < max_iters bounds each running element, which has taken every iteration
+// so far): f, g and J^T J at x0; then, until done or max_iters iterations,
+// the damping diag = max(diag(J^T J), 1e-12), A = J^T J + lam diag(diag),
+// step = clip_blocks(-A^-1 g) (each block of 3 clipped to its norm ball),
+// one evaluation at x + step, accepted if f_new < f (then its f, g, J^T J
+// are the cache; on a rejection the old ones stay, and no evaluation is
+// repeated), lam / 3 floored at 1e-9 on an accept and * 4 capped at 1e8 on a
+// reject, done on an accept that gains less than ftol or on the sixth
+// rejection in a row.
+//
+// Rounding: the host loop's on the card. Each evaluation is tangent_point,
+// kernel C's arithmetic bit for bit; the trial rotation q0 (x) exp_map(delta)
+// and PC pc0 + dpc as the wrapper's PyTorch operations (trial_rotation,
+// trial_pc); the damping, the clip and the lam updates as PyTorch's
+// elementwise operations round them (a division by a Python scalar is a
+// product with its float32 reciprocal); the d x d solve (lu_solve) as
+// torch.linalg.solve_ex rounds it on the card. So the host loop and this
+// kernel take the same path bit for bit (chip_smoke.py [lm-loop-check]
+// holds them together on the whole map).
+//
+// Bound on an H100 SXM: each evaluation is kernel C's work, so Sum n_evals x
+// P pixels of kernel C's issue slots (sass_count.py lm_eval_pixel: the pixel
+// with its three passes' sums) and of its scattered float4 taps from L2; the
+// experimental rows, read once from device memory, 236 MB at the main-path
+// shape (16,384 x 3600). chip_smoke.py prints both for each mode.
+//
+// Design: what held the host loop back.
+//   The host loop: about twenty small PyTorch operations and one host read
+//   an iteration, half of an LM call. Here the loop's state (x, the cache
+//   and the trial evaluation, lam, the counters: under 500 bytes) lives in
+//   shared memory; thread 0 alone steps it between two barriers (the solve,
+//   the clip, the accept rules: a few hundred instructions an iteration, one
+//   warp of the block while the other blocks on the SM keep it busy), so a
+//   call is one launch and one read at its end.
+//   Converged points retire. The batched loop evaluates every point in every
+//   iteration until the slowest stops (11 evaluations a point for a mean of
+//   3.65 iterations in orientation mode). A persistent grid (as many blocks
+//   as fit on the SMs, cudaOccupancyMaxActiveBlocksPerMultiprocessor) takes
+//   points from a global atomic counter, as csrc/refine_nm.cu does: a block
+//   takes the next point when its point is done, so a point costs its own
+//   1 + n_iter evaluations and a slow point holds only its own block.
+//   Shared memory is kernel C's, (1 + d) P floats resident (57.6 KB at d =
+//   3, three blocks an SM; 100.8 KB at d = 6, two) and the recompute
+//   instantiation beyond RESIDENT_SMEM_BYTES, and where it still fits that
+//   budget the point's experimental row too (row_smem: the d = 3 modes at
+//   P = 3600, 72 KB a block, still three an SM; not joint mode, where 115.2
+//   KB would leave one): copied by cp.async at the point's start, under the
+//   first evaluation's pass 1, and read there by every pass 3 instead of
+//   from L2 (5% less time in lm_variants.py, bit for bit).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "lambert_common.cuh"
 
@@ -103,6 +167,20 @@ struct Problem {
     float* grad;            // (n, d) J^T r
     float* jtj;             // (n, d, d) J^T J
     float* sim;             // (n, P) the projected values, or null
+    // The Levenberg-Marquardt loop kernel's (refine_lm_loop_kernel): q0
+    // above holds the start rotations (PC mode: the fixed ones).
+    const float* x0;        // (n, d) the starts
+    const float* pc0;       // (n, 3) the start PCs (PC, joint)
+    float lambda0, ftol;
+    int max_iters, n_blocks;
+    int row_smem;           // resident: the row in shared memory too
+    float block_norm[2];    // the step's blocks of 3, each clipped to its norm ball
+    float* x;               // (n, d) the points reached
+    float* fun;             // (n,) 0.5 ||r||^2 there
+    int* n_iter;            // (n,) iterations taken
+    unsigned char* converged;  // (n,) bool
+    int* n_evals;           // (n,) evaluations made
+    int* next;              // the queue: next point to take, 0 at launch
 };
 
 // The point's rotation matrix (rotate_vector's, row by row) and its
@@ -136,6 +214,30 @@ __device__ void hamilton(const float* q1, const float* q2, float* out) {
     out[1] = a1 * b2 + b1 * a2 + c1 * d2 - d1 * c2;
     out[2] = a1 * c2 - b1 * d2 + c1 * a2 + d1 * b2;
     out[3] = a1 * d2 + b1 * c2 - c1 * b2 + d1 * a2;
+}
+
+// The rotation and PC at a trial point as the wrapper computes them with
+// PyTorch's operations on the card (ops/refine_lm.py _rotation, pc0 + dpc),
+// each product, sum and quotient rounded apart (nvcc would contract them):
+// exp_map's half = delta * 0.5, its sum of squares over a last axis of 3 as
+// the card adds it ((h0^2 + h2^2) + h1^2), the IEEE square root and
+// quotients, then geometry/quaternion.py multiply term by term, left to
+// right.
+__device__ __forceinline__ void trial_rotation(const float* q0, const float* delta, float* q) {
+    const float h0 = __fmul_rn(delta[0], 0.5f), h1 = __fmul_rn(delta[1], 0.5f), h2 = __fmul_rn(delta[2], 0.5f);
+    const float den = __fsqrt_rn(
+        __fadd_rn(1.f, __fadd_rn(__fadd_rn(__fmul_rn(h0, h0), __fmul_rn(h2, h2)), __fmul_rn(h1, h1))));
+    const float a2 = __fdiv_rn(1.f, den), b2 = __fdiv_rn(h0, den), c2 = __fdiv_rn(h1, den), d2 = __fdiv_rn(h2, den);
+    const float a1 = q0[0], b1 = q0[1], c1 = q0[2], d1 = q0[3];
+    q[0] = __fsub_rn(__fsub_rn(__fsub_rn(__fmul_rn(a1, a2), __fmul_rn(b1, b2)), __fmul_rn(c1, c2)), __fmul_rn(d1, d2));
+    q[1] = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(a1, b2), __fmul_rn(b1, a2)), __fmul_rn(c1, d2)), __fmul_rn(d1, c2));
+    q[2] = __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(a1, c2), __fmul_rn(b1, d2)), __fmul_rn(c1, a2)), __fmul_rn(d1, b2));
+    q[3] = __fadd_rn(__fsub_rn(__fadd_rn(__fmul_rn(a1, d2), __fmul_rn(b1, c2)), __fmul_rn(c1, b2)), __fmul_rn(d1, a2));
+}
+
+__device__ __forceinline__ void trial_pc(const float* pc0, const float* dpc, float* pc) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pc[k] = __fadd_rn(pc0[k], dpc[k]);
 }
 
 // Thread 0: M of q, and dM_k = dM/d delta_k for q = q0 (x) exp_map(delta),
@@ -340,28 +442,105 @@ __device__ __forceinline__ void block_sums(float (&v)[N], float* red, float* tot
     for (int i = 0; i < N; ++i) v[i] = tot[i];
 }
 
-template <int kMode, bool kResident>
-__global__ void __launch_bounds__(kThreads) refine_lm_kernel(const Problem pb) {
+// The three passes' sums over one pixel, from its value s and tangents ds:
+// pass 1's (the means' sums), pass 2's (the centred sums c.c, c.dc_k and
+// dc_k.dc_l) and pass 3's (r.r, u.r and dc_k.r of the residual r = c / |c|
+// - e). sass_count.py counts them with the pixel.
+template <int D>
+__device__ __forceinline__ void pass1_sums(float s, const float* ds, float* acc1) {
+    acc1[0] += s;
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc1[1 + k] += ds[k];
+}
+
+template <int D>
+__device__ __forceinline__ void pass2_sums(float s, const float* ds, const float* mean, float* acc) {
+    const float c = s - mean[0];
+    float dc[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) dc[k] = ds[k] - mean[1 + k];
+    acc[0] += c * c;
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[1 + k] += c * dc[k];
+    int idx = 1 + D;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+#pragma unroll
+        for (int l = k; l < D; ++l) acc[idx++] += dc[k] * dc[l];
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void pass3_sums(float s, const float* ds, const float* mean, float cnorm, float e,
+                                           float* res) {
+    const float u = __fdiv_rn(s - mean[0], cnorm);
+    const float r = u - e;
+    res[0] += r * r;
+    res[1] += u * r;
+#pragma unroll
+    for (int k = 0; k < D; ++k) res[2 + k] += (ds[k] - mean[1 + k]) * r;
+}
+
+// Where the loop kernel keeps a point's row in shared memory (row_smem):
+// after the pattern and tangents ((1 + d) P floats), at a 16-byte boundary.
+__host__ __device__ constexpr size_t row_offset(int d, int P) { return ((size_t)(1 + d) * P + 3) & ~(size_t)3; }
+
+// The point's row into shared memory, asynchronously (csrc/refine_nm.cu's
+// copy: 16-byte copies where the row is 16-byte aligned, else 4-byte ones).
+__device__ __forceinline__ void load_row_async(float* s_row, const float* row, int P) {
+    if ((P & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+        for (int c = threadIdx.x; c < P / 4; c += kThreads) {
+            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + 4 * c));
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(row + 4 * c) : "memory");
+        }
+    } else {
+        for (int p = threadIdx.x; p < P; p += kThreads) {
+            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + p));
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(row + p) : "memory");
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Where one evaluation reads its point and writes its results.
+struct PointIO {
+    const float* q;      // (4) the rotation at the trial point (PC mode: the fixed rotation)
+    const float* q0;     // (4) the start rotation (orientation, joint; else null)
+    const float* delta;  // (3) the trial rotation vector (orientation, joint; else null)
+    const float* pc;     // (3) the trial PC (PC, joint)
+    const float* dc;     // orientation: the point's direction cosines (P, 3)
+    const float* row;    // (P) its unit experimental row
+    float* sim;          // (P) the projected values, or null
+    float* f;            // thread 0 writes 0.5 ||r||^2,
+    float* g;            // J^T r (d)
+    float* jtj;          // and J^T J (d x d, both triangles)
+};
+
+// A block's scratch for one evaluation (shared memory).
+struct Scratch {
+    float red[kWarps * kMaxSums];
+    float tot[kMaxSums];
+    PointConsts consts;
+};
+
+// One evaluation of one point by the whole block: passes 1-3 and the
+// combination in double. Kernel C runs it once, the loop kernel once an
+// iteration, so for the same x both give the same f, g and J^T J bit for
+// bit. smem: the resident instantiation's (1 + d) P floats. Called in
+// block-uniform code; its first barrier follows thread 0's point_consts.
+template <int kMode, bool kResident, bool kRowAsync = false>
+__device__ __forceinline__ void tangent_point(const Problem& pb, const PointIO& io, float* smem, Scratch& sc) {
     constexpr int D = dims<kMode>();
     constexpr int NS = n_sums<kMode>();
-    extern __shared__ __align__(16) float smem[];  // kResident: s (P), then ds_k (P each)
-    __shared__ float red[kWarps * kMaxSums];
-    __shared__ float tot[kMaxSums];
-    __shared__ PointConsts consts;
-
-    const int b = blockIdx.x;
     const int P = pb.P;
-    if (threadIdx.x == 0) {
-        point_consts(pb.q + 4 * b, kMode == kPC ? nullptr : pb.q0 + 4 * b,
-                     kMode == kPC ? nullptr : pb.rotvec + 3 * b, kMode != kPC, consts);
-    }
+    if (threadIdx.x == 0) point_consts(io.q, io.q0, io.delta, kMode != kPC, sc.consts);
     __syncthreads();
     Pixel<kMode> pixel;
-    pixel.r = make_rot(pb.q + 4 * b);
-    pixel.pc = &consts;
-    pixel.dc = kMode == kOrientation ? pb.dc + (pb.per_point_dc ? (size_t)b * P * 3 : 0) : nullptr;
-    if constexpr (kMode != kOrientation) pixel.fr = pc_frame(pb.pc + 3 * b, pb.det);
-    const float* row = pb.exp + (size_t)b * P;
+    pixel.r = make_rot(io.q);
+    pixel.pc = &sc.consts;
+    pixel.dc = io.dc;
+    if constexpr (kMode != kOrientation) pixel.fr = pc_frame(io.pc, pb.det);
+    const float* row = io.row;
     float* s_val = smem;
     float* s_tan = smem + P;
 
@@ -377,12 +556,14 @@ __global__ void __launch_bounds__(kThreads) refine_lm_kernel(const Problem pb) {
 #pragma unroll
             for (int k = 0; k < D; ++k) s_tan[k * P + p] = ds[k];
         }
-        if (pb.sim != nullptr) pb.sim[(size_t)b * P + p] = s;
-        acc1[0] += s;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc1[1 + k] += ds[k];
+        if (io.sim != nullptr) io.sim[p] = s;
+        pass1_sums<D>(s, ds, acc1);
     }
-    block_sums<1 + D>(acc1, red, tot);
+    // kRowAsync (the loop kernel): a row copied to shared memory has landed
+    // before the barriers below publish it (a no-op after the point's first
+    // evaluation, and where the row stays in device memory).
+    if constexpr (kRowAsync) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    block_sums<1 + D>(acc1, sc.red, sc.tot);
     const float inv_p = 1.f / (float)P;
     float mean[1 + D];
 #pragma unroll
@@ -402,21 +583,9 @@ __global__ void __launch_bounds__(kThreads) refine_lm_kernel(const Problem pb) {
         } else {
             s = pixel(p, ds, pb);
         }
-        const float c = s - mean[0];
-        float dc[D];
-#pragma unroll
-        for (int k = 0; k < D; ++k) dc[k] = ds[k] - mean[1 + k];
-        acc[0] += c * c;
-#pragma unroll
-        for (int k = 0; k < D; ++k) acc[1 + k] += c * dc[k];
-        int idx = 1 + D;
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-#pragma unroll
-            for (int l = k; l < D; ++l) acc[idx++] += dc[k] * dc[l];
-        }
+        pass2_sums<D>(s, ds, mean, acc);
     }
-    block_sums<NS>(acc, red, tot);
+    block_sums<NS>(acc, sc.red, sc.tot);
     const float cnorm = sqrtf(acc[0]);
 
     // Pass 3: the residual r = c / |c| - e; r.r, u.r and dc_k.r.
@@ -433,34 +602,346 @@ __global__ void __launch_bounds__(kThreads) refine_lm_kernel(const Problem pb) {
         } else {
             s = pixel(p, ds, pb);
         }
-        const float u = __fdiv_rn(s - mean[0], cnorm);
-        const float r = u - row[p];
-        res[0] += r * r;
-        res[1] += u * r;
-#pragma unroll
-        for (int k = 0; k < D; ++k) res[2 + k] += (ds[k] - mean[1 + k]) * r;
+        pass3_sums<D>(s, ds, mean, cnorm, row[p], res);
     }
-    block_sums<2 + D>(res, red, tot);
+    block_sums<2 + D>(res, sc.red, sc.tot);
 
     if (threadIdx.x == 0) {
         const double cc = acc[0], nc = sqrt(cc), ur = res[1];
         double udc[D];
 #pragma unroll
         for (int k = 0; k < D; ++k) udc[k] = (double)acc[1 + k] / nc;
-        pb.f[b] = 0.5f * res[0];
+        *io.f = 0.5f * res[0];
 #pragma unroll
-        for (int k = 0; k < D; ++k) pb.grad[(size_t)b * D + k] = (float)(((double)res[2 + k] - udc[k] * ur) / nc);
+        for (int k = 0; k < D; ++k) io.g[k] = (float)(((double)res[2 + k] - udc[k] * ur) / nc);
         int idx = 1 + D;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
 #pragma unroll
             for (int l = k; l < D; ++l) {
                 const float v = (float)(((double)acc[idx++] - udc[k] * udc[l]) / cc);
-                pb.jtj[((size_t)b * D + k) * D + l] = v;
-                pb.jtj[((size_t)b * D + l) * D + k] = v;
+                io.jtj[k * D + l] = v;
+                io.jtj[l * D + k] = v;
             }
         }
     }
+}
+
+// Kernel C: one block a point, one evaluation at the trial point the
+// wrapper computed.
+template <int kMode, bool kResident>
+__global__ void __launch_bounds__(kThreads) refine_lm_kernel(const Problem pb) {
+    constexpr int D = dims<kMode>();
+    extern __shared__ __align__(16) float smem[];  // kResident: s (P), then ds_k (P each)
+    __shared__ Scratch sc;
+    const int b = blockIdx.x;
+    const int P = pb.P;
+    PointIO io;
+    io.q = pb.q + 4 * b;
+    io.q0 = kMode == kPC ? nullptr : pb.q0 + 4 * b;
+    io.delta = kMode == kPC ? nullptr : pb.rotvec + 3 * b;
+    io.pc = kMode == kOrientation ? nullptr : pb.pc + 3 * b;
+    io.dc = kMode == kOrientation ? pb.dc + (pb.per_point_dc ? (size_t)b * P * 3 : 0) : nullptr;
+    io.row = pb.exp + (size_t)b * P;
+    io.sim = pb.sim == nullptr ? nullptr : pb.sim + (size_t)b * P;
+    io.f = pb.f + b;
+    io.g = pb.grad + (size_t)b * D;
+    io.jtj = pb.jtj + (size_t)b * D * D;
+    tangent_point<kMode, kResident>(pb, io, smem, sc);
+}
+
+// ------------------------ the Levenberg-Marquardt loop ------------------------ //
+
+// Solves a x = b in one thread (a is D x D, row by row; x replaces b) by
+// Gaussian elimination with partial pivoting in LAPACK's order for one
+// matrix: sgetf2 (for each column the first row of largest magnitude as
+// pivot, the whole rows swapped; the column below it scaled by the rounded
+// reciprocal of the pivot where |pivot| >= FLT_MIN, else divided; the
+// rank-1 update of the rows below), then sgetrs (the row swaps on b, the
+// unit lower triangle forward and the upper backward with a divide by each
+// pivot, a column of the triangles skipped where its entry of b is 0, as
+// strsm does). Every update a - l u is one FMA: so rounded, the solve is
+// torch.linalg.solve_ex's on the card (its batched LU factorization and
+// solve) bit for bit, which chip_smoke.py [lm-loop-check] and
+// tests/test_torch_gpu.py hold through refine_lm_solve_launch. A zero
+// pivot is passed over and the back substitution divides by it, as those
+// solves (and jnp.linalg.solve) do: nothing stops at a singular matrix; the
+// step is not finite and is rejected.
+template <int D>
+__device__ __forceinline__ void lu_solve(float (&a)[D][D], float (&b)[D]) {
+    int piv[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+        int p = j;
+        float best = fabsf(a[j][j]);
+#pragma unroll
+        for (int i = j + 1; i < D; ++i) {
+            if (fabsf(a[i][j]) > best) {
+                best = fabsf(a[i][j]);
+                p = i;
+            }
+        }
+        piv[j] = p;
+        float pivot = a[j][j];
+#pragma unroll
+        for (int i = j + 1; i < D; ++i) pivot = p == i ? a[i][j] : pivot;
+        if (pivot != 0.f) {
+#pragma unroll
+            for (int i = j + 1; i < D; ++i) {
+                if (p == i) {
+#pragma unroll
+                    for (int k = 0; k < D; ++k) {
+                        const float t = a[i][k];
+                        a[i][k] = a[j][k];
+                        a[j][k] = t;
+                    }
+                }
+            }
+            if (fabsf(pivot) >= 1.17549435e-38f) {
+                const float r = __fdiv_rn(1.f, pivot);
+#pragma unroll
+                for (int i = j + 1; i < D; ++i) a[i][j] = __fmul_rn(a[i][j], r);
+            } else {
+#pragma unroll
+                for (int i = j + 1; i < D; ++i) a[i][j] = __fdiv_rn(a[i][j], pivot);
+            }
+        }
+#pragma unroll
+        for (int k = j + 1; k < D; ++k) {
+            if (a[j][k] != 0.f) {
+#pragma unroll
+                for (int i = j + 1; i < D; ++i) a[i][k] = fmaf(-a[i][j], a[j][k], a[i][k]);
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+#pragma unroll
+        for (int i = j + 1; i < D; ++i) {
+            if (piv[j] == i) {
+                const float t = b[i];
+                b[i] = b[j];
+                b[j] = t;
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+        if (b[k] != 0.f) {
+#pragma unroll
+            for (int i = k + 1; i < D; ++i) b[i] = fmaf(-b[k], a[i][k], b[i]);
+        }
+    }
+#pragma unroll
+    for (int k = D - 1; k >= 0; --k) {
+        if (b[k] != 0.f) {
+            b[k] = __fdiv_rn(b[k], a[k][k]);
+#pragma unroll
+            for (int i = 0; i < k; ++i) b[i] = fmaf(-b[k], a[i][k], b[i]);
+        }
+    }
+}
+
+// utils/optimize.py clip_blocks on one block of 3 as PyTorch computes it on
+// the card: vector_norm's squares added as (s0^2 + s2^2) + s1^2 and its IEEE
+// square root; where norm > max_norm, seg * (reciprocal(norm) * max_norm)
+// (a Python scalar over a tensor is the tensor's reciprocal times it).
+__device__ __forceinline__ void clip_block3(float* seg, float max_norm) {
+    const float norm = __fsqrt_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(seg[0], seg[0]), __fmul_rn(seg[2], seg[2])), __fmul_rn(seg[1], seg[1])));
+    if (norm > max_norm) {
+        const float factor = __fmul_rn(__fdiv_rn(1.f, norm), max_norm);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) seg[k] = __fmul_rn(seg[k], factor);
+    }
+}
+
+// PyTorch's clamp_min and clamp_max: a NaN passes through.
+__device__ __forceinline__ float clamp_min(float v, float lo) { return v < lo ? lo : v; }
+__device__ __forceinline__ float clamp_max(float v, float hi) { return v > hi ? hi : v; }
+
+// One point's Levenberg-Marquardt state, in shared memory; thread 0 alone
+// changes it, between barriers.
+template <int D>
+struct LMState {
+    float x[D], xt[D];          // the point and the trial point
+    float q0[4], pc0[3];        // the start rotation (PC mode: the fixed one) and PC
+    float q[4], pc[3];          // the rotation and PC at the trial point
+    float f, g[D], jtj[D * D];  // the evaluation at x (the cache)
+    float ft, gt[D], jtjt[D * D];  // ... and at the trial point
+    float lam;
+    int it, stalled, evals, point;
+    bool done, run;
+};
+
+// Thread 0: the rotation and PC at the trial point.
+template <int kMode, int D>
+__device__ __forceinline__ void trial_inputs(LMState<D>& st) {
+    if constexpr (kMode == kPC) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) st.q[k] = st.q0[k];
+    } else {
+        trial_rotation(st.q0, st.xt, st.q);
+    }
+    if constexpr (kMode != kOrientation) trial_pc(st.pc0, st.xt + (kMode == kJoint ? 3 : 0), st.pc);
+}
+
+// Thread 0: the damped step from the cache and the trial point x + step,
+// as the batched loop computes them: diag = clamp_min(diag(J^T J), 1e-12),
+// A = J^T J + lam (diag e_i e_i^T) with every entry's product and sum
+// rounded apart, step = clip_blocks(-A^-1 g).
+template <int kMode, int D>
+__device__ __forceinline__ void propose(LMState<D>& st, const Problem& pb) {
+    float a[D][D], s[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+        const float diag = clamp_min(st.jtj[i * D + i], 1e-12f);
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+            a[i][j] = __fadd_rn(st.jtj[i * D + j], __fmul_rn(st.lam, __fmul_rn(diag, i == j ? 1.f : 0.f)));
+        s[i] = st.g[i];
+    }
+    lu_solve<D>(a, s);
+#pragma unroll
+    for (int i = 0; i < D; ++i) s[i] = -s[i];
+#pragma unroll
+    for (int k = 0; k < D / 3; ++k) {
+        if (k < pb.n_blocks) clip_block3(s + 3 * k, pb.block_norm[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i) st.xt[i] = __fadd_rn(st.x[i], s[i]);
+    trial_inputs<kMode>(st);
+}
+
+// Thread 0: the batched loop's rules for one element after its trial
+// evaluation (utils/optimize.py levenberg_marquardt_batched).
+template <int kMode, int D>
+__device__ __forceinline__ void update(LMState<D>& st, const Problem& pb) {
+    const bool accept = st.ft < st.f;
+    if (accept) {
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+            st.x[i] = st.xt[i];
+            st.g[i] = st.gt[i];
+        }
+#pragma unroll
+        for (int i = 0; i < D * D; ++i) st.jtj[i] = st.jtjt[i];
+    }
+    // lam / 3.0 is lam times the float32 1/3 on the card (a division by a
+    // Python scalar), lam * 4.0 exact.
+    st.lam = accept ? clamp_min(__fmul_rn(st.lam, 1.f / 3.f), 1e-9f) : clamp_max(__fmul_rn(st.lam, 4.f), 1e8f);
+    st.stalled = accept ? 0 : st.stalled + 1;
+    st.done = (accept && __fsub_rn(st.f, st.ft) < pb.ftol) || st.stalled >= 6;
+    if (accept) st.f = st.ft;
+    ++st.it;
+    st.run = !st.done && st.it < pb.max_iters;
+    if (st.run) propose<kMode>(st, pb);
+}
+
+// The loop kernel: a persistent grid, each block taking points from the
+// queue and running each point's whole loop; see the note at the top.
+template <int kMode, bool kResident>
+__global__ void __launch_bounds__(kThreads) refine_lm_loop_kernel(const Problem pb) {
+    constexpr int D = dims<kMode>();
+    extern __shared__ __align__(16) float smem[];
+    __shared__ Scratch sc;
+    __shared__ LMState<D> st;
+    const int P = pb.P;
+
+    for (;;) {
+        if (threadIdx.x == 0) st.point = atomicAdd(pb.next, 1);
+        __syncthreads();
+        const int b = st.point;  // rewritten only after this point's barriers
+        if (b >= pb.n) return;
+
+        if (threadIdx.x == 0) {
+#pragma unroll
+            for (int i = 0; i < D; ++i) st.x[i] = st.xt[i] = pb.x0[(size_t)D * b + i];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) st.q0[k] = pb.q0[4 * b + k];
+            if constexpr (kMode != kOrientation) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k) st.pc0[k] = pb.pc0[3 * b + k];
+            }
+            trial_inputs<kMode>(st);
+            st.lam = pb.lambda0;
+            st.it = st.stalled = 0;
+            st.evals = 1;
+            st.done = false;
+        }
+        PointIO io;
+        io.q = st.q;
+        io.q0 = kMode == kPC ? nullptr : st.q0;
+        io.delta = kMode == kPC ? nullptr : st.xt;
+        io.pc = st.pc;
+        io.dc = kMode == kOrientation ? pb.dc + (pb.per_point_dc ? (size_t)b * P * 3 : 0) : nullptr;
+        io.row = pb.exp + (size_t)b * P;
+        if (kResident && pb.row_smem) {
+            load_row_async(smem + row_offset(D, P), io.row, P);
+            io.row = smem + row_offset(D, P);
+        }
+        io.sim = nullptr;
+        io.f = &st.f;
+        io.g = st.g;
+        io.jtj = st.jtj;
+        // The start: thread 0's writes above are published by the first
+        // barrier in tangent_point.
+        tangent_point<kMode, kResident, true>(pb, io, smem, sc);
+        if (threadIdx.x == 0) {
+            st.run = pb.max_iters > 0;
+            if (st.run) propose<kMode>(st, pb);
+        }
+        __syncthreads();
+        io.f = &st.ft;
+        io.g = st.gt;
+        io.jtj = st.jtjt;
+        while (st.run) {
+            tangent_point<kMode, kResident, true>(pb, io, smem, sc);
+            if (threadIdx.x == 0) {
+                ++st.evals;
+                update<kMode>(st, pb);
+            }
+            __syncthreads();
+        }
+
+        if (threadIdx.x == 0) {
+#pragma unroll
+            for (int i = 0; i < D; ++i) pb.x[(size_t)D * b + i] = st.x[i];
+            pb.fun[b] = st.f;
+            pb.n_iter[b] = st.it;
+            pb.converged[b] = st.done;
+            pb.n_evals[b] = st.evals;
+        }
+    }
+}
+
+// The rotation and PC of a trial point for each of n points (x (n, d)), one
+// thread a point: what the loop kernel computes, for the check that it
+// rounds as the wrapper's PyTorch operations do.
+template <int kMode>
+__global__ void refine_lm_trial_kernel(const float* q0, const float* pc0, const float* x, float* q, float* pc, int n) {
+    constexpr int D = dims<kMode>();
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    if constexpr (kMode != kPC) trial_rotation(q0 + 4 * i, x + (size_t)D * i, q + 4 * i);
+    if constexpr (kMode != kOrientation) trial_pc(pc0 + 3 * i, x + (size_t)D * i + (kMode == kJoint ? 3 : 0), pc + 3 * i);
+}
+
+// lu_solve on n systems a (n, D, D) x = b (n, D), one thread each.
+template <int D>
+__global__ void refine_lm_solve_kernel(const float* a, const float* b, float* x, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float m[D][D], v[D];
+#pragma unroll
+    for (int r = 0; r < D; ++r) {
+        v[r] = b[(size_t)D * i + r];
+#pragma unroll
+        for (int c = 0; c < D; ++c) m[r][c] = a[((size_t)i * D + r) * D + c];
+    }
+    lu_solve<D>(m, v);
+#pragma unroll
+    for (int r = 0; r < D; ++r) x[(size_t)D * i + r] = v[r];
 }
 
 template <int kMode, bool kResident>
@@ -478,13 +959,53 @@ int launch_mode(const Problem& pb, int resident, cudaStream_t stream) {
     return resident ? launch<kMode, true>(pb, stream) : launch<kMode, false>(pb, stream);
 }
 
+// The loop kernel: as many blocks as fit on the SMs at once, none idle.
+template <int kMode, bool kResident>
+int launch_loop(const Problem& pb, cudaStream_t stream) {
+    auto kernel = refine_lm_loop_kernel<kMode, kResident>;
+    const size_t smem = !kResident ? 0
+        : pb.row_smem ? sizeof(float) * (row_offset(dims<kMode>(), pb.P) + (size_t)pb.P)
+        : sizeof(float) * (size_t)(1 + dims<kMode>()) * pb.P;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) != cudaSuccess)
+        return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long resident_blocks = (long long)per_sm * sms;
+    const int grid = (int)(pb.n < resident_blocks ? pb.n : resident_blocks);
+    kernel<<<grid, kThreads, smem, stream>>>(pb);
+    return (int)cudaGetLastError();
+}
+
+template <int kMode>
+int launch_loop_mode(const Problem& pb, int resident, cudaStream_t stream) {
+    return resident ? launch_loop<kMode, true>(pb, stream) : launch_loop<kMode, false>(pb, stream);
+}
+
+bool bad_sizes(int mode, int n, int P, int npx, int npy) {
+    return n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL || 3LL * P > 0x7fffffffLL ||
+           mode < kOrientation || mode > kJoint;
+}
+
+void set_detector(Problem& pb, const float* om, float aspect, float neg_aspect, float inv_ncols, float inv_nrows) {
+    for (int k = 0; k < 3; ++k)
+        for (int j = 0; j < 3; ++j) pb.det.om[k][j] = om[3 * k + j];
+    pb.det.aspect = aspect;
+    pb.det.neg_aspect = neg_aspect;
+    pb.det.inv_ncols = inv_ncols;
+    pb.det.inv_nrows = inv_nrows;
+}
+
 }  // namespace
 
 extern "C" {
 
-// mode 0 (orientation, d = 3), 1 (PC, d = 3) or 2 (joint, d = 6). All
-// pointers to float32, contiguous, on the card, except om (a host array of 9
-// floats, the detector to sample matrix row by row):
+// Kernel C. mode 0 (orientation, d = 3), 1 (PC, d = 3) or 2 (joint, d = 6).
+// All pointers to float32, contiguous, on the card, except om (a host array
+// of 9 floats, the detector to sample matrix row by row):
 //   q (n, 4) the rotation at the trial point (PC mode: the fixed rotation);
 //   q0 (n, 4) and rotvec (n, 3): the start rotation and the trial rotation
 //     vector (orientation, joint; else null);
@@ -501,8 +1022,7 @@ int refine_lm_launch(int mode, const void* q, const void* q0, const void* rotvec
                      void* g, void* jtj, void* sim, int n, int P, int npx, int npy, float scale,
                      float inv_sqrt_pi_half, float aspect, float neg_aspect, float inv_ncols, float inv_nrows,
                      int resident, void* stream) {
-    if (n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL || 3LL * P > 0x7fffffffLL ||
-        mode < kOrientation || mode > kJoint || q == nullptr || exp == nullptr || quad == nullptr)
+    if (bad_sizes(mode, n, P, npx, npy) || q == nullptr || exp == nullptr || quad == nullptr)
         return (int)cudaErrorInvalidValue;
     if ((mode != kPC && (q0 == nullptr || rotvec == nullptr)) || (mode != kOrientation && (pc == nullptr ||
         pix == nullptr || om == nullptr)) || (mode == kOrientation && dc == nullptr))
@@ -523,18 +1043,100 @@ int refine_lm_launch(int mode, const void* q, const void* q0, const void* rotvec
     pb.grad = static_cast<float*>(g);
     pb.jtj = static_cast<float*>(jtj);
     pb.sim = static_cast<float*>(sim);
-    if (mode != kOrientation) {
-        for (int k = 0; k < 3; ++k)
-            for (int j = 0; j < 3; ++j) pb.det.om[k][j] = om[3 * k + j];
-        pb.det.aspect = aspect;
-        pb.det.neg_aspect = neg_aspect;
-        pb.det.inv_ncols = inv_ncols;
-        pb.det.inv_nrows = inv_nrows;
-    }
+    if (mode != kOrientation) set_detector(pb, om, aspect, neg_aspect, inv_ncols, inv_nrows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (mode == kOrientation) return launch_mode<kOrientation>(pb, resident, s);
     if (mode == kPC) return launch_mode<kPC>(pb, resident, s);
     return launch_mode<kJoint>(pb, resident, s);
+}
+
+// The Levenberg-Marquardt loop kernel, one launch for every point. mode as
+// above; x0 (n, d) the starts; q0 (n, 4) the start rotations (PC mode: the
+// fixed ones); pc0 (n, 3) the start PCs (PC, joint; else null); dc, pix,
+// om, exp, quad and the detector's scalars as kernel C takes them.
+// max_iters >= 0, ftol, lambda0 as levenberg_marquardt_batched takes them;
+// n_blocks (0 to d / 3) blocks of 3 step components, block k clipped to the
+// norm ball block_norms[k] (a host array). Out: x (n, d), fun (n,) float32,
+// n_iter, n_evals (n,) int32, converged (n,) bool; next one int32 holding 0.
+// resident: 0 the recompute instantiation, 1 the pattern and tangents in
+// shared memory, 2 and each point's experimental row beside them (copied by
+// cp.async at the point's start; pass 3 reads it there).
+int refine_lm_loop_launch(int mode, const void* x0, const void* q0, const void* pc0, const void* dc,
+                          int per_point_dc, const void* pix, const float* om, const void* exp, const void* quad,
+                          void* x, void* fun, void* n_iter, void* converged, void* n_evals, void* next, int n, int P,
+                          int npx, int npy, float scale, float inv_sqrt_pi_half, float aspect, float neg_aspect,
+                          float inv_ncols, float inv_nrows, int max_iters, float ftol, float lambda0, int n_blocks,
+                          const float* block_norms, int resident, void* stream) {
+    if (bad_sizes(mode, n, P, npx, npy) || max_iters < 0 || x0 == nullptr || q0 == nullptr || exp == nullptr ||
+        quad == nullptr || x == nullptr || fun == nullptr || n_iter == nullptr || converged == nullptr ||
+        n_evals == nullptr || next == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int d = mode == kJoint ? 6 : 3;
+    if (n_blocks < 0 || n_blocks > d / 3 || (n_blocks > 0 && block_norms == nullptr) || resident < 0 || resident > 2)
+        return (int)cudaErrorInvalidValue;
+    if ((mode != kOrientation && (pc0 == nullptr || pix == nullptr || om == nullptr)) ||
+        (mode == kOrientation && dc == nullptr))
+        return (int)cudaErrorInvalidValue;
+    Problem pb{};
+    pb.x0 = static_cast<const float*>(x0);
+    pb.q0 = static_cast<const float*>(q0);
+    pb.pc0 = static_cast<const float*>(pc0);
+    pb.dc = static_cast<const float*>(dc);
+    pb.pix = static_cast<const float2*>(pix);
+    pb.exp = static_cast<const float*>(exp);
+    pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
+    pb.n = n;
+    pb.P = P;
+    pb.per_point_dc = per_point_dc;
+    pb.max_iters = max_iters;
+    pb.ftol = ftol;
+    pb.lambda0 = lambda0;
+    pb.n_blocks = n_blocks;
+    pb.row_smem = resident == 2;
+    for (int k = 0; k < n_blocks; ++k) pb.block_norm[k] = block_norms[k];
+    pb.x = static_cast<float*>(x);
+    pb.fun = static_cast<float*>(fun);
+    pb.n_iter = static_cast<int*>(n_iter);
+    pb.converged = static_cast<unsigned char*>(converged);
+    pb.n_evals = static_cast<int*>(n_evals);
+    pb.next = static_cast<int*>(next);
+    if (mode != kOrientation) set_detector(pb, om, aspect, neg_aspect, inv_ncols, inv_nrows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (mode == kOrientation) return launch_loop_mode<kOrientation>(pb, resident, s);
+    if (mode == kPC) return launch_loop_mode<kPC>(pb, resident, s);
+    return launch_loop_mode<kJoint>(pb, resident, s);
+}
+
+// The loop kernel's trial rotation q (n, 4) (orientation, joint) and PC pc
+// (n, 3) (PC, joint) at x (n, d) from q0 (n, 4) and pc0 (n, 3); a pointer a
+// mode does not use may be null.
+int refine_lm_trial_launch(int mode, const void* q0, const void* pc0, const void* x, void* q, void* pc, int n,
+                           void* stream) {
+    if (n <= 0 || mode < kOrientation || mode > kJoint || x == nullptr ||
+        (mode != kPC && (q0 == nullptr || q == nullptr)) || (mode != kOrientation && (pc0 == nullptr || pc == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((n + 127) / 128), block(128);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float *q0f = static_cast<const float*>(q0), *pc0f = static_cast<const float*>(pc0);
+    const float* xf = static_cast<const float*>(x);
+    float *qf = static_cast<float*>(q), *pcf = static_cast<float*>(pc);
+    if (mode == kOrientation) refine_lm_trial_kernel<kOrientation><<<grid, block, 0, s>>>(q0f, pc0f, xf, qf, pcf, n);
+    else if (mode == kPC) refine_lm_trial_kernel<kPC><<<grid, block, 0, s>>>(q0f, pc0f, xf, qf, pcf, n);
+    else refine_lm_trial_kernel<kJoint><<<grid, block, 0, s>>>(q0f, pc0f, xf, qf, pcf, n);
+    return (int)cudaGetLastError();
+}
+
+// The loop kernel's d x d solve (d 3 or 6) of n systems a (n, d, d) x = b
+// (n, d), one thread each.
+int refine_lm_solve_launch(int d, const void* a, const void* b, void* x, int n, void* stream) {
+    if (n <= 0 || a == nullptr || b == nullptr || x == nullptr || (d != 3 && d != 6)) return (int)cudaErrorInvalidValue;
+    const float *af = static_cast<const float*>(a), *bf = static_cast<const float*>(b);
+    float* xf = static_cast<float*>(x);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid((n + 127) / 128), block(128);
+    if (d == 3) refine_lm_solve_kernel<3><<<grid, block, 0, s>>>(af, bf, xf, n);
+    else refine_lm_solve_kernel<6><<<grid, block, 0, s>>>(af, bf, xf, n);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

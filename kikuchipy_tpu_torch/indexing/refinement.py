@@ -20,13 +20,21 @@ Nelder-Mead:
   loop) over the objective's plain PyTorch twin.
 
 Levenberg-Marquardt and gradient, over a local rotation vector about the
-start orientation (``q0 (x) exp_map(delta)``) and/or a PC shift: a host
-loop (:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`,
-:func:`_adam_minimize_batched`) whose every evaluation is one call of a
-wrapper of :mod:`kikuchipy_tpu_torch.ops.refine_lm`: on the card one
-launch of the tangent kernel for the batch, on the CPU its plain version
-(``torch.func.jvp``). LM's score is ``1 - 0.5 ||r||^2`` of the unit
-residual; gradient's is ``1 -`` its best value.
+start orientation (``q0 (x) exp_map(delta)``) and/or a PC shift, through
+:mod:`kikuchipy_tpu_torch.ops.refine_lm`:
+
+- Levenberg-Marquardt on the card is one launch of the LM loop kernel for
+  all points in every mode (``levenberg_marquardt_orientation``,
+  ``_projection_center``, ``_orientation_projection_center``), each point's
+  whole loop inside it; on the CPU the wrappers run the batched host loop
+  (:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`)
+  over the tangent evaluation's plain version (``torch.func.jvp``).
+- Gradient is a host loop (:func:`_adam_minimize_batched`) whose every
+  evaluation is one call of a tangent wrapper: on the card one launch of
+  the tangent kernel for the batch, on the CPU its plain version.
+
+LM's score is ``1 - 0.5 ||r||^2`` of the unit residual; gradient's is ``1
+-`` its best value.
 
 Modes, as in the JAX package:
 
@@ -61,6 +69,9 @@ from kikuchipy_tpu_torch.ops.refine_lm import (
     exp_map,
     joint_delta_objective,
     joint_residual,
+    levenberg_marquardt_orientation,
+    levenberg_marquardt_orientation_projection_center,
+    levenberg_marquardt_projection_center,
     orientation_delta_objective,
     orientation_residual,
     pc_delta_objective,
@@ -81,7 +92,7 @@ from kikuchipy_tpu_torch.ops.refine_nm import (
     pc_objective,
 )
 from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
-from kikuchipy_tpu_torch.utils.optimize import clip_blocks, levenberg_marquardt_batched
+from kikuchipy_tpu_torch.utils.optimize import clip_blocks
 
 __all__ = [
     "RefinementResult",
@@ -276,18 +287,19 @@ def _adam_minimize_batched(evaluate, x0: torch.Tensor, lr: float, iters: int, bl
     return x_best, f_best
 
 
-def _local_solve(method, evaluate, n: int, d: int, device, max_iters: int, rtol: float, lr: float, blocks, args):
+def _local_solve(method, evaluate, lm, n: int, d: int, device, max_iters: int, rtol: float, lr: float, blocks,
+                 args):
     """The ``lm`` or ``gradient`` branch of every mode, from ``x = 0``:
-    ``(x (n, d), f (n,), num_evals (n,))``. LM runs at most 30 iterations
-    with ``ftol = rtol * 1e-2``; its ``num_evals`` are its iterations,
+    ``(x (n, d), f (n,), num_evals (n,))``. ``evaluate`` is the mode's
+    tangent wrapper (gradient's evaluation), ``lm`` its Levenberg-Marquardt
+    wrapper (one launch on the card). LM runs at most 30 iterations with
+    ``ftol = rtol * 1e-2``; its ``num_evals`` are its iterations,
     gradient's ``max_iters``."""
     x0 = torch.zeros((n, d), dtype=_f32, device=device)
     if method == "gradient":
         x, f = _adam_minimize_batched(evaluate, x0, lr=lr, iters=max_iters, blocks=blocks, args=args)
         return x, f, np.full(n, max_iters)
-    res = levenberg_marquardt_batched(
-        evaluate, x0, max_iters=min(max_iters, 30), ftol=rtol * 1e-2, blocks=blocks, args=args
-    )
+    res = lm(x0, *args, max_iters=min(max_iters, 30), ftol=rtol * 1e-2, blocks=blocks)
     return res.x, res.fun, res.n_iter.cpu().numpy()
 
 
@@ -426,7 +438,8 @@ def refine_orientation(
         q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
         max_norm = np.deg2rad(float(np.max(trust_region))) if trust_region is not None else np.deg2rad(3.0)
         delta, fun, n_iter = _local_solve(
-            method, tangent_orientation, n, 3, dev, max_iters, rtol, np.deg2rad(0.25), ((3, max_norm),),
+            method, tangent_orientation, levenberg_marquardt_orientation, n, 3, dev, max_iters, rtol,
+            np.deg2rad(0.25), ((3, max_norm),),
             (q0, unit_rows(exp), dc.contiguous(), quad, npx, npy, scale),
         )
         refined_rot = quat.multiply(q0, exp_map(delta)).cpu().numpy()
@@ -533,7 +546,8 @@ def refine_projection_center(
     if method in ("lm", "gradient"):
         max_norm = float(np.max(trust_region)) if trust_region is not None else 0.05
         dpc, fun, n_iter = _local_solve(
-            method, tangent_projection_center, n, 3, dev, max_iters, rtol, 2e-3, ((3, max_norm),),
+            method, tangent_projection_center, levenberg_marquardt_projection_center, n, 3, dev, max_iters, rtol,
+            2e-3, ((3, max_norm),),
             (torch.as_tensor(pc0, device=dev), unit_rows(exp), q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
         )
         new_pc = np.asarray(pc0 + dpc.cpu().numpy(), dtype=np.float64)
@@ -614,7 +628,8 @@ def refine_orientation_projection_center(
             rot_norm, pc_norm = np.deg2rad(3.0), 0.05
         q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
         x, fun, n_iter = _local_solve(
-            method, tangent_orientation_projection_center, n, 6, dev, max_iters, rtol, 2e-3,
+            method, tangent_orientation_projection_center, levenberg_marquardt_orientation_projection_center, n, 6,
+            dev, max_iters, rtol, 2e-3,
             ((3, rot_norm), (3, pc_norm)),
             (q0, torch.as_tensor(np.ascontiguousarray(pc0), dtype=_f32, device=dev), unit_rows(exp), quad, om, mask_take, npx, npy, scale,
              nrows, ncols),

@@ -39,6 +39,26 @@ analytic and its sums are taken in another order, so ``f``, ``g`` and
 ``J^T J`` agree with the plain version to float32 rounding
 (``chip_smoke.py`` ``[lm-check]``, ``tests/test_torch_gpu.py``).
 
+Levenberg-Marquardt in one launch (``refine_lm_loop_kernel`` of the same
+source): :func:`levenberg_marquardt_orientation`,
+:func:`levenberg_marquardt_projection_center` and
+:func:`levenberg_marquardt_orientation_projection_center` take a tangent
+wrapper's arguments, the starts ``x0`` in place of ``x``, and
+:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`'s
+``max_iters``, ``ftol``, ``lambda0`` and ``blocks``, and return its
+:class:`~kikuchipy_tpu_torch.utils.optimize.LMResult`. For CPU tensors each
+returns its plain version (``..._plain``: the batched host loop over the
+mode's tangent wrapper, which on the card launches kernel C an iteration);
+for CUDA tensors it launches the loop kernel once for all points or raises,
+and counts the launch in its own ``.launches``. The kernel runs each point's
+loop by the host loop's rules and in its rounding on the card: each
+evaluation is kernel C's arithmetic, the trial rotation and PC
+(:func:`trial_point`) and the d x d solve (:func:`solve`) are the host
+loop's PyTorch operations and ``torch.linalg.solve_ex`` bit for bit, so
+the two loops take the same path (``chip_smoke.py`` ``[lm-loop-check]``).
+``blocks``: None, or one ``(3, max_norm)`` block for each three
+parameters.
+
 Arguments, as the JAX residuals take them. Orientation: ``delta (n, 3)``
 rotation vectors, ``q0 (n, 4)`` the start rotations, ``exp_unit (n, P)``
 the centred experimental rows made unit, ``dc`` direction cosines ``(P,
@@ -60,12 +80,20 @@ import torch
 from kikuchipy_tpu_torch.geometry.quaternion import multiply
 from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, _project_plain, lambert_project_ncc
 from kikuchipy_tpu_torch.ops.refine_nm import _aligned, _detector_scalars, _ptr, pc_direction_cosines, pixel_table
+from kikuchipy_tpu_torch.utils.optimize import LMResult, levenberg_marquardt_batched
 
 __all__ = [
     "RESIDENT_SMEM_BYTES",
     "exp_map",
     "joint_delta_objective",
     "joint_residual",
+    "levenberg_marquardt_orientation",
+    "levenberg_marquardt_orientation_plain",
+    "levenberg_marquardt_orientation_projection_center",
+    "levenberg_marquardt_orientation_projection_center_plain",
+    "levenberg_marquardt_projection_center",
+    "levenberg_marquardt_projection_center_plain",
+    "loop_residency",
     "orientation_delta_objective",
     "orientation_residual",
     "pc_delta_objective",
@@ -95,13 +123,23 @@ _ARGTYPES = (
 )
 
 
-def _function():
-    """``refine_lm_launch`` of ``csrc/refine_lm.cu``, built on first use."""
+_ARGTYPES_LOOP = (
+    [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_float,
+    ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
+)
+_ARGTYPES_TRIAL = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_SOLVE = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def _function(name: str = "refine_lm"):
+    """``<name>_launch`` of ``csrc/refine_lm.cu``, built on first use."""
     from kikuchipy_tpu_torch.ops._build import library
 
-    fn = library("refine_lm").refine_lm_launch
+    fn = getattr(library("refine_lm"), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = {"refine_lm": _ARGTYPES, "refine_lm_loop": _ARGTYPES_LOOP, "refine_lm_trial": _ARGTYPES_TRIAL,
+                       "refine_lm_solve": _ARGTYPES_SOLVE}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,6 +148,29 @@ def resident(P: int, d: int) -> bool:
     """Whether the kernel holds a point's pattern and its ``d`` tangents of
     ``P`` pixels in shared memory (else it recomputes them)."""
     return 4 * (1 + d) * P <= RESIDENT_SMEM_BYTES
+
+
+# A Hopper SM's shared memory and threads, and what a block of the loop
+# kernel takes beside its dynamic shared memory (its static scratch and LM
+# state, about 1.7 KB, and the 1 KB the card reserves a block), rounded up.
+_SM_SHARED_BYTES = 228 * 1024
+_SM_BLOCKS = 2048 // 256
+_BLOCK_SHARED_EXTRA = 2560
+
+
+def loop_residency(P: int, d: int) -> int:
+    """What the LM loop kernel holds in shared memory: 2 the pattern, its
+    tangents and the point's experimental row, where that fits
+    ``RESIDENT_SMEM_BYTES`` and leaves as many blocks an SM as without the
+    row (the d = 3 modes at P = 3600: three; not joint mode, where it would
+    leave one of two); 1 the pattern and tangents; 0 nothing (it recomputes
+    them)."""
+    if not resident(P, d):
+        return 0
+    base = 4 * (1 + d) * P
+    with_row = 4 * (-(-(1 + d) * P // 4) * 4 + P)
+    blocks = [min(_SM_BLOCKS, _SM_SHARED_BYTES // (b + _BLOCK_SHARED_EXTRA)) for b in (base, with_row)]
+    return 2 if with_row <= RESIDENT_SMEM_BYTES and blocks[1] == blocks[0] else 1
 
 
 # ------------------------- residuals and objectives ------------------------- #
@@ -348,3 +409,180 @@ def tangent_orientation_projection_center(x, q0, pc0, exp_unit, quad, om, mask_t
 tangent_orientation.launches = 0
 tangent_projection_center.launches = 0
 tangent_orientation_projection_center.launches = 0
+
+
+# ----------------------- Levenberg-Marquardt in one launch ----------------------- #
+
+
+def _check_loop(max_iters, blocks, d: int) -> list[float]:
+    """The loop's checks; returns the norm of each block of 3 parameters."""
+    if int(max_iters) < 0:
+        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    if blocks is None:
+        return []
+    blocks = tuple(blocks)
+    if any(int(size) != 3 for size, _ in blocks) or 3 * len(blocks) != d:
+        raise ValueError(f"blocks must be None or one (3, max_norm) block for each 3 of the {d} parameters, "
+                         f"got {blocks}")
+    return [float(norm) for _, norm in blocks]
+
+
+def _launch_loop(mode: str, x0, q0, pc0, dc, pix, om, exp_unit, quad, npx, npy, scale, nrows, ncols, max_iters, ftol,
+                 lambda0, norms) -> LMResult:
+    """One launch of the loop kernel for all points."""
+    dev = x0.device
+    n, P = exp_unit.shape
+    d = x0.shape[1]
+    x0, q0, exp_unit, quad = (t.contiguous() for t in (x0, q0, exp_unit, quad))
+    pc0 = None if pc0 is None else pc0.contiguous()
+    dc = None if dc is None else dc.contiguous()
+    _aligned(quad)
+    x = torch.empty((n, d), dtype=_f32, device=dev)
+    fun = torch.empty(n, dtype=_f32, device=dev)
+    n_iter = torch.empty(n, dtype=torch.int32, device=dev)
+    converged = torch.empty(n, dtype=torch.bool, device=dev)
+    n_evals = torch.empty(n, dtype=torch.int32, device=dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    om_host = None
+    if om is not None:
+        om_host = (ctypes.c_float * 9)(*om.detach().to("cpu", _f32).reshape(9).tolist())
+    aspect, neg_aspect, inv_ncols, inv_nrows = _detector_scalars(nrows, ncols)
+    fn = _function("refine_lm_loop")
+    with torch.cuda.device(dev):
+        err = fn(
+            _MODE[mode], _ptr(x0), _ptr(q0), _ptr(pc0), _ptr(dc), int(dc is not None and dc.ndim == 3), _ptr(pix),
+            om_host, _ptr(exp_unit), _ptr(quad), _ptr(x), _ptr(fun), _ptr(n_iter), _ptr(converged), _ptr(n_evals),
+            _ptr(queue), n, P, npx, npy, float(scale), _INV_SQRT_PI_HALF, aspect, neg_aspect, inv_ncols, inv_nrows,
+            int(max_iters), float(ftol), float(lambda0), len(norms), (ctypes.c_float * 2)(*norms, *[0.0] * (2 - len(norms))),
+            loop_residency(P, d), torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"refine_lm_loop launch ({mode} mode) failed: cudaError_t {err}")
+    return LMResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
+
+
+def levenberg_marquardt_orientation_plain(x0, q0, exp_unit, dc, quad, npx: int, npy: int, scale: float,
+                                          max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
+                                          blocks=None) -> LMResult:
+    """The host loop: :func:`levenberg_marquardt_batched` over
+    :func:`tangent_orientation` (kernel C a launch on the card, its plain
+    version on the CPU)."""
+    _check("delta", x0, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
+    _check_loop(max_iters, blocks, 3)
+    return levenberg_marquardt_batched(tangent_orientation, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0,
+                                       blocks=blocks, args=(q0, exp_unit, dc, quad, npx, npy, scale))
+
+
+def levenberg_marquardt_orientation(x0, q0, exp_unit, dc, quad, npx: int, npy: int, scale: float,
+                                    max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
+                                    blocks=None) -> LMResult:
+    """Minimize ``0.5 ||r||^2`` of :func:`orientation_residual` over the
+    rotation vector of every point from ``x0 (n, 3)``. On the card one launch
+    of the loop kernel for all points; its ``n_evals`` are the evaluations it
+    made."""
+    _check("delta", x0, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
+    norms = _check_loop(max_iters, blocks, 3)
+    if x0.device.type == "cpu":
+        return levenberg_marquardt_orientation_plain(x0, q0, exp_unit, dc, quad, npx, npy, scale, max_iters, ftol,
+                                                     lambda0, blocks)
+    res = _launch_loop("orientation", x0, q0, None, dc, None, None, exp_unit, quad, npx, npy, scale, 1, 1,
+                       max_iters, ftol, lambda0, norms)
+    levenberg_marquardt_orientation.launches += 1
+    return res
+
+
+def levenberg_marquardt_projection_center_plain(x0, pc0, exp_unit, q0, quad, om, mask_take, npx: int, npy: int,
+                                                scale: float, nrows: int, ncols: int, max_iters: int = 30,
+                                                ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMResult:
+    """The host loop over :func:`tangent_projection_center`."""
+    _check_pc(x0, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    _check_loop(max_iters, blocks, 3)
+    return levenberg_marquardt_batched(
+        tangent_projection_center, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0, blocks=blocks,
+        args=(pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+    )
+
+
+def levenberg_marquardt_projection_center(x0, pc0, exp_unit, q0, quad, om, mask_take, npx: int, npy: int,
+                                          scale: float, nrows: int, ncols: int, max_iters: int = 30,
+                                          ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMResult:
+    """Minimize ``0.5 ||r||^2`` of :func:`pc_residual` over the PC shift of
+    every point from ``x0 (n, 3)``, its rotation fixed. On the card one
+    launch of the loop kernel's PC mode."""
+    _check_pc(x0, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    norms = _check_loop(max_iters, blocks, 3)
+    if x0.device.type == "cpu":
+        return levenberg_marquardt_projection_center_plain(x0, pc0, exp_unit, q0, quad, om, mask_take, npx, npy,
+                                                           scale, nrows, ncols, max_iters, ftol, lambda0, blocks)
+    res = _launch_loop("pc", x0, q0, pc0, None, pixel_table(mask_take, nrows, ncols, x0.device), om, exp_unit, quad,
+                       npx, npy, scale, nrows, ncols, max_iters, ftol, lambda0, norms)
+    levenberg_marquardt_projection_center.launches += 1
+    return res
+
+
+def levenberg_marquardt_orientation_projection_center_plain(x0, q0, pc0, exp_unit, quad, om, mask_take, npx: int,
+                                                            npy: int, scale: float, nrows: int, ncols: int,
+                                                            max_iters: int = 30, ftol: float = 1e-7,
+                                                            lambda0: float = 1e-3, blocks=None) -> LMResult:
+    """The host loop over :func:`tangent_orientation_projection_center`."""
+    _check_pc(x0, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    _check_loop(max_iters, blocks, 6)
+    return levenberg_marquardt_batched(
+        tangent_orientation_projection_center, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0, blocks=blocks,
+        args=(q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols),
+    )
+
+
+def levenberg_marquardt_orientation_projection_center(x0, q0, pc0, exp_unit, quad, om, mask_take, npx: int,
+                                                      npy: int, scale: float, nrows: int, ncols: int,
+                                                      max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
+                                                      blocks=None) -> LMResult:
+    """Minimize ``0.5 ||r||^2`` of :func:`joint_residual` over the rotation
+    vector and PC shift of every point from ``x0 (n, 6)``. On the card one
+    launch of the loop kernel's joint mode."""
+    _check_pc(x0, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    norms = _check_loop(max_iters, blocks, 6)
+    if x0.device.type == "cpu":
+        return levenberg_marquardt_orientation_projection_center_plain(
+            x0, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols, max_iters, ftol, lambda0, blocks,
+        )
+    res = _launch_loop("joint", x0, q0, pc0, None, pixel_table(mask_take, nrows, ncols, x0.device), om, exp_unit,
+                       quad, npx, npy, scale, nrows, ncols, max_iters, ftol, lambda0, norms)
+    levenberg_marquardt_orientation_projection_center.launches += 1
+    return res
+
+
+levenberg_marquardt_orientation.launches = 0
+levenberg_marquardt_projection_center.launches = 0
+levenberg_marquardt_orientation_projection_center.launches = 0
+
+
+def trial_point(mode: str, q0, pc0, x):
+    """The loop kernel's rotation ``(n, 4)`` and PC ``(n, 3)`` at ``x (n,
+    d)`` (None where the mode has none), from ``csrc/refine_lm.cu``'s own
+    device code, to hold against :func:`_rotation` and ``pc0 + dpc`` on
+    the card. CUDA tensors only."""
+    n = x.shape[0]
+    dev = x.device
+    q = torch.empty((n, 4), dtype=_f32, device=dev) if mode != "pc" else None
+    pc = torch.empty((n, 3), dtype=_f32, device=dev) if mode != "orientation" else None
+    with torch.cuda.device(dev):
+        err = _function("refine_lm_trial")(_MODE[mode], _ptr(q0), _ptr(pc0), _ptr(x.contiguous()), _ptr(q), _ptr(pc),
+                                           n, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"refine_lm_trial launch failed: cudaError_t {err}")
+    return q, pc
+
+
+def solve(a, b):
+    """The loop kernel's d x d solve (``lu_solve``) of ``a (n, d, d) x = b
+    (n, d)``, d 3 or 6, to hold against ``torch.linalg.solve_ex`` on the
+    card. CUDA tensors only."""
+    n, d = b.shape
+    x = torch.empty((n, d), dtype=_f32, device=b.device)
+    with torch.cuda.device(b.device):
+        err = _function("refine_lm_solve")(d, _ptr(a.contiguous()), _ptr(b.contiguous()), _ptr(x), n,
+                                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"refine_lm_solve launch failed: cudaError_t {err}")
+    return x

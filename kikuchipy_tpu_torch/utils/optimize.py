@@ -15,8 +15,10 @@ The batched Levenberg-Marquardt of the same module
 (:func:`levenberg_marquardt_batched`), a Python loop with one host read an
 iteration. It takes an evaluation that returns ``0.5 ||r||^2``, ``J^T r``
 and ``J^T J`` of each element, since JAX's loop uses the residual ``r`` and
-its Jacobian ``J`` only through those three; on the card the evaluation is
-one launch of the tangent kernel (:mod:`kikuchipy_tpu_torch.ops.refine_lm`).
+its Jacobian ``J`` only through those three; over the tangent kernel
+(:mod:`kikuchipy_tpu_torch.ops.refine_lm`) it is the plain version of the
+Levenberg-Marquardt kernel, which on the card runs this loop for each
+element on its own in one launch.
 The global solvers of the JAX module (differential evolution, dual
 annealing, basin hopping, SHGO) are not ported yet.
 """
@@ -200,6 +202,7 @@ class LMResult(NamedTuple):
     fun: torch.Tensor        # (n,) 0.5 * ||r||^2 at the best point
     n_iter: torch.Tensor     # (n,) LM iterations taken
     converged: torch.Tensor  # (n,) convergence mask
+    n_evals: torch.Tensor    # (n,) evaluations an element needs: the start and one an iteration
 
 
 def clip_blocks(step: torch.Tensor, blocks) -> torch.Tensor:
@@ -290,4 +293,4 @@ def levenberg_marquardt_batched(
         f = torch.where(accept, f_new, f)
         it = it + (~done).to(torch.int32)
         done = done_new
-    return LMResult(x=x, fun=f, n_iter=it, converged=done)
+    return LMResult(x=x, fun=f, n_iter=it, converged=done, n_evals=it + 1)

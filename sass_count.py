@@ -14,8 +14,14 @@ and the tangent kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value,
 its gradient with respect to the rotated direction and the d tangents) in
 its three modes, on the frame of its input. The pixel's own count is the
 probe's less its frame's, plus the frame's stand-in additions, less the
-probe's own additions of the tangents. The tangent kernel's passes over
-its stored values (the centred sums) are not counted. A kernel's count is its main path: every instruction
+probe's own additions of the tangents. Then the three passes' sums of one
+pixel of an evaluation (``tangent_point``, kernel C's and the
+Levenberg-Marquardt loop kernel's: pass 1's stores to shared memory and
+sums, passes 2 and 3 reading them back; ``pass1_sums`` to ``pass3_sums``),
+for d = 3 and 6: the probe less a frame that loads and stores the same
+inputs, less the accumulators' extra stores. ``lm_eval_pixel``, a pixel
+of one evaluation, is the pixel's count plus its passes'; the loop
+counters of the passes are not counted. A kernel's count is its main path: every instruction
 up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted. Both sides of
@@ -97,6 +103,69 @@ __global__ void probe_lm_pc(Pixel<kPC> px, Problem pb, float* __restrict__ out, 
 __global__ void probe_lm_joint(Pixel<kJoint> px, Problem pb, float* __restrict__ out, int n) {
     lm_pixel(px, pb, out, n);
 }
+
+// The three passes' sums of one pixel (tangent_point, kernel C's and the LM
+// loop kernel's evaluation, resident): pass 1 stores the value and tangents
+// to shared memory and adds them; passes 2 and 3 read them back and take
+// their sums; each accumulator is stored apart. Its frame stores the inputs
+// as they came.
+struct Means3 { float m[4]; float cnorm; };
+struct Means6 { float m[7]; float cnorm; };
+
+template <int D, typename M>
+__device__ __forceinline__ void lm_passes(const float* __restrict__ in, const float* __restrict__ row, M mm,
+                                          float* __restrict__ out, int n) {
+    constexpr int NS = 1 + D + D * (D + 1) / 2;
+    __shared__ float sv[(1 + D) * 256];
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const int p = threadIdx.x;
+    if (i >= n) return;
+    float s = in[(1 + D) * i], ds[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) ds[k] = in[(1 + D) * i + 1 + k];
+    float acc1[1 + D] = {}, acc[NS] = {}, res[2 + D] = {};
+    sv[p] = s;
+#pragma unroll
+    for (int k = 0; k < D; ++k) sv[(1 + k) * 256 + p] = ds[k];
+    pass1_sums<D>(s, ds, acc1);
+    __syncthreads();
+    s = sv[p];
+#pragma unroll
+    for (int k = 0; k < D; ++k) ds[k] = sv[(1 + k) * 256 + p];
+    pass2_sums<D>(s, ds, mm.m, acc);
+    __syncthreads();
+    s = sv[p];
+#pragma unroll
+    for (int k = 0; k < D; ++k) ds[k] = sv[(1 + k) * 256 + p];
+    pass3_sums<D>(s, ds, mm.m, mm.cnorm, row[i], res);
+    float* o = out + (size_t)i * (3 + 2 * D + NS);
+#pragma unroll
+    for (int k = 0; k <= D; ++k) o[k] = acc1[k];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) o[1 + D + k] = acc[k];
+#pragma unroll
+    for (int k = 0; k < 2 + D; ++k) o[1 + D + NS + k] = res[k];
+}
+
+template <int D>
+__device__ __forceinline__ void lm_passes_frame(const float* __restrict__ in, const float* __restrict__ row,
+                                                float* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    float* o = out + (size_t)i * (2 + D);
+#pragma unroll
+    for (int k = 0; k <= D; ++k) o[k] = in[(1 + D) * i + k];
+    o[1 + D] = row[i];
+}
+
+__global__ void probe_lm_passes_d3(const float* __restrict__ in, const float* __restrict__ row, Means3 mm,
+                                   float* __restrict__ out, int n) { lm_passes<3>(in, row, mm, out, n); }
+__global__ void probe_lm_passes_d6(const float* __restrict__ in, const float* __restrict__ row, Means6 mm,
+                                   float* __restrict__ out, int n) { lm_passes<6>(in, row, mm, out, n); }
+__global__ void probe_lm_frame_d3(const float* __restrict__ in, const float* __restrict__ row,
+                                  float* __restrict__ out, int n) { lm_passes_frame<3>(in, row, out, n); }
+__global__ void probe_lm_frame_d6(const float* __restrict__ in, const float* __restrict__ row,
+                                  float* __restrict__ out, int n) { lm_passes_frame<6>(in, row, out, n); }
 """
 
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
@@ -177,6 +246,13 @@ def count(build_dir: Path | None = None) -> dict:
     lm_frame = {"orientation": dc_frame, "pc": pix_frame, "joint": pix_frame}
     lm_count = {mode: len(ops) - len(lm_frame[mode]) + (2 if mode == "orientation" else 1) - (6 if mode == "joint" else 3)
                 for mode, ops in lm.items()}
+    # The passes' own: the probe less its frame, less the stores of the
+    # accumulators beyond the frame's 2 + d.
+    passes = {}
+    for d in (3, 6):
+        n_acc = (1 + d) + (1 + d + d * (d + 1) // 2) + (2 + d)
+        passes[d] = len(find(f"18probe_lm_passes_d{d}")) - len(find(f"17probe_lm_frame_d{d}")) - (n_acc - (2 + d))
+    lm_eval = {mode: lm_count[mode] + passes[6 if mode == "joint" else 3] for mode in lm_count}
 
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
@@ -192,6 +268,8 @@ def count(build_dir: Path | None = None) -> dict:
         "project_pixel_a_ops": mix(project_a, dc_frame),
         "project_pixel_pc_ops": mix(project_pc, pix_frame),
         "tangent_pixel": lm_count,
+        "lm_passes": passes,
+        "lm_eval_pixel": lm_eval,
         "tangent_pixel_ops": {mode: mix(ops, lm_frame[mode]) for mode, ops in lm.items()},
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }

@@ -982,9 +982,10 @@ def test_tangent_kernel_matches_plain(cuda, mode, case):
 
 def test_lm_and_gradient_refinement_on_the_card_go_through_kernel_c(cuda):
     # The three modes with method "lm" and "gradient" on a 64-point scan:
-    # on the card every evaluation is a launch of kernel C (no Nelder-Mead
-    # kernel, no kernel A or B), and the results are the CPU's (the plain
-    # version) within the rounding of their sums.
+    # on the card each "lm" call is one launch of the LM loop kernel (kernel
+    # C never), each "gradient" evaluation a launch of kernel C (no
+    # Nelder-Mead kernel, no kernel A or B), and the results are the CPU's
+    # (the plain versions) within the rounding of their sums.
     from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
     from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
     from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
@@ -998,11 +999,12 @@ def test_lm_and_gradient_refinement_on_the_card_go_through_kernel_c(cuda):
     axes = torch.as_tensor(np.random.default_rng(71).normal(size=(64, 3)))
     start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), torch.as_tensor(truth)).numpy()
     bad = dataclasses.replace(det, pc=np.asarray(det.pc).reshape(3) + [0.01, -0.01, 0.01])
-    calls = [("refine_orientation", rl.tangent_orientation, dict(xmap=CrystalMap(rotations=start))),
-             ("refine_projection_center", rl.tangent_projection_center,
+    calls = [("refine_orientation", rl.tangent_orientation, rl.levenberg_marquardt_orientation,
+              dict(xmap=CrystalMap(rotations=start))),
+             ("refine_projection_center", rl.tangent_projection_center, rl.levenberg_marquardt_projection_center,
               dict(xmap=CrystalMap(rotations=truth), detector=bad)),
              ("refine_orientation_projection_center", rl.tangent_orientation_projection_center,
-              dict(xmap=CrystalMap(rotations=start), detector=bad))]
+              rl.levenberg_marquardt_orientation_projection_center, dict(xmap=CrystalMap(rotations=start), detector=bad))]
     others = (rn.nelder_mead_orientation, rn.nelder_mead_projection_center,
               rn.nelder_mead_orientation_projection_center, lp.lambert_project, lp.lambert_project_ncc)
     results = {}
@@ -1010,12 +1012,15 @@ def test_lm_and_gradient_refinement_on_the_card_go_through_kernel_c(cuda):
         on_card = str(dev) != "cpu"
         mp = EBSDMasterPattern(master, device=dev)
         signal = EBSD(mp.get_patterns(truth, det).data, detector=det, device=dev)
-        for name, wrapper, kw in calls:
+        for name, tangent, loop, kw in calls:
             for method in ("lm", "gradient"):
-                counts = (wrapper.launches, [f.launches for f in others])
+                counts = (tangent.launches, loop.launches, [f.launches for f in others])
                 res = getattr(signal, name)(master_pattern=mp, method=method, max_iters=40, **kw)
-                assert (wrapper.launches > counts[0]) == on_card
-                assert [f.launches for f in others] == counts[1]
+                if method == "lm":
+                    assert tangent.launches == counts[0] and loop.launches == counts[1] + on_card
+                else:
+                    assert (tangent.launches > counts[0]) == on_card and loop.launches == counts[1]
+                assert [f.launches for f in others] == counts[2]
                 results[(str(dev), name, method)] = res
     for key in [k for k in results if k[0] == "cpu"]:
         cpu, card = results[key], results[("cuda",) + key[1:]]
@@ -1051,3 +1056,250 @@ def test_tangent_kernel_refuses_what_it_cannot_take(cuda):
     assert call(n=0) != 0 and call(P=0) != 0
     assert call(mode=0, q0=0) != 0 and call(mode=0, dc=0) != 0
     assert call(mode=1, pix=0) != 0 and call(mode=2, pc=0) != 0
+
+
+# The Levenberg-Marquardt loop kernel (csrc/refine_lm.cu refine_lm_loop_kernel,
+# one launch for every point) against the host loop on kernel C (the
+# batched levenberg_marquardt_batched over the tangent wrapper) on the same
+# card and inputs. Each evaluation is kernel C's arithmetic, and the trial
+# point's rotation and PC and the d x d solve round as the host loop's
+# PyTorch operations and torch.linalg.solve_ex do on the card (each held bit
+# for bit below), so the two take the same path (each case prints the share
+# bit for bit). The criterion is chip_smoke.py's: on at least 99% of the
+# points 0.5 ||r||^2 within 1e-5, rotations within 0.05 degrees and PCs
+# within 1e-4, on at least 90% the same iterations (NM_FUN_TOL, NM_AGREE,
+# NM_DEG, LM_PC_TOL, LM_ITER_AGREE), all values finite.
+LM_LOOP_CASES = ([(m, "map") for m in ("orientation", "pc", "joint")] + [("orientation", "per_point")]
+                 + [(m, c) for m in ("orientation", "pc", "joint") for c in ("over_budget", "max_iters_1", "flat")])
+
+
+def _lm_loop_inputs(device, mode: str, case: str):
+    """(kernel wrapper, host loop, x0, arguments, keywords) of the LM loop
+    kernel in ``mode``: patterns projected at known orientations with noise,
+    starts 1.5 degrees off (orientation, joint), the PC off by (0.01, -0.01,
+    0.01) (PC, joint), refine_*'s settings. "flat": a constant master
+    pattern, so every value is NaN and each point stalls after six
+    rejections at its start."""
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    n = {"map": 2048, "per_point": 512, "over_budget": 64, "max_iters_1": 512, "flat": 64}[case]
+    shape = (128, 128) if case == "over_budget" else (60, 60)
+    pc = (0.42, 0.28, 0.5)
+    _, quad, _, _, _ = _projection_state(device)
+    det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
+    om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    dc = direction_cosines_from_detector(det, device=device)
+    if case == "per_point":
+        dc = _per_point_dc(n, om, 73, device)
+    truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
+    rows = lp.lambert_project(truth, dc, quad, 101, 101, 50.0)
+    rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(74),
+                                     device=device)
+    if case == "flat":
+        quad = torch.full_like(quad, 0.5)
+    exp, _ = _prepare_experimental(rows, None)
+    unit = rl.unit_rows(exp)
+    axes = torch.as_tensor(np.random.default_rng(75).normal(size=(n, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), truth.double().cpu()).float().to(device)
+    pc0 = torch.as_tensor(np.tile(np.asarray(pc) + [0.01, -0.01, 0.01], (n, 1)), dtype=torch.float32, device=device)
+    geo = (101, 101, 50.0)
+    rot, pcn = np.deg2rad(3.0), 0.05
+    kw = dict(max_iters=1 if case == "max_iters_1" else 30, ftol=1e-6)
+    if mode == "orientation":
+        return (rl.levenberg_marquardt_orientation, rl.levenberg_marquardt_orientation_plain,
+                torch.zeros((n, 3), device=device), (start, unit, dc, quad, *geo), dict(kw, blocks=((3, rot),)))
+    if mode == "pc":
+        return (rl.levenberg_marquardt_projection_center, rl.levenberg_marquardt_projection_center_plain,
+                torch.zeros((n, 3), device=device), (pc0, unit, truth, quad, om, None, *geo, *shape),
+                dict(kw, blocks=((3, pcn),)))
+    return (rl.levenberg_marquardt_orientation_projection_center,
+            rl.levenberg_marquardt_orientation_projection_center_plain, torch.zeros((n, 6), device=device),
+            (start, pc0, unit, quad, om, None, *geo, *shape), dict(kw, blocks=((3, rot), (3, pcn))))
+
+
+def _lm_loop_agreement(mode, got, ref, q0):
+    """The shares of points that agree (fun, iterations, rotation, PC)."""
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    shares = {"fun": float(((got.fun - ref.fun).abs() <= 1e-5).float().mean()),
+              "n_iter": float((got.n_iter == ref.n_iter).float().mean())}
+    if mode != "pc":
+        a = rl._rotation(q0, got.x[:, :3].contiguous()).double()
+        b = rl._rotation(q0, ref.x[:, :3].contiguous()).double()
+        a, b = a / a.norm(dim=1, keepdim=True), b / b.norm(dim=1, keepdim=True)
+        dot = (a * b).sum(1).abs().clamp(max=1.0)
+        shares["rotation"] = float((torch.rad2deg(2 * torch.acos(dot)) <= 0.05).float().mean())
+    if mode != "orientation":
+        shares["pc"] = float(((got.x[:, -3:] - ref.x[:, -3:]).abs().amax(1) <= 1e-4).float().mean())
+    return shares
+
+
+@pytest.mark.parametrize("mode, case", LM_LOOP_CASES, ids=[f"{m}-{c}" for m, c in LM_LOOP_CASES])
+def test_lm_loop_kernel_agrees_with_the_host_loop_on_kernel_c(cuda, mode, case):
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    wrapper, plain, x0, args, kw = _lm_loop_inputs(cuda, mode, case)
+    n, d = x0.shape
+    P = args[2 if mode == "joint" else 1].shape[1]
+    assert rl.resident(P, d) == (case != "over_budget")
+    # The row beside the pattern in the d = 3 modes; joint mode and the
+    # 128 x 128 detector without it.
+    assert rl.loop_residency(P, d) == (0 if case == "over_budget" else 2 if d == 3 else 1)
+    tangent = {"orientation": rl.tangent_orientation, "pc": rl.tangent_projection_center,
+               "joint": rl.tangent_orientation_projection_center}[mode]
+    before = (wrapper.launches, tangent.launches)
+    got = wrapper(x0, *args, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, tangent.launches) == (before[0] + 1, before[1])
+    ref = plain(x0, *args, **kw)
+    assert [tuple(t.shape) for t in got] == [(n, d), (n,), (n,), (n,), (n,)]
+    assert torch.equal(got.n_evals, got.n_iter + 1)
+    assert int(got.n_iter.max()) <= kw["max_iters"]
+    if case == "flat":
+        # Every value NaN: each point rejects six steps and stalls at its start.
+        assert bool(torch.isnan(got.fun).all()) and bool(torch.isnan(ref.fun).all())
+        assert bool((got.n_iter == 6).all()) and bool(got.converged.all()) and bool((got.x == 0).all())
+        assert torch.equal(ref.n_iter, got.n_iter) and torch.equal(ref.converged, got.converged)
+        return
+    shares = _lm_loop_agreement(mode, got, ref, args[0])
+    same = float(((got.x == ref.x).all(1) & (got.fun == ref.fun)).float().mean())
+    print(f"{mode} {case} (n={n}): {shares}, bit for bit {same:.4f}, iterations mean "
+          f"{float(got.n_iter.float().mean()):.2f} (host {float(ref.n_iter.float().mean()):.2f}), max |dfun| "
+          f"{float((got.fun - ref.fun).abs().max()):.2e}")
+    assert bool(torch.isfinite(got.fun).all())
+    assert shares["n_iter"] >= 0.9 and all(v >= 0.99 for k, v in shares.items() if k != "n_iter")
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_lm_loop_trial_point_rounds_as_pytorch(cuda, mode):
+    # The kernel's rotation and PC at a trial point are the wrapper's
+    # PyTorch operations on the card bit for bit (exp_map's sum of squares
+    # over a last axis of 3 added as (h0^2 + h2^2) + h1^2).
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    n = 8192
+    rng = np.random.default_rng(76)
+    q0 = rng.normal(size=(n, 4))
+    q0 = torch.as_tensor(q0 / np.linalg.norm(q0, axis=1, keepdims=True), dtype=torch.float32, device=cuda)
+    pc0 = torch.as_tensor(np.asarray([0.42, 0.28, 0.5]) + rng.normal(scale=0.01, size=(n, 3)), dtype=torch.float32,
+                          device=cuda)
+    d = 6 if mode == "joint" else 3
+    x = torch.as_tensor(rng.normal(size=(n, d)) * np.repeat([1e-3, 1e-2, 0.05, 0.5], n // 4)[:, None],
+                        dtype=torch.float32, device=cuda)
+    q, pc = rl.trial_point(mode, q0, pc0, x)
+    if mode != "pc":
+        assert torch.equal(q, rl._rotation(q0, x[:, :3].contiguous()))
+    if mode != "orientation":
+        assert torch.equal(pc, pc0 + x[:, -3:])
+
+
+def test_lm_loop_launcher_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    wrapper, _, x0, args, kw = _lm_loop_inputs(cuda, "joint", "flat")
+    with pytest.raises(TypeError):
+        wrapper(x0.double(), *args, **kw)
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x0, args[0].cpu(), *args[1:], **kw)
+    with pytest.raises(ValueError, match="blocks"):
+        wrapper(x0, *args, max_iters=3, blocks=((6, 0.1),))
+    fn = rl._function("refine_lm_loop")
+    out = torch.zeros(64, device=cuda)
+    p = out.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    om = (ctypes.c_float * 9)(*([0.0] * 9))
+    norms = (ctypes.c_float * 2)(0.1, 0.1)
+
+    def call(mode=2, pc0=p, dc=p, pix=p, n=1, P=3600, max_iters=3, n_blocks=2, x=p):
+        return fn(mode, p, p, pc0, dc, 0, pix, om, p, p, x, p, p, p, p, p, n, P, 101, 101, 50.0, 1.0, 1.0, -1.0,
+                  1.0 / 60, 1.0 / 60, max_iters, 1e-6, 1e-3, n_blocks, norms, 1, stream)
+
+    assert call(mode=3) != 0 and call(mode=-1) != 0 and call(n=0) != 0 and call(P=0) != 0
+    assert call(max_iters=-1) != 0 and call(n_blocks=3) != 0 and call(mode=0, n_blocks=2) != 0
+    assert call(mode=0, dc=0) != 0 and call(mode=1, pc0=0) != 0 and call(pix=0) != 0 and call(x=0) != 0
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_lm_loop_kernel_in_refine_calls_with_a_navigation_mask_and_per_point_pcs(cuda, mode, monkeypatch):
+    # refine_*(method="lm") on an 8 x 8 scan with a navigation mask (and, in
+    # orientation mode, one PC a point): one launch of the loop kernel a
+    # call, against the same call with the mode's LM wrapper swapped for its
+    # host loop on kernel C, by the criterion above; masked points keep their
+    # start.
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    master, _, _, _, det = _projection_state(cuda)
+    n = 64
+    truth = super_fibonacci(n * 7)[::7][:n]
+    axes = torch.as_tensor(np.random.default_rng(77).normal(size=(n, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), torch.as_tensor(truth)).numpy()
+    pcs = np.asarray(det.pc).reshape(3) + (np.random.default_rng(78).random((n, 3)) - 0.5) * 0.02
+    det_pp = dataclasses.replace(det, pc=pcs.reshape(8, 8, 3))
+    mp = EBSDMasterPattern(master, device=cuda)
+    sim_det = det_pp if mode == "orientation" else det
+    signal = EBSD(mp.get_patterns(truth, det).data.reshape(8, 8, 60, 60), detector=sim_det, device=cuda)
+    nav_mask = np.zeros((8, 8), dtype=bool)
+    nav_mask[::3, 1::2] = True
+    name, wrapper, plain, kw = {
+        "orientation": ("refine_orientation", rl.levenberg_marquardt_orientation,
+                        rl.levenberg_marquardt_orientation_plain, dict(xmap=CrystalMap(rotations=start, shape=(8, 8)),
+                                                                       detector=det_pp)),
+        "pc": ("refine_projection_center", rl.levenberg_marquardt_projection_center,
+               rl.levenberg_marquardt_projection_center_plain,
+               dict(xmap=CrystalMap(rotations=truth, shape=(8, 8)),
+                    detector=dataclasses.replace(det, pc=np.asarray(det.pc).reshape(3) + [0.01, -0.01, 0.01]))),
+        "joint": ("refine_orientation_projection_center", rl.levenberg_marquardt_orientation_projection_center,
+                  rl.levenberg_marquardt_orientation_projection_center_plain,
+                  dict(xmap=CrystalMap(rotations=start, shape=(8, 8)),
+                       detector=dataclasses.replace(det, pc=np.asarray(det.pc).reshape(3) + [0.01, -0.01, 0.01]))),
+    }[mode]
+    before = wrapper.launches
+    got = getattr(signal, name)(master_pattern=mp, method="lm", navigation_mask=nav_mask, **kw)
+    assert wrapper.launches == before + 1
+    lm_attr = {"orientation": "levenberg_marquardt_orientation", "pc": "levenberg_marquardt_projection_center",
+               "joint": "levenberg_marquardt_orientation_projection_center"}[mode]
+    monkeypatch.setattr(tr, lm_attr, plain)
+    ref = getattr(signal, name)(master_pattern=mp, method="lm", navigation_mask=nav_mask, **kw)
+    assert wrapper.launches == before + 1
+    keep = ~nav_mask.ravel()
+    s_got, s_ref = got.xmap.prop["scores"], ref.xmap.prop["scores"]
+    assert np.isnan(s_got[~keep]).all() and np.isfinite(s_got[keep]).all()
+    assert (np.abs(s_got[keep] - s_ref[keep]) <= 1e-5).mean() >= 0.99
+    assert (got.xmap.prop["num_evals"][keep] == ref.xmap.prop["num_evals"][keep]).mean() >= 0.9
+    np.testing.assert_array_equal(got.xmap.best_rotations[~keep], kw["xmap"].best_rotations[~keep])
+    a, b = got.xmap.best_rotations[keep].astype(np.float64), ref.xmap.best_rotations[keep].astype(np.float64)
+    a, b = a / np.linalg.norm(a, axis=1, keepdims=True), b / np.linalg.norm(b, axis=1, keepdims=True)
+    ang = np.degrees(2 * np.arccos(np.clip(np.abs((a * b).sum(1)), 0, 1)))
+    assert (ang <= 0.05).mean() >= 0.99
+    if mode != "orientation":
+        dp = np.abs(got.detector.pc.reshape(-1, 3)[keep] - ref.detector.pc.reshape(-1, 3)[keep]).max(1)
+        assert (dp <= 1e-4).mean() >= 0.99
+
+
+@pytest.mark.parametrize("d", [3, 6])
+def test_lm_loop_solve_is_solve_ex_bit_for_bit(cuda, d):
+    # The loop kernel's d x d solve (LAPACK's elimination order, each update
+    # one FMA) against torch.linalg.solve_ex on damped Gauss-Newton systems of
+    # the loop's kind, at damping 1e-9, 1e-3 and 1: bit for bit.
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    rng = np.random.default_rng(79 + d)
+    n = 4096
+    jac = rng.normal(size=(n, 60, d)) * rng.random((n, 1, d)) * 10
+    jtj = torch.as_tensor(np.einsum("nmp,nmq->npq", jac, jac), dtype=torch.float32, device=cuda)
+    b = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32, device=cuda)
+    diag = torch.clamp_min(torch.diagonal(jtj, dim1=1, dim2=2), 1e-12)
+    for lam in (1e-9, 1e-3, 1.0):
+        a = jtj + torch.full((n,), lam, device=cuda)[:, None, None] * (diag[:, :, None] * torch.eye(d, device=cuda))
+        assert torch.equal(rl.solve(a, b), torch.linalg.solve_ex(a, b[..., None])[0][..., 0])
