@@ -33,7 +33,26 @@ the card's name and power limit, and the device check):
    top-1 equals the exact ``"highest"`` tier wherever the exact top-1/
    top-2 gap exceeds 1e-4, and the orientations are recovered (median
    disorientation < 3 degrees, > 90% under 8 degrees); then keep_n=65,
-   which carries k=130 candidates through the kernel;
+   which carries k=130 candidates through the kernel. The two removals
+   are one launch each of kernel D (``csrc/background.cu``, through
+   ``ops/background.py`` ``remove_background``);
+5a. preprocessing (``[preprocess-check]``, ``[preprocess]``,
+   ``[preprocess-times]``): kernel D in both modes against its plain
+   version on the whole scan (uint8 and float32 outputs, division,
+   ``scale_bg``, a ragged 57 x 61 crop; static bit for bit, dynamic within
+   one gray level on at most 1% of the pixels) and kernel E (CLAHE,
+   ``csrc/clahe.cu`` through ``ops/ahe.py`` ``clahe``) against its plain
+   version (the defaults, ``clip_limit=0.02``, 7 x 7 tiles with the reflect
+   pad, uint16 input; one gray level on at most 1%); then BASELINE config
+   3's chain, kikuchipy's tutorial settings (static and dynamic removal, a
+   lowpass x highpass band-pass in the frequency domain, a spatial
+   Gaussian, CLAHE, normalization to float32) through ``EBSD`` on the
+   16,384-pattern scan and on it tiled 4x (65,536 patterns, 236 MB): MB/s
+   of uint8 in for each step and the chain, kernel D's and E's launches,
+   the device busy share under ``torch.profiler``, and the output's check
+   (float32, finite, zero mean and unit deviation); then D's two modes and E
+   at the main path's shape with their bounds (E's issue slots from
+   ``sass_count.py``'s ``clahe_pixel``) and plain versions;
 5b. the projection kernels against their plain twins: ``lambert_project``
    against the twin run in float64 on the whole dictionary, a rescaled
    slab, one PC per rotation, a ragged pixel count, one rotation and pixels
@@ -190,6 +209,26 @@ SASS_LM_EVAL_PER_PIXEL = {"orientation": 466, "pc": 582, "joint": 689}
 # clock (the Hopper architecture white paper), at the card's largest SM
 # clock (nvidia-smi clocks.max.sm in the run).
 WARP_INSTR_PER_SM_CLOCK = 4
+# SASS instructions of one output pixel of kernel E on uint8 input
+# (sass_count.py ``clahe_pixel``: its bin from the input, the blend of four
+# tables, the rescale and the store): the function's own work a pixel.
+SASS_CLAHE_PER_PIXEL = 102
+# float32 operations a pixel: kernel D's static mode (subtract or divide, the
+# running min and max, the rescale's four), its dynamic mode (the same and
+# the two products' nonzero terms, counted from the run's operators below),
+# and kernel E (normalize and bin 3, one blend of four products and three
+# sums, the running min and max, the rescale's four).
+D_OPS_PER_PIXEL = 7
+E_OPS_PER_PIXEL = 16
+# The tutorial chain runs on the main path's scan and on it tiled this many
+# times (65,536 patterns, 236 MB).
+PREPROCESS_TILES = 4
+# ... and on the CPU through the plain versions on this many of the scan's
+# patterns, against which the card's chain is held.
+CHAIN_CHECK_PATTERNS = 512
+# Kernel D's dynamic mode and kernel E against their plain versions: pixels
+# one gray level apart, at most this share.
+GRAY_SHARE = 0.01
 # One float4 of the quad texture a pixel.
 TAP_BYTES = 16
 # Scattered taps, one 32-byte L2 sector each, at the rates kernel A's
@@ -521,6 +560,8 @@ WRAPPERS = {
     "refine_lm": ("tangent_orientation", "tangent_projection_center", "tangent_orientation_projection_center",
                   "levenberg_marquardt_orientation", "levenberg_marquardt_projection_center",
                   "levenberg_marquardt_orientation_projection_center"),
+    "background": ("remove_background",),
+    "ahe": ("clahe",),
 }
 
 
@@ -536,10 +577,16 @@ def _wrappers():
 def reset_launches() -> None:
     for _, fn in _wrappers():
         fn.launches = 0
+        if hasattr(fn, "mode_launches"):
+            fn.mode_launches = dict.fromkeys(fn.mode_launches, 0)
 
 
 def read_launches() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers()}
+    counts = {name: fn.launches for name, fn in _wrappers()}
+    for name, fn in _wrappers():
+        for mode, n in getattr(fn, "mode_launches", {}).items():
+            counts[f"{name}[{mode}]"] = n
+    return counts
 
 
 # ----------------------------- timing ----------------------------- #
@@ -818,16 +865,19 @@ def host_loop(euler0, exp, sq_norm, dc, quad, geo, nm_kw, chunk: int = NAV_CHUNK
     import torch
 
     from kikuchipy_tpu_torch.indexing.refinement import _objective_orientation
-    from kikuchipy_tpu_torch.utils.optimize import NelderMeadResult, nelder_mead_batched
+    from kikuchipy_tpu_torch.ops.refine_nm import NelderMeadKernelResult
+    from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted
 
     parts = []
     for s in range(0, euler0.shape[0], chunk):
         e = slice(s, s + chunk)
-        bounds = {} if lower is None else dict(lower_bounds=lower[e], upper_bounds=upper[e])
-        parts.append(nelder_mead_batched(
-            _objective_orientation, euler0[e], args=(exp[e], sq_norm[e], dc if dc.ndim == 2 else dc[e], quad, *geo),
-            **nm_kw, **bounds))
-    return NelderMeadResult(*(torch.cat([getattr(p, f) for p in parts]) for f in NelderMeadResult._fields))
+        res, n_evals = _nelder_mead_counted(
+            _objective_orientation, euler0[e], nm_kw.get("initial_step"), nm_kw["max_iters"], nm_kw["fatol"],
+            nm_kw["xatol"], None if lower is None else lower[e], None if upper is None else upper[e],
+            (exp[e], sq_norm[e], dc if dc.ndim == 2 else dc[e], quad, *geo))
+        parts.append(NelderMeadKernelResult(*res, n_evals=n_evals))
+    return NelderMeadKernelResult(*(torch.cat([getattr(p, f) for p in parts])
+                                    for f in NelderMeadKernelResult._fields))
 
 
 def nm_agreement(label: str, got, ref, mode: str = "orientation") -> tuple[float, str]:
@@ -1172,7 +1222,7 @@ def lm_run_agreement(device, rows, rot_q, quad, geo, om, dc) -> list[str]:
 
     from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
     from kikuchipy_tpu_torch.ops import refine_lm as rl
-    from kikuchipy_tpu_torch.utils.optimize import levenberg_marquardt_batched
+    from kikuchipy_tpu_torch.utils.optimize import _levenberg_marquardt_normal
 
     c = NAV_CHUNK
     q0 = rot_q[:c].contiguous()
@@ -1184,8 +1234,8 @@ def lm_run_agreement(device, rows, rot_q, quad, geo, om, dc) -> list[str]:
         wrapper, plain, x0, args = lm_problem(mode, rows[:c], torch.zeros((c, d), device=device), q0, pc0, None, quad,
                                               om, dc, geo, DETECTOR_SHAPE)
         kw = dict(max_iters=30, ftol=1e-6, blocks=blocks[mode], args=args)
-        got = levenberg_marquardt_batched(wrapper, x0, **kw)
-        ref = levenberg_marquardt_batched(plain, x0, **kw)
+        got = _levenberg_marquardt_normal(wrapper, x0, **kw)
+        ref = _levenberg_marquardt_normal(plain, x0, **kw)
         torch.cuda.synchronize()
         fun_ok = float(((got.fun - ref.fun).abs() <= NM_FUN_TOL).float().mean())
         oks = [fun_ok]
@@ -1275,6 +1325,276 @@ def lm_loop_checks(device, rows, rot_q, quad, geo, om, dc) -> tuple[dict, list[s
     return out, msgs
 
 
+# ------------------------- preprocessing ------------------------- #
+
+
+def gray_diff(got, ref) -> tuple[float, float]:
+    """Largest difference and the share of elements that differ."""
+    import torch
+
+    diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+    return float(diff.max()), float((diff > 0).to(torch.float64).mean())
+
+
+def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
+    """Kernel D in both modes and kernel E against their plain versions on
+    the whole scan (16,384 x 60 x 60 uint8) and on edge cases: float32
+    outputs, division, ``scale_bg``, a ragged 57 x 61 crop; CLAHE at its
+    defaults, with clipping, with 7 x 7 tiles (the reflect pad), on uint16
+    input and on 480 x 480 patterns (its blended values in device memory).
+    Static mode bit for bit; the dynamic mode and kernel E
+    within one gray level on at most GRAY_SHARE of the pixels (float32
+    outputs within 1e-5 of the range)."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import ahe
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    flat = scan_u8.reshape(-1, *scan_u8.shape[-2:])
+    ragged = flat[:, :57, :61].contiguous()
+    bg = torch.as_tensor(static_bg, dtype=torch.float32, device=device)
+    msgs, errs = [], {"static": 0.0, "dynamic": 0.0, "clahe": 0.0}
+
+    def operators(shape):
+        plan = tops.dynamic_background_separable_plan(tuple(shape), shape[1] / 8)
+        return torch.as_tensor(plan.row_op, device=device), torch.as_tensor(plan.col_op, device=device)
+
+    cases = []
+    for label, data in (("scan", flat), ("57x61", ragged)):
+        b = bg[: data.shape[-2], : data.shape[-1]].contiguous()
+        row, col = operators(data.shape[-2:])
+        cases += [
+            (f"static {label} subtract uint8", data, dict(static_bg=b), np.uint8),
+            (f"static {label} subtract float32", data, dict(static_bg=b), np.float32),
+            (f"static {label} divide uint8", data, dict(static_bg=b, op="divide"), np.uint8),
+            (f"static {label} scale_bg uint8", data, dict(static_bg=b, scale_bg=True), np.uint8),
+            (f"dynamic {label} subtract uint8", data, dict(row_op=row, col_op=col), np.uint8),
+            (f"dynamic {label} subtract float32", data, dict(row_op=row, col_op=col), np.float32),
+            (f"dynamic {label} divide uint8", data, dict(row_op=row, col_op=col, op="divide"), np.uint8),
+        ]
+    for label, data, kw, dtype_out in cases:
+        kw = dict(kw)
+        op = kw.pop("op", "subtract")
+        omin, omax = (0, 255) if dtype_out == np.uint8 else (-1.0, 1.0)
+        got = bgk.remove_background(data, op, omin, omax, dtype_out, **kw)
+        ref = bgk.remove_background_plain(data, op, omin, omax, dtype_out, **kw)
+        torch.cuda.synchronize()
+        worst, share = gray_diff(got, ref)
+        mode = label.split()[0]
+        if mode == "static":
+            ok = torch.equal(got, ref)
+        elif dtype_out == np.uint8:
+            ok = worst <= 1 and share <= GRAY_SHARE
+        else:
+            ok = worst <= 1e-5 * (omax - omin)
+        if not ok:
+            raise AssertionError(f"kernel D disagrees with its plain version ({label}): max {worst:g}, "
+                                 f"{share:.2e} of the pixels differ")
+        if dtype_out == np.uint8:
+            errs[mode] = max(errs[mode], worst)
+        msgs.append(f"{label}: max {worst:g}, {share:.2e} differ")
+    row, col = operators(flat.shape[-2:])
+    pre = bgk.remove_background(flat, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
+    for label, data, kw in (
+        ("defaults", pre, {}),
+        ("clip_limit=0.02", pre, {"clip_limit": 0.02}),
+        ("kernel_size=(7, 7)", pre, {"kernel_size": (7, 7)}),
+        ("uint16", (pre.to(torch.int32) * 257).to(torch.uint16), {}),
+        # 480 x 480 (the defaults' 120 x 120 tiles): the blended values go to
+        # device memory.
+        ("480x480", pre[:256].repeat_interleave(8, dim=-2).repeat_interleave(8, dim=-1).contiguous(), {}),
+    ):
+        got = ahe.adaptive_histogram_equalization(data, device=device, **kw)
+        sy, sx = data.shape[-2:]
+        ky, kx = kw.get("kernel_size", (sy // 4, sx // 4))
+        chunk = max(512 * 3600 // (sy * sx), 1)
+        ref = ahe.clahe_plain(data, ky, kx, 128, kw.get("clip_limit", 0.0), data.dtype, chunk=chunk)
+        torch.cuda.synchronize()
+        worst, share = gray_diff(got, ref)
+        if not (worst <= 1 and share <= GRAY_SHARE):
+            raise AssertionError(f"kernel E disagrees with its plain version ({label}): max {worst:g}, "
+                                 f"{share:.2e} of the pixels differ")
+        if data.dtype == torch.uint8:
+            errs["clahe"] = max(errs["clahe"], worst)
+        msgs.append(f"clahe {label}: max {worst:g}, {share:.2e} differ")
+    return errs, msgs
+
+
+def tutorial_chain(signal, window_cls, timings=None):
+    """kikuchipy's tutorial preprocessing on an ``EBSD``: static and dynamic
+    background removal, the band-pass of its FFT-filtering example, a
+    spatial Gaussian, CLAHE and normalization to float32. With ``timings``
+    each step's milliseconds (host clock, synchronized) are added to it."""
+    import torch
+
+    band = window_cls("lowpass", cutoff=22, cutoff_width=10, shape=(60, 60)) * window_cls(
+        "highpass", cutoff=1, cutoff_width=0.5, shape=(60, 60))
+    steps = (
+        ("remove_static_background", lambda s: s.remove_static_background()),
+        ("remove_dynamic_background", lambda s: s.remove_dynamic_background()),
+        ("fft_filter (band-pass, frequency)", lambda s: s.fft_filter(band, function_domain="frequency", shift=True)),
+        ("fft_filter (gaussian, spatial)",
+         lambda s: s.fft_filter(window_cls("gaussian", std=1), function_domain="spatial")),
+        ("adaptive_histogram_equalization", lambda s: s.adaptive_histogram_equalization()),
+        ("normalize_intensity", lambda s: s.normalize_intensity(dtype_out=np.float32)),
+    )
+    for name, step in steps:
+        t0 = time.perf_counter()
+        signal = step(signal)
+        if timings is not None:
+            torch.cuda.synchronize()
+            timings[name] = timings.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+    return signal
+
+
+def preprocess_phase(device, scan, smi: str) -> tuple[dict, list[str]]:
+    """BASELINE config 3's chain on the main path's scan and on it tiled
+    PREPROCESS_TILES times: MB/s of uint8 in for each step and the chain,
+    kernel D's and E's launches, the device busy share under
+    ``torch.profiler``, and the output's check: float32 of the input's shape,
+    and on the scan's first CHAIN_CHECK_PATTERNS patterns the same chain run
+    on the CPU, where each step is its plain version (``remove_background_plain``,
+    ``clahe_plain``, ``torch.fft``), within the CPU tests' tolerance against
+    JAX (median |diff| < 1e-5, under 1% of the pixels off by more than 0.05)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.filters import Window
+
+    out = {}
+    msgs = []
+    for tiles in (1, PREPROCESS_TILES):
+        data = scan.data if tiles == 1 else scan.data.repeat(tiles, 1, 1, 1)
+        sig = kt.EBSD(data, static_background=scan.static_background, device=device)
+        mb = data.numel() / 1e6
+        tutorial_chain(sig, Window)  # warm-up: cuFFT plans, the kernels' first launches
+        torch.cuda.synchronize()
+        reset_launches()
+        timings = {}
+        t0 = time.perf_counter()
+        result = tutorial_chain(sig, Window, timings)
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        if launches["remove_background"] != 2 or launches["clahe"] != 1:
+            raise AssertionError(f"the chain did not run on kernels D (2) and E (1): {launches}")
+        res = result.data
+        if tuple(res.shape) != tuple(data.shape) or res.dtype != torch.float32 or not bool(torch.isfinite(res).all()):
+            raise AssertionError(f"the chain's output is {tuple(res.shape)} {res.dtype}, finite "
+                                 f"{bool(torch.isfinite(res).all())}")
+        busy = None
+        check_msg = ""
+        if tiles == 1:
+            k = CHAIN_CHECK_PATTERNS
+            plain = tutorial_chain(kt.EBSD(data.reshape(-1, 60, 60)[:k].cpu(), static_background=scan.static_background,
+                                           device="cpu"), Window).data
+            diff = (res.reshape(-1, 60, 60)[:k].cpu() - plain).abs()
+            median, share = float(diff.median()), float((diff > 0.05).to(torch.float64).mean())
+            if not (bool(torch.isfinite(diff).all()) and median < 1e-5 and share < 0.01):
+                raise AssertionError(f"the chain on the card disagrees with its plain versions on the CPU: median "
+                                     f"|diff| {median:g}, {share:.2e} of the pixels off by > 0.05")
+            check_msg = (f"; against the plain chain on the CPU ({k} patterns): max |diff| {float(diff.max()):g}, "
+                         f"median {median:g}, {share:.2e} of the pixels off by > 0.05")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tutorial_chain(sig, Window)
+                torch.cuda.synchronize()
+            busy_ms, events = device_busy(prof)
+            busy = (busy_ms, events)
+        n = data.numel() // (60 * 60)
+        out[n] = {"chain_ms": chain_ms, "mb": mb, "steps": dict(timings), "launches": launches, "busy": busy}
+        steps = "; ".join(f"{k} {v:.3f} ms ({mb / v * 1e3:.1f} MB/s)" for k, v in timings.items())
+        busy_msg = ""
+        if busy is not None:
+            busy_msg = (f"; under torch.profiler the card busy {busy[0]:.3f} ms, {busy[0] / chain_ms:.1%} of the "
+                        f"untraced chain: " + "; ".join(f"{k[:40]} x{c} {t:.3f} ms" for k, c, t in busy[1][:8]))
+        msgs.append(f"{smi}: {n} patterns ({mb:.1f} MB uint8): chain {chain_ms:.3f} ms = {mb / chain_ms * 1e3:.1f} "
+                    f"MB/s; {steps}; kernel D launches {launches['remove_background']} (static "
+                    f"{launches['remove_background[static]']}, dynamic {launches['remove_background[dynamic]']}), "
+                    f"kernel E {launches['clahe']}; output float32{check_msg}{busy_msg}")
+        del sig, result, res, data
+        torch.cuda.empty_cache()
+    return out, msgs
+
+
+def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, clock_mhz: float,
+                    sms: int) -> tuple[list[dict], list[str]]:
+    """Kernel D's two modes and kernel E at the main path's shape: ms from
+    CUDA events after a warm-up, both bounds, the plain versions' ms.
+    ``launches`` holds each kernel's counts by path; a row's ``launches`` is
+    its own path's (the main path's for kernel D, the chain's at the main
+    path's size for kernel E, which the main path does not run)."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import ahe
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    flat = scan.data.reshape(-1, 60, 60)
+    n, pix = flat.shape[0], flat.numel()
+    bg = torch.as_tensor(scan.static_background, dtype=torch.float32, device=device)
+    plan = tops.dynamic_background_separable_plan((60, 60), 60 / 8)
+    r_op, c_op = torch.as_tensor(plan.row_op, device=device), torch.as_tensor(plan.col_op, device=device)
+    static_u8 = bgk.remove_background(flat, "subtract", 0, 255, np.uint8, static_bg=bg)
+    dyn_u8 = bgk.remove_background(static_u8, "subtract", 0, 255, np.uint8, row_op=r_op, col_op=c_op)
+    runs = {
+        "static": (lambda: bgk.remove_background(flat, "subtract", 0, 255, np.uint8, static_bg=bg),
+                   lambda: bgk.remove_background_plain(flat, "subtract", 0, 255, np.uint8, static_bg=bg)),
+        "dynamic": (lambda: bgk.remove_background(static_u8, "subtract", 0, 255, np.uint8, row_op=r_op, col_op=c_op),
+                    lambda: bgk.remove_background_plain(static_u8, "subtract", 0, 255, np.uint8, row_op=r_op,
+                                                        col_op=c_op)),
+        "clahe": (lambda: ahe.clahe(dyn_u8, 15, 15, 128, 0.0, np.uint8),
+                  lambda: ahe.clahe_plain(dyn_u8, 15, 15, 128, 0.0, np.uint8)),
+    }
+    # uint8 in and out, and the float32 background or the two operators.
+    io_bytes = {"static": 2 * pix + 4 * 3600, "dynamic": 2 * pix + 2 * 4 * 3600, "clahe": 2 * pix}
+    # The dynamic products' terms this run's operators need: R @ p takes each
+    # nonzero of R once a column of p, (R p) @ C^T each nonzero of C once a
+    # row; an FMA is two operations.
+    terms = int(torch.count_nonzero(r_op)) * 60 + int(torch.count_nonzero(c_op)) * 60
+    ops = {
+        "static": pix * D_OPS_PER_PIXEL,
+        "dynamic": pix * D_OPS_PER_PIXEL + n * 2 * terms,
+        "clahe": pix * E_OPS_PER_PIXEL,
+    }
+    replaces = {
+        "static": "kikuchipy_tpu/ops/pattern.py:141 _remove_background under :159 remove_static_background",
+        "dynamic": "kikuchipy_tpu/ops/pattern.py:141 _remove_background + :289 _frequency_blur -> "
+                   "kikuchipy_tpu/ops/fft_barnes.py:163 separable_filter, under :335 remove_dynamic_background",
+        "clahe": "kikuchipy_tpu/ops/ahe.py:75 _clahe_batch + :42 _blend_weights, under :120 "
+                 "adaptive_histogram_equalization",
+    }
+    rows, msgs = [], []
+    for key, (kernel, plain) in runs.items():
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 2)
+        t_bytes = io_bytes[key] / PEAK_BYTES * 1e3
+        t_ops = ops[key] / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        name = "clahe" if key == "clahe" else f"remove_background[{key}]"
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"kikuchipy_tpu_torch/csrc/{'clahe' if key == 'clahe' else 'background'}.cu",
+            "replaces": replaces[key], "launches": launches[name][f"preprocess {n}" if key == "clahe" else "main"],
+            "launches_by_path": launches[name],
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "note": "max_abs_err in gray levels against the plain version over [preprocess-check]'s uint8 cases",
+        }
+        if key == "clahe":
+            entry["instruction_bound_ms"] = instruction_ms(pix, clahe_pixel, clock_mhz, sms)
+        rows.append(entry)
+        instr = (f"; instruction slots {entry['instruction_bound_ms']:.4f} ms at {clahe_pixel} a pixel"
+                 if key == "clahe" else "")
+        if key == "dynamic":
+            instr = f"; {2 * terms} operations a pattern in the products (the operators' nonzeros)"
+        msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {entry['bound_by']}, {bound / ms:.2%} of it{instr}; "
+                    f"{pix / 1e6:.1f} MB uint8 in, {pix / ms / 1e3:.1f} MB/s; plain {plain_ms:.3f} ms; no single "
+                    f"PyTorch call computes it)")
+    return rows, msgs
+
+
 def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
     """Milliseconds the SMs' instruction slots take for ``per_pixel`` instructions
     on each of ``pixels`` pixels, one pixel a thread (32 a warp)."""
@@ -1355,17 +1675,18 @@ def main(argv=None) -> int:
     # disassembles (sass_count.py), and the card's largest SM clock.
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
             "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
-            "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "source": "constants"}
+            "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
+            "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
         sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
-                                              "lm_eval_pixel")}
+                                              "lm_eval_pixel", "clahe_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
-    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"],
+    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"], sass["clahe_pixel"],
            *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = float(smi_line("clocks.max.sm").split()[0])
@@ -1373,8 +1694,9 @@ def main(argv=None) -> int:
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
         f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
-        f"the LM loop kernel) {sass['lm_eval_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, "
-        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}); dispatch "
+        f"the LM loop kernel) {sass['lm_eval_pixel']}, an output pixel of kernel E (its bin, blend and rescale) "
+        f"{sass['clahe_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
+        f"{SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, {SASS_CLAHE_PER_PIXEL}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -1414,6 +1736,8 @@ def main(argv=None) -> int:
     t_main = time.perf_counter() - t0
     if main_launches["ncc_match_topk_int8"] < 1 or main_launches["lambert_project"] != 1:
         raise AssertionError(f"the main path did not launch ncc_topk_int8, or lambert_project not once: {main_launches}")
+    if main_launches["remove_background[static]"] != 1 or main_launches["remove_background[dynamic]"] != 1:
+        raise AssertionError(f"the main path's two removals were not one launch of kernel D each: {main_launches}")
     scores = xmap.prop["scores"]
     idx = xmap.prop["simulation_indices"]
     if scores.shape != (n_scan, KEEP_N) or not np.isfinite(scores).all() or (idx < 0).any():
@@ -1435,7 +1759,8 @@ def main(argv=None) -> int:
         return (f"top-1 == highest on {int(clear.sum())}/{n_scan} patterns with gap > {gap:g} (overall "
                 f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}")
 
-    log("main-path", f"{n_scan} patterns x {m} dictionary projected by lambert_project (launches "
+    log("main-path", f"{n_scan} patterns, static and dynamic background removal on kernel D (launches "
+        f"{main_launches['remove_background']}), x {m} dictionary projected by lambert_project (launches "
         f"{main_launches['lambert_project']}), pallas-int8 keep_n={KEEP_N}: ncc_topk_int8 launches "
         f"{main_launches['ncc_match_topk_int8']}; {top1_check('pallas-int8', idx[:, 0], TOP1_GAP['int8'])}; "
         f"first run {t_main:.2f} s")
@@ -1451,6 +1776,23 @@ def main(argv=None) -> int:
         raise AssertionError("keep_n=65 through pallas-int8 is unsorted or changes top-1")
     log("keep_n-65", f"dictionary_indexing(keep_n=65, pallas-int8): kernel at k=130, launches {wide_launches}, "
         f"scores descending, top-1 equal to keep_n={KEEP_N}")
+
+    # ---- preprocessing: kernels D and E against their plain versions, then the tutorial chain ----
+    pre_errs, pre_msgs = preprocess_checks(dev, scan.data, scan.static_background)
+    log("preprocess-check", f"kernel D (static bit for bit; dynamic within 1 gray on <= {GRAY_SHARE:.0%} of the "
+        f"pixels, float32 outputs within 1e-5 of the range) and kernel E (within 1 gray on <= {GRAY_SHARE:.0%}) "
+        f"against their plain versions on the {n_scan}-pattern scan: " + "; ".join(pre_msgs))
+    chain, chain_msgs = preprocess_phase(dev, scan, smi)
+    for msg in chain_msgs:
+        log("preprocess", msg)
+    # Each kernel's launches by path: the main path (kernel D's two removals)
+    # and the chain at each size.
+    pre_launches = {name: {"main": main_launches[name],
+                           **{f"preprocess {n}": c["launches"][name] for n, c in chain.items()}}
+                    for name in ("remove_background[static]", "remove_background[dynamic]", "clahe")}
+    preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass["clahe_pixel"],
+                                                      clock_mhz, sms)
+    log("preprocess-times", f"{smi}: " + "; ".join(pre_time_msgs))
 
     # ---- the projection kernels against their plain twins ----
     from kikuchipy_tpu_torch.ops import lambert_project as lp
@@ -2124,6 +2466,7 @@ def main(argv=None) -> int:
                              f"{lib_name} {ms_lib:.3f} ms; product + torch.topk + merge per 32768 columns "
                              f"{ms_same:.3f} ms)")
     table.append(split_row)
+    table.extend(preprocess_table)
     # The projection kernels: A on the whole dictionary, B on one navigation chunk.
     ms_a = cuda_ms(lambda: lp.lambert_project(rot_dict, dc, quad, *geo), 5)
     ms_a_plain = cuda_ms(lambda: [lp.lambert_project_plain(rot_dict[c0:c0 + 16384], dc, quad, *geo)

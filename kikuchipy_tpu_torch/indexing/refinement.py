@@ -27,7 +27,8 @@ start orientation (``q0 (x) exp_map(delta)``) and/or a PC shift, through
   all points in every mode (``levenberg_marquardt_orientation``,
   ``_projection_center``, ``_orientation_projection_center``), each point's
   whole loop inside it; on the CPU the wrappers run the batched host loop
-  (:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`)
+  (``utils/optimize.py`` ``_levenberg_marquardt_normal``, the loop of
+  :func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`)
   over the tangent evaluation's plain version (``torch.func.jvp``).
 - Gradient is a host loop (:func:`_adam_minimize_batched`) whose every
   evaluation is one call of a tangent wrapper: on the card one launch of

@@ -1,0 +1,153 @@
+"""Background removal: kernel D (``csrc/background.cu``) and its plain
+version.
+
+Replaces XLA code of the JAX package, not a TPU kernel:
+``kikuchipy_tpu/ops/pattern.py`` ``_remove_background`` under
+``remove_static_background`` and ``remove_dynamic_background`` (frequency
+domain, whose blur is ``fft_barnes.separable_filter``: ``R @ p @ C^T``).
+
+:func:`remove_background` removes a static background (``static_bg``) or
+each pattern's own frequency-domain blur (``row_op`` and ``col_op``, the two
+operators of :class:`~kikuchipy_tpu_torch.ops.fft_barnes.SeparableFilterPlan`)
+by subtraction or division, then rescales each pattern by its min and max to
+``[omin, omax]`` and casts to ``dtype_out``. For a CPU tensor it returns its
+plain version (:func:`remove_background_plain`); for a CUDA tensor it
+launches kernel D once for the whole batch or raises, and counts the launch
+in its own ``.launches`` (and in ``.mode_launches["static"]`` or
+``["dynamic"]``). The static mode equals the plain version bit for
+bit on the card; the dynamic mode sums its products in another order than
+cuBLAS, so integer outputs may differ by one gray level where a value lands
+on an integer boundary.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kikuchipy_tpu_torch.ops.fft_barnes import separable_filter
+from kikuchipy_tpu_torch.ops.pattern_io import CODES, SMEM_BUDGET, check_storage, remove_and_rescale, sig_max, sig_min
+from kikuchipy_tpu_torch.utils.dtypes import torch_dtype
+
+__all__ = ["SMEM_BUDGET", "remove_background", "remove_background_plain", "smem_bytes"]
+
+# Blocks that run when the images live in scratch: the scratch is
+# (_WORK_BLOCKS, 2, sy, sx) float32.
+_WORK_BLOCKS = 1024
+
+
+def _check(patterns, operation, static_bg, row_op, col_op) -> None:
+    if operation not in ("subtract", "divide"):
+        raise ValueError(f"operation must be 'subtract' or 'divide', got {operation!r}")
+    if (static_bg is None) == (row_op is None) or (row_op is None) != (col_op is None):
+        raise ValueError("pass static_bg (static mode) or row_op and col_op (dynamic mode)")
+    if patterns.ndim < 2 or patterns.shape[-1] < 1 or patterns.shape[-2] < 1:
+        raise ValueError(f"patterns must be (..., sy, sx), got {tuple(patterns.shape)}")
+    sy, sx = patterns.shape[-2:]
+    if static_bg is not None and tuple(static_bg.shape) != (sy, sx):
+        raise ValueError(f"static_bg must be ({sy}, {sx}), got {tuple(static_bg.shape)}")
+    if row_op is not None and (tuple(row_op.shape) != (sy, sy) or tuple(col_op.shape) != (sx, sx)):
+        raise ValueError(f"row_op must be ({sy}, {sy}) and col_op ({sx}, {sx}), got {tuple(row_op.shape)}, "
+                         f"{tuple(col_op.shape)}")
+
+
+def _unit_background(bg: torch.Tensor) -> torch.Tensor:
+    """The background rescaled to ``[0, 1]``: the first step of ``scale_bg``'s
+    rescale, shared by every pattern."""
+    return (bg - bg.min()) / (bg.max() - bg.min())
+
+
+def remove_background_plain(patterns, operation: str, omin: float, omax: float, dtype_out, static_bg=None,
+                            scale_bg: bool = False, row_op=None, col_op=None) -> torch.Tensor:
+    """Kernel D's function in PyTorch operations: the JAX package's op order
+    (``remove_static_background`` / ``remove_dynamic_background``)."""
+    _check(patterns, operation, static_bg, row_op, col_op)
+    p = patterns.to(torch.float32)
+    if row_op is not None:
+        bg = separable_filter(p, row_op, col_op)
+    else:
+        bg = static_bg.to(torch.float32)
+        if scale_bg:
+            pmin, pmax = sig_min(p), sig_max(p)
+            bg = _unit_background(bg) * (pmax - pmin) + pmin
+    out = remove_and_rescale(p, bg, operation, float(omin), float(omax))
+    return out.to(torch_dtype(dtype_out))
+
+
+def smem_bytes(sy: int, sx: int, dynamic: bool) -> int:
+    """Shared memory of one block of kernel D with everything resident: the
+    operators' row bands, R, C and two images (dynamic), or the background
+    and one image."""
+    return 4 * (2 * (sy + sx) + sy * sy + sx * sx + 2 * sy * sx if dynamic else 2 * sy * sx)
+
+
+def _function():
+    from kikuchipy_tpu_torch.ops._build import library
+
+    fn = library("background").background_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def remove_background(patterns, operation: str, omin: float, omax: float, dtype_out, static_bg=None,
+                      scale_bg: bool = False, row_op=None, col_op=None) -> torch.Tensor:
+    """Remove a background from every pattern ``(..., sy, sx)`` and rescale
+    each to ``[omin, omax]`` in ``dtype_out``.
+
+    Static mode: ``static_bg (sy, sx)``, optionally rescaled to each
+    pattern's own range (``scale_bg``). Dynamic mode: ``row_op (sy, sy)`` and
+    ``col_op (sx, sx)``, the background being ``row_op @ p @ col_op.T``. On
+    the card one launch of kernel D for all patterns."""
+    _check(patterns, operation, static_bg, row_op, col_op)
+    if patterns.device.type == "cpu":
+        return remove_background_plain(patterns, operation, omin, omax, dtype_out, static_bg, scale_bg, row_op,
+                                       col_op)
+    dev = patterns.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out_dtype = torch_dtype(dtype_out)
+    check_storage("kernel D", patterns.dtype, out_dtype)
+    dynamic = row_op is not None
+    ops = (row_op, col_op) if dynamic else (static_bg,)
+    if any(t.device != dev for t in ops):
+        raise ValueError("the background or operators must be on the patterns' device")
+    sy, sx = patterns.shape[-2:]
+    n = patterns.numel() // (sy * sx)
+    src = patterns.contiguous()
+    out = torch.empty(patterns.shape, dtype=out_dtype, device=dev)
+    if n == 0:
+        return out
+    if dynamic:
+        row = row_op.to(torch.float32).contiguous()
+        col = col_op.to(torch.float32).contiguous()
+        bg = None
+    else:
+        row = col = None
+        bg = static_bg.to(torch.float32)
+        bg = (_unit_background(bg) if scale_bg else bg).contiguous()
+    work = None
+    if smem_bytes(sy, sx, dynamic) > SMEM_BUDGET:
+        work = torch.empty((min(n, _WORK_BLOCKS), 2, sy, sx), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        err = _function()(
+            src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype], ptr(bg), ptr(row), ptr(col),
+            ptr(work), _WORK_BLOCKS, n, sy, sx, int(dynamic), int(operation == "divide"), int(bool(scale_bg)),
+            float(omin), float(omax) - float(omin), torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"background launch failed: cudaError_t {err}")
+    remove_background.launches += 1
+    remove_background.mode_launches["dynamic" if dynamic else "static"] += 1
+    return out
+
+
+remove_background.launches = 0
+remove_background.mode_launches = {"static": 0, "dynamic": 0}

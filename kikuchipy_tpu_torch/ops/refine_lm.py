@@ -23,8 +23,10 @@ Each wrapper returns, for every point at its trial parameters ``x``, the
 tuple ``(f, g, jtj)``: ``f = 0.5 ||r||^2`` ``(n,)``, ``g = J^T r`` ``(n,
 d)`` and ``J^T J`` ``(n, d, d)``, with ``r = sim_unit(sim) - exp_unit`` and
 ``J`` its Jacobian in ``x``. That is what
-:func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`
-consumes, and ``(f, g)`` is what the gradient method's Adam loop consumes:
+:mod:`~kikuchipy_tpu_torch.utils.optimize`'s LM loop
+(``_levenberg_marquardt_normal``, the loop under
+``levenberg_marquardt_batched``) consumes, and ``(f, g)`` is what the
+gradient method's Adam loop consumes:
 with both rows centred and unit, ``0.5 ||r||^2 = 1 - NCC``. For CPU tensors
 a wrapper returns its plain version (``..._plain``: ``torch.func.jvp`` of
 the residual along each of the ``d`` axes, over the plain projection
@@ -45,10 +47,12 @@ source): :func:`levenberg_marquardt_orientation`,
 :func:`levenberg_marquardt_orientation_projection_center` take a tangent
 wrapper's arguments, the starts ``x0`` in place of ``x``, and
 :func:`~kikuchipy_tpu_torch.utils.optimize.levenberg_marquardt_batched`'s
-``max_iters``, ``ftol``, ``lambda0`` and ``blocks``, and return its
-:class:`~kikuchipy_tpu_torch.utils.optimize.LMResult`. For CPU tensors each
-returns its plain version (``..._plain``: the batched host loop over the
-mode's tangent wrapper, which on the card launches kernel C an iteration);
+``max_iters``, ``ftol``, ``lambda0`` and ``blocks``, and return an
+:class:`LMKernelResult`: its :class:`~kikuchipy_tpu_torch.utils.optimize.LMResult`
+and the evaluations each point made. For CPU tensors each
+returns its plain version (``..._plain``: the batched host loop
+``utils/optimize.py`` ``_levenberg_marquardt_normal`` over the mode's
+tangent wrapper, which on the card launches kernel C an iteration);
 for CUDA tensors it launches the loop kernel once for all points or raises,
 and counts the launch in its own ``.launches``. The kernel runs each point's
 loop by the host loop's rules and in its rounding on the card: each
@@ -74,15 +78,17 @@ mode's arguments after it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from kikuchipy_tpu_torch.geometry.quaternion import multiply
 from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, _project_plain, lambert_project_ncc
 from kikuchipy_tpu_torch.ops.refine_nm import _aligned, _detector_scalars, _ptr, pc_direction_cosines, pixel_table
-from kikuchipy_tpu_torch.utils.optimize import LMResult, levenberg_marquardt_batched
+from kikuchipy_tpu_torch.utils.optimize import _levenberg_marquardt_normal, _normal_equations
 
 __all__ = [
+    "LMKernelResult",
     "RESIDENT_SMEM_BYTES",
     "exp_map",
     "joint_delta_objective",
@@ -108,6 +114,18 @@ __all__ = [
     "tangent_projection_center_plain",
     "unit_rows",
 ]
+
+
+class LMKernelResult(NamedTuple):
+    """What the LM loop kernel's wrappers and their plain versions return:
+    :class:`~kikuchipy_tpu_torch.utils.optimize.LMResult`'s four fields and
+    the evaluations each point made (the start and one an iteration)."""
+
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) 0.5 * ||r||^2 at the best point
+    n_iter: torch.Tensor     # (n,) LM iterations taken
+    converged: torch.Tensor  # (n,) convergence mask
+    n_evals: torch.Tensor    # (n,) evaluations made
 
 _f32 = torch.float32
 
@@ -240,22 +258,6 @@ def joint_delta_objective(x, q0, pc0, exp, sq_norm, quad, om, mask_take, npx, np
 
 
 # ------------------------------ plain versions ------------------------------ #
-
-
-def _normal_equations(residual, x, args) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(f, g, jtj)`` of ``residual(x, *args)``: one forward-mode tangent
-    along each axis of ``x`` (JAX's ``jac_and_res``), then its einsums."""
-    n, d = x.shape
-    eye = torch.eye(d, dtype=x.dtype, device=x.device)
-    cols = []
-    for k in range(d):
-        r, col = torch.func.jvp(lambda z: residual(z, *args), (x,), (eye[k].expand(n, d).contiguous(),))
-        cols.append(col)
-    jac = torch.stack(cols, dim=-1)  # (n, P, d)
-    f = 0.5 * torch.sum(torch.square(r), dim=-1)
-    g = torch.einsum("nmp,nm->np", jac, r)
-    jtj = torch.einsum("nmp,nmq->npq", jac, jac)
-    return f, g, jtj
 
 
 def tangent_orientation_plain(delta, q0, exp_unit, dc, quad, npx, npy, scale):
@@ -428,7 +430,7 @@ def _check_loop(max_iters, blocks, d: int) -> list[float]:
 
 
 def _launch_loop(mode: str, x0, q0, pc0, dc, pix, om, exp_unit, quad, npx, npy, scale, nrows, ncols, max_iters, ftol,
-                 lambda0, norms) -> LMResult:
+                 lambda0, norms) -> LMKernelResult:
     """One launch of the loop kernel for all points."""
     dev = x0.device
     n, P = exp_unit.shape
@@ -458,24 +460,30 @@ def _launch_loop(mode: str, x0, q0, pc0, dc, pix, om, exp_unit, quad, npx, npy, 
         )
     if err:
         raise RuntimeError(f"refine_lm_loop launch ({mode} mode) failed: cudaError_t {err}")
-    return LMResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
+    return LMKernelResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
+
+
+def _host_loop(evaluate, x0, max_iters, ftol, lambda0, blocks, args) -> LMKernelResult:
+    res = _levenberg_marquardt_normal(evaluate, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0, blocks=blocks,
+                                      args=args)
+    return LMKernelResult(*res, n_evals=res.n_iter + 1)
 
 
 def levenberg_marquardt_orientation_plain(x0, q0, exp_unit, dc, quad, npx: int, npy: int, scale: float,
                                           max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
-                                          blocks=None) -> LMResult:
-    """The host loop: :func:`levenberg_marquardt_batched` over
+                                          blocks=None) -> LMKernelResult:
+    """The host loop: ``utils/optimize.py`` ``_levenberg_marquardt_normal`` over
     :func:`tangent_orientation` (kernel C a launch on the card, its plain
     version on the CPU)."""
     _check("delta", x0, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
     _check_loop(max_iters, blocks, 3)
-    return levenberg_marquardt_batched(tangent_orientation, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0,
-                                       blocks=blocks, args=(q0, exp_unit, dc, quad, npx, npy, scale))
+    return _host_loop(tangent_orientation, x0, max_iters, ftol, lambda0, blocks,
+                      (q0, exp_unit, dc, quad, npx, npy, scale))
 
 
 def levenberg_marquardt_orientation(x0, q0, exp_unit, dc, quad, npx: int, npy: int, scale: float,
                                     max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
-                                    blocks=None) -> LMResult:
+                                    blocks=None) -> LMKernelResult:
     """Minimize ``0.5 ||r||^2`` of :func:`orientation_residual` over the
     rotation vector of every point from ``x0 (n, 3)``. On the card one launch
     of the loop kernel for all points; its ``n_evals`` are the evaluations it
@@ -493,19 +501,17 @@ def levenberg_marquardt_orientation(x0, q0, exp_unit, dc, quad, npx: int, npy: i
 
 def levenberg_marquardt_projection_center_plain(x0, pc0, exp_unit, q0, quad, om, mask_take, npx: int, npy: int,
                                                 scale: float, nrows: int, ncols: int, max_iters: int = 30,
-                                                ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMResult:
+                                                ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMKernelResult:
     """The host loop over :func:`tangent_projection_center`."""
     _check_pc(x0, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
     _check_loop(max_iters, blocks, 3)
-    return levenberg_marquardt_batched(
-        tangent_projection_center, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0, blocks=blocks,
-        args=(pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
-    )
+    return _host_loop(tangent_projection_center, x0, max_iters, ftol, lambda0, blocks,
+                      (pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols))
 
 
 def levenberg_marquardt_projection_center(x0, pc0, exp_unit, q0, quad, om, mask_take, npx: int, npy: int,
                                           scale: float, nrows: int, ncols: int, max_iters: int = 30,
-                                          ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMResult:
+                                          ftol: float = 1e-7, lambda0: float = 1e-3, blocks=None) -> LMKernelResult:
     """Minimize ``0.5 ||r||^2`` of :func:`pc_residual` over the PC shift of
     every point from ``x0 (n, 3)``, its rotation fixed. On the card one
     launch of the loop kernel's PC mode."""
@@ -523,20 +529,18 @@ def levenberg_marquardt_projection_center(x0, pc0, exp_unit, q0, quad, om, mask_
 def levenberg_marquardt_orientation_projection_center_plain(x0, q0, pc0, exp_unit, quad, om, mask_take, npx: int,
                                                             npy: int, scale: float, nrows: int, ncols: int,
                                                             max_iters: int = 30, ftol: float = 1e-7,
-                                                            lambda0: float = 1e-3, blocks=None) -> LMResult:
+                                                            lambda0: float = 1e-3, blocks=None) -> LMKernelResult:
     """The host loop over :func:`tangent_orientation_projection_center`."""
     _check_pc(x0, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
     _check_loop(max_iters, blocks, 6)
-    return levenberg_marquardt_batched(
-        tangent_orientation_projection_center, x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0, blocks=blocks,
-        args=(q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols),
-    )
+    return _host_loop(tangent_orientation_projection_center, x0, max_iters, ftol, lambda0, blocks,
+                      (q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols))
 
 
 def levenberg_marquardt_orientation_projection_center(x0, q0, pc0, exp_unit, quad, om, mask_take, npx: int,
                                                       npy: int, scale: float, nrows: int, ncols: int,
                                                       max_iters: int = 30, ftol: float = 1e-7, lambda0: float = 1e-3,
-                                                      blocks=None) -> LMResult:
+                                                      blocks=None) -> LMKernelResult:
     """Minimize ``0.5 ||r||^2`` of :func:`joint_residual` over the rotation
     vector and PC shift of every point from ``x0 (n, 6)``. On the card one
     launch of the loop kernel's joint mode."""

@@ -18,9 +18,12 @@ wrapper                                             objective (here, and JAX's)
                                                     (``_objective_joint``)
 ==================================================  ==========================
 
-Each wrapper minimizes ``1 - NCC`` for every point at once. For CPU tensors
+Each wrapper minimizes ``1 - NCC`` for every point at once and returns a
+:class:`NelderMeadKernelResult` (the solver's four fields and the
+evaluations each point made). For CPU tensors
 it returns its plain version (``..._plain``): the batched host loop
-(:func:`~kikuchipy_tpu_torch.utils.optimize.nelder_mead_batched`) over its
+(:func:`~kikuchipy_tpu_torch.utils.optimize.nelder_mead_batched`, with its
+evaluations counted) over its
 objective. For CUDA tensors it launches the kernel or raises, and counts the
 launch in its own ``.launches``. The kernel runs each point's simplex to
 convergence on its own, in the host loop's rounding, so on the card the two
@@ -52,15 +55,17 @@ and the detector's ``nrows`` and ``ncols``. Joint mode: ``x0 (n, 6)``
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from kikuchipy_tpu_torch.geometry.quaternion import from_euler
 from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, lambert_project_ncc
-from kikuchipy_tpu_torch.utils.optimize import NelderMeadResult, initial_step_per_element, nelder_mead_batched
+from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted, initial_step_per_element
 
 __all__ = [
+    "NelderMeadKernelResult",
     "RESIDENT_SMEM_BYTES",
     "joint_objective",
     "nelder_mead_orientation",
@@ -74,6 +79,18 @@ __all__ = [
     "pc_objective",
     "resident",
 ]
+
+
+class NelderMeadKernelResult(NamedTuple):
+    """What the Nelder-Mead kernel's wrappers and their plain versions
+    return: :class:`~kikuchipy_tpu_torch.utils.optimize.NelderMeadResult`'s
+    four fields and the objective evaluations each point made."""
+
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) best value per element
+    n_iter: torch.Tensor     # (n,) iterations until convergence
+    converged: torch.Tensor  # (n,) convergence mask
+    n_evals: torch.Tensor    # (n,) objective evaluations made
 
 # Shared memory a block may take for its experimental row and simulated
 # pattern (2 * P floats): half of a Hopper SM's 227 KB, so two blocks fit.
@@ -288,7 +305,7 @@ def pixel_table(mask_take, nrows: int, ncols: int, device) -> torch.Tensor:
 
 
 def _launch_pc(mode: str, x0, exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols, initial_step,
-               max_iters, fatol, xatol, lower_bounds, upper_bounds) -> NelderMeadResult:
+               max_iters, fatol, xatol, lower_bounds, upper_bounds) -> NelderMeadKernelResult:
     dev = x0.device
     n, d = x0.shape
     x0, exp, sq_norm, quad = (t.contiguous() for t in (x0, exp, sq_norm, quad))
@@ -311,30 +328,35 @@ def _launch_pc(mode: str, x0, exp, sq_norm, q0, quad, om, mask_take, npx, npy, s
     if err:
         raise RuntimeError(f"refine_nm_pc launch ({mode} mode) failed: cudaError_t {err}")
     x, fun, n_iter, converged, n_evals, _ = outs
-    return NelderMeadResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
+    return NelderMeadKernelResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
 
 
 # ------------------------------ orientation ------------------------------ #
 
 
+def _host_loop(objective, x0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+               args) -> NelderMeadKernelResult:
+    res, n_evals = _nelder_mead_counted(objective, x0, initial_step, max_iters, fatol, xatol, lower_bounds,
+                                        upper_bounds, args)
+    return NelderMeadKernelResult(*res, n_evals=n_evals)
+
+
 def nelder_mead_orientation_plain(
     euler0, exp, sq_norm, dc, quad, npx: int, npy: int, scale: float, initial_step=None, max_iters: int = 150,
     fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None, upper_bounds=None,
-) -> NelderMeadResult:
-    """The host loop: :func:`nelder_mead_batched` over
+) -> NelderMeadKernelResult:
+    """The host loop: ``utils/optimize.py`` ``nelder_mead_batched`` over
     :func:`orientation_objective` (kernel B a launch on the card, its plain
     twin on the CPU)."""
     _check_args(euler0, exp, sq_norm, dc, quad, npx, npy, max_iters, lower_bounds, upper_bounds)
-    return nelder_mead_batched(
-        orientation_objective, euler0, initial_step=initial_step, max_iters=max_iters, fatol=fatol, xatol=xatol,
-        lower_bounds=lower_bounds, upper_bounds=upper_bounds, args=(exp, sq_norm, dc, quad, npx, npy, scale),
-    )
+    return _host_loop(orientation_objective, euler0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+                      (exp, sq_norm, dc, quad, npx, npy, scale))
 
 
 def nelder_mead_orientation(
     euler0, exp, sq_norm, dc, quad, npx: int, npy: int, scale: float, initial_step=None, max_iters: int = 150,
     fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None, upper_bounds=None,
-) -> NelderMeadResult:
+) -> NelderMeadKernelResult:
     """Minimize ``1 - NCC`` over the Euler angles of every point. On the
     card one launch of ``refine_nm_kernel`` for all points; its
     ``n_evals`` are the evaluations it made."""
@@ -361,7 +383,7 @@ def nelder_mead_orientation(
         raise RuntimeError(f"refine_nm launch failed: cudaError_t {err}")
     nelder_mead_orientation.launches += 1
     x, fun, n_iter, converged, n_evals, _ = outs
-    return NelderMeadResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
+    return NelderMeadKernelResult(x=x, fun=fun, n_iter=n_iter, converged=converged, n_evals=n_evals)
 
 
 # ------------------------------ PC and joint ------------------------------ #
@@ -371,23 +393,20 @@ def nelder_mead_projection_center_plain(
     pc0, exp, sq_norm, q0, quad, om, mask_take, npx: int, npy: int, scale: float, nrows: int, ncols: int,
     initial_step=None, max_iters: int = 150, fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None,
     upper_bounds=None,
-) -> NelderMeadResult:
-    """The host loop: :func:`nelder_mead_batched` over :func:`pc_objective`
+) -> NelderMeadKernelResult:
+    """The host loop: ``utils/optimize.py`` ``nelder_mead_batched`` over :func:`pc_objective`
     (kernel B a launch on the card, its plain twin on the CPU)."""
     _check_pc_args("pc0", pc0, 3, exp, sq_norm, q0, quad, om, mask_take, npx, npy, nrows, ncols, max_iters,
                    lower_bounds, upper_bounds)
-    return nelder_mead_batched(
-        pc_objective, pc0, initial_step=initial_step, max_iters=max_iters, fatol=fatol, xatol=xatol,
-        lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-        args=(exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols),
-    )
+    return _host_loop(pc_objective, pc0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+                      (exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols))
 
 
 def nelder_mead_projection_center(
     pc0, exp, sq_norm, q0, quad, om, mask_take, npx: int, npy: int, scale: float, nrows: int, ncols: int,
     initial_step=None, max_iters: int = 150, fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None,
     upper_bounds=None,
-) -> NelderMeadResult:
+) -> NelderMeadKernelResult:
     """Minimize ``1 - NCC`` over the PC of every point, its rotation fixed.
     On the card one launch of the kernel's PC mode for all points, the
     direction cosines computed from each candidate PC inside it."""
@@ -408,24 +427,21 @@ def nelder_mead_orientation_projection_center_plain(
     x0, exp, sq_norm, quad, om, mask_take, npx: int, npy: int, scale: float, nrows: int, ncols: int,
     initial_step=None, max_iters: int = 200, fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None,
     upper_bounds=None,
-) -> NelderMeadResult:
-    """The host loop: :func:`nelder_mead_batched` over
+) -> NelderMeadKernelResult:
+    """The host loop: ``utils/optimize.py`` ``nelder_mead_batched`` over
     :func:`joint_objective` (kernel B a launch on the card, its plain twin
     on the CPU)."""
     _check_pc_args("x0", x0, 6, exp, sq_norm, None, quad, om, mask_take, npx, npy, nrows, ncols, max_iters,
                    lower_bounds, upper_bounds)
-    return nelder_mead_batched(
-        joint_objective, x0, initial_step=initial_step, max_iters=max_iters, fatol=fatol, xatol=xatol,
-        lower_bounds=lower_bounds, upper_bounds=upper_bounds,
-        args=(exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols),
-    )
+    return _host_loop(joint_objective, x0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+                      (exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols))
 
 
 def nelder_mead_orientation_projection_center(
     x0, exp, sq_norm, quad, om, mask_take, npx: int, npy: int, scale: float, nrows: int, ncols: int,
     initial_step=None, max_iters: int = 200, fatol: float = 1e-5, xatol: float = 1e-4, lower_bounds=None,
     upper_bounds=None,
-) -> NelderMeadResult:
+) -> NelderMeadKernelResult:
     """Minimize ``1 - NCC`` over the Euler angles and PC of every point
     (``x0 (n, 6)``). On the card one launch of the kernel's joint mode."""
     _check_pc_args("x0", x0, 6, exp, sq_norm, None, quad, om, mask_take, npx, npy, nrows, ncols, max_iters,

@@ -4,9 +4,13 @@ PyTorch counterpart of ``kikuchipy_tpu/signals/ebsd.py``: a dataclass
 over a pattern tensor ``(ny, nx, sy, sx)`` (or ``(n, sy, sx)``) on one
 device, with the attributes the reference kikuchipy carries through
 operations (``detector``, ``xmap``, ``static_background``). Ported so
-far: static and dynamic (frequency-domain) background removal,
-dictionary indexing and Nelder-Mead refinement of orientations and/or
-projection centers; the other methods wait (see ROADMAP.md).
+far: preprocessing (intensity rescaling and normalization, static and
+dynamic background removal in both filter domains, the dynamic background
+itself, frequency- and spatial-domain FFT filtering, downsampling and
+rebinning, image quality, adaptive histogram equalization), dictionary
+indexing, and refinement of orientations and/or projection centers
+(Nelder-Mead, Levenberg-Marquardt, gradient); the other methods wait (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,6 +83,12 @@ class EBSD:
 
     # Each operation returns a NEW EBSD; semantics in ops.pattern.
 
+    def rescale_intensity(self, **kwargs) -> "EBSD":
+        return self._replace_data(_ops.rescale_intensity(self.data, device=self.device, **kwargs))
+
+    def normalize_intensity(self, **kwargs) -> "EBSD":
+        return self._replace_data(_ops.normalize_intensity(self.data, device=self.device, **kwargs))
+
     def remove_static_background(
         self,
         operation: str = "subtract",
@@ -113,7 +123,7 @@ class EBSD:
         truncate: float = 4.0,
         **kwargs,
     ) -> "EBSD":
-        """Remove the dynamic background (frequency domain)."""
+        """Remove the dynamic background (frequency or spatial domain)."""
         out = _ops.remove_dynamic_background(
             self.data,
             operation=operation,
@@ -124,6 +134,103 @@ class EBSD:
             **kwargs,
         )
         return self._replace_data(out)
+
+    def get_dynamic_background(self, **kwargs) -> "EBSD":
+        return self._replace_data(_ops.get_dynamic_background(self.data, device=self.device, **kwargs))
+
+    def fft_filter(
+        self,
+        transfer_function,
+        function_domain: str = "frequency",
+        shift: bool = False,
+        show_progressbar=None,
+    ) -> "EBSD":
+        """Filter each pattern and rescale it to the data's dtype. With
+        ``function_domain="frequency"`` the transfer function multiplies the
+        (optionally fft-shifted) spectrum; with ``"spatial"`` it is a kernel
+        convolved by the Barnes rFFT filter. ``show_progressbar`` is accepted
+        and ignored."""
+        del show_progressbar
+        dtype = self.data.dtype
+        if function_domain == "frequency":
+            out = _ops.fft_filter(self.data.to(torch.float32), transfer_function, shift=shift, device=self.device)
+        elif function_domain == "spatial":
+            from kikuchipy_tpu_torch.ops.fft_barnes import FFTFilterPlan, barnes_fft_filter
+
+            plan = FFTFilterPlan(self.signal_shape, np.asarray(transfer_function))
+            out = barnes_fft_filter(self.data.to(torch.float32), plan, device=self.device)
+        else:
+            raise ValueError(
+                f"function_domain must be 'frequency' or 'spatial', got "
+                f"{function_domain!r}"
+            )
+        return self._replace_data(_ops.rescale_intensity(out, dtype_out=dtype, device=self.device))
+
+    def downsample(self, factor: int, **kwargs) -> "EBSD":
+        """Integer-factor binning and rescale; the detector's shape, binning
+        and PC and the static background follow."""
+        factor = int(factor)
+        sy, sx = self.signal_shape
+        if factor <= 1:
+            raise ValueError(f"Binning factor {factor} must be an integer > 1")
+        if sy % factor or sx % factor:
+            raise ValueError(
+                f"Binning factor {factor} must be a divisor of the signal "
+                f"shape {self.signal_shape}"
+            )
+        out = _ops.downsample(self.data, factor, device=self.device, **kwargs)
+        new = self._replace_data(out)
+        if self.detector is not None:
+            det = self.detector
+            new.detector = dataclasses.replace(
+                det,
+                shape=tuple(out.shape[-2:]),
+                binning=det.binning * factor,
+                pc=det.pc.copy(),
+            )
+        if self.static_background is not None:
+            bg = _ops.downsample(self.static_background, factor, device=self.device, **kwargs)
+            new.static_background = bg.cpu().numpy()
+        return new
+
+    def get_image_quality(self, normalize: bool = True, show_progressbar=None) -> np.ndarray:
+        """Image-quality map (NumPy, the navigation shape);
+        ``show_progressbar`` is accepted and ignored."""
+        del show_progressbar
+        return _ops.get_image_quality(self.data, normalize=normalize, device=self.device).cpu().numpy()
+
+    def adaptive_histogram_equalization(
+        self,
+        kernel_size=None,
+        clip_limit: float = 0.0,
+        nbins: int = 128,
+        show_progressbar=None,
+    ) -> "EBSD":
+        """CLAHE of every pattern (one launch of kernel E on the card);
+        ``show_progressbar`` is accepted and ignored."""
+        del show_progressbar
+        from kikuchipy_tpu_torch.ops.ahe import adaptive_histogram_equalization
+
+        return self._replace_data(
+            adaptive_histogram_equalization(
+                self.data, kernel_size=kernel_size, clip_limit=clip_limit, nbins=nbins, device=self.device,
+            )
+        )
+
+    def rebin(self, scale: tuple[int, ...] | None = None, **kwargs) -> "EBSD":
+        """Integer-factor rebin of the signal axes: ``scale`` is ``(...,
+        sy_factor, sx_factor)`` with equal signal factors and navigation
+        factors of 1; the same as :meth:`downsample`."""
+        if scale is None:
+            raise ValueError("Pass scale, e.g. (1, 1, 2, 2)")
+        fy, fx = int(scale[-2]), int(scale[-1])
+        if fy != fx:
+            raise ValueError(
+                f"Only equal signal-axis factors are supported, got {scale}"
+            )
+        if any(int(s) != 1 for s in scale[:-2]):
+            raise ValueError("Navigation-axis rebinning is not supported")
+        return self.downsample(fy, **kwargs)
 
     def dictionary_indexing(
         self,

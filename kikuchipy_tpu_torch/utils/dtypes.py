@@ -29,6 +29,7 @@ dtype_range: dict[type, tuple[float, float]] = {
 _TORCH_TO_NUMPY = {
     torch.bool: np.bool_,
     torch.uint8: np.uint8,
+    torch.uint16: np.uint16,
     torch.int8: np.int8,
     torch.int16: np.int16,
     torch.int32: np.int32,

@@ -12,13 +12,17 @@ kernel instead (:mod:`kikuchipy_tpu_torch.ops.refine_nm`), which computes
 what this function computes for each element on its own.
 
 The batched Levenberg-Marquardt of the same module
-(:func:`levenberg_marquardt_batched`), a Python loop with one host read an
-iteration. It takes an evaluation that returns ``0.5 ||r||^2``, ``J^T r``
-and ``J^T J`` of each element, since JAX's loop uses the residual ``r`` and
-its Jacobian ``J`` only through those three; over the tangent kernel
-(:mod:`kikuchipy_tpu_torch.ops.refine_lm`) it is the plain version of the
-Levenberg-Marquardt kernel, which on the card runs this loop for each
-element on its own in one launch.
+(:func:`levenberg_marquardt_batched`) takes JAX's residual contract and
+builds ``0.5 ||r||^2``, ``J^T r`` and ``J^T J`` of each element from ``d``
+forward-mode tangents (:func:`_normal_equations`), since JAX's loop uses the
+residual ``r`` and its Jacobian ``J`` only through those three. The loop
+itself, a Python loop with one host read an iteration, is
+:func:`_levenberg_marquardt_normal`, which takes an evaluation that returns
+the three; over the tangent kernel (:mod:`kikuchipy_tpu_torch.ops.refine_lm`)
+it is the plain version of the Levenberg-Marquardt kernel, which on the
+card runs this loop for each element on its own in one launch.
+The result tuples have JAX's four fields; the kernels' wrappers return
+their own with the evaluations they made beside them.
 The global solvers of the JAX module (differential evolution, dual
 annealing, basin hopping, SHGO) are not ported yet.
 """
@@ -44,7 +48,6 @@ class NelderMeadResult(NamedTuple):
     fun: torch.Tensor        # (n,) best value per element
     n_iter: torch.Tensor     # (n,) iterations until convergence
     converged: torch.Tensor  # (n,) convergence mask
-    n_evals: torch.Tensor    # (n,) objective evaluations of each element
 
 
 def initial_step_per_element(x0: torch.Tensor, step) -> torch.Tensor:
@@ -76,14 +79,15 @@ def nelder_mead_batched(
     lower_bounds: torch.Tensor | None = None,
     upper_bounds: torch.Tensor | None = None,
     args: tuple = (),
+    static_args: tuple = (),
 ) -> NelderMeadResult:
     """Minimize ``f`` independently for each batch element.
 
     Parameters
     ----------
     f
-        Batched objective ``f(x, *args)``: ``(n, d)`` points to ``(n,)``
-        values. Called twice an iteration (reflection, then expansion or
+        Batched objective ``f(x, *args, *static_args)``: ``(n, d)`` points
+        to ``(n,)`` values. Called twice an iteration (reflection, then expansion or
         contraction), plus ``d`` times in an iteration where a live
         element shrinks.
     x0
@@ -99,7 +103,20 @@ def nelder_mead_batched(
     lower_bounds, upper_bounds
         Optional ``(d,)`` or ``(n, d)`` box (trust region); every
         candidate point is clipped into it.
+    args, static_args
+        Trailing arguments of ``f``; JAX's solver keeps the second apart
+        for its compilation cache, here both are passed on as they are.
     """
+    return _nelder_mead_counted(f, x0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+                                (*args, *static_args))[0]
+
+
+def _nelder_mead_counted(f, x0, initial_step, max_iters, fatol, xatol, lower_bounds, upper_bounds,
+                         args) -> tuple[NelderMeadResult, torch.Tensor]:
+    """:func:`nelder_mead_batched`, and beside its result the evaluations
+    ``(n,)`` of each element: ``d + 1`` to start, two an iteration and
+    ``d`` more for each shrink (the Nelder-Mead kernel's plain version
+    reports them)."""
     x0 = torch.as_tensor(x0)
     n, d = x0.shape
     fn = (lambda x: f(x, *args)) if args else f
@@ -194,7 +211,7 @@ def nelder_mead_batched(
     f_best = torch.take_along_dim(vals, best[:, None], dim=1)[:, 0]
     # d + 1 to start, two an iteration, d more a shrink.
     n_evals = (d + 1) + 2 * it + d * shrinks
-    return NelderMeadResult(x=x_best, fun=f_best, n_iter=it, converged=done, n_evals=n_evals)
+    return NelderMeadResult(x=x_best, fun=f_best, n_iter=it, converged=done), n_evals
 
 
 class LMResult(NamedTuple):
@@ -202,7 +219,6 @@ class LMResult(NamedTuple):
     fun: torch.Tensor        # (n,) 0.5 * ||r||^2 at the best point
     n_iter: torch.Tensor     # (n,) LM iterations taken
     converged: torch.Tensor  # (n,) convergence mask
-    n_evals: torch.Tensor    # (n,) evaluations an element needs: the start and one an iteration
 
 
 def clip_blocks(step: torch.Tensor, blocks) -> torch.Tensor:
@@ -221,7 +237,61 @@ def clip_blocks(step: torch.Tensor, blocks) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def _normal_equations(residual, x, args) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(f, g, jtj)`` of ``residual(x, *args)`` (``(n, d)`` points to
+    ``(n, m)`` residuals): one forward-mode tangent along each axis of ``x``
+    (JAX's ``jac_and_res``), then its einsums ``f = 0.5 ||r||^2``,
+    ``g = J^T r`` and ``jtj = J^T J``."""
+    n, d = x.shape
+    eye = torch.eye(d, dtype=x.dtype, device=x.device)
+    cols = []
+    for k in range(d):
+        r, col = torch.func.jvp(lambda z: residual(z, *args), (x,), (eye[k].expand(n, d).contiguous(),))
+        cols.append(col)
+    jac = torch.stack(cols, dim=-1)  # (n, m, d)
+    f = 0.5 * torch.sum(torch.square(r), dim=-1)
+    g = torch.einsum("nmp,nm->np", jac, r)
+    jtj = torch.einsum("nmp,nmq->npq", jac, jac)
+    return f, g, jtj
+
+
 def levenberg_marquardt_batched(
+    residual_fn: Callable[..., torch.Tensor],
+    x0: torch.Tensor,
+    max_iters: int = 30,
+    ftol: float = 1e-7,
+    lambda0: float = 1e-3,
+    blocks: tuple[tuple[int, float], ...] | None = None,
+    args: tuple = (),
+    static_args: tuple = (),
+) -> LMResult:
+    """Minimize ``0.5 ||r_i(x_i)||^2`` independently for every batch
+    element ``i``, all elements in lockstep.
+
+    Parameters
+    ----------
+    residual_fn
+        Batched residuals ``residual_fn(x, *args, *static_args)``: ``(n,
+        d)`` points to ``(n, m)``. Its Jacobian comes from ``d`` forward-mode
+        tangents (``torch.func.jvp``), so it is written in differentiable
+        PyTorch operations.
+    x0
+        ``(n, d)`` initial points; their dtype and device are the solver's.
+    max_iters, ftol, lambda0, blocks
+        As :func:`_levenberg_marquardt_normal` takes them.
+    args, static_args
+        Trailing arguments of ``residual_fn``; JAX's solver keeps the
+        second apart for its compilation cache, here both are passed on as
+        they are.
+    """
+    extra = (*args, *static_args)
+    return _levenberg_marquardt_normal(
+        lambda x: _normal_equations(residual_fn, x, extra), x0, max_iters=max_iters, ftol=ftol, lambda0=lambda0,
+        blocks=blocks,
+    )
+
+
+def _levenberg_marquardt_normal(
     evaluate: Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
     x0: torch.Tensor,
     max_iters: int = 30,
@@ -230,8 +300,8 @@ def levenberg_marquardt_batched(
     blocks: tuple[tuple[int, float], ...] | None = None,
     args: tuple = (),
 ) -> LMResult:
-    """Minimize ``0.5 ||r_i(x_i)||^2`` independently for every batch
-    element ``i``, all elements in lockstep.
+    """The loop of :func:`levenberg_marquardt_batched` on the normal
+    equations of each element.
 
     Parameters
     ----------
@@ -259,8 +329,9 @@ def levenberg_marquardt_batched(
     element that rejects 6 steps in a row is done; ``it`` counts an
     element's iterations until it is done. Each iteration evaluates every
     element once, at its trial point; a rejected step keeps the element's
-    ``(f, g, jtj)``. The d x d systems go to ``torch.linalg.solve_ex``,
-    which, as JAX's solve, does not stop at a singular matrix.
+    ``(f, g, jtj)``, so an element makes ``it + 1`` evaluations. The d x d
+    systems go to ``torch.linalg.solve_ex``, which, as JAX's solve, does not
+    stop at a singular matrix.
     """
     x = torch.as_tensor(x0)
     n, d = x.shape
@@ -293,4 +364,4 @@ def levenberg_marquardt_batched(
         f = torch.where(accept, f_new, f)
         it = it + (~done).to(torch.int32)
         done = done_new
-    return LMResult(x=x, fun=f, n_iter=it, converged=done, n_evals=it + 1)
+    return LMResult(x=x, fun=f, n_iter=it, converged=done)

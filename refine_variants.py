@@ -149,7 +149,7 @@ def main(argv=None) -> int:
                              torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"refine_nm launch failed: cudaError_t {err}")
-        return rn.NelderMeadResult(*outs[:5])
+        return rn.NelderMeadKernelResult(*outs[:5])
 
     ms = smoke.cuda_ms(two_pass, args.reps)
     emit("branch", "orientation", resident=False, ms=ms, ms_resident=built_ms["orientation"],

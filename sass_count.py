@@ -168,6 +168,30 @@ __global__ void probe_lm_frame_d6(const float* __restrict__ in, const float* __r
                                   float* __restrict__ out, int n) { lm_passes_frame<6>(in, row, out, n); }
 """
 
+# One output pixel of kernel E (CLAHE) on uint8 input: its bin from the
+# input, the blend of the four surrounding tiles' tables, the rescale and the
+# store; the frame loads the input pixel and stores it.
+PROBE_CLAHE = r"""
+#include "clahe.cu"
+
+__global__ void probe_clahe_pixel(Params p, BlendTables bt, const uint8_t* __restrict__ in,
+                                  const float* __restrict__ maps, float vlo, float vrange, uint8_t* __restrict__ out,
+                                  int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) {
+        const int y = i / p.sx, x = i - y * p.sx;
+        const int q = bin_of<true>(p, static_cast<float>(in[i]), 0.0f, 1.0f);
+        const float v = blend(bt, maps, p.n_tx, p.nbins, y, x, q);
+        out[i] = static_cast<uint8_t>(static_cast<int64_t>(rescaled(p, v, vlo, vrange)));
+    }
+}
+
+__global__ void probe_clahe_frame(const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = in[i];
+}
+"""
+
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
 _LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -218,7 +242,7 @@ def count(build_dir: Path | None = None) -> dict:
     build_dir.mkdir(parents=True, exist_ok=True)
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
-    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM)):
+    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE)):
         src = build_dir / f"{stem}.cu"
         src.write_text(text)
         lib = build_dir / f"lib{stem}.so"
@@ -253,6 +277,7 @@ def count(build_dir: Path | None = None) -> dict:
         n_acc = (1 + d) + (1 + d + d * (d + 1) // 2) + (2 + d)
         passes[d] = len(find(f"18probe_lm_passes_d{d}")) - len(find(f"17probe_lm_frame_d{d}")) - (n_acc - (2 + d))
     lm_eval = {mode: lm_count[mode] + passes[6 if mode == "joint" else 3] for mode in lm_count}
+    clahe, clahe_frame = find("17probe_clahe_pixel"), find("17probe_clahe_frame")
 
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
@@ -271,6 +296,8 @@ def count(build_dir: Path | None = None) -> dict:
         "lm_passes": passes,
         "lm_eval_pixel": lm_eval,
         "tangent_pixel_ops": {mode: mix(ops, lm_frame[mode]) for mode, ops in lm.items()},
+        "clahe_pixel": len(clahe) - len(clahe_frame),
+        "clahe_pixel_ops": mix(clahe, clahe_frame),
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
 

@@ -1303,3 +1303,175 @@ def test_lm_loop_solve_is_solve_ex_bit_for_bit(cuda, d):
     for lam in (1e-9, 1e-3, 1.0):
         a = jtj + torch.full((n,), lam, device=cuda)[:, None, None] * (diag[:, :, None] * torch.eye(d, device=cuda))
         assert torch.equal(rl.solve(a, b), torch.linalg.solve_ex(a, b[..., None])[0][..., 0])
+
+
+# ------------------- kernels D and E: preprocessing ------------------- #
+# Kernel D (csrc/background.cu) in its static mode equals its plain version
+# bit for bit; its dynamic mode sums the two operator products in its own
+# FMA order against cuBLAS's, so integer outputs may differ by one gray
+# level, on under 1% of the pixels. Kernel E (csrc/clahe.cu) blends four
+# tables where the plain version's einsum sums over every tile: one gray
+# level, on under 1% of the pixels.
+
+
+def _preprocess_patterns(n, shape, seed, dtype=np.uint8):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.indices(shape)
+    base = 90 + 0.5 * yy + 60 * np.cos(xx / 6.0) * np.sin(yy / 8.0)
+    data = np.clip(base[None] + rng.normal(scale=14, size=(n,) + shape), 1, 255)
+    return data.astype(dtype)
+
+
+def _static_background(shape):
+    yy, xx = np.indices(shape)
+    return (60 + 40 * np.exp(-((xx - shape[1] / 2) ** 2 + (yy - shape[0] / 2.4) ** 2) / 1100)).astype(np.float32)
+
+
+def _gray_share(got, ref):
+    diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+    return float(diff.max()), float((diff > 0).to(torch.float64).mean())
+
+
+@pytest.mark.parametrize("shape", [(60, 60), (57, 61)])
+@pytest.mark.parametrize("operation, scale_bg", [("subtract", False), ("divide", False), ("subtract", True)])
+@pytest.mark.parametrize("in_dtype, dtype_out", [(np.uint8, np.uint8), (np.uint8, np.float32),
+                                                 (np.float32, np.uint16), (np.uint16, np.int16)])
+def test_background_kernel_static_is_its_plain_version_bit_for_bit(cuda, shape, operation, scale_bg, in_dtype,
+                                                                   dtype_out):
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range
+
+    p = torch.as_tensor(_preprocess_patterns(300, shape, 5, in_dtype), device=cuda)
+    bg = torch.as_tensor(_static_background(shape), device=cuda)
+    omin, omax = get_dtype_range(dtype_out)
+    before = bgk.remove_background.launches
+    got = bgk.remove_background(p, operation, omin, omax, dtype_out, static_bg=bg, scale_bg=scale_bg)
+    torch.cuda.synchronize()
+    assert bgk.remove_background.launches == before + 1
+    ref = bgk.remove_background_plain(p, operation, omin, omax, dtype_out, static_bg=bg, scale_bg=scale_bg)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(60, 60), (57, 61), (120, 120)])
+@pytest.mark.parametrize("operation", ["subtract", "divide"])
+@pytest.mark.parametrize("dtype_out", [np.uint8, np.float32])
+def test_background_kernel_dynamic_matches_plain(cuda, shape, operation, dtype_out):
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+    from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range
+
+    p = torch.as_tensor(_preprocess_patterns(256, shape, 6), device=cuda)
+    plan = tops.dynamic_background_separable_plan(shape, shape[1] / 8)
+    row, col = torch.as_tensor(plan.row_op, device=cuda), torch.as_tensor(plan.col_op, device=cuda)
+    omin, omax = get_dtype_range(dtype_out)
+    got = bgk.remove_background(p, operation, omin, omax, dtype_out, row_op=row, col_op=col)
+    ref = bgk.remove_background_plain(p, operation, omin, omax, dtype_out, row_op=row, col_op=col)
+    torch.cuda.synchronize()
+    if dtype_out == np.uint8:
+        worst, share = _gray_share(got, ref)
+        assert worst <= 1 and share < 0.01, (worst, share)
+    else:
+        assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_background_kernel_scratch_path_past_the_shared_memory_budget(cuda):
+    # 180 x 180 in the dynamic mode passes the budget: the images go to a
+    # scratch buffer and the operators are read from device memory.
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    shape = (180, 180)
+    assert bgk.smem_bytes(*shape, True) > bgk.SMEM_BUDGET
+    p = torch.as_tensor(_preprocess_patterns(40, shape, 7), device=cuda)
+    plan = tops.dynamic_background_separable_plan(shape, shape[1] / 8)
+    row, col = torch.as_tensor(plan.row_op, device=cuda), torch.as_tensor(plan.col_op, device=cuda)
+    got = bgk.remove_background(p, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
+    ref = bgk.remove_background_plain(p, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
+    worst, share = _gray_share(got, ref)
+    assert worst <= 1 and share < 0.01, (worst, share)
+
+
+CLAHE_GPU_CASES = {
+    "defaults": (np.uint8, (60, 60), {}),
+    "clip_0.02": (np.uint8, (60, 60), {"clip_limit": 0.02}),
+    "reflect_pad_7x7": (np.uint8, (60, 60), {"kernel_size": (7, 7)}),
+    "uint16": (np.uint16, (60, 60), {}),
+    "float32_in": (np.float32, (57, 61), {"clip_limit": 0.05}),
+    "float_out_bins_64": (np.uint8, (57, 61), {"nbins": 64, "dtype_out": np.float32}),
+}
+
+
+@pytest.mark.parametrize("name", list(CLAHE_GPU_CASES))
+def test_clahe_kernel_matches_plain(cuda, name):
+    from kikuchipy_tpu_torch.ops import ahe
+
+    dtype, shape, kw = CLAHE_GPU_CASES[name]
+    data = _preprocess_patterns(200, shape, 8)
+    if dtype == np.uint16:
+        data = data.astype(np.uint16) * 257
+    p = torch.as_tensor(data.astype(dtype), device=cuda)
+    before = ahe.clahe.launches
+    got = ahe.adaptive_histogram_equalization(p, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert ahe.clahe.launches == before + 1
+    sy, sx = shape
+    ky, kx = kw.get("kernel_size", (sy // 4, sx // 4))
+    ref = ahe.clahe_plain(p, ky, kx, kw.get("nbins", 128), kw.get("clip_limit", 0.0),
+                          kw.get("dtype_out", dtype), chunk=64)
+    assert got.dtype == ref.dtype
+    if got.dtype.is_floating_point:
+        assert float((got - ref).abs().max()) <= 1e-5
+    else:
+        worst, share = _gray_share(got, ref)
+        assert worst <= 1 and share < 0.01, (worst, share)
+
+
+def test_clahe_kernel_scratch_path_at_large_patterns(cuda):
+    # 480 x 480 at the defaults: the blended values pass the budget and go to
+    # a scratch buffer in device memory; only the tables stay resident.
+    from kikuchipy_tpu_torch.ops import ahe
+
+    assert ahe.clahe_smem_bytes(480, 480, 120, 120, 128) > ahe.SMEM_BUDGET
+    small = torch.as_tensor(_preprocess_patterns(24, (60, 60), 10), device=cuda)
+    p = small.repeat_interleave(8, dim=-2).repeat_interleave(8, dim=-1).contiguous()
+    before = ahe.clahe.launches
+    got = ahe.adaptive_histogram_equalization(p, device=cuda)
+    torch.cuda.synchronize()
+    assert ahe.clahe.launches == before + 1
+    ref = ahe.clahe_plain(p, 120, 120, 128, 0.0, np.uint8, chunk=4)
+    worst, share = _gray_share(got, ref)
+    assert worst <= 1 and share < 0.01, (worst, share)
+
+
+def test_clahe_kernel_refuses_past_its_shared_memory_budget(cuda):
+    from kikuchipy_tpu_torch.ops import ahe
+
+    p = torch.zeros((2, 240, 240), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ahe.adaptive_histogram_equalization(p, kernel_size=(4, 4), nbins=256, device=cuda)
+
+
+def test_preprocessing_on_the_card_never_reaches_the_plain_versions(cuda, monkeypatch):
+    # Each removal is one launch of kernel D, CLAHE one of kernel E, and a
+    # CUDA tensor never takes a plain version.
+    from kikuchipy_tpu_torch import EBSD
+    from kikuchipy_tpu_torch.ops import ahe
+    from kikuchipy_tpu_torch.ops import background as bgk
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(bgk, "remove_background_plain", refuse)
+    monkeypatch.setattr(ahe, "clahe_plain", refuse)
+    data = _preprocess_patterns(64, (60, 60), 9).reshape(8, 8, 60, 60)
+    s = EBSD(data, static_background=_static_background((60, 60)), device=cuda)
+    d0, e0 = bgk.remove_background.launches, ahe.clahe.launches
+    s = s.remove_static_background()
+    assert bgk.remove_background.launches == d0 + 1
+    s = s.remove_dynamic_background()
+    assert bgk.remove_background.launches == d0 + 2
+    s = s.adaptive_histogram_equalization()
+    assert ahe.clahe.launches == e0 + 1
+    out = s.normalize_intensity(dtype_out=np.float32).data
+    torch.cuda.synchronize()
+    assert out.shape == (8, 8, 60, 60) and bool(torch.isfinite(out).all())

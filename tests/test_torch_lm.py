@@ -160,10 +160,11 @@ def test_levenberg_marquardt_matches_jax(name):
     residual, x0, kw = _LM_CASES[name]
     jres = j_lm(_jax_residual, jnp.asarray(x0), max_iters=40, static_args=(name,), **kw)
 
-    def evaluate(x):
-        return rl._normal_equations(lambda z: residual(z, _TorchNP), x, ())
+    # The port takes JAX's residual contract: (n, d) points to (n, m).
+    def torch_residual(x, case):
+        return _LM_CASES[case][0](x, _TorchNP)
 
-    tres = t_lm(evaluate, torch.as_tensor(x0), max_iters=40, **kw)
+    tres = t_lm(torch_residual, torch.as_tensor(x0), max_iters=40, static_args=(name,), **kw)
     assert tres.x.dtype == torch.float64
     np.testing.assert_array_equal(tres.n_iter.numpy(), np.asarray(jres.n_iter))
     np.testing.assert_array_equal(tres.converged.numpy(), np.asarray(jres.converged))
@@ -174,7 +175,7 @@ def test_levenberg_marquardt_matches_jax(name):
         assert tres.converged.all() and torch.equal(tres.x, torch.as_tensor(x0))
     if name == "blocks":
         # The first step of each element, accepted, is clipped to both balls.
-        first = t_lm(evaluate, torch.as_tensor(x0), max_iters=1, **kw)
+        first = t_lm(torch_residual, torch.as_tensor(x0), max_iters=1, static_args=(name,), **kw)
         step = first.x - torch.as_tensor(x0)
         np.testing.assert_allclose(torch.linalg.vector_norm(step[:, :2], dim=1).numpy(), 0.3, rtol=1e-12)
         np.testing.assert_allclose(step[:, 2].abs().numpy(), 0.5, rtol=1e-12)

@@ -1,0 +1,126 @@
+"""The port's public solver surface against the JAX package's: the same
+residual and objective calls run on both, the result tuples have JAX's four
+fields, ``static_args`` is taken, and the public names of the ported
+preprocessing and solver modules have JAX's signatures (the port adds a
+trailing ``device=None`` to entry points that make tensors)."""
+
+import importlib
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kikuchipy_tpu.utils.optimize import levenberg_marquardt_batched as j_lm
+from kikuchipy_tpu.utils.optimize import nelder_mead_batched as j_nm
+from kikuchipy_tpu_torch.utils.optimize import LMResult, NelderMeadResult
+from kikuchipy_tpu_torch.utils.optimize import levenberg_marquardt_batched as t_lm
+from kikuchipy_tpu_torch.utils.optimize import nelder_mead_batched as t_nm
+
+STARTS = np.array([[-1.2, 1.0], [0.5, -0.5], [2.0, 2.0]])
+
+
+def _rosenbrock_jax(x):
+    return jnp.stack([10.0 * (x[:, 1] - x[:, 0] ** 2), 1.0 - x[:, 0]], axis=-1)
+
+
+def _rosenbrock_torch(x):
+    return torch.stack([10.0 * (x[:, 1] - x[:, 0] ** 2), 1.0 - x[:, 0]], dim=-1)
+
+
+def _scaled_jax(x, scale, kind):
+    assert kind == "rosenbrock"
+    return scale * _rosenbrock_jax(x)
+
+
+def _scaled_torch(x, scale, kind):
+    assert kind == "rosenbrock"
+    return scale * _rosenbrock_torch(x)
+
+
+def test_rosenbrock_residual_converges_to_one_one_on_both():
+    jres = j_lm(_rosenbrock_jax, jnp.asarray(STARTS), max_iters=100, ftol=1e-14)
+    tres = t_lm(_rosenbrock_torch, torch.as_tensor(STARTS), max_iters=100, ftol=1e-14)
+    np.testing.assert_allclose(np.asarray(jres.x), 1.0, atol=1e-6)
+    np.testing.assert_allclose(tres.x.numpy(), 1.0, atol=1e-6)
+    assert bool(tres.converged.all()) and bool(np.asarray(jres.converged).all())
+    np.testing.assert_array_equal(tres.n_iter.numpy(), np.asarray(jres.n_iter))
+    np.testing.assert_allclose(tres.fun.numpy(), np.asarray(jres.fun), atol=1e-12)
+
+
+@pytest.mark.parametrize("which", ["lm", "nm"])
+def test_results_unpack_into_jax_four_fields(which):
+    if which == "lm":
+        jres = j_lm(_rosenbrock_jax, jnp.asarray(STARTS), max_iters=5)
+        tres = t_lm(_rosenbrock_torch, torch.as_tensor(STARTS), max_iters=5)
+        cls = LMResult
+    else:
+        jres = j_nm(lambda x: jnp.sum(_rosenbrock_jax(x) ** 2, axis=-1), jnp.asarray(STARTS), max_iters=5)
+        tres = t_nm(lambda x: torch.sum(_rosenbrock_torch(x) ** 2, dim=-1), torch.as_tensor(STARTS), max_iters=5)
+        cls = NelderMeadResult
+    x, fun, n_iter, converged = tres
+    assert cls._fields == type(jres)._fields == ("x", "fun", "n_iter", "converged")
+    assert x.shape == (3, 2) and fun.shape == n_iter.shape == converged.shape == (3,)
+    jx, jfun, jn_iter, jconverged = jres
+    np.testing.assert_array_equal(n_iter.numpy(), np.asarray(jn_iter))
+
+
+def test_static_args_are_taken_by_both_solvers():
+    scale = np.float64(0.5)
+    jres = j_lm(_scaled_jax, jnp.asarray(STARTS), max_iters=60, ftol=1e-14, args=(jnp.asarray(scale),),
+                static_args=("rosenbrock",))
+    tres = t_lm(_scaled_torch, torch.as_tensor(STARTS), max_iters=60, ftol=1e-14, args=(torch.as_tensor(scale),),
+                static_args=("rosenbrock",))
+    np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x), atol=1e-6)
+    np.testing.assert_array_equal(tres.n_iter.numpy(), np.asarray(jres.n_iter))
+
+    def jf(x, s, kind):
+        return jnp.sum(_scaled_jax(x, s, kind) ** 2, axis=-1)
+
+    def tf(x, s, kind):
+        return torch.sum(_scaled_torch(x, s, kind) ** 2, dim=-1)
+
+    jn = j_nm(jf, jnp.asarray(STARTS), max_iters=40, args=(jnp.asarray(scale),), static_args=("rosenbrock",))
+    tn = t_nm(tf, torch.as_tensor(STARTS), max_iters=40, args=(torch.as_tensor(scale),), static_args=("rosenbrock",))
+    np.testing.assert_array_equal(tn.n_iter.numpy(), np.asarray(jn.n_iter))
+    np.testing.assert_allclose(tn.x.numpy(), np.asarray(jn.x), atol=1e-9)
+
+
+# ------------------------------ signatures ------------------------------ #
+
+# Module and the fewest public names it shares with the JAX package.
+SIGNATURE_MODULES = {"utils.optimize": 4, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6}
+
+
+def _parameters(obj, drop_device: bool):
+    params = list(inspect.signature(obj).parameters.values())
+    if drop_device and params and params[-1].name == "device" and params[-1].default is None:
+        params = params[:-1]
+    return [(p.name, p.kind, p.default) for p in params]
+
+
+def _shared_names(module: str) -> list[str]:
+    port = importlib.import_module(f"kikuchipy_tpu_torch.{module}")
+    jax_mod = importlib.import_module(f"kikuchipy_tpu.{module}")
+    return [name for name in port.__all__ if callable(getattr(port, name)) and hasattr(jax_mod, name)]
+
+
+@pytest.mark.parametrize("module", list(SIGNATURE_MODULES))
+def test_ported_public_names_have_jax_signatures(module):
+    port = importlib.import_module(f"kikuchipy_tpu_torch.{module}")
+    jax_mod = importlib.import_module(f"kikuchipy_tpu.{module}")
+    names = _shared_names(module)
+    assert len(names) >= SIGNATURE_MODULES[module], names
+    for name in names:
+        got = _parameters(getattr(port, name), drop_device=True)
+        want = _parameters(getattr(jax_mod, name), drop_device=False)
+        assert got == want, (module, name, got, want)
+
+
+def test_every_jax_public_name_of_the_preprocessing_modules_is_ported():
+    for module in ("ops.pattern", "ops.fft_barnes", "ops.ahe", "filters.window"):
+        jax_mod = importlib.import_module(f"kikuchipy_tpu.{module}")
+        port = importlib.import_module(f"kikuchipy_tpu_torch.{module}")
+        missing = [name for name in jax_mod.__all__ if not hasattr(port, name)]
+        assert not missing, (module, missing)

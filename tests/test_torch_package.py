@@ -155,8 +155,17 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
-    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm"}
+    assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm",
+                         "background", "clahe"}
     text = {name: path.read_text() for name, path in srcs.items()}
+    # Kernel D replaces _remove_background and the separable blur, kernel E
+    # _clahe_batch with its blend weights; both without fast math.
+    for what in ("background_kernel", "_remove_background", "separable_filter", "__fdiv_rn"):
+        assert what in text["background"], what
+    for what in ("clahe_kernel", "_clahe_batch", "_blend_weights", "atomicAdd"):
+        assert what in text["clahe"], what
+    for name in ("background", "clahe"):
+        assert '#include "pattern_io.cuh"' in text[name], name
     # The projection kernels replace XLA code: project_patterns, and
     # _project_at + _ncc_centered of the refinement objectives; the
     # Nelder-Mead kernel the while_loop of nelder_mead_batched over

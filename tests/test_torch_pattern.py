@@ -1,5 +1,5 @@
-"""The port's background removal and intensity rescaling against the JAX
-package on the nine 60x60 uint8 nickel patterns of
+"""The port's background removal (both filter domains) and intensity
+rescaling against the JAX package on the nine 60x60 uint8 nickel patterns of
 tests/data/ahe_nickel_golden.npz. Integer outputs may differ by one gray
 level where float round-off crosses an integer boundary (the repo's
 convention): at most +-1, on under 5% of pixels."""
@@ -89,9 +89,17 @@ def test_rescale_intensity(patterns, kw):
         np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
-def test_spatial_filter_domain_not_ported(patterns):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.remove_dynamic_background(patterns, filter_domain="spatial", device="cpu")
+@pytest.mark.parametrize("operation", ["subtract", "divide"])
+def test_spatial_filter_domain(patterns, operation):
+    ref = jops.remove_dynamic_background(patterns, operation, filter_domain="spatial")
+    got = tops.remove_dynamic_background(patterns, operation, filter_domain="spatial", device="cpu")
+    _assert_gray_close(got.numpy(), ref)
+
+
+def test_spatial_dynamic_background(patterns):
+    ref = jops.get_dynamic_background(patterns, filter_domain="spatial")
+    got = tops.get_dynamic_background(patterns, filter_domain="spatial", device="cpu")
+    _assert_gray_close(got.numpy(), ref)
 
 
 def test_ebsd_chain_matches_ops(patterns, static_bg):

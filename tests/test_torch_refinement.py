@@ -463,13 +463,13 @@ def test_batched_nelder_mead_equals_each_element_alone(state, case):
         if case == "trust_region":
             tr_rad = torch.tensor(np.deg2rad([0.4, 0.4, 0.4]), dtype=torch.float32)
             kw.update(lower_bounds=x0 - tr_rad, upper_bounds=x0 + tr_rad)
-    whole = t_nm(f, x0, args=args, **kw)
+    whole = _counted(f, x0, args, kw)
     for i in range(x0.shape[0]):
         one_kw = dict(kw)
         for b in ("lower_bounds", "upper_bounds"):
             if b in kw:
                 one_kw[b] = kw[b][i:i + 1]
-        alone = t_nm(f, x0[i:i + 1], args=per(i), **one_kw)
+        alone = _counted(f, x0[i:i + 1], per(i), one_kw)
         for name in ("x", "fun", "n_iter", "converged", "n_evals"):
             assert torch.equal(getattr(alone, name)[0], getattr(whole, name)[i]), (i, name)
     # n_evals: d + 1 to start, 2 an iteration, d more for each shrink.
@@ -482,6 +482,17 @@ def test_batched_nelder_mead_equals_each_element_alone(state, case):
         assert (whole.x >= kw["lower_bounds"]).all() and (whole.x <= kw["upper_bounds"]).all()
 
 
+def _counted(f, x0, args, kw):
+    """The host loop with its evaluations counted, as the Nelder-Mead
+    kernel's plain version runs it."""
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted
+
+    res, n_evals = _nelder_mead_counted(f, x0, kw.get("initial_step"), kw["max_iters"], kw["fatol"], kw["xatol"],
+                                        kw.get("lower_bounds"), kw.get("upper_bounds"), args)
+    return rn.NelderMeadKernelResult(*res, n_evals=n_evals)
+
+
 def test_nelder_mead_orientation_on_the_cpu_is_the_host_loop(state):
     from kikuchipy_tpu_torch.ops import refine_nm as rn
 
@@ -490,9 +501,13 @@ def test_nelder_mead_orientation_on_the_cpu_is_the_host_loop(state):
     before = (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches)
     got = rn.nelder_mead_orientation(x0, *args, **kw)
     assert (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches) == before
-    ref = t_nm(tr._objective_orientation, x0, args=args, **kw)
+    ref = _counted(tr._objective_orientation, x0, args, kw)
     for name in ("x", "fun", "n_iter", "converged", "n_evals"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    public = t_nm(tr._objective_orientation, x0, args=args, **kw)
+    assert public._fields == ("x", "fun", "n_iter", "converged")
+    for name in public._fields:
+        assert torch.equal(getattr(public, name), getattr(ref, name)), name
     assert rn.resident(3600) and rn.resident(1000) and not rn.resident(240 * 240)
 
 
