@@ -51,8 +51,10 @@ the card's name and power limit, and the device check):
    of uint8 in for each step and the chain, kernel D's and E's launches,
    the device busy share under ``torch.profiler``, and the output's check
    (float32, finite, zero mean and unit deviation); then D's two modes and E
-   at the main path's shape with their bounds (E's issue slots from
-   ``sass_count.py``'s ``clahe_pixel``) and plain versions;
+   at the main path's shape, warm and with the L2 flushed, with their
+   bounds (E's and D static's issue slots from ``sass_count.py``'s
+   ``clahe_pixel`` and ``static_pixel``), D static's kernel and its time on
+   65,536 patterns, and the plain versions;
 5b. the projection kernels against their plain twins: ``lambert_project``
    against the twin run in float64 on the whole dictionary, a rescaled
    slab, one PC per rotation, a ragged pixel count, one rotation and pixels
@@ -154,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -213,6 +216,11 @@ WARP_INSTR_PER_SM_CLOCK = 4
 # (sass_count.py ``clahe_pixel``: its bin from the input, the blend of four
 # tables, the rescale and the store): the function's own work a pixel.
 SASS_CLAHE_PER_PIXEL = 102
+# ... and of one pixel of kernel D's static warp kernel on uint8 input,
+# counted on the shipped kernel (sass_count.py ``static_pixel``: one
+# vector's two passes, the division, the truncation and the packing, less
+# its loads and stores).
+SASS_D_STATIC_PER_PIXEL = 24.71875
 # float32 operations a pixel: kernel D's static mode (subtract or divide, the
 # running min and max, the rescale's four), its dynamic mode (the same and
 # the two products' nonzero terms, counted from the run's operators below),
@@ -592,20 +600,117 @@ def read_launches() -> dict[str, int]:
 # ----------------------------- timing ----------------------------- #
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call from CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int, lead_ms: float = 0.0) -> float:
+    """Mean milliseconds per call from CUDA events, after one warm-up. With
+    ``lead_ms`` the card first idles that long (``torch.cuda._sleep``) while
+    the host queues the calls, so a call shorter than its own host work is
+    timed on the card, not on the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if lead_ms:
+        device_sleep(lead_ms)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@functools.lru_cache(maxsize=1)
+def max_clock_mhz() -> float:
+    """The card's largest SM clock (``nvidia-smi`` clocks.max.sm)."""
+    return float(smi_line("clocks.max.sm").split()[0])
+
+
+def device_sleep(ms: float) -> None:
+    """Keep the card busy for about ``ms`` milliseconds without touching
+    memory (at the card's largest SM clock)."""
+    import torch
+
+    torch.cuda._sleep(int(ms * 1e-3 * max_clock_mhz() * 1e6))
+
+
+# Bytes written between two launches to push their data out of the 50 MB L2.
+L2_FLUSH_BYTES = 128 * 2**20
+
+
+def cuda_ms_cold(fn, reps: int, flush) -> float:
+    """Mean milliseconds per call from CUDA events around each call alone,
+    with ``flush`` (a device tensor of L2_FLUSH_BYTES) written before each:
+    the call finds none of its data in L2. The card idles 0.5 ms after each
+    flush, so the host's work for the call is done before its start event.
+    One warm-up first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        device_sleep(0.5)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def call_breakdown(fn, reps: int, traced: int = 5, launches=None) -> dict:
+    """One entry point's call on the host clock, synchronized after each
+    (median and mean ms of ``reps`` calls after a warm-up), and ``traced``
+    calls under ``torch.profiler``, each synchronized: the device's busy ms
+    and its kernels, and the host's self time by operation (the profiler's
+    own buffer requests left out), a call each, largest first.
+    ``launches``, a count the call's kernel wrappers raise at each launch,
+    is read around the traced calls: where the trace holds fewer kernels
+    than were launched, the device's ms is None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    before = launches() if launches else 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(traced):
+            fn()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / traced
+    launched = launches() - before if launches else None
+    busy, kernels = device_busy(prof)
+    caught = sum(c for k, c, _ in kernels if not k.startswith(("Memcpy", "Memset")))
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0 and "Activity Buffer" not in e.key),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"median_ms": float(np.median(times)), "mean_ms": float(np.mean(times)), "traced_ms": wall,
+            "device_ms": None if launched is not None and caught < launched else busy / traced,
+            "kernels_traced": caught, "kernels_launched": launched,
+            "kernels": [(k, c / traced, t / traced) for k, c, t in kernels[:6]],
+            "host": [(e.key, e.count / traced, e.self_cpu_time_total / 1e3 / traced) for e in host[:10]]}
+
+
+def breakdown_text(b: dict) -> str:
+    if b["device_ms"] is None:
+        device = (f"device busy not measured (the trace holds {b['kernels_traced']} of the "
+                  f"{b['kernels_launched']} kernels launched)")
+    else:
+        device = f"device busy {b['device_ms']:.4f} ms: " + "; ".join(
+            f"{k[:50]} x{c:g} {t:.4f} ms" for k, c, t in b["kernels"])
+    return (f"median {b['median_ms']:.4f} ms, mean {b['mean_ms']:.4f} ms (host clock, synchronized); a call under "
+            f"torch.profiler {b['traced_ms']:.3f} ms, {device}"
+            + " | host self time a call: " + "; ".join(f"{k[:40]} x{c:g} {t:.4f} ms" for k, c, t in b["host"]))
 
 
 def l2_read_rate(device, mib: int = 32, reps: int = 50) -> float:
@@ -1339,7 +1444,11 @@ def gray_diff(got, ref) -> tuple[float, float]:
 def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
     """Kernel D in both modes and kernel E against their plain versions on
     the whole scan (16,384 x 60 x 60 uint8) and on edge cases: float32
-    outputs, division, ``scale_bg``, a ragged 57 x 61 crop; CLAHE at its
+    outputs, division, ``scale_bg``, a ragged 57 x 61 crop; the static
+    mode's two kernels on 1 x 16, 16 x 1, 40 x 40, 64 x 64, 80 x 80 and 480 x 480
+    patterns, n of 1 and 13, a misaligned view, flat patterns (NaN before
+    the cast), zeros in a divided background and out ranges in and past
+    int32, each on the kernel ``static_path`` chose; CLAHE at its
     defaults, with clipping, with 7 x 7 tiles (the reflect pad), on uint16
     input and on 480 x 480 patterns (its blended values in device memory).
     Static mode bit for bit; the dynamic mode and kernel E
@@ -1394,6 +1503,58 @@ def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
         if dtype_out == np.uint8:
             errs[mode] = max(errs[mode], worst)
         msgs.append(f"{label}: max {worst:g}, {share:.2e} differ")
+    # The static mode's two kernels (bgk.static_path): each case takes the
+    # kernel the wrapper chose, bit for bit with the plain version.
+    wide = flat[:4096].repeat(1, 2, 2)
+    odd = torch.empty(13 * 3600 + 1, dtype=torch.uint8, device=device)
+    odd[1:].copy_(flat[:13].reshape(-1))
+    flat_bg = torch.full((60, 60), 5.0, device=device)
+    level = flat[:64].clone()
+    level[0] = 5  # p - bg == 0 everywhere: the range is 0 and every output NaN, cast to 0
+    level[1] = 200
+    zeros_bg = bg.clone()
+    zeros_bg[::7, ::5] = 0.0  # p / 0: inf, or NaN where p is 0 too
+    holes = flat[:256].clone()
+    holes[:, ::14, ::10] = 0
+    static_cases = (
+        ("1x16", flat[:, :1, :16].contiguous(), bg[:1, :16].contiguous(), {}),
+        ("16x1", flat[:, :16, :1].contiguous(), bg[:16, :1].contiguous(), {}),
+        ("40x40", flat[:, :40, :40].contiguous(), bg[:40, :40].contiguous(), {}),
+        ("64x64", wide[:, :64, :64].contiguous(), wide[0, :64, :64].float().contiguous(), {}),
+        ("80x80 divide", wide[:, :80, :80].contiguous(), wide[1, :80, :80].float().contiguous() + 1,
+         {"op": "divide"}),
+        ("480x480", flat[:64].repeat_interleave(8, dim=-2).repeat_interleave(8, dim=-1).contiguous(),
+         bg.repeat_interleave(8, dim=-2).repeat_interleave(8, dim=-1).contiguous(), {}),
+        ("n=1", flat[:1], bg, {}),
+        ("n=13 scale_bg", flat[:13], bg, {"scale_bg": True}),
+        ("n=13 misaligned", odd[1:].view(13, 60, 60), bg, {}),
+        ("flat patterns", level, flat_bg, {}),
+        ("zeros in the background, divide", holes, zeros_bg, {"op": "divide"}),
+        ("scale_bg divide", flat, bg, {"op": "divide", "scale_bg": True}),
+        ("out_range (10, 200)", flat, bg, {"out": (10, 200)}),
+        ("out_range past int32", flat[:512], bg, {"out": (-3e9, 3e9)}),
+    )
+    for label, data, b, kw in static_cases:
+        kw = dict(kw)
+        op = kw.pop("op", "subtract")
+        omin, omax = kw.pop("out", (0, 255))
+        sy, sx = data.shape[-2:]
+        want, vec = bgk.static_path(sy, sx, data.dtype, np.uint8, omin, omax, aligned=data.data_ptr() % 16 == 0)
+        before = dict(bgk.remove_background.mode_launches)
+        got = bgk.remove_background(data, op, omin, omax, np.uint8, static_bg=b, **kw)
+        ref = bgk.remove_background_plain(data, op, omin, omax, np.uint8, static_bg=b, **kw)
+        torch.cuda.synchronize()
+        took = [k for k in ("warp", "block") if bgk.remove_background.mode_launches[f"static-{k}"]
+                > before[f"static-{k}"]]
+        if took != [want]:
+            raise AssertionError(f"kernel D static ({label}) took {took}, static_path chose {want}")
+        worst, share = gray_diff(got, ref)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"kernel D static ({label}, {want}) disagrees with its plain version: max "
+                                 f"{worst:g}, {share:.2e} of the pixels differ")
+        errs["static"] = max(errs["static"], worst)
+        msgs.append(f"static {label} ({want}{f', {vec} vectors a lane' if vec else ''}): bit for bit")
+    del wide, odd, level, holes
     row, col = operators(flat.shape[-2:])
     pre = bgk.remove_background(flat, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
     for label, data, kw in (
@@ -1518,13 +1679,17 @@ def preprocess_phase(device, scan, smi: str) -> tuple[dict, list[str]]:
     return out, msgs
 
 
-def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, clock_mhz: float,
-                    sms: int) -> tuple[list[dict], list[str]]:
+def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, static_pixel: float,
+                    clock_mhz: float, sms: int) -> tuple[list[dict], list[str]]:
     """Kernel D's two modes and kernel E at the main path's shape: ms from
-    CUDA events after a warm-up, both bounds, the plain versions' ms.
-    ``launches`` holds each kernel's counts by path; a row's ``launches`` is
-    its own path's (the main path's for kernel D, the chain's at the main
-    path's size for kernel E, which the main path does not run)."""
+    CUDA events after a warm-up, launches back to back queued behind 2 ms
+    of device sleep (``ms``, warm: what the last launches left in L2) and
+    each alone after L2_FLUSH_BYTES are written (``ms_cold``), both bounds (E's and D static's issue slots too),
+    the plain versions' ms; D static also on the scan tiled
+    PREPROCESS_TILES times. ``launches`` holds each kernel's counts by path;
+    a row's ``launches`` is its own path's (the main path's for kernel D,
+    the chain's at the main path's size for kernel E, which the main path
+    does not run)."""
     import torch
 
     from kikuchipy_tpu_torch.ops import ahe
@@ -1565,9 +1730,12 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
         "clahe": "kikuchipy_tpu/ops/ahe.py:75 _clahe_batch + :42 _blend_weights, under :120 "
                  "adaptive_histogram_equalization",
     }
+    path, vec = bgk.static_path(60, 60, flat.dtype, np.uint8, 0, 255, aligned=flat.data_ptr() % 16 == 0)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
     rows, msgs = [], []
     for key, (kernel, plain) in runs.items():
-        ms = cuda_ms(kernel, 20)
+        ms = cuda_ms(kernel, 20, lead_ms=2.0)
+        ms_cold = cuda_ms_cold(kernel, 20, flush)
         plain_ms = cuda_ms(plain, 2)
         t_bytes = io_bytes[key] / PEAK_BYTES * 1e3
         t_ops = ops[key] / PEAK_F32_FLOPS * 1e3
@@ -1578,20 +1746,39 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
             "source": f"kikuchipy_tpu_torch/csrc/{'clahe' if key == 'clahe' else 'background'}.cu",
             "replaces": replaces[key], "launches": launches[name][f"preprocess {n}" if key == "clahe" else "main"],
             "launches_by_path": launches[name],
-            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "max_abs_err": errs[key], "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-            "note": "max_abs_err in gray levels against the plain version over [preprocess-check]'s uint8 cases",
+            "note": "max_abs_err in gray levels against the plain version over [preprocess-check]'s uint8 cases; "
+                    "ms with launches back to back, ms_cold with L2 flushed before each",
         }
-        if key == "clahe":
-            entry["instruction_bound_ms"] = instruction_ms(pix, clahe_pixel, clock_mhz, sms)
-        rows.append(entry)
-        instr = (f"; instruction slots {entry['instruction_bound_ms']:.4f} ms at {clahe_pixel} a pixel"
-                 if key == "clahe" else "")
+        instr = ""
+        if key in ("clahe", "static"):
+            per_pixel = clahe_pixel if key == "clahe" else static_pixel
+            entry["instruction_bound_ms"] = instruction_ms(pix, per_pixel, clock_mhz, sms)
+            instr = f"; instruction slots {entry['instruction_bound_ms']:.4f} ms at {per_pixel:g} a pixel"
         if key == "dynamic":
             instr = f"; {2 * terms} operations a pattern in the products (the operators' nonzeros)"
-        msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {entry['bound_by']}, {bound / ms:.2%} of it{instr}; "
-                    f"{pix / 1e6:.1f} MB uint8 in, {pix / ms / 1e3:.1f} MB/s; plain {plain_ms:.3f} ms; no single "
-                    f"PyTorch call computes it)")
+        if key == "static":
+            # The static kernel's path, and the scan tiled PREPROCESS_TILES times.
+            entry["path"] = f"{path} ({vec} vectors a lane)" if vec else path
+            big = flat.repeat(PREPROCESS_TILES, 1, 1)
+            run_big = lambda: bgk.remove_background(big, "subtract", 0, 255, np.uint8, static_bg=bg)
+            entry["big"] = {"patterns": big.shape[0], "ms": cuda_ms(run_big, 10, lead_ms=2.0),
+                            "ms_cold": cuda_ms_cold(run_big, 10, flush),
+                            "bound_ms": max(PREPROCESS_TILES * t_bytes, PREPROCESS_TILES * t_ops),
+                            "instruction_bound_ms": PREPROCESS_TILES * entry["instruction_bound_ms"]}
+            del big
+            b = entry["big"]
+            instr += (f"; path {entry['path']}; at {b['patterns']} patterns {b['ms']:.4f} ms warm, {b['ms_cold']:.4f} "
+                      f"ms cold (bound {b['bound_ms']:.4f} ms by bytes, instruction slots "
+                      f"{b['instruction_bound_ms']:.4f} ms)")
+        rows.append(entry)
+        slowest = max(bound, entry.get("instruction_bound_ms", 0.0))
+        msgs.append(f"{name} {ms:.4f} ms warm, {ms_cold:.4f} ms cold (bound {bound:.4f} ms by {entry['bound_by']}, "
+                    f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it; the larger bound {slowest / ms:.2%} / "
+                    f"{slowest / ms_cold:.2%}{instr}; {pix / 1e6:.1f} MB uint8 in, {pix / ms / 1e3:.1f} MB/s; plain "
+                    f"{plain_ms:.3f} ms; no single PyTorch call computes it)")
+    del flush
     return rows, msgs
 
 
@@ -1676,27 +1863,29 @@ def main(argv=None) -> int:
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
             "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
-            "source": "constants"}
+            "static_pixel": SASS_D_STATIC_PER_PIXEL, "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
         sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
-                                              "lm_eval_pixel", "clahe_pixel")}
+                                              "lm_eval_pixel", "clahe_pixel", "static_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
     if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"], sass["clahe_pixel"],
-           *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values()) <= 0:
+           sass["static_pixel"], *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
-    clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    clock_mhz = max_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
         f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
         f"the LM loop kernel) {sass['lm_eval_pixel']}, an output pixel of kernel E (its bin, blend and rescale) "
-        f"{sass['clahe_pixel']} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
-        f"{SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, {SASS_CLAHE_PER_PIXEL}); dispatch "
+        f"{sass['clahe_pixel']}, a pixel of kernel D's static warp kernel (two passes, truncation, packing, the "
+        f"store's share) {sass['static_pixel']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
+        f"{SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, {SASS_CLAHE_PER_PIXEL}, "
+        f"{SASS_D_STATIC_PER_PIXEL:g}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -1738,6 +1927,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"the main path did not launch ncc_topk_int8, or lambert_project not once: {main_launches}")
     if main_launches["remove_background[static]"] != 1 or main_launches["remove_background[dynamic]"] != 1:
         raise AssertionError(f"the main path's two removals were not one launch of kernel D each: {main_launches}")
+    if main_launches["remove_background[static-warp]"] != 1:
+        raise AssertionError(f"the main path's static removal did not take the static warp kernel: {main_launches}")
     scores = xmap.prop["scores"]
     idx = xmap.prop["simulation_indices"]
     if scores.shape != (n_scan, KEEP_N) or not np.isfinite(scores).all() or (idx < 0).any():
@@ -1760,7 +1951,8 @@ def main(argv=None) -> int:
                 f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}")
 
     log("main-path", f"{n_scan} patterns, static and dynamic background removal on kernel D (launches "
-        f"{main_launches['remove_background']}), x {m} dictionary projected by lambert_project (launches "
+        f"{main_launches['remove_background']}, the static one on the warp kernel), x {m} dictionary projected by "
+        f"lambert_project (launches "
         f"{main_launches['lambert_project']}), pallas-int8 keep_n={KEEP_N}: ncc_topk_int8 launches "
         f"{main_launches['ncc_match_topk_int8']}; {top1_check('pallas-int8', idx[:, 0], TOP1_GAP['int8'])}; "
         f"first run {t_main:.2f} s")
@@ -1791,7 +1983,7 @@ def main(argv=None) -> int:
                            **{f"preprocess {n}": c["launches"][name] for n, c in chain.items()}}
                     for name in ("remove_background[static]", "remove_background[dynamic]", "clahe")}
     preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass["clahe_pixel"],
-                                                      clock_mhz, sms)
+                                                      sass["static_pixel"], clock_mhz, sms)
     log("preprocess-times", f"{smi}: " + "; ".join(pre_time_msgs))
 
     # ---- the projection kernels against their plain twins ----
@@ -2382,6 +2574,8 @@ def main(argv=None) -> int:
         f"{label} {ms:.3f} ms = {n_scan / ms * 1e3:.1f} patterns/s" for label, ms in tier_ms.items()))
 
     # ---- times ----
+    static_call = call_breakdown(scan.remove_static_background, 20,
+                                 launches=lambda: sum(fn.launches for _, fn in _wrappers()))
     ms_pre = cuda_ms(lambda: scan.remove_static_background().remove_dynamic_background(), 5)
     ms_proj = cuda_ms(lambda: mp.get_patterns(dict_rot, det, chunk_size=8192), 2)
     n_ops = 2.0 * n_scan * m_main * d
@@ -2535,6 +2729,7 @@ def main(argv=None) -> int:
     ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     mb = scan.data.numel() / 1e6
     log("times", f"{smi}: preprocess {ms_pre:.3f} ms ({mb / ms_pre * 1e3:.1f} MB/s uint8 in); "
+        f"EBSD.remove_static_background() {breakdown_text(static_call)}; "
         f"dictionary projection {ms_proj:.3f} ms ({m} patterns); at n={n_scan} m={m_main} d={d} k={k_carry}: "
         + "; ".join(time_msgs) + f" (library calls: never called by the port); "
         f"dictionary_indexing pallas-int8 {ms_di:.3f} ms = {n_scan / ms_di * 1e3:.1f} patterns/s")

@@ -1,8 +1,9 @@
 """Time the fused int8, bf16 and f32 NCC + top-k kernels and the projection
-kernel (kernel A) of one checkout at the main-path shape, to compare two
-commits on one card.
+kernel (kernel A) of one checkout at the main-path shape, or with
+``--preprocess`` its preprocessing kernels and calls, to compare two commits
+on one card.
 
-    python3 compare_kernel_times.py --tree DIR [--reps 10]
+    python3 compare_kernel_times.py --tree DIR [--reps 10] [--preprocess]
 
 ``DIR`` is the root of a checkout (this one: ``.``). The script imports
 ``kikuchipy_tpu_torch`` and ``chip_smoke.py`` from ``DIR``, builds the
@@ -20,17 +21,35 @@ right after the kernel; first of all ``lambert_project`` on the whole
 library call computes either). It prints one JSON line per kernel, with checksums of the results
 (int8: equal between two commits that compute the same function; the
 float kernels': equal up to near-ties and the order of their f32 sums).
-Run it once per checkout, alternating (parent, change, change, parent),
-on one card. Needs a CUDA device.
+
+With ``--preprocess`` the package still comes from ``DIR`` but the inputs
+and timers from the ``chip_smoke.py`` beside this script, so an older
+checkout is timed as this one is. One JSON line: kernel D's static mode on
+the main path's scan (16,384 x 60 x 60 uint8 with its static background,
+seed 0) and on it tiled 4x (65,536 patterns), its dynamic mode and kernel E
+on the scan, each with launches back to back behind 2 ms of device sleep
+(``ms``) and alone after the L2 is flushed (``ms_cold``), as
+``chip_smoke.py`` ``[preprocess-times]`` times them;
+``EBSD.remove_static_background()``'s call on the host clock, synchronized,
+and under ``torch.profiler`` (``chip_smoke.call_breakdown``); the main
+path's two removals as ``chip_smoke.py`` ``[times]`` takes them
+(``ms_pre``); the tutorial chain's steps at both sizes (the median of three
+timed runs); and SHA-256 hashes of the three kernels' outputs on the scan,
+equal between two commits that compute the same bytes.
+
+Run it once per checkout, alternating (parent, change, change, parent), on
+one card. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -92,6 +111,89 @@ def operands(tree: Path):
     }
 
 
+def preprocess(tree: Path, reps: int) -> None:
+    """The ``--preprocess`` line of ``tree``'s package, on this script's
+    ``chip_smoke.py`` inputs and timers (the module docstring)."""
+    tree = tree.resolve()
+    sys.path.insert(0, str(tree))
+
+    import numpy as np
+    import torch
+
+    spec = importlib.util.spec_from_file_location("preprocess_chip_smoke", Path(__file__).resolve().parent
+                                                  / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+    from kikuchipy_tpu_torch.crystallography.sampling import reduce_to_fundamental_zone, super_fibonacci
+    from kikuchipy_tpu_torch.filters import Window
+    from kikuchipy_tpu_torch.ops import ahe
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    if Path(kt.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"imported {kt.__file__}, not the tree's")
+    dev = torch.device("cuda")
+    mp = kt.EBSDMasterPattern(smoke.master_pattern_data(), phase=Phase(name="ni", point_group="m-3m"), device=dev)
+    det = kt.EBSDDetector(shape=smoke.DETECTOR_SHAPE, pc=smoke.PC, sample_tilt=70)
+    side = smoke.SCAN_SIDE
+    n = side * side
+    truth = reduce_to_fundamental_zone(super_fibonacci(n * 7)[::7][:n], "m-3m")
+    scan_u8, static_bg = smoke.scan_data(mp, det, truth, 0, chunk_size=8192)
+    scan = kt.EBSD(scan_u8.reshape(side, side, *smoke.DETECTOR_SHAPE), detector=det, static_background=static_bg,
+                   device=dev)
+    del mp
+    flat = scan.data.reshape(-1, *smoke.DETECTOR_SHAPE)
+    big = flat.repeat(smoke.PREPROCESS_TILES, 1, 1)
+    bg = torch.as_tensor(static_bg, dtype=torch.float32, device=dev)
+    plan = tops.dynamic_background_separable_plan(smoke.DETECTOR_SHAPE, smoke.DETECTOR_SHAPE[1] / 8)
+    r_op, c_op = torch.as_tensor(plan.row_op, device=dev), torch.as_tensor(plan.col_op, device=dev)
+    static_u8 = bgk.remove_background(flat, "subtract", 0, 255, np.uint8, static_bg=bg)
+    dyn_u8 = bgk.remove_background(static_u8, "subtract", 0, 255, np.uint8, row_op=r_op, col_op=c_op)
+    clahe_u8 = ahe.clahe(dyn_u8, 15, 15, 128, 0.0, np.uint8)
+    hashes = {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+              for name, t in (("static", static_u8), ("dynamic", dyn_u8), ("clahe", clahe_u8))}
+    runs = {
+        "static": lambda: bgk.remove_background(flat, "subtract", 0, 255, np.uint8, static_bg=bg),
+        f"static {big.shape[0]}": lambda: bgk.remove_background(big, "subtract", 0, 255, np.uint8, static_bg=bg),
+        "dynamic": lambda: bgk.remove_background(static_u8, "subtract", 0, 255, np.uint8, row_op=r_op, col_op=c_op),
+        "clahe": lambda: ahe.clahe(dyn_u8, 15, 15, 128, 0.0, np.uint8),
+    }
+    flush = torch.empty(smoke.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    kernels = {name: {"ms": smoke.cuda_ms(fn, reps, lead_ms=2.0),
+                      "ms_cold": smoke.cuda_ms_cold(fn, reps, flush)}
+               for name, fn in runs.items()}
+    del flush, big
+    call = smoke.call_breakdown(scan.remove_static_background, reps,
+                                launches=lambda: bgk.remove_background.launches)
+    ms_pre = smoke.cuda_ms(lambda: scan.remove_static_background().remove_dynamic_background(), 5)
+    chain = {}
+    for tiles in (1, smoke.PREPROCESS_TILES):
+        data = scan.data if tiles == 1 else scan.data.repeat(tiles, 1, 1, 1)
+        sig = kt.EBSD(data, static_background=static_bg, device=dev)
+        smoke.tutorial_chain(sig, Window)
+        torch.cuda.synchronize()
+        runs_ms, steps = [], []
+        for _ in range(3):
+            timings = {}
+            t0 = time.perf_counter()
+            smoke.tutorial_chain(sig, Window, timings)
+            torch.cuda.synchronize()
+            runs_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(timings)
+        chain[data.numel() // 3600] = {"chain_ms": float(np.median(runs_ms)),
+                                        "steps": {k: float(np.median([t[k] for t in steps])) for k in steps[0]}}
+        del sig, data
+        torch.cuda.empty_cache()
+    path = getattr(bgk, "static_path", None)
+    print(json.dumps({
+        "tree": str(tree), "card": smoke.smi_line(), "kernels": kernels, "static_call": call, "ms_pre": ms_pre,
+        "chain": chain, "hashes": hashes,
+        "static_path": None if path is None else path(60, 60, flat.dtype, np.uint8),
+    }), flush=True)
+
+
 def card() -> str:
     """The card's name, power limit, SM clock, power draw and temperature."""
     return subprocess.run(
@@ -104,6 +206,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", type=Path, required=True)
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--preprocess", action="store_true")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -112,6 +215,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("compare_kernel_times: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.preprocess:
+        preprocess(args.tree, args.reps)
+        return 0
     ops = operands(args.tree)
     smoke, nt = ops["smoke"], ops["nt"]
     exp_q, kq, ks = ops["exp_q"], ops["dict_q"], ops["dict_scale"]

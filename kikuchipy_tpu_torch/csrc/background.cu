@@ -25,13 +25,47 @@
 // outputs may differ from it by one gray level where a value lands on an
 // integer boundary.
 //
+// Two kernels. static_warp_kernel takes the static mode with uint8 in and
+// out where a pattern is a whole number of 16-byte vectors, at most 16 a lane
+// (ops/background.py static_path chooses); background_kernel takes the
+// dynamic mode and every other static call.
+//
 // Bound on an H100 SXM (the main path: 16,384 x 60 x 60 uint8, 59.0 MB in
-// and out): static, 2 x 59.0 MB at 3.35 TB/s, 0.035 ms; dynamic, the two
+// and out): static, 2 x 59.0 MB at 3.35 TB/s, 0.035 ms, and 0.044 ms of
+// issue slots at 1,980 MHz (sass_count.py static_pixel, counted on
+// static_warp_kernel itself: 24.7 SASS a pixel for two passes with a true
+// division in the second, less the loads and stores); dynamic, the two
 // products' nonzero terms (R and C each hold 1,575 nonzeros of 3,600 at the
 // main path's std 7.5: the Gaussian's support and the replicated edges), so
 // 2 x 1,575 x 60 FMAs a pattern, 378,000 float32 operations with an FMA
 // counted as two, and 7 a pixel outside them: 6.6e9 in all at 67 TFLOP/s,
-// 0.099 ms. The design against it: one
+// 0.099 ms.
+//
+// static_warp_kernel against that: one warp a pattern and no block barrier
+// after the background is in shared memory. Each lane holds its share of
+// the pattern's raw bytes in registers and issues all its loads before it
+// uses any: the first 32 * (nvec / 32) 16-byte vectors a vector a lane and
+// round, the rest a 4-byte word a lane and round (at 60 x 60, 225 vectors:
+// 7 rounds of vectors and one of 4 words, not an eighth round of vectors
+// for one lane). Pass 1 forms d and takes its min and max (min.NaN /
+// max.NaN: one instruction each, NaN wins as in torch.amin), then five
+// shuffle steps; pass 2 forms d again from the same registers (the same
+// bits), rescales, truncates and stores 16 bytes a lane. The types are fixed
+// at compile time: a byte becomes its float exactly as 0x4B000000 | b less
+// 2^23 (one byte permute with 0x4B000000 from the kernel's arguments, and an
+// add); the output truncates through int32 (__float2int_rz: NaN -> 0),
+// which gives PyTorch's byte (through int64) for every value within +-2^31,
+// and the wrapper takes this kernel only for output ranges within +-2^30.
+// The background is loaded once a block as float4 into shared memory,
+// planar (float4 j of vector v at j * nvec + v), so a warp's loads of it are
+// conflict-free. What holds it is latency, not bytes: each pixel's true
+// division is its own branch region (the IEEE divide's slow-path call), so
+// a warp overlaps little of one pixel with the next, and the card hides
+// that with warps: two blocks an SM at up to 8 vectors a lane, and no
+// second pattern's registers in flight (they cost more warps than their
+// loads save; PERF.md).
+//
+// background_kernel: one
 // block a pattern on a persistent grid, each block loading the background or
 // the two operators into shared memory once; the pattern and the row product
 // live in shared memory, so device memory sees each pattern byte once each
@@ -48,6 +82,9 @@
 // hands the kernel a scratch buffer in device memory for the two images and
 // the operators are read from device memory; the code is the same through
 // generic pointers.
+//
+// The wrapper finds each kernel's grid once for each shared-memory size
+// (background_blocks) and passes it to every launch.
 
 #include "pattern_io.cuh"
 
@@ -252,17 +289,262 @@ __global__ void __launch_bounds__(kThreads) background_kernel(Params p) {
     }
 }
 
+// ------------------- static mode: a warp a pattern ------------------- //
+
+constexpr float kTwo23 = 8388608.0f;  // 0x4B000000: 2^23, whose last byte is b in 0x4B000000 | b
+
+struct StaticParams {
+    const uint4* in;   // (n, nvec) vectors of 16 uint8 pixels
+    uint4* out;        // (n, nvec)
+    const float4* bg;  // (4 nvec): the background, or its [0, 1] rescale with scale_bg
+    int n, nvec;
+    float omin, orange;
+    uint32_t two23;    // 0x4B000000, as an argument: one constant-bank operand of the byte permutes (an
+                       // immediate leaves the permute's selector in a register rebuilt after every division)
+};
+
+// float(byte i of w), exactly: the byte as the last of 2^23's float
+// (``two23``: 0x4B000000), less 2^23.
+__device__ __forceinline__ float byte_float(uint32_t w, int i, uint32_t two23) {
+    return __fsub_rn(__uint_as_float(__byte_perm(w, two23, 0x7440u | i)), kTwo23);
+}
+
+// torch.amin / torch.amax of two: NaN if either is NaN.
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+}
+
+template <bool kDivide>
+__device__ __forceinline__ float removed(float p, float g) {
+    return kDivide ? __fdiv_rn(p, g) : __fsub_rn(p, g);
+}
+
+// The background of four pixels: float4 ``idx`` of the planar copy, with
+// scale_bg rescaled to the pattern's range.
+template <bool kScale>
+__device__ __forceinline__ float4 word_background(const float4* bgs, int idx, float span, float pmin) {
+    float4 g = bgs[idx];
+    if (kScale) {
+        g.x = __fadd_rn(__fmul_rn(g.x, span), pmin);
+        g.y = __fadd_rn(__fmul_rn(g.y, span), pmin);
+        g.z = __fadd_rn(__fmul_rn(g.z, span), pmin);
+        g.w = __fadd_rn(__fmul_rn(g.w, span), pmin);
+    }
+    return g;
+}
+
+// Pass 1 of four pixels (the bytes of w): d into the running min and max.
+template <bool kDivide>
+__device__ __forceinline__ void word_min_max(uint32_t w, float4 g, uint32_t two23, float& lo, float& hi) {
+    const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float d = removed<kDivide>(byte_float(w, i, two23), gv[i]);
+        lo = fmin_nan(lo, d);
+        hi = fmax_nan(hi, d);
+    }
+}
+
+// Pass 2 of four pixels: d again, rescaled, truncated to bytes and packed.
+template <bool kDivide>
+__device__ __forceinline__ uint32_t word_out(uint32_t w, float4 g, uint32_t two23, float lo, float range, float omin,
+                                             float orange) {
+    const float gv[4] = {g.x, g.y, g.z, g.w};
+    int q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float d = removed<kDivide>(byte_float(w, i, two23), gv[i]);
+        const float v = __fdiv_rn(__fsub_rn(d, lo), range);
+        q[i] = __float2int_rz(__fadd_rn(__fmul_rn(v, orange), omin));
+    }
+    return __byte_perm(__byte_perm(q[0], q[1], 0x0040u), __byte_perm(q[2], q[3], 0x0040u), 0x5410u);
+}
+
+__device__ __forceinline__ uint32_t& word(uint4& v, int j) { return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w; }
+
+// A lane's share of one pattern, loaded all before any is used (streaming:
+// each byte is read once). The pattern's first 32 * full vectors go a
+// vector a lane and round (vector lane + 32 k in r[k], k < full); the rest,
+// tail words of 4 bytes, a word a lane and round (word lane + 32 j in word
+// j of r[kVec - 1], which no full round uses when there is a tail), so a
+// round with few lanes busy is a round of words, not of vectors.
+template <int kVec>
+__device__ __forceinline__ void load_pattern(const uint4* src, int full, int tail, int lane, uint4 (&r)[kVec]) {
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+        if (k < full) r[k] = __ldcs(src + lane + 32 * k);
+    const uint32_t* tw = reinterpret_cast<const uint32_t*>(src + 32 * full);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        if (lane + 32 * j < tail) word(r[kVec - 1], j) = __ldcs(tw + lane + 32 * j);
+}
+
+// Blocks an SM must hold at up to 8 vectors a lane: the register cap.
+constexpr int kStaticMinBlocks = 2;
+
+template <int kVec, bool kDivide, bool kScale>
+__global__ void __launch_bounds__(kThreads, kVec <= 8 ? kStaticMinBlocks : 1) static_warp_kernel(StaticParams p) {
+    const uint32_t two23 = p.two23;
+    extern __shared__ float4 bgs[];  // planar: float4 j of vector v at j * nvec + v
+    const int nvec = p.nvec, full = nvec >> 5, tail = 4 * (nvec & 31);
+    for (int i = threadIdx.x; i < 4 * nvec; i += blockDim.x) {
+        const int j = i / nvec, v = i - j * nvec;
+        bgs[i] = p.bg[4 * v + j];
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const int stride = gridDim.x * warps;
+    int b = blockIdx.x * warps + (threadIdx.x >> 5);
+    // Tail word t covers pixels 16 (32 full) + 4 t ...: vector 32 full + t / 4, its float4 t % 4.
+    auto tail_bg = [&](int t) { return (t & 3) * nvec + 32 * full + (t >> 2); };
+    uint4 cur[kVec];
+    if (b < p.n) load_pattern<kVec>(p.in + static_cast<size_t>(b) * nvec, full, tail, lane, cur);
+    for (; b < p.n; b += stride) {
+        float span = 0.0f, pmin = 0.0f;
+        if constexpr (kScale) {
+            // The pattern's byte min and max, four bytes an instruction.
+            uint32_t mn = 0xffffffffu, mx = 0u;
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) {
+                if (k < full) {
+                    mn = __vminu4(__vminu4(mn, cur[k].x), __vminu4(cur[k].y, __vminu4(cur[k].z, cur[k].w)));
+                    mx = __vmaxu4(__vmaxu4(mx, cur[k].x), __vmaxu4(cur[k].y, __vmaxu4(cur[k].z, cur[k].w)));
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (lane + 32 * j < tail) {
+                    mn = __vminu4(mn, word(cur[kVec - 1], j));
+                    mx = __vmaxu4(mx, word(cur[kVec - 1], j));
+                }
+            }
+            mn = __vminu4(mn, mn >> 16);
+            mn = __vminu4(mn, mn >> 8);
+            mx = __vmaxu4(mx, mx >> 16);
+            mx = __vmaxu4(mx, mx >> 8);
+            const unsigned lo8 = __reduce_min_sync(0xffffffffu, mn & 0xffu);
+            const unsigned hi8 = __reduce_max_sync(0xffffffffu, mx & 0xffu);
+            pmin = static_cast<float>(lo8);
+            span = __fsub_rn(static_cast<float>(hi8), pmin);
+        }
+        float lo = INFINITY, hi = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+            if (k < full) {
+                const int v = lane + 32 * k;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    word_min_max<kDivide>(word(cur[k], j), word_background<kScale>(bgs, j * nvec + v, span, pmin),
+                                          two23, lo, hi);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int t = lane + 32 * j;
+            if (t < tail)
+                word_min_max<kDivide>(word(cur[kVec - 1], j), word_background<kScale>(bgs, tail_bg(t), span, pmin),
+                                      two23, lo, hi);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            lo = fmin_nan(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+            hi = fmax_nan(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+        }
+        const float range = __fsub_rn(hi, lo);
+        uint4* dst = p.out + static_cast<size_t>(b) * nvec;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+            if (k < full) {
+                const int v = lane + 32 * k;
+                uint4 o;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    word(o, j) = word_out<kDivide>(word(cur[k], j),
+                                                   word_background<kScale>(bgs, j * nvec + v, span, pmin), two23, lo,
+                                                   range, p.omin, p.orange);
+                dst[v] = o;
+            }
+        }
+        uint32_t* tail_dst = reinterpret_cast<uint32_t*>(dst + 32 * full);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int t = lane + 32 * j;
+            if (t < tail)
+                tail_dst[t] = word_out<kDivide>(word(cur[kVec - 1], j),
+                                                word_background<kScale>(bgs, tail_bg(t), span, pmin), two23, lo, range,
+                                                p.omin, p.orange);
+        }
+        if (b + stride < p.n) load_pattern<kVec>(p.in + static_cast<size_t>(b + stride) * nvec, full, tail, lane, cur);
+    }
+}
+
+using StaticKernel = void (*)(StaticParams);
+
+template <int kVec>
+StaticKernel static_variant(int divide, int scale_bg) {
+    if (divide) return scale_bg ? static_warp_kernel<kVec, true, true> : static_warp_kernel<kVec, true, false>;
+    return scale_bg ? static_warp_kernel<kVec, false, true> : static_warp_kernel<kVec, false, false>;
+}
+
+// The static warp kernel for ``vec`` vectors a lane (2, 4, 8 or 16), or null.
+StaticKernel static_kernel(int vec, int divide, int scale_bg) {
+    switch (vec) {
+        case 2: return static_variant<2>(divide, scale_bg);
+        case 4: return static_variant<4>(divide, scale_bg);
+        case 8: return static_variant<8>(divide, scale_bg);
+        case 16: return static_variant<16>(divide, scale_bg);
+        default: return nullptr;
+    }
+}
+
+// background_kernel for vec 0, else the static warp kernel (or null).
+const void* kernel_of(int vec, int divide, int scale_bg) {
+    if (vec == 0) return reinterpret_cast<const void*>(background_kernel);
+    return reinterpret_cast<const void*>(static_kernel(vec, divide, scale_bg));
+}
+
 }  // namespace
 
+// Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared memory
+// that the current device holds at once, into ``blocks``, of
+// background_kernel (``vec`` 0) or the static warp kernel for ``vec``,
+// ``divide`` and ``scale_bg``. Lets the kernel take up to ``smem_limit``
+// bytes (the wrapper's budget, so every later launch within it is allowed).
+// Called once for each kernel and size; returns the cudaError_t.
+extern "C" int background_blocks(int vec, int divide, int scale_bg, int threads, int smem, int smem_limit,
+                                 int* blocks) {
+    const void* fn = kernel_of(vec, divide, scale_bg);
+    if (fn == nullptr || blocks == nullptr || smem > smem_limit) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return static_cast<int>(err);
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) != cudaSuccess)
+        return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    *blocks = per_sm * sms;
+    return 0;
+}
+
 // The wrapper (ops/background.py) checks devices, types, shapes and
-// contiguity. ``work``: null to keep everything in shared memory, or a
-// (work_blocks, 2, sy, sx) float32 scratch, and then at most work_blocks
-// blocks run. Returns the cudaError_t of the launch.
+// contiguity, and finds ``grid`` with background_blocks (vec 0). ``work``:
+// null to keep everything in shared memory, or a (grid or more, 2, sy, sx)
+// float32 scratch. Returns the cudaError_t of the launch.
 extern "C" int background_launch(const void* in, int in_code, void* out, int out_code, const void* bg,
-                                 const void* row_op, const void* col_op, void* work, int work_blocks, int n, int sy,
-                                 int sx, int dynamic, int divide, int scale_bg, float omin, float orange,
+                                 const void* row_op, const void* col_op, void* work, int n, int sy, int sx,
+                                 int dynamic, int divide, int scale_bg, float omin, float orange, int grid,
                                  void* stream) {
-    if (n < 1 || sy < 1 || sx < 1 || in == nullptr || out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (n < 1 || sy < 1 || sx < 1 || grid < 1 || in == nullptr || out == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
     if (dynamic ? (row_op == nullptr || col_op == nullptr) : bg == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p;
@@ -290,22 +572,32 @@ extern "C" int background_launch(const void* in, int in_code, void* out, int out
     if (work == nullptr)
         smem += sizeof(float) * (dynamic ? static_cast<size_t>(sy) * sy + static_cast<size_t>(sx) * sx + 2 * npix
                                          : 2 * npix);
-    cudaError_t err = cudaFuncSetAttribute(background_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int grid;
-    if (work != nullptr) {
-        grid = n < work_blocks ? n : work_blocks;
-    } else {
-        int dev = 0, sms = 0, per_sm = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, background_kernel, kThreads, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-        const long long cap = static_cast<long long>(per_sm) * sms;
-        grid = static_cast<int>(n < cap ? n : cap);
-    }
     background_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The static mode on uint8 patterns of ``npix`` pixels, a multiple of 16,
+// with ``in``, ``out`` and ``bg`` on 16-byte boundaries and at most 32 x
+// ``vec`` vectors a pattern; ``grid`` from background_blocks. Returns the
+// cudaError_t of the launch.
+extern "C" int background_static_launch(const void* in, void* out, const void* bg, int n, int npix, int vec,
+                                        int divide, int scale_bg, float omin, float orange, int grid, void* stream) {
+    const StaticKernel fn = static_kernel(vec, divide, scale_bg);
+    const uintptr_t align = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
+                            reinterpret_cast<uintptr_t>(bg);
+    if (fn == nullptr || n < 1 || npix < 16 || npix % 16 != 0 || npix / 16 > 32 * vec || grid < 1 || (align & 15))
+        return static_cast<int>(cudaErrorInvalidValue);
+    StaticParams p;
+    p.in = static_cast<const uint4*>(in);
+    p.out = static_cast<uint4*>(out);
+    p.bg = static_cast<const float4*>(bg);
+    p.n = n;
+    p.nvec = npix / 16;
+    p.omin = omin;
+    p.orange = orange;
+    p.two23 = 0x4B000000u;
+    void* args[] = {&p};
+    cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(grid), dim3(kThreads), args,
+                                       static_cast<size_t>(4) * npix, static_cast<cudaStream_t>(stream));
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -14,10 +14,11 @@ by subtraction or division, then rescales each pattern by its min and max to
 plain version (:func:`remove_background_plain`); for a CUDA tensor it
 launches kernel D once for the whole batch or raises, and counts the launch
 in its own ``.launches`` (and in ``.mode_launches["static"]`` or
-``["dynamic"]``). The static mode equals the plain version bit for
-bit on the card; the dynamic mode sums its products in another order than
-cuBLAS, so integer outputs may differ by one gray level where a value lands
-on an integer boundary.
+``["dynamic"]``, and the static mode's kernel in ``["static-warp"]`` or
+``["static-block"]``, as :func:`static_path` chooses). The static mode
+equals the plain version bit for bit on the card; the dynamic mode sums its
+products in another order than cuBLAS, so integer outputs may differ by one
+gray level where a value lands on an integer boundary.
 """
 
 from __future__ import annotations
@@ -30,11 +31,21 @@ from kikuchipy_tpu_torch.ops.fft_barnes import separable_filter
 from kikuchipy_tpu_torch.ops.pattern_io import CODES, SMEM_BUDGET, check_storage, remove_and_rescale, sig_max, sig_min
 from kikuchipy_tpu_torch.utils.dtypes import torch_dtype
 
-__all__ = ["SMEM_BUDGET", "remove_background", "remove_background_plain", "smem_bytes"]
+__all__ = ["SMEM_BUDGET", "WARP_VECTORS", "remove_background", "remove_background_plain", "smem_bytes",
+           "static_path"]
 
 # Blocks that run when the images live in scratch: the scratch is
 # (_WORK_BLOCKS, 2, sy, sx) float32.
 _WORK_BLOCKS = 1024
+# Threads a block of either kernel (csrc/background.cu kThreads).
+_THREADS = 256
+# The static warp kernel's sizes: 16-byte vectors a lane (csrc/background.cu
+# static_kernel), so patterns of up to 32 x 16 x 16 = 8,192 uint8 pixels.
+WARP_VECTORS = (2, 4, 8, 16)
+# The static warp kernel truncates through int32, which gives PyTorch's
+# byte (through int64) for every value within +-2^31: it takes output
+# ranges within +-2^30.
+_WARP_RANGE = 2.0**30
 
 
 def _check(patterns, operation, static_bg, row_op, col_op) -> None:
@@ -82,15 +93,56 @@ def smem_bytes(sy: int, sx: int, dynamic: bool) -> int:
     return 4 * (2 * (sy + sx) + sy * sy + sx * sx + 2 * sy * sx if dynamic else 2 * sy * sx)
 
 
-def _function():
+def static_path(sy: int, sx: int, dtype_in, dtype_out, omin: float = 0.0, omax: float = 255.0,
+                aligned: bool = True) -> tuple[str, int]:
+    """The kernel a static-mode call on the card takes: ``("warp", vec)``,
+    one warp a pattern holding ``vec`` 16-byte vectors a lane in registers,
+    for uint8 in and out where a pattern is a whole number of vectors (so
+    each starts on a 16-byte boundary, as the data must: ``aligned``), at
+    most ``32 * vec`` of them, and the output range lies within +-2^30; else
+    ``("block", 0)``, one block a pattern, for every shape and storage
+    type."""
+    npix = sy * sx
+    fits = (torch_dtype(dtype_in) == torch.uint8 and torch_dtype(dtype_out) == torch.uint8 and aligned
+            and npix % 16 == 0 and max(abs(float(omin)), abs(float(omax))) <= _WARP_RANGE)
+    for vec in WARP_VECTORS:
+        if fits and npix <= 32 * 16 * vec:
+            return "warp", vec
+    return "block", 0
+
+
+def _library():
     from kikuchipy_tpu_torch.ops._build import library
 
-    fn = library("background").background_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib = library("background")
+    if lib.background_launch.argtypes is None:
+        lib.background_blocks.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.background_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                                          + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                          + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.background_static_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                                                 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        for fn in (lib.background_blocks, lib.background_launch, lib.background_static_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+# Blocks each kernel of csrc/background.cu runs at once, by device index,
+# kernel (vectors a lane, divide, scale_bg; 0 vectors: the block kernel) and
+# shared-memory bytes: found once, by background_blocks.
+_BLOCKS: dict[tuple[int, int, int, int, int], int] = {}
+
+
+def _blocks(lib, vec: int, divide: int, scale: int, smem: int) -> int:
+    key = (torch.cuda.current_device(), vec, divide, scale, smem)
+    blocks = _BLOCKS.get(key)
+    if blocks is None:
+        out = ctypes.c_int(0)
+        err = lib.background_blocks(vec, divide, scale, _THREADS, smem, SMEM_BUDGET, ctypes.byref(out))
+        if err:
+            raise RuntimeError(f"background kernel {key[1:4]} with {smem} bytes of shared memory: cudaError_t {err}")
+        blocks = _BLOCKS[key] = out.value
+    return blocks
 
 
 def remove_background(patterns, operation: str, omin: float, omax: float, dtype_out, static_bg=None,
@@ -129,25 +181,42 @@ def remove_background(patterns, operation: str, omin: float, omax: float, dtype_
         row = col = None
         bg = static_bg.to(torch.float32)
         bg = (_unit_background(bg) if scale_bg else bg).contiguous()
-    work = None
-    if smem_bytes(sy, sx, dynamic) > SMEM_BUDGET:
-        work = torch.empty((min(n, _WORK_BLOCKS), 2, sy, sx), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    divide, scale = int(operation == "divide"), int(bool(scale_bg) and not dynamic)
+    path, vec = ("block", 0) if dynamic else static_path(
+        sy, sx, src.dtype, out_dtype, omin, omax, aligned=src.data_ptr() % 16 == 0)
+    lib = _library()
     with torch.cuda.device(dev):
-        err = _function()(
-            src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype], ptr(bg), ptr(row), ptr(col),
-            ptr(work), _WORK_BLOCKS, n, sy, sx, int(dynamic), int(operation == "divide"), int(bool(scale_bg)),
-            float(omin), float(omax) - float(omin), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "warp":
+            if bg.data_ptr() % 16:
+                bg = bg.clone()
+            grid = min(_blocks(lib, vec, divide, scale, 4 * sy * sx), -(-n // (_THREADS // 32)))
+            err = lib.background_static_launch(src.data_ptr(), out.data_ptr(), bg.data_ptr(), n, sy * sx, vec, divide,
+                                               scale, float(omin), float(omax) - float(omin), grid, stream)
+        else:
+            work = None
+            if smem_bytes(sy, sx, dynamic) > SMEM_BUDGET:
+                work = torch.empty((min(n, _WORK_BLOCKS), 2, sy, sx), dtype=torch.float32, device=dev)
+                grid = work.shape[0]
+            else:
+                grid = min(n, _blocks(lib, 0, 0, 0, smem_bytes(sy, sx, dynamic)))
+
+            def ptr(t):
+                return None if t is None else t.data_ptr()
+
+            err = lib.background_launch(
+                src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype], ptr(bg), ptr(row), ptr(col),
+                ptr(work), n, sy, sx, int(dynamic), divide, scale, float(omin), float(omax) - float(omin), grid,
+                stream,
+            )
     if err:
         raise RuntimeError(f"background launch failed: cudaError_t {err}")
     remove_background.launches += 1
     remove_background.mode_launches["dynamic" if dynamic else "static"] += 1
+    if not dynamic:
+        remove_background.mode_launches[f"static-{path}"] += 1
     return out
 
 
 remove_background.launches = 0
-remove_background.mode_launches = {"static": 0, "dynamic": 0}
+remove_background.mode_launches = {"static": 0, "dynamic": 0, "static-warp": 0, "static-block": 0}

@@ -27,7 +27,7 @@ from kikuchipy_tpu_torch.filters.window import gaussian_window_2d
 from kikuchipy_tpu_torch.ops.background import remove_background
 from kikuchipy_tpu_torch.ops.fft_barnes import FFTFilterPlan, SeparableFilterPlan, separable_filter
 from kikuchipy_tpu_torch.ops.pattern_io import remove_and_rescale, rescale_with_min_max, sig_max, sig_min
-from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
+from kikuchipy_tpu_torch.utils.device import as_tensor, constant_tensor, resolve_device
 from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, numpy_dtype, torch_dtype
 
 __all__ = [
@@ -148,7 +148,7 @@ def remove_static_background(
     patterns = as_tensor(patterns, dev)
     dtype_out = numpy_dtype(patterns.dtype if dtype_out is None else dtype_out)
     omin, omax = _out_range(dtype_out, out_range)
-    bg = as_tensor(static_bg, dev, torch.float32)
+    bg = constant_tensor(static_bg, dev, torch.float32)
     return remove_background(patterns, operation, omin, omax, dtype_out, static_bg=bg, scale_bg=scale_bg)
 
 
@@ -173,7 +173,7 @@ def dynamic_background_separable_plan(
 
 def _separable_operators(sig_shape, std: float, truncate: float, device) -> tuple[torch.Tensor, torch.Tensor]:
     plan = dynamic_background_separable_plan(tuple(sig_shape), std, truncate)
-    return torch.as_tensor(plan.row_op, device=device), torch.as_tensor(plan.col_op, device=device)
+    return constant_tensor(plan.row_op, device), constant_tensor(plan.col_op, device)
 
 
 def _frequency_blur(p32: torch.Tensor, std: float, truncate: float) -> torch.Tensor:

@@ -8,11 +8,12 @@ asked for the CPU explicitly; there is no silent fallback.
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "matmul_precision"]
+__all__ = ["resolve_device", "as_tensor", "constant_tensor", "matmul_precision"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,6 +35,36 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if not arr.flags.writeable:  # torch shares memory and may write
         arr = arr.copy()
     return torch.as_tensor(arr, device=device, dtype=dtype)
+
+
+# constant_tensor's copies: (id, shape, dtype, device, dtype) -> (the array's
+# bytes when copied, the copy), the most recent last.
+_CONSTANTS: OrderedDict = OrderedDict()
+_CONSTANTS_KEPT = 16
+
+
+def constant_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x`` as a tensor on ``device`` for an operation to read (never to
+    write): a NumPy array is copied once and the copy reused while the
+    array's bytes stay the same (they are compared on every call, so an
+    array changed in place is copied again); a tensor is
+    :func:`as_tensor`'s. Spares the per-call host-to-device copy of a
+    background or filter operator, which waits for the stream."""
+    if isinstance(x, torch.Tensor):
+        return as_tensor(x, device, dtype)
+    arr = np.asarray(x)
+    key = (id(x), arr.shape, arr.dtype.str, str(device), dtype)
+    data = arr.tobytes()
+    hit = _CONSTANTS.get(key)
+    if hit is not None and hit[0] == data:
+        _CONSTANTS.move_to_end(key)
+        return hit[1]
+    copy = torch.as_tensor(arr.copy(), device=device, dtype=dtype)
+    _CONSTANTS[key] = (data, copy)
+    _CONSTANTS.move_to_end(key)
+    while len(_CONSTANTS) > _CONSTANTS_KEPT:
+        _CONSTANTS.popitem(last=False)
+    return copy
 
 
 @contextlib.contextmanager

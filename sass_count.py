@@ -21,10 +21,25 @@ sums, passes 2 and 3 reading them back; ``pass1_sums`` to ``pass3_sums``),
 for d = 3 and 6: the probe less a frame that loads and stores the same
 inputs, less the accumulators' extra stores. ``lm_eval_pixel``, a pixel
 of one evaluation, is the pixel's count plus its passes'; the loop
-counters of the passes are not counted. A kernel's count is its main path: every instruction
+counters of the passes are not counted. Then an output pixel of kernel E
+(``clahe_pixel``: its bin from the input, the blend of four tables, the
+rescale and the store, less a frame that copies the pixel), and a pixel of
+kernel D's static warp kernel (``csrc/background.cu``
+``static_warp_kernel``) on uint8 input, counted on the shipped kernel
+itself (``static_pixel``, and ``static_pixel_modes`` for each of its
+modes): its growth from 4 to 8 vectors a lane, less the growth of a frame
+with its loop, loads and stores (``probe_static_copy``), over the 64 pixels
+of the 4 vectors, so one vector's two passes, the background from shared
+memory, the division, the truncation, the packing and its branch; its
+per-pattern reduction is not counted. ``static_pixel_with_frame`` keeps the
+loads and stores; ``static_pixel_probe`` is a one-vector probe with the
+range and the minimum as kernel arguments, less a frame that loads and
+stores the same bytes. A kernel's count is its main path: every instruction
 up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
-operands near the ends of the range, and are not counted. Both sides of
+operands near the ends of the range, and are not counted (in the static
+kernel, each division's call site too: the arguments and the call that a
+predicated branch jumps over). Both sides of
 the Lambert map's branch of ``project_pixel`` are counted, so the count is
 of the code, not of what one pixel executes (a warp whose pixels take both
 sides executes both); ``project_pixel_a`` has no branch.
@@ -32,8 +47,7 @@ sides executes both); ``project_pixel_a`` has no branch.
 Prints one JSON line: the counts, the instruction names of each pixel's
 code, the card's name and power limit. Needs the CUDA toolkit (``nvcc``
 and ``cuobjdump``); the card itself is not used. ``chip_smoke.py``'s
-``SASS_PER_PIXEL``, ``SASS_DC_PER_PIXEL`` and ``SASS_A_PER_PIXEL`` are this
-script's counts.
+``SASS_*`` constants are this script's counts.
 """
 
 from __future__ import annotations
@@ -192,6 +206,85 @@ __global__ void probe_clahe_frame(const uint8_t* __restrict__ in, uint8_t* __res
 }
 """
 
+# Sixteen pixels of kernel D's static warp kernel on uint8 input (subtract):
+# pass 1 (each byte's float, d, the running min and max) and pass 2 (d again,
+# the division by the range, the rescale, the truncation, the packing) over
+# one 16-byte vector, and its store. The frame loads the same vector and
+# background and stores as many bytes, its sixteen background values summed
+# by 15 stand-in additions.
+PROBE_BACKGROUND = r"""
+#include "background.cu"
+
+__global__ void probe_static_vector(const uint4* __restrict__ in, const float4* __restrict__ bg, float lo_in,
+                                    float range, float omin, float orange, uint32_t two23_arg,
+                                    uint4* __restrict__ out, float2* __restrict__ red, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const uint32_t two23 = two23_arg;  // an argument, as the kernel has it
+    if (i < n) {
+        const uint4 r = in[i];
+        const float4 g0 = bg[4 * i], g1 = bg[4 * i + 1], g2 = bg[4 * i + 2], g3 = bg[4 * i + 3];
+        float lo = INFINITY, hi = -INFINITY;
+        word_min_max<false>(r.x, g0, two23, lo, hi);
+        word_min_max<false>(r.y, g1, two23, lo, hi);
+        word_min_max<false>(r.z, g2, two23, lo, hi);
+        word_min_max<false>(r.w, g3, two23, lo, hi);
+        // The kernel forms d again in pass 2 (a warp reduction lies between):
+        // the probe must not reuse pass 1's.
+        uint4 q = r;
+        asm volatile("" : "+r"(q.x), "+r"(q.y), "+r"(q.z), "+r"(q.w));
+        uint4 o;
+        o.x = word_out<false>(q.x, g0, two23, lo_in, range, omin, orange);
+        o.y = word_out<false>(q.y, g1, two23, lo_in, range, omin, orange);
+        o.z = word_out<false>(q.z, g2, two23, lo_in, range, omin, orange);
+        o.w = word_out<false>(q.w, g3, two23, lo_in, range, omin, orange);
+        out[i] = o;
+        red[i] = make_float2(lo, hi);
+    }
+}
+
+__global__ void probe_static_frame(const uint4* __restrict__ in, const float4* __restrict__ bg,
+                                   uint4* __restrict__ out, float2* __restrict__ red, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) {
+        const float4 g0 = bg[4 * i], g1 = bg[4 * i + 1], g2 = bg[4 * i + 2], g3 = bg[4 * i + 3];
+        float s = g0.x;
+        s = __fadd_rn(__fadd_rn(__fadd_rn(s, g0.y), g0.z), g0.w);
+        s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, g1.x), g1.y), g1.z), g1.w);
+        s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, g2.x), g2.y), g2.z), g2.w);
+        s = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(s, g3.x), g3.y), g3.z), g3.w);
+        out[i] = in[i];
+        red[i] = make_float2(s, 0.0f);
+    }
+}
+
+// The frame of the shipped kernel's own count: static_warp_kernel's loop
+// over patterns with each lane's vectors and tail words loaded as it loads
+// them and stored as they came. The count of one vector a lane is the
+// kernel's growth from 4 to 8 vectors a lane less this frame's.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, kVec <= 8 ? kStaticMinBlocks : 1) probe_static_copy(StaticParams p) {
+    const int nvec = p.nvec, full = nvec >> 5, tail = 4 * (nvec & 31);
+    const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    const int stride = gridDim.x * warps;
+    int b = blockIdx.x * warps + (threadIdx.x >> 5);
+    uint4 cur[kVec];
+    if (b < p.n) load_pattern<kVec>(p.in + static_cast<size_t>(b) * nvec, full, tail, lane, cur);
+    for (; b < p.n; b += stride) {
+        uint4* dst = p.out + static_cast<size_t>(b) * nvec;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+            if (k < full) dst[lane + 32 * k] = cur[k];
+        uint32_t* tail_dst = reinterpret_cast<uint32_t*>(dst + 32 * full);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (lane + 32 * j < tail) tail_dst[lane + 32 * j] = word(cur[kVec - 1], j);
+        if (b + stride < p.n) load_pattern<kVec>(p.in + static_cast<size_t>(b + stride) * nvec, full, tail, lane, cur);
+    }
+}
+template __global__ void probe_static_copy<4>(StaticParams);
+template __global__ void probe_static_copy<8>(StaticParams);
+"""
+
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
 _LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -206,16 +299,24 @@ def _tool(name: str) -> str:
     raise RuntimeError(f"{name} not found: the CUDA toolkit is needed")
 
 
-def main_path(sass: str) -> dict[str, list[str]]:
+_BRA = re.compile(r"/\*([0-9a-f]{4,})\*/\s+@!?U?P[T0-9]+\s+BRA\s+(?:`\()?(0x[0-9a-f]+)")
+_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/")
+
+
+def main_path(sass: str, skip_slow_calls: bool = False) -> dict[str, list[str]]:
     """Opcode list of each function's main path (to its first
-    unconditional EXIT, NOPs left out), by function name."""
+    unconditional EXIT, NOPs left out), by function name. With
+    ``skip_slow_calls``, the instructions that a predicated forward branch
+    jumps over on the way to a slow-path ``CALL`` (the IEEE divide's: its
+    arguments and the call) are left out too: what a pixel executes when
+    its operands are not near the ends of the range."""
     out: dict[str, list[str]] = {}
     name, ops, ended = None, [], False
-    for line in sass.splitlines():
+    for line in sass.splitlines() + ["Function : <end>"]:
         head = re.search(r"Function\s*:\s*(\S+)", line)
         if head:
             if name is not None:
-                out[name] = ops
+                out[name] = _skip_slow_calls(ops) if skip_slow_calls else [op for _, op, _ in ops]
             name, ops, ended = head.group(1), [], False
             continue
         m = _LINE.search(line)
@@ -224,12 +325,24 @@ def main_path(sass: str) -> dict[str, list[str]]:
         op = m.group(2)
         if op == "NOP":
             continue
-        ops.append(op)
+        bra = _BRA.search(line)
+        ops.append((int(_ADDR.search(line).group(1), 16), op, int(bra.group(2), 16) if bra else None))
         if op == "EXIT" and not m.group(1):
             ended = True
-    if name is not None:
-        out[name] = ops
+    out.pop("<end>", None)
     return out
+
+
+def _skip_slow_calls(ops: list[tuple[int, str, int | None]]) -> list[str]:
+    skipped: set[int] = set()
+    for addr, op, target in ops:
+        if op == "BRA" and target is not None and target > addr:
+            between = [(a, o) for a, o, _ in ops if addr < a < target]
+            # Only a call site's own branch: one CALL and no other branch in between.
+            if (sum(o.startswith("CALL") for _, o in between) == 1
+                    and not any(o.startswith(("BRA", "BSSY", "EXIT")) for _, o in between)):
+                skipped.update(a for a, _ in between)
+    return [op for addr, op, _ in ops if addr not in skipped]
 
 
 def count(build_dir: Path | None = None) -> dict:
@@ -242,7 +355,8 @@ def count(build_dir: Path | None = None) -> dict:
     build_dir.mkdir(parents=True, exist_ok=True)
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
-    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE)):
+    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE),
+                       ("sass_probe_background", PROBE_BACKGROUND)):
         src = build_dir / f"{stem}.cu"
         src.write_text(text)
         lib = build_dir / f"lib{stem}.so"
@@ -250,7 +364,7 @@ def count(build_dir: Path | None = None) -> dict:
                        capture_output=True, text=True)
         sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True,
                               text=True).stdout
-        funcs.update(main_path(sass))
+        funcs.update(main_path(sass, skip_slow_calls=stem == "sass_probe_background"))
 
     def find(stem: str) -> list[str]:
         hits = [ops for fname, ops in funcs.items() if stem in fname]
@@ -278,11 +392,30 @@ def count(build_dir: Path | None = None) -> dict:
         passes[d] = len(find(f"18probe_lm_passes_d{d}")) - len(find(f"17probe_lm_frame_d{d}")) - (n_acc - (2 + d))
     lm_eval = {mode: lm_count[mode] + passes[6 if mode == "joint" else 3] for mode in lm_count}
     clahe, clahe_frame = find("17probe_clahe_pixel"), find("17probe_clahe_frame")
+    # The frame's 15 stand-in additions are not the pixels'.
+    static, static_frame = find("19probe_static_vector"), find("18probe_static_frame")
+    # The shipped kernel in each mode (divide, scale_bg), 8 vectors a lane
+    # against 4, less the copy frame's growth: one vector's 16 pixels, four times.
+    copy = {vec: len(find(f"17probe_static_copyILi{vec}E")) for vec in (4, 8)}
+    warp = {(vec, d, sb): find(f"18static_warp_kernelILi{vec}ELb{d}ELb{sb}E")
+            for vec in (4, 8) for d in (0, 1) for sb in (0, 1)}
+    kernel_pixel = {("divide" if d else "subtract") + (" scale_bg" if sb else ""):
+                    (len(warp[8, d, sb]) - len(warp[4, d, sb]) - (copy[8] - copy[4])) / 64
+                    for d in (0, 1) for sb in (0, 1)}
 
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
         c.subtract(Counter(frame))
         return {k: v for k, v in sorted(c.items()) if v > 0}
+
+    def growth(big, small, frame_big, frame_small) -> dict[str, float]:
+        """Opcodes of one vector a lane: the kernel's growth from 4 to 8
+        vectors less the frame's, over 4 (negative where the frame grows more)."""
+        c = Counter(big)
+        c.subtract(Counter(small))
+        c.subtract(Counter(frame_big))
+        c.update(Counter(frame_small))
+        return {k: v / 4 for k, v in sorted(c.items()) if v}
 
     return {
         "project_pixel": per_pixel,
@@ -298,6 +431,13 @@ def count(build_dir: Path | None = None) -> dict:
         "tangent_pixel_ops": {mode: mix(ops, lm_frame[mode]) for mode, ops in lm.items()},
         "clahe_pixel": len(clahe) - len(clahe_frame),
         "clahe_pixel_ops": mix(clahe, clahe_frame),
+        "static_pixel": kernel_pixel["subtract"],
+        "static_pixel_modes": kernel_pixel,
+        "static_pixel_with_frame": (len(warp[8, 0, 0]) - len(warp[4, 0, 0])) / 64,
+        "static_vector_ops": growth(warp[8, 0, 0], warp[4, 0, 0], find("17probe_static_copyILi8E"),
+                                    find("17probe_static_copyILi4E")),
+        "static_pixel_probe": (len(static) - len(static_frame) + 15) / 16,
+        "static_pixel_probe_ops": mix(static, static_frame),
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
 

@@ -1332,24 +1332,119 @@ def _gray_share(got, ref):
     return float(diff.max()), float((diff > 0).to(torch.float64).mean())
 
 
-@pytest.mark.parametrize("shape", [(60, 60), (57, 61)])
+def _static_case(n, shape, in_dtype, content):
+    """Patterns and background of a static-mode case: ``"seeded"``; ``"flat"``
+    (a constant background, every other pattern constant: a range of 0, so
+    NaN before the cast); ``"nonfinite"`` (zeros in the background, and NaN
+    and +-inf pixels in float input or zero pixels on the background's
+    zeros in integer input: inf and NaN where it is divided)."""
+    data = _preprocess_patterns(n, shape, 5, in_dtype)
+    bg = _static_background(shape)
+    if content == "flat":
+        bg = np.full(shape, 37.0, np.float32)
+        data[::2] = 91
+    elif content == "nonfinite":
+        bg[::7, ::5] = 0.0
+        if np.issubdtype(in_dtype, np.floating):
+            data[::3, 0, 0] = np.nan
+            data[1::3, -1, -1] = np.inf
+            data[2::3, 0, -1] = -np.inf
+        else:
+            data[::2, ::7, ::5] = 0
+    return data, bg
+
+
+# The static mode's kernels (ops/background.py static_path): the warp kernel
+# at 60 x 60 (225 vectors, about 7 a lane), 40 x 40 (100 vectors, 4 a lane's
+# size), 80 x 80 (400 vectors, 16 a lane's size), 1 x 16 and 16 x 1 (one
+# vector), with n of 1 and 13 (not a multiple of the block's 8 warps); the
+# block kernel at 57 x 61 (patterns off 16-byte boundaries), 480 x 480 (past
+# the registers; the image in scratch) and every other storage pair.
+STATIC_SHAPES = [((60, 60), 300), ((60, 60), 13), ((60, 60), 1), ((40, 40), 300), ((80, 80), 40), ((57, 61), 300),
+                 ((1, 16), 300), ((16, 1), 300), ((480, 480), 20)]
+
+
+@pytest.mark.parametrize("shape, n", STATIC_SHAPES)
 @pytest.mark.parametrize("operation, scale_bg", [("subtract", False), ("divide", False), ("subtract", True)])
 @pytest.mark.parametrize("in_dtype, dtype_out", [(np.uint8, np.uint8), (np.uint8, np.float32),
                                                  (np.float32, np.uint16), (np.uint16, np.int16)])
-def test_background_kernel_static_is_its_plain_version_bit_for_bit(cuda, shape, operation, scale_bg, in_dtype,
-                                                                   dtype_out):
+@pytest.mark.parametrize("content", ["seeded", "flat", "nonfinite"])
+def test_background_kernel_static_is_its_plain_version_bit_for_bit(cuda, shape, n, operation, scale_bg, in_dtype,
+                                                                   dtype_out, content):
     from kikuchipy_tpu_torch.ops import background as bgk
     from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range
 
-    p = torch.as_tensor(_preprocess_patterns(300, shape, 5, in_dtype), device=cuda)
-    bg = torch.as_tensor(_static_background(shape), device=cuda)
+    data, bg = _static_case(n, shape, in_dtype, content)
+    p = torch.as_tensor(data, device=cuda)
+    bg = torch.as_tensor(bg, device=cuda)
     omin, omax = get_dtype_range(dtype_out)
-    before = bgk.remove_background.launches
+    want, _ = bgk.static_path(*shape, p.dtype, dtype_out, omin, omax, aligned=p.data_ptr() % 16 == 0)
+    assert want == ("warp" if in_dtype == dtype_out == np.uint8 and shape in ((60, 60), (40, 40), (80, 80), (1, 16), (16, 1))
+                    else "block")
+    before = dict(bgk.remove_background.mode_launches)
+    launches = bgk.remove_background.launches
     got = bgk.remove_background(p, operation, omin, omax, dtype_out, static_bg=bg, scale_bg=scale_bg)
     torch.cuda.synchronize()
-    assert bgk.remove_background.launches == before + 1
+    assert bgk.remove_background.launches == launches + 1
+    assert bgk.remove_background.mode_launches[f"static-{want}"] == before[f"static-{want}"] + 1
     ref = bgk.remove_background_plain(p, operation, omin, omax, dtype_out, static_bg=bg, scale_bg=scale_bg)
-    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    assert _same_bits(got, ref)
+
+
+def _same_bits(got, ref) -> bool:
+    """Equal bit for bit, float NaNs (whose payload IEEE leaves open) at the
+    same places."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, ref)
+    nan = torch.isnan(ref)
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}[got.dtype]
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got.view(as_int)[~nan], ref.view(as_int)[~nan])
+
+
+def test_background_kernel_static_misaligned_and_wide_ranges_take_the_block_kernel(cuda):
+    # A view that starts off a 16-byte boundary, and an output range past
+    # int32's, go to the block kernel; a narrower range stays on the warp
+    # kernel. All bit for bit.
+    from kikuchipy_tpu_torch.ops import background as bgk
+
+    data = torch.as_tensor(_preprocess_patterns(13, (60, 60), 11), device=cuda)
+    buf = torch.empty(data.numel() + 1, dtype=torch.uint8, device=cuda)
+    buf[1:].copy_(data.reshape(-1))
+    bg = torch.as_tensor(_static_background((60, 60)), device=cuda)
+    for p, (omin, omax), want in ((buf[1:].view(13, 60, 60), (0, 255), "block"), (data, (-3e9, 3e9), "block"),
+                                  (data, (10, 200), "warp")):
+        before = bgk.remove_background.mode_launches[f"static-{want}"]
+        got = bgk.remove_background(p, "subtract", omin, omax, np.uint8, static_bg=bg)
+        torch.cuda.synchronize()
+        assert bgk.remove_background.mode_launches[f"static-{want}"] == before + 1
+        assert torch.equal(got, bgk.remove_background_plain(p, "subtract", omin, omax, np.uint8, static_bg=bg))
+
+
+# SHA-256 (first 16 hex digits) of kernel D's dynamic mode and kernel E on
+# _fixed_scan(), as the kernels computed them before the static warp kernel
+# came (commit 5959fde, NVIDIA H100 80GB HBM3): they stay the same.
+FIXED_SCAN_HASHES = {"dynamic": "f2a049f9828ed357", "clahe": "496ff2d0337d6c2f"}
+
+
+def _fixed_scan_hashes(device) -> dict:
+    import hashlib
+
+    from kikuchipy_tpu_torch.ops import ahe
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    p = torch.as_tensor(_preprocess_patterns(512, (60, 60), 21), device=device)
+    plan = tops.dynamic_background_separable_plan((60, 60), 60 / 8)
+    row, col = torch.as_tensor(plan.row_op, device=device), torch.as_tensor(plan.col_op, device=device)
+    dyn = bgk.remove_background(p, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
+    out = {"dynamic": dyn, "clahe": ahe.clahe(dyn, 15, 15, 128, 0.0, np.uint8)}
+    return {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16] for k, v in out.items()}
+
+
+def test_background_dynamic_and_clahe_outputs_are_unchanged(cuda):
+    assert _fixed_scan_hashes(cuda) == FIXED_SCAN_HASHES
 
 
 @pytest.mark.parametrize("shape", [(60, 60), (57, 61), (120, 120)])
