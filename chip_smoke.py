@@ -118,6 +118,33 @@ the card's name and power limit, and the device check):
    kernel solves as ``torch.linalg.solve_ex`` bit for bit. ``[lm-times]``:
    one launch of kernel C at the whole map, its bounds, and the plain
    version on a chunk;
+5e. the spherical-harmonic tier (``[refine-sh]``, ``[refine-sh-times]``,
+   ``[refine-sh-pc]``, ``[refine-sh-joint]``): each ``EBSD.refine_*`` mode
+   with ``projector="spherical"``, ``sh_L=88``, ``sh_precision="default"``
+   and ``method="lm"`` on the whole static-corrected map, from the DI top-1
+   (orientation, joint) or Nelder-Mead's orientations (PC) and a PC off by
+   (0.01, -0.01, 0.01): the one-time costs (the analysis, one launch of
+   kernel A; the synthesis basis; the PC bases), the call's ms and
+   patterns/s beside the bilinear LM call's, its busy share under
+   ``torch.profiler``, its peak memory, and the launches (kernel B for the
+   scores, the LM loop kernel in the PC and joint polish, nothing else).
+   Kernel A at the analysis's shape (one rotation, 401 x 802 quadrature
+   directions) against the plain twin in float64: the samples within its
+   per-case limit of 1e-4 of the master's range, and the coefficients
+   within the bound that limit gives them. Kernel B at the PC modes' shape
+   (the whole map, one PC a point) against its plain twin within 2e-6 on
+   the phases' own solutions, whose scores it gives again. Orientation
+   mode takes as many whole 2,048-point chunks a batch as half the free
+   memory holds, and each point's share of the peak must stay within the
+   bytes that cap allows it. Gates: orientation under 0.8 degrees where DI
+   came within 3, also at ``sh_precision="highest"`` and with ``"nm"`` and
+   ``"gradient"`` on the first 2,048 points; mean PC within 2e-3 of the
+   truth; the joint mode's mean score no lower than the bilinear joint LM's
+   less 5e-3. At one batch of the orientation call: an LM evaluation, the
+   residual, the zyz rotation, a Z and a T stage, and the
+   synthesis product in TF32 and float32 against its FLOP bounds, and one
+   evaluation's device time by kind of kernel beside the host's; the PC
+   modes' product with the PC-linearized basis;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -146,8 +173,9 @@ the card's name and power limit, and the device check):
    (the dictionary's generation: device busy time, kernels and host time).
 
 Each path is driven with every launch counter set to 0 just before it
-and read just after; a kernel's ``launches`` in the table is summed over
-the paths that run it. Exits non-zero without a CUDA device, when run
+and read just after; a kernel's ``launches`` in the table is the count
+of the path its row names (the main path's where it runs there), and
+``launches_by_path`` gives each path's own count beside it. Exits non-zero without a CUDA device, when run
 outside a checkout of the repository, or when any check fails. Imports
 nothing of JAX.
 """
@@ -257,6 +285,8 @@ SCAN_SIDE = 128
 # reference's refinement benchmark (BASELINE.md rows 3-4): under 0.8 degrees
 # wherever dictionary indexing came within 3 degrees.
 NAV_CHUNK = 2048
+# The spherical-harmonic tier at the JAX package's default band limit.
+SH_L = 88
 REFINE_MAX_DEG = 0.8
 REFINE_START_DEG = 3.0
 PC_OFFSET = (0.01, -0.01, 0.01)
@@ -1782,6 +1812,350 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
     return rows, msgs
 
 
+def sh_analysis_check(dev, mp, coeffs) -> tuple[float, str]:
+    """Kernel A at the analysis's shape against the plain twin in float64:
+    ``sh_analysis_lambert`` again with its quadrature samples through the
+    kernel and through ``lambert_project_plain`` on float64 operands. The
+    samples must be within kernel A's per-case limit, 1e-4 of the master's
+    range; the coefficients within ``sqrt(4 pi)`` times that of each other
+    (Bessel's inequality: the analysis projects the samples onto functions
+    orthonormal under the quadrature, whose weights sum to 4 pi), and those
+    through the kernel equal to the projector's. Returns the samples' max
+    |kernel - plain| and the message."""
+    from unittest import mock
+
+    import torch
+
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection import spherical as sp
+    from kikuchipy_tpu_torch.projection.master_pattern import quad_texture
+
+    master = np.asarray(mp._hemispheres_at_energy(None), dtype=np.float32)
+    master_range = float(master.max() - master.min())
+    samples = {}
+
+    def sampler(name, project):
+        def sample(rotations, dirs, master_t, npx, npy, scale):
+            samples[name] = project(rotations, dirs, master_t, npx, npy, scale)
+            return samples[name]
+        return sample
+
+    def kernel(rotations, dirs, master_t, npx, npy, scale):
+        return lp.lambert_project(rotations, dirs, quad_texture(master_t), npx, npy, scale)
+
+    def plain64(rotations, dirs, master_t, npx, npy, scale):
+        d64 = dict(dtype=torch.float64)
+        return lp.lambert_project_plain(rotations.to(**d64), dirs.to(**d64), quad_texture(master_t.to(**d64)), npx,
+                                        npy, scale)
+
+    before = lp.lambert_project.launches
+    with mock.patch.object(sp, "project_patterns", sampler("kernel", kernel)):
+        c_k = sp.sh_analysis_lambert(master, SH_L, device=dev)
+    with mock.patch.object(sp, "project_patterns", sampler("plain", plain64)):
+        c_p = sp.sh_analysis_lambert(master, SH_L, device=dev)
+    if lp.lambert_project.launches != before + 1:
+        raise AssertionError("[refine-sh] the analysis check did not launch kernel A once")
+    f_err = float((samples["kernel"].double() - samples["plain"]).abs().max())
+    c_err, c_norm = float(torch.linalg.norm(c_k - c_p)), float(torch.linalg.norm(c_p))
+    same = float((c_k.float() - coeffs).abs().max())
+    limit = 1e-4 * master_range
+    msg = (f"kernel A at the analysis's shape ({tuple(samples['kernel'].shape)}) against the plain twin in float64: "
+           f"samples max |diff| {f_err:.3e} (limit {limit:.3e}, 1e-4 of the range), coefficients |diff| / |c| "
+           f"{c_err / c_norm:.3e} (limit {np.sqrt(4 * np.pi) * limit / c_norm:.3e}), the projector's coefficients "
+           f"off the kernel's by {same:.1e}")
+    if not (f_err <= limit and c_err <= np.sqrt(4 * np.pi) * max(f_err, 1e-30) * (1 + 1e-6)
+            and same <= 1e-6 * float(coeffs.abs().max())):
+        raise AssertionError(f"[refine-sh] {msg}")
+    return f_err, msg
+
+
+def sh_scores_check(dev, static, mp, res, phase: str) -> tuple[float, str]:
+    """Kernel B at the PC modes' shape (the whole map, direction cosines
+    from one PC a point) against its plain twin within 2e-6 of 1 - NCC, on
+    the phase's own solution: its rotations and PCs, whose scores the
+    kernel gives again (within 1e-6). Returns the max |kernel - plain|."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    n = static.navigation_size
+    rot = torch.as_tensor(np.asarray(res.xmap.best_rotations), dtype=torch.float32, device=dev)
+    pcs = torch.as_tensor(res.detector.pc.reshape(-1, 3), dtype=torch.float32, device=dev)
+    om = torch.as_tensor(np.ascontiguousarray(res.detector.sample_to_detector.T), dtype=torch.float32, device=dev)
+    dc = tr._dc_for_pc(pcs, *DETECTOR_SHAPE, om, None).contiguous()
+    exp, sq = tr._prepare_experimental(tr._signal_rows(static), None)
+    quad, npx, npy, scale = tr._master_arrays(mp, None, dev)
+    got = lp.lambert_project_ncc(rot, dc, quad, npx, npy, scale, exp, sq)
+    ref = torch.cat([lp.lambert_project_ncc_plain(rot[c:c + 2048], dc[c:c + 2048], quad, npx, npy, scale,
+                                                  exp[c:c + 2048], sq[c:c + 2048]) for c in range(0, n, 2048)])
+    err = float((got - ref).abs().max())
+    own = float(np.abs(1.0 - got.cpu().numpy() - res.xmap.prop["scores"]).max())
+    msg = (f"kernel B at B={n}, dc {tuple(dc.shape)} on the solution: max |kernel - plain| {err:.2e} (limit 2e-6), "
+           f"its scores off the phase's by {own:.1e}")
+    if not (err <= 2e-6 and own <= 1e-6) or not torch.isfinite(got).all():
+        raise AssertionError(f"[{phase}] {msg}")
+    return err, msg
+
+
+def sh_refinement_phases(dev, static, xmap, pc_xmap, det, bad_det, mp, truth, near, smi: str) -> tuple[dict, dict]:
+    """``[refine-sh]``, ``[refine-sh-pc]``, ``[refine-sh-joint]``: every
+    ``EBSD.refine_*`` mode with ``projector="spherical"`` at the JAX default
+    ``sh_L`` and ``sh_precision`` on the whole static-corrected map, beside
+    the bilinear LM call. Returns each phase's launches of the kernels the
+    tier ran (kernel A in the analysis, kernel B for the scores, the LM loop
+    kernel in the polish), counted from 0 at the phase's start, and the
+    worst |kernel - plain| of kernels A and B at the tier's shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+    from kikuchipy_tpu_torch.projection import spherical as sp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+    from kikuchipy_tpu_torch.utils.device import matmul_precision
+    from kikuchipy_tpu_torch.utils.optimize import _normal_equations_batched
+
+    n = static.navigation_size
+    d = DETECTOR_SHAPE[0] * DETECTOR_SHAPE[1]
+    ncoef = (SH_L + 1) ** 2
+    sh_kw = dict(projector="spherical", sh_L=SH_L, method="lm")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def traced(fn) -> str:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(fn)
+        busy, events = device_busy(prof)
+        top = "; ".join(f"{k[:40]} x{c} {t:.3f} ms" for k, c, t in events[:5])
+        return f"under torch.profiler wall {wall:.1f} ms, device busy {busy:.1f} ms = {busy / wall:.1%}; {top}"
+
+    def check_launches(phase: str, want: dict) -> dict:
+        counts = {k: v for k, v in read_launches().items() if v and "[" not in k}
+        if counts != want:
+            raise AssertionError(f"[{phase}] launched {counts}, expected {want}")
+        return counts
+
+    def ang_to(q_ref, res):
+        return np.degrees(disorientation_angle(unit_quats(q_ref), unit_quats(res.xmap.best_rotations), "m-3m"))
+
+    def gate_orientation(label: str, res, sel=slice(None)) -> str:
+        ang = ang_to(truth[sel], res)
+        msg = (f"{label}: disorientation to truth median {np.median(ang):.4f} deg, max over the "
+               f"{int(near[sel].sum())} points DI put within {REFINE_START_DEG} deg {ang[near[sel]].max():.4f} "
+               f"(limit {REFINE_MAX_DEG})")
+        if not ang[near[sel]].max() < REFINE_MAX_DEG or not np.isfinite(res.xmap.prop["scores"]).all():
+            raise AssertionError(f"[refine-sh] missed: {msg}")
+        return msg
+
+    def gate_pc(phase: str, res) -> tuple[float, str]:
+        pcs = res.detector.pc.reshape(-1, 3)
+        off = np.abs(pcs.mean(axis=0) - np.asarray(PC))
+        msg = f"mean PC {np.round(pcs.mean(axis=0), 6).tolist()} (off {np.round(off, 6).tolist()}, limit {PC_TOL})"
+        if not (off < PC_TOL).all() or not np.isfinite(res.xmap.prop["scores"]).all():
+            raise AssertionError(f"[{phase}] missed the PC: {msg}")
+        return float(np.mean(res.xmap.prop["scores"])), msg
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    launches, errs = {}, {}
+    # ---- orientation mode ----
+    mp._sh_cache.clear()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    proj, ms_analysis = timed(lambda: mp.spherical_projector(L=SH_L))
+    dc = direction_cosines_from_detector(det, device=dev)
+    basis, ms_basis = timed(lambda: proj.synthesis_basis(dc))
+    call = functools.partial(static.refine_orientation, xmap=xmap, master_pattern=mp, **sh_kw)
+    # As many whole chunks a batch as half the free memory holds: kernel B
+    # once a batch for the scores. Each point's measured share of the peak
+    # must stay within the bytes the cap allows it.
+    batch = tr._batch_points(torch.device(dev), NAV_CHUNK, False, "lm", "spherical", SH_L, d)
+    batches = -(-n // batch)
+    allowed = 4 * (tr._SH_STACKS * sp._width(SH_L) + tr._SH_ROWS * d)
+    peak_analysis = peak_gb()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms_first = timed(call)
+    launches["refine-sh"] = check_launches("refine-sh", {"lambert_project": 1, "lambert_project_ncc": batches})
+    peak_first = peak_gb()
+    per_point = (torch.cuda.max_memory_allocated() - resident) / min(batch, n)
+    if not per_point <= allowed:
+        raise AssertionError(f"[refine-sh] {per_point:.0f} bytes a point at the peak, over the cap's {allowed}")
+    errs["lambert_project"], analysis_msg = sh_analysis_check(dev, mp, proj.coeffs)
+    gate = gate_orientation("default", res)
+    bl, ms_bl_first = timed(lambda: static.refine_orientation(xmap=xmap, master_pattern=mp, method="lm"))
+    to_bl = ang_to(bl.xmap.best_rotations, res)
+    _, ms_call = timed(call)
+    _, ms_bl = timed(lambda: static.refine_orientation(xmap=xmap, master_pattern=mp, method="lm"))
+    torch.cuda.reset_peak_memory_stats()
+    trace = traced(call)
+    peak_call = peak_gb()
+    res_hi, ms_hi = timed(lambda: static.refine_orientation(xmap=xmap, master_pattern=mp, sh_precision="highest",
+                                                            **sh_kw))
+    gate_hi = gate_orientation("highest", res_hi)
+    iters = res.xmap.prop["num_evals"]
+    # One 2,048-point chunk for Nelder-Mead and gradient.
+    sub = slice(0, NAV_CHUNK)
+    sub_signal = type(static)(static.data.reshape(n, *DETECTOR_SHAPE)[sub], detector=det, device=dev)
+    sub_xmap = CrystalMap(rotations=xmap.best_rotations[sub], shape=(NAV_CHUNK,), phases=xmap.phases)
+    other = []
+    for method in ("nm", "gradient"):
+        reset_launches()
+        r, ms = timed(lambda: sub_signal.refine_orientation(xmap=sub_xmap, master_pattern=mp, projector="spherical",
+                                                            sh_L=SH_L, method=method))
+        check_launches("refine-sh", {"lambert_project_ncc": 1})
+        other.append(f"method={method!r} on the first {NAV_CHUNK} points {ms:.1f} ms "
+                     f"({NAV_CHUNK / ms * 1e3:.1f} patterns/s), num_evals mean {r.xmap.prop['num_evals'].mean():.1f}; "
+                     + gate_orientation(method, r, sub))
+
+    # The call's evaluations of a batch: at the start and once an iteration
+    # until the batch's last point is done.
+    evals = sum(1 + int(iters[c:c + batch].max()) for c in range(0, n, batch))
+    log("refine-sh", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp, method='lm', "
+        f"projector='spherical', sh_L={SH_L}, sh_precision='default') on the {n} static-corrected patterns "
+        f"({batches} batch(es) of {batch}): one-time analysis {ms_analysis:.1f} ms (kernel A once), synthesis basis "
+        f"({d} x {ncoef}) {ms_basis:.1f} ms; first call {ms_first:.1f} ms, untraced {ms_call:.1f} ms = "
+        f"{n / ms_call * 1e3:.1f} patterns/s against the bilinear LM call's {ms_bl:.3f} ms = {n / ms_bl * 1e3:.1f} "
+        f"patterns/s (first {ms_bl_first:.1f} ms); {trace}; launches {launches['refine-sh']}; num_evals mean "
+        f"{iters.mean():.2f} max {int(iters.max())}, {evals} evaluations of a batch; {gate}; to the bilinear LM "
+        f"solution median {np.median(to_bl):.4f} max {to_bl.max():.4f} deg; peak memory {peak_analysis:.2f} GiB in "
+        f"the analysis, {peak_first:.2f} GiB the first call, {peak_call:.2f} GiB a call, {per_point / 2**20:.3f} MiB a point over the {resident / 2**30:.2f} "
+        f"GiB resident (the cap allows {allowed / 2**20:.3f}); sh_precision='highest' {ms_hi:.1f} ms, {gate_hi}; "
+        + "; ".join(other) + f"; {analysis_msg}")
+    # Where the call's time goes, at one batch as the call runs it: one LM
+    # evaluation (the residual and its three tangents, one vmapped jvp),
+    # the residual alone, the zyz rotation, a Z stage, a T stage and the
+    # synthesis product (CUDA events); then one evaluation under the
+    # profiler, its device time by kind of kernel and the host's rest.
+    tables = sp.wigner_tables(SH_L).device_arrays(dev)
+    m = min(batch, n)
+    q0 = torch.as_tensor(xmap.best_rotations[:m], dtype=torch.float32, device=dev)
+    use_id = tr._sh_variant(q0)
+    exp_u = tr.unit_rows(tr._prepare_experimental(tr._signal_rows(static)[:m], None)[0])
+    zeros = torch.zeros((m, 3), device=dev)
+    basis_w = sp._widen(basis, tables.K)
+    eval_args = (q0, use_id, exp_u, proj.coeffs, tables, basis_w, "default")
+    stage = {}
+    with matmul_precision(True):
+        qc = tq.conjugate(q0)
+        c = sp._rotate_zyz_preselected(qc, use_id, proj.coeffs, tables, "default")
+        t = torch.rand(m, device=dev)
+        stage["evaluation"] = cuda_ms(lambda: _normal_equations_batched(
+            tr._residual_orientation_delta_sh, zeros, eval_args), 3)
+        stage["residual"] = cuda_ms(lambda: tr._residual_orientation_delta_sh(zeros, *eval_args), 3)
+        stage["zyz rotation"] = cuda_ms(lambda: sp._rotate_zyz_preselected(qc, use_id, proj.coeffs, tables, "default"),
+                                        3)
+        stage["Z stage"] = cuda_ms(lambda: sp._z_apply(c, t, tables), 5)
+        stage["T stage"] = cuda_ms(lambda: sp._t_apply(c, tables, False, "default"), 5)
+        stage["synthesis TF32"] = cuda_ms(lambda: sp._synth(c, basis_w, "default"), 5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(lambda: _normal_equations_batched(tr._residual_orientation_delta_sh, zeros, eval_args))
+    with matmul_precision(False):
+        stage["synthesis float32"] = cuda_ms(lambda: sp._synth(c, basis_w, "highest"), 3)
+    del c
+    busy, events = device_busy(prof)
+    kinds = {"products": 0.0, "gathers": 0.0, "copies": 0.0, "elementwise and reductions": 0.0}
+    for key, _, ms in events:
+        k = key.lower()
+        kind = ("products" if "gemm" in k or "xmma" in k or "cutlass" in k else "gathers"
+                if "gather" in k or "index" in k else "copies" if "memcpy" in k or "copy" in k
+                else "elementwise and reductions")
+        kinds[kind] += ms
+    flops = 2 * m * ncoef * d
+    t_tf32, t_f32 = flops / PEAK_TF32_FLOPS * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    log("refine-sh-times", f"{smi}: at one batch ({m} points, P={d}, {ncoef} coefficients; CUDA events): "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
+        + f"; the synthesis product {flops / 1e12:.3f} TFLOP: TF32 bound {t_tf32:.3f} ms "
+        f"({t_tf32 / stage['synthesis TF32']:.1%}), float32 bound {t_f32:.3f} ms "
+        f"({t_f32 / stage['synthesis float32']:.1%}); the call's {evals} evaluations of a batch at {stage['evaluation']:.1f} ms: "
+        f"{evals * stage['evaluation']:.1f} ms of the untraced call's {ms_call:.1f}; one evaluation under "
+        f"torch.profiler: wall {wall:.1f} ms, device busy {busy:.1f} ms ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items())
+        + f"), the host's rest {wall - busy:.1f} ms; "
+        + "; ".join(f"{k[:40]} x{cnt} {ms:.3f} ms" for k, cnt, ms in events[:6]))
+
+    # ---- PC mode ----
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (_, bcat, _), ms_bases = timed(lambda: tr._sh_pc_bases(mp, None, bad_det, None, SH_L))
+    call = functools.partial(static.refine_projection_center, xmap=pc_xmap, detector=bad_det, master_pattern=mp,
+                             **sh_kw)
+    res, ms_first = timed(call)
+    launches["refine-sh-pc"] = check_launches("refine-sh-pc", {"levenberg_marquardt_projection_center": 1,
+                                                               "lambert_project_ncc": 1})
+    score, gate = gate_pc("refine-sh-pc", res)
+    peak_pc = peak_gb()
+    err_pc, scores_msg = sh_scores_check(dev, static, mp, res, "refine-sh-pc")
+    bl_call = functools.partial(static.refine_projection_center, xmap=pc_xmap, detector=bad_det, master_pattern=mp,
+                                method="lm")
+    bl, _ = timed(bl_call)
+    _, ms_call = timed(call)
+    _, ms_bl = timed(bl_call)
+    trace = traced(call)
+    q_all = tq.conjugate(torch.as_tensor(pc_xmap.best_rotations, dtype=torch.float32, device=dev))
+    with matmul_precision(True):
+        # As the call does: the coefficients and the basis in the wide layout.
+        c_all, ms_rot = timed(lambda: sp._rotate_zyz(q_all, proj.coeffs, tables, "default"))
+        bcat_w = sp._widen(bcat, tables.K)
+        ms_sim4 = cuda_ms(lambda: sp._synth(c_all, bcat_w, "default"), 3)
+    del c_all, bcat_w
+    flops4 = 2 * n * ncoef * 4 * d
+    log("refine-sh-pc", f"{smi}: EBSD.refine_projection_center(xmap=<Nelder-Mead's>, detector=<PC off by "
+        f"{PC_OFFSET}>, method='lm', projector='spherical') on the {n} patterns: PC bases (7 sh_basis, "
+        f"{4 * d} x {ncoef}) {ms_bases:.1f} ms; first call {ms_first:.1f} ms, untraced {ms_call:.1f} ms = "
+        f"{n / ms_call * 1e3:.1f} patterns/s against the bilinear LM call's {ms_bl:.3f} ms = "
+        f"{n / ms_bl * 1e3:.1f} patterns/s; {trace}; launches {launches['refine-sh-pc']}; {gate}, the bilinear LM's "
+        f"{np.round(bl.detector.pc.reshape(-1, 3).mean(0), 6).tolist()}; mean score {score:.5f} (bilinear LM "
+        f"{float(np.mean(bl.xmap.prop['scores'])):.5f}); {scores_msg}; peak memory {peak_pc:.2f} GiB "
+        f"({peak_pc * 2**30 / n / 2**20:.3f} MiB a point); the map's zyz rotation "
+        f"{ms_rot:.1f} ms, its product with [B; dB/dPC] {ms_sim4:.3f} ms ({flops4 / 1e12:.2f} TFLOP, TF32 bound "
+        f"{flops4 / PEAK_TF32_FLOPS * 1e3:.3f} ms, {flops4 / PEAK_TF32_FLOPS * 1e3 / ms_sim4:.1%})")
+
+    # ---- joint mode ----
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    call = functools.partial(static.refine_orientation_projection_center, xmap=xmap, detector=bad_det,
+                             master_pattern=mp, **sh_kw)
+    res, ms_first = timed(call)
+    launches["refine-sh-joint"] = check_launches("refine-sh-joint", {
+        "levenberg_marquardt_orientation_projection_center": 1, "lambert_project_ncc": 1})
+    score, gate = gate_pc("refine-sh-joint", res)
+    peak_joint = peak_gb()
+    err_joint, scores_msg = sh_scores_check(dev, static, mp, res, "refine-sh-joint")
+    errs["lambert_project_ncc"] = max(err_pc, err_joint)
+    bl_call = functools.partial(static.refine_orientation_projection_center, xmap=xmap, detector=bad_det,
+                                master_pattern=mp, method="lm")
+    bl, _ = timed(bl_call)
+    score_bl = float(np.mean(bl.xmap.prop["scores"]))
+    if not score >= score_bl - 5e-3:
+        raise AssertionError(f"[refine-sh-joint] mean score {score:.5f} below the bilinear joint LM's {score_bl:.5f} "
+                             "less 5e-3")
+    ang, ang_bl = ang_to(truth, res), ang_to(truth, bl)
+    _, ms_call = timed(call)
+    _, ms_bl = timed(bl_call)
+    trace = traced(call)
+    log("refine-sh-joint", f"{smi}: EBSD.refine_orientation_projection_center(xmap=<pallas-int8 top-1>, "
+        f"detector=<PC off by {PC_OFFSET}>, method='lm', projector='spherical') on the {n} patterns: first call "
+        f"{ms_first:.1f} ms, untraced {ms_call:.1f} ms = {n / ms_call * 1e3:.1f} patterns/s against the bilinear LM "
+        f"call's {ms_bl:.3f} ms = {n / ms_bl * 1e3:.1f} patterns/s; {trace}; launches {launches['refine-sh-joint']}; {gate}, the "
+        f"bilinear LM's {np.round(bl.detector.pc.reshape(-1, 3).mean(0), 6).tolist()}; mean score {score:.5f} against "
+        f"the bilinear joint LM's {score_bl:.5f} (limit: no lower than it less 5e-3); disorientation to truth median "
+        f"{np.median(ang):.4f} deg, max over the {int(near.sum())} points DI put within {REFINE_START_DEG} deg "
+        f"{ang[near].max():.4f} (bilinear joint LM {np.median(ang_bl):.4f} / {ang_bl[near].max():.4f}); num_evals "
+        f"mean {res.xmap.prop['num_evals'].mean():.2f}; {scores_msg}; peak memory {peak_joint:.2f} GiB "
+        f"({peak_joint * 2**30 / n / 2**20:.3f} MiB a point)")
+    return launches, errs
+
+
 def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
     """Milliseconds the SMs' instruction slots take for ``per_pixel`` instructions
     on each of ``pixels`` pixels, one pixel a thread (32 a warp)."""
@@ -2112,7 +2486,7 @@ def main(argv=None) -> int:
         "plain_ms": t_host * 1e3, "bound_ms": bound_nm, "bound_by": "operations" if t_ops_nm >= t_bytes_nm else "bytes",
         "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_nm,
         "instruction_bound_ms": instruction_ms(evals * d, sass["project_pixel"], clock_mhz, sms), "split_ms": None,
-        "kernel_only_ms": None, "evaluations": evals,
+        "kernel_only_ms": None, "evaluations": evals, "scattered_taps_ms": evals * d / SCATTERED_TAPS_PER_S[1] * 1e3,
     }
     log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
         f"(Nelder-Mead, bilinear, max_iters=150) on the {n_scan} static-corrected patterns: first call "
@@ -2286,7 +2660,7 @@ def main(argv=None) -> int:
             "plain_ms": pc_host_ms[mode], "plain_points": c, "chunk_ms": pc_chunk_ms[mode], "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
             "library_same_function_ms": None, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr, "split_ms": None,
-            "kernel_only_ms": None, "evaluations": evals_k,
+            "kernel_only_ms": None, "evaluations": evals_k, "scattered_taps_ms": pixels / SCATTERED_TAPS_PER_S[1] * 1e3,
         }
         pc_times.append(
             f"{mode} mode: kernel {ms_k:.3f} ms = {n_scan / ms_k * 1e3:.1f} patterns/s ({evals_k} evaluations, "
@@ -2487,6 +2861,12 @@ def main(argv=None) -> int:
         del zeros, x_map, a_map, x_c, a_c
     log("lm-times", f"{smi}: " + "; ".join(lm_times))
 
+    # ---- the spherical-harmonic tier in every mode ----
+    sh_launches, sh_errs = sh_refinement_phases(dev, static, xmap, refined.xmap, det, bad_det, mp, truth, near, smi)
+    for mode, row in loop_rows.items():
+        row["launches_by_path"] = {"refine-lm": row["launches"], **{
+            phase: c[LM_LOOP[mode]] for phase, c in sh_launches.items() if LM_LOOP[mode] in c}}
+
     # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
     metric = get_metric("ncc")
     exp_prep = metric.prepare(pre.data)
@@ -2670,18 +3050,28 @@ def main(argv=None) -> int:
     t_bytes_a = (4 * (pix_a + 4 * m + dc.numel()) + 4 * quad.numel()) / PEAK_BYTES * 1e3
     t_ops_a = pix_a * A_OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
     none_keys = dict(library_ms=None, library_same_function_ms=None, split_ms=None, kernel_only_ms=None)
-    # Kernel B: since the PC and joint modes run on the Nelder-Mead kernel,
-    # no entry point of the port launches it; it is the host loops' engine.
+    # Kernel B: the host loops' engine, and the spherical tier's bilinear
+    # scores at its solutions.
     notes = {
-        "lambert_project": "max_abs_err against the plain twin in float64 on the main path's rows",
-        "lambert_project_ncc": "the host loops' objective; no entry point of the port launches it",
+        "lambert_project": "max_abs_err against the plain twin in float64 on the main path's rows and the spherical "
+                           "tier's analysis samples",
+        "lambert_project_ncc": "the host loops' objective, and the spherical tier's bilinear scores; max_abs_err "
+                               "over [ncc-check] and the tier's PC modes at the whole map",
+    }
+    by_path = {
+        "lambert_project": {"main": main_launches["lambert_project"],
+                            **{p: c["lambert_project"] for p, c in sh_launches.items() if "lambert_project" in c}},
+        "lambert_project_ncc": {"refine": refine_launches["lambert_project_ncc"],
+                                **{p: c["lambert_project_ncc"] for p, c in sh_launches.items()
+                                   if "lambert_project_ncc" in c}},
     }
     for name, line, launches, err, ms, plain_ms, bound, by, taps, per_pixel in (
-        ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"], a_err, ms_a,
-         ms_a_plain, max(t_bytes_a, t_ops_a), "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a,
-         sass["project_pixel_a"]),
-        ("lambert_project_ncc", "indexing/refinement.py:132", refine_launches["lambert_project_ncc"], b_err, ms_b,
-         ms_b_plain, bound_b, "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b, sass["project_pixel"]),
+        ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"],
+         max(a_err, sh_errs["lambert_project"]), ms_a, ms_a_plain, max(t_bytes_a, t_ops_a),
+         "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a, sass["project_pixel_a"]),
+        ("lambert_project_ncc", "indexing/refinement.py:132", refine_launches["lambert_project_ncc"],
+         max(b_err, sh_errs["lambert_project_ncc"]), ms_b, ms_b_plain, bound_b,
+         "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b, sass["project_pixel"]),
     ):
         l2_ms = taps * TAP_BYTES / l2_rate * 1e3
         t_instr = instruction_ms(taps, per_pixel, clock_mhz, sms)
@@ -2689,7 +3079,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/lambert_project.cu",
             "replaces": f"kikuchipy_tpu/{line}", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr,
-            **none_keys, "note": notes[name],
+            **none_keys, "launches_by_path": by_path[name], "note": notes[name],
         })
         time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; instruction slots "
                          f"{t_instr:.4f} ms at {per_pixel} instructions a pixel ({t_instr / ms:.2%}); its "
@@ -2697,15 +3087,23 @@ def main(argv=None) -> int:
                          f"{' in slabs of 16384 rows' if name == 'lambert_project' else ''}; no single PyTorch "
                          f"call computes it)")
     table.append(nm_row)
+    nm_scattered = [nm_row["evaluations"] * d / rate * 1e3 for rate in SCATTERED_TAPS_PER_S[::-1]]
     time_msgs.append(f"nelder_mead_orientation {ms_nm:.3f} ms (bound {bound_nm:.4f} ms by {nm_row['bound_by']}, "
                      f"{bound_nm / ms_nm:.2%} of it; instruction slots {nm_row['instruction_bound_ms']:.3f} ms "
-                     f"({nm_row['instruction_bound_ms'] / ms_nm:.2%}); taps from L2 {l2_nm:.3f} ms; the host loop on kernel "
+                     f"({nm_row['instruction_bound_ms'] / ms_nm:.2%}); taps from L2 {l2_nm:.3f} ms, as scattered sectors "
+                     f"at {SCATTERED_TAPS_PER_S[0]:.3g}-{SCATTERED_TAPS_PER_S[1]:.3g}/s {nm_scattered[0]:.3f}-"
+                     f"{nm_scattered[1]:.3f} ms ({nm_scattered[0] / ms_nm:.2%}-{nm_scattered[1] / ms_nm:.2%}); the host "
+                     f"loop on kernel "
                      f"B {t_host * 1e3:.1f} ms; no single PyTorch call computes it)")
     for mode, row in pc_rows.items():
         table.append(row)
         time_msgs.append(f"{row['name']} {row['ms']:.3f} ms (bound {row['bound_ms']:.4f} ms by {row['bound_by']}, "
                          f"{row['bound_ms'] / row['ms']:.2%} of it; instruction slots {row['instruction_bound_ms']:.3f} ms "
-                         f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.3f} ms; the "
+                         f"({row['instruction_bound_ms'] / row['ms']:.2%}); taps from L2 {row['l2_bound_ms']:.3f} ms, as "
+                         f"scattered sectors {row['scattered_taps_ms']:.3f}-"
+                         f"{row['scattered_taps_ms'] * SCATTERED_TAPS_PER_S[1] / SCATTERED_TAPS_PER_S[0]:.3f} ms "
+                         f"({row['scattered_taps_ms'] / row['ms']:.2%}-"
+                         f"{row['scattered_taps_ms'] * SCATTERED_TAPS_PER_S[1] / SCATTERED_TAPS_PER_S[0] / row['ms']:.2%}); the "
                          f"host loop on kernel B {row['plain_ms']:.1f} ms for {row['plain_points']} points against "
                          f"{row['chunk_ms']:.3f} ms of kernel; no single PyTorch call computes it)")
     for mode, row in loop_rows.items():

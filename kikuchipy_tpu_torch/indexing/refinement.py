@@ -47,9 +47,16 @@ Modes, as in the JAX package:
 Ported: Nelder-Mead, Levenberg-Marquardt and gradient (``method`` "nm",
 "lm", "gradient" and their aliases) with the bilinear projector, navigation
 and signal masks, trust regions, per-point PCs, pseudo-symmetry variants
-and refinement in navigation chunks. Not ported yet, and refused with
-``NotImplementedError``: the methods ``"de"``, ``"da"``, ``"bh"`` and
-``"shgo"``, and ``projector="spherical"``.
+and refinement in navigation chunks; and the spherical-harmonic projector
+(``projector="spherical"``, band limit ``sh_L``, products at
+``sh_precision``) in all three modes with the same three methods, as in
+JAX: the patterns are a coefficient rotation and one product
+(:mod:`kikuchipy_tpu_torch.projection.spherical`), the PC modes linearize
+the synthesis basis in the PC and end with a short bilinear LM polish, and
+the scores come from one bilinear projection at the solution. Not ported
+yet, and refused with ``NotImplementedError`` under the bilinear projector:
+the methods ``"de"``, ``"da"``, ``"bh"`` and ``"shgo"`` (under the
+spherical one they are JAX's ``ValueError``).
 
 Where the JAX objectives take the master pattern, the port's take its
 quad texture (:func:`~kikuchipy_tpu_torch.projection.master_pattern.
@@ -59,6 +66,7 @@ quad_texture`), built once per call.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
 import torch
@@ -93,7 +101,24 @@ from kikuchipy_tpu_torch.ops.refine_nm import (
     pc_objective,
 )
 from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
-from kikuchipy_tpu_torch.utils.optimize import clip_blocks
+from kikuchipy_tpu_torch.projection.spherical import (
+    _outside_transforms,
+    _rotate_zyz,
+    _rotate_zyz_preselected,
+    _synth,
+    _tf32,
+    _widen,
+    _width,
+    sh_basis,
+    wigner_tables,
+)
+from kikuchipy_tpu_torch.utils.device import matmul_precision
+from kikuchipy_tpu_torch.utils.optimize import (
+    _levenberg_marquardt_normal,
+    _normal_equations_batched,
+    clip_blocks,
+    nelder_mead_batched,
+)
 
 __all__ = [
     "RefinementResult",
@@ -149,16 +174,13 @@ def _normalize_method(method: str) -> str:
 
 def _check_ported(method: str, projector: str) -> str:
     """The normalized method, after the JAX package's checks; raise
-    ``NotImplementedError`` for what exists there but not here yet."""
+    ``NotImplementedError`` for what exists there but not here yet (the
+    global solvers with the bilinear projector; with the spherical one
+    their ``ValueError`` comes from its branch, as in JAX)."""
     m = _normalize_method(method)
     if projector not in ("bilinear", "spherical"):
         raise ValueError(f"projector must be 'bilinear' or 'spherical', got {projector!r}")
-    if projector == "spherical":
-        raise NotImplementedError(
-            "projector='spherical' (the spherical-harmonic tier) is not ported to "
-            "kikuchipy_tpu_torch yet; use projector='bilinear'"
-        )
-    if m not in ("nm", "lm", "gradient"):
+    if projector == "bilinear" and m not in ("nm", "lm", "gradient"):
         raise NotImplementedError(
             f"method={method!r} ({m}) is not ported to kikuchipy_tpu_torch yet; "
             "Nelder-Mead ('nm'), Levenberg-Marquardt ('lm') and 'gradient' are"
@@ -312,6 +334,419 @@ def _signal_rows(signal) -> torch.Tensor:
     return signal.data.reshape((signal.navigation_size,) + signal.signal_shape)
 
 
+# ------------------------- the spherical-harmonic tier ------------------------- #
+#
+# projector="spherical": the objective's patterns come from the spherical-
+# harmonic projector (projection/spherical.py), a zyz rotation of the master's
+# coefficients and one product with a synthesis basis fixed per detector (and,
+# in the PC modes, the basis linearized in the PC). The solvers are
+# utils/optimize.py's (Levenberg-Marquardt on torch.func.jvp tangents,
+# Nelder-Mead) and _adam_minimize_batched on torch.func.grad; the PC and joint
+# modes end with a short bilinear LM polish on the LM loop kernel, and every
+# mode reports its scores from one bilinear projection at the solution, as in
+# JAX. The residuals and objectives take the JAX package's arguments, with the
+# port's device tables (wigner_tables(L).device_arrays) where JAX takes its
+# padded stacks and their static bounds.
+
+
+def _sh_coefficients(delta, q0, use_id, coeffs, tables, mm_precision):
+    """The master's coefficients rotated to ``q0 (x) exp_map(delta)`` (by the
+    conjugate rotation, as the bilinear projector samples), with the gimbal
+    variant ``use_id`` fixed at setup; ``(n, K)`` in the wide layout."""
+    q = quat.multiply(q0, exp_map(delta)).to(_f32)
+    return _rotate_zyz_preselected(quat.conjugate(q), use_id, coeffs, tables, mm_precision)
+
+
+def _sh_project_delta(delta, q0, use_id, coeffs, tables, basis, mm_precision):
+    """Patterns ``(n, P)`` at ``q0 (x) exp_map(delta)`` through the
+    spherical-harmonic projector: the rotated coefficients, then one
+    product with ``basis``."""
+    return _synth(_sh_coefficients(delta, q0, use_id, coeffs, tables, mm_precision), basis, mm_precision)
+
+
+def _residual_orientation_delta_sh(delta, q0, use_id, exp_unit, coeffs, tables, basis, mm_precision):
+    return sim_unit(_sh_project_delta(delta, q0, use_id, coeffs, tables, basis, mm_precision)) - exp_unit
+
+
+def _objective_orientation_delta_sh(delta, q0, use_id, exp, sq_norm, coeffs, tables, basis, mm_precision):
+    return 1.0 - ncc_centered(exp, sq_norm, _sh_project_delta(delta, q0, use_id, coeffs, tables, basis, mm_precision))
+
+
+def _sh_pc_combine(sim4, dpc, dpix):
+    """``sim(pc0 + dpc) ~ c B^T + sum_k dpc_k (c dB_k^T)`` from ``sim4 = c
+    bcat^T`` ``(n, 4 * dpix)``."""
+    sim4 = sim4.reshape(sim4.shape[0], 4, dpix)
+    return sim4[:, 0] + torch.sum(dpc[:, :, None] * sim4[:, 1:], dim=1)
+
+
+def _sh_project_pc_delta(c, dpc, bcat, mm_precision, dpix):
+    """Patterns with first-order PC dependence: ``bcat = [B; dB/dPCx;
+    dB/dPCy; dB/dPCz]`` ``(4 * dpix, ncoef)`` (central differences at the
+    linearization PC), one product an evaluation. The linearization is
+    accurate to ``O(|dpc|^2)``; trust regions up to 0.05 PC fractions keep
+    that below the NCC's noise."""
+    return _sh_pc_combine(_synth(c, bcat, mm_precision), dpc, dpix)
+
+
+def _residual_pc_sim4(dpc, sim4, exp_unit, dpix):
+    """PC mode's residual (JAX's ``_residual_pc_delta_sh``): the orientations
+    are fixed, so the rotated coefficients ``c0`` and their product ``sim4 =
+    c0 @ bcat.T``, which does not depend on ``dpc``, are made once a solve,
+    not once an evaluation and tangent."""
+    return sim_unit(_sh_pc_combine(sim4, dpc, dpix)) - exp_unit
+
+
+def _objective_pc_sim4(dpc, sim4, exp, sq_norm, dpix):
+    """PC mode's objective (JAX's ``_objective_pc_delta_sh``) from ``sim4 =
+    c0 @ bcat.T``."""
+    return 1.0 - ncc_centered(exp, sq_norm, _sh_pc_combine(sim4, dpc, dpix))
+
+
+def _sh_project_joint(x_b, q0, use_id, coeffs, tables, bcat, mm_precision, dpix):
+    """Patterns at the rotation vector ``x_b[:, :3]`` about ``q0`` and the PC
+    shift ``x_b[:, 3:]``: the coefficient rotation, then the PC-linearized
+    synthesis."""
+    c = _sh_coefficients(x_b[:, :3], q0, use_id, coeffs, tables, mm_precision)
+    return _sh_project_pc_delta(c, x_b[:, 3:], bcat, mm_precision, dpix)
+
+
+def _residual_orientation_at_pc_sh(delta, q0, use_id, dpc_fix, exp_unit, coeffs, tables, bcat, mm_precision, dpix):
+    """Orientation residual with the PC shift frozen at ``dpc_fix`` (one
+    block of the joint alternation in :func:`_refine_joint_spherical`)."""
+    c = _sh_coefficients(delta, q0, use_id, coeffs, tables, mm_precision)
+    return sim_unit(_sh_project_pc_delta(c, dpc_fix, bcat, mm_precision, dpix)) - exp_unit
+
+
+def _objective_joint_delta_sh(x_b, q0, use_id, exp, sq_norm, coeffs, tables, bcat, mm_precision, dpix):
+    return 1.0 - ncc_centered(exp, sq_norm, _sh_project_joint(x_b, q0, use_id, coeffs, tables, bcat, mm_precision,
+                                                               dpix))
+
+
+def _value_and_grad(objective):
+    """An evaluation for :func:`_adam_minimize_batched`: ``(f, grad f)`` of
+    each element, from ``torch.func.grad`` of the sum with ``f`` as its aux
+    output (JAX's ``jax.grad`` of the sum)."""
+
+    def evaluate(x, *args):
+        def total(z):
+            f = objective(z, *args)
+            return torch.sum(f), f
+
+        g, f = torch.func.grad(total, has_aux=True)(x)
+        return f, g
+
+    return evaluate
+
+
+def _sh_lm(residual, x0, max_iters: int, ftol: float, blocks, args, static_args=()):
+    """``levenberg_marquardt_batched(residual, x0, ...)``, JAX's loop, with
+    the Jacobian's tangents as one vmapped ``jvp``
+    (:func:`~kikuchipy_tpu_torch.utils.optimize._normal_equations_batched`)."""
+    extra = (*args, *static_args)
+    return _levenberg_marquardt_normal(lambda x: _normal_equations_batched(residual, x, extra), x0,
+                                       max_iters=max_iters, ftol=ftol, blocks=blocks)
+
+
+def _sh_variant(q0: torch.Tensor) -> torch.Tensor:
+    """The gimbal variant of each point, fixed for the whole solve: the
+    direct one where ``|cos(beta)|`` of ``q0*`` is at most 0.65 (else the
+    ``Rx(90 deg)`` offset, whose ``|cos(beta)|`` is then at most 0.76). That
+    leaves at least 0.24 of margin, and a trust region of at most 10 degrees
+    moves ``cos(beta)`` by at most sin(10 deg) ~ 0.17."""
+    return torch.abs(quat.to_matrix(quat.conjugate(q0))[..., 2, 2]) <= 0.65
+
+
+def _sh_method(method: str) -> None:
+    if method not in ("lm", "nm", "gradient"):
+        raise ValueError(f"projector='spherical' supports method 'lm', 'nm', or 'gradient', got {method!r}")
+
+
+def _refine_orientation_spherical(
+    signal, xmap, detector, master_pattern, energy, exp, sq_norm, dc, trust_region, max_iters, rtol, method, sh_L,
+    sh_precision, nav_shape, n,
+):
+    """Orientation refinement through the spherical-harmonic projector: the
+    same ``1 - NCC`` objective as the bilinear path, over a rotation vector
+    about the start; the patterns are a coefficient rotation and one
+    product. Levenberg-Marquardt runs at most 20 iterations with ``ftol =
+    rtol * 1e-1`` (sub-ftol steps at ``sh_precision="default"`` are product
+    rounding). Scores from one bilinear projection at the solution."""
+    if detector.navigation_size != 1:
+        raise ValueError(
+            "projector='spherical' requires a single-PC detector (the synthesis basis is fixed per PC); use "
+            "projector='bilinear' for per-point PCs"
+        )
+    _sh_method(method)
+    dev = exp.device
+    proj = master_pattern.spherical_projector(energy=energy, L=sh_L)
+    coeffs = proj.coeffs.to(dev)
+    tables = wigner_tables(sh_L).device_arrays(dev)
+    basis = _widen(proj.synthesis_basis(dc).to(dev), tables.K)
+    q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+    max_norm = np.deg2rad(float(np.max(trust_region))) if trust_region is not None else np.deg2rad(3.0)
+    if max_norm > np.deg2rad(10.0):
+        raise ValueError(
+            "projector='spherical' supports trust regions up to 10 degrees (the gimbal variant is preselected from "
+            "the start orientations with that safety margin); use projector='bilinear' for wider searches"
+        )
+    use_id = _sh_variant(q0)
+    x0 = torch.zeros((n, 3), dtype=_f32, device=dev)
+    blocks = ((3, max_norm),)
+    with matmul_precision(_tf32(sh_precision)):
+        if method == "lm":
+            res = _sh_lm(
+                _residual_orientation_delta_sh, x0, max_iters=min(max_iters, 20), ftol=rtol * 1e-1, blocks=blocks,
+                args=(q0, use_id, unit_rows(exp), coeffs, tables, basis), static_args=(sh_precision,),
+            )
+            d_best, n_iter = res.x, res.n_iter.cpu().numpy()
+        elif method == "gradient":
+            d_best, _ = _adam_minimize_batched(
+                _value_and_grad(_objective_orientation_delta_sh), x0, lr=np.deg2rad(0.25), iters=max_iters,
+                blocks=blocks, args=(q0, use_id, exp, sq_norm, coeffs, tables, basis, sh_precision),
+            )
+            n_iter = np.full(n, max_iters)
+        else:  # Nelder-Mead over the rotation vector
+            res = nelder_mead_batched(
+                _objective_orientation_delta_sh, x0, initial_step=np.deg2rad(1.0), max_iters=max_iters, fatol=rtol,
+                xatol=1e-4, lower_bounds=torch.full((3,), -max_norm, dtype=_f32, device=dev),
+                upper_bounds=torch.full((3,), max_norm, dtype=_f32, device=dev),
+                args=(q0, use_id, exp, sq_norm, coeffs, tables, basis), static_args=(sh_precision,),
+            )
+            d_best, n_iter = res.x, res.n_iter.cpu().numpy()
+
+    q_refined = quat.multiply(q0, exp_map(d_best))
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+    scores = 1.0 - orientation_delta_objective(
+        x0, q_refined.to(_f32), exp, sq_norm, dc.contiguous(), quad, npx, npy, scale
+    ).cpu().numpy()
+    new_xmap = _finalize_xmap(xmap, q_refined.cpu().numpy(), scores, n_iter, nav_shape)
+    return RefinementResult(xmap=new_xmap, detector=detector)
+
+
+def _sh_pc_bases(master_pattern, energy, detector, mask_idx, sh_L: int, h: float = 2e-3):
+    """The SH projector and the PC-linearized synthesis basis ``bcat = [B;
+    dB/dPCx; dB/dPCy; dB/dPCz]`` ``(4 * dpix, ncoef)`` float32 at the
+    detector's average PC, by central differences of float32 bases (seven
+    :func:`~kikuchipy_tpu_torch.projection.spherical.sh_basis` evaluations
+    on the projector's device), and that PC. Cached on the projector per PC,
+    detector shape, tilts, mask and step."""
+    proj = master_pattern.spherical_projector(energy=energy, L=sh_L)
+    pc0 = np.asarray(detector.pc_average, dtype=np.float64)
+    mask_np = None if mask_idx is None else np.asarray(mask_idx)
+    # Everything the direction cosines depend on; the mask by a crc32 of its
+    # indices.
+    key = (
+        "pc_bases",
+        tuple(np.round(pc0, 9)),
+        tuple(detector.shape),
+        round(float(detector.sample_tilt), 9),
+        round(float(detector.tilt), 9),
+        round(float(getattr(detector, "azimuthal", 0.0)), 9),
+        round(float(getattr(detector, "twist", 0.0)), 9),
+        None if mask_np is None else zlib.crc32(np.ascontiguousarray(mask_np).tobytes()),
+        h,
+    )
+    cache = proj.__dict__.get("_pc_bases_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(proj, "_pc_bases_cache", cache)
+    if key not in cache:
+        dev = proj.coeffs.device
+
+        def basis_at(pc):
+            det = dataclasses.replace(detector, pc=np.asarray(pc).reshape(1, 3))
+            dc = direction_cosines_from_detector(det, device=dev)
+            if mask_np is not None:
+                dc = dc[torch.as_tensor(mask_np, dtype=torch.long, device=dev)]
+            return sh_basis(dc, sh_L).to(_f32)
+
+        with _outside_transforms():
+            rows = [basis_at(pc0)]
+            for k in range(3):
+                e = np.zeros(3)
+                e[k] = h
+                rows.append((basis_at(pc0 + e) - basis_at(pc0 - e)) / (2 * h))
+            cache[key] = torch.cat(rows, dim=0)
+    return proj, cache[key], pc0
+
+
+def _refine_pc_spherical(
+    signal, xmap, detector, master_pattern, energy, exp, sq_norm, mask_idx, trust_region, max_iters, rtol, method,
+    sh_L, sh_precision, nav_shape, n, polish_iters: int = 12,
+):
+    """PC refinement through the spherical-harmonic projector: the
+    orientations are fixed, so the coefficients are rotated once and every
+    evaluation is the PC-linearized synthesis (its product ``c0 @ bcat.T``
+    made once for the solve). Then a short bilinear LM polish from the SH
+    solution (the band-limited optimum sits about 2e-3 PC fractions off the
+    bilinear one), one launch of the LM loop kernel on the card; scores from
+    one bilinear projection at the solution."""
+    _sh_method(method)
+    dev = exp.device
+    proj, bcat, pc_center = _sh_pc_bases(master_pattern, energy, detector, mask_idx, sh_L)
+    tables = wigner_tables(sh_L).device_arrays(dev)
+    bcat = _widen(bcat.to(dev), tables.K)
+    dpix = exp.shape[1]
+    q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+    max_norm = float(np.max(trust_region)) if trust_region is not None else 0.05
+    blocks = ((3, max_norm),)
+    # Start from each point's own PC, measured from the linearization centre.
+    pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3))
+    dpc0 = torch.as_tensor(np.asarray(pc0 - pc_center, dtype=np.float32), device=dev)
+    with matmul_precision(_tf32(sh_precision)):
+        c0 = _rotate_zyz(quat.conjugate(q0), proj.coeffs.to(dev), tables, sh_precision)
+        sim4 = _synth(c0, bcat, sh_precision)
+        del c0
+        if method == "lm":
+            res = _sh_lm(
+                _residual_pc_sim4, dpc0, max_iters=min(max_iters, 30), ftol=rtol * 1e-1, blocks=blocks,
+                args=(sim4, unit_rows(exp)), static_args=(dpix,),
+            )
+            d_best, n_iter = res.x, res.n_iter.cpu().numpy()
+        elif method == "gradient":
+            d_best, _ = _adam_minimize_batched(
+                _value_and_grad(_objective_pc_sim4), dpc0, lr=2e-3, iters=max_iters, blocks=blocks,
+                args=(sim4, exp, sq_norm, dpix),
+            )
+            n_iter = np.full(n, max_iters)
+        else:
+            res = nelder_mead_batched(
+                _objective_pc_sim4, dpc0, initial_step=0.005, max_iters=max_iters, fatol=rtol, xatol=1e-5,
+                lower_bounds=torch.full((3,), -max_norm, dtype=_f32, device=dev),
+                upper_bounds=torch.full((3,), max_norm, dtype=_f32, device=dev),
+                args=(sim4, exp, sq_norm), static_args=(dpix,),
+            )
+            d_best, n_iter = res.x, res.n_iter.cpu().numpy()
+    del sim4
+
+    new_pc = (pc_center[None, :] + d_best.cpu().numpy()).astype(np.float64)
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+    nrows, ncols = detector.shape
+    om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
+    mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
+    if polish_iters:
+        res_p = levenberg_marquardt_projection_center(
+            torch.zeros((n, 3), dtype=_f32, device=dev), torch.as_tensor(new_pc, dtype=_f32, device=dev),
+            unit_rows(exp), q0, quad, om, mask_take, npx, npy, scale, nrows, ncols, max_iters=polish_iters,
+            ftol=rtol * 1e-2, blocks=blocks,
+        )
+        new_pc = new_pc + res_p.x.cpu().numpy()
+        n_iter = n_iter + res_p.n_iter.cpu().numpy()
+    new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
+    scores = 1.0 - pc_objective(
+        torch.as_tensor(new_pc, dtype=_f32, device=dev), exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale,
+        nrows, ncols,
+    ).cpu().numpy()
+    new_xmap = _finalize_xmap(xmap, np.asarray(xmap.best_rotations), scores, n_iter, nav_shape)
+    return RefinementResult(xmap=new_xmap, detector=new_detector)
+
+
+def _refine_joint_spherical(
+    signal, xmap, detector, master_pattern, energy, exp, sq_norm, mask_idx, trust_region, max_iters, rtol, method,
+    sh_L, sh_precision, nav_shape, n, polish_iters: int = 6,
+):
+    """Joint (orientation and PC) refinement through the spherical-harmonic
+    projector. ``"lm"`` alternates two rounds of a 3-parameter orientation
+    LM at a frozen PC and a 3-parameter PC LM at frozen orientations (each
+    at most ``max(3, min(max_iters, 30) // 4)`` iterations), which does not
+    slide down the shallow PC/orientation valley of the joint surface as
+    one six-parameter LM does; ``"nm"`` and ``"gradient"`` run on the joint
+    objective. Then a short bilinear LM polish (the LM loop kernel's joint
+    mode) and scores from one bilinear projection at the solution."""
+    _sh_method(method)
+    dev = exp.device
+    proj, bcat, pc_center = _sh_pc_bases(master_pattern, energy, detector, mask_idx, sh_L)
+    coeffs = proj.coeffs.to(dev)
+    tables = wigner_tables(sh_L).device_arrays(dev)
+    bcat = _widen(bcat.to(dev), tables.K)
+    dpix = exp.shape[1]
+    q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
+    if trust_region is not None:
+        tr = np.asarray(trust_region, dtype=np.float64)
+        rot_norm, pc_norm = float(np.deg2rad(np.max(tr[:3]))), float(np.max(tr[3:]))
+    else:
+        rot_norm, pc_norm = np.deg2rad(3.0), 0.05
+    if rot_norm > np.deg2rad(10.0):
+        raise ValueError(
+            "projector='spherical' supports rotation trust regions up to 10 degrees (gimbal variant preselected "
+            "from the start orientations); use projector='bilinear' for wider searches"
+        )
+    use_id = _sh_variant(q0)
+    pc0 = np.broadcast_to(detector.pc.reshape(-1, 3), (n, 3))
+    dpc0 = torch.as_tensor(np.asarray(pc0 - pc_center, dtype=np.float32), device=dev)
+    x0 = torch.cat([torch.zeros((n, 3), dtype=_f32, device=dev), dpc0], dim=1)
+    exp_unit = unit_rows(exp)
+
+    with matmul_precision(_tf32(sh_precision)):
+        if method == "lm":
+            dpc, q_cur = dpc0, q0
+            n_iter = np.zeros(n)
+            sub_iters = max(3, min(max_iters, 30) // 4)
+            for _ in range(2):
+                res_o = _sh_lm(
+                    _residual_orientation_at_pc_sh, torch.zeros((n, 3), dtype=_f32, device=dev), max_iters=sub_iters,
+                    ftol=rtol * 1e-1, blocks=((3, rot_norm),),
+                    args=(q_cur, use_id, dpc, exp_unit, coeffs, tables, bcat), static_args=(sh_precision, dpix),
+                )
+                q_cur = quat.multiply(q_cur, exp_map(res_o.x)).to(_f32)
+                c_cur = _rotate_zyz(quat.conjugate(q_cur), coeffs, tables, sh_precision)
+                sim4 = _synth(c_cur, bcat, sh_precision)
+                del c_cur
+                res_p = _sh_lm(
+                    _residual_pc_sim4, dpc, max_iters=sub_iters, ftol=rtol * 1e-1, blocks=((3, pc_norm),),
+                    args=(sim4, exp_unit), static_args=(dpix,),
+                )
+                del sim4
+                dpc = res_p.x
+                n_iter = n_iter + res_o.n_iter.cpu().numpy() + res_p.n_iter.cpu().numpy()
+            # The total rotation about q0, q_cur = q0 (x) exp_map(delta), by the
+            # Gibbs vector's inverse: delta = 2 q_vec / q_w.
+            delta_total = quat.multiply(quat.conjugate(q0), q_cur)
+            sign = torch.where(delta_total[:, :1] >= 0, 1.0, -1.0)
+            delta_rot = 2.0 * sign * delta_total[:, 1:] / torch.clamp_min(torch.abs(delta_total[:, :1]), 1e-6)
+            x_best = torch.cat([delta_rot, dpc], dim=1)
+        elif method == "gradient":
+            x_best, _ = _adam_minimize_batched(
+                _value_and_grad(_objective_joint_delta_sh), x0, lr=2e-3, iters=max_iters,
+                blocks=((3, rot_norm), (3, pc_norm)),
+                args=(q0, use_id, exp, sq_norm, coeffs, tables, bcat, sh_precision, dpix),
+            )
+            n_iter = np.full(n, max_iters)
+        else:
+            bound = torch.as_tensor([rot_norm] * 3 + [pc_norm] * 3, dtype=_f32, device=dev)
+            res = nelder_mead_batched(
+                _objective_joint_delta_sh, x0,
+                initial_step=torch.as_tensor([np.deg2rad(1.0)] * 3 + [0.005] * 3, dtype=_f32, device=dev),
+                max_iters=max_iters, fatol=rtol, xatol=1e-5, lower_bounds=-bound, upper_bounds=bound,
+                args=(q0, use_id, exp, sq_norm, coeffs, tables, bcat), static_args=(sh_precision, dpix),
+            )
+            x_best, n_iter = res.x, res.n_iter.cpu().numpy()
+
+    q_refined = quat.multiply(q0, exp_map(x_best[:, :3]))
+    new_pc = (pc_center[None, :] + x_best[:, 3:].cpu().numpy()).astype(np.float64)
+    quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
+    nrows, ncols = detector.shape
+    om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
+    mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
+    if polish_iters:
+        res_p = levenberg_marquardt_orientation_projection_center(
+            torch.zeros((n, 6), dtype=_f32, device=dev), q_refined.to(_f32),
+            torch.as_tensor(new_pc, dtype=_f32, device=dev), exp_unit, quad, om, mask_take, npx, npy, scale, nrows,
+            ncols, max_iters=polish_iters, ftol=rtol * 1e-2, blocks=((3, rot_norm), (3, pc_norm)),
+        )
+        q_refined = quat.multiply(q_refined, exp_map(res_p.x[:, :3]))
+        new_pc = new_pc + res_p.x[:, 3:].cpu().numpy()
+        n_iter = n_iter + res_p.n_iter.cpu().numpy()
+    new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
+    scores = 1.0 - joint_delta_objective(
+        torch.zeros((n, 6), dtype=_f32, device=dev), q_refined.to(_f32),
+        torch.as_tensor(new_pc, dtype=_f32, device=dev), exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows,
+        ncols,
+    ).cpu().numpy()
+    new_xmap = _finalize_xmap(xmap, q_refined.cpu().numpy(), scores, n_iter, nav_shape)
+    return RefinementResult(xmap=new_xmap, detector=new_detector)
+
+
 def _refine_with_navigation_mask(refine_fn, signal, xmap, detector, navigation_mask, kwargs) -> RefinementResult:
     """Refine only the unmasked points (``navigation_mask`` True =
     exclude) and scatter the results back onto the full grid; excluded
@@ -350,6 +785,42 @@ def _refine_with_navigation_mask(refine_fn, signal, xmap, detector, navigation_m
     return RefinementResult(xmap=new_xmap, detector=det_new)
 
 
+# Device memory a point of the spherical tier's orientation mode may take,
+# in float32 words: _SH_STACKS coefficient rows of the wide layout (the zyz
+# stages, the padded T stack, their tangents under vmap) and _SH_ROWS
+# pattern rows (the synthesis, its tangents, the residual).
+_SH_STACKS, _SH_ROWS = 48, 16
+
+
+def _sh_batch(nav_chunk: int, free_bytes: int, sh_L: int, n_pixels: int) -> int:
+    """Points a batch of the spherical tier's orientation mode takes on the
+    card: the most whole ``nav_chunk`` chunks that fit in half of
+    ``free_bytes`` at ``4 * (_SH_STACKS * K + _SH_ROWS * P)`` bytes a point
+    (``K`` the wide layout's columns at ``sh_L``, ``P`` the pixels), and at
+    least one chunk."""
+    per_point = 4 * (_SH_STACKS * _width(sh_L) + _SH_ROWS * n_pixels)
+    return nav_chunk * max(1, free_bytes // 2 // (nav_chunk * per_point))
+
+
+def _batch_points(dev: torch.device, nav_chunk, per_point_pc: bool, method: str, projector: str, sh_L: int,
+                  n_pixels: int):
+    """Points a batch of :func:`refine_orientation` (None: the whole map).
+    ``nav_chunk`` on the CPU, and on the card for the gradient method, whose
+    early stop is a test over its batch, and with one PC a point, whose
+    ``(nav_chunk, P, 3)`` direction cosines the chunks bound. Otherwise the
+    bilinear Nelder-Mead and Levenberg-Marquardt take the whole map (their
+    kernels hold a few bytes a point; their results do not depend on
+    chunking), and the spherical ones as many whole chunks as
+    :func:`_sh_batch` lets the free device memory hold (the allocator's
+    cached blocks counted free)."""
+    if nav_chunk is None or dev.type == "cpu" or per_point_pc or method == "gradient":
+        return nav_chunk
+    if projector != "spherical":
+        return None
+    free = torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return _sh_batch(nav_chunk, free, sh_L, n_pixels)
+
+
 def refine_orientation(
     signal,
     xmap: CrystalMap | None = None,
@@ -378,14 +849,12 @@ def refine_orientation(
     optional ``(n_ops, 4)`` quaternions; each point is also refined from
     every variant ``op * q0`` of its start and the best result kept, with
     the winning variant (0 = original) in the ``pseudo_symmetry_index``
-    property. ``nav_chunk``: points per batch (the last chunk padded) on the
-    CPU. On the card Nelder-Mead and Levenberg-Marquardt take the whole map
-    as one batch whatever ``nav_chunk`` says (their results do not depend
-    on chunking), except with one PC a point, where ``nav_chunk`` still
-    bounds the ``(nav_chunk, P, 3)`` direction cosines of a batch; the
-    gradient method's early stop is a test over its batch, so it keeps the
-    chunks everywhere. ``sh_L`` and ``sh_precision`` belong to the
-    spherical projector, which is not ported yet.
+    property. ``nav_chunk``: points per batch (the last chunk padded) where
+    :func:`_batch_points` says so. ``projector="spherical"``: the
+    spherical-harmonic projector at band limit ``sh_L``, its products in
+    TF32 on the card for ``sh_precision="default"`` (IEEE float32 for
+    ``"highest"``); single-PC detectors, ``method`` "lm", "nm" or
+    "gradient", and trust regions up to 10 degrees.
     """
     method = _check_ported(method, projector)
     if navigation_mask is not None:
@@ -414,13 +883,15 @@ def refine_orientation(
     dev = signal.device
 
     per_point_pc = detector.navigation_size != 1
-    if nav_chunk is not None and n > nav_chunk and (dev.type == "cpu" or per_point_pc or method == "gradient"):
+    mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
+    n_pixels = int(np.prod(signal.signal_shape)) if mask_idx is None else len(mask_idx)
+    batch = _batch_points(dev, nav_chunk, per_point_pc, method, projector, sh_L, n_pixels)
+    if batch is not None and n > batch:
         return _refine_orientation_chunked(
             signal, xmap, detector, master_pattern, energy, signal_mask, trust_region, max_iters, rtol, method,
-            nav_chunk, projector, sh_L, sh_precision,
+            batch, projector, sh_L, sh_precision,
         )
 
-    mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
     mask_t = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
     exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_t)
     quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
@@ -434,6 +905,11 @@ def refine_orientation(
         if mask_t is not None:
             dc = dc[:, mask_t]
 
+    if projector == "spherical":
+        return _refine_orientation_spherical(
+            signal, xmap, detector, master_pattern, energy, exp, sq_norm, dc, trust_region, max_iters, rtol, method,
+            sh_L, sh_precision, nav_shape, n,
+        )
     if method in ("lm", "gradient"):
         # Over a rotation vector about the start, clipped to the trust region.
         q0 = torch.tensor(np.asarray(xmap.best_rotations), dtype=_f32, device=dev)
@@ -518,7 +994,9 @@ def refine_projection_center(
     """Refine projection centers with fixed orientations, on the signal's
     device. ``trust_region``: optional ``(3,)`` half-widths (PC
     fractions); for "lm" and "gradient" the largest bounds the norm of the
-    PC shift (0.05 without one)."""
+    PC shift (0.05 without one). ``projector="spherical"``: the
+    spherical-harmonic tier with the synthesis basis linearized in the PC
+    about the detector's average PC (:func:`_refine_pc_spherical`)."""
     method = _check_ported(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
@@ -538,6 +1016,11 @@ def refine_projection_center(
     mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
     mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
     exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_take)
+    if projector == "spherical":
+        return _refine_pc_spherical(
+            signal, xmap, detector, master_pattern, energy, exp, sq_norm, mask_idx, trust_region, max_iters, rtol,
+            method, sh_L, sh_precision, nav_shape, n,
+        )
     quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
     nrows, ncols = detector.shape
     om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)
@@ -595,7 +1078,8 @@ def refine_orientation_projection_center(
     ``trust_region``: optional ``(6,)``: three Euler half-widths in
     degrees, then three PC half-widths; for "lm" and "gradient" the largest
     of each three bounds the norm of the rotation vector and of the PC
-    shift (3 degrees and 0.05 without one)."""
+    shift (3 degrees and 0.05 without one). ``projector="spherical"``: the
+    spherical-harmonic tier (:func:`_refine_joint_spherical`)."""
     method = _check_ported(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
@@ -615,6 +1099,11 @@ def refine_orientation_projection_center(
     mask_idx = _mask_bool_to_idx(signal_mask, int(np.prod(signal.signal_shape)))
     mask_take = None if mask_idx is None else torch.as_tensor(mask_idx, dtype=torch.long, device=dev)
     exp, sq_norm = _prepare_experimental(_signal_rows(signal), mask_take)
+    if projector == "spherical":
+        return _refine_joint_spherical(
+            signal, xmap, detector, master_pattern, energy, exp, sq_norm, mask_idx, trust_region, max_iters, rtol,
+            method, sh_L, sh_precision, nav_shape, n,
+        )
     quad, npx, npy, scale = _master_arrays(master_pattern, energy, dev)
     nrows, ncols = detector.shape
     om = torch.as_tensor(np.ascontiguousarray(detector.sample_to_detector.T), dtype=_f32, device=dev)

@@ -14,6 +14,7 @@ import torch
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import PreparedDictionary
+from kikuchipy_tpu_torch.projection.spherical import SphericalProjector
 from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern
 from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
 
@@ -22,6 +23,7 @@ __all__ = [
     "detector_from_state",
     "master_pattern_from_state",
     "prepared_dictionary_from_state",
+    "spherical_projector_from_state",
 ]
 
 
@@ -115,3 +117,13 @@ def prepared_dictionary_from_state(
         q, s = q8
         prep._q8 = (as_tensor(q, dev, torch.int8), as_tensor(s, dev, torch.float32))
     return prep
+
+
+def spherical_projector_from_state(coeffs, L: int, device=None) -> SphericalProjector:
+    """A :class:`SphericalProjector` from a spherical projector's
+    coefficients ``((L+1)^2,)`` and band limit ``L``, on ``device`` (None:
+    the card), so that both packages synthesize from the same expansion."""
+    coeffs = np.array(coeffs, dtype=np.float32)
+    if coeffs.shape != ((int(L) + 1) ** 2,):
+        raise ValueError(f"coeffs must be ({(int(L) + 1) ** 2},) for L={L}, got {coeffs.shape}")
+    return SphericalProjector(coeffs=as_tensor(coeffs, resolve_device(device), torch.float32), L=int(L))

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``EBSDMasterPattern`` in
 ``kikuchipy_tpu/signals/master_pattern.py``: square-Lambert hemispheres
 (held on the host) projected onto a detector in batches on the device.
-The stereographic projection, plotting and the other master-pattern
-methods wait (see ROADMAP.md).
+:meth:`EBSDMasterPattern.spherical_projector` gives its spherical-harmonic
+expansion. The stereographic projection, plotting and the other
+master-pattern methods wait (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from kikuchipy_tpu_torch.projection.master_pattern import (
     project_patterns,
     quad_texture,
 )
+from kikuchipy_tpu_torch.projection.spherical import SphericalProjector, _outside_transforms
 from kikuchipy_tpu_torch.signals.ebsd import EBSD
 from kikuchipy_tpu_torch.utils.device import resolve_device
 from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, torch_dtype
@@ -57,6 +59,8 @@ class EBSDMasterPattern:
     energies: np.ndarray | None = None
     metadata: dict = dataclasses.field(default_factory=dict)
     device: Any = None
+    # spherical_projector's projectors, by (energy, L)
+    _sh_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -193,6 +197,29 @@ class EBSDMasterPattern:
             return project_patterns(rot, dc, master_dev, npx, npy, scale, quad=quad)
 
         return project_fn
+
+    def spherical_projector(self, energy: float | None = None, L: int = 88):
+        """Spherical-harmonic projector of this master pattern
+        (:class:`~kikuchipy_tpu_torch.projection.spherical.SphericalProjector`)
+        on this pattern's device: a one-time harmonic analysis, cached per
+        ``(energy, L)``, after which patterns at fixed detector directions
+        are products (``EBSD.refine_*(..., projector="spherical")``).
+
+        ``L`` is the band limit: features of about 180/L degrees are
+        resolved, so band-limited patterns are a smoothed version of the
+        bilinear projector's. Raises ``ValueError`` unless the master is in
+        the square Lambert projection.
+        """
+        if self.projection != "lambert":
+            raise ValueError(
+                "spherical_projector requires a square-Lambert master pattern (the port has no as_lambert yet)"
+            )
+        key = (energy, L)
+        if key not in self._sh_cache:
+            master = np.asarray(self._hemispheres_at_energy(energy), dtype=np.float32)
+            with _outside_transforms():
+                self._sh_cache[key] = SphericalProjector.from_master(master, L=L, device=self.device)
+        return self._sh_cache[key]
 
     def __repr__(self) -> str:
         return (

@@ -1570,3 +1570,62 @@ def test_preprocessing_on_the_card_never_reaches_the_plain_versions(cuda, monkey
     out = s.normalize_intensity(dtype_out=np.float32).data
     torch.cuda.synchronize()
     assert out.shape == (8, 8, 60, 60) and bool(torch.isfinite(out).all())
+
+
+# ----------------------- the spherical-harmonic tier ----------------------- #
+#
+# No kernel of its own: the zyz rotation and the synthesis are PyTorch
+# operations and library products. On the card they are held against the
+# same rotation and synthesis in float64 on the CPU, at the JAX default band
+# limit; "default" runs the products in TF32 only inside the call.
+
+SH_TOL = {"highest": 1e-4, "default": 5e-3}
+
+
+def _sh_quats(n, seed):
+    q = np.random.default_rng(seed).normal(size=(n, 4))
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    # pure z-rotations and beta = pi: the zyz extraction's gimbal lock
+    z = np.array([[np.cos(0.35), 0.0, 0.0, np.sin(0.35)], [0.0, np.cos(0.2), np.sin(0.2), 0.0]])
+    return np.concatenate([q, z]).astype(np.float32)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_spherical_project_at_l88_matches_a_float64_synthesis(cuda, precision):
+    from kikuchipy_tpu_torch.geometry.quaternion import conjugate
+    from kikuchipy_tpu_torch.projection import spherical as sp
+
+    master, _, dc, _, _ = _projection_state(cuda, side=401)
+    proj = sp.SphericalProjector.from_master(master, L=88, device=cuda)
+    basis = proj.synthesis_basis(dc)
+    q = torch.as_tensor(_sh_quats(62, 3))
+    coeffs64 = proj.coeffs.double().cpu()
+    ref = sp.rotate_coefficients_zyz(conjugate(q.double()), coeffs64, 88) @ sp.sh_basis(dc.cpu(), 88).T
+    old = torch.backends.cuda.matmul.allow_tf32
+    got = proj.project(q.to(cuda), basis, mm_precision=precision).double().cpu()
+    assert torch.backends.cuda.matmul.allow_tf32 == old
+    err = torch.linalg.vector_norm(got - ref, dim=1) / torch.linalg.vector_norm(ref, dim=1)
+    assert bool(torch.isfinite(got).all()) and float(err.max()) <= SH_TOL[precision], float(err.max())
+
+
+def test_spherical_refinement_leaves_the_tf32_flag_as_it_was(cuda):
+    from kikuchipy_tpu_torch import EBSD, EBSDDetector
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern
+
+    mp = EBSDMasterPattern(_smoke().master_pattern_data(65), device=cuda)
+    det = EBSDDetector(shape=(24, 24), pc=(0.42, 0.28, 0.5), sample_tilt=70)
+    q = _sh_quats(8, 4).astype(np.float64)
+    s = EBSD(mp.get_patterns(q, det).data, detector=det, device=cuda)
+    xmap = CrystalMap(rotations=q, shape=(10,))
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            for fn in ("refine_orientation", "refine_projection_center", "refine_orientation_projection_center"):
+                res = getattr(s, fn)(xmap=xmap, master_pattern=mp, projector="spherical", sh_L=24, method="lm",
+                                     sh_precision="default", max_iters=4)
+                assert np.isfinite(res.xmap.prop["scores"]).all()
+                assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

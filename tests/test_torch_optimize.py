@@ -87,10 +87,39 @@ def test_static_args_are_taken_by_both_solvers():
     np.testing.assert_allclose(tn.x.numpy(), np.asarray(jn.x), atol=1e-9)
 
 
+def test_batched_tangents_give_the_same_normal_equations():
+    # _normal_equations_batched (one vmapped jvp over the d tangents, the
+    # spherical tier's) against _normal_equations (a jvp a tangent), and the
+    # LM loop over it against levenberg_marquardt_batched.
+    from kikuchipy_tpu_torch.utils.optimize import (
+        _levenberg_marquardt_normal,
+        _normal_equations,
+        _normal_equations_batched,
+    )
+
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=(7, 2)))
+    scale = torch.linspace(0.5, 2.0, 7)[:, None].double()
+    want = _normal_equations(_scaled_torch, x, (scale, "rosenbrock"))
+    got = _normal_equations_batched(_scaled_torch, x, (scale, "rosenbrock"))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12, atol=1e-12)
+    res = _levenberg_marquardt_normal(lambda z: _normal_equations_batched(_scaled_torch, z, (scale, "rosenbrock")), x,
+                                      max_iters=50, ftol=1e-12)
+    ref = t_lm(_scaled_torch, x, max_iters=50, ftol=1e-12, args=(scale, "rosenbrock"))
+    np.testing.assert_allclose(res.x.numpy(), ref.x.numpy(), atol=1e-10)
+    np.testing.assert_array_equal(res.n_iter.numpy(), ref.n_iter.numpy())
+
+
 # ------------------------------ signatures ------------------------------ #
 
 # Module and the fewest public names it shares with the JAX package.
-SIGNATURE_MODULES = {"utils.optimize": 4, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6}
+SIGNATURE_MODULES = {"utils.optimize": 4, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6,
+                     "projection.spherical": 6}
+# JAX parameters a port leaves out on purpose (ROADMAP "Kept on purpose"):
+# the port's zyz stages take |m|, the sign and the flip as device index
+# tables, not as WignerTables fields.
+DROPPED = {("projection.spherical", "WignerTables"): {"m_abs", "m_onehot", "sigma"}}
 
 
 def _parameters(obj, drop_device: bool):
@@ -115,6 +144,9 @@ def test_ported_public_names_have_jax_signatures(module):
     for name in names:
         got = _parameters(getattr(port, name), drop_device=True)
         want = _parameters(getattr(jax_mod, name), drop_device=False)
+        dropped = DROPPED.get((module, name), set())
+        assert dropped <= {p[0] for p in want}, (module, name, dropped)
+        want = [p for p in want if p[0] not in dropped]
         assert got == want, (module, name, got, want)
 
 

@@ -66,6 +66,11 @@ def test_no_import_statement_names_jax():
         lambda: importlib.import_module("kikuchipy_tpu_torch.projection.master_pattern").direction_cosines_from_detector(
             kikuchipy_tpu_torch.EBSDDetector(shape=(4, 4))
         ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.projection.spherical").sh_basis(np.eye(3), 2),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.projection.spherical").SphericalProjector.from_master(
+            np.ones((2, 5, 5), np.float32), L=2
+        ),
+        lambda: kikuchipy_tpu_torch.EBSDMasterPattern(np.ones((2, 5, 5), np.float32)).spherical_projector(L=2),
     ],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
