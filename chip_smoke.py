@@ -145,6 +145,32 @@ the card's name and power limit, and the device check):
    synthesis product in TF32 and float32 against its FLOP bounds, and one
    evaluation's device time by kind of kernel beside the host's; the PC
    modes' product with the PC-linearized basis;
+5f. the global solvers on kernel F (``csrc/refine_population.cu``, through
+   ``ops/refine_population.py``) and the Nelder-Mead kernel:
+   ``[population-check]`` holds kernel F at the shapes the global phases
+   give it (one 2,048-point chunk at M = 1 and 24 in each mode, orientation
+   mode also with one set of direction cosines a point; the whole map at
+   M = 1 and 16 in the PC modes and at SHGO's M = 65 in every mode) bit for
+   bit against the objectives of ``ops/refine_nm.py`` and within 2e-6 of
+   its plain version (kernel B's criterion);
+   ``[refine-global]``, ``[refine-global-pc]`` and ``[refine-global-joint]``
+   run each ``EBSD.refine_*`` with ``method`` "de", "da", "bh" and "shgo" on
+   the whole static-corrected map (trust regions of 3 degrees and 0.02; the
+   PC modes from the PC off by (0.01, -0.01, 0.01)): launches of kernel F and
+   the Nelder-Mead kernel alone (kernel F none for "bh"), no point below its
+   start's score (exact: kernel F's value at the start), orientation under
+   0.8 degrees where DI came within 3 and the box of Euler angles about the
+   start holds the truth (at small Phi such a box can leave out a rotation 3
+   degrees away; the log gives the starts' Phi and the boxed Nelder-Mead's
+   results on the box's edge on both sides), PC inside the trust region and
+   its mean within 2e-3 of the truth (PC mode), the joint mean score no
+   lower than the joint Nelder-Mead's in the same box less 1e-3, and DE's
+   than Nelder-Mead's from the same starts less 1e-3; each call's time,
+   patterns/s, busy share,
+   generations or iterations and kernel F's launches and ms a launch;
+   ``[population-times]`` times kernel F at one DE generation of the whole
+   map against its bounds (issue slots, scattered taps) and plain version,
+   and holds it there as ``[population-check]`` does;
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -600,6 +626,8 @@ WRAPPERS = {
                   "levenberg_marquardt_orientation_projection_center"),
     "background": ("remove_background",),
     "ahe": ("clahe",),
+    "refine_population": ("population_orientation", "population_projection_center",
+                          "population_orientation_projection_center"),
 }
 
 
@@ -2177,6 +2205,350 @@ def device_busy(prof) -> tuple[float, list]:
     return sum(dev_time(e) for e in events) / 1e3, [(e.key, e.count, dev_time(e) / 1e3) for e in events]
 
 
+# ------------------------ the global solvers (kernel F) ------------------------ #
+
+GLOBAL_METHODS = ("de", "da", "bh", "shgo")
+# Trust regions of the global phases: 3 degrees about the DI top-1 (the
+# reference benchmark's), 0.02 about the PC off by PC_OFFSET.
+GLOBAL_TRUST = {"orientation": [3.0, 3.0, 3.0], "pc": [0.02] * 3, "joint": [3.0, 3.0, 3.0, 0.02, 0.02, 0.02]}
+POP_WRAPPER = {"orientation": "population_orientation", "pc": "population_projection_center",
+               "joint": "population_orientation_projection_center"}
+NM_WRAPPER = {"orientation": "nelder_mead_orientation", "pc": "nelder_mead_projection_center",
+              "joint": "nelder_mead_orientation_projection_center"}
+# Members of a DE population in each mode's refine_* (JAX's: 24 in
+# orientation mode, the solver's default 16 in the others): kernel F's shape.
+POP_M = {"orientation": 24, "pc": 16, "joint": 16}
+# Kernel F against its plain version (1 - NCC): kernel B's criterion
+# ([ncc-check]), since kernel F's values are kernel B's objective bit for bit
+# (a float32 sum over 3600 pixels in another order than PyTorch's; 4.17e-7
+# measured on 2,048 points); tests/test_torch_gpu.py holds the same. And the
+# global phases' mean score against Nelder-Mead's (JAX's criterion,
+# tests/test_refinement.py).
+POP_TOL = 2e-6
+GLOBAL_MEAN_TOL = 1e-3
+# Candidates a point of SHGO's one kernel F launch: 64 Halton samples and x0.
+SHGO_M = 65
+
+
+def euler_box_offsets(start_q, q, trust_deg) -> np.ndarray:
+    """Where each rotation of ``q`` lies in the box of Euler angles that
+    ``refine_orientation`` searches about ``start_q`` (the start's Bunge
+    angles, as ``to_euler`` gives them, +- ``trust_deg``): the largest
+    |offset from the start| over the three angles in half-widths, least over
+    ``q``'s symmetric equivalents (m-3m) and both Euler triples of each,
+    (phi1, Phi, phi2) and (phi1 + pi, -Phi, phi2 + pi), every angle modulo
+    2 pi. ``q`` is in the box where it is at most 1, on its edge at 1."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.sampling import _left_products
+    from kikuchipy_tpu_torch.crystallography.symmetry import get_point_group
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    e0 = tq.to_euler(torch.as_tensor(np.asarray(start_q), dtype=torch.float64)).numpy()
+    eq = _left_products(get_point_group("m-3m").rotations, np.asarray(q, dtype=np.float64))
+    e = tq.to_euler(torch.as_tensor(eq)).numpy()
+    alt = np.stack([e[..., 0] + np.pi, -e[..., 1], e[..., 2] + np.pi], axis=-1)
+    off = np.concatenate([e, alt], axis=1) - e0[:, None, :]
+    off = (off + np.pi) % (2 * np.pi) - np.pi
+    return (np.abs(off) / np.deg2rad(np.asarray(trust_deg, dtype=np.float64))).max(axis=2).min(axis=1)
+
+
+def population_problem(mode: str, x0, exp, sq, rot_q, quad, om, dc, geo, shape, M: int, seed: int):
+    """(wrapper, objective, plain, x (n, M, d), arguments) of kernel F in
+    ``mode``: ``M`` candidates about ``x0`` (the first ``x0`` itself)."""
+    import torch
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    n, d = x0.shape
+    scale = {"orientation": [np.deg2rad(0.5)] * 3, "pc": [0.005] * 3, "joint": [np.deg2rad(0.5)] * 3 + [0.005] * 3}
+    gen = torch.Generator(device=x0.device).manual_seed(seed)
+    noise = torch.randn((n, M, d), generator=gen, device=x0.device) * torch.tensor(scale[mode], dtype=torch.float32,
+                                                                                  device=x0.device)
+    x = (x0[:, None, :] + noise).contiguous()
+    x[:, 0] = x0
+    if mode == "orientation":
+        return (rp.population_orientation, rn.orientation_objective, rp.population_orientation_plain, x,
+                (exp, sq, dc, quad, *geo))
+    if mode == "pc":
+        return (rp.population_projection_center, rn.pc_objective, rp.population_projection_center_plain, x,
+                (exp, sq, rot_q, quad, om, None, *geo, *shape))
+    return (rp.population_orientation_projection_center, rn.joint_objective,
+            rp.population_orientation_projection_center_plain, x, (exp, sq, quad, om, None, *geo, *shape))
+
+
+def population_check(wrapper, objective, plain, x, args, label: str) -> tuple[float, str]:
+    """Kernel F on ``x`` against the objective of ops/refine_nm.py member by
+    member (kernel B over PyTorch's direction cosines on the card; bit for
+    bit) and against its plain version (within POP_TOL). Returns the largest
+    |kernel - plain| and a line for the log."""
+    import torch
+
+    got = wrapper(x, *args)
+    want = torch.stack([objective(x[:, m].contiguous(), *args) for m in range(x.shape[1])], dim=1)
+    ref = plain(x, *args)
+    torch.cuda.synchronize()
+    e_plain = float((got - ref).abs().max())
+    if not (torch.equal(got, want) and e_plain <= POP_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"kernel F {label}: against the objective max |diff| "
+                             f"{float((got - want).abs().max()):.3e} (must be 0), against the plain version "
+                             f"{e_plain:.3e} (limit {POP_TOL:g})")
+    return e_plain, f"{label}: bit for bit, plain {e_plain:.2e}"
+
+
+def population_checks(dev, exp, sq, euler0, rot_q, pc0, quad, om, dc, geo) -> tuple[dict, list[str]]:
+    """Kernel F at the shapes the global phases give it, against the
+    objectives and its plain version (population_check): on one navigation
+    chunk (orientation mode's DE and DA batches, M = 24 and 1) in each mode,
+    orientation mode also with one set of direction cosines a point; on the
+    whole map at PC and joint modes' DA and DE populations (M = 1 and 16)
+    and at SHGO's candidate sets in every mode (M = 65). Returns the largest
+    |kernel - plain| of each mode."""
+    import torch
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    n = exp.shape[0]
+    c = min(NAV_CHUNK, n)
+    err, msgs = {}, []
+    per_point = rn.pc_direction_cosines(pc0[:c] + 0.01 * (torch.rand((c, 3), generator=torch.Generator(
+        device=dev).manual_seed(81), device=dev) - 0.5), *DETECTOR_SHAPE, om).contiguous()
+    cases = [(mode, c, M, None) for mode in ("orientation", "pc", "joint") for M in (1, 24)]
+    cases += [("orientation", c, 1, per_point), ("orientation", c, 24, per_point)]
+    cases += [(mode, n, M, None) for mode in ("pc", "joint") for M in (1, POP_M[mode])]
+    cases += [(mode, n, SHGO_M, None) for mode in ("orientation", "pc", "joint")]
+    for mode, k, M, dc_case in cases:
+        x0 = {"orientation": euler0[:k], "pc": pc0[:k], "joint": torch.cat([euler0[:k], pc0[:k]], dim=1)}[mode]
+        wrapper, objective, plain, x, args = population_problem(
+            mode, x0, exp[:k], sq[:k], rot_q[:k], quad, om, dc if dc_case is None else dc_case, geo, DETECTOR_SHAPE,
+            M, 80 + M)
+        e_plain, msg = population_check(wrapper, objective, plain, x, args,
+                                        f"{mode} n={k} M={M}{' one dc a point' if dc_case is not None else ''}")
+        err[mode] = max(err.get(mode, 0.0), e_plain)
+        msgs.append(msg)
+    return err, msgs
+
+
+def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth, near, smi, exp, sq, euler0, rot_q,
+                             quad, om, dc, geo, sass, clock_mhz, sms, l2_rate):
+    """[population-check], [refine-global], [refine-global-pc],
+    [refine-global-joint] and [population-times]. Returns kernel F's rows of
+    the kernels line and each global call's Nelder-Mead launches by path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    n = exp.shape[0]
+    d = exp.shape[1]
+    pc0 = torch.as_tensor(np.tile(np.asarray(PC) + np.asarray(PC_OFFSET), (n, 1)), dtype=torch.float32, device=dev)
+    pop_err, check_msgs = population_checks(dev, exp, sq, euler0, rot_q, pc0, quad, om, dc, geo)
+    log("population-check", "kernel F (csrc/refine_population.cu) at the global phases' shapes against the objectives "
+        "of ops/refine_nm.py (bit for bit) and its plain version (within "
+        f"{POP_TOL:g}): " + "; ".join(check_msgs))
+
+    # Each point's start score: 1 - the objective at its start, kernel F at
+    # M = 1 on the whole map (bit for bit the Nelder-Mead kernel's).
+    start_x = {"orientation": euler0, "pc": pc0, "joint": torch.cat([euler0, pc0], dim=1)}
+    start_scores = {}
+    for mode in ("orientation", "pc", "joint"):
+        wrapper, _, _, x, args = population_problem(mode, start_x[mode], exp, sq, rot_q, quad, om, dc, geo,
+                                                    DETECTOR_SHAPE, 1, 0)
+        start_scores[mode] = 1.0 - wrapper(x, *args)[:, 0].cpu().numpy()
+    # The bases, Nelder-Mead from the same starts in the same boxes. The
+    # trust region is a box of Euler angles about the start's: a turn of w
+    # about an axis off the start's Euler axes can take up to w / sin(Phi) of
+    # phi1 and phi2, so about a start at small Phi the box can leave out a
+    # rotation within 3 degrees of the start. The orientation gate
+    # holds the near points whose box holds the truth, found from the truth
+    # and the start alone (euler_box_offsets); the log gives the starts' Phi
+    # and how many boxed Nelder-Mead results end on the box's edge, on both
+    # sides of that split.
+    nm_tr = static.refine_orientation(xmap=xmap, master_pattern=mp, trust_region=GLOBAL_TRUST["orientation"])
+    ang_nm_tr = np.degrees(disorientation_angle(truth, nm_tr.xmap.best_rotations, "m-3m"))
+    holds = euler_box_offsets(xmap.best_rotations, truth, GLOBAL_TRUST["orientation"]) <= 1.0
+    reach, shut = near & holds, near & ~holds
+    on_edge = euler_box_offsets(xmap.best_rotations, nm_tr.xmap.best_rotations,
+                                GLOBAL_TRUST["orientation"]) >= 1.0 - 1e-3
+    start_phi = np.degrees(tq.to_euler(torch.as_tensor(np.asarray(xmap.best_rotations), dtype=torch.float64))[:, 1].numpy())
+    nm_joint_scores = static.refine_orientation_projection_center(
+        xmap=xmap, detector=bad_det, master_pattern=mp, trust_region=GLOBAL_TRUST["joint"]).xmap.prop["scores"]
+
+    def split(values, fmt):
+        return {name: fmt(values[m]) if m.any() else "none" for name, m in (("truth in the box", reach),
+                                                                           ("truth outside", shut))}
+
+    log("refine-global", f"bases: of the {int(near.sum())} points DI put within {REFINE_START_DEG} deg, the Euler box "
+        f"{GLOBAL_TRUST['orientation']} about the start holds the truth on {int(reach.sum())}, not on "
+        f"{int(shut.sum())}; the start's Phi (deg) "
+        f"{split(start_phi, lambda v: f'median {np.median(v):.2f} max {v.max():.2f}, under 10 deg {(v < 10).mean():.1%}')}"
+        f"; the boxed Nelder-Mead's result on the box's edge "
+        f"{split(on_edge, lambda v: f'{int(v.sum())} of {v.size}')}, its disorientation to truth "
+        f"{split(ang_nm_tr, lambda v: f'max {v.max():.4f} deg, {int((v >= REFINE_MAX_DEG).sum())} at or past {REFINE_MAX_DEG}')}"
+        f"; its mean score {nm_tr.xmap.prop['scores'].mean():.6f}; the joint Nelder-Mead in the box "
+        f"{GLOBAL_TRUST['joint']}: mean score {nm_joint_scores.mean():.6f}")
+    start_kw = {"orientation": dict(xmap=xmap), "pc": dict(xmap=refined_xmap, detector=bad_det),
+                "joint": dict(xmap=xmap, detector=bad_det)}
+    call_name = {"orientation": "refine_orientation", "pc": "refine_projection_center",
+                 "joint": "refine_orientation_projection_center"}
+    pop_launches, nm_launches, pop_kernel_ms = {}, {}, {}
+    # Every call runs and reports before a failed gate ends the run.
+    failures = []
+    for mode, tag in (("orientation", "refine-global"), ("pc", "refine-global-pc"), ("joint", "refine-global-joint")):
+        call = getattr(static, call_name[mode])
+        kw = dict(master_pattern=mp, trust_region=GLOBAL_TRUST[mode], **start_kw[mode])
+        msgs = []
+        for method in GLOBAL_METHODS:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(method=method, **kw)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            counts = read_launches()
+            pops, nms = counts[POP_WRAPPER[mode]], counts[NM_WRAPPER[mode]]
+            others = {k: v for k, v in counts.items() if v and k not in (POP_WRAPPER[mode], NM_WRAPPER[mode])}
+            if others or nms < 1 or (pops < 1) != (method == "bh"):
+                raise AssertionError(f"{call_name[mode]}(method={method!r}) did not run on kernel F and the "
+                                     f"Nelder-Mead kernel alone: {counts}")
+            pop_launches[(mode, method)], nm_launches[(mode, method)] = pops, nms
+            scores, evals = res.xmap.prop["scores"], res.xmap.prop["num_evals"]
+            if res.xmap.best_rotations.shape != (n, 4) or not np.isfinite(scores).all():
+                raise AssertionError(f"{call_name[mode]}(method={method!r}) gave a bad crystal map")
+            below = int((scores < start_scores[mode]).sum())
+            if below:
+                failures.append(f"{call_name[mode]}(method={method!r}): {below} points end below their start's score")
+            ang = np.degrees(disorientation_angle(truth, res.xmap.best_rotations, "m-3m"))
+            gate = f"score >= the start's on all points; mean score {scores.mean():.6f}"
+            if mode == "orientation":
+                worst = np.flatnonzero(near)[np.argsort(ang[near])[-3:]]
+                past = ang >= REFINE_MAX_DEG
+                gate += (f"; disorientation to truth median {np.median(ang):.4f} deg, max over the {int(reach.sum())} "
+                         f"near points whose box holds the truth {ang[reach].max():.4f} (limit {REFINE_MAX_DEG}), "
+                         f"over all {int(near.sum())} DI put within {REFINE_START_DEG} deg {ang[near].max():.4f}; at "
+                         f"or past the limit {int(past[near].sum())} ({int(past[shut].sum())} of them among the "
+                         f"{int(shut.sum())} whose box leaves the truth out; the boxed Nelder-Mead "
+                         f"{int((ang_nm_tr[near] >= REFINE_MAX_DEG).sum())}); worst points {worst.tolist()} at "
+                         f"{ang[worst].round(3).tolist()} deg, the boxed Nelder-Mead "
+                         f"{ang_nm_tr[worst].round(3).tolist()}, start's Phi {start_phi[worst].round(2).tolist()} deg")
+                if not ang[reach].max() < REFINE_MAX_DEG:
+                    failures.append(f"refine_orientation(method={method!r}) missed: {gate}")
+                if method == "de":
+                    base = nm_tr.xmap.prop["scores"].mean()
+                    gate += f"; Nelder-Mead from the same starts {base:.6f} (limit: less {GLOBAL_MEAN_TOL:g})"
+                    if scores.mean() < base - GLOBAL_MEAN_TOL:
+                        failures.append(f"refine_orientation(method='de') below Nelder-Mead's mean: {gate}")
+            else:
+                pcs = res.detector.pc.reshape(-1, 3)
+                out = np.abs(pcs - pc0.cpu().numpy()).max(axis=0) - np.asarray(GLOBAL_TRUST[mode][-3:])
+                off = np.abs(pcs.mean(axis=0) - np.asarray(PC))
+                gate += (f"; mean PC {np.round(pcs.mean(axis=0), 6).tolist()} (off {np.round(off, 6).tolist()}, "
+                         f"limit {PC_TOL}), within the trust region (largest excess {out.max():.2e}), "
+                         f"disorientation to truth median {np.median(ang):.4f} deg")
+                # The mean PC gate is PC mode's; the joint mode's is its mean
+                # score (its polish crawls along the PC-rotation valley).
+                if not ((out <= 1e-6).all() and (mode == "joint" or (off < PC_TOL).all())):
+                    failures.append(f"{call_name[mode]}(method={method!r}) missed the PC: {gate}")
+                if mode == "joint":
+                    base = nm_joint_scores.mean()
+                    gate += (f"; the boxed joint Nelder-Mead's mean score {base:.6f} (limit: less "
+                             f"{GLOBAL_MEAN_TOL:g})")
+                    if scores.mean() < base - GLOBAL_MEAN_TOL:
+                        failures.append(f"joint {method}: mean score below the joint Nelder-Mead's: {gate}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(method=method, **kw)
+            torch.cuda.synchronize()
+            t_call = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(method=method, **kw)
+                torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) * 1e3
+            busy, events = device_busy(prof)
+            f_n = sum(cnt for k, cnt, _ in events if "refine_population_kernel" in k)
+            f_ms = sum(t for k, _, t in events if "refine_population_kernel" in k)
+            nm_ms = sum(t for k, _, t in events if "refine_nm_kernel" in k)
+            if f_n:
+                pop_kernel_ms[(mode, method)] = f_ms / f_n
+            # refine_orientation's nav_chunk batches (its default, NAV_CHUNK)
+            chunks = -(-n // NAV_CHUNK) if mode == "orientation" and method != "shgo" else 1
+            steps = {"de": f"generations {pops / chunks - 1:.1f} a batch", "da": f"iterations {pops / chunks - 1:.0f} a "
+                     "batch", "bh": f"{nms / chunks:.0f} Nelder-Mead launches a batch",
+                     "shgo": "65 candidates a point (64 Halton samples and the start)"}[method]
+            msgs.append(
+                f"{method}: first call {t_first:.3f} s, untraced {t_call * 1e3:.1f} ms = {n / t_call:.1f} patterns/s "
+                f"({chunks} batch{'es' if chunks > 1 else ''}); kernel F launches {pops} ({f_n} under the trace, "
+                f"{f_ms / max(f_n, 1):.4f} ms a launch, {f_ms:.1f} ms in all), Nelder-Mead kernel launches {nms} "
+                f"({nm_ms:.1f} ms); {steps}; num_evals mean {evals.mean():.1f} max {int(evals.max())}; under "
+                f"torch.profiler wall {traced:.1f} ms, device busy {busy:.1f} ms = {busy / traced:.1%} (of the untraced call's "
+                f"time {busy / (t_call * 1e3):.1%}); {gate}")
+        log(tag, f"{smi}: {call_name[mode]}(method=..., trust_region={GLOBAL_TRUST[mode]}) on the {n} static-corrected "
+            f"patterns: " + "; ".join(msgs))
+    if failures:
+        raise AssertionError("the global phases' gates: " + " | ".join(failures))
+
+    # Kernel F at the global solvers' shape: one DE generation of the whole
+    # map (M = POP_M), against its bounds and its plain version, and held to
+    # both as in [population-check].
+    rows, time_msgs = [], []
+    for mode in ("orientation", "pc", "joint"):
+        M = POP_M[mode]
+        wrapper, objective, plain, x, args = population_problem(mode, start_x[mode], exp, sq, rot_q, quad, om, dc,
+                                                                geo, DETECTOR_SHAPE, M, 90)
+        e_plain, check_msg = population_check(wrapper, objective, plain, x, args, f"{mode} n={n} M={M}")
+        pop_err[mode] = max(pop_err[mode], e_plain)
+        ms = cuda_ms(lambda: wrapper(x, *args), 3)
+        ms_plain = cuda_ms(lambda: plain(x, *args), 1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                wrapper(x, *args)
+            torch.cuda.synchronize()
+        _, events = device_busy(prof)
+        kernel_only = [t / cnt for k, cnt, t in events if "refine_population_kernel" in k and cnt]
+        pixels = n * M * d
+        dims = x.shape[2]
+        per_pixel_ops = OPS_PER_PIXEL + NCC_OPS_PER_PIXEL + (DC_OPS_PER_PIXEL if mode != "orientation" else 0)
+        t_ops = pixels * per_pixel_ops / PEAK_F32_FLOPS * 1e3
+        # each input read once (candidates, rows, norms, rotations, direction
+        # cosines or pixel table, quad texture), the values written once
+        in_bytes = 4 * (x.numel() + exp.numel() + n + (4 * n if mode == "pc" else 0)
+                        + (dc.numel() if mode == "orientation" else 2 * d) + quad.numel())
+        t_bytes = (in_bytes + 4 * n * M) / PEAK_BYTES * 1e3
+        per_pixel = sass["project_pixel"] + (sass["direction_cosine"] if mode != "orientation" else 0)
+        t_instr = instruction_ms(pixels, per_pixel, clock_mhz, sms)
+        taps = [pixels / rate * 1e3 for rate in SCATTERED_TAPS_PER_S[::-1]]
+        l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
+        by_path = {f"refine-global{'' if mode == 'orientation' else '-' + mode} {m}": pop_launches[(mode, m)]
+                   for m in GLOBAL_METHODS}
+        rows.append({
+            "name": POP_WRAPPER[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_population.cu",
+            "replaces": "kikuchipy_tpu/utils/optimize.py:883 eval_pop (and :505, :536, :753-756) over "
+                        "kikuchipy_tpu/indexing/refinement.py:"
+                        + {"orientation": "199 _objective_orientation", "pc": "422 _objective_pc",
+                           "joint": "442 _objective_joint"}[mode],
+            "launches": pop_launches[(mode, "de")], "max_abs_err": pop_err[mode], "ms": ms, "plain_ms": ms_plain,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_ms,
+            "instruction_bound_ms": t_instr, "split_ms": None,
+            "kernel_only_ms": kernel_only[0] if kernel_only else None, "de_launch_ms": pop_kernel_ms.get((mode, "de")),
+            "de_launch_points": NAV_CHUNK if mode == "orientation" else n,
+            "scattered_taps_ms": taps[0], "shape": f"n={n} M={M} d={dims} P={d}", "launches_by_path": by_path,
+            "note": "launches: the DE call's of its mode; ms, kernel_only_ms (torch.profiler) and the bounds at "
+                    "`shape`; de_launch_ms: the DE call's mean launch, at de_launch_points points a launch; "
+                    "max_abs_err: against the plain version over [population-check]'s cases and `shape` (bit for "
+                    "bit with the Nelder-Mead objectives)",
+        })
+        time_msgs.append(
+            f"{POP_WRAPPER[mode]} at n={n} M={M} (one DE generation; {check_msg}): {ms:.3f} ms, the kernel alone "
+            f"{rows[-1]['kernel_only_ms']} ms ({pixels / ms / 1e6:.3f} G projected "
+            f"pixels/s); bound {max(t_ops, t_bytes):.3f} ms by {rows[-1]['bound_by']}; issue slots {t_instr:.3f} ms at "
+            f"{per_pixel} SASS a pixel ({t_instr / ms:.1%}); scattered taps at {SCATTERED_TAPS_PER_S[0]:.3g}-"
+            f"{SCATTERED_TAPS_PER_S[1]:.3g}/s {taps[1]:.3f}-{taps[0]:.3f} ms ({taps[1] / ms:.1%}-{taps[0] / ms:.1%}); "
+            f"taps' bytes from L2 {l2_ms:.3f} ms; plain version {ms_plain:.1f} ms; no single PyTorch call computes it")
+    log("population-times", f"{smi}: " + "; ".join(time_msgs))
+    return rows, nm_launches
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2867,6 +3239,16 @@ def main(argv=None) -> int:
         row["launches_by_path"] = {"refine-lm": row["launches"], **{
             phase: c[LM_LOOP[mode]] for phase, c in sh_launches.items() if LM_LOOP[mode] in c}}
 
+    # ---- the global solvers in every mode, on kernel F and the Nelder-Mead kernel ----
+    global_rows, global_nm = global_refinement_phases(
+        dev, static, xmap, refined.xmap, bad_det, mp, truth, near, smi, exp_s, sq_s, euler_top1, rot_refined, quad, om,
+        dc, geo, sass, clock_mhz, sms, l2_rate)
+    nm_row["launches_by_path"] = {"refine": nm_row["launches"], **{
+        f"refine-global {m}": global_nm[("orientation", m)] for m in GLOBAL_METHODS}}
+    for mode, row in pc_rows.items():
+        row["launches_by_path"] = {f"refine-{mode}": row["launches"], **{
+            f"refine-global-{mode} {m}": global_nm[(mode, m)] for m in GLOBAL_METHODS}}
+
     # ---- this slice's path: prepared rows -> the four fused-kernel entry points ----
     metric = get_metric("ncc")
     exp_prep = metric.prepare(pre.data)
@@ -3121,6 +3503,7 @@ def main(argv=None) -> int:
                          f"{row['bound_ms'] / row['ms']:.2%} of it; instruction slots {row['instruction_bound_ms']:.4f} "
                          f"ms; taps from L2 {row['l2_bound_ms']:.4f} ms; plain version {row['plain_ms']:.3f} ms for "
                          f"{row['plain_points']} points; no single PyTorch call computes it)")
+    table.extend(global_rows)
     time_msgs.append(f"tf32_rows (both operands) {split_row['ms']:.3f} ms (bound {split_row['bound_ms']:.3f} ms by "
                      f"bytes, {split_row['bound_ms'] / split_row['ms']:.2%} of it; plain {split_row['plain_ms']:.3f} ms)")
     del exp_bf16, dict_bf16

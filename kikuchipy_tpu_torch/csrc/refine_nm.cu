@@ -39,7 +39,9 @@
 // sort's NaN-last stable order and argmin's first-NaN-or-first-minimum. In
 // the PC modes each pixel's direction cosine is project_pixel_pc of
 // lambert_common.cuh, rounded as the plain version's stated order. One
-// evaluation is kernel B's arithmetic on the same pixels in the same order:
+// evaluation (evaluate of refine_objective.cuh, which kernel F,
+// csrc/refine_population.cu, shares) is kernel B's arithmetic on the same
+// pixels in the same order:
 // 256 threads, each a strided set of pixels, its per-thread sums, the same
 // butterfly-then-warps reduction (lambert_common.cuh), 1 - num / sqrt(sq_norm
 // * ss) with num and ss summed over the pixels centred on the mean, never
@@ -94,7 +96,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "lambert_common.cuh"
+#include "refine_objective.cuh"
 
 // Blocks an SM the compiler must leave registers for: 4 caps a thread at 64
 // registers. Left to itself ptxas takes 120-137 registers, one or two
@@ -107,25 +109,14 @@
 
 namespace {
 
-enum Mode : int { kOrientation = 0, kPC = 1, kJoint = 2 };
-
-template <int kMode>
-__host__ __device__ constexpr int dims() { return kMode == kJoint ? 6 : 3; }
-
 struct Problem {
+    Objective ob;           // the rows, direction cosines or pixel table, geometry
     const float* x0;        // (n, d) starting points
     const float* step;      // (n, d) initial simplex edges
     const float* lower;     // (n, d) box, or null
     const float* upper;     // (n, d) box, or null
-    const float* exp;       // (n, P) centred experimental rows
-    const float* sq_norm;   // (n,) their squared norms
-    const float* dc;        // orientation: (P, 3), or (n, P, 3) with per_point_dc
-    const float* q0;        // PC mode: (n, 4) the points' fixed rotations
-    const float2* pix;      // PC and joint modes: (P,) each pixel's (column, row)
-    DetectorFrame det;      // PC and joint modes
-    Geometry g;
     float fatol, xatol;
-    int n, P, per_point_dc, max_iters;
+    int n, max_iters;
     float* x;               // (n, d) best point
     float* fun;             // (n,) its value
     int* n_iter;            // (n,) iterations taken
@@ -133,115 +124,6 @@ struct Problem {
     int* n_evals;           // (n,) objective evaluations made
     int* next;              // the queue: next point to take, 0 at launch
 };
-
-// --------------------------- one evaluation --------------------------- //
-
-// geometry/quaternion.py from_euler in PyTorch's order on the card.
-__device__ __forceinline__ void quat_from_euler(const float* e, float* q) {
-    const float sigma = __fmul_rn(0.5f, __fadd_rn(e[0], e[2]));
-    const float delta = __fmul_rn(0.5f, __fsub_rn(e[0], e[2]));
-    const float half_beta = __fmul_rn(0.5f, e[1]);
-    const float c = cosf(half_beta), s = sinf(half_beta);
-    q[0] = __fmul_rn(c, cosf(sigma));
-    q[1] = __fmul_rn(-s, cosf(delta));
-    q[2] = __fmul_rn(-s, sinf(delta));
-    q[3] = __fmul_rn(-c, sinf(sigma));
-    if (q[0] < 0.f) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) q[i] = -q[i];
-    }
-}
-
-// Two block-wide sums at once, each in block_reduce's order.
-__device__ __forceinline__ void block_sum2(float& a, float& b, float (*scratch)[kWarps]) {
-    for (int off = 16; off > 0; off >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        b += __shfl_xor_sync(0xffffffffu, b, off);
-    }
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    __syncthreads();
-    if (lane == 0) {
-        scratch[0][warp] = a;
-        scratch[1][warp] = b;
-    }
-    __syncthreads();
-    a = scratch[0][0];
-    b = scratch[1][0];
-    for (int w = 1; w < kWarps; ++w) {
-        a += scratch[0][w];
-        b += scratch[1][w];
-    }
-}
-
-struct Point {
-    const float* dc;     // orientation: this point's direction cosines (P, 3)
-    const float* row;    // its experimental row in device memory
-    const float* s_row;  // ... and in shared memory (kResident)
-    float* s_sim;        // its simulated pattern in shared memory (kResident)
-    float sq_norm;
-    float q0[4];         // PC mode: its fixed rotation
-};
-
-// 1 - NCC at x: kernel B's arithmetic on this mode's rotation and pixels.
-template <int kMode, bool kResident>
-__device__ __forceinline__ float evaluate(const float* x, const Point& pt, const Problem& pb,
-                                          float (*scratch)[kWarps]) {
-    float q[4];
-    if constexpr (kMode == kPC) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) q[i] = pt.q0[i];
-    } else {
-        quat_from_euler(x, q);
-    }
-    const Rot r = make_rot(q);
-    PcFrame fr{};
-    if constexpr (kMode != kOrientation) fr = pc_frame(x + (kMode == kJoint ? 3 : 0), pb.det);
-    const int P = pb.P;
-    auto pixel = [&](int p) {
-        int tap;
-        if constexpr (kMode == kOrientation) {
-            return project_pixel(r, pt.dc[3 * p], pt.dc[3 * p + 1], pt.dc[3 * p + 2], pb.g, tap);
-        } else {
-            const float2 cr = __ldg(pb.pix + p);
-            return project_pixel_pc(r, fr, pb.det, cr.x, cr.y, pb.g, tap);
-        }
-    };
-    float s = 0.f;
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        const float v = pixel(p);
-        if (kResident) pt.s_sim[p] = v;
-        s += v;
-    }
-    // The row's copy has landed before the mean's barriers publish it (a
-    // no-op after the point's first evaluation).
-    if (kResident) asm volatile("cp.async.wait_all;\n" ::: "memory");
-    const float mean = __fmul_rn(block_reduce(s, Sum(), scratch[0]), 1.f / (float)P);
-    float num = 0.f, ss = 0.f;
-    for (int p = threadIdx.x; p < P; p += kThreads) {
-        const float v = kResident ? pt.s_sim[p] : pixel(p);
-        const float d = __fsub_rn(v, mean);
-        num = fmaf(kResident ? pt.s_row[p] : pt.row[p], d, num);
-        ss = fmaf(d, d, ss);
-    }
-    block_sum2(num, ss, scratch);
-    return __fsub_rn(1.f, __fdiv_rn(num, sqrtf(__fmul_rn(pt.sq_norm, ss))));
-}
-
-// The point's centred row into shared memory, asynchronously.
-__device__ __forceinline__ void load_row_async(float* s_row, const float* row, int P) {
-    if ((P & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-        for (int c = threadIdx.x; c < P / 4; c += kThreads) {
-            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + 4 * c));
-            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(row + 4 * c) : "memory");
-        }
-    } else {
-        for (int p = threadIdx.x; p < P; p += kThreads) {
-            const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(s_row + p));
-            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(row + p) : "memory");
-        }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // ----------------------------- the simplex ----------------------------- //
 
@@ -338,7 +220,6 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
     __shared__ float scratch[2][kWarps];
     __shared__ float s_simplex[kVerts * (kDim + 1)];
     __shared__ int s_point;
-    const int P = pb.P;
     // torch.mean's factor over the best kDim vertices: float32 1/kDim.
     const float inv_d = 1.f / (float)kDim;
 
@@ -348,17 +229,8 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
         const int b = s_point;  // rewritten only after this point's barriers
         if (b >= pb.n) return;
 
-        Point pt;
-        pt.dc = pb.dc + (pb.per_point_dc ? 3LL * P * b : 0LL);
-        pt.row = pb.exp + (long long)P * b;
-        pt.s_row = smem;
-        pt.s_sim = smem + ((P + 3) & ~3);
-        pt.sq_norm = pb.sq_norm[b];
-        if constexpr (kMode == kPC) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pt.q0[i] = pb.q0[4 * b + i];
-        }
-        if (kResident) load_row_async(smem, pt.row, P);
+        const Point pt = point_at<kMode>(pb.ob, b, smem);
+        if (kResident) load_row_async(smem, pt.row, pb.ob.P);
 
         float x0[kDim], step[kDim], lo[kDim], hi[kDim];
 #pragma unroll
@@ -377,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 #pragma unroll
             for (int j = 0; j < kDim; ++j) xe[j] = i == j + 1 ? __fadd_rn(x0[j], step[j]) : x0[j];
             clip<kDim>(xe, lo, hi);
-            sx.put(i, xe, evaluate<kMode, kResident>(xe, pt, pb, scratch));
+            sx.put(i, xe, evaluate<kMode, kResident>(xe, pt, pb.ob, scratch));
         }
         int it = 0, evals = kVerts;
         bool done = false;
@@ -392,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
                 xr[j] = __fadd_rn(c[j], __fsub_rn(c[j], sx.v(kVerts - 1, j)));
             }
             clip<kDim>(xr, lo, hi);
-            const float fr = evaluate<kMode, kResident>(xr, pt, pb, scratch);
+            const float fr = evaluate<kMode, kResident>(xr, pt, pb.ob, scratch);
             ++evals;
 
             const bool expand = fr < best_v;
@@ -412,7 +284,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
                     }
                 }
                 clip<kDim>(x2, lo, hi);
-                f2 = evaluate<kMode, kResident>(x2, pt, pb, scratch);
+                f2 = evaluate<kMode, kResident>(x2, pt, pb.ob, scratch);
                 ++evals;
                 const bool contract_ok = contract_out ? f2 <= fr : f2 < worst_v;
                 use_x2 = expand ? f2 < fr : contract_ok;
@@ -435,7 +307,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 #pragma unroll
                     for (int j = 0; j < kDim; ++j) xs[j] = __fadd_rn(v0[j], __fmul_rn(0.5f, __fsub_rn(xs[j], v0[j])));
                     clip<kDim>(xs, lo, hi);
-                    sx.put(i, xs, evaluate<kMode, kResident>(xs, pt, pb, scratch));
+                    sx.put(i, xs, evaluate<kMode, kResident>(xs, pt, pb.ob, scratch));
                 }
                 evals += kDim;
             }
@@ -486,7 +358,7 @@ int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
 
 template <int kMode>
 int launch_mode(const Problem& pb, int resident, cudaStream_t stream) {
-    if (resident) return launch<kMode, true>(pb, 2 * sizeof(float) * (size_t)((pb.P + 3) & ~3), stream);
+    if (resident) return launch<kMode, true>(pb, resident_smem_bytes(pb.ob.P), stream);
     return launch<kMode, false>(pb, 0, stream);
 }
 
@@ -500,17 +372,14 @@ void set_common(Problem& pb, const void* x0, const void* step, const void* lower
                 void* converged, void* n_evals, void* next, int n, int P, int npx, int npy, float scale,
                 float inv_sqrt_pi_half, int max_iters, float fatol, float xatol) {
     pb = Problem{};
+    set_objective(pb.ob, exp, sq_norm, quad, P, npx, npy, scale, inv_sqrt_pi_half);
     pb.x0 = static_cast<const float*>(x0);
     pb.step = static_cast<const float*>(step);
     pb.lower = static_cast<const float*>(lower);
     pb.upper = static_cast<const float*>(upper);
-    pb.exp = static_cast<const float*>(exp);
-    pb.sq_norm = static_cast<const float*>(sq_norm);
-    pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
     pb.fatol = fatol;
     pb.xatol = xatol;
     pb.n = n;
-    pb.P = P;
     pb.max_iters = max_iters;
     pb.x = static_cast<float*>(x);
     pb.fun = static_cast<float*>(fun);
@@ -539,8 +408,8 @@ int refine_nm_launch(const void* euler0, const void* step, const void* lower, co
     Problem pb;
     set_common(pb, euler0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P,
                npx, npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
-    pb.dc = static_cast<const float*>(dc);
-    pb.per_point_dc = per_point_dc;
+    pb.ob.dc = static_cast<const float*>(dc);
+    pb.ob.per_point_dc = per_point_dc;
     return launch_mode<kOrientation>(pb, resident, static_cast<cudaStream_t>(stream));
 }
 
@@ -564,14 +433,9 @@ int refine_nm_pc_launch(int mode, const void* x0, const void* step, const void* 
     Problem pb;
     set_common(pb, x0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P, npx,
                npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
-    pb.q0 = static_cast<const float*>(q0);
-    pb.pix = static_cast<const float2*>(pix);
-    for (int k = 0; k < 3; ++k)
-        for (int j = 0; j < 3; ++j) pb.det.om[k][j] = om[3 * k + j];
-    pb.det.aspect = aspect;
-    pb.det.neg_aspect = neg_aspect;
-    pb.det.inv_ncols = inv_ncols;
-    pb.det.inv_nrows = inv_nrows;
+    pb.ob.q0 = static_cast<const float*>(q0);
+    pb.ob.pix = static_cast<const float2*>(pix);
+    set_detector(pb.ob, om, aspect, neg_aspect, inv_ncols, inv_nrows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return mode == kPC ? launch_mode<kPC>(pb, resident, s) : launch_mode<kJoint>(pb, resident, s);
 }

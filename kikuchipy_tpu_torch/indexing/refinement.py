@@ -4,7 +4,9 @@ Counterpart of ``kikuchipy_tpu/indexing/refinement.py``: every map point
 is refined at once, minimizing ``1 - NCC`` between the centred
 experimental pattern and the pattern projected at the candidate
 orientation and/or PC, by Nelder-Mead (``method="nm"``, one simplex a
-point), Levenberg-Marquardt (``"lm"``) or Adam descent (``"gradient"``).
+point), Levenberg-Marquardt (``"lm"``) or Adam descent (``"gradient"``),
+or a global search within the trust region followed by Nelder-Mead
+(``"de"``, ``"da"``, ``"bh"``, ``"shgo"``).
 
 Nelder-Mead:
 
@@ -53,10 +55,21 @@ and refinement in navigation chunks; and the spherical-harmonic projector
 JAX: the patterns are a coefficient rotation and one product
 (:mod:`kikuchipy_tpu_torch.projection.spherical`), the PC modes linearize
 the synthesis basis in the PC and end with a short bilinear LM polish, and
-the scores come from one bilinear projection at the solution. Not ported
-yet, and refused with ``NotImplementedError`` under the bilinear projector:
-the methods ``"de"``, ``"da"``, ``"bh"`` and ``"shgo"`` (under the
-spherical one they are JAX's ``ValueError``).
+the scores come from one bilinear projection at the solution. The global
+methods run with the bilinear projector (under the spherical one they are
+JAX's ``ValueError``).
+
+Global methods, through the loops of :mod:`kikuchipy_tpu_torch.utils.optimize`
+(differential evolution, dual annealing, basin hopping, SHGO) with JAX's
+settings: each population or candidate set is one launch of kernel F
+(:mod:`kikuchipy_tpu_torch.ops.refine_population`: ``population_orientation``,
+``population_projection_center``,
+``population_orientation_projection_center``) for the batch, and every local
+minimization (the polish after DE and DA, BH's hops, SHGO's starts) one
+launch of the Nelder-Mead kernel; on the CPU their plain versions. The
+random draws are the port's own (``torch.Generator``, seed 0), not
+``jax.random``'s. DE, DA and BH keep JAX's ``nav_chunk`` batches in
+orientation mode on every device.
 
 Where the JAX objectives take the master pattern, the port's take its
 quad texture (:func:`~kikuchipy_tpu_torch.projection.master_pattern.
@@ -100,6 +113,11 @@ from kikuchipy_tpu_torch.ops.refine_nm import (
     pc_direction_cosines,
     pc_objective,
 )
+from kikuchipy_tpu_torch.ops.refine_population import (
+    population_orientation,
+    population_orientation_projection_center,
+    population_projection_center,
+)
 from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
 from kikuchipy_tpu_torch.projection.spherical import (
     _outside_transforms,
@@ -114,8 +132,12 @@ from kikuchipy_tpu_torch.projection.spherical import (
 )
 from kikuchipy_tpu_torch.utils.device import matmul_precision
 from kikuchipy_tpu_torch.utils.optimize import (
+    _basinhopping,
+    _differential_evolution,
+    _dual_annealing,
     _levenberg_marquardt_normal,
     _normal_equations_batched,
+    _shgo,
     clip_blocks,
     nelder_mead_batched,
 )
@@ -172,19 +194,13 @@ def _normalize_method(method: str) -> str:
     )
 
 
-def _check_ported(method: str, projector: str) -> str:
-    """The normalized method, after the JAX package's checks; raise
-    ``NotImplementedError`` for what exists there but not here yet (the
-    global solvers with the bilinear projector; with the spherical one
-    their ``ValueError`` comes from its branch, as in JAX)."""
+def _check_method(method: str, projector: str) -> str:
+    """The normalized method, after the JAX package's checks of the method
+    and projector names (the spherical projector's refusal of the global
+    methods comes from its branch, as in JAX)."""
     m = _normalize_method(method)
     if projector not in ("bilinear", "spherical"):
         raise ValueError(f"projector must be 'bilinear' or 'spherical', got {projector!r}")
-    if projector == "bilinear" and m not in ("nm", "lm", "gradient"):
-        raise NotImplementedError(
-            f"method={method!r} ({m}) is not ported to kikuchipy_tpu_torch yet; "
-            "Nelder-Mead ('nm'), Levenberg-Marquardt ('lm') and 'gradient' are"
-        )
     return m
 
 
@@ -324,6 +340,43 @@ def _local_solve(method, evaluate, lm, n: int, d: int, device, max_iters: int, r
         return x, f, np.full(n, max_iters)
     res = lm(x0, *args, max_iters=min(max_iters, 30), ftol=rtol * 1e-2, blocks=blocks)
     return res.x, res.fun, res.n_iter.cpu().numpy()
+
+
+def _derivative_free(method, evaluate, minimize, x0, lb, ub, trust_region, initial_step, polish_step,
+                     max_iters: int, rtol: float, xatol: float, popsize: int, bh_step, refusal: str = ""):
+    """Every mode's derivative-free branch from ``x0 (n, d)``, as JAX's:
+    Nelder-Mead; ``"de"`` (``popsize`` members) or ``"da"`` (at least 200
+    iterations) in the box ``[lb, ub]``, then a Nelder-Mead polish of their
+    winner from ``polish_step`` for 50 iterations; ``"bh"`` (8 hops of
+    ``bh_step``, the optional box); ``"shgo"`` (the box). ``evaluate`` is the
+    mode's population objective (kernel F on the card), ``minimize`` its
+    Nelder-Mead wrapper (the Nelder-Mead kernel on the card) with
+    :func:`~kikuchipy_tpu_torch.utils.optimize.nelder_mead_batched`'s
+    keywords. Returns the result (``x``, ``fun``, ``n_iter``) and the global
+    solver's own count ``(n,)`` (its generations or iterations; 0 without
+    one), which ``num_evals`` adds."""
+    n_global = 0
+    if method in ("de", "da"):
+        if trust_region is None:
+            raise ValueError(
+                f"method={method!r} requires trust_region (the search bounds), as in the reference{refusal}"
+            )
+        if method == "de":
+            g = _differential_evolution(evaluate, lb, ub, x0, popsize, max_iters, 1e-3, 0.8, 0.9, 0)
+        else:
+            g = _dual_annealing(evaluate, lb, ub, x0, max(max_iters, 200), 5230.0, 2e-5, 2.62, -5.0, 0)
+        # SciPy's polish (differential_evolution(polish=True), dual_annealing's
+        # local search): Nelder-Mead from the winner in the same box.
+        x0, n_global, initial_step, max_iters = g.x, g.n_iter.cpu().numpy(), polish_step, 50
+    if method == "bh":
+        return _basinhopping(minimize, x0, 8, 1.0, bh_step, min(max_iters, 60), rtol, xatol, lb, ub, 0), n_global
+    if method == "shgo":
+        if trust_region is None:
+            raise ValueError("method='shgo' requires trust_region (shgo needs finite bounds, as in scipy)")
+        return _shgo(evaluate, minimize, lb, ub, x0, 64, 4, min(max_iters, 60), rtol, xatol), n_global
+    res = minimize(x0, initial_step=initial_step, max_iters=max_iters, fatol=rtol, xatol=xatol, lower_bounds=lb,
+                   upper_bounds=ub)
+    return res, n_global
 
 
 def _pc_shaped(pc: np.ndarray, nav_shape) -> np.ndarray:
@@ -806,14 +859,16 @@ def _batch_points(dev: torch.device, nav_chunk, per_point_pc: bool, method: str,
                   n_pixels: int):
     """Points a batch of :func:`refine_orientation` (None: the whole map).
     ``nav_chunk`` on the CPU, and on the card for the gradient method, whose
-    early stop is a test over its batch, and with one PC a point, whose
-    ``(nav_chunk, P, 3)`` direction cosines the chunks bound. Otherwise the
-    bilinear Nelder-Mead and Levenberg-Marquardt take the whole map (their
-    kernels hold a few bytes a point; their results do not depend on
-    chunking), and the spherical ones as many whole chunks as
+    early stop is a test over its batch, for ``"de"``, ``"da"`` and
+    ``"bh"``, whose draws are shaped by their batch (and DE's stop is a test
+    over it), and with one PC a point, whose ``(nav_chunk, P, 3)`` direction
+    cosines the chunks bound. Otherwise the bilinear Nelder-Mead,
+    Levenberg-Marquardt and SHGO take the whole map (their kernels hold a
+    few bytes a point; their results do not depend on chunking), and the
+    spherical ones as many whole chunks as
     :func:`_sh_batch` lets the free device memory hold (the allocator's
     cached blocks counted free)."""
-    if nav_chunk is None or dev.type == "cpu" or per_point_pc or method == "gradient":
+    if nav_chunk is None or dev.type == "cpu" or per_point_pc or method in ("gradient", "de", "da", "bh"):
         return nav_chunk
     if projector != "spherical":
         return None
@@ -856,7 +911,7 @@ def refine_orientation(
     ``"highest"``); single-PC detectors, ``method`` "lm", "nm" or
     "gradient", and trust regions up to 10 degrees.
     """
-    method = _check_ported(method, projector)
+    method = _check_method(method, projector)
     if navigation_mask is not None:
         return _refine_with_navigation_mask(
             refine_orientation,
@@ -931,14 +986,17 @@ def refine_orientation(
         lb = torch.as_tensor(euler0 - tr, dtype=_f32, device=dev)
         ub = torch.as_tensor(euler0 + tr, dtype=_f32, device=dev)
 
-    res = nelder_mead_orientation(
-        torch.as_tensor(euler0, dtype=_f32, device=dev), exp, sq_norm, dc.contiguous(), quad, npx, npy, scale,
-        initial_step=np.deg2rad(1.0), max_iters=max_iters, fatol=rtol, xatol=1e-4, lower_bounds=lb,
-        upper_bounds=ub,
+    # Hop scale for "bh": half the trust region, else 1 degree.
+    bh_step = np.deg2rad(float(np.max(trust_region))) / 2.0 if trust_region is not None else np.deg2rad(1.0)
+    obj = (exp, sq_norm, dc.contiguous(), quad, npx, npy, scale)
+    res, n_global = _derivative_free(
+        method, lambda x: population_orientation(x, *obj), lambda x, **kw: nelder_mead_orientation(x, *obj, **kw),
+        torch.as_tensor(euler0, dtype=_f32, device=dev), lb, ub, trust_region, np.deg2rad(1.0), np.deg2rad(0.25),
+        max_iters, rtol, 1e-4, 24, bh_step, " (_refinement.py:get_bound_constraints)",
     )
     refined_rot = quat.from_euler(res.x.to(torch.float64)).cpu().numpy()
     scores = 1.0 - res.fun.cpu().numpy()
-    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy(), nav_shape)
+    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy() + n_global, nav_shape)
     return RefinementResult(xmap=new_xmap, detector=detector)
 
 
@@ -997,7 +1055,7 @@ def refine_projection_center(
     PC shift (0.05 without one). ``projector="spherical"``: the
     spherical-harmonic tier with the synthesis basis linearized in the PC
     about the detector's average PC (:func:`_refine_pc_spherical`)."""
-    method = _check_ported(method, projector)
+    method = _check_method(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
     if navigation_mask is not None:
@@ -1045,15 +1103,18 @@ def refine_projection_center(
         lb = torch.as_tensor(pc0 - tr, device=dev)
         ub = torch.as_tensor(pc0 + tr, device=dev)
 
-    res = nelder_mead_projection_center(
-        torch.as_tensor(pc0, device=dev), exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols,
-        initial_step=0.01, max_iters=max_iters, fatol=rtol, xatol=1e-5, lower_bounds=lb, upper_bounds=ub,
+    bh_step = float(np.max(trust_region)) / 2.0 if trust_region is not None else 0.01
+    obj = (exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols)
+    res, n_global = _derivative_free(
+        method, lambda x: population_projection_center(x, *obj),
+        lambda x, **kw: nelder_mead_projection_center(x, *obj, **kw), torch.as_tensor(pc0, device=dev), lb, ub,
+        trust_region, 0.01, 0.0025, max_iters, rtol, 1e-5, 16, bh_step,
     )
     new_pc = res.x.cpu().numpy().astype(np.float64)
     new_detector = dataclasses.replace(detector, pc=_pc_shaped(new_pc, nav_shape))
     scores = 1.0 - res.fun.cpu().numpy()
     new_xmap = _finalize_xmap(
-        xmap, np.asarray(xmap.best_rotations), scores, res.n_iter.cpu().numpy(), nav_shape
+        xmap, np.asarray(xmap.best_rotations), scores, res.n_iter.cpu().numpy() + n_global, nav_shape
     )
     return RefinementResult(xmap=new_xmap, detector=new_detector)
 
@@ -1080,7 +1141,7 @@ def refine_orientation_projection_center(
     of each three bounds the norm of the rotation vector and of the PC
     shift (3 degrees and 0.05 without one). ``projector="spherical"``: the
     spherical-harmonic tier (:func:`_refine_joint_spherical`)."""
-    method = _check_ported(method, projector)
+    method = _check_method(method, projector)
     xmap = xmap if xmap is not None else signal.xmap
     detector = detector if detector is not None else signal.detector
     if navigation_mask is not None:
@@ -1134,22 +1195,28 @@ def refine_orientation_projection_center(
     x0 = np.concatenate([euler0, pc0], axis=1).astype(np.float32)
 
     lb = ub = None
+    # Hop scale for "bh": half of each trust-region width, else 1 degree and
+    # 0.01.
+    bh_step = np.asarray([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=np.float32)
     if trust_region is not None:
         tr = np.asarray(trust_region, dtype=np.float64).copy()
         tr[:3] = np.deg2rad(tr[:3])
         lb = torch.as_tensor(x0 - tr, dtype=_f32, device=dev)
         ub = torch.as_tensor(x0 + tr, dtype=_f32, device=dev)
-
-    res = nelder_mead_orientation_projection_center(
-        torch.as_tensor(x0, device=dev), exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols,
-        initial_step=torch.as_tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=_f32, device=dev),
-        max_iters=max_iters, fatol=rtol, xatol=1e-5, lower_bounds=lb, upper_bounds=ub,
+        bh_step = (tr / 2.0).astype(np.float32)
+    steps = [torch.as_tensor([np.deg2rad(deg)] * 3 + [pc] * 3, dtype=_f32, device=dev)
+             for deg, pc in ((1.0, 0.01), (0.25, 0.0025))]
+    obj = (exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols)
+    res, n_global = _derivative_free(
+        method, lambda x: population_orientation_projection_center(x, *obj),
+        lambda x, **kw: nelder_mead_orientation_projection_center(x, *obj, **kw), torch.as_tensor(x0, device=dev),
+        lb, ub, trust_region, steps[0], steps[1], max_iters, rtol, 1e-5, 16, bh_step,
     )
     x = res.x.cpu().numpy().astype(np.float64)
     refined_rot = quat.from_euler(torch.as_tensor(x[:, :3])).numpy()
     new_detector = dataclasses.replace(detector, pc=_pc_shaped(x[:, 3:], nav_shape))
     scores = 1.0 - res.fun.cpu().numpy()
-    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy(), nav_shape)
+    new_xmap = _finalize_xmap(xmap, refined_rot, scores, res.n_iter.cpu().numpy() + n_global, nav_shape)
     return RefinementResult(xmap=new_xmap, detector=new_detector)
 
 

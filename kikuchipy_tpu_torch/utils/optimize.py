@@ -23,23 +23,51 @@ it is the plain version of the Levenberg-Marquardt kernel, which on the
 card runs this loop for each element on its own in one launch.
 The result tuples have JAX's four fields; the kernels' wrappers return
 their own with the evaluations they made beside them.
-The global solvers of the JAX module (differential evolution, dual
-annealing, basin hopping, SHGO) are not ported yet.
+
+The global solvers of the same module, with JAX's arithmetic and order:
+:func:`differential_evolution_batched` (rand/1/bin),
+:func:`dual_annealing_batched` (generalized simulated annealing),
+:func:`basinhopping_batched` (hops between Nelder-Mead minimizations) and
+:func:`shgo_batched` (a scrambled Halton set, then Nelder-Mead from its best
+points). Each public form takes JAX's batched ``f(x, *args, *static_args)``;
+the loops themselves (``_differential_evolution``, ``_dual_annealing``,
+``_basinhopping``, ``_shgo``) take a population evaluation ``evaluate(x (n,
+M, d)) -> (n, M)`` and a local minimizer with :func:`nelder_mead_batched`'s
+keywords, so that refinement runs the same loops on kernel F
+(:mod:`kikuchipy_tpu_torch.ops.refine_population`) and the Nelder-Mead
+kernel. A solver runs on the device of its first tensor among the starts,
+the bounds and the objective's arguments; given none (NumPy bounds, as
+JAX's take), on the card, the port's default. Their random numbers come
+from a ``torch.Generator`` on the solver's device seeded with ``seed``, drawn only through :class:`_Draws` in JAX's
+order and shapes; JAX draws from ``jax.random``, whose streams the port does
+not reproduce, so a solver's path equals JAX's only where the same numbers
+are drawn (the tests replay JAX's through :func:`_draws`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
+from kikuchipy_tpu_torch.utils.device import resolve_device
+
 __all__ = [
+    "BHResult",
+    "DAResult",
+    "DEResult",
     "LMResult",
     "NelderMeadResult",
+    "SHGOResult",
+    "basinhopping_batched",
     "clip_blocks",
+    "differential_evolution_batched",
+    "dual_annealing_batched",
     "initial_step_per_element",
     "levenberg_marquardt_batched",
     "nelder_mead_batched",
+    "shgo_batched",
 ]
 
 
@@ -384,3 +412,466 @@ def _levenberg_marquardt_normal(
         it = it + (~done).to(torch.int32)
         done = done_new
     return LMResult(x=x, fun=f, n_iter=it, converged=done)
+
+
+# ------------------------------ the global solvers ------------------------------ #
+
+
+class _Draws:
+    """The global solvers' random numbers: a ``torch.Generator`` on ``device``
+    seeded with ``seed``, float32 uniforms and normals and int64 integers.
+    The solvers draw through these three methods only, in JAX's order and
+    shapes, so that a test can hand them JAX's numbers (:func:`_draws`)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def uniform(self, shape, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.generator, device=self.device)
+        return u if (low, high) == (0.0, 1.0) else u * (high - low) + low
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def randint(self, shape, high: int) -> torch.Tensor:
+        return torch.randint(0, high, shape, generator=self.generator, device=self.device)
+
+
+def _draws(seed: int, device) -> _Draws:
+    """The random numbers of one solver call."""
+    return _Draws(seed, device)
+
+
+class DEResult(NamedTuple):
+    x: torch.Tensor          # (n, d) best member per element
+    fun: torch.Tensor        # (n,) best value per element
+    n_iter: torch.Tensor     # (n,) generations until convergence
+    converged: torch.Tensor  # (n,) convergence mask
+
+
+class DAResult(NamedTuple):
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) best value per element
+    n_iter: torch.Tensor     # (n,) annealing iterations run
+    converged: torch.Tensor  # (n,) whether the temperature floor was hit
+
+
+class BHResult(NamedTuple):
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) best value per element
+    n_iter: torch.Tensor     # (n,) total local-minimizer iterations
+    converged: torch.Tensor  # (n,) all hops' local minimizations converged
+
+
+class SHGOResult(NamedTuple):
+    x: torch.Tensor          # (n, d) best point per element
+    fun: torch.Tensor        # (n,) best value per element
+    n_iter: torch.Tensor     # (n,) total local-minimizer iterations
+    converged: torch.Tensor  # (n,) all starts' local minimizations converged
+
+
+def _solver_device(*tensors) -> torch.device:
+    """The device of the first tensor among ``tensors`` (the starts, the
+    bounds, then the objective's arguments); with none, the port's default,
+    the card."""
+    ref = next((t for t in tensors if isinstance(t, torch.Tensor)), None)
+    return ref.device if ref is not None else resolve_device(None)
+
+
+def _box(lower_bounds, upper_bounds, x0, args: tuple):
+    """float32 bounds ``(n, d)`` and ``x0`` on the solver's device
+    (:func:`_solver_device` of ``x0``, the bounds and ``args``); ``x0`` or
+    2-D bounds fix ``(n, d)``."""
+    dev = _solver_device(x0, lower_bounds, upper_bounds, *args)
+    lb = torch.as_tensor(lower_bounds, dtype=torch.float32, device=dev)
+    ub = torch.as_tensor(upper_bounds, dtype=torch.float32, device=dev)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+        n, d = x0.shape
+    else:
+        if lb.ndim != 2:
+            raise ValueError("x0 or 2D bounds required to fix the batch size")
+        n, d = lb.shape
+    return torch.broadcast_to(lb, (n, d)), torch.broadcast_to(ub, (n, d)), x0
+
+
+def _population(f, args, static_args):
+    """A population evaluation ``(n, M, d) -> (n, M)`` from the batched
+    ``f(x, *args, *static_args)``: one call a member, as JAX's ``lax.map``."""
+    extra = (*args, *static_args)
+    return lambda x: torch.stack([f(x[:, m], *extra) for m in range(x.shape[1])], dim=1)
+
+
+def _local_nelder_mead(f, args, static_args):
+    """The global solvers' local minimizer over ``f``:
+    :func:`nelder_mead_batched` from ``x`` with the solver's keywords."""
+    return lambda x, **kw: nelder_mead_batched(f, x, args=args, static_args=static_args, **kw)
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA compiles JAX's ``c + a *
+    b`` inside a ``jit`` (a fused multiply-add): the float32 product is
+    exact in float64, so one float64 sum and the rounding to float32 give
+    it. ``b`` a tensor or a float32 value."""
+    return (a.double() * (b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))) + c.double()).float()
+
+
+def _differential_evolution(evaluate, lb, ub, x0, popsize: int, max_iters: int, tol: float, mutation: float,
+                            recombination: float, seed: int) -> DEResult:
+    """The loop of :func:`differential_evolution_batched` over a population
+    evaluation ``evaluate(x (n, M, d)) -> (n, M)``; ``lb``, ``ub`` ``(n,
+    d)`` float32, ``x0`` ``(n, d)`` or None. One host read a generation."""
+    n, d = lb.shape
+    dev = lb.device
+    draws = _draws(seed, dev)
+    pop = _fma(draws.uniform((n, popsize, d)), (ub - lb)[:, None, :], lb[:, None, :])
+    if x0 is not None:
+        pop[:, 0, :] = torch.clamp(x0, lb, ub)
+    energies = evaluate(pop)
+    lo, hi = lb[:, None, :], ub[:, None, :]
+    coords = torch.arange(d, device=dev)
+    it = torch.zeros(n, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def take(idx):
+        return torch.take_along_dim(pop, idx[..., None], dim=1)
+
+    # While some element runs, the oldest running one has taken every
+    # generation so far, so JAX's max(it) < max_iters is this loop's bound.
+    for _ in range(max_iters):
+        if bool(done.all()):
+            break
+        # rand/1: three members drawn with replacement (self-selection not
+        # excluded, as in JAX), and at least one mutant coordinate a trial.
+        r = draws.randint((3, n, popsize), popsize)
+        mutant = _fma(take(r[1]) - take(r[2]), mutation, take(r[0]))
+        cross = draws.uniform((n, popsize, d)) < recombination
+        forced = draws.randint((n, popsize), d)[..., None] == coords
+        trial = torch.clamp(torch.where(cross | forced, mutant, pop), lo, hi)
+        f_trial = evaluate(trial)
+        accept = (f_trial <= energies) & ~done[:, None]
+        pop = torch.where(accept[..., None], trial, pop)
+        energies = torch.where(accept, f_trial, energies)
+        mean_e = torch.mean(energies, dim=1)
+        done_new = done | (torch.std(energies, dim=1, correction=0) <= 1e-8 + tol * torch.abs(mean_e))
+        it = it + (~done).to(torch.int32)
+        done = done_new
+
+    best = torch.argmin(energies, dim=1)
+    x_best = torch.take_along_dim(pop, best[:, None, None], dim=1)[:, 0]
+    f_best = torch.take_along_dim(energies, best[:, None], dim=1)[:, 0]
+    return DEResult(x=x_best, fun=f_best, n_iter=it, converged=done)
+
+
+def differential_evolution_batched(
+    f: Callable[..., torch.Tensor],
+    lower_bounds,
+    upper_bounds,
+    x0=None,
+    popsize: int = 16,
+    max_iters: int = 60,
+    tol: float = 1e-3,
+    mutation: float = 0.8,
+    recombination: float = 0.9,
+    seed: int = 0,
+    args: tuple = (),
+    static_args: tuple = (),
+) -> DEResult:
+    """Batched differential evolution (rand/1/bin) over box bounds: an
+    independent population for every batch element, all in lockstep.
+
+    Parameters
+    ----------
+    f
+        Batched objective ``f(x, *args, *static_args)``: ``(n, d)`` points
+        to ``(n,)`` values, element ``i`` depending on row ``i`` only; called
+        once a member.
+    lower_bounds, upper_bounds
+        ``(n, d)`` or ``(d,)`` box (float32); the search stays in it.
+    x0
+        Optional ``(n, d)`` starts, member 0 of each population (clipped to
+        the box).
+    popsize, max_iters, tol
+        Members a population; generations; an element converges when the
+        spread of its energies ``std <= 1e-8 + tol * |mean|``, and the loop
+        stops when all have or after ``max_iters``.
+    mutation, recombination
+        Differential weight F and crossover probability CR.
+    seed
+        Seed of the solver's ``torch.Generator`` (JAX seeds ``jax.random``:
+        the numbers differ, the algorithm and its order of draws do not).
+    """
+    lb, ub, x0 = _box(lower_bounds, upper_bounds, x0, (*args, *static_args))
+    return _differential_evolution(_population(f, args, static_args), lb, ub, x0, popsize, max_iters, tol, mutation,
+                                   recombination, seed)
+
+
+def _floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.mod``: the remainder with the sign of ``b`` (C's ``fmod``, plus
+    ``b`` where the signs differ)."""
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+def _dual_annealing(evaluate, lb, ub, x0, max_iters: int, initial_temp: float, restart_temp_ratio: float,
+                    visit: float, accept: float, seed: int) -> DAResult:
+    """The loop of :func:`dual_annealing_batched` over a population
+    evaluation (one member an iteration). The temperature and the restart
+    test depend on the iteration alone, so they are float32 numbers on the
+    host, as JAX computes them; no host read an iteration."""
+    n, d = lb.shape
+    span = ub - lb
+    if x0 is None:
+        x0 = lb + 0.5 * span
+    draws = _draws(seed, lb.device)
+    f32 = np.float32
+    qv, qa = visit, accept
+    temp0 = f32(initial_temp * (2.0 ** (qv - 1.0) - 1.0))
+    t_restart = f32(initial_temp * restart_temp_ratio)
+    expo = (qv - 1.0) / (3.0 - qv)
+    inv_one_minus_qa = float(f32(1.0) / f32(1.0 - qa))
+    width = torch.clamp_min(span, 1e-12)
+
+    def fx(x):
+        return evaluate(x[:, None, :])[:, 0]
+
+    x_cur = x_best = x0
+    e_cur = e_best = fx(x0)
+    since_restart = 0
+    for _ in range(max_iters):
+        # The GSA schedule over the iterations since the last restart.
+        temp = temp0 / ((f32(2.0) + f32(since_restart)) ** f32(qv - 1.0) - f32(1.0))
+        # The visiting step: a gaussian over a gaussian to the power
+        # (qv - 1) / (3 - qv), its spread following (T / T0)^0.75. As XLA
+        # compiles JAX's expression: the quotient by the power as a product
+        # with the negative power (correctly rounded here), and the
+        # quotients by constants as products with their float32 reciprocals.
+        g1 = draws.normal((n, d))
+        g2 = draws.normal((n, d))
+        inv_den = (torch.clamp_min(torch.abs(g2), 1e-12).double() ** float(-f32(expo))).float()
+        scale = (temp * (f32(1.0) / f32(initial_temp))) ** f32(0.75)
+        step = torch.clamp(float(f32(0.5) * scale) * g1 * inv_den, -1e8, 1e8)
+        x_new = lb + _floor_mod(_fma(step, span, x_cur) - lb, width)
+        e_new = fx(x_new)
+        d_e = e_new - e_cur
+        # The generalized Metropolis test.
+        pqa = 1.0 - (1.0 - qa) * d_e / float(np.maximum(temp, f32(1e-12)))
+        p_accept = torch.where(pqa > 0.0, torch.exp(torch.log(torch.clamp_min(pqa, 1e-30)) * inv_one_minus_qa), 0.0)
+        take = (d_e < 0.0) | (draws.uniform((n,)) < p_accept)
+        x_cur = torch.where(take[:, None], x_new, x_cur)
+        e_cur = torch.where(take, e_new, e_cur)
+        x_best = torch.where((e_cur < e_best)[:, None], x_cur, x_best)
+        e_best = torch.minimum(e_cur, e_best)
+        # Re-anneal from the best point once the temperature falls below
+        # initial_temp * restart_temp_ratio.
+        if temp < t_restart:
+            x_cur, e_cur, since_restart = x_best, e_best, 0
+        else:
+            since_restart += 1
+    dev = lb.device
+    return DAResult(x=x_best, fun=e_best, n_iter=torch.full((n,), max(max_iters, 0), dtype=torch.int32, device=dev),
+                    converged=torch.ones(n, dtype=torch.bool, device=dev))
+
+
+def dual_annealing_batched(
+    f: Callable[..., torch.Tensor],
+    lower_bounds,
+    upper_bounds,
+    x0=None,
+    max_iters: int = 250,
+    initial_temp: float = 5230.0,
+    restart_temp_ratio: float = 2e-5,
+    visit: float = 2.62,
+    accept: float = -5.0,
+    seed: int = 0,
+    args: tuple = (),
+    static_args: tuple = (),
+) -> DAResult:
+    """Batched generalized simulated annealing (the dual-annealing family):
+    one chain a batch element, all in lockstep. JAX's formulation: the GSA
+    schedule ``T(t) = T0 (2^(qv-1) - 1) / ((2 + t)^(qv-1) - 1)``, a visiting
+    step of a gaussian over a gaussian to the power ``(qv-1)/(3-qv)``
+    scaled by ``0.5 (T/T0)^0.75`` times the box, the periodic wrap into the
+    box, the generalized Metropolis test with ``accept``, and restarts from
+    the best point below ``initial_temp * restart_temp_ratio``. Refinement
+    polishes the result with Nelder-Mead.
+
+    Parameters
+    ----------
+    f
+        Batched objective ``f(x, *args, *static_args)``, ``(n, d) -> (n,)``.
+    lower_bounds, upper_bounds
+        ``(n, d)`` or ``(d,)`` box.
+    x0
+        Optional ``(n, d)`` starts (the box's centre if not given).
+    max_iters, initial_temp, restart_temp_ratio, visit, accept
+        Iterations and the GSA parameters (SciPy's defaults).
+    seed
+        Seed of the solver's ``torch.Generator`` (not JAX's numbers).
+    """
+    lb, ub, x0 = _box(lower_bounds, upper_bounds, x0, (*args, *static_args))
+    return _dual_annealing(_population(f, args, static_args), lb, ub, x0, max_iters, initial_temp,
+                           restart_temp_ratio, visit, accept, seed)
+
+
+def _basinhopping(local_min, x0, niter: int, temperature: float, stepsize, local_max_iters: int, fatol: float,
+                  xatol: float, lower_bounds, upper_bounds, seed: int) -> BHResult:
+    """The loop of :func:`basinhopping_batched` over a local minimizer
+    ``local_min(x, max_iters=, fatol=, xatol=, lower_bounds=,
+    upper_bounds=)``."""
+    x0 = torch.as_tensor(x0, dtype=torch.float32)
+    n, d = x0.shape
+    dev = x0.device
+    step = torch.broadcast_to(torch.as_tensor(stepsize, dtype=torch.float32, device=dev), (d,))
+    lo = None if lower_bounds is None else torch.as_tensor(lower_bounds, dtype=x0.dtype, device=dev)
+    hi = None if upper_bounds is None else torch.as_tensor(upper_bounds, dtype=x0.dtype, device=dev)
+
+    def clip(x):
+        if lo is not None:
+            x = torch.maximum(x, lo)
+        if hi is not None:
+            x = torch.minimum(x, hi)
+        return x
+
+    def minimize(x):
+        return local_min(x, max_iters=local_max_iters, fatol=fatol, xatol=xatol, lower_bounds=lower_bounds,
+                         upper_bounds=upper_bounds)
+
+    res0 = minimize(x0)
+    x_cur, f_cur = res0.x, res0.fun
+    x_best, f_best = x_cur, f_cur
+    n_iter, converged = res0.n_iter, res0.converged
+    draws = _draws(seed, dev)
+    inv_t = 1.0 / max(float(temperature), 1e-12)
+    for _ in range(niter):
+        res = minimize(clip(x_cur + draws.uniform((n, d), -1.0, 1.0) * step))
+        # Metropolis: improvements always, uphill with exp(-(f_new - f_cur) / T).
+        p = torch.exp(torch.clamp_max(-(res.fun - f_cur) * inv_t, 0.0))
+        take = draws.uniform((n,)) < p
+        x_cur = torch.where(take[:, None], res.x, x_cur)
+        f_cur = torch.where(take, res.fun, f_cur)
+        x_best = torch.where((res.fun < f_best)[:, None], res.x, x_best)
+        f_best = torch.minimum(res.fun, f_best)
+        n_iter = n_iter + res.n_iter
+        converged = converged & res.converged
+    return BHResult(x=x_best, fun=f_best, n_iter=n_iter, converged=converged)
+
+
+def basinhopping_batched(
+    f: Callable[..., torch.Tensor],
+    x0,
+    niter: int = 10,
+    temperature: float = 1.0,
+    stepsize=0.5,
+    local_max_iters: int = 60,
+    fatol: float = 1e-5,
+    xatol: float = 1e-4,
+    lower_bounds=None,
+    upper_bounds=None,
+    seed: int = 0,
+    args: tuple = (),
+    static_args: tuple = (),
+) -> BHResult:
+    """Batched basin hopping: one chain a batch element. A Nelder-Mead
+    minimization from ``x0``, then ``niter`` hops of a uniform displacement
+    in ``[-stepsize, stepsize]`` a coordinate (clipped to the optional box),
+    a Nelder-Mead minimization and a Metropolis accept at ``temperature``;
+    the best point ever found is returned. SciPy's adaptive step size is
+    not reproduced (as in JAX).
+
+    Parameters
+    ----------
+    f
+        Batched objective ``f(x, *args, *static_args)``, ``(n, d) -> (n,)``.
+    x0
+        ``(n, d)`` starts.
+    niter, temperature, stepsize
+        Hops, the Metropolis temperature, the scalar or ``(d,)`` step.
+    local_max_iters, fatol, xatol
+        The local Nelder-Mead's iterations and tolerances.
+    lower_bounds, upper_bounds
+        Optional box for the hop candidates and the local minimizer.
+    seed
+        Seed of the solver's ``torch.Generator`` (not JAX's numbers).
+    """
+    dev = _solver_device(x0, lower_bounds, upper_bounds, *args, *static_args)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    return _basinhopping(_local_nelder_mead(f, args, static_args), x0, niter, temperature, stepsize, local_max_iters,
+                         fatol, xatol, lower_bounds, upper_bounds, seed)
+
+
+def _halton(d: int, n_samples: int) -> np.ndarray:
+    """SHGO's unit-cube samples ``(n_samples, d)`` float64: SciPy's
+    scrambled Halton set with JAX's seed 7."""
+    from scipy.stats import qmc
+
+    return qmc.Halton(d=d, scramble=True, seed=7).random(n_samples)
+
+
+def _shgo(evaluate, local_min, lb, ub, x0, n_samples: int, n_starts: int, local_max_iters: int, fatol: float,
+          xatol: float) -> SHGOResult:
+    """The loop of :func:`shgo_batched`: one population evaluation of every
+    candidate (``x0`` first, clipped to the box), then ``n_starts`` local
+    minimizations from each element's best candidates."""
+    n, d = lb.shape
+    dev = lb.device
+    unit = torch.as_tensor(_halton(d, n_samples), dtype=torch.float32, device=dev)
+    cand = lb[:, None, :] + unit[None, :, :] * (ub - lb)[:, None, :]  # (n, S, d)
+    if x0 is not None:
+        cand = torch.cat([torch.clamp(x0, lb, ub)[:, None, :], cand], dim=1)
+    order = torch.argsort(evaluate(cand), dim=1, stable=True)[:, :n_starts]
+    x_best = f_best = None
+    n_iter = torch.zeros(n, dtype=torch.int32, device=dev)
+    converged = torch.ones(n, dtype=torch.bool, device=dev)
+    for i in range(n_starts):
+        start = torch.take_along_dim(cand, order[:, i, None, None], dim=1)[:, 0]
+        res = local_min(start, max_iters=local_max_iters, fatol=fatol, xatol=xatol, lower_bounds=lb,
+                        upper_bounds=ub)
+        if x_best is None:
+            x_best, f_best = res.x, res.fun
+        else:
+            x_best = torch.where((res.fun < f_best)[:, None], res.x, x_best)
+            f_best = torch.minimum(res.fun, f_best)
+        n_iter = n_iter + res.n_iter
+        converged = converged & res.converged
+    return SHGOResult(x=x_best, fun=f_best, n_iter=n_iter, converged=converged)
+
+
+def shgo_batched(
+    f: Callable[..., torch.Tensor],
+    lower_bounds,
+    upper_bounds,
+    x0=None,
+    n_samples: int = 64,
+    n_starts: int = 4,
+    local_max_iters: int = 60,
+    fatol: float = 1e-5,
+    xatol: float = 1e-4,
+    args: tuple = (),
+    static_args: tuple = (),
+) -> SHGOResult:
+    """Batched SHGO-style global search over box bounds (SciPy's
+    ``sampling_method='sobol'`` mode, as JAX has it): a scrambled Halton set
+    of ``n_samples`` unit-cube points (SciPy's ``qmc.Halton``, seed 7)
+    scaled to each element's box, plus ``x0`` when given; the ``n_starts``
+    best candidates of each element each start a bounded Nelder-Mead, and
+    the best result wins. Deterministic: no random draws.
+
+    Parameters
+    ----------
+    f
+        Batched objective ``f(x, *args, *static_args)``, ``(n, d) -> (n,)``.
+    lower_bounds, upper_bounds
+        ``(n, d)`` or ``(d,)`` finite box.
+    x0
+        Optional ``(n, d)`` known-good starts, candidate 0 (clipped).
+    n_samples, n_starts
+        Samples an element; candidates polished.
+    local_max_iters, fatol, xatol
+        The local Nelder-Mead's iterations and tolerances.
+    """
+    lb, ub, x0 = _box(lower_bounds, upper_bounds, x0, (*args, *static_args))
+    return _shgo(_population(f, args, static_args), _local_nelder_mead(f, args, static_args), lb, ub, x0, n_samples,
+                 n_starts, local_max_iters, fatol, xatol)

@@ -1629,3 +1629,146 @@ def test_spherical_refinement_leaves_the_tf32_flag_as_it_was(cuda):
                 assert torch.backends.cuda.matmul.allow_tf32 is flag
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+# Kernel F (csrc/refine_population.cu), the population objective of the global
+# solvers: it evaluates with the Nelder-Mead kernel's own code
+# (csrc/refine_objective.cuh), so on the card its values are the objectives'
+# of ops/refine_nm.py (kernel B over PyTorch's direction cosines) bit for bit,
+# and within POP_TOL of its plain version (the objectives in PyTorch
+# operations): kernel B's criterion, as kernel F's values are kernel B's
+# objective, a float32 sum over the pixels in another order than PyTorch's;
+# chip_smoke.py's [population-check] holds the same.
+POP_TOL = 2e-6
+
+
+def _population_inputs(device, mode: str, case: str, M: int):
+    """(wrapper, objective, plain, x (n, M, d), arguments) on the Nelder-Mead
+    tests' inputs, the candidates spread about the starts."""
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    gen = torch.Generator(device=device).manual_seed(70)
+    if mode == "orientation":
+        args, _ = _nm_inputs(device, case)
+        x0, args = args[0], args[1:]
+        fns = (rp.population_orientation, rn.orientation_objective, rp.population_orientation_plain)
+        spread = torch.full((3,), np.deg2rad(0.5), device=device)
+    else:
+        _, _, x0, args, _ = _pc_inputs(device, mode, case)
+        if mode == "pc":
+            fns = (rp.population_projection_center, rn.pc_objective, rp.population_projection_center_plain)
+            spread = torch.full((3,), 0.005, device=device)
+        else:
+            fns = (rp.population_orientation_projection_center, rn.joint_objective,
+                   rp.population_orientation_projection_center_plain)
+            spread = torch.tensor([np.deg2rad(0.5)] * 3 + [0.005] * 3, dtype=torch.float32, device=device)
+    n, d = x0.shape
+    noise = torch.randn((n, M, d), generator=gen, device=device) * spread
+    x = (x0[:, None, :] + noise).contiguous()
+    x[:, 0] = x0  # the start is a member
+    return (*fns, x, args)
+
+
+@pytest.mark.parametrize("mode, case", [("orientation", "shared"), ("orientation", "masked"),
+                                        ("orientation", "per_point"), ("orientation", "over_budget"),
+                                        ("orientation", "one"), ("pc", "shared"), ("pc", "masked"),
+                                        ("pc", "over_budget"), ("joint", "shared"), ("joint", "p1000"),
+                                        ("joint", "one")])
+@pytest.mark.parametrize("M", [1, 24])
+def test_population_kernel_is_the_nelder_mead_objective_bit_for_bit(cuda, mode, case, M):
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    wrapper, objective, plain, x, args = _population_inputs(cuda, mode, case, M)
+    before = (wrapper.launches, lp.lambert_project_ncc.launches)
+    got = wrapper(x, *args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1 and lp.lambert_project_ncc.launches == before[1]
+    n = x.shape[0]
+    assert got.shape == (n, M) and got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = torch.stack([objective(x[:, m].contiguous(), *args) for m in range(M)], dim=1)
+    ref = plain(x, *args)
+    print(f"{mode} {case} M={M}: equal to the objective on {float((got == want).float().mean()):.4f}, max |diff| "
+          f"{float((got - want).abs().max()):.3e}; against the plain version {float((got - ref).abs().max()):.3e}")
+    assert torch.equal(got, want)
+    assert float((got - ref).abs().max()) <= POP_TOL
+
+
+def test_population_kernel_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    wrapper, _, _, x, args = _population_inputs(cuda, "orientation", "shared", 2)
+    with pytest.raises(ValueError, match="must be a"):
+        wrapper(x[:, :0], *args)
+    with pytest.raises(TypeError, match="float32"):
+        wrapper(x.double(), *args)
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x, args[0].cpu(), *args[1:])
+    # The launcher's own checks: no candidates, or no direction cosines.
+    out = torch.empty((x.shape[0], 2), device=cuda)
+    fn = rp._function()
+    err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), 0, None, None, None,
+             args[3].data_ptr(), out.data_ptr(), x.shape[0], 0, args[0].shape[1], 101, 101, 50.0, 1.0, 0.0, 0.0, 0.0,
+             0.0, 1, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), None, 0, None, None, None, args[3].data_ptr(),
+             out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1,
+             torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+@pytest.mark.parametrize("fn", ["refine_orientation", "refine_projection_center",
+                                "refine_orientation_projection_center"])
+def test_global_refinement_on_the_card_goes_through_kernel_f_and_the_nelder_mead_kernel(cuda, fn):
+    # A 64-point scan projected by kernel A at known orientations, refined
+    # from 1 degree off (and the PC off by (0.01, -0.01, 0.01)) with each
+    # global method: populations and candidate sets are launches of kernel
+    # F, local minimizations launches of the Nelder-Mead kernel, kernel B
+    # never runs. SHGO draws nothing and matches the CPU's run; the others
+    # draw from another generator on each device, and are held to the truth
+    # in orientation mode.
+    from kikuchipy_tpu_torch import EBSD, EBSDMasterPattern
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle, super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    master, _, _, _, det = _projection_state(cuda)
+    truth = super_fibonacci(64 * 7)[::7][:64]
+    axes = torch.as_tensor(np.random.default_rng(48).normal(size=(64, 3)))
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.0)), torch.as_tensor(truth)).numpy()
+    bad = dataclasses.replace(det, pc=np.asarray([0.42, 0.28, 0.5]) + [0.01, -0.01, 0.01])
+    mode = {"refine_orientation": "orientation", "refine_projection_center": "pc"}.get(fn, "joint")
+    wrapper = {"orientation": rp.population_orientation, "pc": rp.population_projection_center,
+               "joint": rp.population_orientation_projection_center}[mode]
+    nm = {"orientation": rn.nelder_mead_orientation, "pc": rn.nelder_mead_projection_center,
+          "joint": rn.nelder_mead_orientation_projection_center}[mode]
+    trust = {"orientation": [2.0] * 3, "pc": [0.02] * 3, "joint": [2.0] * 3 + [0.02] * 3}[mode]
+    kw = dict(xmap=CrystalMap(rotations=truth if mode == "pc" else start), master_pattern=None, trust_region=trust,
+              max_iters=20)
+    if mode != "orientation":
+        kw["detector"] = bad
+    results = {}
+    for dev in ("cpu", cuda):
+        mp = EBSDMasterPattern(master, device=dev)
+        signal = EBSD(mp.get_patterns(truth, det).data, detector=det, device=dev)
+        for method in ("de", "da", "bh", "shgo") if dev != "cpu" else ("shgo",):
+            before = (wrapper.launches, nm.launches, lp.lambert_project_ncc.launches)
+            res = getattr(signal, fn)(method=method, **dict(kw, master_pattern=mp))
+            after = (wrapper.launches, nm.launches, lp.lambert_project_ncc.launches)
+            on_card = str(dev) != "cpu"
+            assert after[2] == before[2]
+            assert (after[0] > before[0]) == (on_card and method != "bh") and (after[1] > before[1]) == on_card
+            results[(str(dev), method)] = res
+            assert np.isfinite(res.xmap.prop["scores"]).all()
+    ang = np.degrees(disorientation_angle(results[("cpu", "shgo")].xmap.best_rotations,
+                                          results[("cuda", "shgo")].xmap.best_rotations, "m-3m"))
+    ds = np.abs(results[("cpu", "shgo")].xmap.prop["scores"] - results[("cuda", "shgo")].xmap.prop["scores"])
+    print(f"{fn} shgo: card against CPU max angle {ang.max():.4f} deg, max |dscore| {ds.max():.2e}")
+    assert ang.max() < 0.05 and ds.max() < 1e-4
+    for method in ("de", "da", "bh", "shgo"):
+        if mode == "orientation":
+            to_truth = np.degrees(disorientation_angle(truth, results[("cuda", method)].xmap.best_rotations, "m-3m"))
+            assert to_truth.max() < 0.8, (method, to_truth.max())

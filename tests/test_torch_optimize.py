@@ -114,7 +114,7 @@ def test_batched_tangents_give_the_same_normal_equations():
 # ------------------------------ signatures ------------------------------ #
 
 # Module and the fewest public names it shares with the JAX package.
-SIGNATURE_MODULES = {"utils.optimize": 4, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6,
+SIGNATURE_MODULES = {"utils.optimize": 12, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6,
                      "projection.spherical": 6}
 # JAX parameters a port leaves out on purpose (ROADMAP "Kept on purpose"):
 # the port's zyz stages take |m|, the sign and the flip as device index
@@ -148,6 +148,18 @@ def test_ported_public_names_have_jax_signatures(module):
         assert dropped <= {p[0] for p in want}, (module, name, dropped)
         want = [p for p in want if p[0] not in dropped]
         assert got == want, (module, name, got, want)
+
+
+@pytest.mark.parametrize("solver, result", [("differential_evolution_batched", "DEResult"),
+                                            ("dual_annealing_batched", "DAResult"),
+                                            ("basinhopping_batched", "BHResult"), ("shgo_batched", "SHGOResult")])
+def test_global_solvers_and_results_have_jax_signatures_and_fields(solver, result):
+    port = importlib.import_module("kikuchipy_tpu_torch.utils.optimize")
+    jax_mod = importlib.import_module("kikuchipy_tpu.utils.optimize")
+    assert solver in port.__all__ and result in port.__all__
+    assert _parameters(getattr(port, solver), False) == _parameters(getattr(jax_mod, solver), False)
+    assert getattr(port, result)._fields == getattr(jax_mod, result)._fields == ("x", "fun", "n_iter", "converged")
+    assert set(port.__all__) >= set(jax_mod.__all__)
 
 
 def test_every_jax_public_name_of_the_preprocessing_modules_is_ported():

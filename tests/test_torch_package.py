@@ -71,12 +71,44 @@ def test_no_import_statement_names_jax():
             np.ones((2, 5, 5), np.float32), L=2
         ),
         lambda: kikuchipy_tpu_torch.EBSDMasterPattern(np.ones((2, 5, 5), np.float32)).spherical_projector(L=2),
+        # The global solvers with NumPy bounds and starts, as JAX's take them.
+        lambda: importlib.import_module("kikuchipy_tpu_torch.utils.optimize").differential_evolution_batched(
+            _sphere, -np.ones((2, 3)), np.ones((2, 3)), max_iters=1
+        ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.utils.optimize").dual_annealing_batched(
+            _sphere, -np.ones((2, 3)), np.ones((2, 3)), max_iters=1
+        ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.utils.optimize").basinhopping_batched(
+            _sphere, np.zeros((2, 3)), niter=1, local_max_iters=1
+        ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.utils.optimize").shgo_batched(
+            _sphere, -np.ones((2, 3)), np.ones((2, 3)), n_samples=4, n_starts=1, local_max_iters=1
+        ),
     ],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def _sphere(x, *args):
+    return (x * x).sum(dim=1) + sum(a.sum() for a in args)
+
+
+@pytest.mark.parametrize("solver", ["differential_evolution_batched", "dual_annealing_batched",
+                                    "basinhopping_batched", "shgo_batched"])
+def test_global_solvers_run_where_their_tensors_are(monkeypatch, solver):
+    # NumPy bounds and starts: the device of the objective's tensors.
+    from kikuchipy_tpu_torch.utils import optimize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    box = dict(lower_bounds=-np.ones((2, 3)), upper_bounds=np.ones((2, 3)))
+    kw = {"differential_evolution_batched": dict(box, max_iters=1), "dual_annealing_batched": dict(box, max_iters=1),
+          "basinhopping_batched": dict(x0=np.full((2, 3), 0.5), niter=1, local_max_iters=2),
+          "shgo_batched": dict(box, n_samples=4, n_starts=1, local_max_iters=2)}[solver]
+    res = getattr(optimize, solver)(_sphere, args=(torch.zeros(1),), **kw)
+    assert res.x.device.type == "cpu" and res.x.shape == (2, 3) and bool(torch.isfinite(res.fun).all())
 
 
 def test_direction_cosines_default_to_the_ports_device():
@@ -161,7 +193,7 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
     assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm",
-                         "background", "clahe"}
+                         "background", "clahe", "refine_population"}
     text = {name: path.read_text() for name, path in srcs.items()}
     # Kernel D replaces _remove_background and the separable blur, kernel E
     # _clahe_batch with its blend weights; both without fast math.
@@ -182,8 +214,18 @@ def test_kernel_sources_and_build_directory():
         assert what in text["refine_nm"], what
     for what in ("refine_lm_kernel", "jac_and_res", "_project_at", "project_pixel_pc"):
         assert what in text["refine_lm"], what
-    for name in ("lambert_project", "refine_nm", "refine_lm"):
-        assert '#include "lambert_common.cuh"' in text[name] and "float project_pixel(" not in text[name], name
+    # Kernel F replaces the global solvers' population evaluations over the
+    # same objectives, and evaluates with the Nelder-Mead kernel's own code.
+    for what in ("refine_population_kernel", "eval_pop", "_objective_orientation", "_objective_pc", "_objective_joint"):
+        assert what in text["refine_population"], what
+    objective = (PKG / "csrc" / "refine_objective.cuh").read_text()
+    assert '#include "lambert_common.cuh"' in objective and "float evaluate(" in objective and "cp.async" in objective
+    for name in ("refine_nm", "refine_population"):
+        assert '#include "refine_objective.cuh"' in text[name] and "float evaluate(" not in text[name], name
+    for name in ("lambert_project", "refine_lm"):
+        assert '#include "lambert_common.cuh"' in text[name], name
+    for name in ("lambert_project", "refine_nm", "refine_lm", "refine_population"):
+        assert "float project_pixel(" not in text[name], name
     assert "float project_pixel(" in (PKG / "csrc" / "lambert_common.cuh").read_text()
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]

@@ -216,8 +216,8 @@ def test_orientation_with_pseudo_symmetry(state):
                                 "refine_orientation_projection_center"])
 def test_jax_refusals(state, fn):
     # JAX's ValueErrors, raised by both packages: a global solver under the
-    # spherical projector (not the port's NotImplementedError for the
-    # bilinear one), and in the rotating modes a trust region past 10
+    # spherical projector (the bilinear one runs it), and in the rotating
+    # modes a trust region past 10
     # degrees; an unknown sh_precision is a KeyError in both.
     tr = {"refine_orientation": [12.0] * 3, "refine_projection_center": None,
           "refine_orientation_projection_center": [12.0] * 3 + [0.01] * 3}[fn]

@@ -371,9 +371,20 @@ def test_chunked_equals_unchunked(state):
 @pytest.mark.parametrize("fn", ["refine_orientation", "refine_projection_center",
                                 "refine_orientation_projection_center"])
 def test_unported_methods_raise(state, method, fn):
+    # The global methods run in every mode (tests/test_torch_refine_global.py
+    # holds them against JAX); without a trust region "de", "da" and "shgo"
+    # raise JAX's ValueError, and "bh" runs.
     t = state["t"]
-    with pytest.raises(NotImplementedError, match=f"method='{method}'.*not ported"):
-        getattr(t["s"], fn)(master_pattern=t["mp"], xmap=t["x"], method=method)
+    kw = {}
+    if tr._normalize_method(method) != "bh":
+        for side in ("t", "j"):
+            with pytest.raises(ValueError, match=f"method='{tr._normalize_method(method)}' requires trust_region"):
+                getattr(state[side]["s"], fn)(master_pattern=state[side]["mp"], xmap=state[side]["x"], method=method)
+        kw["trust_region"] = {"refine_orientation": [2.0] * 3, "refine_projection_center": [0.01] * 3}.get(
+            fn, [2.0] * 3 + [0.01] * 3)
+    res = getattr(t["s"], fn)(master_pattern=t["mp"], xmap=t["x"], method=method, max_iters=2, **kw)
+    assert res.xmap.best_rotations.shape == (16, 4) and np.isfinite(res.xmap.prop["scores"]).all()
+    assert (res.xmap.prop["num_evals"] > 0).all()
 
 
 @pytest.mark.parametrize("fn", ["refine_orientation", "refine_projection_center",
