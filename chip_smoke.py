@@ -171,6 +171,29 @@ the card's name and power limit, and the device check):
    ``[population-times]`` times kernel F at one DE generation of the whole
    map against its bounds (issue slots, scattered taps) and plain version,
    and holds it there as ``[population-check]`` does;
+5g. the workflow around the main path: ``[sampling]`` runs
+   ``sample_fundamental_zone`` and ``get_sample_fundamental`` at the main
+   path's 2 degrees on the card (three calls each, the counts 107,129 and
+   95,655, the device busy share, the kept rows equal to the CPU's at 6
+   degrees); ``[neighbours]`` runs ``EBSD.average_neighbour_patterns`` on
+   the 16,384-pattern scan (one launch of kernel G, ``csrc/neighbours.cu``
+   through ``ops/neighbours.py`` ``average_neighbours``, and nothing else)
+   and holds kernel G bit for bit against its plain version with five
+   windows there, on maps of 1 x 1, 1 x 128, 128 x 1, 3 x 3 and 9 x 11 with
+   60 x 60 and 1 x 16 patterns, and from and to uint16 and float32;
+   ``[neighbours-times]`` times it warm and with L2 flushed against its
+   bytes and float64 bounds, its plain version and a depthwise ``conv2d``
+   that computes the same weighted mean (timed only); ``[calibration]``
+   takes the PC mode's refined PCs through ``extrapolate_pc`` and
+   ``fit_pc`` (the fitted plane within the refined PCs' scatter of the
+   extrapolated one, the sample tilt within a degree), projects the map
+   with the fitted PCs (one launch of kernel A; its first 256 patterns
+   within one gray on at most 1% of the pixels of the CPU's), merges the
+   main path's map with a DI map against a 4-degree cubochoric dictionary
+   tagged as a second phase (the merged phase the per-point best mean of
+   three scores) and holds the OSM of the main path's map and of a map of
+   8 x 8-point grains made from its lists against a direct count at 64
+   points (the grains' insides at ``keep_n``);
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -628,6 +651,7 @@ WRAPPERS = {
     "ahe": ("clahe",),
     "refine_population": ("population_orientation", "population_projection_center",
                           "population_orientation_projection_center"),
+    "neighbours": ("average_neighbours",),
 }
 
 
@@ -2245,8 +2269,8 @@ def euler_box_offsets(start_q, q, trust_deg) -> np.ndarray:
     from kikuchipy_tpu_torch.geometry import quaternion as tq
 
     e0 = tq.to_euler(torch.as_tensor(np.asarray(start_q), dtype=torch.float64)).numpy()
-    eq = _left_products(get_point_group("m-3m").rotations, np.asarray(q, dtype=np.float64))
-    e = tq.to_euler(torch.as_tensor(eq)).numpy()
+    eq = _left_products(torch.as_tensor(get_point_group("m-3m").rotations), torch.as_tensor(q, dtype=torch.float64))
+    e = tq.to_euler(eq).numpy()
     alt = np.stack([e[..., 0] + np.pi, -e[..., 1], e[..., 2] + np.pi], axis=-1)
     off = np.concatenate([e, alt], axis=1) - e0[:, None, :]
     off = (off + np.pi) % (2 * np.pi) - np.pi
@@ -2550,6 +2574,352 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
     return rows, nm_launches
 
 
+# ------------- the workflow around the main path (sampling, kernel G, calibration) ------------- #
+
+# Orientations kept at 2 degrees in m-3m: the spiral of the main path's
+# dictionary and the cubochoric grid (both JAX's counts on the CPU).
+SPIRAL_COUNT = 107_129
+CUBOCHORIC_COUNT = 95_655
+# float64 outside the tensor cores (H100 SXM data sheet): kernel G's sums.
+PEAK_F64_FLOPS = 34e12
+# Kernel G's windows in [neighbours]: the default first (the EBSD call's).
+NEIGHBOUR_WINDOWS = {
+    "circular 3x3": dict(window="circular", window_shape=(3, 3)),
+    "rectangular 2x3": dict(window="rectangular", window_shape=(2, 3)),
+    "gaussian 3x3 std 2": dict(window="gaussian", window_shape=(3, 3), std=2),
+    "(3,)": dict(window=None, window_shape=(3,)),
+    "5x5 rectangular": dict(window="rectangular", window_shape=(5, 5)),
+}
+# Coarser dictionary of the second phase in [calibration] (cubochoric grid).
+COARSE_RESOLUTION_DEG = 4.0
+# Points of the fitted-PC projection held against the CPU in [calibration].
+CALIBRATION_CPU_POINTS = 256
+
+
+def sampling_phase(smi: str) -> list[str]:
+    """``[sampling]``: the spiral and cubochoric samplings of the
+    fundamental zone at the main path's 2 degrees on the card: three calls
+    each (host clock around a synchronised call), the counts, the device
+    busy share of one call under ``torch.profiler``, and the kept rows equal
+    to the CPU's at 6 degrees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kikuchipy_tpu_torch.crystallography import sampling as ts
+
+    msgs = []
+    for name, want in (("sample_fundamental_zone", SPIRAL_COUNT), ("get_sample_fundamental", CUBOCHORIC_COUNT)):
+        fn = getattr(ts, name)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = fn(RESOLUTION_DEG, "m-3m")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        norm_off = float(np.abs(np.linalg.norm(q, axis=1) - 1).max())
+        if q.shape != (want, 4) or not np.isfinite(q).all() or norm_off > 1e-12:
+            raise AssertionError(f"{name}({RESOLUTION_DEG}): shape {q.shape} (want ({want}, 4)), |q| off 1 by "
+                                 f"{norm_off:.3g}")
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(RESOLUTION_DEG, "m-3m")
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy, events = device_busy(prof)
+        card, cpu = fn(6.0, "m-3m"), fn(6.0, "m-3m", device="cpu")
+        if card.shape != cpu.shape or float(np.abs(card - cpu).max()) > 1e-12:
+            raise AssertionError(f"{name}(6.0) on the card {card.shape} differs from the CPU's {cpu.shape}")
+        host = ""
+        if name == "sample_fundamental_zone":
+            semi = int(np.ceil(131.97049 / (RESOLUTION_DEG - 0.03732)))
+            t0 = time.perf_counter()
+            ts.super_fibonacci((2 * semi + 1) ** 3)
+            host = f"; the spiral on the host alone {(time.perf_counter() - t0) * 1e3:.1f} ms"
+        msgs.append(f"{name}({RESOLUTION_DEG}, 'm-3m') on the card: {q.shape[0]} orientations (limit: {want}); calls "
+                    f"{', '.join(f'{t:.1f}' for t in times)} ms (the first with the CUDA context's first use of these "
+                    f"operations){host}; under torch.profiler wall {wall:.1f} ms, device busy {busy:.2f} ms "
+                    f"({busy / wall:.1%}; {len(events)} kernel names: "
+                    + "; ".join(f"{k[:40]} x{c} {t:.3f} ms" for k, c, t in events[:4])
+                    + f"), {busy / np.median(times[1:]):.1%} of the untraced calls' median; at 6 degrees "
+                    f"{card.shape[0]} rows, equal to the CPU's within 1e-12")
+    return msgs
+
+
+def neighbours_library(p, w):
+    """Kernel G's function through library calls, timed only (the port
+    never calls it): a depthwise ``conv2d`` over the map with the pixels as
+    channels in IEEE float32, the same of ones for the per-point weight sum,
+    the quotient, the per-pattern min/max rescale to uint8."""
+    import torch
+    import torch.nn.functional as F
+
+    ny, nx, sy, sx = p.shape
+    kh, kw = w.shape
+    oy, ox = kh // 2, kw // 2
+    pad = (ox, kw - 1 - ox, oy, kh - 1 - oy)
+    x = p.reshape(ny, nx, sy * sx).permute(2, 0, 1).to(torch.float32)[None]
+    wt = torch.as_tensor(w, dtype=torch.float32, device=p.device)
+    acc = F.conv2d(F.pad(x, pad), wt.expand(sy * sx, 1, kh, kw), groups=sy * sx)
+    norm = F.conv2d(F.pad(torch.ones((1, 1, ny, nx), device=p.device), pad), wt[None, None])
+    out = (acc / norm)[0].permute(1, 2, 0)
+    lo, hi = out.amin(dim=-1, keepdim=True), out.amax(dim=-1, keepdim=True)
+    return ((out - lo) / (hi - lo) * 255.0).to(torch.uint8).reshape(ny, nx, sy, sx)
+
+
+def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, list[str], list[str]]:
+    """``[neighbours]``: ``EBSD.average_neighbour_patterns`` on the main
+    path's 16,384-pattern scan (one launch of kernel G), then kernel G
+    against its plain version bit for bit on the scan with each window of
+    NEIGHBOUR_WINDOWS, on the edge shapes (maps of 1 x 1, 1 x N, N x 1 and
+    3 x 3, 1 x 16 patterns) and other storage types. ``[neighbours-times]``:
+    kernel G at the main path's shape warm and with L2 flushed, its bounds,
+    its plain version, and the library yardstick. ``main_count`` is kernel
+    G's launches in the main path's run. Returns kernel G's row, and both
+    phases' messages."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+    from kikuchipy_tpu_torch.utils.device import matmul_precision
+
+    p = scan.data
+    ny, nx, sy, sx = p.shape
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = scan.average_neighbour_patterns()
+    torch.cuda.synchronize()
+    t_call = (time.perf_counter() - t0) * 1e3
+    counts = read_launches()
+    if counts["average_neighbours"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"EBSD.average_neighbour_patterns was not one launch of kernel G alone: {counts}")
+    if avg.data.dtype != torch.uint8 or tuple(avg.data.shape) != tuple(p.shape):
+        raise AssertionError(f"average_neighbour_patterns gave {avg.data.dtype} {tuple(avg.data.shape)}")
+    max_err = 0.0
+
+    def check(label, data, kw, dtype_out=None):
+        nonlocal max_err
+        w = ng._resolve_window(kw.get("window"), kw.get("window_shape", (3, 3)),
+                               **{k: v for k, v in kw.items() if k not in ("window", "window_shape")})
+        offsets, weights = ng.window_taps(w)
+        dtype_out = data.dtype if dtype_out is None else dtype_out
+        got = ng.average_neighbours(data, offsets, weights, dtype_out)
+        ref = ng.average_neighbours_plain(data, offsets, weights, dtype_out)
+        torch.cuda.synchronize()
+        diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
+        max_err = max(max_err, float(diff.nan_to_num(0.0).max()))
+        same = got.dtype == ref.dtype and got.shape == ref.shape and bool(
+            torch.equal(torch.isnan(got), torch.isnan(ref)) if got.is_floating_point() else True)
+        if got.is_floating_point():
+            bits = {torch.float32: torch.int32}[got.dtype]
+            keep = ~torch.isnan(ref)
+            same = same and torch.equal(got.view(bits)[keep], ref.view(bits)[keep])
+        else:
+            same = same and torch.equal(got, ref)
+        if not same:
+            raise AssertionError(f"kernel G differs from its plain version on {label}: max {float(diff.max())}, "
+                                 f"{int((diff > 0).sum())} of {diff.numel()} values")
+        return got
+
+    default = dict(NEIGHBOUR_WINDOWS["circular 3x3"])
+    if not torch.equal(check("the EBSD call's window", p, default), avg.data):
+        raise AssertionError("the EBSD call and the wrapper give different patterns")
+    cases = [f"the {ny} x {nx} scan, {name}" for name in NEIGHBOUR_WINDOWS]
+    for name, kw in NEIGHBOUR_WINDOWS.items():
+        check(f"the scan, {name}", p, kw)
+    rng = np.random.default_rng(11)
+    edge = [((1, 1), (60, 60)), ((1, 128), (60, 60)), ((128, 1), (60, 60)), ((3, 3), (60, 60)), ((3, 3), (1, 16)),
+            ((9, 11), (1, 16))]
+    for nav, sig in edge:
+        data = torch.as_tensor(rng.integers(0, 256, size=nav + sig, dtype=np.uint8), device=device)
+        for name, kw in NEIGHBOUR_WINDOWS.items():
+            check(f"map {nav}, patterns {sig}, {name}", data, kw)
+        cases.append(f"map {nav} x patterns {sig} (5 windows)")
+    sub = p[:32, :32]
+    for dtype_in, dtype_out in ((torch.uint16, torch.uint16), (torch.float32, torch.float32),
+                                (torch.uint8, torch.float32), (torch.float32, torch.uint8)):
+        data = (sub.to(torch.int32) * (257 if dtype_in == torch.uint16 else 1)).to(dtype_in)
+        check(f"{dtype_in} -> {dtype_out}", data, NEIGHBOUR_WINDOWS["gaussian 3x3 std 2"], dtype_out)
+        cases.append(f"32 x 32 of the scan {str(dtype_in)[6:]} -> {str(dtype_out)[6:]}")
+    check_msg = (f"EBSD.average_neighbour_patterns() on the main path's {ny * nx} patterns: one launch of kernel G "
+                 f"({counts['average_neighbours']}), {t_call:.2f} ms first call; kernel G == its plain version bit "
+                 f"for bit on {len(cases)} cases: " + "; ".join(cases))
+
+    # ---- times ----
+    w = ng._resolve_window("circular", (3, 3))
+    offsets, weights = ng.window_taps(w)
+    kernel = lambda: ng.average_neighbours(p, offsets, weights, torch.uint8)  # noqa: E731
+    plain = lambda: ng.average_neighbours_plain(p, offsets, weights, torch.uint8)  # noqa: E731
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    ms = cuda_ms(kernel, 20, lead_ms=2.0)
+    ms_cold = cuda_ms_cold(kernel, 20, flush)
+    plain_ms = cuda_ms(plain, 3)
+    with matmul_precision(False):
+        library_ms = cuda_ms(lambda: neighbours_library(p, w), 5)
+        lib_out = neighbours_library(p, w)
+    lib_diff = (lib_out.to(torch.int16) - kernel().to(torch.int16)).abs()
+    del flush
+    n, npix = ny * nx, sy * sx
+    t_bytes = 2 * n * npix / PEAK_BYTES * 1e3
+    t_ops = n * npix * 2 * len(weights) / PEAK_F64_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {
+        "name": "average_neighbours", "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/neighbours.cu",
+        "replaces": "kikuchipy_tpu/ops/neighbors.py:57 _average_impl under :78 average_neighbour_patterns",
+        "launches": counts["average_neighbours"],
+        "launches_by_path": {"main": main_count, "neighbours": counts["average_neighbours"]},
+        "max_abs_err": max_err, "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
+        "shape": f"map {ny} x {nx}, patterns {sy} x {sx} uint8 -> uint8, {len(weights)} taps",
+        "note": "launches: the EBSD.average_neighbour_patterns call's, launches_by_path main: the main path's run; "
+                "max_abs_err: the largest |kernel - plain| over [neighbours]' cases; ms with launches back to back, ms_cold with L2 flushed before "
+                "each; library: depthwise conv2d over the map, the pixels as channels, IEEE float32, the quotient "
+                "and the rescale (timed only)",
+    }
+    times_msg = (f"{smi}: kernel G at map {ny} x {nx}, 60 x 60 uint8, {len(weights)} taps: {ms:.4f} ms warm, "
+                 f"{ms_cold:.4f} ms cold (bound {bound:.4f} ms by {row['bound_by']}: bytes {t_bytes:.4f} ms for "
+                 f"{2 * n * npix / 1e6:.1f} MB, float64 operations {t_ops:.4f} ms at {PEAK_F64_FLOPS / 1e12:g} TFLOP/s; "
+                 f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it); plain {plain_ms:.3f} ms; library (depthwise conv2d, "
+                 f"float32, timed only) {library_ms:.3f} ms, its uint8 output within {int(lib_diff.max())} gray of "
+                 f"kernel G's on {float((lib_diff > 0).float().mean()):.4%} of the pixels")
+    return row, [check_msg], [times_msg]
+
+
+def calibration_phase(smi: str, mp, det, pre, xmap, refined_pc) -> tuple[list[str], dict[str, int]]:
+    """``[calibration]``: the main path's refined PCs (PC mode, one a point)
+    through ``extrapolate_pc`` and ``fit_pc``, then ``get_patterns`` with the
+    fitted PCs (one launch of kernel A, its first points against the CPU);
+    ``merge_crystal_maps`` of the main path's map with a DI map against a
+    coarser cubochoric dictionary tagged as a second phase (the merged phase
+    is the per-point best mean score); the OSM of the main path's map
+    against a direct count on sampled points. Returns the messages and the
+    phase's kernel launches."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography import sampling as ts
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase, PhaseList
+    from kikuchipy_tpu_torch.indexing import merge_crystal_maps, orientation_similarity_map
+    from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern
+
+    msgs = []
+    nav = (SCAN_SIDE, SCAN_SIDE)
+    idx = np.stack(np.indices(nav).astype(float))
+    t0 = time.perf_counter()
+    # A 192 um square map at 1.5 um steps on 70 um pixels binned 8 times:
+    # the PC moves by about 3e-3 over it.
+    ex = refined_pc.extrapolate_pc(idx.reshape(2, -1).T, nav, (1.5, 1.5), px_size=70.0, binning=8)
+    scatter = refined_pc.pc.reshape(nav + (3,)) - refined_pc.pc_average
+    noisy = dataclasses.replace(ex, pc=ex.pc + scatter)
+    fit = noisy.fit_pc(idx, idx, transformation="projective")
+    fit_aff = noisy.fit_pc(idx, idx, transformation="affine")
+    t_fit = (time.perf_counter() - t0) * 1e3
+    off = np.abs(fit.pc - ex.pc).max(axis=(0, 1))
+    scatter_max = np.abs(scatter).max(axis=(0, 1))
+    if fit.pc.shape != nav + (3,) or not np.isfinite(fit.pc).all() or (off > scatter_max).any():
+        raise AssertionError(f"fit_pc: shape {fit.pc.shape}, off the extrapolated plane by {off.tolist()} (limit: the "
+                             f"refined PCs' scatter {scatter_max.tolist()})")
+    # The affine fit regresses each PC on the map indices, which the scatter
+    # does not depend on; the projective fit takes its plane from the PC
+    # cloud itself, so correlated scatter tilts it: its tilt is reported.
+    if abs(fit_aff.sample_tilt - det.sample_tilt) > 1.0:
+        raise AssertionError(f"fit_pc's affine sample tilt {fit_aff.sample_tilt:.3f} deg, the detector's "
+                             f"{det.sample_tilt}")
+    corr = np.corrcoef(scatter.reshape(-1, 3).T)
+    msgs.append(f"extrapolate_pc from the PC mode's {refined_pc.navigation_size} refined PCs (mean "
+                f"{np.round(refined_pc.pc_average, 6).tolist()}) over the {nav} map at 1.5 um steps (70 um pixels, "
+                f"binning 8; PC range {np.round(np.ptp(ex.pc.reshape(-1, 3), axis=0), 6).tolist()}), plus the refined "
+                f"PCs' scatter (max {np.round(scatter_max, 6).tolist()}), fit_pc projective / affine: fitted plane "
+                f"within {np.round(off, 7).tolist()} of the extrapolated one (limit: the scatter), sample tilt "
+                f"{fit.sample_tilt:.4f} / {fit_aff.sample_tilt:.4f} deg (limit on the affine fit's: {det.sample_tilt} "
+                f"+- 1; the scatter's correlations x-y {corr[0, 1]:.3f}, x-z {corr[0, 2]:.3f}, y-z {corr[1, 2]:.3f}), "
+                f"{t_fit:.1f} ms on the host")
+
+    reset_launches()
+    rot = xmap.best_rotations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = mp.get_patterns(rot, fit, dtype_out=np.uint8, chunk_size=8192)
+    torch.cuda.synchronize()
+    t_proj = (time.perf_counter() - t0) * 1e3
+    counts = read_launches()
+    if counts["lambert_project"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"get_patterns with one PC a point was not one launch of kernel A alone: {counts}")
+    launches = dict(counts)
+    k = CALIBRATION_CPU_POINTS
+    cpu_mp = EBSDMasterPattern(mp.data, phase=mp.phase, device="cpu")
+    cpu_det = dataclasses.replace(fit, pc=fit.pc.reshape(-1, 3)[:k])
+    ref = cpu_mp.get_patterns(rot[:k], cpu_det, dtype_out=np.uint8, chunk_size=64).data.numpy()
+    got = sim.data.reshape(-1, *DETECTOR_SHAPE)[:k].cpu().numpy()
+    gray = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    if gray.max() > 1 or (gray > 0).mean() > GRAY_SHARE:
+        raise AssertionError(f"get_patterns with the fitted PCs: {gray.max()} gray off the CPU's on "
+                             f"{(gray > 0).mean():.4%} of {k} patterns' pixels")
+    msgs.append(f"{smi}: get_patterns({rot.shape[0]} rotations, the fitted detector's {fit.navigation_size} PCs, uint8): "
+                f"one launch of kernel A, {t_proj:.1f} ms; its first {k} patterns within {gray.max()} gray of the "
+                f"CPU's plain projection on {(gray > 0).mean():.4%} of the pixels (limit: 1 on {GRAY_SHARE:.0%})")
+
+    # A second phase: DI against a coarser cubochoric dictionary.
+    reset_launches()
+    t0 = time.perf_counter()
+    coarse_rot = ts.get_sample_fundamental(COARSE_RESOLUTION_DEG, "m-3m")
+    coarse_mp = dataclasses.replace(mp, phase=Phase(name="ni-coarse", point_group="m-3m"))
+    coarse = coarse_mp.get_patterns(coarse_rot, det, chunk_size=8192)
+    xmap2 = pre.dictionary_indexing(coarse, keep_n=KEEP_N, precision="pallas-int8")
+    torch.cuda.synchronize()
+    t_second = (time.perf_counter() - t0) * 1e3
+    second = read_launches()
+    launches = {k: v + second[k] for k, v in launches.items()}
+    t0 = time.perf_counter()
+    merged = merge_crystal_maps([xmap, xmap2], mean_n_best=3)
+    t_merge = (time.perf_counter() - t0) * 1e3
+    means = np.stack([x.prop["scores"][:, :3].astype(np.float64).sum(axis=1) / 3 for x in (xmap, xmap2)], axis=1)
+    want = np.argmax(means, axis=1)
+    if not np.array_equal(merged.phase_id, want) or list(merged.phases.names) != [xmap.phases[0].name, "ni-coarse"]:
+        raise AssertionError(f"merge: phase ids differ from the per-point best mean score on "
+                             f"{int((merged.phase_id != want).sum())} points; phases {merged.phases.names}")
+    win = np.where(want[:, None] == 0, xmap.prop["scores"], xmap2.prop["scores"])
+    if not np.array_equal(merged.prop["scores"], win):
+        raise AssertionError("merge: the merged scores are not the winning map's")
+    msgs.append(f"merge_crystal_maps(main path map, DI against get_sample_fundamental({COARSE_RESOLUTION_DEG}) = "
+                f"{coarse_rot.shape[0]} orientations tagged 'ni-coarse'; mean_n_best=3): phase ids equal the per-point "
+                f"best mean score on all {want.size} points ({int((want == 0).sum())} main, {int((want == 1).sum())} "
+                f"coarse), scores the winner's; the second map {t_second:.1f} ms (sampling, projection, DI: launches "
+                f"{ {k: v for k, v in second.items() if v} }), the merge {t_merge:.1f} ms on the host")
+
+    # The main path's scan has no grains (neighbouring truths are unrelated),
+    # so its OSM is near 0; a map of 8 x 8-point grains takes each block's
+    # first point's list for the whole block.
+    sims = xmap.prop["simulation_indices"].reshape(nav + (KEEP_N,))
+    g = 8
+    grains = dataclasses.replace(xmap, prop={"simulation_indices": np.repeat(np.repeat(
+        sims[::g, ::g], g, axis=0), g, axis=1).reshape(-1, KEEP_N)})
+    pts = np.random.default_rng(5).integers(0, SCAN_SIDE, size=(64, 2))
+    for label, cmap in (("main path map", xmap), ("8 x 8 grains", grains)):
+        t0 = time.perf_counter()
+        osm = orientation_similarity_map(cmap)
+        t_osm = (time.perf_counter() - t0) * 1e3
+        lists = cmap.prop["simulation_indices"].reshape(nav + (KEEP_N,))
+        for y, x in pts:
+            nbr = [(y + dy, x + dx) for dy, dx in ((-1, 0), (0, -1), (0, 1), (1, 0))
+                   if 0 <= y + dy < SCAN_SIDE and 0 <= x + dx < SCAN_SIDE]
+            direct = np.mean([len(set(lists[y, x]) & set(lists[a, b])) for a, b in nbr])
+            if np.float32(direct) != osm[y, x]:
+                raise AssertionError(f"OSM of the {label} at ({y}, {x}): {osm[y, x]} against the direct count {direct}")
+        extra = ""
+        if cmap is grains:
+            yy, xx = np.indices(nav)
+            inner = (((yy % g) != 0) | (yy == 0)) & (((yy % g) != g - 1) | (yy == SCAN_SIDE - 1)) & (
+                ((xx % g) != 0) | (xx == 0)) & (((xx % g) != g - 1) | (xx == SCAN_SIDE - 1))
+            if not (osm[inner] == KEEP_N).all():
+                raise AssertionError(f"OSM of the grains is not {KEEP_N} inside them: min {osm[inner].min()}")
+            extra = f", {KEEP_N} at all {int(inner.sum())} points whose neighbours are in their grain"
+        msgs.append(f"orientation_similarity_map({label}, n_best {KEEP_N}): {osm.shape} float32, mean "
+                    f"{float(osm.mean()):.3f}, min {float(osm.min()):.3f}, max {float(osm.max()):.3f}, equal to a "
+                    f"direct set count at 64 sampled points{extra}; {t_osm:.1f} ms on the host")
+    return msgs, launches
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2653,6 +3023,8 @@ def main(argv=None) -> int:
     k_carry = max(2 * KEEP_N, KEEP_N + 8)
     log("inputs", f"scan {tuple(scan.data.shape)} uint8, dictionary {m} orientations (m_main {m_main}), "
         f"master {mp.data.shape}, seed {args.seed}, {time.perf_counter() - t0:.1f} s")
+    for msg in sampling_phase(smi):
+        log("sampling", msg)
 
     # ---- int8 kernel vs plain on the card ----
     max_err, n_cases = kernel_cases(dev, args.seed, m_main, d, k_carry)
@@ -2731,6 +3103,11 @@ def main(argv=None) -> int:
     preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass["clahe_pixel"],
                                                       sass["static_pixel"], clock_mhz, sms)
     log("preprocess-times", f"{smi}: " + "; ".join(pre_time_msgs))
+    neighbour_row, nb_msgs, nb_time_msgs = neighbours_phases(dev, scan, smi, main_launches["average_neighbours"])
+    for msg in nb_msgs:
+        log("neighbours", msg)
+    for msg in nb_time_msgs:
+        log("neighbours-times", msg)
 
     # ---- the projection kernels against their plain twins ----
     from kikuchipy_tpu_torch.ops import lambert_project as lp
@@ -2959,6 +3336,9 @@ def main(argv=None) -> int:
     pc_msgs.append(f"refine_projection_center on the main path's patterns (unchecked): mean PC "
                    f"{np.round(res_dyn.detector.pc.reshape(-1, 3).mean(axis=0), 6).tolist()}")
     log("refine-pc", f"{smi}: " + "; ".join(pc_msgs))
+    cal_msgs, cal_launches = calibration_phase(smi, mp, det, pre, xmap, pc_res["pc"].detector)
+    for msg in cal_msgs:
+        log("calibration", msg)
 
     # Each kernel against its host loop on kernel B (nelder_mead_batched over
     # pc_objective / joint_objective, the (n, P, 3) direction cosines built in
@@ -3423,6 +3803,7 @@ def main(argv=None) -> int:
                              f"{ms_same:.3f} ms)")
     table.append(split_row)
     table.extend(preprocess_table)
+    table.append(neighbour_row)
     # The projection kernels: A on the whole dictionary, B on one navigation chunk.
     ms_a = cuda_ms(lambda: lp.lambert_project(rot_dict, dc, quad, *geo), 5)
     ms_a_plain = cuda_ms(lambda: [lp.lambert_project_plain(rot_dict[c0:c0 + 16384], dc, quad, *geo)
@@ -3442,7 +3823,8 @@ def main(argv=None) -> int:
     }
     by_path = {
         "lambert_project": {"main": main_launches["lambert_project"],
-                            **{p: c["lambert_project"] for p, c in sh_launches.items() if "lambert_project" in c}},
+                            **{p: c["lambert_project"] for p, c in sh_launches.items() if "lambert_project" in c},
+                            "calibration": cal_launches["lambert_project"]},
         "lambert_project_ncc": {"refine": refine_launches["lambert_project_ncc"],
                                 **{p: c["lambert_project_ncc"] for p, c in sh_launches.items()
                                    if "lambert_project_ncc" in c}},

@@ -1,6 +1,24 @@
-"""Detector geometry (the public namespace of ``kikuchipy_tpu.detectors``,
-as far as it is ported: PC calibration is not)."""
+"""Detector geometry and PC calibration (the public namespace of
+``kikuchipy_tpu.detectors``)."""
 
+from kikuchipy_tpu_torch.detectors.calibration import (
+    PCCalibrationMovingScreen,
+    estimate_xtilt,
+    estimate_xtilt_ztilt,
+    extrapolate_pc,
+    fit_pc_affine,
+    fit_pc_plane,
+    fit_pc_projective,
+)
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 
-__all__ = ["EBSDDetector"]
+__all__ = [
+    "EBSDDetector",
+    "PCCalibrationMovingScreen",
+    "estimate_xtilt",
+    "estimate_xtilt_ztilt",
+    "extrapolate_pc",
+    "fit_pc_affine",
+    "fit_pc_plane",
+    "fit_pc_projective",
+]

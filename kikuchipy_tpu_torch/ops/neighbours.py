@@ -1,0 +1,276 @@
+"""Navigation-neighbourhood operations: neighbour-pattern averaging on
+kernel G (``csrc/neighbours.cu``) and the neighbour dot-product maps.
+
+The port of ``kikuchipy_tpu/ops/neighbors.py``. :func:`average_neighbours`
+is kernel G's wrapper: for a CPU tensor it returns its plain version
+(:func:`average_neighbours_plain`, shift-and-accumulate in float64
+PyTorch); for a CUDA tensor it launches kernel G once for the whole scan or
+raises, and counts the launch in its ``.launches``. The two agree bit for
+bit. The dot-product maps are a diagnostic and stay plain PyTorch on the
+patterns' device, as they were XLA code in JAX.
+
+Public functions take ``device=None`` (the card); pass ``device="cpu"`` to
+run on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from kikuchipy_tpu_torch.filters.window import Window
+from kikuchipy_tpu_torch.ops.pattern_io import CODES, SMEM_BUDGET, check_storage, rescale_with_min_max, sig_max, sig_min
+from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
+from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, numpy_dtype, torch_dtype
+
+__all__ = [
+    "MAX_TAPS",
+    "average_dot_product_map",
+    "average_neighbour_patterns",
+    "average_neighbours",
+    "average_neighbours_plain",
+    "neighbour_dot_product_matrices",
+    "window_taps",
+]
+
+# The most nonzero weights a window may have on the card
+# (csrc/neighbours.cu kMaxTaps).
+MAX_TAPS = 128
+
+
+def _resolve_window(window, window_shape, **kwargs) -> np.ndarray:
+    if isinstance(window, np.ndarray):
+        w = np.asarray(window, dtype=np.float64)
+    else:
+        w = np.asarray(Window(window or "circular", shape=window_shape, **kwargs), dtype=np.float64)
+    if w.ndim == 1:
+        w = w[:, None]
+    return w
+
+
+def window_taps(w: np.ndarray) -> tuple[list[tuple[int, int]], list[float]]:
+    """The window's nonzero weights in row-major order and each one's
+    navigation offset ``(dy, dx)``: the output at ``(y, x)`` takes
+    ``w_k * p[y - dy_k, x - dx_k]`` (a correlation about the window's
+    center ``shape // 2``)."""
+    offsets, _ = _window_offsets(w)
+    return offsets, [float(v) for v in w[w != 0]]
+
+
+def _overlap(n: int, d: int) -> tuple[slice, slice]:
+    """Destination and source slices of a shift by ``d`` along an axis of
+    ``n``: ``dst[i] = src[i - d]`` where ``0 <= i - d < n``."""
+    return slice(max(d, 0), n + min(d, 0)), slice(max(-d, 0), n + min(-d, 0))
+
+
+def _shift2d(x: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two leading (navigation) axes of ``x`` shifted by ``(dy, dx)``
+    with zero fill, and the ``(ny, nx)`` mask of the points whose neighbour
+    is inside the map."""
+    ny, nx = x.shape[0], x.shape[1]
+    (yd, ys), (xd, xs) = _overlap(ny, dy), _overlap(nx, dx)
+    shifted = torch.zeros_like(x)
+    shifted[yd, xd] = x[ys, xs]
+    mask = torch.zeros((ny, nx), dtype=torch.bool, device=x.device)
+    mask[yd, xd] = True
+    return shifted, mask
+
+
+def _check_scan(patterns) -> None:
+    if patterns.ndim != 4:
+        raise ValueError(f"patterns must be 4D (ny, nx, sy, sx); got shape {tuple(patterns.shape)}")
+
+
+def average_neighbours_plain(patterns: torch.Tensor, offsets, weights, dtype_out) -> torch.Tensor:
+    """Kernel G's function in PyTorch operations, in JAX's order
+    (``_average_impl``): float64 sums over the taps, the float32 quotient by
+    the per-point weight sum, then the per-pattern min/max rescale to
+    ``dtype_out``'s range and the cast."""
+    _check_scan(patterns)
+    p = patterns.to(torch.float32).to(torch.float64)
+    acc = torch.zeros_like(p)
+    norm = torch.zeros(p.shape[:2], dtype=torch.float64, device=p.device)
+    for (dy, dx), w in zip(offsets, weights):
+        shifted, mask = _shift2d(p, dy, dx)
+        acc = acc + w * shifted
+        norm = norm + w * mask.to(torch.float64)
+    out = acc.to(torch.float32) / norm.to(torch.float32)[:, :, None, None]
+    omin, omax = get_dtype_range(numpy_dtype(dtype_out))
+    out = rescale_with_min_max(out, sig_min(out), sig_max(out), float(omin), float(omax))
+    return out.to(torch_dtype(dtype_out))
+
+
+def _library():
+    from kikuchipy_tpu_torch.ops._build import library
+
+    lib = library("neighbours")
+    if lib.neighbours_launch.argtypes is None:
+        lib.neighbours_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.neighbours_launch.restype = ctypes.c_int
+        lib.neighbours_max_taps.argtypes = []
+        lib.neighbours_max_taps.restype = ctypes.c_int
+        if lib.neighbours_max_taps() != MAX_TAPS:
+            raise RuntimeError(f"csrc/neighbours.cu holds {lib.neighbours_max_taps()} taps, the wrapper {MAX_TAPS}")
+    return lib
+
+
+def average_neighbours(patterns: torch.Tensor, offsets, weights, dtype_out) -> torch.Tensor:
+    """Average every pattern of the scan ``(ny, nx, sy, sx)`` with its
+    neighbours at ``offsets`` (``(dy, dx)`` pairs) weighted by ``weights``,
+    rescale each to ``dtype_out``'s range and cast. On the card one launch
+    of kernel G for the whole scan; ``ValueError`` where the window has more
+    than :data:`MAX_TAPS` weights or a pattern's float32 scratch passes the
+    shared-memory budget."""
+    _check_scan(patterns)
+    if len(offsets) != len(weights) or not offsets:
+        raise ValueError(f"need one offset a weight and at least one of each, got {len(offsets)} and {len(weights)}")
+    if patterns.device.type == "cpu":
+        return average_neighbours_plain(patterns, offsets, weights, dtype_out)
+    dev = patterns.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out_dtype = torch_dtype(dtype_out)
+    check_storage("kernel G", patterns.dtype, out_dtype)
+    ny, nx, sy, sx = patterns.shape
+    npix = sy * sx
+    if len(weights) > MAX_TAPS:
+        raise ValueError(f"kernel G takes at most {MAX_TAPS} nonzero window weights, got {len(weights)}")
+    if 4 * npix > SMEM_BUDGET:
+        raise ValueError(f"kernel G keeps a pattern's {npix} float32 averages in shared memory: {4 * npix} bytes "
+                         f"pass its budget of {SMEM_BUDGET}")
+    src = patterns.contiguous()
+    out = torch.empty(patterns.shape, dtype=out_dtype, device=dev)
+    if src.numel() == 0:
+        return out
+    omin, omax = get_dtype_range(numpy_dtype(out_dtype))
+    n_taps = len(weights)
+    w = (ctypes.c_double * n_taps)(*weights)
+    dy = (ctypes.c_int * n_taps)(*(int(o[0]) for o in offsets))
+    dx = (ctypes.c_int * n_taps)(*(int(o[1]) for o in offsets))
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.neighbours_launch(src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype], ny, nx, npix,
+                                    n_taps, w, dy, dx, float(omin), float(omax) - float(omin), SMEM_BUDGET, stream)
+    if err:
+        raise RuntimeError(f"neighbours launch failed: cudaError_t {err}")
+    average_neighbours.launches += 1
+    return out
+
+
+average_neighbours.launches = 0
+
+
+def average_neighbour_patterns(
+    patterns,
+    window=None,
+    window_shape: tuple[int, ...] = (3, 3),
+    dtype_out=None,
+    device=None,
+    **kwargs,
+) -> torch.Tensor:
+    """Average each pattern with its neighbours, weighted by ``window``
+    (map borders zero-extended, the weights normalized per point), then
+    rescale each pattern to the output dtype's range (kikuchipy's
+    ``EBSD.average_neighbour_patterns``). ``(1,)`` and ``(1, 1)`` windows
+    return the input. On the card one launch of kernel G."""
+    patterns = as_tensor(patterns, resolve_device(device))
+    _check_scan(patterns)
+    if dtype_out is None:
+        dtype_out = patterns.dtype
+    w = _resolve_window(window, window_shape, **kwargs)
+    if w.shape in ((1,), (1, 1)):
+        return patterns
+    offsets, weights = window_taps(w)
+    return average_neighbours(patterns, offsets, weights, dtype_out)
+
+
+def _normalized_maps(patterns: torch.Tensor, zero_mean: bool, normalize: bool) -> torch.Tensor:
+    p = patterns.to(torch.float32)
+    if zero_mean:
+        p = p - torch.mean(p, dim=(-2, -1), keepdim=True)
+    if normalize:
+        p = p / torch.sqrt(torch.sum(torch.square(p), dim=(-2, -1), keepdim=True))
+    return p
+
+
+def _window_offsets(w: np.ndarray) -> tuple[list, int]:
+    """Nonzero window offsets (neighbour shift per coefficient) and the
+    index of the origin among them."""
+    oy, ox = w.shape[0] // 2, w.shape[1] // 2
+    offsets = []
+    center = -1
+    for iy in range(w.shape[0]):
+        for ix in range(w.shape[1]):
+            if w[iy, ix] != 0:
+                if (iy, ix) == (oy, ox):
+                    center = len(offsets)
+                offsets.append((oy - iy, ox - ix))
+    return offsets, center
+
+
+def _dot_products(patterns: torch.Tensor, offsets, zero_mean: bool, normalize: bool) -> np.ndarray:
+    """``(ny, nx, n_offsets)`` float32 dot products of each pattern with its
+    neighbour at each offset, NaN where the neighbour is outside the map."""
+    p = _normalized_maps(patterns, zero_mean, normalize)
+    ny, nx = p.shape[:2]
+    out = torch.full((ny, nx, len(offsets)), float("nan"), dtype=torch.float32, device=p.device)
+    for k, (dy, dx) in enumerate(offsets):
+        (yd, ys), (xd, xs) = _overlap(ny, dy), _overlap(nx, dx)
+        out[yd, xd, k] = torch.sum(p[yd, xd] * p[ys, xs], dim=(-2, -1))
+    return out.cpu().numpy()
+
+
+def neighbour_dot_product_matrices(
+    patterns,
+    window=None,
+    window_shape: tuple[int, ...] = (3, 3),
+    zero_mean: bool = True,
+    normalize: bool = True,
+    device=None,
+    **kwargs,
+) -> np.ndarray:
+    """Matrices of dot products between each pattern and its window
+    neighbours, ``(ny, nx, wy, wx)`` float32; NaN where the window weight is
+    zero or the neighbour is outside the map (kikuchipy's
+    ``EBSD.get_neighbour_dot_product_matrices``)."""
+    patterns = as_tensor(patterns, resolve_device(device))
+    _check_scan(patterns)
+    w = _resolve_window(window, window_shape, **kwargs)
+    offsets, _ = _window_offsets(w)
+    dps = _dot_products(patterns, offsets, zero_mean, normalize)
+    ny, nx = dps.shape[:2]
+    out = np.full((ny, nx, w.shape[0], w.shape[1]), np.nan, dtype=np.float32)
+    k = 0
+    for iy in range(w.shape[0]):
+        for ix in range(w.shape[1]):
+            if w[iy, ix] != 0:
+                out[:, :, iy, ix] = dps[:, :, k]
+                k += 1
+    return out
+
+
+def average_dot_product_map(
+    patterns,
+    window=None,
+    window_shape: tuple[int, ...] = (3, 3),
+    zero_mean: bool = True,
+    normalize: bool = True,
+    device=None,
+    **kwargs,
+) -> np.ndarray:
+    """Average dot product (ADP) map: the mean dot product between each
+    pattern and its window neighbours, the origin excluded (kikuchipy's
+    ``EBSD.get_average_neighbour_dot_product_map``)."""
+    patterns = as_tensor(patterns, resolve_device(device))
+    _check_scan(patterns)
+    w = _resolve_window(window, window_shape, **kwargs)
+    offsets, center = _window_offsets(w)
+    neighbour_offsets = [off for i, off in enumerate(offsets) if i != center]
+    return np.nanmean(_dot_products(patterns, neighbour_offsets, zero_mean, normalize), axis=-1)

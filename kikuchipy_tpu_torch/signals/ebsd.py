@@ -7,8 +7,8 @@ operations (``detector``, ``xmap``, ``static_background``). Ported so
 far: preprocessing (intensity rescaling and normalization, static and
 dynamic background removal in both filter domains, the dynamic background
 itself, frequency- and spatial-domain FFT filtering, downsampling and
-rebinning, image quality, adaptive histogram equalization), dictionary
-indexing, and refinement of orientations and/or projection centers
+rebinning, image quality, adaptive histogram equalization), neighbour
+averaging and the neighbour dot-product maps, dictionary indexing, and refinement of orientations and/or projection centers
 (Nelder-Mead, Levenberg-Marquardt, gradient); the other methods wait (see
 ROADMAP.md).
 """
@@ -216,6 +216,27 @@ class EBSD:
                 self.data, kernel_size=kernel_size, clip_limit=clip_limit, nbins=nbins, device=self.device,
             )
         )
+
+    def average_neighbour_patterns(self, window=None, **kwargs) -> "EBSD":
+        """Average each pattern with its map neighbours, weighted by
+        ``window`` (one launch of kernel G on the card); ``kwargs`` as
+        :func:`~kikuchipy_tpu_torch.ops.neighbours.average_neighbour_patterns`."""
+        from kikuchipy_tpu_torch.ops.neighbours import average_neighbour_patterns
+
+        return self._replace_data(average_neighbour_patterns(self.data, window=window, device=self.device, **kwargs))
+
+    def get_neighbour_dot_product_matrices(self, window=None, **kwargs) -> np.ndarray:
+        """Dot-product matrices with the window neighbours, ``(ny, nx, wy,
+        wx)`` (NumPy)."""
+        from kikuchipy_tpu_torch.ops.neighbours import neighbour_dot_product_matrices
+
+        return neighbour_dot_product_matrices(self.data, window=window, device=self.device, **kwargs)
+
+    def get_average_neighbour_dot_product_map(self, window=None, **kwargs) -> np.ndarray:
+        """Average neighbour dot-product (ADP) map (NumPy)."""
+        from kikuchipy_tpu_torch.ops.neighbours import average_dot_product_map
+
+        return average_dot_product_map(self.data, window=window, device=self.device, **kwargs)
 
     def rebin(self, scale: tuple[int, ...] | None = None, **kwargs) -> "EBSD":
         """Integer-factor rebin of the signal axes: ``scale`` is ``(...,

@@ -92,6 +92,9 @@ class EBSDMasterPattern:
         energy: float | None = None,
         dtype_out=np.float32,
         chunk_size: int = 1024,
+        signal_mask: np.ndarray | None = None,
+        compute: bool = True,
+        show_progressbar=None,
     ) -> EBSD:
         """Project simulated patterns for unit quaternions ``(n, 4)`` (or
         ``(ny, nx, 4)``) onto ``detector`` (one PC, or one per rotation).
@@ -100,9 +103,14 @@ class EBSDMasterPattern:
         each pattern to the dtype range, as in the reference kikuchipy. On
         the card one kernel launch projects all rotations; ``chunk_size``
         sets the rotations per step of the plain version on the CPU.
+        ``signal_mask`` selects the detector pixels to project; the patterns
+        are reshaped to the detector, so a mask that drops a pixel raises
+        ``ValueError``, as JAX's reshape does. ``compute`` and
+        ``show_progressbar`` are accepted and have no effect, as in JAX.
         Returns an :class:`EBSD` on this pattern's device with an ``xmap``
         holding the rotations.
         """
+        del compute, show_progressbar
         if self.projection != "lambert":
             raise ValueError("Master pattern must be in the square Lambert projection")
         rotations = np.asarray(rotations)
@@ -126,11 +134,17 @@ class EBSDMasterPattern:
         scale = (npx - 1) / 2
         master_dev = torch.as_tensor(master, dtype=torch.float32, device=dev)
         quad = quad_texture(master_dev)
-        dc = direction_cosines_from_detector(detector, device=dev)
+        dc = direction_cosines_from_detector(detector, signal_mask=signal_mask, device=dev)
         rot_dev = torch.as_tensor(rot_flat, dtype=torch.float32, device=dev)
 
         sig_shape = detector.shape
         per_pc = dc.ndim == 3
+        n_pixels = dc.shape[-2]
+        if n and n_pixels != detector.size:
+            # JAX's reshape of its first chunk to the detector.
+            first = min(chunk_size, n)
+            shape = ",".join(str(v) for v in (first, *sig_shape))
+            raise ValueError(f"cannot reshape array of size {first * n_pixels} into shape ({shape})")
 
         def project(start: int, end: int) -> torch.Tensor:
             block = project_patterns(

@@ -1772,3 +1772,83 @@ def test_global_refinement_on_the_card_goes_through_kernel_f_and_the_nelder_mead
         if mode == "orientation":
             to_truth = np.degrees(disorientation_angle(truth, results[("cuda", method)].xmap.best_rotations, "m-3m"))
             assert to_truth.max() < 0.8, (method, to_truth.max())
+
+
+# ------------------- kernel G: neighbour averaging ------------------- #
+
+NEIGHBOUR_WINDOWS = {
+    "circular": dict(window="circular", window_shape=(3, 3)),
+    "rectangular_2x3": dict(window="rectangular", window_shape=(2, 3)),
+    "gaussian_std2": dict(window="gaussian", window_shape=(3, 3), std=2),
+    "1d_on_2d": dict(window=None, window_shape=(3,)),
+    "ndarray": dict(window=np.array([[0.5, 1.0, 0.0], [1.0, 2.0, 1.0], [0.0, 0.25, 3.0]])),
+}
+NEIGHBOUR_DTYPES = (np.uint8, np.uint16, np.float32)
+
+
+def _neighbour_scan(nav, sig, dtype, seed):
+    rng = np.random.default_rng(seed)
+    shape = tuple(nav) + tuple(sig)
+    if dtype == np.float32:
+        data = rng.normal(size=shape).astype(np.float32)
+        if data.size > 8:
+            data.reshape(-1)[[1, 5]] = [np.inf, np.nan]
+    else:
+        data = rng.integers(0, np.iinfo(dtype).max, size=shape, endpoint=True).astype(dtype)
+    if nav[0] * nav[1] > 2:
+        data[0, 0] = data.reshape(-1)[0]  # a flat pattern: its range is 0
+    return data
+
+
+@pytest.mark.parametrize("nav", [(1, 1), (1, 7), (7, 1), (3, 3), (128, 128)])
+@pytest.mark.parametrize("sig", [(60, 60), (1, 16)])
+@pytest.mark.parametrize("dtype_in", NEIGHBOUR_DTYPES)
+@pytest.mark.parametrize("dtype_out", NEIGHBOUR_DTYPES)
+def test_neighbours_kernel_is_its_plain_version_bit_for_bit(cuda, nav, sig, dtype_in, dtype_out):
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    p = torch.as_tensor(_neighbour_scan(nav, sig, dtype_in, seed=nav[0] * 7 + sig[1]), device=cuda)
+    for name, kw in NEIGHBOUR_WINDOWS.items():
+        kw = dict(kw)
+        w = ng._resolve_window(kw.pop("window"), kw.pop("window_shape", (3, 3)), **kw)
+        offsets, weights = ng.window_taps(w)
+        before = ng.average_neighbours.launches
+        got = ng.average_neighbours(p, offsets, weights, dtype_out)
+        torch.cuda.synchronize()
+        assert ng.average_neighbours.launches == before + 1, name
+        ref = ng.average_neighbours_plain(p, offsets, weights, dtype_out)
+        assert _same_bits(got, ref), name
+
+
+def test_neighbours_entry_point_launches_once_and_identity_windows_launch_none(cuda):
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    p = torch.as_tensor(_neighbour_scan((4, 5), (60, 60), np.uint8, 3), device=cuda)
+    before = ng.average_neighbours.launches
+    got = ng.average_neighbour_patterns(p, window="gaussian", std=2)
+    assert ng.average_neighbours.launches == before + 1
+    ref = ng.average_neighbours_plain(p, *ng.window_taps(ng._resolve_window("gaussian", (3, 3), std=2)), np.uint8)
+    assert torch.equal(got, ref)
+    for w in (np.ones((1, 1)), np.ones(1)):
+        assert ng.average_neighbour_patterns(p, window=w) is p
+    assert ng.average_neighbours.launches == before + 1
+
+
+def test_neighbours_kernel_refuses_what_it_cannot_hold(cuda):
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    p = torch.zeros((2, 2, 8, 8), dtype=torch.uint8, device=cuda)
+    before = ng.average_neighbours.launches
+    with pytest.raises(ValueError, match="at most 128"):
+        ng.average_neighbour_patterns(p, window=np.ones((12, 12)))
+    big = torch.zeros((2, 2, 250, 250), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ng.average_neighbour_patterns(big)
+    with pytest.raises(TypeError, match="kernel G"):
+        ng.average_neighbour_patterns(p.to(torch.int64))
+    assert ng.average_neighbours.launches == before
+    # The largest pattern that fits runs (240 x 240 float32 averages).
+    fit = torch.as_tensor(_neighbour_scan((2, 3), (240, 240), np.uint8, 5), device=cuda)
+    got = ng.average_neighbour_patterns(fit)
+    assert torch.equal(got, ng.average_neighbours_plain(fit, *ng.window_taps(ng._resolve_window(None, (3, 3))),
+                                                        np.uint8))

@@ -115,7 +115,8 @@ def test_batched_tangents_give_the_same_normal_equations():
 
 # Module and the fewest public names it shares with the JAX package.
 SIGNATURE_MODULES = {"utils.optimize": 12, "ops.pattern": 15, "ops.fft_barnes": 5, "ops.ahe": 1, "filters.window": 6,
-                     "projection.spherical": 6}
+                     "projection.spherical": 6, "crystallography.sampling": 9, "detectors.calibration": 7,
+                     "indexing.merge": 1, "indexing.osm": 1, "indexing.compat": 6}
 # JAX parameters a port leaves out on purpose (ROADMAP "Kept on purpose"):
 # the port's zyz stages take |m|, the sign and the flip as device index
 # tables, not as WignerTables fields.
@@ -160,6 +161,20 @@ def test_global_solvers_and_results_have_jax_signatures_and_fields(solver, resul
     assert _parameters(getattr(port, solver), False) == _parameters(getattr(jax_mod, solver), False)
     assert getattr(port, result)._fields == getattr(jax_mod, result)._fields == ("x", "fun", "n_iter", "converged")
     assert set(port.__all__) >= set(jax_mod.__all__)
+
+
+def test_neighbour_functions_have_jax_signatures():
+    # ops/neighbours.py ports ops/neighbors.py; its public functions take
+    # device=None before JAX's **kwargs.
+    port = importlib.import_module("kikuchipy_tpu_torch.ops.neighbours")
+    jax_mod = importlib.import_module("kikuchipy_tpu.ops.neighbors")
+    assert set(jax_mod.__all__) <= set(port.__all__)
+    device = ("device", inspect.Parameter.POSITIONAL_OR_KEYWORD, None)
+    for name in jax_mod.__all__:
+        got = [p for p in _parameters(getattr(port, name), False) if p != device]
+        assert got == _parameters(getattr(jax_mod, name), False), name
+    for name in ("_resolve_window", "_normalized_maps", "_window_offsets"):
+        assert _parameters(getattr(port, name), False) == _parameters(getattr(jax_mod, name), False), name
 
 
 def test_every_jax_public_name_of_the_preprocessing_modules_is_ported():

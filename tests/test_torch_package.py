@@ -84,6 +84,27 @@ def test_no_import_statement_names_jax():
         lambda: importlib.import_module("kikuchipy_tpu_torch.utils.optimize").shgo_batched(
             _sphere, -np.ones((2, 3)), np.ones((2, 3)), n_samples=4, n_starts=1, local_max_iters=1
         ),
+        # Orientation sampling and the fundamental-zone tools.
+        *(
+            (lambda name=name, args=args: getattr(importlib.import_module("kikuchipy_tpu_torch.crystallography.sampling"),
+                                                  name)(*args))
+            for name, args in [
+                ("in_fundamental_zone", (np.eye(4)[:1], "m-3m")),
+                ("reduce_to_fundamental_zone", (np.eye(4)[:1], "m-3m")),
+                ("disorientation_angle", (np.eye(4)[:1], np.eye(4)[:1], "m-3m")),
+                ("sample_fundamental_zone", (20.0,)),
+                ("cu2ho", (np.zeros(3),)),
+                ("ho2qu", (np.zeros(3),)),
+                ("cubochoric_sampling", (2,)),
+                ("get_sample_fundamental", (20.0,)),
+            ]
+        ),
+        # Neighbour averaging and the dot-product maps.
+        *(
+            (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.ops.neighbours"), name)(
+                np.ones((2, 2, 3, 3), np.uint8)))
+            for name in ("average_neighbour_patterns", "neighbour_dot_product_matrices", "average_dot_product_map")
+        ),
     ],
 )
 def test_entry_points_default_to_cuda(monkeypatch, call):
@@ -193,7 +214,7 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
     assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm",
-                         "background", "clahe", "refine_population"}
+                         "background", "clahe", "refine_population", "neighbours"}
     text = {name: path.read_text() for name, path in srcs.items()}
     # Kernel D replaces _remove_background and the separable blur, kernel E
     # _clahe_batch with its blend weights; both without fast math.
@@ -201,7 +222,11 @@ def test_kernel_sources_and_build_directory():
         assert what in text["background"], what
     for what in ("clahe_kernel", "_clahe_batch", "_blend_weights", "atomicAdd"):
         assert what in text["clahe"], what
-    for name in ("background", "clahe"):
+    # Kernel G replaces _average_impl of neighbour averaging, without fast
+    # math, on the preprocessing kernels' typed loads and stores.
+    for what in ("neighbours_kernel", "_average_impl", "__dadd_rn", "__fdiv_rn", "kMaxTaps"):
+        assert what in text["neighbours"], what
+    for name in ("background", "clahe", "neighbours"):
         assert '#include "pattern_io.cuh"' in text[name], name
     # The projection kernels replace XLA code: project_patterns, and
     # _project_at + _ncc_centered of the refinement objectives; the

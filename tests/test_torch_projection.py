@@ -405,3 +405,32 @@ def test_float64_yardstick_flags_a_projection_off_its_limits(smoke_projection):
     assert len(bad) == 1 and bad[0].startswith("pole: max E_k")
     bad = yardstick(lambda p32, t32, p64, t64: (p64.float() + 2e-5 * value_range, t64))
     assert any("RMS" in line for line in bad)
+
+
+@pytest.mark.parametrize("multi_pc", [False, True])
+def test_get_patterns_signal_mask_as_jax(multi_pc):
+    # JAX reshapes the projected rows to the detector, so a mask that drops a
+    # pixel raises ValueError there; an all-True mask gives the patterns of
+    # no mask. compute and show_progressbar are accepted and do nothing.
+    import inspect
+
+    from kikuchipy_tpu.signals.master_pattern import EBSDMasterPattern as JMP
+    from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern as TMP
+
+    assert inspect.signature(TMP.get_patterns) == inspect.signature(JMP.get_patterns)
+    rng = np.random.default_rng(33)
+    data = rng.random((2, 31, 31)).astype(np.float32)
+    jd = _detectors()[1 if multi_pc else 0]
+    rot = _unit_quats(jd.navigation_size if multi_pc else 5, 34).astype(np.float64)
+    td = interop.detector_from_state(jd.shape, jd.pc, jd.sample_tilt, jd.tilt, jd.px_size, jd.binning)
+    tmp_mp = interop.master_pattern_from_state(data, device="cpu")
+    mask = np.ones(jd.shape, bool)
+    plain = tmp_mp.get_patterns(rot, td, chunk_size=2).data
+    masked = tmp_mp.get_patterns(rot, td, chunk_size=2, signal_mask=mask, compute=False, show_progressbar=True).data
+    assert torch.equal(masked, plain)
+    mask[0, 1] = False
+    with pytest.raises(ValueError, match="cannot reshape") as want:
+        JMP(data=data).get_patterns(rot, jd, chunk_size=2, signal_mask=mask)
+    with pytest.raises(ValueError, match="cannot reshape") as got:
+        tmp_mp.get_patterns(rot, td, chunk_size=2, signal_mask=mask)
+    assert str(got.value) == str(want.value)
