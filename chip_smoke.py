@@ -181,9 +181,15 @@ the card's name and power limit, and the device check):
    and holds kernel G bit for bit against its plain version with five
    windows there, on maps of 1 x 1, 1 x 128, 128 x 1, 3 x 3 and 9 x 11 with
    60 x 60 and 1 x 16 patterns, and from and to uint16 and float32;
+   also with 13 x 13 rectangular and Gaussian windows on the scan (169 taps,
+   past the 128 passed as launch arguments: the device table) and on a 16 x
+   16 map of 480 x 480 uint8 patterns (59 MB; float32 averages past the
+   shared-memory budget: the device-memory scratch);
    ``[neighbours-times]`` times it warm and with L2 flushed against its
-   bytes and float64 bounds, its plain version and a depthwise ``conv2d``
-   that computes the same weighted mean (timed only); ``[calibration]``
+   bytes and float64 bounds (and beside the 0.546-0.565 ms of the runs
+   before the table and the scratch), its plain version and a depthwise
+   ``conv2d`` that computes the same weighted mean (timed only), and the
+   wide windows and the large patterns; ``[calibration]``
    takes the PC mode's refined PCs through ``extrapolate_pc`` and
    ``fit_pc`` (the fitted plane within the refined PCs' scatter of the
    extrapolated one, the sample tilt within a degree), projects the map
@@ -194,6 +200,27 @@ the card's name and power limit, and the device check):
    three scores) and holds the OSM of the main path's map and of a map of
    8 x 8-point grains made from its lists against a direct count at 64
    points (the grains' insides at ``keep_n``);
+5h. Hough indexing (``[hough-check]``, ``[hough]``, ``[hough-pc]``):
+   ``EBSD.hough_indexing`` with nickel (space group 225, a = 3.5236, the four
+   fcc atoms) at n_bands=9 on JAX's four-pattern case (gated on its
+   criterion: every disorientation under 1 degree, at least 3 inlier bands),
+   on 1,024 clean simulated patterns of a master whose bands have Kikuchi
+   width (the same gate) and of the main path's master (at least 95% under 1
+   degree), and on the main path's 16,384 noisy patterns after static and
+   dynamic removal (median disorientation under 1 degree; the share under 2
+   printed): one launch of kernel H (``csrc/hough_vote.cu`` through
+   ``ops/hough_vote.py`` ``vote_orientations``) a call and no plain vote; the
+   first call (the host's operator build) and warm calls, the call's stages,
+   its ``torch.profiler`` trace, device busy share and peak memory;
+   ``[hough-check]`` holds kernel H against ``vote_orientations_plain`` on
+   the scan's normals (``hough_check`` through
+   ``hough_vote.vote_disagreements``: the clear, near-tie and
+   inlier-boundary patterns counted, and the largest R and err differences
+   to what each is held against); kernel H's time warm and cold against its operations
+   and issue-slot bounds; ``[hough-pc]`` runs
+   ``hough_indexing_optimize_pc(batch=True)`` on JAX's four-pattern case
+   (largest PC error under 1.2e-2) and on the scan from the PC off by (0.01,
+   -0.01, 0.01) (the mean error below the start's);
 6. the fused-kernel entry points at full size: the main path's prepared
    scan (16,384 x 3600) and its ``PreparedDictionary`` rows [:107,008]
    through each of the four wrappers at k=40, every launch counter > 0,
@@ -384,9 +411,10 @@ def plane_normals(hkl) -> np.ndarray:
     return np.array(out)
 
 
-def master_pattern_data(side: int = MASTER_SIDE) -> np.ndarray:
+def master_pattern_data(side: int = MASTER_SIDE, width: float = 1.0) -> np.ndarray:
     """Packed Lambert hemispheres ``(2, side, side)`` of a Gaussian band
-    sum over full m-3m plane families: symmetric by construction."""
+    sum over full m-3m plane families: symmetric by construction. Each band's
+    sigma is ``width`` times its full Bragg width 2 theta_B."""
     import torch
 
     from kikuchipy_tpu_torch.geometry.lambert import lambert_to_vector
@@ -402,7 +430,7 @@ def master_pattern_data(side: int = MASTER_SIDE) -> np.ndarray:
         img = np.zeros(w.shape[:-1])
         for hkl, weight in BAND_FAMILIES:
             d = LATTICE_A / np.sqrt(np.sum(np.square(hkl)))
-            sigma = 2 * np.arcsin(WAVELENGTH / (2 * d))
+            sigma = width * 2 * np.arcsin(WAVELENGTH / (2 * d))
             for n in plane_normals(hkl):
                 img += weight * np.exp(-0.5 * (w @ n / sigma) ** 2)
         hemis.append(img)
@@ -652,6 +680,7 @@ WRAPPERS = {
     "refine_population": ("population_orientation", "population_projection_center",
                           "population_orientation_projection_center"),
     "neighbours": ("average_neighbours",),
+    "hough_vote": ("vote_orientations",),
 }
 
 
@@ -2590,6 +2619,18 @@ NEIGHBOUR_WINDOWS = {
     "(3,)": dict(window=None, window_shape=(3,)),
     "5x5 rectangular": dict(window="rectangular", window_shape=(5, 5)),
 }
+# ... past the 128 taps passed as launch arguments (the device table), on the
+# main path's scan; and a map of patterns whose float32 averages pass the
+# shared-memory budget (the device-memory scratch).
+NEIGHBOUR_WIDE_WINDOWS = {
+    "13x13 rectangular": dict(window="rectangular", window_shape=(13, 13)),
+    "13x13 gaussian std 3": dict(window="gaussian", window_shape=(13, 13), std=3),
+}
+NEIGHBOUR_BIG_MAP = (16, 16)
+NEIGHBOUR_BIG_PATTERN = (480, 480)
+# Kernel G's 5-tap time on the main path's scan in the runs before its
+# repair (H100 80GB HBM3, 700 W; PERF.md), warm.
+NEIGHBOUR_5TAP_MS = (0.546, 0.565)
 # Coarser dictionary of the second phase in [calibration] (cubochoric grid).
 COARSE_RESOLUTION_DEG = 4.0
 # Points of the fitted-PC projection held against the CPU in [calibration].
@@ -2741,6 +2782,30 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
         data = (sub.to(torch.int32) * (257 if dtype_in == torch.uint16 else 1)).to(dtype_in)
         check(f"{dtype_in} -> {dtype_out}", data, NEIGHBOUR_WINDOWS["gaussian 3x3 std 2"], dtype_out)
         cases.append(f"32 x 32 of the scan {str(dtype_in)[6:]} -> {str(dtype_out)[6:]}")
+    # Past the launch argument's 128 taps (the device table) on the scan, and
+    # patterns past the shared-memory budget (the device-memory scratch).
+    wide_ms = {}
+    for name, kw in NEIGHBOUR_WIDE_WINDOWS.items():
+        check(f"the scan, {name}", p, kw)
+        cases.append(f"the {ny} x {nx} scan, {name}")
+        w_wide = ng._resolve_window(kw["window"], kw["window_shape"],
+                                    **{k: v for k, v in kw.items() if k not in ("window", "window_shape")})
+        taps_wide = ng.window_taps(w_wide)
+        wide_ms[name] = (len(taps_wide[1]), cuda_ms(lambda: ng.average_neighbours(p, *taps_wide, torch.uint8), 10,
+                                                    lead_ms=2.0))
+    big = torch.as_tensor(rng.integers(0, 256, size=NEIGHBOUR_BIG_MAP + NEIGHBOUR_BIG_PATTERN, dtype=np.uint8),
+                          device=device)
+    big_ms = {}
+    for name, kw in (("circular 3x3", NEIGHBOUR_WINDOWS["circular 3x3"]),
+                     ("13x13 gaussian std 3", NEIGHBOUR_WIDE_WINDOWS["13x13 gaussian std 3"])):
+        check(f"map {NEIGHBOUR_BIG_MAP}, patterns {NEIGHBOUR_BIG_PATTERN}, {name}", big, kw)
+        cases.append(f"map {NEIGHBOUR_BIG_MAP} x patterns {NEIGHBOUR_BIG_PATTERN} ({big.numel() / 1e6:.0f} MB), {name}")
+        w_big = ng._resolve_window(kw["window"], kw.get("window_shape", (3, 3)),
+                                   **{k: v for k, v in kw.items() if k not in ("window", "window_shape")})
+        taps_big = ng.window_taps(w_big)
+        big_ms[name] = (len(taps_big[1]), cuda_ms(lambda: ng.average_neighbours(big, *taps_big, torch.uint8), 10,
+                                                  lead_ms=2.0))
+    del big
     check_msg = (f"EBSD.average_neighbour_patterns() on the main path's {ny * nx} patterns: one launch of kernel G "
                  f"({counts['average_neighbours']}), {t_call:.2f} ms first call; kernel G == its plain version bit "
                  f"for bit on {len(cases)} cases: " + "; ".join(cases))
@@ -2782,7 +2847,422 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
                  f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it); plain {plain_ms:.3f} ms; library (depthwise conv2d, "
                  f"float32, timed only) {library_ms:.3f} ms, its uint8 output within {int(lib_diff.max())} gray of "
                  f"kernel G's on {float((lib_diff > 0).float().mean()):.4%} of the pixels")
+    lo, hi = NEIGHBOUR_5TAP_MS
+    where = "below" if ms < lo else "above" if ms > hi else "within"
+    times_msg += f"; the 5-tap time {where} the range of the runs before the repair ({lo}-{hi} ms)"
+    times_msg += "; windows past 128 taps (device table) on the scan: " + "; ".join(
+        f"{name} ({n_taps} taps) {t:.4f} ms" for name, (n_taps, t) in wide_ms.items())
+    times_msg += (f"; map {NEIGHBOUR_BIG_MAP} of {NEIGHBOUR_BIG_PATTERN} uint8 patterns (device-memory scratch): "
+                  + "; ".join(f"{name} ({n_taps} taps) {t:.4f} ms" for name, (n_taps, t) in big_ms.items()))
+    row["wide_window_ms"] = {name: t for name, (_, t) in wide_ms.items()}
+    row["scratch_ms"] = {name: t for name, (_, t) in big_ms.items()}
     return row, [check_msg], [times_msg]
+
+
+# ------------------------- Hough indexing (kernel H) ------------------------- #
+
+# Nickel as tests/test_hough.py:14 has it: space group 225, a = 3.5236 A, the
+# four fcc atoms. With min_dspacing 1 its poles are the {111}, {200}, {220} and
+# {311} families, the synthetic master's bands (BAND_FAMILIES).
+NI_LATTICE = (3.5236, 3.5236, 3.5236, 90.0, 90.0, 90.0)
+NI_ATOMS = [("ni", 0, 0, 0), ("ni", 0.5, 0.5, 0), ("ni", 0.5, 0, 0.5), ("ni", 0, 0.5, 0.5)]
+HOUGH_BANDS = 9
+# Clean simulated patterns of [hough] (a), and JAX's criterion on them
+# (tests/test_hough.py:61-81): every disorientation under 1 degree, at least
+# 3 inlier bands; (b) the noisy scan: the median under 1 degree.
+HOUGH_CLEAN = 1024
+HOUGH_MAX_DEG = 1.0
+HOUGH_MIN_BANDS = 3
+# The clean patterns are simulated from a master whose bands have the Bragg
+# angle theta_B as sigma (a full width at half maximum of 1.18 x 2 theta_B, as
+# a Kikuchi band's); the main path's master blurs each band to twice that.
+# On the main path's master the clean patterns are indexed too and reported:
+# there the vote misindexes a few of them whatever the package
+# (tests/test_torch_hough_master.py holds, on every 64th of them, that JAX
+# misindexes some and the port none that JAX indexes), so that run is gated
+# on the share under 1 degree and the median.
+HOUGH_BAND_WIDTH = 0.5
+HOUGH_WIDE_SHARE = 0.95
+# SASS instructions of one pole of kernel H's scoring (sass_count.py
+# hough_pole: the pole from shared memory, |R n . g| and the running
+# maximum); the run recounts it where the toolkit has cuobjdump.
+SASS_HOUGH_PER_POLE = 4.75
+# [hough-pc]: JAX's full-path case (tests/test_hough.py:218-270), four clean
+# patterns each under its own PC, from their mean with a trust region of
+# 0.04, gated on the largest error under 1.2e-2; then the scan from the PC
+# off by PC_OFFSET.
+HOUGH_PC_TRUTH = ((0.41, 0.21, 0.49), (0.43, 0.21, 0.50), (0.41, 0.23, 0.51), (0.43, 0.23, 0.49))
+HOUGH_PC_MAX_ERR = 1.2e-2
+
+
+def ni_phase():
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+
+    return Phase("ni", space_group=225, lattice=NI_LATTICE, atoms=NI_ATOMS)
+
+
+def unit64(q) -> np.ndarray:
+    """Quaternions scaled to unit length in float64 (else 2 acos |q . q|
+    reads 0.05 degrees between a float32 rotation and itself)."""
+    q = np.asarray(q, dtype=np.float64)
+    return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+
+def hough_vote_inputs(signal):
+    """Kernel H's inputs on the card as ``hough_indexing`` makes them for
+    ``signal``: the integer-peak band normals, nickel's poles, the LUT and
+    the band pairs; and the tolerance."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing import hough as th
+
+    dev = signal.data.device
+    g, la, lp = th._poles_and_lut(ni_phase(), None, 1.0, 20.0)
+    out = th.detect_bands_fused(signal.data, n_bands=HOUGH_BANDS)
+    rho_idx, theta_idx = (a.cpu().numpy().reshape(-1, HOUGH_BANDS) for a in out[4:])
+    normals = th.bands_to_normals(rho_idx, theta_idx, signal.detector, n_theta=180, n_rho=96)
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)  # noqa: E731
+    return (f32(normals), f32(g), f32(la), i32(lp), i32(th._pair_index(HOUGH_BANDS))), float(np.deg2rad(2.0))
+
+
+def hough_check(args, tol, chunk: int = 1024) -> tuple[dict, str]:
+    """``[hough-check]``: kernel H against ``vote_orientations_plain`` on the
+    same inputs by ``hough_vote.vote_disagreements``' criterion (the
+    kernel's R and err the plain version's where the best score is clear,
+    else a candidate's near the best). ``max_abs_err``: the largest |R - R'|
+    or |err - err'| against what each pattern is held to."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    got = hv.vote_orientations(*args, tol)
+    ref = hv.vote_orientations_plain(*args, tol, chunk=chunk)
+    torch.cuda.synchronize()
+    bad, stats = hv.vote_disagreements(got, ref, *args, tol, chunk=chunk)
+    if bad:
+        raise AssertionError("kernel H against its plain version: " + "; ".join(bad))
+    stats["max_abs_err"] = max(stats["max_r_diff"], stats["max_err_diff"])
+    msg = (f"kernel H == vote_orientations_plain on {stats['n']} patterns (n_bands {args[0].shape[1]}, "
+           f"{args[1].shape[0]} poles, LUT {args[2].shape[0]}, {args[4].shape[0]} pairs): clear best "
+           f"{stats['clear']} (R and err the plain version's), near ties {stats['near_ties']} (R and err a "
+           f"candidate's within the gap of the best), a band within {hv.COS_DELTA} of cos(tol) "
+           f"{stats['boundary']} (R a candidate's; n_in equal on {stats['boundary_n_in_equal']}), no valid "
+           f"candidate {stats['none_valid']} (R candidate 0's); R within {stats['max_r_diff']:.3g} (limit "
+           f"{hv.R_TOL}), err within {stats['max_err_diff']:.3g} rad (largest limit {stats['max_err_limit']:.3g})")
+    return stats, msg
+
+
+def hough_valid_candidates(args, tol) -> int:
+    """The candidates kernel H scores on these inputs: 8 for each LUT slot in
+    tolerance of a pair whose angle is above 0.05 rad (the first K of each
+    pair's)."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    normals, _, la, _, pair_idx = args
+    tol32, _ = hv.candidate_threshold(tol)
+    k = min(8, la.shape[0])
+    total = 0
+    for s0 in range(0, normals.shape[0], 2048):
+        nrm = normals[s0:s0 + 2048]
+        ang = torch.arccos(torch.clamp(torch.abs(torch.sum(nrm[:, pair_idx[:, 0]] * nrm[:, pair_idx[:, 1]], -1)),
+                                       0.0, 1.0))
+        in_tol = (torch.abs(la[None, None, :] - ang[..., None]) < tol32).sum(-1)
+        total += int((torch.clamp(in_tol, max=k) * (ang > hv.MIN_PAIR_ANGLE)).sum()) * 8
+    return total
+
+
+def hough_phases(dev, mp, hough_mp, det, pre, truth, smi: str, pole_sass: float, clock_mhz: float, sms: int):
+    """``[hough-check]``, ``[hough]`` and kernel H's row: ``EBSD.hough_indexing``
+    with nickel at n_bands=9 on (a) HOUGH_CLEAN clean simulated patterns and
+    (b) the main path's 16,384-pattern scan after static and dynamic removal;
+    kernel H against its plain version on the scan's normals; the call's
+    first and warm times, its stages, the device busy share and peak
+    memory; kernel H's times against its bounds."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography import sampling as ts
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.indexing import hough as th
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    msgs = {"hough-check": [], "hough": []}
+    spent = {}
+    t_phase = time.perf_counter()
+    plain_calls = [0]
+    plain = hv.vote_orientations_plain
+
+    def counted_plain(*a, **k):
+        plain_calls[0] += 1
+        return plain(*a, **k)
+
+    def call(signal):
+        """One hough_indexing call: kernel H exactly once, the plain vote never."""
+        reset_launches()
+        plain_calls[0] = 0
+        hv.vote_orientations_plain = counted_plain
+        try:
+            xm = signal.hough_indexing(phase_list=ni_phase(), n_bands=HOUGH_BANDS)
+        finally:
+            hv.vote_orientations_plain = plain
+        torch.cuda.synchronize()
+        counts = read_launches()
+        if counts["vote_orientations"] != 1 or plain_calls[0]:
+            raise AssertionError(f"hough_indexing: kernel H launched {counts['vote_orientations']} times (want 1), "
+                                 f"the plain vote {plain_calls[0]} times (want 0)")
+        return xm, counts
+
+    # (a) JAX's own case (tests/test_hough.py:61-81), then HOUGH_CLEAN clean
+    # simulated patterns; the first call builds the host operator.
+    rng = np.random.default_rng(3)
+    eu = rng.uniform(0, 1, size=(4, 3)) * [2 * np.pi, np.pi, 2 * np.pi]
+    rot4 = tq.from_euler(torch.as_tensor(eu)).numpy()
+    det4 = kt.EBSDDetector(shape=DETECTOR_SHAPE, pc=(0.42, 0.21, 0.5), sample_tilt=70)
+    sig4 = kt.EBSD(hough_mp.get_patterns(rot4, det4, dtype_out=np.uint8).data, detector=det4, device=dev)
+    n_clean = HOUGH_CLEAN
+    clean_rot = truth[:: len(truth) // n_clean][:n_clean]
+    clean = kt.EBSD(hough_mp.get_patterns(clean_rot, det, dtype_out=np.uint8).data, detector=det, device=dev)
+    wide = kt.EBSD(mp.get_patterns(clean_rot, det, dtype_out=np.uint8).data, detector=det, device=dev)
+    # The first call builds the host operator: its build timed inside it.
+    th._radon_matrix.cache_clear()
+    th._radon_butterfly_matrix.cache_clear()
+    th._device_operator.cache_clear()
+    build = th._radon_butterfly_matrix
+    t_build = []
+
+    def timed_build(*shape):
+        t0 = time.perf_counter()
+        out = build(*shape)
+        t_build.append(time.perf_counter() - t0)
+        return out
+
+    th._radon_butterfly_matrix = timed_build
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launches()
+        xm4 = sig4.hough_indexing(phase_list=ni_phase(), n_bands=8)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    finally:
+        th._radon_butterfly_matrix = build
+    t_build = sum(t_build)
+    ang4 = np.degrees(ts.disorientation_angle(rot4, unit64(xm4.rotations), "m-3m"))
+    if not (ang4.max() < HOUGH_MAX_DEG and (xm4.prop["nbands"] >= HOUGH_MIN_BANDS).all()):
+        raise AssertionError(f"[hough] JAX's case: disorientation {np.round(ang4, 3).tolist()} deg (limit "
+                             f"{HOUGH_MAX_DEG}), nbands {xm4.prop['nbands'].tolist()} (limit {HOUGH_MIN_BANDS})")
+    xm, counts = call(clean)
+    clean_launches = counts["vote_orientations"]
+    ang = np.degrees(ts.disorientation_angle(clean_rot, unit64(xm.rotations), "m-3m"))
+    nb = xm.prop["nbands"]
+    if not (ang.max() < HOUGH_MAX_DEG and (nb >= HOUGH_MIN_BANDS).all()):
+        raise AssertionError(f"[hough] clean: disorientation max {ang.max():.3f} deg (limit {HOUGH_MAX_DEG}), "
+                             f"nbands min {nb.min()} (limit {HOUGH_MIN_BANDS})")
+    clean_warm = [None] * 3
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(clean)
+        clean_warm[i] = (time.perf_counter() - t0) * 1e3
+    xw, _ = call(wide)
+    ang_w = np.degrees(ts.disorientation_angle(clean_rot, unit64(xw.rotations), "m-3m"))
+    share_w = float((ang_w < HOUGH_MAX_DEG).mean())
+    if not (share_w >= HOUGH_WIDE_SHARE and np.median(ang_w) < HOUGH_MAX_DEG):
+        raise AssertionError(f"[hough] clean, the main path's master: under {HOUGH_MAX_DEG} deg {share_w:.4f} (limit "
+                             f"{HOUGH_WIDE_SHARE}), median {np.median(ang_w):.3f}")
+    msgs["hough"].append(
+        f"(a) JAX's case (4 orientations from default_rng(3), PC (0.42, 0.21, 0.5), n_bands 8): disorientation "
+        f"{np.round(ang4, 4).tolist()} deg (limit {HOUGH_MAX_DEG}), nbands {xm4.prop['nbands'].tolist()}; "
+        f"{n_clean} clean simulated patterns (60 x 60 uint8, bands of sigma {HOUGH_BAND_WIDTH} x 2 theta_B): "
+        f"disorientation max {ang.max():.4f} deg, median {np.median(ang):.4f} (limit max {HOUGH_MAX_DEG}), nbands "
+        f"min {nb.min()} mean {nb.mean():.2f} (limit >= {HOUGH_MIN_BANDS}); the same orientations on the main "
+        f"path's master (sigma 2 theta_B): under {HOUGH_MAX_DEG} deg {share_w:.4f} (limit {HOUGH_WIDE_SHARE}), "
+        f"median {np.median(ang_w):.4f}, max {ang_w.max():.2f}, nbands mean {xw.prop['nbands'].mean():.2f}; first "
+        f"call (JAX's case) {t_first:.2f} s, of which the host operator build {t_build:.2f} s (then its upload and "
+        f"the first use of the operations), warm on the {n_clean} {', '.join(f'{t:.1f}' for t in clean_warm)} ms; "
+        f"kernel H launches "
+        f"a call {clean_launches}, the plain vote 0; launches of the call "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    spent["(a)"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # (b) the noisy scan after static and dynamic removal.
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xm, counts = call(pre)
+    t_scan_first = (time.perf_counter() - t0) * 1e3
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ang = np.degrees(ts.disorientation_angle(truth, unit64(xm.rotations), "m-3m"))
+    med, under2 = float(np.median(ang)), float((ang < 2.0).mean())
+    if not med < HOUGH_MAX_DEG:
+        raise AssertionError(f"[hough] scan: median disorientation {med:.3f} deg (limit {HOUGH_MAX_DEG})")
+    scan_launches = counts["vote_orientations"]
+    b = call_breakdown(lambda: pre.hough_indexing(phase_list=ni_phase(), n_bands=HOUGH_BANDS), 3, traced=2,
+                       launches=lambda: hv.vote_orientations.launches)
+
+    # The call's stages, each alone (CUDA events for device stages, the host
+    # clock around synchronised host stages).
+    n_scan = pre.navigation_size
+    flat = pre.data.reshape(n_scan, -1).to(torch.float32)
+    th._device_operator.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rb = th._device_operator(True, *det.shape, 180, 96, str(dev))
+    torch.cuda.synchronize()
+    t_upload = (time.perf_counter() - t0) * 1e3
+    enh = th._operator_product(flat, rb).reshape(n_scan, 96, 180)
+    stages = {
+        "detection product": cuda_ms(lambda: th._operator_product(flat, rb), 3),
+        "peak pick (NMS + topk_stable)": cuda_ms(lambda: th._peak_pick(enh, HOUGH_BANDS), 3),
+        "topk_stable alone": cuda_ms(lambda: th.topk_stable(enh.reshape(n_scan, -1), HOUGH_BANDS), 3),
+        "peak pick and refinement": cuda_ms(lambda: th._refine_from_enhanced(enh, HOUGH_BANDS), 3),
+    }
+    out = [a.cpu().numpy() for a in th._refine_from_enhanced(enh, HOUGH_BANDS)]
+    t0 = time.perf_counter()
+    normals = th.bands_to_normals(out[4], out[5], det, n_theta=180, n_rho=96)
+    normals_ref = th.bands_to_normals(out[0], out[1], det, n_theta=180, n_rho=96, return_rho_g=True)[0]
+    stages["normals on the host"] = (time.perf_counter() - t0) * 1e3
+    args, tol = hough_vote_inputs(pre)
+    vote = lambda: hv.vote_orientations(*args, tol)  # noqa: E731
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    ms_h = cuda_ms(vote, 10, lead_ms=2.0)
+    ms_h_cold = cuda_ms_cold(vote, 5, flush)
+    del flush
+    stages["kernel H"] = ms_h
+    R0 = vote()[0]
+    nref = torch.as_tensor(normals_ref, dtype=torch.float32, device=dev)
+
+    def refits():
+        R = R0
+        for _ in range(3):
+            R, _, _ = th._refit_orientations(R, nref, args[1], tol)
+        return R
+
+    stages["three refits"] = cuda_ms(refits, 3)
+    R_final = refits()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = ts.reduce_to_fundamental_zone(tq.from_matrix(R_final), "m-3m", device=dev)
+    stages["fundamental-zone reduction (host clock)"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    kt.CrystalMap(rotations=q, shape=pre.navigation_shape, prop={"fit": np.zeros(n_scan)})
+    stages["the map (host clock)"] = (time.perf_counter() - t0) * 1e3
+    ms_plain = cuda_ms(lambda: hv.vote_orientations_plain(*args, tol), 1)
+    del enh, flat
+
+    spent["(b) and the stages"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    # [hough-check] on the same normals.
+    stats, check_msg = hough_check(args, tol)
+    msgs["hough-check"].append(check_msg)
+    spent["[hough-check]"] = time.perf_counter() - t_phase
+
+    # Kernel H's bounds: the valid candidates' scoring.
+    n_valid = hough_valid_candidates(args, tol)
+    nb, ng = args[0].shape[1], args[1].shape[0]
+    flop = n_valid * nb * (ng * 3 + 9) * 2
+    t_ops = flop / PEAK_F32_FLOPS * 1e3
+    t_bytes = (args[0].numel() * 4 + n_scan * 44) / PEAK_BYTES * 1e3
+    t_instr = n_valid * nb * ng * pole_sass / 32 / (sms * WARP_INSTR_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    n_cand = n_scan * args[4].shape[0] * min(8, args[2].shape[0]) * 8
+    row = {
+        "name": "vote_orientations", "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/hough_vote.cu",
+        "replaces": "kikuchipy_tpu/indexing/hough.py:473 _vote_orientations (XLA code, no TPU kernel)",
+        "launches": scan_launches, "launches_by_path": {"hough scan": scan_launches, "hough clean": clean_launches},
+        "max_abs_err": stats["max_abs_err"], "ms": ms_h, "ms_cold": ms_h_cold, "plain_ms": ms_plain,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "instruction_bound_ms": t_instr, "near_ties": stats["near_ties"],
+        "clear": stats["clear"],
+        "shape": f"n={n_scan} n_bands={nb} poles={ng} LUT={args[2].shape[0]} pairs={args[4].shape[0]} K=8; "
+                 f"{n_valid} of {n_cand} candidates valid",
+        "note": "max_abs_err: the largest |R - R'| or |err - err'| over [hough-check]'s patterns, R' and err' "
+                "the plain version's on a clear best, the nearest matching candidate's on a near tie; bound: "
+                "the valid candidates' R n (9 FMA) and |R n . g| (3 FMA) a pole and band, an FMA two operations; "
+                "instruction_bound_ms: sass_count.py hough_pole a pole and band; no PyTorch call computes the vote",
+    }
+    scan_msg = (f"(b) the main path's {n_scan} noisy patterns after static and dynamic removal: disorientation to the "
+                f"truth median {med:.4f} deg (limit {HOUGH_MAX_DEG}), under 2 deg {under2:.4f}, max {ang.max():.2f}; "
+                f"nbands mean {xm.prop['nbands'].mean():.2f}; kernel H launches {scan_launches}, the plain vote 0; "
+                f"first call on the scan {t_scan_first:.1f} ms, peak memory {peak_gb:.2f} GB over the call's start; "
+                f"{breakdown_text(b)}; device busy share "
+                + (f"{b['device_ms'] / b['traced_ms']:.1%}" if b["device_ms"] is not None else "not measured")
+                + f" of the traced call; stages: operator upload {t_upload:.1f} ms (host clock, once a device), "
+                + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items()))
+    msgs["hough"].append(scan_msg)
+    msgs["hough"].append(
+        f"{smi}: kernel H at n={n_scan}: {ms_h:.4f} ms warm, {ms_h_cold:.4f} ms cold; bound {row['bound_ms']:.4f} ms "
+        f"by {row['bound_by']} ({flop / 1e9:.2f} GFLOP of {n_valid} valid candidates at "
+        f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s; {row['bound_ms'] / ms_h:.2%} of it), issue slots {t_instr:.4f} ms "
+        f"({pole_sass:g} SASS a pole at {clock_mhz:.0f} MHz); plain version {ms_plain:.2f} ms; no single PyTorch "
+        f"call computes the vote; the phases took " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    return row, msgs
+
+
+def hough_pc_phase(dev, hough_mp, det, pre, smi: str) -> list[str]:
+    """``[hough-pc]``: ``EBSD.hough_indexing_optimize_pc(batch=True)`` on JAX's
+    four-pattern case (gated on its largest PC error under 1.2e-2), then on
+    the main path's scan from the PC off by PC_OFFSET (gated on its mean
+    error falling below the start's); times and the device busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    msgs = []
+    rng = np.random.default_rng(3)
+    eu = rng.uniform(0, 1, size=(4, 3)) * [2 * np.pi, np.pi, 2 * np.pi]
+    rot = tq.from_euler(torch.as_tensor(eu)).numpy()
+    pc_truth = np.asarray(HOUGH_PC_TRUTH)
+    pats = [hough_mp.get_patterns(rot[k:k + 1], dataclasses.replace(det, pc=pc_truth[k]),
+                                  dtype_out=np.uint8).data[0]
+            for k in range(4)]
+    sig = kt.EBSD(torch.stack(pats), detector=dataclasses.replace(det, pc=pc_truth.mean(axis=0)), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det_opt = sig.hough_indexing_optimize_pc(batch=True, phase_list=ni_phase(), n_bands=8,
+                                             trust_region=(0.04, 0.04, 0.04))
+    torch.cuda.synchronize()
+    t_small = (time.perf_counter() - t0) * 1e3
+    err = np.abs(np.asarray(det_opt.pc).reshape(4, 3) - pc_truth)
+    if not err.max() < HOUGH_PC_MAX_ERR:
+        raise AssertionError(f"[hough-pc] four patterns: PC error max {err.max():.4g} (limit {HOUGH_PC_MAX_ERR})")
+    msgs.append(f"JAX's four-pattern case (planted +-0.01 PC spread, trust region 0.04, n_bands 8; bands of sigma "
+                f"{HOUGH_BAND_WIDTH} x 2 theta_B): PC error max "
+                f"{err.max():.5f} (limit {HOUGH_PC_MAX_ERR}), mean {err.mean():.5f}; {t_small:.1f} ms")
+
+    start = np.asarray(PC) + np.asarray(PC_OFFSET)
+    bad = kt.EBSD(pre.data, detector=dataclasses.replace(det, pc=start), device=dev)
+    n = pre.navigation_size
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det_scan = bad.hough_indexing_optimize_pc(batch=True, phase_list=ni_phase(), n_bands=HOUGH_BANDS)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    e_start = float(np.linalg.norm(start - np.asarray(PC)))
+    e = np.linalg.norm(np.asarray(det_scan.pc).reshape(n, 3) - np.asarray(PC), axis=1)
+    if not e.mean() < e_start:
+        raise AssertionError(f"[hough-pc] scan: mean PC error {e.mean():.5f} not below the start's {e_start:.5f}")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bad.hough_indexing_optimize_pc(batch=True, phase_list=ni_phase(), n_bands=HOUGH_BANDS)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, events = device_busy(prof)
+    msgs.append(f"{smi}: the main path's {n} patterns from the PC off by {PC_OFFSET} (error {e_start:.5f}): PC error "
+                f"mean {e.mean():.5f}, median {np.median(e):.5f}, mean PC "
+                f"{np.round(np.asarray(det_scan.pc).reshape(n, 3).mean(axis=0), 5).tolist()} (truth {PC}); calls "
+                f"{', '.join(f'{t:.0f}' for t in times)} ms ({n / np.median(times) * 1e3:.0f} patterns/s); under "
+                f"torch.profiler wall {wall:.0f} ms, device busy {busy:.1f} ms ({busy / wall:.1%}): "
+                + "; ".join(f"{k[:40]} x{c} {t:.2f} ms" for k, c, t in events[:5]))
+    return msgs
 
 
 def calibration_phase(smi: str, mp, det, pre, xmap, refined_pc) -> tuple[list[str], dict[str, int]]:
@@ -2925,6 +3405,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2979,13 +3460,13 @@ def main(argv=None) -> int:
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
             "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
-            "static_pixel": SASS_D_STATIC_PER_PIXEL, "source": "constants"}
+            "static_pixel": SASS_D_STATIC_PER_PIXEL, "hough_pole": SASS_HOUGH_PER_POLE, "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
         sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
-                                              "lm_eval_pixel", "clahe_pixel", "static_pixel")}
+                                              "lm_eval_pixel", "clahe_pixel", "static_pixel", "hough_pole")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
@@ -2999,9 +3480,10 @@ def main(argv=None) -> int:
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
         f"the LM loop kernel) {sass['lm_eval_pixel']}, an output pixel of kernel E (its bin, blend and rescale) "
         f"{sass['clahe_pixel']}, a pixel of kernel D's static warp kernel (two passes, truncation, packing, the "
-        f"store's share) {sass['static_pixel']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
+        f"store's share) {sass['static_pixel']:g}, a pole of kernel H's scoring {sass['hough_pole']:g} "
+        f"({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
         f"{SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, {SASS_CLAHE_PER_PIXEL}, "
-        f"{SASS_D_STATIC_PER_PIXEL:g}); dispatch "
+        f"{SASS_D_STATIC_PER_PIXEL:g}, {SASS_HOUGH_PER_POLE:g}); dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -3108,6 +3590,16 @@ def main(argv=None) -> int:
         log("neighbours", msg)
     for msg in nb_time_msgs:
         log("neighbours-times", msg)
+    t_hough = time.perf_counter()
+    # The Hough phases' clean patterns: bands of Kikuchi width (HOUGH_BAND_WIDTH).
+    hough_mp = kt.EBSDMasterPattern(master_pattern_data(width=HOUGH_BAND_WIDTH), phase=mp.phase, device=dev)
+    hough_row, hough_msgs = hough_phases(dev, mp, hough_mp, det, pre, truth, smi, sass["hough_pole"], clock_mhz, sms)
+    for phase in ("hough-check", "hough"):
+        for msg in hough_msgs[phase]:
+            log(phase, msg)
+    for msg in hough_pc_phase(dev, hough_mp, det, pre, smi):
+        log("hough-pc", msg)
+    log("hough-pc", f"[hough-check], [hough] and [hough-pc] took {time.perf_counter() - t_hough:.1f} s")
 
     # ---- the projection kernels against their plain twins ----
     from kikuchipy_tpu_torch.ops import lambert_project as lp
@@ -3804,6 +4296,7 @@ def main(argv=None) -> int:
     table.append(split_row)
     table.extend(preprocess_table)
     table.append(neighbour_row)
+    table.append(hough_row)
     # The projection kernels: A on the whole dictionary, B on one navigation chunk.
     ms_a = cuda_ms(lambda: lp.lambert_project(rot_dict, dc, quad, *geo), 5)
     ms_a_plain = cuda_ms(lambda: [lp.lambert_project_plain(rot_dict[c0:c0 + 16384], dc, quad, *geo)
@@ -3946,6 +4439,7 @@ def main(argv=None) -> int:
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")
+    log("total", f"{time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""Crystallography: symmetry, orientation sampling and crystal maps."""
+"""Crystallography: symmetry, orientation sampling, crystal maps, and
+reciprocal-lattice and space-group tools."""
 
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
+from kikuchipy_tpu_torch.crystallography.reciprocal import Lattice, ReciprocalLatticeVectors, electron_wavelength
 from kikuchipy_tpu_torch.crystallography.sampling import (
     cu2ho,
     cubochoric_sampling,
@@ -12,6 +14,12 @@ from kikuchipy_tpu_torch.crystallography.sampling import (
     sample_fundamental_zone,
     super_fibonacci,
 )
+from kikuchipy_tpu_torch.crystallography.spacegroup import (
+    centering_letter,
+    centering_translations,
+    expand_atoms,
+    general_positions,
+)
 from kikuchipy_tpu_torch.crystallography.symmetry import (
     PointGroup,
     get_point_group,
@@ -21,12 +29,19 @@ from kikuchipy_tpu_torch.crystallography.symmetry import (
 
 __all__ = [
     "CrystalMap",
+    "Lattice",
+    "centering_letter",
+    "centering_translations",
+    "expand_atoms",
+    "general_positions",
     "Phase",
     "PhaseList",
     "PointGroup",
+    "ReciprocalLatticeVectors",
     "cu2ho",
     "cubochoric_sampling",
     "disorientation_angle",
+    "electron_wavelength",
     "get_point_group",
     "get_sample_fundamental",
     "ho2qu",

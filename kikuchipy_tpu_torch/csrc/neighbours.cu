@@ -32,11 +32,17 @@
 // threads a block, a thread a pixel in strides. The neighbours are read from
 // device memory through L2: the blocks of one map row run together, so each
 // pattern is read from device memory about once and its other tap reads hit
-// L2. The window's taps (offsets and float64 weights, at most kMaxTaps) are a
-// kernel argument, in the constant bank, read by every thread at once. The
+// L2. A window of at most kMaxTaps taps (offsets and float64 weights) is a
+// kernel argument, in the constant bank, read by every thread at once; a
+// larger one is a device table that the wrapper uploads (float64 weights, then
+// the int32 dy and dx), read by every thread of a warp at one address. The
 // float32 averages of the block's pattern stay in shared memory (npix floats)
-// for the rescale after the block's min and max; the wrapper refuses a pattern
-// whose scratch passes its shared-memory budget, and a window with more taps.
+// for the rescale after the block's min and max; a pattern whose averages pass
+// the wrapper's shared-memory budget keeps them in a device-memory scratch
+// (work_blocks, npix) that the wrapper allocates, and then at most work_blocks
+// blocks run, each taking map points in strides. Both choices are template
+// arguments, so the main path's kernel (taps in the argument, averages in
+// shared memory) is the code it was.
 //
 // neighbours_variants.py rebuilds this source with the macros below to time
 // what each part of the design costs; the port builds it with none of them.
@@ -66,8 +72,11 @@ namespace {
 using namespace pattern_io;
 
 constexpr int kThreads = NEIGHBOURS_THREADS;
+// The most taps passed as a launch argument; a larger window goes through the
+// device table.
 constexpr int kMaxTaps = 128;
-// Whether a block keeps its pattern's averages in shared memory.
+// Whether a block keeps its pattern's averages (in shared memory or the
+// device-memory scratch).
 constexpr bool kScratch = NEIGHBOURS_PROBE != 2 && NEIGHBOURS_PROBE != 4;
 
 struct Taps {
@@ -80,8 +89,11 @@ struct Taps {
 };
 
 struct Params {
-    const void* in;  // (ny, nx, npix) patterns of type in_code
-    void* out;       // (ny, nx, npix) of type out_code
+    const void* in;    // (ny, nx, npix) patterns of type in_code
+    void* out;         // (ny, nx, npix) of type out_code
+    const double* tw;  // the device table's n_taps weights (a window past kMaxTaps), or null
+    const int* toff;   // the device table's n_taps dy, then n_taps dx
+    float* work;       // (gridDim.x, npix) float32 averages in device memory, or null: shared memory
     int in_code, out_code;
     int ny, nx, npix, n_taps;
     float omin, orange;  // output offset and omax - omin, as float32
@@ -91,7 +103,23 @@ __device__ __forceinline__ bool inside(const Params& p, int sy, int sx) {
     return sy >= 0 && sy < p.ny && sx >= 0 && sx < p.nx;
 }
 
+// Tap k's weight and offsets: from the launch argument, or with kTable from
+// the device table.
+template <bool kTable>
+__device__ __forceinline__ double tap_w(const Params& p, const Taps& t, int k) {
+    return kTable ? p.tw[k] : t.w[k];
+}
+template <bool kTable>
+__device__ __forceinline__ int tap_dy(const Params& p, const Taps& t, int k) {
+    return kTable ? p.toff[k] : t.dy[k];
+}
+template <bool kTable>
+__device__ __forceinline__ int tap_dx(const Params& p, const Taps& t, int k) {
+    return kTable ? p.toff[p.n_taps + k] : t.dx[k];
+}
+
 // The float32 average of pixel i of the pattern at (y, x).
+template <bool kTable>
 __device__ __forceinline__ float average_at(const Params& p, const Taps& t, int y, int x, int i, float norm32) {
 #ifdef NEIGHBOURS_FIXED_TAPS
     constexpr int n_taps = NEIGHBOURS_FIXED_TAPS;
@@ -101,16 +129,17 @@ __device__ __forceinline__ float average_at(const Params& p, const Taps& t, int 
 #if NEIGHBOURS_PROBE == 1
     float acc = 0.0f;
     for (int k = 0; k < n_taps; ++k) {
-        const int sy = y - t.dy[k], sx = x - t.dx[k];
+        const int sy = y - tap_dy<kTable>(p, t, k), sx = x - tap_dx<kTable>(p, t, k);
         float v = 0.0f;
         if (inside(p, sy, sx)) v = load_float(p.in, p.in_code, (static_cast<size_t>(sy) * p.nx + sx) * p.npix + i);
-        acc = __fadd_rn(acc, __fmul_rn(t.w32[k], v));
+        const float w32 = kTable ? static_cast<float>(p.tw[k]) : t.w32[k];
+        acc = __fadd_rn(acc, __fmul_rn(w32, v));
     }
     return __fdiv_rn(acc, norm32);
 #elif NEIGHBOURS_PROBE == 3
     unsigned acc = 0;
     for (int k = 0; k < n_taps; ++k) {
-        const int sy = y - t.dy[k], sx = x - t.dx[k];
+        const int sy = y - tap_dy<kTable>(p, t, k), sx = x - tap_dx<kTable>(p, t, k);
         if (inside(p, sy, sx))
             acc += static_cast<const uint8_t*>(p.in)[(static_cast<size_t>(sy) * p.nx + sx) * p.npix + i];
     }
@@ -118,31 +147,33 @@ __device__ __forceinline__ float average_at(const Params& p, const Taps& t, int 
 #else
     double acc = 0.0;
     for (int k = 0; k < n_taps; ++k) {
-        const int sy = y - t.dy[k], sx = x - t.dx[k];
+        const int sy = y - tap_dy<kTable>(p, t, k), sx = x - tap_dx<kTable>(p, t, k);
         double v = 0.0;
         if (inside(p, sy, sx))
             v = static_cast<double>(load_float(p.in, p.in_code, (static_cast<size_t>(sy) * p.nx + sx) * p.npix + i));
-        acc = __dadd_rn(acc, __dmul_rn(t.w[k], v));
+        acc = __dadd_rn(acc, __dmul_rn(tap_w<kTable>(p, t, k), v));
     }
     return __fdiv_rn(__double2float_rn(acc), norm32);
 #endif
 }
 
-__global__ void __launch_bounds__(kThreads) neighbours_kernel(Params p, Taps t) {
-    extern __shared__ float avg[];  // npix, where kScratch
-    __shared__ float red[64];
-    const int b = blockIdx.x;
+// Map point b: its averages, kept in ``avg`` (npix floats) where kScratch,
+// then rescaled by their min and max.
+template <bool kTable>
+__device__ __forceinline__ void average_point(const Params& p, const Taps& t, int b, float* avg, float* red) {
     const int y = b / p.nx, x = b - (b / p.nx) * p.nx;
 
     double norm = 0.0;
     for (int k = 0; k < p.n_taps; ++k)
-        norm = __dadd_rn(norm, __dmul_rn(t.w[k], inside(p, y - t.dy[k], x - t.dx[k]) ? 1.0 : 0.0));
+        norm = __dadd_rn(norm, __dmul_rn(tap_w<kTable>(p, t, k),
+                                         inside(p, y - tap_dy<kTable>(p, t, k), x - tap_dx<kTable>(p, t, k)) ? 1.0
+                                                                                                             : 0.0));
     const float norm32 = __double2float_rn(norm);
     const size_t base = static_cast<size_t>(b) * p.npix;
 
     float lo = INFINITY, hi = -INFINITY;
     for (int i = threadIdx.x; i < p.npix; i += blockDim.x) {
-        const float o = average_at(p, t, y, x, i, norm32);
+        const float o = average_at<kTable>(p, t, y, x, i, norm32);
 #if NEIGHBOURS_PROBE == 2
         store_float(p.out, p.out_code, base + i, o);
 #else
@@ -155,37 +186,92 @@ __global__ void __launch_bounds__(kThreads) neighbours_kernel(Params p, Taps t) 
     block_min_max(lo, hi, red);
     const float range = __fsub_rn(hi, lo);
     for (int i = threadIdx.x; i < p.npix; i += blockDim.x) {
-        const float o = kScratch ? avg[i] : average_at(p, t, y, x, i, norm32);
+        const float o = kScratch ? avg[i] : average_at<kTable>(p, t, y, x, i, norm32);
         const float v = __fdiv_rn(__fsub_rn(o, lo), range);
         store_float(p.out, p.out_code, base + i, __fadd_rn(__fmul_rn(v, p.orange), p.omin));
     }
 #endif
 }
 
+// Without kWork a block a map point, its averages in shared memory; with it a
+// block takes map points in strides, its averages in its row of p.work (each
+// thread reads back only the pixels it wrote, so no barrier is needed between
+// the two passes beyond block_min_max's).
+template <bool kTable, bool kWork>
+__global__ void __launch_bounds__(kThreads) neighbours_kernel(Params p, Taps t) {
+    extern __shared__ float avg[];  // npix, where kScratch and not kWork
+    __shared__ float red[64];
+    if (kWork) {
+        float* row = p.work + static_cast<size_t>(blockIdx.x) * p.npix;
+        for (int b = blockIdx.x; b < p.ny * p.nx; b += gridDim.x) average_point<kTable>(p, t, b, row, red);
+    } else {
+        average_point<kTable>(p, t, blockIdx.x, avg, red);
+    }
+}
+
+// Dynamic shared memory of a block: the averages, unless they live in the
+// device-memory scratch.
+size_t smem_bytes(int npix, bool work) {
+    return kScratch && !work ? sizeof(float) * static_cast<size_t>(npix) : 0;
+}
+
+template <bool kTable, bool kWork>
+cudaError_t launch(const Params& p, const Taps& t, int work_blocks, size_t smem, cudaStream_t stream) {
+    auto kernel = neighbours_kernel<kTable, kWork>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int grid = p.ny * p.nx;
+    if (kWork) {
+        int dev = 0, sms = 0, per_sm = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+        if (err != cudaSuccess) return err;
+        if (per_sm < 1) return cudaErrorInvalidConfiguration;
+        const long long cap = static_cast<long long>(per_sm) * sms;
+        if (grid > cap) grid = static_cast<int>(cap);
+        if (grid > work_blocks) grid = work_blocks;
+    }
+    kernel<<<grid, kThreads, smem, stream>>>(p, t);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
-// The most taps a window may have.
+// The most taps passed as launch arguments (a larger window goes through the
+// device table).
 extern "C" int neighbours_max_taps() { return kMaxTaps; }
 
-// Average every pattern of the (ny, nx) map with its neighbours and rescale;
+// Average every pattern of the (ny, nx) map with its neighbours and rescale.
 // ``w``, ``dy`` and ``dx`` are host arrays of ``n_taps`` entries (the taps in
-// the plain version's order). The wrapper (ops/neighbours.py) checks devices,
-// types, shapes and contiguity; here the sizes are checked again. ``smem_limit``
-// is the wrapper's shared-memory budget a block. Returns the cudaError_t of
-// the launch.
+// the plain version's order), or, with ``table_w`` set, null: then
+// ``table_w`` (n_taps float64) and ``table_off`` (n_taps int32 dy, then n_taps
+// dx) are the same taps in device memory. ``work``: null to keep the averages
+// in shared memory (at most ``smem_limit`` bytes a block, the wrapper's
+// budget), or a (work_blocks, npix) float32 device scratch. The wrapper
+// (ops/neighbours.py) checks devices, types, shapes and contiguity; here the
+// sizes are checked again. Returns the cudaError_t of the launch.
 extern "C" int neighbours_launch(const void* in, int in_code, void* out, int out_code, int ny, int nx, int npix,
-                                 int n_taps, const double* w, const int* dy, const int* dx, float omin, float orange,
+                                 int n_taps, const double* w, const int* dy, const int* dx, const double* table_w,
+                                 const int* table_off, void* work, int work_blocks, float omin, float orange,
                                  int smem_limit, void* stream) {
-    const size_t smem = kScratch ? sizeof(float) * static_cast<size_t>(npix) : 0;
+    const bool table = table_w != nullptr, scratch = work != nullptr;
+    const size_t smem = smem_bytes(npix, scratch);
 #ifdef NEIGHBOURS_FIXED_TAPS
     if (n_taps != NEIGHBOURS_FIXED_TAPS) return static_cast<int>(cudaErrorInvalidValue);
 #endif
-    if (in == nullptr || out == nullptr || w == nullptr || dy == nullptr || dx == nullptr || ny < 1 || nx < 1 ||
-        npix < 1 || n_taps < 1 || n_taps > kMaxTaps || smem > static_cast<size_t>(smem_limit))
+    if (in == nullptr || out == nullptr || ny < 1 || nx < 1 || npix < 1 || n_taps < 1 ||
+        smem > static_cast<size_t>(smem_limit) || (scratch && work_blocks < 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (table ? table_off == nullptr : (w == nullptr || dy == nullptr || dx == nullptr || n_taps > kMaxTaps))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p;
     p.in = in;
     p.out = out;
+    p.tw = table_w;
+    p.toff = table_off;
+    p.work = static_cast<float*>(work);
     p.in_code = in_code;
     p.out_code = out_code;
     p.ny = ny;
@@ -196,28 +282,33 @@ extern "C" int neighbours_launch(const void* in, int in_code, void* out, int out
     p.orange = orange;
     Taps t;
     for (int k = 0; k < kMaxTaps; ++k) {
-        t.w[k] = k < n_taps ? w[k] : 0.0;
+        const bool here = !table && k < n_taps;
+        t.w[k] = here ? w[k] : 0.0;
 #if NEIGHBOURS_PROBE == 1
         t.w32[k] = static_cast<float>(t.w[k]);
 #endif
-        t.dy[k] = k < n_taps ? dy[k] : 0;
-        t.dx[k] = k < n_taps ? dx[k] : 0;
+        t.dy[k] = here ? dy[k] : 0;
+        t.dx[k] = here ? dx[k] : 0;
     }
-    cudaError_t err = cudaFuncSetAttribute(neighbours_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    neighbours_kernel<<<ny * nx, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, t);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (table)
+        err = scratch ? launch<true, true>(p, t, work_blocks, smem, s) : launch<true, false>(p, t, work_blocks, smem, s);
+    else
+        err = scratch ? launch<false, true>(p, t, work_blocks, smem, s) : launch<false, false>(p, t, work_blocks, smem, s);
+    return static_cast<int>(err);
 }
 
-// Blocks of kernel G that an SM holds at once for patterns of ``npix``
-// pixels (the occupancy calculator's answer), or -1 on an error.
+// Blocks of kernel G (taps in the launch argument, averages in shared memory)
+// that an SM holds at once for patterns of ``npix`` pixels (the occupancy
+// calculator's answer), or -1 on an error.
 extern "C" int neighbours_blocks_per_sm(int npix) {
-    const size_t smem = kScratch ? sizeof(float) * static_cast<size_t>(npix) : 0;
+    const size_t smem = smem_bytes(npix, false);
+    auto kernel = neighbours_kernel<false, false>;
     int blocks = -1;
-    if (cudaFuncSetAttribute(neighbours_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, neighbours_kernel, kThreads, smem) != cudaSuccess)
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem) != cudaSuccess)
         return -1;
     return blocks;
 }

@@ -862,6 +862,15 @@ class EBSDDetector:
             return new_detector, fig
         return new_detector
 
+    def get_indexer(self, phase_list, reflectors=None, **kwargs):
+        """A configured Hough indexer for this detector (the role of
+        kikuchipy's PyEBSDIndex bridge): call ``indexer.index(signal)`` or
+        pass it to :meth:`kikuchipy_tpu_torch.signals.ebsd.EBSD.
+        hough_indexing`."""
+        from kikuchipy_tpu_torch.indexing.hough import HoughIndexer
+
+        return HoughIndexer(detector=self, phase_list=phase_list, reflectors=reflectors, **kwargs)
+
     def __repr__(self) -> str:
         # The reference's exact multi-line format
         # (pinned by its tests/test_detectors/test_ebsd_detector.py:148).

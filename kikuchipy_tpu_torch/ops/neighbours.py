@@ -35,9 +35,12 @@ __all__ = [
     "window_taps",
 ]
 
-# The most nonzero weights a window may have on the card
-# (csrc/neighbours.cu kMaxTaps).
+# The most nonzero weights passed to kernel G as a launch argument
+# (csrc/neighbours.cu kMaxTaps); a larger window goes through a device table.
 MAX_TAPS = 128
+# Blocks that run when a pattern's float32 averages pass the shared-memory
+# budget: they then live in a (_WORK_BLOCKS, sy, sx) float32 scratch.
+_WORK_BLOCKS = 1024
 
 
 def _resolve_window(window, window_shape, **kwargs) -> np.ndarray:
@@ -61,8 +64,10 @@ def window_taps(w: np.ndarray) -> tuple[list[tuple[int, int]], list[float]]:
 
 def _overlap(n: int, d: int) -> tuple[slice, slice]:
     """Destination and source slices of a shift by ``d`` along an axis of
-    ``n``: ``dst[i] = src[i - d]`` where ``0 <= i - d < n``."""
-    return slice(max(d, 0), n + min(d, 0)), slice(max(-d, 0), n + min(-d, 0))
+    ``n``: ``dst[i] = src[i - d]`` where ``0 <= i - d < n`` (both empty
+    where ``|d| >= n``)."""
+    return (slice(min(max(d, 0), n), max(n + min(d, 0), 0)),
+            slice(min(max(-d, 0), n), max(n + min(-d, 0), 0)))
 
 
 def _shift2d(x: torch.Tensor, dy: int, dx: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -110,6 +115,7 @@ def _library():
         lib.neighbours_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
             + [ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.neighbours_launch.restype = ctypes.c_int
@@ -124,9 +130,10 @@ def average_neighbours(patterns: torch.Tensor, offsets, weights, dtype_out) -> t
     """Average every pattern of the scan ``(ny, nx, sy, sx)`` with its
     neighbours at ``offsets`` (``(dy, dx)`` pairs) weighted by ``weights``,
     rescale each to ``dtype_out``'s range and cast. On the card one launch
-    of kernel G for the whole scan; ``ValueError`` where the window has more
-    than :data:`MAX_TAPS` weights or a pattern's float32 scratch passes the
-    shared-memory budget."""
+    of kernel G for the whole scan: a window of at most :data:`MAX_TAPS`
+    weights passes as the launch's argument, a larger one as a device table;
+    a pattern whose float32 averages pass the shared-memory budget keeps
+    them in a device-memory scratch."""
     _check_scan(patterns)
     if len(offsets) != len(weights) or not offsets:
         raise ValueError(f"need one offset a weight and at least one of each, got {len(offsets)} and {len(weights)}")
@@ -139,25 +146,34 @@ def average_neighbours(patterns: torch.Tensor, offsets, weights, dtype_out) -> t
     check_storage("kernel G", patterns.dtype, out_dtype)
     ny, nx, sy, sx = patterns.shape
     npix = sy * sx
-    if len(weights) > MAX_TAPS:
-        raise ValueError(f"kernel G takes at most {MAX_TAPS} nonzero window weights, got {len(weights)}")
-    if 4 * npix > SMEM_BUDGET:
-        raise ValueError(f"kernel G keeps a pattern's {npix} float32 averages in shared memory: {4 * npix} bytes "
-                         f"pass its budget of {SMEM_BUDGET}")
     src = patterns.contiguous()
     out = torch.empty(patterns.shape, dtype=out_dtype, device=dev)
     if src.numel() == 0:
         return out
     omin, omax = get_dtype_range(numpy_dtype(out_dtype))
     n_taps = len(weights)
-    w = (ctypes.c_double * n_taps)(*weights)
-    dy = (ctypes.c_int * n_taps)(*(int(o[0]) for o in offsets))
-    dx = (ctypes.c_int * n_taps)(*(int(o[1]) for o in offsets))
+    dy_list = [int(o[0]) for o in offsets]
+    dx_list = [int(o[1]) for o in offsets]
+    w = dy = dx = table_w = table_off = None
+    if n_taps <= MAX_TAPS:
+        w = (ctypes.c_double * n_taps)(*weights)
+        dy = (ctypes.c_int * n_taps)(*dy_list)
+        dx = (ctypes.c_int * n_taps)(*dx_list)
+    else:
+        table_w = torch.tensor([float(v) for v in weights], dtype=torch.float64, device=dev)
+        table_off = torch.tensor(dy_list + dx_list, dtype=torch.int32, device=dev)
+    work = None
+    if 4 * npix > SMEM_BUDGET:
+        work = torch.empty((min(ny * nx, _WORK_BLOCKS), sy, sx), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.neighbours_launch(src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype], ny, nx, npix,
-                                    n_taps, w, dy, dx, float(omin), float(omax) - float(omin), SMEM_BUDGET, stream)
+                                    n_taps, w, dy, dx, None if table_w is None else table_w.data_ptr(),
+                                    None if table_off is None else table_off.data_ptr(),
+                                    None if work is None else work.data_ptr(),
+                                    0 if work is None else work.shape[0],
+                                    float(omin), float(omax) - float(omin), SMEM_BUDGET, stream)
     if err:
         raise RuntimeError(f"neighbours launch failed: cudaError_t {err}")
     average_neighbours.launches += 1

@@ -8,7 +8,8 @@ far: preprocessing (intensity rescaling and normalization, static and
 dynamic background removal in both filter domains, the dynamic background
 itself, frequency- and spatial-domain FFT filtering, downsampling and
 rebinning, image quality, adaptive histogram equalization), neighbour
-averaging and the neighbour dot-product maps, dictionary indexing, and refinement of orientations and/or projection centers
+averaging and the neighbour dot-product maps, dictionary indexing, Hough
+indexing and its PC optimization, and refinement of orientations and/or projection centers
 (Nelder-Mead, Levenberg-Marquardt, gradient); the other methods wait (see
 ROADMAP.md).
 """
@@ -306,6 +307,177 @@ class EBSD:
                 ~np.asarray(navigation_mask).ravel() if navigation_mask is not None else None
             ),
         )
+
+    def hough_indexing(
+        self,
+        phase_list=None,
+        indexer=None,
+        chunksize: int | None = None,
+        verbose: int = 0,
+        return_index_data: bool = False,
+        return_band_data: bool = False,
+        **kwargs,
+    ):
+        """Hough indexing (:func:`kikuchipy_tpu_torch.indexing.hough.
+        hough_indexing`; one launch of kernel H on the card).
+
+        ``indexer``: a configured :class:`~kikuchipy_tpu_torch.indexing.hough.
+        HoughIndexer` (from :meth:`EBSDDetector.get_indexer`); its phase list
+        is used when ``phase_list`` is not given. ``chunksize`` is the plain
+        vote's pattern chunk. With ``return_index_data`` and
+        ``return_band_data`` the extra returns mirror kikuchipy's PyEBSDIndex
+        data: a ``(2, n)`` structured index-data array and the per-pattern
+        refined band parameters (a Radon transform of 90 angles and 96 radii,
+        9 bands)."""
+        from kikuchipy_tpu_torch.indexing.hough import detect_bands_refined, hough_indexing, radon_transform
+
+        if chunksize is not None:
+            kwargs.setdefault("chunk", int(chunksize))
+        if indexer is not None:
+            if phase_list is not None:
+                kwargs["phase_list"] = phase_list
+            xmap = indexer.index(self, **kwargs)
+        else:
+            xmap = hough_indexing(self, phase_list=phase_list, **kwargs)
+        if verbose:
+            fit = np.asarray(xmap.prop["fit"])
+            print(
+                f"Hough indexing of {xmap.size} patterns: mean fit "
+                f"{np.nanmean(fit):.3f} deg, mean bands "
+                f"{np.asarray(xmap.prop['nbands']).mean():.1f}"
+            )
+        out = (xmap,)
+        if return_index_data:
+            n = xmap.size
+            dt = np.dtype([("quat", "f8", (4,)), ("phase", "i8"), ("fit", "f8"), ("cm", "f8"), ("pq", "f8"),
+                           ("nmatch", "i8")])
+            index_data = np.zeros((2, n), dtype=dt)
+            fit = np.asarray(xmap.prop["fit"], dtype=np.float64)
+            for row in range(2):
+                index_data[row]["quat"] = np.asarray(xmap.best_rotations)
+                index_data[row]["phase"] = np.where(np.isfinite(fit), 0, -1)
+                index_data[row]["fit"] = fit
+                index_data[row]["pq"] = np.asarray(xmap.prop["band_intensity"], dtype=np.float64)
+                pq = index_data[row]["pq"]
+                rng = np.nanmax(pq) - np.nanmin(pq)
+                index_data[row]["cm"] = (pq - np.nanmin(pq)) / rng if rng > 0 else np.ones(n)
+                index_data[row]["nmatch"] = np.asarray(xmap.prop["nbands"])
+            out += (index_data,)
+        if return_band_data:
+            rho, theta, intensity, width = detect_bands_refined(radon_transform(self.data))
+            out += ({"rho": rho.cpu().numpy(), "theta": theta.cpu().numpy(),
+                     "intensity": intensity.cpu().numpy(), "width": width.cpu().numpy()},)
+        return out[0] if len(out) == 1 else out
+
+    def hough_indexing_optimize_pc(
+        self,
+        pc0=None,
+        indexer=None,
+        batch: bool = False,
+        method: str = "Nelder-Mead",
+        phase_list=None,
+        trust_region=(0.05, 0.05, 0.05),
+        max_iters: int = 80,
+        **hough_kwargs,
+    ):
+        """Optimize the projection center on the Hough band fit: search
+        (PCx, PCy, PCz) for the smallest mean angular misfit of the detected
+        bands to their lattice planes.
+
+        Parameters
+        ----------
+        pc0
+            Initial PC (default: the detector's average PC).
+        indexer
+            A configured :class:`~kikuchipy_tpu_torch.indexing.hough.
+            HoughIndexer`; its phase list, reflectors, detector and settings
+            are used when given.
+        batch
+            With ``True`` one PC a pattern
+            (:func:`kikuchipy_tpu_torch.indexing.hough.optimize_pc_batched`:
+            bands detected once, orientations at ``pc0``, every pattern's
+            search one lockstep batched Nelder-Mead); the returned
+            detector's ``pc`` then has the navigation shape. Else one PC for
+            the scan by a host search, each misfit one whole
+            :func:`hough_indexing` call.
+        method
+            The host search (``batch=False``): "Nelder-Mead" (SciPy) or "PSO"
+            (particle swarm).
+
+        Returns a new :class:`EBSDDetector` with the optimized PC.
+        """
+        from kikuchipy_tpu_torch.indexing import hough as _hough
+
+        det0 = self.detector
+        reflectors = None
+        if indexer is not None:
+            if phase_list is None:
+                phase_list = getattr(indexer, "phase_list", None)
+            if batch:
+                reflectors = getattr(indexer, "reflectors", None)
+            for key, value in getattr(indexer, "kwargs", {}).items():
+                hough_kwargs.setdefault(key, value)
+            det0 = getattr(indexer, "detector", None) or det0
+        if pc0 is None:
+            pc0 = det0.pc_average
+        if batch:
+            sig = dataclasses.replace(self, detector=det0)
+            pc = _hough.optimize_pc_batched(
+                sig, pc0=pc0, phase_list=phase_list, reflectors=reflectors, trust_region=trust_region,
+                max_iters=max_iters, **hough_kwargs,
+            )
+            nav_shape = self.navigation_shape
+            if len(nav_shape) == 2:
+                pc = pc.reshape(nav_shape + (3,))
+            return dataclasses.replace(det0, pc=pc)
+        supported = ("nelder-mead", "pso")
+        method = method.lower()
+        if method not in supported:
+            raise ValueError(f"`method` '{method}' must be one of the supported methods {list(supported)}")
+        from scipy.optimize import minimize
+
+        pc0 = np.asarray(pc0, dtype=float)
+
+        def misfit(pc):
+            det = dataclasses.replace(det0, pc=np.asarray(pc))
+            sig = dataclasses.replace(self, detector=det)
+            xmap = _hough.hough_indexing(sig, phase_list=phase_list, **hough_kwargs)
+            # Lost band inliers cost; a small fit error pays.
+            return float(np.nanmean(xmap.prop["fit"]) - 0.5 * xmap.prop["nbands"].mean())
+
+        tr = np.asarray(trust_region, dtype=float)
+        lo, hi = pc0 - tr, pc0 + tr
+        if method == "nelder-mead":
+            res = minimize(misfit, pc0, method="Nelder-Mead", bounds=list(zip(lo, hi)),
+                           options={"maxiter": max_iters, "xatol": 1e-4, "fatol": 1e-4})
+            best = res.x
+        else:
+            # Global-best particle swarm with the usual inertia, cognitive
+            # and social weights, from a fixed seed.
+            rng = np.random.default_rng(0)
+            n_particles = 12
+            pos = rng.uniform(lo, hi, size=(n_particles, 3))
+            pos[0] = pc0
+            vel = rng.uniform(-tr, tr, size=(n_particles, 3)) * 0.1
+            pbest = pos.copy()
+            pbest_val = np.array([misfit(p) for p in pos])
+            g = int(np.argmin(pbest_val))
+            gbest, gbest_val = pbest[g].copy(), pbest_val[g]
+            w, c1, c2 = 0.6, 1.5, 1.5
+            for _ in range(max(1, max_iters // n_particles)):
+                r1 = rng.random((n_particles, 3))
+                r2 = rng.random((n_particles, 3))
+                vel = w * vel + c1 * r1 * (pbest - pos) + c2 * r2 * (gbest - pos)
+                pos = np.clip(pos + vel, lo, hi)
+                vals = np.array([misfit(p) for p in pos])
+                improved = vals < pbest_val
+                pbest[improved] = pos[improved]
+                pbest_val[improved] = vals[improved]
+                g = int(np.argmin(pbest_val))
+                if pbest_val[g] < gbest_val:
+                    gbest, gbest_val = pbest[g].copy(), pbest_val[g]
+            best = gbest
+        return dataclasses.replace(det0, pc=best)
 
     def refine_orientation(self, *args, **kwargs):
         """:func:`kikuchipy_tpu_torch.indexing.refinement.refine_orientation`

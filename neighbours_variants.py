@@ -71,6 +71,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.neighbours_launch.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.neighbours_launch.restype = ctypes.c_int
@@ -96,7 +97,8 @@ def launcher(lib: ctypes.CDLL, p, offsets, weights):
     def run():
         out = torch.empty_like(p)
         err = lib.neighbours_launch(p.data_ptr(), CODES[p.dtype], out.data_ptr(), CODES[p.dtype], ny, nx, sy * sx, n,
-                                    w, dy, dx, 0.0, 255.0, SMEM_BUDGET, torch.cuda.current_stream().cuda_stream)
+                                    w, dy, dx, None, None, None, 0, 0.0, 255.0, SMEM_BUDGET,
+                                    torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"kernel G variant: cudaError_t {err}")
         return out

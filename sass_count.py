@@ -31,7 +31,10 @@ modes): its growth from 4 to 8 vectors a lane, less the growth of a frame
 with its loop, loads and stores (``probe_static_copy``), over the 64 pixels
 of the 4 vectors, so one vector's two passes, the background from shared
 memory, the division, the truncation, the packing and its branch; its
-per-pattern reduction is not counted. ``static_pixel_with_frame`` keeps the
+per-pattern reduction is not counted. ``hough_pole``: one pole of kernel
+H's scoring (``csrc/hough_vote.cu``: the pole from shared memory, ``|R n .
+g|`` and the running maximum), the growth of an unrolled probe from 8 to 16
+poles over 8. ``static_pixel_with_frame`` keeps the
 loads and stores; ``static_pixel_probe`` is a one-vector probe with the
 range and the minimum as kernel arguments, less a frame that loads and
 stores the same bytes. A kernel's count is its main path: every instruction
@@ -285,6 +288,27 @@ template __global__ void probe_static_copy<4>(StaticParams);
 template __global__ void probe_static_copy<8>(StaticParams);
 """
 
+# One pole of kernel H's scoring (csrc/hough_vote.cu: |R n . g| and the
+# running maximum, the pole from shared memory), unrolled over 8 and 16 poles:
+# the difference over 8 is a pole's step.
+PROBE_HOUGH = r"""
+#include "hough_vote.cu"
+
+template <int N>
+__global__ void probe_hough_poles(const float* __restrict__ g, const float* __restrict__ n, float* __restrict__ out) {
+    __shared__ float poles[3 * N];
+    for (int i = threadIdx.x; i < 3 * N; i += blockDim.x) poles[i] = g[i];
+    __syncthreads();
+    const Vec rn = {n[3 * threadIdx.x], n[3 * threadIdx.x + 1], n[3 * threadIdx.x + 2]};
+    float m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) m = fmaxf(m, abs_dot(rn, poles + 3 * j));
+    out[threadIdx.x] = m;
+}
+template __global__ void probe_hough_poles<8>(const float*, const float*, float*);
+template __global__ void probe_hough_poles<16>(const float*, const float*, float*);
+"""
+
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
 _LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -356,7 +380,7 @@ def count(build_dir: Path | None = None) -> dict:
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
     for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE),
-                       ("sass_probe_background", PROBE_BACKGROUND)):
+                       ("sass_probe_background", PROBE_BACKGROUND), ("sass_probe_hough", PROBE_HOUGH)):
         src = build_dir / f"{stem}.cu"
         src.write_text(text)
         lib = build_dir / f"lib{stem}.so"
@@ -403,6 +427,8 @@ def count(build_dir: Path | None = None) -> dict:
                     (len(warp[8, d, sb]) - len(warp[4, d, sb]) - (copy[8] - copy[4])) / 64
                     for d in (0, 1) for sb in (0, 1)}
 
+    hough8, hough16 = find("17probe_hough_polesILi8E"), find("17probe_hough_polesILi16E")
+
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
         c.subtract(Counter(frame))
@@ -438,6 +464,8 @@ def count(build_dir: Path | None = None) -> dict:
                                     find("17probe_static_copyILi4E")),
         "static_pixel_probe": (len(static) - len(static_frame) + 15) / 16,
         "static_pixel_probe_ops": mix(static, static_frame),
+        "hough_pole": (len(hough16) - len(hough8)) / 8,
+        "hough_pole_ops": {k: v / 8 for k, v in mix(hough16, hough8).items()},
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
 

@@ -1835,20 +1835,170 @@ def test_neighbours_entry_point_launches_once_and_identity_windows_launch_none(c
 
 
 def test_neighbours_kernel_refuses_what_it_cannot_hold(cuda):
+    # Only a storage type it has no conversion for: windows past 128 taps go
+    # through the device table and patterns past the shared-memory budget
+    # through the device-memory scratch, both bit for bit.
     from kikuchipy_tpu_torch.ops import neighbours as ng
 
     p = torch.zeros((2, 2, 8, 8), dtype=torch.uint8, device=cuda)
     before = ng.average_neighbours.launches
-    with pytest.raises(ValueError, match="at most 128"):
-        ng.average_neighbour_patterns(p, window=np.ones((12, 12)))
-    big = torch.zeros((2, 2, 250, 250), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ng.average_neighbour_patterns(big)
     with pytest.raises(TypeError, match="kernel G"):
         ng.average_neighbour_patterns(p.to(torch.int64))
     assert ng.average_neighbours.launches == before
-    # The largest pattern that fits runs (240 x 240 float32 averages).
-    fit = torch.as_tensor(_neighbour_scan((2, 3), (240, 240), np.uint8, 5), device=cuda)
-    got = ng.average_neighbour_patterns(fit)
-    assert torch.equal(got, ng.average_neighbours_plain(fit, *ng.window_taps(ng._resolve_window(None, (3, 3))),
-                                                        np.uint8))
+    for data, window in ((_neighbour_scan((2, 2), (8, 8), np.uint8, 4), np.ones((12, 12))),
+                         (_neighbour_scan((2, 2), (250, 250), np.uint8, 6), None),
+                         (_neighbour_scan((2, 3), (240, 240), np.uint8, 5), None)):
+        data = torch.as_tensor(data, device=cuda)
+        got = ng.average_neighbour_patterns(data, window=window)
+        w = ng._resolve_window(window, (3, 3))
+        assert torch.equal(got, ng.average_neighbours_plain(data, *ng.window_taps(w), np.uint8))
+    assert ng.average_neighbours.launches == before + 3
+
+
+@pytest.mark.parametrize("nav", [(1, 1), (3, 5), (16, 16)])
+@pytest.mark.parametrize("dtype_in, dtype_out", [(np.uint8, np.uint8), (np.uint16, np.float32),
+                                                 (np.float32, np.uint8)])
+def test_neighbours_kernel_takes_patterns_past_the_shared_memory_budget(cuda, nav, dtype_in, dtype_out):
+    # 480 x 480 float32 averages (921,600 bytes) live in the device-memory
+    # scratch; with a 13 x 13 window its taps come from the device table too.
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+    from kikuchipy_tpu_torch.ops.pattern_io import SMEM_BUDGET
+
+    assert 4 * 480 * 480 > SMEM_BUDGET
+    p = torch.as_tensor(_neighbour_scan(nav, (480, 480), dtype_in, seed=nav[1]), device=cuda)
+    for window, shape, kw in (("circular", (3, 3), {}), ("gaussian", (13, 13), {"std": 3})):
+        offsets, weights = ng.window_taps(ng._resolve_window(window, shape, **kw))
+        before = ng.average_neighbours.launches
+        got = ng.average_neighbours(p, offsets, weights, dtype_out)
+        torch.cuda.synchronize()
+        assert ng.average_neighbours.launches == before + 1
+        assert _same_bits(got, ng.average_neighbours_plain(p, offsets, weights, dtype_out)), (window, shape)
+
+
+@pytest.mark.parametrize("window, shape, kw", [("rectangular", (13, 13), {}), ("gaussian", (13, 13), {"std": 2}),
+                                               ("circular", (15, 15), {}), ("rectangular", (1, 129), {})])
+@pytest.mark.parametrize("nav", [(1, 1), (7, 9), (128, 128)])
+def test_neighbours_kernel_takes_windows_past_128_taps(cuda, window, shape, kw, nav):
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    offsets, weights = ng.window_taps(ng._resolve_window(window, shape, **kw))
+    assert len(weights) > ng.MAX_TAPS
+    for dtype in NEIGHBOUR_DTYPES:
+        p = torch.as_tensor(_neighbour_scan(nav, (60, 60), dtype, seed=len(weights)), device=cuda)
+        before = ng.average_neighbours.launches
+        got = ng.average_neighbours(p, offsets, weights, dtype)
+        torch.cuda.synchronize()
+        assert ng.average_neighbours.launches == before + 1
+        assert _same_bits(got, ng.average_neighbours_plain(p, offsets, weights, dtype)), (window, shape, dtype)
+
+
+# ------------------------- kernel H (Hough voting) ------------------------- #
+
+# Kernel H is held against its plain version by
+# ``ops/hough_vote.vote_disagreements`` (the smoke's [hough-check] criterion).
+
+
+def _hough_inputs(n, n_bands, n_poles, seed, outliers=0.3):
+    """Band normals of ``n`` patterns: each a rotation of some of the poles
+    with noise of about half a degree, a share of them replaced by random
+    directions; the poles are nickel's at ``min_dspacing`` 1 (25) or random
+    unit vectors, with a LUT of their interplanar angles (for many poles, of
+    pairs among a subset, so the plain version's intermediates stay small)."""
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+    from kikuchipy_tpu_torch.indexing.hough import _poles_and_lut
+
+    rng = np.random.default_rng(seed)
+    if n_poles == 25:
+        ni = Phase("ni", space_group=225, lattice=(3.5236,) * 3 + (90.0,) * 3,
+                   atoms=[("ni", 0, 0, 0), ("ni", 0.5, 0.5, 0), ("ni", 0.5, 0, 0.5), ("ni", 0, 0.5, 0.5)])
+        g, lut_angles, lut_pairs = _poles_and_lut(ni, None, 1.0, 20.0)
+        assert len(g) == 25
+    elif n_poles == 1:
+        g = np.array([[0.0, 0.0, 1.0]])
+        lut_pairs, lut_angles = np.array([[0, 0]]), np.array([0.0])
+    else:
+        g = rng.normal(size=(n_poles, 3))
+        g /= np.linalg.norm(g, axis=1, keepdims=True)
+        sub = list(range(40)) + list(rng.choice(np.arange(40, n_poles), 40, replace=False))
+        lut_pairs = np.array([(a, b) for i, a in enumerate(sub) for b in sub[i + 1:]])
+        lut_angles = np.arccos(np.clip(np.abs(np.sum(g[lut_pairs[:, 0]] * g[lut_pairs[:, 1]], axis=1)), 0, 1))
+    normals = np.empty((n, n_bands, 3))
+    for i in range(n):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        a, b, c, d = q
+        R = np.array([[a * a + b * b - c * c - d * d, 2 * (b * c - a * d), 2 * (b * d + a * c)],
+                      [2 * (b * c + a * d), a * a - b * b + c * c - d * d, 2 * (c * d - a * b)],
+                      [2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d]])
+        pick = rng.choice(len(g), n_bands, replace=len(g) < n_bands)
+        v = g[pick] @ R + rng.normal(scale=0.008, size=(n_bands, 3))
+        swap = rng.random(n_bands) < outliers
+        v[swap] = rng.normal(size=(int(swap.sum()), 3))
+        normals[i] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    return normals, g, lut_angles, lut_pairs
+
+
+def _hough_tensors(device, normals, g, lut_angles, lut_pairs, n_bands):
+    from kikuchipy_tpu_torch.indexing.hough import _pair_index
+
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)  # noqa: E731
+    return f32(normals), f32(g), f32(lut_angles), i32(lut_pairs), i32(_pair_index(n_bands))
+
+
+def _hough_agree(got, ref, args, tol, n_pairs_max=8, chunk=1024):
+    from kikuchipy_tpu_torch.ops.hough_vote import vote_disagreements
+
+    bad, stats = vote_disagreements(got, ref, *args, tol, n_pairs_max=n_pairs_max, chunk=chunk)
+    assert bad == [], bad
+    return stats
+
+
+@pytest.mark.parametrize("n", [1, 33, 1025])
+@pytest.mark.parametrize("n_poles", [1, 25, 3000])
+def test_hough_vote_kernel_matches_its_plain_version(cuda, n, n_poles):
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    tol = float(np.deg2rad(2.0))
+    for n_bands in (3, 6, 9, 12):
+        for n_pairs_max in (1, 8):
+            args = _hough_tensors(cuda, *_hough_inputs(n, n_bands, n_poles, seed=n + n_bands), n_bands=n_bands)
+            before = hv.vote_orientations.launches
+            got = hv.vote_orientations(*args, tol, n_pairs_max=n_pairs_max)
+            torch.cuda.synchronize()
+            assert hv.vote_orientations.launches == before + 1
+            chunk = 16 if n_poles == 3000 else 256
+            ref = hv.vote_orientations_plain(*args, tol, n_pairs_max=n_pairs_max, chunk=chunk)
+            _hough_agree(got, ref, args, tol, n_pairs_max, chunk)
+
+
+def test_hough_vote_kernel_without_a_valid_candidate(cuda):
+    # Parallel bands (every pair at or below 0.05 rad) and a tolerance no LUT
+    # entry meets: every score is -1, and candidate 0 (pair 0, slot 0: the
+    # first LUT entry by the fill rule) wins with err inf and no inlier.
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    normals, g, lut_angles, lut_pairs = _hough_inputs(40, 9, 25, seed=3, outliers=0.0)
+    normals[:20] = normals[:20, :1] + 1e-3 * np.random.default_rng(4).normal(size=(20, 9, 3))
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    args = _hough_tensors(cuda, normals, g, lut_angles, lut_pairs, 9)
+    for tol in (float(np.deg2rad(2.0)), 1e-9):
+        got = hv.vote_orientations(*args, tol)
+        ref = hv.vote_orientations_plain(*args, tol)
+        assert _hough_agree(got, ref, args, tol)["none_valid"] >= 20
+        assert torch.isinf(got[1][:20]).all() and (got[2][:20] == 0).all()
+
+
+def test_hough_vote_kernel_refuses_what_it_cannot_take(cuda):
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    args = list(_hough_tensors(cuda, *_hough_inputs(4, 9, 3000, seed=1), n_bands=9))
+    assert hv.smem_bytes(9, 3000, 15, args[2].shape[0]) > hv.SMEM_BUDGET
+    before = hv.vote_orientations.launches
+    with pytest.raises(TypeError, match="kernel H"):
+        hv.vote_orientations(args[0].double(), *args[1:], 0.03)
+    with pytest.raises(ValueError, match="one device"):
+        hv.vote_orientations(args[0], args[1].cpu(), *args[2:], 0.03)
+    with pytest.raises(ValueError, match="shared memory"):
+        hv.vote_orientations(*args, 0.03, n_pairs_max=10**6)
+    assert hv.vote_orientations.launches == before

@@ -33,9 +33,9 @@ def test_signatures_and_names_are_jax():
         assert inspect.signature(got) == inspect.signature(want), got.__name__
     from kikuchipy_tpu import indexing as jindexing
 
-    # Everything JAX's indexing namespace re-exports, less the Hough
-    # indexer (a later slice).
-    assert set(jindexing.__all__) - set(tindexing.__all__) == {"hough_indexing"}
+    # Everything JAX's indexing namespace re-exports (the Hough indexer
+    # too, since its slice).
+    assert set(jindexing.__all__) - set(tindexing.__all__) == set()
 
 
 def assert_same_map(t, j):

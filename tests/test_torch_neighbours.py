@@ -86,6 +86,21 @@ def test_edge_shapes_match_jax(shape):
                         np.uint8)
 
 
+@pytest.mark.parametrize("shape, window", [((2, 2, 4, 4), np.ones((12, 12))), ((1, 3, 4, 4), np.ones((7, 9))),
+                                           ((4, 1, 3, 5), "circular")])
+def test_windows_wider_than_the_map_match_jax(shape, window):
+    # Taps whose offset passes the map's edge add nothing, as in JAX's
+    # masked roll.
+    p = scan(np.uint8, shape=shape, seed=9)
+    kw = dict(window=window, window_shape=(9, 9)) if isinstance(window, str) else dict(window=window)
+    assert_close_to_jax(tn.average_neighbour_patterns(p, device=CPU, **kw).numpy(),
+                        jn.average_neighbour_patterns(p, **kw), np.uint8)
+    got = tn.neighbour_dot_product_matrices(p, device=CPU, **kw)
+    want = jn.neighbour_dot_product_matrices(p, **kw)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=DP_TOL, equal_nan=True)
+
+
 def test_window_taps_are_jax_order():
     for window in WINDOWS.values():
         kw = dict(window)

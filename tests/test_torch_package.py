@@ -99,6 +99,14 @@ def test_no_import_statement_names_jax():
                 ("get_sample_fundamental", (20.0,)),
             ]
         ),
+        # Hough detection on arrays.
+        *(
+            (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.indexing.hough"), name)(
+                np.ones((2, 8, 8), np.float32), n_theta=6, n_rho=4))
+            for name in ("radon_transform", "detect_bands_fused")
+        ),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.indexing.hough").HoughIndexer(
+            kikuchipy_tpu_torch.EBSDDetector(shape=(8, 8)), None).index(np.ones((2, 8, 8), np.uint8)),
         # Neighbour averaging and the dot-product maps.
         *(
             (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.ops.neighbours"), name)(
@@ -201,6 +209,23 @@ def test_wrappers_on_cpu_do_not_count_launches(wrapper, args, kw):
     assert wrapper.launches == before
 
 
+def test_vote_wrapper_on_cpu_is_plain_and_does_not_count_launches():
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    rng = np.random.default_rng(2)
+    normals = torch.as_tensor(rng.normal(size=(5, 6, 3)), dtype=torch.float32)
+    normals = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
+    g = torch.eye(3)
+    args = (normals, g, torch.tensor([np.pi / 2] * 3, dtype=torch.float32),
+            torch.tensor([[0, 1], [0, 2], [1, 2]], dtype=torch.int32),
+            torch.tensor([[0, 1], [0, 2], [1, 2]], dtype=torch.int32), 0.05)
+    before = hv.vote_orientations.launches
+    got = hv.vote_orientations(*args)
+    assert hv.vote_orientations.launches == before
+    for a, b in zip(got, hv.vote_orientations_plain(*args)):
+        assert torch.equal(a, b)
+
+
 def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
     x = torch.from_numpy(np.random.default_rng(1).normal(size=(5, 70)).astype(np.float32))
     before = nt.tf32_rows.launches
@@ -214,7 +239,7 @@ def test_split_pass_on_cpu_is_plain_and_does_not_count_launches():
 def test_kernel_sources_and_build_directory():
     srcs = _build.sources()
     assert set(srcs) == {"ncc_topk_int8", "ncc_topk_bf16", "ncc_topk_f32", "lambert_project", "refine_nm", "refine_lm",
-                         "background", "clahe", "refine_population", "neighbours"}
+                         "background", "clahe", "refine_population", "neighbours", "hough_vote"}
     text = {name: path.read_text() for name, path in srcs.items()}
     # Kernel D replaces _remove_background and the separable blur, kernel E
     # _clahe_batch with its blend weights; both without fast math.
@@ -224,8 +249,19 @@ def test_kernel_sources_and_build_directory():
         assert what in text["clahe"], what
     # Kernel G replaces _average_impl of neighbour averaging, without fast
     # math, on the preprocessing kernels' typed loads and stores.
-    for what in ("neighbours_kernel", "_average_impl", "__dadd_rn", "__fdiv_rn", "kMaxTaps"):
+    for what in ("neighbours_kernel", "_average_impl", "__dadd_rn", "__fdiv_rn", "kMaxTaps", "table_w", "work_blocks"):
         assert what in text["neighbours"], what
+    # Kernel H replaces the vote's einsums (XLA code, no TPU kernel) with the
+    # triads, the LUT scan by ballots and a block argmax.
+    for what in ("hough_vote_kernel", "_vote_orientations", "_triad", "__ballot_sync", "kTile", "acosf"):
+        assert what in text["hough_vote"], what
+    # The wrappers' limits are the sources': taps passed as launch arguments;
+    # kernel H's shared memory read from the source's own layout.
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    assert f"constexpr int kMaxTaps = {ng.MAX_TAPS};" in text["neighbours"]
+    assert 'extern "C" long long hough_vote_smem_bytes(' in text["hough_vote"]
+    assert "hough_vote_smem_bytes" in (PKG / "ops" / "hough_vote.py").read_text()
     for name in ("background", "clahe", "neighbours"):
         assert '#include "pattern_io.cuh"' in text[name], name
     # The projection kernels replace XLA code: project_patterns, and
