@@ -52,9 +52,11 @@ the card's name and power limit, and the device check):
    the device busy share under ``torch.profiler``, and the output's check
    (float32, finite, zero mean and unit deviation); then D's two modes and E
    at the main path's shape, warm and with the L2 flushed, with their
-   bounds (E's and D static's issue slots from ``sass_count.py``'s
-   ``clahe_pixel`` and ``static_pixel``), D static's kernel and its time on
-   65,536 patterns, and the plain versions;
+   bounds (each one's issue slots from ``sass_count.py``'s ``clahe_pixel``,
+   ``static_pixel`` and ``dynamic_steps``, counted on the kernels
+   themselves), each one's kernel (D static's warp kernel, D dynamic's and
+   E's pair kernels, each held byte for byte to the block kernel and timed
+   beside it), D static's time on 65,536 patterns, and the plain versions;
 5b. the projection kernels against their plain twins: ``lambert_project``
    against the twin run in float64 on the whole dictionary, a rescaled
    slab, one PC per rotation, a ragged pixel count, one rotation and pixels
@@ -259,6 +261,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -316,10 +319,21 @@ SASS_LM_EVAL_PER_PIXEL = {"orientation": 466, "pc": 582, "joint": 689}
 # clock (the Hopper architecture white paper), at the card's largest SM
 # clock (nvidia-smi clocks.max.sm in the run).
 WARP_INSTR_PER_SM_CLOCK = 4
-# SASS instructions of one output pixel of kernel E on uint8 input
-# (sass_count.py ``clahe_pixel``: its bin from the input, the blend of four
-# tables, the rescale and the store): the function's own work a pixel.
-SASS_CLAHE_PER_PIXEL = 102
+# SASS instructions of one pixel of kernel E on uint8 input at 60 x 60,
+# counted on its pair kernel itself (sass_count.py ``clahe_pixel``: a
+# pixel's histogram step, its blend, its output and its share of the 16
+# tiles' mappings); the block kernel's own pixel (``clahe_block_pixel``:
+# its bin from the input, the blend of four tables, the rescale and the
+# store, on a probe) was 102.
+SASS_CLAHE_PER_PIXEL = 80.71583333333334
+# ... and kernel D's dynamic pair kernel, counted on the kernel itself
+# (sass_count.py ``dynamic_steps``): a step of the row product (a pattern
+# row's two bytes, eight operator values, sixteen FMAs) and of the column
+# product (two floats), and the rest of a warp's pass over a pattern (the
+# removal, the min and max, the rescale, the copies); a run's issue slots a
+# pattern are 2 rest + the steps its operators' bands need
+# (sass_count.dynamic_slots).
+SASS_D_DYNAMIC_STEPS = {"row_step": 24.125, "col_step": 19.03125, "rest": 2275.0}
 # ... and of one pixel of kernel D's static warp kernel on uint8 input,
 # counted on the shipped kernel (sass_count.py ``static_pixel``: one
 # vector's two passes, the division, the truncation and the packing, less
@@ -1559,12 +1573,18 @@ def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
     mode's two kernels on 1 x 16, 16 x 1, 40 x 40, 64 x 64, 80 x 80 and 480 x 480
     patterns, n of 1 and 13, a misaligned view, flat patterns (NaN before
     the cast), zeros in a divided background and out ranges in and past
-    int32, each on the kernel ``static_path`` chose; CLAHE at its
-    defaults, with clipping, with 7 x 7 tiles (the reflect pad), on uint16
-    input and on 480 x 480 patterns (its blended values in device memory).
-    Static mode bit for bit; the dynamic mode and kernel E
-    within one gray level on at most GRAY_SHARE of the pixels (float32
-    outputs within 1e-5 of the range)."""
+    int32, each on the kernel ``static_path`` chose; the dynamic mode's two
+    kernels on the scan (subtract and divide), n of 1 and 13, a misaligned
+    view, 64 x 64, 57 x 61, 180 x 180 (the block kernel's scratch), uint16
+    in and float32 out, each on the kernel ``dynamic_path`` chose; CLAHE at
+    its defaults, with clipping, n of 1 and 13, a misaligned view, with 7 x 7
+    tiles (the reflect pad), 57 x 61, rows wider than 64 pixels (8 x 500,
+    4 x 1020), uint16 input, float32 out and 480 x 480 patterns (its
+    blended values in device memory), each on the kernel
+    ``clahe_path`` chose. Static mode bit for bit; the dynamic mode and
+    kernel E within one gray level on at most GRAY_SHARE of the pixels
+    (float32 outputs within 1e-5 of the range); each pair kernel's bytes the
+    block kernel's."""
     import torch
 
     from kikuchipy_tpu_torch.ops import ahe
@@ -1583,15 +1603,11 @@ def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
     cases = []
     for label, data in (("scan", flat), ("57x61", ragged)):
         b = bg[: data.shape[-2], : data.shape[-1]].contiguous()
-        row, col = operators(data.shape[-2:])
         cases += [
             (f"static {label} subtract uint8", data, dict(static_bg=b), np.uint8),
             (f"static {label} subtract float32", data, dict(static_bg=b), np.float32),
             (f"static {label} divide uint8", data, dict(static_bg=b, op="divide"), np.uint8),
             (f"static {label} scale_bg uint8", data, dict(static_bg=b, scale_bg=True), np.uint8),
-            (f"dynamic {label} subtract uint8", data, dict(row_op=row, col_op=col), np.uint8),
-            (f"dynamic {label} subtract float32", data, dict(row_op=row, col_op=col), np.float32),
-            (f"dynamic {label} divide uint8", data, dict(row_op=row, col_op=col, op="divide"), np.uint8),
         ]
     for label, data, kw, dtype_out in cases:
         kw = dict(kw)
@@ -1601,18 +1617,9 @@ def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
         ref = bgk.remove_background_plain(data, op, omin, omax, dtype_out, **kw)
         torch.cuda.synchronize()
         worst, share = gray_diff(got, ref)
-        mode = label.split()[0]
-        if mode == "static":
-            ok = torch.equal(got, ref)
-        elif dtype_out == np.uint8:
-            ok = worst <= 1 and share <= GRAY_SHARE
-        else:
-            ok = worst <= 1e-5 * (omax - omin)
-        if not ok:
+        if not torch.equal(got, ref):
             raise AssertionError(f"kernel D disagrees with its plain version ({label}): max {worst:g}, "
                                  f"{share:.2e} of the pixels differ")
-        if dtype_out == np.uint8:
-            errs[mode] = max(errs[mode], worst)
         msgs.append(f"{label}: max {worst:g}, {share:.2e} differ")
     # The static mode's two kernels (bgk.static_path): each case takes the
     # kernel the wrapper chose, bit for bit with the plain version.
@@ -1665,32 +1672,117 @@ def preprocess_checks(device, scan_u8, static_bg) -> tuple[dict, list[str]]:
                                  f"{worst:g}, {share:.2e} of the pixels differ")
         errs["static"] = max(errs["static"], worst)
         msgs.append(f"static {label} ({want}{f', {vec} vectors a lane' if vec else ''}): bit for bit")
-    del wide, odd, level, holes
+    # The dynamic mode's two kernels (bgk.dynamic_path): each case takes the
+    # kernel the wrapper chose, within the gates of the plain version, and
+    # the pair kernel's bytes are the block kernel's.
+    big = flat[:64].repeat_interleave(3, dim=-2).repeat_interleave(3, dim=-1).contiguous()
+    dynamic_cases = (
+        ("scan", flat, np.uint8, {}),
+        ("scan divide", flat, np.uint8, {"op": "divide"}),
+        ("scan float32 out", flat, np.float32, {}),
+        ("n=1", flat[:1], np.uint8, {}),
+        ("n=13", flat[:13], np.uint8, {}),
+        ("n=13 misaligned", odd[1:].view(13, 60, 60), np.uint8, {}),
+        ("64x64", wide[:, :64, :64].contiguous(), np.uint8, {}),
+        ("57x61", ragged, np.uint8, {}),
+        ("57x61 divide", ragged, np.uint8, {"op": "divide"}),
+        ("57x61 float32 out", ragged, np.float32, {}),
+        ("180x180 (scratch)", big, np.uint8, {}),
+        ("uint16 in", (flat[:512].to(torch.int32) * 257).to(torch.uint16), np.uint8, {}),
+    )
+    for label, data, dtype_out, kw in dynamic_cases:
+        op = kw.get("op", "subtract")
+        omin, omax = (0, 255) if dtype_out == np.uint8 else (-1.0, 1.0)
+        row, col = operators(data.shape[-2:])
+        want, pairs = bgk.dynamic_path(*data.shape[-2:], data.dtype, dtype_out, omin, omax,
+                                       aligned=data.data_ptr() % 16 == 0)
+        before = dict(bgk.remove_background.mode_launches)
+        got = bgk.remove_background(data, op, omin, omax, dtype_out, row_op=row, col_op=col)
+        ref = bgk.remove_background_plain(data, op, omin, omax, dtype_out, row_op=row, col_op=col)
+        torch.cuda.synchronize()
+        took = [k for k in ("pair", "block") if bgk.remove_background.mode_launches[f"dynamic-{k}"]
+                > before[f"dynamic-{k}"]]
+        if took != [want]:
+            raise AssertionError(f"kernel D dynamic ({label}) took {took}, dynamic_path chose {want}")
+        worst, share = gray_diff(got, ref)
+        ok = (worst <= 1 and share <= GRAY_SHARE) if dtype_out == np.uint8 else worst <= 1e-5 * (omax - omin)
+        if not ok:
+            raise AssertionError(f"kernel D dynamic ({label}, {want}) disagrees with its plain version: max {worst:g}, "
+                                 f"{share:.2e} of the pixels differ")
+        same = ""
+        if want == "pair":
+            with forced_block(bgk, "dynamic_path"):
+                block = bgk.remove_background(data, op, omin, omax, dtype_out, row_op=row, col_op=col)
+            if not torch.equal(got, block):
+                raise AssertionError(f"kernel D dynamic ({label}): the pair kernel's bytes are not the block kernel's")
+            same = ", the block kernel's bytes"
+        if dtype_out == np.uint8:
+            errs["dynamic"] = max(errs["dynamic"], worst)
+        msgs.append(f"dynamic {label} ({want}{f', {pairs} pairs a block' if pairs else ''}): max {worst:g}, "
+                    f"{share:.2e} differ{same}")
+    del wide, odd, level, holes, big
     row, col = operators(flat.shape[-2:])
     pre = bgk.remove_background(flat, "subtract", 0, 255, np.uint8, row_op=row, col_op=col)
+    odd = torch.empty(13 * 3600 + 1, dtype=torch.uint8, device=device)
+    odd[1:].copy_(pre[:13].reshape(-1))
     for label, data, kw in (
         ("defaults", pre, {}),
         ("clip_limit=0.02", pre, {"clip_limit": 0.02}),
+        ("n=1", pre[:1], {}),
+        ("n=13", pre[:13], {}),
+        ("n=13 misaligned", odd[1:].view(13, 60, 60), {}),
         ("kernel_size=(7, 7)", pre, {"kernel_size": (7, 7)}),
+        ("57x61", pre[:, :57, :61].contiguous(), {}),
+        # Rows wider than 64 pixels: each word's row by pair_row's product.
+        ("8x500", pre[:400].reshape(360, 8, 500), {}),
+        ("4x1020", pre[:1020].reshape(900, 4, 1020), {}),
         ("uint16", (pre.to(torch.int32) * 257).to(torch.uint16), {}),
+        ("float32 out", pre[:512], {"dtype_out": np.float32}),
         # 480 x 480 (the defaults' 120 x 120 tiles): the blended values go to
         # device memory.
         ("480x480", pre[:256].repeat_interleave(8, dim=-2).repeat_interleave(8, dim=-1).contiguous(), {}),
     ):
-        got = ahe.adaptive_histogram_equalization(data, device=device, **kw)
         sy, sx = data.shape[-2:]
         ky, kx = kw.get("kernel_size", (sy // 4, sx // 4))
+        dtype_out = kw.get("dtype_out", data.dtype)
+        want, pairs = ahe.clahe_path(sy, sx, ky, kx, 128, data.dtype, dtype_out, aligned=data.data_ptr() % 16 == 0)
+        before = dict(ahe.clahe.mode_launches)
+        got = ahe.adaptive_histogram_equalization(data, device=device, **kw)
         chunk = max(512 * 3600 // (sy * sx), 1)
-        ref = ahe.clahe_plain(data, ky, kx, 128, kw.get("clip_limit", 0.0), data.dtype, chunk=chunk)
+        ref = ahe.clahe_plain(data, ky, kx, 128, kw.get("clip_limit", 0.0), dtype_out, chunk=chunk)
         torch.cuda.synchronize()
+        took = [k for k in ("pair", "block") if ahe.clahe.mode_launches[k] > before[k]]
+        if took != [want]:
+            raise AssertionError(f"kernel E ({label}) took {took}, clahe_path chose {want}")
         worst, share = gray_diff(got, ref)
-        if not (worst <= 1 and share <= GRAY_SHARE):
-            raise AssertionError(f"kernel E disagrees with its plain version ({label}): max {worst:g}, "
+        ok = worst <= 1e-5 if got.dtype.is_floating_point else (worst <= 1 and share <= GRAY_SHARE)
+        if not ok:
+            raise AssertionError(f"kernel E disagrees with its plain version ({label}, {want}): max {worst:g}, "
                                  f"{share:.2e} of the pixels differ")
-        if data.dtype == torch.uint8:
+        same = ""
+        if want == "pair":
+            with forced_block(ahe, "clahe_path"):
+                block = ahe.adaptive_histogram_equalization(data, device=device, **kw)
+            if not torch.equal(got, block):
+                raise AssertionError(f"kernel E ({label}): the pair kernel's bytes are not the block kernel's")
+            same = ", the block kernel's bytes"
+        if data.dtype == torch.uint8 and not got.dtype.is_floating_point:
             errs["clahe"] = max(errs["clahe"], worst)
-        msgs.append(f"clahe {label}: max {worst:g}, {share:.2e} differ")
+        msgs.append(f"clahe {label} ({want}{f', {pairs} pairs a block' if pairs else ''}): max {worst:g}, "
+                    f"{share:.2e} differ{same}")
     return errs, msgs
+
+
+@contextlib.contextmanager
+def forced_block(module, chooser: str):
+    """Within the context ``module``'s ``chooser`` picks the block kernel:
+    the one each pair kernel's bytes are held to."""
+    chosen = getattr(module, chooser)
+    setattr(module, chooser, lambda *a, **k: ("block", 0))
+    try:
+        yield
+    finally:
+        setattr(module, chooser, chosen)
 
 
 def tutorial_chain(signal, window_cls, timings=None):
@@ -1752,6 +1844,8 @@ def preprocess_phase(device, scan, smi: str) -> tuple[dict, list[str]]:
         launches = read_launches()
         if launches["remove_background"] != 2 or launches["clahe"] != 1:
             raise AssertionError(f"the chain did not run on kernels D (2) and E (1): {launches}")
+        if launches["remove_background[dynamic-pair]"] != 1 or launches["clahe[pair]"] != 1:
+            raise AssertionError(f"the chain's dynamic removal and CLAHE did not take the pair kernels: {launches}")
         res = result.data
         if tuple(res.shape) != tuple(data.shape) or res.dtype != torch.float32 or not bool(torch.isfinite(res).all()):
             raise AssertionError(f"the chain's output is {tuple(res.shape)} {res.dtype}, finite "
@@ -1783,29 +1877,34 @@ def preprocess_phase(device, scan, smi: str) -> tuple[dict, list[str]]:
                         f"untraced chain: " + "; ".join(f"{k[:40]} x{c} {t:.3f} ms" for k, c, t in busy[1][:8]))
         msgs.append(f"{smi}: {n} patterns ({mb:.1f} MB uint8): chain {chain_ms:.3f} ms = {mb / chain_ms * 1e3:.1f} "
                     f"MB/s; {steps}; kernel D launches {launches['remove_background']} (static "
-                    f"{launches['remove_background[static]']}, dynamic {launches['remove_background[dynamic]']}), "
-                    f"kernel E {launches['clahe']}; output float32{check_msg}{busy_msg}")
+                    f"{launches['remove_background[static]']}, dynamic {launches['remove_background[dynamic]']} on the "
+                    f"pair kernel), kernel E {launches['clahe']} (pair kernel); output float32{check_msg}{busy_msg}")
         del sig, result, res, data
         torch.cuda.empty_cache()
     return out, msgs
 
 
-def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, static_pixel: float,
-                    clock_mhz: float, sms: int) -> tuple[list[dict], list[str]]:
+def preprocess_rows(device, scan, errs: dict, launches: dict, sass: dict, clock_mhz: float,
+                    sms: int) -> tuple[list[dict], list[str]]:
     """Kernel D's two modes and kernel E at the main path's shape: ms from
     CUDA events after a warm-up, launches back to back queued behind 2 ms
     of device sleep (``ms``, warm: what the last launches left in L2) and
-    each alone after L2_FLUSH_BYTES are written (``ms_cold``), both bounds (E's and D static's issue slots too),
-    the plain versions' ms; D static also on the scan tiled
-    PREPROCESS_TILES times. ``launches`` holds each kernel's counts by path;
-    a row's ``launches`` is its own path's (the main path's for kernel D,
-    the chain's at the main path's size for kernel E, which the main path
-    does not run)."""
+    each alone after L2_FLUSH_BYTES are written (``ms_cold``), both bounds:
+    bytes or operations, and the issue slots of the SASS each kernel runs
+    (``sass``: D static's ``static_pixel``, E's ``clahe_pixel``, D
+    dynamic's ``dynamic_steps`` over this run's operators), each kernel's
+    path, the block kernel's ms at the same inputs (the design each pair
+    kernel replaced on the main path), the plain versions' ms; D static also
+    on the scan tiled PREPROCESS_TILES times. ``launches`` holds each
+    kernel's counts by path; a row's ``launches`` is its own path's (the
+    main path's for kernel D, the chain's at the main path's size for kernel
+    E, which the main path does not run)."""
     import torch
 
     from kikuchipy_tpu_torch.ops import ahe
     from kikuchipy_tpu_torch.ops import background as bgk
     from kikuchipy_tpu_torch.ops import pattern as tops
+    from sass_count import dynamic_slots
 
     flat = scan.data.reshape(-1, 60, 60)
     n, pix = flat.shape[0], flat.numel()
@@ -1823,6 +1922,13 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
         "clahe": (lambda: ahe.clahe(dyn_u8, 15, 15, 128, 0.0, np.uint8),
                   lambda: ahe.clahe_plain(dyn_u8, 15, 15, 128, 0.0, np.uint8)),
     }
+    # The block kernel each pair kernel replaced on the main path.
+    choosers = {"dynamic": (bgk, "dynamic_path"), "clahe": (ahe, "clahe_path")}
+    paths = {
+        "static": bgk.static_path(60, 60, flat.dtype, np.uint8, 0, 255, aligned=flat.data_ptr() % 16 == 0),
+        "dynamic": bgk.dynamic_path(60, 60, flat.dtype, np.uint8, 0, 255, aligned=flat.data_ptr() % 16 == 0),
+        "clahe": ahe.clahe_path(60, 60, 15, 15, 128, flat.dtype, np.uint8, aligned=dyn_u8.data_ptr() % 16 == 0),
+    }
     # uint8 in and out, and the float32 background or the two operators.
     io_bytes = {"static": 2 * pix + 4 * 3600, "dynamic": 2 * pix + 2 * 4 * 3600, "clahe": 2 * pix}
     # The dynamic products' terms this run's operators need: R @ p takes each
@@ -1834,6 +1940,9 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
         "dynamic": pix * D_OPS_PER_PIXEL + n * 2 * terms,
         "clahe": pix * E_OPS_PER_PIXEL,
     }
+    # Issue slots: thread instructions a pixel (instruction_ms's unit).
+    slots, steps = dynamic_slots((r_op, c_op), sass["dynamic_steps"])
+    per_pixel = {"static": sass["static_pixel"], "dynamic": slots * 32 / 3600, "clahe": sass["clahe_pixel"]}
     replaces = {
         "static": "kikuchipy_tpu/ops/pattern.py:141 _remove_background under :159 remove_static_background",
         "dynamic": "kikuchipy_tpu/ops/pattern.py:141 _remove_background + :289 _frequency_blur -> "
@@ -1841,7 +1950,6 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
         "clahe": "kikuchipy_tpu/ops/ahe.py:75 _clahe_batch + :42 _blend_weights, under :120 "
                  "adaptive_histogram_equalization",
     }
-    path, vec = bgk.static_path(60, 60, flat.dtype, np.uint8, 0, 255, aligned=flat.data_ptr() % 16 == 0)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
     rows, msgs = [], []
     for key, (kernel, plain) in runs.items():
@@ -1852,6 +1960,7 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
         t_ops = ops[key] / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         name = "clahe" if key == "clahe" else f"remove_background[{key}]"
+        path, size = paths[key]
         entry = {
             "name": name, "route": "cuda",
             "source": f"kikuchipy_tpu_torch/csrc/{'clahe' if key == 'clahe' else 'background'}.cu",
@@ -1859,19 +1968,25 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
             "launches_by_path": launches[name],
             "max_abs_err": errs[key], "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "path": (f"{path} ({size} vectors a lane)" if key == "static" else f"{path} ({size} pairs a block)")
+                    if size else path,
+            "instruction_bound_ms": instruction_ms(pix, per_pixel[key], clock_mhz, sms),
             "note": "max_abs_err in gray levels against the plain version over [preprocess-check]'s uint8 cases; "
                     "ms with launches back to back, ms_cold with L2 flushed before each",
         }
-        instr = ""
-        if key in ("clahe", "static"):
-            per_pixel = clahe_pixel if key == "clahe" else static_pixel
-            entry["instruction_bound_ms"] = instruction_ms(pix, per_pixel, clock_mhz, sms)
-            instr = f"; instruction slots {entry['instruction_bound_ms']:.4f} ms at {per_pixel:g} a pixel"
+        instr = f"; path {entry['path']}; instruction slots {entry['instruction_bound_ms']:.4f} ms at " \
+                f"{per_pixel[key]:.4g} a pixel"
         if key == "dynamic":
-            instr = f"; {2 * terms} operations a pattern in the products (the operators' nonzeros)"
+            instr += (f" ({slots:.0f} a pattern: {steps} product steps over the tiles' bands); {2 * terms} "
+                      f"operations a pattern in the products (the operators' nonzeros)")
+        if key in choosers:
+            with forced_block(*choosers[key]):
+                entry["block_ms"] = cuda_ms(kernel, 20, lead_ms=2.0)
+                entry["block_ms_cold"] = cuda_ms_cold(kernel, 20, flush)
+            instr += (f"; the block kernel it replaced {entry['block_ms']:.4f} ms warm, {entry['block_ms_cold']:.4f} "
+                      f"ms cold")
         if key == "static":
-            # The static kernel's path, and the scan tiled PREPROCESS_TILES times.
-            entry["path"] = f"{path} ({vec} vectors a lane)" if vec else path
+            # The scan tiled PREPROCESS_TILES times.
             big = flat.repeat(PREPROCESS_TILES, 1, 1)
             run_big = lambda: bgk.remove_background(big, "subtract", 0, 255, np.uint8, static_bg=bg)
             entry["big"] = {"patterns": big.shape[0], "ms": cuda_ms(run_big, 10, lead_ms=2.0),
@@ -1880,11 +1995,11 @@ def preprocess_rows(device, scan, errs: dict, launches: dict, clahe_pixel: int, 
                             "instruction_bound_ms": PREPROCESS_TILES * entry["instruction_bound_ms"]}
             del big
             b = entry["big"]
-            instr += (f"; path {entry['path']}; at {b['patterns']} patterns {b['ms']:.4f} ms warm, {b['ms_cold']:.4f} "
+            instr += (f"; at {b['patterns']} patterns {b['ms']:.4f} ms warm, {b['ms_cold']:.4f} "
                       f"ms cold (bound {b['bound_ms']:.4f} ms by bytes, instruction slots "
                       f"{b['instruction_bound_ms']:.4f} ms)")
         rows.append(entry)
-        slowest = max(bound, entry.get("instruction_bound_ms", 0.0))
+        slowest = max(bound, entry["instruction_bound_ms"])
         msgs.append(f"{name} {ms:.4f} ms warm, {ms_cold:.4f} ms cold (bound {bound:.4f} ms by {entry['bound_by']}, "
                     f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it; the larger bound {slowest / ms:.2%} / "
                     f"{slowest / ms_cold:.2%}{instr}; {pix / 1e6:.1f} MB uint8 in, {pix / ms / 1e3:.1f} MB/s; plain "
@@ -3460,30 +3575,35 @@ def main(argv=None) -> int:
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
             "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
-            "static_pixel": SASS_D_STATIC_PER_PIXEL, "hough_pole": SASS_HOUGH_PER_POLE, "source": "constants"}
+            "static_pixel": SASS_D_STATIC_PER_PIXEL, "dynamic_steps": dict(SASS_D_DYNAMIC_STEPS),
+            "hough_pole": SASS_HOUGH_PER_POLE, "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
         sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
-                                              "lm_eval_pixel", "clahe_pixel", "static_pixel", "hough_pole")}
+                                              "lm_eval_pixel", "clahe_pixel", "static_pixel", "dynamic_steps",
+                                              "hough_pole")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
     if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"], sass["clahe_pixel"],
-           sass["static_pixel"], *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values()) <= 0:
+           sass["static_pixel"], *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values(),
+           *sass["dynamic_steps"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = max_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
         f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
-        f"the LM loop kernel) {sass['lm_eval_pixel']}, an output pixel of kernel E (its bin, blend and rescale) "
-        f"{sass['clahe_pixel']}, a pixel of kernel D's static warp kernel (two passes, truncation, packing, the "
-        f"store's share) {sass['static_pixel']:g}, a pole of kernel H's scoring {sass['hough_pole']:g} "
-        f"({sass['source']}; constants {SASS_PER_PIXEL}, {SASS_DC_PER_PIXEL}, "
-        f"{SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, {SASS_CLAHE_PER_PIXEL}, "
-        f"{SASS_D_STATIC_PER_PIXEL:g}, {SASS_HOUGH_PER_POLE:g}); dispatch "
+        f"the LM loop kernel) {sass['lm_eval_pixel']}, a pixel of kernel E's pair kernel (its histogram step, blend, "
+        f"output and share of the mappings) {sass['clahe_pixel']:g}, a pixel of kernel D's static warp kernel (two "
+        f"passes, truncation, packing, the store's share) {sass['static_pixel']:g}, kernel D's dynamic pair kernel "
+        f"(a row-product step, a column-product step, a warp's rest a pattern) {sass['dynamic_steps']}, a pole of "
+        f"kernel H's scoring {sass['hough_pole']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, "
+        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, "
+        f"{SASS_CLAHE_PER_PIXEL:g}, {SASS_D_STATIC_PER_PIXEL:g}, {SASS_D_DYNAMIC_STEPS}, {SASS_HOUGH_PER_POLE:g}); "
+        f"dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
     # ---- inputs (seeded) ----
@@ -3529,6 +3649,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"the main path's two removals were not one launch of kernel D each: {main_launches}")
     if main_launches["remove_background[static-warp]"] != 1:
         raise AssertionError(f"the main path's static removal did not take the static warp kernel: {main_launches}")
+    if main_launches["remove_background[dynamic-pair]"] != 1:
+        raise AssertionError(f"the main path's dynamic removal did not take the dynamic pair kernel: {main_launches}")
     scores = xmap.prop["scores"]
     idx = xmap.prop["simulation_indices"]
     if scores.shape != (n_scan, KEEP_N) or not np.isfinite(scores).all() or (idx < 0).any():
@@ -3551,7 +3673,8 @@ def main(argv=None) -> int:
                 f"{agree.mean():.6f}); disorientation median {med:.4f} deg, <8 deg {frac8:.4f}")
 
     log("main-path", f"{n_scan} patterns, static and dynamic background removal on kernel D (launches "
-        f"{main_launches['remove_background']}, the static one on the warp kernel), x {m} dictionary projected by "
+        f"{main_launches['remove_background']}, the static one on the warp kernel, the dynamic one on the pair "
+        f"kernel), x {m} dictionary projected by "
         f"lambert_project (launches "
         f"{main_launches['lambert_project']}), pallas-int8 keep_n={KEEP_N}: ncc_topk_int8 launches "
         f"{main_launches['ncc_match_topk_int8']}; {top1_check('pallas-int8', idx[:, 0], TOP1_GAP['int8'])}; "
@@ -3582,8 +3705,7 @@ def main(argv=None) -> int:
     pre_launches = {name: {"main": main_launches[name],
                            **{f"preprocess {n}": c["launches"][name] for n, c in chain.items()}}
                     for name in ("remove_background[static]", "remove_background[dynamic]", "clahe")}
-    preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass["clahe_pixel"],
-                                                      sass["static_pixel"], clock_mhz, sms)
+    preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass, clock_mhz, sms)
     log("preprocess-times", f"{smi}: " + "; ".join(pre_time_msgs))
     neighbour_row, nb_msgs, nb_time_msgs = neighbours_phases(dev, scan, smi, main_launches["average_neighbours"])
     for msg in nb_msgs:
@@ -4210,7 +4332,14 @@ def main(argv=None) -> int:
     # ---- times ----
     static_call = call_breakdown(scan.remove_static_background, 20,
                                  launches=lambda: sum(fn.launches for _, fn in _wrappers()))
-    ms_pre = cuda_ms(lambda: scan.remove_static_background().remove_dynamic_background(), 5)
+    # The main path's two removals: CUDA events around calls back to back
+    # (host and card at once), the same queued behind 10 ms of device sleep
+    # (the card's time), and the chained call's breakdown (host clock,
+    # device busy, host self time).
+    two_removals = lambda: scan.remove_static_background().remove_dynamic_background()
+    ms_pre = cuda_ms(two_removals, 5)
+    ms_pre_card = cuda_ms(two_removals, 5, lead_ms=10.0)
+    pre_call = call_breakdown(two_removals, 20, launches=lambda: sum(fn.launches for _, fn in _wrappers()))
     ms_proj = cuda_ms(lambda: mp.get_patterns(dict_rot, det, chunk_size=8192), 2)
     n_ops = 2.0 * n_scan * m_main * d
     out_bytes = n_scan * k_carry * 8
@@ -4384,7 +4513,9 @@ def main(argv=None) -> int:
     del exp_bf16, dict_bf16
     ms_di = cuda_ms(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8"), 2)
     mb = scan.data.numel() / 1e6
-    log("times", f"{smi}: preprocess {ms_pre:.3f} ms ({mb / ms_pre * 1e3:.1f} MB/s uint8 in); "
+    log("times", f"{smi}: preprocess {ms_pre:.3f} ms ({mb / ms_pre * 1e3:.1f} MB/s uint8 in), "
+        f"{ms_pre_card:.3f} ms queued behind device sleep (the card's time), the chained call "
+        f"{breakdown_text(pre_call)}; "
         f"EBSD.remove_static_background() {breakdown_text(static_call)}; "
         f"dictionary projection {ms_proj:.3f} ms ({m} patterns); at n={n_scan} m={m_main} d={d} k={k_carry}: "
         + "; ".join(time_msgs) + f" (library calls: never called by the port); "

@@ -34,8 +34,10 @@ on the scan, each with launches back to back behind 2 ms of device sleep
 and under ``torch.profiler`` (``chip_smoke.call_breakdown``); the main
 path's two removals as ``chip_smoke.py`` ``[times]`` takes them
 (``ms_pre``); the tutorial chain's steps at both sizes (the median of three
-timed runs); and SHA-256 hashes of the three kernels' outputs on the scan,
-equal between two commits that compute the same bytes.
+timed runs); SHA-256 hashes of the three kernels' outputs on the scan,
+equal between two commits that compute the same bytes; and the kernel each
+chooser the tree has (``static_path``, ``dynamic_path``, ``clahe_path``)
+picks at the main path's shape (null where the tree has none).
 
 Run it once per checkout, alternating (parent, change, change, parent), on
 one card. Needs a CUDA device.
@@ -186,11 +188,14 @@ def preprocess(tree: Path, reps: int) -> None:
                                         "steps": {k: float(np.median([t[k] for t in steps])) for k in steps[0]}}
         del sig, data
         torch.cuda.empty_cache()
-    path = getattr(bgk, "static_path", None)
+    paths = {name: getattr(mod, name, None) for mod, name in ((bgk, "static_path"), (bgk, "dynamic_path"),
+                                                               (ahe, "clahe_path"))}
     print(json.dumps({
         "tree": str(tree), "card": smoke.smi_line(), "kernels": kernels, "static_call": call, "ms_pre": ms_pre,
         "chain": chain, "hashes": hashes,
-        "static_path": None if path is None else path(60, 60, flat.dtype, np.uint8),
+        **{name: None if fn is None else fn(60, 60, *((15, 15, 128) if name == "clahe_path" else ()), flat.dtype,
+                                            np.uint8)
+           for name, fn in paths.items()},
     }), flush=True)
 
 

@@ -25,10 +25,11 @@
 // outputs may differ from it by one gray level where a value lands on an
 // integer boundary.
 //
-// Two kernels. static_warp_kernel takes the static mode with uint8 in and
+// Three kernels. static_warp_kernel takes the static mode with uint8 in and
 // out where a pattern is a whole number of 16-byte vectors, at most 16 a lane
-// (ops/background.py static_path chooses); background_kernel takes the
-// dynamic mode and every other static call.
+// (ops/background.py static_path chooses); dynamic_pair_kernel the dynamic
+// mode with uint8 in and out, patterns of at most 64 x 64 whose width is a
+// multiple of 4 (dynamic_path chooses); background_kernel every other call.
 //
 // Bound on an H100 SXM (the main path: 16,384 x 60 x 60 uint8, 59.0 MB in
 // and out): static, 2 x 59.0 MB at 3.35 TB/s, 0.035 ms, and 0.044 ms of
@@ -82,6 +83,29 @@
 // hands the kernel a scratch buffer in device memory for the two images and
 // the operators are read from device memory; the code is the same through
 // generic pointers.
+//
+// dynamic_pair_kernel against the operations bound: a pair of warps a
+// pattern and 8 pairs a block, one block an SM (the main path's 60 x 60:
+// 219 KB of shared memory, 512 threads). A block loads R^T and C^T once
+// into shared memory (64 floats a row, zero past the pattern) and each
+// 8-row tile's union of its rows' bands; from there each pair syncs only
+// itself (a named barrier of 64 threads, four a pattern) and fetches its
+// next pattern with cp.async into its second buffer while it works on this
+// one. The row product: lane l owns the pattern's columns 2l, 2l+1 and a
+// warp four 8-row tiles; a step k reads the lane's two bytes of row k (one
+// 16-bit load, the bytes to floats through 0x4B000000) and the tile's 8
+// operator values as two float4 broadcasts, for 16 FMAs, so three
+// shared-memory wavefronts feed 16 FMAs (the block kernel's 4 x 4 tiles
+// needed eight loads for 16). The product goes to shared memory transposed
+// (68 floats a row, so a lane's 16-byte stores meet two to a bank, not
+// eight); the column product reads it the same way (a float2 a step) with
+// C^T's tiles, so each output is its row's ascending-k FMA chain from 0:
+// the block kernel's bytes. The removed values d stay in registers (64 a
+// lane), the min and max by shuffles and one exchange through the pair's
+// shared memory, then the rescaled bytes go over the pattern's own buffer
+// and out as whole 16-byte vectors. preprocess_variants.py measures the
+// choices (PERF.md): 4-row tiles, the unpadded transpose and fewer pairs a
+// block are each slower.
 //
 // The wrapper finds each kernel's grid once for each shared-memory size
 // (background_blocks) and passes it to every launch.
@@ -309,18 +333,6 @@ __device__ __forceinline__ float byte_float(uint32_t w, int i, uint32_t two23) {
     return __fsub_rn(__uint_as_float(__byte_perm(w, two23, 0x7440u | i)), kTwo23);
 }
 
-// torch.amin / torch.amax of two: NaN if either is NaN.
-__device__ __forceinline__ float fmin_nan(float a, float b) {
-    float r;
-    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-    return r;
-}
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-    float r;
-    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-    return r;
-}
-
 template <bool kDivide>
 __device__ __forceinline__ float removed(float p, float g) {
     return kDivide ? __fdiv_rn(p, g) : __fsub_rn(p, g);
@@ -485,6 +497,238 @@ __global__ void __launch_bounds__(kThreads, kVec <= 8 ? kStaticMinBlocks : 1) st
     }
 }
 
+// ------------------- dynamic mode: a pair of warps a pattern ------------------- //
+
+// Probe macros for sass_count.py's count of a step: DYN_SASS_BAND1 and
+// DYN_SASS_BAND2, a fixed number of steps in every tile of the row and the
+// column product (unrolled); DYN_SASS_PROLOGUE, the block's prologue alone.
+
+constexpr int kDynSide = 64;                   // the largest sy and sx
+constexpr int kDynTM = 8;                      // operator rows a tile (4 was slower: more loads an FMA)
+constexpr int kDynTiles = kDynSide / kDynTM;   // tiles a product
+constexpr int kDynWarpTiles = kDynTiles / 2;   // a warp's tiles
+constexpr int kDynTStride = 68;                // floats a row of (R @ p)^T (the pad halves store conflicts)
+constexpr int kDynMaxPairs = 8;                // patterns in flight a block
+constexpr int kDynThreads = 64 * kDynMaxPairs;
+static_assert(kDynTM % 4 == 0 && kDynTiles % 2 == 0, "tiles of whole float4s, split between two warps");
+static_assert(kDynTStride % 4 == 0 && kDynTStride >= kDynSide, "rows of whole float4s, a column a row");
+
+struct DynParams {
+    const uint4* in;      // (n, nvec) vectors of 16 uint8 pixels
+    uint4* out;           // (n, nvec)
+    const float* row_op;  // R (sy, sy)
+    const float* col_op;  // C (sx, sx)
+    int n, sy, sx;
+    float omin, orange;
+    uint32_t two23;       // 0x4B000000 (byte_float)
+};
+
+// Bytes of a pair's shared memory: (R @ p)^T, two pattern buffers, the
+// pair's min and max.
+__host__ __device__ __forceinline__ int dyn_pair_bytes(int sy, int sx) {
+    return 4 * sx * kDynTStride + 2 * sy * sx + 16;
+}
+
+// Shared memory of a block of ``pairs`` pairs: the two transposed operators
+// (64 floats a row) and each pair's own.
+int dyn_smem(int sy, int sx, int pairs) { return 4 * kDynSide * (sy + sx) + pairs * dyn_pair_bytes(sy, sx); }
+
+// Step k of a product tile: acc[m][c] = fma(op[m], x_c, acc[m][c]) for the
+// tile's kDynTM operator values (row k of the transposed operator, read as
+// float4 broadcasts) and the lane's two values.
+__device__ __forceinline__ void dyn_step(const float* opk, float x0, float x1, float (&acc)[kDynTM][2]) {
+#pragma unroll
+    for (int q = 0; q < kDynTM / 4; ++q) {
+        const float4 o = reinterpret_cast<const float4*>(opk)[q];
+        const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            acc[4 * q + e][0] = fmaf(ov[e], x0, acc[4 * q + e][0]);
+            acc[4 * q + e][1] = fmaf(ov[e], x1, acc[4 * q + e][1]);
+        }
+    }
+}
+
+template <bool kDivide>
+__global__ void __launch_bounds__(kDynThreads, 1) dynamic_pair_kernel(DynParams p) {
+    extern __shared__ __align__(16) unsigned char dsm[];
+    __shared__ unsigned char band_lo[2 * kDynSide], band_hi[2 * kDynSide];  // R's rows, then C's
+    __shared__ int2 tband[2 * kDynTiles];                                    // R's tiles, then C's
+    const int sy = p.sy, sx = p.sx, npix = sy * sx, nvec = npix >> 4;
+    const uint32_t two23 = p.two23;
+    float* rt = reinterpret_cast<float*>(dsm);  // R^T: rt[k * 64 + i] = R[i, k], 0 past sy
+    float* ct = rt + sy * kDynSide;             // C^T: ct[k * 64 + j] = C[j, k], 0 past sx
+    unsigned char* pairs = reinterpret_cast<unsigned char*>(ct + sx * kDynSide);
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int e = tid; e < sy * kDynSide; e += nt) {
+        const int k = e / kDynSide, i = e % kDynSide;
+        rt[e] = i < sy ? p.row_op[i * sy + k] : 0.0f;
+    }
+    for (int e = tid; e < sx * kDynSide; e += nt) {
+        const int k = e / kDynSide, j = e % kDynSide;
+        ct[e] = j < sx ? p.col_op[j * sx + k] : 0.0f;
+    }
+    for (int r = tid; r < sy + sx; r += nt) {
+        int lo, hi;
+        if (r < sy) band(p.row_op + r * sy, sy, lo, hi);
+        else band(p.col_op + (r - sy) * sx, sx, lo, hi);
+        const int slot = r < sy ? r : kDynSide + r - sy;
+        band_lo[slot] = static_cast<unsigned char>(lo);
+        band_hi[slot] = static_cast<unsigned char>(hi);
+    }
+    __syncthreads();
+    if (tid < 2 * kDynTiles) {
+        // Each tile's union of its rows' bands: the terms past a row's own
+        // band are exact zeros, so every sum is its row's ascending-k chain.
+        const int c = tid / kDynTiles, t = tid % kDynTiles, rows = c ? sx : sy;
+        int klo = 1 << 30, khi = 0;
+        for (int m = 0; m < kDynTM; ++m) {
+            const int r = t * kDynTM + m;
+            if (r < rows) {
+                klo = min(klo, static_cast<int>(band_lo[c * kDynSide + r]));
+                khi = max(khi, static_cast<int>(band_hi[c * kDynSide + r]));
+            }
+        }
+        tband[tid] = make_int2(klo, khi);
+    }
+    __syncthreads();  // the block's last barrier: from here each pair runs on its own
+#ifdef DYN_SASS_PROLOGUE
+    return;
+#endif
+
+    const int pair = tid >> 6, pl = tid & 63, w = pl >> 5, lane = tid & 31, npairs = nt >> 6;
+    unsigned char* mine = pairs + static_cast<size_t>(pair) * dyn_pair_bytes(sy, sx);
+    float* tt = reinterpret_cast<float*>(mine);  // (R @ p)^T: tt[j * kDynTStride + i]
+    unsigned char* raw_base = mine + 4 * sx * kDynTStride;
+    float* mm = reinterpret_cast<float*>(raw_base + 2 * npix);
+    const int bar = 1 + pair;
+    const int stride = gridDim.x * npairs;
+    int b = blockIdx.x * npairs + pair;
+    if (b >= p.n) return;
+    prefetch_pattern(p.in + static_cast<size_t>(b) * nvec, raw_base, nvec, pl);
+    const int hsx = sx >> 1, lc = min(lane, hsx - 1);
+    for (int cur = 0; b < p.n; b += stride, cur ^= 1) {
+        unsigned char* raw = raw_base + cur * npix;
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        pair_sync(bar);  // the pattern is in; the last pattern's reads of the other buffer are done
+        if (b + stride < p.n)
+            prefetch_pattern(p.in + static_cast<size_t>(b + stride) * nvec, raw_base + (cur ^ 1) * npix, nvec, pl);
+
+        // tt = (R @ p)^T: a warp's row tiles, a lane's columns 2 lane, 2 lane + 1.
+        const uint16_t* raw16 = reinterpret_cast<const uint16_t*>(raw) + lc;
+#pragma unroll 1
+        for (int s = 0; s < kDynWarpTiles; ++s) {
+            const int t = w * kDynWarpTiles + s, i0 = t * kDynTM;
+            if (i0 >= sy) break;
+            const int2 kb = tband[t];
+            float acc[kDynTM][2];
+#pragma unroll
+            for (int m = 0; m < kDynTM; ++m) acc[m][0] = acc[m][1] = 0.0f;
+#ifdef DYN_SASS_BAND1
+#pragma unroll
+            for (int k = kb.x; k < kb.x + DYN_SASS_BAND1; ++k) {
+#else
+            for (int k = kb.x; k < kb.y; ++k) {
+#endif
+                const uint32_t v = raw16[k * hsx];
+                dyn_step(rt + k * kDynSide + i0, byte_float(v, 0, two23), byte_float(v, 1, two23), acc);
+            }
+            if (2 * lane < sx) {
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    float4* dst = reinterpret_cast<float4*>(tt + (2 * lane + c) * kDynTStride + i0);
+#pragma unroll
+                    for (int q = 0; q < kDynTM / 4; ++q)
+                        dst[q] = make_float4(acc[4 * q][c], acc[4 * q + 1][c], acc[4 * q + 2][c], acc[4 * q + 3][c]);
+                }
+            }
+        }
+        pair_sync(bar);
+
+        // bg = (C @ tt)^T: a warp's tiles of columns j, a lane's rows 2 lane,
+        // 2 lane + 1; d = p - bg or p / bg, kept in registers.
+        float d[kDynWarpTiles][kDynTM][2];
+        float lo = INFINITY, hi = -INFINITY;
+        const float2* t2 = reinterpret_cast<const float2*>(tt) + lane;
+        const uint32_t* raw32 = reinterpret_cast<const uint32_t*>(raw);
+#pragma unroll
+        for (int s = 0; s < kDynWarpTiles; ++s) {
+            const int t = w * kDynWarpTiles + s, j0 = t * kDynTM;
+            if (j0 < sx) {
+                const int2 kb = tband[kDynTiles + t];
+                float acc[kDynTM][2];
+#pragma unroll
+                for (int m = 0; m < kDynTM; ++m) acc[m][0] = acc[m][1] = 0.0f;
+#ifdef DYN_SASS_BAND2
+#pragma unroll
+                for (int k = kb.x; k < kb.x + DYN_SASS_BAND2; ++k) {
+#else
+                for (int k = kb.x; k < kb.y; ++k) {
+#endif
+                    const float2 v = t2[k * (kDynTStride / 2)];
+                    dyn_step(ct + k * kDynSide + j0, v.x, v.y, acc);
+                }
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int i = 2 * lane + c;
+#pragma unroll
+                    for (int h = 0; h < kDynTM / 4; ++h) {
+                        if (i < sy && j0 + 4 * h < sx) {
+                            const uint32_t word = raw32[(i * sx + j0) / 4 + h];
+#pragma unroll
+                            for (int e = 0; e < 4; ++e) {
+                                const float v = removed<kDivide>(byte_float(word, e, two23), acc[4 * h + e][c]);
+                                d[s][4 * h + e][c] = v;
+                                lo = fmin_nan(lo, v);
+                                hi = fmax_nan(hi, v);
+                            }
+                        }
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            lo = fmin_nan(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+            hi = fmax_nan(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+        }
+        if (lane == 0) {
+            mm[2 * w] = lo;
+            mm[2 * w + 1] = hi;
+        }
+        pair_sync(bar);
+        lo = fmin_nan(mm[0], mm[2]);
+        hi = fmax_nan(mm[1], mm[3]);
+        const float range = __fsub_rn(hi, lo);
+
+        // The output bytes over the pattern's own (read) bytes, then out in
+        // whole vectors.
+        uint32_t* out32 = reinterpret_cast<uint32_t*>(raw);
+#pragma unroll
+        for (int s = 0; s < kDynWarpTiles; ++s) {
+            const int j0 = (w * kDynWarpTiles + s) * kDynTM;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const int i = 2 * lane + c;
+#pragma unroll
+                for (int h = 0; h < kDynTM / 4; ++h) {
+                    if (j0 < sx && i < sy && j0 + 4 * h < sx) {
+                        int q[4];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            q[e] = rescaled_int(d[s][4 * h + e][c], lo, range, p.omin, p.orange);
+                        out32[(i * sx + j0) / 4 + h] =
+                            __byte_perm(__byte_perm(q[0], q[1], 0x0040u), __byte_perm(q[2], q[3], 0x0040u), 0x5410u);
+                    }
+                }
+            }
+        }
+        pair_sync(bar);
+        for (int v = pl; v < nvec; v += 64)
+            p.out[static_cast<size_t>(b) * nvec + v] = reinterpret_cast<const uint4*>(raw)[v];
+    }
+}
+
 using StaticKernel = void (*)(StaticParams);
 
 template <int kVec>
@@ -504,9 +748,13 @@ StaticKernel static_kernel(int vec, int divide, int scale_bg) {
     }
 }
 
-// background_kernel for vec 0, else the static warp kernel (or null).
+// background_kernel for vec 0, the dynamic pair kernel for -1, else the
+// static warp kernel (or null).
 const void* kernel_of(int vec, int divide, int scale_bg) {
     if (vec == 0) return reinterpret_cast<const void*>(background_kernel);
+    if (vec == -1)
+        return divide ? reinterpret_cast<const void*>(dynamic_pair_kernel<true>)
+                      : reinterpret_cast<const void*>(dynamic_pair_kernel<false>);
     return reinterpret_cast<const void*>(static_kernel(vec, divide, scale_bg));
 }
 
@@ -599,5 +847,34 @@ extern "C" int background_static_launch(const void* in, void* out, const void* b
     void* args[] = {&p};
     cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(grid), dim3(kThreads), args,
                                        static_cast<size_t>(4) * npix, static_cast<cudaStream_t>(stream));
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The dynamic mode on uint8 patterns of at most 64 x 64 pixels, sx a
+// multiple of 4, with ``in`` and ``out`` on 16-byte boundaries; ``pairs``
+// (1 to 8) patterns in flight a block of 64 x pairs threads, ``grid`` from
+// background_blocks (vec -1). Returns the cudaError_t of the launch.
+extern "C" int background_dynamic_launch(const void* in, void* out, const void* row_op, const void* col_op, int n,
+                                         int sy, int sx, int divide, float omin, float orange, int pairs, int grid,
+                                         void* stream) {
+    const uintptr_t align = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
+    if (n < 1 || sy < 1 || sx < 4 || sy > kDynSide || sx > kDynSide || sx % 4 != 0 || (sy * sx) % 16 != 0
+        || pairs < 1 || pairs > kDynMaxPairs || grid < 1 || (align & 15) || row_op == nullptr || col_op == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    DynParams p;
+    p.in = static_cast<const uint4*>(in);
+    p.out = static_cast<uint4*>(out);
+    p.row_op = static_cast<const float*>(row_op);
+    p.col_op = static_cast<const float*>(col_op);
+    p.n = n;
+    p.sy = sy;
+    p.sx = sx;
+    p.omin = omin;
+    p.orange = orange;
+    p.two23 = 0x4B000000u;
+    void* args[] = {&p};
+    cudaError_t err = cudaLaunchKernel(kernel_of(-1, divide, 0), dim3(grid), dim3(64 * pairs), args,
+                                       static_cast<size_t>(dyn_smem(sy, sx, pairs)),
+                                       static_cast<cudaStream_t>(stream));
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -1,5 +1,8 @@
 // Kernel E: contrast-limited adaptive histogram equalization (CLAHE) of EBSD
-// patterns, one block a pattern, one launch for the whole batch.
+// patterns, one launch for the whole batch: clahe_pair_kernel, a pair of
+// warps a pattern, takes the main path's case (ops/ahe.py clahe_path: uint8
+// in and out, 128 bins, 4 x 4 tiles covering at most 4,096 pixels);
+// clahe_kernel, one block a pattern, every other call.
 //
 // Replaces XLA code of the JAX package (not a TPU kernel):
 // kikuchipy_tpu/ops/ahe.py _clahe_batch :75 with _blend_weights :42, under
@@ -36,13 +39,32 @@
 // Bound on an H100 SXM (16,384 x 60 x 60 uint8, the defaults: 4 x 4 tiles of
 // 15 x 15, 128 bins): the bytes, 2 x 59.0 MB at 3.35 TB/s, 0.035 ms. Each pixel
 // is binned twice (once in the pad for the histograms, once for its blend),
-// blended once and rescaled once; the issue-slot count of that pixel's path
-// is sass_count.py's ``clahe_pixel``. Shared memory holds the rows' and
+// blended once and rescaled once; the issue slots of that work are
+// sass_count.py's ``clahe_pixel``, counted on clahe_pair_kernel itself
+// (``clahe_block_pixel``: the block kernel's output pixel, on a probe).
+// clahe_kernel's shared memory holds the rows' and
 // columns' blend tables (24 bytes a row and a column), the n_tiles x nbins
 // tables (8 KB at the defaults) and, where they fit, the blended values
 // (float32 a pixel, 14.4 KB at 60 x 60); where they do not, the wrapper hands
 // the kernel a scratch buffer in device memory for them, as kernel D's. The
 // wrapper refuses only a configuration whose tables pass 227 KB.
+//
+// clahe_pair_kernel: 8 pairs a block, one block an SM. A block computes once
+// each pixel's four float32 blend weights (the same float64 products,
+// rounded the same way: the same bits), planar so a lane reads its four
+// pixels' weights of one corner as one float4, each column's and row's two
+// tile offsets packed in a word, and each pixel of a tile's offset in the
+// pattern. From there each pair syncs only itself (a named barrier of 64
+// threads, four a pattern) and fetches its next pattern with cp.async into
+// its second buffer. Its 64 threads spread over the 16 tiles, four a tile,
+// so a warp's 32 histogram atomics go to 16 tables and meet only where a
+// tile's two lanes share a bin; a uint8 value's bin at 128 bins is the
+// byte halved (no division and no table). Each warp maps its 8 tiles in
+// lockstep, each in tile_mapping's order (the clipped outputs keep their
+// bits), so one tile's shuffle chain hides another's. Each thread blends 4-pixel words with the four tables of its
+// pixels, keeps the values in registers (64 a thread), and after the
+// pair's min and max writes 4 bytes a word straight to device memory.
+// preprocess_variants.py measures the parts (PERF.md).
 
 #include "pattern_io.cuh"
 
@@ -127,6 +149,43 @@ __device__ __forceinline__ float blend(const BlendTables& bt, const float* maps,
     return __fadd_rn(v, __fmul_rn(w11, maps[(ty.y * n_tx + tx.y) * nbins + bin]));
 }
 
+// One tile's mapping from its counts, by one warp, over the counts in place
+// (``h``, nbins ints, becomes nbins floats): with ``limit`` > 0 each bin
+// min(h, limit) + excess / nbins, the excess summed over the tile's bins;
+// the CDF; cdf / cdf[-1]. Lane l owns the bins [l * chunk, (l + 1) * chunk)
+// and only it reads or writes them; every sum keeps this order.
+__device__ __forceinline__ void tile_mapping(int* h, int lane, int nbins, float limit, float inv_nbins) {
+    float* m = reinterpret_cast<float*>(h);
+    const int chunk = (nbins + 31) / 32;
+    const int b0 = min(lane * chunk, nbins), b1 = min(b0 + chunk, nbins);
+    float add = 0.0f;
+    if (limit > 0.0f) {
+        float excess = 0.0f;
+        for (int k = b0; k < b1; ++k)
+            excess = __fadd_rn(excess, fmaxf(__fsub_rn(static_cast<float>(h[k]), limit), 0.0f));
+        for (int off = 16; off > 0; off >>= 1)
+            excess = __fadd_rn(excess, __shfl_xor_sync(0xffffffffu, excess, off));
+        add = __fmul_rn(excess, inv_nbins);
+    }
+    float run = 0.0f;
+    for (int k = b0; k < b1; ++k) {
+        float c = static_cast<float>(h[k]);
+        if (limit > 0.0f) c = __fadd_rn(fminf(c, limit), add);
+        run = __fadd_rn(run, c);
+        m[k] = run;  // the lane's own prefix; h[k] is not read again
+    }
+    // Exclusive scan of the lanes' sums, then the total from the last lane.
+    float incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl = __fadd_rn(incl, o);
+    }
+    float offset = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) offset = 0.0f;
+    const float total = __shfl_sync(0xffffffffu, incl, 31);
+    for (int k = b0; k < b1; ++k) m[k] = __fdiv_rn(__fadd_rn(m[k], offset), total);
+}
+
 __global__ void __launch_bounds__(kThreads) clahe_kernel(Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float red[64];
@@ -175,40 +234,9 @@ __global__ void __launch_bounds__(kThreads) clahe_kernel(Params p) {
             atomicAdd(&hist[((y / p.ky) * p.n_tx + x / p.kx) * p.nbins + pixel_bin(p, v, lo, span)], 1);
         }
         __syncthreads();
-        // One warp a tile: clip and redistribute, CDF, mapping. Lane l owns the
-        // bins [l * chunk, (l + 1) * chunk) and only it reads or writes them.
-        const int chunk = (p.nbins + 31) / 32;
-        for (int t = warp; t < n_tiles; t += n_warps) {
-            int* h = hist + t * p.nbins;
-            float* m = maps + t * p.nbins;
-            const int b0 = min(lane * chunk, p.nbins), b1 = min(b0 + chunk, p.nbins);
-            float add = 0.0f;
-            if (p.limit > 0.0f) {
-                float excess = 0.0f;
-                for (int k = b0; k < b1; ++k)
-                    excess = __fadd_rn(excess, fmaxf(__fsub_rn(static_cast<float>(h[k]), p.limit), 0.0f));
-                for (int off = 16; off > 0; off >>= 1)
-                    excess = __fadd_rn(excess, __shfl_xor_sync(0xffffffffu, excess, off));
-                add = __fmul_rn(excess, p.inv_nbins);
-            }
-            float run = 0.0f;
-            for (int k = b0; k < b1; ++k) {
-                float c = static_cast<float>(h[k]);
-                if (p.limit > 0.0f) c = __fadd_rn(fminf(c, p.limit), add);
-                run = __fadd_rn(run, c);
-                m[k] = run;  // the lane's own prefix; h[k] is not read again
-            }
-            // Exclusive scan of the lanes' sums, then the total from the last lane.
-            float incl = run;
-            for (int off = 1; off < 32; off <<= 1) {
-                const float o = __shfl_up_sync(0xffffffffu, incl, off);
-                if (lane >= off) incl = __fadd_rn(incl, o);
-            }
-            float offset = __shfl_up_sync(0xffffffffu, incl, 1);
-            if (lane == 0) offset = 0.0f;
-            const float total = __shfl_sync(0xffffffffu, incl, 31);
-            for (int k = b0; k < b1; ++k) m[k] = __fdiv_rn(__fadd_rn(m[k], offset), total);
-        }
+        // One warp a tile: clip and redistribute, CDF, mapping.
+        for (int t = warp; t < n_tiles; t += n_warps)
+            tile_mapping(hist + t * p.nbins, lane, p.nbins, p.limit, p.inv_nbins);
         __syncthreads();
         // Each pixel's blend, kept, and the output's min and max; then the
         // rescale and the store. A thread reads back only what it wrote.
@@ -229,7 +257,326 @@ __global__ void __launch_bounds__(kThreads) clahe_kernel(Params p) {
     }
 }
 
+// ------------------- the main path's case: a pair of warps a pattern ------------------- //
+
+// Probe macros: CLAHE_CDF_TILES tiles a warp maps in lockstep (1, 2, 4 or
+// 8), CLAHE_SASS_WORDS words a thread blends, CLAHE_SASS_HIST steps of the
+// histogram walk (unrolled) and CLAHE_SASS_PROLOGUE, the block's prologue
+// alone, for sass_count.py's count of a pixel (CLAHE_CDF_TILES also for
+// preprocess_variants.py's timings); CLAHE_HIST_MATCH, the histogram by
+// warp-aggregated atomics, for preprocess_variants.py.
+#ifndef CLAHE_CDF_TILES
+#define CLAHE_CDF_TILES 8
+#endif
+
+constexpr int kPairBins = 128;                                  // bins
+constexpr int kPairSide = 4;                                    // tiles a side
+constexpr int kPairTiles = kPairSide * kPairSide;               // 16
+constexpr int kPairHist = kPairTiles * kPairBins;               // a pattern's tables: 2,048
+constexpr int kPairMaxPix = 4096;                               // pixels a pattern at most
+#ifdef CLAHE_SASS_WORDS
+constexpr int kPairWords = CLAHE_SASS_WORDS;
+#else
+constexpr int kPairWords = kPairMaxPix / 4 / 64;                // 4-pixel words a thread: 16
+#endif
+constexpr int kPairMaxPairs = 8;                                // patterns in flight a block
+constexpr int kPairThreads = 64 * kPairMaxPairs;
+constexpr int kCdfTiles = CLAHE_CDF_TILES;                      // a warp's tiles mapped together
+static_assert(kPairBins == 4 * 32 && (kPairTiles / 2) % kCdfTiles == 0, "4 bins a lane, whole rounds of tiles");
+
+struct PairParams {
+    const uint4* in;  // (n, npix / 16) vectors of 16 uint8 pixels
+    uint32_t* out;    // (n, npix / 4) words of 4 uint8 pixels
+    int n, sy, sx, ky, kx;
+    float limit, inv_nbins, omin, orange;
+};
+
+// Shared memory of the block's tables (the four blend weights of each pixel,
+// each column's and row's two tile offsets packed in a word, each pixel of a
+// tile's offset in the pattern), and of a pair's own (its tables, two
+// pattern buffers, its min and max).
+__host__ __device__ __forceinline__ int pair_table_bytes(int sy, int sx) {
+    return (16 * sy * sx + 4 * (sy + sx) + 2 * (sy / kPairSide) * (sx / kPairSide) + 15) / 16 * 16;
+}
+
+// The bin of a uint8 value at 128 bins: bin_of<true>'s
+// clip(int32((b - 0) * fl(1 / 255) * 128), 0, 127) is b >> 1 for every byte
+// (tests/test_torch_ahe.py checks all 256).
+__device__ __forceinline__ int pair_bin(uint32_t b) { return static_cast<int>(b >> 1); }
+__host__ __device__ __forceinline__ int pair_bytes(int npix) { return 4 * kPairHist + 2 * npix + 16; }
+
+// Shared memory of a block of the pair kernel with ``pairs`` pairs.
+int pair_smem(int sy, int sx, int pairs) { return pair_table_bytes(sy, sx) + pairs * pair_bytes(sy * sx); }
+
+// A 4-pixel word's row, wd / qx with qx = sx / 4 words a row, as
+// (wd * ceil(2^21 / qx)) >> 21. With e = ceil(2^21 / qx) qx - 2^21 < qx the
+// product is 2^21 (wd / qx) + wd e / qx, so the floor is exact while
+// wd e < 2^21: wd < 1,024 words (kPairMaxPix / 4) and e < qx <= 1,024 keep
+// wd e below 2^20 and the product below 2^31 for every shape the kernel
+// takes (tests/test_torch_ahe.py checks them all).
+constexpr int kPairRowShift = 21;
+__device__ __forceinline__ int pair_row_mul(int qx) { return ((1 << kPairRowShift) + qx - 1) / qx; }
+__device__ __forceinline__ int pair_row(int wd, int mul) { return (wd * mul) >> kPairRowShift; }
+
+// tile_mapping for kCdfTiles tiles at once (tiles t0, t0 + step, ...), 128
+// bins: each tile's sums in tile_mapping's order, the tiles' steps
+// interleaved.
+__device__ __forceinline__ void pair_mappings(int* hist, int t0, int step, int lane, float limit, float inv_nbins) {
+    float m[kCdfTiles][4], add[kCdfTiles], run[kCdfTiles], incl[kCdfTiles];
+#pragma unroll
+    for (int j = 0; j < kCdfTiles; ++j) {
+        const int4 h = reinterpret_cast<const int4*>(hist + (t0 + j * step) * kPairBins)[lane];
+        m[j][0] = static_cast<float>(h.x);
+        m[j][1] = static_cast<float>(h.y);
+        m[j][2] = static_cast<float>(h.z);
+        m[j][3] = static_cast<float>(h.w);
+        add[j] = 0.0f;
+        run[j] = 0.0f;
+    }
+    if (limit > 0.0f) {
+        float excess[kCdfTiles];
+#pragma unroll
+        for (int j = 0; j < kCdfTiles; ++j) {
+            excess[j] = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) excess[j] = __fadd_rn(excess[j], fmaxf(__fsub_rn(m[j][k], limit), 0.0f));
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+            for (int j = 0; j < kCdfTiles; ++j)
+                excess[j] = __fadd_rn(excess[j], __shfl_xor_sync(0xffffffffu, excess[j], off));
+#pragma unroll
+        for (int j = 0; j < kCdfTiles; ++j) add[j] = __fmul_rn(excess[j], inv_nbins);
+    }
+#pragma unroll
+    for (int j = 0; j < kCdfTiles; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            float c = m[j][k];
+            if (limit > 0.0f) c = __fadd_rn(fminf(c, limit), add[j]);
+            run[j] = __fadd_rn(run[j], c);
+            m[j][k] = run[j];
+        }
+#pragma unroll
+    for (int j = 0; j < kCdfTiles; ++j) incl[j] = run[j];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int j = 0; j < kCdfTiles; ++j) {
+            const float o = __shfl_up_sync(0xffffffffu, incl[j], off);
+            if (lane >= off) incl[j] = __fadd_rn(incl[j], o);
+        }
+#pragma unroll
+    for (int j = 0; j < kCdfTiles; ++j) {
+        float offset = __shfl_up_sync(0xffffffffu, incl[j], 1);
+        if (lane == 0) offset = 0.0f;
+        const float total = __shfl_sync(0xffffffffu, incl[j], 31);
+        float4 out;
+        out.x = __fdiv_rn(__fadd_rn(m[j][0], offset), total);
+        out.y = __fdiv_rn(__fadd_rn(m[j][1], offset), total);
+        out.z = __fdiv_rn(__fadd_rn(m[j][2], offset), total);
+        out.w = __fdiv_rn(__fadd_rn(m[j][3], offset), total);
+        reinterpret_cast<float4*>(hist + (t0 + j * step) * kPairBins)[lane] = out;
+    }
+}
+
+// The blended value of a pixel: blend()'s four products and sums, with the
+// pixel's float32 weights w, its row's and column's packed table offsets
+// (the first tile's in the low half, the second's in the high) and its bin.
+__device__ __forceinline__ float pair_blend(const float* maps, float w00, float w01, float w10, float w11,
+                                            uint32_t ro, uint32_t co, int bin) {
+    const int r0 = static_cast<int>(ro & 0xffffu) + bin, r1 = static_cast<int>(ro >> 16) + bin;
+    const int c0 = static_cast<int>(co & 0xffffu), c1 = static_cast<int>(co >> 16);
+    float v = __fmul_rn(w00, maps[r0 + c0]);
+    v = __fadd_rn(v, __fmul_rn(w01, maps[r0 + c1]));
+    v = __fadd_rn(v, __fmul_rn(w10, maps[r1 + c0]));
+    return __fadd_rn(v, __fmul_rn(w11, maps[r1 + c1]));
+}
+
+__global__ void __launch_bounds__(kPairThreads, 1) clahe_pair_kernel(PairParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int sy = p.sy, sx = p.sx, npix = sy * sx, nvec = npix >> 4, nwords = npix >> 2, qx = sx >> 2;
+    const int tile_pix = p.ky * p.kx;
+    float* wt = reinterpret_cast<float*>(smem);                // weight c of pixel i at wt[c * npix + i]
+    uint32_t* colpk = reinterpret_cast<uint32_t*>(wt + 4 * npix);  // a column's two tiles' table offsets
+    uint32_t* rowpk = colpk + sx;                                  // a row's two tile rows'
+    uint16_t* tile_off = reinterpret_cast<uint16_t*>(rowpk + sy);  // pixel q of a tile: its offset from the tile's
+    unsigned char* pairs = smem + pair_table_bytes(sy, sx);
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int i = tid; i < npix; i += nt) {
+        const int y = i / sx, x = i - y * sx;
+        int2 ty, tx;
+        double2 wy, wx;
+        axis_blend(y, p.ky, kPairSide, ty, wy);
+        axis_blend(x, p.kx, kPairSide, tx, wx);
+        wt[i] = static_cast<float>(wy.x * wx.x);
+        wt[npix + i] = static_cast<float>(wy.x * wx.y);
+        wt[2 * npix + i] = static_cast<float>(wy.y * wx.x);
+        wt[3 * npix + i] = static_cast<float>(wy.y * wx.y);
+    }
+    for (int i = tid; i < sy + sx; i += nt) {
+        int2 t;
+        double2 w;
+        if (i < sy) {
+            axis_blend(i, p.ky, kPairSide, t, w);
+            rowpk[i] = static_cast<uint32_t>(t.x * kPairSide * kPairBins) | (t.y * kPairSide * kPairBins) << 16;
+        } else {
+            axis_blend(i - sy, p.kx, kPairSide, t, w);
+            colpk[i - sy] = static_cast<uint32_t>(t.x * kPairBins) | (t.y * kPairBins) << 16;
+        }
+    }
+    for (int q = tid; q < tile_pix; q += nt) tile_off[q] = static_cast<uint16_t>((q / p.kx) * sx + q % p.kx);
+    __syncthreads();  // the block's last barrier: from here each pair runs on its own
+#ifdef CLAHE_SASS_PROLOGUE
+    return;
+#endif
+
+    const int pair = tid >> 6, pl = tid & 63, w = pl >> 5, lane = tid & 31, npairs = nt >> 6;
+    unsigned char* mine = pairs + static_cast<size_t>(pair) * pair_bytes(npix);
+    int* hist = reinterpret_cast<int*>(mine);
+    const float* maps = reinterpret_cast<const float*>(mine);
+    unsigned char* raw_base = mine + 4 * kPairHist;
+    float* mm = reinterpret_cast<float*>(raw_base + 2 * npix);
+    const int bar = 1 + pair, stride = gridDim.x * npairs;
+    int b = blockIdx.x * npairs + pair;
+    if (b >= p.n) return;
+    prefetch_pattern(p.in + static_cast<size_t>(b) * nvec, raw_base, nvec, pl);
+    // The histogram walk: 4 threads a tile, a warp over all 16 tiles, so its
+    // 32 atomics go to 16 tables and meet only where a tile's two lanes
+    // share a bin.
+    const int tile = pl & 15, quarter = pl >> 4;
+    const int tile_at = (tile >> 2) * p.ky * sx + (tile & 3) * p.kx;
+    int* tile_hist = hist + tile * kPairBins;
+    // A word's row, word / qx, as a product and a shift (pair_row).
+    const int mul = pair_row_mul(qx);
+    for (int cur = 0; b < p.n; b += stride, cur ^= 1) {
+        const unsigned char* raw = raw_base + cur * npix;
+        for (int i = pl; i < kPairHist / 4; i += 64) reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
+        asm volatile("cp.async.wait_group 0;" ::: "memory");
+        pair_sync(bar);  // the pattern is in and the tables zero; the last pattern's reads are done
+        if (b + stride < p.n)
+            prefetch_pattern(p.in + static_cast<size_t>(b + stride) * nvec, raw_base + (cur ^ 1) * npix, nvec, pl);
+
+        const unsigned char* tile_raw = raw + tile_at;
+#ifdef CLAHE_SASS_HIST
+#pragma unroll
+        for (int q = quarter; q < quarter + 4 * CLAHE_SASS_HIST; q += 4)
+            atomicAdd(&tile_hist[pair_bin(tile_raw[tile_off[q]])], 1);
+#elif defined(CLAHE_HIST_MATCH)
+        // Warp-aggregated: the lanes that hold one (tile, bin) add their count
+        // once (preprocess_variants.py times it against the walk as built).
+        for (int q0 = 0; q0 < tile_pix; q0 += 4) {
+            const int q = q0 + quarter;
+            const int key = q < tile_pix ? tile * kPairBins + pair_bin(tile_raw[tile_off[q]]) : -1 - lane;
+            const unsigned same = __match_any_sync(0xffffffffu, key);
+            if (key >= 0 && lane == __ffs(same) - 1) atomicAdd(&hist[key], __popc(same));
+        }
+#else
+#pragma unroll 4
+        for (int q = quarter; q < tile_pix; q += 4) atomicAdd(&tile_hist[pair_bin(tile_raw[tile_off[q]])], 1);
+#endif
+        pair_sync(bar);
+#pragma unroll 1
+        for (int t = w; t < kPairTiles; t += 2 * kCdfTiles) pair_mappings(hist, t, 2, lane, p.limit, p.inv_nbins);
+        pair_sync(bar);
+
+        // Each pixel's blend, kept in registers, and the pattern's min and max.
+        float vals[kPairWords][4];
+        float vlo = INFINITY, vhi = -INFINITY;
+#pragma unroll
+        for (int m = 0; m < kPairWords; ++m) {
+            const int wd = pl + 64 * m;
+            if (wd < nwords) {
+                const int y = pair_row(wd, mul), x = 4 * (wd - y * qx);
+                const uint32_t bytes = reinterpret_cast<const uint32_t*>(raw)[wd];
+                const uint32_t ro = rowpk[y];
+                const uint4 co = reinterpret_cast<const uint4*>(colpk)[x >> 2];
+                const uint32_t cv[4] = {co.x, co.y, co.z, co.w};
+                const float4 w0 = reinterpret_cast<const float4*>(wt)[wd];
+                const float4 w1 = reinterpret_cast<const float4*>(wt)[nwords + wd];
+                const float4 w2 = reinterpret_cast<const float4*>(wt)[2 * nwords + wd];
+                const float4 w3 = reinterpret_cast<const float4*>(wt)[3 * nwords + wd];
+                const float a0[4] = {w0.x, w0.y, w0.z, w0.w}, a1[4] = {w1.x, w1.y, w1.z, w1.w};
+                const float a2[4] = {w2.x, w2.y, w2.z, w2.w}, a3[4] = {w3.x, w3.y, w3.z, w3.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float v = pair_blend(maps, a0[e], a1[e], a2[e], a3[e], ro, cv[e],
+                                               pair_bin((bytes >> (8 * e)) & 0xffu));
+                    vals[m][e] = v;
+                    vlo = fmin_nan(vlo, v);
+                    vhi = fmax_nan(vhi, v);
+                }
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            vlo = fmin_nan(vlo, __shfl_xor_sync(0xffffffffu, vlo, off));
+            vhi = fmax_nan(vhi, __shfl_xor_sync(0xffffffffu, vhi, off));
+        }
+        if (lane == 0) {
+            mm[2 * w] = vlo;
+            mm[2 * w + 1] = vhi;
+        }
+        pair_sync(bar);
+        vlo = fmin_nan(mm[0], mm[2]);
+        vhi = fmax_nan(mm[1], mm[3]);
+        const float vrange = __fsub_rn(vhi, vlo);
+#pragma unroll
+        for (int m = 0; m < kPairWords; ++m) {
+            const int wd = pl + 64 * m;
+            if (wd < nwords) {
+                int q[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) q[e] = rescaled_int(vals[m][e], vlo, vrange, p.omin, p.orange);
+                p.out[static_cast<size_t>(b) * nwords + wd] =
+                    __byte_perm(__byte_perm(q[0], q[1], 0x0040u), __byte_perm(q[2], q[3], 0x0040u), 0x5410u);
+            }
+        }
+    }
+}
+
 }  // namespace
+
+// The main path's case (ops/ahe.py clahe_path): uint8 in and out, 128 bins,
+// 4 x 4 tiles of ky x kx that cover the pattern (sy = 4 ky, sx = 4 kx), at
+// most 4,096 pixels, ``in`` and ``out`` on 16-byte boundaries; ``pairs`` (1
+// to 8) patterns in flight a block of 64 x pairs threads. Returns the
+// cudaError_t of the launch.
+extern "C" int clahe_pair_launch(const void* in, void* out, int n, int sy, int sx, int ky, int kx, float limit,
+                                 float inv_nbins, float omin, float orange, int pairs, void* stream) {
+    const uintptr_t align = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
+    if (n < 1 || ky < 1 || kx < 1 || sy != kPairSide * ky || sx != kPairSide * kx || sy * sx > kPairMaxPix
+        || pairs < 1 || pairs > kPairMaxPairs || (align & 15))
+        return static_cast<int>(cudaErrorInvalidValue);
+    PairParams p;
+    p.in = static_cast<const uint4*>(in);
+    p.out = static_cast<uint32_t*>(out);
+    p.n = n;
+    p.sy = sy;
+    p.sx = sx;
+    p.ky = ky;
+    p.kx = kx;
+    p.limit = limit;
+    p.inv_nbins = inv_nbins;
+    p.omin = omin;
+    p.orange = orange;
+    const int smem = pair_smem(sy, sx, pairs);
+    cudaError_t err = cudaFuncSetAttribute(clahe_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, clahe_pair_kernel, 64 * pairs,
+                                                        static_cast<size_t>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long cap = static_cast<long long>(per_sm) * sms, want = (n + pairs - 1) / pairs;
+    const int grid = static_cast<int>(want < cap ? want : cap);
+    clahe_pair_kernel<<<grid, 64 * pairs, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
 
 // Shared memory of one block: the blend tables (a double2 and an int2 a row
 // and a column), the mappings and, with ``resident``, the blended values.

@@ -11,12 +11,18 @@ pattern to the output dtype's range.
 ``_clahe_batch``: for a CPU tensor it returns its plain version
 (:func:`clahe_plain`: the JAX package's computation, the one-hot product
 written as a gather); for a CUDA tensor it launches kernel E once for the
-whole batch or raises, and counts the launch in its own ``.launches``. The
-kernel keeps each pattern's ``n_tiles * nbins`` tables and the rows' and
-columns' blend tables in shared memory, and its blended values there too
-where they fit (else in a device-memory scratch); a configuration whose
-tables pass :data:`SMEM_BUDGET` is refused on the card with ``ValueError``
-(JAX has no such limit).
+whole batch or raises, and counts the launch in its own ``.launches`` and
+in ``.mode_launches["pair"]`` or ``["block"]``, the kernel
+:func:`clahe_path` chose. The pair kernel takes the main path's case
+(uint8 in and out, 128 bins, 4 x 4 tiles that cover the pattern, at most
+4,096 pixels): a pair of warps a pattern, eight patterns a block, each
+pixel's four blend weights in shared memory once a block and the blended
+values in registers. The block kernel takes every other call: it keeps
+each pattern's ``n_tiles * nbins`` tables and the rows' and columns' blend
+tables in shared memory, and its blended values there too where they fit
+(else in a device-memory scratch); a configuration whose tables pass
+:data:`SMEM_BUDGET` is refused on the card with ``ValueError`` (JAX has no
+such limit). Both kernels give the same bytes.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from kikuchipy_tpu_torch.ops.pattern_io import CODES, SMEM_BUDGET, check_storage
 from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
 from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, numpy_dtype, torch_dtype
 
-__all__ = ["SMEM_BUDGET", "adaptive_histogram_equalization", "clahe", "clahe_plain", "clahe_smem_bytes"]
+__all__ = ["SMEM_BUDGET", "adaptive_histogram_equalization", "clahe", "clahe_pair_smem_bytes", "clahe_path",
+           "clahe_plain", "clahe_smem_bytes"]
 
 
 @lru_cache(maxsize=32)
@@ -155,15 +162,56 @@ def clahe_smem_bytes(sy: int, sx: int, ky: int, kx: int, nbins: int, resident: b
     return 24 * (sy + sx) + 4 * n_ty * n_tx * nbins + (4 * sy * sx if resident else 0)
 
 
-def _function():
+# The pair kernel's case (csrc/clahe.cu kPairBins, kPairSide, kPairMaxPix,
+# kPairMaxPairs, kPairHist).
+_PAIR_BINS = 128
+_PAIR_SIDE = 4
+_PAIR_MAX_PIX = 4096
+_PAIR_MAX_PAIRS = 8
+_PAIR_HIST = _PAIR_SIDE * _PAIR_SIDE * _PAIR_BINS
+
+
+def clahe_pair_smem_bytes(sy: int, sx: int, pairs: int) -> int:
+    """Shared memory of a block of the pair kernel: each pixel's four blend
+    weights, each column's and row's two tile offsets, each pixel of a
+    tile's offset, and for each of ``pairs`` patterns in flight its tables,
+    two buffers of its bytes and its min and max (``csrc/clahe.cu``
+    ``pair_smem``)."""
+    tables = 16 * sy * sx + 4 * (sy + sx) + 2 * (sy // _PAIR_SIDE) * (sx // _PAIR_SIDE)
+    return -(-tables // 16) * 16 + pairs * (4 * _PAIR_HIST + 2 * sy * sx + 16)
+
+
+def clahe_path(sy: int, sx: int, ky: int, kx: int, nbins: int, dtype_in, dtype_out,
+               aligned: bool = True) -> tuple[str, int]:
+    """The kernel a call on the card takes: ``("pair", pairs)``, a pair of
+    warps a pattern and ``pairs`` patterns a block, for uint8 in and out,
+    128 bins and 4 x 4 tiles that cover the pattern (``sy == 4 * ky``,
+    ``sx == 4 * kx``: no reflect pad) of at most 4,096 pixels, on 16-byte
+    boundaries (``aligned``); else ``("block", 0)``, one block a pattern,
+    for every shape, tiling, bin count and storage type."""
+    fits = (torch_dtype(dtype_in) == torch.uint8 and torch_dtype(dtype_out) == torch.uint8 and aligned
+            and nbins == _PAIR_BINS and ky >= 1 and kx >= 1 and sy == _PAIR_SIDE * ky and sx == _PAIR_SIDE * kx
+            and sy * sx <= _PAIR_MAX_PIX)
+    if not fits:
+        return "block", 0
+    pairs = _PAIR_MAX_PAIRS
+    while clahe_pair_smem_bytes(sy, sx, pairs) > SMEM_BUDGET:
+        pairs -= 1
+    return "pair", pairs
+
+
+def _library():
     from kikuchipy_tpu_torch.ops._build import library
 
-    fn = library("clahe").clahe_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 8 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib = library("clahe")
+    if lib.clahe_launch.argtypes is None:
+        lib.clahe_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                                     + [ctypes.c_int] * 8 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        lib.clahe_pair_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
+                                          + [ctypes.c_int, ctypes.c_void_p])
+        for fn in (lib.clahe_launch, lib.clahe_pair_launch):
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def clahe(patterns: torch.Tensor, ky: int, kx: int, nbins: int, clip_limit: float, dtype_out,
@@ -182,17 +230,19 @@ def clahe(patterns: torch.Tensor, ky: int, kx: int, nbins: int, clip_limit: floa
         raise ValueError(f"unsupported device {dev}")
     out_dtype = torch_dtype(dtype_out)
     check_storage("kernel E", patterns.dtype, out_dtype)
-    smem = clahe_smem_bytes(sy, sx, ky, kx, nbins, resident=False)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"CLAHE of {sy} x {sx} patterns with {ky} x {kx} tiles and {nbins} bins needs {smem} bytes "
-                         f"of shared memory a block for its tables, more than kernel E's {SMEM_BUDGET}")
     n = patterns.numel() // (sy * sx)
     src = patterns.contiguous()
     out = torch.empty(patterns.shape, dtype=out_dtype, device=dev)
+    path, pairs = clahe_path(sy, sx, ky, kx, nbins, src.dtype, out_dtype,
+                             aligned=src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    smem = clahe_smem_bytes(sy, sx, ky, kx, nbins, resident=False)
+    if path == "block" and smem > SMEM_BUDGET:
+        raise ValueError(f"CLAHE of {sy} x {sx} patterns with {ky} x {kx} tiles and {nbins} bins needs {smem} bytes "
+                         f"of shared memory a block for its tables, more than kernel E's {SMEM_BUDGET}")
     if n == 0:
         return out
     work = None
-    if clahe_smem_bytes(sy, sx, ky, kx, nbins) > SMEM_BUDGET:
+    if path == "block" and clahe_smem_bytes(sy, sx, ky, kx, nbins) > SMEM_BUDGET:
         work = torch.empty((min(n, _WORK_BLOCKS), sy, sx), dtype=torch.float32, device=dev)
     int_input = not patterns.dtype.is_floating_point
     in_min = in_inv = 0.0
@@ -204,20 +254,27 @@ def clahe(patterns: torch.Tensor, ky: int, kx: int, nbins: int, clip_limit: floa
     limit = float(max(clip_limit * ky * kx / nbins, 1.0)) if clip_limit > 0 else 0.0
     inv_nbins = float(np.float32(1.0) / np.float32(nbins))
     omin, omax = get_dtype_range(out_dtype)
+    lib = _library()
     with torch.cuda.device(dev):
-        err = _function()(
-            src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype],
-            None if work is None else work.data_ptr(), _WORK_BLOCKS, n, sy, sx, ky, kx, nbins,
-            int(int_input), in_min, in_inv, limit, inv_nbins, float(omin), float(omax - omin),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == "pair":
+            err = lib.clahe_pair_launch(src.data_ptr(), out.data_ptr(), n, sy, sx, ky, kx, limit, inv_nbins,
+                                        float(omin), float(omax - omin), pairs, stream)
+        else:
+            err = lib.clahe_launch(
+                src.data_ptr(), CODES[src.dtype], out.data_ptr(), CODES[out_dtype],
+                None if work is None else work.data_ptr(), _WORK_BLOCKS, n, sy, sx, ky, kx, nbins,
+                int(int_input), in_min, in_inv, limit, inv_nbins, float(omin), float(omax - omin), stream,
+            )
     if err:
-        raise RuntimeError(f"clahe launch failed: cudaError_t {err}")
+        raise RuntimeError(f"clahe launch failed ({path} kernel): cudaError_t {err}")
     clahe.launches += 1
+    clahe.mode_launches[path] += 1
     return out
 
 
 clahe.launches = 0
+clahe.mode_launches = {"pair": 0, "block": 0}
 
 
 def adaptive_histogram_equalization(

@@ -14,11 +14,14 @@ by subtraction or division, then rescales each pattern by its min and max to
 plain version (:func:`remove_background_plain`); for a CUDA tensor it
 launches kernel D once for the whole batch or raises, and counts the launch
 in its own ``.launches`` (and in ``.mode_launches["static"]`` or
-``["dynamic"]``, and the static mode's kernel in ``["static-warp"]`` or
-``["static-block"]``, as :func:`static_path` chooses). The static mode
-equals the plain version bit for bit on the card; the dynamic mode sums its
-products in another order than cuBLAS, so integer outputs may differ by one
-gray level where a value lands on an integer boundary.
+``["dynamic"]``, and each mode's kernel in ``["static-warp"]`` or
+``["static-block"]``, as :func:`static_path` chooses, and in
+``["dynamic-pair"]`` or ``["dynamic-block"]``, as :func:`dynamic_path`
+chooses). The static mode equals the plain version bit for bit on the card;
+the dynamic mode sums its products in another order than cuBLAS, so integer
+outputs may differ by one gray level where a value lands on an integer
+boundary. Both dynamic kernels sum each output in the same ascending-k FMA
+chain, so they give the same bytes.
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from kikuchipy_tpu_torch.ops.fft_barnes import separable_filter
 from kikuchipy_tpu_torch.ops.pattern_io import CODES, SMEM_BUDGET, check_storage, remove_and_rescale, sig_max, sig_min
 from kikuchipy_tpu_torch.utils.dtypes import torch_dtype
 
-__all__ = ["SMEM_BUDGET", "WARP_VECTORS", "remove_background", "remove_background_plain", "smem_bytes",
-           "static_path"]
+__all__ = ["DYNAMIC_SIDE", "SMEM_BUDGET", "WARP_VECTORS", "dynamic_path", "dynamic_smem_bytes", "remove_background",
+           "remove_background_plain", "smem_bytes", "static_path"]
 
 # Blocks that run when the images live in scratch: the scratch is
 # (_WORK_BLOCKS, 2, sy, sx) float32.
@@ -46,6 +49,12 @@ WARP_VECTORS = (2, 4, 8, 16)
 # byte (through int64) for every value within +-2^31: it takes output
 # ranges within +-2^30.
 _WARP_RANGE = 2.0**30
+# The dynamic pair kernel's sizes (csrc/background.cu kDynSide, kDynTStride,
+# kDynMaxPairs): patterns of at most 64 x 64 pixels, the row product's
+# transpose 68 floats a row, at most 8 patterns in flight a block.
+DYNAMIC_SIDE = 64
+_DYN_TSTRIDE = 68
+_DYN_MAX_PAIRS = 8
 
 
 def _check(patterns, operation, static_bg, row_op, col_op) -> None:
@@ -111,6 +120,35 @@ def static_path(sy: int, sx: int, dtype_in, dtype_out, omin: float = 0.0, omax: 
     return "block", 0
 
 
+def dynamic_smem_bytes(sy: int, sx: int, pairs: int) -> int:
+    """Shared memory of a block of the dynamic pair kernel: the two
+    transposed operators (64 floats a row) and, for each of ``pairs``
+    patterns in flight, the row product's transpose, two pattern buffers and
+    its min and max (``csrc/background.cu`` ``dyn_smem``)."""
+    return 4 * DYNAMIC_SIDE * (sy + sx) + pairs * (4 * sx * _DYN_TSTRIDE + 2 * sy * sx + 16)
+
+
+def dynamic_path(sy: int, sx: int, dtype_in, dtype_out, omin: float = 0.0, omax: float = 255.0,
+                 aligned: bool = True) -> tuple[str, int]:
+    """The kernel a dynamic-mode call on the card takes: ``("pair",
+    pairs)``, a pair of warps a pattern and ``pairs`` patterns a block, the
+    operators and each pattern in shared memory and each pair's removed
+    values in registers, for uint8 in and out, patterns of at most 64 x 64
+    pixels whose width is a multiple of 4 and which are whole 16-byte
+    vectors on 16-byte boundaries (``aligned``), and output ranges within
+    +-2^30; else ``("block", 0)``, one block a pattern, for every shape and
+    storage type (in device-memory scratch past the shared-memory budget)."""
+    fits = (torch_dtype(dtype_in) == torch.uint8 and torch_dtype(dtype_out) == torch.uint8 and aligned
+            and 1 <= sy <= DYNAMIC_SIDE and 4 <= sx <= DYNAMIC_SIDE and sx % 4 == 0 and (sy * sx) % 16 == 0
+            and max(abs(float(omin)), abs(float(omax))) <= _WARP_RANGE)
+    if not fits:
+        return "block", 0
+    pairs = _DYN_MAX_PAIRS
+    while dynamic_smem_bytes(sy, sx, pairs) > SMEM_BUDGET:
+        pairs -= 1
+    return "pair", pairs
+
+
 def _library():
     from kikuchipy_tpu_torch.ops._build import library
 
@@ -122,23 +160,28 @@ def _library():
                                           + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.background_static_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                                                  + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        for fn in (lib.background_blocks, lib.background_launch, lib.background_static_launch):
+        lib.background_dynamic_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                                                  + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_void_p])
+        for fn in (lib.background_blocks, lib.background_launch, lib.background_static_launch,
+                   lib.background_dynamic_launch):
             fn.restype = ctypes.c_int
     return lib
 
 
 # Blocks each kernel of csrc/background.cu runs at once, by device index,
-# kernel (vectors a lane, divide, scale_bg; 0 vectors: the block kernel) and
-# shared-memory bytes: found once, by background_blocks.
-_BLOCKS: dict[tuple[int, int, int, int, int], int] = {}
+# kernel (vectors a lane, divide, scale_bg; 0 vectors: the block kernel, -1:
+# the dynamic pair kernel), threads and shared-memory bytes: found once, by
+# background_blocks.
+_BLOCKS: dict[tuple[int, int, int, int, int, int], int] = {}
 
 
-def _blocks(lib, vec: int, divide: int, scale: int, smem: int) -> int:
-    key = (torch.cuda.current_device(), vec, divide, scale, smem)
+def _blocks(lib, vec: int, divide: int, scale: int, smem: int, threads: int = _THREADS) -> int:
+    key = (torch.cuda.current_device(), vec, divide, scale, smem, threads)
     blocks = _BLOCKS.get(key)
     if blocks is None:
         out = ctypes.c_int(0)
-        err = lib.background_blocks(vec, divide, scale, _THREADS, smem, SMEM_BUDGET, ctypes.byref(out))
+        err = lib.background_blocks(vec, divide, scale, threads, smem, SMEM_BUDGET, ctypes.byref(out))
         if err:
             raise RuntimeError(f"background kernel {key[1:4]} with {smem} bytes of shared memory: cudaError_t {err}")
         blocks = _BLOCKS[key] = out.value
@@ -182,12 +225,17 @@ def remove_background(patterns, operation: str, omin: float, omax: float, dtype_
         bg = static_bg.to(torch.float32)
         bg = (_unit_background(bg) if scale_bg else bg).contiguous()
     divide, scale = int(operation == "divide"), int(bool(scale_bg) and not dynamic)
-    path, vec = ("block", 0) if dynamic else static_path(
-        sy, sx, src.dtype, out_dtype, omin, omax, aligned=src.data_ptr() % 16 == 0)
+    aligned = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    path, vec = (dynamic_path if dynamic else static_path)(sy, sx, src.dtype, out_dtype, omin, omax, aligned=aligned)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if path == "warp":
+        if path == "pair":
+            smem = dynamic_smem_bytes(sy, sx, vec)
+            grid = min(_blocks(lib, -1, divide, 0, smem, 64 * vec), -(-n // vec))
+            err = lib.background_dynamic_launch(src.data_ptr(), out.data_ptr(), row.data_ptr(), col.data_ptr(), n, sy,
+                                                sx, divide, float(omin), float(omax) - float(omin), vec, grid, stream)
+        elif path == "warp":
             if bg.data_ptr() % 16:
                 bg = bg.clone()
             grid = min(_blocks(lib, vec, divide, scale, 4 * sy * sx), -(-n // (_THREADS // 32)))
@@ -212,11 +260,12 @@ def remove_background(patterns, operation: str, omin: float, omax: float, dtype_
     if err:
         raise RuntimeError(f"background launch failed: cudaError_t {err}")
     remove_background.launches += 1
-    remove_background.mode_launches["dynamic" if dynamic else "static"] += 1
-    if not dynamic:
-        remove_background.mode_launches[f"static-{path}"] += 1
+    mode = "dynamic" if dynamic else "static"
+    remove_background.mode_launches[mode] += 1
+    remove_background.mode_launches[f"{mode}-{path}"] += 1
     return out
 
 
 remove_background.launches = 0
-remove_background.mode_launches = {"static": 0, "dynamic": 0, "static-warp": 0, "static-block": 0}
+remove_background.mode_launches = {"static": 0, "dynamic": 0, "static-warp": 0, "static-block": 0, "dynamic-pair": 0,
+                                   "dynamic-block": 0}

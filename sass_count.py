@@ -21,9 +21,24 @@ sums, passes 2 and 3 reading them back; ``pass1_sums`` to ``pass3_sums``),
 for d = 3 and 6: the probe less a frame that loads and stores the same
 inputs, less the accumulators' extra stores. ``lm_eval_pixel``, a pixel
 of one evaluation, is the pixel's count plus its passes'; the loop
-counters of the passes are not counted. Then an output pixel of kernel E
-(``clahe_pixel``: its bin from the input, the blend of four tables, the
-rescale and the store, less a frame that copies the pixel), and a pixel of
+counters of the passes are not counted. Then kernel E's pair kernel
+(``csrc/clahe.cu`` ``clahe_pair_kernel``, the main path's case), counted
+on the kernel itself, built with its SASS probe macros: a histogram step
+(the growth from 8 to 16 unrolled steps over 8), a word of four pixels'
+blend and output (16 words a thread against 8, over 8), a tile's mapping
+(8 tiles a warp in lockstep against 4, over 4) and a warp's rest of a
+pattern (the build with 8 words, 8 steps and 4 tiles less those and less
+the block's prologue, built alone); ``clahe_pixel`` is a pixel's share at
+60 x 60 (a step, a quarter word, the 16 tiles' mappings and the two warps'
+rest over 3,600 pixels, in thread instructions). ``clahe_block_pixel`` is
+the block kernel's output pixel (its bin from the input, the blend of four
+tables, the rescale and the store, less a frame that copies the pixel, on
+a probe). Kernel D's dynamic pair kernel
+(``dynamic_pair_kernel``) likewise: a step of the row product and of the
+column product (every tile's band fixed at 16 steps against 8, the column
+product's four tiles unrolled), a warp's rest of a pattern, and
+``dynamic_pixel``, a pixel's share at the main path's operators (std 7.5
+at 60 x 60; the tiles of 8 rows and their bands). Then a pixel of
 kernel D's static warp kernel (``csrc/background.cu``
 ``static_warp_kernel``) on uint8 input, counted on the shipped kernel
 itself (``static_pixel``, and ``static_pixel_modes`` for each of its
@@ -41,8 +56,8 @@ stores the same bytes. A kernel's count is its main path: every instruction
 up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted (in the static
-kernel, each division's call site too: the arguments and the call that a
-predicated branch jumps over). Both sides of
+kernel and the pair kernels, each division's call site too: the arguments
+and the call that a predicated branch jumps over). Both sides of
 the Lambert map's branch of ``project_pixel`` are counted, so the count is
 of the code, not of what one pixel executes (a warp whose pixels take both
 sides executes both); ``project_pixel_a`` has no branch.
@@ -309,6 +324,22 @@ template __global__ void probe_hough_poles<8>(const float*, const float*, float*
 template __global__ void probe_hough_poles<16>(const float*, const float*, float*);
 """
 
+# Builds of the pair kernels themselves (csrc/background.cu, csrc/clahe.cu)
+# with their SASS probe macros: the steps of every band fixed (row, column
+# product), the words a thread blends, the histogram's steps, the tiles a
+# warp maps together, and each block's prologue alone.
+PAIR_BUILDS = {
+    "background_b8_8": ["-DDYN_SASS_BAND1=8", "-DDYN_SASS_BAND2=8"],
+    "background_b16_8": ["-DDYN_SASS_BAND1=16", "-DDYN_SASS_BAND2=8"],
+    "background_b8_16": ["-DDYN_SASS_BAND1=8", "-DDYN_SASS_BAND2=16"],
+    "background_prologue": ["-DDYN_SASS_PROLOGUE"],
+    "clahe_w8_h8_t4": ["-DCLAHE_SASS_WORDS=8", "-DCLAHE_SASS_HIST=8", "-DCLAHE_CDF_TILES=4"],
+    "clahe_w16_h8_t4": ["-DCLAHE_SASS_WORDS=16", "-DCLAHE_SASS_HIST=8", "-DCLAHE_CDF_TILES=4"],
+    "clahe_w8_h16_t4": ["-DCLAHE_SASS_WORDS=8", "-DCLAHE_SASS_HIST=16", "-DCLAHE_CDF_TILES=4"],
+    "clahe_w8_h8_t8": ["-DCLAHE_SASS_WORDS=8", "-DCLAHE_SASS_HIST=8", "-DCLAHE_CDF_TILES=8"],
+    "clahe_prologue": ["-DCLAHE_SASS_PROLOGUE"],
+}
+
 # A SASS line: /*0a40*/  [@P0 ]OPCODE operands ;
 _LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -379,16 +410,38 @@ def count(build_dir: Path | None = None) -> dict:
     build_dir.mkdir(parents=True, exist_ok=True)
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
+    jobs = []
     for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE),
                        ("sass_probe_background", PROBE_BACKGROUND), ("sass_probe_hough", PROBE_HOUGH)):
         src = build_dir / f"{stem}.cu"
         src.write_text(text)
+        jobs.append((stem, src, [f"-I{csrc}"]))
+    # The pair kernels themselves, rebuilt with their SASS probe macros.
+    for name, flags in PAIR_BUILDS.items():
+        jobs.append((name, csrc / f"{name.split('_')[0]}.cu", flags))
+    procs = []
+    for stem, src, flags in jobs:
         lib = build_dir / f"lib{stem}.so"
-        subprocess.run([_tool("nvcc"), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib), str(src)], check=True,
-                       capture_output=True, text=True)
+        procs.append((stem, lib, subprocess.Popen([_tool("nvcc"), *_build.NVCC_FLAGS, *flags, "-o", str(lib),
+                                                   str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                  text=True)))
+    pair = {}
+    for stem, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, log)
         sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True,
                               text=True).stdout
-        funcs.update(main_path(sass, skip_slow_calls=stem == "sass_probe_background"))
+        found = main_path(sass, skip_slow_calls=stem not in ("sass_probe", "sass_probe_lm", "sass_probe_clahe",
+                                                             "sass_probe_hough"))
+        if stem in PAIR_BUILDS:
+            kernel = "19dynamic_pair_kernelILb0EE" if stem.startswith("background") else "17clahe_pair_kernel"
+            hits = [ops for fname, ops in found.items() if kernel in fname]
+            if len(hits) != 1:
+                raise RuntimeError(f"{stem}: {len(hits)} {kernel} in the disassembly ({sorted(found)})")
+            pair[stem] = len(hits[0])
+        else:
+            funcs.update(found)
 
     def find(stem: str) -> list[str]:
         hits = [ops for fname, ops in funcs.items() if stem in fname]
@@ -429,6 +482,19 @@ def count(build_dir: Path | None = None) -> dict:
 
     hough8, hough16 = find("17probe_hough_polesILi8E"), find("17probe_hough_polesILi16E")
 
+    # Kernel D's dynamic pair kernel: the steps, and a warp's rest of a pattern.
+    row_step = (pair["background_b16_8"] - pair["background_b8_8"]) / 8
+    col_step = (pair["background_b8_16"] - pair["background_b8_8"]) / 32
+    d_rest = pair["background_b8_8"] - 8 * row_step - 32 * col_step - pair["background_prologue"]
+    dynamic_steps = {"row_step": row_step, "col_step": col_step, "rest": d_rest}
+    # Kernel E's pair kernel: a histogram step, a word, a tile, a warp's rest.
+    word = (pair["clahe_w16_h8_t4"] - pair["clahe_w8_h8_t4"]) / 8
+    hist_step = (pair["clahe_w8_h16_t4"] - pair["clahe_w8_h8_t4"]) / 8
+    tile = (pair["clahe_w8_h8_t8"] - pair["clahe_w8_h8_t4"]) / 4
+    e_rest = pair["clahe_w8_h8_t4"] - 8 * word - 8 * hist_step - 4 * tile - pair["clahe_prologue"]
+    clahe_parts = {"hist_step": hist_step, "word": word, "tile": tile, "rest": e_rest,
+                   "prologue": pair["clahe_prologue"]}
+
     def mix(ops, frame) -> dict[str, int]:
         c = Counter(ops)
         c.subtract(Counter(frame))
@@ -455,8 +521,13 @@ def count(build_dir: Path | None = None) -> dict:
         "lm_passes": passes,
         "lm_eval_pixel": lm_eval,
         "tangent_pixel_ops": {mode: mix(ops, lm_frame[mode]) for mode, ops in lm.items()},
-        "clahe_pixel": len(clahe) - len(clahe_frame),
-        "clahe_pixel_ops": mix(clahe, clahe_frame),
+        "clahe_pixel": hist_step + word / 4 + (16 * tile + 2 * e_rest) * 32 / 3600,
+        "clahe_parts": clahe_parts,
+        "clahe_block_pixel": len(clahe) - len(clahe_frame),
+        "clahe_block_pixel_ops": mix(clahe, clahe_frame),
+        "dynamic_steps": dynamic_steps,
+        "dynamic_pixel": dynamic_pixel(dynamic_steps),
+        "dynamic_prologue": pair["background_prologue"],
         "static_pixel": kernel_pixel["subtract"],
         "static_pixel_modes": kernel_pixel,
         "static_pixel_with_frame": (len(warp[8, 0, 0]) - len(warp[4, 0, 0])) / 64,
@@ -468,6 +539,41 @@ def count(build_dir: Path | None = None) -> dict:
         "hough_pole_ops": {k: v / 8 for k, v in mix(hough16, hough8).items()},
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
+
+
+# Operator rows a tile of kernel D's dynamic pair kernel (csrc/background.cu
+# kDynTM).
+DYN_TILE_ROWS = 8
+
+
+def dynamic_slots(ops, steps: dict, tile_rows: int = DYN_TILE_ROWS) -> tuple[float, int]:
+    """Thread instructions a pattern of kernel D's dynamic pair kernel takes
+    with the operators ``ops`` = (R, C) (arrays or tensors): each warp's rest
+    once, and a row-product step (or column-product step) for each k of each
+    tile's band, the union of its ``tile_rows`` rows' bands of nonzeros; and
+    the number of those steps."""
+    import numpy as np
+
+    slots, n_steps = 2 * steps["rest"], 0
+    for op, key in zip(ops, ("row_step", "col_step")):
+        nz = np.asarray(op.cpu() if hasattr(op, "cpu") else op) != 0
+        cols = np.arange(nz.shape[1])
+        lo = np.where(nz, cols, nz.shape[1]).min(1)
+        hi = np.where(nz, cols + 1, 0).max(1)
+        for r0 in range(0, nz.shape[0], tile_rows):
+            width = max(int(hi[r0:r0 + tile_rows].max()) - int(lo[r0:r0 + tile_rows].min()), 0)
+            n_steps += width
+            slots += width * steps[key]
+    return slots, n_steps
+
+
+def dynamic_pixel(steps: dict, shape: tuple[int, int] = (60, 60)) -> float:
+    """``dynamic_slots`` a pixel at the main path's operators
+    (``dynamic_background_separable_plan(shape, shape[1] / 8)``)."""
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    plan = tops.dynamic_background_separable_plan(shape, shape[1] / 8)
+    return dynamic_slots((plan.row_op, plan.col_op), steps)[0] * 32 / (shape[0] * shape[1])
 
 
 def main() -> int:

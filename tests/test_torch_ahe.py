@@ -9,8 +9,10 @@ Tolerance: outputs within one gray level, on under 1% of the pixels (float
 round-off of the blend where a value lands on an integer boundary).
 """
 
+import re
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -144,6 +146,107 @@ def test_clahe_shared_memory_budget():
     # Many small tiles of many bins pass the budget with their tables alone
     # (the card refuses them).
     assert tahe.clahe_smem_bytes(240, 240, 4, 4, 256, resident=False) > tahe.SMEM_BUDGET
+
+
+@pytest.mark.parametrize(
+    "shape, ky, kx, nbins, dtype_in, dtype_out, aligned, want",
+    [
+        ((60, 60), 15, 15, 128, np.uint8, np.uint8, True, ("pair", 8)),  # the main path (the defaults)
+        ((64, 64), 16, 16, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        ((40, 40), 10, 10, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        ((8, 4), 2, 1, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        # Rows wider than 16 words (sx > 64): a word's row needs the exact
+        # product of pair_row.
+        ((8, 500), 2, 125, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        ((12, 340), 3, 85, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        ((4, 1020), 1, 255, 128, np.uint8, np.uint8, True, ("pair", 8)),
+        ((60, 60), 7, 7, 128, np.uint8, np.uint8, True, ("block", 0)),  # 9 x 9 tiles and a reflect pad
+        ((60, 60), 15, 20, 128, np.uint8, np.uint8, True, ("block", 0)),  # 4 x 3 tiles
+        ((57, 61), 14, 15, 128, np.uint8, np.uint8, True, ("block", 0)),  # ragged: a reflect pad
+        ((480, 480), 120, 120, 128, np.uint8, np.uint8, True, ("block", 0)),  # past 4,096 pixels
+        ((68, 68), 17, 17, 128, np.uint8, np.uint8, True, ("block", 0)),
+        ((60, 60), 15, 15, 64, np.uint8, np.uint8, True, ("block", 0)),
+        ((60, 60), 15, 15, 256, np.uint8, np.uint8, True, ("block", 0)),
+        ((60, 60), 15, 15, 128, np.uint16, np.uint16, True, ("block", 0)),
+        ((60, 60), 15, 15, 128, np.uint8, np.float32, True, ("block", 0)),
+        ((60, 60), 15, 15, 128, np.float32, np.uint8, True, ("block", 0)),
+        ((60, 60), 15, 15, 128, np.uint8, np.uint8, False, ("block", 0)),  # a view off 16-byte boundaries
+    ],
+)
+def test_clahe_path_choice(shape, ky, kx, nbins, dtype_in, dtype_out, aligned, want):
+    assert tahe.clahe_path(*shape, ky, kx, nbins, dtype_in, dtype_out, aligned=aligned) == want
+    torch_in = torch.from_numpy(np.zeros(1, dtype_in)).dtype
+    assert tahe.clahe_path(*shape, ky, kx, nbins, torch_in, dtype_out, aligned=aligned) == want
+
+
+@pytest.mark.parametrize("sy, sx", [(60, 60), (64, 64), (4, 4), (8, 64), (8, 500), (4, 1024)])
+def test_clahe_pair_kernel_takes_as_many_pairs_as_fit(sy, sx):
+    path, pairs = tahe.clahe_path(sy, sx, sy // 4, sx // 4, 128, np.uint8, np.uint8)
+    assert path == "pair" and 1 <= pairs <= 8
+    assert tahe.clahe_pair_smem_bytes(sy, sx, pairs) <= tahe.SMEM_BUDGET
+    assert pairs == 8 or tahe.clahe_pair_smem_bytes(sy, sx, pairs + 1) > tahe.SMEM_BUDGET
+    # The block's tables (16 bytes of weights a pixel, a word a row and a
+    # column, 2 bytes a pixel of a tile, rounded to 16) and each pair's
+    # 2,048 tables, two pattern buffers and its min and max.
+    tables = 16 * sy * sx + 4 * (sy + sx) + 2 * (sy // 4) * (sx // 4)
+    assert tahe.clahe_pair_smem_bytes(sy, sx, 2) == -(-tables // 16) * 16 + 2 * (4 * 2048 + 2 * sy * sx + 16)
+
+
+def test_clahe_pair_kernel_limits_are_the_sources():
+    text = (Path(tahe.__file__).resolve().parents[1] / "csrc" / "clahe.cu").read_text()
+    assert f"constexpr int kPairBins = {tahe._PAIR_BINS};" in text
+    assert f"constexpr int kPairSide = {tahe._PAIR_SIDE};" in text
+    assert f"constexpr int kPairMaxPix = {tahe._PAIR_MAX_PIX};" in text
+    assert f"constexpr int kPairMaxPairs = {tahe._PAIR_MAX_PAIRS};" in text
+    assert "return (16 * sy * sx + 4 * (sy + sx) + 2 * (sy / kPairSide) * (sx / kPairSide) + 15) / 16 * 16;" in text
+    assert "return 4 * kPairHist + 2 * npix + 16;" in text
+
+
+def test_clahe_pair_kernel_finds_every_words_row_exactly():
+    # The pair kernel finds a 4-pixel word's row as (wd * mul) >> shift
+    # (csrc/clahe.cu pair_row). For every shape clahe_path sends it (4 x 4
+    # tiles of ky x kx, at most 4,096 pixels) that is wd // (sx / 4) for
+    # every word, in int32.
+    text = (Path(tahe.__file__).resolve().parents[1] / "csrc" / "clahe.cu").read_text()
+    shift = int(re.search(r"constexpr int kPairRowShift = (\d+);", text).group(1))
+    assert "return ((1 << kPairRowShift) + qx - 1) / qx;" in text
+    assert "return (wd * mul) >> kPairRowShift;" in text
+    assert "const int y = pair_row(wd, mul), x = 4 * (wd - y * qx);" in text
+    shapes = 0
+    for ky in range(1, tahe._PAIR_MAX_PIX // 16 + 1):
+        for kx in range(1, tahe._PAIR_MAX_PIX // (16 * ky) + 1):
+            sy, sx = 4 * ky, 4 * kx
+            assert tahe.clahe_path(sy, sx, ky, kx, 128, np.uint8, np.uint8)[0] == "pair"
+            qx = sx // 4
+            mul = ((1 << shift) + qx - 1) // qx
+            wd = np.arange(sy * sx // 4, dtype=np.int64)
+            assert int(wd[-1] * mul) < 2**31
+            np.testing.assert_array_equal((wd * mul) >> shift, wd // qx)
+            shapes += 1
+    assert shapes > 1000
+
+
+def test_clahe_bins_of_bytes_are_the_bytes_halved():
+    # The pair kernel bins a uint8 value b as b >> 1: at 128 bins JAX's
+    # clip(int32(b / 255 * 128), 0, 127), the plain version's, and the
+    # kernels' product with float32(1 / 255) all give it for every byte.
+    b = np.arange(256)
+    halved = b >> 1
+    jax_bins = np.asarray(jnp.clip((jnp.asarray(b, jnp.float32) / 255.0 * 128).astype(jnp.int32), 0, 127))
+    assert np.array_equal(jax_bins, halved)
+    plain = tahe._normalized(torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16)).reshape(-1)
+    assert np.array_equal(torch.clamp((plain * 128).to(torch.int32), 0, 127).numpy(), halved)
+    inv = np.float32(1.0) / np.float32(255.0)
+    kernel = np.clip(((b.astype(np.float32) - np.float32(0.0)) * inv * np.float32(128)).astype(np.int32), 0, 127)
+    assert np.array_equal(kernel, halved)
+
+
+def test_clahe_on_the_cpu_counts_no_launch(patterns):
+    p = torch.as_tensor(patterns)
+    launches, modes = tahe.clahe.launches, dict(tahe.clahe.mode_launches)
+    tahe.adaptive_histogram_equalization(p, device=CPU)
+    assert tahe.clahe.launches == launches and tahe.clahe.mode_launches == modes
+    assert set(modes) == {"pair", "block"}
 
 
 def test_ebsd_adaptive_histogram_equalization_matches_jax(patterns):

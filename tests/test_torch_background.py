@@ -1,6 +1,7 @@
-"""Kernel D's static mode on the CPU: the choice between its two kernels,
-the conversions the static warp kernel relies on, the static removal
-through ``EBSD`` against JAX, and the device copy of the background.
+"""Kernel D on the CPU: the choice between its static mode's two kernels
+and between its dynamic mode's two, the conversions the static warp kernel
+relies on, the static removal through ``EBSD`` against JAX, and the device
+copy of the background.
 
 The card's own checks (each kernel bit for bit with the plain version) are
 in ``tests/test_torch_gpu.py``; here the wrapper runs its plain version.
@@ -65,6 +66,68 @@ def test_static_warp_kernel_sizes_cover_their_vectors():
     for npix, vec in ((16, 2), (1024, 2), (1040, 4), (2048, 4), (2064, 8), (4096, 8), (4112, 16), (8192, 16)):
         assert tbg.static_path(1, npix, np.uint8, np.uint8) == ("warp", vec), npix
     assert tbg.static_path(1, 8208, np.uint8, np.uint8) == ("block", 0)
+
+
+@pytest.mark.parametrize(
+    "shape, dtype_in, dtype_out, kw, want",
+    [
+        ((60, 60), np.uint8, np.uint8, {}, ("pair", 8)),  # the main path
+        ((64, 64), np.uint8, np.uint8, {}, ("pair", 7)),  # the largest: 7 pairs fit the budget
+        ((40, 40), np.uint8, np.uint8, {}, ("pair", 8)),
+        ((1, 16), np.uint8, np.uint8, {}, ("pair", 8)),
+        ((60, 60), np.uint8, np.uint8, {"omin": 10, "omax": 200}, ("pair", 8)),
+        ((57, 61), np.uint8, np.uint8, {}, ("block", 0)),  # ragged: no whole vectors, an odd width
+        ((60, 62), np.uint8, np.uint8, {}, ("block", 0)),  # a width no multiple of 4
+        ((16, 1), np.uint8, np.uint8, {}, ("block", 0)),
+        ((64, 68), np.uint8, np.uint8, {}, ("block", 0)),  # past 64 x 64
+        ((68, 64), np.uint8, np.uint8, {}, ("block", 0)),
+        ((180, 180), np.uint8, np.uint8, {}, ("block", 0)),  # the block kernel's scratch path
+        ((60, 60), np.uint8, np.float32, {}, ("block", 0)),
+        ((60, 60), np.uint16, np.uint8, {}, ("block", 0)),
+        ((60, 60), np.float32, np.uint16, {}, ("block", 0)),
+        ((60, 60), np.uint8, np.uint8, {"aligned": False}, ("block", 0)),
+        ((60, 60), np.uint8, np.uint8, {"omin": -3e9, "omax": 3e9}, ("block", 0)),  # past int32's range
+    ],
+)
+def test_dynamic_path_choice(shape, dtype_in, dtype_out, kw, want):
+    assert tbg.dynamic_path(*shape, dtype_in, dtype_out, **kw) == want
+    assert tbg.dynamic_path(*shape, torch.from_numpy(np.zeros(1, dtype_in)).dtype, dtype_out, **kw) == want
+
+
+@pytest.mark.parametrize("sy, sx", [(60, 60), (64, 64), (4, 4), (40, 40), (64, 4), (1, 16), (32, 60)])
+def test_dynamic_pair_kernel_takes_as_many_pairs_as_fit(sy, sx):
+    path, pairs = tbg.dynamic_path(sy, sx, np.uint8, np.uint8)
+    assert path == "pair" and 1 <= pairs <= 8
+    assert tbg.dynamic_smem_bytes(sy, sx, pairs) <= tbg.SMEM_BUDGET
+    assert pairs == 8 or tbg.dynamic_smem_bytes(sy, sx, pairs + 1) > tbg.SMEM_BUDGET
+    # Both transposed operators (64 floats a row), then each pair's row
+    # product (68 floats a row), two pattern buffers and its min and max.
+    assert tbg.dynamic_smem_bytes(sy, sx, 1) == 256 * (sy + sx) + 272 * sx + 2 * sy * sx + 16
+
+
+def test_dynamic_pair_kernel_limits_are_the_sources():
+    from pathlib import Path
+
+    text = (Path(tbg.__file__).resolve().parents[1] / "csrc" / "background.cu").read_text()
+    assert f"constexpr int kDynSide = {tbg.DYNAMIC_SIDE};" in text
+    assert f"constexpr int kDynMaxPairs = {tbg._DYN_MAX_PAIRS};" in text
+    assert f"constexpr int kDynTStride = {tbg._DYN_TSTRIDE};" in text
+    assert "return 4 * sx * kDynTStride + 2 * sy * sx + 16;" in text
+    assert "return 4 * kDynSide * (sy + sx) + pairs * dyn_pair_bytes(sy, sx);" in text
+
+
+@pytest.mark.parametrize("operation", ["subtract", "divide"])
+def test_dynamic_removal_on_the_cpu_is_the_plain_version_and_counts_no_launch(operation):
+    from kikuchipy_tpu_torch.ops import pattern as tops
+
+    p = torch.from_numpy(_patterns(5, (60, 60), 29))
+    plan = tops.dynamic_background_separable_plan((60, 60), 60 / 8)
+    row, col = torch.as_tensor(plan.row_op), torch.as_tensor(plan.col_op)
+    launches, modes = tbg.remove_background.launches, dict(tbg.remove_background.mode_launches)
+    got = tbg.remove_background(p, operation, 0, 255, np.uint8, row_op=row, col_op=col)
+    assert torch.equal(got, tbg.remove_background_plain(p, operation, 0, 255, np.uint8, row_op=row, col_op=col))
+    assert tbg.remove_background.launches == launches and tbg.remove_background.mode_launches == modes
+    assert set(modes) == {"static", "dynamic", "static-warp", "static-block", "dynamic-pair", "dynamic-block"}
 
 
 # ------------------- the static warp kernel's conversions ------------------- #

@@ -1486,6 +1486,131 @@ def test_background_kernel_scratch_path_past_the_shared_memory_budget(cuda):
     assert worst <= 1 and share < 0.01, (worst, share)
 
 
+# The dynamic mode's kernels (ops/background.py dynamic_path): the pair
+# kernel at 60 x 60 (8 pairs a block) with n of 300, 13 and 1 (not a
+# multiple of the pairs), at 64 x 64 (7 pairs), 40 x 40 and 1 x 16; the block
+# kernel at 57 x 61, 180 x 180 (the scratch path), float32 out, uint16 in and
+# a view off 16-byte boundaries.
+DYNAMIC_PATH_CASES = {
+    "60x60 n=300": ((60, 60), 300, np.uint8, np.uint8, 0, "pair"),
+    "60x60 n=13": ((60, 60), 13, np.uint8, np.uint8, 0, "pair"),
+    "60x60 n=1": ((60, 60), 1, np.uint8, np.uint8, 0, "pair"),
+    "64x64": ((64, 64), 40, np.uint8, np.uint8, 0, "pair"),
+    "40x40": ((40, 40), 40, np.uint8, np.uint8, 0, "pair"),
+    "1x16": ((1, 16), 40, np.uint8, np.uint8, 0, "pair"),
+    "57x61": ((57, 61), 40, np.uint8, np.uint8, 0, "block"),
+    "180x180": ((180, 180), 20, np.uint8, np.uint8, 0, "block"),
+    "float32 out": ((60, 60), 40, np.uint8, np.float32, 0, "block"),
+    "uint16 in": ((60, 60), 40, np.uint16, np.uint8, 0, "block"),
+    "misaligned": ((60, 60), 13, np.uint8, np.uint8, 1, "block"),
+}
+
+
+@pytest.mark.parametrize("name", list(DYNAMIC_PATH_CASES))
+@pytest.mark.parametrize("operation", ["subtract", "divide"])
+def test_background_dynamic_takes_the_kernel_dynamic_path_chose(cuda, name, operation):
+    # Each case's launch is counted on the path dynamic_path chose, within
+    # one gray level of the plain version on under 1% of the pixels (float32
+    # within 1e-5 of the range); the pair kernel's bytes are the block
+    # kernel's.
+    from kikuchipy_tpu_torch.ops import background as bgk
+    from kikuchipy_tpu_torch.ops import pattern as tops
+    from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range
+
+    shape, n, dtype_in, dtype_out, offset, want = DYNAMIC_PATH_CASES[name]
+    data = _preprocess_patterns(n, shape, 13)
+    if dtype_in == np.uint16:
+        data = data.astype(np.uint16) * 257
+    p = torch.as_tensor(data, device=cuda)
+    if offset:
+        buf = torch.empty(p.numel() + offset, dtype=p.dtype, device=cuda)
+        buf[offset:].copy_(p.reshape(-1))
+        p = buf[offset:].view(p.shape)
+    plan = tops.dynamic_background_separable_plan(shape, shape[1] / 8)
+    row, col = torch.as_tensor(plan.row_op, device=cuda), torch.as_tensor(plan.col_op, device=cuda)
+    omin, omax = get_dtype_range(dtype_out)
+    chosen, _ = bgk.dynamic_path(*shape, p.dtype, dtype_out, omin, omax, aligned=p.data_ptr() % 16 == 0)
+    assert chosen == want
+    before = dict(bgk.remove_background.mode_launches)
+    got = bgk.remove_background(p, operation, omin, omax, dtype_out, row_op=row, col_op=col)
+    torch.cuda.synchronize()
+    after = bgk.remove_background.mode_launches
+    assert after[f"dynamic-{want}"] == before[f"dynamic-{want}"] + 1
+    assert after["dynamic"] == before["dynamic"] + 1 and sum(after.values()) == sum(before.values()) + 2
+    ref = bgk.remove_background_plain(p, operation, omin, omax, dtype_out, row_op=row, col_op=col)
+    if got.dtype.is_floating_point:
+        assert float((got - ref).abs().max()) <= 1e-5 * (omax - omin)
+    else:
+        worst, share = _gray_share(got, ref)
+        assert worst <= 1 and share < 0.01, (worst, share)
+    if want == "pair":
+        with _smoke().forced_block(bgk, "dynamic_path"):
+            block = bgk.remove_background(p, operation, omin, omax, dtype_out, row_op=row, col_op=col)
+        assert torch.equal(got, block)
+
+
+# The CLAHE kernels (ops/ahe.py clahe_path): the pair kernel at the
+# defaults of 60 x 60 (with n of 300, 13 and 1), clipping, 64 x 64, 40 x 40
+# and rows wider than 64 pixels (8 x 500, 12 x 340, 4 x 1020); the block
+# kernel at 7 x 7 tiles, 480 x 480 (its scratch path), uint16
+# in, float32 out, 64 bins, 57 x 61 and a view off 16-byte boundaries.
+CLAHE_PATH_CASES = {
+    "60x60 n=300": ((60, 60), 300, np.uint8, {}, 0, "pair"),
+    "60x60 n=13": ((60, 60), 13, np.uint8, {}, 0, "pair"),
+    "60x60 n=1": ((60, 60), 1, np.uint8, {}, 0, "pair"),
+    "clip_0.02": ((60, 60), 100, np.uint8, {"clip_limit": 0.02}, 0, "pair"),
+    "64x64 clip_0.5": ((64, 64), 40, np.uint8, {"clip_limit": 0.5}, 0, "pair"),
+    "40x40": ((40, 40), 40, np.uint8, {}, 0, "pair"),
+    # Rows of more than 16 words: each word's row by pair_row's product.
+    "8x500": ((8, 500), 37, np.uint8, {}, 0, "pair"),
+    "12x340 clip_0.02": ((12, 340), 21, np.uint8, {"clip_limit": 0.02}, 0, "pair"),
+    "4x1020": ((4, 1020), 19, np.uint8, {}, 0, "pair"),
+    "7x7 tiles": ((60, 60), 40, np.uint8, {"kernel_size": (7, 7)}, 0, "block"),
+    "480x480": ((480, 480), 4, np.uint8, {}, 0, "block"),
+    "uint16 in": ((60, 60), 40, np.uint16, {}, 0, "block"),
+    "float32 out": ((60, 60), 40, np.uint8, {"dtype_out": np.float32}, 0, "block"),
+    "64 bins": ((60, 60), 40, np.uint8, {"nbins": 64}, 0, "block"),
+    "57x61": ((57, 61), 40, np.uint8, {}, 0, "block"),
+    "misaligned": ((60, 60), 13, np.uint8, {}, 1, "block"),
+}
+
+
+@pytest.mark.parametrize("name", list(CLAHE_PATH_CASES))
+def test_clahe_takes_the_kernel_clahe_path_chose(cuda, name):
+    from kikuchipy_tpu_torch.ops import ahe
+
+    shape, n, dtype_in, kw, offset, want = CLAHE_PATH_CASES[name]
+    data = _preprocess_patterns(n, shape, 14)
+    if dtype_in == np.uint16:
+        data = data.astype(np.uint16) * 257
+    p = torch.as_tensor(data, device=cuda)
+    if offset:
+        buf = torch.empty(p.numel() + offset, dtype=p.dtype, device=cuda)
+        buf[offset:].copy_(p.reshape(-1))
+        p = buf[offset:].view(p.shape)
+    sy, sx = shape
+    ky, kx = kw.get("kernel_size", (sy // 4, sx // 4))
+    nbins, dtype_out = kw.get("nbins", 128), kw.get("dtype_out", dtype_in)
+    chosen, _ = ahe.clahe_path(sy, sx, ky, kx, nbins, p.dtype, dtype_out, aligned=p.data_ptr() % 16 == 0)
+    assert chosen == want
+    before = dict(ahe.clahe.mode_launches)
+    got = ahe.adaptive_histogram_equalization(p, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert ahe.clahe.mode_launches[want] == before[want] + 1
+    assert sum(ahe.clahe.mode_launches.values()) == sum(before.values()) + 1
+    ref = ahe.clahe_plain(p, ky, kx, nbins, kw.get("clip_limit", 0.0), dtype_out, chunk=8)
+    assert got.dtype == ref.dtype
+    if got.dtype.is_floating_point:
+        assert float((got - ref).abs().max()) <= 1e-5
+    else:
+        worst, share = _gray_share(got, ref)
+        assert worst <= 1 and share < 0.01, (worst, share)
+    if want == "pair":
+        with _smoke().forced_block(ahe, "clahe_path"):
+            block = ahe.adaptive_histogram_equalization(p, device=cuda, **kw)
+        assert torch.equal(got, block)
+
+
 CLAHE_GPU_CASES = {
     "defaults": (np.uint8, (60, 60), {}),
     "clip_0.02": (np.uint8, (60, 60), {"clip_limit": 0.02}),

@@ -42,7 +42,9 @@ def test_imports_leave_no_jax_in_sys_modules():
 
 def test_no_import_statement_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|kikuchipy_tpu)(\s|\.|$)", re.M)
-    scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py", "refine_variants.py")
+    scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py", "refine_variants.py",
+               "lambert_variants.py", "lm_variants.py", "neighbours_variants.py", "preprocess_variants.py",
+               "sass_count.py")
     for path in list(PKG.rglob("*.py")) + [ROOT / name for name in scripts]:
         assert not pattern.search(path.read_text()), path
 
