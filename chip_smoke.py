@@ -248,7 +248,24 @@ the card's name and power limit, and the device check):
    card's largest clock); then a breakdown of
    one pallas-int8 indexing call and a
    ``torch.profiler`` trace of it, and a trace of one ``get_patterns`` call
-   (the dictionary's generation: device busy time, kernels and host time).
+   (the dictionary's generation: device busy time, kernels and host time);
+9. reading and writing scans (``[io]``, ``[lazy]``, in a temporary
+   directory): the main path's scan tiled 2 x 2 on the map (256 x 256
+   patterns, 236 MB) ``save``d to a NORDIF .dat and ``load``ed to the card
+   (bytes equal, host seconds and MB/s, the file's pages warm), a
+   synthesized EDAX .up2 (uint16) and Oxford .ebsp (version 5, out of map
+   order) to the card byte for byte, a kikuchipy h5ebsd round trip where
+   ``h5py`` imports; then ``load(..., lazy=True)`` of the .dat through both
+   removals and ``compute`` at chunk sizes 1024 and 8192, byte for byte the
+   eager chain on kernel D, with ms, MB/s and peak device memory beside the
+   eager chain's; static removal and neighbour averaging lazily (halo rows,
+   kernel G) byte for byte the eager chain; streamed ``int8``
+   ``dictionary_indexing`` of the main path's 16,384 patterns from their own
+   .dat (indices equal to the eager call's, scores within 1e-6; the
+   streamed path has no ``pallas-int8``, as in JAX); streamed
+   ``refine_orientation`` of 2,048 of them against the eager call (within
+   1e-5 and bit for bit, the Nelder-Mead kernel refining each point alone);
+   and the lazy chain's host copy and host-to-device copies timed apart.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is the count
@@ -3515,6 +3532,270 @@ def calibration_phase(smi: str, mp, det, pre, xmap, refined_pc) -> tuple[list[st
 
 
 
+# ----------------------- reading files, lazy scans ----------------------- #
+
+# [io]: the main path's scan tiled IO_TILES x IO_TILES on the map (256 x 256
+# patterns of 60 x 60, 236 MB, about BASELINE config 3's nickel_ebsd_large).
+IO_TILES = 2
+# [lazy]: the chunk sizes of the lazy removals, the streamed indexing's and
+# refinement's chunks, and the points refined.
+LAZY_CHUNKS = (1024, 8192)
+LAZY_DI_CHUNK = 2048
+LAZY_REFINE_POINTS = 2048
+LAZY_REFINE_CHUNK = 1024
+# Streamed refinement against the eager call: rotations within this
+# (tests/test_lazy.py's tolerance).
+LAZY_REFINE_ATOL = 1e-5
+
+
+def _write_ebsp_v5(path, patterns: np.ndarray, nx: int, seed: int) -> None:
+    """An Oxford .ebsp, version 5: map_x/map_y in each header, the records out
+    of map order (the first stays first, as the format's reader needs)."""
+    import struct
+
+    n, sy, sx = patterns.shape
+    order = np.concatenate([[0], 1 + np.random.default_rng(seed).permutation(n - 1)])
+    bytes_per = 6 * 4 + sy * sx + 1 + 8 + 1 + 8
+    first = 9 + n * 8
+    starts = np.zeros(n, np.int64)
+    starts[order] = first + np.arange(n) * bytes_per
+    rec = np.zeros(n, dtype=np.dtype([("hdr", "<i4", 6), ("pattern", "u1", (sy, sx)), ("hx", "?"),
+                                       ("bx", "<f8"), ("hy", "?"), ("by", "<f8")]))
+    my, mx = np.divmod(order, nx)
+    rec["hdr"] = np.stack([mx, my, np.zeros(n), np.full(n, sy), np.full(n, sx), np.full(n, sy * sx)], 1)
+    rec["pattern"] = patterns[order]
+    rec["hx"] = rec["hy"] = True
+    rec["bx"], rec["by"] = mx * 1.5, my * 1.5
+    with open(path, "wb") as f:
+        f.write(struct.pack("<q", -5) + b"\x00")
+        starts.tofile(f)
+        rec.tofile(f)
+
+
+def _write_up2(path, patterns: np.ndarray) -> None:
+    """An EDAX .up2, version 3: uint16 patterns on a square grid."""
+    ny, nx, sy, sx = patterns.shape
+    with open(path, "wb") as f:
+        np.array([3, sx, sy, 42], np.uint32).tofile(f)
+        f.write(b"\x00")
+        np.array([nx, ny], np.uint32).tofile(f)
+        np.array([0], np.uint8).tofile(f)
+        np.array([1.5, 1.5], np.float64).tofile(f)
+        patterns.tofile(f)
+
+
+def io_phase(dev, scan, smi: str, folder: Path, seed: int) -> tuple[list[str], Path]:
+    """[io]: ``save`` the tiled scan to a NORDIF .dat and ``load`` it eagerly
+    onto the card (bytes equal, host seconds, MB/s; the file was just written,
+    so the read is warm); a synthesized EDAX .up2 (uint16) and Oxford .ebsp
+    (version 5, out of order) to the card, bytes equal; a kikuchipy h5ebsd
+    round trip where h5py imports. Returns the messages and the .dat's path."""
+    import importlib.util
+    import warnings
+
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+
+    msgs = []
+    tiled = scan.data.repeat(IO_TILES, IO_TILES, 1, 1)
+    mb = tiled.numel() / 1e6
+    ny, nx, sy, sx = tiled.shape
+    path = folder / "Pattern.dat"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kt.EBSD(tiled, device=dev).save(path)
+    t_save = time.perf_counter() - t0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no Setting.txt or background beside the file: sizes given
+        t0 = time.perf_counter()
+        loaded = kt.load(path, scan_size=(nx, ny), pattern_size=(sx, sy), device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if loaded.data.device.type != dev.type or not torch.equal(loaded.data, tiled):
+        raise AssertionError("the .dat loaded to the card is not the bytes saved")
+    msgs.append(f"{smi}: save ({nx} x {ny} x {sx} x {sy} uint8, {mb:.1f} MB) to a NORDIF .dat {t_save:.3f} s "
+                f"({mb / t_save:.1f} MB/s, the tensor copied to the host); load to the card {t_load:.3f} s "
+                f"({mb / t_load:.1f} MB/s, host clock, the file's pages warm): bytes equal")
+
+    up2_np = np.random.default_rng(seed).integers(0, 1 << 16, (32, 32, sy, sx), dtype=np.uint16)
+    _write_up2(folder / "scan.up2", up2_np)
+    ebsp_np = scan.data[:32, :32].cpu().numpy()
+    _write_ebsp_v5(folder / "scan.ebsp", ebsp_np.reshape(-1, sy, sx), ebsp_np.shape[1], seed)
+    for name, want in (("scan.up2", up2_np), ("scan.ebsp", ebsp_np)):
+        t0 = time.perf_counter()
+        got = kt.load(folder / name, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if got.data.device.type != dev.type or not np.array_equal(got.data.cpu().numpy(), want):
+            raise AssertionError(f"{name} loaded to the card is not the bytes written")
+        msgs.append(f"{name} ({want.dtype}, {want.shape}) to the card {dt * 1e3:.1f} ms: bytes equal")
+
+    if importlib.util.find_spec("h5py") is None:
+        msgs.append("h5py does not import on this machine: the kikuchipy h5ebsd round trip was not run")
+    else:
+        sig = kt.EBSD(scan.data, detector=scan.detector, static_background=scan.static_background, device=dev)
+        sig.save(folder / "scan.h5")
+        back = kt.load(folder / "scan.h5", device=dev)
+        if not (torch.equal(back.data, sig.data) and np.array_equal(back.static_background, scan.static_background)
+                and np.allclose(back.detector.pc, scan.detector.pc, rtol=0, atol=1e-12)):
+            raise AssertionError("the kikuchipy h5ebsd round trip changed the scan")
+        msgs.append("h5py imports on this machine: kikuchipy h5ebsd round trip of the scan, bytes, background and PC "
+                    "equal")
+    return msgs, path
+
+
+def _peak_mb(fn):
+    """``fn()``'s result, its host ms (synchronized) and the device memory
+    allocated at its start and at its peak, in MB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 1e6
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, start, torch.cuda.max_memory_allocated() / 1e6
+
+
+def lazy_breakdown(dev, dat: Path, n: int, sy: int, sx: int) -> list[str]:
+    """The lazy chain's stages apart at each of LAZY_CHUNKS: the host's copy
+    of every chunk out of the memory map into a page-locked buffer (the
+    file's pages warm; ``staging.copy_rows``, as ``ChunkStager.put``), and
+    every chunk's host-to-device copy from it (CUDA events)."""
+    import torch
+
+    from kikuchipy_tpu_torch.utils.staging import copy_rows
+
+    src = np.memmap(dat, dtype=np.uint8, mode="r", shape=(n, sy, sx))
+    out = []
+    for chunk in LAZY_CHUNKS:
+        pinned = torch.empty((chunk, sy, sx), dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        buf = torch.empty((chunk, sy, sx), dtype=torch.uint8, device=dev)
+        t0 = time.perf_counter()
+        for a in range(0, n, chunk):
+            copy_rows(pinned[: min(chunk, n - a)].numpy(), src[a : a + chunk])
+        host_ms = (time.perf_counter() - t0) * 1e3
+
+        def h2d():
+            for a in range(0, n, chunk):
+                m = min(chunk, n - a)
+                buf[:m].copy_(pinned[:m], non_blocking=True)
+
+        h2d_ms = cuda_ms(h2d, 3)
+        mb = n * sy * sx / 1e6
+        out.append(f"chunk_size={chunk}: host copy out of the memory map {host_ms:.3f} ms ({mb / host_ms * 1e3:.1f} "
+                   f"MB/s), host-to-device copies {h2d_ms:.3f} ms ({mb / h2d_ms * 1e3:.1f} MB/s)")
+    return out
+
+
+def lazy_phase(dev, scan, pre, dictionary, mp, det, top1_rot, smi: str, dat: Path, folder: Path) -> list[str]:
+    """[lazy]: ``load(..., lazy=True)`` of [io]'s .dat, both removals and
+    ``compute`` at each of LAZY_CHUNKS, byte for byte the eager chain's (kernel
+    D); the chain with neighbour averaging's halo rows byte for byte the eager
+    one (kernel G); streamed dictionary indexing of the main path's patterns
+    against the eager call at the same precision ("int8": the JAX package's
+    streamed path has no "pallas-int8"), indices equal and scores within 1e-6;
+    streamed refinement of LAZY_REFINE_POINTS against the eager call within
+    LAZY_REFINE_ATOL and bit for bit (the Nelder-Mead kernel refines each
+    point on its own, so the chunking changes no point's path)."""
+    import warnings
+
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+
+    msgs = []
+    bg = scan.static_background
+    ny, nx = scan.navigation_shape[0] * IO_TILES, scan.navigation_shape[1] * IO_TILES
+    sy, sx = scan.signal_shape
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no Setting.txt or background beside the file: sizes given
+        eager = dataclasses.replace(kt.load(dat, scan_size=(nx, ny), pattern_size=(sx, sy), device=dev),
+                                    static_background=bg)
+        lazy = kt.load(dat, scan_size=(nx, ny), pattern_size=(sx, sy), lazy=True, device=dev)
+    lazy = dataclasses.replace(lazy, static_background=bg)
+    mb = eager.data.numel() / 1e6
+
+    def eager_chain():
+        return eager.remove_static_background().remove_dynamic_background()
+
+    eager_chain()  # warm-up
+    want, ms_e, start_e, peak_e = _peak_mb(eager_chain)
+    parts = [f"eager (the scan on the card) {ms_e:.3f} ms ({mb / ms_e * 1e3:.1f} MB/s), device memory {start_e:.1f} "
+             f"MB at the start, peak {peak_e:.1f} MB"]
+    for chunk in LAZY_CHUNKS:
+        view = dataclasses.replace(lazy, chunk_size=chunk)
+        view.remove_static_background().remove_dynamic_background().compute()  # warm-up
+        got, ms, start, peak = _peak_mb(lambda: view.remove_static_background().remove_dynamic_background().compute())
+        if not torch.equal(got.data, want.data):
+            raise AssertionError(f"the lazy removals at chunk_size={chunk} are not the eager chain's bytes")
+        parts.append(f"lazy from the memory map, chunk_size={chunk}: {ms:.3f} ms ({mb / ms * 1e3:.1f} MB/s), "
+                     f"{start:.1f} MB at the start, peak {peak:.1f} MB; byte for byte")
+        del got
+    msgs.append(f"{smi}: load(lazy=True) -> remove_static_background().remove_dynamic_background().compute() on "
+                f"{ny * nx} patterns ({mb:.1f} MB): " + "; ".join(parts))
+    msgs.append(f"{smi}: what holds the lazy chain: " + "; ".join(lazy_breakdown(dev, dat, ny * nx, sy, sx)))
+
+    want = eager.remove_static_background().average_neighbour_patterns()
+    for chunk in LAZY_CHUNKS:
+        got = dataclasses.replace(lazy, chunk_size=chunk).remove_static_background().average_neighbour_patterns()
+        got, ms, _, peak = _peak_mb(got.compute)
+        if not torch.equal(got.data, want.data):
+            raise AssertionError(f"the lazy chain with halo rows at chunk_size={chunk} is not the eager bytes")
+        msgs.append(f"{smi}: static removal + average_neighbour_patterns (halo rows, kernel G) lazily at "
+                    f"chunk_size={chunk}: {ms:.3f} ms, peak {peak:.1f} MB; byte for byte the eager chain")
+    del want, got, eager
+
+    # The main path's scan, written to its own .dat, indexed a chunk at a time.
+    main_dat = folder / "main.dat"
+    kt.EBSD(scan.data, device=dev).save(main_dat)
+    sny, snx = scan.navigation_shape
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        main_lazy = kt.load(main_dat, scan_size=(snx, sny), pattern_size=(sx, sy), lazy=True, device=dev)
+    main_lazy = dataclasses.replace(main_lazy, static_background=bg, chunk_size=LAZY_DI_CHUNK)
+    eager_xmap, ms_e, _, peak_e = _peak_mb(lambda: pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="int8"))
+    lazy_xmap, ms_l, _, peak_l = _peak_mb(
+        lambda: main_lazy.remove_static_background().remove_dynamic_background().dictionary_indexing(
+            dictionary, keep_n=KEEP_N, precision="int8"))
+    ei, li = eager_xmap.prop["simulation_indices"], lazy_xmap.prop["simulation_indices"]
+    ds = float(np.abs(eager_xmap.prop["scores"] - lazy_xmap.prop["scores"]).max())
+    if not np.array_equal(ei, li) or ds > 1e-6:
+        raise AssertionError(f"streamed indexing differs from the eager call: {int((ei != li).sum())} indices, max "
+                             f"|score diff| {ds:g}")
+    msgs.append(f"{smi}: streamed dictionary_indexing (int8, keep_n={KEEP_N}) of the main path's {sny * snx} patterns "
+                f"from a .dat, both removals lazily, chunk_size={LAZY_DI_CHUNK}, against {dictionary.navigation_size} "
+                f"entries: {ms_l:.3f} ms, peak {peak_l:.1f} MB; the eager call {ms_e:.3f} ms, peak {peak_e:.1f} MB; "
+                f"indices equal, max |score diff| {ds:g}")
+
+    # Streamed refinement of the first rows' points from the DI top-1.
+    rows = LAZY_REFINE_POINTS // snx
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        part = kt.load(main_dat, scan_size=(snx, rows), pattern_size=(sx, sy), lazy=True, device=dev)
+    part = dataclasses.replace(part, static_background=bg, chunk_size=LAZY_REFINE_CHUNK)
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+
+    sub_xmap = CrystalMap(rotations=top1_rot[: rows * snx], shape=(rows, snx))
+    static_part = kt.EBSD(scan.inav[:, :rows].remove_static_background().data, detector=det, device=dev)
+    eager_ref, ms_e, _, _ = _peak_mb(lambda: static_part.refine_orientation(xmap=sub_xmap, master_pattern=mp))
+    lazy_ref, ms_l, _, _ = _peak_mb(lambda: part.remove_static_background().refine_orientation(
+        xmap=sub_xmap, detector=det, master_pattern=mp))
+    er, lr = eager_ref.xmap.best_rotations, lazy_ref.xmap.best_rotations
+    dr = float(np.abs(er - lr).max())
+    same = int((er == lr).all(axis=1).sum())
+    if dr > LAZY_REFINE_ATOL or same != rows * snx:
+        raise AssertionError(f"streamed refinement is {dr:g} from the eager call (limit {LAZY_REFINE_ATOL:g}), "
+                             f"{same}/{rows * snx} points bit for bit (the kernel refines each point alone: all)")
+    msgs.append(f"{smi}: streamed refine_orientation of {rows * snx} points (static removal lazily, "
+                f"chunk_size={LAZY_REFINE_CHUNK}, the Nelder-Mead kernel a chunk) {ms_l:.3f} ms against the eager "
+                f"call's {ms_e:.3f} ms: max |rotation diff| {dr:g}, {same}/{rows * snx} points bit for bit")
+    return msgs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4567,6 +4848,18 @@ def main(argv=None) -> int:
         + "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in events[:8])
         + " | host self time: " + "; ".join(f"{e.key[:40]} x{e.count} {e.self_cpu_time_total / 1e3:.3f} ms"
                                            for e in host[:10]))
+
+    # ---- reading and writing scans, and lazy scans from a memory map ----
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        io_msgs, dat = io_phase(dev, scan, smi, Path(tmp), args.seed)
+        for msg in io_msgs:
+            log("io", msg)
+        for msg in lazy_phase(dev, scan, pre, dictionary, mp, det, top1_rot, smi, dat, Path(tmp)):
+            log("lazy", msg)
+    log("io", f"[io] and [lazy] took {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")

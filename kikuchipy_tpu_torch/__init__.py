@@ -2,22 +2,46 @@
 
 The module layout and public names mirror ``kikuchipy_tpu``; entry points
 run on the card (``torch.device("cuda")``) unless given ``device="cpu"``.
-The fused int8 indexing kernel is hand-written CUDA for Hopper
-(``csrc/ncc_topk_int8.cu``), built with ``nvcc`` at first use.
+The kernels are hand-written CUDA for Hopper (``csrc/``), built with
+``nvcc`` at first use. ``load`` reads a scan or master pattern from a file
+(``lazy=True``: a :class:`~kikuchipy_tpu_torch.signals.lazy.LazyEBSD` that
+reads and processes it a chunk at a time); ``save`` writes one.
+
+The JAX package's subpackages ``data``, ``draw``, ``imaging``,
+``simulation``, ``simulations`` and ``pattern`` are not ported yet.
 """
 
+from kikuchipy_tpu_torch import crystallography, detectors, filters, indexing, io, ops, signals
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import dictionary_index, prepare_dictionary
-from kikuchipy_tpu_torch.signals import EBSD, EBSDMasterPattern
+from kikuchipy_tpu_torch.io._io import load, save
+from kikuchipy_tpu_torch.signals import EBSD, EBSDMasterPattern, ECPMasterPattern, LazyEBSD, VirtualBSEImage
+from kikuchipy_tpu_torch.utils.logging import set_log_level
+
+__version__ = "0.1.0"
 
 __all__ = [
     "CrystalMap",
     "EBSD",
     "EBSDDetector",
     "EBSDMasterPattern",
+    "ECPMasterPattern",
+    "LazyEBSD",
     "Phase",
     "PhaseList",
+    "VirtualBSEImage",
+    "__version__",
+    "crystallography",
+    "detectors",
     "dictionary_index",
+    "filters",
+    "indexing",
+    "io",
+    "load",
+    "ops",
     "prepare_dictionary",
+    "save",
+    "set_log_level",
+    "signals",
 ]

@@ -1,7 +1,8 @@
-"""Crystallography: symmetry, orientation sampling, crystal maps, and
-reciprocal-lattice and space-group tools."""
+"""Crystallography: symmetry, orientation sampling, crystal maps, IPF
+colors, and reciprocal-lattice and space-group tools."""
 
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
+from kikuchipy_tpu_torch.crystallography.ipf import IPFColorKeyTSL, ipf_color
 from kikuchipy_tpu_torch.crystallography.reciprocal import Lattice, ReciprocalLatticeVectors, electron_wavelength
 from kikuchipy_tpu_torch.crystallography.sampling import (
     cu2ho,
@@ -29,6 +30,8 @@ from kikuchipy_tpu_torch.crystallography.symmetry import (
 
 __all__ = [
     "CrystalMap",
+    "IPFColorKeyTSL",
+    "ipf_color",
     "Lattice",
     "centering_letter",
     "centering_translations",

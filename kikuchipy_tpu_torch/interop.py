@@ -15,15 +15,19 @@ from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, P
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import PreparedDictionary
 from kikuchipy_tpu_torch.projection.spherical import SphericalProjector
-from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern
+from kikuchipy_tpu_torch.signals.master_pattern import EBSDMasterPattern, ECPMasterPattern, KikuchiMasterPattern
+from kikuchipy_tpu_torch.signals.virtual_bse_image import VirtualBSEImage
 from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
 
 __all__ = [
     "crystal_map_from_state",
     "detector_from_state",
+    "ecp_master_pattern_from_state",
+    "kikuchi_master_pattern_from_state",
     "master_pattern_from_state",
     "prepared_dictionary_from_state",
     "spherical_projector_from_state",
+    "virtual_bse_image_from_state",
 ]
 
 
@@ -36,10 +40,12 @@ def master_pattern_from_state(
     projection: str = "lambert",
     energies=None,
     device=None,
-) -> EBSDMasterPattern:
-    """An :class:`EBSDMasterPattern` from packed hemispheres ``(2, npy,
-    npx)`` (or any shape the JAX class takes) and its fields."""
-    return EBSDMasterPattern(
+    signal_class: type[KikuchiMasterPattern] = EBSDMasterPattern,
+) -> KikuchiMasterPattern:
+    """An :class:`EBSDMasterPattern` (or ``signal_class``) from packed
+    hemispheres ``(2, npy, npx)`` (or any shape the JAX class takes) and its
+    fields."""
+    return signal_class(
         data=np.asarray(data),
         phase=Phase(name=phase_name, space_group=space_group, point_group=point_group),
         hemisphere=hemisphere,
@@ -47,6 +53,24 @@ def master_pattern_from_state(
         energies=None if energies is None else np.asarray(energies),
         device=device,
     )
+
+
+def kikuchi_master_pattern_from_state(data, **fields) -> KikuchiMasterPattern:
+    """A :class:`KikuchiMasterPattern` (the base class) from a master
+    pattern's data and fields (:func:`master_pattern_from_state`'s)."""
+    return master_pattern_from_state(data, signal_class=KikuchiMasterPattern, **fields)
+
+
+def ecp_master_pattern_from_state(data, **fields) -> ECPMasterPattern:
+    """An :class:`ECPMasterPattern` from a master pattern's data and fields
+    (:func:`master_pattern_from_state`'s)."""
+    return master_pattern_from_state(data, signal_class=ECPMasterPattern, **fields)
+
+
+def virtual_bse_image_from_state(data, metadata: dict | None = None, device=None) -> VirtualBSEImage:
+    """A :class:`VirtualBSEImage` from an image ``(ny, nx)`` or ``(ny, nx,
+    3)`` and its metadata."""
+    return VirtualBSEImage(data=np.array(data), metadata=dict(metadata or {}), device=device)
 
 
 def detector_from_state(

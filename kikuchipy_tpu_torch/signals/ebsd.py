@@ -3,14 +3,16 @@
 PyTorch counterpart of ``kikuchipy_tpu/signals/ebsd.py``: a dataclass
 over a pattern tensor ``(ny, nx, sy, sx)`` (or ``(n, sy, sx)``) on one
 device, with the attributes the reference kikuchipy carries through
-operations (``detector``, ``xmap``, ``static_background``). Ported so
-far: preprocessing (intensity rescaling and normalization, static and
-dynamic background removal in both filter domains, the dynamic background
-itself, frequency- and spatial-domain FFT filtering, downsampling and
-rebinning, image quality, adaptive histogram equalization), neighbour
-averaging and the neighbour dot-product maps, dictionary indexing, Hough
-indexing and its PC optimization, and refinement of orientations and/or projection centers
-(Nelder-Mead, Levenberg-Marquardt, gradient); the other methods wait (see
+operations (``detector``, ``xmap``, ``static_background``): preprocessing
+(intensity rescaling and normalization, static and dynamic background
+removal in both filter domains, the dynamic background itself, frequency-
+and spatial-domain FFT filtering, downsampling and rebinning, image
+quality, adaptive histogram equalization), neighbour averaging and the
+neighbour dot-product maps, dictionary indexing, Hough indexing and its PC
+optimization, refinement of orientations and/or projection centers,
+HyperSpy-order indexing (``inav``, ``isig``), NumPy's reducers, cropping,
+grid extraction, copies, ``save`` and the lazy view (``as_lazy``). Plotting,
+the virtual BSE intensity and the decomposition methods wait (see
 ROADMAP.md).
 """
 
@@ -27,7 +29,8 @@ from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import dictionary_index
 from kikuchipy_tpu_torch.indexing.metrics import get_metric
 from kikuchipy_tpu_torch.ops import pattern as _ops
-from kikuchipy_tpu_torch.utils.device import as_tensor, resolve_device
+from kikuchipy_tpu_torch.utils.device import as_tensor, host_array, resolve_device
+from kikuchipy_tpu_torch.utils.dtypes import numpy_dtype, torch_dtype
 
 __all__ = ["EBSD"]
 
@@ -81,6 +84,21 @@ class EBSD:
 
     def _replace_data(self, data) -> "EBSD":
         return dataclasses.replace(self, data=data)
+
+    @property
+    def inav(self) -> "_NavIndexer":
+        """Navigation indexer in HyperSpy's axis order: keys are (x, y), so
+        ``s.inav[x, y]`` selects map column x, row y. NumPy's keys (negative
+        steps, lists) work; per-point detector PCs and the crystal map's
+        points are sliced along."""
+        return _NavIndexer(self)
+
+    @property
+    def isig(self) -> "_SigIndexer":
+        """Signal indexer in HyperSpy's axis order: keys are (x, y) detector
+        columns and rows, so ``s.isig[:, :-5]`` drops the bottom five rows.
+        The static background is sliced along; the detector is kept."""
+        return _SigIndexer(self)
 
     # Each operation returns a NEW EBSD; semantics in ops.pattern.
 
@@ -253,6 +271,136 @@ class EBSD:
         if any(int(s) != 1 for s in scale[:-2]):
             raise ValueError("Navigation-axis rebinning is not supported")
         return self.downsample(fy, **kwargs)
+
+    def _reduce(self, name: str, axis) -> "EBSD":
+        if axis is None:
+            axis = tuple(range(len(self.navigation_shape)))
+        return self._replace_data(_numpy_reduce(name, self.data, axis))
+
+    def mean(self, axis=None) -> "EBSD":
+        """Mean over ``axis`` (default: the navigation axes, giving the mean
+        pattern), in NumPy's dtype: float64 for integer patterns."""
+        return self._reduce("mean", axis)
+
+    def max(self, axis=None) -> "EBSD":
+        return self._reduce("max", axis)
+
+    def min(self, axis=None) -> "EBSD":
+        return self._reduce("min", axis)
+
+    def sum(self, axis=None) -> "EBSD":
+        """Sum over ``axis`` in NumPy's dtype (uint64 for unsigned, int64 for
+        signed integer patterns)."""
+        return self._reduce("sum", axis)
+
+    def std(self, axis=None) -> "EBSD":
+        """Standard deviation over ``axis`` with NumPy's ``ddof=0``."""
+        return self._reduce("std", axis)
+
+    def change_dtype(self, dtype) -> "EBSD":
+        """The scan with patterns cast to ``dtype`` (a new signal)."""
+        return self._replace_data(self.data.to(torch_dtype(dtype)))
+
+    def set_scan_calibration(self, step_x: float = 1.0, step_y: float = 1.0) -> None:
+        """Set the navigation step sizes in microns (``metadata["scan_step"]``
+        as (y, x), unit "um")."""
+        self.metadata["scan_step"] = (float(step_y), float(step_x))
+        self.metadata["scan_unit"] = "um"
+
+    def set_detector_calibration(self, delta: float) -> None:
+        """Set the detector pixel size in microns: the detector's
+        ``px_size`` and ``metadata["detector_pixel_size"]``."""
+        self.metadata["detector_pixel_size"] = float(delta)
+        if self.detector is not None:
+            self.detector = dataclasses.replace(self.detector, px_size=float(delta))
+
+    def extract_grid(
+        self,
+        grid_shape: tuple[int, int] | int,
+        return_indices: bool = False,
+    ) -> "EBSD | tuple[EBSD, np.ndarray]":
+        """A sub-scan of patterns on an evenly spaced grid.
+
+        Parameters
+        ----------
+        grid_shape
+            ``(n_cols, n_rows)`` (signal-axes order) or an integer for 1D
+            scans.
+        return_indices
+            Also return the ``(ndim,) + grid`` indices of the extracted
+            patterns into the navigation grid.
+        """
+        from kikuchipy_tpu_torch.utils.grid import grid_indices
+
+        nav_shape = self.navigation_shape
+        grid_np = (grid_shape,) if isinstance(grid_shape, int) else tuple(grid_shape)[::-1]
+        idx = grid_indices(grid_np, nav_shape)
+        idx_tuple = tuple(idx)
+        flat = np.arange(self.navigation_size).reshape(nav_shape)[idx_tuple]
+        xmap_new = None
+        if self.xmap is not None:
+            try:
+                mask = np.zeros(nav_shape, dtype=bool)
+                mask[idx_tuple] = True
+                xmap_new = self.xmap[mask.ravel()]
+            except (TypeError, IndexError):
+                xmap_new = None
+        new = dataclasses.replace(self, data=_take_points(self.data, flat, self.signal_shape), xmap=xmap_new)
+        if self.detector is not None and self.detector.navigation_shape == nav_shape:
+            new.detector = dataclasses.replace(self.detector, pc=self.detector.pc[idx_tuple])
+        if return_indices:
+            return new, idx
+        return new
+
+    def crop(self, extent: tuple[int, int, int, int]) -> "EBSD":
+        """Crop the detector to ``(row0, row1, col0, col1)``, end-exclusive;
+        the detector's geometry and the static background follow."""
+        r0, r1, c0, c1 = extent
+        new = dataclasses.replace(self, data=self.data[..., r0:r1, c0:c1])
+        if self.detector is not None:
+            new.detector = self.detector.crop(extent)
+        if self.static_background is not None:
+            new.static_background = host_array(self.static_background)[r0:r1, c0:c1]
+        return new
+
+    def deepcopy(self) -> "EBSD":
+        """A copy of the data, detector, crystal map, static background and
+        metadata; changing it leaves this signal as it is."""
+        import copy
+
+        new = dataclasses.replace(self, data=self.data.clone())
+        new.detector = copy.deepcopy(self.detector)
+        new.xmap = copy.deepcopy(self.xmap)
+        if self.static_background is not None:
+            new.static_background = np.array(host_array(self.static_background))
+        new.metadata = copy.deepcopy(self.metadata)
+        return new
+
+    def save(self, filename, **kwargs) -> None:
+        """:func:`kikuchipy_tpu_torch.io.save` of this signal."""
+        from kikuchipy_tpu_torch.io import save
+
+        save(filename, self, **kwargs)
+
+    def as_lazy(self, chunk_size: int = 1024):
+        """A :class:`~kikuchipy_tpu_torch.signals.lazy.LazyEBSD` over this
+        scan's tensor on its device: the operations called on it are
+        recorded and run ``chunk_size`` patterns at a time."""
+        from kikuchipy_tpu_torch.signals.lazy import ArraySource, LazyEBSD
+
+        return LazyEBSD(
+            source=ArraySource(self.data, self.navigation_shape),
+            detector=self.detector,
+            static_background=self.static_background,
+            xmap=self.xmap,
+            metadata=dict(self.metadata),
+            chunk_size=chunk_size,
+            device=self.device,
+        )
+
+    def compute(self) -> "EBSD":
+        """This signal (its data is in memory already)."""
+        return self
 
     def dictionary_indexing(
         self,
@@ -505,3 +653,99 @@ class EBSD:
             f"EBSD(nav={self.navigation_shape}, sig={self.signal_shape}, "
             f"dtype={self.data.dtype}, device={self.device})"
         )
+
+
+def _take_points(data: torch.Tensor, flat: np.ndarray, sig_shape) -> torch.Tensor:
+    """The patterns at flat navigation indices ``flat`` (any shape, the
+    result's navigation shape)."""
+    rows = data.reshape((-1,) + tuple(sig_shape))
+    index = torch.as_tensor(np.asarray(flat).ravel(), dtype=torch.long, device=data.device)
+    return rows[index].reshape(np.shape(flat) + tuple(sig_shape))
+
+
+def _numpy_reduce(name: str, data: torch.Tensor, axis) -> torch.Tensor:
+    """``np.<name>(data, axis=axis)`` in NumPy's result dtype: ``sum`` of
+    integers in (u)int64, ``mean`` and ``std`` (``ddof=0``) of integers in
+    float64, ``max`` and ``min`` in the data's dtype."""
+    dims = tuple(int(a) % data.ndim for a in ((axis,) if np.isscalar(axis) else axis))
+    kind = numpy_dtype(data.dtype).kind
+    if not dims:  # NumPy reduces over no axis: each value alone
+        if name == "std":
+            return torch.zeros(data.shape, dtype=torch.float64 if kind in "biu" else data.dtype, device=data.device)
+        if name in ("sum", "mean") and kind in "biu":
+            return data.to(torch.float64 if name == "mean" else torch.uint64 if kind == "u" else torch.int64)
+        return data.clone()
+    if name in ("max", "min"):
+        # PyTorch has few kernels for uint16 and wider: those reduce in int64.
+        x = data.to(torch.int64) if kind == "u" and data.dtype != torch.uint8 else data
+        return (x.amax(dim=dims) if name == "max" else x.amin(dim=dims)).to(data.dtype)
+    if name == "sum":
+        if kind in "biu":
+            out = data.to(torch.int64).sum(dim=dims)
+            return out.to(torch.uint64) if kind == "u" else out
+        return data.sum(dim=dims)
+    x = data.to(torch.float64) if kind in "biu" else data
+    count = int(np.prod([data.shape[d] for d in dims]))
+    mean = x.sum(dim=dims, keepdim=True) / count
+    if name == "mean":
+        return mean.squeeze(dims)
+    dev = x - mean
+    return torch.sqrt((dev * dev).sum(dim=dims) / count)
+
+
+class _NavIndexer:
+    """``EBSD.inav``: keys in HyperSpy's x-first order, NumPy's semantics."""
+
+    def __init__(self, signal: EBSD):
+        self._signal = signal
+
+    def __getitem__(self, key) -> EBSD:
+        s = self._signal
+        nav_shape = s.navigation_shape
+        nav_dim = len(nav_shape)
+        if not isinstance(key, tuple):
+            key = (key,)
+        if len(key) > nav_dim:
+            raise IndexError(f"Too many navigation indices {key} for navigation shape {nav_shape}")
+        key = key + (slice(None),) * (nav_dim - len(key))
+        # The first key is x, the fastest (last) navigation axis.
+        array_key = tuple(reversed(key))
+        flat = np.arange(s.navigation_size).reshape(nav_shape)[array_key]
+        new = dataclasses.replace(s, data=_take_points(s.data, flat, s.signal_shape))
+
+        det = s.detector
+        if det is not None and det.pc.ndim > 2 and det.pc.shape[:-1] == nav_shape:
+            new.detector = dataclasses.replace(det, pc=np.atleast_2d(det.pc[array_key]))
+        if s.xmap is not None and s.xmap.size == int(np.prod(nav_shape)):
+            mask = np.zeros(nav_shape, dtype=bool)
+            mask[array_key] = True
+            sub = s.xmap[mask.ravel()]
+            new_nav = np.shape(flat)
+            if new_nav and int(np.prod(new_nav)) == sub.size:
+                sub = dataclasses.replace(sub, shape=tuple(new_nav))
+            new.xmap = sub
+        return new
+
+
+class _SigIndexer:
+    """``EBSD.isig``: keys in HyperSpy's x-first order, NumPy's semantics."""
+
+    def __init__(self, signal: EBSD):
+        self._signal = signal
+
+    def __getitem__(self, key) -> EBSD:
+        s = self._signal
+        if not isinstance(key, tuple):
+            key = (key,)
+        if len(key) > 2:
+            raise IndexError(f"Too many signal indices {key}")
+        key = key + (slice(None),) * (2 - len(key))
+        kx, ky = key
+        sy, sx = s.signal_shape
+        flat = np.arange(sy * sx).reshape(sy, sx)[ky, kx]
+        index = torch.as_tensor(np.asarray(flat).ravel(), dtype=torch.long, device=s.data.device)
+        rows = s.data.reshape(s.navigation_shape + (sy * sx,))
+        new = dataclasses.replace(s, data=rows[..., index].reshape(s.navigation_shape + np.shape(flat)))
+        if s.static_background is not None:
+            new.static_background = host_array(s.static_background)[ky, kx]
+        return new

@@ -1,11 +1,14 @@
-"""EBSD master pattern and dictionary generation.
+"""Master pattern signals and dictionary generation.
 
-PyTorch counterpart of ``EBSDMasterPattern`` in
-``kikuchipy_tpu/signals/master_pattern.py``: square-Lambert hemispheres
-(held on the host) projected onto a detector in batches on the device.
-:meth:`EBSDMasterPattern.spherical_projector` gives its spherical-harmonic
-expansion. The stereographic projection, plotting and the other
-master-pattern methods wait (see ROADMAP.md).
+PyTorch counterpart of ``kikuchipy_tpu/signals/master_pattern.py``:
+:class:`KikuchiMasterPattern` holds the hemispheres (on the host) and their
+intensity operations (run on the device) and re-projects a stereographic
+pattern onto the square Lambert grid (:meth:`~KikuchiMasterPattern.
+as_lambert`); :class:`EBSDMasterPattern` projects square-Lambert
+hemispheres onto a detector in batches on the device, and
+:meth:`EBSDMasterPattern.spherical_projector` gives their spherical-harmonic
+expansion; :class:`ECPMasterPattern` is the electron channeling pattern's.
+Plotting waits (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+from kikuchipy_tpu_torch.geometry.lambert import lambert_to_vector
 from kikuchipy_tpu_torch.projection.master_pattern import (
     direction_cosines_from_detector,
     project_patterns,
@@ -28,12 +32,12 @@ from kikuchipy_tpu_torch.signals.ebsd import EBSD
 from kikuchipy_tpu_torch.utils.device import resolve_device
 from kikuchipy_tpu_torch.utils.dtypes import get_dtype_range, torch_dtype
 
-__all__ = ["EBSDMasterPattern"]
+__all__ = ["EBSDMasterPattern", "ECPMasterPattern", "KikuchiMasterPattern"]
 
 
 @dataclasses.dataclass(repr=False)
-class EBSDMasterPattern:
-    """EBSD master pattern.
+class KikuchiMasterPattern:
+    """Base master-pattern signal.
 
     Attributes
     ----------
@@ -45,11 +49,12 @@ class EBSDMasterPattern:
     hemisphere
         "upper", "lower" or "both".
     projection
-        Only "lambert" (square Lambert) is ported.
+        "lambert" (square Lambert) or "stereographic".
     energies
         Optional accelerating voltages (kV), one per energy bin.
     device
-        Where patterns are projected; ``None`` is the card.
+        Where the operations run and patterns are projected; ``None`` is
+        the card.
     """
 
     data: np.ndarray
@@ -59,12 +64,66 @@ class EBSDMasterPattern:
     energies: np.ndarray | None = None
     metadata: dict = dataclasses.field(default_factory=dict)
     device: Any = None
-    # spherical_projector's projectors, by (energy, L)
-    _sh_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.data = np.asarray(self.data)
+
+    @property
+    def signal_shape(self) -> tuple[int, int]:
+        return tuple(self.data.shape[-2:])
+
+    # Each intensity operation returns a new signal with the operation
+    # applied to every 2D image over the leading axes.
+
+    def _apply_op(self, fn) -> "KikuchiMasterPattern":
+        flat = torch.as_tensor(self.data.reshape((-1,) + self.data.shape[-2:]), device=self.device)
+        out = fn(flat).cpu().numpy().reshape(self.data.shape)
+        return dataclasses.replace(self, data=out)
+
+    def rescale_intensity(self, **kwargs) -> "KikuchiMasterPattern":
+        from kikuchipy_tpu_torch.ops import pattern as _ops
+
+        return self._apply_op(lambda d: _ops.rescale_intensity(d, device=self.device, **kwargs))
+
+    def normalize_intensity(self, **kwargs) -> "KikuchiMasterPattern":
+        from kikuchipy_tpu_torch.ops import pattern as _ops
+
+        return self._apply_op(lambda d: _ops.normalize_intensity(d, device=self.device, **kwargs))
+
+    def adaptive_histogram_equalization(self, **kwargs) -> "KikuchiMasterPattern":
+        from kikuchipy_tpu_torch.ops.ahe import adaptive_histogram_equalization
+
+        return self._apply_op(lambda d: adaptive_histogram_equalization(d, device=self.device, **kwargs))
+
+    def change_dtype(self, dtype) -> "KikuchiMasterPattern":
+        """The master pattern with its data cast to ``dtype`` (a new
+        signal)."""
+        return dataclasses.replace(self, data=self.data.astype(np.dtype(dtype)))
+
+    def deepcopy(self) -> "KikuchiMasterPattern":
+        import copy
+
+        return copy.deepcopy(self)
+
+    def as_lazy(self) -> "KikuchiMasterPattern":
+        """This signal: master patterns are small and stay in memory."""
+        return self
+
+    def compute(self) -> "KikuchiMasterPattern":
+        """This signal (its data is in memory already)."""
+        return self
+
+    def set_signal_type(self, signal_type: str):
+        """This signal as another class: ``"EBSDMasterPattern"``,
+        ``"ECPMasterPattern"`` or ``"EBSD"`` (HyperSpy's signal types)."""
+        name = signal_type.replace(" ", "").lower()
+        if name == "ebsd":
+            return EBSD(data=self.data, device=self.device)
+        cls = {"ebsdmasterpattern": EBSDMasterPattern, "ecpmasterpattern": ECPMasterPattern}.get(name)
+        if cls is None:
+            raise ValueError(f"Unknown signal type {signal_type!r}")
+        return cls(**{f.name: getattr(self, f.name) for f in dataclasses.fields(cls) if f.init})
 
     def _hemispheres_at_energy(self, energy: float | None = None) -> np.ndarray:
         """Packed hemispheres ``(2, npy, npx)`` at ``energy`` (the highest
@@ -84,6 +143,66 @@ class EBSDMasterPattern:
         if sel.shape[0] == 1:
             sel = np.concatenate([sel, sel], axis=0)
         return sel
+
+    def as_lambert(self, show_progressbar=None) -> "KikuchiMasterPattern":
+        """Re-project a stereographic master pattern onto the square Lambert
+        grid: each grid point maps to the sphere and is sampled bilinearly
+        from the stereographic image, in float64 on this signal's device.
+        Floating data keeps its dtype, other data becomes float32;
+        ``show_progressbar`` is accepted and ignored."""
+        del show_progressbar
+        if self.projection == "lambert":
+            return self
+        dev = self.device
+        data = torch.as_tensor(np.asarray(self.data, dtype=np.float64), device=dev)
+        npy, npx = data.shape[-2:]
+        flat = data.reshape((-1, npy, npx))
+        yy, xx = torch.meshgrid(
+            torch.linspace(-1, 1, npy, dtype=torch.float64, device=dev),
+            torch.linspace(-1, 1, npx, dtype=torch.float64, device=dev),
+            indexing="ij",
+        )
+        v = lambert_to_vector(torch.stack([xx, yy], dim=-1))
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        out = torch.empty_like(flat)
+        for idx in range(flat.shape[0]):
+            # The second image of a pair of hemispheres is the lower one.
+            lower = self.hemisphere == "lower" or (self.hemisphere == "both" and flat.shape[0] == 2 and idx == 1)
+            vz = -v[..., 2] if lower else v[..., 2]
+            # Stereographic projection from the opposite pole onto [-1, 1].
+            denom = 1.0 + torch.abs(vz)
+            px = (v[..., 0] / denom + 1) / 2 * (npx - 1)
+            py = (v[..., 1] / denom + 1) / 2 * (npy - 1)
+            x0 = torch.clamp(torch.floor(px).long(), 0, npx - 2)
+            y0 = torch.clamp(torch.floor(py).long(), 0, npy - 2)
+            fx = px - x0
+            fy = py - y0
+            img = flat[idx]
+            out[idx] = (
+                img[y0, x0] * (1 - fy) * (1 - fx)
+                + img[y0, x0 + 1] * (1 - fy) * fx
+                + img[y0 + 1, x0] * fy * (1 - fx)
+                + img[y0 + 1, x0 + 1] * fy * fx
+            )
+        dtype = self.data.dtype if np.issubdtype(self.data.dtype, np.floating) else np.float32
+        return dataclasses.replace(
+            self, data=out.reshape(self.data.shape).cpu().numpy().astype(dtype), projection="lambert"
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"{type(self).__name__}(shape={self.data.shape}, "
+            f"phase={self.phase.name!r}, hemisphere={self.hemisphere!r}, "
+            f"projection={self.projection!r})"
+        )
+
+
+@dataclasses.dataclass(repr=False)
+class EBSDMasterPattern(KikuchiMasterPattern):
+    """EBSD master pattern with dictionary generation."""
+
+    # spherical_projector's projectors, by (energy, L)
+    _sh_cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def get_patterns(
         self,
@@ -226,7 +345,7 @@ class EBSDMasterPattern:
         """
         if self.projection != "lambert":
             raise ValueError(
-                "spherical_projector requires a square-Lambert master pattern (the port has no as_lambert yet)"
+                "spherical_projector requires a square-Lambert master pattern (use as_lambert() first)"
             )
         key = (energy, L)
         if key not in self._sh_cache:
@@ -235,9 +354,7 @@ class EBSDMasterPattern:
                 self._sh_cache[key] = SphericalProjector.from_master(master, L=L, device=self.device)
         return self._sh_cache[key]
 
-    def __repr__(self) -> str:
-        return (
-            f"{type(self).__name__}(shape={self.data.shape}, "
-            f"phase={self.phase.name!r}, hemisphere={self.hemisphere!r}, "
-            f"projection={self.projection!r})"
-        )
+
+@dataclasses.dataclass(repr=False)
+class ECPMasterPattern(KikuchiMasterPattern):
+    """Electron channeling pattern master pattern."""

@@ -13,7 +13,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "constant_tensor", "matmul_precision"]
+__all__ = ["resolve_device", "as_tensor", "constant_tensor", "host_array", "matmul_precision"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,6 +35,11 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torc
     if not arr.flags.writeable:  # torch shares memory and may write
         arr = arr.copy()
     return torch.as_tensor(arr, device=device, dtype=dtype)
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` (tensor or array-like) as a NumPy array on the host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 # constant_tensor's copies: (id, shape, dtype, device, dtype) -> (the array's

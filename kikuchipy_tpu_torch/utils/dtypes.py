@@ -30,6 +30,8 @@ _TORCH_TO_NUMPY = {
     torch.bool: np.bool_,
     torch.uint8: np.uint8,
     torch.uint16: np.uint16,
+    torch.uint32: np.uint32,
+    torch.uint64: np.uint64,
     torch.int8: np.int8,
     torch.int16: np.int16,
     torch.int32: np.int32,

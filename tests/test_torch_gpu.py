@@ -2127,3 +2127,68 @@ def test_hough_vote_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         hv.vote_orientations(*args, 0.03, n_pairs_max=10**6)
     assert hv.vote_orientations.launches == before
+
+
+# ------------------- reading files and lazy scans on the card ------------------- #
+
+
+def _nordif_file(tmp_path, shape=(12, 10, 60, 60), seed=0):
+    data = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+    path = tmp_path / "Pattern.dat"
+    data.tofile(path)
+    return path, data
+
+
+def test_load_places_the_patterns_on_the_card(cuda, tmp_path):
+    import warnings
+
+    import kikuchipy_tpu_torch as kt
+
+    path, data = _nordif_file(tmp_path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # no Setting.txt, no background
+        s = kt.load(path, scan_size=(10, 12), pattern_size=(60, 60))
+        lazy = kt.load(path, scan_size=(10, 12), pattern_size=(60, 60), lazy=True)
+    assert s.data.device.type == "cuda" and s.device.type == "cuda" and lazy.device.type == "cuda"
+    assert np.array_equal(s.data.cpu().numpy(), data)
+    out = lazy.compute()
+    assert out.data.device.type == "cuda" and torch.equal(out.data, s.data)
+
+
+@pytest.mark.parametrize("shape", [(7, 60, 60), (3000, 40, 33), (1, 5, 5)])
+def test_to_device_and_the_chunk_stager_copy_bytes(cuda, shape):
+    from kikuchipy_tpu_torch.utils.staging import ChunkStager, to_device
+
+    data = np.random.default_rng(1).integers(0, 65536, shape).astype(np.uint16)
+    assert np.array_equal(to_device(data, cuda).cpu().numpy(), data)
+    stager = ChunkStager(5, shape[1:], np.uint16, cuda)
+    for start in range(0, shape[0], 5):
+        got = stager.put(data[start:start + 5])
+        assert np.array_equal(got.cpu().numpy(), data[start:start + 5])
+        stager.release()
+
+
+@pytest.mark.parametrize("chunk_size", [100, 1024, 5000])
+def test_lazy_chain_equals_the_eager_chain_on_the_card(cuda, tmp_path, chunk_size):
+    import warnings
+
+    import kikuchipy_tpu_torch as kt
+
+    path, data = _nordif_file(tmp_path, shape=(40, 64, 60, 60))
+    bg = np.random.default_rng(2).integers(20, 200, (60, 60), dtype=np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        eager = kt.load(path, scan_size=(64, 40), pattern_size=(60, 60))
+        lazy = kt.load(path, scan_size=(64, 40), pattern_size=(60, 60), lazy=True)
+    eager = dataclasses.replace(eager, static_background=bg)
+    lazy = dataclasses.replace(lazy, static_background=bg, chunk_size=chunk_size)
+    want = eager.remove_static_background().remove_dynamic_background()
+    got = lazy.remove_static_background().remove_dynamic_background().compute()
+    assert torch.equal(got.data, want.data)
+    # With halo rows through kernel G.
+    want = eager.remove_static_background().average_neighbour_patterns()
+    got = lazy.remove_static_background().average_neighbour_patterns().compute()
+    assert torch.equal(got.data, want.data)
+    # A lazy view of a scan already on the card slices it.
+    got = eager.as_lazy(chunk_size).remove_static_background().remove_dynamic_background().compute()
+    assert torch.equal(got.data, eager.remove_static_background().remove_dynamic_background().data)

@@ -44,7 +44,7 @@ def test_no_import_statement_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|kikuchipy_tpu)(\s|\.|$)", re.M)
     scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py", "refine_variants.py",
                "lambert_variants.py", "lm_variants.py", "neighbours_variants.py", "preprocess_variants.py",
-               "sass_count.py")
+               "sass_count.py", "staging_variants.py")
     for path in list(PKG.rglob("*.py")) + [ROOT / name for name in scripts]:
         assert not pattern.search(path.read_text()), path
 
@@ -109,6 +109,16 @@ def test_no_import_statement_names_jax():
         ),
         lambda: importlib.import_module("kikuchipy_tpu_torch.indexing.hough").HoughIndexer(
             kikuchipy_tpu_torch.EBSDDetector(shape=(8, 8)), None).index(np.ones((2, 8, 8), np.uint8)),
+        # Reading files, the lazy scan and the master patterns' re-projection.
+        lambda: kikuchipy_tpu_torch.load("scan.dat"),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.io.plugins.edax_binary").file_reader("scan.up1"),
+        lambda: kikuchipy_tpu_torch.LazyEBSD(
+            source=importlib.import_module("kikuchipy_tpu_torch.signals.lazy").ArraySource(
+                np.ones((2, 4, 4), np.uint8), (2,))).compute(),
+        lambda: kikuchipy_tpu_torch.EBSDMasterPattern(np.ones((2, 5, 5), np.float32),
+                                                      projection="stereographic").as_lambert(),
+        lambda: kikuchipy_tpu_torch.ECPMasterPattern(np.ones((2, 5, 5), np.float32)),
+        lambda: kikuchipy_tpu_torch.VirtualBSEImage(np.ones((5, 5), np.uint8)),
         # Neighbour averaging and the dot-product maps.
         *(
             (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.ops.neighbours"), name)(
