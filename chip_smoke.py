@@ -265,7 +265,36 @@ the card's name and power limit, and the device check):
    streamed path has no ``pallas-int8``, as in JAX); streamed
    ``refine_orientation`` of 2,048 of them against the eager call (within
    1e-5 and bit for bit, the Nelder-Mead kernel refining each point alone);
-   and the lazy chain's host copy and host-to-device copies timed apart.
+   and the lazy chain's host copy and host-to-device copies timed apart;
+10. the kinematical simulation, decomposition, virtual BSE imaging and
+   profiling: ``[simulation]`` builds nickel's reflectors to 0.5 A at 20 kV,
+   runs ``KikuchiPatternSimulator.calculate_master_pattern(half_size=500,
+   hemisphere="both")`` on the card (ms, peak memory, the band
+   accumulation's product, ``acos`` and a copy pass at one block's shape
+   against its bytes), holds 64 rows of each hemisphere against a float64
+   recomputation on the host (the band-edge rule: equal within float32's
+   summation bound except where a reflector's angle lies within 1e-6 rad of
+   a band edge, those pixels under 0.5%), re-projects it (``as_lambert``),
+   holds kernel A on it against the float64 twin (the same yardstick as
+   5b), makes the 2-degree dictionary (one launch of kernel A) and 4,096
+   noisy uint8 patterns at seeded orientations, indexes them with
+   ``pallas-int8`` (median disorientation under 3 degrees, more than 90%
+   under 8) and runs ``on_detector`` for the 4,096 orientations on the
+   host; ``[decomposition]`` times ``torch.linalg.svd`` with each of
+   cuSOLVER's drivers on the main path's 16,384 x 3600 float32 matrix and
+   holds each against a float64 host reference (the Gram matrix's
+   eigendecomposition), then runs ``EBSD.decomposition(output_dimension=10)``
+   and ``get_decomposition_model(10)`` on the driver kept
+   (``ops/decomposition.py`` ``SVD_DRIVER``): factors orthonormal within
+   1e-4, explained-variance ratios within 1e-4 of float64's, the float32
+   residual within 1e-3 (relative) of the float64 rank-10 residual, the
+   uint8 model within one gray level on at most 1% of the pixels of the
+   float64 model rescaled the same way; ``[vbse]`` sums the 128 x 128 scan's
+   5 x 5 tiles on the card (``VirtualBSEImager.get_images_from_grid``), bit
+   for bit a host NumPy sum, and an RGB image of three tiles equal to the
+   host's; ``[profiling]`` wraps one ``pallas-int8`` indexing call in
+   ``utils/profiling.py`` ``trace`` and finds the int8 kernel in the trace
+   file.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is the count
@@ -3796,6 +3825,343 @@ def lazy_phase(dev, scan, pre, dictionary, mp, det, top1_rot, smi: str, dat: Pat
     return msgs
 
 
+# ------------ the kinematical simulation, decomposition, VBSE, profiling ------------ #
+
+# [simulation]: nickel's reflectors to 0.5 A at 20 kV (338 after allowed()),
+# the master pattern at JAX's default size with both hemispheres, its rows
+# held against a float64 recomputation (the band-edge rule), 4,096 noisy
+# patterns indexed against its 2-degree dictionary.
+SIM_DMIN = 0.5
+SIM_HALF_SIZE = 500
+SIM_CHECK_ROWS = 64
+SIM_EDGE_SHARE = 0.005
+SIM_PATTERNS = 4096
+SIM_NOISE = 6.0
+# Bytes a (pixel, reflector) pair moves through the band accumulation's
+# PyTorch operations: the product's store (4), |d| (8) and its test (5), the
+# clamp (8), acos (8), the two angle tests (5 + 5) and their and (3), the
+# inner where (5), the outer where (9) and the sum's read (4).
+SIM_BYTES_PER_PAIR = 64
+# [decomposition]: the main path's patterns after both removals.
+DECOMP_COMPONENTS = 10
+SVD_DRIVERS = ("gesvd", "gesvdj", "gesvda")
+DECOMP_ORTHO_TOL = 1e-4
+DECOMP_RATIO_TOL = 1e-4
+DECOMP_RESIDUAL_TOL = 1e-3
+# [profiling]: the int8 kernel's name in a trace (the wgmma frame's top-k
+# kernel on signed 8-bit operands).
+INT8_KERNEL_SYMBOL = "topk_kernel<(anonymous namespace)::S8Op"
+
+
+def nickel_reflectors(dmin: float):
+    """Nickel's allowed reflectors to ``dmin`` A, with structure factors and
+    Bragg angles at 20 kV (as the JAX package's tests build them)."""
+    from kikuchipy_tpu_torch.crystallography.reciprocal import Lattice, ReciprocalLatticeVectors
+
+    ref = ReciprocalLatticeVectors.from_min_dspacing(Lattice(*NI_LATTICE), dmin)
+    ref.calculate_structure_factor(NI_ATOMS)
+    ref.calculate_theta(20.0)
+    return ref.allowed()
+
+
+def band_rule_rows(data: np.ndarray, ref, rows) -> dict:
+    """``rows`` of each hemisphere of a kinematical master pattern (``data``
+    ``(2, size, size)``, linear scaling) against the float64 recomputation
+    on the host from the same float32 inputs: the pixels checked, those the
+    band-edge rule exempts, and those outside it off by more than float32's
+    summation bound."""
+    from kikuchipy_tpu_torch.simulation import kikuchi_pattern_simulator as tsim
+
+    size = data.shape[-1]
+    arr = np.linspace(-1, 1, size)
+    X, Y = np.meshgrid(arr, arr[rows])
+    unit, theta = ref.unit.astype(np.float32), ref.theta.astype(np.float32)
+    inten = np.abs(ref.structure_factor).astype(np.float32)
+    out = dict(pixels=0, uncertain=0, bad=0, max_excess=0.0)
+    for h, pole in enumerate((-1, 1)):
+        xyz = tsim._inverse_stereographic(X.ravel(), Y.ravel(), pole).astype(np.float32)
+        want, uncertain = tsim._accumulate_bands_float64(xyz, unit, theta, inten)
+        got = data[h][rows].ravel().astype(np.float64)
+        excess = np.abs(got - want) - tsim._band_tolerance(want, ref.size)
+        out["pixels"] += got.size
+        out["uncertain"] += int(uncertain.sum())
+        out["bad"] += int(((excess > 0) & ~uncertain).sum())
+        out["max_excess"] = max(out["max_excess"], float(excess[~uncertain].max()))
+    return out
+
+
+def simulation_phase(dev, det, dict_rot, smi: str, seed: int) -> tuple[list[str], dict[str, int]]:
+    """[simulation]: the kinematical path at full width on the card (see the
+    docstring, item 10). Returns its lines and the kernels' launches of its
+    indexing run."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+    from kikuchipy_tpu_torch.simulation import KikuchiPatternSimulator
+    from kikuchipy_tpu_torch.simulation import kikuchi_pattern_simulator as tsim
+    from kikuchipy_tpu_torch.utils.device import matmul_precision
+
+    msgs = []
+    t0 = time.perf_counter()
+    ref = nickel_reflectors(SIM_DMIN)
+    t_ref = (time.perf_counter() - t0) * 1e3
+    sim = KikuchiPatternSimulator(ref, phase=ni_phase())
+    mp, ms_mp, mem0, peak = _peak_mb(lambda: sim.calculate_master_pattern(half_size=SIM_HALF_SIZE, hemisphere="both"))
+    _, ms_mp_warm, _, _ = _peak_mb(lambda: sim.calculate_master_pattern(half_size=SIM_HALF_SIZE, hemisphere="both"))
+    size = 2 * SIM_HALF_SIZE + 1
+    data = mp.data
+    if data.shape != (2, size, size) or data.dtype != np.float32 or not np.isfinite(data).all():
+        raise AssertionError(f"[simulation] bad master pattern: {data.shape} {data.dtype}")
+    if not np.allclose(data[0], data[1], atol=1e-6 * float(data.max())):
+        raise AssertionError("[simulation] the hemispheres of a centrosymmetric crystal differ")
+    rows = np.unique(np.linspace(0, size - 1, SIM_CHECK_ROWS).round().astype(int))
+    t0 = time.perf_counter()
+    rule = band_rule_rows(data, ref, rows)
+    t_rule = time.perf_counter() - t0
+    share = rule["uncertain"] / rule["pixels"]
+    if rule["bad"] or share >= SIM_EDGE_SHARE:
+        raise AssertionError(f"[simulation] band-edge rule broken: {rule}, uncertain share {share:.5f}")
+    # Where the band accumulation's time goes: one hemisphere, and at one
+    # block's shape its product, acos and a copy pass (8 bytes a pair).
+    arr = np.linspace(-1, 1, size)
+    X, Y = np.meshgrid(arr, arr)
+    xyz = torch.as_tensor(tsim._inverse_stereographic(X.ravel(), Y.ravel(), -1).astype(np.float32), device=dev)
+    unit = torch.as_tensor(ref.unit.astype(np.float32), device=dev)
+    theta = torch.as_tensor(ref.theta.astype(np.float32), device=dev)
+    inten = torch.as_tensor(np.abs(ref.structure_factor).astype(np.float32), device=dev)
+    ms_hemi = cuda_ms(lambda: tsim._accumulate_bands(xyz, unit, theta, inten), 3)
+    block = tsim._BLOCK_ELEMENTS // ref.size
+    with matmul_precision(False):
+        d = xyz[:block] @ unit.T
+        ms_prod = cuda_ms(lambda: xyz[:block] @ unit.T, 5)
+    ms_acos = cuda_ms(lambda: torch.acos(d), 5)
+    ms_copy = cuda_ms(lambda: torch.neg(d), 5)
+    del d
+    pairs = xyz.shape[0] * ref.size
+    blocks = -(-xyz.shape[0] // block)
+    bound_hemi = pairs * SIM_BYTES_PER_PAIR / PEAK_BYTES * 1e3
+    msgs.append(
+        f"{smi}: nickel to {SIM_DMIN} A at 20 kV: {ref.size} reflectors ({t_ref:.1f} ms on the host); "
+        f"calculate_master_pattern(half_size={SIM_HALF_SIZE}, hemisphere='both') {ms_mp:.1f} ms, again "
+        f"{ms_mp_warm:.1f} ms (host clock, synchronized; the grid on the host in float64), peak device memory {peak - mem0:.0f} MB above "
+        f"{mem0:.0f} MB; one hemisphere's band accumulation {ms_hemi:.3f} ms ({xyz.shape[0]} pixels x {ref.size} "
+        f"reflectors in {blocks} blocks of {block}; {SIM_BYTES_PER_PAIR} bytes a pair: {bound_hemi:.3f} ms at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s, {bound_hemi / ms_hemi:.1%} of it); at one block's shape ({block} x "
+        f"{ref.size}): the IEEE float32 product {ms_prod:.4f} ms, acos {ms_acos:.4f} ms, a copy pass (neg) "
+        f"{ms_copy:.4f} ms; {len(rows)} rows of each hemisphere against the float64 recomputation "
+        f"({t_rule:.1f} s on the host): {rule['pixels']} pixels, {rule['uncertain']} within 1e-6 rad of a band "
+        f"edge ({share:.4%}, limit {SIM_EDGE_SHARE:.1%}), {rule['bad']} off the others by more than float32's "
+        f"summation bound (largest excess {rule['max_excess']:.3e})")
+
+    # The kinematical master through as_lambert, kernel A and the int8 kernel.
+    lam, ms_lam, _, _ = _peak_mb(lambda: mp.as_lambert())
+    side = lam.data.shape[-1]
+    master_np = lam._hemispheres_at_energy()
+    quad = quad_texture(torch.as_tensor(master_np, device=dev))
+    dc = direction_cosines_from_detector(det, device=dev)
+    rng = np.random.default_rng(seed + 19)
+    q = rng.normal(size=(SIM_PATTERNS, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rot = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    geo = (side, side, (side - 1) / 2)
+    yard = Float64Yardstick()
+    got, tap = lp.lambert_project(rot, dc, quad, *geo, taps=True)
+    p32, t32 = lp.lambert_project_plain(rot, dc, quad, *geo, taps=True)
+    p64, t64 = lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), *geo, taps=True)
+    yard.add("kinematical", got, tap, p32, t32, p64, t64, float(master_np.max() - master_np.min()))
+    del p32, t32, p64, t64, tap
+    if yard.failures():
+        raise AssertionError(f"[simulation] kernel A on the kinematical master: {yard.failures()}")
+    reset_launches()
+    t0 = time.perf_counter()
+    dictionary = lam.get_patterns(dict_rot, det, chunk_size=8192)
+    exp = lam.get_patterns(q, det).data
+    lo, hi = exp.amin(dim=(-2, -1), keepdim=True), exp.amax(dim=(-2, -1), keepdim=True)
+    noise = torch.as_tensor(rng.standard_normal(exp.shape, dtype=np.float32) * SIM_NOISE, device=dev)
+    u8 = ((exp - lo) / (hi - lo) * 200 + 28 + noise).round().clamp(0, 255).to(torch.uint8)
+    signal = kt.EBSD(u8.reshape(64, 64, *det.shape), detector=det, device=dev)
+    xmap = signal.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
+    torch.cuda.synchronize()
+    t_index = time.perf_counter() - t0
+    counts = read_launches()
+    if counts["lambert_project"] != 2 or counts["ncc_match_topk_int8"] < 1:
+        raise AssertionError(f"[simulation] kernel A not once a get_patterns, or no int8 launch: {counts}")
+    ang = np.degrees(disorientation_angle(q, xmap.best_rotations, "m-3m"))
+    med, frac8 = float(np.median(ang)), float((ang < 8).mean())
+    if not (med < 3.0 and frac8 > 0.9):
+        raise AssertionError(f"[simulation] orientations not recovered: median {med:.3f} deg, <8 deg {frac8:.4f}")
+    t0 = time.perf_counter()
+    geo_sim = sim.on_detector(det, q)
+    ms_geo = (time.perf_counter() - t0) * 1e3
+    lines = geo_sim.lines_coordinates(0)
+    if geo_sim.lines.in_pattern.shape[0] != SIM_PATTERNS or lines.shape[0] < 3 or not np.isfinite(lines).all():
+        raise AssertionError(f"[simulation] on_detector: {geo_sim!r}, {lines.shape[0]} lines in pattern 0")
+    msgs.append(
+        f"{smi}: as_lambert {ms_lam:.1f} ms ({side} x {side}, quad texture {quad.shape[0]} x 4); kernel A on it "
+        f"against the float64 twin ({SIM_PATTERNS} rotations): {yard.summary(yard.cases['kinematical'])}; the "
+        f"2-degree dictionary ({dict_rot.shape[0]}) and {SIM_PATTERNS} patterns (sigma-{SIM_NOISE:g} noise, uint8) "
+        f"by kernel A (launches {counts['lambert_project']}), dictionary_indexing(pallas-int8, keep_n={KEEP_N}) "
+        f"(ncc_topk_int8 launches {counts['ncc_match_topk_int8']}): disorientation median {med:.4f} deg, <8 deg "
+        f"{frac8:.4f}; the three {t_index * 1e3:.1f} ms; on_detector({SIM_PATTERNS} orientations) {ms_geo:.1f} ms "
+        f"on the host: {geo_sim!r}")
+    return msgs, counts
+
+
+def decomposition_phase(dev, pre, smi: str) -> list[str]:
+    """[decomposition]: the SVD drivers, then ``EBSD.decomposition`` and
+    ``get_decomposition_model`` on the main path's patterns (see the
+    docstring, item 10)."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.ops import decomposition as dec
+    from kikuchipy_tpu_torch.utils.device import matmul_precision
+
+    k = DECOMP_COMPONENTS
+    n = pre.navigation_size
+    x = pre.data.reshape(n, -1).to(torch.float32)
+    # The float64 reference on the host: the centered matrix's Gram matrix
+    # and its eigendecomposition (the right singular vectors and the squared
+    # singular values).
+    t0 = time.perf_counter()
+    x64 = x.cpu().numpy().astype(np.float64)
+    mean64 = x64.mean(axis=0)
+    xc64 = x64 - mean64
+    w, v = np.linalg.eigh(xc64.T @ xc64)
+    w, v = w[::-1], v[:, ::-1]
+    ratio64 = (w / w.sum())[:k]
+    total64 = float(np.sum(xc64 * xc64))
+    res64 = float(np.sqrt(max(total64 - float(w[:k].sum()), 0.0)))
+    t_ref = time.perf_counter() - t0
+
+    xc = x - x.mean(dim=0)
+    drivers = []
+    for driver in SVD_DRIVERS:
+        torch.linalg.svd(xc[:512], full_matrices=False, driver=driver)  # the handle and workspace
+        ms = cuda_ms(lambda: torch.linalg.svd(xc, full_matrices=False, driver=driver), 1)
+        u, s, vt = torch.linalg.svd(xc, full_matrices=False, driver=driver)
+        s64 = s.double().cpu().numpy()
+        ratio = (s64**2 / np.sum(s64**2))[:k]
+        f = vt[:k].double()
+        ortho = float((f @ f.T - torch.eye(k, dtype=torch.float64, device=dev)).abs().max())
+        with matmul_precision(False):
+            res = float((xc - (u[:, :k] * s[:k]) @ vt[:k]).double().norm())
+        drivers.append((driver, ms, float(np.abs(ratio - ratio64).max()), ortho, abs(res - res64) / res64))
+        del u, s, vt
+    del xc
+    signal = kt.EBSD(pre.data, device=dev)
+    _, ms_dec, mem0, peak_dec = _peak_mb(lambda: signal.decomposition(output_dimension=k))
+    lr = signal.learning_results
+    model, ms_model, _, peak_model = _peak_mb(lambda: signal.get_decomposition_model(k))
+    factors = torch.as_tensor(lr.factors, dtype=torch.float64)
+    ortho = float((factors @ factors.T - torch.eye(k, dtype=torch.float64)).abs().max())
+    ratio_err = float(np.abs(lr.explained_variance_ratio - ratio64).max())
+    f32 = torch.as_tensor(lr.factors, device=dev)
+    with matmul_precision(False):
+        recon = torch.as_tensor(lr.loadings, device=dev) @ f32 + torch.as_tensor(lr.mean, device=dev)
+    res32 = float((x - recon).double().norm())
+    res_err = abs(res32 - res64) / res64
+    del recon
+    # The float64 model rescaled as the port rescales (per pattern to
+    # 0-255, truncated).
+    v10 = v[:, :k]
+    model64 = (xc64 @ v10) @ v10.T + mean64
+    lo, hi = model64.min(axis=1, keepdims=True), model64.max(axis=1, keepdims=True)
+    model64 = ((model64 - lo) / (hi - lo) * 255).astype(np.uint8)
+    got = model.data.reshape(n, -1).cpu().numpy()
+    gray = np.abs(got.astype(np.int16) - model64.astype(np.int16))
+    gray_max, gray_share = int(gray.max()), float((gray > 0).mean())
+    log("decomposition",
+        f"{smi}: torch.linalg.svd of the centered {n} x {x.shape[1]} float32 matrix by cuSOLVER driver (one call, "
+        f"CUDA events; ratios of the first {k} off float64's, factors' orthonormality, rank-{k} residual off "
+        f"float64's, relative): "
+        + "; ".join(f"{d} {ms:.1f} ms ({r:.2e}, {o:.2e}, {e:.2e})" for d, ms, r, o, e in drivers)
+        + f"; kept {dec.SVD_DRIVER!r}; the float64 reference on the host {t_ref:.1f} s (Gram matrix and eigh)")
+    fails = []
+    if ortho > DECOMP_ORTHO_TOL:
+        fails.append(f"factors orthonormal to {ortho:.2e}")
+    if ratio_err > DECOMP_RATIO_TOL:
+        fails.append(f"explained-variance ratios {ratio_err:.2e} off float64's")
+    if res_err > DECOMP_RESIDUAL_TOL:
+        fails.append(f"residual {res32:.6g} against float64's {res64:.6g} ({res_err:.2e})")
+    if gray_max > 1 or gray_share > GRAY_SHARE:
+        fails.append(f"uint8 model {gray_max} gray off on {gray_share:.4%} of the pixels")
+    if model.data.dtype != torch.uint8 or tuple(model.data.shape) != tuple(pre.data.shape):
+        fails.append(f"model {model.data.dtype} {tuple(model.data.shape)}")
+    if dec.SVD_DRIVER not in SVD_DRIVERS:
+        fails.append(f"SVD_DRIVER {dec.SVD_DRIVER!r}")
+    if fails:
+        raise AssertionError("[decomposition] " + "; ".join(fails))
+    return [
+        f"{smi}: EBSD.decomposition(output_dimension={k}) {ms_dec:.1f} ms (host clock, synchronized), peak "
+        f"{peak_dec - mem0:.0f} MB above {mem0:.0f} MB; get_decomposition_model({k}) {ms_model:.1f} ms, peak "
+        f"{peak_model - mem0:.0f} MB above the start; factors orthonormal to {ortho:.2e} (limit "
+        f"{DECOMP_ORTHO_TOL:g}); explained-variance ratios {ratio_err:.2e} off float64's (limit "
+        f"{DECOMP_RATIO_TOL:g}; the first {k} sum to {float(lr.explained_variance_ratio.sum()):.4f}); residual "
+        f"{res32:.6g} against float64's {res64:.6g}, {res_err:.2e} relative (limit {DECOMP_RESIDUAL_TOL:g}); the "
+        f"uint8 model off the float64 model by at most {gray_max} gray on {gray_share:.4%} of the pixels (limit "
+        f"1 on {GRAY_SHARE:.0%})",
+    ]
+
+
+def vbse_phase(dev, scan, smi: str) -> list[str]:
+    """[vbse]: every 5 x 5 tile's sums of the 128 x 128 scan on the card, bit
+    for bit a host NumPy sum, and an RGB image of three tiles equal to the
+    host's."""
+    from kikuchipy_tpu_torch.imaging.vbse import VirtualBSEImager, get_rgb_image
+
+    imager = VirtualBSEImager(scan)
+    images = imager.get_images_from_grid()
+    ms_grid = cuda_ms(imager.get_images_from_grid, 5)
+    host = scan.data.cpu().numpy()
+    gy, gx = imager.grid_shape
+    sy, sx = scan.signal_shape
+    ty, tx = sy // gy, sx // gx
+    nav = scan.navigation_shape
+    want = host[..., : gy * ty, : gx * tx].astype(np.float64).reshape(nav + (gy, ty, gx, tx)).sum(axis=(-3, -1))
+    want = np.moveaxis(want, (-2, -1), (0, 1)).astype(np.float32)
+    if images.shape != want.shape or images.tobytes() != want.tobytes():
+        raise AssertionError(f"[vbse] grid images differ from the host's: {images.shape} {want.shape}")
+    tiles = ((0, 0), (2, 2), (4, 4))
+    rgb = imager.get_rgb_image(*tiles)
+    ms_rgb = cuda_ms(lambda: imager.get_rgb_image(*tiles), 5)
+    rgb_host = get_rgb_image([want[r, c].astype(np.float64) for r, c in tiles])
+    if rgb.tobytes() != rgb_host.tobytes():
+        raise AssertionError("[vbse] the RGB image differs from the host's")
+    roi = (7, 41, 3, 58)
+    one = scan.get_virtual_bse_intensity(roi)
+    if one.tobytes() != host[..., 7:41, 3:58].astype(np.float64).sum(axis=(-2, -1)).astype(np.float32).tobytes():
+        raise AssertionError("[vbse] EBSD.get_virtual_bse_intensity differs from the host's sum")
+    return [f"{smi}: VirtualBSEImager.get_images_from_grid() on the {nav} scan of {scan.signal_shape} uint8 "
+            f"patterns: {gy} x {gx} tiles in one pass {ms_grid:.3f} ms (with the copy to the host), bit for bit the "
+            f"host's NumPy sum; get_rgb_image of tiles {tiles} {ms_rgb:.3f} ms, equal to the host's; "
+            f"EBSD.get_virtual_bse_intensity({roi}) equal to the host's"]
+
+
+def profiling_phase(pre, dictionary, smi: str, folder: Path) -> list[str]:
+    """[profiling]: ``utils/profiling.py`` ``trace`` around one pallas-int8
+    indexing call; the trace file must name the int8 kernel."""
+    from kikuchipy_tpu_torch.utils.profiling import trace
+
+    log_dir = folder / "trace"
+    t0 = time.perf_counter()
+    with trace(str(log_dir)):
+        pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
+    wall = (time.perf_counter() - t0) * 1e3
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"[profiling] trace wrote {len(files)} trace files")
+    text = files[0].read_text()
+    if INT8_KERNEL_SYMBOL not in text:
+        raise AssertionError(f"[profiling] the trace does not name the int8 kernel ({INT8_KERNEL_SYMBOL})")
+    return [f"{smi}: trace() around one pallas-int8 call: {wall:.1f} ms with tracing and the export, "
+            f"{files[0].name} {files[0].stat().st_size / 1e6:.1f} MB, names {INT8_KERNEL_SYMBOL}... "
+            f"{text.count(INT8_KERNEL_SYMBOL)} times"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4860,6 +5226,24 @@ def main(argv=None) -> int:
         for msg in lazy_phase(dev, scan, pre, dictionary, mp, det, top1_rot, smi, dat, Path(tmp)):
             log("lazy", msg)
     log("io", f"[io] and [lazy] took {time.perf_counter() - t0:.1f} s")
+
+    # ---- the kinematical simulation, decomposition, virtual BSE imaging, profiling ----
+    t0 = time.perf_counter()
+    sim_msgs, sim_launches = simulation_phase(dev, det, dict_rot, smi, args.seed)
+    for msg in sim_msgs:
+        log("simulation", msg)
+    for msg in decomposition_phase(dev, pre, smi):
+        log("decomposition", msg)
+    for msg in vbse_phase(dev, scan, smi):
+        log("vbse", msg)
+    with tempfile.TemporaryDirectory() as tmp:
+        for msg in profiling_phase(pre, dictionary, smi, Path(tmp)):
+            log("profiling", msg)
+    for row in table:
+        if row["name"] in ("lambert_project", "ncc_match_topk_int8"):
+            row.setdefault("launches_by_path", {"main": main_launches[row["name"]]})
+            row["launches_by_path"]["simulation"] = sim_launches[row["name"]]
+    log("profiling", f"[simulation], [decomposition], [vbse] and [profiling] took {time.perf_counter() - t0:.1f} s")
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -6,12 +6,26 @@ The kernels are hand-written CUDA for Hopper (``csrc/``), built with
 ``nvcc`` at first use. ``load`` reads a scan or master pattern from a file
 (``lazy=True``: a :class:`~kikuchipy_tpu_torch.signals.lazy.LazyEBSD` that
 reads and processes it a chunk at a time); ``save`` writes one.
-
-The JAX package's subpackages ``data``, ``draw``, ``imaging``,
-``simulation``, ``simulations`` and ``pattern`` are not ported yet.
+``simulation`` (its alias ``simulations``) computes kinematical master
+patterns on the card and geometrical simulations on a detector; ``draw``
+and the plotting methods import ``matplotlib`` only when they run.
 """
 
-from kikuchipy_tpu_torch import crystallography, detectors, filters, indexing, io, ops, signals
+from kikuchipy_tpu_torch import (
+    crystallography,
+    data,
+    detectors,
+    draw,
+    filters,
+    imaging,
+    indexing,
+    io,
+    ops,
+    pattern,
+    signals,
+    simulation,
+    simulations,
+)
 from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
 from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
 from kikuchipy_tpu_torch.indexing.di import dictionary_index, prepare_dictionary
@@ -33,15 +47,21 @@ __all__ = [
     "VirtualBSEImage",
     "__version__",
     "crystallography",
+    "data",
     "detectors",
     "dictionary_index",
+    "draw",
     "filters",
+    "imaging",
     "indexing",
     "io",
     "load",
     "ops",
+    "pattern",
     "prepare_dictionary",
     "save",
     "set_log_level",
     "signals",
+    "simulation",
+    "simulations",
 ]

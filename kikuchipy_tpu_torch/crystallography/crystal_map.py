@@ -1,10 +1,10 @@
 """Minimal crystal map: per-map-point orientations, phases and
 properties.
 
-A copy of ``kikuchipy_tpu/crystallography/crystal_map.py`` without
-plotting: a plain dataclass over NumPy arrays (the role of orix's
-``CrystalMap`` in the reference kikuchipy), enough to carry
-dictionary-indexing results.
+A copy of ``kikuchipy_tpu/crystallography/crystal_map.py``: a plain
+dataclass over NumPy arrays (the role of orix's ``CrystalMap`` in the
+reference kikuchipy), enough to carry dictionary-indexing results, with
+orix's ``plot`` idiom (``matplotlib`` imported only when it runs).
 """
 
 from __future__ import annotations
@@ -211,6 +211,97 @@ class CrystalMap:
             shape=(n_sel,),
             scan_unit=self.scan_unit,
         )
+
+    def plot(
+        self,
+        value: str | np.ndarray | None = None,
+        overlay: str | None = None,
+        direction=(0.0, 0.0, 1.0),
+        colorbar: bool = False,
+        colorbar_label: str | None = None,
+        return_figure: bool = False,
+        ax=None,
+        **imshow_kwargs,
+    ):
+        """Plot the map (the orix ``CrystalMap.plot`` idiom used across
+        the reference's tutorials).
+
+        Parameters
+        ----------
+        value
+            What to plot: ``None`` (default) shows IPF colors of the
+            best orientations along ``direction`` (phase colors where a
+            point group is unknown, gray for non-indexed); a property
+            name (e.g. ``"scores"``) or an array shows a scalar map.
+        overlay
+            Optional property name whose normalized values scale the
+            brightness (e.g. ``"scores"`` over an IPF map).
+        colorbar, colorbar_label
+            Draw a colorbar for scalar maps.
+
+        Returns
+        -------
+        The figure if ``return_figure``, else the axes.
+        """
+        import matplotlib.pyplot as plt
+
+        shape = self.shape if len(self.shape) == 2 else (1, self.size)
+        if value is None:
+            from kikuchipy_tpu_torch.crystallography.ipf import ipf_color
+
+            rgb = np.full((self.size, 3), 0.5)
+            for pid in np.unique(self.phase_id):
+                sel = self.phase_id == pid
+                if pid < 0:
+                    continue
+                phase = (
+                    self.phases[int(pid)] if len(self.phases) else None
+                )
+                pg = None
+                if phase is not None:
+                    try:
+                        pg = phase.get_point_group()
+                    except Exception:
+                        pg = None
+                if pg is not None:
+                    rgb[sel] = ipf_color(
+                        self.best_rotations[sel], pg, direction
+                    )
+                else:
+                    rgb[sel] = (0.8, 0.2, 0.2)
+            img = rgb.reshape(shape + (3,))
+        else:
+            arr = (
+                np.asarray(self.prop[value], dtype=float)
+                if isinstance(value, str)
+                else np.asarray(value, dtype=float)
+            )
+            if arr.ndim > 1 and arr.shape[0] == self.size:
+                arr = arr[:, 0]
+            img = arr.reshape(shape)
+        if overlay is not None:
+            ov = np.asarray(self.prop[overlay], dtype=float)
+            if ov.ndim > 1:
+                ov = ov[:, 0]
+            ov = (ov - np.nanmin(ov)) / max(np.nanmax(ov) - np.nanmin(ov), 1e-12)
+            if img.ndim == 3:
+                img = img * ov.reshape(shape)[..., None]
+            else:
+                img = img * ov.reshape(shape)
+        if ax is None:
+            fig, ax = plt.subplots()
+        else:
+            fig = ax.figure
+        im = ax.imshow(img, **imshow_kwargs)
+        ax.set_xlabel(f"x ({self.scan_unit})")
+        ax.set_ylabel(f"y ({self.scan_unit})")
+        if colorbar and img.ndim == 2:
+            cbar = fig.colorbar(im, ax=ax)
+            if colorbar_label or isinstance(value, str):
+                cbar.ax.set_ylabel(colorbar_label or value)
+        if return_figure:
+            return fig
+        return ax
 
     def __repr__(self) -> str:
         props = ", ".join(self.prop)

@@ -6,8 +6,8 @@ conventions and the gnomonic frame, pixel/gnomonic coordinate conversion,
 crop, save/load (JAX's text format, so either package loads the other's
 files), and the PC calibration methods (tilts, extrapolation, plane fits;
 ``plot=True`` imports ``matplotlib`` only then). PCs are stored in Bruker's
-convention. The plotting methods and the Hough indexer wait (see
-ROADMAP.md).
+convention. The plots (``plot``, ``plot_pc``, ``plot_side_view``,
+``plot_top_view``) import ``matplotlib`` only when they run.
 """
 
 from __future__ import annotations
@@ -870,6 +870,130 @@ class EBSDDetector:
         from kikuchipy_tpu_torch.indexing.hough import HoughIndexer
 
         return HoughIndexer(detector=self, phase_list=phase_list, reflectors=reflectors, **kwargs)
+
+    def plot_pc(
+        self,
+        mode: str = "map",
+        return_figure: bool = False,
+        orientation: str = "horizontal",
+        annotate: bool = False,
+        figure_kwargs: dict | None = None,
+        ax=None,
+        **kwargs,
+    ):
+        """Plot the projection centers (reference ``_ebsd_detector.py``
+        ``plot_pc``): ``"map"`` (PCx/PCy scatter colored by PCz),
+        ``"scatter"`` (per-component pair scatters, laid out by
+        ``orientation``), or ``"3d"``.
+
+        Parameters
+        ----------
+        mode
+            "map" (default), "scatter" or "3d".
+        return_figure
+            Return the figure (default False).
+        orientation
+            "horizontal" (default) or "vertical" subplot layout in
+            "scatter" mode.
+        annotate
+            Label each PC with its flattened index.
+        figure_kwargs
+            Passed to ``plt.figure``.
+        ax
+            Existing axes to draw into ("map"/"3d" modes only; this
+            framework's extension).
+        **kwargs
+            Passed to ``Axes.scatter``.
+
+        Returns
+        -------
+        The figure if ``return_figure``, else the axes ("map"/"3d") or
+        None ("scatter").
+        """
+        import matplotlib.pyplot as plt
+
+        figure_kwargs = dict(figure_kwargs or {})
+        pcs = self.pc_flattened
+        labels = range(len(pcs)) if annotate else ()
+        fig = None
+        if mode == "map":
+            if ax is None:
+                fig = plt.figure(**figure_kwargs)
+                ax = fig.add_subplot()
+            sc = ax.scatter(pcs[:, 0], pcs[:, 1], c=pcs[:, 2], **kwargs)
+            ax.set_xlabel("PCx")
+            ax.set_ylabel("PCy")
+            ax.invert_yaxis()
+            plt.colorbar(sc, ax=ax, label="PCz")
+            for i in labels:
+                ax.annotate(str(i), (pcs[i, 0], pcs[i, 1]))
+        elif mode == "scatter":
+            if orientation not in ("horizontal", "vertical"):
+                raise ValueError(
+                    "orientation must be 'horizontal' or 'vertical', got "
+                    f"{orientation!r}"
+                )
+            nrows, ncols = (1, 3) if orientation == "horizontal" else (3, 1)
+            figure_kwargs.setdefault(
+                "figsize", (9, 3) if orientation == "horizontal" else (3, 9)
+            )
+            fig, axes = plt.subplots(nrows, ncols, **figure_kwargs)
+            pairs = [(0, 1), (0, 2), (2, 1)]
+            names = ["PCx", "PCy", "PCz"]
+            for a, (i, j) in zip(np.ravel(axes), pairs):
+                a.scatter(pcs[:, i], pcs[:, j], **kwargs)
+                a.set_xlabel(names[i])
+                a.set_ylabel(names[j])
+                for k in labels:
+                    a.annotate(str(k), (pcs[k, i], pcs[k, j]))
+            fig.tight_layout()
+            ax = None
+        elif mode == "3d":
+            if ax is None:
+                fig = plt.figure(**figure_kwargs)
+                ax = fig.add_subplot(projection="3d")
+            ax.scatter(pcs[:, 0], pcs[:, 1], pcs[:, 2], **kwargs)
+            ax.set_xlabel("PCx")
+            ax.set_ylabel("PCy")
+            ax.set_zlabel("PCz")
+            for i in labels:
+                ax.text(pcs[i, 0], pcs[i, 1], pcs[i, 2], str(i))
+        else:
+            raise ValueError(
+                f"mode must be 'map', 'scatter' or '3d', got {mode!r}"
+            )
+        if return_figure:
+            return fig if fig is not None else ax.figure
+        return ax
+
+    def plot(self, pattern: np.ndarray | None = None, **kwargs):
+        """Plot the detector screen with the PC marker (see
+        :func:`kikuchipy_tpu_torch.draw.plot_detector`)."""
+        from kikuchipy_tpu_torch.draw.detector_plot import plot_detector
+
+        return plot_detector(self, pattern=pattern, **kwargs)
+
+    def plot_side_view(self, return_figure: bool = False, **kwargs):
+        """Schematic side view of the detector-sample geometry
+        (reference ``_ebsd_detector.py:1904``)."""
+        from kikuchipy_tpu_torch.draw.detector_plot import (
+            plot_detector_sample_geometry,
+        )
+
+        return plot_detector_sample_geometry(
+            self, mode="side", return_figure=return_figure, **kwargs
+        )
+
+    def plot_top_view(self, return_figure: bool = False, **kwargs):
+        """Schematic top view of the detector-sample geometry
+        (reference ``_ebsd_detector.py:1989``)."""
+        from kikuchipy_tpu_torch.draw.detector_plot import (
+            plot_detector_sample_geometry,
+        )
+
+        return plot_detector_sample_geometry(
+            self, mode="top", return_figure=return_figure, **kwargs
+        )
 
     def __repr__(self) -> str:
         # The reference's exact multi-line format

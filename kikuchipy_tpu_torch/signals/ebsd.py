@@ -11,9 +11,9 @@ quality, adaptive histogram equalization), neighbour averaging and the
 neighbour dot-product maps, dictionary indexing, Hough indexing and its PC
 optimization, refinement of orientations and/or projection centers,
 HyperSpy-order indexing (``inav``, ``isig``), NumPy's reducers, cropping,
-grid extraction, copies, ``save`` and the lazy view (``as_lazy``). Plotting,
-the virtual BSE intensity and the decomposition methods wait (see
-ROADMAP.md).
+grid extraction, copies, ``save``, the lazy view (``as_lazy``), virtual BSE
+intensities, PCA decomposition and its models, and plotting (``matplotlib``
+imported only when a plot is made).
 """
 
 from __future__ import annotations
@@ -313,6 +313,119 @@ class EBSD:
         self.metadata["detector_pixel_size"] = float(delta)
         if self.detector is not None:
             self.detector = dataclasses.replace(self.detector, px_size=float(delta))
+
+    def get_virtual_bse_intensity(self, roi, out_signal_axes=None) -> np.ndarray:
+        """Sum pattern intensities inside a detector ROI ``(row0, row1, col0,
+        col1)``, in float32 on this signal's device (NumPy, the navigation
+        shape). ``out_signal_axes`` (HyperSpy's output axes in kikuchipy) is
+        accepted and ignored."""
+        from kikuchipy_tpu_torch.imaging.vbse import VirtualBSEImager
+
+        del out_signal_axes
+        return VirtualBSEImager(self).get_virtual_bse_intensity(roi)
+
+    def plot_virtual_bse_intensity(self, roi, out_signal_axes=None, ax=None, **imshow_kwargs):
+        """Plot the virtual BSE image for a detector ROI ``(row0, row1, col0,
+        col1)`` (a static counterpart of kikuchipy's interactive plot);
+        returns the matplotlib axes."""
+        del out_signal_axes
+        import matplotlib.pyplot as plt
+
+        img = self.get_virtual_bse_intensity(roi)
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.imshow(img, cmap=imshow_kwargs.pop("cmap", "gray"), **imshow_kwargs)
+        ax.set_title(f"Virtual BSE, ROI rows {roi[0]}:{roi[1]} cols {roi[2]}:{roi[3]}")
+        ax.axis("off")
+        return ax
+
+    def decomposition(
+        self,
+        algorithm: str = "SVD",
+        output_dimension: int | None = None,
+        **kwargs,
+    ) -> None:
+        """PCA of the patterns on this signal's device, stored on
+        :attr:`learning_results` (``factors``, ``loadings``, ``mean``,
+        ``output_dimension``, ``explained_variance``,
+        ``explained_variance_ratio``; NumPy arrays), as JAX stores it.
+
+        Parameters
+        ----------
+        algorithm
+            Only "SVD"/"PCA" (economy SVD of the centered pattern matrix).
+        output_dimension
+            Number of components kept (default: the navigation size, at most
+            64).
+        **kwargs
+            HyperSpy's options (``centre``, ``normalize``, ...), accepted and
+            ignored.
+        """
+        del kwargs
+        if algorithm.upper() not in ("SVD", "PCA"):
+            raise ValueError(f"Only SVD/PCA decomposition is supported, got {algorithm!r}")
+        from types import SimpleNamespace
+
+        from kikuchipy_tpu_torch.ops.decomposition import pca
+
+        if output_dimension is None:
+            output_dimension = min(self.navigation_size, 64)
+        factors, loadings, mean, var, ratio = pca(
+            self.data, int(output_dimension), return_variance=True, device=self.device
+        )
+        self.learning_results = SimpleNamespace(
+            factors=factors,
+            loadings=loadings,
+            mean=mean,
+            output_dimension=int(output_dimension),
+            explained_variance=var,
+            explained_variance_ratio=ratio,
+        )
+
+    def get_decomposition_model(self, components: int | list[int] | None = 10, dtype_out=None) -> "EBSD":
+        """The scan rebuilt from principal components (a denoising PCA model):
+        ``components`` an int (the first n), a list of component indices, or
+        None (all); ``dtype_out`` the model's data type, by default the
+        storage dtype (integer dtypes are rescaled per pattern; pass
+        ``"float32"`` for the raw reconstruction)."""
+        from kikuchipy_tpu_torch.ops.decomposition import pca_reconstruct
+
+        if dtype_out is None:
+            dtype_out = numpy_dtype(self.data.dtype)
+        return self._replace_data(pca_reconstruct(self.data, components, dtype_out=dtype_out, device=self.device))
+
+    def get_decomposition_model_write(
+        self,
+        out_path,
+        components: int = 10,
+        chunk_size: int = 1024,
+    ) -> None:
+        """Write the PCA model of the scan to a kikuchipy h5ebsd file
+        ``chunk_size`` patterns at a time, so the float32 model of the whole
+        scan is never held (kikuchipy's
+        ``LazyEBSD.get_decomposition_model_write``). The factors, loadings
+        and mean are computed once on this signal's device; each chunk is
+        rebuilt there, rescaled to the storage dtype and written. Needs
+        ``h5py``."""
+        import h5py
+
+        from kikuchipy_tpu_torch.io.plugins.kikuchipy_h5ebsd import file_writer
+        from kikuchipy_tpu_torch.ops.decomposition import _pca, _rescale
+        from kikuchipy_tpu_torch.utils.device import matmul_precision
+
+        dtype = numpy_dtype(self.data.dtype)
+        sy, sx = self.signal_shape
+        factors, loadings, mean, _ = _pca(self.data, components, self.device)
+
+        file_writer(str(out_path), self)
+        with h5py.File(out_path, "r+") as f:
+            ds = f["Scan 1/EBSD/Data/patterns"]
+            for start in range(0, loadings.shape[0], chunk_size):
+                w = loadings[start : start + chunk_size]
+                with matmul_precision(False):
+                    recon = w @ factors + mean
+                recon = _rescale(recon, dtype).to(torch_dtype(dtype))
+                ds[start : start + w.shape[0]] = recon.reshape(-1, sy, sx).cpu().numpy()
 
     def extract_grid(
         self,
@@ -647,6 +760,40 @@ class EBSD:
         from kikuchipy_tpu_torch.indexing.refinement import refine_orientation_projection_center
 
         return refine_orientation_projection_center(self, *args, **kwargs)
+
+    def plot(
+        self,
+        navigator: str | np.ndarray = "iq",
+        pattern_idx: tuple[int, ...] | None = None,
+        return_figure: bool = False,
+    ):
+        """Plot a navigator map (image quality, mean intensity or an array)
+        beside one pattern (in place of HyperSpy's interactive plot). Only
+        the shown pattern and the navigator come to the host."""
+        import matplotlib.pyplot as plt
+
+        if pattern_idx is None:
+            pattern_idx = tuple(v // 2 for v in self.navigation_shape)
+        if isinstance(navigator, str):
+            if navigator == "iq":
+                nav = self.get_image_quality()
+            elif navigator == "mean":
+                nav = self.data.to(torch.float64).mean(dim=(-2, -1)).cpu().numpy()
+            else:
+                raise ValueError(f"navigator must be 'iq', 'mean' or an array, got {navigator!r}")
+        else:
+            nav = np.asarray(navigator)
+        fig, (ax0, ax1) = plt.subplots(ncols=2, figsize=(9, 4))
+        im = ax0.imshow(np.atleast_2d(nav), cmap="gray")
+        fig.colorbar(im, ax=ax0)
+        yx = pattern_idx if len(pattern_idx) == 2 else (0, pattern_idx[0])
+        ax0.scatter([yx[1]], [yx[0]], marker="s", s=80, facecolor="none", edgecolor="r")
+        ax0.set_title("navigator")
+        ax1.imshow(host_array(self.data[pattern_idx]), cmap="gray")
+        ax1.set_title(f"pattern {pattern_idx}")
+        if return_figure:
+            return fig
+        return ax0, ax1
 
     def __repr__(self) -> str:
         return (

@@ -8,7 +8,8 @@ as_lambert`); :class:`EBSDMasterPattern` projects square-Lambert
 hemispheres onto a detector in batches on the device, and
 :meth:`EBSDMasterPattern.spherical_projector` gives their spherical-harmonic
 expansion; :class:`ECPMasterPattern` is the electron channeling pattern's.
-Plotting waits (see ROADMAP.md).
+The plots (:meth:`KikuchiMasterPattern.plot`, ``plot_spherical``) import
+``matplotlib`` only when they run.
 """
 
 from __future__ import annotations
@@ -188,6 +189,46 @@ class KikuchiMasterPattern:
         return dataclasses.replace(
             self, data=out.reshape(self.data.shape).cpu().numpy().astype(dtype), projection="lambert"
         )
+
+    def plot_spherical(
+        self,
+        energy: float | None = None,
+        style: str = "surface",
+        return_figure: bool = False,
+        **kwargs,
+    ):
+        """Plot the master pattern on the sphere with matplotlib 3D (in place
+        of kikuchipy's pyvista plot; see
+        :func:`kikuchipy_tpu_torch.draw.sphere.plot_master_pattern_sphere`).
+        Requires the stereographic projection with both hemispheres."""
+        if self.projection != "stereographic":
+            raise ValueError(
+                "plot_spherical requires the stereographic projection "
+                f"(signal is {self.projection!r}); load with "
+                "projection='stereographic'"
+            )
+        if self.hemisphere != "both":
+            raise ValueError(
+                "plot_spherical requires both hemispheres (signal has "
+                f"{self.hemisphere!r})"
+            )
+        from kikuchipy_tpu_torch.draw.sphere import plot_master_pattern_sphere
+
+        hemis = self._hemispheres_at_energy(energy)
+        fig = plot_master_pattern_sphere(hemis[0], hemis[1], style=style, **kwargs)
+        if return_figure:
+            return fig
+
+    def plot(self, energy: float | None = None, ax=None):
+        """Show the (upper-hemisphere) master pattern."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        img = self._hemispheres_at_energy(energy)[0]
+        ax.imshow(np.asarray(img), cmap="gray")
+        ax.set_title(f"{self.phase.name} ({self.projection})")
+        return ax
 
     def __repr__(self) -> str:
         return (

@@ -1,7 +1,7 @@
 """Virtual BSE image signal (``kikuchipy_tpu/signals/virtual_bse_image.py``):
 a 2D (or RGB) image array, held on the host, with the intensity operations
-users chain after a virtual BSE imager, run on the device. Plotting waits
-(see ROADMAP.md)."""
+users chain after a virtual BSE imager, run on the device, and a plot
+(``matplotlib`` imported only when it runs)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,13 @@ class VirtualBSEImage:
     def compute(self) -> "VirtualBSEImage":
         """This signal (its data is in memory already)."""
         return self
+
+    def plot(self, ax=None, **imshow_kwargs):
+        """Show the image; returns the matplotlib axes."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.imshow(np.asarray(self.data), cmap=imshow_kwargs.pop("cmap", "gray"), **imshow_kwargs)
+        ax.axis("off")
+        return ax

@@ -2192,3 +2192,143 @@ def test_lazy_chain_equals_the_eager_chain_on_the_card(cuda, tmp_path, chunk_siz
     # A lazy view of a scan already on the card slices it.
     got = eager.as_lazy(chunk_size).remove_static_background().remove_dynamic_background().compute()
     assert torch.equal(got.data, eager.remove_static_background().remove_dynamic_background().data)
+
+
+# ------------- kinematical simulation, PCA, virtual BSE imaging ------------- #
+
+
+def _ni_reflectors(dmin):
+    from kikuchipy_tpu_torch.crystallography.reciprocal import Lattice, ReciprocalLatticeVectors
+
+    ref = ReciprocalLatticeVectors.from_min_dspacing(Lattice(3.5236, 3.5236, 3.5236, 90, 90, 90), dmin)
+    ref.calculate_structure_factor([("ni", 0, 0, 0), ("ni", 0.5, 0.5, 0), ("ni", 0.5, 0, 0.5), ("ni", 0, 0.5, 0.5)])
+    ref.calculate_theta(20.0)
+    return ref.allowed()
+
+
+@pytest.mark.parametrize("half_size", [250, 500])
+def test_band_accumulation_on_the_card_keeps_the_band_edge_rule(cuda, half_size):
+    # The card's master pattern and its CPU twin against the float64
+    # recomputation on the same float32 inputs: equal within float32's
+    # summation bound outside the pixels within 1e-6 rad of a band edge
+    # (under 0.5% of them), and within twice that of each other. The grid's
+    # rows and columns through the pole lie on band centers, a share of about
+    # 1 / size each: at 201 pixels a side they pass 0.5%.
+    from kikuchipy_tpu_torch.simulation import KikuchiPatternSimulator
+    from kikuchipy_tpu_torch.simulation import kikuchi_pattern_simulator as tsim
+
+    ref = _ni_reflectors(0.5)
+    sim = KikuchiPatternSimulator(ref)
+    card = sim.calculate_master_pattern(half_size=half_size, hemisphere="both", device=cuda).data
+    size = 2 * half_size + 1
+    rows = np.arange(0, size, 1 if half_size <= 250 else 37)
+    cpu = KikuchiPatternSimulator(ref).calculate_master_pattern(half_size=half_size, hemisphere="both",
+                                                               device="cpu").data if half_size <= 250 else None
+    rule = _smoke().band_rule_rows(card, ref, rows)
+    assert rule["bad"] == 0 and rule["uncertain"] < 0.005 * rule["pixels"], rule
+    if cpu is not None:
+        arr = np.linspace(-1, 1, size)
+        X, Y = np.meshgrid(arr, arr)
+        for h, pole in enumerate((-1, 1)):
+            xyz = tsim._inverse_stereographic(X.ravel(), Y.ravel(), pole).astype(np.float32)
+            want, uncertain = tsim._accumulate_bands_float64(
+                xyz, ref.unit.astype(np.float32), ref.theta.astype(np.float32),
+                np.abs(ref.structure_factor).astype(np.float32))
+            tol = 2 * tsim._band_tolerance(want, ref.size)
+            diff = np.abs(card[h].ravel().astype(np.float64) - cpu[h].ravel())
+            assert (diff <= tol)[~uncertain].all()
+
+
+def test_band_accumulation_blocks_do_not_change_a_pixel_on_the_card(cuda, monkeypatch):
+    from kikuchipy_tpu_torch.simulation import kikuchi_pattern_simulator as tsim
+
+    ref = _ni_reflectors(0.5)
+    xyz = torch.randn(300_001, 3, generator=torch.Generator().manual_seed(5))
+    xyz = (xyz / xyz.norm(dim=1, keepdim=True)).to(cuda)
+    args = [torch.as_tensor(a.astype(np.float32), device=cuda)
+            for a in (ref.unit, ref.theta, np.abs(ref.structure_factor))]
+    whole = tsim._accumulate_bands(xyz, *args)
+    monkeypatch.setattr(tsim, "_BLOCK_ELEMENTS", 4096 * ref.size)
+    assert torch.equal(tsim._accumulate_bands(xyz, *args), whole)
+
+
+def test_kernel_a_on_the_kinematical_master_keeps_its_yardstick(cuda):
+    # A master of 1001 x 1001 a hemisphere (quad texture 2,004,002 x 4):
+    # kernel A no further from the float64 twin than the float32 twin is, and
+    # within 1e-4 of the range everywhere (kernel A's criterion).
+    from kikuchipy_tpu_torch.geometry.detector import EBSDDetector
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector, quad_texture
+    from kikuchipy_tpu_torch.simulation import KikuchiPatternSimulator
+
+    smoke = _smoke()
+    lam = KikuchiPatternSimulator(_ni_reflectors(0.5)).calculate_master_pattern(
+        half_size=500, hemisphere="both", device=cuda).as_lambert()
+    master = lam._hemispheres_at_energy()
+    assert master.shape == (2, 1001, 1001)
+    quad = quad_texture(torch.as_tensor(master, device=cuda))
+    dc = direction_cosines_from_detector(EBSDDetector(shape=(60, 60), pc=(0.42, 0.28, 0.5), sample_tilt=70),
+                                         device=cuda)
+    yard = smoke.Float64Yardstick()
+    for seed, rot in ((48, _quats(3000, 48, cuda)),
+                      (49, torch.as_tensor(smoke.pole_rotations(dc.cpu().numpy(), 64, 49), device=cuda))):
+        before = lp.lambert_project.launches
+        got, tap = lp.lambert_project(rot, dc, quad, 1001, 1001, 500.0, taps=True)
+        assert lp.lambert_project.launches == before + 1
+        p32, t32 = lp.lambert_project_plain(rot, dc, quad, 1001, 1001, 500.0, taps=True)
+        p64, t64 = lp.lambert_project_plain(rot.double(), dc.double(), quad.double(), 1001, 1001, 500.0, taps=True)
+        yard.add(f"kinematical {seed}", got, tap, p32, t32, p64, t64, float(master.max() - master.min()))
+    print({name: yard.summary(c) for name, c in yard.cases.items()})
+    assert yard.failures() == []
+
+
+def _planted(nav=(40, 50), seed=0):
+    rng = np.random.default_rng(seed)
+    n, d = int(np.prod(nav)), 900
+    u, _ = np.linalg.qr(rng.normal(size=(n, 5)))
+    v, _ = np.linalg.qr(rng.normal(size=(d, 5)))
+    x = (u * [400.0, 240.0, 140.0, 80.0, 50.0]) @ v.T + 0.1 * rng.normal(size=(n, d)) + 20
+    return np.round((x - x.min()) / (x.max() - x.min()) * 255).astype(np.uint8).reshape(nav + (30, 30))
+
+
+@pytest.mark.parametrize("nav", [(40, 50), (10, 12)])  # more patterns than pixels, and fewer
+@pytest.mark.parametrize("driver", ["gesvd", "gesvda"])
+def test_pca_on_the_card_matches_the_cpu_up_to_sign(cuda, monkeypatch, driver, nav):
+    # The driver kept (gesvda) and the accurate alternative; gesvdj is left
+    # out: its factors are orthonormal only to about 1e-3 (chip_smoke.py
+    # [decomposition] times and checks all three on every run).
+    from kikuchipy_tpu_torch.ops import decomposition as dec
+
+    monkeypatch.setattr(dec, "SVD_DRIVER", driver)
+    x = _planted(nav)
+    n = int(np.prod(nav))
+    got = dec.pca(x, 5, return_variance=True, device=cuda)
+    want = dec.pca(x, 5, return_variance=True, device="cpu")
+    # The model of every component is the data.
+    np.testing.assert_allclose(dec.pca_reconstruct(x, None, np.float32, device=cuda), x, atol=1e-4 * 255)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = (a.T, b.T) if a.shape[0] == n else (a, b)
+        signs = np.sign(np.sum(a * b, axis=1, keepdims=True))
+        assert (np.abs(signs * a - b) <= 1e-4 * np.abs(b).max(axis=1, keepdims=True)).all()
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+    for a, b in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(a, b, rtol=1e-4)
+    for components in (3, [0, 2, 4]):
+        a = dec.pca_reconstruct(x, components, dtype_out=np.uint8, device=cuda)
+        b = dec.pca_reconstruct(x, components, dtype_out=np.uint8, device="cpu")
+        diff = np.abs(a.astype(int) - b.astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+
+
+@pytest.mark.parametrize("grid", [(5, 5), (4, 7)])
+def test_vbse_sums_on_the_card_are_the_cpus_bit_for_bit(cuda, grid):
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.imaging import VirtualBSEImager
+
+    data = np.random.default_rng(6).integers(0, 256, (33, 47, 60, 60), dtype=np.uint8)
+    card, cpu = VirtualBSEImager(kt.EBSD(data, device=cuda)), VirtualBSEImager(kt.EBSD(data, device="cpu"))
+    card.grid_shape = cpu.grid_shape = grid
+    assert card.get_images_from_grid().tobytes() == cpu.get_images_from_grid().tobytes()
+    assert card.get_virtual_bse_intensity((5, 50, 3, 41)).tobytes() == cpu.get_virtual_bse_intensity(
+        (5, 50, 3, 41)).tobytes()
+    assert card.get_rgb_image((0, 0), (1, 1), (2, 2)).tobytes() == cpu.get_rgb_image((0, 0), (1, 1), (2, 2)).tobytes()

@@ -28,6 +28,12 @@ def _modules():
 
 
 def test_imports_leave_no_jax_in_sys_modules():
+    # The walk reaches every subpackage and module, the last slice's too.
+    walked = set(_modules())
+    for name in ("simulation", "simulation.kikuchi_pattern_simulator", "simulations", "imaging.vbse", "draw.sphere",
+                 "draw.detector_plotter", "data", "data._registry", "pattern", "pattern_chunk",
+                 "ops.decomposition", "utils.profiling"):
+        assert f"kikuchipy_tpu_torch.{name}" in walked, name
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -119,6 +125,12 @@ def test_no_import_statement_names_jax():
                                                       projection="stereographic").as_lambert(),
         lambda: kikuchipy_tpu_torch.ECPMasterPattern(np.ones((2, 5, 5), np.float32)),
         lambda: kikuchipy_tpu_torch.VirtualBSEImage(np.ones((5, 5), np.uint8)),
+        # Kinematical simulation, PCA, the pattern shims and the example data.
+        lambda: _ni_simulator().calculate_master_pattern(half_size=2),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.ops.decomposition").pca(np.ones((3, 4, 4)), 2),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.ops.decomposition").pca_reconstruct(np.ones((3, 4, 4)), 2),
+        lambda: kikuchipy_tpu_torch.pattern.chunk.get_dynamic_background(np.ones((2, 8, 8), np.uint8)),
+        lambda: _data_accessor_in_a_temporary_directory(),
         # Neighbour averaging and the dot-product maps.
         *(
             (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.ops.neighbours"), name)(
@@ -131,6 +143,32 @@ def test_entry_points_default_to_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
+
+
+def _ni_simulator():
+    from kikuchipy_tpu_torch.crystallography.reciprocal import Lattice, ReciprocalLatticeVectors
+    from kikuchipy_tpu_torch.simulation import KikuchiPatternSimulator
+
+    ref = ReciprocalLatticeVectors.from_min_dspacing(Lattice(3.5236, 3.5236, 3.5236, 90, 90, 90), 1.5)
+    ref.calculate_structure_factor([("ni", 0, 0, 0), ("ni", 0.5, 0.5, 0), ("ni", 0.5, 0, 0.5), ("ni", 0, 0.5, 0.5)])
+    ref.calculate_theta(20.0)
+    return KikuchiPatternSimulator(ref.allowed())
+
+
+def _data_accessor_in_a_temporary_directory():
+    # The small nickel scan's file, written by the port's save (on the CPU)
+    # into KP_TPU_DATA_DIR; the accessor's load defaults to the card.
+    import os
+    import tempfile
+    from unittest import mock
+
+    pytest.importorskip("h5py")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "kikuchipy_h5ebsd" / "patterns.h5"
+        path.parent.mkdir()
+        kikuchipy_tpu_torch.EBSD(np.ones((2, 2, 4, 4), np.uint8), device="cpu").save(path)
+        with mock.patch.dict(os.environ, {"KP_TPU_DATA_DIR": tmp}):
+            kikuchipy_tpu_torch.data.nickel_ebsd_small()
 
 
 def _sphere(x, *args):
@@ -165,11 +203,14 @@ def test_direction_cosines_default_to_the_ports_device():
 
 
 def _jax_all(subpackage: str) -> list[str]:
-    """``__all__`` of a JAX subpackage, read from its source (no import)."""
+    """``__all__`` of a JAX subpackage or top-level module, read from its
+    source (no import)."""
     import ast
 
     names = []
-    tree = ast.parse((ROOT / "kikuchipy_tpu" / subpackage / "__init__.py").read_text())
+    module = ROOT / "kikuchipy_tpu" / f"{subpackage}.py"
+    path = module if module.exists() else ROOT / "kikuchipy_tpu" / subpackage / "__init__.py"
+    tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         target = node.targets[0] if isinstance(node, ast.Assign) else getattr(node, "target", None)
         if getattr(target, "id", None) == "__all__":
@@ -187,11 +228,13 @@ def _port_defines() -> set[str]:
     return names
 
 
-@pytest.mark.parametrize("subpackage", sorted(p.parent.name for p in (ROOT / "kikuchipy_tpu").glob("*/__init__.py")))
+@pytest.mark.parametrize("subpackage", sorted(p.parent.name for p in (ROOT / "kikuchipy_tpu").glob("*/__init__.py"))
+                         + ["pattern", "pattern_chunk", "simulations"])
 def test_ported_names_are_in_the_same_subpackage(subpackage):
     # The port keeps the JAX package's public names where it has them: a
-    # name of a JAX subpackage's __all__ that the port defines anywhere is
-    # importable from the port's subpackage of the same name.
+    # name of a JAX subpackage's (or top-level module's) __all__ that the
+    # port defines anywhere is importable from the port's subpackage or
+    # module of the same name.
     ported = [name for name in _jax_all(subpackage) if name in _port_defines()]
     if not ported:
         return

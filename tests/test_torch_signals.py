@@ -464,12 +464,12 @@ def test_top_level_and_signals_exports():
     assert ts.__all__ == js.__all__
     assert ts.LazyEBSDMasterPattern is ts.EBSDMasterPattern and ts.LazyVirtualBSEImage is ts.VirtualBSEImage
     assert ts.LazyECPMasterPattern is ts.ECPMasterPattern and ts.util is t_util
-    # What the port lacks of the JAX package's top level is named in its
-    # docstring (and in ROADMAP.md).
-    missing = [n for n in kp.__all__ if n not in kt.__all__]
-    assert sorted(missing) == sorted(["data", "draw", "imaging", "pattern", "simulation", "simulations"])
-    for name in missing:
-        assert f"``{name}``" in kt.__doc__
+    # The port has every name of the JAX package's top level, the last six
+    # (data, draw, imaging, pattern, simulation, simulations) since they were
+    # ported.
+    assert [n for n in kp.__all__ if n not in kt.__all__] == []
+    for name in ("data", "draw", "imaging", "pattern", "simulation", "simulations"):
+        assert getattr(kt, name).__name__ == f"kikuchipy_tpu_torch.{name}", name
 
 
 # ------------------------------ signatures ------------------------------ #
@@ -482,11 +482,14 @@ def _params(obj):
 
 @pytest.mark.parametrize("cls,names", [
     ("EBSD", ["mean", "max", "min", "sum", "std", "change_dtype", "set_scan_calibration", "set_detector_calibration",
-              "extract_grid", "crop", "deepcopy", "save", "as_lazy", "compute"]),
+              "extract_grid", "crop", "deepcopy", "save", "as_lazy", "compute", "get_virtual_bse_intensity",
+              "plot_virtual_bse_intensity", "decomposition", "get_decomposition_model",
+              "get_decomposition_model_write", "plot"]),
     ("KikuchiMasterPattern", ["rescale_intensity", "normalize_intensity", "adaptive_histogram_equalization",
-                              "change_dtype", "deepcopy", "as_lazy", "compute", "set_signal_type", "as_lambert"]),
+                              "change_dtype", "deepcopy", "as_lazy", "compute", "set_signal_type", "as_lambert",
+                              "plot_spherical", "plot"]),
     ("VirtualBSEImage", ["rescale_intensity", "normalize_intensity", "adaptive_histogram_equalization",
-                         "change_dtype", "deepcopy", "as_lazy", "compute"]),
+                         "change_dtype", "deepcopy", "as_lazy", "compute", "plot"]),
     ("LazyEBSD", ["rescale_intensity", "normalize_intensity", "remove_static_background",
                   "remove_dynamic_background", "get_dynamic_background", "fft_filter",
                   "adaptive_histogram_equalization", "downsample", "rebin", "change_dtype",
