@@ -294,7 +294,35 @@ the card's name and power limit, and the device check):
    for bit a host NumPy sum, and an RGB image of three tiles equal to the
    host's; ``[profiling]`` wraps one ``pallas-int8`` indexing call in
    ``utils/profiling.py`` ``trace`` and finds the int8 kernel in the trace
-   file.
+   file;
+11. the scale-out modules, on the one card: ``[parallel]`` runs
+   ``sharded_dictionary_index`` of the 16,384 corrected patterns against the
+   main path's ``PreparedDictionary`` at "int8" on meshes (1, 1), (2, 2) and
+   (1, 4) of ``cuda:0`` (the last pads the dictionary by 3) and at "highest"
+   on (2, 2) for 4,096 patterns, each against the single-device
+   ``dictionary_index`` of the same tier (at "int8" all 20 indices equal
+   and scores within 1e-6; at "highest" top-1 equal wherever its top-1/
+   top-2 gap exceeds 1e-5, the rows below it counted, and scores within
+   1e-5), ``sharded_fused_dictionary_index`` over 107,008 rotations on
+   (2, 2) and (1, 1) (kernel A once a block) against each other and against
+   ``dictionary_index(project_fn=...)`` at "highest" (the "highest" gate),
+   and the three sharded Nelder-Mead refinements on (4, 1) against the
+   single-device calls, bit for bit, one launch a shard; ``[multihost]``
+   starts the CPU test's worker (``tests/_torch_multihost_worker.py``) twice
+   in a gloo group on loopback, both ranks on the card (NCCL takes no two
+   ranks on one card), each indexing its host slice of 16,383 patterns (its
+   block, then gathered) and refining it (LM, gathered) against the
+   single-process calls (the "highest" gate; refinement bit for bit); a
+   worker that fails or overruns fails the run; ``[streaming]`` runs
+   ``io/streaming.py`` ``_index_chunks`` over a memory map of the scan tiled
+   4x (65,536 raw patterns) at chunks of 4,096, "int8", against the eager
+   call and ``LazyEBSD.dictionary_indexing`` (indices equal), a run cut
+   after 4 chunks and resumed from its checkpoint, and kernel D's static
+   removal a chunk on the card against the same removal on the host (the
+   HDF5 reader in front of the loop needs ``h5py``, which the card's
+   machine lacks, and is not run); ``[native]`` builds ``native/loader.cpp``
+   with g++, holds ``preprocess_u8`` within 2e-6 of kernel D's float32
+   output on the 16,384 patterns and times its loops beside NumPy's.
 
 Each path is driven with every launch counter set to 0 just before it
 and read just after; a kernel's ``launches`` in the table is the count
@@ -4162,6 +4190,382 @@ def profiling_phase(pre, dictionary, smi: str, folder: Path) -> list[str]:
             f"{text.count(INT8_KERNEL_SYMBOL)} times"]
 
 
+# ------------ scale-out: meshes, processes, streaming, the host loader ------------ #
+
+# [parallel]: the sharded DI meshes (all on the one card), the rows of the
+# "highest" check, the fused path's mesh, the refinement mesh.
+PARALLEL_MESHES = ((1, 1), (2, 2), (1, 4))
+PARALLEL_HIGHEST_ROWS = 4096
+PARALLEL_FUSED_MESH = (2, 2)
+PARALLEL_FUSED_ROTATIONS = 107_008
+PARALLEL_REFINE_MESH = (4, 1)
+# [multihost]: two processes in a gloo group on the card, the map's first
+# 16,383 points (an uneven split), each worker's time limit.
+MULTIHOST_PROCESSES = 2
+MULTIHOST_POINTS = 16_383
+MULTIHOST_TIMEOUT_S = 300
+MULTIHOST_DEVICES = 2  # mesh positions of the card a process: the dict axis of DI, the scan axis of refinement
+MULTIHOST_WORKER = "tests/_torch_multihost_worker.py"  # the CPU test's worker too
+# [streaming]: the main path's scan tiled 4x, read from a memory map.
+STREAM_TILES = 4
+STREAM_CHUNK = 4096
+STREAM_CUT_AFTER = 3
+
+
+def top1_gate(label: str, got_s, got_i, ref_s, ref_i, gap: float = NEAR_TIE_TOL,
+              score_tol: float = NEAR_TIE_TOL) -> str:
+    """Top-1 equal wherever the reference's top-1/top-2 gap exceeds
+    ``gap`` (a shard's IEEE product may move a score's last bits), and every
+    score within ``score_tol``; the rows below the gap are counted, not
+    gated."""
+    clear = (ref_s[:, 0] - ref_s[:, 1]) > gap
+    agree = got_i[:, 0] == ref_i[:, 0]
+    if got_i.shape != ref_i.shape or not agree[clear].all():
+        raise AssertionError(f"{label}: top-1 differs on {int((~agree[clear]).sum())} rows with a gap > {gap:g} "
+                             f"(shapes {got_i.shape}, {ref_i.shape})")
+    diff = float(np.abs(got_s - ref_s).max())
+    if not diff <= score_tol:
+        raise AssertionError(f"{label}: max |score diff| {diff:g} > {score_tol:g}")
+    return (f"{label}: top-1 equal on all {int(clear.sum())} rows with a top-1/top-2 gap > {gap:g} ({int((~clear).sum())} "
+            f"below it, {int(agree[~clear].sum())} of them equal too); all {ref_i.shape[1]} indices equal on "
+            f"{float((got_i == ref_i).all(axis=1).mean()):.4%} of the rows; max |score diff| {diff:.3g} "
+            f"(limit {score_tol:g})")
+
+
+def all_equal_gate(label: str, got_s, got_i, ref_s, ref_i, score_tol: float = 1e-6) -> str:
+    """Every one of the ``keep_n`` indices equal and every score within
+    ``score_tol``: "int8" selects on exact int32 sums, so the candidate sets
+    are the single-device call's and only the rescore may round otherwise."""
+    if got_i.shape != ref_i.shape or not np.array_equal(got_i, ref_i):
+        rows = int((got_i != ref_i).any(axis=1).sum()) if got_i.shape == ref_i.shape else -1
+        raise AssertionError(f"{label}: indices differ on {rows} rows (shapes {got_i.shape}, {ref_i.shape})")
+    diff = float(np.abs(got_s - ref_s).max())
+    if not diff <= score_tol:
+        raise AssertionError(f"{label}: max |score diff| {diff:g} > {score_tol:g}")
+    return (f"{label}: all {ref_i.shape[1]} indices equal on all {ref_i.shape[0]} rows; max |score diff| {diff:.3g} "
+            f"(limit {score_tol:g})")
+
+
+def _same_refinement(label: str, got, want) -> str:
+    same = bool(np.array_equal(got.xmap.rotations, want.xmap.rotations)
+                and np.array_equal(got.xmap.prop["scores"], want.xmap.prop["scores"])
+                and np.array_equal(np.asarray(got.detector.pc), np.asarray(want.detector.pc)))
+    if not same:
+        dr = float(np.abs(got.xmap.rotations - want.xmap.rotations).max())
+        raise AssertionError(f"{label}: not the single-device call bit for bit (max |rotation diff| {dr:g})")
+    return f"{label}: rotations, scores and PCs bit for bit"
+
+
+def parallel_phase(dev, pre, static, dictionary, dict_rot, mp, det, bad_det, xmap, refined_xmap, smi: str):
+    """[parallel]: ``sharded_dictionary_index`` of the main path's patterns
+    against its PreparedDictionary at "int8" on PARALLEL_MESHES of the one
+    card and at "highest" on (2, 2), ``sharded_fused_dictionary_index`` on
+    (2, 2) and (1, 1), and the three sharded refinements on (4, 1), each
+    against the single-device call; returns the messages, kernel A's and
+    the Nelder-Mead kernel's launches by call, and the PreparedDictionary."""
+    import torch
+
+    from kikuchipy_tpu_torch.indexing.di import dictionary_index, prepare_dictionary
+    from kikuchipy_tpu_torch.parallel import (
+        make_mesh,
+        sharded_dictionary_index,
+        sharded_fused_dictionary_index,
+        sharded_refine_orientation,
+        sharded_refine_orientation_projection_center,
+        sharded_refine_projection_center,
+    )
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    msgs, launches = [], {}
+    n = pre.navigation_size
+    rows = pre.data.reshape(n, -1)
+    prep = prepare_dictionary(dictionary.data, quantize=True, device=dev)
+    m = prep.n_dictionary
+
+    def mesh(shape):
+        return make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+    def twice(fn):  # the first call grows the allocator's pool; the second is timed
+        fn()
+        return _peak_mb(fn)
+
+    (ref, ms_ref, _, peak_ref) = twice(lambda: dictionary_index(rows, prep, keep_n=KEEP_N, precision="int8",
+                                                                device=dev))
+    parts = [f"single-device dictionary_index {ms_ref:.3f} ms, peak {peak_ref:.1f} MB"]
+    for shape in PARALLEL_MESHES:
+        (s, i), ms, _, peak = twice(lambda: sharded_dictionary_index(rows, prep, keep_n=KEEP_N, mesh=mesh(shape),
+                                                                     precision="int8"))
+        gate = all_equal_gate(f"mesh {shape}", s, i, ref.scores, ref.simulation_indices)
+        parts.append(f"{gate}; {ms:.3f} ms, peak {peak:.1f} MB (dictionary padded by {(-m) % shape[1]})")
+    msgs.append(f"{smi}: sharded_dictionary_index int8 keep_n={KEEP_N} of {n} patterns against the "
+                f"{m}-entry PreparedDictionary, the shards on one card: " + "; ".join(parts))
+
+    few = rows[:PARALLEL_HIGHEST_ROWS]
+    (ref_h, ms_ref, _, _) = twice(lambda: dictionary_index(few, prep, keep_n=KEEP_N, precision="highest", device=dev))
+    (s, i), ms, _, peak = twice(lambda: sharded_dictionary_index(few, prep, keep_n=KEEP_N, mesh=mesh((2, 2)),
+                                                                 precision="highest"))
+    msgs.append(f"{smi}: sharded_dictionary_index highest on (2, 2) for {len(few)} patterns: "
+                + top1_gate("mesh (2, 2)", s, i, ref_h.scores, ref_h.simulation_indices)
+                + f"; {ms:.3f} ms against the single-device call's {ms_ref:.3f} ms, peak {peak:.1f} MB")
+    del ref_h
+
+    # The fused path: each block projects its dict shard (kernel A) and
+    # matches it in IEEE float32.
+    rot = np.ascontiguousarray(dict_rot[:PARALLEL_FUSED_ROTATIONS], dtype=np.float32)
+    master = mp._hemispheres_at_energy()
+    side = master.shape[-1]
+    dc = direction_cosines_from_detector(det, device=dev)
+    fused = {}
+    for shape in (PARALLEL_FUSED_MESH, (1, 1)):
+        def call(shape=shape):
+            return sharded_fused_dictionary_index(rows, rot, master, dc, side, side, (side - 1) / 2, keep_n=KEEP_N,
+                                                  mesh=mesh(shape))
+        call()
+        reset_launches()
+        fused[shape], ms, _, peak = _peak_mb(call)
+        launches[f"parallel fused {shape}"] = read_launches()["lambert_project"]
+        if launches[f"parallel fused {shape}"] != shape[0] * shape[1]:
+            raise AssertionError(f"the fused path on {shape} launched kernel A "
+                                 f"{launches[f'parallel fused {shape}']} times, not once a block")
+        fused[shape] += (ms, peak)
+    (ref_f, ms_ref, _, _) = twice(lambda: dictionary_index(rows, project_fn=mp.projector(det), rotations=rot,
+                                                           keep_n=KEEP_N, precision="highest", device=dev))
+    s, i, ms, peak = fused[PARALLEL_FUSED_MESH]
+    s1, i1, ms1, peak1 = fused[(1, 1)]
+    msgs.append(f"{smi}: sharded_fused_dictionary_index keep_n={KEEP_N} over {len(rot)} rotations, kernel A "
+                f"launches {launches[f'parallel fused {PARALLEL_FUSED_MESH}']} on {PARALLEL_FUSED_MESH} and "
+                f"{launches['parallel fused (1, 1)']} on (1, 1): "
+                + top1_gate(f"{PARALLEL_FUSED_MESH} against (1, 1)", s, i, s1, i1) + "; "
+                + top1_gate(f"{PARALLEL_FUSED_MESH} against dictionary_index(project_fn, highest)", s, i,
+                            ref_f.scores, ref_f.simulation_indices)
+                + f"; {ms:.3f} ms (peak {peak:.1f} MB), (1, 1) {ms1:.3f} ms (peak {peak1:.1f} MB), "
+                f"dictionary_index(project_fn) {ms_ref:.3f} ms")
+    del fused, ref_f
+
+    calls = {"orientation": ("refine_orientation", sharded_refine_orientation, "nelder_mead_orientation",
+                             dict(xmap=xmap)),
+             "pc": ("refine_projection_center", sharded_refine_projection_center, "nelder_mead_projection_center",
+                    dict(xmap=refined_xmap, detector=bad_det)),
+             "joint": ("refine_orientation_projection_center", sharded_refine_orientation_projection_center,
+                       "nelder_mead_orientation_projection_center", dict(xmap=xmap, detector=bad_det))}
+    parts = []
+    for mode, (name, sharded, wrapper, kw) in calls.items():
+        want, ms_1, _, _ = _peak_mb(lambda: getattr(static, name)(master_pattern=mp, **kw))
+        reset_launches()
+        got, ms, _, _ = _peak_mb(lambda: sharded(static, mesh=mesh(PARALLEL_REFINE_MESH), master_pattern=mp, **kw))
+        counts = read_launches()
+        launches[f"parallel refine {mode}"] = counts[wrapper]
+        if counts[wrapper] != PARALLEL_REFINE_MESH[0] or counts["lambert_project_ncc"]:
+            raise AssertionError(f"sharded {name} launched {wrapper} {counts[wrapper]} times (not once a shard) and "
+                                 f"kernel B {counts['lambert_project_ncc']} times")
+        parts.append(_same_refinement(f"{mode} mode", got, want)
+                     + f", {counts[wrapper]} launches of {wrapper}; {ms:.3f} ms against {ms_1:.3f} ms")
+    msgs.append(f"{smi}: the sharded refinements (Nelder-Mead) of the {n}-point static-corrected map on "
+                f"{PARALLEL_REFINE_MESH} of one card against the single-device calls: " + "; ".join(parts))
+    torch.cuda.synchronize()
+    return msgs, launches, prep
+
+
+def multihost_phase(dev, dict_rot, mp, pre, static, dictionary, xmap, smi: str, folder: Path):
+    """[multihost]: MULTIHOST_PROCESSES workers (MULTIHOST_WORKER) in a
+    gloo group on the card, each on its host slice of MULTIHOST_POINTS
+    patterns (an uneven split): each block's and the gathered DI
+    (keep_n=KEEP_N; the match runs at "highest", as JAX's) and LM refinement
+    against the single-process calls. Returns the messages and the workers'
+    LM loop kernel launches."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.parallel import multihost_dictionary_index, multihost_mesh, multihost_refine_orientation
+
+    n = MULTIHOST_POINTS
+    one = kt.EBSD(static.data.reshape((-1,) + tuple(static.signal_shape))[:n], detector=static.detector, device=dev)
+    start = xmap.best_rotations[:n]
+    t0 = time.perf_counter()
+    ref_s, ref_i = multihost_dictionary_index(pre.data.reshape(pre.navigation_size, -1)[:n], dictionary.data,
+                                              keep_n=KEEP_N, mesh=multihost_mesh(n_dict_local=2, devices=[dev] * 2),
+                                              n_total=n, gather_results=True)
+    torch.cuda.synchronize()
+    t_di = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ref_rot, ref_sc, _ = multihost_refine_orientation(one, xmap=CrystalMap(rotations=start, shape=(n,)),
+                                                         detector=static.detector, master_pattern=mp, n_total=n,
+                                                         gather_results=True, method="lm", devices=[dev])
+    t_ref = time.perf_counter() - t0
+    del one
+    torch.cuda.empty_cache()  # the workers share the card
+
+    from tests import _torch_multihost_worker as worker
+
+    rows = static.signal_shape
+    worker.write_inputs(folder, device=str(dev), n_devices=MULTIHOST_DEVICES, n_dict_local=MULTIHOST_DEVICES,
+                        keep_n=KEEP_N, di_patterns=pre.data.reshape((-1,) + tuple(rows))[:n].cpu().numpy(),
+                        dict_rot=dict_rot, master=mp._hemispheres_at_energy(), detector_shape=DETECTOR_SHAPE, pc=PC,
+                        refine_scan=static.data.reshape((-1,) + tuple(rows))[:n].cpu().numpy(), start=start,
+                        refine_kwargs={"method": "lm"})
+    t0 = time.perf_counter()
+    logs = worker.launch(folder, MULTIHOST_PROCESSES, MULTIHOST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for rank, (rc, out) in enumerate(logs):
+        if rc != 0:
+            raise AssertionError(f"multihost worker {rank} failed (exit {rc}):\n{out[-4000:]}")
+
+    parts, lm_launches = [], {}
+    for rank in range(MULTIHOST_PROCESSES):
+        z = np.load(folder / f"out_{rank}.npz")
+        sl, sl_r = slice(int(z["start"]), int(z["stop"])), slice(int(z["refine_start"]), int(z["refine_stop"]))
+        block = top1_gate(f"process {rank}'s block", z["scores"], z["idx"], ref_s[sl], ref_i[sl])
+        gate = top1_gate(f"process {rank}'s gathered copy", z["scores_all"], z["idx_all"], ref_s, ref_i)
+        for what, rot, sc, want_rot, want_sc in (("block", z["rot"], z["refine_scores"], ref_rot[sl_r], ref_sc[sl_r]),
+                                                 ("gathered copy", z["rot_all"], z["refine_scores_all"], ref_rot,
+                                                  ref_sc)):
+            if not (np.array_equal(rot, want_rot) and np.array_equal(sc, want_sc)):
+                raise AssertionError(f"process {rank}'s LM refinement ({what}) is not the single-process call's: "
+                                     f"max |rotation diff| {float(np.abs(rot - want_rot).max()):g}")
+        lm_launches[f"multihost rank {rank}"] = int(z["lm_loop"])
+        if int(z["lm_loop"]) != MULTIHOST_DEVICES or int(z["tangent"]):
+            raise AssertionError(f"process {rank} launched the LM loop kernel {int(z['lm_loop'])} times and kernel C "
+                                 f"{int(z['tangent'])} times ({MULTIHOST_DEVICES}, one a shard, and none expected)")
+        parts.append(f"{block}; {gate}; LM refinement of the block and the gathered copy bit for bit; rows "
+                     f"{sl.start}-{sl.stop}, gathered DI {float(z['t_di']) * 1e3:.1f} ms, refinement "
+                     f"{float(z['t_refine']) * 1e3:.1f} ms, peak {float(z['peak_mb']):.1f} MB, LM loop kernel "
+                     f"launches {int(z['lm_loop'])}")
+    return [f"{smi}: {MULTIHOST_PROCESSES} processes of {MULTIHOST_WORKER} in a gloo group (loopback), both on this card "
+            f"(NCCL takes no two ranks on one card), {n} points: " + "; ".join(parts)
+            + f"; the single-process calls: DI {t_di * 1e3:.1f} ms, refinement {t_ref * 1e3:.1f} ms; the workers' "
+            f"wall time {wall:.1f} s, start-up included"], lm_launches
+
+
+def streaming_phase(dev, scan, dictionary, prep, smi: str, folder: Path) -> list[str]:
+    """[streaming]: ``io.streaming._index_chunks`` over a memory map of the
+    main path's scan tiled STREAM_TILES times (raw uint8), STREAM_CHUNK
+    patterns a chunk, "int8": against ``LazyEBSD.dictionary_indexing`` and
+    the eager call (indices equal), a run cut after STREAM_CUT_AFTER
+    checkpointed chunks and resumed, and kernel D's static removal on the
+    card against the same removal on the host. The HDF5 reader in front of
+    the loop (h5py) is held by the CPU tests, not run here."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.indexing.di import dictionary_index
+    from kikuchipy_tpu_torch.io.streaming import _index_chunks
+    from kikuchipy_tpu_torch.ops.pattern import remove_static_background
+    from kikuchipy_tpu_torch.signals.lazy import ArraySource, LazyEBSD
+
+    sig = tuple(scan.signal_shape)
+    raw = scan.data.reshape((-1,) + sig).cpu().numpy()
+    n = raw.shape[0] * STREAM_TILES
+    path = folder / "scan.u8"
+    np.concatenate([raw] * STREAM_TILES).tofile(path)
+    mm = np.memmap(path, dtype=np.uint8, mode="r", shape=(n,) + sig)
+    bg = np.asarray(scan.static_background)
+    kw = dict(keep_n=KEEP_N, precision="int8", device=dev)
+
+    def chunks(stop: int = n):
+        for s in range(0, stop, STREAM_CHUNK):
+            yield s, mm[s:s + STREAM_CHUNK]
+
+    eager, ms_e, _, peak_e = _peak_mb(lambda: dictionary_index(torch.as_tensor(np.array(mm), device=dev), prep,
+                                                               **kw))
+    _index_chunks(chunks(2 * STREAM_CHUNK), prep, chunk_size=STREAM_CHUNK, **kw)  # warm-up
+    got, ms, _, peak = _peak_mb(lambda: _index_chunks(chunks(), prep, chunk_size=STREAM_CHUNK, **kw))
+    lazy = LazyEBSD(source=ArraySource(mm, (n,)), chunk_size=STREAM_CHUNK, device=dev)
+    lazy_xmap, ms_l, _, _ = _peak_mb(lambda: lazy.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="int8"))
+    for label, (s, i) in (("the eager call", (eager.scores, eager.simulation_indices)),
+                          ("LazyEBSD.dictionary_indexing", (lazy_xmap.prop["scores"],
+                                                            lazy_xmap.prop["simulation_indices"]))):
+        ds = float(np.abs(got.scores - s).max())
+        if not np.array_equal(got.simulation_indices, i) or ds > 1e-6:
+            raise AssertionError(f"_index_chunks differs from {label}: {int((got.simulation_indices != i).sum())} "
+                                 f"indices, max |score diff| {ds:g}")
+    msgs = [f"{smi}: _index_chunks (int8, keep_n={KEEP_N}) over a memory map of {n} raw patterns (the file's pages "
+            f"warm), {STREAM_CHUNK} a chunk, against {prep.n_dictionary} entries: {ms:.3f} ms = "
+            f"{n / ms * 1e3:.1f} patterns/s, peak {peak:.1f} MB; indices equal to the eager call's ({ms_e:.3f} ms, "
+            f"peak {peak_e:.1f} MB) and LazyEBSD.dictionary_indexing's ({ms_l:.3f} ms), scores within 1e-6; the HDF5 "
+            f"reader in front of the loop (stream_patterns, h5py) is not run in this phase: the CPU tests hold it"]
+
+    ckpt = folder / "di.npz"
+
+    def cut():
+        for k, item in enumerate(chunks()):
+            if k == STREAM_CUT_AFTER + 1:
+                raise RuntimeError("cut")
+            yield item
+
+    try:
+        _index_chunks(cut(), prep, chunk_size=STREAM_CHUNK, checkpoint_path=ckpt, **kw)
+        raise AssertionError("the cut run did not stop")
+    except RuntimeError as err:
+        if str(err) != "cut":
+            raise
+    with np.load(ckpt) as z:
+        kept = sorted(int(k.split("_")[1]) for k in z.files if k.startswith("scores_"))
+    if kept != [k * STREAM_CHUNK for k in range(STREAM_CUT_AFTER)]:
+        raise AssertionError(f"the cut run checkpointed chunks {kept}")
+    resumed = _index_chunks(chunks(), prep, chunk_size=STREAM_CHUNK, checkpoint_path=ckpt, **kw)
+    if not (np.array_equal(resumed.simulation_indices, got.simulation_indices)
+            and np.array_equal(resumed.scores, got.scores)):
+        raise AssertionError("the resumed run differs from the uninterrupted one")
+    msgs.append(f"{smi}: a run cut after {STREAM_CUT_AFTER + 1} chunks kept {len(kept)} in its checkpoint (results "
+                f"are read one chunk late) and the resumed run equals the uninterrupted one bit for bit")
+
+    reset_launches()
+    on_card, ms_d, _, _ = _peak_mb(lambda: _index_chunks(
+        chunks(), prep, chunk_size=STREAM_CHUNK, preprocess_fn=lambda c: remove_static_background(c, bg, device=dev),
+        preprocess_on_device=True, **kw))
+    launches = read_launches()["remove_background[static]"]
+    on_host, ms_h, _, _ = _peak_mb(lambda: _index_chunks(
+        chunks(), prep, chunk_size=STREAM_CHUNK,
+        preprocess_fn=lambda c: remove_static_background(c, bg, device="cpu").numpy(), **kw))
+    if not (np.array_equal(on_card.simulation_indices, on_host.simulation_indices)
+            and np.array_equal(on_card.scores, on_host.scores)) or launches != n // STREAM_CHUNK:
+        raise AssertionError(f"static removal on the card (kernel D, {launches} launches) and on the host give other "
+                             f"results")
+    msgs.append(f"{smi}: with remove_static_background a chunk on the card (kernel D, {launches} launches) "
+                f"{ms_d:.3f} ms = {n / ms_d * 1e3:.1f} patterns/s, on the host in the reader's thread {ms_h:.3f} ms "
+                f"= {n / ms_h * 1e3:.1f} patterns/s: bit for bit the same results")
+    del mm
+    return msgs
+
+
+def native_phase(dev, scan, smi: str) -> list[str]:
+    """[native]: the host loader builds with g++ here; ``preprocess_u8`` of
+    the main path's patterns within 2e-6 of kernel D's float32 output;
+    host times of its three loops beside NumPy's."""
+    from kikuchipy_tpu_torch import native
+    from kikuchipy_tpu_torch.ops.pattern import remove_static_background
+
+    if not native.available():
+        raise AssertionError(f"the native loader did not build: {native.BUILD_LOG}")
+    sig = tuple(scan.signal_shape)
+    raw = np.ascontiguousarray(scan.data.reshape((-1,) + sig).cpu().numpy())
+    bg = np.asarray(scan.static_background, dtype=np.float32)
+    host = native.preprocess_u8(raw, bg)
+    card = remove_static_background(scan.data.reshape((-1,) + sig), bg, dtype_out=np.float32, out_range=(-1.0, 1.0),
+                                    device=dev).cpu().numpy()
+    err = float(np.abs(host - card).max())
+    if err > 2e-6:
+        raise AssertionError(f"native.preprocess_u8 is {err:g} from kernel D's float32 output")
+    order = np.random.default_rng(0).permutation(raw.shape[0])
+
+    def host_ms(fn, reps: int = 5) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    times = {"u8_to_f32": (host_ms(lambda: native.u8_to_f32(raw)), host_ms(lambda: raw.astype(np.float32))),
+             "reorder_patterns": (host_ms(lambda: native.reorder_patterns(raw, order)), host_ms(lambda: raw[order])),
+             "preprocess_u8": (host_ms(lambda: native.preprocess_u8(raw, bg)), None)}
+    mb = raw.nbytes / 1e6
+    return [f"{smi}: native.available() True ({native.library_path().name}); preprocess_u8 of {raw.shape[0]} patterns "
+            f"within {err:.3g} of kernel D's float32 output (limit 2e-6); host ms on {mb:.1f} MB of uint8: "
+            + "; ".join(f"{k} {a:.3f} ms ({mb / a * 1e3:.1f} MB/s)" + ("" if b is None else f", NumPy {b:.3f} ms")
+                        for k, (a, b) in times.items())]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5244,6 +5648,37 @@ def main(argv=None) -> int:
             row.setdefault("launches_by_path", {"main": main_launches[row["name"]]})
             row["launches_by_path"]["simulation"] = sim_launches[row["name"]]
     log("profiling", f"[simulation], [decomposition], [vbse] and [profiling] took {time.perf_counter() - t0:.1f} s")
+
+    # ---- scale-out: meshes and processes on the one card, streaming, the host loader ----
+    t0 = time.perf_counter()
+    par_msgs, par_launches, prep = parallel_phase(dev, pre, static, dictionary, dict_rot, mp, det, bad_det, xmap,
+                                                  refined.xmap, smi)
+    for msg in par_msgs:
+        log("parallel", msg)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mh_msgs, mh_launches = multihost_phase(dev, dict_rot, mp, pre, static, dictionary, xmap, smi, Path(tmp))
+    for msg in mh_msgs:
+        log("multihost", msg)
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for msg in streaming_phase(dev, scan, dictionary, prep, smi, Path(tmp)):
+            log("streaming", msg)
+    del prep
+    t3 = time.perf_counter()
+    for msg in native_phase(dev, scan, smi):
+        log("native", msg)
+    log("native", f"[parallel] {t1 - t0:.1f} s, [multihost] {t2 - t1:.1f} s, [streaming] {t3 - t2:.1f} s, [native] "
+        f"{time.perf_counter() - t3:.1f} s")
+    for row in table:
+        by_path = row.setdefault("launches_by_path", {})
+        if row["name"] == "lambert_project":
+            by_path.update({k: v for k, v in par_launches.items() if k.startswith("parallel fused")})
+        for mode, wrapper in NM_WRAPPER.items():
+            if row["name"] == wrapper:
+                by_path[f"parallel refine {mode}"] = par_launches[f"parallel refine {mode}"]
+        if row["name"] == LM_LOOP["orientation"]:
+            by_path.update(mh_launches)
 
     if "jax" in sys.modules or "kikuchipy_tpu" in sys.modules:
         raise AssertionError("chip_smoke imported JAX or the JAX package")

@@ -301,6 +301,56 @@ def _index_resident(
     return scores.to(dtype), idx
 
 
+def _check_resident_precision(precision: str, what: str = "streamed dictionary indexing") -> None:
+    """Raise ``ValueError`` unless ``precision`` is one of
+    :func:`_index_resident`'s tiers (the JAX package's streamed and sharded
+    paths call that function, which has no ``"pallas-int8"`` tier)."""
+    if precision not in PRECISIONS or precision == "pallas-int8":
+        raise ValueError(
+            f"precision={precision!r}: {what} takes one of {tuple(p for p in PRECISIONS if p != 'pallas-int8')}"
+        )
+
+
+def _check_prepared_metric(dictionary: PreparedDictionary, metric: SimilarityMetric) -> None:
+    if dictionary.metric_name != metric.name:
+        raise ValueError(
+            f"PreparedDictionary was prepared with metric {dictionary.metric_name!r}, requested {metric.name!r}"
+        )
+
+
+def _resident_dictionary(dictionary, metric: SimilarityMetric, signal_mask, precision: str, device,
+                         n_pixels: int | None = None):
+    """The dictionary of a path that keeps it resident on ``device`` (the
+    streamed, sharded, multi-process and lazy paths): ``(dict_prepared,
+    dict_q, dict_scale, keep_idx)``.
+
+    A :class:`PreparedDictionary` (of ``metric``) gives its prepared rows and,
+    for ``precision="int8"``, its quantization, computed once and kept; an
+    array ``(m, sy, sx)`` or ``(m, d)`` is prepared with ``signal_mask`` and
+    for ``"int8"`` quantized here. ``dict_q`` and ``dict_scale`` are None
+    at other precisions; ``keep_idx`` is the kept pixels of ``signal_mask``
+    (None without one), which must have ``n_pixels`` elements, the
+    patterns' (default: the dictionary's, or for a prepared one its own
+    size)."""
+    prepared_in = isinstance(dictionary, PreparedDictionary)
+    if prepared_in:
+        _check_prepared_metric(dictionary, metric)
+    else:
+        rows = as_tensor(dictionary, device)
+        rows = rows.reshape(rows.shape[0], -1)
+    if n_pixels is None:
+        n_pixels = rows.shape[1] if not prepared_in else 0 if signal_mask is None else np.asarray(signal_mask).size
+    keep_np = signal_mask_to_idx(signal_mask, n_pixels)
+    keep_idx = None if keep_np is None else torch.as_tensor(keep_np, device=device).long()
+    if prepared_in:
+        dict_prepared = dictionary.prepared.to(device)
+        q = tuple(t.to(device) for t in dictionary.quantized_int8()) if precision == "int8" else (None, None)
+    else:
+        dict_prepared = metric.prepare(rows, keep_idx)
+        q = _quantize_rows_int8(dict_prepared) if precision == "int8" else (None, None)
+    return dict_prepared, q[0], q[1], keep_idx
+
+
 def _match_merge_step(exp_prepared, dict_prepared, best_scores, best_idx, index_offset: int, keep_n: int):
     """Match one dictionary tile exactly and fold it into the carried
     top-k (the streaming sources run at ``"highest"`` whatever

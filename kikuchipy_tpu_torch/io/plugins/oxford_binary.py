@@ -166,11 +166,14 @@ class _EbspReader:
             metadata.update(step_x=float(step), step_y=float(step))
 
             # Out-of-order storage: gather into map order by the byte-position
-            # table (reads the patterns).
+            # table (reads the patterns; the threaded native gather where it
+            # builds).
             bytes_per = self.header_size + self.n_bytes + self.footer_size
             order = ((self.pattern_starts - self.first_pattern_position) // bytes_per).astype(np.int64)
             if not np.array_equal(order, np.arange(order.size)):
-                data = data[order]
+                from kikuchipy_tpu_torch import native
+
+                data = native.reorder_patterns(np.asarray(data), order)
 
         n_expected = int(np.prod(nav_shape))
         if lazy:

@@ -345,8 +345,13 @@ class LazyEBSD:
         :class:`~kikuchipy_tpu_torch.crystallography.crystal_map.CrystalMap`.
         """
         from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap, Phase, PhaseList
-        from kikuchipy_tpu_torch.indexing.di import PRECISIONS, _default_tile, _index_resident, prepare_dictionary
-        from kikuchipy_tpu_torch.indexing.metrics import get_metric, signal_mask_to_idx
+        from kikuchipy_tpu_torch.indexing.di import (
+            _check_resident_precision,
+            _default_tile,
+            _index_resident,
+            _resident_dictionary,
+        )
+        from kikuchipy_tpu_torch.indexing.metrics import get_metric
 
         if navigation_mask is not None:
             return self.compute().dictionary_indexing(
@@ -355,32 +360,25 @@ class LazyEBSD:
             )
         precision = kwargs.pop("precision", "highest")
         approx = kwargs.pop("approx_topk", False)
-        if precision not in PRECISIONS or precision == "pallas-int8":
-            raise ValueError(
-                f"precision={precision!r}: streamed dictionary indexing takes one of "
-                f"{tuple(p for p in PRECISIONS if p != 'pallas-int8')}"
-            )
+        _check_resident_precision(precision)
         metric_obj = get_metric(metric)
         dict_xmap = getattr(dictionary, "xmap", None)
         if dict_xmap is None:
             raise ValueError("dictionary has no xmap with rotations")
         dict_data = dictionary.data
-        prep = prepare_dictionary(
-            dict_data.reshape((-1,) + tuple(dict_data.shape[-2:])), metric=metric_obj, signal_mask=signal_mask,
-            device=self.device,
+        dict_prepared, dict_q, dict_scale, keep_idx = _resident_dictionary(
+            dict_data.reshape((-1,) + tuple(dict_data.shape[-2:])), metric_obj, signal_mask, precision, self.device,
+            n_pixels=int(np.prod(self.signal_shape)),
         )
-        m = prep.prepared.shape[0]
+        m = dict_prepared.shape[0]
         keep_n_eff = min(keep_n, m)
-        keep_np = signal_mask_to_idx(signal_mask, int(np.prod(self.signal_shape)))
-        keep_idx = None if keep_np is None else torch.as_tensor(keep_np, device=self.device).long()
         tile = min(n_per_iteration or _default_tile(self.chunk_size), m)
-        dict_q, dict_scale = prep.quantized_int8() if precision == "int8" else (None, None)
 
         t0 = time.perf_counter()
         scores_parts, idx_parts = [], []
         for _start, _stop, s in self._iter_chunks():
             exp = metric_obj.prepare(s.data, keep_idx)
-            sc, ix = _index_resident(exp, prep.prepared, keep_n_eff, tile, precision, approx, dict_q, dict_scale)
+            sc, ix = _index_resident(exp, dict_prepared, keep_n_eff, tile, precision, approx, dict_q, dict_scale)
             scores_parts.append(sc)
             idx_parts.append(ix)
         idx = torch.cat(idx_parts).cpu().numpy()

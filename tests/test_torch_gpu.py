@@ -2332,3 +2332,159 @@ def test_vbse_sums_on_the_card_are_the_cpus_bit_for_bit(cuda, grid):
     assert card.get_virtual_bse_intensity((5, 50, 3, 41)).tobytes() == cpu.get_virtual_bse_intensity(
         (5, 50, 3, 41)).tobytes()
     assert card.get_rgb_image((0, 0), (1, 1), (2, 2)).tobytes() == cpu.get_rgb_image((0, 0), (1, 1), (2, 2)).tobytes()
+
+
+# ------------- scale-out: virtual shards of the card, streamed chunks ------------- #
+
+
+def _module(name, path):
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parents[1] / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _top1_where_clear(got, ref_s, ref_i, atol, cols=None):
+    # A shard's IEEE product may move a score's last bits: top-1 is held
+    # where the reference's top-1/top-2 gap exceeds TOL, the first `cols`
+    # scores (all by default) within atol (both lists are sorted).
+    clear = (ref_s[:, 0] - ref_s[:, 1]) > TOL
+    assert clear.mean() > 0.9
+    assert (got[1][:, 0] == ref_i[:, 0])[clear].all()
+    np.testing.assert_allclose(got[0][:, :cols], ref_s[:, :cols], rtol=0, atol=atol)
+
+
+def _di_problem(n=200, m=1001, d=900, seed=0):
+    rng = np.random.default_rng(seed)
+    exp = rng.normal(size=(n, d)).astype(np.float32)
+    dic = rng.normal(size=(m, d)).astype(np.float32)
+    dic[::7][: n // 2] = exp[: n // 2] + 0.3 * dic[::7][: n // 2]
+    return exp, dic
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 4), (4, 1)])
+@pytest.mark.parametrize("precision, approx", [("highest", False), ("int8", False), ("f16", True)])
+def test_sharded_di_on_virtual_shards_of_the_card(cuda, shape, precision, approx):
+    from kikuchipy_tpu_torch.indexing.di import dictionary_index, prepare_dictionary
+    from kikuchipy_tpu_torch.parallel import make_mesh, sharded_dictionary_index
+
+    exp, dic = _di_problem()
+    prep = prepare_dictionary(dic, quantize=True, device=cuda)
+    kw = dict(keep_n=10, precision=precision, approx_topk=approx)
+    got = sharded_dictionary_index(exp, prep, mesh=make_mesh(*shape, devices=[cuda] * (shape[0] * shape[1])), **kw)
+    # With dict shards the group compression sees other groups: the exact
+    # selection's top-1 is the reference there.
+    grouped = approx and shape[1] > 1
+    ref = dictionary_index(exp, prep, device=cuda, **dict(kw, approx_topk=approx and not grouped))
+    _top1_where_clear(got, ref.scores, ref.simulation_indices, 5e-4 if precision == "f16" else 1e-5,
+                      cols=1 if grouped else None)
+    assert (got[1] < dic.shape[0]).all()
+
+
+def test_fused_on_virtual_shards_of_the_card(cuda):
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
+    from kikuchipy_tpu_torch.indexing.di import dictionary_index
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.parallel import make_mesh, sharded_fused_dictionary_index
+    from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
+
+    master = _module("chip_smoke_inputs", "chip_smoke.py").master_pattern_data(side=101)
+    mp = kt.EBSDMasterPattern(master, device=cuda)
+    det = kt.EBSDDetector(shape=(30, 30), pc=(0.42, 0.28, 0.5), sample_tilt=70)
+    rot = super_fibonacci(1000).astype(np.float32)
+    sim = mp.get_patterns(rot[::10], det).data.cpu().numpy()
+    exp = sim + np.random.default_rng(1).normal(scale=0.05 * sim.std(), size=sim.shape).astype(np.float32)
+    dc = direction_cosines_from_detector(det, device=cuda)
+    before = lp.lambert_project.launches
+    got = sharded_fused_dictionary_index(exp, rot, master, dc, 101, 101, 50.0, keep_n=5,
+                                         mesh=make_mesh(2, 2, devices=[cuda] * 4))
+    assert lp.lambert_project.launches - before == 4
+    ref = dictionary_index(exp, project_fn=mp.projector(det), rotations=rot, keep_n=5, precision="highest",
+                           device=cuda)
+    _top1_where_clear(got, ref.scores, ref.simulation_indices, 1e-5)
+    assert (got[1][:, 0] == np.arange(0, 1000, 10)).all()
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_sharded_refinement_on_the_card_is_the_single_device_call(cuda, mode):
+    # The kernel refines each point alone; the rows' preparation (PyTorch's
+    # row means and squared norms) rounds as the whole map's only where the
+    # reduction splits a row the same way, which depends on the number of
+    # rows: at 9 points in shards of 3, two scores moved by an ulp. At 4,096
+    # rows a shard, as in chip_smoke.py, the rows are the same bytes.
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.parallel import make_mesh, refine as pr
+    from kikuchipy_tpu_torch.signals.ebsd import EBSD
+
+    n = 4 * 4096
+    mp, det, scan, start = _module("torch_multihost_worker", "tests/_torch_multihost_worker.py").refinement_problem(
+        n=n, device=cuda)
+    if mode != "orientation":
+        det = dataclasses.replace(det, pc=np.asarray(det.pc).reshape(-1, 3)[0] + [0.004, -0.004, 0.004])
+    sig = EBSD(data=scan.reshape(128, 128, 32, 32), detector=det, device=cuda)
+    whole = _prepare_experimental(sig.data.reshape(n, -1), None)
+    shard = _prepare_experimental(sig.data.reshape(n, -1)[: n // 4], None)
+    assert all(torch.equal(a[: n // 4], b) for a, b in zip(whole, shard))
+    name, sharded, wrapper = {
+        "orientation": ("refine_orientation", pr.sharded_refine_orientation, rn.nelder_mead_orientation),
+        "pc": ("refine_projection_center", pr.sharded_refine_projection_center, rn.nelder_mead_projection_center),
+        "joint": ("refine_orientation_projection_center", pr.sharded_refine_orientation_projection_center,
+                  rn.nelder_mead_orientation_projection_center)}[mode]
+    kw = dict(xmap=CrystalMap(rotations=start, shape=(128, 128)), detector=det, master_pattern=mp, max_iters=60)
+    want = getattr(sig, name)(**kw)
+    before = wrapper.launches
+    got = sharded(sig, mesh=make_mesh(4, 1, devices=[cuda] * 4), **kw)
+    assert wrapper.launches - before == 4
+    np.testing.assert_array_equal(got.xmap.rotations, want.xmap.rotations)
+    np.testing.assert_array_equal(got.xmap.prop["scores"], want.xmap.prop["scores"])
+    np.testing.assert_array_equal(np.asarray(got.detector.pc), np.asarray(want.detector.pc))
+
+
+@pytest.mark.parametrize("precision", ["int8", "highest"])
+def test_index_chunks_on_the_card_equals_eager_di(cuda, tmp_path, precision):
+    from kikuchipy_tpu_torch.indexing.di import dictionary_index
+    from kikuchipy_tpu_torch.io.streaming import _index_chunks
+    from kikuchipy_tpu_torch.ops.pattern import remove_static_background
+
+    rng = np.random.default_rng(3)
+    data = rng.integers(0, 256, (3000, 30, 30), dtype=np.uint8)
+    dic = rng.normal(size=(700, 30, 30)).astype(np.float32)
+    dic[::5][:100] = data[:100]
+    path = tmp_path / "scan.u8"
+    data.tofile(path)
+    mm = np.memmap(path, dtype=np.uint8, mode="r", shape=data.shape)
+    kw = dict(keep_n=5, precision=precision, device=cuda)
+
+    def chunks():
+        return ((s, mm[s:s + 512]) for s in range(0, 3000, 512))
+
+    eager = dictionary_index(data, dic, **kw)
+    got = _index_chunks(chunks(), dic, chunk_size=512, **kw)
+    _top1_where_clear((got.scores, got.simulation_indices), eager.scores, eager.simulation_indices, 1e-6)
+    if precision == "int8":  # exact sums select the same candidates
+        np.testing.assert_array_equal(got.simulation_indices, eager.simulation_indices)
+    bg = rng.integers(1, 100, (30, 30), dtype=np.uint8)
+    on_card = _index_chunks(chunks(), dic, chunk_size=512, preprocess_on_device=True,
+                            preprocess_fn=lambda c: remove_static_background(c, bg, device=cuda), **kw)
+    on_host = _index_chunks(chunks(), dic, chunk_size=512,
+                            preprocess_fn=lambda c: remove_static_background(c, bg, device="cpu").numpy(), **kw)
+    np.testing.assert_array_equal(on_card.simulation_indices, on_host.simulation_indices)
+    np.testing.assert_array_equal(on_card.scores, on_host.scores)
+
+
+def test_native_loader_builds_on_the_cards_machine(cuda):
+    from kikuchipy_tpu_torch import native
+    from kikuchipy_tpu_torch.ops.pattern import remove_static_background
+
+    assert native.available(), native.BUILD_LOG
+    rng = np.random.default_rng(4)
+    pats = rng.integers(0, 256, (500, 60, 60), dtype=np.uint8)
+    bg = rng.integers(1, 256, (60, 60)).astype(np.float32)
+    card = remove_static_background(pats, bg, dtype_out=np.float32, out_range=(-1.0, 1.0), device=cuda).cpu().numpy()
+    np.testing.assert_allclose(native.preprocess_u8(pats, bg), card, rtol=0, atol=2e-6)

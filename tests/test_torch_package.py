@@ -32,7 +32,8 @@ def test_imports_leave_no_jax_in_sys_modules():
     walked = set(_modules())
     for name in ("simulation", "simulation.kikuchi_pattern_simulator", "simulations", "imaging.vbse", "draw.sphere",
                  "draw.detector_plotter", "data", "data._registry", "pattern", "pattern_chunk",
-                 "ops.decomposition", "utils.profiling"):
+                 "ops.decomposition", "utils.profiling", "parallel", "parallel.mesh", "parallel.multihost",
+                 "parallel.refine", "io.streaming", "native"):
         assert f"kikuchipy_tpu_torch.{name}" in walked, name
     code = (
         "import importlib, sys\n"
@@ -50,7 +51,7 @@ def test_no_import_statement_names_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|kikuchipy_tpu)(\s|\.|$)", re.M)
     scripts = ("chip_smoke.py", "compare_kernel_times.py", "kernel_variants.py", "refine_variants.py",
                "lambert_variants.py", "lm_variants.py", "neighbours_variants.py", "preprocess_variants.py",
-               "sass_count.py", "staging_variants.py")
+               "sass_count.py", "staging_variants.py", "tests/_torch_multihost_worker.py")
     for path in list(PKG.rglob("*.py")) + [ROOT / name for name in scripts]:
         assert not pattern.search(path.read_text()), path
 
@@ -131,6 +132,20 @@ def test_no_import_statement_names_jax():
         lambda: importlib.import_module("kikuchipy_tpu_torch.ops.decomposition").pca_reconstruct(np.ones((3, 4, 4)), 2),
         lambda: kikuchipy_tpu_torch.pattern.chunk.get_dynamic_background(np.ones((2, 8, 8), np.uint8)),
         lambda: _data_accessor_in_a_temporary_directory(),
+        # The meshes take every CUDA device, and the paths that make one.
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").make_mesh(),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").multihost_mesh(),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").sharded_dictionary_index(
+            np.ones((2, 4, 4)), np.ones((3, 4, 4))),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").multihost_dictionary_index(
+            np.ones((2, 4, 4)), np.ones((3, 4, 4))),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").sharded_refine_orientation(
+            kikuchipy_tpu_torch.EBSD(np.ones((2, 4, 4), np.uint8), device="cpu")),
+        lambda: importlib.import_module("kikuchipy_tpu_torch.parallel").multihost_refine_orientation(
+            kikuchipy_tpu_torch.EBSD(np.ones((2, 4, 4), np.uint8), device="cpu")),
+        # Streamed indexing (the device is resolved before the file is read).
+        lambda: importlib.import_module("kikuchipy_tpu_torch.io.streaming").dictionary_index_streamed(
+            "scan.h5", np.ones((3, 4, 4))),
         # Neighbour averaging and the dot-product maps.
         *(
             (lambda name=name: getattr(importlib.import_module("kikuchipy_tpu_torch.ops.neighbours"), name)(
@@ -208,7 +223,7 @@ def _jax_all(subpackage: str) -> list[str]:
     import ast
 
     names = []
-    module = ROOT / "kikuchipy_tpu" / f"{subpackage}.py"
+    module = ROOT / "kikuchipy_tpu" / f"{subpackage.replace('.', '/')}.py"
     path = module if module.exists() else ROOT / "kikuchipy_tpu" / subpackage / "__init__.py"
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -229,7 +244,8 @@ def _port_defines() -> set[str]:
 
 
 @pytest.mark.parametrize("subpackage", sorted(p.parent.name for p in (ROOT / "kikuchipy_tpu").glob("*/__init__.py"))
-                         + ["pattern", "pattern_chunk", "simulations"])
+                         + ["pattern", "pattern_chunk", "simulations", "io.streaming", "parallel.mesh",
+                            "parallel.multihost", "parallel.refine"])
 def test_ported_names_are_in_the_same_subpackage(subpackage):
     # The port keeps the JAX package's public names where it has them: a
     # name of a JAX subpackage's (or top-level module's) __all__ that the
@@ -242,6 +258,34 @@ def test_ported_names_are_in_the_same_subpackage(subpackage):
     missing = [name for name in ported if not hasattr(mod, name)]
     assert not missing, (subpackage, missing)
     assert set(ported) <= set(getattr(mod, "__all__", ())), subpackage
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.mesh", "parallel.multihost", "parallel.refine",
+                                    "io.streaming", "native"])
+def test_scale_out_modules_keep_jax_signatures(module):
+    # JAX's arguments in JAX's order for every name both define; the port
+    # adds only `devices=None` (or `device=None`), at the end or before a
+    # **kwargs.
+    import inspect
+
+    jax_mod = importlib.import_module(f"kikuchipy_tpu.{module}")
+    port = importlib.import_module(f"kikuchipy_tpu_torch.{module}")
+    assert set(jax_mod.__all__) <= set(port.__all__), module
+
+    def params(obj):
+        out = [(p.name, p.kind, p.default) for p in inspect.signature(obj).parameters.values()]
+        return [p for p in out if not (p[0] in ("device", "devices") and p[2] is None)]
+
+    for name in jax_mod.__all__:
+        assert params(getattr(port, name)) == params(getattr(jax_mod, name)), (module, name)
+    added = {name: [p for p in inspect.signature(getattr(port, name)).parameters
+                    if p in ("device", "devices") and p not in inspect.signature(getattr(jax_mod, name)).parameters]
+             for name in jax_mod.__all__}
+    assert {k: v for k, v in added.items() if v} == {
+        "parallel": {"multihost_mesh": ["devices"], "multihost_refine_orientation": ["devices"]},
+        "parallel.multihost": {"multihost_mesh": ["devices"], "multihost_refine_orientation": ["devices"]},
+        "io.streaming": {"dictionary_index_streamed": ["device"]},
+    }.get(module, {}), module
 
 
 @pytest.mark.parametrize(
