@@ -179,19 +179,23 @@ the card's name and power limit, and the device check):
    95,655, the device busy share, the kept rows equal to the CPU's at 6
    degrees); ``[neighbours]`` runs ``EBSD.average_neighbour_patterns`` on
    the 16,384-pattern scan (one launch of kernel G, ``csrc/neighbours.cu``
-   through ``ops/neighbours.py`` ``average_neighbours``, and nothing else)
-   and holds kernel G bit for bit against its plain version with five
-   windows there, on maps of 1 x 1, 1 x 128, 128 x 1, 3 x 3 and 9 x 11 with
-   60 x 60 and 1 x 16 patterns, and from and to uint16 and float32;
-   also with 13 x 13 rectangular and Gaussian windows on the scan (169 taps,
-   past the 128 passed as launch arguments: the device table) and on a 16 x
-   16 map of 480 x 480 uint8 patterns (59 MB; float32 averages past the
-   shared-memory budget: the device-memory scratch);
-   ``[neighbours-times]`` times it warm and with L2 flushed against its
-   bytes and float64 bounds (and beside the 0.546-0.565 ms of the runs
-   before the table and the scratch), its plain version and a depthwise
-   ``conv2d`` that computes the same weighted mean (timed only), and the
-   wide windows and the large patterns; ``[calibration]``
+   through ``ops/neighbours.py`` ``average_neighbours``, and nothing else:
+   its vector kernel's 5-tap integer route) and holds kernel G bit for bit
+   against its plain version with seven windows there (negative weights
+   among them), on maps of 1 x 1, 1 x 128, 128 x 1, 3 x 3 and 9 x 11 with
+   60 x 60, 1 x 16 and 7 x 9 patterns (no whole 16-byte vectors: the
+   general kernel), on data a byte past a 16-byte boundary, and from and
+   to uint16 and float32, each call on the route ``neighbours_plan``
+   names; also with 13 x 13 rectangular and Gaussian windows on the scan
+   (169 taps, past the 128 passed as launch arguments: the device table)
+   and on a 16 x 16 map of 480 x 480 uint8 patterns (59 MB; float32
+   averages past the shared-memory budget: the general kernel's
+   device-memory scratch); ``[neighbours-times]`` times it warm and with
+   L2 flushed against its bytes and issue-slot bounds (and beside the
+   0.5445-0.5634 ms of the block-a-point kernel before the redesign), its
+   plain version and a depthwise ``conv2d`` that computes the same weighted
+   mean (timed only), the float64 route at 9 taps, and the wide windows
+   and the large patterns; ``[calibration]``
    takes the PC mode's refined PCs through ``extrapolate_pc`` and
    ``fit_pc`` (the fitted plane within the refined PCs' scatter of the
    extrapolated one, the sample tilt within a degree), projects the map
@@ -219,7 +223,7 @@ the card's name and power limit, and the device check):
    ``hough_vote.vote_disagreements``: the clear, near-tie and
    inlier-boundary patterns counted, and the largest R and err differences
    to what each is held against); kernel H's time warm and cold against its operations
-   and issue-slot bounds; ``[hough-pc]`` runs
+   and issue-slot bounds, with its block shape and pole route; ``[hough-pc]`` runs
    ``hough_indexing_optimize_pc(batch=True)`` on JAX's four-pattern case
    (largest PC error under 1.2e-2) and on the scan from the PC off by (0.01,
    -0.01, 0.01) (the mean error below the start's);
@@ -2807,6 +2811,8 @@ NEIGHBOUR_WINDOWS = {
     "gaussian 3x3 std 2": dict(window="gaussian", window_shape=(3, 3), std=2),
     "(3,)": dict(window=None, window_shape=(3,)),
     "5x5 rectangular": dict(window="rectangular", window_shape=(5, 5)),
+    "rectangular 3x3": dict(window="rectangular", window_shape=(3, 3)),
+    "negative 3x3": dict(window=np.array([[-0.5, 1.0, 2.0], [1.0, 4.0, -1.25], [0.5, 1.0, -0.75]])),
 }
 # ... past the 128 taps passed as launch arguments (the device table), on the
 # main path's scan; and a map of patterns whose float32 averages pass the
@@ -2817,9 +2823,15 @@ NEIGHBOUR_WIDE_WINDOWS = {
 }
 NEIGHBOUR_BIG_MAP = (16, 16)
 NEIGHBOUR_BIG_PATTERN = (480, 480)
-# Kernel G's 5-tap time on the main path's scan in the runs before its
-# repair (H100 80GB HBM3, 700 W; PERF.md), warm.
-NEIGHBOUR_5TAP_MS = (0.546, 0.565)
+# Kernel G's 5-tap time on the main path's scan before its redesign (the
+# block-a-point kernel the vector kernel replaced; H100 80GB HBM3, 700 W;
+# PERF.md), warm.
+NEIGHBOUR_5TAP_MS = (0.5445, 0.5634)
+# SASS instructions of a pixel of kernel G's main-path instantiation
+# (sass_count.py neighbours_pixel: neighbours_vec_kernel<uint8_t, uint8_t,
+# 5, true>, a thread's 16 pixels); the run recounts it where the toolkit
+# has cuobjdump.
+SASS_NEIGHBOURS_PER_PIXEL = 32.125
 # Coarser dictionary of the second phase in [calibration] (cubochoric grid).
 COARSE_RESOLUTION_DEG = 4.0
 # Points of the fitted-PC projection held against the CPU in [calibration].
@@ -2897,15 +2909,20 @@ def neighbours_library(p, w):
     return ((out - lo) / (hi - lo) * 255.0).to(torch.uint8).reshape(ny, nx, sy, sx)
 
 
-def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, list[str], list[str]]:
+def neighbours_phases(device, scan, smi: str, main_count: int, pixel_sass: float, clock_mhz: float,
+                      sms: int) -> tuple[dict, list[str], list[str]]:
     """``[neighbours]``: ``EBSD.average_neighbour_patterns`` on the main
     path's 16,384-pattern scan (one launch of kernel G), then kernel G
     against its plain version bit for bit on the scan with each window of
     NEIGHBOUR_WINDOWS, on the edge shapes (maps of 1 x 1, 1 x N, N x 1 and
-    3 x 3, 1 x 16 patterns) and other storage types. ``[neighbours-times]``:
-    kernel G at the main path's shape warm and with L2 flushed, its bounds,
-    its plain version, and the library yardstick. ``main_count`` is kernel
-    G's launches in the main path's run. Returns kernel G's row, and both
+    3 x 3, 1 x 16 and 7 x 9 patterns), on data a byte past a 16-byte
+    boundary and other storage types, each call on the route
+    ``neighbours_plan`` names (the vector kernel, on its integer route for
+    the EBSD call, or the general kernel). ``[neighbours-times]``: kernel G
+    at the main path's shape warm and with L2 flushed, its bounds (bytes,
+    float64 operations, issue slots at ``pixel_sass`` a pixel), its plain
+    version, and the library yardstick. ``main_count`` is kernel G's
+    launches in the main path's run. Returns kernel G's row, and both
     phases' messages."""
     import torch
 
@@ -2921,11 +2938,18 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
     torch.cuda.synchronize()
     t_call = (time.perf_counter() - t0) * 1e3
     counts = read_launches()
-    if counts["average_neighbours"] != 1 or sum(counts.values()) != 1:
-        raise AssertionError(f"EBSD.average_neighbour_patterns was not one launch of kernel G alone: {counts}")
+    if (counts["average_neighbours"] != 1 or sum(v for k, v in counts.items() if "[" not in k) != 1
+            or counts["average_neighbours[vector]"] != 1):
+        raise AssertionError(f"EBSD.average_neighbour_patterns was not one launch of kernel G's vector kernel alone: "
+                             f"{counts}")
+    main_plan = ng.neighbours_plan(p.dtype, torch.uint8, p.shape[2] * p.shape[3],
+                                   ng.window_taps(ng._resolve_window("circular", (3, 3)))[1], 16, 16)
+    if not (main_plan.route == "vector" and main_plan.integer and main_plan.taps == 5):
+        raise AssertionError(f"the main path's scan is not on the vector kernel's 5-tap integer route: {main_plan}")
     if avg.data.dtype != torch.uint8 or tuple(avg.data.shape) != tuple(p.shape):
         raise AssertionError(f"average_neighbour_patterns gave {avg.data.dtype} {tuple(avg.data.shape)}")
     max_err = 0.0
+    routes = {"vector": 0, "vector (integer)": 0, "general": 0}
 
     def check(label, data, kw, dtype_out=None):
         nonlocal max_err
@@ -2933,7 +2957,13 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
                                **{k: v for k, v in kw.items() if k not in ("window", "window_shape")})
         offsets, weights = ng.window_taps(w)
         dtype_out = data.dtype if dtype_out is None else dtype_out
+        plan = ng.neighbours_plan(data.dtype, dtype_out, data.shape[2] * data.shape[3], weights,
+                                  ng._alignment(data.data_ptr()), 16)
+        before = dict(ng.average_neighbours.mode_launches)
         got = ng.average_neighbours(data, offsets, weights, dtype_out)
+        if ng.average_neighbours.mode_launches[plan.route] != before[plan.route] + 1:
+            raise AssertionError(f"kernel G on {label} did not take the route its plan names ({plan})")
+        routes[plan.route if not plan.integer else "vector (integer)"] += 1
         ref = ng.average_neighbours_plain(data, offsets, weights, dtype_out)
         torch.cuda.synchronize()
         diff = (got.to(torch.float64) - ref.to(torch.float64)).abs()
@@ -2959,12 +2989,20 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
         check(f"the scan, {name}", p, kw)
     rng = np.random.default_rng(11)
     edge = [((1, 1), (60, 60)), ((1, 128), (60, 60)), ((128, 1), (60, 60)), ((3, 3), (60, 60)), ((3, 3), (1, 16)),
-            ((9, 11), (1, 16))]
+            ((9, 11), (1, 16)), ((9, 11), (7, 9))]
     for nav, sig in edge:
         data = torch.as_tensor(rng.integers(0, 256, size=nav + sig, dtype=np.uint8), device=device)
         for name, kw in NEIGHBOUR_WINDOWS.items():
             check(f"map {nav}, patterns {sig}, {name}", data, kw)
         cases.append(f"map {nav} x patterns {sig} (5 windows)")
+    # A byte past a 16-byte boundary: the general kernel.
+    flat = torch.empty(32 * 32 * 3600 + 16, dtype=torch.uint8, device=device)
+    shifted = flat[1:1 + 32 * 32 * 3600].view(32, 32, 60, 60)
+    shifted.copy_(p[:32, :32])
+    for name in ("circular 3x3", "gaussian 3x3 std 2"):
+        check(f"32 x 32 of the scan a byte past a 16-byte boundary, {name}", shifted, NEIGHBOUR_WINDOWS[name])
+    cases.append("32 x 32 of the scan a byte past a 16-byte boundary (2 windows)")
+    del flat, shifted
     sub = p[:32, :32]
     for dtype_in, dtype_out in ((torch.uint16, torch.uint16), (torch.float32, torch.float32),
                                 (torch.uint8, torch.float32), (torch.float32, torch.uint8)):
@@ -2996,8 +3034,10 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
                                                   lead_ms=2.0))
     del big
     check_msg = (f"EBSD.average_neighbour_patterns() on the main path's {ny * nx} patterns: one launch of kernel G "
-                 f"({counts['average_neighbours']}), {t_call:.2f} ms first call; kernel G == its plain version bit "
-                 f"for bit on {len(cases)} cases: " + "; ".join(cases))
+                 f"({counts['average_neighbours']}, the vector kernel's 5-tap integer route, a block of "
+                 f"{main_plan.warps} warps a map point), {t_call:.2f} ms first call; kernel G == its plain "
+                 f"version bit for bit on {len(cases)} cases ({sum(routes.values())} calls by route: {routes}): "
+                 + "; ".join(cases))
 
     # ---- times ----
     w = ng._resolve_window("circular", (3, 3))
@@ -3015,8 +3055,11 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
     del flush
     n, npix = ny * nx, sy * sx
     t_bytes = 2 * n * npix / PEAK_BYTES * 1e3
-    t_ops = n * npix * 2 * len(weights) / PEAK_F64_FLOPS * 1e3
+    # The integer route does no float64 operation; the float64 route's count
+    # is kept for the other windows' rows.
+    t_ops = 0.0 if main_plan.integer else n * npix * 2 * len(weights) / PEAK_F64_FLOPS * 1e3
     bound = max(t_bytes, t_ops)
+    t_instr = n * npix * pixel_sass / 32 / (sms * WARP_INSTR_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
     row = {
         "name": "average_neighbours", "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/neighbours.cu",
         "replaces": "kikuchipy_tpu/ops/neighbors.py:57 _average_impl under :78 average_neighbour_patterns",
@@ -3024,21 +3067,32 @@ def neighbours_phases(device, scan, smi: str, main_count: int) -> tuple[dict, li
         "launches_by_path": {"main": main_count, "neighbours": counts["average_neighbours"]},
         "max_abs_err": max_err, "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": library_ms,
+        "instruction_bound_ms": t_instr, "route": str(main_plan),
         "shape": f"map {ny} x {nx}, patterns {sy} x {sx} uint8 -> uint8, {len(weights)} taps",
         "note": "launches: the EBSD.average_neighbour_patterns call's, launches_by_path main: the main path's run; "
-                "max_abs_err: the largest |kernel - plain| over [neighbours]' cases; ms with launches back to back, ms_cold with L2 flushed before "
-                "each; library: depthwise conv2d over the map, the pixels as channels, IEEE float32, the quotient "
-                "and the rescale (timed only)",
+                "max_abs_err: the largest |kernel - plain| over [neighbours]' cases; ms with launches back to back, "
+                "ms_cold with L2 flushed before each; bound: bytes (the integer route does no float64 operation); "
+                "instruction_bound_ms: sass_count.py neighbours_pixel a pixel; library: depthwise conv2d over the "
+                "map, the pixels as channels, IEEE float32, the quotient and the rescale (timed only)",
     }
     times_msg = (f"{smi}: kernel G at map {ny} x {nx}, 60 x 60 uint8, {len(weights)} taps: {ms:.4f} ms warm, "
                  f"{ms_cold:.4f} ms cold (bound {bound:.4f} ms by {row['bound_by']}: bytes {t_bytes:.4f} ms for "
-                 f"{2 * n * npix / 1e6:.1f} MB, float64 operations {t_ops:.4f} ms at {PEAK_F64_FLOPS / 1e12:g} TFLOP/s; "
-                 f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it); plain {plain_ms:.3f} ms; library (depthwise conv2d, "
+                 f"{2 * n * npix / 1e6:.1f} MB, no float64 operation on the integer route; "
+                 f"{bound / ms:.2%} / {bound / ms_cold:.2%} of it; issue slots {t_instr:.4f} ms at {pixel_sass:g} "
+                 f"SASS a pixel and {clock_mhz:.0f} MHz, {t_instr / ms:.2%} / {t_instr / ms_cold:.2%} of it); "
+                 f"plain {plain_ms:.3f} ms; library (depthwise conv2d, "
                  f"float32, timed only) {library_ms:.3f} ms, its uint8 output within {int(lib_diff.max())} gray of "
                  f"kernel G's on {float((lib_diff > 0).float().mean()):.4%} of the pixels")
     lo, hi = NEIGHBOUR_5TAP_MS
     where = "below" if ms < lo else "above" if ms > hi else "within"
-    times_msg += f"; the 5-tap time {where} the range of the runs before the repair ({lo}-{hi} ms)"
+    times_msg += f"; the 5-tap time {where} the range of the block-a-point kernel before the redesign ({lo}-{hi} ms)"
+    # The float64 route at 9 taps (the Gaussian) on the scan.
+    offsets9, weights9 = ng.window_taps(ng._resolve_window("gaussian", (3, 3), std=2))
+    ms9 = cuda_ms(lambda: ng.average_neighbours(p, offsets9, weights9, torch.uint8), 20, lead_ms=2.0)
+    t_ops9 = n * npix * 2 * len(weights9) / PEAK_F64_FLOPS * 1e3
+    times_msg += (f"; the float64 route (gaussian 3x3 std 2, 9 taps) {ms9:.4f} ms (bound {max(t_bytes, t_ops9):.4f} ms "
+                  f"by {'operations' if t_ops9 > t_bytes else 'bytes'}, float64 {t_ops9:.4f} ms)")
+    row["float64_9tap_ms"] = ms9
     times_msg += "; windows past 128 taps (device table) on the scan: " + "; ".join(
         f"{name} ({n_taps} taps) {t:.4f} ms" for name, (n_taps, t) in wide_ms.items())
     times_msg += (f"; map {NEIGHBOUR_BIG_MAP} of {NEIGHBOUR_BIG_PATTERN} uint8 patterns (device-memory scratch): "
@@ -3072,10 +3126,10 @@ HOUGH_MIN_BANDS = 3
 # on the share under 1 degree and the median.
 HOUGH_BAND_WIDTH = 0.5
 HOUGH_WIDE_SHARE = 0.95
-# SASS instructions of one pole of kernel H's scoring (sass_count.py
-# hough_pole: the pole from shared memory, |R n . g| and the running
-# maximum); the run recounts it where the toolkit has cuobjdump.
-SASS_HOUGH_PER_POLE = 4.75
+# SASS instructions of one pole and band of kernel H's scoring (sass_count.py
+# hough_pole: |R n . g| and the running maximum, a ninth of the pole's
+# broadcast load); the run recounts it where the toolkit has cuobjdump.
+SASS_HOUGH_PER_POLE = 4.111111111111111
 # [hough-pc]: JAX's full-path case (tests/test_hough.py:218-270), four clean
 # patterns each under its own PC, from their mean with a trust region of
 # 0.04, gated on the largest error under 1.2e-2; then the scan from the PC
@@ -3366,7 +3420,9 @@ def hough_phases(dev, mp, hough_mp, det, pre, truth, smi: str, pole_sass: float,
         "max_abs_err": stats["max_abs_err"], "ms": ms_h, "ms_cold": ms_h_cold, "plain_ms": ms_plain,
         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "instruction_bound_ms": t_instr, "near_ties": stats["near_ties"],
-        "clear": stats["clear"],
+        "clear": stats["clear"], "poles": hv.pole_route(ng),
+        "block": dict(zip(("patterns", "warps_a_pattern"), hv.block_shape(nb, ng, args[4].shape[0],
+                                                                          min(8, args[2].shape[0])))),
         "shape": f"n={n_scan} n_bands={nb} poles={ng} LUT={args[2].shape[0]} pairs={args[4].shape[0]} K=8; "
                  f"{n_valid} of {n_cand} candidates valid",
         "note": "max_abs_err: the largest |R - R'| or |err - err'| over [hough-check]'s patterns, R' and err' "
@@ -4627,19 +4683,20 @@ def main(argv=None) -> int:
             "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
             "static_pixel": SASS_D_STATIC_PER_PIXEL, "dynamic_steps": dict(SASS_D_DYNAMIC_STEPS),
-            "hough_pole": SASS_HOUGH_PER_POLE, "source": "constants"}
+            "hough_pole": SASS_HOUGH_PER_POLE, "neighbours_pixel": SASS_NEIGHBOURS_PER_PIXEL, "source": "constants"}
     try:
         import sass_count
 
         counted = sass_count.count()
         sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
                                               "lm_eval_pixel", "clahe_pixel", "static_pixel", "dynamic_steps",
-                                              "hough_pole")}
+                                              "hough_pole", "neighbours_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
     if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"], sass["clahe_pixel"],
-           sass["static_pixel"], *sass["tangent_pixel"].values(), *sass["lm_eval_pixel"].values(),
+           sass["static_pixel"], sass["hough_pole"], sass["neighbours_pixel"], *sass["tangent_pixel"].values(),
+           *sass["lm_eval_pixel"].values(),
            *sass["dynamic_steps"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = max_clock_mhz()
@@ -4650,10 +4707,12 @@ def main(argv=None) -> int:
         f"the LM loop kernel) {sass['lm_eval_pixel']}, a pixel of kernel E's pair kernel (its histogram step, blend, "
         f"output and share of the mappings) {sass['clahe_pixel']:g}, a pixel of kernel D's static warp kernel (two "
         f"passes, truncation, packing, the store's share) {sass['static_pixel']:g}, kernel D's dynamic pair kernel "
-        f"(a row-product step, a column-product step, a warp's rest a pattern) {sass['dynamic_steps']}, a pole of "
-        f"kernel H's scoring {sass['hough_pole']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, "
+        f"(a row-product step, a column-product step, a warp's rest a pattern) {sass['dynamic_steps']}, a pole and "
+        f"band of kernel H's scoring {sass['hough_pole']:g}, a pixel of kernel G's main-path "
+        f"instantiation {sass['neighbours_pixel']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, "
         f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, "
-        f"{SASS_CLAHE_PER_PIXEL:g}, {SASS_D_STATIC_PER_PIXEL:g}, {SASS_D_DYNAMIC_STEPS}, {SASS_HOUGH_PER_POLE:g}); "
+        f"{SASS_CLAHE_PER_PIXEL:g}, {SASS_D_STATIC_PER_PIXEL:g}, {SASS_D_DYNAMIC_STEPS}, {SASS_HOUGH_PER_POLE:g}, "
+        f"{SASS_NEIGHBOURS_PER_PIXEL:g}); "
         f"dispatch "
         f"{sms} SMs x {WARP_INSTR_PER_SM_CLOCK} warp instructions a clock at {clock_mhz:.0f} MHz")
 
@@ -4758,7 +4817,8 @@ def main(argv=None) -> int:
                     for name in ("remove_background[static]", "remove_background[dynamic]", "clahe")}
     preprocess_table, pre_time_msgs = preprocess_rows(dev, scan, pre_errs, pre_launches, sass, clock_mhz, sms)
     log("preprocess-times", f"{smi}: " + "; ".join(pre_time_msgs))
-    neighbour_row, nb_msgs, nb_time_msgs = neighbours_phases(dev, scan, smi, main_launches["average_neighbours"])
+    neighbour_row, nb_msgs, nb_time_msgs = neighbours_phases(dev, scan, smi, main_launches["average_neighbours"],
+                                                             sass["neighbours_pixel"], clock_mhz, sms)
     for msg in nb_msgs:
         log("neighbours", msg)
     for msg in nb_time_msgs:

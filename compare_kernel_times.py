@@ -1,9 +1,10 @@
 """Time the fused int8, bf16 and f32 NCC + top-k kernels and the projection
 kernel (kernel A) of one checkout at the main-path shape, or with
-``--preprocess`` its preprocessing kernels and calls, to compare two commits
-on one card.
+``--preprocess`` its preprocessing kernels and calls, ``--neighbours``
+kernel G, ``--hough`` kernel H, to compare two commits on one card.
 
-    python3 compare_kernel_times.py --tree DIR [--reps 10] [--preprocess]
+    python3 compare_kernel_times.py --tree DIR [--reps 10]
+        [--preprocess | --neighbours | --hough [--inputs PATH | --poles N]]
 
 ``DIR`` is the root of a checkout (this one: ``.``). The script imports
 ``kikuchipy_tpu_torch`` and ``chip_smoke.py`` from ``DIR``, builds the
@@ -38,6 +39,26 @@ timed runs); SHA-256 hashes of the three kernels' outputs on the scan,
 equal between two commits that compute the same bytes; and the kernel each
 chooser the tree has (``static_path``, ``dynamic_path``, ``clahe_path``)
 picks at the main path's shape (null where the tree has none).
+
+With ``--neighbours`` (kernel G) or ``--hough`` (kernel H) the package
+comes from ``DIR`` and the inputs and timers from this script's
+``chip_smoke.py``, as with ``--preprocess``. One JSON line each.
+``--neighbours``: ``average_neighbours`` on the main path's scan (uint8,
+seed 0) with the circular 3 x 3 window (5 taps: the main path), the
+Gaussian 3 x 3 (9 taps, std 2), and the 13 x 13 rectangle (169 taps: the
+device table), and on a 16 x 16 map of seeded 480 x 480 uint8 patterns (5
+taps: the scratch past the shared-memory budget), each warm (``ms``) and
+after the L2 is flushed (``ms_cold``), with SHA-256 hashes of the outputs
+(equal between two commits that give the same bytes), and the
+``EBSD.average_neighbour_patterns`` call on the host clock.
+``--hough``: ``vote_orientations`` at ``[hough]``'s inputs (the scan after
+both removals, its 9 bands' normals, nickel's 25 poles, the LUT and the 15
+pairs) warm and cold, with the results' checksums; ``--inputs PATH`` keeps
+those inputs in a file (made by the first run that finds none: the band
+detection builds its operator on the host, about 30 s a process).
+``--poles N`` times it instead on ``pole_set_inputs``' seeded set of N
+random unit poles (past 1,024 the kernel streams them through shared
+memory in tiles) with 16,384 patterns of 9 bands.
 
 Run it once per checkout, alternating (parent, change, change, parent), on
 one card. Needs a CUDA device.
@@ -199,6 +220,153 @@ def preprocess(tree: Path, reps: int) -> None:
     }), flush=True)
 
 
+def _tree_and_smoke(tree: Path, name: str):
+    """Put ``tree``'s package first on the path and load this script's
+    ``chip_smoke.py`` (the inputs and timers) as ``name``."""
+    tree = tree.resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import kikuchipy_tpu_torch as kt
+
+    if Path(kt.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"imported {kt.__file__}, not the tree's")
+    return tree, smoke, kt
+
+
+def _scan(smoke, kt):
+    """The main path's seeded 128 x 128 scan of 60 x 60 uint8 patterns on
+    the card, with its static background."""
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+    from kikuchipy_tpu_torch.crystallography.sampling import reduce_to_fundamental_zone, super_fibonacci
+
+    dev = torch.device("cuda")
+    mp = kt.EBSDMasterPattern(smoke.master_pattern_data(), phase=Phase(name="ni", point_group="m-3m"), device=dev)
+    det = kt.EBSDDetector(shape=smoke.DETECTOR_SHAPE, pc=smoke.PC, sample_tilt=70)
+    side = smoke.SCAN_SIDE
+    n = side * side
+    truth = reduce_to_fundamental_zone(super_fibonacci(n * 7)[::7][:n], "m-3m")
+    scan_u8, static_bg = smoke.scan_data(mp, det, truth, 0, chunk_size=8192)
+    return kt.EBSD(scan_u8.reshape(side, side, *smoke.DETECTOR_SHAPE), detector=det, static_background=static_bg,
+                   device=dev)
+
+
+def _sha(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def neighbours(tree: Path, reps: int) -> None:
+    """The ``--neighbours`` line of ``tree``'s kernel G (the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    tree, smoke, kt = _tree_and_smoke(tree, "neighbours_chip_smoke")
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    scan = _scan(smoke, kt)
+    p = scan.data
+    big = torch.as_tensor(np.random.default_rng(11).integers(0, 256, size=smoke.NEIGHBOUR_BIG_MAP
+                                                             + smoke.NEIGHBOUR_BIG_PATTERN, dtype=np.uint8),
+                          device=p.device)
+    flush = torch.empty(smoke.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=p.device)
+    runs = {}
+    for label, data, window, shape, kw, n_reps in (
+            ("circular 3x3", p, "circular", (3, 3), {}, reps), ("gaussian 3x3 std 2", p, "gaussian", (3, 3),
+                                                                 {"std": 2}, reps),
+            ("13x13 rectangular", p, "rectangular", (13, 13), {}, max(1, reps // 5)),
+            ("480x480 circular 3x3", big, "circular", (3, 3), {}, reps)):
+        offsets, weights = ng.window_taps(ng._resolve_window(window, shape, **kw))
+        fn = lambda: ng.average_neighbours(data, offsets, weights, torch.uint8)  # noqa: E731
+        runs[label] = {"taps": len(weights), "ms": smoke.cuda_ms(fn, n_reps, lead_ms=2.0),
+                       "ms_cold": smoke.cuda_ms_cold(fn, n_reps, flush), "sha": _sha(fn())}
+    del flush
+    call = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan.average_neighbour_patterns()
+        torch.cuda.synchronize()
+        call.append((time.perf_counter() - t0) * 1e3)
+    plan = getattr(ng, "neighbours_plan", None)
+    print(json.dumps({
+        "tree": str(tree), "card": smoke.smi_line(), "kernel": "average_neighbours", "runs": runs,
+        "call_ms": call, "plan": None if plan is None else str(plan(p.dtype, torch.uint8, 3600, [1.0] * 5, 16, 16)),
+    }), flush=True)
+
+
+def hough(tree: Path, reps: int, inputs: Path | None, poles: int | None = None) -> None:
+    """The ``--hough`` line of ``tree``'s kernel H (the module docstring)."""
+    import torch
+
+    tree, smoke, kt = _tree_and_smoke(tree, "hough_chip_smoke")
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    if poles is not None:
+        args, tol = pole_set_inputs(16384, poles)
+    elif inputs is not None and inputs.exists():
+        saved = torch.load(inputs)
+        args, tol = tuple(t.cuda() for t in saved["args"]), saved["tol"]
+    else:
+        pre = _scan(smoke, kt).remove_static_background().remove_dynamic_background()
+        args, tol = smoke.hough_vote_inputs(pre)
+        if inputs is not None:
+            inputs.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"args": [t.cpu() for t in args], "tol": tol}, inputs)
+    fn = lambda: hv.vote_orientations(*args, tol)  # noqa: E731
+    flush = torch.empty(smoke.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=args[0].device)
+    ms = smoke.cuda_ms(fn, reps, lead_ms=2.0)
+    ms_cold = smoke.cuda_ms_cold(fn, reps, flush)
+    R, err, n_in = fn()
+    fin = torch.isfinite(err)
+    print(json.dumps({
+        "tree": str(tree), "card": smoke.smi_line(), "kernel": "vote_orientations", "n": int(args[0].shape[0]),
+        "ms": ms, "ms_cold": ms_cold, "R_checksum": float(R.double().sum()),
+        "err_checksum": float(err[fin].double().sum()), "n_in_sum": int(n_in.sum()),
+        "poles": int(args[1].shape[0]),
+        "shape": (list(hv.block_shape(args[0].shape[1], args[1].shape[0], args[4].shape[0], min(8, args[2].shape[0])))
+                  if hasattr(hv, "block_shape") else None),
+    }), flush=True)
+
+
+def pole_set_inputs(n: int, n_poles: int, seed: int = 0):
+    """Kernel H's inputs for a set of ``n_poles`` random unit poles, on the
+    card: ``n`` patterns of 9 band normals (9 poles, drawn with replacement,
+    under a random rotation with about half a degree of noise, 3 in 10 of
+    them replaced by random directions), a LUT of the interplanar angles of every pair among
+    80 of the poles, and the pairs of the first 6 bands (``hough_indexing``'s);
+    and the tolerance, 2 degrees."""
+    from itertools import combinations
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n_poles, 3))
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    sub = rng.choice(n_poles, min(n_poles, 80), replace=False)
+    lut_pairs = np.array(list(combinations(sub, 2)))
+    lut_angles = np.arccos(np.clip(np.abs(np.sum(g[lut_pairs[:, 0]] * g[lut_pairs[:, 1]], axis=1)), 0, 1))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    a, b, c, d = q.T
+    R = np.stack([a * a + b * b - c * c - d * d, 2 * (b * c - a * d), 2 * (b * d + a * c),
+                  2 * (b * c + a * d), a * a - b * b + c * c - d * d, 2 * (c * d - a * b),
+                  2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d], axis=1).reshape(n, 3, 3)
+    pick = rng.integers(0, n_poles, size=(n, 9))
+    v = np.einsum("nbi,nij->nbj", g[pick], R) + rng.normal(scale=0.008, size=(n, 9, 3))
+    swap = rng.random((n, 9)) < 0.3
+    v[swap] = rng.normal(size=(int(swap.sum()), 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    pair_idx = np.array(list(combinations(range(6), 2)))
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device="cuda")  # noqa: E731
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    return (f32(v), f32(g), f32(lut_angles), i32(lut_pairs), i32(pair_idx)), float(np.deg2rad(2.0))
+
+
 def card() -> str:
     """The card's name, power limit, SM clock, power draw and temperature."""
     return subprocess.run(
@@ -212,6 +380,10 @@ def main(argv=None) -> int:
     parser.add_argument("--tree", type=Path, required=True)
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--preprocess", action="store_true")
+    parser.add_argument("--neighbours", action="store_true")
+    parser.add_argument("--hough", action="store_true")
+    parser.add_argument("--inputs", type=Path, default=None)
+    parser.add_argument("--poles", type=int, default=None)
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -222,6 +394,12 @@ def main(argv=None) -> int:
         return 2
     if args.preprocess:
         preprocess(args.tree, args.reps)
+        return 0
+    if args.neighbours:
+        neighbours(args.tree, args.reps)
+        return 0
+    if args.hough:
+        hough(args.tree, args.reps, args.inputs, args.poles)
         return 0
     ops = operands(args.tree)
     smoke, nt = ops["smoke"], ops["nt"]

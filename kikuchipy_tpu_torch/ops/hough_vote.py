@@ -26,7 +26,8 @@ import torch
 from kikuchipy_tpu_torch.indexing.di import topk_stable
 from kikuchipy_tpu_torch.ops.pattern_io import SMEM_BUDGET
 
-__all__ = ["candidate_scores", "candidate_threshold", "smem_bytes", "vote_disagreements", "vote_orientations",
+__all__ = ["MAX_BANDS", "MIN_BANDS", "TILE_POLES", "TILE_WARPS", "block_shape", "candidate_scores",
+           "candidate_threshold", "pole_route", "smem_bytes", "vote_disagreements", "vote_orientations",
            "vote_orientations_plain"]
 
 # Pair angles at or below this (radians) give unstable frames: their
@@ -235,27 +236,88 @@ def vote_disagreements(got, ref, normals, g_unit, lut_angles, lut_pairs, pair_id
     return problems, {**counts, "max_r_diff": max_r, "max_err_diff": max_e, "max_err_limit": max_lim}
 
 
-def _function():
+# Kernel H's pole routes (csrc/hough_vote.cu kTile): up to TILE_POLES poles
+# sit in shared memory, loaded once a block, and a warp takes a pattern;
+# past that they stream through it in tiles, and a block of TILE_WARPS warps
+# takes a pattern. Band counts from MIN_BANDS to MAX_BANDS have a scoring
+# loop of their own (the bands' R n in registers, the poles outside); others
+# take a loop over the bands.
+TILE_POLES = 1024
+TILE_WARPS = 8
+MIN_BANDS, MAX_BANDS = 3, 12
+# Patterns a block of kernel H on the shared route, a warp each (chosen by
+# hough_variants.py's timings at [hough]'s scan), fewer where the tables
+# pass the shared-memory budget.
+PATTERNS_PER_BLOCK = 4
+
+
+def pole_route(n_poles: int) -> str:
+    """Where kernel H keeps ``n_poles`` poles: "shared" (one tile a block,
+    a warp a pattern) or "tiles" (streamed, a block a pattern)."""
+    return "shared" if n_poles <= TILE_POLES else "tiles"
+
+
+def block_shape(n_bands: int, n_poles: int, n_pairs: int, k: int, block_bytes=None) -> tuple[int, int]:
+    """Kernel H's ``(patterns a block, warps a pattern)``: on the shared
+    route PATTERNS_PER_BLOCK patterns of a warp, halved while a block's
+    shared memory passes the budget; on the tile route one pattern of
+    TILE_WARPS warps. ``block_bytes(groups)`` gives a block's shared memory
+    (by default the source's, :func:`smem_bytes`, which builds the kernel).
+    Raises ``ValueError`` where one pattern's tables alone pass the
+    budget."""
+    if block_bytes is None:
+        def block_bytes(groups):
+            return smem_bytes(n_bands, n_poles, n_pairs, k, groups)
+    if pole_route(n_poles) == "tiles":
+        groups, warps = 1, TILE_WARPS
+    else:
+        groups, warps = PATTERNS_PER_BLOCK, 1
+    while groups > 1 and block_bytes(groups) > SMEM_BUDGET:
+        groups //= 2
+    smem = block_bytes(groups)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"kernel H keeps {n_pairs} pairs x {k} LUT slots and its tables in {smem} bytes of "
+                         f"shared memory a block, more than its budget of {SMEM_BUDGET}")
+    return groups, warps
+
+
+def _library():
     from kikuchipy_tpu_torch.ops._build import library
 
-    fn = library("hough_vote").hough_vote_launch
+    lib = library("hough_vote")
+    fn = lib.hough_vote_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.hough_vote_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.hough_vote_smem_bytes.restype = ctypes.c_longlong
+        for name, want in (("hough_vote_tile_poles", TILE_POLES), ("hough_vote_tile_warps", TILE_WARPS),
+                           ("hough_vote_min_bands", MIN_BANDS), ("hough_vote_max_bands", MAX_BANDS)):
+            getattr(lib, name).restype = ctypes.c_int
+            if getattr(lib, name)() != want:
+                raise RuntimeError(f"csrc/hough_vote.cu {name} is {getattr(lib, name)()}, the wrapper's {want}")
+    return lib
 
 
-def smem_bytes(n_bands: int, n_poles: int, n_pairs: int, k: int) -> int:
-    """Dynamic shared memory of a block of kernel H (``csrc/hough_vote.cu``
-    ``hough_vote_smem_bytes``): the normals, the pairs' frames, angles and
-    four ``P x K`` slot tables, and a tile of poles. Builds the kernel."""
-    from kikuchipy_tpu_torch.ops._build import library
+def smem_bytes(n_bands: int, n_poles: int, n_pairs: int, k: int, groups: int = 1) -> int:
+    """Dynamic shared memory of a block of kernel H of ``groups`` patterns
+    (``csrc/hough_vote.cu`` ``hough_vote_smem_bytes``): for each pattern the
+    normals, the pairs' frames and angles, the ``P x K`` slot tables and
+    each slot's unit vectors, then a tile of poles. Builds the kernel."""
+    return int(_library().hough_vote_smem_bytes(n_bands, n_poles, n_pairs, k, groups))
 
-    fn = library("hough_vote").hough_vote_smem_bytes
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_longlong
-    return int(fn(n_bands, n_poles, n_pairs, k))
+
+# Kernel H's queue a (device, stream): two int32, the next pattern and the
+# groups done. Zeroed once when made; each launch leaves them zero again.
+_QUEUES: dict = {}
+
+
+def _queue(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _QUEUES:
+        _QUEUES[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _QUEUES[key]
 
 
 def _check(normals, g_unit, lut_angles, lut_pairs, pair_idx) -> None:
@@ -285,8 +347,9 @@ def vote_orientations(
     the LUT of their interplanar angles ``lut_angles (L,)`` and pole pairs
     ``lut_pairs (L, 2)``, over the band pairs ``pair_idx (P, 2)``. Returns
     ``(R (n, 3, 3), err (n,) radians, n_in (n,) int32)``. On the card one
-    launch of kernel H for all patterns (``chunk`` only bounds the plain
-    version's intermediate)."""
+    launch of kernel H for all patterns and nothing else (the first call on
+    a stream also zeroes that stream's two queue words; ``chunk`` only
+    bounds the plain version's intermediate)."""
     _check(normals, g_unit, lut_angles, lut_pairs, pair_idx)
     if int(n_pairs_max) < 1:
         raise ValueError(f"n_pairs_max must be positive, got {n_pairs_max}")
@@ -308,10 +371,7 @@ def vote_orientations(
     if int(lut_pairs.min()) < 0 or int(lut_pairs.max()) >= g_unit.shape[0]:
         raise ValueError(f"lut_pairs must index the {g_unit.shape[0]} poles")
     k = min(int(n_pairs_max), lut_angles.shape[0])
-    smem = smem_bytes(nb, g_unit.shape[0], pair_idx.shape[0], k)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"kernel H keeps {pair_idx.shape[0]} pairs x {k} LUT slots and its tables in {smem} bytes of "
-                         f"shared memory a block, more than its budget of {SMEM_BUDGET}")
+    groups, _ = block_shape(nb, g_unit.shape[0], pair_idx.shape[0], k)
     R = torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
     err = torch.empty((n,), dtype=torch.float32, device=dev)
     n_in = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -320,9 +380,9 @@ def vote_orientations(
     tol32, cos32 = candidate_threshold(angle_tol)
     src = [t.contiguous() for t in (normals, g_unit, lut_angles, lut_pairs, pair_idx)]
     with torch.cuda.device(dev):
-        rc = _function()(
-            *(t.data_ptr() for t in src), R.data_ptr(), err.data_ptr(), n_in.data_ptr(),
-            n, nb, g_unit.shape[0], lut_angles.shape[0], pair_idx.shape[0], k, tol32, cos32,
+        rc = _library().hough_vote_launch(
+            *(t.data_ptr() for t in src), R.data_ptr(), err.data_ptr(), n_in.data_ptr(), _queue(dev).data_ptr(),
+            n, nb, g_unit.shape[0], lut_angles.shape[0], pair_idx.shape[0], k, tol32, cos32, groups,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc:

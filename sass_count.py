@@ -46,10 +46,17 @@ modes): its growth from 4 to 8 vectors a lane, less the growth of a frame
 with its loop, loads and stores (``probe_static_copy``), over the 64 pixels
 of the 4 vectors, so one vector's two passes, the background from shared
 memory, the division, the truncation, the packing and its branch; its
-per-pattern reduction is not counted. ``hough_pole``: one pole of kernel
-H's scoring (``csrc/hough_vote.cu``: the pole from shared memory, ``|R n .
-g|`` and the running maximum), the growth of an unrolled probe from 8 to 16
-poles over 8. ``static_pixel_with_frame`` keeps the
+per-pattern reduction is not counted. ``hough_pole``: one pole and band of
+kernel H's scoring (``csrc/hough_vote.cu`` ``pole_bands``: the pole a
+broadcast float4 load for 9 bands, each band's ``|R n . g|`` and running
+maximum), the growth of an unrolled probe from 8 to 16 poles over 8 x 9;
+``hough_pole_bank`` the design it replaced (the poles constant-bank
+operands of an unrolled loop a switch enters), a bank of 128 poles against
+64, over 64.
+``neighbours_pixel``: kernel G's main-path instantiation itself
+(``neighbours_vec_kernel<uint8_t, uint8_t, 5, true>``, the integer route),
+its whole main path over a thread's 16 pixels (its loop over the point's
+warps' partial min and max counted once). ``static_pixel_with_frame`` keeps the
 loads and stores; ``static_pixel_probe`` is a one-vector probe with the
 range and the minimum as kernel arguments, less a frame that loads and
 stores the same bytes. A kernel's count is its main path: every instruction
@@ -303,26 +310,70 @@ template __global__ void probe_static_copy<4>(StaticParams);
 template __global__ void probe_static_copy<8>(StaticParams);
 """
 
-# One pole of kernel H's scoring (csrc/hough_vote.cu: |R n . g| and the
-# running maximum, the pole from shared memory), unrolled over 8 and 16 poles:
-# the difference over 8 is a pole's step.
+# One pole and band of kernel H's scoring (csrc/hough_vote.cu pole_bands:
+# the pole a broadcast float4 load from shared memory for all bands, then a
+# band's |R n . g| and running maximum, pole_step), 9 bands (the smoke's)
+# unrolled over 8 and 16 poles: the difference over 8 x 9 is a pole and
+# band's step, the load's share included (the loop's own counter and branch,
+# once every two poles in the kernel, are not). And the design this replaced
+# (the poles as constant-bank operands of a fully unrolled loop a switch
+# enters at the pole count, written out here): a bank of 128 poles against
+# 64, over 64.
 PROBE_HOUGH = r"""
 #include "hough_vote.cu"
 
 template <int N>
 __global__ void probe_hough_poles(const float* __restrict__ g, const float* __restrict__ n, float* __restrict__ out) {
-    __shared__ float poles[3 * N];
-    for (int i = threadIdx.x; i < 3 * N; i += blockDim.x) poles[i] = g[i];
+    __shared__ float4 poles[N];
+    for (int i = threadIdx.x; i < N; i += blockDim.x) poles[i] = make_float4(g[3 * i], g[3 * i + 1], g[3 * i + 2], 0.f);
     __syncthreads();
-    const Vec rn = {n[3 * threadIdx.x], n[3 * threadIdx.x + 1], n[3 * threadIdx.x + 2]};
-    float m = 0.0f;
+    Vec rn[9];
+    float m[9];
 #pragma unroll
-    for (int j = 0; j < N; ++j) m = fmaxf(m, abs_dot(rn, poles + 3 * j));
-    out[threadIdx.x] = m;
+    for (int b = 0; b < 9; ++b) {
+        rn[b] = {n[27 * threadIdx.x + 3 * b], n[27 * threadIdx.x + 3 * b + 1], n[27 * threadIdx.x + 3 * b + 2]};
+        m[b] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        const float4 gj = poles[j];
+#pragma unroll
+        for (int b = 0; b < 9; ++b) m[b] = pole_step(m[b], rn[b], gj.x, gj.y, gj.z);
+    }
+#pragma unroll
+    for (int b = 0; b < 9; ++b) out[9 * threadIdx.x + b] = m[b];
 }
 template __global__ void probe_hough_poles<8>(const float*, const float*, float*);
 template __global__ void probe_hough_poles<16>(const float*, const float*, float*);
+
+template <int N>
+struct PoleBank {
+    float g[3 * N];
+};
+#define BANK_P1(j) case (j) + 1: m = pole_step(m, a, bank.g[3 * (j)], bank.g[3 * (j) + 1], bank.g[3 * (j) + 2]);
+#define BANK_P4(j) BANK_P1((j) + 3) BANK_P1((j) + 2) BANK_P1((j) + 1) BANK_P1(j)
+#define BANK_P16(j) BANK_P4((j) + 12) BANK_P4((j) + 8) BANK_P4((j) + 4) BANK_P4(j)
+#define BANK_P64(j) BANK_P16((j) + 48) BANK_P16((j) + 32) BANK_P16((j) + 16) BANK_P16(j)
+__global__ void probe_hough_bank64(PoleBank<64> bank, const float* __restrict__ n, int ng, float* __restrict__ out) {
+    const Vec a = {n[3 * threadIdx.x], n[3 * threadIdx.x + 1], n[3 * threadIdx.x + 2]};
+    float m = 0.0f;
+    switch (ng) { BANK_P64(0) default: break; }
+    out[threadIdx.x] = m;
+}
+__global__ void probe_hough_bank128(PoleBank<128> bank, const float* __restrict__ n, int ng,
+                                    float* __restrict__ out) {
+    const Vec a = {n[3 * threadIdx.x], n[3 * threadIdx.x + 1], n[3 * threadIdx.x + 2]};
+    float m = 0.0f;
+    switch (ng) { BANK_P64(64) BANK_P64(0) default: break; }
+    out[threadIdx.x] = m;
+}
 """
+
+# Kernel G's main-path instantiation, counted on the shipped source:
+# neighbours_vec_kernel<uint8_t, uint8_t, 5, true> (the integer route), a
+# thread's 16 pixels.
+NEIGHBOURS_MAIN = "21neighbours_vec_kernelIhhLi5ELb1EE"
+NEIGHBOURS_PIXELS_A_THREAD = 16
 
 # Builds of the pair kernels themselves (csrc/background.cu, csrc/clahe.cu)
 # with their SASS probe macros: the steps of every band fixed (row, column
@@ -419,6 +470,8 @@ def count(build_dir: Path | None = None) -> dict:
     # The pair kernels themselves, rebuilt with their SASS probe macros.
     for name, flags in PAIR_BUILDS.items():
         jobs.append((name, csrc / f"{name.split('_')[0]}.cu", flags))
+    # Kernel G as shipped.
+    jobs.append(("neighbours_shipped", csrc / "neighbours.cu", []))
     procs = []
     for stem, src, flags in jobs:
         lib = build_dir / f"lib{stem}.so"
@@ -481,6 +534,8 @@ def count(build_dir: Path | None = None) -> dict:
                     for d in (0, 1) for sb in (0, 1)}
 
     hough8, hough16 = find("17probe_hough_polesILi8E"), find("17probe_hough_polesILi16E")
+    bank64, bank128 = find("18probe_hough_bank64"), find("19probe_hough_bank128")
+    g_main = find(NEIGHBOURS_MAIN)
 
     # Kernel D's dynamic pair kernel: the steps, and a warp's rest of a pattern.
     row_step = (pair["background_b16_8"] - pair["background_b8_8"]) / 8
@@ -535,8 +590,12 @@ def count(build_dir: Path | None = None) -> dict:
                                     find("17probe_static_copyILi4E")),
         "static_pixel_probe": (len(static) - len(static_frame) + 15) / 16,
         "static_pixel_probe_ops": mix(static, static_frame),
-        "hough_pole": (len(hough16) - len(hough8)) / 8,
-        "hough_pole_ops": {k: v / 8 for k, v in mix(hough16, hough8).items()},
+        "hough_pole": (len(hough16) - len(hough8)) / (8 * 9),
+        "hough_pole_ops": {k: v / (8 * 9) for k, v in mix(hough16, hough8).items()},
+        "hough_pole_bank": (len(bank128) - len(bank64)) / 64,
+        "hough_pole_bank_ops": {k: v / 64 for k, v in mix(bank128, bank64).items()},
+        "neighbours_pixel": len(g_main) / NEIGHBOURS_PIXELS_A_THREAD,
+        "neighbours_pixel_ops": {k: v / NEIGHBOURS_PIXELS_A_THREAD for k, v in sorted(Counter(g_main).items())},
         "frames": {"dc": len(dc_frame), "pix": len(pix_frame)},
     }
 

@@ -2017,6 +2017,100 @@ def test_neighbours_kernel_takes_windows_past_128_taps(cuda, window, shape, kw, 
         assert _same_bits(got, ng.average_neighbours_plain(p, offsets, weights, dtype)), (window, shape, dtype)
 
 
+# Kernel G's instantiations (csrc/neighbours.cu): the integer route (uint8,
+# weights of 1), the float64 route at 5, 9 and any tap count, on
+# the vector kernel, and the general kernel where a pattern is no whole number
+# of 16-byte vectors or the data is not aligned to them; negative weights too.
+NEIGHBOUR_ROUTE_WINDOWS = {
+    "circular, 5 taps of 1": np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], dtype=float),
+    "rectangular 3x3, 9 taps of 1": np.ones((3, 3)),
+    "5 taps, 2 and 3": np.array([[0, 2, 0], [3, 1, 2], [0, 1, 0]], dtype=float),
+    "5 taps, fractions": np.array([[0, 0.25, 0], [1.5, 1.0, 0.75], [0, 0.5, 0]]),
+    "5 taps, negative": np.array([[0, -1.0, 0], [2.0, 3.0, -0.5], [0, 1.25, 0]]),
+    "9 taps, negative": np.array([[-0.5, 1, 2], [1, 4, -1.25], [0.5, 1, -0.75]]),
+    "9 taps, gaussian": "gaussian",
+    "6 taps (any count)": np.array([[1, 2, 0], [1, 1, 1], [0, 0, 1]], dtype=float),
+    "3 taps, negative (any count)": np.array([[0, 0, 0], [-1.0, 2.5, 0.5], [0, 0, 0]]),
+}
+
+
+def _route_window(w):
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    return ng._resolve_window("gaussian", (3, 3), std=1.5) if isinstance(w, str) else w
+
+
+@pytest.mark.parametrize("nav", [(1, 9), (9, 1), (6, 7)])
+@pytest.mark.parametrize("sig", [(60, 60), (16, 16), (5, 6), (7, 9)])
+@pytest.mark.parametrize("dtype_in", NEIGHBOUR_DTYPES)
+@pytest.mark.parametrize("dtype_out", NEIGHBOUR_DTYPES)
+def test_neighbours_routes_and_instantiations_are_the_plain_version_bit_for_bit(cuda, nav, sig, dtype_in, dtype_out):
+    # Every instantiation the plan picks, and the general kernel where a
+    # pattern (5 x 6, 7 x 9) is no whole number of 16-byte vectors of the
+    # input type; each call on the route neighbours_plan names.
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    p = torch.as_tensor(_neighbour_scan(nav, sig, dtype_in, seed=nav[0] + 3 * sig[0]), device=cuda)
+    for name, w in NEIGHBOUR_ROUTE_WINDOWS.items():
+        offsets, weights = ng.window_taps(_route_window(w))
+        plan = ng.neighbours_plan(p.dtype, torch_dtype_of(dtype_out), sig[0] * sig[1], weights, 16, 16)
+        size = np.dtype(dtype_in).itemsize
+        assert (plan.route == "vector") == ((sig[0] * sig[1] * size) % 16 == 0), (name, plan)
+        before = dict(ng.average_neighbours.mode_launches)
+        got = ng.average_neighbours(p, offsets, weights, dtype_out)
+        torch.cuda.synchronize()
+        assert ng.average_neighbours.mode_launches[plan.route] == before[plan.route] + 1, (name, plan)
+        assert _same_bits(got, ng.average_neighbours_plain(p, offsets, weights, dtype_out)), (name, plan)
+
+
+def torch_dtype_of(dtype):
+    return {np.uint8: torch.uint8, np.uint16: torch.uint16, np.float32: torch.float32}[dtype]
+
+
+@pytest.mark.parametrize("dtype, offset", [(np.uint8, 1), (np.uint8, 8), (np.uint16, 2), (np.uint16, 6),
+                                           (np.float32, 4), (np.float32, 8)])
+def test_neighbours_misaligned_input_takes_the_general_kernel_bit_for_bit(cuda, dtype, offset):
+    # A contiguous scan whose data starts ``offset`` bytes past a 16-byte
+    # boundary (a storage offset): the vector kernel's loads need 16.
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    size = np.dtype(dtype).itemsize
+    shape = (5, 4, 60, 60)
+    data = _neighbour_scan(shape[:2], shape[2:], dtype, seed=offset)
+    flat = torch.zeros(data.size + 16, dtype=torch_dtype_of(dtype), device=cuda)
+    p = flat[offset // size:offset // size + data.size].view(shape)
+    p.copy_(torch.as_tensor(data, device=cuda))
+    assert p.is_contiguous() and p.data_ptr() % 16 == offset
+    for name, w in NEIGHBOUR_ROUTE_WINDOWS.items():
+        offsets, weights = ng.window_taps(_route_window(w))
+        before = dict(ng.average_neighbours.mode_launches)
+        got = ng.average_neighbours(p, offsets, weights, dtype)
+        torch.cuda.synchronize()
+        assert ng.average_neighbours.mode_launches["general"] == before["general"] + 1, name
+        assert _same_bits(got, ng.average_neighbours_plain(p, offsets, weights, dtype)), name
+
+
+def test_neighbours_main_path_takes_the_integer_route(cuda):
+    # The main path's shape on the vector kernel's integer route (24 x 31 =
+    # 744 points), the Gaussian's float64 route, and the float64 route's
+    # bits with the circular window scaled (weights of 0.5: another route,
+    # the same function up to the scale, which the quotient removes).
+    from kikuchipy_tpu_torch.ops import neighbours as ng
+
+    p = torch.as_tensor(_neighbour_scan((24, 31), (60, 60), np.uint8, seed=5), device=cuda)
+    offsets, weights = ng.window_taps(ng._resolve_window("circular", (3, 3)))
+    ref = ng.average_neighbours_plain(p, offsets, weights, np.uint8)
+    gauss = ng.window_taps(ng._resolve_window("gaussian", (3, 3), std=2))
+    plan = ng.neighbours_plan(p.dtype, torch.uint8, 3600, weights, 16, 16)
+    assert (plan.route, plan.integer, plan.taps, plan.warps) == ("vector", True, 5, 8)
+    assert torch.equal(ng.average_neighbours(p, offsets, weights, np.uint8), ref)
+    assert torch.equal(ng.average_neighbours(p, *gauss, np.uint8), ng.average_neighbours_plain(p, *gauss, np.uint8))
+    half = [0.5 * w for w in weights]
+    assert not ng.neighbours_plan(p.dtype, torch.uint8, 3600, half, 16, 16).integer
+    assert torch.equal(ng.average_neighbours(p, offsets, half, np.uint8),
+                       ng.average_neighbours_plain(p, offsets, half, np.uint8))
+
+
 # ------------------------- kernel H (Hough voting) ------------------------- #
 
 # Kernel H is held against its plain version by
@@ -2092,6 +2186,7 @@ def test_hough_vote_kernel_matches_its_plain_version(cuda, n, n_poles):
             got = hv.vote_orientations(*args, tol, n_pairs_max=n_pairs_max)
             torch.cuda.synchronize()
             assert hv.vote_orientations.launches == before + 1
+            assert hv._queue(cuda).tolist() == [0, 0]  # the launch left its queue zero for the next
             chunk = 16 if n_poles == 3000 else 256
             ref = hv.vote_orientations_plain(*args, tol, n_pairs_max=n_pairs_max, chunk=chunk)
             _hough_agree(got, ref, args, tol, n_pairs_max, chunk)
@@ -2114,11 +2209,106 @@ def test_hough_vote_kernel_without_a_valid_candidate(cuda):
         assert torch.isinf(got[1][:20]).all() and (got[2][:20] == 0).all()
 
 
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+@pytest.mark.parametrize("n_poles", [25, 300, 1500])
+def test_hough_vote_block_shapes_match_the_plain_version(cuda, monkeypatch, groups, n_poles):
+    # Every block shape: 1 to 8 patterns of a warp a block where the poles
+    # sit in one shared tile (25, 300), a pattern of TILE_WARPS warps where
+    # they stream in tiles (1,500); pattern counts that leave groups without
+    # a pattern; band counts with a scoring loop of their own (9) and
+    # without (2, 13).
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    monkeypatch.setattr(hv, "PATTERNS_PER_BLOCK", groups)
+    tol = float(np.deg2rad(2.0))
+    want = (1, hv.TILE_WARPS) if hv.pole_route(n_poles) == "tiles" else (groups, 1)
+    for n, n_bands in ((1, 9), (7, 13), (45, 9), (20, 2)):
+        args = _hough_tensors(cuda, *_hough_inputs(n, n_bands, n_poles, seed=n + n_poles), n_bands=n_bands)
+        k = min(8, args[2].shape[0])
+        assert hv.block_shape(n_bands, n_poles, args[4].shape[0], k) == want
+        before = hv.vote_orientations.launches
+        got = hv.vote_orientations(*args, tol)
+        torch.cuda.synchronize()
+        assert hv.vote_orientations.launches == before + 1
+        _hough_agree(got, hv.vote_orientations_plain(*args, tol, chunk=64), args, tol, chunk=64)
+
+
+def _symmetric_hough_inputs(n, seed):
+    """Poles closed under the half turn S = diag(-1, -1, 1) (6 random unit
+    vectors and their images: S g is the negation of two coordinates, exact
+    in float32), the LUT of all their pairs, and normals of rotated poles
+    with 0.01 of noise. A candidate from LUT entry (a, b) and one from (S a,
+    S b) score alike bit for bit in both versions (the products of one are
+    the other's negated), so every pattern's best has a twin of another
+    index, a rotation apart."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(6, 3))
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    g = np.concatenate([g, g * [-1.0, -1.0, 1.0]]).astype(np.float32).astype(np.float64)
+    pairs = np.array([(a, b) for a in range(len(g)) for b in range(a + 1, len(g))])
+    lut_angles = np.arccos(np.clip(np.abs(np.sum(g[pairs[:, 0]] * g[pairs[:, 1]], axis=1)), 0, 1))
+    normals = np.empty((n, 9, 3))
+    for i in range(n):
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        a, b, c, d = q
+        R = np.array([[a * a + b * b - c * c - d * d, 2 * (b * c - a * d), 2 * (b * d + a * c)],
+                      [2 * (b * c + a * d), a * a - b * b + c * c - d * d, 2 * (c * d - a * b)],
+                      [2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d]])
+        v = g[rng.choice(len(g), 9, replace=False)] @ R + rng.normal(scale=0.01, size=(9, 3))
+        normals[i] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    return normals, g, lut_angles, pairs
+
+
+# A planted tie is held where the third best score is below the two by more
+# than this (scores of the kernel and the plain version differ by under 1e-5
+# at these inputs' 0.014 rad misfits: vote_disagreements' err limit / 10).
+PLANTED_GAP = 5e-5
+
+
+@pytest.mark.parametrize("patterns, copies", [(4, 1), (1, 1), (4, 93)])
+def test_hough_vote_planted_equal_scores_take_the_lowest_index(cuda, monkeypatch, patterns, copies):
+    # Where the plain version's two best scores are equal bit for bit (a
+    # planted twin) and the third is clearly below, the kernel's R is the
+    # plain version's: the lower flattened index of the two, as jnp.argmax.
+    # 93 copies of the 12 poles (1,116: the same maxima, so the same scores)
+    # take the tile route, a pattern's candidates over TILE_WARPS warps.
+    from kikuchipy_tpu_torch.ops import hough_vote as hv
+
+    monkeypatch.setattr(hv, "PATTERNS_PER_BLOCK", patterns)
+    tol = float(np.deg2rad(2.0))
+    normals, g, lut_angles, lut_pairs = _symmetric_hough_inputs(128, seed=9)
+    args = _hough_tensors(cuda, normals, np.tile(g, (copies, 1)), lut_angles, lut_pairs, n_bands=9)
+    assert hv.pole_route(args[1].shape[0]) == ("tiles" if copies > 1 else "shared")
+    got = hv.vote_orientations(*args, tol)
+    ref = hv.vote_orientations_plain(*args, tol, chunk=32)
+    _hough_agree(got, ref, args, tol, chunk=32)
+    R_all, _, _, scores = hv.candidate_scores(*args, tol)
+    top = torch.topk(scores, 3, dim=1).values
+    planted = (top[:, 0] == top[:, 1]) & (top[:, 1] - top[:, 2] > PLANTED_GAP)
+    assert int(planted.sum()) >= 16, int(planted.sum())
+    twin = torch.argsort(-scores, dim=1, stable=True)[:, :2]
+    assert bool((twin[planted, 0] < twin[planted, 1]).all())
+    R_twin = torch.take_along_dim(R_all, twin[:, 1, None, None, None], dim=1)[:, 0]
+    diff = (got[0] - ref[0]).abs().amax(dim=(1, 2))
+    assert float(diff[planted].max()) <= hv.R_TOL
+    # The twin is another rotation: the kernel did not take it.
+    assert float((got[0] - R_twin).abs().amax(dim=(1, 2))[planted].min()) > 0.1
+
+
 def test_hough_vote_kernel_refuses_what_it_cannot_take(cuda):
     from kikuchipy_tpu_torch.ops import hough_vote as hv
 
     args = list(_hough_tensors(cuda, *_hough_inputs(4, 9, 3000, seed=1), n_bands=9))
     assert hv.smem_bytes(9, 3000, 15, args[2].shape[0]) > hv.SMEM_BUDGET
+    # The source's layout: for each pattern float4 normals, frames, angles,
+    # five P x K tables, two float4 units a slot and 2 x warps + 2 reduction
+    # and queue words, each rounded up to 16 bytes; then the pole tile
+    # (float4, at most 1,024).
+    one = 144 + 544 + 64 + 5 * 480 + 32 * 120 + 16
+    assert hv.smem_bytes(9, 25, 15, 8) == one + 16 * 25
+    assert hv.smem_bytes(9, 25, 15, 8, 4) == 4 * one + 16 * 25
+    assert hv.smem_bytes(9, 3000, 15, 8) == one - 16 + 16 * -(-(2 * hv.TILE_WARPS + 2) * 4 // 16) + 16 * 1024
     before = hv.vote_orientations.launches
     with pytest.raises(TypeError, match="kernel H"):
         hv.vote_orientations(args[0].double(), *args[1:], 0.03)

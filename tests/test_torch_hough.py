@@ -32,6 +32,7 @@ Tolerances, from the arithmetic:
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -677,3 +678,60 @@ def test_public_signatures_are_jax():
         assert names == want_names, got.__name__
         for p in want_names:
             assert inspect.signature(got).parameters[p].default == inspect.signature(want).parameters[p].default, p
+
+
+# ------------------- kernel H's choices on the host ------------------- #
+
+
+def test_vote_pole_routes_and_limits_are_the_sources():
+    text = (Path(th.__file__).resolve().parents[1] / "csrc" / "hough_vote.cu").read_text()
+    assert f"constexpr int kTile = {hv.TILE_POLES};" in text
+    assert f"#define HOUGH_TILE_WARPS {hv.TILE_WARPS}" in text
+    assert f"constexpr int kMinBands = {hv.MIN_BANDS};" in text and f"constexpr int kMaxBands = {hv.MAX_BANDS};" in text
+    assert [hv.pole_route(n) for n in (1, 25, 1024, 1025, 3000)] == ["shared", "shared", "shared", "tiles", "tiles"]
+
+
+def test_vote_block_shape_and_shared_memory(monkeypatch):
+    # block_shape over a stand-in for the source's hough_vote_smem_bytes (a
+    # block's groups' tables, then its pole tile); the card tests hold the
+    # source's own bytes and the shapes it gives.
+    def block_bytes(tables, tile):
+        return lambda groups: tables * groups + tile
+
+    assert hv.block_shape(9, 25, 15, 8, block_bytes(8000, 400)) == (hv.PATTERNS_PER_BLOCK, 1)
+    monkeypatch.setattr(hv, "PATTERNS_PER_BLOCK", 8)
+    assert hv.block_shape(9, 25, 15, 8, block_bytes(8000, 400)) == (8, 1)
+    # Streamed tiles: a pattern a block of TILE_WARPS warps.
+    assert hv.block_shape(9, 3000, 15, 8, block_bytes(8000, 16 * 1024)) == (1, hv.TILE_WARPS)
+    # Fewer patterns a block where the tables pass the budget; a pattern's
+    # own tables past it refuse.
+    third = hv.SMEM_BUDGET // 3
+    assert hv.block_shape(9, 25, 15, 80, block_bytes(third, 400)) == (2, 1)
+    assert hv.block_shape(9, 25, 15, 80, block_bytes(hv.SMEM_BUDGET - 400, 400)) == (1, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        hv.block_shape(9, 25, 15, 5000, block_bytes(hv.SMEM_BUDGET, 400))
+    with pytest.raises(ValueError, match="shared memory"):
+        hv.block_shape(9, 3000, 15, 5000, block_bytes(hv.SMEM_BUDGET, 16 * 1024))
+
+
+def test_planted_twins_tie_bit_for_bit_in_the_plain_version():
+    # The card test's planted ties (tests/test_torch_gpu.py
+    # _symmetric_hough_inputs): on the CPU too, the two best candidates of
+    # most patterns score alike bit for bit, are two rotations, and
+    # argmax takes the lower index.
+    from tests.test_torch_gpu import PLANTED_GAP, _symmetric_hough_inputs
+
+    normals, g, la, lp = _symmetric_hough_inputs(48, seed=9)
+    args = _tensors(normals, g, la, lp, th._pair_index(9))
+    tol = float(np.deg2rad(2.0))
+    R_all, _, _, scores = hv.candidate_scores(*args, tol)
+    top = torch.topk(scores, 3, dim=1).values
+    assert bool((top[:, 0] == top[:, 1]).all())
+    planted = top[:, 1] - top[:, 2] > PLANTED_GAP
+    assert int(planted.sum()) >= 6
+    order = torch.argsort(-scores, dim=1, stable=True)[:, :2]
+    R = hv.vote_orientations_plain(*args, tol)[0]
+    first = torch.take_along_dim(R_all, order[:, :1, None, None], dim=1)[:, 0]
+    second = torch.take_along_dim(R_all, order[:, 1:, None, None], dim=1)[:, 0]
+    assert torch.equal(R[planted], first[planted])
+    assert float((first - second).abs().amax(dim=(1, 2))[planted].min()) > 0.1

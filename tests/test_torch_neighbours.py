@@ -232,3 +232,129 @@ def test_ebsd_methods_match_jax(dummy_patterns):
                                atol=DP_TOL)
     # The metadata and detector carry over.
     assert avg.detector is t.detector
+
+
+# ------------------- kernel G's choices on the host ------------------- #
+
+
+def test_unit_weights_are_taken_only_where_the_float64_sum_is_the_integer_sum():
+    ones = [1.0] * 5
+    assert tn.unit_weights(ones, torch.uint8) and tn.unit_weights([1.0] * 9, np.uint8)
+    for weights, dtype in (([0.5, 1.0], torch.uint8), ([-1.0, 1.0], torch.uint8), ([2.0, 1.0], torch.uint8),
+                           (ones, torch.uint16), (ones, torch.float32),
+                           (tn.window_taps(tn._resolve_window("gaussian", (3, 3), std=2))[1], torch.uint8)):
+        assert not tn.unit_weights(weights, dtype), (weights, dtype)
+    assert tn.window_taps(tn._resolve_window("circular", (3, 3)))[1] == ones
+    assert tn.window_taps(tn._resolve_window("rectangular", (3, 3)))[1] == [1.0] * 9
+    assert tn.table_bytes(5, torch.uint8) == 1280 and tn.table_bytes(9, np.float32) == 9184
+
+
+@pytest.mark.parametrize("n_taps", [5, 9])
+def test_integer_route_lanes_give_the_float64_sums(n_taps):
+    # The vector kernel's integer route in NumPy, word for word: a 16-byte
+    # vector's words split into 16-bit lanes (bytes 0 and 2, bytes 1 and 3)
+    # and added as uint32; against the plain version's float64 sum in tap
+    # order, cast to float32. Extreme bytes (0 and 255) included.
+    rng = np.random.default_rng(n_taps)
+    vecs = rng.integers(0, 256, size=(n_taps, 512, 16), dtype=np.uint8)
+    vecs[:, :8] = 255
+    vecs[:, 8:16] = 0
+    acc = np.zeros((512, 8), dtype=np.uint32)
+    for k in range(n_taps):
+        words = vecs[k].view("<u4")  # (512, 4)
+        acc[:, 0::2] += words & np.uint32(0x00FF00FF)
+        acc[:, 1::2] += (words >> np.uint32(8)) & np.uint32(0x00FF00FF)
+    lanes = np.stack([acc[:, 0::2] & 0xFFFF, acc[:, 1::2] & 0xFFFF, acc[:, 0::2] >> 16, acc[:, 1::2] >> 16], axis=-1)
+    got = lanes.reshape(512, 16).astype(np.float32)
+    want = np.zeros((512, 16), dtype=np.float64)
+    for k in range(n_taps):
+        want = want + 1.0 * vecs[k].astype(np.float32).astype(np.float64)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    # 2^52 + v less 2^52, the float64 route's conversion, is v for every uint16.
+    v = np.arange(2**16, dtype=np.uint64)
+    assert np.array_equal((v | np.uint64(0x43300000 << 32)).view(np.float64) - 2.0**52, v.astype(np.float64))
+
+
+def test_neighbours_plan_routes():
+    circ = [1.0] * 5
+    gauss9 = tn.window_taps(tn._resolve_window("gaussian", (3, 3), std=2))[1]
+    plan = tn.neighbours_plan(torch.uint8, torch.uint8, 3600, circ, 16, 16)
+    assert (plan.route, plan.taps, plan.integer, plan.warps, plan.table) == ("vector", 5, True, 8, False)
+    p9 = tn.neighbours_plan(torch.uint8, torch.float32, 3600, gauss9, 16, 16)
+    assert (p9.route, p9.taps, p9.integer) == ("vector", 9, False)
+    assert tn.neighbours_plan(torch.uint8, torch.uint8, 3600, [1.0] * 9, 16, 16).integer
+    assert not tn.neighbours_plan(torch.uint8, torch.uint8, 3600, [1.0] * 6, 16, 16).integer  # no 6-tap route
+    assert not tn.neighbours_plan(torch.uint8, torch.uint8, 3600, [1.0, 2.0, 1.0, 1.0, 1.0], 16, 16).integer
+    p6 = tn.neighbours_plan(torch.float32, torch.uint16, 3600, [1.0] * 6, 16, 16)
+    assert (p6.route, p6.taps, p6.integer, p6.warps) == ("vector", 0, False, 29)
+    wide = tn.neighbours_plan(torch.uint16, torch.uint8, 3600, [1.0] * 169, 16, 16)
+    assert (wide.route, wide.taps, wide.table, wide.warps) == ("vector", 0, True, 15)
+    # The general kernel: no whole vectors, misaligned data, other types,
+    # too many vectors; its scratches past the shared-memory budget.
+    for args in ((torch.uint8, torch.uint8, 63, circ, 16, 16), (torch.uint8, torch.uint8, 3600, circ, 8, 16),
+                 (torch.uint8, torch.float32, 3600, circ, 16, 8), (torch.int16, torch.uint8, 3600, circ, 16, 16),
+                 (torch.uint8, torch.float64, 3600, circ, 16, 16),
+                 (torch.uint8, torch.uint8, 120 * 120, gauss9, 16, 16),
+                 (torch.float32, torch.float32, 4 * 1025, circ, 16, 16)):
+        plan = tn.neighbours_plan(*args)
+        assert (plan.route, plan.work, plan.list_in_device) == ("general", False, False), args
+    assert tn.neighbours_plan(torch.uint8, torch.uint8, 120 * 120, circ, 16, 16).route == "vector"  # 900 vectors
+    assert tn.neighbours_plan(torch.float32, torch.uint8, 3600, circ, 16, 4).route == "vector"  # 4 outputs of 1 byte
+    assert tn.neighbours_plan(torch.uint8, torch.float32, 3600, circ, 16, 8).route == "general"  # 16 of 4 bytes
+    big = tn.neighbours_plan(torch.uint8, torch.uint8, 480 * 480, circ, 16, 16)
+    assert (big.route, big.work, big.list_in_device) == ("general", True, False)
+    many = tn.neighbours_plan(torch.int8, torch.uint8, 40 * 40, [1.0] * 60000, 16, 16)
+    assert (many.route, many.table, many.work, many.list_in_device) == ("general", True, False, True)
+    assert tn._alignment(0) == 16 and tn._alignment(48) == 16 and tn._alignment(8) == 8 and tn._alignment(6) == 2
+
+
+def _integer_route(p: np.ndarray, offsets, dtype_out) -> np.ndarray:
+    """Kernel G's integer route (csrc/neighbours.cu, weights of 1) in NumPy,
+    point by point: the in-map taps' integer sums, the float64 norm, the
+    point's smallest and largest sum, one table of outputs for every sum
+    between them (float32 quotient, rescale and truncation, each step
+    rounded once), and each pixel's output looked up by its sum."""
+    ny, nx = p.shape[:2]
+    omin, omax = (0.0, 255.0) if dtype_out == np.uint8 else (0.0, 65535.0) if dtype_out == np.uint16 else (-1.0, 1.0)
+    out = np.empty(p.shape, dtype=dtype_out)
+    f32 = np.float32
+    for y in range(ny):
+        for x in range(nx):
+            s = np.zeros(p.shape[2:], dtype=np.int64)
+            norm = 0.0
+            for dy, dx in offsets:
+                inside = 0 <= y - dy < ny and 0 <= x - dx < nx
+                norm = norm + (1.0 if inside else 0.0)
+                if inside:
+                    s += p[y - dy, x - dx].astype(np.int64)
+            norm32 = f32(norm)
+            s_lo, s_hi = int(s.min()), int(s.max())
+            with np.errstate(divide="ignore", invalid="ignore"):
+                lo, hi = f32(s_lo) / norm32, f32(s_hi) / norm32
+                sums = np.arange(s_lo, s_hi + 1)
+                o = sums.astype(f32) / norm32
+                v = ((o - lo) / (hi - lo)) * f32(omax - omin) + f32(omin)
+            table = v if dtype_out == np.float32 else np.where(np.isnan(v), 0, np.trunc(v)).astype(np.int64)
+            out[y, x] = table[s - s_lo].astype(dtype_out)
+    return out
+
+
+@pytest.mark.parametrize("window", ["circular", "rectangular_3x3"])
+@pytest.mark.parametrize("dtype_out", [np.uint8, np.uint16, np.float32])
+def test_integer_route_is_the_plain_version_bit_for_bit(window, dtype_out):
+    # The whole route, on a map whose edges drop taps, with a flat pattern
+    # (one sum: range 0) and a pattern of extremes: the same outputs as the
+    # plain version's float64 sums and float32 rescale.
+    w = {"circular": tn._resolve_window("circular", (3, 3)), "rectangular_3x3": np.ones((3, 3))}[window]
+    offsets, weights = tn.window_taps(w)
+    assert tn.neighbours_plan(torch.uint8, dtype_out, 3600, weights, 16, 16).integer
+    p = scan(np.uint8, shape=(4, 5, 6, 10), seed=12)
+    p[0, 0] = 77
+    p[1, 1] = np.where(np.arange(60).reshape(6, 10) % 2, 255, 0)
+    got = _integer_route(p, offsets, dtype_out)
+    want = tn.average_neighbours_plain(torch.as_tensor(p), offsets, weights, dtype_out).numpy()
+    if dtype_out == np.float32:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.array_equal(got.view(np.int32)[~np.isnan(want)], want.view(np.int32)[~np.isnan(want)])
+    else:
+        assert np.array_equal(got, want)
