@@ -297,7 +297,8 @@ the card's name and power limit, and the device check):
    5 x 5 tiles on the card (``VirtualBSEImager.get_images_from_grid``), bit
    for bit a host NumPy sum, and an RGB image of three tiles equal to the
    host's; ``[profiling]`` wraps one ``pallas-int8`` indexing call in
-   ``utils/profiling.py`` ``trace`` and finds the int8 kernel in the trace
+   ``utils/profiling.py`` ``trace``, in a process of its own
+   (``--profiling-trace DIR``), and finds the int8 kernel in the trace
    file;
 11. the scale-out modules, on the one card: ``[parallel]`` runs
    ``sharded_dictionary_index`` of the 16,384 corrected patterns against the
@@ -359,32 +360,36 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # float32 outside the tensor cores (the projection kernels' arithmetic).
 PEAK_F32_FLOPS = 67e12
-# Floating-point operations of one projected pixel as project_pixel in
-# csrc/lambert_common.cuh does them (kernel B, the Nelder-Mead kernel):
-# rotation 18, normalisation 9, Lambert map 11 with atanf counted as 10
-# more, indices and weights 18, the four-tap blend 7, the tap address 4; the
-# NCC adds 4 a pixel (centre, two products summed, the mean's sum).
-OPS_PER_PIXEL = 77
+# Floating-point operations of one projected pixel as lambert_pixel in
+# csrc/lambert_common.cuh does them (kernels A, B, F and the Nelder-Mead
+# kernel), an FMA counted as two: rotation 15, the coordinate's magnitude 14
+# (two reciprocal square roots), the major component and the ratio 5 (one
+# reciprocal), atan 19, the two coordinates 4, indices and weights 10, the
+# tap address 4, the blend 9; the NCC adds 4 a pixel (centre, two products
+# summed, the mean's sum).
+OPS_PER_PIXEL = 80
 NCC_OPS_PER_PIXEL = 4
-# ... and as project_pixel_a does them (kernel A), an FMA counted as two:
-# rotation 15, the coordinate's magnitude 14 (two reciprocal square roots),
-# the major component and the ratio 5 (one reciprocal), atan 19, the two
-# coordinates 4, indices and weights 10, the tap address 4, the blend 9.
-A_OPS_PER_PIXEL = 80
+# ... and kernel C's value (csrc/refine_lm.cu project_pixel_grad, the plain
+# twin's float32 rounding): rotation 18, normalisation 9, Lambert map 11
+# with atanf counted as 10 more, indices and weights 18, the four-tap blend
+# 7, the tap address 4.
+LM_VALUE_OPS_PER_PIXEL = 77
 # ... and of one pixel's direction cosine from a candidate PC, as
-# project_pixel_pc in csrc/lambert_common.cuh does them (the PC and joint
+# pc_direction in csrc/lambert_common.cuh does them (the PC and joint
 # modes): the pixel's x and y 4 each, the rotation into the sample frame 15,
 # the squared norm 5, its square root 1 and three divides.
 DC_OPS_PER_PIXEL = 32
 # SASS instructions of one pixel on the main path of its code (sass_count.py
-# on sm_90a; both sides of the Lambert map's branch counted, the IEEE slow
-# paths not): project_pixel, and the direction cosine from a PC before it
-# (kernel B, the Nelder-Mead kernel); project_pixel_a (kernel A, which has
-# no branch). The run recounts them where the toolkit has cuobjdump and
-# uses its count.
-SASS_PER_PIXEL = 244
-SASS_DC_PER_PIXEL = 99
-SASS_A_PER_PIXEL = 78
+# on sm_90a; the IEEE slow paths not counted): lambert_pixel (kernels A, B,
+# F and the Nelder-Mead kernel), and the direction cosine from a PC before
+# it (pc_direction); one pixel of a Nelder-Mead evaluation (nm_eval_pixel:
+# the pixel, with the tap cache or without, the pattern's store, both
+# passes' sums) in orientation and PC mode (joint mode's pixel is PC
+# mode's). The run recounts them where the toolkit has cuobjdump and uses
+# its count.
+SASS_PER_PIXEL = 78
+SASS_DC_PER_PIXEL = 92
+SASS_NM_EVAL_PER_PIXEL = {"orientation_cache": 115, "orientation": 97, "pc_cache": 207, "pc": 188}
 # ... and kernel C's pixel in each mode (csrc/refine_lm.cu Pixel: the value,
 # its gradient with respect to the rotated direction, the d tangents; in the
 # PC modes after the direction cosine), without its passes' sums.
@@ -1114,12 +1119,66 @@ def projection_checks(device, dictionary_rows, rot, dc, quad, side: int, master_
     return yard
 
 
+# Kernel B against the plain twin in float64 (1 - NCC a pattern), as kernel
+# A is held: in each case of many patterns E_k = |kernel - plain64| no
+# larger than E_t = |plain32 - plain64| at its largest; over all cases
+# together that too, and an RMS within A_RMS_FACTOR x E_t's; in every case
+# (one pattern too: there E_k and E_t are each one float32 rounding of the
+# sums, about 1e-7, and either may be the larger) the kernel within
+# B_TWIN_TOL of the float32 twin.
+B_TWIN_TOL = 2e-6
+
+
+def ncc_yardstick(got, plain32, plain64) -> dict:
+    """Kernel B's 1 - NCC ``got`` beside the float32 twin's and the float64
+    twin's: E_k and E_t, largest and RMS, and |kernel - plain32|."""
+    e_k = (got.double() - plain64).abs()
+    e_t = (plain32.double() - plain64).abs()
+    return dict(n=e_k.numel(), max_k=float(e_k.max()), rms_k=float(e_k.square().mean().sqrt()),
+                max_t=float(e_t.max()), rms_t=float(e_t.square().mean().sqrt()),
+                max_k32=float((got - plain32).abs().max()), finite=bool(got.isfinite().all()))
+
+
+def ncc_yardstick_text(y: dict) -> str:
+    return (f"E_k max {y['max_k']:.3e} RMS {y['rms_k']:.3e}; E_t max {y['max_t']:.3e} RMS {y['rms_t']:.3e} of "
+            f"{y['n']} patterns; |kernel - plain32| max {y['max_k32']:.3e}")
+
+
+def ncc_yardstick_failures(case: str, y: dict) -> list[str]:
+    bad = [] if y["finite"] else [f"{case}: not finite"]
+    if y["n"] > 1 and not y["max_k"] <= y["max_t"]:
+        bad.append(f"{case}: max E_k {y['max_k']:.3e} > max E_t {y['max_t']:.3e}")
+    if not y["max_k32"] <= B_TWIN_TOL:
+        bad.append(f"{case}: |kernel - plain32| {y['max_k32']:.3e} > {B_TWIN_TOL:g}")
+    return bad
+
+
+def ncc_pooled(yards: dict) -> dict:
+    """The cases' yardsticks together."""
+    n = sum(y["n"] for y in yards.values())
+    return dict(n=n, max_k=max(y["max_k"] for y in yards.values()), max_t=max(y["max_t"] for y in yards.values()),
+                rms_k=(sum(y["n"] * y["rms_k"] ** 2 for y in yards.values()) / n) ** 0.5,
+                rms_t=(sum(y["n"] * y["rms_t"] ** 2 for y in yards.values()) / n) ** 0.5,
+                max_k32=max(y["max_k32"] for y in yards.values()), finite=all(y["finite"] for y in yards.values()))
+
+
+def ncc_pooled_failures(yards: dict) -> list[str]:
+    c = ncc_pooled(yards)
+    bad = [f for case, y in yards.items() for f in ncc_yardstick_failures(case, y)]
+    if not c["max_k"] <= c["max_t"]:
+        bad.append(f"pooled max E_k {c['max_k']:.3e} > max E_t {c['max_t']:.3e}")
+    if not c["rms_k"] <= A_RMS_FACTOR * c["rms_t"]:
+        bad.append(f"pooled RMS E_k {c['rms_k']:.3e} > {A_RMS_FACTOR} x RMS E_t {c['rms_t']:.3e}")
+    return bad
+
+
 def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int):
-    """Kernel B (``lambert_project_ncc``) against its plain twin, 1 - NCC
-    within 2e-6: one navigation chunk of the main path's own patterns at
-    their DI orientations with the shared detector, a masked detector (a P
-    that is no multiple of the 256-thread block), a P of 1000, one PC per
-    point, and one point. Returns the max |kernel - plain| and the cases."""
+    """Kernel B (``lambert_project_ncc``) against the plain twin in float64
+    and in float32 (``ncc_yardstick``): one navigation chunk of the main
+    path's own patterns at their DI orientations with the shared detector,
+    a masked detector (a P that is no multiple of the 256-thread block), a
+    P of 1000, one PC per point, and one point. Returns the max |kernel -
+    plain32| and each case's yardstick."""
     import torch
 
     from kikuchipy_tpu_torch.indexing.refinement import _dc_for_pc, _prepare_experimental
@@ -1132,31 +1191,35 @@ def ncc_kernel_checks(device, pre_rows, rot, dc, quad, side: int, om, seed: int)
     exp, sq = _prepare_experimental(pre_rows, None)
     exp_m, sq_m = _prepare_experimental(pre_rows, mask_idx)
     exp_1k, sq_1k = _prepare_experimental(pre_rows[:, :1000], None)
-    cases = [
-        (rot, dc, exp, sq),
-        (rot, dc[mask_idx].contiguous(), exp_m, sq_m),
-        (rot, dc[:1000].contiguous(), exp_1k, sq_1k),
-        (rot, _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous(), exp, sq),
-        (rot[:1], dc, exp[:1], sq[:1]),
-    ]
-    worst = 0.0
-    for r, d, e, q in cases:
+    cases = {
+        "shared": (rot, dc, exp, sq),
+        f"masked (P={mask_idx.numel()})": (rot, dc[mask_idx].contiguous(), exp_m, sq_m),
+        "P=1000": (rot, dc[:1000].contiguous(), exp_1k, sq_1k),
+        "one PC a point": (rot, _dc_for_pc(pcs.to(device), *DETECTOR_SHAPE, om, None).contiguous(), exp, sq),
+        "B=1": (rot[:1], dc, exp[:1], sq[:1]),
+    }
+    quad64 = quad.double()
+    yards = {}
+    for case, (r, d, e, q) in cases.items():
         got = lp.lambert_project_ncc(r, d, quad, *geo, e, q)
         ref = lp.lambert_project_ncc_plain(r, d, quad, *geo, e, q)
-        err = float((got - ref).abs().max())
-        if not err <= 2e-6 or not torch.isfinite(got).all():
-            raise AssertionError(f"lambert_project_ncc != plain on B={r.shape[0]} P={d.shape[-2]} "
-                                 f"dc {tuple(d.shape)}: {err}")
-        worst = max(worst, err)
-    return worst, len(cases)
+        ref64 = lp.lambert_project_ncc_plain(r.double(), d.double(), quad64, *geo, e.double(), q.double())
+        yards[case] = ncc_yardstick(got, ref, ref64)
+    bad = ncc_pooled_failures(yards)
+    if bad:
+        raise AssertionError("lambert_project_ncc against the float64 twin: " + "; ".join(bad) + " | " + "; ".join(
+            f"{case}: {ncc_yardstick_text(y)}" for case, y in yards.items()))
+    return max(y["max_k32"] for y in yards.values()), yards
 
 
 # ------------------ Nelder-Mead kernel vs the host loop ------------------ #
 
-# Agreement of the Nelder-Mead kernel with the host loop on kernel B, on at
-# least NM_AGREE of the points: equal iterations, 1 - NCC within NM_FUN_TOL,
-# results within NM_DEG of each other (Euler angles) and NM_PC_TOL (PC); the
-# mean score no lower by more than NM_MEAN_TOL.
+# Agreement of the Nelder-Mead kernel with the host loop on kernel B: bit for
+# bit, and (what the tolerances below print) on at least NM_AGREE of the
+# points equal iterations, 1 - NCC within NM_FUN_TOL, results within NM_DEG
+# of each other (Euler angles) and NM_PC_TOL (PC); the mean score no lower
+# by more than NM_MEAN_TOL. float64_check holds the kernel against the host
+# loop over the float32 twin by the same NM_AGREE, NM_DEG and NM_MEAN_TOL.
 NM_AGREE = 0.99
 NM_FUN_TOL = 1e-5
 NM_DEG = 0.05
@@ -1189,8 +1252,11 @@ def host_loop(euler0, exp, sq_norm, dc, quad, geo, nm_kw, chunk: int = NAV_CHUNK
 
 
 def nm_agreement(label: str, got, ref, mode: str = "orientation") -> tuple[float, str]:
-    """Check the kernel's result against the host loop's in one of the three
-    modes; return the max |1 - NCC difference| and a summary."""
+    """Check the kernel's result against the host loop's over kernel B in
+    one of the three modes: bit for bit (points, values, iterations,
+    convergence; kernel B and the kernel share lambert_pixel and the block
+    reduction), and by the tolerances above; return the max |1 - NCC
+    difference| and a summary."""
     import torch
 
     from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
@@ -1214,12 +1280,200 @@ def nm_agreement(label: str, got, ref, mode: str = "orientation") -> tuple[float
         ok.append(float((dpc <= NM_PC_TOL).float().mean()))
         msg += f", PC within {NM_PC_TOL:g} {ok[-1]:.4f} (max {float(dpc.max()):.2e})"
     mean_gap = float((1 - got.fun.double()).mean() - (1 - ref.fun.double()).mean())
-    bitwise = (torch.equal(got.x, ref.x) and torch.equal(got.fun, ref.fun) and torch.equal(got.n_iter, ref.n_iter))
+    bitwise = (torch.equal(got.x, ref.x) and torch.equal(got.fun, ref.fun) and torch.equal(got.n_iter, ref.n_iter)
+               and torch.equal(got.converged, ref.converged))
     msg += (f", mean score kernel - loop {mean_gap:.2e}, bit for bit {bitwise}, evaluations "
             f"{int(got.n_evals.sum())} vs the loop's {int(ref.n_evals.sum())}")
-    if min(ok) < NM_AGREE or mean_gap < -NM_MEAN_TOL or not torch.isfinite(got.fun).all():
+    if not bitwise or min(ok) < NM_AGREE or mean_gap < -NM_MEAN_TOL or not torch.isfinite(got.fun).all():
         raise AssertionError(f"the Nelder-Mead kernel ({mode} mode) disagrees with the host loop: {msg}")
     return float(dfun.max()), msg
+
+
+# ---------- the tap cache's hits (csrc/refine_nm.cu built with its probe) ---------- #
+
+
+def start_probe_build(here: Path):
+    """Start ``nvcc`` on ``csrc/refine_nm.cu`` with ``-DREFINE_NM_PROBE``
+    (the kernel counting its tap cache's hits); returns the process and the
+    library it writes."""
+    from kikuchipy_tpu_torch.ops import _build
+
+    lib = here / "kikuchipy_tpu_torch" / "_kernels_build" / "refine_nm_probe.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    src = here / "kikuchipy_tpu_torch" / "csrc" / "refine_nm.cu"
+    return subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-DREFINE_NM_PROBE=1", "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def finish_probe_build(probe) -> Path:
+    """Wait for ``start_probe_build``'s ``nvcc``; returns the library."""
+    proc, lib_path = probe
+    log_text, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the tap-reuse probe:\n{log_text}")
+    return lib_path
+
+
+def tap_reuse(lib_path: Path, calls: dict) -> dict:
+    """Each of ``calls`` (name -> a call of a Nelder-Mead wrapper) once on
+    the probe build at ``lib_path`` (``csrc/refine_nm.cu`` with
+    ``-DREFINE_NM_PROBE``): the cached pixels of the points' first
+    evaluations and of later ones, the later ones whose tap the cache held,
+    and that share (of later, and of all pixels)."""
+    import ctypes
+
+    import torch
+
+    from kikuchipy_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(lib_path))
+    built = _build.library("refine_nm")
+    out = {}
+    try:
+        _build._LOADED["refine_nm"] = lib
+        for name, call in calls.items():
+            counts = (ctypes.c_ulonglong * 3)()
+            lib.refine_nm_probe_read(counts)  # zero them
+            call()
+            torch.cuda.synchronize()
+            if lib.refine_nm_probe_read(counts):
+                raise RuntimeError("refine_nm_probe_read failed")
+            first, later, hits = (int(c) for c in counts)
+            out[name] = dict(first_evaluation_pixels=first, later_pixels=later, hits=hits,
+                             share_of_later=hits / max(later, 1), share_of_all=hits / max(first + later, 1))
+    finally:
+        _build._LOADED["refine_nm"] = built
+    return out
+
+
+# ---------- the Nelder-Mead kernel against a loop over the float32 twin ---------- #
+#
+# The kernel and kernel B share lambert_pixel, which is not the plain twin's
+# float32 rounding. Their refined points are held against the host loop
+# over the float32 plain twin (lambert_project_ncc_plain: the arithmetic
+# JAX's objective rounds like) on a navigation chunk: the mean of the
+# float64 twin's 1 - NCC at the kernel's points no higher than at the
+# loop's by more than NM_MEAN_TOL, and in orientation mode at least
+# NM_AGREE of the points within NM_DEG of the loop's. Where the PC is
+# refined, two float32 roundings of the objective end apart by about the
+# simplex's xatol (1e-5) in PC, and in joint mode a tenth of the points
+# more than NM_DEG apart along the PC-rotation valley: the loop over the
+# float32 twin lands no closer to the loop over the float64 twin, nor does
+# the IEEE-rounded kernel this one replaced (compare_kernel_times.py
+# --refine --float64). There the shares within NM_DEG and NM_PC_TOL are
+# printed, and the float64 score is held.
+
+
+def float64_pc_direction_cosines(pc, nrows: int, ncols: int, om, take=None):
+    """``ops/refine_nm.py`` ``pc_direction_cosines``' formula in float64:
+    unit direction cosines ``(n, P, 3)`` of the detector's pixels (all, or
+    ``take``) for PCs ``pc (n, 3)``."""
+    import torch
+
+    pc, om = pc.double(), om.double()
+    aspect = ncols / nrows
+    pcx, pcy, pcz = pc[:, 0:1], pc[:, 1:2], pc[:, 2:3]
+    gb0, gb1 = -pcx * aspect / pcz, (1.0 - pcx) * aspect / pcz
+    gb2, gb3 = -(1.0 - pcy) / pcz, pcy / pcz
+    x_scale, y_scale = (gb1 - gb0) / ncols, (gb3 - gb2) / nrows
+    idx = torch.arange(nrows * ncols, device=pc.device) if take is None else take.to(pc.device).long()
+    col, row = (idx % ncols).double()[None, :], (idx // ncols).double()[None, :]
+    x = (gb0 + col * x_scale + 0.5 * x_scale) * pcz
+    y = (gb3 - row * y_scale - 0.5 * y_scale) * pcz
+    z = torch.broadcast_to(pcz, x.shape)
+    r = torch.stack([x * om[k, 0] + y * om[k, 1] + z * om[k, 2] for k in range(3)], dim=-1)
+    return r / torch.linalg.norm(r, dim=-1, keepdim=True)
+
+
+def twin_objective(mode: str, exp, sq, dc, q0, quad, om, take, geo, shape):
+    """``1 - NCC`` at a batch of candidates ``(n, d)`` of ``mode`` on the
+    float32 plain twin (no kernel): the objectives of ``ops/refine_nm.py``
+    with ``lambert_project_ncc_plain`` in place of kernel B."""
+    import torch
+
+    from kikuchipy_tpu_torch.geometry.quaternion import from_euler
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+    from kikuchipy_tpu_torch.ops.refine_nm import pc_direction_cosines
+
+    def objective(x):
+        q = q0 if mode == "pc" else from_euler(x[:, :3]).to(torch.float32)
+        d = dc if mode == "orientation" else pc_direction_cosines(x[:, -3:], *shape, om, take)
+        return lp.lambert_project_ncc_plain(q, d, quad, *geo, exp, sq)
+
+    return objective
+
+
+def float64_scores(mode: str, x, exp, sq, dc, q0, quad, om, take, geo, shape):
+    """The float64 twin's ``1 - NCC`` ``(n,)`` at each point's result ``x``."""
+    from kikuchipy_tpu_torch.geometry.quaternion import from_euler
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    q = q0.double() if mode == "pc" else from_euler(x[:, :3].double())
+    d = dc.double() if mode == "orientation" else float64_pc_direction_cosines(x[:, -3:], *shape, om, take)
+    return lp.lambert_project_ncc_plain(q, d, quad.double(), *geo, exp.double(), sq.double())
+
+
+def float64_agreement(mode: str, got, ref, s_got, s_ref) -> tuple[bool, str]:
+    """The kernel's points ``got`` against the float32-twin loop's ``ref``
+    and their float64 scores (1 - NCC): whether the criterion holds, and a
+    summary."""
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    euler, pc = NM_COLUMNS[mode]
+    ok, msg = [], []
+    if euler is not None:
+        ang = np.degrees(disorientation_angle(tq.from_euler(got.x[:, euler].double().cpu()).numpy(),
+                                              tq.from_euler(ref.x[:, euler].double().cpu()).numpy(), "m-3m"))
+        ok.append(float((ang <= NM_DEG).mean()))
+        msg.append(f"within {NM_DEG} deg {ok[-1]:.4f} (max {ang.max():.2e} deg)")
+    if pc is not None:
+        dpc = (got.x[:, pc] - ref.x[:, pc]).abs().amax(dim=1)
+        ok.append(float((dpc <= NM_PC_TOL).float().mean()))
+        msg.append(f"PC within {NM_PC_TOL:g} {ok[-1]:.4f} (max {float(dpc.max()):.2e}, median "
+                   f"{float(dpc.median()):.2e})")
+    gap = float(s_got.mean() - s_ref.mean())
+    msg.append(f"mean float64 1 - NCC kernel {float(s_got.mean()):.8f} against the loop's {float(s_ref.mean()):.8f} "
+               f"(kernel - loop {gap:.2e}, limit {NM_MEAN_TOL:g}); the float32 scores' mean gap "
+               f"{float(got.fun.double().mean() - ref.fun.double().mean()):.2e}")
+    held = ok[0] >= NM_AGREE if mode == "orientation" else True
+    return held and gap <= NM_MEAN_TOL and bool(s_got.isfinite().all()), ", ".join(msg)
+
+
+def float64_loop(mode: str, x0, nm_kw, exp, sq, dc, q0, quad, om, take, geo, shape):
+    """The host loop over the float64 twin (the float64 objective) from
+    ``x0``, in float64 throughout."""
+    from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted
+
+    step, lo, hi = (None if v is None else torch_double(v) for v in
+                    (nm_kw.get("initial_step"), nm_kw.get("lower_bounds"), nm_kw.get("upper_bounds")))
+    res, _ = _nelder_mead_counted(
+        lambda x: float64_scores(mode, x, exp, sq, dc, q0, quad, om, take, geo, shape), x0.double(), step,
+        nm_kw["max_iters"], nm_kw["fatol"], nm_kw["xatol"], lo, hi, ())
+    return res
+
+
+def torch_double(v):
+    """``v`` (a scalar or a tensor) as float64, a tensor staying on its device."""
+    return v.double() if hasattr(v, "double") else float(v)
+
+
+def float64_check(mode: str, wrapper, x0, nm_kw, exp, sq, dc, q0, quad, om, take, geo, shape):
+    """The kernel (``wrapper``'s call from ``x0``) against the loop over the
+    float32 twin in ``mode``: ``float64_agreement``'s verdict and summary,
+    and both results."""
+    import torch
+
+    from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted
+
+    got = wrapper(x0)
+    res, _ = _nelder_mead_counted(twin_objective(mode, exp, sq, dc, q0, quad, om, take, geo, shape), x0,
+                                  nm_kw.get("initial_step"), nm_kw["max_iters"], nm_kw["fatol"], nm_kw["xatol"],
+                                  nm_kw.get("lower_bounds"), nm_kw.get("upper_bounds"), ())
+    torch.cuda.synchronize()
+    scores = [float64_scores(mode, r.x, exp, sq, dc, q0, quad, om, take, geo, shape) for r in (got, res)]
+    ok, msg = float64_agreement(mode, got, res, *scores)
+    return ok, msg, got, res
 
 
 def nm_edge_cases(device, rows, euler0, dc, quad, geo, om, nm_kw, top1_rot, seed: int, big: int = 48,
@@ -1402,7 +1656,7 @@ def unit_quats(q) -> np.ndarray:
 
 def lm_ops_per_pixel(mode: str) -> int:
     """float32 operations of one pixel of kernel C, an FMA counted as two:
-    the value as project_pixel computes it (OPS_PER_PIXEL), in the PC modes
+    the value as project_pixel_grad computes it (LM_VALUE_OPS_PER_PIXEL), in the PC modes
     after its direction cosine (DC_OPS_PER_PIXEL); its gradient with respect
     to the rotated direction (the weights' 10, the Lambert map's 16, the
     projection off the unit vector 24); the tangents (a rotation-vector
@@ -1412,7 +1666,7 @@ def lm_ops_per_pixel(mode: str) -> int:
     d = LM_DIMS[mode]
     tangents = (54 if mode != "pc" else 0) + (52 if mode != "orientation" else 0)
     sums = (1 + d) + (2 + 2 * d + d * (d + 1)) + (3 + 2 * (d + 2))
-    return OPS_PER_PIXEL + (DC_OPS_PER_PIXEL if mode != "orientation" else 0) + 50 + tangents + sums
+    return LM_VALUE_OPS_PER_PIXEL + (DC_OPS_PER_PIXEL if mode != "orientation" else 0) + 50 + tangents + sums
 
 
 def lm_problem(mode: str, rows, x, q0, pc0, take, quad, om, dc, geo, shape):
@@ -2428,6 +2682,15 @@ def sh_refinement_phases(dev, static, xmap, pc_xmap, det, bad_det, mp, truth, ne
         f"mean {res.xmap.prop['num_evals'].mean():.2f}; {scores_msg}; peak memory {peak_joint:.2f} GiB "
         f"({peak_joint * 2**30 / n / 2**20:.3f} MiB a point)")
     return launches, errs
+
+
+def nm_sass_key(mode: str, P: int) -> str:
+    """sass_count.py's key of a Nelder-Mead evaluation's pixel in ``mode``
+    on the route ``nelder_mead_plan`` takes for ``P`` pixels."""
+    from kikuchipy_tpu_torch.ops.refine_nm import nelder_mead_plan
+
+    return ("orientation" if mode == "orientation" else "pc") + (
+        "_cache" if nelder_mead_plan(P, mode).route == "cache" else "")
 
 
 def instruction_ms(pixels: float, per_pixel: int, clock_mhz: float, sms: int) -> float:
@@ -4225,23 +4488,75 @@ def vbse_phase(dev, scan, smi: str) -> list[str]:
             f"EBSD.get_virtual_bse_intensity({roi}) equal to the host's"]
 
 
-def profiling_phase(pre, dictionary, smi: str, folder: Path) -> list[str]:
-    """[profiling]: ``utils/profiling.py`` ``trace`` around one pallas-int8
-    indexing call; the trace file must name the int8 kernel."""
+PROFILING_TIMEOUT_S = 300
+
+
+def profiling_trace(log_dir: Path, seed: int) -> int:
+    """The capture of [profiling], run as ``chip_smoke.py --profiling-trace
+    DIR``: the main path's inputs from ``seed``, one untraced pallas-int8
+    indexing call (it loads the kernels), then ``trace(DIR)`` around a
+    second. Prints the traced call's wall ms as JSON."""
+    import torch
+
+    import kikuchipy_tpu_torch as kt
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+    from kikuchipy_tpu_torch.crystallography.sampling import (
+        reduce_to_fundamental_zone,
+        sample_fundamental_zone,
+        super_fibonacci,
+    )
     from kikuchipy_tpu_torch.utils.profiling import trace
 
-    log_dir = folder / "trace"
+    dev = torch.device("cuda")
+    mp = kt.EBSDMasterPattern(master_pattern_data(), phase=Phase(name="ni", point_group="m-3m"), device=dev)
+    det = kt.EBSDDetector(shape=DETECTOR_SHAPE, pc=PC, sample_tilt=70)
+    n_scan = SCAN_SIDE * SCAN_SIDE
+    truth = reduce_to_fundamental_zone(super_fibonacci(n_scan * 7)[::7][:n_scan], "m-3m")
+    scan_u8, static_bg = scan_data(mp, det, truth, seed, chunk_size=8192)
+    scan = kt.EBSD(scan_u8.reshape(SCAN_SIDE, SCAN_SIDE, *DETECTOR_SHAPE), detector=det,
+                   static_background=static_bg, device=dev)
+    pre = scan.remove_static_background().remove_dynamic_background()
+    dictionary = mp.get_patterns(sample_fundamental_zone(RESOLUTION_DEG, "m-3m"), det, chunk_size=8192)
+    pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     with trace(str(log_dir)):
         pre.dictionary_indexing(dictionary, keep_n=KEEP_N, precision="pallas-int8")
-    wall = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"wall_ms": (time.perf_counter() - t0) * 1e3}), flush=True)
+    return 0
+
+
+def profiling_phase(smi: str, folder: Path, seed: int) -> list[str]:
+    """[profiling]: ``utils/profiling.py`` ``trace`` around one pallas-int8
+    indexing call of the main path; the trace file must name the int8
+    kernel. The capture runs in a process of its own (``profiling_trace``):
+    on the H100, after the dozens of ``torch.profiler`` captures that come
+    before it in this process, CUPTI has left the port's kernels out of a
+    capture while it kept PyTorch's (once in three whole runs), so this check
+    reads a capture that is its process's first."""
+    import torch
+
+    torch.cuda.empty_cache()  # the child shares the card
+    log_dir = folder / "trace"
+    here = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(here), "--seed", str(seed), "--profiling-trace", str(log_dir)],
+                              capture_output=True, text=True, cwd=here.parent, timeout=PROFILING_TIMEOUT_S)
+    except subprocess.TimeoutExpired as err:
+        raise AssertionError(f"[profiling] the tracing process ran past {PROFILING_TIMEOUT_S} s") from err
+    process_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[profiling] the tracing process exited {proc.returncode}: {proc.stderr[-2000:]}")
+    wall = json.loads(proc.stdout.strip().splitlines()[-1])["wall_ms"]
     files = sorted(log_dir.glob("*.pt.trace.json"))
     if len(files) != 1:
         raise AssertionError(f"[profiling] trace wrote {len(files)} trace files")
     text = files[0].read_text()
     if INT8_KERNEL_SYMBOL not in text:
         raise AssertionError(f"[profiling] the trace does not name the int8 kernel ({INT8_KERNEL_SYMBOL})")
-    return [f"{smi}: trace() around one pallas-int8 call: {wall:.1f} ms with tracing and the export, "
+    return [f"{smi}: trace() around one pallas-int8 call (a process of its own, {process_s:.1f} s with its inputs "
+            f"and an untraced call): {wall:.1f} ms with tracing and the export, "
             f"{files[0].name} {files[0].stat().st_size / 1e6:.1f} MB, names {INT8_KERNEL_SYMBOL}... "
             f"{text.count(INT8_KERNEL_SYMBOL)} times"]
 
@@ -4625,6 +4940,8 @@ def native_phase(dev, scan, smi: str) -> list[str]:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profiling-trace", type=Path, default=None, metavar="DIR",
+                        help="only [profiling]'s capture, written into DIR (the phase runs it in a process of its own)")
     args = parser.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4639,6 +4956,8 @@ def main(argv=None) -> int:
     if Path(kt.__file__).resolve().parent.parent != here:
         print(f"chip_smoke: kikuchipy_tpu_torch is not the checkout's ({kt.__file__})", file=sys.stderr)
         return 2
+    if args.profiling_trace is not None:
+        return profiling_trace(args.profiling_trace, args.seed)
     from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
     from kikuchipy_tpu_torch.crystallography.sampling import (
         disorientation_angle,
@@ -4667,6 +4986,8 @@ def main(argv=None) -> int:
     log("device", f"{smi} | torch {torch.__version__} cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    # The Nelder-Mead kernel built with its tap-reuse probe compiles beside them.
+    probe = start_probe_build(here)
     built = _build.build_all()
     ptxas = {}
     for name, text in _build.BUILD_LOG.items():
@@ -4680,7 +5001,7 @@ def main(argv=None) -> int:
     # Instruction slots: SASS instructions a pixel, recounted where the toolkit
     # disassembles (sass_count.py), and the card's largest SM clock.
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
-            "project_pixel_a": SASS_A_PER_PIXEL, "tangent_pixel": dict(SASS_LM_PER_PIXEL),
+            "nm_eval_pixel": dict(SASS_NM_EVAL_PER_PIXEL), "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
             "static_pixel": SASS_D_STATIC_PER_PIXEL, "dynamic_steps": dict(SASS_D_DYNAMIC_STEPS),
             "hough_pole": SASS_HOUGH_PER_POLE, "neighbours_pixel": SASS_NEIGHBOURS_PER_PIXEL, "source": "constants"}
@@ -4688,21 +5009,22 @@ def main(argv=None) -> int:
         import sass_count
 
         counted = sass_count.count()
-        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "project_pixel_a", "tangent_pixel",
+        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "nm_eval_pixel", "tangent_pixel",
                                               "lm_eval_pixel", "clahe_pixel", "static_pixel", "dynamic_steps",
                                               "hough_pole", "neighbours_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
-    if min(sass["project_pixel"], sass["direction_cosine"], sass["project_pixel_a"], sass["clahe_pixel"],
+    if min(sass["project_pixel"], sass["direction_cosine"], *sass["nm_eval_pixel"].values(), sass["clahe_pixel"],
            sass["static_pixel"], sass["hough_pole"], sass["neighbours_pixel"], *sass["tangent_pixel"].values(),
            *sass["lm_eval_pixel"].values(),
            *sass["dynamic_steps"].values()) <= 0:
         raise AssertionError(f"no SASS count a pixel: {sass}")
     clock_mhz = max_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log("sass", f"instructions a pixel: project_pixel {sass['project_pixel']}, the direction cosine from a PC "
-        f"{sass['direction_cosine']}, kernel A's project_pixel_a {sass['project_pixel_a']}, kernel C's pixel (value, "
+    log("sass", f"instructions a pixel: lambert_pixel (kernels A, B, F, the Nelder-Mead kernel) "
+        f"{sass['project_pixel']}, the direction cosine from a PC {sass['direction_cosine']}, a pixel of a "
+        f"Nelder-Mead evaluation on the cache route (orientation, PC) {sass['nm_eval_pixel']}, kernel C's pixel (value, "
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
         f"the LM loop kernel) {sass['lm_eval_pixel']}, a pixel of kernel E's pair kernel (its histogram step, blend, "
         f"output and share of the mappings) {sass['clahe_pixel']:g}, a pixel of kernel D's static warp kernel (two "
@@ -4710,7 +5032,7 @@ def main(argv=None) -> int:
         f"(a row-product step, a column-product step, a warp's rest a pattern) {sass['dynamic_steps']}, a pole and "
         f"band of kernel H's scoring {sass['hough_pole']:g}, a pixel of kernel G's main-path "
         f"instantiation {sass['neighbours_pixel']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, "
-        f"{SASS_DC_PER_PIXEL}, {SASS_A_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, "
+        f"{SASS_DC_PER_PIXEL}, {SASS_NM_EVAL_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, "
         f"{SASS_CLAHE_PER_PIXEL:g}, {SASS_D_STATIC_PER_PIXEL:g}, {SASS_D_DYNAMIC_STEPS}, {SASS_HOUGH_PER_POLE:g}, "
         f"{SASS_NEIGHBOURS_PER_PIXEL:g}); "
         f"dispatch "
@@ -4860,10 +5182,13 @@ def main(argv=None) -> int:
     pre_rows = pre.data.reshape(n_scan, -1)
     top1_rot = xmap.best_rotations
     rot_nav = torch.as_tensor(top1_rot[:NAV_CHUNK], dtype=torch.float32, device=dev)
-    b_err, b_cases = ncc_kernel_checks(dev, pre_rows[:NAV_CHUNK], rot_nav, dc, quad, side, om, args.seed)
-    log("ncc-check", f"lambert_project_ncc against its plain twin on {b_cases} cases (B={NAV_CHUNK} of the main "
-        f"path's patterns: shared, masked and per-point direction cosines, P=1000; B=1): max |diff| of 1 - NCC "
-        f"{b_err:.3e}")
+    b_err, b_yards = ncc_kernel_checks(dev, pre_rows[:NAV_CHUNK], rot_nav, dc, quad, side, om, args.seed)
+    log("ncc-check", f"lambert_project_ncc against the plain twin in float64 and float32 on {len(b_yards)} cases "
+        f"(B={NAV_CHUNK} of the main path's patterns: shared, masked and per-point direction cosines, P=1000; B=1); "
+        f"limits: each case of many patterns and the cases pooled max E_k <= max E_t, pooled RMS E_k <= "
+        f"{A_RMS_FACTOR} x RMS E_t, each case |kernel - plain32| <= {B_TWIN_TOL:g}: pooled "
+        f"{ncc_yardstick_text(ncc_pooled(b_yards))} | "
+        + " | ".join(f"{case}: {ncc_yardstick_text(y)}" for case, y in b_yards.items()))
 
     # ---- refinement of the main path's crystal map ----
     # The synthetic scan carries a static background and no dynamic one.
@@ -4959,7 +5284,9 @@ def main(argv=None) -> int:
         "launches": refine_launches["nelder_mead_orientation"], "max_abs_err": nm_err, "ms": ms_nm,
         "plain_ms": t_host * 1e3, "bound_ms": bound_nm, "bound_by": "operations" if t_ops_nm >= t_bytes_nm else "bytes",
         "library_ms": None, "library_same_function_ms": None, "l2_bound_ms": l2_nm,
-        "instruction_bound_ms": instruction_ms(evals * d, sass["project_pixel"], clock_mhz, sms), "split_ms": None,
+        "instruction_bound_ms": instruction_ms(evals * d, sass["nm_eval_pixel"][nm_sass_key("orientation", d)],
+                                               clock_mhz, sms),
+        "split_ms": None,
         "kernel_only_ms": None, "evaluations": evals, "scattered_taps_ms": evals * d / SCATTERED_TAPS_PER_S[1] * 1e3,
     }
     log("refine", f"{smi}: EBSD.refine_orientation(xmap=<pallas-int8 top-1>, master_pattern=mp) at its defaults "
@@ -4979,7 +5306,9 @@ def main(argv=None) -> int:
         f"{OPS_PER_PIXEL + NCC_OPS_PER_PIXEL} a pixel, bytes {t_bytes_nm:.4f} ms), {bound_nm / ms_nm:.2%} of it; "
         f"taps {evals * d * TAP_BYTES / 1e9:.2f} GB from L2 {l2_nm:.3f} ms at the measured "
         f"{l2_rate / 1e12:.3f} TB/s ({l2_nm / ms_nm:.2%}); instruction slots {nm_row['instruction_bound_ms']:.3f} ms at "
-        f"{sass['project_pixel']} instructions a pixel ({nm_row['instruction_bound_ms'] / ms_nm:.2%}); refine_orientation "
+        f"{sass['nm_eval_pixel'][nm_sass_key('orientation', d)]} instructions a pixel "
+        f"({nm_row['instruction_bound_ms'] / ms_nm:.2%}); "
+        f"refine_orientation "
         f"untraced {t_refine2 * 1e3:.3f} ms = {n_scan / t_refine2:.1f} patterns/s; under torch.profiler: wall "
         f"{traced_wall:.3f} ms, device busy {busy:.3f} ms = {busy / traced_wall:.1%} over {len(events)} kernel "
         f"names; {top}")
@@ -5097,12 +5426,43 @@ def main(argv=None) -> int:
                        f"of the chunk's; edge cases: " + "; ".join(edge))
     log("refine-pc-vs-host", "; ".join(vs_msgs))
 
+    # ---- each mode against the host loop over the float32 twin, scored in float64 ----
+    # The kernel and kernel B share lambert_pixel, not the plain twin's
+    # float32 rounding: on one navigation chunk of the same inputs in each
+    # mode, the kernel's points against the loop over
+    # lambert_project_ncc_plain (float64_check), at the refine_* defaults.
+    t_phase = time.perf_counter()
+    f64_msgs, f64_bad = [], []
+    for mode in ("orientation", "pc", "joint"):
+        if mode == "orientation":
+            x0, kw, q0 = euler_top1[:c], nm_kw, None
+            wrap = lambda x: rn.nelder_mead_orientation(x, exp_s[:c], sq_s[:c], dc, quad, *geo, **nm_kw)  # noqa: E731
+        else:
+            (w, _), pargs, kw = pc_problem(mode, pc0_all[:c], exp_s[:c], sq_s[:c], rot_refined[:c], euler_top1[:c],
+                                           quad, om, None, geo, DETECTOR_SHAPE)
+            x0, q0 = pargs[0], rot_refined[:c]
+            wrap = lambda x, w=w, pargs=pargs, kw=kw: w(x, *pargs[1:], **kw)  # noqa: E731
+        ok, msg, _, _ = float64_check(mode, wrap, x0, kw, exp_s[:c], sq_s[:c], dc, q0, quad, om, None, geo,
+                                      DETECTOR_SHAPE)
+        f64_msgs.append(f"{mode} mode (n={c}): {msg}")
+        if not ok:
+            f64_bad.append(mode)
+    log("refine-float64", f"the Nelder-Mead kernel against the host loop over the float32 plain twin, both scored by "
+        f"the float64 twin; limits: the mean float64 1 - NCC no higher than the loop's by more than {NM_MEAN_TOL:g}, "
+        f"in orientation mode {NM_AGREE:.0%} of the points within {NM_DEG} deg (the PC modes' shares within "
+        f"{NM_DEG} deg and PC {NM_PC_TOL:g} printed): " + "; ".join(f64_msgs)
+        + f" ({time.perf_counter() - t_phase:.1f} s)")
+    if f64_bad:
+        raise AssertionError(f"[refine-float64] failed in {f64_bad}")
+
     # Times on the whole map: each kernel (CUDA events), its evaluations and
     # bounds, and its refine_* call untraced and under torch.profiler.
     pc_times = []
+    map_calls = {"orientation": lambda: rn.nelder_mead_orientation(*nm_args, **nm_kw)}
     for mode in ("pc", "joint"):
         (wrapper, _), pargs, kw = pc_problem(mode, pc0_all, exp_s, sq_s, rot_refined if mode == "pc" else None,
                                             euler_top1, quad, om, None, geo, DETECTOR_SHAPE)
+        map_calls[mode] = lambda wrapper=wrapper, pargs=pargs, kw=kw: wrapper(*pargs, **kw)
         whole = wrapper(*pargs, **kw)
         torch.cuda.synchronize()
         ms_k = cuda_ms(lambda: wrapper(*pargs, **kw), 2)
@@ -5116,7 +5476,7 @@ def main(argv=None) -> int:
         t_bytes = (in_bytes + n_scan * (4 * dims + 4 + 4 + 4 + 1)) / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
-        t_instr = instruction_ms(pixels, sass["project_pixel"] + sass["direction_cosine"], clock_mhz, sms)
+        t_instr = instruction_ms(pixels, sass["nm_eval_pixel"][nm_sass_key(mode, d)], clock_mhz, sms)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         getattr(static, pc_call[mode])(xmap=pc_start[mode], detector=bad_det, master_pattern=mp)
@@ -5144,14 +5504,23 @@ def main(argv=None) -> int:
             f"{evals_k / n_scan:.1f} a point); bound {bound:.4f} ms by {pc_rows[mode]['bound_by']} (operations "
             f"{t_ops:.4f} ms at {OPS_PER_PIXEL + NCC_OPS_PER_PIXEL + DC_OPS_PER_PIXEL} a pixel, bytes {t_bytes:.4f} "
             f"ms), {bound / ms_k:.2%} of it; instruction slots {t_instr:.3f} ms at "
-            f"{sass['project_pixel'] + sass['direction_cosine']} instructions a pixel ({t_instr / ms_k:.2%}); taps "
+            f"{sass['nm_eval_pixel'][nm_sass_key(mode, d)]} instructions a pixel ({t_instr / ms_k:.2%}); taps "
             f"{pixels * TAP_BYTES / 1e9:.2f} GB from L2 {l2_ms:.3f} ms ({l2_ms / ms_k:.2%}); {pc_call[mode]} "
             f"untraced {t_call * 1e3:.3f} ms = {n_scan / t_call:.1f} patterns/s; under torch.profiler wall "
             f"{traced:.3f} ms, device busy {busy_k:.3f} ms = {busy_k / traced:.1%}; {top_k}; the host loop on "
             f"kernel B {pc_host_ms[mode]:.1f} ms for {c} points ({c / pc_host_ms[mode] * 1e3:.1f} patterns/s)")
     ms_nm_again = cuda_ms(lambda: rn.nelder_mead_orientation(*nm_args, **nm_kw), 2)
+    # The tap cache's hits at the whole map, on the kernel built with its probe.
+    reuse = tap_reuse(finish_probe_build(probe), map_calls)
+    for mode, row in (("orientation", nm_row), *pc_rows.items()):
+        row["sass_per_pixel"] = sass["nm_eval_pixel"][nm_sass_key(mode, d)]
+        cached = reuse[mode]["later_pixels"] > 0  # none where the plan takes no cache
+        row["tap_reuse_share"] = reuse[mode]["share_of_later"] if cached else None
+        row["tap_cache_hits_of_all"] = reuse[mode]["share_of_all"] if cached else None
     log("refine-pc-times", f"{smi}: the whole map, P={d}: " + "; ".join(pc_times)
-        + f"; orientation mode in the same run {ms_nm_again:.3f} ms")
+        + f"; orientation mode in the same run {ms_nm_again:.3f} ms; the tap cache's hits (of the pixels after a "
+        f"point's first evaluation; of all): " + ", ".join(
+            f"{mode} {r['share_of_later']:.4f}; {r['share_of_all']:.4f}" for mode, r in reuse.items()))
 
     # ---- LM and gradient refinement of the whole map ----
     # Each refine_* call at its defaults with method "lm", then "gradient",
@@ -5544,7 +5913,7 @@ def main(argv=None) -> int:
     ms_b_plain = cuda_ms(lambda: lp.lambert_project_ncc_plain(rot_nav, dc, quad, *geo, exp_c, sq_c), 5)
     pix_a = m * d
     t_bytes_a = (4 * (pix_a + 4 * m + dc.numel()) + 4 * quad.numel()) / PEAK_BYTES * 1e3
-    t_ops_a = pix_a * A_OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
+    t_ops_a = pix_a * OPS_PER_PIXEL / PEAK_F32_FLOPS * 1e3
     none_keys = dict(library_ms=None, library_same_function_ms=None, split_ms=None, kernel_only_ms=None)
     # Kernel B: the host loops' engine, and the spherical tier's bilinear
     # scores at its solutions.
@@ -5565,7 +5934,7 @@ def main(argv=None) -> int:
     for name, line, launches, err, ms, plain_ms, bound, by, taps, per_pixel in (
         ("lambert_project", "projection/master_pattern.py:210", main_launches["lambert_project"],
          max(a_err, sh_errs["lambert_project"]), ms_a, ms_a_plain, max(t_bytes_a, t_ops_a),
-         "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a, sass["project_pixel_a"]),
+         "bytes" if t_bytes_a >= t_ops_a else "operations", pix_a, sass["project_pixel"]),
         ("lambert_project_ncc", "indexing/refinement.py:132", refine_launches["lambert_project_ncc"],
          max(b_err, sh_errs["lambert_project_ncc"]), ms_b, ms_b_plain, bound_b,
          "bytes" if t_bytes_b >= t_ops_b else "operations", pix_b, sass["project_pixel"]),
@@ -5576,7 +5945,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/lambert_project.cu",
             "replaces": f"kikuchipy_tpu/{line}", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "l2_bound_ms": l2_ms, "instruction_bound_ms": t_instr,
-            **none_keys, "launches_by_path": by_path[name], "note": notes[name],
+            **none_keys, "launches_by_path": by_path[name], "note": notes[name], "sass_per_pixel": per_pixel,
+            **({"float64": {case: {k: y[k] for k in ("max_k", "max_t", "rms_k", "rms_t", "max_k32")}
+                            for case, y in b_yards.items()}} if name == "lambert_project_ncc" else {}),
         })
         time_msgs.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms by {by}, {bound / ms:.2%} of it; instruction slots "
                          f"{t_instr:.4f} ms at {per_pixel} instructions a pixel ({t_instr / ms:.2%}); its "
@@ -5701,7 +6072,7 @@ def main(argv=None) -> int:
     for msg in vbse_phase(dev, scan, smi):
         log("vbse", msg)
     with tempfile.TemporaryDirectory() as tmp:
-        for msg in profiling_phase(pre, dictionary, smi, Path(tmp)):
+        for msg in profiling_phase(smi, Path(tmp), args.seed):
             log("profiling", msg)
     for row in table:
         if row["name"] in ("lambert_project", "ncc_match_topk_int8"):

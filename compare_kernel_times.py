@@ -4,7 +4,8 @@ kernel (kernel A) of one checkout at the main-path shape, or with
 kernel G, ``--hough`` kernel H, to compare two commits on one card.
 
     python3 compare_kernel_times.py --tree DIR [--reps 10]
-        [--preprocess | --neighbours | --hough [--inputs PATH | --poles N]]
+        [--preprocess | --neighbours | --hough [--inputs PATH | --poles N]
+         | --refine [--save PATH] [--against PATH]]
 
 ``DIR`` is the root of a checkout (this one: ``.``). The script imports
 ``kikuchipy_tpu_torch`` and ``chip_smoke.py`` from ``DIR``, builds the
@@ -59,6 +60,23 @@ detection builds its operator on the host, about 30 s a process).
 ``--poles N`` times it instead on ``pole_set_inputs``' seeded set of N
 random unit poles (past 1,024 the kernel streams them through shared
 memory in tiles) with 16,384 patterns of 9 bands.
+
+With ``--refine`` the package comes from ``DIR`` and the inputs from
+``refine_variants.py``'s ``problem`` beside this script (16,384 points, a
+60 x 60 detector, ``chip_smoke.py``'s seeded 401 x 401 master; patterns
+projected at known orientations with noise, refined from 1.5 degrees off,
+and in the PC modes from the PC off by (0.01, -0.01, 0.01)). One JSON line:
+the Nelder-Mead kernel's three modes on the whole map, kernel B at 2,048
+points (shared direction cosines) and kernel F at one DE generation of the
+map in each mode (M = 24, 16, 16), each with CUDA events after a warm-up
+and the card's clock right after it. ``--save PATH`` writes the outputs;
+``--against PATH`` compares them with another tree's saved outputs: each
+mode's share of points within 0.05 degrees and 1e-5 in PC, its mean score
+against theirs, whether the two are bit for bit equal, and B's and F's
+largest differences. ``--float64`` adds, on the first 2,048 points of each
+mode, the tree's kernel, the host loop over the float32 plain twin and the
+host loop over the float64 twin, each pair compared as ``chip_smoke.py``
+``[refine-float64]`` compares the first two.
 
 Run it once per checkout, alternating (parent, change, change, parent), on
 one card. Needs a CUDA device.
@@ -332,6 +350,129 @@ def hough(tree: Path, reps: int, inputs: Path | None, poles: int | None = None) 
     }), flush=True)
 
 
+def _refine_problem(smoke_dir: Path, seed: int = 0):
+    """``refine_variants.py``'s ``problem`` (the file beside this script)."""
+    spec = importlib.util.spec_from_file_location("refine_variants_inputs", smoke_dir / "refine_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.problem(smoke_dir, seed)
+
+
+def refine_runs(smoke, modes):
+    """name -> (the call, what its outputs are): each mode's Nelder-Mead
+    kernel on the whole map, kernel B at 2,048 points, kernel F at a DE
+    generation in each mode."""
+    import torch
+
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    euler0, exp, sq, dc, quad, npx, npy, scale = modes["orientation"][1]
+    pc0, _, _, q_truth, _, om = modes["pc"][1][:6]
+    geo = (npx, npy, scale)
+    runs = {mode: (lambda fn=fn, a=a, kw=kw: fn(*a, **kw)) for mode, (fn, a, kw) in modes.items()}
+    c = smoke.NAV_CHUNK
+    rot_c = q_truth[:c].contiguous()
+    runs["lambert_project_ncc"] = lambda: lp.lambert_project_ncc(rot_c, dc, quad, *geo, exp[:c], sq[:c])
+    for mode, x0 in (("orientation", euler0), ("pc", pc0), ("joint", torch.cat([euler0, pc0], dim=1))):
+        M = smoke.POP_M[mode]
+        wrapper, _, _, x, args = smoke.population_problem(mode, x0, exp, sq, q_truth, quad, om, dc, geo,
+                                                          smoke.DETECTOR_SHAPE, M, 80 + M)
+        runs[f"population_{mode}"] = lambda wrapper=wrapper, x=x, args=args: wrapper(x, *args)
+    return runs
+
+
+def refine_agreement(mine: dict, theirs: dict) -> dict:
+    """Each mode's agreement with another tree's outputs, and B's and F's
+    largest differences."""
+    import numpy as np
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    out = {}
+    for name, got in mine.items():
+        ref = theirs[name]
+        if not isinstance(got, dict):
+            out[name] = {"max_abs_diff": float((got - ref).abs().max()), "bit_for_bit": bool(torch.equal(got, ref))}
+            continue
+        row = {"bit_for_bit": all(torch.equal(got[k], ref[k]) for k in ("x", "fun", "n_iter")),
+               "n_iter_equal": float((got["n_iter"] == ref["n_iter"]).float().mean()),
+               "max_abs_dfun": float((got["fun"] - ref["fun"]).abs().max()),
+               "mean_score_gap": float((1 - got["fun"].double()).mean() - (1 - ref["fun"].double()).mean()),
+               "evaluations": [int(got["n_evals"].sum()), int(ref["n_evals"].sum())]}
+        if name != "pc":
+            ang = np.degrees(disorientation_angle(tq.from_euler(got["x"][:, :3].double()).numpy(),
+                                                  tq.from_euler(ref["x"][:, :3].double()).numpy(), "m-3m"))
+            row.update(within_005_deg=float((ang <= 0.05).mean()), max_deg=float(ang.max()))
+        if name != "orientation":
+            dpc = (got["x"][:, -3:] - ref["x"][:, -3:]).abs().amax(dim=1)
+            row.update(pc_within_1e5=float((dpc <= 1e-5).float().mean()), max_dpc=float(dpc.max()))
+        out[name] = row
+    return out
+
+
+def refine_float64(smoke, modes, n: int = 2048) -> dict:
+    """On the first ``n`` points in each mode: the tree's kernel, the host
+    loop over the float32 plain twin and the host loop over the float64
+    twin, each pair compared by ``chip_smoke.py`` ``float64_agreement`` (the
+    share within 0.05 degrees and 1e-5 in PC, the mean float64 1 - NCC)."""
+    import torch
+
+    out = {}
+    for mode, (fn, margs, mkw) in modes.items():
+        if mode == "orientation":
+            x0, (exp, sq, dc, quad), q0, om = margs[0][:n], margs[1:5], None, None
+            exp, sq = exp[:n], sq[:n]
+            geo, shape = margs[5:8], smoke.DETECTOR_SHAPE
+            wrap = lambda x, fn=fn, margs=margs, mkw=mkw: fn(x, exp, sq, *margs[3:], **mkw)  # noqa: E731
+        else:
+            pc = mode == "pc"
+            x0, exp, sq = margs[0][:n], margs[1][:n], margs[2][:n]
+            q0 = margs[3][:n] if pc else None
+            rest = margs[4:] if pc else margs[3:]
+            quad, om, geo, shape, dc = rest[0], rest[1], rest[3:6], rest[6:8], None
+            head = (exp, sq, q0) if pc else (exp, sq)
+            wrap = lambda x, fn=fn, head=head, rest=rest, mkw=mkw: fn(x, *head, *rest, **mkw)  # noqa: E731
+        ok, _, got, twin = smoke.float64_check(mode, wrap, x0, mkw, exp, sq, dc, q0, quad, om, None, geo, shape)
+        f64 = smoke.float64_loop(mode, x0, mkw, exp, sq, dc, q0, quad, om, None, geo, shape)
+        torch.cuda.synchronize()
+        scores = {k: smoke.float64_scores(mode, r.x, exp, sq, dc, q0, quad, om, None, geo, shape)
+                  for k, r in (("kernel", got), ("twin", twin), ("float64", f64))}
+        res = {"kernel": got, "twin": twin, "float64": f64}
+        out[mode] = {f"{a} against {b}": smoke.float64_agreement(mode, res[a], res[b], scores[a], scores[b])[1]
+                     for a, b in (("kernel", "twin"), ("kernel", "float64"), ("twin", "float64"))}
+        out[mode]["criterion holds"] = ok
+    return out
+
+
+def refine(tree: Path, reps: int, save: Path | None, against: Path | None, float64: bool = False) -> None:
+    """The ``--refine`` line of ``tree``'s Nelder-Mead kernel, kernel B and
+    kernel F (the module docstring)."""
+    import torch
+
+    tree, smoke, kt = _tree_and_smoke(tree, "refine_chip_smoke")
+    smoke, modes = _refine_problem(Path(__file__).resolve().parent)
+    times, outputs = {}, {}
+    for name, fn in refine_runs(smoke, modes).items():
+        res = fn()
+        torch.cuda.synchronize()
+        n_reps = max(1, reps // 3) if name in modes else reps
+        times[name] = {"ms": smoke.cuda_ms(fn, n_reps), "card": card()}
+        outputs[name] = ({k: getattr(res, k).cpu() for k in ("x", "fun", "n_iter", "n_evals")} if name in modes
+                         else res.cpu())
+    if save is not None:
+        save.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, save)
+    agreement = None
+    if against is not None and against.exists():
+        agreement = refine_agreement(outputs, torch.load(against))
+    print(json.dumps({"tree": str(tree), "card": smoke.smi_line(), "times": times,
+                      "evaluations": {m: int(outputs[m]["n_evals"].sum()) for m in modes},
+                      "against": None if against is None else str(against), "agreement": agreement,
+                      "float64": refine_float64(smoke, modes) if float64 else None}), flush=True)
+
+
 def pole_set_inputs(n: int, n_poles: int, seed: int = 0):
     """Kernel H's inputs for a set of ``n_poles`` random unit poles, on the
     card: ``n`` patterns of 9 band normals (9 poles, drawn with replacement,
@@ -384,6 +525,10 @@ def main(argv=None) -> int:
     parser.add_argument("--hough", action="store_true")
     parser.add_argument("--inputs", type=Path, default=None)
     parser.add_argument("--poles", type=int, default=None)
+    parser.add_argument("--refine", action="store_true")
+    parser.add_argument("--save", type=Path, default=None)
+    parser.add_argument("--against", type=Path, default=None)
+    parser.add_argument("--float64", action="store_true")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -400,6 +545,9 @@ def main(argv=None) -> int:
         return 0
     if args.hough:
         hough(args.tree, args.reps, args.inputs, args.poles)
+        return 0
+    if args.refine:
+        refine(args.tree, args.reps, args.save, args.against, args.float64)
         return 0
     ops = operands(args.tree)
     smoke, nt = ops["smoke"], ops["nt"]

@@ -1,32 +1,26 @@
-// The projection of one detector pixel from the master pattern, in two
-// forms.
+// The projection of one detector pixel from the master pattern, and what
+// the projection kernels share around it.
 //
-// project_pixel, shared by kernel B of csrc/lambert_project.cu (the
-// projection-NCC) and csrc/refine_nm.cu (Nelder-Mead over the
-// projection-NCC), so that those two round every pixel alike; and
-// project_pixel_pc, the same projection after the pixel's direction cosine
-// from a candidate projection center.
+// lambert_pixel (lambert_tap, then the float4 tap, then lambert_blend) is
+// the one pixel of every projection kernel: kernel A of
+// csrc/lambert_project.cu (dictionary generation), kernel B of the same file
+// (the projection-NCC, the host loops' objective), the Nelder-Mead kernel of
+// csrc/refine_nm.cu and kernel F of csrc/refine_population.cu (both through
+// evaluate of csrc/refine_objective.cuh). Every product, sum and fused
+// operation in it is written out (__fmul_rn, __fadd_rn, __fmaf_rn, and the
+// approximate reciprocal and reciprocal square root in PTX), so nvcc
+// contracts nothing and the four kernels, compiled apart, round every pixel
+// alike: the Nelder-Mead kernel and kernel F are bit for bit the host loops
+// over kernel B. It is not the plain twin's float32 rounding; its yardstick
+// is the plain twin run in float64 (see lambert_pixel).
 //
-// project_pixel: rotate the direction (geometry/quaternion.py
-// rotate_vector), map it to square Lambert with the branches of
-// geometry/lambert.py vector_to_lambert (atan, sqrt, the pole), truncate and
-// clamp the indices and clamp the fractional weights as
-// lambert_interpolation_weights does, select the hemisphere by the rotated
-// z < 0, and load the 2x2 neighbourhood as one float4 of the quad texture
-// ((2 * npy * npx, 4) float32: 5.1 MB for 401 x 401, so it stays in L2).
-// Every product, sum and quotient is an explicitly rounded IEEE operation
-// (__fmul_rn, __fadd_rn, ...) in the plain twin's order on the card, its
-// sums over 3 and 4 values included; nvcc would otherwise contract a * b + c
-// into one FMA. atanf and sqrtf are the CUDA math library's, as PyTorch's
-// elementwise atan and sqrt call them (no --use_fast_math), and a division
-// by the Python scalar sqrt(pi / 2) is a product with its float32
-// reciprocal, as PyTorch computes it. This matters near the Lambert poles:
-// there 1 - |z| cancels, and one ulp of z moves a coordinate by a large part
-// of a texel, so twin and kernel agree bit for bit only if they round alike.
+// pc_direction: a pixel's direction cosine from a candidate projection
+// center, in the IEEE order of ops/refine_nm.py pc_direction_cosines (the PC
+// and joint modes), before lambert_pixel.
 //
-// project_pixel_a, kernel A's (dictionary generation): the same projection
-// in fewer instructions, held against the plain twin run in float64 rather
-// than against its float32 rounding. See there.
+// Rot, make_rot, Geometry and sgn are csrc/refine_lm.cu's (kernel C and the
+// LM loop kernel), which keeps its own projection in the plain twin's float32
+// rounding (project_pixel_grad there).
 
 #pragma once
 
@@ -40,6 +34,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// csrc/refine_lm.cu's rotation, in the plain twin's float32 rounding.
 struct Rot {
     // rotate_vector's per-quaternion terms, in its order of operations.
     float xx, xz, xy;  // ox = xx * x + 2 * (xz * z + xy * y)
@@ -84,56 +79,6 @@ inline Geometry geometry(const void* quad, int npx, int npy, float scale, float 
 
 __device__ __forceinline__ float sgn(float v) { return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f); }
 
-// The bilinear value of the master pattern seen along direction (x, y, z)
-// after rotation r; tap is the quad-texture row it read.
-__device__ __forceinline__ float project_pixel(const Rot& r, float x, float y, float z, const Geometry& g, int& tap) {
-    // rotate_vector
-    const float ox = __fadd_rn(__fmul_rn(r.xx, x), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.xz, z), __fmul_rn(r.xy, y))));
-    const float oy = __fadd_rn(__fmul_rn(r.yy, y), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.yx, x), __fmul_rn(r.yz, z))));
-    const float oz = __fadd_rn(__fmul_rn(r.zz, z), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.zy, y), __fmul_rn(r.zx, x))));
-
-    // vector_to_lambert
-    // PyTorch's sum over a last axis of 3 on the card adds (x^2 + z^2) + y^2.
-    const float norm = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oz, oz)), __fmul_rn(oy, oy)));
-    const float wx = __fdiv_rn(ox, norm), wy = __fdiv_rn(oy, norm), wz = __fdiv_rn(oz, norm);
-    const float abs_z = fabsf(wz);
-    const float sqrt_z = sqrtf(fmaxf(__fmul_rn(2.f, __fsub_rn(1.f, abs_z)), 0.f));
-    const float sqrt_pi_over_2 = 0.886226925452758f;    // sqrt(pi) / 2
-    const float two_over_sqrt_pi = 1.1283791670955126f;  // 2 / sqrt(pi)
-    float X, Y;
-    if (fabsf(wy) <= fabsf(wx)) {
-        const float s = __fmul_rn(sgn(wx), sqrt_z);
-        X = __fmul_rn(s, sqrt_pi_over_2);
-        Y = __fmul_rn(__fmul_rn(s, two_over_sqrt_pi), atanf(__fdiv_rn(wy, wx == 0.f ? 1.f : wx)));
-    } else {
-        const float s = __fmul_rn(sgn(wy), sqrt_z);
-        X = __fmul_rn(__fmul_rn(s, two_over_sqrt_pi), atanf(__fdiv_rn(wx, wy == 0.f ? 1.f : wy)));
-        Y = __fmul_rn(s, sqrt_pi_over_2);
-    }
-    if (abs_z == 1.f) X = Y = 0.f;
-
-    // lambert_interpolation_weights
-    const float i = __fmul_rn(__fmul_rn(g.scale, Y), g.inv_sqrt_pi_half);
-    const float j = __fmul_rn(__fmul_rn(g.scale, X), g.inv_sqrt_pi_half);
-    int nii = (int)__fadd_rn(i, g.scale);
-    int nij = (int)__fadd_rn(j, g.scale);
-    const int niip = min(nii + 1, g.npx - 1);
-    const int nijp = min(nij + 1, g.npy - 1);
-    if (nii < 0) nii = niip;
-    if (nij < 0) nij = nijp;
-    const float di = fminf(fmaxf(__fadd_rn(__fsub_rn(i, (float)nii), g.scale), 0.f), 1.f);
-    const float dj = fminf(fmaxf(__fadd_rn(__fsub_rn(j, (float)nij), g.scale), 0.f), 1.f);
-    const float dim = __fsub_rn(1.f, di), djm = __fsub_rn(1.f, dj);
-
-    // the quad-texture gather, hemisphere by the rotated z
-    tap = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
-    const float4 t = __ldg(g.quad + tap);
-    // ... and over a last axis of 4, (t0 + t2) + (t1 + t3).
-    const float v02 = __fadd_rn(__fmul_rn(t.x, __fmul_rn(dim, djm)), __fmul_rn(t.z, __fmul_rn(dim, dj)));
-    const float v13 = __fadd_rn(__fmul_rn(t.y, __fmul_rn(di, djm)), __fmul_rn(t.w, __fmul_rn(di, dj)));
-    return __fadd_rn(v02, v13);
-}
-
 // The direction cosines from a candidate projection center, in the PC and
 // joint modes of csrc/refine_nm.cu: the JAX package's
 // indexing/refinement.py _dc_for_pc over projection/master_pattern.py
@@ -171,11 +116,10 @@ __device__ __forceinline__ PcFrame pc_frame(const float* pc, const DetectorFrame
     return f;
 }
 
-// The pixel at (col, row) of the detector, its direction cosine from the
-// frame, then project_pixel: 28 rounded products and sums, a square root
-// and three divides before the projection.
-__device__ __forceinline__ float project_pixel_pc(const Rot& r, const PcFrame& f, const DetectorFrame& d, float col,
-                                                  float row, const Geometry& g, int& tap) {
+// The unit direction u of the pixel at (col, row) of the detector from the
+// frame: 28 rounded products and sums, a square root and three divides.
+__device__ __forceinline__ void pc_direction(const PcFrame& f, const DetectorFrame& d, float col, float row,
+                                             float (&u)[3]) {
     const float x = __fmul_rn(__fadd_rn(__fadd_rn(f.gb0, __fmul_rn(col, f.x_scale)), f.half_x), f.pcz);
     const float y = __fmul_rn(__fsub_rn(__fsub_rn(f.gb3, __fmul_rn(row, f.y_scale)), f.half_y), f.pcz);
     const float z = f.pcz;
@@ -185,16 +129,16 @@ __device__ __forceinline__ float project_pixel_pc(const Rot& r, const PcFrame& f
         v[k] = __fadd_rn(__fadd_rn(__fmul_rn(x, d.om[k][0]), __fmul_rn(y, d.om[k][1])), __fmul_rn(z, d.om[k][2]));
     const float norm =
         __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])), __fmul_rn(v[2], v[2])));
-    return project_pixel(r, __fdiv_rn(v[0], norm), __fdiv_rn(v[1], norm), __fdiv_rn(v[2], norm), g, tap);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(v[k], norm);
 }
 
-// ---------------- kernel A: the projection in fewer instructions ---------------- //
+// ---------------- the pixel: lambert_tap, lambert_blend ---------------- //
 //
-// project_pixel_a computes what project_pixel computes (the hemisphere by
-// the rotated z < 0, X = Y = 0 at the pole, the truncated indices with the
-// nii < 0 -> niip clamp, the clamped weights, the float4 tap) with cheaper
-// arithmetic, and no explicitly rounded operation, so nvcc contracts
-// products and sums into FMAs:
+// lambert_pixel computes what the plain twin (ops/lambert_project.py
+// _project_plain) computes: the hemisphere by the rotated z < 0, X = Y = 0 at
+// the pole, the truncated indices with the nii < 0 -> niip clamp, the
+// clamped weights, the float4 tap. Its arithmetic is cheaper than the twin's:
 // - the rotation is a 3 x 3 matrix a rotation (rotation_matrix), 3 products
 //   and 6 FMAs a pixel;
 // - no normalised vector: with rho^2 = ox^2 + oy^2 and r = |o|,
@@ -209,9 +153,10 @@ __device__ __forceinline__ float project_pixel_pc(const Rot& r, const PcFrame& f
 //   one approximate reciprocal for the ratio; scale sqrt(pi) / 2 /
 //   sqrt(pi / 2) and its kin are one factor per axis, folded into u;
 // - the weights by one saturating subtraction, the blend as three lerps.
-// Against the plain twin in float64 on chip_smoke.py's master and detector
-// it is no worse than the float32 twin (chip_smoke.py [projection-check]
-// prints both); bit for bit with neither.
+// Against the plain twin in float64 it is no worse than the float32 twin
+// (chip_smoke.py [projection-check] for kernel A, [ncc-check] for kernel B
+// print both); bit for bit with neither. lambert_tap stops before the load,
+// so the Nelder-Mead kernel can take the float4 from its tap cache.
 
 // Rows of the rotation of quaternion (a, b, c, d) (rotate_vector's formula):
 // o_k = m[3k] x + m[3k + 1] y + m[3k + 2] z.
@@ -220,17 +165,17 @@ struct RotMatrix {
 };
 
 __device__ __forceinline__ RotMatrix rotation_matrix(float a, float b, float c, float d) {
-    const float aa = a * a, bb = b * b, cc = c * c, dd = d * d;
+    const float aa = __fmul_rn(a, a), bb = __fmul_rn(b, b), cc = __fmul_rn(c, c), dd = __fmul_rn(d, d);
     RotMatrix r;
-    r.m[0] = (aa + bb) - (cc + dd);
-    r.m[1] = 2.f * (b * c - a * d);
-    r.m[2] = 2.f * (a * c + b * d);
-    r.m[3] = 2.f * (a * d + b * c);
-    r.m[4] = (aa + cc) - (bb + dd);
-    r.m[5] = 2.f * (c * d - a * b);
-    r.m[6] = 2.f * (b * d - a * c);
-    r.m[7] = 2.f * (a * b + c * d);
-    r.m[8] = (aa + dd) - (bb + cc);
+    r.m[0] = __fsub_rn(__fadd_rn(aa, bb), __fadd_rn(cc, dd));
+    r.m[1] = __fmul_rn(2.f, __fmaf_rn(b, c, -__fmul_rn(a, d)));
+    r.m[2] = __fmul_rn(2.f, __fmaf_rn(a, c, __fmul_rn(b, d)));
+    r.m[3] = __fmul_rn(2.f, __fmaf_rn(a, d, __fmul_rn(b, c)));
+    r.m[4] = __fsub_rn(__fadd_rn(aa, cc), __fadd_rn(bb, dd));
+    r.m[5] = __fmul_rn(2.f, __fmaf_rn(c, d, -__fmul_rn(a, b)));
+    r.m[6] = __fmul_rn(2.f, __fmaf_rn(b, d, -__fmul_rn(a, c)));
+    r.m[7] = __fmul_rn(2.f, __fmaf_rn(a, b, __fmul_rn(c, d)));
+    r.m[8] = __fsub_rn(__fadd_rn(aa, dd), __fadd_rn(bb, cc));
     return r;
 }
 
@@ -240,6 +185,10 @@ struct Texels {
     int npx, npy;
     float scale, scale2;
 };
+
+inline Texels texels(const void* quad, int npx, int npy, float scale) {
+    return Texels{static_cast<const float4*>(quad), npx, npy, scale, scale * scale};
+}
 
 __device__ __forceinline__ float rsqrt_approx(float x) {
     float y;
@@ -258,42 +207,47 @@ __device__ __forceinline__ float rcp_approx(float x) {
 // rounded to float32 before the next was fitted. Evaluated in float32 as
 // here its error is at most 7.6e-8 on [-1, 1] (2.7 ulp of the result).
 __device__ __forceinline__ float atan_4_over_pi(float t) {
-    const float t2 = t * t;
+    const float t2 = __fmul_rn(t, t);
     float q = 0.002927143359556794f;
-    q = fmaf(q, t2, -0.01753084547817707f);
-    q = fmaf(q, t2, 0.04932796582579613f);
-    q = fmaf(q, t2, -0.09097129851579666f);
-    q = fmaf(q, t2, 0.13311588764190674f);
-    q = fmaf(q, t2, -0.1801520586013794f);
-    q = fmaf(q, t2, 0.25444620847702026f);
-    q = fmaf(q, t2, -0.4244023859500885f);
-    return fmaf(1.2732393741607666f, t, (t * t2) * q);
+    q = __fmaf_rn(q, t2, -0.01753084547817707f);
+    q = __fmaf_rn(q, t2, 0.04932796582579613f);
+    q = __fmaf_rn(q, t2, -0.09097129851579666f);
+    q = __fmaf_rn(q, t2, 0.13311588764190674f);
+    q = __fmaf_rn(q, t2, -0.1801520586013794f);
+    q = __fmaf_rn(q, t2, 0.25444620847702026f);
+    q = __fmaf_rn(q, t2, -0.4244023859500885f);
+    return __fmaf_rn(1.2732393741607666f, t, __fmul_rn(__fmul_rn(t, t2), q));
 }
 
-// The bilinear value of the master pattern seen along direction (x, y, z)
-// after rotation r; tap is the quad-texture row it read.
-__device__ __forceinline__ float project_pixel_a(const RotMatrix& r, float x, float y, float z, const Texels& g,
-                                                 int& tap) {
-    const float ox = fmaf(r.m[0], x, fmaf(r.m[1], y, r.m[2] * z));
-    const float oy = fmaf(r.m[4], y, fmaf(r.m[3], x, r.m[5] * z));
-    const float oz = fmaf(r.m[8], z, fmaf(r.m[7], y, r.m[6] * x));
+// A pixel's place in the quad texture: the row of its float4 and its two
+// weights.
+struct Tap {
+    int row;
+    float di, dj;
+};
+
+// Where the master pattern is seen along direction (x, y, z) after rotation r.
+__device__ __forceinline__ Tap lambert_tap(const RotMatrix& r, float x, float y, float z, const Texels& g) {
+    const float ox = __fmaf_rn(r.m[0], x, __fmaf_rn(r.m[1], y, __fmul_rn(r.m[2], z)));
+    const float oy = __fmaf_rn(r.m[4], y, __fmaf_rn(r.m[3], x, __fmul_rn(r.m[5], z)));
+    const float oz = __fmaf_rn(r.m[8], z, __fmaf_rn(r.m[7], y, __fmul_rn(r.m[6], x)));
 
     // u = scale sqrt(1 - |wz|) = sqrt(scale^2 rho^2 / (r (r + |oz|))); at the
     // pole rho^2 = 0 and u = 0 (FLT_MIN keeps rsqrt finite there).
-    const float rho2 = fmaf(ox, ox, oy * oy);
-    const float r2 = fmaf(oz, oz, rho2);
-    const float rn = r2 * rsqrt_approx(r2);
-    const float rho2s = rho2 * g.scale2;
-    const float u = rho2s * rsqrt_approx(fmaf(rho2s, fmaf(fabsf(oz), rn, r2), 1.17549435e-38f));
+    const float rho2 = __fmaf_rn(ox, ox, __fmul_rn(oy, oy));
+    const float r2 = __fmaf_rn(oz, oz, rho2);
+    const float rn = __fmul_rn(r2, rsqrt_approx(r2));
+    const float rho2s = __fmul_rn(rho2, g.scale2);
+    const float u = __fmul_rn(rho2s, rsqrt_approx(__fmaf_rn(rho2s, __fmaf_rn(fabsf(oz), rn, r2), 1.17549435e-38f)));
 
     // Major and minor component: vector_to_lambert's branch |wy| <= |wx|.
     // sgn(major) atan(minor / major) = atan(minor / |major|); at the pole
     // t is 0 (u is 0 all the same).
     const bool first = fabsf(oy) <= fabsf(ox);
     const float major = first ? ox : oy, minor = first ? oy : ox;
-    const float t = minor * rcp_approx(fmaxf(fabsf(ox), fabsf(oy)) + 1.17549435e-38f);
-    const float c_major = copysignf(u, major) + g.scale;
-    const float c_minor = fmaf(u, atan_4_over_pi(t), g.scale);
+    const float t = __fmul_rn(minor, rcp_approx(__fadd_rn(fmaxf(fabsf(ox), fabsf(oy)), 1.17549435e-38f)));
+    const float c_major = __fadd_rn(copysignf(u, major), g.scale);
+    const float c_minor = __fmaf_rn(u, atan_4_over_pi(t), g.scale);
     const float ci = first ? c_minor : c_major;  // from Lambert Y
     const float cj = first ? c_major : c_minor;  // from Lambert X
 
@@ -301,16 +255,29 @@ __device__ __forceinline__ float project_pixel_a(const RotMatrix& r, float x, fl
     // weight is the same from the index before or after that clamp: for
     // nii < 0, ci - nii <= 0 and the weight saturates to 0 either way.
     int nii = __float2int_rz(ci), nij = __float2int_rz(cj);
-    const float di = __saturatef(ci - (float)nii);
-    const float dj = __saturatef(cj - (float)nij);
+    Tap tap;
+    tap.di = __saturatef(__fsub_rn(ci, (float)nii));
+    tap.dj = __saturatef(__fsub_rn(cj, (float)nij));
     if (nii < 0) nii = min(nii + 1, g.npx - 1);
     if (nij < 0) nij = min(nij + 1, g.npy - 1);
+    tap.row = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
+    return tap;
+}
 
-    tap = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
-    const float4 q = __ldg(g.quad + tap);
-    const float lo = fmaf(di, q.y - q.x, q.x);
-    const float hi = fmaf(di, q.w - q.z, q.z);
-    return fmaf(dj, hi - lo, lo);
+// The bilinear value of neighbourhood q at the tap's weights.
+__device__ __forceinline__ float lambert_blend(const float4& q, const Tap& t) {
+    const float lo = __fmaf_rn(t.di, __fsub_rn(q.y, q.x), q.x);
+    const float hi = __fmaf_rn(t.di, __fsub_rn(q.w, q.z), q.z);
+    return __fmaf_rn(t.dj, __fsub_rn(hi, lo), lo);
+}
+
+// The bilinear value of the master pattern seen along direction (x, y, z)
+// after rotation r; tap is the quad-texture row it read.
+__device__ __forceinline__ float lambert_pixel(const RotMatrix& r, float x, float y, float z, const Texels& g,
+                                               int& tap) {
+    const Tap t = lambert_tap(r, x, y, z, g);
+    tap = t.row;
+    return lambert_blend(__ldg(g.quad + t.row), t);
 }
 
 // Block-wide sum, min or max of one value per thread; every thread gets it:

@@ -13,16 +13,17 @@
 //                               1 - NCC for every simplex point.
 // ops/lambert_project.py holds the wrappers and the plain PyTorch twins.
 //
-// Kernel B's (quaternion, direction) pair is project_pixel of
-// csrc/lambert_common.cuh, shared with csrc/refine_nm.cu; see there for its
-// rounding. Kernel A's is project_pixel_a of the same header: the same
-// projection in fewer instructions, held against the plain twin in float64.
+// Both kernels' (quaternion, direction) pair is lambert_pixel of
+// csrc/lambert_common.cuh, which the Nelder-Mead kernel (csrc/refine_nm.cu)
+// and kernel F (csrc/refine_population.cu) share: every operation written
+// out, so the four round each pixel alike. It is held against the plain
+// twin in float64, not against its float32 rounding.
 //
 // Bounds on an H100 SXM at the main-path shapes. Kernel A, the 107,129 x
 // 3600 dictionary: writing 1.54 GB of patterns is 0.46 ms at 3.35 TB/s;
 // the 385.7 M float4 taps are 6.2 GB read from L2, 0.86 ms at the 7.15 TB/s
 // L2 read rate chip_smoke.py measures on an H100 80GB HBM3 at 700 W; its
-// instructions, sass_count.py's count of project_pixel_a a pixel at 4 warp
+// instructions, sass_count.py's count of lambert_pixel a pixel at 4 warp
 // instructions a clock on each of 132 SMs.
 // Kernel B, one 2048-point navigation chunk: 29.5 MB of experimental rows
 // is 8.8 us (88 MB more, 26 us, when each point has its own direction
@@ -49,20 +50,24 @@
 // is one scattered L2 request; an H100 80GB HBM3 at 700 W serves these at
 // about 1.2-1.3e11 a second (lambert_variants.py's gathers alone, at kernel
 // A's own rows and at hashed rows), about 3 ms for the dictionary, and
-// kernel A takes that long. Its instructions (sass_count.py: 78 a pixel,
-// 0.90 ms of issue slots) and the patterns' bytes (0.46 ms) are not the
-// bound.
+// kernel A takes that long. Its instructions (sass_count.py: about 80 a
+// pixel, 0.9 ms of issue slots) and the patterns' bytes (0.46 ms) are not
+// the bound.
 //
-// Kernel B: one block of 256 threads per pattern, each thread a strided
-// set of pixels. It projects each pixel twice. Pass 1 sums the simulated
-// values for the mean; pass 2 projects again (the taps are in L2), centres
-// each value on the mean and accumulates sum(exp * d) and sum(d * d). That
-// is the JAX formula term for term: no sum(sim^2) - P * mean^2, which
-// cancels in f32. Sums run in f32 per thread over P / 256 pixels, then
-// across the block as a tree. P is not bounded by shared memory: nothing
-// of a pattern is kept but these sums. No entry point launches kernel B:
-// refinement runs on csrc/refine_nm.cu in all three modes, and kernel B is
-// the engine of the host loops that kernel is held against.
+// Kernel B: a persistent grid of 256-thread blocks, a pattern a block at a
+// time, each thread a strided set of pixels. Pass 1 projects each pixel
+// once, keeps its value in shared memory (up to kKeepBytes of pattern; past
+// it pass 2 projects again) and sums the values for the mean; pass 2
+// centres each value on the mean and accumulates sum(exp * d) and sum(d *
+// d). That is the JAX formula term for term: no sum(sim^2) - P * mean^2,
+// which cancels in f32. Sums run in f32 per thread over P / 256 pixels,
+// then across the block (block_reduce: a warp's butterfly, then the warps
+// in order), as the Nelder-Mead kernel's evaluate reduces, so the host
+// loops over kernel B and that kernel agree bit for bit. What bounds it is
+// its taps: one scattered L2 sector a pixel, 59 us at 2,048 points. No
+// entry point launches kernel B on the main path: refinement runs on
+// csrc/refine_nm.cu in all three modes, and kernel B is the engine of the
+// host loops that kernel is held against, and the SH tier's scores.
 //
 // lambert_variants.py rebuilds kernel A with other LAMBERT_ROTATIONS,
 // LAMBERT_RESCALE_ROTATIONS and LAMBERT_STREAM_STORES and times each.
@@ -144,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) lambert_project_kernel(
                     x = d[0], y = d[1], z = d[2];
                 }
                 int tap;
-                const float v = project_pixel_a(m[r], x, y, z, g, tap);
+                const float v = lambert_pixel(m[r], x, y, z, g, tap);
                 if (b0 + r < B) {
                     if (kRescale) {
                         out[row + p] = v;  // read back below: kept in L2
@@ -176,22 +181,33 @@ __global__ void __launch_bounds__(kThreads) lambert_project_kernel(
     }
 }
 
+// kKeep: each thread keeps its pixels' values in shared memory (P floats)
+// between the passes; else it projects them again.
+template <bool kKeep>
 __global__ void __launch_bounds__(kThreads) lambert_project_ncc_kernel(
-    const float* __restrict__ rot, const float* __restrict__ dc, Geometry g, const float* __restrict__ exp,
+    const float* __restrict__ rot, const float* __restrict__ dc, Texels g, const float* __restrict__ exp,
     const float* __restrict__ sq_norm, float* __restrict__ out, int B, int P, int per_element_dc) {
-    __shared__ float scratch[kThreads / 32];
+    extern __shared__ float s_sim[];
+    __shared__ float scratch[kWarps];
     for (int b = blockIdx.x; b < B; b += gridDim.x) {
-        const Rot r = make_rot(rot + 4LL * b);
+        const float* q = rot + 4LL * b;
+        const RotMatrix r = rotation_matrix(q[0], q[1], q[2], q[3]);
         const float* dcb = dc + (per_element_dc ? 3LL * P * b : 0LL);
         const float* e = exp + (long long)P * b;
         float s = 0.f;
         int tap;
-        for (int p = threadIdx.x; p < P; p += kThreads)
-            s += project_pixel(r, dcb[3 * p], dcb[3 * p + 1], dcb[3 * p + 2], g, tap);
+        // Each thread writes and reads only its own pixels of s_sim: no
+        // barrier between the passes or the patterns beyond the reductions'.
+        for (int p = threadIdx.x; p < P; p += kThreads) {
+            const float v = lambert_pixel(r, dcb[3 * p], dcb[3 * p + 1], dcb[3 * p + 2], g, tap);
+            if (kKeep) s_sim[p] = v;
+            s += v;
+        }
         const float mean = __fmul_rn(block_reduce(s, Sum(), scratch), 1.f / (float)P);
         float num = 0.f, ss = 0.f;
         for (int p = threadIdx.x; p < P; p += kThreads) {
-            const float d = __fsub_rn(project_pixel(r, dcb[3 * p], dcb[3 * p + 1], dcb[3 * p + 2], g, tap), mean);
+            const float v = kKeep ? s_sim[p] : lambert_pixel(r, dcb[3 * p], dcb[3 * p + 1], dcb[3 * p + 2], g, tap);
+            const float d = __fsub_rn(v, mean);
             num = fmaf(e[p], d, num);
             ss = fmaf(d, d, ss);
         }
@@ -201,13 +217,24 @@ __global__ void __launch_bounds__(kThreads) lambert_project_ncc_kernel(
     }
 }
 
-int grid_for(int B) {
-    int device = 0, sms = 0;
-    if (cudaGetDevice(&device) != cudaSuccess) return 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
-    // Up to 8 resident 256-thread blocks an SM; beyond that the blocks loop.
-    const long long cap = 64LL * sms;
-    return (int)(B < cap ? B : cap);
+// Kernel B keeps a pattern in shared memory up to this many bytes (no
+// opt-in needed): P = 12,288 pixels, a 110 x 110 detector.
+constexpr size_t kKeepBytes = 48 * 1024;
+
+template <bool kKeep>
+int launch_b(const float* rot, const float* dc, Texels g, const float* exp, const float* sq_norm, float* out, int B,
+             int P, int per_element_dc, cudaStream_t stream) {
+    auto kernel = lambert_project_ncc_kernel<kKeep>;
+    const size_t smem = kKeep ? sizeof(float) * (size_t)P : 0;
+    int device = 0, sms = 0, resident = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    // A persistent grid: the blocks that fit the SMs at once loop over the patterns.
+    const long long fit = (long long)sms * (resident > 0 ? resident : 1);
+    kernel<<<(int)(B < fit ? B : fit), kThreads, smem, stream>>>(rot, dc, g, exp, sq_norm, out, B, P, per_element_dc);
+    return (int)cudaGetLastError();
 }
 
 template <bool kPerElementDc, bool kRescale, bool kTaps>
@@ -240,7 +267,7 @@ int lambert_project_launch(const void* rot, const void* dc, const void* quad, vo
                            int per_element_dc, int npx, int npy, float scale, int rescale, float out_min,
                            float out_range, void* stream) {
     if (B <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const Texels g{static_cast<const float4*>(quad), npx, npy, scale, scale * scale};
+    const Texels g = texels(quad, npx, npy, scale);
     const auto* r = static_cast<const float*>(rot);
     const auto* d = static_cast<const float*>(dc);
     auto* o = static_cast<float*>(out);
@@ -263,15 +290,17 @@ int lambert_project_launch(const void* rot, const void* dc, const void* quad, vo
 // and their squared norms sq_norm (B,); out (B,) holds 1 - NCC.
 int lambert_project_ncc_launch(const void* rot, const void* dc, const void* quad, const void* exp,
                                const void* sq_norm, void* out, int B, int P, int per_element_dc, int npx, int npy,
-                               float scale, float inv_sqrt_pi_half, void* stream) {
+                               float scale, void* stream) {
     if (B <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int grid = grid_for(B);
-    if (grid <= 0) return (int)cudaErrorInvalidDevice;
-    lambert_project_ncc_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rot), static_cast<const float*>(dc),
-        geometry(quad, npx, npy, scale, inv_sqrt_pi_half), static_cast<const float*>(exp),
-        static_cast<const float*>(sq_norm), static_cast<float*>(out), B, P, per_element_dc);
-    return (int)cudaGetLastError();
+    const auto* r = static_cast<const float*>(rot);
+    const auto* d = static_cast<const float*>(dc);
+    const auto* e = static_cast<const float*>(exp);
+    const auto* q = static_cast<const float*>(sq_norm);
+    auto* o = static_cast<float*>(out);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const Texels g = texels(quad, npx, npy, scale);
+    if (sizeof(float) * (size_t)P <= kKeepBytes) return launch_b<true>(r, d, g, e, q, o, B, P, per_element_dc, s);
+    return launch_b<false>(r, d, g, e, q, o, B, P, per_element_dc, s);
 }
 
 }  // extern "C"

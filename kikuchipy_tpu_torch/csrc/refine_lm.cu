@@ -41,8 +41,8 @@
 //   (J^T J)_kl = (dc_k.dc_l - (u.dc_k)(u.dc_l)) / |c|^2,
 // these few scalars combined in double.
 //
-// The value s_p is project_pixel's (lambert_common.cuh), operation for
-// operation, so it is the plain version's bit for bit on the card; the rotation
+// The value s_p is the plain twin's float32 rounding, operation for operation
+// (project_pixel_grad), so it is the plain version's bit for bit on the card; the rotation
 // q (orientation, joint) and the candidate PC come from the wrapper, which
 // computes them with the plain version's own PyTorch operations. The tangent is
 // analytic: the gradient G = ds/do of the value with respect to the rotated
@@ -266,8 +266,10 @@ __device__ void point_consts(const float* q, const float* q0, const float* delta
     }
 }
 
-// project_pixel of lambert_common.cuh, operation for operation (so the value
-// is the same bit for bit), and G = ds/do, the gradient of the value with
+// The plain twin's projection in its float32 rounding, operation for
+// operation (so the value is the plain version's bit for bit: every product,
+// sum and quotient explicitly rounded in its order, atanf and sqrtf the CUDA
+// math library's, as PyTorch's elementwise atan and sqrt), and G = ds/do, the gradient of the value with
 // respect to the rotated direction o, with JAX's tangents at a pole and at a
 // clipped weight. tap: the quad-texture row read.
 __device__ __forceinline__ float project_pixel_grad(const Rot& r, float x, float y, float z, const Geometry& g,
@@ -372,7 +374,8 @@ struct Pixel {
             v[2] = dc[3 * p + 2];
             value = project_pixel_grad(r, v[0], v[1], v[2], b.g, G);
         } else {
-            // project_pixel_pc's direction cosine, operation for operation.
+            // pc_direction's direction cosine (lambert_common.cuh), operation
+            // for operation.
             const float2 cr = __ldg(b.pix + p);
             const float x = __fmul_rn(__fadd_rn(__fadd_rn(fr.gb0, __fmul_rn(cr.x, fr.x_scale)), fr.half_x), fr.pcz);
             const float y = __fmul_rn(__fsub_rn(__fsub_rn(fr.gb3, __fmul_rn(cr.y, fr.y_scale)), fr.half_y), fr.pcz);

@@ -37,26 +37,30 @@
 // v2) + v3), times the float32 1/d; each candidate as a separately rounded
 // product and sum (__fmul_rn, __fadd_rn: nvcc would contract them); the
 // sort's NaN-last stable order and argmin's first-NaN-or-first-minimum. In
-// the PC modes each pixel's direction cosine is project_pixel_pc of
+// the PC modes each pixel's direction cosine is pc_direction of
 // lambert_common.cuh, rounded as the plain version's stated order. One
 // evaluation (evaluate of refine_objective.cuh, which kernel F,
 // csrc/refine_population.cu, shares) is kernel B's arithmetic on the same
-// pixels in the same order:
+// pixels in the same order: lambert_pixel of lambert_common.cuh (every
+// operation written out, so the two kernels, compiled apart, round alike),
 // 256 threads, each a strided set of pixels, its per-thread sums, the same
-// butterfly-then-warps reduction (lambert_common.cuh), 1 - num / sqrt(sq_norm
-// * ss) with num and ss summed over the pixels centred on the mean, never
-// sum(sim^2) - P mean^2. So the kernel's path and the host loop's are the
-// same bit for bit, given identical cosf/sinf.
+// butterfly-then-warps reduction, 1 - num / sqrt(sq_norm * ss) with num and
+// ss summed over the pixels centred on the mean, never sum(sim^2) - P
+// mean^2. So the kernel's path and the host loop's are the same bit for
+// bit, given identical cosf/sinf. Neither is the float32 plain twin's
+// rounding: chip_smoke.py [refine-float64] holds the kernel's points against
+// the host loop over that twin, both scored by the float64 twin.
 //
 // Bound on an H100 SXM at the main-path shapes (16,384 points, P = 3600):
 // chip_smoke.py's float32 operations a pixel and evaluation (projection and
 // NCC; in the PC modes the direction cosine's too) at 67 TFLOP/s; the
-// instruction slots of the same pixels (sass_count.py counts the SASS of
-// project_pixel and project_pixel_pc); the float4 taps, 16 bytes a pixel
-// and evaluation, from L2 at its measured read rate; the experimental rows,
-// read once, 236 MB or 0.07 ms of device memory.
+// instruction slots of the same pixels (sass_count.py nm_eval_pixel: one
+// pixel of an evaluation on the cache route); the float4 taps, 16 bytes a
+// pixel and evaluation, from L2 at its measured read rate, or as scattered
+// 32-byte sectors (the cache's misses only); the experimental rows, read
+// once, 236 MB or 0.07 ms of device memory.
 //
-// Design: the four things that held the host loop back.
+// Design.
 //   No host loop. Iterations, branches and convergence live in the kernel;
 //   one launch for all points, nothing read by the host until the end.
 //   Converged points retire. A persistent grid (as many 256-thread blocks as
@@ -69,14 +73,36 @@
 //   evaluation's projection; every later evaluation reads it there.
 //   One projection pass. Each thread keeps its simulated values in shared
 //   memory (its own pixels: no barrier between the passes beyond the mean's
-//   reduction), so no pixel is projected twice. At P = 3600 a block holds
-//   28.8 KB (row and pattern); registers, not shared memory, bound the
-//   blocks an SM (REFINE_NM_MIN_BLOCKS below). refine_variants.py times
-//   this branch against the two-pass one at the same P.
-//   Beyond the wrapper's shared-memory budget (RESIDENT_SMEM_BYTES in
-//   ops/refine_nm.py; a 240 x 240 detector is 460 KB) the same kernel takes
-//   its other instantiation (kResident = false): the row stays in device
-//   memory and every pixel is projected twice, as kernel B does.
+//   reduction), so no pixel is projected twice.
+//   The tap cache (the cache route). Each pixel's taps repeat from one
+//   evaluation of a point to the next: as the simplex converges its
+//   candidates move less than a texel (refine_variants.py's probe measures
+//   the share). Each of the point's first `cached` pixels keeps the row and
+//   float4 of the quad texture it read last in shared memory (20 bytes a
+//   pixel) for the point's lifetime, emptied when the block takes the next
+//   point; a pixel whose tap is unchanged takes its float4 there instead of
+//   a scattered L2 sector (one of two predicated loads, no branch). The
+//   float4 is the one loaded, so nothing changes by a bit. Each thread reads
+//   and writes only its own pixels' entries: no barrier. How many pixels
+//   are cached is a trade the wrapper makes (ops/refine_nm.py
+//   nelder_mead_plan, CACHE_SHAPE): every pixel of a 60 x 60 point (100.8
+//   KB with the row and pattern) leaves room for two blocks an SM, too few
+//   to hide the pixels' latency and the simplex's serial steps; and a
+//   shared-memory carve-out past 196 KB leaves L1 too small for orientation
+//   mode's direction cosines, which then cost more L2 requests than the
+//   cache saves. So orientation mode caches what four blocks leave within
+//   196 KB (992 of 3600 pixels), and the PC modes, bound by the IEEE
+//   direction cosine's instructions rather than by taps, cache nothing
+//   (refine_variants.py times the shapes).
+//   Each thread projects REFINE_NM_GROUP pixels at once (REFINE_NM_CACHE_GROUP
+//   with the cache, whose lookups take a second pixel's registers), so
+//   their loads and arithmetic overlap, and adds them in kernel B's order.
+//   The routes. The cache route, and the resident route (the row and
+//   pattern alone, 8 bytes a pixel) where the cache has no room; past
+//   RESIDENT_SMEM_BYTES the two-pass branch (a 240 x 240 detector: the row
+//   stays in device memory and every pixel is projected twice, as kernel B
+//   does past its shared-memory budget). Every route is bit for bit the
+//   others: they round alike. 64 registers a thread (REFINE_NM_MIN_BLOCKS).
 //   No direction cosines in memory (PC modes). Each evaluation computes the
 //   candidate PC's gnomonic frame once, and each thread its pixels' direction
 //   cosines from their (column, row) (a (P, 2) table the wrapper builds from
@@ -91,6 +117,9 @@
 //   thread's registers it spilled (the joint mode's 650-700 bytes a
 //   thread) and was slower in joint mode and no faster in the others.
 //   Thread 0 writes the results.
+//
+// REFINE_NM_PROBE (refine_variants.py, chip_smoke.py) builds the kernel
+// counting the cache's hits; refine_nm_probe_read reads them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,11 +127,8 @@
 
 #include "refine_objective.cuh"
 
-// Blocks an SM the compiler must leave registers for: 4 caps a thread at 64
-// registers. Left to itself ptxas takes 120-137 registers, one or two
-// blocks an SM, and the kernel runs slower by a quarter to a half in every
-// mode (refine_variants.py rebuilds it with other values; PERF.md has the
-// times).
+// Blocks an SM the compiler must leave registers for, on every route: 4
+// caps a thread at 64 registers.
 #ifndef REFINE_NM_MIN_BLOCKS
 #define REFINE_NM_MIN_BLOCKS 4
 #endif
@@ -212,8 +238,10 @@ __device__ __forceinline__ void clip(float* x, const float* lo, const float* hi)
     for (int j = 0; j < kDim; ++j) x[j] = fminf(fmaxf(x[j], lo[j]), hi[j]);
 }
 
-template <int kMode, bool kResident>
+template <int kMode, int kRoute>
 __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kernel(const Problem pb) {
+    constexpr bool kResident = kRoute != kTwoPass;
+    constexpr bool kCache = kRoute == kCacheRoute;
     constexpr int kDim = dims<kMode>();
     constexpr int kVerts = kDim + 1;
     extern __shared__ __align__(16) float smem[];
@@ -222,6 +250,9 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
     __shared__ int s_point;
     // torch.mean's factor over the best kDim vertices: float32 1/kDim.
     const float inv_d = 1.f / (float)kDim;
+#ifdef REFINE_NM_PROBE
+    if (threadIdx.x < 3) probe_block()[threadIdx.x] = 0u;
+#endif
 
     for (;;) {
         if (threadIdx.x == 0) s_point = atomicAdd(pb.next, 1);
@@ -231,6 +262,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 
         const Point pt = point_at<kMode>(pb.ob, b, smem);
         if (kResident) load_row_async(smem, pt.row, pb.ob.P);
+        if (kCache) clear_cache(pt, pb.ob.cached);
 
         float x0[kDim], step[kDim], lo[kDim], hi[kDim];
 #pragma unroll
@@ -249,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 #pragma unroll
             for (int j = 0; j < kDim; ++j) xe[j] = i == j + 1 ? __fadd_rn(x0[j], step[j]) : x0[j];
             clip<kDim>(xe, lo, hi);
-            sx.put(i, xe, evaluate<kMode, kResident>(xe, pt, pb.ob, scratch));
+            sx.put(i, xe, evaluate<kMode, kResident, kCache>(xe, pt, pb.ob, scratch));
         }
         int it = 0, evals = kVerts;
         bool done = false;
@@ -264,7 +296,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
                 xr[j] = __fadd_rn(c[j], __fsub_rn(c[j], sx.v(kVerts - 1, j)));
             }
             clip<kDim>(xr, lo, hi);
-            const float fr = evaluate<kMode, kResident>(xr, pt, pb.ob, scratch);
+            const float fr = evaluate<kMode, kResident, kCache>(xr, pt, pb.ob, scratch);
             ++evals;
 
             const bool expand = fr < best_v;
@@ -284,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
                     }
                 }
                 clip<kDim>(x2, lo, hi);
-                f2 = evaluate<kMode, kResident>(x2, pt, pb.ob, scratch);
+                f2 = evaluate<kMode, kResident, kCache>(x2, pt, pb.ob, scratch);
                 ++evals;
                 const bool contract_ok = contract_out ? f2 <= fr : f2 < worst_v;
                 use_x2 = expand ? f2 < fr : contract_ok;
@@ -307,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
 #pragma unroll
                     for (int j = 0; j < kDim; ++j) xs[j] = __fadd_rn(v0[j], __fmul_rn(0.5f, __fsub_rn(xs[j], v0[j])));
                     clip<kDim>(xs, lo, hi);
-                    sx.put(i, xs, evaluate<kMode, kResident>(xs, pt, pb.ob, scratch));
+                    sx.put(i, xs, evaluate<kMode, kResident, kCache>(xs, pt, pb.ob, scratch));
                 }
                 evals += kDim;
             }
@@ -335,13 +367,20 @@ __global__ void __launch_bounds__(kThreads, REFINE_NM_MIN_BLOCKS) refine_nm_kern
             pb.n_iter[b] = it;
             pb.converged[b] = done;
             pb.n_evals[b] = evals;
+#ifdef REFINE_NM_PROBE
+            for (int i = 0; i < 3; ++i) {
+                atomicAdd(g_probe + i, (unsigned long long)probe_block()[i]);
+                probe_block()[i] = 0u;
+            }
+#endif
         }
     }
 }
 
-template <int kMode, bool kResident>
-int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
-    auto kernel = refine_nm_kernel<kMode, kResident>;
+template <int kMode, int kRoute>
+int launch(const Problem& pb, cudaStream_t stream) {
+    auto kernel = refine_nm_kernel<kMode, kRoute>;
+    const size_t smem = route_smem_bytes(kRoute, pb.ob.P, pb.ob.cached);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int device = 0, sms = 0, per_sm = 0;
@@ -357,22 +396,25 @@ int launch(const Problem& pb, size_t smem, cudaStream_t stream) {
 }
 
 template <int kMode>
-int launch_mode(const Problem& pb, int resident, cudaStream_t stream) {
-    if (resident) return launch<kMode, true>(pb, resident_smem_bytes(pb.ob.P), stream);
-    return launch<kMode, false>(pb, 0, stream);
+int launch_mode(const Problem& pb, int route, cudaStream_t stream) {
+    if (route == kCacheRoute) return launch<kMode, kCacheRoute>(pb, stream);
+    if (route == kResidentRoute) return launch<kMode, kResidentRoute>(pb, stream);
+    return launch<kMode, kTwoPass>(pb, stream);
 }
 
-bool bad_sizes(int n, int P, int npx, int npy, int max_iters) {
+bool bad_sizes(int n, int P, int npx, int npy, int max_iters, int route, int cached) {
     return n <= 0 || P <= 0 || npx <= 0 || npy <= 0 || max_iters < 0 || 2LL * npx * npy > 0x7fffffffLL ||
-           3LL * P > 0x7fffffffLL;
+           3LL * P > 0x7fffffffLL || route < kTwoPass || route > kCacheRoute ||
+           (route == kCacheRoute ? cached < 1 || cached > P : cached != 0);
 }
 
 void set_common(Problem& pb, const void* x0, const void* step, const void* lower, const void* upper,
                 const void* exp, const void* sq_norm, const void* quad, void* x, void* fun, void* n_iter,
                 void* converged, void* n_evals, void* next, int n, int P, int npx, int npy, float scale,
-                float inv_sqrt_pi_half, int max_iters, float fatol, float xatol) {
+                int max_iters, float fatol, float xatol, int cached) {
     pb = Problem{};
-    set_objective(pb.ob, exp, sq_norm, quad, P, npx, npy, scale, inv_sqrt_pi_half);
+    set_objective(pb.ob, exp, sq_norm, quad, P, npx, npy, scale);
+    pb.ob.cached = cached;
     pb.x0 = static_cast<const float*>(x0);
     pb.step = static_cast<const float*>(step);
     pb.lower = static_cast<const float*>(lower);
@@ -397,20 +439,21 @@ extern "C" {
 // (n, P); sq_norm (n,); dc (P, 3), or (n, P, 3) with per_point_dc; quad (2 *
 // npy * npx, 4): all float32 and contiguous. Out: x (n, 3) and fun (n,)
 // float32, n_iter and n_evals (n,) int32, converged (n,) bool; next one int32
-// holding 0. resident: the row and pattern in shared memory (2 * P floats),
-// else the two-pass branch.
+// holding 0. route: 0 the two-pass branch, 1 the row and pattern in shared
+// memory, 2 also the tap cache of the first `cached` pixels (0 on the other
+// routes; route_smem_bytes; ops/refine_nm.py nelder_mead_plan chooses).
 int refine_nm_launch(const void* euler0, const void* step, const void* lower, const void* upper, const void* exp,
                      const void* sq_norm, const void* dc, const void* quad, void* x, void* fun, void* n_iter,
                      void* converged, void* n_evals, void* next, int n, int P, int per_point_dc, int npx, int npy,
-                     float scale, float inv_sqrt_pi_half, int max_iters, float fatol, float xatol, int resident,
+                     float scale, int max_iters, float fatol, float xatol, int route, int cached,
                      void* stream) {
-    if (bad_sizes(n, P, npx, npy, max_iters)) return (int)cudaErrorInvalidValue;
+    if (bad_sizes(n, P, npx, npy, max_iters, route, cached)) return (int)cudaErrorInvalidValue;
     Problem pb;
     set_common(pb, euler0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P,
-               npx, npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
+               npx, npy, scale, max_iters, fatol, xatol, cached);
     pb.ob.dc = static_cast<const float*>(dc);
     pb.ob.per_point_dc = per_point_dc;
-    return launch_mode<kOrientation>(pb, resident, static_cast<cudaStream_t>(stream));
+    return launch_mode<kOrientation>(pb, route, static_cast<cudaStream_t>(stream));
 }
 
 // The PC (mode 1, d = 3: the PC) and joint (mode 2, d = 6: Euler angles,
@@ -420,24 +463,36 @@ int refine_nm_launch(const void* euler0, const void* step, const void* lower, co
 // contiguous on the card. om: a host array of 9 floats, the detector to
 // sample matrix row by row; aspect, neg_aspect, inv_ncols, inv_nrows the
 // float32 values of ncols / nrows, its negative, 1 / ncols and 1 / nrows.
-// Outputs and resident as above.
+// Outputs and route as above.
 int refine_nm_pc_launch(int mode, const void* x0, const void* step, const void* lower, const void* upper,
                         const void* exp, const void* sq_norm, const void* q0, const void* pix, const float* om,
                         const void* quad, void* x, void* fun, void* n_iter, void* converged, void* n_evals,
-                        void* next, int n, int P, int npx, int npy, float scale, float inv_sqrt_pi_half,
-                        float aspect, float neg_aspect, float inv_ncols, float inv_nrows, int max_iters, float fatol,
-                        float xatol, int resident, void* stream) {
-    if (bad_sizes(n, P, npx, npy, max_iters) || (mode != kPC && mode != kJoint) || om == nullptr || pix == nullptr ||
-        (mode == kPC && q0 == nullptr))
+                        void* next, int n, int P, int npx, int npy, float scale, float aspect, float neg_aspect,
+                        float inv_ncols, float inv_nrows, int max_iters, float fatol, float xatol, int route,
+                        int cached, void* stream) {
+    if (bad_sizes(n, P, npx, npy, max_iters, route, cached) || (mode != kPC && mode != kJoint) || om == nullptr ||
+        pix == nullptr || (mode == kPC && q0 == nullptr))
         return (int)cudaErrorInvalidValue;
     Problem pb;
     set_common(pb, x0, step, lower, upper, exp, sq_norm, quad, x, fun, n_iter, converged, n_evals, next, n, P, npx,
-               npy, scale, inv_sqrt_pi_half, max_iters, fatol, xatol);
+               npy, scale, max_iters, fatol, xatol, cached);
     pb.ob.q0 = static_cast<const float*>(q0);
     pb.ob.pix = static_cast<const float2*>(pix);
     set_detector(pb.ob, om, aspect, neg_aspect, inv_ncols, inv_nrows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return mode == kPC ? launch_mode<kPC>(pb, resident, s) : launch_mode<kJoint>(pb, resident, s);
+    return mode == kPC ? launch_mode<kPC>(pb, route, s) : launch_mode<kJoint>(pb, route, s);
 }
+
+#ifdef REFINE_NM_PROBE
+// The probe's counts since the last read (the cached pixels of first
+// evaluations, of later ones, and the later ones that hit) into out[3];
+// zeroes them.
+int refine_nm_probe_read(unsigned long long* out) {
+    cudaError_t err = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long zero[3] = {0, 0, 0};
+    return (int)cudaMemcpyToSymbol(g_probe, zero, sizeof(g_probe));
+}
+#endif
 
 }  // extern "C"

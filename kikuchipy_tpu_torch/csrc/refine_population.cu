@@ -34,9 +34,11 @@
 //
 // Bound at the global solvers' shapes (16,384 points, P = 3600, M = 24 for a
 // differential-evolution generation): 1.42e9 projected pixels, each one
-// scattered 16-byte tap of the quad texture from L2 and about 244 SASS
-// instructions (343 with a PC's direction cosine); chip_smoke.py's
-// [population-check] times it against both.
+// scattered 16-byte tap of the quad texture from L2 and lambert_pixel's SASS
+// instructions (sass_count.py; with a PC's direction cosine in the PC
+// modes); chip_smoke.py's [population-check] times it against both. A
+// population's members are scattered about a point, so F keeps no tap cache:
+// it evaluates on the Nelder-Mead kernel's resident route.
 
 #include "refine_objective.cuh"
 
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) refine_population_kernel
             float x[kDim];
 #pragma unroll
             for (int j = 0; j < kDim; ++j) x[j] = xb[kDim * m + j];
-            const float v = evaluate<kMode, kResident>(x, pt, pp.ob, scratch);
+            const float v = evaluate<kMode, kResident, false>(x, pt, pp.ob, scratch);
             if (threadIdx.x == 0) pp.out[(long long)pp.M * b + m] = v;
         }
     }
@@ -95,7 +97,7 @@ int launch(const Population& pp, size_t smem, cudaStream_t stream) {
 
 template <int kMode>
 int launch_mode(const Population& pp, int resident, cudaStream_t stream) {
-    if (resident) return launch<kMode, true>(pp, resident_smem_bytes(pp.ob.P), stream);
+    if (resident) return launch<kMode, true>(pp, route_smem_bytes(kResidentRoute, pp.ob.P, 0), stream);
     return launch<kMode, false>(pp, 0, stream);
 }
 
@@ -115,9 +117,8 @@ extern "C" {
 // two-pass branch.
 int refine_population_launch(int mode, const void* x, const void* exp, const void* sq_norm, const void* dc,
                              int per_point_dc, const void* q0, const void* pix, const float* om, const void* quad,
-                             void* out, int n, int M, int P, int npx, int npy, float scale, float inv_sqrt_pi_half,
-                             float aspect, float neg_aspect, float inv_ncols, float inv_nrows, int resident,
-                             void* stream) {
+                             void* out, int n, int M, int P, int npx, int npy, float scale, float aspect,
+                             float neg_aspect, float inv_ncols, float inv_nrows, int resident, void* stream) {
     if (n <= 0 || M <= 0 || P <= 0 || npx <= 0 || npy <= 0 || 2LL * npx * npy > 0x7fffffffLL ||
         3LL * P > 0x7fffffffLL || x == nullptr || out == nullptr)
         return (int)cudaErrorInvalidValue;
@@ -126,7 +127,7 @@ int refine_population_launch(int mode, const void* x, const void* exp, const voi
                                    (mode == kPC && q0 == nullptr))
         return (int)cudaErrorInvalidValue;
     Population pp;
-    set_objective(pp.ob, exp, sq_norm, quad, P, npx, npy, scale, inv_sqrt_pi_half);
+    set_objective(pp.ob, exp, sq_norm, quad, P, npx, npy, scale);
     pp.x = static_cast<const float*>(x);
     pp.out = static_cast<float*>(out);
     pp.n = n;

@@ -35,7 +35,8 @@ CUDA tensors it launches kernel C or raises, and counts the launch in its
 own ``.launches``.
 
 On the card the kernel's projected value is the plain version's bit for
-bit (``project_pixel``'s rounding; the rotation and the candidate PC are
+bit (``csrc/refine_lm.cu`` ``project_pixel_grad`` rounds as it does in
+float32; the rotation and the candidate PC are
 computed here with the plain version's PyTorch operations); its tangent is
 analytic and its sums are taken in another order, so ``f``, ``g`` and
 ``J^T J`` agree with the plain version to float32 rounding

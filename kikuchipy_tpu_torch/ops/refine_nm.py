@@ -30,7 +30,15 @@ convergence on its own, in the host loop's rounding, so on the card the two
 give the same points and values (``csrc/refine_nm.cu`` says where that
 rests); only the evaluation count differs, since the kernel skips the second
 candidate of an iteration that accepts the reflection, which the lockstep
-loop evaluates and drops.
+loop evaluates and drops. Kernel B and the kernel share one pixel
+(``csrc/lambert_common.cuh`` ``lambert_pixel``), which is not the float32
+plain twin's rounding: on the card the kernel's points are held against the
+host loop over that twin by the float64 twin's score (``chip_smoke.py``
+``float64_check``). :func:`nelder_mead_plan` chooses the kernel's shape from
+the pixel count and the mode: in orientation mode a point's first pixels
+keep their last tap in shared memory (a tap cache, as large as four blocks
+an SM leave within 196 KB), in the PC modes the row and pattern alone, and
+past ``RESIDENT_SMEM_BYTES`` the two-pass branch.
 
 In the PC modes the objectives build the direction cosines of every
 candidate PC with :func:`pc_direction_cosines`, which states the order of
@@ -61,17 +69,20 @@ import numpy as np
 import torch
 
 from kikuchipy_tpu_torch.geometry.quaternion import from_euler
-from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, lambert_project_ncc
+from kikuchipy_tpu_torch.ops.lambert_project import lambert_project_ncc
 from kikuchipy_tpu_torch.utils.optimize import _nelder_mead_counted, initial_step_per_element
 
 __all__ = [
     "NelderMeadKernelResult",
+    "NelderMeadPlan",
     "RESIDENT_SMEM_BYTES",
     "joint_objective",
     "nelder_mead_orientation",
     "nelder_mead_orientation_plain",
     "nelder_mead_orientation_projection_center",
     "nelder_mead_orientation_projection_center_plain",
+    "nelder_mead_plan",
+    "cache_plan",
     "nelder_mead_projection_center",
     "nelder_mead_projection_center_plain",
     "orientation_objective",
@@ -93,16 +104,35 @@ class NelderMeadKernelResult(NamedTuple):
     n_evals: torch.Tensor    # (n,) objective evaluations made
 
 # Shared memory a block may take for its experimental row and simulated
-# pattern (2 * P floats): half of a Hopper SM's 227 KB, so two blocks fit.
-# Beyond it the kernel keeps the row in device memory and projects twice.
+# pattern: about half of a Hopper SM's, so two blocks fit. Beyond it the
+# kernel keeps the row in device memory and projects twice.
 RESIDENT_SMEM_BYTES = 113 * 1024
+# Shared memory of one Hopper SM (228 KB), and what a block takes of it
+# besides its dynamic shared memory: the 1 KB the card reserves a block and
+# the kernel's own arrays (reductions, simplex, point index; under 0.5 KB).
+SM_SMEM_BYTES = 228 * 1024
+BLOCK_OVERHEAD_SMEM_BYTES = 1024 + 512
+# Threads a point: one block, each thread a strided set of pixels
+# (csrc/lambert_common.cuh kThreads; kernel B and kernel F reduce alike).
+THREADS = 256
+# Blocks an SM the kernel's build leaves registers for (csrc/refine_nm.cu
+# REFINE_NM_MIN_BLOCKS: 64 registers a thread).
+REGISTER_BLOCKS = 4
+# The cache route's shape by mode: (blocks an SM, shared memory those blocks
+# may take in all): the tap cache holds what they leave beside their rows
+# and patterns (20 bytes a cached pixel: its last float4 and quad-texture
+# row). Leaving L1 part of the SM keeps orientation mode's direction cosines
+# there. None: no cache. refine_variants.py times these shapes.
+CACHE_SHAPE = {"orientation": (4, 196 * 1024), "pc": None, "joint": None}
+_ROUTE = {"two-pass": 0, "resident": 1, "cache": 2}
 
 _MODE = {"pc": 1, "joint": 2}
 _ARGTYPES = {
-    "refine_nm": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int]
-    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    "refine_nm": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int]
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "refine_nm_pc": [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_int] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p],
 }
 
 
@@ -117,10 +147,60 @@ def _function(name: str = "refine_nm"):
     return fn
 
 
+class NelderMeadPlan(NamedTuple):
+    """How the Nelder-Mead kernel holds a point (:func:`nelder_mead_plan`)."""
+
+    route: str           # "cache", "resident" or "two-pass"
+    threads: int         # threads a point: one block
+    blocks_per_sm: int   # blocks an SM holds at once: registers and shared memory allowing
+    smem_bytes: int      # dynamic shared memory a block
+    cached_pixels: int   # pixels with a tap-cache entry: the first of the point's
+
+
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _blocks(smem: int) -> int:
+    return min(REGISTER_BLOCKS, SM_SMEM_BYTES // (smem + BLOCK_OVERHEAD_SMEM_BYTES))
+
+
+def cache_plan(P: int, blocks: int | None, sm_bytes: int = SM_SMEM_BYTES) -> NelderMeadPlan:
+    """The kernel's shape for ``P`` pixels (within ``RESIDENT_SMEM_BYTES``)
+    with the tap cache sized for ``blocks`` blocks an SM taking at most
+    ``sm_bytes`` of its shared memory: the first pixels of the point, as
+    many as those blocks leave room for beside their rows and patterns at
+    20 bytes a pixel (all of them at most); the resident route where
+    ``blocks`` is None or leaves no room for a thread's pixel each."""
+    resident = 8 * _pad4(P)
+    cached = 0
+    if blocks is not None:
+        room = sm_bytes // blocks - BLOCK_OVERHEAD_SMEM_BYTES - resident
+        cached = min(P, room // 20 // 4 * 4)
+    if cached < min(P, THREADS):
+        return NelderMeadPlan("resident", THREADS, _blocks(resident), resident, 0)
+    smem = resident + 20 * _pad4(cached)
+    return NelderMeadPlan("cache", THREADS, _blocks(smem), smem, cached)
+
+
+def nelder_mead_plan(P: int, mode: str = "orientation") -> NelderMeadPlan:
+    """The kernel's shape for a point of ``P`` pixels in ``mode``: within
+    ``RESIDENT_SMEM_BYTES`` of row and pattern (8 bytes a pixel) the cache
+    route of ``CACHE_SHAPE[mode]`` (``cache_plan``), or the resident route
+    where that is None or leaves the cache no room; else the two-pass branch
+    (the row in device memory, every pixel projected twice).
+    ``csrc/refine_objective.cuh`` ``route_smem_bytes`` takes the same
+    bytes."""
+    if 8 * _pad4(P) > RESIDENT_SMEM_BYTES:
+        return NelderMeadPlan("two-pass", THREADS, _blocks(0), 0, 0)
+    shape = CACHE_SHAPE[mode]
+    return cache_plan(P, *shape) if shape else cache_plan(P, None)
+
+
 def resident(P: int) -> bool:
-    """Whether the kernel holds a point's row and pattern of ``P`` pixels
-    in shared memory (else the two-pass branch)."""
-    return 2 * 4 * (-(-P // 4) * 4) <= RESIDENT_SMEM_BYTES
+    """Whether a point's row and pattern of ``P`` pixels sit in shared
+    memory (the cache and resident routes; else the two-pass branch)."""
+    return nelder_mead_plan(P).route != "two-pass"
 
 
 # ---------------------------- the objectives ---------------------------- #
@@ -317,13 +397,14 @@ def _launch_pc(mode: str, x0, exp, sq_norm, q0, quad, om, mask_take, npx, npy, s
     om_host = (ctypes.c_float * 9)(*om.detach().to("cpu", torch.float32).reshape(9).tolist())
     aspect, neg_aspect, inv_ncols, inv_nrows = _detector_scalars(nrows, ncols)
     outs = _outputs(n, d, dev)
+    plan = nelder_mead_plan(P, mode)
     fn = _function("refine_nm_pc")
     with torch.cuda.device(dev):
         err = fn(
             _MODE[mode], _ptr(x0), _ptr(step), _ptr(lower), _ptr(upper), _ptr(exp), _ptr(sq_norm), _ptr(q0),
-            _ptr(pix), om_host, _ptr(quad), *[t.data_ptr() for t in outs], n, P, npx, npy, float(scale),
-            _INV_SQRT_PI_HALF, aspect, neg_aspect, inv_ncols, inv_nrows, int(max_iters), float(fatol),
-            float(xatol), int(resident(P)), torch.cuda.current_stream().cuda_stream,
+            _ptr(pix), om_host, _ptr(quad), *[t.data_ptr() for t in outs], n, P, npx, npy, float(scale), aspect,
+            neg_aspect, inv_ncols, inv_nrows, int(max_iters), float(fatol), float(xatol), _ROUTE[plan.route],
+            plan.cached_pixels, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"refine_nm_pc launch ({mode} mode) failed: cudaError_t {err}")
@@ -372,12 +453,13 @@ def nelder_mead_orientation(
     _aligned(quad)
     step, lower, upper = _steps_and_box(euler0, initial_step, lower_bounds, upper_bounds)
     outs = _outputs(n, 3, dev)
+    plan = nelder_mead_plan(P)
     fn = _function()
     with torch.cuda.device(dev):
         err = fn(
             _ptr(euler0), _ptr(step), _ptr(lower), _ptr(upper), _ptr(exp), _ptr(sq_norm), _ptr(dc), _ptr(quad),
-            *[t.data_ptr() for t in outs], n, P, int(dc.ndim == 3), npx, npy, float(scale), _INV_SQRT_PI_HALF,
-            int(max_iters), float(fatol), float(xatol), int(resident(P)), torch.cuda.current_stream().cuda_stream,
+            *[t.data_ptr() for t in outs], n, P, int(dc.ndim == 3), npx, npy, float(scale), int(max_iters),
+            float(fatol), float(xatol), _ROUTE[plan.route], plan.cached_pixels, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"refine_nm launch failed: cudaError_t {err}")

@@ -40,7 +40,7 @@ import ctypes
 import torch
 
 from kikuchipy_tpu_torch.geometry.quaternion import from_euler
-from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, lambert_project_ncc_plain
+from kikuchipy_tpu_torch.ops.lambert_project import lambert_project_ncc_plain
 from kikuchipy_tpu_torch.ops.refine_nm import (
     _aligned,
     _check_args,
@@ -63,7 +63,7 @@ __all__ = [
 
 _MODE = {"orientation": 0, "pc": 1, "joint": 2}
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-             + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 6
+             + [ctypes.POINTER(ctypes.c_float)] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
              + [ctypes.c_int, ctypes.c_void_p])
 
 
@@ -147,7 +147,7 @@ def _launch(mode: str, x, exp, sq_norm, dc, q0, quad, om, mask_take, npx, npy, s
     with torch.cuda.device(dev):
         err = _function()(
             _MODE[mode], _ptr(x), _ptr(exp), _ptr(sq_norm), _ptr(dc), int(dc is not None and dc.ndim == 3), _ptr(q0),
-            _ptr(pix), om_host, _ptr(quad), _ptr(out), n, M, P, npx, npy, float(scale), _INV_SQRT_PI_HALF, *scalars,
+            _ptr(pix), om_host, _ptr(quad), _ptr(out), n, M, P, npx, npy, float(scale), *scalars,
             int(resident(P)), torch.cuda.current_stream().cuda_stream,
         )
     if err:

@@ -9,15 +9,24 @@ degrees off, and in the PC modes from the PC off by (0.01, -0.01, 0.01))
 it prints one JSON line per measurement, each with the card's name, power
 limit, clock, power and temperature right after it:
 
-- ``branch``: orientation mode as built, with the row and pattern in shared
-  memory (one projection an evaluation), and its two-pass branch at the
-  same P (the row in device memory, every pixel projected twice, as kernel
-  B does), which the wrapper takes only past ``RESIDENT_SMEM_BYTES``;
-- ``build``: each mode as built, then the kernel rebuilt with
-  ``-DREFINE_NM_MIN_BLOCKS`` of 1, 2 and 3 (4 as built): the compiler caps
-  the registers so that that many 256-thread blocks fit an SM; each mode
-  timed and checked bit for bit against the kernel as built, with
-  ``ptxas``'s registers and stack of each build.
+- ``build``: each mode as built (``nelder_mead_plan``'s shape: the tap
+  cache of the first pixels of ``CACHE_SHAPE[mode]``, or none);
+- ``route``: each mode with the tap cache of ``CACHE_SHAPES`` (blocks an
+  SM and the shared memory they may take: ``cache_plan``; two blocks in
+  228 KB cache every pixel) and without it (the resident route), and
+  orientation mode on the two-pass branch (the row in device memory, every
+  pixel projected twice), at the same P: the wrapper's plan replaced for
+  the call; each bit for bit against the kernel as built (the shapes
+  round alike);
+- ``build`` with a label: the kernel rebuilt with other pixels a thread
+  projects together (``-DREFINE_NM_CACHE_GROUP=2``, 1 as built;
+  ``-DREFINE_NM_GROUP=1``, 2 as built), each mode timed, with ``ptxas``'s
+  registers and stack of each build;
+- ``reuse``: the kernel rebuilt with ``-DREFINE_NM_PROBE``, each mode run
+  once as built and once with every pixel cached: the share of the cached
+  pixels after a point's first evaluation whose tap is the one the same
+  pixel read in the point's previous evaluation (the tap cache's hits),
+  and their share of all its cached pixels.
 
 Needs a CUDA device and ``nvcc``. The port calls nothing of this script.
 """
@@ -35,7 +44,16 @@ import numpy as np
 
 from compare_kernel_times import card
 
-MIN_BLOCKS = (1, 2, 3)
+# Builds beside the shipped one: a label, its macros and the route timed.
+VARIANTS = [("cache_group=2", ["-DREFINE_NM_CACHE_GROUP=2"]), ("group=1", ["-DREFINE_NM_GROUP=1"])]
+PROBE = ("probe", ["-DREFINE_NM_PROBE=1"])
+# The tap cache's shapes of the ``route`` measurements: (blocks an SM, KB of
+# shared memory they may take), each mode's own (ops/refine_nm.py
+# CACHE_SHAPE) and None, the resident route, in every mode.
+KB = 1024
+CACHE_SHAPES = {"orientation": [(4, 164 * KB), (4, 196 * KB), (4, 228 * KB), (3, 196 * KB), (3, 228 * KB),
+                                (2, 228 * KB)],
+                "pc": [(4, 196 * KB)], "joint": [(4, 196 * KB)]}
 
 
 def problem(here: Path, seed: int, n: int = 16384):
@@ -102,17 +120,16 @@ def main(argv=None) -> int:
     here = Path(__file__).resolve().parent
     from kikuchipy_tpu_torch.ops import _build
     from kikuchipy_tpu_torch.ops import refine_nm as rn
-    from kikuchipy_tpu_torch.utils.optimize import initial_step_per_element
 
     # The variants compile while the inputs are made.
     out_dir = here / "kikuchipy_tpu_torch" / "_kernels_build"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = here / "kikuchipy_tpu_torch" / "csrc" / "refine_nm.cu"
     procs = []
-    for blocks in MIN_BLOCKS:
-        lib = out_dir / f"refine_variant_{blocks}.so"
-        procs.append((blocks, lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DREFINE_NM_MIN_BLOCKS={blocks}", "-o", str(lib), str(src)],
+    for i, (label, macros) in enumerate(VARIANTS + [PROBE]):
+        lib = out_dir / f"refine_variant_{i}.so"
+        procs.append((label, lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *macros, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
 
     smoke, modes = problem(here, args.seed)
@@ -133,41 +150,55 @@ def main(argv=None) -> int:
 
     for mode, ms in built_ms.items():
         emit("build", mode, label="as built", ms=ms, patterns_per_s=refs[mode].fun.shape[0] / ms * 1e3,
+             plan=list(rn.nelder_mead_plan(modes[mode][1][1].shape[1], mode)),
              ptxas=_build.BUILD_LOG.get("refine_nm", "").splitlines())
 
-    # Orientation mode's two-pass branch at the same P.
-    euler0, exp, sq, dc, quad, npx, npy, scale = modes["orientation"][1]
-    kw = modes["orientation"][2]
-    n, P = exp.shape
-    step = initial_step_per_element(euler0, kw["initial_step"]).contiguous()
-
-    def two_pass():
-        outs = rn._outputs(n, 3, exp.device)
-        err = rn._function()(euler0.data_ptr(), step.data_ptr(), 0, 0, exp.data_ptr(), sq.data_ptr(), dc.data_ptr(),
-                             quad.data_ptr(), *[t.data_ptr() for t in outs], n, P, 0, npx, npy, float(scale),
-                             rn._INV_SQRT_PI_HALF, kw["max_iters"], kw["fatol"], kw["xatol"], 0,
-                             torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"refine_nm launch failed: cudaError_t {err}")
-        return rn.NelderMeadKernelResult(*outs[:5])
-
-    ms = smoke.cuda_ms(two_pass, args.reps)
-    emit("branch", "orientation", resident=False, ms=ms, ms_resident=built_ms["orientation"],
-         patterns_per_s=n / ms * 1e3, bit_for_bit=same("orientation", two_pass()))
+    # The other shapes at the same P: the wrapper's plan replaced for the call.
+    plan = rn.nelder_mead_plan
+    two_pass = rn.NelderMeadPlan("two-pass", rn.THREADS, rn.REGISTER_BLOCKS, 0, 0)
+    shapes = [(f"cache for {b} blocks in {kb // KB} KB" if b else "resident", m,
+               rn.cache_plan(modes[m][1][1].shape[1], b, kb))
+              for m in modes for b, kb in CACHE_SHAPES[m] + [(None, 0)]] + [("two-pass", "orientation", two_pass)]
+    try:
+        for label, mode, shape in shapes:
+            rn.nelder_mead_plan = lambda P, mode="orientation", shape=shape: shape
+            fn, margs, mkw = modes[mode]
+            ms = smoke.cuda_ms(lambda: fn(*margs, **mkw), args.reps)
+            emit("route", mode, label=label, plan=list(shape), ms=ms, ms_as_built=built_ms[mode],
+                 patterns_per_s=refs[mode].fun.shape[0] / ms * 1e3, bit_for_bit=same(mode, fn(*margs, **mkw)))
+    finally:
+        rn.nelder_mead_plan = plan
 
     built = _build.library("refine_nm")
     try:
-        for blocks, lib_path, proc in procs:
+        for label, lib_path, proc in procs:
             log, _ = proc.communicate()
             if proc.returncode:
-                raise RuntimeError(f"nvcc failed for REFINE_NM_MIN_BLOCKS={blocks}:\n{log}")
+                raise RuntimeError(f"nvcc failed for {label}:\n{log}")
             ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "stack frame" in ln]
+            if label == PROBE[0]:
+                # As built (the cached pixels' hits), then with every pixel
+                # cached (the share of all of a point's taps that repeat).
+                for shape in (None, rn.cache_plan(modes["orientation"][1][1].shape[1], 2)):
+                    if shape is not None:
+                        rn.nelder_mead_plan = lambda P, mode="orientation", shape=shape: shape
+                    calls = {mode: (lambda fn=fn, margs=margs, mkw=mkw: fn(*margs, **mkw))
+                             for mode, (fn, margs, mkw) in modes.items()}
+                    try:
+                        for mode, counts in smoke.tap_reuse(lib_path, calls).items():
+                            emit("reuse", mode, cached="as built" if shape is None else "every pixel", **counts,
+                                 ptxas=ptxas)
+                    finally:
+                        rn.nelder_mead_plan = plan
+                lib_path.unlink()
+                continue
             _build._LOADED["refine_nm"] = ctypes.CDLL(str(lib_path))
             for mode, (fn, margs, mkw) in modes.items():
                 ms = smoke.cuda_ms(lambda: fn(*margs, **mkw), args.reps)
-                emit("build", mode, label=f"min_blocks={blocks}", ms=ms, ms_as_built=built_ms[mode],
-                     patterns_per_s=refs[mode].fun.shape[0] / ms * 1e3, bit_for_bit=same(mode, fn(*margs, **mkw)),
-                     ptxas=ptxas)
+                res = fn(*margs, **mkw)
+                emit("build", mode, label=label, ms=ms, ms_as_built=built_ms[mode],
+                     patterns_per_s=refs[mode].fun.shape[0] / ms * 1e3, bit_for_bit=same(mode, res),
+                     max_abs_dfun=float((res.fun - refs[mode].fun).abs().max()), ptxas=ptxas)
             lib_path.unlink()
     finally:
         _build._LOADED["refine_nm"] = built

@@ -5,12 +5,18 @@ kernels' instruction-slot bound.
 
 Builds a probe library from ``kikuchipy_tpu_torch/csrc/lambert_common.cuh``
 with the port's own ``nvcc`` flags, disassembles it with ``cuobjdump -sass``
-and counts the instructions of five one-pixel kernels: a load-and-store
+and counts the instructions of four one-pixel kernels: a load-and-store
 frame for each of the two pixel inputs (three direction cosines; a column
-and row), ``project_pixel`` (kernel B, the Nelder-Mead kernel) and
-``project_pixel_a`` (kernel A) on the first, and ``project_pixel_pc`` (the
-direction cosine from a PC frame, then ``project_pixel``) on the second;
-and the tangent kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value,
+and row), ``project_pixel`` (``lambert_pixel``, the one pixel of kernels A,
+B, F and the Nelder-Mead kernel) on the first, and ``project_pixel_pc``
+(``pc_direction``, the direction cosine from a PC frame, then
+``lambert_pixel``) on the second. Then
+``nm_eval_pixel``: one pixel of a Nelder-Mead evaluation
+(``csrc/refine_objective.cuh`` ``pixel_value``, the pattern's store, the
+running sum, the pattern and row read back, the centring and two FMAs) in
+orientation and PC mode, with the tap cache (``_cache``) and without, less
+a frame that loads its input and three sums and stores the sums, plus the
+frame's stand-in additions. Then the tangent kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value,
 its gradient with respect to the rotated direction and the d tangents) in
 its three modes, on the frame of its input. The pixel's own count is the
 probe's less its frame's, plus the frame's stand-in additions, less the
@@ -65,9 +71,9 @@ the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted (in the static
 kernel and the pair kernels, each division's call site too: the arguments
 and the call that a predicated branch jumps over). Both sides of
-the Lambert map's branch of ``project_pixel`` are counted, so the count is
+the Lambert map's branch of kernel C's pixel are counted, so the count is
 of the code, not of what one pixel executes (a warp whose pixels take both
-sides executes both); ``project_pixel_a`` has no branch.
+sides executes both); ``lambert_pixel`` has no branch.
 
 Prints one JSON line: the counts, the instruction names of each pixel's
 code, the card's name and power limit. Needs the CUDA toolkit (``nvcc``
@@ -93,16 +99,10 @@ __global__ void probe_dc_frame(const float* __restrict__ dc, float* __restrict__
     if (i < n) out[i] = __fadd_rn(__fadd_rn(dc[3 * i], dc[3 * i + 1]), dc[3 * i + 2]);
 }
 
-__global__ void probe_project(Rot r, Geometry g, const float* __restrict__ dc, float* __restrict__ out, int n) {
+__global__ void probe_project(RotMatrix r, Texels g, const float* __restrict__ dc, float* __restrict__ out, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     int tap;
-    if (i < n) out[i] = project_pixel(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
-}
-
-__global__ void probe_project_a(RotMatrix r, Texels g, const float* __restrict__ dc, float* __restrict__ out, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    int tap;
-    if (i < n) out[i] = project_pixel_a(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
+    if (i < n) out[i] = lambert_pixel(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
 }
 
 __global__ void probe_pix_frame(const float2* __restrict__ pix, float* __restrict__ out, int n) {
@@ -110,11 +110,63 @@ __global__ void probe_pix_frame(const float2* __restrict__ pix, float* __restric
     if (i < n) out[i] = __fadd_rn(pix[i].x, pix[i].y);
 }
 
-__global__ void probe_project_pc(Rot r, PcFrame f, DetectorFrame d, Geometry g, const float2* __restrict__ pix,
+__global__ void probe_project_pc(RotMatrix r, PcFrame f, DetectorFrame d, Texels g, const float2* __restrict__ pix,
                                  float* __restrict__ out, int n) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     int tap;
-    if (i < n) out[i] = project_pixel_pc(r, f, d, pix[i].x, pix[i].y, g, tap);
+    if (i < n) {
+        float u[3];
+        pc_direction(f, d, pix[i].x, pix[i].y, u);
+        out[i] = lambert_pixel(r, u[0], u[1], u[2], g, tap);
+    }
+}
+"""
+
+# One pixel of a Nelder-Mead evaluation (refine_objective.cuh pixel_value,
+# with or without the tap cache, then both passes' work on it: the pattern's
+# store and the running sum, the pattern and row read back, the centring and
+# two FMAs), in orientation and PC mode, and a frame that loads the pixel's
+# input and the three sums and stores the sums.
+PROBE_NM = r"""
+#include "refine_objective.cuh"
+
+template <int kMode, bool kCache>
+__global__ void probe_nm_pixel(RotMatrix r, PcFrame fr, Objective ob, Point pt, float mean, float* out, int n) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    float s = out[p], num = out[n + p], ss = out[2 * n + p];
+    const float v = pixel_value<kMode, kCache>(p, true, r, fr, pt, ob);
+    pt.s_sim[p] = v;
+    s += v;
+    const float d = __fsub_rn(static_cast<volatile float*>(pt.s_sim)[p], mean);
+    num = fmaf(pt.s_row[p], d, num);
+    ss = fmaf(d, d, ss);
+    out[p] = s;
+    out[n + p] = num;
+    out[2 * n + p] = ss;
+}
+
+template __global__ void probe_nm_pixel<kOrientation, true>(RotMatrix, PcFrame, Objective, Point, float, float*, int);
+template __global__ void probe_nm_pixel<kOrientation, false>(RotMatrix, PcFrame, Objective, Point, float, float*, int);
+template __global__ void probe_nm_pixel<kPC, true>(RotMatrix, PcFrame, Objective, Point, float, float*, int);
+template __global__ void probe_nm_pixel<kPC, false>(RotMatrix, PcFrame, Objective, Point, float, float*, int);
+
+__global__ void probe_nm_frame_dc(const float* __restrict__ dc, float* out, int n) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    const float v = __fadd_rn(__fadd_rn(dc[3 * p], dc[3 * p + 1]), dc[3 * p + 2]);
+    out[p] = __fadd_rn(out[p], v);
+    out[n + p] = __fadd_rn(out[n + p], v);
+    out[2 * n + p] = __fadd_rn(out[2 * n + p], v);
+}
+
+__global__ void probe_nm_frame_pix(const float2* __restrict__ pix, float* out, int n) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    const float v = __fadd_rn(pix[p].x, pix[p].y);
+    out[p] = __fadd_rn(out[p], v);
+    out[n + p] = __fadd_rn(out[n + p], v);
+    out[2 * n + p] = __fadd_rn(out[2 * n + p], v);
 }
 """
 
@@ -462,8 +514,9 @@ def count(build_dir: Path | None = None) -> dict:
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
     jobs = []
-    for stem, text in (("sass_probe", PROBE), ("sass_probe_lm", PROBE_LM), ("sass_probe_clahe", PROBE_CLAHE),
-                       ("sass_probe_background", PROBE_BACKGROUND), ("sass_probe_hough", PROBE_HOUGH)):
+    for stem, text in (("sass_probe", PROBE), ("sass_probe_nm", PROBE_NM), ("sass_probe_lm", PROBE_LM),
+                       ("sass_probe_clahe", PROBE_CLAHE), ("sass_probe_background", PROBE_BACKGROUND),
+                       ("sass_probe_hough", PROBE_HOUGH)):
         src = build_dir / f"{stem}.cu"
         src.write_text(text)
         jobs.append((stem, src, [f"-I{csrc}"]))
@@ -485,8 +538,8 @@ def count(build_dir: Path | None = None) -> dict:
             raise subprocess.CalledProcessError(proc.returncode, proc.args, log)
         sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True,
                               text=True).stdout
-        found = main_path(sass, skip_slow_calls=stem not in ("sass_probe", "sass_probe_lm", "sass_probe_clahe",
-                                                             "sass_probe_hough"))
+        found = main_path(sass, skip_slow_calls=stem not in ("sass_probe", "sass_probe_nm", "sass_probe_lm",
+                                                             "sass_probe_clahe", "sass_probe_hough"))
         if stem in PAIR_BUILDS:
             kernel = "19dynamic_pair_kernelILb0EE" if stem.startswith("background") else "17clahe_pair_kernel"
             hits = [ops for fname, ops in found.items() if kernel in fname]
@@ -504,12 +557,16 @@ def count(build_dir: Path | None = None) -> dict:
 
     # Itanium-mangled names begin with the name's length.
     dc_frame, project = find("14probe_dc_frame"), find("13probe_project")
-    project_a = find("15probe_project_a")
     pix_frame, project_pc = find("15probe_pix_frame"), find("16probe_project_pc")
     # The frames' stand-in additions (two and one FADD) are not the pixel's.
     per_pixel = len(project) - len(dc_frame) + 2
-    per_pixel_a = len(project_a) - len(dc_frame) + 2
     per_pixel_pc = len(project_pc) - len(pix_frame) + 1
+    # A Nelder-Mead evaluation's pixel, with and without the tap cache: less
+    # the frames' (three and two) stand-in additions.
+    nm_pixel = {}
+    for mode, code, frame, adds in (("orientation", 0, "17probe_nm_frame_dc", 2), ("pc", 1, "18probe_nm_frame_pix", 1)):
+        for cache, suffix in ((1, "_cache"), (0, "")):
+            nm_pixel[mode + suffix] = len(find(f"14probe_nm_pixelILi{code}ELb{cache}EE")) - len(find(frame)) + adds + 3
     lm = {mode: find(f"{len('probe_lm_' + mode)}probe_lm_{mode}") for mode in ("orientation", "pc", "joint")}
     lm_frame = {"orientation": dc_frame, "pc": pix_frame, "joint": pix_frame}
     lm_count = {mode: len(ops) - len(lm_frame[mode]) + (2 if mode == "orientation" else 1) - (6 if mode == "joint" else 3)
@@ -568,9 +625,8 @@ def count(build_dir: Path | None = None) -> dict:
         "project_pixel": per_pixel,
         "project_pixel_pc": per_pixel_pc,
         "direction_cosine": per_pixel_pc - per_pixel,
-        "project_pixel_a": per_pixel_a,
+        "nm_eval_pixel": nm_pixel,
         "project_pixel_ops": mix(project, dc_frame),
-        "project_pixel_a_ops": mix(project_a, dc_frame),
         "project_pixel_pc_ops": mix(project_pc, pix_frame),
         "tangent_pixel": lm_count,
         "lm_passes": passes,

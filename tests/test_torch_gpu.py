@@ -339,8 +339,14 @@ def test_shared_memory_of_a_block_is_what_python_computes(cuda, kernel):
 # range (the master's, 255 when rescaled), and over the pixels of all cases
 # together no larger than the float32 twin's, an RMS within 1.5 x its, and
 # no more pixels on another tap than 1.5 x its (and under 1e-4 of them).
-# Kernel B (lambert_project_ncc) rounds as its twin does: 1 - NCC within
-# 2e-6.
+# Kernel B (lambert_project_ncc) computes the same pixel as kernel A
+# (lambert_common.cuh lambert_pixel) and is held as kernel A is: its 1 - NCC
+# no further from the plain twin run in float64 than the float32 twin's, in
+# each case of 2,048 patterns and over the five cases together (max, and RMS
+# within 1.5 x), and in each case within 2e-6 of the float32 twin
+# (chip_smoke.py ncc_yardstick, ncc_pooled_failures).
+
+NCC_CASES = ["shared", "masked", "per_point", "ragged", "one"]
 
 
 def _smoke():
@@ -426,34 +432,52 @@ def test_lambert_project_is_no_further_from_float64_than_the_float32_twin(cuda):
     assert yard.failures() == []
 
 
-@pytest.mark.parametrize("case", ["shared", "masked", "per_point", "ragged", "one"])
-def test_lambert_project_ncc_matches_plain(cuda, case):
+def _kernel_b_case(device, case):
+    """Kernel B's yardstick on one case (chip_smoke.py ncc_yardstick); checks
+    the launch count."""
     from kikuchipy_tpu_torch.indexing.refinement import _prepare_experimental
     from kikuchipy_tpu_torch.ops import lambert_project as lp
 
-    _, quad, dc, om, _ = _projection_state(cuda)
+    _, quad, dc, om, _ = _projection_state(device)
     B = {"one": 1}.get(case, 2048)
-    rot = _quats(B, 42, cuda)
+    rot = _quats(B, 42, device)
     # Experimental rows: patterns projected near the rotations, plus noise.
-    sim = lp.lambert_project(_quats(B, 42, cuda) + 0.01 * _quats(B, 43, cuda), dc, quad, 101, 101, 50.0)
-    rows = sim + 0.05 * torch.randn(sim.shape, generator=torch.Generator(device=cuda).manual_seed(44), device=cuda)
+    sim = lp.lambert_project(_quats(B, 42, device) + 0.01 * _quats(B, 43, device), dc, quad, 101, 101, 50.0)
+    rows = sim + 0.05 * torch.randn(sim.shape, generator=torch.Generator(device=device).manual_seed(44), device=device)
     idx = None
     if case == "masked":
-        idx = torch.nonzero(torch.rand(dc.shape[0], generator=torch.Generator().manual_seed(45)) > 0.3)[:, 0].to(cuda)
+        idx = torch.nonzero(torch.rand(dc.shape[0], generator=torch.Generator().manual_seed(45)) > 0.3)[:, 0].to(device)
         dc = dc[idx].contiguous()
     elif case == "ragged":
-        idx = torch.arange(0, dc.shape[0], 7, device=cuda)
+        idx = torch.arange(0, dc.shape[0], 7, device=device)
         dc = dc[idx].contiguous()
     elif case == "per_point":
-        dc = _per_point_dc(B, om, 46, cuda)
+        dc = _per_point_dc(B, om, 46, device)
     exp, sq = _prepare_experimental(rows, idx)
     before = lp.lambert_project_ncc.launches
     got = lp.lambert_project_ncc(rot, dc, quad, 101, 101, 50.0, exp, sq)
     torch.cuda.synchronize()
     assert lp.lambert_project_ncc.launches == before + 1
     ref = lp.lambert_project_ncc_plain(rot, dc, quad, 101, 101, 50.0, exp, sq)
+    ref64 = lp.lambert_project_ncc_plain(rot.double(), dc.double(), quad.double(), 101, 101, 50.0, exp.double(),
+                                         sq.double())
     assert got.shape == (B,) and torch.isfinite(got).all()
-    assert float((got - ref).abs().max()) <= 2e-6
+    return _smoke().ncc_yardstick(got, ref, ref64)
+
+
+@pytest.mark.parametrize("case", NCC_CASES)
+def test_lambert_project_ncc_matches_plain(cuda, case):
+    smoke = _smoke()
+    y = _kernel_b_case(cuda, case)
+    print(f"{case}: {smoke.ncc_yardstick_text(y)}")
+    assert smoke.ncc_yardstick_failures(case, y) == []
+
+
+def test_lambert_project_ncc_is_no_further_from_float64_than_the_float32_twin(cuda):
+    smoke = _smoke()
+    yards = {case: _kernel_b_case(cuda, case) for case in NCC_CASES}
+    print(f"pooled: {smoke.ncc_yardstick_text(smoke.ncc_pooled(yards))}")
+    assert smoke.ncc_pooled_failures(yards) == []
 
 
 def test_refinement_on_the_card_goes_through_the_ncc_kernel(cuda):
@@ -499,6 +523,50 @@ def test_refinement_on_the_card_goes_through_the_ncc_kernel(cuda):
 # candidate of an accepted reflection).
 
 
+# Detectors of the Nelder-Mead cases off the main path's 60 x 60, and the
+# route nelder_mead_plan takes for each: P = 16,384 and 57,600 past
+# RESIDENT_SMEM_BYTES (the two-pass branch), P = 9,216 leaving the tap cache
+# no room (the row and pattern alone). At 60 x 60 the cache holds the first
+# pixels only; at P = 1000 all of them.
+NM_SHAPES = {"over_budget": (128, 128), "wide": (240, 240), "resident": (96, 96)}
+NM_ROUTES = {"over_budget": "two-pass", "wide": "two-pass", "resident": "resident", "full_cache": "cache",
+             "cache": "cache"}
+# Shapes the plan does not take at 60 x 60, forced for a case: every pixel
+# cached (two blocks an SM), and the PC modes' cache (which CACHE_SHAPE
+# leaves off).
+NM_FORCED = {"full_cache": (2, 228 * 1024), "cache": (4, 196 * 1024)}
+
+
+def _nm_route(monkeypatch, case: str, mode: str, P: int) -> str:
+    """The route the kernel takes for ``case``: a forced shape put in the
+    plan's place, else the plan's own."""
+    from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+    if case in NM_FORCED:
+        shape = rn.cache_plan(P, *NM_FORCED[case])
+        monkeypatch.setattr(rn, "nelder_mead_plan", lambda P, mode="orientation": shape)
+    return rn.nelder_mead_plan(P, mode).route
+# Initial simplex edges that keep nearly every pixel on its tap (tiny) or
+# move nearly every one (large): the tap cache hit and missed.
+NM_STEPS = {"tiny_step": (np.deg2rad(0.02), 0.0005), "large_step": (np.deg2rad(8.0), 0.05)}
+
+
+def _straddle_rotations(dc, n: int, seed: int) -> torch.Tensor:
+    """Unit quaternions ``(n, 4)`` that turn the detector's mean direction
+    onto the equator (rotated z = 0) at random azimuths: each pattern's
+    pixels straddle the two hemispheres."""
+    rng = np.random.default_rng(seed)
+    v = dc.double().mean(0).cpu().numpy()
+    v /= np.linalg.norm(v)
+    phi = rng.uniform(0.0, 2 * np.pi, n)
+    target = np.stack([np.cos(phi), np.sin(phi), np.zeros(n)], axis=1)
+    axis = np.cross(v, target)
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    half = 0.5 * np.arccos(np.clip(target @ v, -1.0, 1.0))
+    q = np.concatenate([np.cos(half)[:, None], np.sin(half)[:, None] * axis], axis=1)
+    return torch.as_tensor(q, dtype=torch.float32, device=dc.device)
+
+
 def _nm_inputs(device, case: str, n: int = 64):
     from kikuchipy_tpu_torch.crystallography.sampling import super_fibonacci
     from kikuchipy_tpu_torch.geometry import quaternion as tq
@@ -507,12 +575,14 @@ def _nm_inputs(device, case: str, n: int = 64):
     from kikuchipy_tpu_torch.ops import lambert_project as lp
     from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
 
-    n = {"one": 1, "over_budget": 8}.get(case, n)
-    shape = (128, 128) if case == "over_budget" else (60, 60)  # P = 16,384: past RESIDENT_SMEM_BYTES
+    n = {"one": 1, "over_budget": 8, "wide": 4}.get(case, n)
+    shape = NM_SHAPES.get(case, (60, 60))
     _, quad, _, om, _ = _projection_state(device)
     det = EBSDDetector(shape=shape, pc=(0.42, 0.28, 0.5), sample_tilt=70)
     dc = direction_cosines_from_detector(det, device=device)
     truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
+    if case == "straddle":
+        truth = _straddle_rotations(dc, n, 55)
     rows = lp.lambert_project(truth, dc, quad, 101, 101, 50.0)
     rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(50),
                                      device=device)
@@ -524,23 +594,31 @@ def _nm_inputs(device, case: str, n: int = 64):
         idx = torch.nonzero(torch.rand(dc.shape[0], generator=torch.Generator().manual_seed(52)) > 0.3)[:, 0]
         idx = idx.to(device)
         dc = dc[idx].contiguous()
+    elif case == "p1000":
+        idx = torch.arange(1000, device=device)
+        dc = dc[idx].contiguous()
     elif case == "per_point":
         dc = _per_point_dc(n, om, 53, device)
     exp, sq = _prepare_experimental(rows, idx)
-    kw = dict(initial_step=np.deg2rad(1.0), max_iters=150, fatol=1e-4, xatol=1e-4)
+    kw = dict(initial_step=NM_STEPS.get(case, (np.deg2rad(1.0),))[0], max_iters=150, fatol=1e-4, xatol=1e-4)
     if case == "trust_region":
         tr = torch.tensor(np.deg2rad([0.5, 0.5, 0.5]), dtype=torch.float32, device=device)
         kw.update(lower_bounds=euler0 - tr, upper_bounds=euler0 + tr)
     return (euler0, exp, sq, dc, quad, 101, 101, 50.0), kw
 
 
-@pytest.mark.parametrize("case", ["shared", "trust_region", "masked", "per_point", "over_budget", "one"])
-def test_nelder_mead_kernel_takes_the_host_loops_path(cuda, case):
+NM_CASES = ["shared", "trust_region", "masked", "per_point", "over_budget", "one", "tiny_step", "large_step",
+            "straddle", "p1000", "resident", "wide", "full_cache"]
+
+
+@pytest.mark.parametrize("case", NM_CASES)
+def test_nelder_mead_kernel_takes_the_host_loops_path(cuda, monkeypatch, case):
     from kikuchipy_tpu_torch.ops import lambert_project as lp
     from kikuchipy_tpu_torch.ops import refine_nm as rn
 
     args, kw = _nm_inputs(cuda, case)
-    assert rn.resident(args[3].shape[-2]) == (case != "over_budget")
+    want = NM_ROUTES.get(case, "cache" if rn.CACHE_SHAPE["orientation"] else "resident")
+    assert _nm_route(monkeypatch, case, "orientation", args[3].shape[-2]) == want
     before = (rn.nelder_mead_orientation.launches, lp.lambert_project_ncc.launches)
     got = rn.nelder_mead_orientation(*args, **kw)
     torch.cuda.synchronize()
@@ -548,7 +626,9 @@ def test_nelder_mead_kernel_takes_the_host_loops_path(cuda, case):
     ref = rn.nelder_mead_orientation_plain(*args, **kw)
     n = args[0].shape[0]
     assert got.x.shape == (n, 3) and got.fun.shape == got.n_iter.shape == got.converged.shape == (n,)
-    assert torch.isfinite(got.fun).all() and got.converged.all()
+    assert torch.isfinite(got.fun).all()
+    # From a simplex edge of 0.02 or 8 degrees a point may run out of iterations.
+    assert got.converged.all() or case in NM_STEPS
     print(f"{case}: n_iter equal {float((got.n_iter == ref.n_iter).float().mean()):.4f}, max |dfun| "
           f"{float((got.fun - ref.fun).abs().max()):.3e}, max |dx| {float((got.x - ref.x).abs().max()):.3e}, "
           f"evaluations {int(got.n_evals.sum())} vs {int(ref.n_evals.sum())}")
@@ -604,8 +684,14 @@ def test_nelder_mead_kernel_refuses_what_it_cannot_take(cuda):
     out = torch.empty(16, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [out.data_ptr()] * 14
-    assert fn(*ptrs, 0, 3600, 0, 101, 101, 50.0, 1.0, 10, 1e-4, 1e-4, 1, stream) != 0
-    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 1.0, -1, 1e-4, 1e-4, 1, stream) != 0
+    assert fn(*ptrs, 0, 3600, 0, 101, 101, 50.0, 10, 1e-4, 1e-4, 1, 0, stream) != 0
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, -1, 1e-4, 1e-4, 1, 0, stream) != 0
+    # ... a route outside the three (ops/refine_nm.py _ROUTE), a cache route
+    # without cached pixels or with more than P, and cached pixels on another route.
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 10, 1e-4, 1e-4, 3, 0, stream) != 0
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 10, 1e-4, 1e-4, 2, 0, stream) != 0
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 10, 1e-4, 1e-4, 2, 3601, stream) != 0
+    assert fn(*ptrs, 1, 3600, 0, 101, 101, 50.0, 10, 1e-4, 1e-4, 1, 8, stream) != 0
 
 
 def test_projection_kernels_refuse_what_they_cannot_take(cuda):
@@ -630,7 +716,7 @@ def test_projection_kernels_refuse_what_they_cannot_take(cuda):
               0, 0.0, 1.0, stream) != 0
     fn = lp._function("lambert_project_ncc")
     assert fn(rot.data_ptr(), dc.data_ptr(), quad.data_ptr(), out.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 0, 0,
-              101, 101, 50.0, 1.0, stream) != 0
+              101, 101, 50.0, stream) != 0
 
 
 # The PC and joint modes of the Nelder-Mead kernel against their host loops
@@ -696,14 +782,17 @@ def _pc_inputs(device, mode: str, case: str, n: int = 64):
     from kikuchipy_tpu_torch.ops import refine_nm as rn
     from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines_from_detector
 
-    n = {"one": 1, "over_budget": 8}.get(case, n)
-    shape = (128, 128) if case == "over_budget" else (60, 60)  # P = 16,384: past RESIDENT_SMEM_BYTES
+    n = {"one": 1, "over_budget": 8, "wide": 4}.get(case, n)
+    shape = NM_SHAPES.get(case, (60, 60))
     pc = (0.42, 0.28, 0.5)
     _, quad, _, _, _ = _projection_state(device)
     det = EBSDDetector(shape=shape, pc=pc, sample_tilt=70)
     om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=device)
+    dc = direction_cosines_from_detector(det, device=device)
     truth = torch.as_tensor(super_fibonacci(n * 7)[::7][:n], dtype=torch.float32, device=device)
-    rows = lp.lambert_project(truth, direction_cosines_from_detector(det, device=device), quad, 101, 101, 50.0)
+    if case == "straddle":
+        truth = _straddle_rotations(dc, n, 65)
+    rows = lp.lambert_project(truth, dc, quad, 101, 101, 50.0)
     rows = rows + 0.02 * torch.randn(rows.shape, generator=torch.Generator(device=device).manual_seed(62),
                                      device=device)
     take = None
@@ -715,9 +804,10 @@ def _pc_inputs(device, mode: str, case: str, n: int = 64):
     exp, sq = _prepare_experimental(rows, take)
     pc0 = torch.as_tensor(np.tile(np.asarray(pc) + [0.01, -0.01, 0.01], (n, 1)), dtype=torch.float32, device=device)
     geo = (101, 101, 50.0, shape[0], shape[1])
+    step_deg, step_pc = NM_STEPS.get(case, (np.deg2rad(1.0), 0.01))
     if mode == "pc":
         x0, args = pc0, (exp, sq, truth, quad, om, take, *geo)
-        kw = dict(initial_step=0.01, max_iters=150, fatol=1e-4, xatol=1e-5)
+        kw = dict(initial_step=step_pc, max_iters=150, fatol=1e-4, xatol=1e-5)
         half = torch.full((3,), 0.006, device=device)
         fns = (rn.nelder_mead_projection_center, rn.nelder_mead_projection_center_plain)
     else:
@@ -725,7 +815,7 @@ def _pc_inputs(device, mode: str, case: str, n: int = 64):
         start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), truth.double().cpu())
         euler0 = tq.to_euler(start).to(torch.float32).to(device)
         x0, args = torch.cat([euler0, pc0], dim=1), (exp, sq, quad, om, take, *geo)
-        kw = dict(initial_step=torch.tensor([np.deg2rad(1.0)] * 3 + [0.01] * 3, dtype=torch.float32, device=device),
+        kw = dict(initial_step=torch.tensor([step_deg] * 3 + [step_pc] * 3, dtype=torch.float32, device=device),
                   max_iters=200, fatol=1e-4, xatol=1e-5)
         half = torch.tensor([np.deg2rad(1.0)] * 3 + [0.006] * 3, dtype=torch.float32, device=device)
         fns = (rn.nelder_mead_orientation_projection_center, rn.nelder_mead_orientation_projection_center_plain)
@@ -735,13 +825,15 @@ def _pc_inputs(device, mode: str, case: str, n: int = 64):
 
 
 @pytest.mark.parametrize("mode", ["pc", "joint"])
-@pytest.mark.parametrize("case", ["shared", "trust_region", "masked", "p1000", "over_budget", "one"])
-def test_nelder_mead_pc_kernels_take_the_host_loops_path(cuda, mode, case):
+@pytest.mark.parametrize("case", ["shared", "trust_region", "masked", "p1000", "over_budget", "one", "tiny_step",
+                                  "large_step", "straddle", "resident", "wide", "cache"])
+def test_nelder_mead_pc_kernels_take_the_host_loops_path(cuda, monkeypatch, mode, case):
     from kikuchipy_tpu_torch.ops import lambert_project as lp
     from kikuchipy_tpu_torch.ops import refine_nm as rn
 
     wrapper, plain, x0, args, kw = _pc_inputs(cuda, mode, case)
-    assert rn.resident(args[0].shape[1]) == (case != "over_budget")
+    want = NM_ROUTES.get(case, "cache" if rn.CACHE_SHAPE[mode] else "resident")
+    assert _nm_route(monkeypatch, case, mode, args[0].shape[1]) == want
     before = (wrapper.launches, lp.lambert_project_ncc.launches)
     got = wrapper(x0, *args, **kw)
     torch.cuda.synchronize()
@@ -758,6 +850,34 @@ def test_nelder_mead_pc_kernels_take_the_host_loops_path(cuda, mode, case):
     assert (got.n_evals <= ref.n_evals).all() and (got.n_evals >= d + 1 + got.n_iter).all()
     if "lower_bounds" in kw:
         assert (got.x >= kw["lower_bounds"]).all() and (got.x <= kw["upper_bounds"]).all()
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_nelder_mead_kernel_agrees_with_the_loop_over_the_float32_twin(cuda, mode):
+    # The kernel's pixel (lambert_pixel) is not the plain twin's float32
+    # rounding: its points against the host loop over the float32 plain twin
+    # on 64 points, both scored by the float64 twin (chip_smoke.py
+    # float64_check: the mean float64 1 - NCC no higher by more than 1e-6,
+    # in orientation mode 99% within 0.05 degrees).
+    smoke = _smoke()
+    if mode == "orientation":
+        args, kw = _nm_inputs(cuda, "shared")
+        from kikuchipy_tpu_torch.ops import refine_nm as rn
+
+        x0, (exp, sq, dc, quad), q0, om = args[0], args[1:5], None, None
+        wrap = lambda x: rn.nelder_mead_orientation(x, *args[1:], **kw)  # noqa: E731
+        shape = (60, 60)
+    else:
+        wrapper, _, x0, args, kw = _pc_inputs(cuda, mode, "shared")
+        exp, sq = args[0], args[1]
+        q0 = args[2] if mode == "pc" else None
+        quad, om = args[3 if mode == "pc" else 2], args[4 if mode == "pc" else 3]
+        dc, shape = None, (60, 60)
+        wrap = lambda x: wrapper(x, *args, **kw)  # noqa: E731
+    ok, msg, got, ref = smoke.float64_check(mode, wrap, x0, kw, exp, sq, dc, q0, quad, om, None, (101, 101, 50.0),
+                                            shape)
+    print(f"{mode}: {msg}")
+    assert torch.isfinite(got.fun).all() and ok
 
 
 def test_pc_refinement_on_the_card_is_one_launch_a_mode(cuda):
@@ -823,8 +943,8 @@ def test_nelder_mead_pc_kernel_refuses_what_it_cannot_take(cuda):
     om = (ctypes.c_float * 9)(*([0.0] * 9))
 
     def call(mode=1, q0=p, pix=p, n=1, max_iters=10):
-        return fn(mode, p, p, 0, 0, p, p, q0, pix, om, p, p, p, p, p, p, p, n, 3600, 101, 101, 50.0, 1.0, 1.0, -1.0,
-                  1.0 / 60, 1.0 / 60, max_iters, 1e-4, 1e-5, 1, stream)
+        return fn(mode, p, p, 0, 0, p, p, q0, pix, om, p, p, p, p, p, p, p, n, 3600, 101, 101, 50.0, 1.0, -1.0,
+                  1.0 / 60, 1.0 / 60, max_iters, 1e-4, 1e-5, 1, 0, stream)
 
     assert call(mode=0) != 0 and call(mode=3) != 0
     assert call(n=0) != 0 and call(max_iters=-1) != 0
@@ -1833,11 +1953,11 @@ def test_population_kernel_refuses_what_it_cannot_take(cuda):
     out = torch.empty((x.shape[0], 2), device=cuda)
     fn = rp._function()
     err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), 0, None, None, None,
-             args[3].data_ptr(), out.data_ptr(), x.shape[0], 0, args[0].shape[1], 101, 101, 50.0, 1.0, 0.0, 0.0, 0.0,
+             args[3].data_ptr(), out.data_ptr(), x.shape[0], 0, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0,
              0.0, 1, torch.cuda.current_stream().cuda_stream)
     assert err != 0
     err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), None, 0, None, None, None, args[3].data_ptr(),
-             out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1,
+             out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0, 0.0, 1,
              torch.cuda.current_stream().cuda_stream)
     assert err != 0
 

@@ -372,7 +372,7 @@ def test_kernel_sources_and_build_directory():
         assert what in text["lambert_project"], what
     for what in ("refine_nm_kernel", "nelder_mead_batched", "_objective_orientation", "atomicAdd", "cp.async"):
         assert what in text["refine_nm"], what
-    for what in ("refine_lm_kernel", "jac_and_res", "_project_at", "project_pixel_pc"):
+    for what in ("refine_lm_kernel", "jac_and_res", "_project_at", "pc_direction"):
         assert what in text["refine_lm"], what
     # Kernel F replaces the global solvers' population evaluations over the
     # same objectives, and evaluates with the Nelder-Mead kernel's own code.
@@ -384,9 +384,14 @@ def test_kernel_sources_and_build_directory():
         assert '#include "refine_objective.cuh"' in text[name] and "float evaluate(" not in text[name], name
     for name in ("lambert_project", "refine_lm"):
         assert '#include "lambert_common.cuh"' in text[name], name
+    # One pixel for kernels A, B, F and the Nelder-Mead kernel, in the shared
+    # header; kernel C keeps its own in the plain twin's rounding.
     for name in ("lambert_project", "refine_nm", "refine_lm", "refine_population"):
-        assert "float project_pixel(" not in text[name], name
-    assert "float project_pixel(" in (PKG / "csrc" / "lambert_common.cuh").read_text()
+        assert "float lambert_pixel(" not in text[name] and "Tap lambert_tap(" not in text[name], name
+    lambert = (PKG / "csrc" / "lambert_common.cuh").read_text()
+    assert "float lambert_pixel(" in lambert and "Tap lambert_tap(" in lambert
+    assert "float project_pixel(" not in lambert and "project_pixel_a(" not in lambert
+    assert "float project_pixel_grad(" in text["refine_lm"]
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]
     assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
