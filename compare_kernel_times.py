@@ -5,7 +5,7 @@ kernel G, ``--hough`` kernel H, to compare two commits on one card.
 
     python3 compare_kernel_times.py --tree DIR [--reps 10]
         [--preprocess | --neighbours | --hough [--inputs PATH | --poles N]
-         | --refine [--save PATH] [--against PATH]]
+         | --refine [--save PATH] [--against PATH] | --lm [--save PATH] [--against PATH]]
 
 ``DIR`` is the root of a checkout (this one: ``.``). The script imports
 ``kikuchipy_tpu_torch`` and ``chip_smoke.py`` from ``DIR``, builds the
@@ -77,6 +77,21 @@ largest differences. ``--float64`` adds, on the first 2,048 points of each
 mode, the tree's kernel, the host loop over the float32 plain twin and the
 host loop over the float64 twin, each pair compared as ``chip_smoke.py``
 ``[refine-float64]`` compares the first two.
+
+With ``--lm`` the package comes from ``DIR`` and the inputs from
+``lm_variants.py``'s ``problem`` beside this script (the same map, starts
+and PCs as ``--refine``'s, at ``refine_*``'s LM settings). One JSON line:
+kernel C (one launch at the map's starts, ``x = 0``) and the
+Levenberg-Marquardt loop kernel (one ``method="lm"`` launch for the map) in
+each mode, with CUDA events after a warm-up and the card's clock right
+after each, the loop's evaluations, and kernel C's outputs on the first
+2,048 points against the plain version run on float64 operands where the
+tree's plain version takes them (``|dg| / |g|``, ``|dJtJ| / |JtJ|``).
+``--save PATH`` writes the outputs; ``--against PATH`` compares them with
+another tree's: kernel C's largest differences, each loop's share of
+points with 0.5 ||r||^2 within 1e-5, rotations within 0.05 degrees and PCs
+within 1e-4, equal iterations, its mean 0.5 ||r||^2 against theirs, and
+the other tree's kernel C against this tree's float64 plain version.
 
 Run it once per checkout, alternating (parent, change, change, parent), on
 one card. Needs a CUDA device.
@@ -473,6 +488,96 @@ def refine(tree: Path, reps: int, save: Path | None, against: Path | None, float
                       "float64": refine_float64(smoke, modes) if float64 else None}), flush=True)
 
 
+LM_CHECK_POINTS = 2048
+
+
+def _normal_errors(got, ref) -> dict:
+    """max |f - f_ref|, and max |g - g_ref| / |g_ref| and |H - H_ref| / |H_ref|."""
+    import torch
+
+    (f, g, h), (rf, rg, rh) = [[t.double() for t in x] for x in (got, ref)]
+    return {"df": float((f - rf).abs().max()),
+            "dg_rel": float((torch.linalg.vector_norm(g - rg, dim=1) / torch.linalg.vector_norm(rg, dim=1)).max()),
+            "djtj_rel": float((torch.linalg.matrix_norm(h - rh) / torch.linalg.matrix_norm(rh)).max())}
+
+
+def lm_agreement(mine: dict, theirs: dict, float64: dict | None) -> dict:
+    """Each kernel's agreement with another tree's outputs (module docstring)."""
+    import torch
+
+    out = {}
+    for name, got in mine.items():
+        ref = theirs[name]
+        if name.startswith("tangent_"):
+            out[name] = _normal_errors(got, ref)
+            if float64 is not None:
+                out[name]["theirs_against_float64"] = _normal_errors(ref, float64[name])
+            continue
+        row = {"bit_for_bit": all(torch.equal(got[k], ref[k]) for k in got),
+               "fun_within_1e5": float(((got["fun"] - ref["fun"]).abs() <= 1e-5).float().mean()),
+               "n_iter_equal": float((got["n_iter"] == ref["n_iter"]).float().mean()),
+               "mean_fun": [float(got["fun"].double().mean()), float(ref["fun"].double().mean())],
+               "evaluations": [int(got["n_evals"].sum()), int(ref["n_evals"].sum())]}
+        if not name.endswith("_pc"):
+            from kikuchipy_tpu_torch.ops.refine_lm import exp_map
+
+            a, b = exp_map(got["x"][:, :3].double()), exp_map(ref["x"][:, :3].double())
+            deg = torch.rad2deg(2 * torch.acos((a * b).sum(1).abs().clamp(max=1.0)))
+            row.update(rotation_within_005_deg=float((deg <= 0.05).float().mean()), max_deg=float(deg.max()))
+        if not name.endswith("_orientation"):
+            dpc = (got["x"][:, -3:] - ref["x"][:, -3:]).abs().amax(dim=1)
+            row.update(pc_within_1e4=float((dpc <= 1e-4).float().mean()), max_dpc=float(dpc.max()))
+        out[name] = row
+    return out
+
+
+def lm(tree: Path, reps: int, save: Path | None, against: Path | None) -> None:
+    """The ``--lm`` line of ``tree``'s kernel C and LM loop kernel (the
+    module docstring)."""
+    import torch
+
+    tree, smoke, kt = _tree_and_smoke(tree, "lm_chip_smoke")
+    here = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("lm_variants_inputs", here / "lm_variants.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    smoke, modes = module.problem(here, 0)
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    c = LM_CHECK_POINTS
+    times, outputs, float64 = {}, {}, {}
+    for mode, run in modes.items():
+        fn, targs = run["tangent"]
+        out = fn(*targs)
+        torch.cuda.synchronize()
+        times[f"tangent_{mode}"] = {"ms": smoke.cuda_ms(lambda: fn(*targs), reps), "card": card()}
+        outputs[f"tangent_{mode}"] = [t[:c].cpu() for t in out]
+        n = targs[0].shape[0]
+        head = [a[:c] if torch.is_tensor(a) and a.ndim and a.shape[0] == n else a for a in targs]
+        if float64 is not None:
+            try:
+                ref64 = getattr(rl, smoke.LM_WRAPPER[mode] + "_plain")(*smoke.float64_args(head))
+                float64[f"tangent_{mode}"] = [t.cpu() for t in ref64]
+            except TypeError:  # a tree whose plain version takes float32 alone
+                float64 = None
+        fn, largs, kw = run["loop"]
+        res = fn(*largs, **kw)
+        torch.cuda.synchronize()
+        times[f"loop_{mode}"] = {"ms": smoke.cuda_ms(lambda: fn(*largs, **kw), max(1, reps // 3)), "card": card()}
+        outputs[f"loop_{mode}"] = {k: getattr(res, k).cpu() for k in ("x", "fun", "n_iter", "n_evals")}
+    own64 = None if float64 is None else {k: _normal_errors(outputs[k], v) for k, v in float64.items()}
+    if save is not None:
+        save.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, save)
+    agreement = None
+    if against is not None and against.exists():
+        agreement = lm_agreement(outputs, torch.load(against), float64)
+    print(json.dumps({"tree": str(tree), "card": smoke.smi_line(), "times": times,
+                      "evaluations": {m: int(outputs[f"loop_{m}"]["n_evals"].sum()) for m in modes},
+                      "against_float64": own64, "against": None if against is None else str(against),
+                      "agreement": agreement}), flush=True)
+
+
 def pole_set_inputs(n: int, n_poles: int, seed: int = 0):
     """Kernel H's inputs for a set of ``n_poles`` random unit poles, on the
     card: ``n`` patterns of 9 band normals (9 poles, drawn with replacement,
@@ -529,6 +634,7 @@ def main(argv=None) -> int:
     parser.add_argument("--save", type=Path, default=None)
     parser.add_argument("--against", type=Path, default=None)
     parser.add_argument("--float64", action="store_true")
+    parser.add_argument("--lm", action="store_true")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -548,6 +654,9 @@ def main(argv=None) -> int:
         return 0
     if args.refine:
         refine(args.tree, args.reps, args.save, args.against, args.float64)
+        return 0
+    if args.lm:
+        lm(args.tree, args.reps, args.save, args.against)
         return 0
     ops = operands(args.tree)
     smoke, nt = ops["smoke"], ops["nt"]

@@ -6,21 +6,23 @@
 // csrc/lambert_project.cu (dictionary generation), kernel B of the same file
 // (the projection-NCC, the host loops' objective), the Nelder-Mead kernel of
 // csrc/refine_nm.cu and kernel F of csrc/refine_population.cu (both through
-// evaluate of csrc/refine_objective.cuh). Every product, sum and fused
-// operation in it is written out (__fmul_rn, __fadd_rn, __fmaf_rn, and the
-// approximate reciprocal and reciprocal square root in PTX), so nvcc
-// contracts nothing and the four kernels, compiled apart, round every pixel
-// alike: the Nelder-Mead kernel and kernel F are bit for bit the host loops
-// over kernel B. It is not the plain twin's float32 rounding; its yardstick
-// is the plain twin run in float64 (see lambert_pixel).
+// evaluate of csrc/refine_objective.cuh), and kernel C and the LM loop
+// kernel of csrc/refine_lm.cu (through lambert_pixel_grad). Every product,
+// sum and fused operation in it is written out (__fmul_rn, __fadd_rn,
+// __fmaf_rn, and the approximate reciprocal and reciprocal square root in
+// PTX), so nvcc contracts nothing and the kernels, compiled apart, round
+// every pixel alike: the Nelder-Mead kernel and kernel F are bit for bit the
+// host loops over kernel B, and kernel C's pattern is kernel A's. It is not
+// the plain twin's float32 rounding; its yardstick is the plain twin run in
+// float64 (see lambert_pixel).
 //
 // pc_direction: a pixel's direction cosine from a candidate projection
 // center, in the IEEE order of ops/refine_nm.py pc_direction_cosines (the PC
 // and joint modes), before lambert_pixel.
 //
-// Rot, make_rot, Geometry and sgn are csrc/refine_lm.cu's (kernel C and the
-// LM loop kernel), which keeps its own projection in the plain twin's float32
-// rounding (project_pixel_grad there).
+// lambert_pixel_grad: lambert_pixel's value bit for bit and its gradient with
+// respect to the rotated direction, worked out in texel units; the one
+// evaluation of csrc/refine_lm.cu (kernel C and the LM loop kernel).
 
 #pragma once
 
@@ -33,51 +35,6 @@ namespace {
 // strided over them.
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-// csrc/refine_lm.cu's rotation, in the plain twin's float32 rounding.
-struct Rot {
-    // rotate_vector's per-quaternion terms, in its order of operations.
-    float xx, xz, xy;  // ox = xx * x + 2 * (xz * z + xy * y)
-    float yy, yx, yz;  // oy = yy * y + 2 * (yx * x + yz * z)
-    float zz, zy, zx;  // oz = zz * z + 2 * (zy * y + zx * x)
-};
-
-__device__ __forceinline__ Rot make_rot(const float* q) {
-    const float a = q[0], b = q[1], c = q[2], d = q[3];
-    const float aa = __fmul_rn(a, a), bb = __fmul_rn(b, b), cc = __fmul_rn(c, c), dd = __fmul_rn(d, d);
-    const float ac = __fmul_rn(a, c), ab = __fmul_rn(a, b), ad = __fmul_rn(a, d);
-    const float bc = __fmul_rn(b, c), bd = __fmul_rn(b, d), cd = __fmul_rn(c, d);
-    Rot r;
-    r.xx = __fsub_rn(__fsub_rn(__fadd_rn(aa, bb), cc), dd);
-    r.xz = __fadd_rn(ac, bd);
-    r.xy = __fsub_rn(bc, ad);
-    r.yy = __fsub_rn(__fadd_rn(__fsub_rn(aa, bb), cc), dd);
-    r.yx = __fadd_rn(ad, bc);
-    r.yz = __fsub_rn(cd, ab);
-    r.zz = __fadd_rn(__fsub_rn(__fsub_rn(aa, bb), cc), dd);
-    r.zy = __fadd_rn(ab, cd);
-    r.zx = __fsub_rn(bd, ac);
-    return r;
-}
-
-struct Geometry {
-    const float4* quad;  // (2 * npy * npx) neighbourhoods
-    int npx, npy;
-    float scale;          // (npx - 1) / 2
-    float inv_sqrt_pi_half;
-};
-
-inline Geometry geometry(const void* quad, int npx, int npy, float scale, float inv_sqrt_pi_half) {
-    Geometry g;
-    g.quad = static_cast<const float4*>(quad);
-    g.npx = npx;
-    g.npy = npy;
-    g.scale = scale;
-    g.inv_sqrt_pi_half = inv_sqrt_pi_half;
-    return g;
-}
-
-__device__ __forceinline__ float sgn(float v) { return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f); }
 
 // The direction cosines from a candidate projection center, in the PC and
 // joint modes of csrc/refine_nm.cu: the JAX package's
@@ -118,8 +75,9 @@ __device__ __forceinline__ PcFrame pc_frame(const float* pc, const DetectorFrame
 
 // The unit direction u of the pixel at (col, row) of the detector from the
 // frame: 28 rounded products and sums, a square root and three divides.
-__device__ __forceinline__ void pc_direction(const PcFrame& f, const DetectorFrame& d, float col, float row,
-                                             float (&u)[3]) {
+// Returns the length of the unnormalised direction om (x, y, z).
+__device__ __forceinline__ float pc_direction(const PcFrame& f, const DetectorFrame& d, float col, float row,
+                                              float (&u)[3]) {
     const float x = __fmul_rn(__fadd_rn(__fadd_rn(f.gb0, __fmul_rn(col, f.x_scale)), f.half_x), f.pcz);
     const float y = __fmul_rn(__fsub_rn(__fsub_rn(f.gb3, __fmul_rn(row, f.y_scale)), f.half_y), f.pcz);
     const float z = f.pcz;
@@ -131,6 +89,7 @@ __device__ __forceinline__ void pc_direction(const PcFrame& f, const DetectorFra
         __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(v[0], v[0]), __fmul_rn(v[1], v[1])), __fmul_rn(v[2], v[2])));
 #pragma unroll
     for (int k = 0; k < 3; ++k) u[k] = __fdiv_rn(v[k], norm);
+    return norm;
 }
 
 // ---------------- the pixel: lambert_tap, lambert_blend ---------------- //
@@ -219,6 +178,53 @@ __device__ __forceinline__ float atan_4_over_pi(float t) {
     return __fmaf_rn(1.2732393741607666f, t, __fmul_rn(__fmul_rn(t, t2), q));
 }
 
+// What lambert_tap computes on the way to the tap, kept for the gradient.
+struct LambertCoords {
+    float ox, oy, oz;  // the rotated direction o
+    float rho2, r2;    // ox^2 + oy^2 and |o|^2
+    float rr;          // 1 / |o| (approximate)
+    float ys;          // 1 / (scale rho sqrt(r (r + |oz|))) (approximate; finite at the pole)
+    float u;           // scale sqrt(1 - |wz|): the major coordinate's distance from the centre
+    float t, at;       // minor / |major| and (4 / pi) atan(t)
+    float inv_major;   // 1 / |major| (approximate)
+    bool first;        // |oy| <= |ox|: x is the major component
+    float ci, cj;      // the texel coordinates from Lambert Y and from Lambert X
+};
+
+// Where the master pattern is seen along direction (x, y, z) after rotation
+// r, in texels.
+__device__ __forceinline__ LambertCoords lambert_coords(const RotMatrix& r, float x, float y, float z,
+                                                        const Texels& g) {
+    LambertCoords c;
+    c.ox = __fmaf_rn(r.m[0], x, __fmaf_rn(r.m[1], y, __fmul_rn(r.m[2], z)));
+    c.oy = __fmaf_rn(r.m[4], y, __fmaf_rn(r.m[3], x, __fmul_rn(r.m[5], z)));
+    c.oz = __fmaf_rn(r.m[8], z, __fmaf_rn(r.m[7], y, __fmul_rn(r.m[6], x)));
+
+    // u = scale sqrt(1 - |wz|) = sqrt(scale^2 rho^2 / (r (r + |oz|))); at the
+    // pole rho^2 = 0 and u = 0 (FLT_MIN keeps rsqrt finite there).
+    c.rho2 = __fmaf_rn(c.ox, c.ox, __fmul_rn(c.oy, c.oy));
+    c.r2 = __fmaf_rn(c.oz, c.oz, c.rho2);
+    c.rr = rsqrt_approx(c.r2);
+    const float rn = __fmul_rn(c.r2, c.rr);
+    const float rho2s = __fmul_rn(c.rho2, g.scale2);
+    c.ys = rsqrt_approx(__fmaf_rn(rho2s, __fmaf_rn(fabsf(c.oz), rn, c.r2), 1.17549435e-38f));
+    c.u = __fmul_rn(rho2s, c.ys);
+
+    // Major and minor component: vector_to_lambert's branch |wy| <= |wx|.
+    // sgn(major) atan(minor / major) = atan(minor / |major|); at the pole
+    // t is 0 (u is 0 all the same).
+    c.first = fabsf(c.oy) <= fabsf(c.ox);
+    const float major = c.first ? c.ox : c.oy, minor = c.first ? c.oy : c.ox;
+    c.inv_major = rcp_approx(__fadd_rn(fmaxf(fabsf(c.ox), fabsf(c.oy)), 1.17549435e-38f));
+    c.t = __fmul_rn(minor, c.inv_major);
+    c.at = atan_4_over_pi(c.t);
+    const float c_major = __fadd_rn(copysignf(c.u, major), g.scale);
+    const float c_minor = __fmaf_rn(c.u, c.at, g.scale);
+    c.ci = c.first ? c_minor : c_major;  // from Lambert Y
+    c.cj = c.first ? c_major : c_minor;  // from Lambert X
+    return c;
+}
+
 // A pixel's place in the quad texture: the row of its float4 and its two
 // weights.
 struct Tap {
@@ -226,42 +232,23 @@ struct Tap {
     float di, dj;
 };
 
-// Where the master pattern is seen along direction (x, y, z) after rotation r.
-__device__ __forceinline__ Tap lambert_tap(const RotMatrix& r, float x, float y, float z, const Texels& g) {
-    const float ox = __fmaf_rn(r.m[0], x, __fmaf_rn(r.m[1], y, __fmul_rn(r.m[2], z)));
-    const float oy = __fmaf_rn(r.m[4], y, __fmaf_rn(r.m[3], x, __fmul_rn(r.m[5], z)));
-    const float oz = __fmaf_rn(r.m[8], z, __fmaf_rn(r.m[7], y, __fmul_rn(r.m[6], x)));
-
-    // u = scale sqrt(1 - |wz|) = sqrt(scale^2 rho^2 / (r (r + |oz|))); at the
-    // pole rho^2 = 0 and u = 0 (FLT_MIN keeps rsqrt finite there).
-    const float rho2 = __fmaf_rn(ox, ox, __fmul_rn(oy, oy));
-    const float r2 = __fmaf_rn(oz, oz, rho2);
-    const float rn = __fmul_rn(r2, rsqrt_approx(r2));
-    const float rho2s = __fmul_rn(rho2, g.scale2);
-    const float u = __fmul_rn(rho2s, rsqrt_approx(__fmaf_rn(rho2s, __fmaf_rn(fabsf(oz), rn, r2), 1.17549435e-38f)));
-
-    // Major and minor component: vector_to_lambert's branch |wy| <= |wx|.
-    // sgn(major) atan(minor / major) = atan(minor / |major|); at the pole
-    // t is 0 (u is 0 all the same).
-    const bool first = fabsf(oy) <= fabsf(ox);
-    const float major = first ? ox : oy, minor = first ? oy : ox;
-    const float t = __fmul_rn(minor, rcp_approx(__fadd_rn(fmaxf(fabsf(ox), fabsf(oy)), 1.17549435e-38f)));
-    const float c_major = __fadd_rn(copysignf(u, major), g.scale);
-    const float c_minor = __fmaf_rn(u, atan_4_over_pi(t), g.scale);
-    const float ci = first ? c_minor : c_major;  // from Lambert Y
-    const float cj = first ? c_major : c_minor;  // from Lambert X
-
-    // lambert_interpolation_weights: truncation, and nii < 0 -> niip. The
-    // weight is the same from the index before or after that clamp: for
-    // nii < 0, ci - nii <= 0 and the weight saturates to 0 either way.
-    int nii = __float2int_rz(ci), nij = __float2int_rz(cj);
+// lambert_interpolation_weights: truncation, and nii < 0 -> niip. The weight
+// is the same from the index before or after that clamp: for nii < 0, ci -
+// nii <= 0 and the weight saturates to 0 either way.
+__device__ __forceinline__ Tap tap_at(const LambertCoords& c, const Texels& g) {
+    int nii = __float2int_rz(c.ci), nij = __float2int_rz(c.cj);
     Tap tap;
-    tap.di = __saturatef(__fsub_rn(ci, (float)nii));
-    tap.dj = __saturatef(__fsub_rn(cj, (float)nij));
+    tap.di = __saturatef(__fsub_rn(c.ci, (float)nii));
+    tap.dj = __saturatef(__fsub_rn(c.cj, (float)nij));
     if (nii < 0) nii = min(nii + 1, g.npx - 1);
     if (nij < 0) nij = min(nij + 1, g.npy - 1);
-    tap.row = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
+    tap.row = (c.oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
     return tap;
+}
+
+// Where the master pattern is seen along direction (x, y, z) after rotation r.
+__device__ __forceinline__ Tap lambert_tap(const RotMatrix& r, float x, float y, float z, const Texels& g) {
+    return tap_at(lambert_coords(r, x, y, z, g), g);
 }
 
 // The bilinear value of neighbourhood q at the tap's weights.
@@ -278,6 +265,84 @@ __device__ __forceinline__ float lambert_pixel(const RotMatrix& r, float x, floa
     const Tap t = lambert_tap(r, x, y, z, g);
     tap = t.row;
     return lambert_blend(__ldg(g.quad + t.row), t);
+}
+
+// ---------------- the pixel with its gradient: lambert_pixel_grad ---------------- //
+//
+// lambert_pixel's value, bit for bit (the same lambert_coords, tap_at and
+// lambert_blend), and G = ds/do, the gradient of the value s with respect
+// to the rotated direction o (unnormalised), worked out on the expressions
+// lambert_coords itself uses, in texel units:
+// - ds/dci and ds/dcj from the blend (the tap is piecewise constant), each
+//   times the clip's tangent (clip_tangent: JAX's jnp.clip);
+// - the major coordinate sgn(major) u + scale and the minor u A(t) + scale,
+//   A(t) = (4 / pi) atan(t), t = minor / |major|: u^2 = scale^2 (1 - |oz| /
+//   r), so du/do = K (|oz| ox, |oz| oy, -sgn(oz) rho^2) with K = scale^2 (r
+//   + |oz|) ys / (2 r^2) (ys = 1 / (scale rho sqrt(r (r + |oz|))), kept from
+//   the value), and u A'(t) dt/do = u (4 / pi) / ((1 + t^2) |major|)
+//   (e_minor - t sgn(major) e_major).
+// Both coordinates are homogeneous of degree 0 in o, so G is orthogonal to o
+// and of degree -1: no normalisation step, and a caller's scale of o (a
+// quaternion that is not unit, a direction that is not) drops out of o x G.
+// Every operation is written out, as in lambert_pixel, so that each kernel
+// and each call site (a pass that projects again) rounds G alike.
+// JAX's edge rules: at the pole (rho^2 == 0, where u = 0) the tangent is 0;
+// the clip passes the tangent inside (0, 1), half of it at exactly 0 or 1,
+// none outside. A tie is taken where the rounded minor coordinate is the
+// centre: on the Lambert square's centre lines (the minor component 0, where
+// the exact offset is 0 too), and in a band beside them, where |u (4 / pi)
+// atan(t)| is under half an ulp of scale (7.6e-6 texels at scale 200) and
+// rounds away; the float64 twin gives the whole tangent in that band unless
+// its own rounding lands on the centre, as it does for a minor component
+// that is 0 but for rounding. Elsewhere an offset of exactly 0 is the
+// float32 rounding of a coordinate just past a texel boundary, whose exact
+// offset lies inside (0, 1), and takes the interior's tangent (about one
+// pixel in 10^5: each would move its point's g by about 1e-3). Near the pole G stays bounded (u is a cone in o), so a pixel there
+// weighs no more than its neighbours.
+
+// The clip's tangent at an unclipped weight w (jnp.clip is a maximum and a
+// minimum, whose tangents split at a tie; tie: w is exact there).
+__device__ __forceinline__ float clip_tangent(float w, bool tie) {
+    return (w > 0.f && w < 1.f) ? 1.f : (w == 0.f || w == 1.f) ? (tie ? 0.5f : 1.f) : 0.f;
+}
+
+// The value of lambert_pixel at direction (x, y, z) after rotation r; o the
+// rotated direction and G = ds/do.
+__device__ __forceinline__ float lambert_pixel_grad(const RotMatrix& r, float x, float y, float z, const Texels& g,
+                                                    float (&o)[3], float (&G)[3]) {
+    const LambertCoords c = lambert_coords(r, x, y, z, g);
+    const Tap t = tap_at(c, g);
+    const float4 q = __ldg(g.quad + t.row);
+    const float value = lambert_blend(q, t);
+    o[0] = c.ox;
+    o[1] = c.oy;
+    o[2] = c.oz;
+
+    // ds/dci and ds/dcj through the clipped weights.
+    const float dyx = __fsub_rn(q.y, q.x), dwz = __fsub_rn(q.w, q.z);
+    const float lo = __fmaf_rn(t.di, dyx, q.x), hi = __fmaf_rn(t.di, dwz, q.z);
+    const bool tie_i = c.first && c.ci == g.scale, tie_j = !c.first && c.cj == g.scale;
+    const float gi = __fmul_rn(clip_tangent(__fsub_rn(c.ci, (float)__float2int_rz(c.ci)), tie_i),
+                               __fmaf_rn(t.dj, __fsub_rn(dwz, dyx), dyx));
+    const float gj = __fmul_rn(clip_tangent(__fsub_rn(c.cj, (float)__float2int_rz(c.cj)), tie_j), __fsub_rn(hi, lo));
+    const float g_minor = c.first ? gi : gj, g_major = c.first ? gj : gi;
+    const float sgn_major = copysignf(1.f, c.first ? c.ox : c.oy);
+
+    // Along u: both coordinates; along t: the minor one.
+    const float a = fabsf(c.oz);
+    const float K = __fmul_rn(__fmul_rn(__fmul_rn(__fmul_rn(0.5f, g.scale2), __fadd_rn(__fmul_rn(c.r2, c.rr), a)), c.ys),
+                              __fmul_rn(c.rr, c.rr));
+    const float Pu = __fmul_rn(__fmaf_rn(g_minor, c.at, g_major * sgn_major), K);
+    const float Ct = __fmul_rn(__fmul_rn(__fmul_rn(g_minor, c.u), __fmul_rn(1.2732395447351628f,
+                                                                              rcp_approx(__fmaf_rn(c.t, c.t, 1.f)))),
+                               c.inv_major);
+    const float Pa = __fmul_rn(Pu, a), along_major = -__fmul_rn(__fmul_rn(Ct, c.t), sgn_major);
+    const float sgn_z = c.oz > 0.f ? 1.f : (c.oz < 0.f ? -1.f : 0.f);
+    const bool pole = c.rho2 == 0.f;
+    G[0] = pole ? 0.f : __fmaf_rn(Pa, c.ox, c.first ? along_major : Ct);
+    G[1] = pole ? 0.f : __fmaf_rn(Pa, c.oy, c.first ? Ct : along_major);
+    G[2] = pole ? 0.f : -__fmul_rn(__fmul_rn(sgn_z, Pu), c.rho2);
+    return value;
 }
 
 // Block-wide sum, min or max of one value per thread; every thread gets it:

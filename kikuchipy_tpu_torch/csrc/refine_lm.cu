@@ -41,33 +41,41 @@
 //   (J^T J)_kl = (dc_k.dc_l - (u.dc_k)(u.dc_l)) / |c|^2,
 // these few scalars combined in double.
 //
-// The value s_p is the plain twin's float32 rounding, operation for operation
-// (project_pixel_grad), so it is the plain version's bit for bit on the card; the rotation
-// q (orientation, joint) and the candidate PC come from the wrapper, which
-// computes them with the plain version's own PyTorch operations. The tangent is
-// analytic: the gradient G = ds/do of the value with respect to the rotated
-// direction o through the bilinear weights (the taps are piecewise constant),
-// the clip of the fractional offsets, the Lambert map's branch (its sqrt and
-// atan) and the normalisation of o; then
-//   rotation-vector component k: ds_k = G . (dM_k v), with dM_k the
-//     derivative of the rotation matrix of q = q0 (x) exp_map(delta) along
-//     delta_k, at delta (not at 0), through exp_map's normalisation;
-//   PC component k: ds_k = (om^T Gr) . d(x, y, z)/dpc_k, with Gr the
-//     gradient with respect to the pixel's unnormalised direction r = om (x,
-//     y, z), and d(x, y, z)/dpc = diag(-ncols / nrows, 1, 1) (the pixel's x =
-//     aspect ((col + 0.5) / ncols - pcx), y = pcy - (row + 0.5) / nrows, z =
-//     pcz).
+// The pixel is kernel A's (lambert_common.cuh lambert_pixel_grad: the value
+// is lambert_pixel's bit for bit, after pc_direction in the PC modes), so
+// kernel C's sim equals kernel A's lambert_project at the same rotation and
+// direction cosines, and the Nelder-Mead kernel's pixel; the rotation q
+// (orientation, joint) and the candidate PC come from the wrapper, which
+// computes them with the plain version's own PyTorch operations. Its
+// yardstick is the plain version run in float64, as kernel A's is. The
+// tangent is analytic: G = ds/do, the gradient of the value with respect to
+// the rotated (unnormalised) direction o, worked out in texel units on the
+// expressions lambert_coords uses (no normalisation step: the coordinates
+// are homogeneous of degree 0 in o, so G . o = 0); then
+//   rotation-vector component k: ds_k = omega_k . (o x G), with omega_k the
+//     spatial angular velocity of q = q0 (x) exp_map(delta) along delta_k,
+//     at delta (not at 0), which thread 0 computes once an evaluation
+//     (point_consts);
+//   PC component j: ds_j = (N^T G)_j / |w|, N = M om with its first column
+//     times -ncols / nrows, w = om (x, y, z) the pixel's unnormalised
+//     direction (the pixel's x = aspect ((col + 0.5) / ncols - pcx), y = pcy
+//     - (row + 0.5) / nrows, z = pcz, so d(x, y, z)/dpc = diag(-ncols /
+//     nrows, 1, 1)).
 // JAX's tangents at the edges, which the plain version repeats: at a Lambert
-// pole (|wz| == 1, where the coordinates are set to 0) the tangent is 0; the
-// clip of a fractional offset passes the tangent inside (0, 1), half of it at
-// exactly 0 or 1 (jnp.clip is a maximum and a minimum, whose tangents split at
-// a tie), none outside.
+// pole the tangent is 0 (here where rho^2 = ox^2 + oy^2 == 0; the float32
+// twin decides on |wz| == 1, which puts pixels within about 3.5e-4 rad on
+// the pole); the clip of a fractional offset passes the tangent inside (0,
+// 1), half of it at exactly 0 or 1 (jnp.clip is a maximum and a minimum,
+// whose tangents split at a tie), none outside; a tie where the exact offset
+// is 0, on the centre lines (lambert_common.cuh clip_tangent), not where
+// float32 rounding puts a coordinate on a texel boundary.
 //
 // Bound on an H100 SXM at the main-path shape (16,384 points, P = 3600):
 // the float4 taps, 16 bytes a pixel, scattered L2 requests (kernel A's floor,
 // PERF.md), 59 M pixels about 0.45-0.5 ms at 1.2-1.3e11 taps/s; the issue slots
-// of the pixel's value, its gradient and the d tangents (sass_count.py); the
-// experimental rows, read once, 236 MB. chip_smoke.py prints all three.
+// of the pixel's value, its gradient, the d tangents and the three passes'
+// sums (sass_count.py); the experimental rows, read once, 236 MB.
+// chip_smoke.py prints all three.
 //
 // Kernel C's design: one block a point, shared memory for the pattern and
 // its tangents so no pixel is projected twice, a grid of one block a point.
@@ -161,7 +169,7 @@ struct Problem {
     const float2* pix;      // PC, joint: (P,) each pixel's (column, row)
     const float* exp;       // (n, P) the unit experimental rows
     DetectorFrame det;      // PC, joint
-    Geometry g;
+    Texels g;
     int n, P, per_point_dc;
     float* f;               // (n,) 0.5 ||r||^2
     float* grad;            // (n, d) J^T r
@@ -183,37 +191,22 @@ struct Problem {
     int* next;              // the queue: next point to take, 0 at launch
 };
 
-// The point's rotation matrix (rotate_vector's, row by row) and its
-// derivatives along the rotation vector, in shared memory.
+// What every pixel's tangents take from its point, in shared memory (thread
+// 0's point_consts).
 struct PointConsts {
-    float M[9];
-    float dM[3][9];
+    float omega[3][3];  // orientation, joint: omega_k, do/d delta_k = omega_k x o
+    float N[3][3];      // PC, joint: M om, its first column times -ncols / nrows
 };
 
-// The derivative of the rotation matrix of quaternion q along dq (the
-// formula of rotate_vector differentiated).
-__device__ void rotation_tangent(const float* q, const float* dq, float* dM) {
-    const float a = q[0], b = q[1], c = q[2], d = q[3];
-    const float da = dq[0], db = dq[1], dc = dq[2], dd = dq[3];
-    dM[0] = 2.f * (a * da + b * db - c * dc - d * dd);
-    dM[1] = 2.f * (b * dc + c * db - a * dd - d * da);
-    dM[2] = 2.f * (a * dc + c * da + b * dd + d * db);
-    dM[3] = 2.f * (a * dd + d * da + b * dc + c * db);
-    dM[4] = 2.f * (a * da - b * db + c * dc - d * dd);
-    dM[5] = 2.f * (c * dd + d * dc - a * db - b * da);
-    dM[6] = 2.f * (b * dd + d * db - a * dc - c * da);
-    dM[7] = 2.f * (a * db + b * da + c * dd + d * dc);
-    dM[8] = 2.f * (a * da - b * db - c * dc + d * dd);
-}
-
-// Hamilton product q1 (x) q2 (geometry/quaternion.py multiply).
+// Hamilton product q1 (x) q2 (geometry/quaternion.py multiply), each
+// product and sum rounded apart.
 __device__ void hamilton(const float* q1, const float* q2, float* out) {
     const float a1 = q1[0], b1 = q1[1], c1 = q1[2], d1 = q1[3];
     const float a2 = q2[0], b2 = q2[1], c2 = q2[2], d2 = q2[3];
-    out[0] = a1 * a2 - b1 * b2 - c1 * c2 - d1 * d2;
-    out[1] = a1 * b2 + b1 * a2 + c1 * d2 - d1 * c2;
-    out[2] = a1 * c2 - b1 * d2 + c1 * a2 + d1 * b2;
-    out[3] = a1 * d2 + b1 * c2 - c1 * b2 + d1 * a2;
+    out[0] = __fsub_rn(__fsub_rn(__fsub_rn(__fmul_rn(a1, a2), __fmul_rn(b1, b2)), __fmul_rn(c1, c2)), __fmul_rn(d1, d2));
+    out[1] = __fsub_rn(__fadd_rn(__fadd_rn(__fmul_rn(a1, b2), __fmul_rn(b1, a2)), __fmul_rn(c1, d2)), __fmul_rn(d1, c2));
+    out[2] = __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(a1, c2), __fmul_rn(b1, d2)), __fmul_rn(c1, a2)), __fmul_rn(d1, b2));
+    out[3] = __fadd_rn(__fsub_rn(__fadd_rn(__fmul_rn(a1, d2), __fmul_rn(b1, c2)), __fmul_rn(c1, b2)), __fmul_rn(d1, a2));
 }
 
 // The rotation and PC at a trial point as the wrapper computes them with
@@ -240,182 +233,85 @@ __device__ __forceinline__ void trial_pc(const float* pc0, const float* dpc, flo
     for (int k = 0; k < 3; ++k) pc[k] = __fadd_rn(pc0[k], dpc[k]);
 }
 
-// Thread 0: M of q, and dM_k = dM/d delta_k for q = q0 (x) exp_map(delta),
-// exp_map(delta) = (1, h) / sqrt(1 + |h|^2), h = delta / 2.
-__device__ void point_consts(const float* q, const float* q0, const float* delta, bool rotation, PointConsts& pc) {
-    const Rot r = make_rot(q);
-    pc.M[0] = r.xx;
-    pc.M[1] = 2.f * r.xy;
-    pc.M[2] = 2.f * r.xz;
-    pc.M[3] = 2.f * r.yx;
-    pc.M[4] = r.yy;
-    pc.M[5] = 2.f * r.yz;
-    pc.M[6] = 2.f * r.zx;
-    pc.M[7] = 2.f * r.zy;
-    pc.M[8] = r.zz;
-    if (!rotation) return;
-    const float h[3] = {0.5f * delta[0], 0.5f * delta[1], 0.5f * delta[2]};
-    const float inv = 1.f / sqrtf(1.f + h[0] * h[0] + h[1] * h[1] + h[2] * h[2]);
-    const float inv3 = inv * inv * inv;
-    for (int k = 0; k < 3; ++k) {
-        float dp[4], dq[4];
-        dp[0] = -0.5f * inv3 * h[k];
-        for (int j = 0; j < 3; ++j) dp[1 + j] = (j == k ? 0.5f * inv : 0.f) - 0.5f * inv3 * h[j] * h[k];
-        hamilton(q0, dp, dq);
-        rotation_tangent(q, dq, pc.dM[k]);
+// Thread 0, once an evaluation. Rotation tangents (orientation, joint):
+// omega_k = 2 vec(dq_k (x) q*) / |q|^2, the spatial angular velocity of q =
+// q0 (x) exp_map(delta) along delta_k, with dq_k = q0 (x) d exp_map / d
+// delta_k (exp_map(delta) = (1, h) / sqrt(1 + |h|^2), h = delta / 2). The
+// rotated direction o = M(q) v then moves as do/d delta_k = omega_k x o,
+// plus a part along o where q's length changes, which G . o = 0 drops. PC
+// tangents (PC, joint): N = M om, so that with w = om (x, y, z) the pixel's
+// unnormalised direction, ds/dw = M^T G / |w| (G is of degree -1 in o) and
+// ds/d(x, y, z) = N^T G / |w|; d(x, y, z)/dpc = diag(-ncols / nrows, 1, 1)
+// is folded into N's first column. Every operation is written out (the
+// kernels are compiled apart and must round alike).
+template <int kMode>
+__device__ void point_consts(const float* q, const float* q0, const float* delta, const DetectorFrame& det,
+                             PointConsts& pc) {
+    if constexpr (kMode != kPC) {
+        const float h[3] = {__fmul_rn(0.5f, delta[0]), __fmul_rn(0.5f, delta[1]), __fmul_rn(0.5f, delta[2])};
+        const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fmaf_rn(h[2], h[2], __fmaf_rn(h[1], h[1], __fmaf_rn(h[0], h[0], 1.f)))));
+        const float half_inv = __fmul_rn(0.5f, inv), half_inv3 = __fmul_rn(half_inv, __fmul_rn(inv, inv));
+        const float conj[4] = {q[0], -q[1], -q[2], -q[3]};
+        const float two_over_norm2 = __fdiv_rn(
+            2.f, __fmaf_rn(q[3], q[3], __fmaf_rn(q[2], q[2], __fmaf_rn(q[1], q[1], __fmul_rn(q[0], q[0])))));
+        for (int k = 0; k < 3; ++k) {
+            float dp[4], dq[4], spin[4];
+            dp[0] = -__fmul_rn(half_inv3, h[k]);
+            for (int j = 0; j < 3; ++j)
+                dp[1 + j] = __fsub_rn(j == k ? half_inv : 0.f, __fmul_rn(__fmul_rn(half_inv3, h[j]), h[k]));
+            hamilton(q0, dp, dq);
+            hamilton(dq, conj, spin);
+            for (int j = 0; j < 3; ++j) pc.omega[k][j] = __fmul_rn(two_over_norm2, spin[1 + j]);
+        }
+    }
+    if constexpr (kMode != kOrientation) {
+        const RotMatrix m = rotation_matrix(q[0], q[1], q[2], q[3]);
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j)
+                pc.N[i][j] = __fmul_rn(__fmaf_rn(m.m[3 * i], det.om[0][j], __fmaf_rn(m.m[3 * i + 1], det.om[1][j],
+                                                                                        __fmul_rn(m.m[3 * i + 2], det.om[2][j]))),
+                                       j == 0 ? det.neg_aspect : 1.f);
     }
 }
 
-// The plain twin's projection in its float32 rounding, operation for
-// operation (so the value is the plain version's bit for bit: every product,
-// sum and quotient explicitly rounded in its order, atanf and sqrtf the CUDA
-// math library's, as PyTorch's elementwise atan and sqrt), and G = ds/do, the gradient of the value with
-// respect to the rotated direction o, with JAX's tangents at a pole and at a
-// clipped weight. tap: the quad-texture row read.
-__device__ __forceinline__ float project_pixel_grad(const Rot& r, float x, float y, float z, const Geometry& g,
-                                                    float* G) {
-    // rotate_vector
-    const float ox = __fadd_rn(__fmul_rn(r.xx, x), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.xz, z), __fmul_rn(r.xy, y))));
-    const float oy = __fadd_rn(__fmul_rn(r.yy, y), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.yx, x), __fmul_rn(r.yz, z))));
-    const float oz = __fadd_rn(__fmul_rn(r.zz, z), __fmul_rn(2.f, __fadd_rn(__fmul_rn(r.zy, y), __fmul_rn(r.zx, x))));
-
-    // vector_to_lambert
-    const float norm = sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oz, oz)), __fmul_rn(oy, oy)));
-    const float wx = __fdiv_rn(ox, norm), wy = __fdiv_rn(oy, norm), wz = __fdiv_rn(oz, norm);
-    const float abs_z = fabsf(wz);
-    const float sqrt_z = sqrtf(fmaxf(__fmul_rn(2.f, __fsub_rn(1.f, abs_z)), 0.f));
-    const float sqrt_pi_over_2 = 0.886226925452758f;    // sqrt(pi) / 2
-    const float two_over_sqrt_pi = 1.1283791670955126f;  // 2 / sqrt(pi)
-    const bool first = fabsf(wy) <= fabsf(wx);
-    const float major = first ? wx : wy, minor = first ? wy : wx;
-    const float sg = sgn(major);
-    const float s = __fmul_rn(sg, sqrt_z);
-    const float t = __fdiv_rn(minor, major == 0.f ? 1.f : major);
-    const float at = atanf(t);
-    const float c_major = __fmul_rn(s, sqrt_pi_over_2);                        // X (first) or Y
-    const float c_minor = __fmul_rn(__fmul_rn(s, two_over_sqrt_pi), at);       // Y (first) or X
-    float X = first ? c_major : c_minor;
-    float Y = first ? c_minor : c_major;
-    const bool pole = abs_z == 1.f;
-    if (pole) X = Y = 0.f;
-
-    // lambert_interpolation_weights
-    const float i = __fmul_rn(__fmul_rn(g.scale, Y), g.inv_sqrt_pi_half);
-    const float j = __fmul_rn(__fmul_rn(g.scale, X), g.inv_sqrt_pi_half);
-    int nii = (int)__fadd_rn(i, g.scale);
-    int nij = (int)__fadd_rn(j, g.scale);
-    const int niip = min(nii + 1, g.npx - 1);
-    const int nijp = min(nij + 1, g.npy - 1);
-    if (nii < 0) nii = niip;
-    if (nij < 0) nij = nijp;
-    const float di_raw = __fadd_rn(__fsub_rn(i, (float)nii), g.scale);
-    const float dj_raw = __fadd_rn(__fsub_rn(j, (float)nij), g.scale);
-    const float di = fminf(fmaxf(di_raw, 0.f), 1.f);
-    const float dj = fminf(fmaxf(dj_raw, 0.f), 1.f);
-    const float dim = __fsub_rn(1.f, di), djm = __fsub_rn(1.f, dj);
-
-    const int tap = (oz < 0.f ? g.npy * g.npx : 0) + nii * g.npx + nij;
-    const float4 q4 = __ldg(g.quad + tap);
-    const float v02 = __fadd_rn(__fmul_rn(q4.x, __fmul_rn(dim, djm)), __fmul_rn(q4.z, __fmul_rn(dim, dj)));
-    const float v13 = __fadd_rn(__fmul_rn(q4.y, __fmul_rn(di, djm)), __fmul_rn(q4.w, __fmul_rn(di, dj)));
-    const float value = __fadd_rn(v02, v13);
-
-    if (pole) {
-        G[0] = G[1] = G[2] = 0.f;
-        return value;
-    }
-    // The clip's tangent: 1 inside (0, 1), 1/2 at 0 or 1, 0 outside.
-    const float fi = (di_raw > 0.f && di_raw < 1.f) ? 1.f : (di_raw == 0.f || di_raw == 1.f) ? 0.5f : 0.f;
-    const float fj = (dj_raw > 0.f && dj_raw < 1.f) ? 1.f : (dj_raw == 0.f || dj_raw == 1.f) ? 0.5f : 0.f;
-    const float ks = g.scale * g.inv_sqrt_pi_half;
-    const float dS_dY = ks * fi * ((q4.y - q4.x) * djm + (q4.w - q4.z) * dj);
-    const float dS_dX = ks * fj * ((q4.z - q4.x) * dim + (q4.w - q4.y) * di);
-    // Off the pole sqrt_z > 0: d sqrt_z / d wz = -sgn(wz) / sqrt_z.
-    const float dsz = -sgn(wz) / sqrt_z;
-    // The major coordinate sg sqrt_z sqrt(pi)/2 and the minor sg sqrt_z
-    // (2/sqrt(pi)) atan(minor / major), over (w_major, w_minor, wz).
-    const float dmaj_dz = sg * sqrt_pi_over_2 * dsz;
-    const float dmin_dz = sg * two_over_sqrt_pi * at * dsz;
-    const float datan = sg * two_over_sqrt_pi * sqrt_z / (major * (1.f + t * t));
-    const float dmin_dminor = datan;
-    const float dmin_dmajor = -datan * t;
-    const float dS_dmaj = first ? dS_dX : dS_dY;
-    const float dS_dmin = first ? dS_dY : dS_dX;
-    float gw_major = dS_dmin * dmin_dmajor;
-    float gw_minor = dS_dmin * dmin_dminor;
-    const float gwz = dS_dmaj * dmaj_dz + dS_dmin * dmin_dz;
-    const float gwx = first ? gw_major : gw_minor;
-    const float gwy = first ? gw_minor : gw_major;
-    // w = o / |o|: G = (I - w w^T) gw / |o|, with 1 - w_k^2 as the sum of
-    // the other two squares: near a pole gwz grows as 1 / sqrt_z, and gwz -
-    // (gw . w) wz would cancel.
-    const float xx = wx * wx, yy = wy * wy, zz = wz * wz;
-    G[0] = (gwx * (yy + zz) - wx * (gwy * wy + gwz * wz)) / norm;
-    G[1] = (gwy * (xx + zz) - wy * (gwx * wx + gwz * wz)) / norm;
-    G[2] = (gwz * (xx + yy) - wz * (gwx * wx + gwy * wy)) / norm;
-    return value;
-}
-
-// One pixel: its value and the d tangents ds/dx_k.
+// One pixel: its value (lambert_pixel's: kernel A's, after pc_direction in
+// the PC modes) and the d tangents ds/dx_k from G = ds/do
+// (lambert_pixel_grad): rotation-vector component k omega_k . (o x G), PC
+// component j (N^T G)_j / |w|.
 template <int kMode>
 struct Pixel {
-    Rot r;
+    RotMatrix m;
     PcFrame fr;
-    const PointConsts* pc;
+    float omega[3][3];
+    float N[3][3];
     const float* dc;  // orientation: this point's direction cosines
 
     __device__ __forceinline__ float operator()(int p, float* ds, const Problem& b) const {
-        float G[3];
-        float v[3];
-        float value, rn = 1.f;
+        float o[3], G[3], value, norm = 1.f;
         if constexpr (kMode == kOrientation) {
-            v[0] = dc[3 * p];
-            v[1] = dc[3 * p + 1];
-            v[2] = dc[3 * p + 2];
-            value = project_pixel_grad(r, v[0], v[1], v[2], b.g, G);
+            value = lambert_pixel_grad(m, dc[3 * p], dc[3 * p + 1], dc[3 * p + 2], b.g, o, G);
         } else {
-            // pc_direction's direction cosine (lambert_common.cuh), operation
-            // for operation.
             const float2 cr = __ldg(b.pix + p);
-            const float x = __fmul_rn(__fadd_rn(__fadd_rn(fr.gb0, __fmul_rn(cr.x, fr.x_scale)), fr.half_x), fr.pcz);
-            const float y = __fmul_rn(__fsub_rn(__fsub_rn(fr.gb3, __fmul_rn(cr.y, fr.y_scale)), fr.half_y), fr.pcz);
-            const float z = fr.pcz;
-            float w[3];
+            float v[3];
+            norm = pc_direction(fr, b.det, cr.x, cr.y, v);
+            value = lambert_pixel_grad(m, v[0], v[1], v[2], b.g, o, G);
+        }
+        // Every operation written out: a pass that projects again rounds alike.
+        if constexpr (kMode != kPC) {
+            const float c0 = __fmaf_rn(o[1], G[2], -__fmul_rn(o[2], G[1]));
+            const float c1 = __fmaf_rn(o[2], G[0], -__fmul_rn(o[0], G[2]));
+            const float c2 = __fmaf_rn(o[0], G[1], -__fmul_rn(o[1], G[0]));
 #pragma unroll
             for (int k = 0; k < 3; ++k)
-                w[k] = __fadd_rn(__fadd_rn(__fmul_rn(x, b.det.om[k][0]), __fmul_rn(y, b.det.om[k][1])),
-                                 __fmul_rn(z, b.det.om[k][2]));
-            rn = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(w[0], w[0]), __fmul_rn(w[1], w[1])), __fmul_rn(w[2], w[2])));
-#pragma unroll
-            for (int k = 0; k < 3; ++k) v[k] = __fdiv_rn(w[k], rn);
-            value = project_pixel_grad(r, v[0], v[1], v[2], b.g, G);
-        }
-        if constexpr (kMode != kPC) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                const float* m = pc->dM[k];
-                ds[k] = G[0] * (m[0] * v[0] + m[1] * v[1] + m[2] * v[2]) +
-                        G[1] * (m[3] * v[0] + m[4] * v[1] + m[5] * v[2]) +
-                        G[2] * (m[6] * v[0] + m[7] * v[1] + m[8] * v[2]);
-            }
+                ds[k] = __fmaf_rn(omega[k][0], c0, __fmaf_rn(omega[k][1], c1, __fmul_rn(omega[k][2], c2)));
         }
         if constexpr (kMode != kOrientation) {
-            const float* m = pc->M;
-            // d s / d v = M^T G; through v = w / |w|; then w = om (x, y, z).
-            float gv[3];
+            const float inv_norm = rcp_approx(norm);
+            constexpr int off = kMode == kJoint ? 3 : 0;
 #pragma unroll
-            for (int j = 0; j < 3; ++j) gv[j] = m[j] * G[0] + m[3 + j] * G[1] + m[6 + j] * G[2];
-            const float gdotv = gv[0] * v[0] + gv[1] * v[1] + gv[2] * v[2];
-            float gw[3];
-#pragma unroll
-            for (int j = 0; j < 3; ++j) gw[j] = (gv[j] - gdotv * v[j]) / rn;
-            float gxyz[3];
-#pragma unroll
-            for (int j = 0; j < 3; ++j) gxyz[j] = b.det.om[0][j] * gw[0] + b.det.om[1][j] * gw[1] + b.det.om[2][j] * gw[2];
-            constexpr int o = kMode == kJoint ? 3 : 0;
-            ds[o] = b.det.neg_aspect * gxyz[0];
-            ds[o + 1] = gxyz[1];
-            ds[o + 2] = gxyz[2];
+            for (int j = 0; j < 3; ++j)
+                ds[off + j] = __fmul_rn(__fmaf_rn(N[0][j], G[0], __fmaf_rn(N[1][j], G[1], __fmul_rn(N[2][j], G[2]))),
+                                        inv_norm);
         }
         return value;
     }
@@ -448,40 +344,41 @@ __device__ __forceinline__ void block_sums(float (&v)[N], float* red, float* tot
 // The three passes' sums over one pixel, from its value s and tangents ds:
 // pass 1's (the means' sums), pass 2's (the centred sums c.c, c.dc_k and
 // dc_k.dc_l) and pass 3's (r.r, u.r and dc_k.r of the residual r = c / |c|
-// - e). sass_count.py counts them with the pixel.
+// - e). sass_count.py counts them with the pixel. Every operation is written
+// out, so the two kernels and the two instantiations round alike.
 template <int D>
 __device__ __forceinline__ void pass1_sums(float s, const float* ds, float* acc1) {
-    acc1[0] += s;
+    acc1[0] = __fadd_rn(acc1[0], s);
 #pragma unroll
-    for (int k = 0; k < D; ++k) acc1[1 + k] += ds[k];
+    for (int k = 0; k < D; ++k) acc1[1 + k] = __fadd_rn(acc1[1 + k], ds[k]);
 }
 
 template <int D>
 __device__ __forceinline__ void pass2_sums(float s, const float* ds, const float* mean, float* acc) {
-    const float c = s - mean[0];
+    const float c = __fsub_rn(s, mean[0]);
     float dc[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) dc[k] = ds[k] - mean[1 + k];
-    acc[0] += c * c;
+    for (int k = 0; k < D; ++k) dc[k] = __fsub_rn(ds[k], mean[1 + k]);
+    acc[0] = __fmaf_rn(c, c, acc[0]);
 #pragma unroll
-    for (int k = 0; k < D; ++k) acc[1 + k] += c * dc[k];
+    for (int k = 0; k < D; ++k) acc[1 + k] = __fmaf_rn(c, dc[k], acc[1 + k]);
     int idx = 1 + D;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
 #pragma unroll
-        for (int l = k; l < D; ++l) acc[idx++] += dc[k] * dc[l];
+        for (int l = k; l < D; ++l, ++idx) acc[idx] = __fmaf_rn(dc[k], dc[l], acc[idx]);
     }
 }
 
 template <int D>
 __device__ __forceinline__ void pass3_sums(float s, const float* ds, const float* mean, float cnorm, float e,
                                            float* res) {
-    const float u = __fdiv_rn(s - mean[0], cnorm);
-    const float r = u - e;
-    res[0] += r * r;
-    res[1] += u * r;
+    const float u = __fdiv_rn(__fsub_rn(s, mean[0]), cnorm);
+    const float r = __fsub_rn(u, e);
+    res[0] = __fmaf_rn(r, r, res[0]);
+    res[1] = __fmaf_rn(u, r, res[1]);
 #pragma unroll
-    for (int k = 0; k < D; ++k) res[2 + k] += (ds[k] - mean[1 + k]) * r;
+    for (int k = 0; k < D; ++k) res[2 + k] = __fmaf_rn(__fsub_rn(ds[k], mean[1 + k]), r, res[2 + k]);
 }
 
 // Where the loop kernel keeps a point's row in shared memory (row_smem):
@@ -536,11 +433,18 @@ __device__ __forceinline__ void tangent_point(const Problem& pb, const PointIO& 
     constexpr int D = dims<kMode>();
     constexpr int NS = n_sums<kMode>();
     const int P = pb.P;
-    if (threadIdx.x == 0) point_consts(io.q, io.q0, io.delta, kMode != kPC, sc.consts);
+    if (threadIdx.x == 0) point_consts<kMode>(io.q, io.q0, io.delta, pb.det, sc.consts);
     __syncthreads();
     Pixel<kMode> pixel;
-    pixel.r = make_rot(io.q);
-    pixel.pc = &sc.consts;
+    pixel.m = rotation_matrix(io.q[0], io.q[1], io.q[2], io.q[3]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            if constexpr (kMode != kPC) pixel.omega[i][j] = sc.consts.omega[i][j];
+            if constexpr (kMode != kOrientation) pixel.N[i][j] = sc.consts.N[i][j];
+        }
+    }
     pixel.dc = io.dc;
     if constexpr (kMode != kOrientation) pixel.fr = pc_frame(io.pc, pb.det);
     const float* row = io.row;
@@ -567,10 +471,10 @@ __device__ __forceinline__ void tangent_point(const Problem& pb, const PointIO& 
     // evaluation, and where the row stays in device memory).
     if constexpr (kRowAsync) asm volatile("cp.async.wait_all;\n" ::: "memory");
     block_sums<1 + D>(acc1, sc.red, sc.tot);
-    const float inv_p = 1.f / (float)P;
+    const float inv_p = __fdiv_rn(1.f, (float)P);
     float mean[1 + D];
 #pragma unroll
-    for (int k = 0; k <= D; ++k) mean[k] = acc1[k] * inv_p;
+    for (int k = 0; k <= D; ++k) mean[k] = __fmul_rn(acc1[k], inv_p);
 
     // Pass 2: the centred sums.
     float acc[NS];
@@ -589,7 +493,7 @@ __device__ __forceinline__ void tangent_point(const Problem& pb, const PointIO& 
         pass2_sums<D>(s, ds, mean, acc);
     }
     block_sums<NS>(acc, sc.red, sc.tot);
-    const float cnorm = sqrtf(acc[0]);
+    const float cnorm = __fsqrt_rn(acc[0]);
 
     // Pass 3: the residual r = c / |c| - e; r.r, u.r and dc_k.r.
     float res[2 + D];
@@ -610,19 +514,19 @@ __device__ __forceinline__ void tangent_point(const Problem& pb, const PointIO& 
     block_sums<2 + D>(res, sc.red, sc.tot);
 
     if (threadIdx.x == 0) {
-        const double cc = acc[0], nc = sqrt(cc), ur = res[1];
+        const double cc = acc[0], nc = __dsqrt_rn(cc), ur = res[1];
         double udc[D];
 #pragma unroll
-        for (int k = 0; k < D; ++k) udc[k] = (double)acc[1 + k] / nc;
-        *io.f = 0.5f * res[0];
+        for (int k = 0; k < D; ++k) udc[k] = __ddiv_rn(acc[1 + k], nc);
+        *io.f = __fmul_rn(0.5f, res[0]);
 #pragma unroll
-        for (int k = 0; k < D; ++k) io.g[k] = (float)(((double)res[2 + k] - udc[k] * ur) / nc);
+        for (int k = 0; k < D; ++k) io.g[k] = (float)__ddiv_rn(__dsub_rn(res[2 + k], __dmul_rn(udc[k], ur)), nc);
         int idx = 1 + D;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
 #pragma unroll
             for (int l = k; l < D; ++l) {
-                const float v = (float)(((double)acc[idx++] - udc[k] * udc[l]) / cc);
+                const float v = (float)__ddiv_rn(__dsub_rn(acc[idx++], __dmul_rn(udc[k], udc[l])), cc);
                 io.jtj[k * D + l] = v;
                 io.jtj[l * D + k] = v;
             }
@@ -947,10 +851,22 @@ __global__ void refine_lm_solve_kernel(const float* a, const float* b, float* x,
     for (int r = 0; r < D; ++r) x[(size_t)D * i + r] = v[r];
 }
 
+// Dynamic shared memory a block of kernel C takes: the pattern and its d
+// tangents where resident.
+template <int kMode, bool kResident>
+size_t tangent_smem(int P) { return kResident ? sizeof(float) * (size_t)(1 + dims<kMode>()) * P : 0; }
+
+// ... and of the loop kernel: those, and the row beside them (row_smem).
+template <int kMode, bool kResident>
+size_t loop_smem(int P, bool row_smem) {
+    return !kResident ? 0 : row_smem ? sizeof(float) * (row_offset(dims<kMode>(), P) + (size_t)P)
+                                     : tangent_smem<kMode, kResident>(P);
+}
+
 template <int kMode, bool kResident>
 int launch(const Problem& pb, cudaStream_t stream) {
     auto kernel = refine_lm_kernel<kMode, kResident>;
-    const size_t smem = kResident ? sizeof(float) * (size_t)(1 + dims<kMode>()) * pb.P : 0;
+    const size_t smem = tangent_smem<kMode, kResident>(pb.P);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<pb.n, kThreads, smem, stream>>>(pb);
@@ -966,9 +882,7 @@ int launch_mode(const Problem& pb, int resident, cudaStream_t stream) {
 template <int kMode, bool kResident>
 int launch_loop(const Problem& pb, cudaStream_t stream) {
     auto kernel = refine_lm_loop_kernel<kMode, kResident>;
-    const size_t smem = !kResident ? 0
-        : pb.row_smem ? sizeof(float) * (row_offset(dims<kMode>(), pb.P) + (size_t)pb.P)
-        : sizeof(float) * (size_t)(1 + dims<kMode>()) * pb.P;
+    const size_t smem = loop_smem<kMode, kResident>(pb.P, pb.row_smem);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     int device = 0, sms = 0, per_sm = 0;
@@ -986,6 +900,33 @@ int launch_loop(const Problem& pb, cudaStream_t stream) {
 template <int kMode>
 int launch_loop_mode(const Problem& pb, int resident, cudaStream_t stream) {
     return resident ? launch_loop<kMode, true>(pb, stream) : launch_loop<kMode, false>(pb, stream);
+}
+
+// A kernel's registers, local (spilled) bytes a thread, static shared
+// memory, the blocks an SM holds at dynamic shared memory smem, and smem.
+template <typename Kernel>
+int attributes(Kernel kernel, size_t smem, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int per_sm = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = a.numRegs;
+    out[1] = (int)a.localSizeBytes;
+    out[2] = (int)a.sharedSizeBytes;
+    out[3] = per_sm;
+    out[4] = (int)smem;
+    return 0;
+}
+
+template <int kMode>
+int attributes_mode(int loop, int resident, int P, int* out) {
+    if (!loop)
+        return resident ? attributes(refine_lm_kernel<kMode, true>, tangent_smem<kMode, true>(P), out)
+                        : attributes(refine_lm_kernel<kMode, false>, 0, out);
+    return resident ? attributes(refine_lm_loop_kernel<kMode, true>, loop_smem<kMode, true>(P, resident == 2), out)
+                    : attributes(refine_lm_loop_kernel<kMode, false>, 0, out);
 }
 
 bool bad_sizes(int mode, int n, int P, int npx, int npy) {
@@ -1022,9 +963,8 @@ extern "C" {
 // tangents in shared memory ((1 + d) P floats), else recomputed each pass.
 int refine_lm_launch(int mode, const void* q, const void* q0, const void* rotvec, const void* pc, const void* dc,
                      int per_point_dc, const void* pix, const float* om, const void* exp, const void* quad, void* f,
-                     void* g, void* jtj, void* sim, int n, int P, int npx, int npy, float scale,
-                     float inv_sqrt_pi_half, float aspect, float neg_aspect, float inv_ncols, float inv_nrows,
-                     int resident, void* stream) {
+                     void* g, void* jtj, void* sim, int n, int P, int npx, int npy, float scale, float aspect,
+                     float neg_aspect, float inv_ncols, float inv_nrows, int resident, void* stream) {
     if (bad_sizes(mode, n, P, npx, npy) || q == nullptr || exp == nullptr || quad == nullptr)
         return (int)cudaErrorInvalidValue;
     if ((mode != kPC && (q0 == nullptr || rotvec == nullptr)) || (mode != kOrientation && (pc == nullptr ||
@@ -1038,7 +978,7 @@ int refine_lm_launch(int mode, const void* q, const void* q0, const void* rotvec
     pb.dc = static_cast<const float*>(dc);
     pb.pix = static_cast<const float2*>(pix);
     pb.exp = static_cast<const float*>(exp);
-    pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
+    pb.g = texels(quad, npx, npy, scale);
     pb.n = n;
     pb.P = P;
     pb.per_point_dc = per_point_dc;
@@ -1067,8 +1007,8 @@ int refine_lm_launch(int mode, const void* q, const void* q0, const void* rotvec
 int refine_lm_loop_launch(int mode, const void* x0, const void* q0, const void* pc0, const void* dc,
                           int per_point_dc, const void* pix, const float* om, const void* exp, const void* quad,
                           void* x, void* fun, void* n_iter, void* converged, void* n_evals, void* next, int n, int P,
-                          int npx, int npy, float scale, float inv_sqrt_pi_half, float aspect, float neg_aspect,
-                          float inv_ncols, float inv_nrows, int max_iters, float ftol, float lambda0, int n_blocks,
+                          int npx, int npy, float scale, float aspect, float neg_aspect, float inv_ncols,
+                          float inv_nrows, int max_iters, float ftol, float lambda0, int n_blocks,
                           const float* block_norms, int resident, void* stream) {
     if (bad_sizes(mode, n, P, npx, npy) || max_iters < 0 || x0 == nullptr || q0 == nullptr || exp == nullptr ||
         quad == nullptr || x == nullptr || fun == nullptr || n_iter == nullptr || converged == nullptr ||
@@ -1087,7 +1027,7 @@ int refine_lm_loop_launch(int mode, const void* x0, const void* q0, const void* 
     pb.dc = static_cast<const float*>(dc);
     pb.pix = static_cast<const float2*>(pix);
     pb.exp = static_cast<const float*>(exp);
-    pb.g = geometry(quad, npx, npy, scale, inv_sqrt_pi_half);
+    pb.g = texels(quad, npx, npy, scale);
     pb.n = n;
     pb.P = P;
     pb.per_point_dc = per_point_dc;
@@ -1127,6 +1067,18 @@ int refine_lm_trial_launch(int mode, const void* q0, const void* pc0, const void
     else if (mode == kPC) refine_lm_trial_kernel<kPC><<<grid, block, 0, s>>>(q0f, pc0f, xf, qf, pcf, n);
     else refine_lm_trial_kernel<kJoint><<<grid, block, 0, s>>>(q0f, pc0f, xf, qf, pcf, n);
     return (int)cudaGetLastError();
+}
+
+// What kernel C (loop 0, resident 0 or 1) or the loop kernel (loop 1,
+// resident 0-2 as refine_lm_loop_launch takes it) is built as, in mode at P
+// pixels: out[5] = registers a thread, local (spilled) bytes a thread,
+// static shared memory a block, blocks an SM, dynamic shared memory a block.
+int refine_lm_attributes_launch(int loop, int mode, int resident, int P, int* out) {
+    if (P <= 0 || out == nullptr || mode < kOrientation || mode > kJoint || resident < 0 || resident > (loop ? 2 : 1))
+        return (int)cudaErrorInvalidValue;
+    if (mode == kOrientation) return attributes_mode<kOrientation>(loop, resident, P, out);
+    if (mode == kPC) return attributes_mode<kPC>(loop, resident, P, out);
+    return attributes_mode<kJoint>(loop, resident, P, out);
 }
 
 // The loop kernel's d x d solve (d 3 or 6) of n systems a (n, d, d) x = b

@@ -38,9 +38,7 @@ set per rotation; ``quad`` the master pattern's
 from __future__ import annotations
 
 import ctypes
-import math
 
-import numpy as np
 import torch
 
 __all__ = [
@@ -51,10 +49,6 @@ __all__ = [
     "ncc_centered",
 ]
 
-_SQRT_PI_HALF = math.sqrt(math.pi / 2)
-# float32 reciprocal of sqrt(pi / 2): PyTorch divides a CUDA float32 tensor
-# by a Python scalar as a product with the scalar's float32 reciprocal.
-_INV_SQRT_PI_HALF = float(np.float32(1.0) / np.float32(_SQRT_PI_HALF))
 
 _ARGTYPES = {
     "lambert_project": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]

@@ -34,13 +34,15 @@ the residual along each of the ``d`` axes, over the plain projection
 CUDA tensors it launches kernel C or raises, and counts the launch in its
 own ``.launches``.
 
-On the card the kernel's projected value is the plain version's bit for
-bit (``csrc/refine_lm.cu`` ``project_pixel_grad`` rounds as it does in
-float32; the rotation and the candidate PC are
-computed here with the plain version's PyTorch operations); its tangent is
-analytic and its sums are taken in another order, so ``f``, ``g`` and
-``J^T J`` agree with the plain version to float32 rounding
-(``chip_smoke.py`` ``[lm-check]``, ``tests/test_torch_gpu.py``).
+On the card the kernel's pixel is kernel A's (``csrc/lambert_common.cuh``
+``lambert_pixel_grad``: its projected values are
+:func:`~kikuchipy_tpu_torch.ops.lambert_project.lambert_project`'s bit for
+bit; the rotation and the candidate PC are computed here with the plain
+version's PyTorch operations) and its tangent is analytic, so its yardstick
+is the plain version run on float64 operands (every ``*_plain`` takes
+float32 or float64): ``g`` and ``J^T J`` no further from it than the
+float32 plain version's twice, ``f`` within 2e-6 of the float32 plain
+version's (``chip_smoke.py`` ``[lm-check]``, ``tests/test_torch_gpu.py``).
 
 Levenberg-Marquardt in one launch (``refine_lm_loop_kernel`` of the same
 source): :func:`levenberg_marquardt_orientation`,
@@ -84,8 +86,9 @@ from typing import NamedTuple
 import torch
 
 from kikuchipy_tpu_torch.geometry.quaternion import multiply
-from kikuchipy_tpu_torch.ops.lambert_project import _INV_SQRT_PI_HALF, _project_plain, lambert_project_ncc
+from kikuchipy_tpu_torch.ops.lambert_project import _project_plain, lambert_project_ncc
 from kikuchipy_tpu_torch.ops.refine_nm import _aligned, _detector_scalars, _ptr, pc_direction_cosines, pixel_table
+from kikuchipy_tpu_torch.projection.master_pattern import direction_cosines
 from kikuchipy_tpu_torch.utils.optimize import _levenberg_marquardt_normal, _normal_equations
 
 __all__ = [
@@ -138,17 +141,18 @@ RESIDENT_SMEM_BYTES = 113 * 1024
 _MODE = {"orientation": 0, "pc": 1, "joint": 2}
 _ARGTYPES = (
     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
-    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p]
 )
 
 
 _ARGTYPES_LOOP = (
     [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
-    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_float,
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
 )
 _ARGTYPES_TRIAL = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES_SOLVE = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_ATTRIBUTES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _function(name: str = "refine_lm"):
@@ -158,7 +162,7 @@ def _function(name: str = "refine_lm"):
     fn = getattr(library("refine_lm"), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = {"refine_lm": _ARGTYPES, "refine_lm_loop": _ARGTYPES_LOOP, "refine_lm_trial": _ARGTYPES_TRIAL,
-                       "refine_lm_solve": _ARGTYPES_SOLVE}[name]
+                       "refine_lm_solve": _ARGTYPES_SOLVE, "refine_lm_attributes": _ARGTYPES_ATTRIBUTES}[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -216,7 +220,21 @@ def sim_unit(sim: torch.Tensor) -> torch.Tensor:
 
 
 def _rotation(q0, delta) -> torch.Tensor:
-    return multiply(q0, exp_map(delta)).to(_f32)
+    return multiply(q0, exp_map(delta)).to(delta.dtype)
+
+
+def _direction_cosines(pc, nrows, ncols, om, mask_take) -> torch.Tensor:
+    """The pixels' direction cosines ``(n, P, 3)`` at the PCs ``pc (n,
+    3)``: :func:`~kikuchipy_tpu_torch.ops.refine_nm.pc_direction_cosines`
+    (the kernels' float32 order of operations), or for float64 operands (the
+    float64 twin) the JAX package's ``_dc_for_pc`` in float64."""
+    if pc.dtype != torch.float64:
+        return pc_direction_cosines(pc, nrows, ncols, om, mask_take)
+    aspect = ncols / nrows
+    pcx, pcy, pcz = pc.unbind(-1)
+    gb = torch.stack([-aspect * pcx / pcz, aspect * (1 - pcx) / pcz, -(1 - pcy) / pcz, pcy / pcz], dim=-1)
+    dc = direction_cosines(gb, pcz, nrows, ncols, om.to(pc.dtype))
+    return dc if mask_take is None else dc[:, mask_take.long()]
 
 
 def orientation_residual(delta, q0, exp_unit, dc, quad, npx, npy, scale) -> torch.Tensor:
@@ -227,14 +245,14 @@ def orientation_residual(delta, q0, exp_unit, dc, quad, npx, npy, scale) -> torc
 def pc_residual(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols) -> torch.Tensor:
     """``(n, P)`` residuals at the PCs ``pc0 + dpc``, rotations ``q0``
     fixed."""
-    dc = pc_direction_cosines(pc0 + dpc, nrows, ncols, om, mask_take)
+    dc = _direction_cosines(pc0 + dpc, nrows, ncols, om, mask_take)
     return sim_unit(_project_plain(q0, dc, quad, npx, npy, scale)) - exp_unit
 
 
 def joint_residual(x, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows, ncols) -> torch.Tensor:
     """``(n, P)`` residuals at ``q0 (x) exp_map(x[:, :3])`` and the PCs
     ``pc0 + x[:, 3:]``."""
-    dc = pc_direction_cosines(pc0 + x[:, 3:], nrows, ncols, om, mask_take)
+    dc = _direction_cosines(pc0 + x[:, 3:], nrows, ncols, om, mask_take)
     return sim_unit(_project_plain(_rotation(q0, x[:, :3]), dc, quad, npx, npy, scale)) - exp_unit
 
 
@@ -262,21 +280,24 @@ def joint_delta_objective(x, q0, pc0, exp, sq_norm, quad, om, mask_take, npx, np
 
 
 def tangent_orientation_plain(delta, q0, exp_unit, dc, quad, npx, npy, scale):
-    """``(f, g, jtj)`` of :func:`orientation_residual` at ``delta``."""
-    _check("delta", delta, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc])
+    """``(f, g, jtj)`` of :func:`orientation_residual` at ``delta``; every
+    operand float32, or every one float64 (the float64 twin)."""
+    _check("delta", delta, 3, q0, exp_unit, quad, npx, npy, dc.shape[-2], [dc], _PLAIN_DTYPES)
     return _normal_equations(orientation_residual, delta, (q0, exp_unit, dc, quad, npx, npy, scale))
 
 
 def tangent_projection_center_plain(dpc, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols):
-    """``(f, g, jtj)`` of :func:`pc_residual` at ``dpc``."""
-    _check_pc(dpc, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    """``(f, g, jtj)`` of :func:`pc_residual` at ``dpc``; float32 or
+    float64 operands."""
+    _check_pc(dpc, 3, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols, _PLAIN_DTYPES)
     return _normal_equations(pc_residual, dpc, (pc0, exp_unit, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols))
 
 
 def tangent_orientation_projection_center_plain(x, q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows,
                                                 ncols):
-    """``(f, g, jtj)`` of :func:`joint_residual` at ``x``."""
-    _check_pc(x, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols)
+    """``(f, g, jtj)`` of :func:`joint_residual` at ``x``; float32 or
+    float64 operands."""
+    _check_pc(x, 6, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols, _PLAIN_DTYPES)
     return _normal_equations(joint_residual, x, (q0, pc0, exp_unit, quad, om, mask_take, npx, npy, scale, nrows,
                                                  ncols))
 
@@ -284,7 +305,13 @@ def tangent_orientation_projection_center_plain(x, q0, pc0, exp_unit, quad, om, 
 # --------------------------------- checks --------------------------------- #
 
 
-def _check(name, x, d, q, exp_unit, quad, npx, npy, P, tensors) -> None:
+# The operand types the kernels take, and what the plain versions take
+# (every operand of one of them).
+_KERNEL_DTYPES = (_f32,)
+_PLAIN_DTYPES = (_f32, torch.float64)
+
+
+def _check(name, x, d, q, exp_unit, quad, npx, npy, P, tensors, dtypes=_KERNEL_DTYPES) -> None:
     if not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[1] != d or x.shape[0] < 1:
         raise ValueError(f"{name} must be a (n, {d}) tensor, got {getattr(x, 'shape', type(x))}")
     n = x.shape[0]
@@ -302,15 +329,16 @@ def _check(name, x, d, q, exp_unit, quad, npx, npy, P, tensors) -> None:
     for t in [x, q, exp_unit, quad] + list(tensors):
         if t.device != dev:
             raise ValueError("all operands must be on one device")
-        if t.dtype != _f32:
-            raise TypeError(f"the tangent wrappers take float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != x.dtype:
+            raise TypeError(f"the tangent wrappers take float32 (their plain versions float32 or float64, one for "
+                            f"all operands), got {t.dtype} beside {x.dtype}")
     if name == "delta":
         dc = tensors[0]
         if not (dc.ndim == 2 and dc.shape[1] == 3) and not (dc.ndim == 3 and dc.shape[0] == n and dc.shape[2] == 3):
             raise ValueError(f"dc must be (P, 3) or ({n}, P, 3), got {tuple(dc.shape)}")
 
 
-def _check_pc(x, d, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols) -> int:
+def _check_pc(x, d, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, ncols, dtypes=_KERNEL_DTYPES) -> int:
     """The PC modes' checks; returns P."""
     if int(nrows) < 1 or int(ncols) < 1:
         raise ValueError(f"the detector must have rows and columns, got {nrows} x {ncols}")
@@ -328,7 +356,7 @@ def _check_pc(x, d, pc0, exp_unit, q0, quad, om, mask_take, npx, npy, nrows, nco
     n = x.shape[0] if isinstance(x, torch.Tensor) and x.ndim == 2 else None
     if not isinstance(pc0, torch.Tensor) or tuple(pc0.shape) != (n, 3):
         raise ValueError(f"pc0 must be a ({n}, 3) tensor, got {getattr(pc0, 'shape', type(pc0))}")
-    _check("x" if d == 6 else "dpc", x, d, q0, exp_unit, quad, npx, npy, P, [om, pc0])
+    _check("x" if d == 6 else "dpc", x, d, q0, exp_unit, quad, npx, npy, P, [om, pc0], dtypes)
     return P
 
 
@@ -354,7 +382,7 @@ def _launch(mode: str, q, q0, rotvec, pc, dc, pix, om, exp_unit, quad, npx, npy,
         err = fn(
             _MODE[mode], _ptr(q), _ptr(q0), _ptr(rotvec), _ptr(pc), _ptr(dc), int(dc is not None and dc.ndim == 3),
             _ptr(pix), om_host, _ptr(exp_unit), _ptr(quad), _ptr(f), _ptr(g), _ptr(jtj), _ptr(sim), n, P, npx, npy,
-            float(scale), _INV_SQRT_PI_HALF, aspect, neg_aspect, inv_ncols, inv_nrows, int(resident(P, d)),
+            float(scale), aspect, neg_aspect, inv_ncols, inv_nrows, int(resident(P, d)),
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -455,7 +483,7 @@ def _launch_loop(mode: str, x0, q0, pc0, dc, pix, om, exp_unit, quad, npx, npy, 
         err = fn(
             _MODE[mode], _ptr(x0), _ptr(q0), _ptr(pc0), _ptr(dc), int(dc is not None and dc.ndim == 3), _ptr(pix),
             om_host, _ptr(exp_unit), _ptr(quad), _ptr(x), _ptr(fun), _ptr(n_iter), _ptr(converged), _ptr(n_evals),
-            _ptr(queue), n, P, npx, npy, float(scale), _INV_SQRT_PI_HALF, aspect, neg_aspect, inv_ncols, inv_nrows,
+            _ptr(queue), n, P, npx, npy, float(scale), aspect, neg_aspect, inv_ncols, inv_nrows,
             int(max_iters), float(ftol), float(lambda0), len(norms), (ctypes.c_float * 2)(*norms, *[0.0] * (2 - len(norms))),
             loop_residency(P, d), torch.cuda.current_stream().cuda_stream,
         )
@@ -591,3 +619,17 @@ def solve(a, b):
     if err:
         raise RuntimeError(f"refine_lm_solve launch failed: cudaError_t {err}")
     return x
+
+
+def kernel_attributes(kernel: str, mode: str, plan: int, P: int) -> dict[str, int]:
+    """What the card built kernel C (``kernel="tangent"``, ``plan``
+    :func:`resident`'s 0 or 1) or the loop kernel (``"loop"``, ``plan``
+    :func:`loop_residency`'s 0-2) as in ``mode`` at ``P`` pixels: registers
+    and local (spilled) bytes a thread, static shared memory a block, the
+    blocks an SM holds, and the dynamic shared memory a block it launches
+    with. Needs the card."""
+    out = (ctypes.c_int * 5)()
+    err = _function("refine_lm_attributes")(int(kernel == "loop"), _MODE[mode], int(plan), int(P), out)
+    if err:
+        raise RuntimeError(f"refine_lm_attributes failed: cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes", "blocks_per_sm", "dynamic_smem_bytes"), out))

@@ -1,19 +1,30 @@
-"""Measure a design choice of the Levenberg-Marquardt loop kernel on one card.
+"""Measure the shared-memory plan of kernel C and the Levenberg-Marquardt loop
+kernel on one card.
 
-    python3 lm_variants.py [--reps 3] [--seed 0]
+    python3 lm_variants.py [--reps 3] [--seed 0] [--modes orientation,pc,joint]
 
 At the main-path shape of refinement (16,384 points, a 60 x 60 detector,
 ``chip_smoke.py``'s seeded 401 x 401 master pattern; patterns projected at
 known orientations and the detector's PC with noise, refined from 1.5
-degrees off, and in PC mode from the PC off by (0.01, -0.01, 0.01); at
-``refine_*``'s settings) it times the loop kernel of
-``csrc/refine_lm.cu`` in its two d = 3 modes as built (each point's
-experimental row copied to shared memory by cp.async at the point's start,
-``ops/refine_lm.py`` ``loop_residency`` 2) and with the row left in device
-memory (``loop_residency`` 1, what joint mode takes), in turns (built,
-device memory, device memory, built), each checked bit for bit against the
-kernel as built. It prints one JSON line per timing with the card's name,
-power limit, clock, power and temperature right after it.
+degrees off, and in the PC modes from the PC off by (0.01, -0.01, 0.01); at
+``refine_*``'s settings) it times, in each mode, every shared-memory plan of
+``csrc/refine_lm.cu``:
+
+- kernel C (one launch at the map's starts): the pattern and its tangents
+  in shared memory (``ops/refine_lm.py`` ``resident``) or projected again
+  in each of the three passes;
+- the loop kernel (one ``method="lm"`` launch for the map): ``loop_residency``
+  2 (the pattern, its tangents and the point's experimental row in shared
+  memory), 1 (the pattern and tangents) and 0 (nothing: every pass projects).
+
+Each plan is timed in turns (the plan as built, each other plan, each other
+plan again, the plan as built) and checked bit for bit against the plan as
+built (every plan computes the same arithmetic). With each plan: its
+registers and spilled bytes a thread, static and dynamic shared memory a
+block and blocks an SM, as the library that launches it reports them
+(``ops/refine_lm.py`` ``kernel_attributes``). It prints one JSON line per
+timing with the card's name, power limit, clock, power and temperature right
+after it.
 
 Needs a CUDA device. The port calls nothing of this script.
 """
@@ -29,10 +40,13 @@ import numpy as np
 
 from compare_kernel_times import card
 
+MODES = ("orientation", "pc", "joint")
+
 
 def problem(here: Path, seed: int, n: int = 16384):
-    """``chip_smoke.py`` as a module, and the orientation and PC modes'
-    loop wrapper, starts, arguments and keywords at the main-path shape."""
+    """``chip_smoke.py`` as a module, and for each mode: the tangent wrapper,
+    its starts and arguments, the loop wrapper, its starts, arguments and
+    keywords, at the main-path shape."""
     import importlib.util
 
     import torch
@@ -65,15 +79,20 @@ def problem(here: Path, seed: int, n: int = 16384):
     om = torch.as_tensor(np.ascontiguousarray(det.sample_to_detector.T), dtype=torch.float32, device=dev)
     pc0 = torch.as_tensor(np.tile(np.asarray(smoke.PC) + np.asarray(smoke.PC_OFFSET), (n, 1)), dtype=torch.float32,
                           device=dev)
-    x0 = torch.zeros((n, 3), device=dev)
+    shape = smoke.DETECTOR_SHAPE
     kw = dict(max_iters=30, ftol=1e-6)
-    modes = {
-        "orientation": (rl.levenberg_marquardt_orientation, (x0, start, unit, dc, quad, *geo),
-                        dict(kw, blocks=smoke.LM_BLOCKS["orientation"])),
-        "pc": (rl.levenberg_marquardt_projection_center,
-               (x0, pc0, unit, q_truth, quad, om, None, *geo, *smoke.DETECTOR_SHAPE),
-               dict(kw, blocks=smoke.LM_BLOCKS["pc"])),
+    args = {
+        "orientation": (start, unit, dc, quad, *geo),
+        "pc": (pc0, unit, q_truth, quad, om, None, *geo, *shape),
+        "joint": (start, pc0, unit, quad, om, None, *geo, *shape),
     }
+    modes = {}
+    for mode in MODES:
+        d = smoke.LM_DIMS[mode]
+        x0 = torch.zeros((n, d), device=dev)
+        modes[mode] = {"tangent": (getattr(rl, smoke.LM_WRAPPER[mode]), (x0, *args[mode])),
+                       "loop": (getattr(rl, smoke.LM_LOOP[mode]), (x0, *args[mode]),
+                                dict(kw, blocks=smoke.LM_BLOCKS[mode]))}
     return smoke, modes
 
 
@@ -81,6 +100,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--modes", default=",".join(MODES))
     args = parser.parse_args(argv)
 
     import torch
@@ -92,29 +112,46 @@ def main(argv=None) -> int:
     from kikuchipy_tpu_torch.ops import refine_lm as rl
 
     smoke, modes = problem(here, args.seed)
-    built = rl.loop_residency
-    refs = {}
-    for mode, (fn, margs, kw) in modes.items():
-        refs[mode] = fn(*margs, **kw)
-    torch.cuda.synchronize()
+    built_resident, built_loop = rl.resident, rl.loop_residency
     try:
-        for mode, (fn, margs, kw) in modes.items():
-            n, P = margs[2].shape
-            evals = int(refs[mode].n_evals.sum())
-            for label, residency in (("row in shared memory (as built)", built),
-                                     ("row in device memory", lambda P, d: 1),
-                                     ("row in device memory", lambda P, d: 1),
-                                     ("row in shared memory (as built)", built)):
-                rl.loop_residency = residency
-                res = fn(*margs, **kw)
+        for mode in args.modes.split(","):
+            run = modes[mode]
+            fn, targs = run["tangent"]
+            n, P = targs[3 if mode == "joint" else 2].shape  # after x0 and the start rotations or PCs
+            d = smoke.LM_DIMS[mode]
+            plans = {"tangent": {int(built_resident(P, d)): built_resident,
+                                 1 - int(built_resident(P, d)): (lambda P, d, r=not built_resident(P, d): r)},
+                     "loop": {r: (lambda P, d, r=r: r) for r in (2, 1, 0)}}
+            plans["loop"][built_loop(P, d)] = built_loop
+            for kind, table in plans.items():
+                built = int(built_resident(P, d)) if kind == "tangent" else built_loop(P, d)
+                others = [r for r in table if r != built]
+                fn, fargs, *kw = run[kind]
+                kw = kw[0] if kw else {}
+                ref = fn(*fargs, **kw)
                 torch.cuda.synchronize()
-                same = all(torch.equal(getattr(res, f), getattr(refs[mode], f)) for f in res._fields)
-                ms = smoke.cuda_ms(lambda: fn(*margs, **kw), args.reps)
-                print(json.dumps({"measurement": "row", "mode": mode, "label": label, "residency": residency(P, 3),
-                                  "n": n, "P": P, "evaluations": evals, "ms": ms, "bit_for_bit": same,
-                                  "card": card()}), flush=True)
+                for plan in [built, *others, *others, built]:
+                    if kind == "tangent":
+                        rl.resident = table[plan]
+                    else:
+                        rl.loop_residency = table[plan]
+                    try:
+                        res = fn(*fargs, **kw)
+                        torch.cuda.synchronize()
+                    except RuntimeError as err:  # a plan the card refuses (too much shared memory)
+                        print(json.dumps({"measurement": "plan", "kind": kind, "mode": mode, "plan": plan,
+                                          "refused": str(err), "card": card()}), flush=True)
+                        continue
+                    same = all(torch.equal(a, b) for a, b in zip(res, ref))
+                    ms = smoke.cuda_ms(lambda: fn(*fargs, **kw), args.reps)
+                    print(json.dumps({"measurement": "plan", "kind": kind, "mode": mode, "plan": plan,
+                                      "as_built": plan == built, "n": n, "P": P,
+                                      **rl.kernel_attributes(kind, mode, plan, P),
+                                      "evaluations": int(ref.n_evals.sum()) if kind == "loop" else n, "ms": ms,
+                                      "bit_for_bit": same, "card": card()}), flush=True)
+                rl.resident, rl.loop_residency = built_resident, built_loop
     finally:
-        rl.loop_residency = built
+        rl.resident, rl.loop_residency = built_resident, built_loop
     return 0
 
 

@@ -16,9 +16,13 @@ B, F and the Nelder-Mead kernel) on the first, and ``project_pixel_pc``
 running sum, the pattern and row read back, the centring and two FMAs) in
 orientation and PC mode, with the tap cache (``_cache``) and without, less
 a frame that loads its input and three sums and stores the sums, plus the
-frame's stand-in additions. Then the tangent kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value,
-its gradient with respect to the rotated direction and the d tangents) in
-its three modes, on the frame of its input. The pixel's own count is the
+frame's stand-in additions. Then ``lambert_pixel_grad``:
+``lambert_pixel_grad`` (kernel A's pixel and its gradient with respect to
+the rotated direction, the one pixel of kernel C and the
+Levenberg-Marquardt loop kernel) on the first frame, less the three
+additions that fold the gradient into the output. Then the tangent
+kernel's pixel (``csrc/refine_lm.cu`` ``Pixel``: the value, its gradient
+and the d tangents) in its three modes, on the frame of its input. The pixel's own count is the
 probe's less its frame's, plus the frame's stand-in additions, less the
 probe's own additions of the tangents. Then the three passes' sums of one
 pixel of an evaluation (``tangent_point``, kernel C's and the
@@ -70,10 +74,9 @@ up to its first unconditional ``EXIT``, NOPs left out; the slow paths of
 the IEEE divide and square root are subroutines after it, taken only for
 operands near the ends of the range, and are not counted (in the static
 kernel and the pair kernels, each division's call site too: the arguments
-and the call that a predicated branch jumps over). Both sides of
-the Lambert map's branch of kernel C's pixel are counted, so the count is
-of the code, not of what one pixel executes (a warp whose pixels take both
-sides executes both); ``lambert_pixel`` has no branch.
+and the call that a predicated branch jumps over). ``lambert_pixel`` and
+``lambert_pixel_grad`` have no branch: the Lambert map's two sides are
+selects.
 
 Prints one JSON line: the counts, the instruction names of each pixel's
 code, the card's name and power limit. Needs the CUDA toolkit (``nvcc``
@@ -103,6 +106,16 @@ __global__ void probe_project(RotMatrix r, Texels g, const float* __restrict__ d
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     int tap;
     if (i < n) out[i] = lambert_pixel(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, tap);
+}
+
+__global__ void probe_project_grad(RotMatrix r, Texels g, const float* __restrict__ dc, float* __restrict__ out,
+                                   int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    float o[3], G[3];
+    if (i < n) {
+        const float v = lambert_pixel_grad(r, dc[3 * i], dc[3 * i + 1], dc[3 * i + 2], g, o, G);
+        out[i] = __fadd_rn(__fadd_rn(__fadd_rn(v, G[0]), G[1]), G[2]);
+    }
 }
 
 __global__ void probe_pix_frame(const float2* __restrict__ pix, float* __restrict__ out, int n) {
@@ -560,6 +573,9 @@ def count(build_dir: Path | None = None) -> dict:
     pix_frame, project_pc = find("15probe_pix_frame"), find("16probe_project_pc")
     # The frames' stand-in additions (two and one FADD) are not the pixel's.
     per_pixel = len(project) - len(dc_frame) + 2
+    # ... and with its gradient, less the probe's three additions of it.
+    project_grad = find("18probe_project_grad")
+    per_pixel_grad = len(project_grad) - len(dc_frame) + 2 - 3
     per_pixel_pc = len(project_pc) - len(pix_frame) + 1
     # A Nelder-Mead evaluation's pixel, with and without the tap cache: less
     # the frames' (three and two) stand-in additions.
@@ -627,6 +643,8 @@ def count(build_dir: Path | None = None) -> dict:
         "direction_cosine": per_pixel_pc - per_pixel,
         "nm_eval_pixel": nm_pixel,
         "project_pixel_ops": mix(project, dc_frame),
+        "lambert_pixel_grad": per_pixel_grad,
+        "lambert_pixel_grad_ops": mix(project_grad, dc_frame),
         "project_pixel_pc_ops": mix(project_pc, pix_frame),
         "tangent_pixel": lm_count,
         "lm_passes": passes,

@@ -953,17 +953,25 @@ def test_nelder_mead_pc_kernel_refuses_what_it_cannot_take(cuda):
 
 # Kernel C (csrc/refine_lm.cu, the tangent kernel) against its plain version
 # (torch.func.jvp over the plain residual, then the einsums) on the same card
-# and inputs. Its projected values are the plain version's bit for bit
-# (project_pixel's rounding); its tangent is analytic and its sums are taken
-# in another order, so f = 0.5 ||r||^2 agrees to 2e-6 and J^T r and J^T J to
-# 1e-4 of their norms (LM_REL) in every mode and case. In orientation mode
-# both are also held against the plain version run in float64: the kernel no
-# further from it than twice the float32 plain version, or LM_REL. At the
-# Lambert poles ("pole": a pixel of each point within 1e-3 rad of one, two on
-# it) both float32 evaluations are about 1e-3 of their norms off the float64
-# one (the float32 value's 1 - |wz| cancels and puts pixels within about
-# 3.5e-4 rad on the pole), the same share for both.
+# and inputs. Its pixel is kernel A's (lambert_common.cuh lambert_pixel_grad:
+# the projected values are lambert_project's bit for bit, in the PC modes on
+# pc_direction_cosines' rows), not the float32 plain twin's rounding, so its
+# yardstick is the plain version run on float64 operands: in every mode and
+# case the kernel's J^T r and J^T J are no further from it than twice the
+# float32 plain version's, or LM_REL of their norms. Against the float32
+# plain version f = 0.5 ||r||^2 agrees to 2e-6, and J^T r and J^T J to
+# LM_REL of their norms in every case but those of LM_F32_REL_EXEMPT, where
+# the float32 plain version is the one off the float64 one (its J^T r 2.2e-4
+# to 4.6e-4, its J^T J to 1.3e-3; the kernel's within 1.6e-4 and 2.4e-4):
+# each prints both (PERF.md names them). At the Lambert poles ("pole": a
+# pixel of each point within 1e-3 rad of one, two on it) the float32 twin's
+# 1 - |wz| cancels and puts pixels within about 3.5e-4 rad on the pole, where
+# its tangent is 0; the kernel decides on rho^2 == 0 and its tangent there is
+# bounded.
 LM_REL = 1e-4
+LM_F32_REL_EXEMPT = frozenset([("orientation", "per_point"), ("orientation", "pole"), ("orientation", "tie"),
+                               ("pc", "shared"), ("pc", "masked"), ("pc", "over_budget"), ("joint", "shared"),
+                               ("joint", "masked"), ("joint", "p1000")])
 
 
 def _lm_inputs(device, mode: str, case: str, n: int = 64):
@@ -1071,33 +1079,25 @@ def test_tangent_kernel_matches_plain(cuda, mode, case):
     ref = plain(x, *args)
     assert [tuple(t.shape) for t in got] == [(n,), (n, d), (n, d, d)]
     assert all(torch.isfinite(t).all() for t in got)
-    # The values are the plain projection's bit for bit.
+    # The values are kernel A's bit for bit.
     if mode == "orientation":
         dc = args[2]
     else:
         pc0, om, take = args[0 if mode == "pc" else 1], args[4], args[5]
         dc = pc_direction_cosines(pc0 + (x if mode == "pc" else x[:, 3:]), args[-2], args[-1], om, take)
-    assert torch.equal(sim, lp._project_plain(q, dc, quad, 101, 101, 50.0))
+    assert torch.equal(sim, lp.lambert_project(q, dc.contiguous(), quad, 101, 101, 50.0))
     f_err, g_err, h_err = _lm_errors(got, ref)
-    print(f"{mode} {case}: against the plain version max |df| {f_err:.3e}, max |dg| / |g| {g_err:.3e}, max "
-          f"|dJtJ| / |JtJ| {h_err:.3e}")
-    assert f_err <= 2e-6 and g_err <= LM_REL and h_err <= LM_REL
+    ref64 = plain(x.double(), *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
+    fk, gk, hk = _lm_errors(got, ref64)
+    ft, gt, ht = _lm_errors(ref, ref64)
+    print(f"{mode} {case}: against the float32 plain version max |df| {f_err:.3e}, max |dg| / |g| {g_err:.3e}, max "
+          f"|dJtJ| / |JtJ| {h_err:.3e}; against float64: kernel {fk:.3e}, {gk:.3e}, {hk:.3e}, the float32 plain "
+          f"version {ft:.3e}, {gt:.3e}, {ht:.3e}")
+    assert f_err <= 2e-6
+    assert fk <= max(2e-6, 2 * ft) and gk <= max(LM_REL, 2 * gt) and hk <= max(LM_REL, 2 * ht)
+    if (mode, case) not in LM_F32_REL_EXEMPT:
+        assert g_err <= LM_REL and h_err <= LM_REL
     assert torch.allclose(got[2], got[2].transpose(1, 2))
-    if mode != "orientation":
-        return
-    from kikuchipy_tpu_torch.geometry.quaternion import multiply
-
-    q0, exp64, dc64, quad64 = (a.double() for a in args[:4])
-
-    def residual64(delta):
-        return rl.sim_unit(lp._project_plain(multiply(q0, rl.exp_map(delta)), dc64, quad64, 101, 101, 50.0)) - exp64
-
-    ref64 = rl._normal_equations(lambda z: residual64(z), x.double(), ())
-    _, gk, hk = _lm_errors(got, ref64)
-    _, gt, ht = _lm_errors(ref, ref64)
-    print(f"  against float64: kernel |dg| / |g| {gk:.3e}, |dJtJ| / |JtJ| {hk:.3e}; the float32 plain version "
-          f"{gt:.3e}, {ht:.3e}")
-    assert gk <= max(LM_REL, 2 * gt) and hk <= max(LM_REL, 2 * ht)
 
 
 def test_lm_and_gradient_refinement_on_the_card_go_through_kernel_c(cuda):
@@ -1169,8 +1169,8 @@ def test_tangent_kernel_refuses_what_it_cannot_take(cuda):
     om = (ctypes.c_float * 9)(*([0.0] * 9))
 
     def call(mode=1, q0=p, pc=p, dc=p, pix=p, n=1, P=3600):
-        return fn(mode, p, q0, p, pc, dc, 0, pix, om, p, p, p, p, p, 0, n, P, 101, 101, 50.0, 1.0, 1.0, -1.0,
-                  1.0 / 60, 1.0 / 60, 1, stream)
+        return fn(mode, p, q0, p, pc, dc, 0, pix, om, p, p, p, p, p, 0, n, P, 101, 101, 50.0, 1.0, -1.0, 1.0 / 60,
+                  1.0 / 60, 1, stream)
 
     assert call(mode=3) != 0 and call(mode=-1) != 0
     assert call(n=0) != 0 and call(P=0) != 0
@@ -1337,7 +1337,7 @@ def test_lm_loop_launcher_refuses_what_it_cannot_take(cuda):
     norms = (ctypes.c_float * 2)(0.1, 0.1)
 
     def call(mode=2, pc0=p, dc=p, pix=p, n=1, P=3600, max_iters=3, n_blocks=2, x=p):
-        return fn(mode, p, p, pc0, dc, 0, pix, om, p, p, x, p, p, p, p, p, n, P, 101, 101, 50.0, 1.0, 1.0, -1.0,
+        return fn(mode, p, p, pc0, dc, 0, pix, om, p, p, x, p, p, p, p, p, n, P, 101, 101, 50.0, 1.0, -1.0,
                   1.0 / 60, 1.0 / 60, max_iters, 1e-6, 1e-3, n_blocks, norms, 1, stream)
 
     assert call(mode=3) != 0 and call(mode=-1) != 0 and call(n=0) != 0 and call(P=0) != 0
@@ -1405,6 +1405,22 @@ def test_lm_loop_kernel_in_refine_calls_with_a_navigation_mask_and_per_point_pcs
     if mode != "orientation":
         dp = np.abs(got.detector.pc.reshape(-1, 3)[keep] - ref.detector.pc.reshape(-1, 3)[keep]).max(1)
         assert (dp <= 1e-4).mean() >= 0.99
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_loop_residency_keeps_the_row_where_the_card_keeps_the_blocks(cuda, mode):
+    # loop_residency (ops/refine_lm.py) keeps the point's experimental row
+    # beside its pattern and tangents only where that leaves as many blocks
+    # of the loop kernel an SM: its model of the SM's shared memory against
+    # the card's own count (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    # registers included) at the main path's 60 x 60 pixels.
+    from kikuchipy_tpu_torch.ops import refine_lm as rl
+
+    d = 6 if mode == "joint" else 3
+    blocks = {plan: rl.kernel_attributes("loop", mode, plan, 3600)["blocks_per_sm"] for plan in (0, 1, 2)}
+    print(mode, blocks, {plan: rl.kernel_attributes("tangent", mode, plan, 3600) for plan in (0, 1)})
+    assert min(blocks.values()) >= 1
+    assert (blocks[2] == blocks[1]) == (rl.loop_residency(3600, d) == 2)
 
 
 @pytest.mark.parametrize("d", [3, 6])

@@ -384,14 +384,15 @@ def test_kernel_sources_and_build_directory():
         assert '#include "refine_objective.cuh"' in text[name] and "float evaluate(" not in text[name], name
     for name in ("lambert_project", "refine_lm"):
         assert '#include "lambert_common.cuh"' in text[name], name
-    # One pixel for kernels A, B, F and the Nelder-Mead kernel, in the shared
-    # header; kernel C keeps its own in the plain twin's rounding.
+    # One pixel for kernels A, B, C, F, the Nelder-Mead kernel and the LM
+    # loop kernel, in the shared header; kernel C's with its gradient.
     for name in ("lambert_project", "refine_nm", "refine_lm", "refine_population"):
         assert "float lambert_pixel(" not in text[name] and "Tap lambert_tap(" not in text[name], name
     lambert = (PKG / "csrc" / "lambert_common.cuh").read_text()
     assert "float lambert_pixel(" in lambert and "Tap lambert_tap(" in lambert
+    assert "float lambert_pixel_grad(" in lambert and "lambert_pixel_grad(" in text["refine_lm"]
     assert "float project_pixel(" not in lambert and "project_pixel_a(" not in lambert
-    assert "float project_pixel_grad(" in text["refine_lm"]
+    assert "project_pixel_grad" not in text["refine_lm"] + lambert and "struct Rot " not in lambert
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in text["ncc_topk_int8"]
     assert "ncc_match_topk_pallas_v5" in text["ncc_topk_int8"]
