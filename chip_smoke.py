@@ -158,9 +158,12 @@ the card's name and power limit, and the device check):
    ``[population-check]`` holds kernel F at the shapes the global phases
    give it (one 2,048-point chunk at M = 1 and 24 in each mode, orientation
    mode also with one set of direction cosines a point; the whole map at
-   M = 1 and 16 in the PC modes and at SHGO's M = 65 in every mode) bit for
-   bit against the objectives of ``ops/refine_nm.py`` and within 2e-6 of
-   its plain version (kernel B's criterion);
+   M = 1 and 16 in the PC modes and at SHGO's M = 65 in every mode, a
+   partial last group), on a chunk at every group the plan can choose
+   (forced), at the three spreads of ``POP_SPREADS`` and with ``live``
+   masks (alternate points, none), bit for bit against the objectives of
+   ``ops/refine_nm.py`` (``+inf`` where ``live`` is false) and within 2e-6
+   of its plain version (kernel B's criterion);
    ``[refine-global]``, ``[refine-global-pc]`` and ``[refine-global-joint]``
    run each ``EBSD.refine_*`` with ``method`` "de", "da", "bh" and "shgo" on
    the whole static-corrected map (trust regions of 3 degrees and 0.02; the
@@ -175,10 +178,16 @@ the card's name and power limit, and the device check):
    lower than the joint Nelder-Mead's in the same box less 1e-3, and DE's
    than Nelder-Mead's from the same starts less 1e-3; each call's time,
    patterns/s, busy share,
-   generations or iterations and kernel F's launches and ms a launch;
+   generations or iterations and kernel F's launches and ms a launch; each
+   DE call also its live share by generation (the points it still runs,
+   kernel F's ``live``), kernel F's summed ms and the call's ms;
    ``[population-times]`` times kernel F at one DE generation of the whole
-   map against its bounds (issue slots, scattered taps) and plain version,
-   and holds it there as ``[population-check]`` does;
+   map at each spread of ``POP_SPREADS`` against its bounds (issue slots,
+   scattered taps) and plain version, beside the 32-byte sectors a
+   member-pixel reads at the plan's group and at one member a block (the
+   plain twin's taps on 64 points), and at populations recorded from the DE
+   call (generation 0, a middle one, the last, with their live masks), and
+   holds each as ``[population-check]`` does;
 5g. the workflow around the main path: ``[sampling]`` runs
    ``sample_fundamental_zone`` and ``get_sample_fundamental`` at the main
    path's 2 degrees on the card (three calls each, the counts 107,129 and
@@ -397,6 +406,10 @@ DC_OPS_PER_PIXEL = 32
 SASS_PER_PIXEL = 78
 SASS_DC_PER_PIXEL = 92
 SASS_NM_EVAL_PER_PIXEL = {"orientation_cache": 115, "orientation": 97, "pc_cache": 207, "pc": 188}
+# ... and one member-pixel of kernel F's member groups in each mode
+# (sass_count.py population_pixel: the pixel, the pattern's store, both
+# passes' sums; joint mode's code is PC mode's).
+SASS_POP_PER_PIXEL = {"orientation": 97, "pc": 188, "joint": 188}
 # ... and kernel C's pixel in each mode (csrc/refine_lm.cu Pixel: the value
 # and its gradient with respect to the rotated direction, lambert_pixel_grad,
 # then the d tangents; in the PC modes after the direction cosine), without
@@ -2781,6 +2794,14 @@ POP_TOL = 2e-6
 GLOBAL_MEAN_TOL = 1e-3
 # Candidates a point of SHGO's one kernel F launch: 64 Halton samples and x0.
 SHGO_M = 65
+# Spreads of a point's members about its start at which kernel F is held and
+# timed, (kind, degrees, PC units): a converging population (sigma 0.1
+# deg), population_problem's timed generation (sigma 0.5 deg), and a DE
+# call's first population, uniform in the trust regions (3 deg, 0.02).
+POP_SPREADS = {"sigma 0.1 deg": ("normal", 0.1, 0.001), "sigma 0.5 deg": ("normal", 0.5, 0.005),
+               "uniform 3 deg": ("uniform", 3.0, 0.02)}
+# Points whose taps the sectors a member-pixel reads are counted on.
+SECTOR_POINTS = 64
 
 
 def euler_box_offsets(start_q, q, trust_deg) -> np.ndarray:
@@ -2806,18 +2827,24 @@ def euler_box_offsets(start_q, q, trust_deg) -> np.ndarray:
     return (np.abs(off) / np.deg2rad(np.asarray(trust_deg, dtype=np.float64))).max(axis=2).min(axis=1)
 
 
-def population_problem(mode: str, x0, exp, sq, rot_q, quad, om, dc, geo, shape, M: int, seed: int):
+def population_problem(mode: str, x0, exp, sq, rot_q, quad, om, dc, geo, shape, M: int, seed: int,
+                       spread: str = "sigma 0.5 deg"):
     """(wrapper, objective, plain, x (n, M, d), arguments) of kernel F in
-    ``mode``: ``M`` candidates about ``x0`` (the first ``x0`` itself)."""
+    ``mode``: ``M`` candidates about ``x0`` (the first ``x0`` itself) at
+    ``POP_SPREADS[spread]``."""
     import torch
     from kikuchipy_tpu_torch.ops import refine_nm as rn
     from kikuchipy_tpu_torch.ops import refine_population as rp
 
     n, d = x0.shape
-    scale = {"orientation": [np.deg2rad(0.5)] * 3, "pc": [0.005] * 3, "joint": [np.deg2rad(0.5)] * 3 + [0.005] * 3}
+    kind, deg, pc = POP_SPREADS[spread]
+    scale = {"orientation": [np.deg2rad(deg)] * 3, "pc": [pc] * 3, "joint": [np.deg2rad(deg)] * 3 + [pc] * 3}
     gen = torch.Generator(device=x0.device).manual_seed(seed)
-    noise = torch.randn((n, M, d), generator=gen, device=x0.device) * torch.tensor(scale[mode], dtype=torch.float32,
-                                                                                  device=x0.device)
+    scale = torch.tensor(scale[mode], dtype=torch.float32, device=x0.device)
+    if kind == "normal":
+        noise = torch.randn((n, M, d), generator=gen, device=x0.device) * scale
+    else:
+        noise = (torch.rand((n, M, d), generator=gen, device=x0.device) * 2.0 - 1.0) * scale
     x = (x0[:, None, :] + noise).contiguous()
     x[:, 0] = x0
     if mode == "orientation":
@@ -2830,23 +2857,118 @@ def population_problem(mode: str, x0, exp, sq, rot_q, quad, om, dc, geo, shape, 
             rp.population_orientation_projection_center_plain, x, (exp, sq, quad, om, None, *geo, *shape))
 
 
-def population_check(wrapper, objective, plain, x, args, label: str) -> tuple[float, str]:
+def population_check(wrapper, objective, plain, x, args, label: str, live=None) -> tuple[float, str]:
     """Kernel F on ``x`` against the objective of ops/refine_nm.py member by
     member (kernel B over PyTorch's direction cosines on the card; bit for
-    bit) and against its plain version (within POP_TOL). Returns the largest
-    |kernel - plain| and a line for the log."""
+    bit, ``+inf`` on the points where ``live`` is false) and against its
+    plain version (within POP_TOL). Returns the largest |kernel - plain| and
+    a line for the log."""
     import torch
 
-    got = wrapper(x, *args)
+    got = wrapper(x, *args, live=live)
     want = torch.stack([objective(x[:, m].contiguous(), *args) for m in range(x.shape[1])], dim=1)
-    ref = plain(x, *args)
+    if live is not None:
+        want = torch.where(live[:, None], want, torch.inf)
+    ref = plain(x, *args, live=live)
     torch.cuda.synchronize()
-    e_plain = float((got - ref).abs().max())
-    if not (torch.equal(got, want) and e_plain <= POP_TOL and torch.isfinite(got).all()):
+    dead = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device) if live is None else ~live
+    e_plain = float((got - ref)[~dead].abs().max()) if bool((~dead).any()) else 0.0
+    if not (torch.equal(got, want) and torch.equal(got, torch.where(dead[:, None], ref, got)) and e_plain <= POP_TOL
+            and torch.isfinite(got[~dead]).all() and bool((got[dead] == torch.inf).all())):
         raise AssertionError(f"kernel F {label}: against the objective max |diff| "
-                             f"{float((got - want).abs().max()):.3e} (must be 0), against the plain version "
-                             f"{e_plain:.3e} (limit {POP_TOL:g})")
+                             f"{float((got - want)[~dead].abs().max()) if bool((~dead).any()) else 0.0:.3e} (must "
+                             f"be 0), against the plain version {e_plain:.3e} (limit {POP_TOL:g}), +inf on every "
+                             f"point not live: {bool((got[dead] == torch.inf).all())}")
     return e_plain, f"{label}: bit for bit, plain {e_plain:.2e}"
+
+
+@contextlib.contextmanager
+def forced_group(group: int | None):
+    """Kernel F's plan with its group forced to ``group`` (None: as built)."""
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    plan = rp.population_plan
+    if group is not None:
+        rp.population_plan = lambda P, M, mode="orientation", group=group: plan(P, M, mode, group)
+    try:
+        yield
+    finally:
+        rp.population_plan = plan
+
+
+def population_taps(mode: str, x, args):
+    """The quad-texture row ``(n, M, P)`` each member-pixel of ``x`` reads
+    in ``mode`` (the plain twin's taps); ``args`` the wrapper's, for these
+    ``n`` points or the first ``n`` of theirs."""
+    from kikuchipy_tpu_torch.geometry.quaternion import from_euler
+    from kikuchipy_tpu_torch.ops.lambert_project import _project_plain
+    from kikuchipy_tpu_torch.ops.refine_nm import pc_direction_cosines
+
+    n, M, d = x.shape
+    flat = x.reshape(n * M, d)
+    if mode == "orientation":
+        _, _, dc, quad, npx, npy, scale = args
+        rot = from_euler(flat).float()
+        dcs = dc if dc.ndim == 2 else dc[:n].repeat_interleave(M, 0)
+    elif mode == "pc":
+        _, _, q0, quad, om, take, npx, npy, scale, nrows, ncols = args
+        rot, dcs = q0[:n].repeat_interleave(M, 0), pc_direction_cosines(flat, nrows, ncols, om, take)
+    else:
+        _, _, quad, om, take, npx, npy, scale, nrows, ncols = args
+        rot, dcs = from_euler(flat[:, :3]).float(), pc_direction_cosines(flat[:, 3:], nrows, ncols, om, take)
+    _, taps = _project_plain(rot, dcs, quad, npx, npy, scale, taps=True)
+    return taps.reshape(n, M, -1)
+
+
+def sectors_per_member_pixel(taps, group: int) -> float:
+    """Distinct 32-byte sectors the members of a group read at one pixel,
+    per member-pixel (a 16-byte float4 at row t lies in sector t // 2): 1.0
+    at one member a block. A partial last group repeats its last member, as
+    the kernel's spare lanes do."""
+    import torch
+
+    n, M, P = taps.shape
+    pad = -M % group
+    if pad:
+        taps = torch.cat([taps, taps[:, -1:].expand(n, pad, P)], dim=1)
+    s = (taps // 2).reshape(n, -1, group, P).sort(dim=2).values
+    distinct = 1 + (s[:, :, 1:] != s[:, :, :-1]).sum(dim=2)
+    return float(distinct.sum()) / (n * M * P)
+
+
+def recording_de(record: list):
+    """A stand-in for refinement.py's ``_differential_evolution`` that
+    appends each call's evaluations (population, live mask) and result to
+    ``record``."""
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+
+    run = tr._differential_evolution
+
+    def de(evaluate, *args, **kwargs):
+        calls = []
+
+        def recorded(x, live=None):
+            calls.append((x, live))
+            return evaluate(x) if live is None else evaluate(x, live=live)
+
+        res = run(recorded, *args, **kwargs)
+        record.append((evaluate, calls, res))
+        return res
+
+    return de
+
+
+def live_shares(record: list) -> str:
+    """The live share by generation of recorded DE calls (recording_de):
+    the first call's list, and over all of them the point-generations kernel
+    F evaluated against those of a loop that evaluates every point."""
+    lists = [[float(live.float().mean()) for _, live in calls if live is not None] for _, calls, _ in record]
+    n_points = [calls[0][0].shape[0] for _, calls, _ in record]
+    run = sum(sum(share) * k for share, k in zip(lists, n_points))
+    full = sum(len(share) * k for share, k in zip(lists, n_points))
+    return (f"live share by generation (call 1 of {len(record)}, {n_points[0]} points) "
+            f"{[round(v, 3) for v in lists[0]]}; over the {len(record)} call(s) kernel F evaluated "
+            f"{run:.0f} of {full} point-generations ({run / max(full, 1):.1%}) after generation 0")
 
 
 def population_checks(dev, exp, sq, euler0, rot_q, pc0, quad, om, dc, geo) -> tuple[dict, list[str]]:
@@ -2859,6 +2981,7 @@ def population_checks(dev, exp, sq, euler0, rot_q, pc0, quad, om, dc, geo) -> tu
     |kernel - plain| of each mode."""
     import torch
     from kikuchipy_tpu_torch.ops import refine_nm as rn
+    from kikuchipy_tpu_torch.ops import refine_population as rp
 
     n = exp.shape[0]
     c = min(NAV_CHUNK, n)
@@ -2869,13 +2992,26 @@ def population_checks(dev, exp, sq, euler0, rot_q, pc0, quad, om, dc, geo) -> tu
     cases += [("orientation", c, 1, per_point), ("orientation", c, 24, per_point)]
     cases += [(mode, n, M, None) for mode in ("pc", "joint") for M in (1, POP_M[mode])]
     cases += [(mode, n, SHGO_M, None) for mode in ("orientation", "pc", "joint")]
-    for mode, k, M, dc_case in cases:
+    cases = [(*case, None, "sigma 0.5 deg", None) for case in cases]
+    # Every group the plan can choose, forced; the three spreads; live masks
+    # (alternate points, none live).
+    alternate = torch.arange(c, device=dev) % 2 == 0
+    for mode in ("orientation", "pc", "joint"):
+        cases += [(mode, c, POP_M[mode], None, g, "sigma 0.5 deg", None) for g in (1, 2, 4, 8)]
+        cases += [(mode, c, POP_M[mode], None, None, spread, None) for spread in POP_SPREADS if spread != "sigma 0.5 deg"]
+        cases += [(mode, c, POP_M[mode], None, None, "sigma 0.5 deg", live) for live in (alternate, torch.zeros_like(alternate))]
+        cases += [(mode, c, SHGO_M, None, 8, "uniform 3 deg", alternate)]
+    for mode, k, M, dc_case, group, spread, live in cases:
         x0 = {"orientation": euler0[:k], "pc": pc0[:k], "joint": torch.cat([euler0[:k], pc0[:k]], dim=1)}[mode]
         wrapper, objective, plain, x, args = population_problem(
             mode, x0, exp[:k], sq[:k], rot_q[:k], quad, om, dc if dc_case is None else dc_case, geo, DETECTOR_SHAPE,
-            M, 80 + M)
-        e_plain, msg = population_check(wrapper, objective, plain, x, args,
-                                        f"{mode} n={k} M={M}{' one dc a point' if dc_case is not None else ''}")
+            M, 80 + M, spread)
+        with forced_group(group):
+            plan = rp.population_plan(exp.shape[1], M, mode)
+            label = (f"{mode} n={k} M={M}{' one dc a point' if dc_case is not None else ''} G={plan.group}"
+                     f"{' (forced)' if group is not None else ''} {spread}"
+                     f"{'' if live is None else f' live {float(live.float().mean()):.2f}'}")
+            e_plain, msg = population_check(wrapper, objective, plain, x, args, label, live)
         err[mode] = max(err.get(mode, 0.0), e_plain)
         msgs.append(msg)
     return err, msgs
@@ -2891,6 +3027,8 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
 
     from kikuchipy_tpu_torch.crystallography.sampling import disorientation_angle
     from kikuchipy_tpu_torch.geometry import quaternion as tq
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+    from kikuchipy_tpu_torch.ops import refine_population as rp
 
     n = exp.shape[0]
     d = exp.shape[1]
@@ -2944,7 +3082,7 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
                 "joint": dict(xmap=xmap, detector=bad_det)}
     call_name = {"orientation": "refine_orientation", "pc": "refine_projection_center",
                  "joint": "refine_orientation_projection_center"}
-    pop_launches, nm_launches, pop_kernel_ms = {}, {}, {}
+    pop_launches, nm_launches, pop_kernel_ms, de_calls = {}, {}, {}, {}
     # Every call runs and reports before a failed gate ends the run.
     failures = []
     for mode, tag in (("orientation", "refine-global"), ("pc", "refine-global-pc"), ("joint", "refine-global-joint")):
@@ -2953,11 +3091,20 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
         msgs = []
         for method in GLOBAL_METHODS:
             reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = call(method=method, **kw)
-            torch.cuda.synchronize()
-            t_first = time.perf_counter() - t0
+            # DE's calls recorded: their populations, live masks and results.
+            record, de_run = [], tr._differential_evolution
+            if method == "de":
+                tr._differential_evolution = recording_de(record)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = call(method=method, **kw)
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+            finally:
+                tr._differential_evolution = de_run
+            if method == "de":
+                de_calls[mode] = record
             counts = read_launches()
             pops, nms = counts[POP_WRAPPER[mode]], counts[NM_WRAPPER[mode]]
             others = {k: v for k, v in counts.items() if v and k not in (POP_WRAPPER[mode], NM_WRAPPER[mode])}
@@ -3019,14 +3166,16 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
                 torch.cuda.synchronize()
             traced = (time.perf_counter() - t0) * 1e3
             busy, events = device_busy(prof)
-            f_n = sum(cnt for k, cnt, _ in events if "refine_population_kernel" in k)
-            f_ms = sum(t for k, _, t in events if "refine_population_kernel" in k)
+            f_n = sum(cnt for k, cnt, _ in events if "refine_population_" in k)
+            f_ms = sum(t for k, _, t in events if "refine_population_" in k)
             nm_ms = sum(t for k, _, t in events if "refine_nm_kernel" in k)
             if f_n:
                 pop_kernel_ms[(mode, method)] = f_ms / f_n
             # refine_orientation's nav_chunk batches (its default, NAV_CHUNK)
             chunks = -(-n // NAV_CHUNK) if mode == "orientation" and method != "shgo" else 1
-            steps = {"de": f"generations {pops / chunks - 1:.1f} a batch", "da": f"iterations {pops / chunks - 1:.0f} a "
+            de_msg = live_shares(record) if method == "de" else ""
+            steps = {"de": f"generations {pops / chunks - 1:.1f} a batch; {de_msg}",
+                     "da": f"iterations {pops / chunks - 1:.0f} a "
                      "batch", "bh": f"{nms / chunks:.0f} Nelder-Mead launches a batch",
                      "shgo": "65 candidates a point (64 Halton samples and the start)"}[method]
             msgs.append(
@@ -3042,23 +3191,34 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
         raise AssertionError("the global phases' gates: " + " | ".join(failures))
 
     # Kernel F at the global solvers' shape: one DE generation of the whole
-    # map (M = POP_M), against its bounds and its plain version, and held to
-    # both as in [population-check].
+    # map (M = POP_M) at each spread, against its bounds and its plain
+    # version, and held to both as in [population-check]; beside it the
+    # sectors a member-pixel reads; then populations the DE call made.
     rows, time_msgs = [], []
     for mode in ("orientation", "pc", "joint"):
         M = POP_M[mode]
-        wrapper, objective, plain, x, args = population_problem(mode, start_x[mode], exp, sq, rot_q, quad, om, dc,
-                                                                geo, DETECTOR_SHAPE, M, 90)
-        e_plain, check_msg = population_check(wrapper, objective, plain, x, args, f"{mode} n={n} M={M}")
-        pop_err[mode] = max(pop_err[mode], e_plain)
-        ms = cuda_ms(lambda: wrapper(x, *args), 3)
+        plan = rp.population_plan(d, M, mode)
+        spread_ms, sectors, check_msgs = {}, {}, []
+        for spread in POP_SPREADS:
+            wrapper, objective, plain, x, args = population_problem(mode, start_x[mode], exp, sq, rot_q, quad, om, dc,
+                                                                    geo, DETECTOR_SHAPE, M, 90, spread)
+            e_plain, check_msg = population_check(wrapper, objective, plain, x, args, f"{mode} n={n} M={M} {spread}")
+            pop_err[mode] = max(pop_err[mode], e_plain)
+            check_msgs.append(check_msg)
+            spread_ms[spread] = cuda_ms(lambda: wrapper(x, *args), 3)
+            taps = population_taps(mode, x[:SECTOR_POINTS], args)
+            sectors[spread] = {g: sectors_per_member_pixel(taps, g) for g in rp.GROUPS}
+            if spread == "sigma 0.5 deg":
+                timed = wrapper, plain, x, args
+        wrapper, plain, x, args = timed
+        ms = spread_ms["sigma 0.5 deg"]
         ms_plain = cuda_ms(lambda: plain(x, *args), 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 wrapper(x, *args)
             torch.cuda.synchronize()
         _, events = device_busy(prof)
-        kernel_only = [t / cnt for k, cnt, t in events if "refine_population_kernel" in k and cnt]
+        kernel_only = [t / cnt for k, cnt, t in events if "refine_population_" in k and cnt]
         pixels = n * M * d
         dims = x.shape[2]
         per_pixel_ops = OPS_PER_PIXEL + NCC_OPS_PER_PIXEL + (DC_OPS_PER_PIXEL if mode != "orientation" else 0)
@@ -3068,12 +3228,30 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
         in_bytes = 4 * (x.numel() + exp.numel() + n + (4 * n if mode == "pc" else 0)
                         + (dc.numel() if mode == "orientation" else 2 * d) + quad.numel())
         t_bytes = (in_bytes + 4 * n * M) / PEAK_BYTES * 1e3
-        per_pixel = sass["project_pixel"] + (sass["direction_cosine"] if mode != "orientation" else 0)
+        per_pixel = sass["population_pixel"][mode]
         t_instr = instruction_ms(pixels, per_pixel, clock_mhz, sms)
         taps = [pixels / rate * 1e3 for rate in SCATTERED_TAPS_PER_S[::-1]]
         l2_ms = pixels * TAP_BYTES / l2_rate * 1e3
+        # The same floor at the plan's group: the sectors its lanes read.
+        shared = sectors["sigma 0.5 deg"][plan.group]
         by_path = {f"refine-global{'' if mode == 'orientation' else '-' + mode} {m}": pop_launches[(mode, m)]
                    for m in GLOBAL_METHODS}
+        # Populations of the DE call's first batch: generation 0, a middle
+        # one and the last, each with its live mask; with the mask equal to
+        # the run without it on the live points, +inf on the others.
+        evaluate, calls, _ = de_calls[mode][0]
+        recorded = {}
+        for label, i in (("generation 0", 0), ("middle", len(calls) // 2), ("last", len(calls) - 1)):
+            xg, live = calls[i]
+            got, full = evaluate(xg, live=live), evaluate(xg)
+            if live is not None and not (torch.equal(got[live], full[live]) and bool((got[~live] == torch.inf).all())):
+                raise AssertionError(f"kernel F {mode} DE {label}: the live mask changed a live point's values")
+            g_taps = population_taps(mode, xg[:SECTOR_POINTS], args)
+            recorded[label] = {
+                "generation": i, "points": int(xg.shape[0]),
+                "live_share": 1.0 if live is None else float(live.float().mean()),
+                "ms": cuda_ms(lambda: evaluate(xg, live=live), 3), "ms_without_mask": cuda_ms(lambda: evaluate(xg), 3),
+                "sectors_per_member_pixel": {g: sectors_per_member_pixel(g_taps, g) for g in (1, plan.group)}}
         rows.append({
             "name": POP_WRAPPER[mode], "route": "cuda", "source": "kikuchipy_tpu_torch/csrc/refine_population.cu",
             "replaces": "kikuchipy_tpu/utils/optimize.py:883 eval_pop (and :505, :536, :753-756) over "
@@ -3086,19 +3264,35 @@ def global_refinement_phases(dev, static, xmap, refined_xmap, bad_det, mp, truth
             "instruction_bound_ms": t_instr, "split_ms": None,
             "kernel_only_ms": kernel_only[0] if kernel_only else None, "de_launch_ms": pop_kernel_ms.get((mode, "de")),
             "de_launch_points": NAV_CHUNK if mode == "orientation" else n,
-            "scattered_taps_ms": taps[0], "shape": f"n={n} M={M} d={dims} P={d}", "launches_by_path": by_path,
+            "scattered_taps_ms": taps[0], "scattered_sectors_ms": taps[0] * shared,
+            "plan": plan._asdict(), "ms_by_spread": spread_ms, "sectors_per_member_pixel": sectors,
+            "de_populations": recorded,
+            "shape": f"n={n} M={M} d={dims} P={d}", "launches_by_path": by_path,
             "note": "launches: the DE call's of its mode; ms, kernel_only_ms (torch.profiler) and the bounds at "
-                    "`shape`; de_launch_ms: the DE call's mean launch, at de_launch_points points a launch; "
-                    "max_abs_err: against the plain version over [population-check]'s cases and `shape` (bit for "
-                    "bit with the Nelder-Mead objectives)",
+                    "`shape` (sigma 0.5 deg); ms_by_spread: POP_SPREADS; scattered_sectors_ms: the scattered-taps "
+                    "floor at the sectors the plan's group reads a member-pixel (sigma 0.5 deg, the plain twin's "
+                    "taps on SECTOR_POINTS points); de_launch_ms: the DE call's mean launch, at de_launch_points "
+                    "points a launch; de_populations: the DE call's first batch; max_abs_err: against the plain "
+                    "version over [population-check]'s cases and the spreads (bit for bit with the Nelder-Mead "
+                    "objectives)",
         })
         time_msgs.append(
-            f"{POP_WRAPPER[mode]} at n={n} M={M} (one DE generation; {check_msg}): {ms:.3f} ms, the kernel alone "
-            f"{rows[-1]['kernel_only_ms']} ms ({pixels / ms / 1e6:.3f} G projected "
-            f"pixels/s); bound {max(t_ops, t_bytes):.3f} ms by {rows[-1]['bound_by']}; issue slots {t_instr:.3f} ms at "
-            f"{per_pixel} SASS a pixel ({t_instr / ms:.1%}); scattered taps at {SCATTERED_TAPS_PER_S[0]:.3g}-"
-            f"{SCATTERED_TAPS_PER_S[1]:.3g}/s {taps[1]:.3f}-{taps[0]:.3f} ms ({taps[1] / ms:.1%}-{taps[0] / ms:.1%}); "
-            f"taps' bytes from L2 {l2_ms:.3f} ms; plain version {ms_plain:.1f} ms; no single PyTorch call computes it")
+            f"{POP_WRAPPER[mode]} at n={n} M={M} (one DE generation; plan {tuple(plan)}; "
+            f"{'; '.join(check_msgs)}): sigma 0.5 deg {ms:.3f} ms, the kernel alone "
+            f"{rows[-1]['kernel_only_ms']} ms ({pixels / ms / 1e6:.3f} G projected pixels/s); by spread "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spread_ms.items())
+            + "; sectors a member-pixel by group " + ", ".join(
+                f"{k} {{{', '.join(f'G={g}: {v:.3f}' for g, v in sec.items())}}}" for k, sec in sectors.items())
+            + f"; bound {max(t_ops, t_bytes):.3f} ms by {rows[-1]['bound_by']}; issue slots {t_instr:.3f} ms at "
+            f"{per_pixel} SASS a member-pixel ({t_instr / ms:.1%}); scattered taps at {SCATTERED_TAPS_PER_S[0]:.3g}-"
+            f"{SCATTERED_TAPS_PER_S[1]:.3g}/s {taps[1]:.3f}-{taps[0]:.3f} ms ({taps[1] / ms:.1%}-{taps[0] / ms:.1%}), "
+            f"at the group's {shared:.3f} sectors a member-pixel {taps[1] * shared:.3f}-{taps[0] * shared:.3f} ms "
+            f"({taps[1] * shared / ms:.1%}-{taps[0] * shared / ms:.1%}); taps' bytes from L2 {l2_ms:.3f} ms; plain "
+            f"version {ms_plain:.1f} ms; no single PyTorch call computes it; the DE call's populations "
+            + ", ".join(f"{k} (generation {r['generation']}, {r['points']} points, live {r['live_share']:.3f}): "
+                        f"{r['ms']:.3f} ms with the mask, {r['ms_without_mask']:.3f} without, sectors "
+                        f"{', '.join(f'G={g}: {v:.3f}' for g, v in r['sectors_per_member_pixel'].items())}"
+                        for k, r in recorded.items()))
     log("population-times", f"{smi}: " + "; ".join(time_msgs))
     return rows, nm_launches
 
@@ -5045,7 +5239,8 @@ def main(argv=None) -> int:
     # Instruction slots: SASS instructions a pixel, recounted where the toolkit
     # disassembles (sass_count.py), and the card's largest SM clock.
     sass = {"project_pixel": SASS_PER_PIXEL, "direction_cosine": SASS_DC_PER_PIXEL,
-            "nm_eval_pixel": dict(SASS_NM_EVAL_PER_PIXEL), "tangent_pixel": dict(SASS_LM_PER_PIXEL),
+            "nm_eval_pixel": dict(SASS_NM_EVAL_PER_PIXEL), "population_pixel": dict(SASS_POP_PER_PIXEL),
+            "tangent_pixel": dict(SASS_LM_PER_PIXEL),
             "lm_eval_pixel": dict(SASS_LM_EVAL_PER_PIXEL), "clahe_pixel": SASS_CLAHE_PER_PIXEL,
             "static_pixel": SASS_D_STATIC_PER_PIXEL, "dynamic_steps": dict(SASS_D_DYNAMIC_STEPS),
             "hough_pole": SASS_HOUGH_PER_POLE, "neighbours_pixel": SASS_NEIGHBOURS_PER_PIXEL, "source": "constants"}
@@ -5053,13 +5248,15 @@ def main(argv=None) -> int:
         import sass_count
 
         counted = sass_count.count()
-        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "nm_eval_pixel", "tangent_pixel",
+        sass = {key: counted[key] for key in ("project_pixel", "direction_cosine", "nm_eval_pixel", "population_pixel",
+                                              "tangent_pixel",
                                               "lm_eval_pixel", "clahe_pixel", "static_pixel", "dynamic_steps",
                                               "hough_pole", "neighbours_pixel")}
         sass["source"] = "recounted in this run"
     except (ImportError, OSError, RuntimeError, subprocess.CalledProcessError) as err:
         print(f"[sass] recount failed ({type(err).__name__}: {err}); the constants stand", flush=True)
-    if min(sass["project_pixel"], sass["direction_cosine"], *sass["nm_eval_pixel"].values(), sass["clahe_pixel"],
+    if min(sass["project_pixel"], sass["direction_cosine"], *sass["nm_eval_pixel"].values(),
+           *sass["population_pixel"].values(), sass["clahe_pixel"],
            sass["static_pixel"], sass["hough_pole"], sass["neighbours_pixel"], *sass["tangent_pixel"].values(),
            *sass["lm_eval_pixel"].values(),
            *sass["dynamic_steps"].values()) <= 0:
@@ -5068,7 +5265,8 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     log("sass", f"instructions a pixel: lambert_pixel (kernels A, B, F, the Nelder-Mead kernel) "
         f"{sass['project_pixel']}, the direction cosine from a PC {sass['direction_cosine']}, a pixel of a "
-        f"Nelder-Mead evaluation on the cache route (orientation, PC) {sass['nm_eval_pixel']}, kernel C's pixel (value, "
+        f"Nelder-Mead evaluation on the cache route (orientation, PC) {sass['nm_eval_pixel']}, a member-pixel of "
+        f"kernel F's groups {sass['population_pixel']}, kernel C's pixel (value, "
         f"gradient, tangents) {sass['tangent_pixel']}, a pixel of one evaluation with its passes' sums (kernel C and "
         f"the LM loop kernel) {sass['lm_eval_pixel']}, a pixel of kernel E's pair kernel (its histogram step, blend, "
         f"output and share of the mappings) {sass['clahe_pixel']:g}, a pixel of kernel D's static warp kernel (two "
@@ -5076,7 +5274,8 @@ def main(argv=None) -> int:
         f"(a row-product step, a column-product step, a warp's rest a pattern) {sass['dynamic_steps']}, a pole and "
         f"band of kernel H's scoring {sass['hough_pole']:g}, a pixel of kernel G's main-path "
         f"instantiation {sass['neighbours_pixel']:g} ({sass['source']}; constants {SASS_PER_PIXEL}, "
-        f"{SASS_DC_PER_PIXEL}, {SASS_NM_EVAL_PER_PIXEL}, {SASS_LM_PER_PIXEL}, {SASS_LM_EVAL_PER_PIXEL}, "
+        f"{SASS_DC_PER_PIXEL}, {SASS_NM_EVAL_PER_PIXEL}, {SASS_POP_PER_PIXEL}, {SASS_LM_PER_PIXEL}, "
+        f"{SASS_LM_EVAL_PER_PIXEL}, "
         f"{SASS_CLAHE_PER_PIXEL:g}, {SASS_D_STATIC_PER_PIXEL:g}, {SASS_D_DYNAMIC_STEPS}, {SASS_HOUGH_PER_POLE:g}, "
         f"{SASS_NEIGHBOURS_PER_PIXEL:g}); "
         f"dispatch "

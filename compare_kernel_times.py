@@ -5,7 +5,8 @@ kernel G, ``--hough`` kernel H, to compare two commits on one card.
 
     python3 compare_kernel_times.py --tree DIR [--reps 10]
         [--preprocess | --neighbours | --hough [--inputs PATH | --poles N]
-         | --refine [--save PATH] [--against PATH] | --lm [--save PATH] [--against PATH]]
+         | --refine [--save PATH] [--against PATH] | --lm [--save PATH] [--against PATH]
+         | --population [--save PATH] [--against PATH]]
 
 ``DIR`` is the root of a checkout (this one: ``.``). The script imports
 ``kikuchipy_tpu_torch`` and ``chip_smoke.py`` from ``DIR``, builds the
@@ -92,6 +93,27 @@ another tree's: kernel C's largest differences, each loop's share of
 points with 0.5 ||r||^2 within 1e-5, rotations within 0.05 degrees and PCs
 within 1e-4, equal iterations, its mean 0.5 ||r||^2 against theirs, and
 the other tree's kernel C against this tree's float64 plain version.
+
+With ``--population`` the package comes from ``DIR`` and the inputs from
+``refine_variants.py``'s ``problem`` and this script's ``chip_smoke.py``.
+One JSON line: kernel F at one DE generation of the map (16,384 points, M =
+24 / 16 / 16) in each mode at each spread of ``chip_smoke.POP_SPREADS``
+(sigma 0.1 and 0.5 degrees, uniform in the trust region), and at M = 1 (a
+DA step), each with CUDA events after a warm-up and the card's clock; then
+the three DE calls as ``chip_smoke.py`` ``[refine-global*]`` makes them
+(``EBSD.refine_*(method="de")`` on the static-corrected main-path scan,
+trust regions of 3 degrees and 0.02, from the truth 1.5 degrees off and, in
+the PC modes, the PC off by (0.01, -0.01, 0.01)), each call's DE results
+recorded (``chip_smoke.recording_de``): its generations, the live share by
+generation (from each point's ``n_iter``: a point runs until it converges),
+kernel F's launches and summed ms under ``torch.profiler``, and the call's
+ms. Where the tree's plan takes a forced group (``population_plan(...,
+group=G)``), every kernel F evaluation of a mode's DE calls (each
+generation's population with its live mask) is replayed at each group:
+kernel F's summed device ms, so the groups are weighed on the DE call's
+own generations at their live shares. ``--save`` / ``--against`` hold
+every kernel F output and every DE call's ``x``, ``fun``, ``n_iter`` and
+``converged`` bit for bit against another tree's.
 
 Run it once per checkout, alternating (parent, change, change, parent), on
 one card. Needs a CUDA device.
@@ -578,6 +600,158 @@ def lm(tree: Path, reps: int, save: Path | None, against: Path | None) -> None:
                       "agreement": agreement}), flush=True)
 
 
+def _de_scan(smoke, kt, seed: int = 0):
+    """The main path's static-corrected scan on the card, its master pattern
+    and detector, the truth, and starts 1.5 degrees off it."""
+    import numpy as np
+    import torch
+
+    from kikuchipy_tpu_torch.crystallography.crystal_map import Phase
+    from kikuchipy_tpu_torch.crystallography.sampling import reduce_to_fundamental_zone, super_fibonacci
+    from kikuchipy_tpu_torch.geometry import quaternion as tq
+
+    dev = torch.device("cuda")
+    mp = kt.EBSDMasterPattern(smoke.master_pattern_data(), phase=Phase(name="ni", point_group="m-3m"), device=dev)
+    det = kt.EBSDDetector(shape=smoke.DETECTOR_SHAPE, pc=smoke.PC, sample_tilt=70)
+    n = smoke.SCAN_SIDE**2
+    truth = reduce_to_fundamental_zone(super_fibonacci(n * 7)[::7][:n], "m-3m")
+    scan_u8, static_bg = smoke.scan_data(mp, det, truth, 0, chunk_size=8192)
+    scan = kt.EBSD(scan_u8, detector=det, static_background=static_bg, device=dev)
+    static = kt.EBSD(scan.remove_static_background().data, detector=det, device=dev)
+    axes = torch.randn((n, 3), generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    start = tq.multiply(tq.from_axis_angle(axes, np.deg2rad(1.5)), torch.as_tensor(np.asarray(truth))).numpy()
+    return static, mp, det, np.asarray(truth), start
+
+
+def _replay_by_group(smoke, rp, record, profile, activity) -> dict:
+    """Every kernel F evaluation of a mode's recorded DE calls (each
+    generation's population with its live mask), replayed at each group
+    forced: kernel F's summed device ms under ``torch.profiler``, the
+    replay's ms from CUDA events, and whether every value equals the plan's
+    own."""
+    import torch
+
+    def replay() -> list:
+        return [ev(x) if live is None else ev(x, live=live) for ev, calls, _ in record for x, live in calls]
+
+    own = replay()
+    torch.cuda.synchronize()
+    by_group = {}
+    for group in rp.GROUPS:
+        with smoke.forced_group(group):
+            got = replay()
+            torch.cuda.synchronize()
+            with profile(activities=[activity.CPU, activity.CUDA]) as prof:
+                replay()
+                torch.cuda.synchronize()
+            _, events = smoke.device_busy(prof)
+            by_group[group] = {
+                "kernel_f_ms": sum(t for k, _, t in events if "refine_population_" in k),
+                "kernel_f_launches": sum(cnt for k, cnt, _ in events if "refine_population_" in k),
+                "replay_ms": smoke.cuda_ms(replay, 1),
+                "bit_for_bit": all(torch.equal(a, b) for a, b in zip(got, own)), "card": card()}
+    return by_group
+
+
+def population(tree: Path, reps: int, save: Path | None, against: Path | None) -> None:
+    """The ``--population`` line of ``tree``'s kernel F (the module
+    docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tree, smoke, kt = _tree_and_smoke(tree, "population_chip_smoke")
+    smoke, modes = _refine_problem(Path(__file__).resolve().parent)
+    from kikuchipy_tpu_torch.crystallography.crystal_map import CrystalMap
+    from kikuchipy_tpu_torch.indexing import refinement as tr
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    euler0, exp, sq, dc, quad, npx, npy, scale = modes["orientation"][1]
+    pc0, _, _, q_truth, _, om = modes["pc"][1][:6]
+    geo = (npx, npy, scale)
+    plan = getattr(rp, "population_plan", None)
+    times, outputs = {}, {}
+    for mode, x0 in (("orientation", euler0), ("pc", pc0), ("joint", torch.cat([euler0, pc0], dim=1))):
+        for spread in smoke.POP_SPREADS:
+            for M in (smoke.POP_M[mode], 1) if spread == "sigma 0.5 deg" else (smoke.POP_M[mode],):
+                wrapper, _, _, x, args = smoke.population_problem(mode, x0, exp, sq, q_truth, quad, om, dc, geo,
+                                                                  smoke.DETECTOR_SHAPE, M, 80 + M, spread)
+                name = f"{mode} {spread} M={M}"
+                outputs[name] = wrapper(x, *args).cpu()
+                times[name] = {"ms": smoke.cuda_ms(lambda: wrapper(x, *args), reps), "card": card(),
+                               "plan": list(plan(exp.shape[1], M, mode)) if plan else None}
+    del modes, exp, sq, dc
+    torch.cuda.empty_cache()
+
+    static, mp, det, truth, start = _de_scan(smoke, kt)
+    n = truth.shape[0]
+    bad = dataclasses.replace(det, pc=np.asarray(smoke.PC) + np.asarray(smoke.PC_OFFSET))
+    calls = {"orientation": ("refine_orientation", dict(xmap=CrystalMap(rotations=start, shape=(n,)))),
+             "pc": ("refine_projection_center", dict(xmap=CrystalMap(rotations=truth, shape=(n,)), detector=bad)),
+             "joint": ("refine_orientation_projection_center",
+                       dict(xmap=CrystalMap(rotations=start, shape=(n,)), detector=bad))}
+    de = {}
+    for mode, (fn, kw) in calls.items():
+        call = getattr(static, fn)
+        kw = dict(kw, master_pattern=mp, trust_region=smoke.GLOBAL_TRUST[mode], method="de")
+        record, run = [], tr._differential_evolution
+        tr._differential_evolution = smoke.recording_de(record)
+        try:
+            call(**kw)
+            torch.cuda.synchronize()
+        finally:
+            tr._differential_evolution = run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(**kw)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call(**kw)
+            torch.cuda.synchronize()
+        _, events = smoke.device_busy(prof)
+        f_n = sum(cnt for k, cnt, _ in events if "refine_population_" in k)
+        f_ms = sum(t for k, _, t in events if "refine_population_" in k)
+        gens = [int(res.n_iter.max()) for _, _, res in record]
+        # A point runs until it converges: at generation t (1, 2, ...) the
+        # points with n_iter >= t run.
+        shares = [[float((res.n_iter >= t).float().mean()) for t in range(1, g + 1)]
+                  for (_, _, res), g in zip(record, gens)]
+        points = [int(res.n_iter.shape[0]) for _, _, res in record]
+        live_pg = sum(sum(sh) * k for sh, k in zip(shares, points))
+        all_pg = sum(len(sh) * k for sh, k in zip(shares, points))
+        de[mode] = {"calls": len(record), "generations": gens, "live_share_first_call": [round(v, 4) for v in shares[0]],
+                    "live_point_generations": live_pg, "point_generations": all_pg,
+                    "live_share": live_pg / max(all_pg, 1), "kernel_f_launches": f_n, "kernel_f_ms": f_ms,
+                    "kernel_f_ms_a_launch": f_ms / max(f_n, 1), "call_ms": call_ms, "card": card()}
+        if hasattr(rp, "GROUPS"):
+            de[mode]["replay_by_group"] = _replay_by_group(smoke, rp, record, profile, ProfilerActivity)
+        for i, (_, _, res) in enumerate(record):
+            outputs[f"de {mode} {i}"] = {k: getattr(res, k).cpu() for k in ("x", "fun", "n_iter", "converged")}
+    if save is not None:
+        save.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, save)
+    agreement = None
+    if against is not None and against.exists():
+        theirs = torch.load(against)
+        agreement = {}
+        for name, got in outputs.items():
+            ref = theirs.get(name)
+            if ref is None:
+                agreement[name] = None
+            elif isinstance(got, dict):
+                agreement[name] = {k: bool(torch.equal(got[k], ref[k])) for k in got}
+            else:
+                agreement[name] = {"bit_for_bit": bool(torch.equal(got, ref)),
+                                   "max_abs_diff": float((got - ref).abs().max())}
+        agreement["all_bit_for_bit"] = all(all(v.values()) if "bit_for_bit" not in v else v["bit_for_bit"]
+                                           for v in agreement.values() if isinstance(v, dict))
+    print(json.dumps({"tree": str(tree), "card": smoke.smi_line(), "times": times, "de": de,
+                      "against": None if against is None else str(against), "agreement": agreement}), flush=True)
+
+
 def pole_set_inputs(n: int, n_poles: int, seed: int = 0):
     """Kernel H's inputs for a set of ``n_poles`` random unit poles, on the
     card: ``n`` patterns of 9 band normals (9 poles, drawn with replacement,
@@ -635,6 +809,7 @@ def main(argv=None) -> int:
     parser.add_argument("--against", type=Path, default=None)
     parser.add_argument("--float64", action="store_true")
     parser.add_argument("--lm", action="store_true")
+    parser.add_argument("--population", action="store_true")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -657,6 +832,9 @@ def main(argv=None) -> int:
         return 0
     if args.lm:
         lm(args.tree, args.reps, args.save, args.against)
+        return 0
+    if args.population:
+        population(args.tree, args.reps, args.save, args.against)
         return 0
     ops = operands(args.tree)
     smoke, nt = ops["smoke"], ops["nt"]

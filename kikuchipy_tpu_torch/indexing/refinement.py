@@ -349,7 +349,8 @@ def _derivative_free(method, evaluate, minimize, x0, lb, ub, trust_region, initi
     iterations) in the box ``[lb, ub]``, then a Nelder-Mead polish of their
     winner from ``polish_step`` for 50 iterations; ``"bh"`` (8 hops of
     ``bh_step``, the optional box); ``"shgo"`` (the box). ``evaluate`` is the
-    mode's population objective (kernel F on the card), ``minimize`` its
+    mode's population objective (kernel F on the card; DE passes it each
+    generation's running points as ``live``), ``minimize`` its
     Nelder-Mead wrapper (the Nelder-Mead kernel on the card) with
     :func:`~kikuchipy_tpu_torch.utils.optimize.nelder_mead_batched`'s
     keywords. Returns the result (``x``, ``fun``, ``n_iter``) and the global
@@ -990,7 +991,8 @@ def refine_orientation(
     bh_step = np.deg2rad(float(np.max(trust_region))) / 2.0 if trust_region is not None else np.deg2rad(1.0)
     obj = (exp, sq_norm, dc.contiguous(), quad, npx, npy, scale)
     res, n_global = _derivative_free(
-        method, lambda x: population_orientation(x, *obj), lambda x, **kw: nelder_mead_orientation(x, *obj, **kw),
+        method, lambda x, live=None: population_orientation(x, *obj, live=live),
+        lambda x, **kw: nelder_mead_orientation(x, *obj, **kw),
         torch.as_tensor(euler0, dtype=_f32, device=dev), lb, ub, trust_region, np.deg2rad(1.0), np.deg2rad(0.25),
         max_iters, rtol, 1e-4, 24, bh_step, " (_refinement.py:get_bound_constraints)",
     )
@@ -1106,7 +1108,7 @@ def refine_projection_center(
     bh_step = float(np.max(trust_region)) / 2.0 if trust_region is not None else 0.01
     obj = (exp, sq_norm, q0, quad, om, mask_take, npx, npy, scale, nrows, ncols)
     res, n_global = _derivative_free(
-        method, lambda x: population_projection_center(x, *obj),
+        method, lambda x, live=None: population_projection_center(x, *obj, live=live),
         lambda x, **kw: nelder_mead_projection_center(x, *obj, **kw), torch.as_tensor(pc0, device=dev), lb, ub,
         trust_region, 0.01, 0.0025, max_iters, rtol, 1e-5, 16, bh_step,
     )
@@ -1208,7 +1210,7 @@ def refine_orientation_projection_center(
              for deg, pc in ((1.0, 0.01), (0.25, 0.0025))]
     obj = (exp, sq_norm, quad, om, mask_take, npx, npy, scale, nrows, ncols)
     res, n_global = _derivative_free(
-        method, lambda x: population_orientation_projection_center(x, *obj),
+        method, lambda x, live=None: population_orientation_projection_center(x, *obj, live=live),
         lambda x, **kw: nelder_mead_orientation_projection_center(x, *obj, **kw), torch.as_tensor(x0, device=dev),
         lb, ub, trust_region, steps[0], steps[1], max_iters, rtol, 1e-5, 16, bh_step,
     )

@@ -498,10 +498,17 @@ def _box(lower_bounds, upper_bounds, x0, args: tuple):
 
 
 def _population(f, args, static_args):
-    """A population evaluation ``(n, M, d) -> (n, M)`` from the batched
-    ``f(x, *args, *static_args)``: one call a member, as JAX's ``lax.map``."""
+    """A population evaluation ``(n, M, d), live=None -> (n, M)`` from the
+    batched ``f(x, *args, *static_args)``: one call a member, as JAX's
+    ``lax.map``, every member computed and ``+inf`` on the points where the
+    ``(n,)`` bool ``live`` is false (kernel F's contract)."""
     extra = (*args, *static_args)
-    return lambda x: torch.stack([f(x[:, m], *extra) for m in range(x.shape[1])], dim=1)
+
+    def evaluate(x, live=None):
+        out = torch.stack([f(x[:, m], *extra) for m in range(x.shape[1])], dim=1)
+        return out if live is None else torch.where(live[:, None], out, torch.inf)
+
+    return evaluate
 
 
 def _local_nelder_mead(f, args, static_args):
@@ -521,8 +528,12 @@ def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
 def _differential_evolution(evaluate, lb, ub, x0, popsize: int, max_iters: int, tol: float, mutation: float,
                             recombination: float, seed: int) -> DEResult:
     """The loop of :func:`differential_evolution_batched` over a population
-    evaluation ``evaluate(x (n, M, d)) -> (n, M)``; ``lb``, ``ub`` ``(n,
-    d)`` float32, ``x0`` ``(n, d)`` or None. One host read a generation."""
+    evaluation ``evaluate(x (n, M, d), live=None) -> (n, M)``; ``lb``,
+    ``ub`` ``(n, d)`` float32, ``x0`` ``(n, d)`` or None. One host read a
+    generation. Each generation's trials are evaluated with ``live = ~done``:
+    no result reads a converged point's trials (JAX evaluates them for
+    lockstep uniformity and masks them out), so the evaluation may skip them
+    and give ``+inf``."""
     n, d = lb.shape
     dev = lb.device
     draws = _draws(seed, dev)
@@ -550,7 +561,7 @@ def _differential_evolution(evaluate, lb, ub, x0, popsize: int, max_iters: int, 
         cross = draws.uniform((n, popsize, d)) < recombination
         forced = draws.randint((n, popsize), d)[..., None] == coords
         trial = torch.clamp(torch.where(cross | forced, mutant, pop), lo, hi)
-        f_trial = evaluate(trial)
+        f_trial = evaluate(trial, live=~done)
         accept = (f_trial <= energies) & ~done[:, None]
         pop = torch.where(accept[..., None], trial, pop)
         energies = torch.where(accept, f_trial, energies)

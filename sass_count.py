@@ -16,7 +16,15 @@ B, F and the Nelder-Mead kernel) on the first, and ``project_pixel_pc``
 running sum, the pattern and row read back, the centring and two FMAs) in
 orientation and PC mode, with the tap cache (``_cache``) and without, less
 a frame that loads its input and three sums and stores the sums, plus the
-frame's stand-in additions. Then ``lambert_pixel_grad``:
+frame's stand-in additions. Then ``population_pixel``: one member-pixel of kernel F's member groups
+(``csrc/refine_population.cu`` ``evaluate_group``: ``pixel_value``, the
+pattern's store, the chain's sum, the pattern and row read back, the
+centring and two FMAs) in each mode, counted as ``nm_eval_pixel``; and
+``population_sums``: a thread's instructions for one group's three sums
+(``group_sum`` and ``group_sum2``: the butterfly over its G chains in
+registers and across lanes, the warps' sums through shared memory) at each
+group G, on a probe that loads its 3 G chains and stores one value (those
+counted too), once for the G members of a group. Then ``lambert_pixel_grad``:
 ``lambert_pixel_grad`` (kernel A's pixel and its gradient with respect to
 the rotated direction, the one pixel of kernel C and the
 Levenberg-Marquardt loop kernel) on the first frame, less the three
@@ -181,6 +189,51 @@ __global__ void probe_nm_frame_pix(const float2* __restrict__ pix, float* out, i
     out[n + p] = __fadd_rn(out[n + p], v);
     out[2 * n + p] = __fadd_rn(out[2 * n + p], v);
 }
+"""
+
+PROBE_POP = r"""
+#include "refine_population.cu"
+
+template <int kMode>
+__global__ void probe_pop_pixel(RotMatrix r, PcFrame fr, Objective ob, Point pt, float mean, float* sim, float* out,
+                                int n) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    float s = out[p], num = out[n + p], ss = out[2 * n + p];
+    const float v = pixel_value<kMode, false>(p, true, r, fr, pt, ob);
+    sim[p] = v;
+    s += v;
+    const float d = __fsub_rn(static_cast<volatile float*>(sim)[p], mean);
+    num = fmaf(pt.s_row[p], d, num);
+    ss = fmaf(d, d, ss);
+    out[p] = s;
+    out[n + p] = num;
+    out[2 * n + p] = ss;
+}
+
+template __global__ void probe_pop_pixel<kOrientation>(RotMatrix, PcFrame, Objective, Point, float, float*, float*, int);
+template __global__ void probe_pop_pixel<kPC>(RotMatrix, PcFrame, Objective, Point, float, float*, float*, int);
+template __global__ void probe_pop_pixel<kJoint>(RotMatrix, PcFrame, Objective, Point, float, float*, float*, int);
+
+template <int kG>
+__global__ void probe_pop_sums(float* out) {
+    __shared__ float scratch[2 * kG][kWarps];
+    float a[kG], b[kG], c[kG];
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+        a[k] = out[threadIdx.x + kThreads * k];
+        b[k] = out[threadIdx.x + kThreads * (kG + k)];
+        c[k] = out[threadIdx.x + kThreads * (2 * kG + k)];
+    }
+    const float m = group_sum<kG>(a, scratch);
+    group_sum2<kG>(b, c, scratch);
+    out[threadIdx.x] = __fadd_rn(__fadd_rn(m, b[0]), c[0]);
+}
+
+template __global__ void probe_pop_sums<1>(float*);
+template __global__ void probe_pop_sums<2>(float*);
+template __global__ void probe_pop_sums<4>(float*);
+template __global__ void probe_pop_sums<8>(float*);
 """
 
 # The tangent kernel's pixel in each mode: its value plus its d tangents
@@ -527,7 +580,8 @@ def count(build_dir: Path | None = None) -> dict:
     csrc = here / "kikuchipy_tpu_torch" / "csrc"
     funcs = {}
     jobs = []
-    for stem, text in (("sass_probe", PROBE), ("sass_probe_nm", PROBE_NM), ("sass_probe_lm", PROBE_LM),
+    for stem, text in (("sass_probe", PROBE), ("sass_probe_nm", PROBE_NM), ("sass_probe_pop", PROBE_POP),
+                       ("sass_probe_lm", PROBE_LM),
                        ("sass_probe_clahe", PROBE_CLAHE), ("sass_probe_background", PROBE_BACKGROUND),
                        ("sass_probe_hough", PROBE_HOUGH)):
         src = build_dir / f"{stem}.cu"
@@ -551,8 +605,8 @@ def count(build_dir: Path | None = None) -> dict:
             raise subprocess.CalledProcessError(proc.returncode, proc.args, log)
         sass = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], check=True, capture_output=True,
                               text=True).stdout
-        found = main_path(sass, skip_slow_calls=stem not in ("sass_probe", "sass_probe_nm", "sass_probe_lm",
-                                                             "sass_probe_clahe", "sass_probe_hough"))
+        found = main_path(sass, skip_slow_calls=stem not in ("sass_probe", "sass_probe_nm", "sass_probe_pop",
+                                                             "sass_probe_lm", "sass_probe_clahe", "sass_probe_hough"))
         if stem in PAIR_BUILDS:
             kernel = "19dynamic_pair_kernelILb0EE" if stem.startswith("background") else "17clahe_pair_kernel"
             hits = [ops for fname, ops in found.items() if kernel in fname]
@@ -583,6 +637,13 @@ def count(build_dir: Path | None = None) -> dict:
     for mode, code, frame, adds in (("orientation", 0, "17probe_nm_frame_dc", 2), ("pc", 1, "18probe_nm_frame_pix", 1)):
         for cache, suffix in ((1, "_cache"), (0, "")):
             nm_pixel[mode + suffix] = len(find(f"14probe_nm_pixelILi{code}ELb{cache}EE")) - len(find(frame)) + adds + 3
+    # Kernel F's member-pixel, counted as the Nelder-Mead pixel (joint mode's
+    # pixel is PC mode's code), and a group's sums at each G.
+    pop_pixel = {}
+    for mode, code, frame, adds in (("orientation", 0, "17probe_nm_frame_dc", 2), ("pc", 1, "18probe_nm_frame_pix", 1),
+                                    ("joint", 2, "18probe_nm_frame_pix", 1)):
+        pop_pixel[mode] = len(find(f"15probe_pop_pixelILi{code}E")) - len(find(frame)) + adds + 3
+    pop_sums = {G: len(find(f"14probe_pop_sumsILi{G}E")) for G in (1, 2, 4, 8)}
     lm = {mode: find(f"{len('probe_lm_' + mode)}probe_lm_{mode}") for mode in ("orientation", "pc", "joint")}
     lm_frame = {"orientation": dc_frame, "pc": pix_frame, "joint": pix_frame}
     lm_count = {mode: len(ops) - len(lm_frame[mode]) + (2 if mode == "orientation" else 1) - (6 if mode == "joint" else 3)
@@ -642,6 +703,8 @@ def count(build_dir: Path | None = None) -> dict:
         "project_pixel_pc": per_pixel_pc,
         "direction_cosine": per_pixel_pc - per_pixel,
         "nm_eval_pixel": nm_pixel,
+        "population_pixel": pop_pixel,
+        "population_sums": pop_sums,
         "project_pixel_ops": mix(project, dc_frame),
         "lambert_pixel_grad": per_pixel_grad,
         "lambert_pixel_grad_ops": mix(project_grad, dc_frame),

@@ -271,3 +271,26 @@ def test_shgo_equals_jax(with_x0):
     np.testing.assert_allclose(tres.fun.numpy(), np.asarray(jres.fun), atol=1e-6)
     np.testing.assert_array_equal(tres.n_iter.numpy(), np.asarray(jres.n_iter))
     np.testing.assert_array_equal(tres.converged.numpy(), np.asarray(jres.converged))
+
+
+def test_population_evaluation_gives_inf_where_live_is_false():
+    # The generic evaluation (objectives that are not a kernel) computes
+    # every member and gives +inf on the points that are not live, as
+    # kernel F's wrappers do, so the loops see the same numbers either way.
+    def f(x, scale):
+        return scale * (x**2).sum(dim=1)
+
+    x = torch.as_tensor(np.random.default_rng(2).normal(size=(6, 5, 3)), dtype=torch.float32)
+    evaluate = topt._population(f, (2.0,), ())
+    full = evaluate(x)
+    live = torch.tensor([True, False, True, True, False, False])
+    got = evaluate(x, live=live)
+    assert torch.equal(got[live], full[live]) and (got[~live] == torch.inf).all()
+    assert torch.equal(full, torch.stack([f(x[:, m], 2.0) for m in range(5)], dim=1))
+    # DE on the generic evaluation: its generations' live masks leave the
+    # result as it is without them.
+    lb, ub = -torch.ones((6, 3)), torch.ones((6, 3))
+    a = topt._differential_evolution(evaluate, lb, ub, None, 8, 40, 0.05, 0.8, 0.9, 0)
+    b = topt._differential_evolution(lambda x, live=None: evaluate(x), lb, ub, None, 8, 40, 0.05, 0.8, 0.9, 0)
+    for field in ("x", "fun", "n_iter", "converged"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field

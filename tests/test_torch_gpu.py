@@ -1903,7 +1903,14 @@ def test_spherical_refinement_leaves_the_tf32_flag_as_it_was(cuda):
 POP_TOL = 2e-6
 
 
-def _population_inputs(device, mode: str, case: str, M: int):
+# Spreads of a point's members about its start, (kind, degrees, PC units):
+# chip_smoke.py POP_SPREADS (a converging population, the timed generation,
+# a DE call's first population in the trust region).
+POP_SPREADS = {"sigma_0.1": ("normal", 0.1, 0.001), "sigma_0.5": ("normal", 0.5, 0.005),
+               "uniform_3": ("uniform", 3.0, 0.02)}
+
+
+def _population_inputs(device, mode: str, case: str, M: int, spread: str = "sigma_0.5"):
     """(wrapper, objective, plain, x (n, M, d), arguments) on the Nelder-Mead
     tests' inputs, the candidates spread about the starts."""
     from kikuchipy_tpu_torch.ops import refine_nm as rn
@@ -1914,18 +1921,21 @@ def _population_inputs(device, mode: str, case: str, M: int):
         args, _ = _nm_inputs(device, case)
         x0, args = args[0], args[1:]
         fns = (rp.population_orientation, rn.orientation_objective, rp.population_orientation_plain)
-        spread = torch.full((3,), np.deg2rad(0.5), device=device)
     else:
         _, _, x0, args, _ = _pc_inputs(device, mode, case)
         if mode == "pc":
             fns = (rp.population_projection_center, rn.pc_objective, rp.population_projection_center_plain)
-            spread = torch.full((3,), 0.005, device=device)
         else:
             fns = (rp.population_orientation_projection_center, rn.joint_objective,
                    rp.population_orientation_projection_center_plain)
-            spread = torch.tensor([np.deg2rad(0.5)] * 3 + [0.005] * 3, dtype=torch.float32, device=device)
+    kind, deg, pc = POP_SPREADS[spread]
+    scale = {"orientation": [np.deg2rad(deg)] * 3, "pc": [pc] * 3, "joint": [np.deg2rad(deg)] * 3 + [pc] * 3}[mode]
+    scale = torch.tensor(scale, dtype=torch.float32, device=device)
     n, d = x0.shape
-    noise = torch.randn((n, M, d), generator=gen, device=device) * spread
+    if kind == "normal":
+        noise = torch.randn((n, M, d), generator=gen, device=device) * scale
+    else:
+        noise = (torch.rand((n, M, d), generator=gen, device=device) * 2.0 - 1.0) * scale
     x = (x0[:, None, :] + noise).contiguous()
     x[:, 0] = x0  # the start is a member
     return (*fns, x, args)
@@ -1970,12 +1980,131 @@ def test_population_kernel_refuses_what_it_cannot_take(cuda):
     fn = rp._function()
     err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), 0, None, None, None,
              args[3].data_ptr(), out.data_ptr(), x.shape[0], 0, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0,
-             0.0, 1, torch.cuda.current_stream().cuda_stream)
+             0.0, 1, 1, None, None, torch.cuda.current_stream().cuda_stream)
     assert err != 0
     err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), None, 0, None, None, None, args[3].data_ptr(),
-             out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0, 0.0, 1,
+             out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0, 0.0, 1, 1, None, None,
              torch.cuda.current_stream().cuda_stream)
     assert err != 0
+    # ... a group that is not 1, 2, 4 or 8, and a live mask without its queue.
+    for group, live, queue in ((3, None, None), (16, None, None), (4, x.data_ptr(), None)):
+        err = fn(0, x.data_ptr(), args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(), 0, None, None, None,
+                 args[3].data_ptr(), out.data_ptr(), x.shape[0], 2, args[0].shape[1], 101, 101, 50.0, 0.0, 0.0, 0.0,
+                 0.0, 1, group, live, queue, torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+    with pytest.raises(ValueError, match="live must be"):
+        wrapper(x, *args, live=torch.ones(x.shape[0] + 1, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="one device"):
+        wrapper(x, *args, live=torch.ones(x.shape[0], dtype=torch.bool))
+
+
+def _forced_plan(monkeypatch, group):
+    """Kernel F's plan with its group forced to ``group`` (None: the plan's)."""
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    if group is not None:
+        plan = rp.population_plan
+        monkeypatch.setattr(rp, "population_plan", lambda P, M, mode="orientation": plan(P, M, mode, group))
+
+
+def _hold_population(wrapper, objective, plain, x, args, live=None, label=""):
+    """Kernel F against the objectives member by member (bit for bit, +inf
+    where ``live`` is false) and its plain version (POP_TOL)."""
+    from kikuchipy_tpu_torch.ops import lambert_project as lp
+
+    before = (wrapper.launches, lp.lambert_project_ncc.launches)
+    got = wrapper(x, *args, live=live)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1 and lp.lambert_project_ncc.launches == before[1]
+    n, M = x.shape[:2]
+    want = torch.stack([objective(x[:, m].contiguous(), *args) for m in range(M)], dim=1)
+    ref = plain(x, *args)
+    dead = torch.zeros(n, dtype=torch.bool, device=x.device) if live is None else ~live
+    print(f"{label}: equal to the objective on {float((got[~dead] == want[~dead]).float().mean()):.4f}; against the "
+          f"plain version {float((got - ref)[~dead].abs().max()) if bool((~dead).any()) else 0.0:.3e}")
+    assert got.shape == (n, M) and got.dtype == torch.float32
+    assert torch.equal(got[~dead], want[~dead]) and torch.isfinite(got[~dead]).all()
+    assert bool((got[dead] == torch.inf).all())
+    if bool((~dead).any()):
+        assert float((got - ref)[~dead].abs().max()) <= POP_TOL
+    assert torch.equal(got, plain(x, *args, live=live).where(dead[:, None], got))
+
+
+@pytest.mark.parametrize("mode, case", [("orientation", "shared"), ("orientation", "per_point"),
+                                        ("orientation", "over_budget"), ("pc", "masked"), ("pc", "over_budget"),
+                                        ("joint", "shared"), ("joint", "p1000")])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("M", [24, 65])
+def test_population_kernel_every_group_is_the_nelder_mead_objective(cuda, monkeypatch, mode, case, group, M):
+    # Every group the plan can choose, forced, on the resident and two-pass
+    # routes; M = 65 (SHGO's) ends in a partial group.
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    wrapper, objective, plain, x, args = _population_inputs(cuda, mode, case, M)
+    _forced_plan(monkeypatch, group)
+    plan = rp.population_plan(args[0].shape[1], M, mode)
+    assert plan.group == group and plan.route == ("two-pass" if case == "over_budget" else "resident")
+    _hold_population(wrapper, objective, plain, x, args, label=f"{mode} {case} G={group} M={M}")
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+@pytest.mark.parametrize("spread", list(POP_SPREADS))
+@pytest.mark.parametrize("group", [None, 1, 8])
+def test_population_kernel_at_every_spread(cuda, monkeypatch, mode, spread, group):
+    wrapper, objective, plain, x, args = _population_inputs(cuda, mode, "shared", 24, spread)
+    _forced_plan(monkeypatch, group)
+    _hold_population(wrapper, objective, plain, x, args, label=f"{mode} {spread} G={group}")
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+@pytest.mark.parametrize("mask", ["none", "alternate", "all_false", "one"])
+@pytest.mark.parametrize("group", [None, 1, 8])
+def test_population_kernel_live_masks(cuda, monkeypatch, mode, mask, group):
+    # Points that are not live get +inf and nothing of them is read; the
+    # live points' values are the unmasked launch's; the queue is left zero
+    # for the next launch, whatever the mask.
+    from kikuchipy_tpu_torch.ops import refine_population as rp
+
+    wrapper, objective, plain, x, args = _population_inputs(cuda, mode, "shared", 16)
+    _forced_plan(monkeypatch, group)
+    n = x.shape[0]
+    live = {"none": None, "alternate": torch.arange(n, device=cuda) % 2 == 1,
+            "all_false": torch.zeros(n, dtype=torch.bool, device=cuda),
+            "one": torch.arange(n, device=cuda) == n - 1}[mask]
+    _hold_population(wrapper, objective, plain, x, args, live, label=f"{mode} live {mask} G={group}")
+    for _ in range(2):  # twice: the queue set back to zero
+        got = wrapper(x, *args, live=live)
+        assert torch.equal(got, wrapper(x, *args, live=live))
+    if live is not None:
+        assert torch.equal(rp._queue(x.device), torch.zeros(2, dtype=torch.int32, device=cuda))
+        full = wrapper(x, *args)
+        assert torch.equal(got[live], full[live]) and bool((got[~live] == torch.inf).all())
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_de_with_the_live_mask_is_de_without_it_on_the_card(cuda, mode):
+    # Differential evolution on kernel F with each generation's live mask
+    # and with an evaluation that ignores it: the same run, bit for bit.
+    from kikuchipy_tpu_torch.utils import optimize as topt
+
+    wrapper, _, _, x, args = _population_inputs(cuda, mode, "shared", 1)
+    x0 = x[:, 0]
+    half = {"orientation": [np.deg2rad(3.0)] * 3, "pc": [0.02] * 3, "joint": [np.deg2rad(3.0)] * 3 + [0.02] * 3}[mode]
+    half = torch.tensor(half, dtype=torch.float32, device=cuda)
+    M = {"orientation": 24, "pc": 16, "joint": 16}[mode]
+    shares = []
+
+    def masked(x, live=None):
+        if live is not None:
+            shares.append(float(live.float().mean()))
+        return wrapper(x, *args, live=live)
+
+    runs = [topt._differential_evolution(fn, x0 - half, x0 + half, x0, M, 60, 0.02, 0.8, 0.9, 1)
+            for fn in (masked, lambda x, live=None: wrapper(x, *args))]
+    print(f"{mode}: live share by generation {[round(v, 3) for v in shares]}")
+    for field in ("x", "fun", "n_iter", "converged"):
+        assert torch.equal(getattr(runs[0], field), getattr(runs[1], field)), field
+    assert any(0.0 < v < 1.0 for v in shares)
 
 
 @pytest.mark.parametrize("fn", ["refine_orientation", "refine_projection_center",

@@ -158,6 +158,75 @@ def test_population_plain_is_the_host_loops_objective(state, mode, M, case):
     np.testing.assert_allclose(got.numpy(), jwant, atol=2e-6)
 
 
+def _mode_problem(state, mode: str, M: int, seed: int = 17):
+    """(wrapper, x (16, M, d), arguments) of ``mode`` on the state's scan,
+    the candidates spread about the starts."""
+    exp, sq, quad, npx, npy, scale, om, take, dc = _operands(state, False)
+    rng = np.random.default_rng(seed)
+    euler = tq.to_euler(torch.as_tensor(state["start"])).numpy()
+    euler = (euler[:, None, :] + rng.normal(scale=0.02, size=(16, M, 3))).astype(np.float32)
+    pcs = (np.asarray(PC) + np.asarray(OFF) + rng.normal(scale=0.01, size=(16, M, 3))).astype(np.float32)
+    if mode == "orientation":
+        return rp.population_orientation, torch.as_tensor(euler), (exp, sq, dc, quad, npx, npy, scale)
+    if mode == "pc":
+        q0 = torch.as_tensor(state["truth"], dtype=torch.float32)
+        return (rp.population_projection_center, torch.as_tensor(pcs),
+                (exp, sq, q0, quad, om, take, npx, npy, scale, 32, 32))
+    return (rp.population_orientation_projection_center, torch.as_tensor(np.concatenate([euler, pcs], axis=2)),
+            (exp, sq, quad, om, take, npx, npy, scale, 32, 32))
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+@pytest.mark.parametrize("mask", ["alternate", "none_live", "all_live", "one_live"])
+def test_population_plain_gives_inf_exactly_where_live_is_false(state, mode, mask):
+    wrapper, x, args = _mode_problem(state, mode, 3)
+    live = {"alternate": torch.arange(16) % 2 == 0, "none_live": torch.zeros(16, dtype=torch.bool),
+            "all_live": torch.ones(16, dtype=torch.bool), "one_live": torch.arange(16) == 5}[mask]
+    full = wrapper(x, *args)
+    got = wrapper(x, *args, live=live)
+    plain = getattr(rp, wrapper.__name__ + "_plain")(x, *args, live=live)
+    assert torch.equal(got, plain)
+    assert torch.isfinite(full).all()
+    assert torch.equal(torch.isinf(got), ~live[:, None].expand(16, 3)) and (got[~live] == torch.inf).all()
+    assert torch.equal(got[live], full[live])
+    with pytest.raises(ValueError, match="live must be"):
+        wrapper(x, *args, live=live[:4])
+    with pytest.raises(ValueError, match="live must be"):
+        wrapper(x, *args, live=live.to(torch.uint8))
+
+
+@pytest.mark.parametrize("mode", ["orientation", "pc", "joint"])
+def test_de_with_the_live_mask_is_de_without_it(state, mode):
+    # Differential evolution passes each generation's running points as
+    # `live`; no result reads a converged point's trials, so the run must
+    # be the one whose evaluation ignores the mask, bit for bit.
+    from kikuchipy_tpu_torch.utils import optimize as topt
+
+    M = {"orientation": 24, "pc": 16, "joint": 16}[mode]
+    wrapper, x, args = _mode_problem(state, mode, 1)
+    x0 = x[:, 0]
+    half = {"orientation": [np.deg2rad(3.0)] * 3, "pc": [0.02] * 3, "joint": [np.deg2rad(3.0)] * 3 + [0.02] * 3}[mode]
+    half = torch.as_tensor(half, dtype=torch.float32)
+    lb, ub = x0 - half, x0 + half
+    shares = []
+
+    def masked(x, live=None):
+        if live is not None:
+            shares.append(float(live.float().mean()))
+        return wrapper(x, *args, live=live)
+
+    def ignoring(x, live=None):
+        return wrapper(x, *args)
+
+    # tol 0.02: points converge at different generations within the run.
+    runs = [topt._differential_evolution(fn, lb, ub, x0, M, 40, 0.02, 0.8, 0.9, 3) for fn in (masked, ignoring)]
+    print(f"{mode}: live share by generation {[round(s, 3) for s in shares]}; generations "
+          f"{runs[0].n_iter.tolist()}")
+    for field in ("x", "fun", "n_iter", "converged"):
+        assert torch.equal(getattr(runs[0], field), getattr(runs[1], field)), field
+    assert any(0.0 < s < 1.0 for s in shares), shares  # the mask was exercised
+
+
 def test_population_wrappers_refuse_what_they_cannot_take(state):
     exp, sq, quad, npx, npy, scale, om, take, dc = _operands(state, False)
     x = torch.zeros((16, 2, 3))
